@@ -1,0 +1,78 @@
+"""The port stands alone: it imports with JAX blocked, no module of it (or
+chip_smoke.py) imports jax, flax or tf_yarn_tpu, and its entry points
+run on CUDA unless the caller asks for the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "tf_yarn_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_yarn_tpu")
+
+
+def _modules():
+    import tf_yarn_tpu_torch
+
+    return sorted(
+        info.name for info in pkgutil.walk_packages(
+            tf_yarn_tpu_torch.__path__, "tf_yarn_tpu_torch."))
+
+
+def test_package_imports_with_jax_blocked():
+    modules = _modules()
+    assert "tf_yarn_tpu_torch.serving.server" in modules
+    script = (
+        "import sys, importlib\n"
+        "for name in %r:\n"
+        "    sys.modules[name] = None\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok', len(%r))\n"
+    ) % (FORBIDDEN[:5], modules, modules)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    bad = [name for name in _imported_roots(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
+    from tf_yarn_tpu_torch import resolve_device
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tt.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tt.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tt.make_model(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert tt.Transformer(cfg, device="cpu").device == torch.device("cpu")

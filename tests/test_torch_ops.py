@@ -1,0 +1,175 @@
+"""The port's ops (tf_yarn_tpu_torch/ops) held against the JAX package.
+
+Each op's plain torch version gets the same seeded numpy inputs as its
+JAX counterpart; the JAX side runs its Pallas kernels in interpret mode
+on the CPU, as tests/test_ops.py does. The CUDA kernels themselves are
+held against the plain versions by tests/test_torch_kernels.py, which
+needs the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tf_yarn_tpu_torch.ops import attention as t_attention
+from tf_yarn_tpu_torch.ops import decode_attention as t_decode
+from tf_yarn_tpu_torch.ops import quantize as t_quantize
+from tf_yarn_tpu_torch.ops import rmsnorm as t_rmsnorm
+from tf_yarn_tpu_torch.models import generate as t_generate
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_rmsnorm_matches_jax_kernel():
+    from tf_yarn_tpu.ops.rmsnorm import rmsnorm
+
+    rng = np.random.RandomState(0)
+    x = (rng.randn(3, 5, 64) * 3).astype(np.float32)
+    scale = rng.randn(64).astype(np.float32)
+    expected = np.asarray(rmsnorm(jnp.asarray(x), jnp.asarray(scale), 1e-5))
+    got = t_rmsnorm.rmsnorm(_t(x), _t(scale), 1e-5)
+    np.testing.assert_allclose(got.numpy(), expected, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("magnitude", [1e-3, 1.0, 40.0])
+def test_quantize_int8_bit_equal_to_jax_kernel(magnitude):
+    from tf_yarn_tpu.ops.quantize import quantize_int8
+
+    rng = np.random.RandomState(1)
+    x = (rng.randn(4, 6, 128) * magnitude).astype(np.float32)
+    x[0, 0] = 0.0  # an all-zero row takes the 1e-8 floor
+    values, scales = quantize_int8(jnp.asarray(x))
+    got_v, got_s = t_quantize.quantize_int8(_t(x))
+    assert got_v.dtype == torch.int8 and got_s.shape == (4, 6, 1)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(values))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(scales))
+
+
+def test_quantize_rounds_half_to_even_and_refuses_stochastic():
+    x = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -2.5]])
+    values, scales = t_quantize.quantize_int8(x)
+    assert float(scales) == 1.0
+    assert values.tolist() == [[127, 0, 2, 2, 0, -2]]
+    with pytest.raises(ValueError, match="stochastic"):
+        t_quantize.quantize_int8(x, stochastic=True)
+
+
+def _paged_pool(rng, num_blocks, block_size, n_kv, head_dim):
+    x = rng.randn(num_blocks, block_size, n_kv, head_dim).astype(np.float32)
+    from tf_yarn_tpu_torch.ops.quantize import quantize_int8_reference
+
+    kq, ks = quantize_int8_reference(_t(x * 2.0))
+    vq, vs = quantize_int8_reference(_t(rng.randn(*x.shape).astype(np.float32)))
+    kq, ks, vq, vs = (a.numpy().copy() for a in (kq, ks, vq, vs))
+    # Trash block 0 holds garbage, NaN scales included: any position
+    # that reads it is dead and must not leak into the output.
+    ks[0] = np.nan
+    vs[0] = np.nan
+    return kq, ks, vq, vs
+
+
+def test_paged_window_attention_matches_jax_kernel():
+    """W = 3 windows over a shuffled pool with per-row scales; table
+    tails point at the NaN-garbage trash block."""
+    from tf_yarn_tpu.ops.decode_attention import paged_int8_window_attention
+
+    slots, width, n_heads, n_kv, head_dim = 3, 3, 8, 2, 32
+    block_size, max_blocks, num_blocks = 8, 5, 16
+    rng = np.random.RandomState(2)
+    kq, ks, vq, vs = _paged_pool(rng, num_blocks, block_size, n_kv, head_dim)
+    lengths = np.array([0, 9, 30], np.int32)
+    tables = np.zeros((slots, max_blocks), np.int32)
+    ids = rng.permutation(np.arange(1, num_blocks))
+    for s, length in enumerate(lengths):
+        used = -(-(int(length) + width) // block_size)
+        tables[s, :used] = ids[s * max_blocks:s * max_blocks + used]
+    q = rng.randn(slots, width, n_heads, head_dim).astype(np.float32)
+    expected = np.asarray(paged_int8_window_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks), jnp.asarray(vq),
+        jnp.asarray(vs), jnp.asarray(tables), jnp.asarray(lengths)))
+    got = t_decode.paged_int8_window_attention(
+        _t(q), _t(kq), _t(ks), _t(vq), _t(vs), _t(tables), _t(lengths))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), expected, atol=1e-5)
+    # The one-token form is the window at W = 1 with no length offset.
+    one = t_decode.paged_int8_decode_attention(
+        _t(q[:, 0]), _t(kq), _t(ks), _t(vq), _t(vs), _t(tables),
+        _t(lengths + 1))
+    np.testing.assert_allclose(one.numpy(), expected[:, 0], atol=1e-5)
+
+
+def test_paged_window_attention_rejects_per_block_scales():
+    pool = torch.zeros(4, 8, 2, 32, dtype=torch.int8)
+    scale = torch.ones(4, 1, 2, 1)
+    with pytest.raises(ValueError, match="per-row"):
+        t_decode.paged_int8_window_attention(
+            torch.zeros(1, 1, 4, 32), pool, scale, pool, scale,
+            torch.zeros(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+def test_xla_attention_matches_jax(offset):
+    from tf_yarn_tpu.ops.attention import xla_attention
+
+    rng = np.random.RandomState(3)
+    q = rng.randn(2, 6, 8, 16).astype(np.float32)
+    k = rng.randn(2, 6 + offset, 2, 16).astype(np.float32)
+    v = rng.randn(2, 6 + offset, 2, 16).astype(np.float32)
+    expected = np.asarray(xla_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        segment_offset=offset))
+    got = t_attention.xla_attention(_t(q), _t(k), _t(v), causal=True,
+                                    segment_offset=offset)
+    np.testing.assert_allclose(got.numpy(), expected, atol=1e-6)
+
+
+@pytest.mark.parametrize("top_k, top_p", [(5, None), (None, 0.7), (40, 0.9)])
+def test_sample_filter_masks_match_jax(monkeypatch, top_k, top_p):
+    """The logits the JAX `_sample` hands to `jax.random.categorical`
+    carry the top-k/top-p mask; the port's `filter_logits` must mask the
+    same entries."""
+    from tf_yarn_tpu.models import generate as j_generate
+
+    captured = {}
+
+    def spy(key, logits, axis=-1):
+        captured["logits"] = np.asarray(logits)
+        return jnp.zeros(logits.shape[:-1], jnp.int32)
+
+    monkeypatch.setattr(j_generate.jax.random, "categorical", spy)
+    logits = np.random.RandomState(4).randn(3, 64).astype(np.float32)
+    logits[1, 10] = logits[1, 11]  # a tie at the threshold survives both
+    j_generate._sample(jnp.asarray(logits), jax.random.PRNGKey(0), 0.8,
+                       top_k, top_p)
+    masked = t_generate.filter_logits(_t(logits), 0.8, top_k, top_p).numpy()
+    np.testing.assert_array_equal(masked <= -1e29,
+                                  captured["logits"] <= -1e29)
+    kept = masked > -1e29
+    np.testing.assert_allclose(masked[kept], captured["logits"][kept],
+                               rtol=1e-6)
+
+
+def test_greedy_sample_is_argmax_and_sampling_uses_the_generator():
+    logits = torch.randn(4, 32, generator=torch.Generator().manual_seed(0))
+    assert t_generate._sample(logits, None, 0.0, None).tolist() == \
+        logits.argmax(-1).tolist()
+    draws = [t_generate._sample(logits, torch.Generator().manual_seed(7),
+                                1.0, 8, 0.9).tolist() for _ in range(2)]
+    assert draws[0] == draws[1]
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = (t_rmsnorm.rmsnorm.launches, t_quantize.quantize_int8.launches,
+              t_decode.paged_int8_window_attention.launches)
+    x = torch.randn(2, 64)
+    t_rmsnorm.rmsnorm(x, torch.ones(64))
+    t_quantize.quantize_int8(x)
+    after = (t_rmsnorm.rmsnorm.launches, t_quantize.quantize_int8.launches,
+             t_decode.paged_int8_window_attention.launches)
+    assert after == before

@@ -1,0 +1,28 @@
+"""Device resolution for the port's entry points.
+
+The card is the default: an entry point given no device runs on CUDA,
+and raises when there is none. The CPU is used only when the caller
+asks for it (the CPU tests pass ``device="cpu"``), so a missing card
+never turns into a quiet, slow CPU run.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a CUDA device); an explicit
+    device is returned as a ``torch.device`` after the same check for
+    CUDA requests."""
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless "
+            "the caller passes device='cpu'"
+        )
+    if resolved.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {resolved}; use 'cuda' or 'cpu'")
+    return resolved

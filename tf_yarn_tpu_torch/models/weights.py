@@ -1,0 +1,95 @@
+"""Bridge from the JAX package's flax variables to the port's state dict.
+
+`from_flax(variables, config)` takes the variables of
+`tf_yarn_tpu.models.transformer.Transformer` — ``{"params": ...}`` or
+the inner params tree, leaves as numpy arrays (``np.asarray`` of jax
+arrays) — and returns a state dict for
+`tf_yarn_tpu_torch.models.transformer.Transformer`. It reads both layer
+layouts the JAX package writes (transformer.py:467-477, 519-522):
+
+* ``layers/block/...`` — `scan_layers=True`: every leaf carries a
+  leading layer axis, unstacked here;
+* ``layer_{i}/block/...`` — the unrolled loop.
+
+Dense kernels keep the JAX ``[in, out]`` layout (``"...d,df"``), which is
+the port's `Dense.kernel` layout too: nothing is transposed. Every leaf
+must be consumed and every port parameter filled, or it raises. The
+port imports no JAX: this module only walks nested mappings.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tf_yarn_tpu_torch.models.transformer import TransformerConfig
+
+# flax path under a block -> port name under `layers.{i}.`
+_BLOCK_LEAVES = {
+    "attn_norm/scale": "attn_norm.scale",
+    "attn/wq/kernel": "attn.wq.kernel",
+    "attn/wk/kernel": "attn.wk.kernel",
+    "attn/wv/kernel": "attn.wv.kernel",
+    "attn/wo/kernel": "attn.wo.kernel",
+    "mlp_norm/scale": "mlp_norm.scale",
+    "mlp/w_gate/kernel": "mlp.w_gate.kernel",
+    "mlp/w_up/kernel": "mlp.w_up.kernel",
+    "mlp/w_down/kernel": "mlp.w_down.kernel",
+}
+_TOP_LEAVES = {
+    "embedding": "embedding",
+    "lm_head": "lm_head",
+    "final_norm/scale": "final_norm.scale",
+}
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path + "/"))
+        else:
+            out[path] = np.asarray(getattr(value, "value", value))
+    return out
+
+
+def from_flax(variables, config: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """The port's state dict (f32 CPU tensors; `load_state_dict` casts
+    them to each parameter's dtype and device)."""
+    params = variables.get("params", variables)
+    flat = _flatten(params)
+    state: Dict[str, torch.Tensor] = {}
+
+    def take(path: str) -> np.ndarray:
+        try:
+            return flat.pop(path)
+        except KeyError:
+            raise KeyError(f"flax variables have no leaf {path!r}") from None
+
+    for path, name in _TOP_LEAVES.items():
+        state[name] = torch.from_numpy(np.array(take(path), np.float32))
+    scanned = any(path.startswith("layers/block/") for path in flat)
+    for path, name in _BLOCK_LEAVES.items():
+        if scanned:
+            stacked = take(f"layers/block/{path}")
+            if stacked.shape[0] != config.n_layers:
+                raise ValueError(
+                    f"layers/block/{path} stacks {stacked.shape[0]} layers, "
+                    f"config has {config.n_layers}"
+                )
+            layers = list(stacked)
+        else:
+            layers = [take(f"layer_{i}/block/{path}")
+                      for i in range(config.n_layers)]
+        for i, leaf in enumerate(layers):
+            state[f"layers.{i}.{name}"] = torch.from_numpy(
+                np.array(leaf, np.float32))
+    if flat:
+        raise ValueError(
+            f"flax leaves the port has no parameter for: {sorted(flat)}"
+        )
+    return state

@@ -1,0 +1,614 @@
+"""Continuous-batching slot scheduler — counterpart of
+tf_yarn_tpu/serving/scheduler.py, restricted to the paged KV layout with
+fused decode attention.
+
+A fixed grid of ``max_slots`` decode slots over ONE global pool of
+int8 KV blocks plus per-slot block tables. Every tick:
+
+1. **retire** active slots whose per-request deadline passed;
+2. **admit** queued requests into free slots: reserve every block the
+   request can need (prompt + max_new - 1 tokens) up front, sharing a
+   cached prompt prefix when one matches (the prefix cache), else
+   prefill the prompt through the engine's bucketed prefill
+   (`slot_prefill_len` leaves the last prompt token to replay) and
+   splice it into the slot's blocks; a request the pool cannot cover
+   yet is HELD until retirements free blocks;
+3. **step** every slot through the engine's fused paged window step at
+   width 1 (``spec_k = 0``): replaying slots feed their next prompt
+   token, decoding slots their last emission, free slots ride along
+   masked off (their writes land in the trash block);
+4. **retire** slots that emitted their eos or hit max_new_tokens,
+   releasing their blocks — reusable on the very next tick.
+
+Per-slot sampling state is a `torch.Generator` seeded with the request's
+seed at admission (the JAX package's per-slot PRNGKey rows). The
+constructor raises NotImplementedError, naming the ROADMAP item, for
+what is not ported yet: the dense layout, the gather attention mode,
+speculative drafting (``spec_k > 0``), chunked prefill, the host swap
+tier (``kv_host_blocks > 0``) and tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import threading
+import time
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.models.spec import make_drafter, plan_window
+from tf_yarn_tpu_torch.serving.paging import BlockPool, PrefixCache
+from tf_yarn_tpu_torch.serving.request import (
+    DEFAULT_TIER,
+    FINISH_DEADLINE,
+    FINISH_EOS,
+    FINISH_ERROR,
+    FINISH_LENGTH,
+    FINISH_SHUTDOWN,
+    AdmissionQueue,
+    QueueFull,
+    Request,
+    Response,
+    RetryAfterEstimator,
+    SamplingParams,
+    tier_rank,
+)
+
+_logger = logging.getLogger(__name__)
+
+IDLE_POLL_S = 0.05
+_SERVING_ITEM = "ROADMAP.md Queue 1, serving"
+
+
+class _Slot:
+    """Host-side state of one occupied decode slot; a non-empty
+    ``pending`` deque means the slot is still replaying its prompt."""
+
+    __slots__ = ("request", "response", "pending", "last_token", "emitted",
+                 "blocks", "context", "last_emit_at")
+
+    def __init__(self, request: Request, response: Response,
+                 pending: List[int], blocks: List[int]):
+        self.request = request
+        self.response = response
+        self.pending: Deque[int] = collections.deque(pending)
+        self.last_token = 0
+        self.emitted = 0
+        self.blocks = blocks
+        self.context: List[int] = list(request.prompt)
+        self.last_emit_at: Optional[float] = None
+
+
+def _not_ported(what: str, item: str = _SERVING_ITEM):
+    raise NotImplementedError(f"{what} is still to port ({item})")
+
+
+class SlotScheduler:
+    """Continuous batching over a fixed slot grid (module docstring).
+
+    `temperature`/`top_k`/`top_p` configure the grid; requests whose
+    SamplingParams disagree are rejected at submit (the HTTP 400).
+    ``block_size`` tokens per KV block; ``num_blocks`` physical blocks
+    (default: the dense-equivalent ``max_slots * max_seq_len /
+    block_size + 1``); ``prefix_cache_capacity`` shared-prefix entries
+    (0 disables sharing)."""
+
+    def __init__(
+        self,
+        engine,
+        max_slots: int = 8,
+        *,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        queue_capacity: int = 64,
+        retry_after_s: float = 1.0,
+        trace_len: int = 4096,
+        kv_layout: str = "paged",
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        prefix_cache_capacity: int = 256,
+        max_seq_len: Optional[int] = None,
+        spec_k: int = 0,
+        spec_draft=None,
+        decode_attention: str = "fused",
+        prefill_chunk=None,
+        prefill_budget_per_tick: Optional[int] = None,
+        kv_host_blocks: int = 0,
+        tier_caps: Optional[Dict[str, int]] = None,
+    ):
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if kv_layout != "paged":
+            _not_ported(f"kv_layout={kv_layout!r} (the dense slot grid)")
+        if decode_attention != "fused":
+            _not_ported(f"decode_attention={decode_attention!r}",
+                        "ROADMAP.md Queue 1, decode engine")
+        if spec_k:
+            _not_ported("speculative decoding (spec_k > 0)",
+                        "ROADMAP.md Queue 1, decode engine")
+        if prefill_chunk not in (None, 0) or prefill_budget_per_tick is not None:
+            _not_ported("chunked prefill (prefill_chunk, "
+                        "prefill_budget_per_tick)")
+        if kv_host_blocks:
+            _not_ported("the host swap tier (kv_host_blocks > 0)")
+        if int(getattr(engine, "tp_degree", 1) or 1) > 1:
+            _not_ported("tensor-parallel serving",
+                        "ROADMAP.md Queue 1, parallelism")
+        self.engine = engine
+        self.max_slots = max_slots
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.kv_layout = kv_layout
+        self.spec_k = 0
+        self.decode_attention = decode_attention
+        self._drafter = make_drafter(spec_draft)
+        # The fused tick is the windowed program at width spec_k + 1.
+        self._window_width = 1
+        self._prefill_tokens = 0
+        self._decode_tokens = 0
+        self.tier_caps: Dict[str, int] = {}
+        for name, cap in dict(tier_caps or {}).items():
+            tier_rank(name)
+            if int(cap) < 0:
+                raise ValueError(f"tier_caps[{name!r}] must be >= 0, got {cap}")
+            self.tier_caps[name] = int(cap)
+        self._estimator = RetryAfterEstimator(floor_s=retry_after_s)
+        self.queue = AdmissionQueue(
+            queue_capacity, retry_after_s, estimator=self._estimator)
+        self._tier_lock = threading.Lock()
+        self._tier_inflight: Dict[str, int] = {}
+        self._generators: List[Optional[torch.Generator]] = [None] * max_slots
+        self._slots: List[Optional[_Slot]] = [None] * max_slots
+        self._free: Deque[int] = collections.deque(range(max_slots))
+        self._used_before = [False] * max_slots
+        self.trace: Deque[Dict] = collections.deque(maxlen=trace_len)
+        self._trace_ids: Dict[int, str] = {}
+        self._trace_id_lock = threading.Lock()
+        self._ticks = 0
+        self._draining = False
+        self._work = threading.Event()
+        self._stop = threading.Event()
+        self._lifecycle = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._registry = telemetry.get_registry()
+        if max_seq_len is None:
+            max_seq_len = engine.model.config.max_seq_len
+        self._max_seq_len = int(max_seq_len)
+        self._held: Optional[Tuple[Request, Response]] = None
+        if self._max_seq_len % block_size:
+            raise ValueError(
+                f"block_size={block_size} must divide "
+                f"max_seq_len={self._max_seq_len}"
+            )
+        self._block_size = int(block_size)
+        self._blocks_per_slot = self._max_seq_len // self._block_size
+        if num_blocks is None:
+            num_blocks = max_slots * self._blocks_per_slot + 1
+        self._pool = engine.make_paged_pool(num_blocks, self._block_size)
+        self._blocks = BlockPool(num_blocks, self._block_size)
+        self._prefix = PrefixCache(self._blocks, prefix_cache_capacity)
+        self._tables = np.zeros((max_slots, self._blocks_per_slot), np.int32)
+        self._lengths = np.zeros((max_slots,), np.int32)
+        self._kv_bytes = self._pool.nbytes()
+        self._registry.gauge(
+            "serving/kv_cache_hbm_bytes", layout=kv_layout).set(self._kv_bytes)
+        self._registry.gauge("serving/tp_degree").set(1)
+
+    # -- submission (any thread) -------------------------------------------
+
+    @property
+    def context_limit(self) -> int:
+        """Max prompt + max_new_tokens this grid can serve."""
+        return self._max_seq_len - (self._window_width - 1)
+
+    def submit(self, prompt, params: Optional[SamplingParams] = None,
+               priority: int = 0, timeout_s: Optional[float] = None,
+               tier: str = DEFAULT_TIER, trace_id: Optional[str] = None
+               ) -> Response:
+        """Admit one request; returns its streaming Response. Raises
+        ValueError for requests this grid cannot serve and QueueFull when
+        the queue — or the request's tier cap — is full."""
+        params = params or SamplingParams(
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p)
+        if (params.temperature, params.top_k, params.top_p) != (
+                self.temperature, self.top_k, self.top_p):
+            raise ValueError(
+                "this serving grid runs temperature="
+                f"{self.temperature}, top_k={self.top_k}, "
+                f"top_p={self.top_p}; per-request sampling overrides are "
+                "not supported"
+            )
+        request = Request(prompt=tuple(prompt), params=params,
+                          priority=priority, timeout_s=timeout_s, tier=tier,
+                          trace_id=trace_id)
+        if len(request.prompt) + params.max_new_tokens > self.context_limit:
+            raise ValueError(
+                f"prompt ({len(request.prompt)}) + max_new_tokens "
+                f"({params.max_new_tokens}) exceeds the model's max_seq_len "
+                f"({self._max_seq_len}) — the slot KV size"
+            )
+        need = self._blocks_needed(request)
+        if need > self._blocks.num_blocks - 1:
+            raise ValueError(
+                f"request needs {need} KV blocks but the pool holds "
+                f"{self._blocks.num_blocks - 1} — it can never be admitted; "
+                "raise num_blocks or shorten the request"
+            )
+        try:
+            with self._tier_lock:
+                cap = self.tier_caps.get(request.tier)
+                inflight = self._tier_inflight.get(request.tier, 0)
+                if cap is not None and inflight >= cap:
+                    raise QueueFull(inflight, self.queue.retry_hint(request))
+                response = self.queue.submit(request)
+                self._tier_inflight[request.tier] = inflight + 1
+        except Exception:
+            self._registry.counter("serving/requests_rejected_total").inc()
+            raise
+        if trace_id is not None:
+            with self._trace_id_lock:
+                self._trace_ids[request.id] = trace_id
+        self._registry.counter("serving/requests_total").inc()
+        self._registry.gauge("serving/queue_depth").set(self.queue.depth)
+        self._work.set()
+        return response
+
+    def _blocks_needed(self, request: Request) -> int:
+        total = len(request.prompt) + request.params.max_new_tokens - 1
+        return -(-total // self._block_size)
+
+    # -- the tick (scheduler thread) ----------------------------------------
+
+    def tick(self) -> bool:
+        """One scheduling round; returns whether any work happened."""
+        now = time.monotonic()
+        admitted: List[int] = []
+        retired: List = []
+        with telemetry.span("serving/tick") as tick_span:
+            with telemetry.span("serving/retire"):
+                self._retire_deadlines(now, retired)
+            with telemetry.span("serving/admit"):
+                self._admit(now, admitted)
+            active = [s for s in range(self.max_slots) if self._slots[s]]
+            accepts = None
+            if active:
+                with telemetry.span("serving/step", active=len(active)):
+                    accepts = self._step_window(active, retired)
+        worked = bool(active or admitted or retired)
+        if worked:
+            self._ticks += 1
+            self._registry.histogram("serving/tick_seconds").observe(
+                tick_span.duration)
+            self._registry.counter("serving/ticks_total").inc()
+            entry = {
+                "tick": self._ticks,
+                "admitted": admitted,
+                "retired": [(rid, reason) for rid, reason in retired],
+                "active": len([s for s in self._slots if s is not None]),
+                "queued": self.queue.depth,
+            }
+            if accepts is not None:
+                entry["accepted"] = accepts
+            touched = set(admitted)
+            touched.update(rid for rid, _ in retired)
+            if touched:
+                with self._trace_id_lock:
+                    trace_map = {rid: self._trace_ids[rid]
+                                 for rid in touched if rid in self._trace_ids}
+                    for rid, _ in retired:
+                        self._trace_ids.pop(rid, None)
+                if trace_map:
+                    entry["trace"] = trace_map
+            self.trace.append(entry)
+        self._registry.gauge("serving/active_slots").set(
+            len([s for s in self._slots if s is not None]))
+        self._registry.gauge("serving/free_slots").set(len(self._free))
+        self._registry.gauge("serving/queue_depth").set(self.queue.depth)
+        self._registry.gauge("serving/block_pool_used_blocks").set(
+            self._blocks.used_blocks)
+        self._registry.gauge("serving/block_pool_free_blocks").set(
+            self._blocks.free_blocks)
+        self._registry.gauge("serving/prefix_cache_entries").set(
+            self._prefix.entries)
+        self._registry.gauge("serving/prefix_cache_blocks").set(
+            self._prefix.cached_blocks)
+        self._registry.gauge("serving/prefix_cache_hit_rate").set(
+            self._prefix.hit_rate)
+        return worked
+
+    def _retire_deadlines(self, now: float, retired: List) -> None:
+        for slot in range(self.max_slots):
+            state = self._slots[slot]
+            if state is not None and state.request.expired(now):
+                self._retire(slot, FINISH_DEADLINE, retired)
+
+    def _finish_unadmitted(self, response: Response, reason: str) -> None:
+        self._tier_dec(response.request)
+        response._finish(reason)
+        self._registry.counter(
+            "serving/requests_completed_total", reason=reason).inc()
+
+    def _tier_dec(self, request: Request) -> None:
+        with self._tier_lock:
+            count = self._tier_inflight.get(request.tier, 0)
+            if count > 0:
+                self._tier_inflight[request.tier] = count - 1
+
+    def _admit(self, now: float, admitted: List[int]) -> None:
+        while self._free:
+            if self._held is not None:
+                item, self._held = self._held, None
+            else:
+                item = self.queue.pop()
+            if item is None:
+                break
+            request, response = item
+            if request.expired(now):
+                self._finish_unadmitted(response, FINISH_DEADLINE)
+                continue
+            if not self._admit_paged(request, response, now, admitted):
+                # Hold the FIFO head until retirements free blocks.
+                self._held = (request, response)
+                break
+
+    def _admit_paged(self, request: Request, response: Response,
+                     now: float, admitted: List[int]) -> bool:
+        """Reserve blocks (sharing a cached prefix when one matches),
+        prefill-or-replay, and install the block table. False — without
+        consuming a slot — when the pool cannot cover the request yet."""
+        prompt = request.prompt
+        n_total = self._blocks_needed(request)
+        hit_tokens, hit_ids = self._prefix.lookup(prompt, len(prompt) - 1)
+        if hit_ids:
+            self._blocks.retain(hit_ids)
+        need = n_total - len(hit_ids)
+        if need > self._blocks.free_blocks:
+            self._prefix.evict_for(need)
+        owned = self._blocks.allocate(need)
+        if owned is None:
+            if hit_ids:
+                self._blocks.release(hit_ids)
+            return False
+        blocks = hit_ids + owned
+        slot = self._free.popleft()
+        if hit_tokens:
+            prefill_len = hit_tokens
+            self._registry.counter("serving/prefix_cache_hits_total").inc()
+        else:
+            prefill_len = self.engine.slot_prefill_len(len(prompt))
+            with telemetry.span("serving/prefill", request=request.id,
+                                prefill=prefill_len):
+                if prefill_len > 0:
+                    row_cache, _logits = self.engine.prefill(
+                        np.asarray(prompt[:prefill_len], np.int32)[None, :])
+                    n_pack = -(-prefill_len // self._block_size)
+                    self._pool = self.engine.pack_prefill(
+                        self._pool, np.asarray(blocks[:n_pack], np.int32),
+                        row_cache, prefill_len, self._block_size)
+                    self._prefix.register(prompt, prefill_len, blocks)
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(blocks)] = blocks
+        self._lengths[slot] = prefill_len
+        self._slots[slot] = _Slot(request, response, list(prompt[prefill_len:]),
+                                  blocks)
+        self._registry.histogram("serving/queue_wait_seconds").observe(
+            now - request.submitted_at)
+        if self._used_before[slot]:
+            self._registry.counter("serving/slot_reuse_total").inc()
+        self._used_before[slot] = True
+        generator = torch.Generator(device=self.engine.device)
+        generator.manual_seed(int(request.params.seed))
+        self._generators[slot] = generator
+        admitted.append(request.id)
+        self._registry.counter("serving/requests_admitted_total").inc()
+        return True
+
+    def _observe_ttft(self, state: _Slot) -> None:
+        ttft = state.response.ttft_s
+        self._registry.histogram("serving/ttft_seconds").observe(ttft)
+        self._registry.histogram(
+            "serving/ttft_seconds", tier=state.request.tier).observe(ttft)
+
+    def _step_window(self, active: List[int], retired: List) -> Dict[int, int]:
+        """The fused window tick: ONE engine step advances every slot
+        (width 1: one replayed prompt token or one emission). Returns
+        {request id: tokens emitted} for the trace ring."""
+        width = self._window_width
+        tokens = np.full((self.max_slots, width), -1, np.int32)
+        n_known = np.zeros((self.max_slots,), np.int32)
+        eos_ids = np.full((self.max_slots,), -1, np.int32)
+        mask = np.zeros((self.max_slots,), bool)
+        consumed: Dict[int, int] = {}
+        for slot in active:
+            state = self._slots[slot]
+            max_emit = state.request.params.max_new_tokens - state.emitted
+            window, known, _n_prop = plan_window(
+                state.pending, state.last_token, width, max_emit,
+                state.context, self._drafter, max_drafts=self.spec_k)
+            tokens[slot] = window
+            n_known[slot] = known
+            eos = state.request.params.eos_token
+            eos_ids[slot] = -1 if eos is None else eos
+            mask[slot] = True
+            consumed[slot] = min(len(state.pending), width)
+        self._pool, emitted, counts, self._generators = \
+            self.engine.paged_spec_step(
+                self._pool, self._tables, self._lengths, tokens, n_known,
+                eos_ids, self._generators, mask,
+                block_size=self._block_size, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p,
+                decode_attention=self.decode_attention)
+        now = time.monotonic()
+        prefill_tokens = 0
+        decode_tokens = 0
+        accepts: Dict[int, int] = {}
+        for slot in active:
+            state = self._slots[slot]
+            for _ in range(consumed[slot]):
+                state.pending.popleft()
+            prefill_tokens += consumed[slot]
+            n = int(counts[slot])
+            decode_tokens += n
+            # Valid rows this tick: the replayed prefix + the emissions.
+            self._lengths[slot] += int(n_known[slot]) + n
+            if n:
+                accepts[state.request.id] = n
+            for j in range(n):
+                token = int(emitted[slot, j])
+                state.last_token = token
+                state.emitted += 1
+                state.context.append(token)
+                first = state.response.first_token_at is None
+                state.response._push(token)
+                if first:
+                    self._observe_ttft(state)
+                elif state.last_emit_at is not None:
+                    self._registry.histogram(
+                        "serving/inter_token_latency_ms"
+                    ).observe((now - state.last_emit_at) * 1e3)
+                state.last_emit_at = now
+                self._registry.counter("serving/tokens_generated_total").inc()
+                eos = state.request.params.eos_token
+                if eos is not None and token == eos:
+                    self._retire(slot, FINISH_EOS, retired)
+                    break
+                if state.emitted >= state.request.params.max_new_tokens:
+                    self._retire(slot, FINISH_LENGTH, retired)
+                    break
+        self._prefill_tokens += prefill_tokens
+        self._decode_tokens += decode_tokens
+        if prefill_tokens:
+            self._registry.counter("serving/prefill_tokens_total").inc(
+                prefill_tokens)
+        if decode_tokens:
+            self._registry.counter("serving/decode_tokens_total").inc(
+                decode_tokens)
+        return accepts
+
+    def _retire(self, slot: int, reason: str, retired: List) -> None:
+        state = self._slots[slot]
+        self._slots[slot] = None
+        self._free.append(slot)
+        self._generators[slot] = None
+        # O(blocks) bookkeeping: shared prefix blocks survive on the
+        # cache's own reference; stale pool rows need no zeroing.
+        self._blocks.release(state.blocks)
+        self._tables[slot, :] = 0
+        self._lengths[slot] = 0
+        self._tier_dec(state.request)
+        self._estimator.record_retire(state.request.tier)
+        state.response._finish(reason)
+        retired.append((state.request.id, reason))
+        self._registry.counter(
+            "serving/requests_completed_total", reason=reason).inc()
+        self._registry.histogram("serving/request_seconds").observe(
+            time.monotonic() - state.request.submitted_at)
+
+    # -- loop ---------------------------------------------------------------
+
+    def start(self) -> None:
+        with self._lifecycle:
+            if self._thread is not None:
+                raise RuntimeError("scheduler already started")
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="serving-scheduler", daemon=True)
+            self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                worked = self.tick()
+            except Exception:
+                # A tick must never kill the serving loop: fail the
+                # in-flight work visibly and keep serving.
+                _logger.exception(
+                    "scheduler tick failed; failing in-flight requests")
+                self._registry.counter("serving/tick_errors_total").inc()
+                self._fail_inflight(FINISH_ERROR)
+                continue
+            if not worked:
+                self._work.wait(IDLE_POLL_S)
+                self._work.clear()
+
+    def _fail_inflight(self, reason: str) -> None:
+        if self._held is not None:
+            _request, response = self._held
+            self._held = None
+            self._finish_unadmitted(response, reason)
+        for _request, response in self.queue.drain():
+            self._finish_unadmitted(response, reason)
+        retired: List = []
+        for slot in range(self.max_slots):
+            if self._slots[slot] is not None:
+                self._retire(slot, reason, retired)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain(self) -> None:
+        """Mark the grid as draining (surfaced in /healthz and /stats);
+        scheduling continues until `close()`."""
+        self._draining = True
+
+    def close(self) -> None:
+        """Stop the loop; fail queued and in-flight requests as
+        `shutdown` so no client blocks forever on a dead grid."""
+        self._draining = True
+        self._stop.set()
+        self._work.set()
+        with self._lifecycle:
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=30.0)
+        self._fail_inflight(FINISH_SHUTDOWN)
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> Dict:
+        """Host-side snapshot for /stats."""
+        with self._tier_lock:
+            tier_inflight = {tier: count for tier, count
+                             in self._tier_inflight.items() if count}
+        return {
+            "max_slots": self.max_slots,
+            "active_slots": len([s for s in self._slots if s is not None]),
+            "free_slots": len(self._free),
+            "queue_depth": self.queue.depth,
+            "queue_capacity": self.queue.capacity,
+            "ticks": self._ticks,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "kv_layout": self.kv_layout,
+            "kv_cache_hbm_bytes": self._kv_bytes,
+            "tp_degree": 1,
+            "draining": self._draining,
+            "spec_k": self.spec_k,
+            "decode_attention": self.decode_attention,
+            "prefill_tokens": self._prefill_tokens,
+            "decode_tokens": self._decode_tokens,
+            "retire_rate_per_s": round(self._estimator.retire_rate(), 4),
+            "tiers": {"inflight": tier_inflight, "caps": dict(self.tier_caps)},
+            "block_size": self._block_size,
+            "block_pool": {
+                "num_blocks": self._blocks.num_blocks,
+                "used_blocks": self._blocks.used_blocks,
+                "free_blocks": self._blocks.free_blocks,
+            },
+            "prefix_cache": {
+                "entries": self._prefix.entries,
+                "cached_blocks": self._prefix.cached_blocks,
+                "hits": self._prefix.hits,
+                "misses": self._prefix.misses,
+                "hit_rate": round(self._prefix.hit_rate, 4),
+            },
+            "decode_engine": dict(self.engine.stats),
+        }

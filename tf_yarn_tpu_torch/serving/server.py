@@ -1,0 +1,220 @@
+"""Threaded HTTP JSON frontend — counterpart of
+tf_yarn_tpu/serving/server.py (`ServingServer`).
+
+Stdlib only (`http.server`), the same wire protocol as the JAX package:
+
+* ``POST /v1/generate`` — body ``{"prompt": [ids], "max_new_tokens": N,
+  "seed": S, "eos_token": E, "priority": P, "timeout_s": T, "tier":
+  "interactive"|"standard"|"batch", "stream": bool}``. Non-streamed: one
+  JSON reply with the token list. ``"stream": true``: chunked, one JSON
+  line per token, closed by a ``{"done": true, ...}`` line. A full
+  admission queue (or tier cap) answers 429 with ``Retry-After``; an
+  unservable request answers 400.
+* ``GET /healthz`` — liveness (``ok`` or ``draining``).
+* ``GET /stats`` — the scheduler snapshot plus the telemetry signals.
+* ``GET /metrics`` — Prometheus text exposition.
+
+The block wire (``/v1/blocks``), the prefill tier (``/v1/prefill``) and
+`run_serving` with checkpoint restore are still to port (ROADMAP.md
+Queue 1, serving).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.serving.request import (
+    DEFAULT_TIER,
+    QueueFull,
+    SamplingParams,
+)
+from tf_yarn_tpu_torch.serving.scheduler import SlotScheduler
+
+_logger = logging.getLogger(__name__)
+
+
+class ServingServer:
+    """The HTTP frontend over one SlotScheduler; one thread per
+    connection, so a slow streaming client never blocks admissions."""
+
+    def __init__(self, scheduler: SlotScheduler, host: str = "127.0.0.1",
+                 port: int = 0, *, slo_evaluator=None):
+        self._httpd = ThreadingHTTPServer(
+            (host, port), _make_handler(scheduler, slo_evaluator))
+        self._httpd.daemon_threads = True
+        self._lifecycle = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.scheduler = scheduler
+        self.slo_evaluator = slo_evaluator
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def endpoint(self) -> str:
+        return f"{self._httpd.server_address[0]}:{self.port}"
+
+    def start(self) -> str:
+        with self._lifecycle:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._httpd.serve_forever, name="serving-http",
+                    daemon=True)
+                self._thread.start()
+        _logger.info("serving frontend listening on %s", self.endpoint)
+        return self.endpoint
+
+    def stop(self) -> None:
+        with self._lifecycle:
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            # shutdown() blocks forever unless serve_forever is running.
+            self._httpd.shutdown()
+            thread.join(timeout=10.0)
+        self._httpd.server_close()
+
+
+def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            _logger.debug("http %s", fmt % args)
+
+        def _json(self, status: int, payload: dict, headers=()) -> None:
+            body = (json.dumps(payload) + "\n").encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for key, value in headers:
+                self.send_header(key, value)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _chunk(self, payload: dict) -> None:
+            data = (json.dumps(payload) + "\n").encode()
+            self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+            self.wfile.flush()
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                snap = scheduler.stats()
+                self._json(200, {
+                    "schema_version": telemetry.STATS_SCHEMA_VERSION,
+                    "status": "draining" if snap["draining"] else "ok",
+                    "active_slots": snap["active_slots"],
+                    "queue_depth": snap["queue_depth"],
+                })
+            elif self.path == "/stats":
+                payload = {
+                    "schema_version": telemetry.STATS_SCHEMA_VERSION,
+                    **scheduler.stats(),
+                    "signals": telemetry.signals_block(
+                        prefixes=("serving/", "slo/", "telemetry/")),
+                }
+                if slo_evaluator is not None:
+                    payload["slo"] = slo_evaluator.report()
+                self._json(200, payload)
+            elif self.path == "/metrics":
+                body = telemetry.render_prometheus().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 telemetry.PROMETHEUS_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/v1/generate":
+                self._json(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                prompt = body["prompt"]
+                params = SamplingParams(
+                    max_new_tokens=int(body.get("max_new_tokens", 128)),
+                    temperature=float(
+                        body.get("temperature", scheduler.temperature)),
+                    top_k=body.get("top_k", scheduler.top_k),
+                    top_p=body.get("top_p", scheduler.top_p),
+                    seed=int(body.get("seed", 0)),
+                    eos_token=body.get("eos_token"),
+                )
+            except (KeyError, TypeError, ValueError) as exc:
+                self._json(400, {"error": f"bad request: {exc}"})
+                return
+            limit = scheduler.context_limit
+            if len(prompt) + params.max_new_tokens > limit:
+                self._json(400, {"error": (
+                    f"prompt ({len(prompt)}) + max_new_tokens "
+                    f"({params.max_new_tokens}) exceeds this server's "
+                    f"context limit ({limit})")})
+                return
+            timeout_s = body.get("timeout_s")
+            trace_id = self.headers.get("X-Request-Id") or None
+            try:
+                with telemetry.span("serving/submit", request_id=trace_id,
+                                    prompt_tokens=len(prompt)):
+                    response = scheduler.submit(
+                        prompt, params,
+                        priority=int(body.get("priority", 0)),
+                        timeout_s=timeout_s,
+                        tier=str(body.get("tier", DEFAULT_TIER)),
+                        trace_id=trace_id,
+                    )
+            except QueueFull as exc:
+                self._json(
+                    429, {"error": str(exc), "retry_after_s": exc.retry_after_s},
+                    headers=(("Retry-After",
+                              str(max(1, int(exc.retry_after_s)))),))
+                return
+            except ValueError as exc:
+                self._json(400, {"error": str(exc)})
+                return
+
+            if body.get("stream"):
+                self.send_response(200)
+                self.send_header("Content-Type", "application/jsonl")
+                self.send_header("Transfer-Encoding", "chunked")
+                if trace_id:
+                    self.send_header("X-Request-Id", trace_id)
+                self.end_headers()
+                try:
+                    for token in response.tokens():
+                        self._chunk({"token": token})
+                    self._chunk({
+                        "done": True,
+                        "finish_reason": response.finish_reason,
+                        "request_id": response.request.id,
+                        "n_tokens": len(response.result(timeout=0.0)),
+                    })
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    _logger.info("client dropped streaming request %d",
+                                 response.request.id)
+                return
+
+            wait = timeout_s + 5.0 if timeout_s else None
+            try:
+                tokens = response.result(timeout=wait)
+            except TimeoutError as exc:
+                self._json(504, {"error": str(exc)})
+                return
+            self._json(200, {
+                "tokens": tokens,
+                "finish_reason": response.finish_reason,
+                "request_id": response.request.id,
+                "ttft_s": response.ttft_s,
+            }, headers=((("X-Request-Id", trace_id),) if trace_id else ()))
+
+    return Handler

@@ -1,0 +1,176 @@
+"""Span tracer: nested, thread-aware host-side timing.
+
+Every host-side phase of serving (a scheduler tick, its admissions and
+prefills, the engine's step) is wrapped in a `span(...)` context
+manager. Spans are `perf_counter`-based (monotonic), nest per thread,
+and land in a bounded in-memory ring buffer, so tracing is always on
+and can never grow a long run's memory. `Tracer.export_chrome_trace`
+writes the buffer in Chrome ``trace_event`` format (open it in
+https://ui.perfetto.dev). Spans time the host's view of a phase
+(dispatch plus any synchronisation inside it), not device work; the
+device half is `torch.profiler`. The JAX package's environment-driven
+trace files belong to the run entry points, still to port (ROADMAP.md
+Queue 1, serving).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+DEFAULT_CAPACITY = 100_000
+
+_clock = time.perf_counter  # monotonic; patchable in tests
+
+
+class Span:
+    """One completed (or in-flight) span. Mutable: the context manager
+    hands it to the with-block so callers can read ``.duration`` right
+    after the block (the train loop's interval breakdown does)."""
+
+    __slots__ = ("name", "category", "args", "start", "duration",
+                 "thread_id", "thread_name", "depth", "parent")
+
+    def __init__(self, name: str, category: str, args: Dict[str, Any],
+                 depth: int, parent: Optional[str]) -> None:
+        self.name = name
+        self.category = category
+        self.args = args
+        self.depth = depth
+        self.parent = parent
+        thread = threading.current_thread()
+        self.thread_id = thread.ident or 0
+        self.thread_name = thread.name
+        self.duration = 0.0
+        self.start = _clock()
+
+
+class _SpanContext:
+    """Class-based context manager (not contextlib) so exceptions —
+    including StopIteration from a timed ``next()`` — propagate without
+    generator-throw subtleties."""
+
+    __slots__ = ("_tracer", "_name", "_category", "_args", "span")
+
+    def __init__(self, tracer: "Tracer", name: str, category: str,
+                 args: Dict[str, Any]) -> None:
+        self._tracer = tracer
+        self._name = name
+        self._category = category
+        self._args = args
+
+    def __enter__(self) -> Span:
+        self.span = self._tracer._begin(self._name, self._category, self._args)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._tracer._end(self.span, error=exc_type is not None)
+        return False
+
+
+class Tracer:
+    """Ring-buffered span recorder; thread-safe, one per process by
+    default (module-level :func:`get_tracer`)."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
+        self.capacity = max(1, capacity)
+        self._buffer: "collections.deque[Span]" = collections.deque(
+            maxlen=self.capacity)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    # -- recording ---------------------------------------------------------
+
+    def span(self, name: str, category: str = "host", **args: Any):
+        """Context manager timing its body; yields the :class:`Span`."""
+        return _SpanContext(self, name, category, args)
+
+    def _stack(self) -> List[str]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _begin(self, name: str, category: str, args: Dict[str, Any]) -> Span:
+        stack = self._stack()
+        span = Span(name, category, args, depth=len(stack),
+                    parent=stack[-1] if stack else None)
+        stack.append(name)
+        return span
+
+    def _end(self, span: Span, error: bool = False) -> None:
+        span.duration = _clock() - span.start
+        if error:
+            span.args = dict(span.args, error=True)
+        stack = self._stack()
+        if stack and stack[-1] == span.name:
+            stack.pop()
+        with self._lock:
+            self._buffer.append(span)
+
+    # -- inspection --------------------------------------------------------
+
+    def records(self) -> List[Span]:
+        with self._lock:
+            return list(self._buffer)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buffer.clear()
+
+    # -- Chrome trace_event export -----------------------------------------
+
+    def chrome_events(self) -> List[Dict[str, Any]]:
+        """The ring buffer as Chrome ``trace_event`` dicts ("X" complete
+        events + "M" thread-name metadata)."""
+        pid = os.getpid()
+        events: List[Dict[str, Any]] = []
+        thread_names: Dict[int, str] = {}
+        for span in self.records():
+            thread_names.setdefault(span.thread_id, span.thread_name)
+            events.append({
+                "name": span.name,
+                "cat": span.category,
+                "ph": "X",
+                "ts": span.start * 1e6,   # microseconds
+                "dur": span.duration * 1e6,
+                "pid": pid,
+                "tid": span.thread_id,
+                "args": dict(span.args, depth=span.depth),
+            })
+        meta = [
+            {"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+             "args": {"name": name}}
+            for tid, name in sorted(thread_names.items())
+        ]
+        return meta + events
+
+    def export_chrome_trace(self, path: str) -> str:
+        payload = {
+            "traceEvents": self.chrome_events(),
+            "displayTimeUnit": "ms",
+        }
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(payload, fh)
+        return path
+
+
+# --------------------------------------------------------------------------
+# Process-global tracer
+# --------------------------------------------------------------------------
+
+_GLOBAL_TRACER = Tracer()
+
+
+def get_tracer() -> Tracer:
+    return _GLOBAL_TRACER
+
+
+def span(name: str, category: str = "host", **args: Any):
+    """``with telemetry.span("train/input_wait") as sp: ...`` on the
+    process-global tracer."""
+    return _GLOBAL_TRACER.span(name, category=category, **args)
