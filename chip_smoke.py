@@ -7,24 +7,36 @@ NVIDIA H100: the quickest proof that the port still starts on the GPU.
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
-2. build: the three CUDA kernels from ops/csrc/ (sm_90a), timed;
-3. kernels: each kernel against its plain torch version on the card at
-   the serving path's shapes, with the stated tolerance, timed with CUDA
-   events over CUDA-graph replays beside the plain version, the library
-   call where one exists, and its bound on this card. The times are
-   cold: the calls cycle over copies of the inputs that together exceed
-   twice the L2 cache, as the serving path finds each layer's inputs
-   out of L2; the warm time (the same inputs again and again) is kept
-   beside them;
-4. reference: a small f32 model served on the card (kernels) and on the
-   CPU (plain versions) from the same weights — greedy streams equal,
-   prefill logits close;
-5. slice: the Llama-3-8B-width decoder (random bf16 weights from seed 0)
-   behind SlotScheduler (paged, fused, int8) and ServingServer on
-   127.0.0.1, answering 4 concurrent greedy /v1/generate requests; every
-   kernel's launch count must be > 0 after them. A second burst of fresh
-   prompts then runs under torch.profiler: the device's busy share and
-   the kernels that took most device time.
+2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed;
+3. kernels: each of the seven kernels against its plain torch version on
+   the card at its main path's shapes (serving: rmsnorm, quantize, paged
+   attention; training: rmsnorm dx, flash forward, dq, dk/dv), with the
+   stated tolerance, timed with CUDA events over CUDA-graph replays
+   beside the plain version, the library call where one exists, and its
+   bound on this card. The times are cold: the calls cycle over copies
+   of the inputs that together exceed twice the L2 cache, as the main
+   paths find each layer's inputs out of L2; the warm time (the same
+   inputs again and again) is kept beside them;
+4. references: a small f32 model served on the card (kernels) and on
+   the CPU (plain versions) from the same weights — greedy streams
+   equal, prefill logits close; a small f32 LoRA decoder (flash, fused
+   norms) trained 5 steps on both from the same weights and batches —
+   losses and adapters close; then `train_and_evaluate` with a model_dir
+   writes manifested checkpoints, verifies them and resumes;
+5. serving slice: the Llama-3-8B-width decoder (random bf16 weights from
+   seed 0) behind SlotScheduler (paged, fused, int8) and ServingServer
+   on 127.0.0.1, answering 4 concurrent greedy /v1/generate requests;
+   every serving kernel's launch count must be > 0 after them. A second
+   burst of fresh prompts then runs under torch.profiler: the device's
+   busy share and the kernels that took most device time;
+6. training slice: `make_experiment(llama3_8b(lora_rank=16, flash, fused
+   norms, unrolled))` at batch 1 x 2048 tokens through
+   `train_and_evaluate` for 4 steps, all 32 layers, random weights from
+   seed 0; every training kernel's launch count must be > 0, the losses
+   finite, the adapters moved and the base bit-unchanged. The steady
+   step is the mean of steps 2-4, with their spread. Then a warm-up
+   step, one timed step and one under torch.profiler: the device's busy
+   time against the timed step gives its idle share.
 
 The line before last is the card's `nvidia-smi` name and power limit
 and the one before it the kernels JSON; the last line is
@@ -47,6 +59,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 H100_L2_BYTES = 50 * 2 ** 20
 SEED = 0
 
@@ -62,9 +75,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak: float = H100_F32_FLOPS):
     by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    by_ops = n_flops / H100_F32_FLOPS * 1e3
+    by_ops = n_flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -75,8 +88,12 @@ def time_ms(fn, torch, inner: int = 20, outer: int = 10, arg_sets=((),)
     CUDA events (no host launch cost in the measurement). One argument
     set gives the warm time; `cold_copies` gives sets whose calls find
     their inputs out of L2."""
-    for args in arg_sets:
-        fn(*args)
+    side = torch.cuda.Stream()  # warm up off the capture's stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -114,6 +131,19 @@ def timings(fn, plain, library, args, touched_bytes, torch, plain_inner=20):
         "library_ms": library and time_ms(library, torch, inner=2,
                                           arg_sets=cold),
     }
+
+
+def backward_ms(forward, torch, arg_sets):
+    """Device time of the backward alone of a library call: forward plus
+    `torch.autograd.grad` captured together (the backward runs on the
+    capture's stream), less the forward alone. `forward(*args)` returns
+    (output, inputs, cotangent) from leaf inputs that require grad."""
+    both = time_ms(lambda *a: torch.autograd.grad(*forward(*a)), torch,
+                   inner=2, arg_sets=arg_sets)
+    with torch.no_grad():
+        fwd = time_ms(lambda *a: forward(*a)[0], torch, inner=2,
+                      arg_sets=arg_sets)
+    return both - fwd, both
 
 
 def check_rmsnorm(torch, ops, dev):
@@ -242,6 +272,365 @@ def check_attention(torch, ops, dev):
     return row
 
 
+# The training slice's attention and norm shapes (Llama-3-8B widths, one
+# sequence of 2048 tokens).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_HEADS, TRAIN_KV_HEADS, TRAIN_HEAD_DIM = (
+    1, 2048, 32, 8, 128)
+
+
+def _leaves(torch, args):
+    """Copies of `args` that are leaves requiring grad (library yardsticks
+    differentiate with respect to them)."""
+    return tuple(a.detach().clone().requires_grad_(a.is_floating_point())
+                 for a in args)
+
+
+def check_rmsnorm_dx(torch, ops, dev):
+    rows, d = TRAIN_BATCH * TRAIN_SEQ, 4096
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = (torch.randn(rows, d, device=dev, generator=gen) * 3).to(torch.bfloat16)
+    g = torch.randn(rows, d, device=dev, generator=gen).to(torch.bfloat16)
+    scale = torch.rand(d, device=dev, generator=gen) + 0.5
+    got = ops.rmsnorm.rmsnorm_bwd_dx(x, g, scale, 1e-5)
+    ref = ops.rmsnorm.rmsnorm_bwd_dx_reference(x, g, scale, 1e-5)
+    torch.cuda.synchronize()
+    # rtol 1/128: one bf16 ulp of the output; atol 1% of the largest
+    # entry: the two terms of dx cancel, and their f32 sums run in
+    # another order.
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1 / 128,
+                               atol=1e-2 * float(ref.float().abs().max()))
+    row = {
+        "name": "rmsnorm_bwd_dx", "route": "cuda",
+        "source": "tf_yarn_tpu_torch/ops/csrc/rmsnorm.cu",
+        "replaces": "tf_yarn_tpu/ops/rmsnorm.py:55",
+        "shape": [rows, d], "tolerance": "rtol 1/128, atol 1e-2 * max|dx|",
+        "max_abs_err": float((got.float() - ref.float()).abs().max()),
+    }
+    n = rows * d
+    n_bytes = 3 * n * 2 + d * 4
+    row.update(timings(
+        lambda x, g, scale: ops.rmsnorm.rmsnorm_bwd_dx(x, g, scale, 1e-5),
+        lambda x, g, scale: ops.rmsnorm.rmsnorm_bwd_dx_reference(x, g, scale, 1e-5),
+        None, (x, g, scale), n_bytes, torch))
+    weight = scale.to(torch.bfloat16)
+
+    def forward(x, g):
+        y = torch.nn.functional.rms_norm(x, (d,), weight=weight, eps=1e-5)
+        return y, x, g
+
+    sets = [_leaves(torch, (x, g)) for _ in range(len(cold_copies((x,), n_bytes)))]
+    row["library_ms"], row["library_fwd_bwd_ms"] = backward_ms(forward, torch, sets)
+    row["library"] = "F.rms_norm backward (autograd), dx"
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 8 * n)
+    return row
+
+
+def _live_pairs(s_q: int, s_kv: int, causal: bool = True) -> int:
+    """(query, key) pairs the causal mask keeps — the work these inputs
+    need."""
+    if not causal:
+        return s_q * s_kv
+    return sum(min(i + 1, s_kv) for i in range(s_q))
+
+
+def check_flash(torch, ops, dev):
+    """The three flash kernels at the training slice's shapes; returns
+    their three rows."""
+    flash = ops.flash_attention
+    b, s, h, hkv, d = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_HEADS, TRAIN_KV_HEADS,
+                       TRAIN_HEAD_DIM)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    mk = lambda *shape: torch.randn(*shape, device=dev, generator=gen).to(
+        torch.bfloat16)
+    q, k, v, dout = mk(b, s, h, d), mk(b, s, hkv, d), mk(b, s, hkv, d), mk(b, s, h, d)
+    out, lse = flash.flash_fwd(q, k, v)
+    ref_out, ref_lse = flash.flash_fwd_reference(q, k, v)
+    delta = flash.flash_delta(ref_out, dout)
+    dq = flash.flash_dq(q, k, v, dout, ref_lse, delta)
+    dk, dv = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
+    ref_dq = flash.flash_dq_reference(q, k, v, dout, ref_lse, delta)
+    ref_dk, ref_dv = flash.flash_dkv_reference(q, k, v, dout, ref_lse, delta)
+    torch.cuda.synchronize()
+    # o, dq, dk, dv: the error's norm within 1e-2 of the reference's over
+    # every 64-row block of the sequence, so no one large row sets the
+    # scale (bf16 outputs round at 2^-9 relative, and p / ds round to
+    # bf16 at running maxima that differ between the kernels' 64-row
+    # tiles and the plain version's whole-row softmax). The LSE is f32
+    # from exact bf16 products: 1e-4 absolute.
+    tol, lse_tol = 1e-2, 1e-4
+
+    def err(got, ref, name):
+        diff, ref = got.float() - ref.float(), ref.float()
+        rel = 0.0
+        for start in range(0, ref.shape[1], 64):
+            for b in range(ref.shape[0]):
+                e = float(diff[b, start:start + 64].norm())
+                n = float(ref[b, start:start + 64].norm())
+                rel = max(rel, e / n if n else
+                          (0.0 if e == 0 else float("inf")))
+        worst = float(diff.abs().max())
+        log(f"  {name}: block rel err {rel:.3g} (bound {tol}), "
+            f"max abs err {worst:.3g}")
+        if not rel <= tol:
+            raise AssertionError(f"{name}: block rel err {rel} > {tol}")
+        return worst, rel
+
+    lse_err = float((lse - ref_lse).abs().max())
+    log(f"  lse: max abs err {lse_err:.3g} (bound {lse_tol})")
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"lse: max abs err {lse_err} > {lse_tol}")
+    found = {name: err(got, ref, name) for name, got, ref in (
+        ("o", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+        ("dv", dv, ref_dv))}
+    pick = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    errs = {key: {"max_abs_err": max(found[n][0] for n in names),
+                  "block_rel_err": max(found[n][1] for n in names)}
+            for key, names in pick.items()}
+    errs["fwd"]["lse_max_abs_err"] = lse_err
+    live = _live_pairs(s, s)
+    qb = q.numel() * 2
+    kvb = k.numel() * 2
+    stat = b * h * s * 4
+    shape = {"batch": b, "seq": s, "heads": h, "kv_heads": hkv,
+             "head_dim": d, "dtype": "bf16", "causal": True}
+    base = {"route": "cuda", "source": "tf_yarn_tpu_torch/ops/csrc/flash_attention.cu",
+            "shape": shape,
+            "tolerance": (f"error norm <= {tol} x reference norm over every "
+                          f"64-row block; lse {lse_tol} absolute")}
+    # Bytes: every input read once, every output written once.
+    specs = {
+        "fwd": ("flash_fwd", "tf_yarn_tpu/ops/flash_attention.py:80",
+                lambda q, k, v, dout, lse, delta: flash.flash_fwd(q, k, v),
+                lambda q, k, v, dout, lse, delta: flash.flash_fwd_reference(q, k, v),
+                2 * qb + 2 * kvb + stat, 4 * live * d * h),
+        "dq": ("flash_dq", "tf_yarn_tpu/ops/flash_attention.py:240",
+               flash.flash_dq, flash.flash_dq_reference,
+               3 * qb + 2 * kvb + 2 * stat, 6 * live * d * h),
+        "dkv": ("flash_dkv", "tf_yarn_tpu/ops/flash_attention.py:285",
+                flash.flash_dkv, flash.flash_dkv_reference,
+                2 * qb + 4 * kvb + 2 * stat, 8 * live * d * h),
+    }
+    args = (q, k, v, dout, ref_lse, delta)
+    n_sets = len(cold_copies(args, 2 * qb + 2 * kvb))
+    sets = [_leaves(torch, (q, k, v, dout)) for _ in range(n_sets)]
+
+    def sdpa(q, k, v, dout):
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        return o, (q, k, v), dout.transpose(1, 2)
+
+    with torch.no_grad():
+        sdpa_fwd = time_ms(lambda *a: sdpa(*a)[0], torch, inner=2, arg_sets=sets)
+    sdpa_bwd, sdpa_both = backward_ms(sdpa, torch, sets)
+    rows = []
+    for key, (name, replaces, fn, plain, n_bytes, n_flops) in specs.items():
+        row = dict(base, name=name, replaces=replaces, **errs[key])
+        row.update(timings(fn, plain, None, args, n_bytes, torch, plain_inner=4))
+        if key == "fwd":
+            row["library_ms"] = sdpa_fwd
+            row["library"] = "F.scaled_dot_product_attention forward"
+        else:
+            row["library_ms"] = sdpa_bwd
+            row["library"] = ("F.scaled_dot_product_attention backward "
+                              "(dq, dk, dv together)")
+            row["library_fwd_bwd_ms"] = sdpa_both
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops,
+                                                    H100_BF16_FLOPS)
+        rows.append(row)
+    return rows
+
+
+def train_tiny_reference(torch, tt, common, training, experiment, ckpt, dev):
+    """A small f32 LoRA decoder (flash, fused norms) trained 5 steps
+    through the kernels on the card and through the plain versions on
+    the CPU, from the same weights and batches; then train_and_evaluate
+    with a model_dir on the card: manifested checkpoints, verified, and
+    a resume."""
+    import tempfile
+
+    cfg = tt.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=4, n_kv_heads=2, d_ff=512,
+                               max_seq_len=128, dtype=torch.float32,
+                               attention_impl="flash", fused_norms=True,
+                               scan_layers=False, remat=True, lora_rank=8)
+    cpu_model = tt.make_model(cfg, seed=SEED, device="cpu", trainable=True)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    with torch.no_grad():  # nonzero lora_b: every adapter gets a gradient
+        for name, param in cpu_model.named_parameters():
+            if name.endswith("lora_b"):
+                param.copy_(torch.randn(param.shape, generator=gen) * 0.05)
+    gpu_model = tt.Transformer(cfg, device=dev, trainable=True)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    losses = []
+    for model in (gpu_model, cpu_model):
+        optimizer = tt.make_lora_optimizer(1e-3)(model)
+        step = training.build_train_step(model, common.lm_loss, optimizer)
+        state = training.TrainState(0, model, optimizer)
+        batches = common.synthetic_token_iter(2, 128, cfg.vocab_size, seed=SEED)
+        run = []
+        for _ in range(5):
+            tokens = torch.as_tensor(next(batches)["tokens"]).long()
+            state, metrics = step(state, {"tokens": tokens.to(model.device)})
+            run.append(float(metrics["loss"]))
+        losses.append(run)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    cpu_params = dict(cpu_model.named_parameters())
+    lora_err = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                   for n, p in gpu_model.named_parameters() if "lora" in n)
+    # f32 kernels against plain f32 on the CPU: sums in another order;
+    # five Adam steps at lr 1e-3 bound any drift of an adapter by 5e-3.
+    if not all(map(lambda v: v == v and abs(v) < 1e9, losses[0])) \
+            or loss_err > 1e-4 or lora_err > 5e-4:
+        raise AssertionError(f"card vs CPU training: losses {losses}, "
+                             f"adapter max abs err {lora_err}")
+    with tempfile.TemporaryDirectory() as model_dir:
+        def run(steps):
+            exp = tt.make_experiment(cfg, model_dir=model_dir, train_steps=steps,
+                                     batch_size=2, seq_len=128,
+                                     learning_rate=1e-3,
+                                     checkpoint_every_steps=2, keep_last_n=1,
+                                     log_every_steps=1)
+            return training.train_and_evaluate(
+                experiment.as_core_experiment(exp), device=dev)
+
+        first = run(4)
+        steps = ckpt.list_checkpoint_steps(model_dir)
+        if steps != [2, 4]:
+            raise AssertionError(f"checkpoints {steps}, expected [2, 4]")
+        for at in steps:
+            ckpt.verify_checkpoint(ckpt.checkpoint_path(model_dir, at))
+        resumed = run(6)
+        steps = ckpt.list_checkpoint_steps(model_dir)
+        if steps != [4, 6] or ckpt.restore_checkpoint(model_dir, 6)["step"] != 6:
+            raise AssertionError(f"resume: checkpoints {steps}")
+    return {"losses_card": losses[0], "losses_cpu": losses[1],
+            "loss_max_rel_err": loss_err, "lora_max_abs_err": lora_err,
+            "train_and_evaluate_loss": [first["loss"], resumed["loss"]],
+            "checkpoints": steps}
+
+
+def train_slice(torch, tt, training, experiment, telemetry, counted, dev):
+    """The Llama-3-8B-width LoRA fine-tune through train_and_evaluate."""
+    cfg = tt.TransformerConfig.llama3_8b(lora_rank=16, attention_impl="flash",
+                                         fused_norms=True, scan_layers=False)
+    exp = tt.make_experiment(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             train_steps=4, log_every_steps=1)
+    built = {}
+    init = exp.init_fn
+
+    def init_fn(device, seed):
+        started = time.perf_counter()
+        model = init(device, seed)
+        torch.cuda.synchronize()
+        built["seconds"] = time.perf_counter() - started
+        built["model"] = model
+        with torch.no_grad():  # snapshots on the card: base and adapters
+            built["before"] = {n: p.detach().clone()
+                               for n, p in model.named_parameters()}
+        return model
+
+    recorded = []
+    loss_fn = exp.loss_fn
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            recorded.append(loss.detach())
+        return loss, aux
+
+    exp.init_fn = init_fn
+    exp.loss_fn = recording_loss
+    tracer = telemetry.get_tracer()
+    tracer.clear()
+    for fn in counted:
+        fn.launches = 0
+    started = time.perf_counter()
+    metrics = training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the training path")
+    losses = [float(x) for x in recorded]
+    if len(losses) != 4 or not all(abs(x) < 1e9 and x == x for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    model = built.pop("model")
+    before = built.pop("before")
+    moved = changed = 0
+    for name, param in model.named_parameters():
+        same = torch.equal(param.detach(), before[name])
+        if "lora" in name:
+            moved += not same
+        elif not same:
+            changed += 1
+    del before
+    n_lora = sum("lora" in n for n, _ in model.named_parameters())
+    if changed or moved != n_lora:
+        raise AssertionError(f"{changed} base params changed, {moved} of "
+                             f"{n_lora} adapters moved")
+    spans = tracer.records()
+    step_s = [a.duration + b.duration for a, b in zip(
+        [r for r in spans if r.name == "train/step_dispatch"],
+        [r for r in spans if r.name == "train/device_wait"])]
+    registry = telemetry.get_registry()
+    flops = training.flops_lib.transformer_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # The steady step: the mean over the steps after the first (which
+    # pays for the allocator's growth and the optimizer's state), with
+    # their spread beside it.
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    result = {
+        "params": sum(p.numel() for p in model.parameters()),
+        "lora_params": sum(p.numel() for n, p in model.named_parameters()
+                           if "lora" in n),
+        "init_s": built["seconds"],
+        "losses": losses,
+        "final_loss": metrics["loss"],
+        "step_s": step_s,
+        "steady_step_s": steady,
+        "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+        "mfu": flops / steady / H100_BF16_FLOPS,
+        "loop_mfu_last_step": registry.gauge("train/mfu").value,
+        "model_flops_per_step": flops,
+        "wall_s": wall,
+        "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "adapters_moved": moved,
+        "base_params_changed": changed,
+    }
+    # Three more steps outside the loop (their launches are not counted
+    # above), one train step function and optimizer for all three: a
+    # warm-up, one timed step, and one under the profiler for the
+    # device's busy time and top kernels.
+    optimizer = exp.optimizer(model)
+    step = training.build_train_step(model, loss_fn, optimizer)
+    state = training.TrainState(4, model, optimizer)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(SEED))
+    step(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    step(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - started
+    profiled = device_profile(torch, lambda: step(state, {"tokens": tokens}))
+    result["profiled_step"] = profiled
+    result["unprofiled_step_s"] = unprofiled
+    # The profiler slows the host, so the profiled step's own idle share
+    # overstates the loop's. The device's busy time in the profiled step
+    # against the same step run unprofiled just before it, and against
+    # the loop's steady step, gives the idle share without that cost
+    # (unclipped: a negative value means the busy time outran the step).
+    result["idle_share_vs_unprofiled_step"] = (
+        1 - profiled["device_busy_s"] / unprofiled)
+    result["idle_share_vs_steady_step"] = 1 - profiled["device_busy_s"] / steady
+    return result
+
+
 def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
     """The same small f32 model served through the kernels on the card
     and through the plain versions on the CPU: greedy streams must be
@@ -315,7 +704,10 @@ def burst(port: int, prompts, new_tokens: int):
 
 def device_profile(torch, run):
     """`run()` under torch.profiler: the device's busy share of the wall
-    time and the kernels that took most device time."""
+    time and the kernels that took most device time. Only device-side
+    events count: host ops and autograd annotations carry their kernels'
+    device time too, and summing them would count it twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -326,8 +718,9 @@ def device_profile(torch, run):
         wall = time.perf_counter() - started
     rows = []
     for event in prof.key_averages():
-        device_us = getattr(event, "self_device_time_total",
-                            getattr(event, "self_cuda_time_total", 0))
+        if event.device_type != DeviceType.CUDA:
+            continue
+        device_us = event.self_device_time_total
         if device_us > 0:
             rows.append((device_us, event.count, event.key))
     rows.sort(reverse=True)
@@ -410,6 +803,8 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -420,18 +815,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from tf_yarn_tpu_torch import checkpoint as ckpt
+    from tf_yarn_tpu_torch import experiment, telemetry, training
+    from tf_yarn_tpu_torch.models import common
     from tf_yarn_tpu_torch.models import decode_engine as engine_mod
     from tf_yarn_tpu_torch.models import transformer as tt
     from tf_yarn_tpu_torch.ops import _build
-    from tf_yarn_tpu_torch.ops import decode_attention, quantize, rmsnorm
+    from tf_yarn_tpu_torch.ops import (decode_attention, flash_attention,
+                                       quantize, rmsnorm)
     from tf_yarn_tpu_torch.serving import scheduler as sched_mod
     from tf_yarn_tpu_torch.serving import server as server_mod
 
-    class ops:  # one namespace for the three kernel modules
+    class ops:  # one namespace for the kernel modules
         pass
 
     ops.rmsnorm, ops.quantize, ops.decode_attention = (
         rmsnorm, quantize, decode_attention)
+    ops.flash_attention = flash_attention
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -448,32 +848,56 @@ def main() -> int:
     log(f"build: {time.perf_counter() - started:.1f} s "
         f"(nvcc {_build.build_seconds and round(_build.build_seconds, 1)} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
 
     rows = [check_rmsnorm(torch, ops, dev), check_quantize(torch, ops, dev),
-            check_attention(torch, ops, dev)]
+            check_attention(torch, ops, dev), check_rmsnorm_dx(torch, ops, dev),
+            *check_flash(torch, ops, dev)]
     for row in rows:
+        library = row["library_ms"]
         log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']:.3g}, "
             f"{row['ms'] * 1e3:.2f} us cold, {row['warm_ms'] * 1e3:.2f} us warm "
-            f"(plain {row['plain_ms'] * 1e3:.2f} us, "
+            f"(plain {row['plain_ms'] * 1e3:.2f} us, library "
+            f"{'none' if library is None else f'{library * 1e3:.2f} us'}, "
             f"bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']})"
             + (f" {row['kernel_us_per_call']}" if "kernel_us_per_call" in row
                else ""))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev)
-    log(f"reference: card vs CPU prefill logits max err "
+    log(f"serving reference: card vs CPU prefill logits max err "
         f"{reference['prefill_logits_max_abs_err']:.3g}, greedy streams equal")
+    train_reference = train_tiny_reference(torch, tt, common, training,
+                                           experiment, ckpt, dev)
+    log(f"training reference: {json.dumps(train_reference)}")
 
-    counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
-               decode_attention.paged_int8_window_attention)
+    serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
+                       decode_attention.paged_int8_window_attention)
     torch.cuda.reset_peak_memory_stats()
     slice_result = serve_slice(torch, tt, engine_mod, sched_mod, server_mod,
-                               counted, dev)
-    log(f"slice: {json.dumps(slice_result)} on {card}")
+                               serving_counted, dev)
+    log(f"serving slice: {json.dumps(slice_result)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    training_counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
+                        flash_attention.flash_fwd, flash_attention.flash_dq,
+                        flash_attention.flash_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    train_result = train_slice(torch, tt, training, experiment, telemetry,
+                               training_counted, dev)
+    log(f"training slice: {json.dumps(train_result)} on {card}")
 
     for row in rows:
-        row["launches"] = slice_result["launches"][row["name"]]
+        if row["name"] in slice_result["launches"]:
+            row["launches"] = slice_result["launches"][row["name"]]
+            row["launches_path"] = "serving"
+        else:
+            row["launches"] = train_result["launches"][row["name"]]
+            row["launches_path"] = "training"
+    rows[0]["launches_training"] = train_result["launches"]["rmsnorm"]
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

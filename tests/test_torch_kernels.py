@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tf_yarn_tpu_torch.ops import decode_attention as t_decode
+from tf_yarn_tpu_torch.ops import flash_attention as t_flash
 from tf_yarn_tpu_torch.ops import quantize as t_quantize
 from tf_yarn_tpu_torch.ops import rmsnorm as t_rmsnorm
 
@@ -134,3 +135,157 @@ def test_cuda_paged_window_kernel_refuses_other_configs(cuda, dtype, n_heads,
     with pytest.raises(ValueError, match="paged kernel is built for"):
         t_decode.paged_int8_window_attention(*args)
     assert t_decode.paged_int8_window_attention.launches == launches
+
+
+@pytest.mark.parametrize("rows, dtype", [(8, torch.bfloat16),
+                                         (2048, torch.bfloat16),
+                                         (3, torch.float32)])
+def test_cuda_rmsnorm_dx_kernel_matches_plain(cuda, rows, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows + 1)
+    x = (torch.randn(rows, 4096, device=cuda, generator=gen) * 3).to(dtype)
+    g = torch.randn(rows, 4096, device=cuda, generator=gen).to(dtype)
+    scale = torch.rand(4096, device=cuda, generator=gen) + 0.5
+    launches = t_rmsnorm.rmsnorm_bwd_dx.launches
+    got = t_rmsnorm.rmsnorm_bwd_dx(x, g, scale)
+    torch.cuda.synchronize()
+    assert t_rmsnorm.rmsnorm_bwd_dx.launches == launches + 1
+    assert got.dtype == dtype
+    ref = t_rmsnorm.rmsnorm_bwd_dx_reference(x, g, scale)
+    # bf16: one ulp of the output, plus cancellation between the two
+    # terms (atol against the largest entry); f32: sums in another order.
+    rtol = 1 / 128 if dtype == torch.bfloat16 else 1e-5
+    atol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_cuda_rmsnorm_autograd_launches_both_kernels(cuda):
+    x = torch.randn(16, 4096, device=cuda, requires_grad=True)
+    scale = torch.ones(4096, device=cuda, requires_grad=True)
+    before = (t_rmsnorm.rmsnorm.launches, t_rmsnorm.rmsnorm_bwd_dx.launches)
+    t_rmsnorm.rmsnorm(x, scale).pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert (t_rmsnorm.rmsnorm.launches, t_rmsnorm.rmsnorm_bwd_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert x.grad is not None and scale.grad.shape == (4096,)
+
+
+@pytest.mark.parametrize("fused_norms", [True, False])
+def test_cuda_model_norms_always_launch_the_kernel(cuda, fused_norms):
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig.tiny(fused_norms=fused_norms)
+    model = tt.make_model(cfg, seed=0, device=cuda)
+    before = t_rmsnorm.rmsnorm.launches
+    with torch.no_grad():
+        logits = model(torch.zeros(1, 8, dtype=torch.long, device=cuda))
+    torch.cuda.synchronize()
+    # One norm before attention and one before the MLP in each layer,
+    # and the final norm.
+    assert t_rmsnorm.rmsnorm.launches == before + 2 * cfg.n_layers + 1
+    assert torch.isfinite(logits).all()
+
+
+# (batch, s_q, s_kv, n_heads, n_kv, head_dim, causal): GQA groups 1, 4
+# and 8; a tail that is not a multiple of the 64-row tile; Skv > S (kv
+# tiles with no live q row) and Skv < S; non-causal; head_dim 64 and 128.
+FLASH_CASES = {
+    "g1_d128": (1, 256, 256, 8, 8, 128, True),
+    "g4_d64_tail": (2, 96, 96, 8, 2, 64, True),
+    "g8_skv_gt_s": (1, 128, 192, 8, 1, 128, True),
+    "g4_noncausal_tail": (1, 160, 160, 4, 1, 64, False),
+    "g2_skv_lt_s": (1, 64, 32, 4, 2, 128, True),
+}
+
+
+def _flash_inputs(device, batch, s_q, s_kv, n_heads, n_kv, head_dim, dtype):
+    gen = torch.Generator(device=device).manual_seed(s_q * 7 + s_kv)
+    mk = lambda *shape: torch.randn(*shape, device=device, generator=gen).to(dtype)
+    return (mk(batch, s_q, n_heads, head_dim), mk(batch, s_kv, n_kv, head_dim),
+            mk(batch, s_kv, n_kv, head_dim), mk(batch, s_q, n_heads, head_dim))
+
+
+def _assert_rel(got, ref, tol, name):
+    """||got - ref|| / ||ref|| within tol over every 64-row block of the
+    sequence axis (axis 1) of every batch, so no one large row sets the
+    scale; a block whose reference is zero must come out exactly zero."""
+    diff = (got.float() - ref.float()).transpose(0, 1)
+    ref = ref.float().transpose(0, 1)
+    for start in range(0, ref.shape[0], 64):
+        for b in range(ref.shape[1]):
+            err = float(diff[start:start + 64, b].norm())
+            norm = float(ref[start:start + 64, b].norm())
+            assert err <= tol * norm, (
+                f"{name}: rows {start}.. of batch {b}: error norm {err} > "
+                f"{tol} x reference norm {norm}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_kernels_match_plain(cuda, case, dtype):
+    batch, s_q, s_kv, n_heads, n_kv, head_dim, causal = FLASH_CASES[case]
+    q, k, v, dout = _flash_inputs(cuda, batch, s_q, s_kv, n_heads, n_kv,
+                                  head_dim, dtype)
+    counts = (t_flash.flash_fwd.launches, t_flash.flash_dq.launches,
+              t_flash.flash_dkv.launches)
+    out, lse = t_flash.flash_fwd(q, k, v, causal)
+    ref_out, ref_lse = t_flash.flash_fwd_reference(q, k, v, causal)
+    delta = t_flash.flash_delta(ref_out, dout)
+    dq = t_flash.flash_dq(q, k, v, dout, ref_lse, delta, causal)
+    dk, dv = t_flash.flash_dkv(q, k, v, dout, ref_lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_fwd.launches, t_flash.flash_dq.launches,
+            t_flash.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    ref_dq = t_flash.flash_dq_reference(q, k, v, dout, ref_lse, delta, causal)
+    ref_dk, ref_dv = t_flash.flash_dkv_reference(q, k, v, dout, ref_lse,
+                                                 delta, causal)
+    # bf16: outputs rounded to bf16 (relative 2^-9) and p/ds rounded to
+    # bf16 at running maxima that differ between the 64-row kernel tiles
+    # and the plain whole-row softmax; f32: sums in another order only.
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _assert_rel(out, ref_out, tol, "o")
+    # The LSE is f32 from exact bf16 products: 1e-4 absolute.
+    lse_err = float((lse - ref_lse).abs().max())
+    assert lse_err <= 1e-4, f"lse: max abs err {lse_err}"
+    _assert_rel(dq, ref_dq, tol, "dq")
+    _assert_rel(dk, ref_dk, tol, "dk")
+    _assert_rel(dv, ref_dv, tol, "dv")
+    for name, t in (("o", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+        assert torch.isfinite(t).all(), name
+    if causal and s_kv > s_q:
+        # kv rows past the last query have no live q row: exact zeros.
+        assert torch.equal(dk[:, s_q:], torch.zeros_like(dk[:, s_q:]))
+        assert torch.equal(dv[:, s_q:], torch.zeros_like(dv[:, s_q:]))
+
+
+def test_cuda_flash_autograd_launches_every_kernel(cuda):
+    q, k, v, dout = _flash_inputs(cuda, 1, 128, 128, 8, 2, 128, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = (t_flash.flash_fwd.launches, t_flash.flash_dq.launches,
+              t_flash.flash_dkv.launches)
+    out = t_flash.flash_attention(q, k, v, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_fwd.launches, t_flash.flash_dq.launches,
+            t_flash.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert v.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype, head_dim", [(torch.float16, 128),
+                                             (torch.bfloat16, 96),
+                                             (torch.float32, 256)])
+def test_cuda_flash_refuses_other_configs(cuda, dtype, head_dim):
+    q = torch.zeros(1, 64, 4, head_dim, device=cuda, dtype=dtype)
+    k = torch.zeros(1, 64, 2, head_dim, device=cuda, dtype=dtype)
+    counts = t_flash.flash_fwd.launches
+    with pytest.raises(ValueError):
+        t_flash.flash_fwd(q, k, k)
+    assert t_flash.flash_fwd.launches == counts
+
+
+def test_cuda_flash_refuses_mixed_dtypes(cuda):
+    q = torch.zeros(1, 64, 4, 128, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        t_flash.flash_fwd(q, k, k)

@@ -173,3 +173,40 @@ def test_cpu_tensors_take_the_plain_versions():
     after = (t_rmsnorm.rmsnorm.launches, t_quantize.quantize_int8.launches,
              t_decode.paged_int8_window_attention.launches)
     assert after == before
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 128)])
+def test_rmsnorm_dx_and_dscale_match_jax_vjp(shape):
+    """The port's autograd through `rmsnorm` (the plain dx on the CPU)
+    against `jax.vjp` of the JAX `rmsnorm` with the dx kernel
+    (``kernel_bwd=True``, interpret mode). f32: sums in another order."""
+    from tf_yarn_tpu.ops.rmsnorm import rmsnorm
+
+    rng = np.random.RandomState(5)
+    x = (rng.randn(*shape) * 3).astype(np.float32)
+    scale = rng.randn(shape[-1]).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, s: rmsnorm(x, s, 1e-5, kernel_bwd=True),
+                     jnp.asarray(x), jnp.asarray(scale))
+    dx, dscale = vjp(jnp.asarray(g))
+    tx = torch.tensor(x, requires_grad=True)
+    ts = torch.tensor(scale, requires_grad=True)
+    t_rmsnorm.rmsnorm(tx, ts, 1e-5).backward(torch.tensor(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(dscale),
+                               atol=1e-4, rtol=1e-5)
+    # The plain dx alone is the same function.
+    direct = t_rmsnorm.rmsnorm_bwd_dx(torch.tensor(x), torch.tensor(g),
+                                      torch.tensor(scale))
+    np.testing.assert_allclose(direct.numpy(), np.asarray(dx), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_cpu_rmsnorm_backward_takes_the_plain_versions():
+    before = (t_rmsnorm.rmsnorm.launches, t_rmsnorm.rmsnorm_bwd_dx.launches)
+    x = torch.randn(4, 64, requires_grad=True)
+    t_rmsnorm.rmsnorm(x, torch.ones(64)).sum().backward()
+    assert x.grad is not None
+    assert (t_rmsnorm.rmsnorm.launches,
+            t_rmsnorm.rmsnorm_bwd_dx.launches) == before

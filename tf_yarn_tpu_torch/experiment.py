@@ -1,0 +1,123 @@
+"""Experiment types — the subset of tf_yarn_tpu/experiment.py that the
+port's train loop consumes.
+
+`TrainParams` is a copy of the JAX package's loop knobs with the same
+validation (experiment.py:39-100), less ``drain_poll_every_steps``: the
+preemption drain it paces is not ported. `TorchExperiment` is the counterpart
+of `JaxExperiment` (experiment.py:103-123) and `as_core_experiment`
+normalises it into `CoreExperiment`, the form `training.
+train_and_evaluate` reads. The Estimator and Keras shapes are not
+ported.
+
+Differences that PyTorch brings: the parameters live in the module, so
+``model`` is an ``nn.Module`` (or None, with ``init_fn(device, seed)``
+building it on the train loop's device); ``optimizer`` is a factory
+``model -> torch.optim.Optimizer``; the loss contract is
+``loss_fn(model, batch, train=True) -> (loss, aux)`` with ``batch`` a
+dict of tensors. ``mesh_spec`` is carried but a multi-device one raises
+in the loop (ROADMAP.md Queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Iterator, Optional
+
+Batch = Dict[str, Any]
+InputFn = Callable[[], Iterator[Batch]]
+
+
+@dataclasses.dataclass
+class TrainParams:
+    """Loop control knobs, validated at construction."""
+
+    train_steps: int
+    eval_every_steps: Optional[int] = None
+    eval_steps: int = 10
+    checkpoint_every_steps: Optional[int] = None
+    # Completed checkpoints beyond the newest N are deleted before each
+    # save. None = keep everything.
+    keep_last_n: Optional[int] = 5
+    log_every_steps: int = 10
+    seed: int = 0
+    # Split each batch into N sequential microbatches, averaging
+    # gradients before the one optimizer update.
+    grad_accum_steps: int = 1
+    # N steps per host round trip; > 1 is not ported (the loop raises).
+    steps_per_loop: int = 1
+
+    def __post_init__(self) -> None:
+        if self.train_steps < 1:
+            raise ValueError(
+                f"train_steps must be >= 1, got {self.train_steps}")
+        if self.steps_per_loop < 1:
+            raise ValueError(
+                f"steps_per_loop must be >= 1, got {self.steps_per_loop}")
+        if self.grad_accum_steps < 1:
+            raise ValueError(
+                f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
+        for name in ("eval_every_steps", "checkpoint_every_steps",
+                     "keep_last_n"):
+            value = getattr(self, name)
+            if value is not None and value < 1:
+                raise ValueError(f"{name} must be >= 1, got {value}")
+        if self.log_every_steps < 0:
+            raise ValueError(
+                f"log_every_steps must be >= 0, got {self.log_every_steps}")
+        if self.eval_steps < 1:
+            raise ValueError(
+                f"eval_steps must be >= 1, got {self.eval_steps}")
+
+
+@dataclasses.dataclass
+class TorchExperiment:
+    """Everything the train loop needs: a model (or ``init_fn(device,
+    seed) -> nn.Module``), an optimizer factory, a loss and the input."""
+
+    model: Any
+    optimizer: Callable[[Any], Any]
+    loss_fn: Callable[..., Any]
+    train_input_fn: InputFn
+    train_params: TrainParams
+    model_dir: Optional[str] = None
+    eval_input_fn: Optional[InputFn] = None
+    init_fn: Optional[Callable[[Any, int], Any]] = None
+    mesh_spec: Any = None
+
+    def __post_init__(self) -> None:
+        if self.model is None and self.init_fn is None:
+            raise ValueError("TorchExperiment needs a model or an init_fn")
+
+
+@dataclasses.dataclass
+class CoreExperiment:
+    """Normalized form consumed by training.train_and_evaluate."""
+
+    model: Any
+    optimizer: Callable[[Any], Any]
+    loss_fn: Callable[..., Any]
+    train_input_fn: InputFn
+    train_params: TrainParams
+    model_dir: Optional[str]
+    eval_input_fn: Optional[InputFn]
+    init_fn: Optional[Callable[[Any, int], Any]]
+    mesh_spec: Any
+
+
+def as_core_experiment(experiment: Any) -> CoreExperiment:
+    if isinstance(experiment, TorchExperiment):
+        return CoreExperiment(
+            model=experiment.model,
+            optimizer=experiment.optimizer,
+            loss_fn=experiment.loss_fn,
+            train_input_fn=experiment.train_input_fn,
+            train_params=experiment.train_params,
+            model_dir=experiment.model_dir,
+            eval_input_fn=experiment.eval_input_fn,
+            init_fn=experiment.init_fn,
+            mesh_spec=experiment.mesh_spec,
+        )
+    raise TypeError(
+        f"unsupported experiment type {type(experiment).__name__}; the port "
+        "takes TorchExperiment (the Estimator and Keras shapes are not ported)"
+    )

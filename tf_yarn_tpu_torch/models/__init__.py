@@ -1,2 +1,3 @@
 """Models of the port: the llama-style decoder, its weight bridge from the
-JAX package, sampling, the decode window and the decode engine."""
+JAX package, its losses and optimizer recipe, sampling, the decode
+window and the decode engine."""

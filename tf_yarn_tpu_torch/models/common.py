@@ -1,0 +1,124 @@
+"""Losses, the optimizer recipe and synthetic data — counterpart of
+tf_yarn_tpu/models/common.py.
+
+Loss contract of the port (`experiment.py`): ``loss_fn(model, batch,
+train=True) -> (loss, aux)`` with ``batch`` a dict of tensors on the
+model's device; the parameters live in the module, so the JAX
+``params`` and ``rng`` arguments have no counterpart (the decoder has no
+dropout).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+NEG_INF = -1e30
+
+
+def adamw_with_decay_mask(learning_rate: float, weight_decay: float = 1e-4):
+    """AdamW that skips weight decay on 1-D parameters (norm scales,
+    biases) — common.py:14-24. Returns a factory ``model ->
+    torch.optim.AdamW`` over the parameters that require grad, in two
+    groups: ``ndim > 1`` decays by `weight_decay`, the rest by 0. optax's decoupled decay
+    ``p − lr·(adam + wd·p)`` and torch's ``p·(1 − lr·wd) − lr·adam`` are
+    the same update; betas (0.9, 0.999) and eps 1e-8 are both defaults."""
+
+    def make(model: torch.nn.Module) -> torch.optim.Optimizer:
+        decay, no_decay = [], []
+        for param in model.parameters():
+            if param.requires_grad:
+                (decay if param.ndim > 1 else no_decay).append(param)
+        groups = [{"params": decay, "weight_decay": weight_decay},
+                  {"params": no_decay, "weight_decay": 0.0}]
+        return torch.optim.AdamW([g for g in groups if g["params"]],
+                                 lr=learning_rate)
+
+    return make
+
+
+def _masked_mean(per_token: torch.Tensor, batch: Dict) -> torch.Tensor:
+    if "mask" in batch:
+        mask = batch["mask"][:, 1:].float()
+        return (per_token * mask).sum() / mask.sum().clamp_min(1.0)
+    return per_token.mean()
+
+
+def lm_loss(model, batch: Dict, train: bool = True):
+    """Next-token cross-entropy (common.py:50-72): batch "tokens" [B, S];
+    loss over positions 0..S-2 predicting 1..S-1, averaged under the
+    optional "mask" [B, S]."""
+    tokens = batch["tokens"]
+    logits = model(tokens)[:, :-1]  # f32
+    targets = tokens[:, 1:]
+    per_token = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                targets.reshape(-1).long(), reduction="none")
+    loss = _masked_mean(per_token.reshape(targets.shape), batch)
+    return loss, {"perplexity": torch.exp(loss.detach())}
+
+
+def _chunk_step(m, l, tgt, h2, w, t2, base: int, vocab: int):
+    """One vocab chunk of the online log-sum-exp (the body of the JAX
+    scan, common.py:123-143): logits of the chunk in f32, padded columns
+    −1e30, running max and sum, the target's logit where it falls here."""
+    chunk = w.shape[1]
+    logits = (h2 @ w.to(h2.dtype)).float()
+    if base + chunk > vocab:
+        col = torch.arange(chunk, device=logits.device)[None, :] + base
+        logits = torch.where(col < vocab, logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(-1))
+    l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+    local = t2 - base
+    in_range = (local >= 0) & (local < chunk)
+    picked = torch.gather(logits, 1, local.clamp(0, chunk - 1)[:, None])[:, 0]
+    return m_new, l, torch.where(in_range, picked, tgt)
+
+
+def lm_loss_chunked(model, batch: Dict, train: bool = True,
+                    chunk_size: int = 8192):
+    """`lm_loss` without the [B, S, vocab] logits (common.py:93-164):
+    hidden states come out of the model once; the head matmul and the
+    log-sum-exp run per vocab chunk, the head cast to the hidden dtype
+    and the logits f32. Each chunk runs under `torch.utils.checkpoint`,
+    so the backward recomputes its logits and no [B·S, V] activation
+    stays live."""
+    tokens = batch["tokens"]
+    hidden = model(tokens, return_hidden=True)  # [B, S, D]
+    head = model.lm_head  # [D, V]
+    vocab = head.shape[-1]
+    n_chunks = -(-vocab // chunk_size)
+    h = hidden[:, :-1]
+    targets = tokens[:, 1:]
+    b, s, d = h.shape
+    h2 = h.reshape(b * s, d)
+    t2 = targets.reshape(b * s).long()
+    m = torch.full((b * s,), NEG_INF, dtype=torch.float32, device=h2.device)
+    l = torch.zeros((b * s,), dtype=torch.float32, device=h2.device)
+    tgt = torch.zeros((b * s,), dtype=torch.float32, device=h2.device)
+    recompute = torch.is_grad_enabled()
+    for c in range(n_chunks):
+        w = head[:, c * chunk_size:(c + 1) * chunk_size]
+        if w.shape[1] < chunk_size:  # the padded tail chunk
+            w = F.pad(w, (0, chunk_size - w.shape[1]))
+        args = (m, l, tgt, h2, w, t2, c * chunk_size, vocab)
+        if recompute:
+            m, l, tgt = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, tgt = _chunk_step(*args)
+    logsumexp = m + torch.log(l.clamp_min(1e-30))
+    loss = _masked_mean((logsumexp - tgt).reshape(b, s), batch)
+    return loss, {"perplexity": torch.exp(loss.detach())}
+
+
+def synthetic_token_iter(batch_size: int, seq_len: int, vocab: int,
+                         seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless seeded token batches {"tokens": int32 [B, S]} (common.py:
+    181-186): the same numpy stream as the JAX package's."""
+    rng = np.random.RandomState(seed)
+    while True:
+        yield {"tokens": rng.randint(0, vocab, (batch_size, seq_len),
+                                     dtype=np.int32)}

@@ -1,14 +1,22 @@
 """Decoder-only transformer (llama-style) — counterpart of
-tf_yarn_tpu/models/transformer.py, for serving.
+tf_yarn_tpu/models/transformer.py, for training and serving.
 
-Architecture: RMSNorm pre-norm, interleaved-pair RoPE, GQA, SwiGLU MLP.
-Parameter names mirror the flax tree (`models/weights.py` maps one onto
-the other); Dense kernels keep the JAX ``[in, out]`` layout so
-``y = x @ kernel`` is the JAX ``einsum("...d,df->...f")``.
+Architecture: RMSNorm pre-norm, interleaved-pair RoPE, GQA, SwiGLU MLP,
+LoRA adapters on every dense projection (`LoraDense`). Parameter names
+mirror the flax tree (`models/weights.py` maps one onto the other);
+Dense kernels keep the JAX ``[in, out]`` layout so ``y = x @ kernel`` is
+the JAX ``einsum("...d,df->...f")``.
 
-Two decode paths, both over an int8 KV cache (the JAX package's
-``kv_cache_dtype="int8"``; the bf16 cache is still to port):
+Paths:
 
+* `Transformer.forward(tokens, return_hidden=False)` — the training
+  forward (transformer.py:490-533): attention through `ops.attention`
+  (``attention_impl`` "xla" or "flash", the latter the hand-written
+  kernels), every norm through `ops.rmsnorm` (the kernel for CUDA
+  tensors, its plain f32 version for CPU ones), and, with ``remat``, each block
+  recomputed in the backward by ``torch.utils.checkpoint`` — the port
+  recomputes the whole block where the JAX package keeps the dots
+  (``checkpoint_dots_with_no_batch_dims``); the numbers are identical.
 * `Transformer.prefill` — the dense-cache int8 prefill
   (transformer.py:227-315 with s > 1): K/V are quantized into the
   prompt's cache rows, and attention runs over the DEQUANTIZED rows, so
@@ -18,23 +26,31 @@ Two decode paths, both over an int8 KV cache (the JAX package's
   per-slot positions, quantize, scatter into the block pool (in place),
   then `paged_int8_window_attention` reads the pool directly.
 
-Weights live in the compute dtype (the JAX package casts its f32 params
-to it at every use); RMSNorm scales stay f32, as the kernel reads them.
-Layers are a plain list (`scan_layers` has no counterpart) and there is
-no remat: serving has no backward. The non-decode training forward,
-LoRA adapters, MoE and the bf16 KV cache are still to port (ROADMAP.md).
+Parameter dtypes. The JAX package keeps f32 params and casts them to the
+compute dtype at every use. Here a parameter the optimizer trains (built
+with ``trainable=True``: every parameter without LoRA, only the
+``lora_*`` adapters with it) is an f32 master (``param_dtype``) cast at
+every use, as in JAX. A parameter nothing trains — the frozen base of a
+LoRA fine-tune, or every weight of a served model — is stored once in
+the compute dtype: casting once gives the same bits as casting at every
+use, and at Llama-3-8B widths the base takes 16.1 GB instead of 32.1 GB.
+RMSNorm scales stay f32 either way (the kernel reads f32). Layers are a
+plain list (``scan_layers`` is accepted and ignored). MoE
+(``moe_experts > 0``) and the bf16 KV cache are still to port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tf_yarn_tpu_torch._device import resolve_device
-from tf_yarn_tpu_torch.ops.attention import xla_attention
+from tf_yarn_tpu_torch.ops.attention import IMPLS, attention, xla_attention
 from tf_yarn_tpu_torch.ops.decode_attention import paged_int8_window_attention
 from tf_yarn_tpu_torch.ops.quantize import dequantize_int8, quantize_int8
 from tf_yarn_tpu_torch.ops.rmsnorm import rmsnorm
@@ -52,6 +68,16 @@ class TransformerConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    attention_impl: str = "xla"  # xla | flash (ring, ulysses: Queue 1 item 7)
+    scan_layers: bool = True  # accepted and ignored: layers are a list
+    remat: bool = True
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    moe_experts: int = 0  # > 0 raises: MoE is ROADMAP.md Queue 1 item 8
+    # Accepted so JAX configs carry over, and ignored: every norm runs
+    # through ops.rmsnorm, whose numbers are the plain f32 norm's.
+    fused_norms: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -115,44 +141,78 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.reshape(x.shape).to(x.dtype)
 
 
+def _param(shape, trainable: bool, config: TransformerConfig, device,
+           dtype: Optional[torch.dtype] = None) -> nn.Parameter:
+    """An uninitialised parameter: an f32 master (``param_dtype``) when
+    the optimizer trains it, else stored in the compute dtype (module
+    docstring)."""
+    if dtype is None:
+        dtype = config.param_dtype if trainable else config.dtype
+    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
+                        requires_grad=trainable)
+
+
+def is_lora_param(name: str) -> bool:
+    """The JAX `lora_label_tree` predicate: a parameter is an adapter
+    iff some component of its name starts with ``lora_``."""
+    return any(part.startswith("lora_") for part in name.split("."))
+
+
 class RMSNorm(nn.Module):
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
         self.config = config
-        self.scale = nn.Parameter(
-            torch.ones(config.d_model, dtype=torch.float32, device=device),
-            requires_grad=False)
+        self.scale = _param((config.d_model,), trainable, config, device,
+                            dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         return rmsnorm(x, self.scale, cfg.norm_eps).to(cfg.dtype)
 
 
-class Dense(nn.Module):
-    """The JAX `LoraDense` with ``lora_rank=0``: y = x @ kernel, kernel
-    ``[in, out]`` in the compute dtype."""
+class LoraDense(nn.Module):
+    """Dense with an optional LoRA adapter (transformer.py:145-190):
+    ``y = x @ kernel + (alpha / rank) · (x @ lora_a) @ lora_b``, every
+    factor cast to the compute dtype; kernel ``[in, out]``, lora_a
+    ``[in, rank]`` (N(0, 0.02) at init), lora_b ``[rank, out]`` (zeros)."""
 
     def __init__(self, features_in: int, features_out: int,
-                 config: TransformerConfig, device=None):
+                 config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.empty(features_in, features_out, dtype=config.dtype,
-                        device=device), requires_grad=False)
+        self.config = config
+        lora = config.lora_rank > 0
+        self.kernel = _param((features_in, features_out),
+                             trainable and not lora, config, device)
+        if lora:
+            self.lora_a = _param((features_in, config.lora_rank), trainable,
+                                 config, device)
+            self.lora_b = _param((config.lora_rank, features_out), trainable,
+                                 config, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel
+        cfg = self.config
+        y = x @ self.kernel.to(cfg.dtype)
+        if cfg.lora_rank > 0:
+            scale = cfg.lora_alpha / cfg.lora_rank
+            y = y + scale * ((x @ self.lora_a.to(cfg.dtype))
+                             @ self.lora_b.to(cfg.dtype))
+        return y
 
 
 class Attention(nn.Module):
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         kv = cfg.n_kv_heads * cfg.head_dim
-        self.wq = Dense(cfg.d_model, cfg.n_heads * cfg.head_dim, cfg, device)
-        self.wk = Dense(cfg.d_model, kv, cfg, device)
-        self.wv = Dense(cfg.d_model, kv, cfg, device)
-        self.wo = Dense(cfg.n_heads * cfg.head_dim, cfg.d_model, cfg, device)
+        dense = lambda i, o: LoraDense(i, o, cfg, device, trainable)
+        self.wq = dense(cfg.d_model, cfg.n_heads * cfg.head_dim)
+        self.wk = dense(cfg.d_model, kv)
+        self.wv = dense(cfg.d_model, kv)
+        self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.d_model)
 
     def _project(self, x):
         cfg = self.config
@@ -164,6 +224,16 @@ class Attention(nn.Module):
     def _out(self, out):
         b, s = out.shape[:2]
         return self.wo(out.reshape(b, s, -1))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The training path: rope at `positions` [B, S], causal
+        attention through the configured backend."""
+        cfg = self.config
+        q, k, v = self._project(x)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        return self._out(attention(q, k, v, impl=cfg.attention_impl,
+                                   causal=True))
 
     def prefill(self, x: torch.Tensor):
         """Dense-cache int8 prefill from an empty cache: returns the
@@ -220,27 +290,33 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
         cfg = config
-        self.w_gate = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.w_up = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.w_down = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+        self.w_gate = LoraDense(cfg.d_model, cfg.d_ff, cfg, device, trainable)
+        self.w_up = LoraDense(cfg.d_model, cfg.d_ff, cfg, device, trainable)
+        self.w_down = LoraDense(cfg.d_ff, cfg.d_model, cfg, device, trainable)
 
     def forward(self, x):
         return self.w_down(nn.functional.silu(self.w_gate(x)) * self.w_up(x))
 
 
 class Block(nn.Module):
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
-        self.attn_norm = RMSNorm(config, device)
-        self.attn = Attention(config, device)
-        self.mlp_norm = RMSNorm(config, device)
-        self.mlp = SwiGLU(config, device)
+        norm_trainable = trainable and config.lora_rank == 0
+        self.attn_norm = RMSNorm(config, device, norm_trainable)
+        self.attn = Attention(config, device, trainable)
+        self.mlp_norm = RMSNorm(config, device, norm_trainable)
+        self.mlp = SwiGLU(config, device, trainable)
 
     def _mlp(self, x):
         return x + self.mlp(self.mlp_norm(x))
+
+    def forward(self, x, positions):
+        return self._mlp(x + self.attn(self.attn_norm(x), positions))
 
     def prefill(self, x):
         out, cache = self.attn.prefill(self.attn_norm(x))
@@ -253,24 +329,35 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """tokens -> f32 logits, over the two int8 decode paths (module
-    docstring). Built on CUDA unless ``device="cpu"`` is passed; the
+    """tokens -> f32 logits, for training (`forward`) and over the two
+    int8 decode paths (module docstring). Built on CUDA unless
+    ``device="cpu"`` is passed. ``trainable=True`` builds the parameters
+    an optimizer trains as f32 masters with ``requires_grad`` (all of
+    them, or only the LoRA adapters when ``lora_rank > 0``); the default
+    builds a frozen model in the compute dtype, as serving wants. The
     weights are uninitialised until `init_weights` or a state dict
     (`models/weights.py`) fills them."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None,
+                 trainable: bool = False):
         super().__init__()
+        if config.moe_experts > 0:
+            raise NotImplementedError(
+                "moe_experts > 0: MoE is not ported yet (ROADMAP.md Queue 1 "
+                "item 8, other model families)")
+        if config.attention_impl not in IMPLS:
+            raise ValueError(f"unknown attention_impl {config.attention_impl!r}; "
+                             f"use {' | '.join(IMPLS)}")
         device = resolve_device(device)
         self.config = config
-        self.embedding = nn.Parameter(
-            torch.empty(config.vocab_size, config.d_model, dtype=config.dtype,
-                        device=device), requires_grad=False)
+        dense_trainable = trainable and config.lora_rank == 0
+        self.embedding = _param((config.vocab_size, config.d_model),
+                                dense_trainable, config, device)
         self.layers = nn.ModuleList(
-            [Block(config, device) for _ in range(config.n_layers)])
-        self.final_norm = RMSNorm(config, device)
-        self.lm_head = nn.Parameter(
-            torch.empty(config.d_model, config.vocab_size, dtype=config.dtype,
-                        device=device), requires_grad=False)
+            [Block(config, device, trainable) for _ in range(config.n_layers)])
+        self.final_norm = RMSNorm(config, device, dense_trainable)
+        self.lm_head = _param((config.d_model, config.vocab_size),
+                              dense_trainable, config, device)
 
     @property
     def device(self) -> torch.device:
@@ -280,26 +367,51 @@ class Transformer(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "Transformer":
         """Random weights from `generator` (on the model's device):
         embedding and head N(0, 0.02), Dense kernels N(0, 1/fan_in) — the
-        JAX package's lecun-normal scale — and unit norm scales."""
+        JAX package's lecun-normal scale — unit norm scales, LoRA
+        ``lora_a`` N(0, 0.02) and ``lora_b`` zeros."""
         for name, param in self.named_parameters():
             if name.endswith("scale"):
                 param.fill_(1.0)
-            elif name in ("embedding", "lm_head"):
+            elif name.endswith("lora_b"):
+                param.zero_()
+            elif name in ("embedding", "lm_head") or name.endswith("lora_a"):
                 param.normal_(0.0, 0.02, generator=generator)
             else:
                 param.normal_(0.0, param.shape[0] ** -0.5, generator=generator)
         return self
 
+    def _embed(self, tokens):
+        return self.embedding[tokens].to(self.config.dtype)
+
     def _head(self, x):
         x = self.final_norm(x)
-        return (x @ self.lm_head).float()
+        return (x @ self.lm_head.to(self.config.dtype)).float()
+
+    def forward(self, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """tokens [B, S] -> logits [B, S, V] f32, or with
+        ``return_hidden=True`` the final-norm hidden states [B, S, d] in
+        the compute dtype (the chunked loss's seam)."""
+        cfg = self.config
+        x = self._embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = positions.expand(tokens.shape)
+        recompute = cfg.remat and torch.is_grad_enabled()
+        for block in self.layers:
+            if recompute:
+                x = checkpoint(block, x, positions, use_reentrant=False)
+            else:
+                x = block(x, positions)
+        if return_hidden:
+            return self.final_norm(x)
+        return self._head(x)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """tokens [B, F] -> (last-position logits [B, V] f32, cache):
         cache is a dict of int8 rows ``key``/``value`` [L, B, F, Hkv, D]
         and f32 ``key_scale``/``value_scale`` [L, B, F, Hkv, 1]."""
-        x = self.embedding[tokens]
+        x = self._embed(tokens)
         rows: List[Tuple[torch.Tensor, ...]] = []
         for block in self.layers:
             x, cache = block.prefill(x)
@@ -316,17 +428,118 @@ class Transformer(nn.Module):
         """tokens [S, W] (slots x window) -> logits [S, W, V] f32, with
         the window's K/V rows written into `pool` in place. `tables`
         [S, MB] and `lengths` [S] are int32 on the model's device."""
-        x = self.embedding[tokens]
+        x = self._embed(tokens)
         for i, block in enumerate(self.layers):
             x = block.paged_decode(x, pool.layer(i), tables, lengths)
         return self._head(x)
 
 
 def make_model(config: TransformerConfig, seed: Optional[int] = 0,
-               device=None) -> Transformer:
+               device=None, trainable: bool = False) -> Transformer:
     """A `Transformer` on `device` (CUDA by default) with random weights
     from a `torch.Generator` seeded with `seed`."""
-    model = Transformer(config, device=device)
+    model = Transformer(config, device=device, trainable=trainable)
     generator = torch.Generator(device=model.device)
     generator.manual_seed(int(seed))
     return model.init_weights(generator)
+
+
+def lora_label_tree(model: nn.Module) -> Dict[str, str]:
+    """``{parameter name: "lora" | "frozen"}`` — the JAX label tree
+    (transformer.py:612-623) over the module's parameter names."""
+    return {name: "lora" if is_lora_param(name) else "frozen"
+            for name, _ in model.named_parameters()}
+
+
+def merge_lora(state_dict: Mapping[str, torch.Tensor],
+               config: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """Fold trained adapters into the base kernels (transformer.py:
+    626-658): every ``kernel`` with a ``lora_a``/``lora_b`` beside it
+    becomes ``kernel + (alpha/rank)·A@B`` (in f32, cast back to the
+    kernel's dtype) and the factors are dropped, so the result loads
+    into the same architecture with ``lora_rank=0``."""
+    if config.lora_rank <= 0:
+        return dict(state_dict)
+    scale = config.lora_alpha / config.lora_rank
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in state_dict.items():
+        if is_lora_param(name):
+            continue
+        prefix = name[:-len("kernel")] if name.endswith("kernel") else None
+        if prefix is not None and f"{prefix}lora_a" in state_dict:
+            a = state_dict[f"{prefix}lora_a"].float()
+            b = state_dict[f"{prefix}lora_b"].float()
+            value = (value.float() + scale * (a @ b)).to(value.dtype)
+        out[name] = value
+    return out
+
+
+def make_lora_optimizer(learning_rate: float = 1e-4, inner=None):
+    """The frozen-base LoRA optimizer (transformer.py:661-672): a factory
+    ``model -> optimizer`` that freezes every parameter but the
+    ``lora_*`` adapters (``requires_grad=False``, the counterpart of
+    optax's set_to_zero) and hands the model to `inner` (an optimizer
+    factory over the parameters that require grad, default
+    `common.adamw_with_decay_mask`)."""
+    from tf_yarn_tpu_torch.models import common
+
+    inner = inner or common.adamw_with_decay_mask(learning_rate)
+
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        for name, param in model.named_parameters():
+            if not is_lora_param(name):
+                param.requires_grad_(False)
+        return inner(model)
+
+    return make
+
+
+def make_experiment(config: Optional[TransformerConfig] = None,
+                    model_dir: Optional[str] = None, train_steps: int = 100,
+                    batch_size: int = 8, seq_len: Optional[int] = None,
+                    learning_rate: float = 3e-4, mesh_spec=None,
+                    input_fn=None, loss_chunk_size: Optional[int] = None,
+                    optimizer=None, **train_param_overrides):
+    """Causal-LM experiment (transformer.py:675-746): synthetic tokens
+    unless `input_fn` is given; LoRA configs get the frozen-base
+    optimizer; vocabularies of 65536 or more get the chunked loss with
+    ``chunk_size=16384``. `optimizer` is None, ``"adamw"`` or a factory
+    ``model -> torch.optim.Optimizer`` (``"adafactor"`` is not ported).
+    The model is built by `train_and_evaluate` on its device
+    (``init_fn``), with random weights from ``train_params.seed``."""
+    import functools
+
+    from tf_yarn_tpu_torch.experiment import TorchExperiment, TrainParams
+    from tf_yarn_tpu_torch.models import common
+
+    config = config or TransformerConfig.tiny()
+    seq_len = seq_len or config.max_seq_len
+    if loss_chunk_size is None and config.vocab_size >= 65536:
+        loss_chunk_size = 16384
+    loss_fn = (functools.partial(common.lm_loss_chunked,
+                                 chunk_size=loss_chunk_size)
+               if loss_chunk_size else common.lm_loss)
+    if optimizer == "adamw":
+        optimizer = common.adamw_with_decay_mask(learning_rate)
+    elif isinstance(optimizer, str):
+        raise ValueError(f"unknown optimizer {optimizer!r}; use 'adamw' or "
+                         "pass an optimizer factory (adafactor is not ported)")
+    if config.lora_rank > 0:
+        optimizer = make_lora_optimizer(learning_rate, inner=optimizer)
+    elif optimizer is None:
+        optimizer = common.adamw_with_decay_mask(learning_rate)
+    defaults = dict(train_steps=train_steps,
+                    log_every_steps=max(1, train_steps // 10))
+    defaults.update(train_param_overrides)
+    return TorchExperiment(
+        model=None,
+        optimizer=optimizer,
+        loss_fn=loss_fn,
+        train_input_fn=input_fn or (lambda: common.synthetic_token_iter(
+            batch_size, seq_len, config.vocab_size)),
+        train_params=TrainParams(**defaults),
+        model_dir=model_dir,
+        init_fn=lambda device, seed: make_model(config, seed, device,
+                                                trainable=True),
+        mesh_spec=mesh_spec,
+    )

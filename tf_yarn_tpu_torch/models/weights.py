@@ -12,9 +12,13 @@ layouts the JAX package writes (transformer.py:467-477, 519-522):
 * ``layer_{i}/block/...`` — the unrolled loop.
 
 Dense kernels keep the JAX ``[in, out]`` layout (``"...d,df"``), which is
-the port's `Dense.kernel` layout too: nothing is transposed. Every leaf
-must be consumed and every port parameter filled, or it raises. The
-port imports no JAX: this module only walks nested mappings.
+the port's `LoraDense.kernel` layout too: nothing is transposed. With
+``config.lora_rank > 0`` every dense also maps its ``lora_a`` ``[in,
+rank]`` and ``lora_b`` ``[rank, out]`` leaves. Leaves come back as f32
+tensors (the JAX params are f32); `load_state_dict` casts each to its
+parameter's dtype, so f32 masters stay f32. Every leaf must be consumed
+and every port parameter filled, or it raises. The port imports no JAX:
+this module only walks nested mappings.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ _BLOCK_LEAVES = {
     "mlp/w_up/kernel": "mlp.w_up.kernel",
     "mlp/w_down/kernel": "mlp.w_down.kernel",
 }
+_DENSES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+           "mlp/w_gate", "mlp/w_up", "mlp/w_down")
 _TOP_LEAVES = {
     "embedding": "embedding",
     "lm_head": "lm_head",
@@ -73,7 +79,13 @@ def from_flax(variables, config: TransformerConfig) -> Dict[str, torch.Tensor]:
     for path, name in _TOP_LEAVES.items():
         state[name] = torch.from_numpy(np.array(take(path), np.float32))
     scanned = any(path.startswith("layers/block/") for path in flat)
-    for path, name in _BLOCK_LEAVES.items():
+    block_leaves = dict(_BLOCK_LEAVES)
+    if config.lora_rank > 0:
+        for dense in _DENSES:
+            for factor in ("lora_a", "lora_b"):
+                block_leaves[f"{dense}/{factor}"] = (
+                    f"{dense.replace('/', '.')}.{factor}")
+    for path, name in block_leaves.items():
         if scanned:
             stacked = take(f"layers/block/{path}")
             if stacked.shape[0] != config.n_layers:

@@ -1,10 +1,14 @@
-"""Plain attention — the semantics of tf_yarn_tpu/ops/attention.py:
-xla_attention.
+"""Attention backends and the dispatch seam — counterpart of
+tf_yarn_tpu/ops/attention.py.
 
-The JAX package computes this outside any Pallas kernel (XLA einsums),
-so the port keeps it as plain torch matrix products: it is the prefill
-attention of the serving path. The flash, ring and Ulysses backends and
-the key-padding mask are still to port (ROADMAP.md).
+`xla_attention` is the JAX package's einsum-and-softmax reference,
+computed outside any kernel (XLA einsums there, plain torch matrix
+products here): it is the prefill attention of the serving path and the
+``attention_impl="xla"`` training path. `attention()` dispatches on the
+implementation name: ``"flash"`` goes to `ops/flash_attention.py` (the
+hand-written kernels). The sequence-parallel ``"ring"``, ``"ulysses"``
+and ``"ulysses_flash"`` backends raise: they wait for the parallelism
+port (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -13,17 +17,23 @@ from typing import Optional
 
 import torch
 
+IMPLS = ("xla", "flash", "ring", "ulysses", "ulysses_flash")
+
 
 def xla_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                   *, causal: bool = True, softmax_scale: Optional[float] = None,
-                  segment_offset: int = 0) -> torch.Tensor:
+                  segment_offset: int = 0,
+                  key_padding_mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """q [B, S, H, D], k/v [B, Skv, Hkv, D] -> [B, S, H, D].
 
     Numerics follow the JAX package exactly: QKᵀ in the input dtype, then
     cast to f32; masked logits set to finfo(float32).min; softmax in f32;
     probabilities cast back to the query dtype before P·V. GQA repeats
     each kv head over its group of query heads. `segment_offset` shifts
-    the causal mask: query i sits at position i + segment_offset."""
+    the causal mask: query i sits at position i + segment_offset.
+    `key_padding_mask` [B, Skv] (nonzero = real token) hides padded keys
+    from every query; a row with no real key gets zeros."""
     _, s_q, n_heads, head_dim = query.shape
     s_kv, n_kv = key.shape[1], key.shape[2]
     if n_heads != n_kv:
@@ -31,10 +41,49 @@ def xla_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
         value = torch.repeat_interleave(value, n_heads // n_kv, dim=2)
     scale = softmax_scale if softmax_scale is not None else head_dim ** -0.5
     logits = (torch.einsum("bqhd,bkhd->bhqk", query, key) * scale).float()
+    neg_inf = torch.finfo(torch.float32).min
     if causal:
         q_pos = torch.arange(s_q, device=query.device)[:, None] + segment_offset
         k_pos = torch.arange(s_kv, device=query.device)[None, :]
-        logits = torch.where(q_pos >= k_pos, logits,
-                             torch.finfo(torch.float32).min)
+        logits = torch.where(q_pos >= k_pos, logits, neg_inf)
+    keep = None
+    if key_padding_mask is not None:
+        keep = key_padding_mask.bool()[:, None, None, :]  # [B, 1, 1, Skv]
+        logits = torch.where(keep, logits, neg_inf)
     probs = torch.softmax(logits, dim=-1).to(query.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, value)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, value)
+    if keep is not None:
+        # A fully padded row would otherwise get a uniform softmax over
+        # finfo.min logits: zero it, as the JAX package does.
+        has_any_key = keep.any(dim=-1)[..., None]  # [B, 1, 1, 1]
+        out = torch.where(has_any_key, out, torch.zeros((), dtype=out.dtype,
+                                                        device=out.device))
+    return out
+
+
+def attention(query, key, value, *, impl: str = "xla", causal: bool = True,
+              key_padding_mask=None):
+    """Dispatch to the configured backend (attention.py:79-113).
+    `key_padding_mask` is an xla-impl feature: a kernel backend given one
+    raises rather than silently attending to padding."""
+    if key_padding_mask is not None and impl in IMPLS[1:]:
+        raise NotImplementedError(
+            f"key_padding_mask is not supported by attention impl "
+            f"{impl!r}; use impl='xla' for padded-batch encoders (or "
+            "strip padding before a kernel impl)"
+        )
+    if impl == "flash":
+        from tf_yarn_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(query, key, value, causal=causal)
+    if impl in ("ring", "ulysses", "ulysses_flash"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} is sequence-parallel and not ported "
+            "yet (ROADMAP.md Queue 1 item 7, parallelism)"
+        )
+    if impl != "xla":
+        raise ValueError(
+            f"unknown attention impl {impl!r}; use {' | '.join(IMPLS)}"
+        )
+    return xla_attention(query, key, value, causal=causal,
+                         key_padding_mask=key_padding_mask)
