@@ -8,27 +8,38 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed;
-3. kernels: each of the seven kernels against its plain torch version on
+3. kernels: each of the eight kernels against its plain torch version on
    the card at its main path's shapes (serving: rmsnorm, quantize, paged
-   attention; training: rmsnorm dx, flash forward, dq, dk/dv), with the
+   attention, dense int8 decode attention — the two attention rows read
+   the same slots' cache bytes; training: rmsnorm dx, flash forward, dq,
+   dk/dv), with the
    stated tolerance, timed with CUDA events over CUDA-graph replays
    beside the plain version, the library call where one exists, and its
    bound on this card. The times are cold: the calls cycle over copies
    of the inputs that together exceed twice the L2 cache, as the main
    paths find each layer's inputs out of L2; the warm time (the same
    inputs again and again) is kept beside them;
-4. references: a small f32 model served on the card (kernels) and on
-   the CPU (plain versions) from the same weights — greedy streams
-   equal, prefill logits close; a small f32 LoRA decoder (flash, fused
-   norms) trained 5 steps on both from the same weights and batches —
-   losses and adapters close; then `train_and_evaluate` with a model_dir
-   writes manifested checkpoints, verifies them and resumes;
+4. references: a small f32 model (int8 KV) served on the card (kernels)
+   and on the CPU (plain versions) from the same weights — prefill
+   logits close, greedy outputs equal on the fused paged grid, the
+   dense grid and the gather mode (each also with spec_k=2) and from
+   `engine.generate` at batch 3 with a replayed remainder and an eos;
+   `run_inference` over a checkpoint `train_and_evaluate` wrote on the
+   card — its records equal `generate` on the restored params; a small
+   f32 LoRA decoder (flash, fused norms) trained 5 steps on both from the
+   same weights and batches — losses and adapters close; then
+   `train_and_evaluate` with a model_dir writes manifested checkpoints,
+   verifies them and resumes;
 5. serving slice: the Llama-3-8B-width decoder (random bf16 weights from
-   seed 0) behind SlotScheduler (paged, fused, int8) and ServingServer
-   on 127.0.0.1, answering 4 concurrent greedy /v1/generate requests;
-   every serving kernel's launch count must be > 0 after them. A second
-   burst of fresh prompts then runs under torch.profiler: the device's
-   busy share and the kernels that took most device time;
+   seed 0, int8 KV) on every serving path, each with the kernel counts
+   set to 0 just before it and read just after: SlotScheduler with 4
+   slots behind ServingServer on 127.0.0.1 answering 4 concurrent greedy
+   /v1/generate requests — (a) paged with fused attention, (b) paged in
+   the gather mode, (c) the dense grid — and (d) `engine.generate` on a
+   [4, 300] batch. Every kernel of a path must have launched (the dense
+   decode kernel on b, c and d). Bursts (a) and (b) run a second burst
+   of fresh prompts under torch.profiler: the device's busy share and
+   the kernels that took most device time;
 6. training slice: `make_experiment(llama3_8b(lora_rank=16, flash, fused
    norms, unrolled))` at batch 1 x 2048 tokens through
    `train_and_evaluate` for 4 steps, all 32 layers, random weights from
@@ -47,6 +58,7 @@ file.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -211,6 +223,17 @@ def check_quantize(torch, ops, dev):
     return row
 
 
+def split_combine_us(torch, attend, args, touched_bytes):
+    """Device time per call of each CUDA kernel behind an attention
+    wrapper (its split and combine kernels), cold, from the profiler."""
+    cold = cold_copies(args, touched_bytes)
+    calls = 4 * len(cold)
+    profiled = device_profile(torch, lambda: [
+        attend(*a) for _ in range(4) for a in cold])
+    return {re.search(r"\w+_kernel", k["name"]).group(0): k["ms"] * 1e3 / calls
+            for k in profiled["top_kernels"] if "_kernel" in k["name"]}
+
+
 def check_attention(torch, ops, dev):
     slots, width, n_heads, n_kv, head_dim, bs, max_blocks = 8, 1, 32, 8, 128, 16, 512
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -255,20 +278,62 @@ def check_attention(torch, ops, dev):
     row.update(timings(ops.decode_attention.paged_int8_window_attention,
                        ops.decode_attention.paged_int8_window_attention_reference,
                        None, args, n_bytes, torch, plain_inner=8))
-    # Device time per call of each CUDA kernel behind the wrapper (the
-    # split and combine kernels), cold, from the profiler.
-    cold = cold_copies(args, n_bytes)
-    calls = 4 * len(cold)
-    profiled = device_profile(torch, lambda: [
-        ops.decode_attention.paged_int8_window_attention(*a)
-        for _ in range(4) for a in cold])
-    row["kernel_us_per_call"] = {
-        re.search(r"\w+_kernel", k["name"]).group(0): k["ms"] * 1e3 / calls
-        for k in profiled["top_kernels"] if "_kernel" in k["name"]}
-    del cold
+    row["kernel_us_per_call"] = split_combine_us(
+        torch, ops.decode_attention.paged_int8_window_attention, args, n_bytes)
     n_flops = sum(int(lengths[s]) * width + width * (width + 1) // 2
                   for s in range(slots)) * n_heads * head_dim * 4
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops)
+    return row
+
+
+def check_dense_attention(torch, ops, dev, paged_lengths):
+    """The dense int8 decode kernel at the paged row's slots and lengths
+    (each row attends over its paged length + its own token, so the two
+    rows read the same cache bytes), over a dense cache of 8192 rows
+    whose dead rows carry NaN scales."""
+    batch, seq, n_heads, n_kv, head_dim = len(paged_lengths), 8192, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(batch, seq, n_kv, head_dim, device=dev, generator=gen)
+    kq, ks = ops.quantize.quantize_int8_reference(x * 2)
+    vq, vs = ops.quantize.quantize_int8_reference(
+        torch.randn(x.shape, device=dev, generator=gen))
+    del x
+    lengths = torch.tensor(paged_lengths, dtype=torch.int32, device=dev) + 1
+    dead = (torch.arange(seq, device=dev)[None, :]
+            >= lengths.long()[:, None])[:, :, None, None]
+    ks = torch.where(dead, float("nan"), ks)  # dead rows must never leak
+    vs = torch.where(dead, float("nan"), vs)
+    del dead
+    q = torch.randn(batch, n_heads, head_dim, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    args = (q, kq, ks, vq, vs, lengths)
+    attend = ops.decode_attention.int8_decode_attention
+    plain = ops.decode_attention.int8_decode_attention_reference
+    got = attend(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    # atol = rtol = 2e-2: a bf16 output, sums in another order.
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    row = {
+        "name": "int8_decode_attention", "route": "cuda",
+        "source": "tf_yarn_tpu_torch/ops/csrc/dense_decode.cu",
+        "replaces": "tf_yarn_tpu/ops/decode_attention.py:50",
+        "shape": {"batch": batch, "seq": seq, "lengths": lengths.tolist(),
+                  "heads": n_heads, "kv_heads": n_kv, "head_dim": head_dim},
+        "tolerance": "atol = rtol = 2e-2 (bf16 output)",
+        "max_abs_err": float((got.float() - ref.float()).abs().max()),
+    }
+    # Each row's live positions read once: K and V int8 rows and their
+    # f32 scales, the lengths, q and the output; 4 flops per position,
+    # query head and column.
+    positions = int(lengths.long().sum())
+    n_bytes = (positions * n_kv * (2 * head_dim + 2 * 4) + batch * 4
+               + 2 * q.numel() * q.element_size())
+    row.update(timings(attend, plain, None, args, n_bytes, torch,
+                       plain_inner=8))
+    row["kernel_us_per_call"] = split_combine_us(torch, attend, args, n_bytes)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        n_bytes, positions * n_heads * head_dim * 4)
     return row
 
 
@@ -631,39 +696,115 @@ def train_slice(torch, tt, training, experiment, telemetry, counted, dev):
     return result
 
 
+def _drive(scheduler, prompts, sampling):
+    """Submit every prompt and tick the scheduler to the end; returns the
+    streams in prompt order."""
+    try:
+        responses = [scheduler.submit(p, sampling) for p in prompts]
+        for _ in range(400):
+            scheduler.tick()
+            if all(r.done for r in responses):
+                break
+        return [r.result(timeout=1) for r in responses]
+    finally:
+        scheduler.close()
+
+
+# The small f32 model served on the card and on the CPU: head_dim 128 at
+# GQA group 2, the f32 instantiation of the decode kernels.
+TINY_SERVE = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=1024, max_seq_len=256)
+
+
 def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
-    """The same small f32 model served through the kernels on the card
-    and through the plain versions on the CPU: greedy streams must be
-    equal and the prefill logits close."""
-    cfg = tt.TransformerConfig(vocab_size=512, d_model=512, n_layers=2,
-                               n_heads=4, n_kv_heads=2, d_ff=1024,
-                               max_seq_len=256, dtype=torch.float32)
+    """The same small f32 model (int8 KV) served through the kernels on
+    the card and through the plain versions on the CPU: prefill logits
+    close, and greedy outputs equal on every decode path — the fused
+    paged grid, the dense grid and the gather mode (each also with two
+    n-gram drafts per tick) and `generate` at batch 3 with a replayed
+    prompt remainder and an eos."""
+    cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
+                               **TINY_SERVE)
     cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
     gpu_model = tt.Transformer(cfg, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
     prompts = [[(7 * i + 3) % 512 for i in range(n)] for n in (5, 40)]
-    streams = []
-    logits = []
+    prompts.append([11, 12, 13, 14] * 6)  # repeats: the drafter proposes
+    grids = {
+        "fused": dict(kv_layout="paged", decode_attention="fused"),
+        "dense": dict(kv_layout="dense"),
+        "gather": dict(kv_layout="paged", decode_attention="gather"),
+        "dense_spec2": dict(kv_layout="dense", spec_k=2),
+        "gather_spec2": dict(kv_layout="paged", decode_attention="gather",
+                             spec_k=2),
+    }
+    batch = [[(5 * i + 2 * r + 1) % 512 for i in range(19)] for r in range(3)]
+    results = []
     for model in (gpu_model, cpu_model):
         engine = engine_mod.DecodeEngine(model)
-        logits.append(engine.prefill([prompts[1][:32]])[1].cpu())
-        scheduler = sched_mod.SlotScheduler(engine, max_slots=2, block_size=16)
-        try:
-            responses = [scheduler.submit(
-                p, sched_mod.SamplingParams(max_new_tokens=8)) for p in prompts]
-            for _ in range(200):
-                scheduler.tick()
-                if all(r.done for r in responses):
-                    break
-            streams.append([r.result(timeout=1) for r in responses])
-        finally:
-            scheduler.close()
-    err = float((logits[0] - logits[1]).abs().max())
-    if not torch.isfinite(logits[0]).all() or err > 1e-3:
+        run = {"logits": engine.prefill([prompts[1][:32]])[1].cpu()}
+        for name, options in grids.items():
+            scheduler = sched_mod.SlotScheduler(engine, max_slots=2,
+                                                block_size=16, **options)
+            run[name] = _drive(scheduler, prompts,
+                               sched_mod.SamplingParams(max_new_tokens=8))
+        # Batch 3 pads to 4; 19 tokens prefill at 16 and replay 3.
+        free = engine.generate(batch, 8).cpu()
+        run["eos"] = int(free[0, 19 + 2])
+        run["generate"] = engine.generate(batch, 8,
+                                          eos_token=run["eos"]).cpu().tolist()
+        results.append(run)
+    card, cpu = results
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    if not torch.isfinite(card["logits"]).all() or err > 1e-3:
         raise AssertionError(f"card vs CPU prefill logits differ by {err}")
-    if streams[0] != streams[1]:
-        raise AssertionError(f"card {streams[0]} != CPU {streams[1]}")
-    return {"prefill_logits_max_abs_err": err, "streams": streams[0]}
+    for name in (*grids, "eos", "generate"):
+        if card[name] != cpu[name]:
+            raise AssertionError(f"{name}: card {card[name]} != CPU {cpu[name]}")
+    if card["dense"] != card["fused"] or card["gather"] != card["dense"]:
+        raise AssertionError(f"the decode paths disagree on the card: {card}")
+    return {"prefill_logits_max_abs_err": err,
+            "streams": {name: card[name] for name in grids},
+            "generate": card["generate"], "generate_eos": card["eos"]}
+
+
+def inference_reference(torch, tt, engine_mod, training, experiment, ckpt,
+                        inference, dev):
+    """`run_inference` on the card over a checkpoint `train_and_evaluate`
+    wrote on the card (2 steps of the small f32 model): its records must
+    equal `generate` on the restored params."""
+    import tempfile
+
+    cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
+                               **TINY_SERVE)
+    batches = [{"tokens": [[(3 * i + 7 * r + b) % 512 for i in range(21)]
+                           for r in range(2)], "id": [2 * b, 2 * b + 1]}
+               for b in range(2)]
+    with tempfile.TemporaryDirectory() as model_dir:
+        exp = tt.make_experiment(cfg, model_dir=model_dir, train_steps=2,
+                                 batch_size=2, seq_len=64,
+                                 checkpoint_every_steps=2, log_every_steps=1)
+        training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                    device=dev)
+        out = Path(model_dir) / "records.jsonl"
+        model = tt.Transformer(cfg, device=dev)
+        stats = inference.run_inference(experiment.InferenceExperiment(
+            model=model, model_dir=model_dir, input_fn=lambda: iter(batches),
+            output_path=str(out), max_new_tokens=6))
+        records = [json.loads(line) for line in out.read_text().splitlines()]
+        restored = tt.Transformer(cfg, device=dev)
+        restored.load_state_dict(
+            ckpt.restore_checkpoint(model_dir, 2, map_location=dev)["params"])
+    engine = engine_mod.DecodeEngine(restored)
+    expected = [row[21:] for b in batches
+                for row in engine.generate(b["tokens"], 6).cpu().tolist()]
+    if [r["tokens"] for r in records] != expected \
+            or [r["id"] for r in records] != [0, 1, 2, 3]:
+        raise AssertionError(f"run_inference records {records} != {expected}")
+    if not 0 < stats["tokens_per_sec"] <= stats["padded_tokens_per_sec"]:
+        raise AssertionError(f"run_inference stats {stats}")
+    return {"records": len(records), "ckpt_step": stats["ckpt_step"],
+            "tokens_per_sec": stats["tokens_per_sec"]}
 
 
 def post(port: int, body: dict) -> tuple:
@@ -736,38 +877,43 @@ def device_profile(torch, run):
     }
 
 
-def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
-    cfg = tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16)
-    started = time.perf_counter()
-    model = tt.make_model(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    log(f"model: llama3_8b widths, {cfg.n_layers} layers, bf16, "
-        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}e9 params, "
-        f"built in {time.perf_counter() - started:.1f} s")
-    engine = engine_mod.DecodeEngine(model)
-    _cache, logits = engine.prefill([[1, 2, 3, 4, 5, 6, 7, 8]])
-    if tuple(logits.shape) != (1, cfg.vocab_size) \
-            or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
+# The serving slice's bursts: four concurrent greedy requests of these
+# prompt lengths, 16 new tokens each, on a grid of 4 slots.
+BURST_LENGTHS = (17, 64, 150, 300)
+BURST_NEW = 16
+
+
+def _launches(counted):
+    return {fn.__name__: fn.launches for fn in counted}
+
+
+def _zero(counted):
+    for fn in counted:
+        fn.launches = 0
+
+
+def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
+                gen, vocab, profile, **grid):
+    """One SlotScheduler grid behind ServingServer: a burst of fresh
+    prompts with every kernel count set to 0 just before it and read
+    just after; with `profile`, a second burst of fresh prompts under
+    torch.profiler. The grid's KV memory is freed on return."""
+    torch.cuda.reset_peak_memory_stats()
     scheduler = sched_mod.SlotScheduler(engine, max_slots=4, block_size=16,
-                                        kv_layout="paged",
-                                        decode_attention="fused")
+                                        **grid)
     server = server_mod.ServingServer(scheduler, "127.0.0.1", 0)
     scheduler.start()
     server.start()
     try:
-        gen = torch.Generator().manual_seed(SEED)
-        lengths = (17, 64, 150, 300)
-        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
-                   for n in lengths]
-        for fn in counted:
-            fn.launches = 0
-        results, wall = burst(server.port, prompts, 16)
-        launches = {fn.__name__: fn.launches for fn in counted}
+        prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                   for n in BURST_LENGTHS]
+        _zero(counted)
+        results, wall = burst(server.port, prompts, BURST_NEW)
+        launches = _launches(counted)
         for status, body in results:
-            if status != 200 or len(body["tokens"]) != 16:
+            if status != 200 or len(body["tokens"]) != BURST_NEW:
                 raise AssertionError(f"bad reply {status}: {body}")
-            if not all(0 <= t < cfg.vocab_size for t in body["tokens"]):
+            if not all(0 <= t < vocab for t in body["tokens"]):
                 raise AssertionError(f"token out of range: {body['tokens']}")
         status, health = get(server.port, "/healthz")
         if status != 200 or health["status"] != "ok":
@@ -775,36 +921,97 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
         status, stats = get(server.port, "/stats")
         if status != 200 or "decode_engine" not in stats:
             raise AssertionError(f"/stats: {status}")
-        for name, count in launches.items():
-            if count <= 0:
-                raise AssertionError(f"{name} never launched on the main path")
-        ticks = stats["ticks"]
-        # The same burst again with fresh prompts (no prefix-cache hits),
-        # under the profiler: where the device time goes, and how idle
-        # the device is.
-        fresh = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
-                 for n in lengths]
-        profiled = device_profile(torch, lambda: burst(server.port, fresh, 16))
-        return {
+        for fn in needed:
+            if launches[fn.__name__] <= 0:
+                raise AssertionError(f"{fn.__name__} never launched on the "
+                                     f"{grid} burst")
+        result = {
+            "grid": grid,
             "requests": len(prompts),
-            "prompt_tokens": list(lengths),
-            "new_tokens": 16,
+            "prompt_tokens": list(BURST_LENGTHS),
+            "new_tokens": BURST_NEW,
             "wall_s": wall,
-            "tokens_per_s": 16 * len(prompts) / wall,
+            "tokens_per_s": BURST_NEW * len(prompts) / wall,
             "ttft_s": sorted(body["ttft_s"] for _status, body in results),
-            "ticks": ticks,
+            "ticks": stats["ticks"],
+            "kv_cache_bytes": stats["kv_cache_hbm_bytes"],
             "launches": launches,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "profiled_burst": profiled,
         }
+        if profile:
+            # Fresh prompts again (no prefix-cache hits): where the device
+            # time goes, and how idle the device is.
+            fresh = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                     for n in BURST_LENGTHS]
+            result["profiled_burst"] = device_profile(
+                torch, lambda: burst(server.port, fresh, BURST_NEW))
+        return result
     finally:
         server.stop()
         scheduler.close()
+        # The grid's KV is freed before the next path: the scheduler and
+        # its server thread hold each other, so collect the cycle.
+        del scheduler, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
+    """The Llama-3-8B-width decoder (int8 KV) on every serving path: (a)
+    the fused paged burst, (b) the gather burst, (c) the dense burst, and
+    (d) `engine.generate` on a [4, 300] batch, 16 new tokens."""
+    rmsnorm, quantize, paged, dense = counted
+    cfg = tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
+                                         kv_cache_dtype="int8")
+    started = time.perf_counter()
+    model = tt.make_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"model: llama3_8b widths, {cfg.n_layers} layers, bf16, int8 KV, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}e9 params, "
+        f"built in {time.perf_counter() - started:.1f} s")
+    engine = engine_mod.DecodeEngine(model)
+    _cache, logits = engine.prefill([[1, 2, 3, 4, 5, 6, 7, 8]])
+    if tuple(logits.shape) != (1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
+    del _cache
+    gen = torch.Generator().manual_seed(SEED)
+    common = (torch, engine, sched_mod, server_mod, counted)
+    paths = {
+        "fused_burst": serve_burst(
+            *common, (rmsnorm, quantize, paged), gen, cfg.vocab_size, True,
+            kv_layout="paged", decode_attention="fused"),
+        "gather_burst": serve_burst(
+            *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, True,
+            kv_layout="paged", decode_attention="gather"),
+        "dense_burst": serve_burst(
+            *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, False,
+            kv_layout="dense"),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    batch = torch.randint(0, cfg.vocab_size, (4, 300), generator=gen)
+    _zero(counted)
+    started = time.perf_counter()
+    out = engine.generate(batch, BURST_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    launches = _launches(counted)
+    if tuple(out.shape) != (4, 300 + BURST_NEW) \
+            or not torch.equal(out[:, :300].cpu(), batch.int()) \
+            or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate output {tuple(out.shape)} malformed")
+    for fn in (rmsnorm, quantize, dense):
+        if launches[fn.__name__] <= 0:
+            raise AssertionError(f"{fn.__name__} never launched in generate")
+    paths["generate"] = {
+        "batch": [4, 300], "new_tokens": BURST_NEW, "wall_s": wall,
+        "tokens_per_s": 4 * BURST_NEW / wall, "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    return paths
 
 
 def main() -> int:
-    import gc
-
     import torch
 
     if not torch.cuda.is_available():
@@ -816,7 +1023,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from tf_yarn_tpu_torch import checkpoint as ckpt
-    from tf_yarn_tpu_torch import experiment, telemetry, training
+    from tf_yarn_tpu_torch import experiment, inference, telemetry, training
     from tf_yarn_tpu_torch.models import common
     from tf_yarn_tpu_torch.models import decode_engine as engine_mod
     from tf_yarn_tpu_torch.models import transformer as tt
@@ -851,9 +1058,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
 
+    paged_row = check_attention(torch, ops, dev)
     rows = [check_rmsnorm(torch, ops, dev), check_quantize(torch, ops, dev),
-            check_attention(torch, ops, dev), check_rmsnorm_dx(torch, ops, dev),
-            *check_flash(torch, ops, dev)]
+            paged_row,
+            check_dense_attention(torch, ops, dev,
+                                  paged_row["shape"]["lengths"]),
+            check_rmsnorm_dx(torch, ops, dev), *check_flash(torch, ops, dev)]
     for row in rows:
         library = row["library_ms"]
         log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']:.3g}, "
@@ -868,17 +1078,24 @@ def main() -> int:
 
     reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev)
     log(f"serving reference: card vs CPU prefill logits max err "
-        f"{reference['prefill_logits_max_abs_err']:.3g}, greedy streams equal")
+        f"{reference['prefill_logits_max_abs_err']:.3g}; greedy outputs "
+        f"equal on the fused, dense and gather grids (spec_k 0 and 2) and "
+        f"generate: {json.dumps(reference)}")
+    infer_reference = inference_reference(torch, tt, engine_mod, training,
+                                          experiment, ckpt, inference, dev)
+    log(f"inference reference: run_inference records equal generate: "
+        f"{json.dumps(infer_reference)}")
     train_reference = train_tiny_reference(torch, tt, common, training,
                                            experiment, ckpt, dev)
     log(f"training reference: {json.dumps(train_reference)}")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
-                       decode_attention.paged_int8_window_attention)
-    torch.cuda.reset_peak_memory_stats()
+                       decode_attention.paged_int8_window_attention,
+                       decode_attention.int8_decode_attention)
     slice_result = serve_slice(torch, tt, engine_mod, sched_mod, server_mod,
                                serving_counted, dev)
-    log(f"serving slice: {json.dumps(slice_result)} on {card}")
+    for path, result in slice_result.items():
+        log(f"serving slice, {path}: {json.dumps(result)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -890,14 +1107,21 @@ def main() -> int:
                                training_counted, dev)
     log(f"training slice: {json.dumps(train_result)} on {card}")
 
+    # Each kernel's launches on every main path it runs in; `launches` is
+    # the count of the path named in `launches_path`.
+    primary = {"paged_int8_window_attention": "serving fused_burst",
+               "int8_decode_attention": "serving gather_burst"}
     for row in rows:
-        if row["name"] in slice_result["launches"]:
-            row["launches"] = slice_result["launches"][row["name"]]
-            row["launches_path"] = "serving"
-        else:
-            row["launches"] = train_result["launches"][row["name"]]
-            row["launches_path"] = "training"
-    rows[0]["launches_training"] = train_result["launches"]["rmsnorm"]
+        by_path = {f"serving {path}": result["launches"][row["name"]]
+                   for path, result in slice_result.items()
+                   if result["launches"].get(row["name"])}
+        if row["name"] in train_result["launches"]:
+            by_path["training"] = train_result["launches"][row["name"]]
+        row["launches_path"] = primary.get(
+            row["name"], "serving fused_burst" if "serving fused_burst"
+            in by_path else "training")
+        row["launches"] = by_path[row["launches_path"]]
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

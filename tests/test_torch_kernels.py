@@ -137,6 +137,71 @@ def test_cuda_paged_window_kernel_refuses_other_configs(cuda, dtype, n_heads,
     assert t_decode.paged_int8_window_attention.launches == launches
 
 
+def _dense_inputs(device, lengths, seq, n_heads, n_kv, head_dim, dtype):
+    """A dense int8 cache [B, S, Hkv, D] whose dead rows (past each row's
+    length) carry NaN scales, which must never leak."""
+    batch = len(lengths)
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(batch, seq, n_kv, head_dim, device=device, generator=gen)
+    kq, ks = t_quantize.quantize_int8_reference(x * 2)
+    vq, vs = t_quantize.quantize_int8_reference(
+        torch.randn(x.shape, device=device, generator=gen))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    dead = (torch.arange(seq, device=device)[None, :]
+            >= lengths.long()[:, None])[:, :, None, None]
+    ks = torch.where(dead, float("nan"), ks)
+    vs = torch.where(dead, float("nan"), vs)
+    q = torch.randn(batch, n_heads, head_dim, device=device,
+                    generator=gen).to(dtype)
+    return q, kq, ks, vq, vs, lengths
+
+
+# (dtype, lengths, seq_len, n_heads, n_kv, head_dim) for the dense
+# kernel's two instantiations: lengths 1, 15, 16, 17 and S; S not a
+# multiple of the 128-row tile or the 256-row split; around the split
+# boundary; one row of length 0; batches from 1 to 64.
+DENSE_CASES = {
+    "short": (torch.bfloat16, [1, 15, 16, 17, 200], 200, 32, 8, 128),
+    "tail": (torch.bfloat16, [300, 257, 256, 255, 0, 129], 300, 32, 8, 128),
+    "one_row": (torch.bfloat16, [1000], 1000, 32, 8, 128),
+    "batch64": (torch.bfloat16, [(37 * i) % 700 + 1 for i in range(64)], 700,
+                32, 8, 128),
+    "f32_short": (torch.float32, [1, 15, 16, 17, 90], 90, 8, 4, 128),
+    "f32_tail": (torch.float32, [513, 1, 256, 40], 513, 4, 2, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_cuda_dense_decode_kernel_matches_plain(cuda, case):
+    dtype, lengths, seq, n_heads, n_kv, head_dim = DENSE_CASES[case]
+    args = _dense_inputs(cuda, lengths, seq, n_heads, n_kv, head_dim, dtype)
+    launches = t_decode.int8_decode_attention.launches
+    got = t_decode.int8_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert t_decode.int8_decode_attention.launches == launches + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert torch.isfinite(got).all()
+    ref = t_decode.int8_decode_attention_reference(*args)
+    # bf16: a bf16 output and sums in another order; f32: the order only.
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    zero = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(float(got[i].abs().max()) == 0.0 for i in zero)
+
+
+# (dtype, n_heads, n_kv, head_dim) the dense kernel is not built for.
+@pytest.mark.parametrize("dtype, n_heads, n_kv, head_dim", [
+    (torch.bfloat16, 64, 8, 128), (torch.bfloat16, 16, 4, 64),
+    (torch.float32, 32, 8, 128)])
+def test_cuda_dense_decode_kernel_refuses_other_configs(cuda, dtype, n_heads,
+                                                        n_kv, head_dim):
+    args = _dense_inputs(cuda, [3, 40], 64, n_heads, n_kv, head_dim, dtype)
+    launches = t_decode.int8_decode_attention.launches
+    with pytest.raises(ValueError, match="dense kernel is built for"):
+        t_decode.int8_decode_attention(*args)
+    assert t_decode.int8_decode_attention.launches == launches
+
+
 @pytest.mark.parametrize("rows, dtype", [(8, torch.bfloat16),
                                          (2048, torch.bfloat16),
                                          (3, torch.float32)])
@@ -289,3 +354,48 @@ def test_cuda_flash_refuses_mixed_dtypes(cuda):
     k = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         t_flash.flash_fwd(q, k, k)
+
+
+def test_cuda_dense_decode_paths_match_cpu(cuda):
+    """A small f32 decoder (head_dim 128, GQA group 2: the f32
+    instantiation) through the dense decode on the card and on the CPU
+    from the same weights: a batch-3 prefill, three single-token steps
+    (the kernel) and a window of 3 (the plain attention), then one
+    gather-mode tick over a block pool. f32 sums in another order: 1e-3
+    on the logits; tokens equal."""
+    from tf_yarn_tpu_torch.models import decode_engine as t_engine
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=512,
+                               max_seq_len=64, dtype=torch.float32,
+                               kv_cache_dtype="int8")
+    cpu = tt.make_model(cfg, seed=1, device="cpu")
+    card = tt.Transformer(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, 256, (3, 11), generator=torch.Generator()
+                           .manual_seed(2))
+    windows = [prompt[:, :1], prompt[:, 1:2], prompt[:, 2:3], prompt[:, 3:6]]
+    launches = t_decode.int8_decode_attention.launches
+    outs = []
+    for model in (card, cpu):
+        logits, rows = model.prefill(prompt.to(model.device))
+        cache = model.make_cache(3)
+        cache.insert(rows)
+        seen = [logits.cpu()]
+        for window in windows:
+            seen.append(model.decode(window.to(model.device), cache).cpu())
+        engine = t_engine.DecodeEngine(model)
+        pool = engine.make_paged_pool(9, 16)
+        row, _ = engine.prefill(prompt[:1, :8])
+        engine.pack_prefill(pool, [1], row, 8, 16)
+        tables = np.zeros((2, 4), np.int32)
+        tables[0, 0] = 1
+        _, emitted, _ = engine.paged_step(
+            pool, tables, [8, 0], [int(prompt[0, 8]), 0], [None, None],
+            [True, False], block_size=16)
+        outs.append((seen, emitted.tolist()))
+    assert t_decode.int8_decode_attention.launches == launches + 3 * 2 + 2
+    for got, ref in zip(*(o[0] for o in outs)):
+        torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+    assert outs[0][1] == outs[1][1]

@@ -41,7 +41,8 @@ def _jax_params(cfg):
 
 
 def _port_model(params):
-    cfg = tt.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64)
+    cfg = tt.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64,
+                                    kv_cache_dtype="int8")
     model = tt.Transformer(cfg, device="cpu")
     model.load_state_dict(
         from_flax(jax.tree_util.tree_map(np.asarray, params), cfg))
@@ -132,7 +133,7 @@ def test_fused_paged_spec_step_matches_jax(stacks):
     pool = engine.pack_prefill(pool, np.array([1], np.int32), row, 8, BLOCK)
     pool, emitted, counts, _ = engine.paged_spec_step(
         pool, tables, lengths, tokens, n_known, eos, [None, None], active,
-        block_size=BLOCK)
+        block_size=BLOCK, decode_attention="fused")
 
     np.testing.assert_array_equal(counts, np.asarray(j_counts))
     assert int(counts[0]) == 1

@@ -44,7 +44,8 @@ def weights():
 
 
 def _port_engine(params):
-    cfg = tt.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64)
+    cfg = tt.TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64,
+                                    kv_cache_dtype="int8")
     model = tt.Transformer(cfg, device="cpu")
     model.load_state_dict(
         from_flax(jax.tree_util.tree_map(np.asarray, params), cfg))
@@ -90,7 +91,8 @@ def test_http_greedy_streams_equal_jax_scheduler(weights):
     model, params = weights
     expected = _jax_streams(model, params)
     scheduler = SlotScheduler(_port_engine(params), max_slots=2,
-                              block_size=8)
+                              block_size=8, kv_layout="paged",
+                              decode_attention="fused")
     server = ServingServer(scheduler, "127.0.0.1", 0)
     scheduler.start()
     server.start()
@@ -138,9 +140,9 @@ def test_context_overflow_and_sampling_mismatch_are_rejected(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"kv_layout": "dense"},
-    {"decode_attention": "gather"},
-    {"spec_k": 2},
+    {"prefill_chunk": "auto"},
+    {"prefill_budget_per_tick": 8},
+    {"prefill_chunk": 4, "spec_k": 2},
     {"prefill_chunk": 8},
     {"kv_host_blocks": 4},
 ])
@@ -154,8 +156,7 @@ def test_unported_options_raise(weights, option):
 def test_unported_engine_paths_raise(weights):
     _, params = weights
     engine = _port_engine(params)
-    for name in ("step", "spec_step", "paged_step", "generate",
-                 "extract_blocks", "inject_blocks", "make_slot_cache"):
+    for name in ("extract_blocks", "inject_blocks"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(engine, name)()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -7,19 +7,24 @@ under `tf_yarn_tpu`.
 
 Ported so far:
 
-* paged-int8 serving of the llama-style decoder —
-  `models.transformer.Transformer` (fused RMSNorm, int8 KV, fused paged
-  decode), `models.decode_engine.DecodeEngine`,
-  `serving.scheduler.SlotScheduler` and `serving.server.ServingServer`;
+* serving of the llama-style decoder — `models.transformer.Transformer`
+  (fused RMSNorm, KV cache in the compute dtype or int8),
+  `models.decode_engine.DecodeEngine`, `serving.scheduler.SlotScheduler`
+  (the dense slot grid, or the paged pool read in the gather mode or by
+  the fused paged kernel; n-gram speculative drafts) and
+  `serving.server.ServingServer`;
+* generation and batch inference — `models.generate.generate` and
+  `inference.run_inference` (`experiment.InferenceExperiment`,
+  `data.prefetch`);
 * LoRA (or full) fine-tuning of the same decoder on one device —
   `models.transformer.make_experiment` fed to
   `training.train_and_evaluate` (`experiment`, `checkpoint`,
   `models.common`, `utils.flops`).
 
-Seven hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm
-and its dx, per-row int8 quantize, paged int8 window attention, flash
-attention forward, dq and dk/dv). ROADMAP.md lists what is still to
-port.
+Eight hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm
+and its dx, per-row int8 quantize, paged and dense int8 decode
+attention, flash attention forward, dq and dk/dv). ROADMAP.md lists
+what is still to port.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,5 @@
 """Experiment types — the subset of tf_yarn_tpu/experiment.py that the
-port's train loop consumes.
+port's train loop and batch inference consume.
 
 `TrainParams` is a copy of the JAX package's loop knobs with the same
 validation (experiment.py:39-100), less ``drain_poll_every_steps``: the
@@ -16,6 +16,10 @@ building it on the train loop's device); ``optimizer`` is a factory
 ``loss_fn(model, batch, train=True) -> (loss, aux)`` with ``batch`` a
 dict of tensors. ``mesh_spec`` is carried but a multi-device one raises
 in the loop (ROADMAP.md Queue 1 item 7).
+
+`InferenceExperiment` (experiment.py:236-278) describes a batch-inference
+job for `inference.run_inference`; its ``model`` is the port's
+`Transformer`, whose weights the run restores from ``model_dir``.
 """
 
 from __future__ import annotations
@@ -87,6 +91,48 @@ class TorchExperiment:
     def __post_init__(self) -> None:
         if self.model is None and self.init_fn is None:
             raise ValueError("TorchExperiment needs a model or an init_fn")
+
+
+@dataclasses.dataclass
+class InferenceExperiment:
+    """Batch-inference job: restore a checkpoint into ``model``, run
+    KV-cache generation over an input stream, write JSON lines.
+
+    ``model`` is a `Transformer` built on the device the job runs on (its
+    weights are replaced by the checkpoint's ``params``); ``model_dir``
+    holds the ``ckpt-<step>`` trees `training.train_and_evaluate` writes
+    (local paths). `input_fn` yields dict batches with "tokens" [B, P]
+    and any extra keys to echo into the records; it may declare
+    ``(shard, num_shards)`` keywords to split the stream across task
+    instances. Results land as JSON lines at `output_path` (suffixed
+    ``-<task_id>`` with several instances)."""
+
+    model: Any
+    model_dir: str
+    input_fn: Callable[..., Iterator[Batch]]
+    output_path: str
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    eos_token: Optional[int] = None
+    step: Optional[int] = None  # checkpoint step; None = latest
+    # Multi-instance jobs whose input_fn ignores (shard, num_shards) fail
+    # fast unless duplicating the full stream is intended.
+    allow_duplicate_stream: bool = False
+    # Input batches staged ahead, and decoded batches queued to the
+    # background writer before the producer blocks; both >= 1.
+    prefetch_depth: int = 2
+    writer_depth: int = 8
+
+    def __post_init__(self) -> None:
+        for name in ("prefetch_depth", "writer_depth"):
+            value = getattr(self, name)
+            if value < 1:
+                raise ValueError(f"{name} must be >= 1, got {value}")
+        if self.max_new_tokens < 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 0, got {self.max_new_tokens}")
 
 
 @dataclasses.dataclass

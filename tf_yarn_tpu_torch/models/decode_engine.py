@@ -1,33 +1,54 @@
-"""Decode engine — the subset of tf_yarn_tpu/models/decode_engine.py that
-the paged, fused serving scheduler calls.
+"""Decode engine — counterpart of tf_yarn_tpu/models/decode_engine.py.
 
-PyTorch runs eagerly, so the JAX engine's compile cache has no
-counterpart: the engine holds the model, the bucket grids and counters.
-What it keeps, and where it differs:
+PyTorch runs eagerly, so the JAX engine's compile cache (compiled
+programs, fingerprints, program keys, the token bucket) has no
+counterpart: the engine holds the model, the bucket grids and call
+counters (`stats`). What it keeps, and where it differs:
 
-* **Prompt bucketing.** `slot_prefill_len` floor-buckets a prompt over
-  `DEFAULT_PROMPT_BUCKETS`, leaving at least the last prompt token to
-  replay through width-1 ticks (it samples the first generated token).
-* **The paged int8 pool** (`make_paged_pool`): values ``[L, NB, bs, Hkv,
-  D]`` int8 plus per-row f32 scales ``[L, NB, bs, Hkv, 1]``; block 0 is
-  the trash block. `pack_prefill` splices prefill rows ``[0,
-  prefill_len)`` into a slot's blocks and `paged_spec_step` writes the
-  window's rows — both IN PLACE, where the JAX engine donates the pool
-  and returns the new one (they return the same pool object so callers
-  read like the JAX ones).
-* **Host-side acceptance** in `paged_spec_step`: one forward, then
-  `verify_window` per active slot, each reading its slot's tokens back
-  to the host (one sync per active slot; the JAX engine keeps the
-  accept/reject on the device).
+* **`generate`** (decode_engine.py:1708-1838): the batch pads up to a
+  bucket by repeating its last row, oversized batches go through the
+  largest bucket in chunks, the prompt prefills at its floor bucket and
+  its remainder replays one teacher-forced token at a time (no random
+  draw before the last replay step), then the token loop of
+  `models.generate.sample_tokens` runs on the host with the eos early
+  exit. The dense cache is sized to prompt + max_new_tokens positions
+  (the JAX cache holds max_seq_len; the positions past a row's index
+  carry zero weight either way).
+* **The dense slot grid** (`make_slot_cache`/`insert_slot`/`evict_slot`/
+  `step`/`spec_step`): a `DenseKVCache` of ``max_slots`` rows, each at
+  its own index. `step` advances every slot one token in one
+  `Transformer.decode`; masked slots pass their token through and draw
+  no random numbers.
+* **The paged pool** (`make_paged_pool`): values ``[L, NB, bs, Hkv, D]``
+  (int8 with f32 per-row scales, or the compute dtype); block 0 is the
+  trash block. `pack_prefill` splices prefill rows into a slot's blocks
+  IN PLACE, where the JAX engine donates the pool and returns the new
+  one (the methods return the same pool object so callers read like the
+  JAX ones). Two attention modes read it:
 
-The dense slot grid (`make_slot_cache`/`insert_slot`/`evict_slot`/
-`step`), `spec_step`, `paged_step`, the gather attention mode,
-`generate`, `extract_blocks`/`inject_blocks` and tensor-parallel decode
-raise NotImplementedError naming their ROADMAP item.
+  - ``"gather"`` (`paged_step`, `paged_spec_step`): each slot's dense
+    view is gathered through its table row, layer by layer and only up
+    to the longest slot's end (`_GatheredView`), the same dense decode
+    runs over it, and the window's rows are written back at
+    ``table[pos // bs]``, offset ``pos % bs`` (past the table: the
+    trash block);
+  - ``"fused"`` (`paged_spec_step`, int8 only): `Transformer.
+    paged_decode` attends straight off the pool.
+
+* **Host-side acceptance and sampling.** After the one forward of a
+  tick, `verify_window` (or the slot's sample) runs per active slot on
+  the host, reading the slot's logits (the JAX engine keeps the
+  accept/reject on the device). Each slot samples from its own
+  `torch.Generator`, advanced once per emitted token.
+
+`extract_blocks`/`inject_blocks` (the host swap tier) and
+tensor-parallel decode raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,13 +56,29 @@ import numpy as np
 import torch
 
 from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.models.generate import (
+    _sample,
+    as_prompt,
+    check_length,
+    sample_tokens,
+)
 from tf_yarn_tpu_torch.models.spec import verify_window
-from tf_yarn_tpu_torch.models.transformer import PagedKVPool, Transformer
+from tf_yarn_tpu_torch.models.transformer import (
+    KV_NAMES,
+    DenseKVCache,
+    PagedKVPool,
+    Transformer,
+    pool_rows,
+    require_int8_pool,
+    zeroed_kv,
+)
+
+_logger = logging.getLogger(__name__)
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 DEFAULT_PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
-_DECODE_ITEM = "ROADMAP.md Queue 1, decode engine"
+DECODE_ATTENTION_MODES = ("gather", "fused")
 
 
 def _floor_bucket(value: int, buckets: Sequence[int]) -> Optional[int]:
@@ -80,9 +117,15 @@ class DecodeEngine:
         self._rest_width = max(gaps) if gaps else 1
         self._lock = threading.Lock()
         self.stats: Dict[str, int] = {
+            "calls": 0,
             "prefill_calls": 0,
+            "step_calls": 0,
+            "spec_step_calls": 0,
+            "paged_step_calls": 0,
             "pack_calls": 0,
             "paged_spec_step_calls": 0,
+            "unbucketed_shapes": 0,
+            "oversize_batch_chunks": 0,
         }
 
     @property
@@ -114,36 +157,195 @@ class DecodeEngine:
     # -- prefill -----------------------------------------------------------
 
     def prefill(self, prompt) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """[B, F] prompt -> (int8 row cache, last-position logits [B, V])
+        """[B, F] prompt -> (row cache, last-position logits [B, V])
         (`Transformer.prefill`)."""
-        tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
-                                 device=self.device)
+        tokens = as_prompt(prompt, self.device)
         self._count("prefill_calls")
         with telemetry.span("decode_engine/prefill", batch=tokens.shape[0],
                             prompt=tokens.shape[1]):
             logits, cache = self.model.prefill(tokens)
         return cache, logits
 
-    # -- paged pool ----------------------------------------------------------
+    # -- generate ------------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0,
+                 eos_token: Optional[int] = None) -> torch.Tensor:
+        """Drop-in `generate`: [B, P] -> [B, P + max_new_tokens] int32 on
+        the model's device (module docstring)."""
+        prompt = as_prompt(prompt_tokens, self.device)
+        batch, prompt_len = prompt.shape
+        check_length(self.model, prompt_len, max_new_tokens)
+        if max_new_tokens == 0:
+            return prompt.int()
+        max_batch = self.batch_buckets[-1] if self.batch_buckets else None
+        if max_batch is not None and batch > max_batch:
+            # Through the largest bucket in chunks; each chunk draws from
+            # its own seed-`seed` chain, as a direct call on it would.
+            self._count("oversize_batch_chunks")
+            telemetry.get_registry().counter(
+                "decode_engine/oversize_batch_chunks").inc()
+            _logger.info("decode-engine: batch %d exceeds largest bucket %d "
+                         "— chunking into %d calls", batch, max_batch,
+                         -(-batch // max_batch))
+            return torch.cat([
+                self.generate(prompt[i:i + max_batch], max_new_tokens,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p, seed=seed, eos_token=eos_token)
+                for i in range(0, batch, max_batch)], dim=0)
+        self._count("calls")
+        telemetry.get_registry().counter("decode_engine/calls").inc()
+        b_bucket, prefill_len = self.select_buckets(batch, prompt_len)
+        if b_bucket != (_ceil_bucket(batch, self.batch_buckets) or -1) \
+                or prefill_len != (_floor_bucket(prompt_len,
+                                                 self.prompt_buckets) or -1):
+            self._count("unbucketed_shapes")
+            telemetry.get_registry().counter(
+                "decode_engine/unbucketed_shapes").inc()
+        padded = prompt
+        if b_bucket > batch:
+            # Pad rows repeat the last real row, so they take the same
+            # numeric path as genuine inputs; they are sliced away.
+            padded = torch.cat(
+                [prompt, prompt[-1:].expand(b_bucket - batch, prompt_len)])
+        rows, logits = self.prefill(padded[:, :prefill_len])
+        cache = self.model.make_cache(b_bucket, prompt_len + max_new_tokens)
+        cache.insert(rows)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(seed))
+        with telemetry.span("decode_engine/decode", batch=b_bucket):
+            # Teacher-forced replay of the remainder: K/V appended, no
+            # draw before the last step, whose logits sample the first
+            # generated token (generate_legacy's prefill sample).
+            for t in range(prefill_len, prompt_len):
+                logits = self.model.decode(padded[:, t:t + 1], cache)[:, -1]
+            first = _sample(logits, generator, temperature, top_k, top_p)
+            out = sample_tokens(self.model, cache, first, max_new_tokens,
+                                generator, temperature, top_k, top_p,
+                                eos_token)
+        return torch.cat([prompt, out[:batch]], dim=1).int()
+
+    # -- sampling a tick's slots ---------------------------------------------
+
+    def _sample_slots(self, logits: torch.Tensor, tokens: np.ndarray,
+                      generators: List[Optional[torch.Generator]], mask,
+                      temperature: float, top_k, top_p) -> np.ndarray:
+        """One token per slot from logits [S, V]: sampled where `mask`,
+        else the slot's input token passed through (no draw)."""
+        emitted = np.asarray(tokens, np.int32).copy()
+        mask = np.asarray(mask, bool)
+        if temperature == 0.0:
+            greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+            emitted[mask] = greedy[mask]
+            return emitted
+        for s in np.flatnonzero(mask):
+            emitted[s] = int(_sample(logits[s:s + 1], generators[s],
+                                     temperature, top_k, top_p)[0])
+        return emitted
+
+    def _verify_slots(self, logits: torch.Tensor, tokens: np.ndarray,
+                      n_known, eos_ids, generators, active,
+                      temperature: float, top_k, top_p):
+        """`verify_window` per active slot over logits [S, W, V]:
+        (emitted [S, W] int32, counts [S] int32)."""
+        slots, width = tokens.shape
+        emitted = np.zeros((slots, width), np.int32)
+        counts = np.zeros((slots,), np.int32)
+        for s in range(slots):
+            if not active[s]:
+                continue
+            row, counts[s] = verify_window(
+                logits[s], tokens[s].tolist(), int(n_known[s]),
+                int(eos_ids[s]), generators[s], True, temperature, top_k,
+                top_p)
+            emitted[s] = row
+        return emitted, counts
+
+    # -- dense slot grid -------------------------------------------------------
+
+    def make_slot_cache(self, max_slots: int) -> DenseKVCache:
+        """Zeroed per-slot KV grid: ``max_slots`` rows of ``max_seq_len``
+        positions, each row at its own index."""
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        return self.model.make_cache(max_slots)
+
+    @torch.no_grad()
+    def insert_slot(self, slot_cache: DenseKVCache, slot: int,
+                    row_cache) -> DenseKVCache:
+        """Splice a batch-1 prefill cache into slot `slot`, index
+        included, IN PLACE (returns the grid)."""
+        slot_cache.insert(row_cache, slot)
+        return slot_cache
+
+    @torch.no_grad()
+    def evict_slot(self, slot_cache: DenseKVCache, slot: int) -> DenseKVCache:
+        """Zero slot `slot` (KV content and index), IN PLACE."""
+        slot_cache.evict(slot)
+        return slot_cache
+
+    @torch.no_grad()
+    def step(self, slot_cache: DenseKVCache, tokens,
+             generators: List[Optional[torch.Generator]], sample_mask,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None):
+        """Advance every slot one token in one `Transformer.decode`.
+        Returns (slot_cache, emitted [S] int32, generators); masked slots
+        pass their input token through and draw nothing."""
+        tokens = np.asarray(tokens, np.int64)
+        self._count("step_calls")
+        with telemetry.span("decode_engine/step", slots=len(tokens)):
+            logits = self.model.decode(
+                torch.as_tensor(tokens, device=self.device)[:, None],
+                slot_cache)[:, -1]
+            emitted = self._sample_slots(logits, tokens, generators,
+                                         sample_mask, temperature, top_k,
+                                         top_p)
+        return slot_cache, emitted, generators
+
+    @torch.no_grad()
+    def spec_step(self, slot_cache: DenseKVCache, tokens, n_known, eos_ids,
+                  generators: List[Optional[torch.Generator]], active,
+                  temperature: float = 0.0, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None):
+        """Advance every slot up to W = tokens.shape[1] tokens: one
+        windowed `Transformer.decode`, `verify_window` per active slot,
+        then each active slot's index rewritten to its accepted length
+        (old index + n_known + emitted); inactive slots keep theirs.
+        Returns (slot_cache, emitted [S, W], counts [S], generators)."""
+        tokens = np.asarray(tokens, np.int64)
+        slots, width = tokens.shape
+        self._count("spec_step_calls")
+        with telemetry.span("decode_engine/spec_step", slots=slots,
+                            width=width):
+            index = slot_cache.index
+            logits = self.model.decode(
+                torch.as_tensor(tokens, device=self.device), slot_cache)
+            emitted, counts = self._verify_slots(
+                logits, tokens, n_known, eos_ids, generators, active,
+                temperature, top_k, top_p)
+            valid = np.where(np.asarray(active, bool),
+                             np.asarray(n_known, np.int32) + counts, 0)
+            slot_cache.index = index + torch.as_tensor(
+                valid.astype(np.int32), device=self.device)
+        return slot_cache, emitted, counts, generators
+
+    # -- paged pool ------------------------------------------------------------
 
     def make_paged_pool(self, num_blocks: int, block_size: int) -> PagedKVPool:
-        """Zeroed int8 block pool; block 0 is the reserved trash block."""
+        """Zeroed block pool in the cache's dtype (int8 values with f32
+        scales, or the compute dtype); block 0 is the reserved trash
+        block."""
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is reserved), got {num_blocks}"
             )
         self.max_blocks_per_slot(block_size)
         cfg = self.model.config
-        shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads)
-        values = shape + (cfg.head_dim,)
-        scales = shape + (1,)
-        dev = self.device
-        return PagedKVPool(
-            key=torch.zeros(values, dtype=torch.int8, device=dev),
-            value=torch.zeros(values, dtype=torch.int8, device=dev),
-            key_scale=torch.zeros(scales, dtype=torch.float32, device=dev),
-            value_scale=torch.zeros(scales, dtype=torch.float32, device=dev),
-        )
+        return PagedKVPool(**zeroed_kv(
+            cfg, (cfg.n_layers, num_blocks, block_size), self.device))
 
     def max_blocks_per_slot(self, block_size: int) -> int:
         max_seq_len = self.model.config.max_seq_len
@@ -170,13 +372,45 @@ class DecodeEngine:
             )
         self._count("pack_calls")
         pad = n_pack * block_size - prefill_len
-        for name in ("key", "value", "key_scale", "value_scale"):
+        for name in KV_NAMES:
+            leaf = getattr(pool, name)
+            if leaf is None:
+                continue
             rows = row_cache[name][:, 0, :prefill_len]  # [L, F, Hkv, *]
             rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
-            rows = rows.reshape(rows.shape[0], n_pack, block_size,
-                                *rows.shape[2:])
-            getattr(pool, name)[:, ids] = rows
+            leaf[:, ids] = rows.reshape(rows.shape[0], n_pack, block_size,
+                                        *rows.shape[2:])
         return pool
+
+    def _check_pool(self, pool: PagedKVPool, block_size: int) -> None:
+        if pool.block_size != block_size:
+            raise ValueError(
+                f"block_size={block_size} does not match the pool's "
+                f"{pool.block_size}"
+            )
+
+    @torch.no_grad()
+    def paged_step(self, pool: PagedKVPool, tables, lengths, tokens,
+                   generators: List[Optional[torch.Generator]], sample_mask,
+                   block_size: int, temperature: float = 0.0,
+                   top_k: Optional[int] = None, top_p: Optional[float] = None):
+        """Advance every slot one token against the pool in the gather
+        mode: the dense decode over each slot's gathered view, the new
+        row written at ``table[length // bs]``, offset ``length % bs``
+        (inactive slots carry table 0 and length 0: the trash block).
+        Returns (pool, emitted [S] int32, generators)."""
+        self._check_pool(pool, block_size)
+        tokens = np.asarray(tokens, np.int64)
+        self._count("paged_step_calls")
+        with telemetry.span("decode_engine/paged_step", slots=len(tokens)):
+            view = _GatheredView(pool, tables, lengths, 1, self.device)
+            logits = self.model.decode(
+                torch.as_tensor(tokens, device=self.device)[:, None],
+                view)[:, -1]
+            emitted = self._sample_slots(logits, tokens, generators,
+                                         sample_mask, temperature, top_k,
+                                         top_p)
+        return pool, emitted, generators
 
     @torch.no_grad()
     def paged_spec_step(
@@ -184,79 +418,103 @@ class DecodeEngine:
         generators: List[Optional[torch.Generator]], active,
         block_size: int, temperature: float = 0.0,
         top_k: Optional[int] = None, top_p: Optional[float] = None,
-        decode_attention: str = "fused",
+        decode_attention: str = "gather",
     ):
         """Advance every slot over its W = tokens.shape[1] window against
-        the block pool: one forward (`Transformer.paged_decode`, which
-        writes the window's K/V rows into the pool in place), then the
-        host-side accept/reject per slot. Returns (pool, emitted
-        [S, W] int32, counts [S] int32, generators); each generator
-        advanced once per emitted token."""
-        if decode_attention != "fused":
-            raise NotImplementedError(
-                f"decode_attention={decode_attention!r}: the gather mode is "
-                f"still to port ({_DECODE_ITEM}); the port runs 'fused'"
-            )
-        if pool.block_size != block_size:
+        the block pool: one forward — the gather mode's dense decode over
+        gathered views, or the fused `Transformer.paged_decode` (int8
+        only) — which writes the window's K/V rows into the pool in
+        place (rows past a slot's table to the trash block), then the
+        host-side accept/reject per slot. Returns (pool, emitted [S, W]
+        int32, counts [S] int32, generators); each generator advanced
+        once per emitted token."""
+        if decode_attention not in DECODE_ATTENTION_MODES:
             raise ValueError(
-                f"block_size={block_size} does not match the pool's "
-                f"{pool.block_size}"
+                f"decode_attention must be one of {DECODE_ATTENTION_MODES}, "
+                f"got {decode_attention!r}"
             )
+        if decode_attention == "fused":
+            require_int8_pool(self.model.config)
+        self._check_pool(pool, block_size)
         dev = self.device
         tokens_np = np.asarray(tokens, np.int64)
-        tables_t = torch.as_tensor(np.asarray(tables, np.int32), device=dev)
-        lengths_t = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
         slots, width = tokens_np.shape
+        tokens_t = torch.as_tensor(tokens_np, device=dev)
         self._count("paged_spec_step_calls")
         with telemetry.span("decode_engine/paged_spec_step", slots=slots,
                             width=width):
-            logits = self.model.paged_decode(
-                torch.as_tensor(tokens_np, device=dev), pool, tables_t,
-                lengths_t)
-            emitted = np.zeros((slots, width), np.int32)
-            counts = np.zeros((slots,), np.int32)
-            for s in range(slots):
-                if not active[s]:
-                    continue
-                row, counts[s] = verify_window(
-                    logits[s], tokens_np[s].tolist(), int(n_known[s]),
-                    int(eos_ids[s]), generators[s], True, temperature,
-                    top_k, top_p,
-                )
-                emitted[s] = row
+            if decode_attention == "fused":
+                logits = self.model.paged_decode(
+                    tokens_t, pool,
+                    torch.as_tensor(np.asarray(tables, np.int32), device=dev),
+                    torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
+            else:
+                view = _GatheredView(pool, tables, lengths, width, dev)
+                logits = self.model.decode(tokens_t, view)
+            emitted, counts = self._verify_slots(
+                logits, tokens_np, n_known, eos_ids, generators, active,
+                temperature, top_k, top_p)
         return pool, emitted, counts, generators
 
     # -- not ported yet ------------------------------------------------------
 
-    def _not_ported(self, name: str, item: str = _DECODE_ITEM):
-        raise NotImplementedError(f"DecodeEngine.{name} is still to port ({item})")
-
-    def make_slot_cache(self, *args, **kwargs):
-        self._not_ported("make_slot_cache (dense KV layout)")
-
-    def insert_slot(self, *args, **kwargs):
-        self._not_ported("insert_slot (dense KV layout)")
-
-    def evict_slot(self, *args, **kwargs):
-        self._not_ported("evict_slot (dense KV layout)")
-
-    def step(self, *args, **kwargs):
-        self._not_ported("step (dense KV layout)")
-
-    def spec_step(self, *args, **kwargs):
-        self._not_ported("spec_step (dense KV layout)")
-
-    def paged_step(self, *args, **kwargs):
-        self._not_ported("paged_step (gather attention)")
-
-    def generate(self, *args, **kwargs):
-        self._not_ported("generate")
+    def _not_ported(self, name: str):
+        raise NotImplementedError(
+            f"DecodeEngine.{name} is still to port (ROADMAP.md Queue 1, "
+            "serving: the host swap tier)")
 
     def extract_blocks(self, *args, **kwargs):
-        self._not_ported("extract_blocks", "ROADMAP.md Queue 1, serving")
+        self._not_ported("extract_blocks")
 
     def inject_blocks(self, *args, **kwargs):
-        self._not_ported("inject_blocks", "ROADMAP.md Queue 1, serving")
+        self._not_ported("inject_blocks")
+
+
+class _GatheredView:
+    """Each slot's dense cache view gathered from the pool through its
+    table row (the JAX `_gather_slot_cache`), for `Transformer.decode`:
+    layer by layer, only up to the longest slot's end — the values read
+    are the same. The window's rows go into the view (this layer's
+    attention reads them) and through the table into the pool, rows past
+    the table into the trash block. Positions past a slot's length are
+    stale pool rows, which the decode masks to zero weight."""
+
+    def __init__(self, pool: PagedKVPool, tables, lengths, width: int,
+                 device: torch.device):
+        lengths = np.asarray(lengths, np.int32)
+        tables = torch.as_tensor(np.asarray(tables, np.int32), device=device)
+        block_size = pool.block_size
+        span = int(lengths.max()) + width if len(lengths) else width
+        n_blocks = min(-(-span // block_size), tables.shape[1])
+        self.pool = pool
+        self.index = torch.as_tensor(lengths, device=device)
+        self._capacity = n_blocks * block_size
+        self._view_tables = tables[:, :n_blocks].long()
+        positions = self.index[:, None] + torch.arange(
+            width, dtype=torch.int32, device=device)[None, :]
+        self._blocks, self._offsets = pool_rows(tables, positions, block_size)
+
+    def live_span(self, width: int) -> int:
+        return self._capacity
+
+    def append(self, layer: int, rows, positions: torch.Tensor):
+        slots = positions.shape[0]
+        batch = torch.arange(slots, device=positions.device)[:, None]
+        positions = positions.clamp(max=self._capacity - 1).long()
+        out = []
+        for name, row in zip(KV_NAMES, rows):
+            leaf = getattr(self.pool, name)
+            if leaf is None:
+                out.append(None)
+                continue
+            leaf = leaf[layer]  # [NB, bs, Hkv, *]
+            view = leaf[self._view_tables].reshape(
+                slots, self._capacity, *leaf.shape[2:])
+            row = row.to(leaf.dtype)
+            view[batch, positions] = row
+            leaf[self._blocks, self._offsets] = row.reshape(-1, *row.shape[2:])
+            out.append(view)
+        return tuple(out)
 
 
 _ENGINES: Dict[int, DecodeEngine] = {}

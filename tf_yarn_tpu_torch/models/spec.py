@@ -1,33 +1,83 @@
-"""The decode window: host-side planning and the accept/reject pass —
-counterpart of tf_yarn_tpu/models/spec.py (`plan_window`,
-`verify_window`).
+"""Speculative decoding: the self-drafter, the window planner and the
+accept/reject pass — counterpart of tf_yarn_tpu/models/spec.py.
+
+* Host side: `ngram_propose` / `NGramDrafter`, a prompt-lookup
+  self-drafter over each request's own token history, `make_drafter`
+  (``"ngram"``, a callable ``(context, k) -> tokens``, or ``None``) and
+  `plan_window`, which turns a slot's state into the window the step
+  consumes.
+* `verify_window`: the accept/reject pass over one slot's window logits.
+  Acceptance is the JAX package's token matching — a draft is kept iff
+  it equals the token the target itself emits there under the slot's
+  own sampling chain — so every emitted token is the target's own and
+  the streams equal the exact path's. The JAX package traces it on the
+  device; here it runs on the host over the slot's logits.
 
 The fused paged tick runs the windowed program even without drafts, at
 width 1: a slot replaying its prompt feeds one known token (no
-emission), a decoding slot feeds its last token and emits one. The
-acceptance rule is the JAX package's token matching, so when drafts do
-arrive (a later slice) every emitted token is the target's own.
-Self-drafting (`NGramDrafter`) is still to port (ROADMAP.md Queue 1,
-decode engine); `make_drafter` takes only ``None``.
+emission), a decoding slot feeds its last token and emits one.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tf_yarn_tpu_torch.models.generate import _sample
 
+DrafterFn = Callable[[Sequence[int], int], Sequence[int]]
 
-def make_drafter(spec):
-    """``None`` -> no drafting (the spec_k = 0 tick). Drafters are still
-    to port."""
+
+def ngram_propose(context: Sequence[int], k: int, max_ngram: int = 3,
+                  min_ngram: int = 1) -> List[int]:
+    """Prompt lookup: find the most recent earlier occurrence of the
+    context's trailing n-gram (longest n first) and copy the ``k`` tokens
+    that followed it — up to ``k`` tokens, possibly none."""
+    if k <= 0:
+        return []
+    n_ctx = len(context)
+    context = list(context)
+    for n in range(min(max_ngram, n_ctx - 1), min_ngram - 1, -1):
+        suffix = context[n_ctx - n:]
+        for start in range(n_ctx - n - 1, -1, -1):
+            if context[start:start + n] == suffix:
+                follow = context[start + n:start + n + k]
+                if follow:
+                    return [int(t) for t in follow]
+    return []
+
+
+class NGramDrafter:
+    """The default self-drafter: `ngram_propose` with fixed n-gram
+    bounds; stateless, safe to share across slots."""
+
+    def __init__(self, max_ngram: int = 3, min_ngram: int = 1):
+        if not 1 <= min_ngram <= max_ngram:
+            raise ValueError(
+                f"need 1 <= min_ngram <= max_ngram, got "
+                f"[{min_ngram}, {max_ngram}]"
+            )
+        self.max_ngram = max_ngram
+        self.min_ngram = min_ngram
+
+    def __call__(self, context: Sequence[int], k: int) -> List[int]:
+        return ngram_propose(context, k, max_ngram=self.max_ngram,
+                             min_ngram=self.min_ngram)
+
+
+def make_drafter(spec: Union[str, DrafterFn, None]) -> Optional[DrafterFn]:
+    """``"ngram"`` -> `NGramDrafter`, a callable -> itself (the
+    draft-model hook), ``None`` -> no drafting."""
     if spec is None:
         return None
-    raise NotImplementedError(
-        "speculative drafters (spec_k > 0) are still to port "
-        "(ROADMAP.md Queue 1, decode engine)"
+    if callable(spec):
+        return spec
+    if spec == "ngram":
+        return NGramDrafter()
+    raise ValueError(
+        f"spec_draft must be 'ngram', a callable (context, k) -> tokens, "
+        f"or None; got {spec!r}"
     )
 
 

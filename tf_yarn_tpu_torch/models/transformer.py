@@ -17,14 +17,25 @@ Paths:
   recomputed in the backward by ``torch.utils.checkpoint`` — the port
   recomputes the whole block where the JAX package keeps the dots
   (``checkpoint_dots_with_no_batch_dims``); the numbers are identical.
-* `Transformer.prefill` — the dense-cache int8 prefill
-  (transformer.py:227-315 with s > 1): K/V are quantized into the
-  prompt's cache rows, and attention runs over the DEQUANTIZED rows, so
-  the prompt attends through its own quantized copy.
+* `Transformer.prefill` — the dense-cache prefill (transformer.py:
+  217-315 from an empty cache): with ``kv_cache_dtype="int8"`` K/V are
+  quantized into the prompt's cache rows and attention runs over the
+  DEQUANTIZED rows, so the prompt attends through its own quantized
+  copy; with ``"bf16"`` (the default) the rows are stored in the
+  compute dtype and never quantized.
+* `Transformer.decode` — the dense-cache decode branch (transformer.py:
+  217-315) over a `DenseKVCache` whose rows sit at independent
+  positions (a per-row ``index``): append the window's K/V at each
+  row's index, then attend. A single token over an int8 cache goes to
+  `int8_decode_attention` (the hand-written kernel); a window, or a
+  cache in the compute dtype, to `xla_attention` over the live prefix
+  with a per-row causal offset. `DecodeEngine`'s gather mode runs the
+  same branch over a view gathered from the block pool.
 * `Transformer.paged_decode` — the fused paged path
   (`Attention._fused_paged_decode`, transformer.py:323-394): rope at
   per-slot positions, quantize, scatter into the block pool (in place),
-  then `paged_int8_window_attention` reads the pool directly.
+  then `paged_int8_window_attention` reads the pool directly. It needs
+  ``kv_cache_dtype="int8"``.
 
 Parameter dtypes. The JAX package keeps f32 params and casts them to the
 compute dtype at every use. Here a parameter the optimizer trains (built
@@ -36,14 +47,13 @@ the compute dtype: casting once gives the same bits as casting at every
 use, and at Llama-3-8B widths the base takes 16.1 GB instead of 32.1 GB.
 RMSNorm scales stay f32 either way (the kernel reads f32). Layers are a
 plain list (``scan_layers`` is accepted and ignored). MoE
-(``moe_experts > 0``) and the bf16 KV cache are still to port
-(ROADMAP.md).
+(``moe_experts > 0``) is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,7 +61,10 @@ from torch.utils.checkpoint import checkpoint
 
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.ops.attention import IMPLS, attention, xla_attention
-from tf_yarn_tpu_torch.ops.decode_attention import paged_int8_window_attention
+from tf_yarn_tpu_torch.ops.decode_attention import (
+    int8_decode_attention,
+    paged_int8_window_attention,
+)
 from tf_yarn_tpu_torch.ops.quantize import dequantize_int8, quantize_int8
 from tf_yarn_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -78,6 +91,10 @@ class TransformerConfig:
     # Accepted so JAX configs carry over, and ignored: every norm runs
     # through ops.rmsnorm, whose numbers are the plain f32 norm's.
     fused_norms: bool = True
+    # KV-cache storage for decode: "bf16" keeps K/V in the compute dtype
+    # (`dtype`, so f32 in an f32 model) and never quantizes; "int8"
+    # stores per-row symmetric int8 with f32 scales (ops/quantize.py).
+    kv_cache_dtype: str = "bf16"
 
     @property
     def head_dim(self) -> int:
@@ -99,17 +116,19 @@ class TransformerConfig:
 
 @dataclasses.dataclass
 class PagedKVPool:
-    """The int8 KV block pool, all layers stacked: values
-    ``[L, NB, bs, Hkv, D]`` int8 and per-row scales ``[L, NB, bs, Hkv, 1]``
-    f32. Block 0 is the trash block. The JAX package keeps one pool leaf
-    per layer with a vestigial batch-1 axis (``[1, NB, bs, Hkv, *]``);
-    here the layer axis leads and there is no batch axis. Updated in
-    place by `Transformer.paged_decode` and `DecodeEngine.pack_prefill`."""
+    """The KV block pool, all layers stacked: values ``[L, NB, bs, Hkv,
+    D]`` — int8 with per-row scales ``[L, NB, bs, Hkv, 1]`` f32, or in the
+    compute dtype with no scales (``kv_cache_dtype="bf16"``, the gather
+    mode only). Block 0 is the trash block. The JAX package keeps one
+    pool leaf per layer with a vestigial batch-1 axis (``[1, NB, bs, Hkv,
+    *]``); here the layer axis leads and there is no batch axis. Updated
+    in place by `Transformer.paged_decode`, `Transformer.decode` over a
+    gathered view, and `DecodeEngine.pack_prefill`."""
 
     key: torch.Tensor
     value: torch.Tensor
-    key_scale: torch.Tensor
-    value_scale: torch.Tensor
+    key_scale: Optional[torch.Tensor]
+    value_scale: Optional[torch.Tensor]
 
     @property
     def block_size(self) -> int:
@@ -124,7 +143,8 @@ class PagedKVPool:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.key, self.value, self.key_scale, self.value_scale))
+                   for t in (self.key, self.value, self.key_scale,
+                             self.value_scale) if t is not None)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -139,6 +159,136 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def int8_kv_cache(config: TransformerConfig) -> bool:
+    """Whether the decode cache is int8; raises on an unknown
+    ``kv_cache_dtype`` (transformer.py:227-231)."""
+    if config.kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(
+            f"kv_cache_dtype={config.kv_cache_dtype!r}: expected 'bf16' or "
+            "'int8'"
+        )
+    return config.kv_cache_dtype == "int8"
+
+
+def require_int8_pool(config: TransformerConfig) -> None:
+    """The fused paged path reads an int8 pool (transformer.py:334-339)."""
+    if not int8_kv_cache(config):
+        raise ValueError(
+            "the fused paged decode path reads an int8 pool "
+            "(paged_int8_window_attention); it requires kv_cache_dtype='int8'"
+        )
+
+
+KV_NAMES = ("key", "value", "key_scale", "value_scale")
+
+
+def zeroed_kv(config: TransformerConfig, lead: Tuple[int, ...],
+              device) -> Dict[str, Optional[torch.Tensor]]:
+    """Zeroed KV leaves ``lead + (Hkv, D)`` in the cache's storage: int8
+    values with f32 per-row scales ``lead + (Hkv, 1)``, or values in the
+    compute dtype and no scales."""
+    int8 = int8_kv_cache(config)
+    rows = tuple(lead) + (config.n_kv_heads,)
+    values = torch.int8 if int8 else config.dtype
+    zeros = lambda tail, dtype: torch.zeros(rows + (tail,), dtype=dtype,
+                                            device=device)
+    return dict(key=zeros(config.head_dim, values),
+                value=zeros(config.head_dim, values),
+                key_scale=zeros(1, torch.float32) if int8 else None,
+                value_scale=zeros(1, torch.float32) if int8 else None)
+
+
+@dataclasses.dataclass
+class DenseKVCache:
+    """The dense decode cache, all layers stacked: K/V ``[L, B, S, Hkv,
+    D]`` in int8 with per-row f32 scales ``[L, B, S, Hkv, 1]``, or in the
+    compute dtype with no scales (``kv_cache_dtype="bf16"``), and
+    ``index [B]`` int32 — each row's next position (the JAX cache's
+    ``cache_index``, one per row: the dense slot grid's rows sit at
+    independent positions). `Transformer.decode` appends in place and
+    advances ``index``."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    key_scale: Optional[torch.Tensor]
+    value_scale: Optional[torch.Tensor]
+    index: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.key.shape[2]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.key, self.value, self.key_scale,
+                             self.value_scale, self.index) if t is not None)
+
+    def insert(self, rows: Mapping[str, torch.Tensor],
+               slot: Optional[int] = None) -> None:
+        """Splice prefill rows (`Transformer.prefill`'s dict, ``[L, b, F,
+        Hkv, *]``) into batch row `slot` (b = 1), or into every row:
+        positions [0, F) take the rows, the rest of those rows is zeroed
+        and their index set to F — a fresh prefill cache, index
+        included."""
+        at = slice(None) if slot is None else slice(slot, slot + 1)
+        for name in KV_NAMES:
+            leaf = getattr(self, name)
+            if leaf is None:
+                continue
+            src = rows[name]
+            leaf[:, at] = 0
+            leaf[:, at, :src.shape[2]] = src
+        self.index[at] = rows["key"].shape[2]
+
+    def evict(self, slot: int) -> None:
+        """Zero batch row `slot`: K/V, scales and index."""
+        for name in KV_NAMES:
+            leaf = getattr(self, name)
+            if leaf is not None:
+                leaf[:, slot] = 0
+        self.index[slot] = 0
+
+    def live_span(self, width: int) -> int:
+        """Positions a `width`-token window attends over: up to the
+        longest row's end (one device read)."""
+        return min(int(self.index.max()) + width, self.capacity)
+
+    def append(self, layer: int, rows: Sequence[Optional[torch.Tensor]],
+               positions: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+        """Write a window's rows ``(k, v, k_scale, v_scale)``, each ``[B,
+        W, Hkv, *]``, at ``positions [B, W]`` of layer `layer`; returns
+        the layer's (key, value, key_scale, value_scale) to attend over.
+        Positions past the capacity (rows no valid length can reach)
+        land on the last row."""
+        batch = torch.arange(positions.shape[0],
+                             device=positions.device)[:, None]
+        positions = positions.clamp(max=self.capacity - 1).long()
+        out = []
+        for name, row in zip(KV_NAMES, rows):
+            leaf = getattr(self, name)
+            if leaf is None:
+                out.append(None)
+                continue
+            leaf = leaf[layer]
+            leaf[batch, positions] = row.to(leaf.dtype)
+            out.append(leaf)
+        return tuple(out)
+
+
+def pool_rows(tables: torch.Tensor, positions: torch.Tensor,
+              block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where positions ``[S, W]`` of each slot live in the block pool:
+    (block, offset) per row, flattened to ``[S * W]``. A position past
+    the slot's table (a rejected-draft row past its reservation) routes
+    to the trash block 0."""
+    max_blocks = tables.shape[1]
+    logical = (positions // block_size).long()
+    blocks = torch.gather(tables, 1, logical.clamp(0, max_blocks - 1))
+    blocks = torch.where(logical < max_blocks, blocks, torch.zeros_like(blocks))
+    offsets = positions % block_size
+    return blocks.reshape(-1).long(), offsets.reshape(-1).long()
 
 
 def _param(shape, trainable: bool, config: TransformerConfig, device,
@@ -235,26 +385,80 @@ class Attention(nn.Module):
         return self._out(attention(q, k, v, impl=cfg.attention_impl,
                                    causal=True))
 
+    def _cache_rows(self, k, v):
+        """This window's cache rows (k, v, k_scale, v_scale): int8 codes
+        and f32 scales for an int8 cache, else k and v in the compute
+        dtype and no scales."""
+        if int8_kv_cache(self.config):
+            k_q, k_s = quantize_int8(k.float())
+            v_q, v_s = quantize_int8(v.float())
+            return k_q, v_q, k_s, v_s
+        dtype = self.config.dtype
+        return k.to(dtype), v.to(dtype), None, None
+
+    def _stored(self, rows, span: Optional[int] = None):
+        """K and V as attention reads them from cache rows: int8 rows
+        dequantized to the compute dtype (the JAX package's one-shot
+        dequant), the first `span` positions."""
+        key, value, k_s, v_s = (None if t is None else t[:, :span]
+                                for t in rows)
+        if k_s is None:
+            return key, value
+        dtype = self.config.dtype
+        return (dequantize_int8(key, k_s, dtype),
+                dequantize_int8(value, v_s, dtype))
+
     def prefill(self, x: torch.Tensor):
-        """Dense-cache int8 prefill from an empty cache: returns the
-        block output and this layer's cache rows (k_q, k_s, v_q, v_s),
-        each [B, S, Hkv, *]."""
+        """Dense-cache prefill from an empty cache: returns the block
+        output and this layer's cache rows (k, v, k_scale, v_scale), each
+        [B, S, Hkv, *] (the scales None for a cache in the compute
+        dtype)."""
         cfg = self.config
         b, s, _ = x.shape
         q, k, v = self._project(x)
         positions = torch.arange(s, device=x.device).expand(b, s)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        k_q, k_s = quantize_int8(k.float())
-        v_q, v_s = quantize_int8(v.float())
-        # The prompt attends through its own quantized copy, as the JAX
-        # package's one-shot dequant of the whole cache does. Cache
-        # positions past the prompt carry exactly zero weight there, so
-        # attending over the prompt's rows alone gives the same result.
-        out = xla_attention(q, dequantize_int8(k_q, k_s, cfg.dtype),
-                            dequantize_int8(v_q, v_s, cfg.dtype),
-                            causal=True, segment_offset=0)
-        return self._out(out), (k_q, k_s, v_q, v_s)
+        rows = self._cache_rows(k, v)
+        # The prompt attends through its cache rows (an int8 cache: its
+        # own quantized copy, as the JAX package's one-shot dequant of
+        # the whole cache does). Cache positions past the prompt carry
+        # exactly zero weight there, so attending over the prompt's rows
+        # alone gives the same result.
+        key, value = self._stored(rows)
+        out = xla_attention(q, key, value, causal=True, segment_offset=0)
+        return self._out(out), rows
+
+    def decode(self, x: torch.Tensor, cache, layer: int,
+               span: Optional[int]) -> torch.Tensor:
+        """The dense-cache decode branch (transformer.py:255-315): rope at
+        ``cache.index[:, None] + arange(W)``, append the window's rows
+        to layer `layer` of `cache` (`DenseKVCache` or the engine's
+        gathered view), then attend. One token over an int8 cache: the
+        `int8_decode_attention` kernel reads the int8 rows directly,
+        ``index + 1`` positions per row. Otherwise `xla_attention` over
+        the first `span` positions (the longest row's end) with each
+        row's causal offset at its own index; later positions carry
+        exactly zero weight in the JAX package's whole-cache attention,
+        so the live prefix gives the same result."""
+        cfg = self.config
+        q, k, v = self._project(x)
+        width = q.shape[1]
+        index = cache.index
+        positions = index[:, None] + torch.arange(
+            width, dtype=index.dtype, device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        stored = cache.append(layer, self._cache_rows(k, v), positions)
+        if width == 1 and stored[2] is not None:
+            out = int8_decode_attention(
+                q[:, 0], stored[0], stored[2], stored[1], stored[3],
+                index + 1)[:, None]
+        else:
+            key, value = self._stored(stored, span)
+            out = xla_attention(q, key, value, causal=True,
+                                segment_offset=index)
+        return self._out(out)
 
     def paged_decode(self, x, layer_pool, tables, lengths):
         """The fused paged step (the JAX `_fused_paged_decode`): rows of
@@ -263,6 +467,7 @@ class Attention(nn.Module):
         the pool IN PLACE (rows past a slot's table go to trash block 0),
         then attend straight off the pool."""
         cfg = self.config
+        require_int8_pool(cfg)
         key_pool, value_pool, key_scale, value_scale = layer_pool
         q, k, v = self._project(x)
         slots, width = q.shape[:2]
@@ -272,13 +477,7 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         k_q, k_s = quantize_int8(k.float())
         v_q, v_s = quantize_int8(v.float())
-        block_size = key_pool.shape[1]
-        max_blocks = tables.shape[1]
-        logical = (positions // block_size).long()
-        blocks = torch.gather(tables, 1, logical.clamp(0, max_blocks - 1))
-        blocks = torch.where(logical < max_blocks, blocks,
-                             torch.zeros_like(blocks)).reshape(-1).long()
-        offsets = (positions % block_size).reshape(-1).long()
+        blocks, offsets = pool_rows(tables, positions, key_pool.shape[1])
         rows = slots * width
         key_pool[blocks, offsets] = k_q.reshape(rows, *k_q.shape[2:])
         value_pool[blocks, offsets] = v_q.reshape(rows, *v_q.shape[2:])
@@ -322,6 +521,10 @@ class Block(nn.Module):
         out, cache = self.attn.prefill(self.attn_norm(x))
         return self._mlp(x + out), cache
 
+    def decode(self, x, cache, layer: int, span: Optional[int]):
+        x = x + self.attn.decode(self.attn_norm(x), cache, layer, span)
+        return self._mlp(x)
+
     def paged_decode(self, x, layer_pool, tables, lengths):
         x = x + self.attn.paged_decode(self.attn_norm(x), layer_pool,
                                        tables, lengths)
@@ -329,8 +532,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """tokens -> f32 logits, for training (`forward`) and over the two
-    int8 decode paths (module docstring). Built on CUDA unless
+    """tokens -> f32 logits, for training (`forward`) and over the decode
+    paths (module docstring). Built on CUDA unless
     ``device="cpu"`` is passed. ``trainable=True`` builds the parameters
     an optimizer trains as f32 masters with ``requires_grad`` (all of
     them, or only the LoRA adapters when ``lora_rank > 0``); the default
@@ -408,18 +611,48 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
-        """tokens [B, F] -> (last-position logits [B, V] f32, cache):
-        cache is a dict of int8 rows ``key``/``value`` [L, B, F, Hkv, D]
-        and f32 ``key_scale``/``value_scale`` [L, B, F, Hkv, 1]."""
+        """tokens [B, F] -> (last-position logits [B, V] f32, rows): rows
+        is a dict of the prompt's cache rows ``key``/``value`` [L, B, F,
+        Hkv, D] (int8, or the compute dtype) and, for an int8 cache, f32
+        ``key_scale``/``value_scale`` [L, B, F, Hkv, 1]."""
+        int8_kv_cache(self.config)
         x = self._embed(tokens)
-        rows: List[Tuple[torch.Tensor, ...]] = []
+        layers: List[Tuple[torch.Tensor, ...]] = []
         for block in self.layers:
-            x, cache = block.prefill(x)
-            rows.append(cache)
-        names = ("key", "key_scale", "value", "value_scale")
-        cache = {name: torch.stack([r[i] for r in rows])
-                 for i, name in enumerate(names)}
-        return self._head(x[:, -1]), cache
+            x, rows = block.prefill(x)
+            layers.append(rows)
+        rows = {name: torch.stack([r[i] for r in layers])
+                for i, name in enumerate(KV_NAMES) if layers[0][i] is not None}
+        # The last position of each row: a strided view once B > 1, and
+        # the norm kernel reads contiguous rows.
+        return self._head(x[:, -1].contiguous()), rows
+
+    def make_cache(self, batch: int, capacity: Optional[int] = None
+                   ) -> DenseKVCache:
+        """A zeroed `DenseKVCache` for `batch` rows of `capacity`
+        positions (default ``max_seq_len``, the JAX cache's size) on the
+        model's device, index 0."""
+        cfg = self.config
+        capacity = cfg.max_seq_len if capacity is None else int(capacity)
+        return DenseKVCache(
+            **zeroed_kv(cfg, (cfg.n_layers, batch, capacity), self.device),
+            index=torch.zeros(batch, dtype=torch.int32, device=self.device),
+        )
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, cache) -> torch.Tensor:
+        """tokens [B, W] -> logits [B, W, V] f32: the window appended to
+        `cache` (a `DenseKVCache`, or the engine's gathered pool view) at
+        each row's index, which then advances by W."""
+        width = tokens.shape[1]
+        span = None
+        if width > 1 or not int8_kv_cache(self.config):
+            span = cache.live_span(width)
+        x = self._embed(tokens)
+        for i, block in enumerate(self.layers):
+            x = block.decode(x, cache, i, span)
+        cache.index = cache.index + width
+        return self._head(x)
 
     @torch.no_grad()
     def paged_decode(self, tokens: torch.Tensor, pool: PagedKVPool,

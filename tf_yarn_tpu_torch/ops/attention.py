@@ -13,7 +13,7 @@ port (ROADMAP.md Queue 1 item 7).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -22,7 +22,7 @@ IMPLS = ("xla", "flash", "ring", "ulysses", "ulysses_flash")
 
 def xla_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                   *, causal: bool = True, softmax_scale: Optional[float] = None,
-                  segment_offset: int = 0,
+                  segment_offset: Union[int, torch.Tensor] = 0,
                   key_padding_mask: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """q [B, S, H, D], k/v [B, Skv, Hkv, D] -> [B, S, H, D].
@@ -43,7 +43,10 @@ def xla_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
     logits = (torch.einsum("bqhd,bkhd->bhqk", query, key) * scale).float()
     neg_inf = torch.finfo(torch.float32).min
     if causal:
-        q_pos = torch.arange(s_q, device=query.device)[:, None] + segment_offset
+        offset = segment_offset
+        if isinstance(offset, torch.Tensor):
+            offset = offset.to(query.device).long()[:, None, None, None]
+        q_pos = torch.arange(s_q, device=query.device)[:, None] + offset
         k_pos = torch.arange(s_kv, device=query.device)[None, :]
         logits = torch.where(q_pos >= k_pos, logits, neg_inf)
     keep = None

@@ -16,377 +16,13 @@
 // logical positions of its slot (length_offset = 1 for the window form:
 // the window's own rows are already in the pool; 0 for the one-token form).
 //
-// Bound on the H100: memory, on the int8 pool bytes. Each position costs
-// 2 * head_dim int8 bytes (+ 8 scale bytes) per kv head against
-// 4 * group * head_dim flops, about 8 flops/byte.
-//
-// Design. The TPU walked one slot's blocks in a sequential grid; one SM
-// walking a long slot alone is latency-bound on the card, so the sequence
-// is split across blocks (flash-decoding) and a second, small kernel
-// merges the splits.
-//   Split kernel: one block of 128 threads per (virtual slot, kv head,
-//   split of kSplitRows positions). Splits at or past the slot's length
-//   exit at once, so only live positions are read (the counterpart of the
-//   TPU's pl.when(ki * bs < length)). The block reads its own table row
-//   (the TPU fed it by scalar prefetch). The whole GQA group of G query
-//   heads shares each K/V element, which is converted from int8 once and
-//   used G times:
-//   1. scores: tiles of kTileRows positions (whole pool blocks) come in by
-//      cp.async into two shared buffers, the next tile's copies in flight
-//      while the current one is used; rows are padded by 16 bytes so that
-//      neighbouring threads' 16-byte reads of different rows hit
-//      different banks. Each thread scores ITS row against the G query
-//      rows (pre-scaled by head_dim^-0.5, broadcast from shared memory)
-//      and scales by the row's K scale; dead positions get -inf;
-//   2. softmax over the split, in f32: one warp per head takes the max
-//      and the sum of exp (two passes over at most kSplitRows logits);
-//   3. P.V: the same rows of V come in the same way, each probability is
-//      multiplied by its row's V scale (dead rows get exactly 0, so NaN
-//      scale garbage cannot leak), and each warp accumulates a quarter of
-//      the rows, a lane owning 4 of the 128 columns for all G heads; the
-//      four warps' sums meet in shared memory.
-//   It writes the unnormalised acc and its (max, sum) to f32 scratch.
-//   Combine kernel: one warp per (virtual slot, query head) rescales the
-//   live splits to their common max and writes acc / max(l, 1e-30).
-// The TPU wrapper's virtual slots (a jnp.repeat of the tables) are folded
-// into the grid. TMA and tensor-core products come later.
-//
-// Instantiated only for the configurations the port serves, all at
-// head_dim 128: bf16 with a GQA group of 4 (Llama-3-8B widths) and f32
-// with a group of 2 (the small f32 model chip_smoke.py serves on the card
-// and on the CPU). Any other (dtype, group, head_dim) is refused.
-#include <math.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;        // split kernel: 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = kThreads;  // positions per tile: one per thread
-constexpr int kSplitRows = 256;      // positions per split (whole tiles)
-constexpr int kHeadDim = 128;        // one 32-bit word (4 columns) per lane
-constexpr int kMinBlocksPerSM = 4;   // caps the split kernel at 128 registers
-constexpr int kCombineWarps = 4;
-
-// Four signed int8 values of a 32-bit word as exact floats without the
-// int-to-float unit (a quarter of the FMA rate on Hopper): each byte,
-// offset to unsigned, becomes the low mantissa byte of 2^23 (0x4B0000xx),
-// and subtracting 2^23 + 128 leaves the byte's value.
-__device__ __forceinline__ float4 int8x4_to_float4(unsigned word) {
-  const unsigned u = word ^ 0x80808080u;
-  const float bias = 8388736.0f;  // 2^23 + 128
-  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - bias);
-}
-
-__device__ __forceinline__ int live_positions(const int* lengths, int vslot,
-                                              int width, int length_offset,
-                                              int block_size, int max_blocks) {
-  const int slot = vslot / width;
-  const int length = lengths[slot] + (vslot - slot * width) + length_offset;
-  return max(0, min(length, max_blocks * block_size));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// Starts the copies of one tile of one kv head's pool rows, positions
-// [base, base + kTileRows), into rows_s (row_bytes apart), as one
-// cp.async group. Rows of blocks past the live ones are skipped (their
-// contents stay stale and the caller masks them). Returns the scale of
-// this thread's row, 0 for a dead row.
-__device__ __forceinline__ float issue_tile(
-    const int8_t* __restrict__ pool, const float* __restrict__ scales,
-    const int* __restrict__ table, int base, int n_pos, int n_blocks,
-    int bs_shift, int n_kv, int h, int head_dim, int chunk_shift,
-    int8_t* rows_s, int row_bytes) {
-  const int bs_mask = (1 << bs_shift) - 1;
-  const int pos = base + threadIdx.x;
-  float scale = 0.f;
-  if (pos < n_pos) {
-    scale = scales[((static_cast<size_t>(table[pos >> bs_shift]) << bs_shift) +
-                    (pos & bs_mask)) * n_kv + h];
-  }
-  const int tile_chunks = kTileRows << chunk_shift;
-  const size_t row_stride = static_cast<size_t>(n_kv) * head_dim;
-  for (int idx = threadIdx.x; idx < tile_chunks; idx += kThreads) {
-    const int r = idx >> chunk_shift;
-    const int p = base + r;
-    if ((p >> bs_shift) < n_blocks) {
-      const int c = (idx & ((1 << chunk_shift) - 1)) * 16;
-      cp_async16(rows_s + r * row_bytes + c,
-                 pool +
-                     ((static_cast<size_t>(table[p >> bs_shift]) << bs_shift) +
-                      (p & bs_mask)) * row_stride +
-                     h * head_dim + c);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  return scale;
-}
-
-// G query heads per kv head.
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-paged_window_split_kernel(
-    const T* __restrict__ q, const int8_t* __restrict__ kpool,
-    const float* __restrict__ kscale, const int8_t* __restrict__ vpool,
-    const float* __restrict__ vscale, const int* __restrict__ tables,
-    const int* __restrict__ lengths, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int width, int n_heads, int n_kv,
-    int head_dim, int bs_shift, int max_blocks, int length_offset,
-    int n_splits, float softmax_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int vslot = blockIdx.x;
-  const int h = blockIdx.y;
-  const int split = blockIdx.z;
-  const int n_pos = live_positions(lengths, vslot, width, length_offset,
-                                   1 << bs_shift, max_blocks);
-  const int start = split * kSplitRows;
-  if (start >= n_pos) return;  // uniform over the block
-  const int stop = min(start + kSplitRows, n_pos);
-
-  const int chunks = head_dim / 16;     // 16-byte chunks per row
-  const int chunk_shift = __ffs(chunks) - 1;
-  const int row_bytes = head_dim + 16;  // padded row (see the design note)
-  int8_t* rows_s[2] = {reinterpret_cast<int8_t*>(smem),
-                       reinterpret_cast<int8_t*>(smem) + kTileRows * row_bytes};
-  float* q_s = reinterpret_cast<float*>(rows_s[1] + kTileRows * row_bytes);
-  float* p_s = q_s + G * head_dim;                    // [G][kSplitRows]
-  float* ml_s = p_s + G * kSplitRows;                 // [G][2]
-  float* red_s = reinterpret_cast<float*>(smem);      // [warps][G][head_dim]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_blocks = (n_pos + (1 << bs_shift) - 1) >> bs_shift;
-  const int* table = tables + static_cast<size_t>(vslot / width) * max_blocks;
-  // Tiles 0 .. n_tiles - 1 are K, n_tiles .. 2 n_tiles - 1 the same rows
-  // of V; tile i + 1 is in flight while tile i is used.
-  const int n_tiles = (stop - start + kTileRows - 1) / kTileRows;
-  auto issue = [&](int i) {
-    const bool keys = i < n_tiles;
-    return issue_tile(keys ? kpool : vpool, keys ? kscale : vscale, table,
-                      start + (keys ? i : i - n_tiles) * kTileRows, n_pos,
-                      n_blocks, bs_shift, n_kv, h, head_dim, chunk_shift,
-                      rows_s[i & 1], row_bytes);
-  };
-  float next_scale = issue(0);
-  const T* qbase =
-      q + (static_cast<size_t>(vslot) * n_heads + h * G) * head_dim;
-  for (int i = threadIdx.x; i < G * head_dim; i += kThreads) {
-    q_s[i] = tyt::to_float(qbase[i]) * softmax_scale;
-  }
-
-  float acc[G][4];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
-  }
-  for (int i = 0; i < 2 * n_tiles; ++i) {
-    const float row_scale = next_scale;
-    if (i + 1 < 2 * n_tiles) {
-      next_scale = issue(i + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // tile i has landed for every thread; q_s is written
-    const int8_t* rows = rows_s[i & 1];
-    const int offset = ((i < n_tiles) ? i : i - n_tiles) * kTileRows;
-    const int base = start + offset;
-    const bool live = base + static_cast<int>(threadIdx.x) < n_pos;
-    if (i < n_tiles) {
-      // 1. Scores: thread r scores position base + r for the G heads.
-      const uint4* krow =
-          reinterpret_cast<const uint4*>(rows + threadIdx.x * row_bytes);
-      float dot[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) dot[g] = 0.f;
-      for (int c = 0; c < chunks; ++c) {
-        const uint4 k16 = krow[c];
-        const unsigned kw[4] = {k16.x, k16.y, k16.z, k16.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 kv = int8x4_to_float4(kw[e]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float4 qv = *reinterpret_cast<const float4*>(
-                q_s + g * head_dim + 16 * c + 4 * e);
-            dot[g] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        p_s[g * kSplitRows + offset + threadIdx.x] =
-            live ? dot[g] * row_scale : -INFINITY;
-      }
-      if (i == n_tiles - 1) {
-        // 2. Softmax statistics over the split's stop - start >= 1 live
-        // logits: one warp per head.
-        __syncthreads();
-        const int n_live = stop - start;
-        for (int g = warp; g < G; g += kWarps) {
-          float* logits = p_s + g * kSplitRows;
-          float m = -INFINITY;
-          for (int k = lane; k < n_live; k += 32) m = fmaxf(m, logits[k]);
-          m = tyt::warp_max(m);
-          float sum = 0.f;
-          for (int k = lane; k < n_live; k += 32) {
-            const float prob = expf(logits[k] - m);
-            logits[k] = prob;
-            sum += prob;
-          }
-          sum = tyt::warp_sum(sum);
-          if (lane == 0) {
-            ml_s[2 * g] = m;
-            ml_s[2 * g + 1] = sum;
-          }
-        }
-      }
-    } else {
-      // 3. P.V: each probability times its row's V scale (exactly 0 for
-      // a dead row), then warp w takes rows w, w + 4, ... of the tile.
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float* prob = p_s + g * kSplitRows + offset + threadIdx.x;
-        *prob = live ? *prob * row_scale : 0.f;
-      }
-      __syncthreads();
-      const int n_rows = min(kTileRows, stop - base);
-      for (int r = warp; r < n_rows; r += kWarps) {
-        const unsigned* vrow =
-            reinterpret_cast<const unsigned*>(rows + r * row_bytes);
-        float coef[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) coef[g] = p_s[g * kSplitRows + offset + r];
-        const float4 v4 = int8x4_to_float4(vrow[lane]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          acc[g][0] += coef[g] * v4.x;
-          acc[g][1] += coef[g] * v4.y;
-          acc[g][2] += coef[g] * v4.z;
-          acc[g][3] += coef[g] * v4.w;
-        }
-      }
-    }
-    __syncthreads();  // tile i is consumed before tile i + 2 lands on it
-  }
-
-  // The four warps' sums meet in shared memory (over the tile buffers).
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    *reinterpret_cast<float4*>(red_s + (warp * G + g) * head_dim + 4 * lane) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-  }
-  __syncthreads();
-  const size_t part0 =
-      (static_cast<size_t>(vslot) * n_heads + h * G) * n_splits + split;
-  for (int i = threadIdx.x; i < G * head_dim; i += kThreads) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red_s[w * G * head_dim + i];
-    const int g = i / head_dim;
-    part_acc[(part0 + static_cast<size_t>(g) * n_splits) * head_dim +
-             (i - g * head_dim)] = sum;
-  }
-  if (threadIdx.x < G) {
-    const size_t part = part0 + static_cast<size_t>(threadIdx.x) * n_splits;
-    part_ml[2 * part] = ml_s[2 * threadIdx.x];
-    part_ml[2 * part + 1] = ml_s[2 * threadIdx.x + 1];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kCombineWarps * 32)
-paged_window_combine_kernel(const float* __restrict__ part_acc,
-                            const float* __restrict__ part_ml,
-                            const int* __restrict__ lengths,
-                            T* __restrict__ out, int pairs, int width,
-                            int n_heads, int head_dim, int block_size,
-                            int max_blocks, int length_offset, int n_splits) {
-  const int pair = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
-  if (pair >= pairs) return;
-  const int lane = threadIdx.x & 31;
-  const int n_pos = live_positions(lengths, pair / n_heads, width,
-                                   length_offset, block_size, max_blocks);
-  const int live = (n_pos + kSplitRows - 1) / kSplitRows;
-  const float* ml = part_ml + static_cast<size_t>(pair) * n_splits * 2;
-  float m = -INFINITY;
-  for (int i = lane; i < live; i += 32) m = fmaxf(m, ml[2 * i]);
-  m = tyt::warp_max(m);
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float l = 0.f;
-  for (int i0 = 0; i0 < live; i0 += 32) {
-    // Lane k rescales split i0 + k; the warp then walks the splits.
-    const int mine = i0 + lane;
-    const float my_corr = mine < live ? expf(ml[2 * mine] - m) : 0.f;
-    if (mine < live) l += ml[2 * mine + 1] * my_corr;
-    const int n = min(32, live - i0);
-#pragma unroll 4
-    for (int k = 0; k < n; ++k) {
-      const float corr = __shfl_sync(0xffffffffu, my_corr, k);
-      const float4 a = *reinterpret_cast<const float4*>(
-          part_acc + (static_cast<size_t>(pair) * n_splits + i0 + k) * head_dim +
-          4 * lane);
-      acc.x += corr * a.x;
-      acc.y += corr * a.y;
-      acc.z += corr * a.z;
-      acc.w += corr * a.w;
-    }
-  }
-  l = tyt::warp_sum(l);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = out + static_cast<size_t>(pair) * head_dim + 4 * lane;
-  orow[0] = tyt::from_float<T>(acc.x * inv);
-  orow[1] = tyt::from_float<T>(acc.y * inv);
-  orow[2] = tyt::from_float<T>(acc.z * inv);
-  orow[3] = tyt::from_float<T>(acc.w * inv);
-}
-
-template <typename T, int G>
-int launch(const void* q, const int8_t* kpool, const float* kscale,
-           const int8_t* vpool, const float* vscale, const int* tables,
-           const int* lengths, void* out, float* part_acc, float* part_ml,
-           int slots, int width, int n_heads, int n_kv, int head_dim,
-           int block_size, int max_blocks, int length_offset, int n_splits,
-           float softmax_scale, cudaStream_t stream) {
-  const size_t smem =
-      2 * static_cast<size_t>(kTileRows) * (head_dim + 16) +
-      sizeof(float) * (G * head_dim + G * kSplitRows + 2 * G);
-  int bs_shift = 0;
-  while ((1 << bs_shift) < block_size) ++bs_shift;
-  const int vslots = slots * width;
-  auto split_kernel = paged_window_split_kernel<T, G>;
-  if (smem > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (status != cudaSuccess) return static_cast<int>(status);
-  }
-  split_kernel<<<dim3(vslots, n_kv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), kpool, kscale, vpool, vscale, tables, lengths,
-      part_acc, part_ml, width, n_heads, n_kv, head_dim, bs_shift, max_blocks,
-      length_offset, n_splits, softmax_scale);
-  const cudaError_t status = cudaGetLastError();
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const int pairs = vslots * n_heads;
-  paged_window_combine_kernel<T>
-      <<<(pairs + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0,
-         stream>>>(part_acc, part_ml, lengths, static_cast<T*>(out), pairs,
-                   width, n_heads, head_dim, block_size, max_blocks,
-                   length_offset, n_splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// The split/combine kernels, their bound and their design are in
+// decode_split.cuh, shared with the dense kernel (dense_decode.cu): this
+// file gives them the block table as the row address (PagedLayout). The
+// TPU wrapper's virtual slots (a jnp.repeat of the tables) are folded
+// into the grid; each block reads its own table row (the TPU fed it by
+// scalar prefetch).
+#include "decode_split.cuh"
 
 // part_acc [slots * width, n_heads, n_splits, head_dim] and part_ml
 // [slots * width, n_heads, n_splits, 2] are f32 scratch from the caller;
@@ -399,29 +35,17 @@ extern "C" int tyt_paged_window_attention(
     int slots, int width, int n_heads, int n_kv, int head_dim,
     int block_size, int max_blocks, int length_offset, int n_splits,
     float softmax_scale, int dtype, void* stream) {
+  namespace d = tyt::decode;
   if (slots <= 0 || width <= 0) return 0;
   // block_size a power of two <= 128: the kernel indexes with shifts.
-  if (n_kv <= 0 || n_heads % n_kv != 0 || head_dim != kHeadDim ||
-      block_size <= 0 || kTileRows % block_size != 0 || max_blocks <= 0 ||
-      n_splits <= 0 || n_splits > 65535 ||
-      static_cast<long long>(n_splits) * kSplitRows <
-          static_cast<long long>(max_blocks) * block_size) {
+  if (block_size <= 0 || d::kTileRows % block_size != 0 || max_blocks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = n_heads / n_kv;
-  if (dtype == tyt::kBFloat16 && group == 4) {
-    return launch<__nv_bfloat16, 4>(q, kpool, kscale, vpool, vscale, tables,
-                                    lengths, out, part_acc, part_ml, slots,
-                                    width, n_heads, n_kv, head_dim, block_size,
-                                    max_blocks, length_offset, n_splits,
-                                    softmax_scale, s);
-  }
-  if (dtype == tyt::kFloat32 && group == 2) {
-    return launch<float, 2>(q, kpool, kscale, vpool, vscale, tables, lengths,
-                            out, part_acc, part_ml, slots, width, n_heads,
-                            n_kv, head_dim, block_size, max_blocks,
-                            length_offset, n_splits, softmax_scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  int bs_shift = 0;
+  while ((1 << bs_shift) < block_size) ++bs_shift;
+  const d::PagedLayout layout{tables, max_blocks, bs_shift};
+  return d::dispatch(dtype, q, kpool, kscale, vpool, vscale, layout, lengths,
+                     out, part_acc, part_ml, slots, width, n_heads, n_kv,
+                     head_dim, max_blocks * block_size, length_offset,
+                     n_splits, softmax_scale, stream);
 }

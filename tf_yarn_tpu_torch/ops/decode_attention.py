@@ -1,17 +1,26 @@
-"""Decode attention over the paged int8 KV pool — counterpart of
-tf_yarn_tpu/ops/decode_attention.py (the paged half).
+"""Decode attention over an int8 KV cache — counterpart of
+tf_yarn_tpu/ops/decode_attention.py.
 
-The pool is the JAX package's layout: K/V values ``[NB, bs, Hkv, D]``
-int8 plus per-row f32 scales ``[NB, bs, Hkv, 1]``, a block table
-``[S, MB]`` int32 mapping each slot's logical blocks to physical ones,
-and ``lengths [S]`` int32. Table entries past a slot's length may point
-anywhere; those positions are masked.
+Two layouts, the JAX package's:
 
-CUDA tensors go to the hand-written kernel (csrc/paged_decode.cu, which
-replaces the TPU kernel `_paged_decode_kernel`); CPU tensors go to
-`paged_int8_window_attention_reference`, the plain version the tests
-hold against the JAX package. The dense-cache `int8_decode_attention`
-and per-block scales are still to port (ROADMAP.md Queue 2).
+* the dense cache (`int8_decode_attention`): one query token per batch
+  row over K/V ``[B, S, Hkv, D]`` int8 plus per-row f32 scales ``[B, S,
+  Hkv, 1]``, with ``lengths [B]`` int32 valid positions — one per row,
+  where the TPU kernel took one scalar for the batch (the JAX dense slot
+  grid gets per-row lengths through ``vmap``);
+* the paged pool (`paged_int8_window_attention`,
+  `paged_int8_decode_attention`): K/V values ``[NB, bs, Hkv, D]`` int8
+  plus per-row f32 scales ``[NB, bs, Hkv, 1]``, a block table ``[S, MB]``
+  int32 mapping each slot's logical blocks to physical ones, and
+  ``lengths [S]`` int32. Table entries past a slot's length may point
+  anywhere; those positions are masked.
+
+CUDA tensors go to the hand-written kernels (csrc/dense_decode.cu
+replaces the TPU kernel `_decode_kernel`, csrc/paged_decode.cu
+`_paged_decode_kernel`; both share csrc/decode_split.cuh); CPU tensors
+go to the plain versions (`*_reference`) the tests hold against the JAX
+package. A CUDA call the kernels are not built for raises; nothing falls
+back. Per-block scales are still to port (ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -22,11 +31,11 @@ import torch
 
 from tf_yarn_tpu_torch.ops import _build
 
-# Positions per split of the kernel's sequence (kSplitRows in
-# csrc/paged_decode.cu): the kernel refuses a split count that does not
-# cover a slot's table.
+# Positions per split of the kernels' sequence (kSplitRows in
+# csrc/decode_split.cuh): the kernels refuse a split count that does not
+# cover a slot's capacity.
 SPLIT_ROWS = 256
-# The kernel's instantiations: head_dim 128 and, per query dtype, the GQA
+# The kernels' instantiations: head_dim 128 and, per query dtype, the GQA
 # group (n_heads / n_kv) of the configuration the port serves in it.
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = {torch.bfloat16: 4, torch.float32: 2}
@@ -86,6 +95,29 @@ def paged_int8_window_attention_reference(
     return out.reshape(slots, width, n_heads, head_dim).to(query.dtype)
 
 
+def _require_kernel_inputs(kernel: str, query, key, key_scale, value,
+                           value_scale, **int32_inputs) -> None:
+    """The checks every launch of the two kernels passes: CUDA tensors of
+    the kernels' dtypes, contiguous, at an instantiated (head_dim, GQA
+    group) for the query's dtype."""
+    _build.require_cuda("query", query, _build.DTYPE_CODES)
+    for name, tensor in (("key", key), ("value", value)):
+        _build.require_cuda(name, tensor, (torch.int8,))
+    for name, tensor in (("key_scale", key_scale), ("value_scale", value_scale)):
+        _build.require_cuda(name, tensor, (torch.float32,))
+    for name, tensor in int32_inputs.items():
+        _build.require_cuda(name, tensor, (torch.int32,))
+    n_heads, head_dim = query.shape[-2:]
+    n_kv = key.shape[-2]
+    if head_dim != KERNEL_HEAD_DIM \
+            or KERNEL_GROUPS.get(query.dtype) != n_heads // n_kv:
+        raise ValueError(
+            f"the {kernel} kernel is built for head_dim {KERNEL_HEAD_DIM} "
+            f"with GQA groups {KERNEL_GROUPS}, got head_dim {head_dim}, "
+            f"group {n_heads // n_kv} in {query.dtype}"
+        )
+
+
 def _launch(query, key_pool, key_scale, value_pool, value_scale,
             block_tables, lengths, softmax_scale, length_offset):
     slots, width, n_heads, head_dim = query.shape
@@ -104,20 +136,9 @@ def _launch(query, key_pool, key_scale, value_pool, value_scale,
             f"block_tables must be [{slots}, MB] and lengths [{slots}], got "
             f"{tuple(block_tables.shape)} and {tuple(lengths.shape)}"
         )
-    _build.require_cuda("query", query, _build.DTYPE_CODES)
-    for name, tensor in (("key_pool", key_pool), ("value_pool", value_pool)):
-        _build.require_cuda(name, tensor, (torch.int8,))
-    for name, tensor in (("key_scale", key_scale), ("value_scale", value_scale)):
-        _build.require_cuda(name, tensor, (torch.float32,))
-    for name, tensor in (("block_tables", block_tables), ("lengths", lengths)):
-        _build.require_cuda(name, tensor, (torch.int32,))
-    if head_dim != KERNEL_HEAD_DIM \
-            or KERNEL_GROUPS.get(query.dtype) != n_heads // n_kv:
-        raise ValueError(
-            f"the paged kernel is built for head_dim {KERNEL_HEAD_DIM} with "
-            f"GQA groups {KERNEL_GROUPS}, got head_dim {head_dim}, group "
-            f"{n_heads // n_kv} in {query.dtype}"
-        )
+    _require_kernel_inputs("paged", query, key_pool, key_scale, value_pool,
+                           value_scale, block_tables=block_tables,
+                           lengths=lengths)
     out = torch.empty_like(query)
     max_blocks = block_tables.shape[1]
     if query.numel() == 0 or max_blocks == 0:
@@ -193,3 +214,104 @@ def paged_int8_decode_attention(
 
 
 paged_int8_decode_attention.launches = 0
+
+
+def _check_dense(query, key_q, key_scale, value_q, value_scale,
+                 lengths) -> None:
+    b, n_heads, head_dim = query.shape
+    cache = tuple(key_q.shape)
+    if len(cache) != 4 or cache[0] != b or cache[3] != head_dim \
+            or tuple(value_q.shape) != cache:
+        raise ValueError(
+            f"caches must both be [{b}, S, Hkv, {head_dim}], got "
+            f"{tuple(key_q.shape)} and {tuple(value_q.shape)}"
+        )
+    for name, scale in (("key_scale", key_scale), ("value_scale", value_scale)):
+        if tuple(scale.shape) != cache[:3] + (1,):
+            raise ValueError(
+                f"{name} must carry per-row scales {cache[:3] + (1,)}, got "
+                f"{tuple(scale.shape)}"
+            )
+    if n_heads % cache[2]:
+        raise ValueError(f"n_heads={n_heads} must divide by n_kv={cache[2]}")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+
+
+def int8_decode_attention_reference(
+    query, key_q, key_scale, value_q, value_scale, lengths, *,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain torch version of `int8_decode_attention`: one softmax per
+    row over its first ``lengths[b]`` positions, in f32. Dead positions
+    get -inf logits and their V rows are zeroed before P·V (their scales
+    may be NaN garbage); the normaliser is clamped to 1e-30, so a row of
+    length 0 — or an empty cache — gives zeros."""
+    _check_dense(query, key_q, key_scale, value_q, value_scale, lengths)
+    b, n_heads, head_dim = query.shape
+    seq, n_kv = key_q.shape[1], key_q.shape[2]
+    if query.numel() == 0 or seq == 0:
+        return torch.zeros_like(query)
+    if softmax_scale is None:
+        softmax_scale = head_dim ** -0.5
+    live = (torch.arange(seq, device=query.device)[None, :]
+            < lengths.long()[:, None])  # [B, S]
+    keys = key_q.float() * key_scale
+    values = torch.where(live[:, :, None, None],
+                         value_q.float() * value_scale, 0.0)
+    q = query.float().reshape(b, n_kv, n_heads // n_kv, head_dim) * softmax_scale
+    logits = torch.einsum("bhgd,bshd->bhgs", q, keys)
+    logits = torch.where(live[:, None, None, :], logits, float("-inf"))
+    peak = torch.amax(logits, dim=-1, keepdim=True)
+    peak = torch.where(torch.isfinite(peak), peak, torch.zeros_like(peak))
+    probs = torch.exp(logits - peak)
+    norm = torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, values) / norm
+    return out.reshape(b, n_heads, head_dim).to(query.dtype)
+
+
+def int8_decode_attention(
+    query, key_q, key_scale, value_q, value_scale, lengths, *,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a dense int8 cache.
+
+    query [B, H, D] (one token per batch row); caches [B, S, Hkv, D] int8
+    with per-row scales [B, S, Hkv, 1] f32; lengths [B] int32 valid
+    positions per row (the token's own row included). Returns [B, H, D]
+    in query's dtype. CUDA tensors launch the kernel (counted in
+    `int8_decode_attention.launches`), CPU tensors take the plain
+    version."""
+    if not query.is_cuda:
+        return int8_decode_attention_reference(
+            query, key_q, key_scale, value_q, value_scale, lengths,
+            softmax_scale=softmax_scale)
+    _check_dense(query, key_q, key_scale, value_q, value_scale, lengths)
+    _require_kernel_inputs("dense", query, key_q, key_scale, value_q,
+                           value_scale, lengths=lengths)
+    b, n_heads, head_dim = query.shape
+    seq, n_kv = key_q.shape[1], key_q.shape[2]
+    out = torch.empty_like(query)
+    if query.numel() == 0 or seq == 0:
+        return out.zero_()
+    if softmax_scale is None:
+        softmax_scale = head_dim ** -0.5
+    n_splits = -(-seq // SPLIT_ROWS)
+    part_acc = torch.empty(b, n_heads, n_splits, head_dim,
+                           dtype=torch.float32, device=query.device)
+    part_ml = torch.empty(b, n_heads, n_splits, 2, dtype=torch.float32,
+                          device=query.device)
+    lib = _build.load_library()
+    status = lib.tyt_dense_decode_attention(
+        query.data_ptr(), key_q.data_ptr(), key_scale.data_ptr(),
+        value_q.data_ptr(), value_scale.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        b, n_heads, n_kv, head_dim, seq, n_splits, float(softmax_scale),
+        _build.DTYPE_CODES[query.dtype], _build.stream_handle(query.device),
+    )
+    _build.check(status, "int8_decode_attention")
+    int8_decode_attention.launches += 1
+    return out
+
+
+int8_decode_attention.launches = 0

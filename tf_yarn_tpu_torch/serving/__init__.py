@@ -1,13 +1,13 @@
-"""Online serving for the port: continuous batching over the paged int8
-decode engine.
+"""Online serving for the port: continuous batching over the decode
+engine.
 
 * :mod:`~tf_yarn_tpu_torch.serving.request` — Request/Response
   lifecycle and the bounded admission queue (a copy of the JAX
   package's module).
 * :mod:`~tf_yarn_tpu_torch.serving.paging` — block-pool free list,
   refcounts and the prefix cache (a copy).
-* :mod:`~tf_yarn_tpu_torch.serving.scheduler` — `SlotScheduler`, paged
-  layout with fused decode attention.
+* :mod:`~tf_yarn_tpu_torch.serving.scheduler` — `SlotScheduler`: the
+  dense slot grid, or the paged pool in the gather or fused mode.
 * :mod:`~tf_yarn_tpu_torch.serving.server` — `ServingServer`:
   ``/v1/generate``, ``/healthz``, ``/stats``, ``/metrics``.
 """

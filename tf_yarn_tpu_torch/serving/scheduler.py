@@ -1,31 +1,42 @@
 """Continuous-batching slot scheduler — counterpart of
-tf_yarn_tpu/serving/scheduler.py, restricted to the paged KV layout with
-fused decode attention.
+tf_yarn_tpu/serving/scheduler.py.
 
-A fixed grid of ``max_slots`` decode slots over ONE global pool of
-int8 KV blocks plus per-slot block tables. Every tick:
+A fixed grid of ``max_slots`` decode slots over one of two KV layouts:
+
+* ``kv_layout="dense"`` (the default): one `DenseKVCache` row of
+  ``max_seq_len`` positions per slot, each at its own index. Admission
+  prefills into the slot (`insert_slot`) or, when the whole prompt
+  replays, zeroes it (`evict_slot`).
+* ``kv_layout="paged"``: ONE global pool of KV blocks plus per-slot block
+  tables. Admission reserves every block the request can need (prompt +
+  max_new - 1 tokens) up front, sharing a cached prompt prefix when one
+  matches (the prefix cache); a request the pool cannot cover yet is
+  HELD until retirements free blocks. ``decode_attention`` picks how a
+  tick reads the pool: ``"gather"`` (the default) gathers each slot's
+  dense view and runs the dense decode, ``"fused"`` (int8 only) attends
+  straight off the pool with the paged kernel.
+
+Every tick:
 
 1. **retire** active slots whose per-request deadline passed;
-2. **admit** queued requests into free slots: reserve every block the
-   request can need (prompt + max_new - 1 tokens) up front, sharing a
-   cached prompt prefix when one matches (the prefix cache), else
-   prefill the prompt through the engine's bucketed prefill
-   (`slot_prefill_len` leaves the last prompt token to replay) and
-   splice it into the slot's blocks; a request the pool cannot cover
-   yet is HELD until retirements free blocks;
-3. **step** every slot through the engine's fused paged window step at
-   width 1 (``spec_k = 0``): replaying slots feed their next prompt
-   token, decoding slots their last emission, free slots ride along
-   masked off (their writes land in the trash block);
-4. **retire** slots that emitted their eos or hit max_new_tokens,
-   releasing their blocks — reusable on the very next tick.
+2. **admit** queued requests into free slots: prefill the prompt through
+   the engine's bucketed prefill (`slot_prefill_len` leaves the last
+   prompt token to replay) and splice it into the slot;
+3. **step** every slot in ONE engine call: replaying slots feed their
+   next prompt token, decoding slots their last emission, free slots
+   ride along masked off. The exact tick (`engine.step` /
+   `engine.paged_step`) advances each slot one token; the windowed tick
+   (`engine.spec_step` / `engine.paged_spec_step`, when ``spec_k > 0``
+   or the fused mode) feeds each slot a window of its replay prefix or
+   its last token plus up to ``spec_k`` drafts from the n-gram
+   self-drafter, and keeps the prefix the target itself emits;
+4. **retire** slots that emitted their eos or hit max_new_tokens.
 
 Per-slot sampling state is a `torch.Generator` seeded with the request's
 seed at admission (the JAX package's per-slot PRNGKey rows). The
 constructor raises NotImplementedError, naming the ROADMAP item, for
-what is not ported yet: the dense layout, the gather attention mode,
-speculative drafting (``spec_k > 0``), chunked prefill, the host swap
-tier (``kv_host_blocks > 0``) and tensor parallelism.
+what is not ported yet: chunked prefill, the host swap tier
+(``kv_host_blocks > 0``) and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.models.decode_engine import DECODE_ATTENTION_MODES
 from tf_yarn_tpu_torch.models.spec import make_drafter, plan_window
 from tf_yarn_tpu_torch.serving.paging import BlockPool, PrefixCache
 from tf_yarn_tpu_torch.serving.request import (
@@ -64,6 +76,9 @@ IDLE_POLL_S = 0.05
 _SERVING_ITEM = "ROADMAP.md Queue 1, serving"
 
 
+KV_LAYOUTS = ("dense", "paged")
+
+
 class _Slot:
     """Host-side state of one occupied decode slot; a non-empty
     ``pending`` deque means the slot is still replaying its prompt."""
@@ -72,13 +87,13 @@ class _Slot:
                  "blocks", "context", "last_emit_at")
 
     def __init__(self, request: Request, response: Response,
-                 pending: List[int], blocks: List[int]):
+                 pending: List[int], blocks: Optional[List[int]] = None):
         self.request = request
         self.response = response
         self.pending: Deque[int] = collections.deque(pending)
         self.last_token = 0
         self.emitted = 0
-        self.blocks = blocks
+        self.blocks = blocks or []
         self.context: List[int] = list(request.prompt)
         self.last_emit_at: Optional[float] = None
 
@@ -92,10 +107,12 @@ class SlotScheduler:
 
     `temperature`/`top_k`/`top_p` configure the grid; requests whose
     SamplingParams disagree are rejected at submit (the HTTP 400).
-    ``block_size`` tokens per KV block; ``num_blocks`` physical blocks
-    (default: the dense-equivalent ``max_slots * max_seq_len /
-    block_size + 1``); ``prefix_cache_capacity`` shared-prefix entries
-    (0 disables sharing)."""
+    Paged layout: ``block_size`` tokens per KV block; ``num_blocks``
+    physical blocks (default: the dense-equivalent ``max_slots *
+    max_seq_len / block_size + 1``); ``prefix_cache_capacity``
+    shared-prefix entries (0 disables sharing). ``spec_k`` drafts per
+    slot per tick from ``spec_draft`` ("ngram", a callable ``(context,
+    k) -> tokens``, or None); the context limit shrinks by ``spec_k``."""
 
     def __init__(
         self,
@@ -108,14 +125,14 @@ class SlotScheduler:
         queue_capacity: int = 64,
         retry_after_s: float = 1.0,
         trace_len: int = 4096,
-        kv_layout: str = "paged",
+        kv_layout: str = "dense",
         block_size: int = 16,
         num_blocks: Optional[int] = None,
         prefix_cache_capacity: int = 256,
         max_seq_len: Optional[int] = None,
         spec_k: int = 0,
-        spec_draft=None,
-        decode_attention: str = "fused",
+        spec_draft="ngram",
+        decode_attention: str = "gather",
         prefill_chunk=None,
         prefill_budget_per_tick: Optional[int] = None,
         kv_host_blocks: int = 0,
@@ -123,14 +140,19 @@ class SlotScheduler:
     ):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
-        if kv_layout != "paged":
-            _not_ported(f"kv_layout={kv_layout!r} (the dense slot grid)")
-        if decode_attention != "fused":
-            _not_ported(f"decode_attention={decode_attention!r}",
-                        "ROADMAP.md Queue 1, decode engine")
-        if spec_k:
-            _not_ported("speculative decoding (spec_k > 0)",
-                        "ROADMAP.md Queue 1, decode engine")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(
+                f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if decode_attention not in DECODE_ATTENTION_MODES:
+            raise ValueError(
+                f"decode_attention must be one of {DECODE_ATTENTION_MODES}, "
+                f"got {decode_attention!r}")
+        if decode_attention == "fused" and kv_layout != "paged":
+            raise ValueError(
+                "decode_attention='fused' streams the paged block pool "
+                "directly; it requires kv_layout='paged'")
         if prefill_chunk not in (None, 0) or prefill_budget_per_tick is not None:
             _not_ported("chunked prefill (prefill_chunk, "
                         "prefill_budget_per_tick)")
@@ -145,11 +167,15 @@ class SlotScheduler:
         self.top_k = top_k
         self.top_p = top_p
         self.kv_layout = kv_layout
-        self.spec_k = 0
+        self.spec_k = int(spec_k)
         self.decode_attention = decode_attention
-        self._drafter = make_drafter(spec_draft)
-        # The fused tick is the windowed program at width spec_k + 1.
-        self._window_width = 1
+        # The windowed tick: the last token (or replay prefix) + spec_k
+        # drafts; it also carries the fused mode at width 1.
+        self._window_width = self.spec_k + 1
+        self._windowed = self.spec_k > 0 or decode_attention == "fused"
+        self._drafter = make_drafter(spec_draft) if self.spec_k > 0 else None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._prefill_tokens = 0
         self._decode_tokens = 0
         self.tier_caps: Dict[str, int] = {}
@@ -181,21 +207,29 @@ class SlotScheduler:
             max_seq_len = engine.model.config.max_seq_len
         self._max_seq_len = int(max_seq_len)
         self._held: Optional[Tuple[Request, Response]] = None
-        if self._max_seq_len % block_size:
-            raise ValueError(
-                f"block_size={block_size} must divide "
-                f"max_seq_len={self._max_seq_len}"
-            )
-        self._block_size = int(block_size)
-        self._blocks_per_slot = self._max_seq_len // self._block_size
-        if num_blocks is None:
-            num_blocks = max_slots * self._blocks_per_slot + 1
-        self._pool = engine.make_paged_pool(num_blocks, self._block_size)
-        self._blocks = BlockPool(num_blocks, self._block_size)
-        self._prefix = PrefixCache(self._blocks, prefix_cache_capacity)
-        self._tables = np.zeros((max_slots, self._blocks_per_slot), np.int32)
-        self._lengths = np.zeros((max_slots,), np.int32)
-        self._kv_bytes = self._pool.nbytes()
+        if kv_layout == "paged":
+            if self._max_seq_len % block_size:
+                raise ValueError(
+                    f"block_size={block_size} must divide "
+                    f"max_seq_len={self._max_seq_len}"
+                )
+            self._block_size = int(block_size)
+            self._blocks_per_slot = self._max_seq_len // self._block_size
+            if num_blocks is None:
+                num_blocks = max_slots * self._blocks_per_slot + 1
+            self._pool = engine.make_paged_pool(num_blocks, self._block_size)
+            self._blocks = BlockPool(num_blocks, self._block_size)
+            self._prefix = PrefixCache(self._blocks, prefix_cache_capacity)
+            self._tables = np.zeros((max_slots, self._blocks_per_slot),
+                                    np.int32)
+            self._lengths = np.zeros((max_slots,), np.int32)
+            self._cache = None
+            self._kv_bytes = self._pool.nbytes()
+        else:
+            self._cache = engine.make_slot_cache(max_slots)
+            self._pool = self._blocks = self._prefix = None
+            self._block_size = None
+            self._kv_bytes = self._cache.nbytes()
         self._registry.gauge(
             "serving/kv_cache_hbm_bytes", layout=kv_layout).set(self._kv_bytes)
         self._registry.gauge("serving/tp_degree").set(1)
@@ -228,18 +262,21 @@ class SlotScheduler:
                           priority=priority, timeout_s=timeout_s, tier=tier,
                           trace_id=trace_id)
         if len(request.prompt) + params.max_new_tokens > self.context_limit:
+            headroom = (f" minus the {self._window_width - 1}-token window "
+                        "headroom (spec_k)" if self._window_width > 1 else "")
             raise ValueError(
                 f"prompt ({len(request.prompt)}) + max_new_tokens "
                 f"({params.max_new_tokens}) exceeds the model's max_seq_len "
-                f"({self._max_seq_len}) — the slot KV size"
+                f"({self._max_seq_len}){headroom} — the slot KV size"
             )
-        need = self._blocks_needed(request)
-        if need > self._blocks.num_blocks - 1:
-            raise ValueError(
-                f"request needs {need} KV blocks but the pool holds "
-                f"{self._blocks.num_blocks - 1} — it can never be admitted; "
-                "raise num_blocks or shorten the request"
-            )
+        if self.kv_layout == "paged":
+            need = self._blocks_needed(request)
+            if need > self._blocks.num_blocks - 1:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool holds "
+                    f"{self._blocks.num_blocks - 1} — it can never be "
+                    "admitted; raise num_blocks or shorten the request"
+                )
         try:
             with self._tier_lock:
                 cap = self.tier_caps.get(request.tier)
@@ -279,7 +316,10 @@ class SlotScheduler:
             accepts = None
             if active:
                 with telemetry.span("serving/step", active=len(active)):
-                    accepts = self._step_window(active, retired)
+                    if self._windowed:
+                        accepts = self._step_spec(active, retired)
+                    else:
+                        self._step(active, retired)
         worked = bool(active or admitted or retired)
         if worked:
             self._ticks += 1
@@ -310,16 +350,17 @@ class SlotScheduler:
             len([s for s in self._slots if s is not None]))
         self._registry.gauge("serving/free_slots").set(len(self._free))
         self._registry.gauge("serving/queue_depth").set(self.queue.depth)
-        self._registry.gauge("serving/block_pool_used_blocks").set(
-            self._blocks.used_blocks)
-        self._registry.gauge("serving/block_pool_free_blocks").set(
-            self._blocks.free_blocks)
-        self._registry.gauge("serving/prefix_cache_entries").set(
-            self._prefix.entries)
-        self._registry.gauge("serving/prefix_cache_blocks").set(
-            self._prefix.cached_blocks)
-        self._registry.gauge("serving/prefix_cache_hit_rate").set(
-            self._prefix.hit_rate)
+        if self.kv_layout == "paged":
+            self._registry.gauge("serving/block_pool_used_blocks").set(
+                self._blocks.used_blocks)
+            self._registry.gauge("serving/block_pool_free_blocks").set(
+                self._blocks.free_blocks)
+            self._registry.gauge("serving/prefix_cache_entries").set(
+                self._prefix.entries)
+            self._registry.gauge("serving/prefix_cache_blocks").set(
+                self._prefix.cached_blocks)
+            self._registry.gauge("serving/prefix_cache_hit_rate").set(
+                self._prefix.hit_rate)
         return worked
 
     def _retire_deadlines(self, now: float, retired: List) -> None:
@@ -352,10 +393,44 @@ class SlotScheduler:
             if request.expired(now):
                 self._finish_unadmitted(response, FINISH_DEADLINE)
                 continue
-            if not self._admit_paged(request, response, now, admitted):
+            if self.kv_layout == "dense":
+                self._admit_dense(request, response, now, admitted)
+            elif not self._admit_paged(request, response, now, admitted):
                 # Hold the FIFO head until retirements free blocks.
                 self._held = (request, response)
                 break
+
+    def _record_admission(self, slot: int, request: Request, now: float,
+                          admitted: List[int]) -> None:
+        self._registry.histogram("serving/queue_wait_seconds").observe(
+            now - request.submitted_at)
+        if self._used_before[slot]:
+            self._registry.counter("serving/slot_reuse_total").inc()
+        self._used_before[slot] = True
+        generator = torch.Generator(device=self.engine.device)
+        generator.manual_seed(int(request.params.seed))
+        self._generators[slot] = generator
+        admitted.append(request.id)
+        self._registry.counter("serving/requests_admitted_total").inc()
+
+    def _admit_dense(self, request: Request, response: Response,
+                     now: float, admitted: List[int]) -> None:
+        slot = self._free.popleft()
+        prefill_len = self.engine.slot_prefill_len(len(request.prompt))
+        with telemetry.span("serving/prefill", request=request.id,
+                            prefill=prefill_len):
+            if prefill_len > 0:
+                row_cache, _logits = self.engine.prefill(
+                    np.asarray(request.prompt[:prefill_len], np.int32)[None, :])
+                self._cache = self.engine.insert_slot(self._cache, slot,
+                                                      row_cache)
+            else:
+                # The whole prompt replays: start from a zeroed slot, not
+                # what the previous occupant left.
+                self._cache = self.engine.evict_slot(self._cache, slot)
+        self._slots[slot] = _Slot(request, response,
+                                  list(request.prompt[prefill_len:]))
+        self._record_admission(slot, request, now, admitted)
 
     def _admit_paged(self, request: Request, response: Response,
                      now: float, admitted: List[int]) -> bool:
@@ -397,16 +472,7 @@ class SlotScheduler:
         self._lengths[slot] = prefill_len
         self._slots[slot] = _Slot(request, response, list(prompt[prefill_len:]),
                                   blocks)
-        self._registry.histogram("serving/queue_wait_seconds").observe(
-            now - request.submitted_at)
-        if self._used_before[slot]:
-            self._registry.counter("serving/slot_reuse_total").inc()
-        self._used_before[slot] = True
-        generator = torch.Generator(device=self.engine.device)
-        generator.manual_seed(int(request.params.seed))
-        self._generators[slot] = generator
-        admitted.append(request.id)
-        self._registry.counter("serving/requests_admitted_total").inc()
+        self._record_admission(slot, request, now, admitted)
         return True
 
     def _observe_ttft(self, state: _Slot) -> None:
@@ -415,20 +481,87 @@ class SlotScheduler:
         self._registry.histogram(
             "serving/ttft_seconds", tier=state.request.tier).observe(ttft)
 
-    def _step_window(self, active: List[int], retired: List) -> Dict[int, int]:
-        """The fused window tick: ONE engine step advances every slot
-        (width 1: one replayed prompt token or one emission). Returns
-        {request id: tokens emitted} for the trace ring."""
+    def _step(self, active: List[int], retired: List) -> None:
+        """The exact tick: ONE engine step advances every slot one token
+        (a replayed prompt token, or the fed-back last emission)."""
+        tokens = np.zeros((self.max_slots,), np.int32)
+        mask = np.zeros((self.max_slots,), bool)
+        for slot in active:
+            state = self._slots[slot]
+            if state.pending:
+                tokens[slot] = state.pending[0]
+                mask[slot] = len(state.pending) == 1
+            else:
+                tokens[slot] = state.last_token
+                mask[slot] = True
+        sampling = dict(temperature=self.temperature, top_k=self.top_k,
+                        top_p=self.top_p)
+        if self.kv_layout == "paged":
+            self._pool, emitted, self._generators = self.engine.paged_step(
+                self._pool, self._tables, self._lengths, tokens,
+                self._generators, mask, block_size=self._block_size,
+                **sampling)
+        else:
+            self._cache, emitted, self._generators = self.engine.step(
+                self._cache, tokens, self._generators, mask, **sampling)
+        now = time.monotonic()
+        prefill_tokens = 0
+        decode_tokens = 0
+        for slot in active:
+            state = self._slots[slot]
+            if self.kv_layout == "paged":
+                # The slot wrote its K/V row at the old length.
+                self._lengths[slot] += 1
+            if state.pending:
+                state.pending.popleft()
+                prefill_tokens += 1
+            if not mask[slot]:
+                continue
+            decode_tokens += 1
+            self._emit(slot, int(emitted[slot]), now, retired)
+        self._account_tokens(prefill_tokens, decode_tokens)
+
+    def _emit(self, slot: int, token: int, now: float, retired: List) -> bool:
+        """Deliver one emitted token; True when it retired the slot."""
+        state = self._slots[slot]
+        state.last_token = token
+        state.emitted += 1
+        state.context.append(token)
+        first = state.response.first_token_at is None
+        state.response._push(token)
+        if first:
+            self._observe_ttft(state)
+        elif state.last_emit_at is not None:
+            self._registry.histogram("serving/inter_token_latency_ms").observe(
+                (now - state.last_emit_at) * 1e3)
+        state.last_emit_at = now
+        self._registry.counter("serving/tokens_generated_total").inc()
+        eos = state.request.params.eos_token
+        if eos is not None and token == eos:
+            self._retire(slot, FINISH_EOS, retired)
+            return True
+        if state.emitted >= state.request.params.max_new_tokens:
+            self._retire(slot, FINISH_LENGTH, retired)
+            return True
+        return False
+
+    def _step_spec(self, active: List[int], retired: List) -> Dict[int, int]:
+        """The windowed tick: ONE engine step advances every slot a
+        variable number of tokens — a replaying slot up to the window of
+        teacher-forced prompt tokens, a decoding slot 1 up to spec_k + 1
+        (its drafts kept while the target agrees). Returns {request id:
+        tokens emitted} for the trace ring."""
         width = self._window_width
         tokens = np.full((self.max_slots, width), -1, np.int32)
         n_known = np.zeros((self.max_slots,), np.int32)
         eos_ids = np.full((self.max_slots,), -1, np.int32)
         mask = np.zeros((self.max_slots,), bool)
         consumed: Dict[int, int] = {}
+        proposed: Dict[int, int] = {}
         for slot in active:
             state = self._slots[slot]
             max_emit = state.request.params.max_new_tokens - state.emitted
-            window, known, _n_prop = plan_window(
+            window, known, n_prop = plan_window(
                 state.pending, state.last_token, width, max_emit,
                 state.context, self._drafter, max_drafts=self.spec_k)
             tokens[slot] = window
@@ -437,13 +570,20 @@ class SlotScheduler:
             eos_ids[slot] = -1 if eos is None else eos
             mask[slot] = True
             consumed[slot] = min(len(state.pending), width)
-        self._pool, emitted, counts, self._generators = \
-            self.engine.paged_spec_step(
-                self._pool, self._tables, self._lengths, tokens, n_known,
-                eos_ids, self._generators, mask,
-                block_size=self._block_size, temperature=self.temperature,
-                top_k=self.top_k, top_p=self.top_p,
-                decode_attention=self.decode_attention)
+            proposed[slot] = n_prop
+        sampling = dict(temperature=self.temperature, top_k=self.top_k,
+                        top_p=self.top_p)
+        if self.kv_layout == "paged":
+            self._pool, emitted, counts, self._generators = \
+                self.engine.paged_spec_step(
+                    self._pool, self._tables, self._lengths, tokens, n_known,
+                    eos_ids, self._generators, mask,
+                    block_size=self._block_size,
+                    decode_attention=self.decode_attention, **sampling)
+        else:
+            self._cache, emitted, counts, self._generators = \
+                self.engine.spec_step(self._cache, tokens, n_known, eos_ids,
+                                      self._generators, mask, **sampling)
         now = time.monotonic()
         prefill_tokens = 0
         decode_tokens = 0
@@ -455,32 +595,36 @@ class SlotScheduler:
             prefill_tokens += consumed[slot]
             n = int(counts[slot])
             decode_tokens += n
-            # Valid rows this tick: the replayed prefix + the emissions.
-            self._lengths[slot] += int(n_known[slot]) + n
+            if self.kv_layout == "paged":
+                # Valid rows this tick: the replayed prefix + the
+                # emissions; rejected window rows beyond stay dead.
+                self._lengths[slot] += int(n_known[slot]) + n
+            if proposed[slot]:
+                accepted_drafts = min(max(n - 1, 0), proposed[slot])
+                self._spec_proposed += proposed[slot]
+                self._spec_accepted += accepted_drafts
+                self._registry.counter(
+                    "serving/spec_proposed_tokens_total").inc(proposed[slot])
+                if accepted_drafts:
+                    self._registry.counter(
+                        "serving/spec_accepted_tokens_total").inc(
+                            accepted_drafts)
             if n:
                 accepts[state.request.id] = n
+                self._registry.histogram(
+                    "serving/accepted_tokens_per_step").observe(n)
             for j in range(n):
-                token = int(emitted[slot, j])
-                state.last_token = token
-                state.emitted += 1
-                state.context.append(token)
-                first = state.response.first_token_at is None
-                state.response._push(token)
-                if first:
-                    self._observe_ttft(state)
-                elif state.last_emit_at is not None:
-                    self._registry.histogram(
-                        "serving/inter_token_latency_ms"
-                    ).observe((now - state.last_emit_at) * 1e3)
-                state.last_emit_at = now
-                self._registry.counter("serving/tokens_generated_total").inc()
-                eos = state.request.params.eos_token
-                if eos is not None and token == eos:
-                    self._retire(slot, FINISH_EOS, retired)
+                if self._emit(slot, int(emitted[slot, j]), now, retired):
                     break
-                if state.emitted >= state.request.params.max_new_tokens:
-                    self._retire(slot, FINISH_LENGTH, retired)
-                    break
+        if self._spec_proposed:
+            self._registry.gauge("serving/spec_accept_rate").set(
+                self._spec_accepted / self._spec_proposed)
+        self._account_tokens(prefill_tokens, decode_tokens)
+        return accepts
+
+    def _account_tokens(self, prefill_tokens: int, decode_tokens: int) -> None:
+        """Per-tick token split: prompt tokens consumed (prefill/replay)
+        against tokens emitted (decode)."""
         self._prefill_tokens += prefill_tokens
         self._decode_tokens += decode_tokens
         if prefill_tokens:
@@ -489,18 +633,18 @@ class SlotScheduler:
         if decode_tokens:
             self._registry.counter("serving/decode_tokens_total").inc(
                 decode_tokens)
-        return accepts
 
     def _retire(self, slot: int, reason: str, retired: List) -> None:
         state = self._slots[slot]
         self._slots[slot] = None
         self._free.append(slot)
         self._generators[slot] = None
-        # O(blocks) bookkeeping: shared prefix blocks survive on the
-        # cache's own reference; stale pool rows need no zeroing.
-        self._blocks.release(state.blocks)
-        self._tables[slot, :] = 0
-        self._lengths[slot] = 0
+        if self.kv_layout == "paged":
+            # O(blocks) bookkeeping: shared prefix blocks survive on the
+            # cache's own reference; stale pool rows need no zeroing.
+            self._blocks.release(state.blocks)
+            self._tables[slot, :] = 0
+            self._lengths[slot] = 0
         self._tier_dec(state.request)
         self._estimator.record_retire(state.request.tier)
         state.response._finish(reason)
@@ -577,7 +721,7 @@ class SlotScheduler:
         with self._tier_lock:
             tier_inflight = {tier: count for tier, count
                              in self._tier_inflight.items() if count}
-        return {
+        snap = {
             "max_slots": self.max_slots,
             "active_slots": len([s for s in self._slots if s is not None]),
             "free_slots": len(self._free),
@@ -597,18 +741,28 @@ class SlotScheduler:
             "decode_tokens": self._decode_tokens,
             "retire_rate_per_s": round(self._estimator.retire_rate(), 4),
             "tiers": {"inflight": tier_inflight, "caps": dict(self.tier_caps)},
-            "block_size": self._block_size,
-            "block_pool": {
+        }
+        if self._windowed:
+            snap["spec"] = {
+                "proposed_tokens": self._spec_proposed,
+                "accepted_tokens": self._spec_accepted,
+                "accept_rate": round(
+                    self._spec_accepted / self._spec_proposed, 4)
+                if self._spec_proposed else None,
+            }
+        if self.kv_layout == "paged":
+            snap["block_size"] = self._block_size
+            snap["block_pool"] = {
                 "num_blocks": self._blocks.num_blocks,
                 "used_blocks": self._blocks.used_blocks,
                 "free_blocks": self._blocks.free_blocks,
-            },
-            "prefix_cache": {
+            }
+            snap["prefix_cache"] = {
                 "entries": self._prefix.entries,
                 "cached_blocks": self._prefix.cached_blocks,
                 "hits": self._prefix.hits,
                 "misses": self._prefix.misses,
                 "hit_rate": round(self._prefix.hit_rate, 4),
-            },
-            "decode_engine": dict(self.engine.stats),
-        }
+            }
+        snap["decode_engine"] = dict(self.engine.stats)
+        return snap
