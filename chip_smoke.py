@@ -8,11 +8,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed;
-3. kernels: each of the eight kernels against its plain torch version on
-   the card at its main path's shapes (serving: rmsnorm, quantize, paged
-   attention, dense int8 decode attention — the two attention rows read
-   the same slots' cache bytes; training: rmsnorm dx, flash forward, dq,
-   dk/dv), with the
+3. kernels: each of the twelve kernels against its plain torch version
+   on the card at its main path's shapes (serving: rmsnorm, quantize,
+   paged attention, dense int8 decode attention — the two attention rows
+   read the same slots' cache bytes; training: rmsnorm dx, flash forward,
+   dq, dk/dv; the zoo: LayerNorm forward and dx at BERT-base's and
+   ViT-B/16's rows, GroupNorm forward and dx at ResNet-50's stem and
+   last-stage slabs), with the
    stated tolerance, timed with CUDA events over CUDA-graph replays
    beside the plain version, the library call where one exists, and its
    bound on this card. The times are cold: the calls cycle over copies
@@ -29,7 +31,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    f32 LoRA decoder (flash, fused norms) trained 5 steps on both from the
    same weights and batches — losses and adapters close; then
    `train_and_evaluate` with a model_dir writes manifested checkpoints,
-   verifies them and resumes;
+   verifies them and resumes; tiny f32 BERT, ViT and ResNet (both stems)
+   trained 3 steps on both — losses and parameters close — and the tiny
+   ResNet checkpointed and resumed through `train_and_evaluate`;
 5. serving slice: the Llama-3-8B-width decoder (random bf16 weights from
    seed 0, int8 KV) on every serving path, each with the kernel counts
    set to 0 just before it and read just after: SlotScheduler with 4
@@ -47,7 +51,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    finite, the adapters moved and the base bit-unchanged. The steady
    step is the mean of steps 2-4, with their spread. Then a warm-up
    step, one timed step and one under torch.profiler: the device's busy
-   time against the timed step gives its idle share.
+   time against the timed step gives its idle share;
+7. zoo slice: each family's `make_experiment` at full width with
+   `fused_norms=True` — BERT-base (32 x 128 tokens), ViT-B/16 and
+   ResNet-50 with the conv stem (128 images at 224) — through
+   `train_and_evaluate` for 4 steps, random weights from seed 0 and the
+   JAX synthetic inputs, each with the kernel counts set to 0 just
+   before it and read just after: its norm kernels launched, losses
+   finite, parameters moved; the steady step, samples/s, MFU (one
+   step's FLOPs from FlopCounterMode), peak memory, and a profiled step.
+
+The run takes 2.5-4 minutes by how fast the host is, well inside a
+10-minute limit.
 
 The line before last is the card's `nvidia-smi` name and power limit
 and the one before it the kernels JSON; the last line is
@@ -506,6 +521,171 @@ def check_flash(torch, ops, dev):
     return rows
 
 
+# The zoo slice's norm shapes: LayerNorm rows of BERT-base (32 x 128
+# tokens, eps 1e-12) and ViT-B/16 (128 images x 197 tokens, eps 1e-6),
+# 768 wide; GroupNorm slabs of ResNet-50 at batch 128, 32 groups, eps
+# 1e-6: the stem's 112x112x64 and the last stage's 7x7x2048. The first
+# of each is the kernel's row; the second's numbers go beside it.
+LN_SHAPES = {"bert_base": (32 * 128, 768, 1e-12),
+             "vit_b16": (128 * 197, 768, 1e-6)}
+GN_SHAPES = {"stem": ((128, 112, 112, 64), 32),
+             "stage4": ((128, 7, 7, 2048), 32)}
+
+
+def _norm_rows(specs, torch):
+    """Kernel rows from ``{name: (row, timing args)}`` specs: each row
+    timed at every shape, the first shape's numbers as the row's own and
+    the others' under ``other_shapes``."""
+    rows = []
+    for name, per_shape in specs.items():
+        row = None
+        for key, (fields, fn, plain, library, args, n_bytes, n_flops,
+                  library_bwd) in per_shape.items():
+            timed = timings(fn, plain, library, args, n_bytes, torch)
+            if library_bwd is not None:
+                sets = [_leaves(torch, args[:2])
+                        for _ in range(len(cold_copies(args, n_bytes)))]
+                timed["library_ms"], timed["library_fwd_bwd_ms"] = backward_ms(
+                    library_bwd, torch, sets)
+            timed["bound_ms"], timed["bound_by"] = bound_ms(n_bytes, n_flops)
+            timed.update(fields)
+            if row is None:
+                row = dict(timed, name=name, other_shapes={})
+            else:
+                row["other_shapes"][key] = timed
+        rows.append(row)
+    return rows
+
+
+def check_layernorm(torch, ops, dev):
+    """The LayerNorm forward and dx kernels at BERT-base's and ViT-B/16's
+    rows (bf16); returns their two rows."""
+    ln = ops.layernorm
+    layer_norm = torch.nn.functional.layer_norm
+    specs = {"layernorm": {}, "layernorm_bwd_dx": {}}
+    for key, (rows, d, eps) in LN_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + rows)
+        x = (torch.randn(rows, d, device=dev, generator=gen) * 3 + 1).to(
+            torch.bfloat16)
+        g = torch.randn(rows, d, device=dev, generator=gen).to(torch.bfloat16)
+        scale = torch.rand(d, device=dev, generator=gen) + 0.5
+        bias = torch.randn(d, device=dev, generator=gen)
+        y = ln._forward(x, scale, bias, eps)
+        dx = ln.layernorm_bwd_dx(x, g, scale, eps)
+        ref_y = ln.layernorm_reference(x, scale, bias, eps)
+        ref_dx = ln.layernorm_bwd_dx_reference(x, g, scale, eps)
+        torch.cuda.synchronize()
+        # y: one bf16 ulp (f32 sums in another order); dx: the same plus
+        # cancellation between its terms, atol 1e-2 of the largest entry.
+        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
+        torch.testing.assert_close(y.float(), ref_y.float(), rtol=1 / 128,
+                                   atol=1e-5)
+        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
+                                   atol=dx_atol)
+        n = rows * d
+        weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        base = {"route": "cuda",
+                "source": "tf_yarn_tpu_torch/ops/csrc/layernorm.cu",
+                "shape": {"rows": rows, "d": d, "eps": eps, "dtype": "bf16",
+                          "model": key}}
+
+        def library_bwd(x, g, d=d, eps=eps, weight=weight, wbias=wbias):
+            return layer_norm(x, (d,), weight, wbias, eps), x, g
+
+        # Bytes: x read and y written (dx: x and g read, dx written),
+        # the f32 vectors once; ~8 (dx ~14) f32 operations an element.
+        specs["layernorm"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:36",
+                 tolerance="rtol 1/128 (one bf16 ulp), atol 1e-5",
+                 max_abs_err=float((y.float() - ref_y.float()).abs().max()),
+                 library="F.layer_norm"),
+            lambda x, s, b, eps=eps: ln._forward(x, s, b, eps),
+            lambda x, s, b, eps=eps: ln.layernorm_reference(x, s, b, eps),
+            lambda x, s, b, d=d, eps=eps, weight=weight, wbias=wbias:
+                layer_norm(x, (d,), weight, wbias, eps),
+            (x, scale, bias), 2 * n * 2 + 2 * d * 4, 8 * n, None)
+        specs["layernorm_bwd_dx"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:61",
+                 tolerance="rtol 1/128, atol 1e-2 * max|dx|",
+                 max_abs_err=float((dx.float() - ref_dx.float()).abs().max()),
+                 library="F.layer_norm backward (autograd), dx"),
+            lambda x, g, s, eps=eps: ln.layernorm_bwd_dx(x, g, s, eps),
+            lambda x, g, s, eps=eps: ln.layernorm_bwd_dx_reference(x, g, s, eps),
+            None, (x, g, scale), 3 * n * 2 + d * 4, 14 * n, library_bwd)
+    return _norm_rows(specs, torch)
+
+
+def check_groupnorm(torch, ops, dev):
+    """The GroupNorm forward and dx kernels (two CUDA launches each) at
+    the ResNet-50 slabs (bf16, NHWC); returns their two rows. The library
+    yardstick is F.group_norm on the same storage seen as channels-last
+    NCHW, the layout the port keeps its activations in."""
+    gn = ops.groupnorm
+    group_norm = torch.nn.functional.group_norm
+    specs = {"groupnorm": {}, "groupnorm_bwd_dx": {}}
+    for key, (shape, groups) in GN_SHAPES.items():
+        c = shape[-1]
+        gen = torch.Generator(device=dev).manual_seed(SEED + c)
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(
+            torch.bfloat16)
+        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        y, stats = gn.groupnorm_forward(x, scale, bias, groups, 1e-6)
+        dx = gn.groupnorm_bwd_dx(x, g, scale, stats, groups)
+        ref_stats = gn.groupnorm_stats_reference(x, groups, 1e-6)
+        ref_y = gn.groupnorm_reference(x, scale, bias, groups, 1e-6)
+        ref_dx = gn.groupnorm_bwd_dx_reference(x, g, scale, ref_stats, groups)
+        torch.cuda.synchronize()
+        # The kernel's shifted one-pass statistics against the plain
+        # two-pass ones (f32 over up to 25,088 elements); y one bf16 ulp;
+        # dx one ulp plus cancellation, atol 1e-2 of the largest entry.
+        torch.testing.assert_close(stats, ref_stats, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y.float(), ref_y.float(), rtol=1 / 128,
+                                   atol=1e-5)
+        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
+        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
+                                   atol=dx_atol)
+        n = x.numel()
+        weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        nchw = lambda t: t.permute(0, 3, 1, 2)  # channels-last NCHW view
+        base = {"route": "cuda",
+                "source": "tf_yarn_tpu_torch/ops/csrc/groupnorm.cu",
+                "shape": {"nhwc": list(shape), "groups": groups, "eps": 1e-6,
+                          "dtype": "bf16", "slab": key},
+                "cuda_launches_per_call": 2}
+
+        def library_bwd(x, g, groups=groups, weight=weight, wbias=wbias):
+            return group_norm(nchw(x), groups, weight, wbias, 1e-6), x, nchw(g)
+
+        # Bytes: x read and y written (dx: x and g read, dx written), the
+        # vectors and the [B, G, 2] statistics once.
+        vec = 2 * c * 4 + shape[0] * groups * 8
+        specs["groupnorm"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:81",
+                 tolerance="stats rtol = atol = 1e-5; y rtol 1/128, atol 1e-5",
+                 max_abs_err=float((y.float() - ref_y.float()).abs().max()),
+                 library="F.group_norm (channels-last NCHW)"),
+            lambda x, s, b, groups=groups: gn.groupnorm_forward(x, s, b, groups,
+                                                                1e-6),
+            lambda x, s, b, groups=groups: gn.groupnorm_reference(x, s, b, groups,
+                                                                  1e-6),
+            lambda x, s, b, groups=groups, weight=weight, wbias=wbias:
+                group_norm(nchw(x), groups, weight, wbias, 1e-6),
+            (x, scale, bias), 2 * n * 2 + vec, 8 * n, None)
+        specs["groupnorm_bwd_dx"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:150",
+                 tolerance="rtol 1/128, atol 1e-2 * max|dx|",
+                 max_abs_err=float((dx.float() - ref_dx.float()).abs().max()),
+                 library="F.group_norm backward (autograd), dx"),
+            lambda x, g, s, st, groups=groups: gn.groupnorm_bwd_dx(
+                x, g, s, st, groups),
+            lambda x, g, s, st, groups=groups: gn.groupnorm_bwd_dx_reference(
+                x, g, s, st, groups),
+            None, (x, g, scale, stats), 3 * n * 2 + vec, 14 * n, library_bwd)
+    return _norm_rows(specs, torch)
+
+
 def train_tiny_reference(torch, tt, common, training, experiment, ckpt, dev):
     """A small f32 LoRA decoder (flash, fused norms) trained 5 steps
     through the kernels on the card and through the plain versions on
@@ -666,23 +846,35 @@ def train_slice(torch, tt, training, experiment, telemetry, counted, dev):
         "adapters_moved": moved,
         "base_params_changed": changed,
     }
-    # Three more steps outside the loop (their launches are not counted
-    # above), one train step function and optimizer for all three: a
-    # warm-up, one timed step, and one under the profiler for the
-    # device's busy time and top kernels.
-    optimizer = exp.optimizer(model)
-    step = training.build_train_step(model, loss_fn, optimizer)
-    state = training.TrainState(4, model, optimizer)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                            device=dev, generator=torch.Generator(
                                device=dev).manual_seed(SEED))
-    step(state, {"tokens": tokens})
+    result.update(profile_step(torch, training, model, loss_fn,
+                               exp.optimizer(model), {"tokens": tokens},
+                               steady))
+    return result
+
+
+def profile_step(torch, training, model, loss_fn, optimizer, batch, steady,
+                 flops_lib=None):
+    """Three steps outside the loop (their launches are not counted), one
+    train step function and optimizer for all three: a warm-up (with
+    `flops_lib`, counted by FlopCounterMode), one timed step, and one
+    under the profiler for the device's busy time and top kernels."""
+    step = training.build_train_step(model, loss_fn, optimizer)
+    state = training.TrainState(0, model, optimizer)
+    result = {}
+    if flops_lib is None:
+        step(state, batch)
+    else:
+        _, result["counted_flops_per_step"] = flops_lib.count_flops(
+            step, state, batch)
     torch.cuda.synchronize()
     started = time.perf_counter()
-    step(state, {"tokens": tokens})
+    step(state, batch)
     torch.cuda.synchronize()
     unprofiled = time.perf_counter() - started
-    profiled = device_profile(torch, lambda: step(state, {"tokens": tokens}))
+    profiled = device_profile(torch, lambda: step(state, batch))
     result["profiled_step"] = profiled
     result["unprofiled_step_s"] = unprofiled
     # The profiler slows the host, so the profiled step's own idle share
@@ -693,6 +885,193 @@ def train_slice(torch, tt, training, experiment, telemetry, counted, dev):
     result["idle_share_vs_unprofiled_step"] = (
         1 - profiled["device_busy_s"] / unprofiled)
     result["idle_share_vs_steady_step"] = 1 - profiled["device_busy_s"] / steady
+    return result
+
+
+def _zoo_cases(zoo, torch, tiny: bool):
+    """{name: (module, config, make_experiment kwargs)}: the tiny f32
+    configs of phase 4 (each family's learning rate spelled out), or the
+    full-width bf16 ones of phase 7 at their make_experiment defaults."""
+    f32 = torch.float32
+    if tiny:
+        return {
+            "bert": (zoo.bert, zoo.bert.BertConfig.tiny(dtype=f32),
+                     dict(batch_size=4, seq_len=16, learning_rate=1e-3)),
+            "vit": (zoo.vit, zoo.vit.ViTConfig.tiny(dtype=f32),
+                    dict(batch_size=4, learning_rate=3e-4)),
+            "resnet": (zoo.resnet, zoo.resnet.ResNetConfig.tiny(dtype=f32),
+                       dict(batch_size=4, image_size=32, learning_rate=0.1)),
+            "resnet_s2d": (zoo.resnet, zoo.resnet.ResNetConfig.tiny(
+                dtype=f32, stem="space_to_depth"),
+                dict(batch_size=4, image_size=32, learning_rate=0.1)),
+        }
+    return {
+        "bert_base": (zoo.bert, zoo.bert.BertConfig.base(fused_norms=True), {}),
+        "vit_b16": (zoo.vit, zoo.vit.ViTConfig.base16(fused_norms=True), {}),
+        "resnet50": (zoo.resnet, zoo.resnet.ResNetConfig.resnet50(
+            fused_norms=True), {}),
+    }
+
+
+def train_zoo_reference(torch, zoo, training, experiment, ckpt, dev):
+    """Tiny f32 BERT, ViT and ResNet (both stems) trained 3 steps through
+    the kernels on the card and through the plain versions on the CPU,
+    from the same weights and batches, with each family's make_experiment
+    optimizer, loss and synthetic input; then the tiny ResNet through
+    train_and_evaluate with a model_dir: a checkpoint at step 2, verified,
+    and a resume to step 4."""
+    import tempfile
+
+    result = {}
+    for name, (module, cfg, kwargs) in _zoo_cases(zoo, torch, True).items():
+        exp = module.make_experiment(cfg, **kwargs)
+        cpu_model = module.make_model(cfg, seed=SEED, device="cpu")
+        card_model = type(cpu_model)(cfg, device=dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        losses = []
+        for model in (card_model, cpu_model):
+            optimizer = exp.optimizer(model)
+            step = training.build_train_step(model, exp.loss_fn, optimizer)
+            state = training.TrainState(0, model, optimizer)
+            place = training._batch_placer(model.device)
+            batches = exp.train_input_fn()
+            run = []
+            for _ in range(3):
+                state, metrics = step(state, place(next(batches)))
+                run.append(float(metrics["loss"]))
+            losses.append(run)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        cpu_params = dict(cpu_model.named_parameters())
+        lr = kwargs["learning_rate"]
+        param_err = bias_drift = 0.0
+        for pname, param in card_model.named_parameters():
+            diff = float((param.detach().cpu() - cpu_params[pname].detach())
+                         .abs().max())
+            # Softmax cannot see a key bias: its gradient is rounding noise
+            # that Adam scales to steps of ±lr (tests/test_torch_zoo.py).
+            if pname.endswith("wk.bias"):
+                bias_drift = max(bias_drift, diff)
+            else:
+                param_err = max(param_err, diff)
+        # f32 kernels and cuDNN (TF32 off) against plain f32 on the CPU:
+        # sums in another order; three optimizer steps bound the drift.
+        if not all(v == v and abs(v) < 1e9 for v in losses[0]) \
+                or loss_err > 1e-4 or param_err > 5e-4 or bias_drift > 6 * lr:
+            raise AssertionError(
+                f"{name}: card vs CPU training: losses {losses}, param max "
+                f"abs err {param_err}, key-bias drift {bias_drift}")
+        result[name] = {"losses_card": losses[0], "losses_cpu": losses[1],
+                        "loss_max_rel_err": loss_err,
+                        "param_max_abs_err": param_err}
+    module, cfg, kwargs = _zoo_cases(zoo, torch, True)["resnet"]
+    with tempfile.TemporaryDirectory() as model_dir:
+        def run(steps):
+            exp = module.make_experiment(
+                cfg, model_dir=model_dir, train_steps=steps,
+                checkpoint_every_steps=2, keep_last_n=1, log_every_steps=1,
+                **kwargs)
+            return training.train_and_evaluate(
+                experiment.as_core_experiment(exp), device=dev)
+
+        first = run(2)
+        ckpt.verify_checkpoint(ckpt.checkpoint_path(model_dir, 2))
+        resumed = run(4)
+        steps = ckpt.list_checkpoint_steps(model_dir)
+        if steps != [2, 4] or ckpt.restore_checkpoint(model_dir, 4)["step"] != 4:
+            raise AssertionError(f"resume: checkpoints {steps}")
+    result["resnet_train_and_evaluate"] = {
+        "loss": [first["loss"], resumed["loss"]], "checkpoints": steps}
+    return result
+
+
+def zoo_slice(torch, module, cfg, kwargs, training, experiment, telemetry,
+              flops_lib, counted, needed, dev):
+    """One family's make_experiment at full width through
+    train_and_evaluate for 4 steps, random weights from seed 0 and the
+    JAX synthetic inputs, with every kernel count set to 0 just before
+    it: the needed kernels launched, the losses finite, the parameters
+    moved; the steady step (mean of steps 2-4) and its spread,
+    samples/s, MFU, peak memory; then one profiled step."""
+    exp = module.make_experiment(cfg, train_steps=4, log_every_steps=1,
+                                 **kwargs)
+    built = {}
+    init = exp.init_fn
+
+    def init_fn(device, seed):
+        model = init(device, seed)
+        with torch.no_grad():
+            built["before"] = {n: p.detach().clone()
+                               for n, p in model.named_parameters()}
+        built["model"] = model
+        return model
+
+    recorded = []
+    loss_fn = exp.loss_fn
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            recorded.append(loss.detach())
+        return loss, aux
+
+    exp.init_fn, exp.loss_fn = init_fn, recording_loss
+    tracer = telemetry.get_tracer()
+    tracer.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counted)
+    started = time.perf_counter()
+    metrics = training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    launches = _launches(counted)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for fn in needed:
+        if launches[fn.__name__] <= 0:
+            raise AssertionError(f"{fn.__name__} never launched on the "
+                                 f"{type(built['model']).__name__} path")
+    losses = [float(x) for x in recorded]
+    if len(losses) != 4 or not all(abs(x) < 1e9 and x == x for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    model, before = built.pop("model"), built.pop("before")
+    moved = sum(not torch.equal(p.detach(), before[n])
+                for n, p in model.named_parameters())
+    del before
+    n_params = len(list(model.parameters()))
+    # Embedding tables whose rows this batch never reads, and a decay too
+    # small for f32, may stay put; nearly every tensor must move.
+    if moved < 0.9 * n_params:
+        raise AssertionError(f"{moved} of {n_params} parameters moved")
+    spans = tracer.records()
+    step_s = [a.duration + b.duration for a, b in zip(
+        [r for r in spans if r.name == "train/step_dispatch"],
+        [r for r in spans if r.name == "train/device_wait"])]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    batch = training._batch_placer(dev)(next(exp.train_input_fn()))
+    samples = next(iter(batch.values())).shape[0]
+    result = {
+        "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
+                   for k, v in vars(cfg).items()},
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": list(next(iter(batch.values())).shape),
+        "losses": losses, "final_loss": metrics["loss"],
+        "step_s": step_s, "steady_step_s": steady,
+        "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+        "samples_per_s": samples / steady,
+        "loop_mfu_last_step": telemetry.get_registry().gauge("train/mfu").value,
+        "wall_s": wall, "launches": launches, "peak_memory_gb": peak,
+        "params_moved": [moved, n_params],
+    }
+    result.update(profile_step(torch, training, model, loss_fn,
+                               exp.optimizer(model), batch, steady,
+                               flops_lib=flops_lib))
+    result["mfu"] = (result["counted_flops_per_step"] / steady
+                     / H100_BF16_FLOPS)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
@@ -846,8 +1225,10 @@ def burst(port: int, prompts, new_tokens: int):
 def device_profile(torch, run):
     """`run()` under torch.profiler: the device's busy share of the wall
     time and the kernels that took most device time. Only device-side
-    events count: host ops and autograd annotations carry their kernels'
-    device time too, and summing them would count it twice."""
+    events count, and of those not the user annotations (the optimizer's
+    ``Optimizer.step#...`` range on the device timeline): host ops and
+    annotations carry their kernels' device time too, and summing them
+    would count it twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -859,7 +1240,8 @@ def device_profile(torch, run):
         wall = time.perf_counter() - started
     rows = []
     for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
+        if event.device_type != DeviceType.CUDA \
+                or getattr(event, "is_user_annotation", False):
             continue
         device_us = event.self_device_time_total
         if device_us > 0:
@@ -1028,8 +1410,11 @@ def main() -> int:
     from tf_yarn_tpu_torch.models import decode_engine as engine_mod
     from tf_yarn_tpu_torch.models import transformer as tt
     from tf_yarn_tpu_torch.ops import _build
+    from tf_yarn_tpu_torch.models import bert, resnet, vit
     from tf_yarn_tpu_torch.ops import (decode_attention, flash_attention,
-                                       quantize, rmsnorm)
+                                       groupnorm, layernorm, quantize,
+                                       rmsnorm)
+    from tf_yarn_tpu_torch.utils import flops as flops_lib
     from tf_yarn_tpu_torch.serving import scheduler as sched_mod
     from tf_yarn_tpu_torch.serving import server as server_mod
 
@@ -1039,6 +1424,12 @@ def main() -> int:
     ops.rmsnorm, ops.quantize, ops.decode_attention = (
         rmsnorm, quantize, decode_attention)
     ops.flash_attention = flash_attention
+    ops.layernorm, ops.groupnorm = layernorm, groupnorm
+
+    class zoo:  # the model zoo's modules
+        pass
+
+    zoo.bert, zoo.vit, zoo.resnet = bert, vit, resnet
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1063,7 +1454,8 @@ def main() -> int:
             paged_row,
             check_dense_attention(torch, ops, dev,
                                   paged_row["shape"]["lengths"]),
-            check_rmsnorm_dx(torch, ops, dev), *check_flash(torch, ops, dev)]
+            check_rmsnorm_dx(torch, ops, dev), *check_flash(torch, ops, dev),
+            *check_layernorm(torch, ops, dev), *check_groupnorm(torch, ops, dev)]
     for row in rows:
         library = row["library_ms"]
         log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']:.3g}, "
@@ -1088,6 +1480,9 @@ def main() -> int:
     train_reference = train_tiny_reference(torch, tt, common, training,
                                            experiment, ckpt, dev)
     log(f"training reference: {json.dumps(train_reference)}")
+    zoo_reference = train_zoo_reference(torch, zoo, training, experiment,
+                                        ckpt, dev)
+    log(f"zoo training reference: {json.dumps(zoo_reference)}")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
                        decode_attention.paged_int8_window_attention,
@@ -1106,17 +1501,34 @@ def main() -> int:
     train_result = train_slice(torch, tt, training, experiment, telemetry,
                                training_counted, dev)
     log(f"training slice: {json.dumps(train_result)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    norm_counted = (layernorm.layernorm, layernorm.layernorm_bwd_dx,
+                    groupnorm.groupnorm, groupnorm.groupnorm_bwd_dx)
+    zoo_results = {}
+    for name, (module, cfg, kwargs) in _zoo_cases(zoo, torch, False).items():
+        needed = norm_counted[2:] if module is resnet else norm_counted[:2]
+        zoo_results[name] = zoo_slice(torch, module, cfg, kwargs, training,
+                                      experiment, telemetry, flops_lib,
+                                      norm_counted, needed, dev)
+        log(f"zoo slice, {name}: {json.dumps(zoo_results[name])} on {card}")
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.
     primary = {"paged_int8_window_attention": "serving fused_burst",
-               "int8_decode_attention": "serving gather_burst"}
+               "int8_decode_attention": "serving gather_burst",
+               "layernorm": "zoo bert_base", "layernorm_bwd_dx": "zoo bert_base",
+               "groupnorm": "zoo resnet50", "groupnorm_bwd_dx": "zoo resnet50"}
     for row in rows:
         by_path = {f"serving {path}": result["launches"][row["name"]]
                    for path, result in slice_result.items()
                    if result["launches"].get(row["name"])}
         if row["name"] in train_result["launches"]:
             by_path["training"] = train_result["launches"][row["name"]]
+        by_path.update({f"zoo {path}": result["launches"][row["name"]]
+                        for path, result in zoo_results.items()
+                        if result["launches"].get(row["name"])})
         row["launches_path"] = primary.get(
             row["name"], "serving fused_burst" if "serving fused_burst"
             in by_path else "training")

@@ -76,3 +76,24 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert tt.Transformer(cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("family", ["bert", "vit", "resnet"])
+def test_zoo_entry_points_need_cuda_unless_cpu_requested(monkeypatch, family):
+    from tf_yarn_tpu_torch import experiment, training
+    from tf_yarn_tpu_torch.models import bert, resnet, vit
+
+    module, config, cls = {
+        "bert": (bert, bert.BertConfig.tiny(), bert.BertClassifier),
+        "vit": (vit, vit.ViTConfig.tiny(), vit.ViT),
+        "resnet": (resnet, resnet.ResNetConfig.tiny(), resnet.ResNet),
+    }[family]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.make_model(config, seed=0)
+    exp = module.make_experiment(config, train_steps=1, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.train_and_evaluate(experiment.as_core_experiment(exp))
+    assert module.make_model(config, device="cpu").device == torch.device("cpu")

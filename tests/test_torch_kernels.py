@@ -12,6 +12,8 @@ import torch
 
 from tf_yarn_tpu_torch.ops import decode_attention as t_decode
 from tf_yarn_tpu_torch.ops import flash_attention as t_flash
+from tf_yarn_tpu_torch.ops import groupnorm as t_groupnorm
+from tf_yarn_tpu_torch.ops import layernorm as t_layernorm
 from tf_yarn_tpu_torch.ops import quantize as t_quantize
 from tf_yarn_tpu_torch.ops import rmsnorm as t_rmsnorm
 
@@ -399,3 +401,145 @@ def test_cuda_dense_decode_paths_match_cpu(cuda):
     for got, ref in zip(*(o[0] for o in outs)):
         torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
     assert outs[0][1] == outs[1][1]
+
+
+def _norm_tolerances(dtype, ref_dx):
+    """bf16: one ulp of the output (rtol 1/128) and, for dx, cancellation
+    between its terms (atol 1e-2 of the largest entry); f32: sums in
+    another order (rtol 1e-5 for y, 1e-4 and 1e-4 of the largest entry
+    for dx, whose group means run over up to 25,088 elements)."""
+    big = float(ref_dx.float().abs().max())
+    if dtype == torch.bfloat16:
+        return dict(rtol=1 / 128, atol=1e-5), dict(rtol=1 / 128, atol=1e-2 * big)
+    return dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-4, atol=1e-4 * big)
+
+
+# rows x d: one row, a row count that is no power of two, and a width
+# that is not a multiple of any vector width (771).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows, d", [(1, 768), (333, 768), (333, 771)])
+def test_cuda_layernorm_kernels_match_plain(cuda, rows, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, device=cuda, generator=gen) * 3 + 1).to(dtype)
+    g = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    scale = torch.rand(d, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(d, device=cuda, generator=gen)
+    before = (t_layernorm.layernorm.launches,
+              t_layernorm.layernorm_bwd_dx.launches)
+    y = t_layernorm._forward(x, scale, bias, 1e-12)
+    dx = t_layernorm.layernorm_bwd_dx(x, g, scale, 1e-12)
+    torch.cuda.synchronize()
+    assert (t_layernorm.layernorm.launches,
+            t_layernorm.layernorm_bwd_dx.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert y.dtype == dtype and dx.dtype == dtype
+    ref_dx = t_layernorm.layernorm_bwd_dx_reference(x, g, scale, 1e-12)
+    tol_y, tol_dx = _norm_tolerances(dtype, ref_dx)
+    torch.testing.assert_close(
+        y.float(), t_layernorm.layernorm_reference(x, scale, bias, 1e-12).float(),
+        **tol_y)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
+
+
+# (shape, groups): the ResNet-50 stem's 112x112x64 slab (802,816
+# elements an image), the last stage's 7x7x2048, one channel a group,
+# one group, a [B, L, C] input and a channel count that is no power of
+# two.
+GROUPNORM_CASES = {
+    "stem": ((2, 112, 112, 64), 32),
+    "stage4": ((3, 7, 7, 2048), 32),
+    "groups_eq_c": ((2, 8, 8, 64), 64),
+    "one_group": ((2, 14, 14, 256), 1),
+    "seq": ((3, 50, 96), 3),
+    "c6": ((2, 5, 5, 6), 3),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", sorted(GROUPNORM_CASES))
+def test_cuda_groupnorm_kernels_match_plain(cuda, case, dtype):
+    shape, groups = GROUPNORM_CASES[case]
+    c = shape[-1]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    x = (torch.randn(shape, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(c, device=cuda, generator=gen)
+    before = (t_groupnorm.groupnorm.launches,
+              t_groupnorm.groupnorm_bwd_dx.launches)
+    y, stats = t_groupnorm.groupnorm_forward(x, scale, bias, groups, 1e-6)
+    dx = t_groupnorm.groupnorm_bwd_dx(x, g, scale, stats, groups)
+    torch.cuda.synchronize()
+    assert (t_groupnorm.groupnorm.launches,
+            t_groupnorm.groupnorm_bwd_dx.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref_stats = t_groupnorm.groupnorm_stats_reference(x, groups, 1e-6)
+    # The kernel's shifted one-pass statistics against the two-pass ones.
+    torch.testing.assert_close(stats, ref_stats, rtol=1e-5, atol=1e-5)
+    ref_y = t_groupnorm.groupnorm_reference(x, scale, bias, groups, 1e-6)
+    ref_dx = t_groupnorm.groupnorm_bwd_dx_reference(x, g, scale, ref_stats,
+                                                    groups)
+    tol_y, tol_dx = _norm_tolerances(dtype, ref_dx)
+    torch.testing.assert_close(y.float(), ref_y.float(), **tol_y)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
+
+
+def test_cuda_groupnorm_near_constant_input_is_finite(cuda):
+    """A large mean with a tiny spread (tests/test_ops.py's case): the
+    shifted sums lose nothing to cancellation."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = 1000.0 + 1e-3 * torch.randn(1, 8, 8, 32, device=cuda, generator=gen)
+    ones, zeros = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    y, stats = t_groupnorm.groupnorm_forward(x, ones, zeros, 4, 1e-6)
+    ref_stats = t_groupnorm.groupnorm_stats_reference(x, 4, 1e-6)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(stats, ref_stats, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_norm_layouts_refused_or_taken_as_documented(cuda):
+    """The kernels read contiguous rows: a channels-last NCHW tensor seen
+    as NHWC is taken as it is; a contiguous NCHW tensor seen that way,
+    or a transposed LayerNorm input, raises instead of reading garbage."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    nchw = torch.randn(2, 64, 9, 9, device=cuda, generator=gen)
+    scale, bias = torch.rand(64, device=cuda) + 0.5, torch.randn(64, device=cuda)
+    launches = t_groupnorm.groupnorm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        t_groupnorm.groupnorm(nchw.permute(0, 2, 3, 1), scale, bias, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_layernorm.layernorm(nchw[0].transpose(0, 1), scale[:9], bias[:9])
+    assert t_groupnorm.groupnorm.launches == launches
+    channels_last = nchw.contiguous(memory_format=torch.channels_last)
+    got = t_groupnorm.groupnorm(channels_last.permute(0, 2, 3, 1), scale, bias, 8)
+    ref = t_groupnorm.groupnorm_reference(nchw.permute(0, 2, 3, 1), scale, bias, 8)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "groupnorm"])
+def test_cuda_norm_autograd_launches_both_kernels(cuda, norm):
+    """Forward and backward through the kernels; dx, dscale and dbias
+    against autograd through the plain version (f32)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(4, 6, 6, 32, device=cuda, generator=gen)
+    w = torch.randn(x.shape, device=cuda, generator=gen)
+    scale = torch.rand(32, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(32, device=cuda, generator=gen)
+    mod = t_layernorm if norm == "layernorm" else t_groupnorm
+    fn = (lambda *a: t_layernorm.layernorm(*a, 1e-6)) if norm == "layernorm" \
+        else (lambda *a: t_groupnorm.groupnorm(*a, 4, 1e-6))
+    ref_fn = (lambda *a: t_layernorm.layernorm_reference(*a, 1e-6)) \
+        if norm == "layernorm" \
+        else (lambda *a: t_groupnorm.groupnorm_reference(*a, 4, 1e-6))
+    fwd, bwd = getattr(mod, norm), getattr(mod, f"{norm}_bwd_dx")
+    before = (fwd.launches, bwd.launches)
+    grads = []
+    for f in (fn, ref_fn):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        (f(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

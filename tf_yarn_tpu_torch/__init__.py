@@ -19,12 +19,15 @@ Ported so far:
 * LoRA (or full) fine-tuning of the same decoder on one device —
   `models.transformer.make_experiment` fed to
   `training.train_and_evaluate` (`experiment`, `checkpoint`,
-  `models.common`, `utils.flops`).
+  `models.common`, `utils.flops`);
+* training of the model zoo the same way — `models.bert` (BERT),
+  `models.vit` (ViT) and `models.resnet` (ResNet with GroupNorm), each
+  with its `make_experiment`.
 
-Eight hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm
-and its dx, per-row int8 quantize, paged and dense int8 decode
-attention, flash attention forward, dq and dk/dv). ROADMAP.md lists
-what is still to port.
+Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
+LayerNorm and GroupNorm, each with its dx; per-row int8 quantize; paged
+and dense int8 decode attention; flash attention forward, dq and
+dk/dv). ROADMAP.md lists what is still to port.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,3 +1,3 @@
-"""Models of the port: the llama-style decoder, its weight bridge from the
-JAX package, its losses and optimizer recipe, sampling, the decode
-window and the decode engine."""
+"""Models of the port: the llama-style decoder, the BERT, ViT and ResNet
+families, their weight bridges from the JAX package, the losses and
+optimizer recipes, sampling, the decode window and the decode engine."""

@@ -4,8 +4,9 @@ tf_yarn_tpu/models/common.py.
 Loss contract of the port (`experiment.py`): ``loss_fn(model, batch,
 train=True) -> (loss, aux)`` with ``batch`` a dict of tensors on the
 model's device; the parameters live in the module, so the JAX
-``params`` and ``rng`` arguments have no counterpart (the decoder has no
-dropout).
+``params`` argument has no counterpart, and a model with dropout draws
+its masks from its own ``torch.Generator`` where the JAX package takes
+``rng``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,34 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+
+
+def _trained(model: torch.nn.Module):
+    return [param for param in model.parameters() if param.requires_grad]
+
+
+def adamw(learning_rate: float, weight_decay: float = 1e-4):
+    """``optax.adamw``: decoupled weight decay on every parameter (the
+    BERT and ViT recipes, bert.py:224 and vit.py:144). A factory ``model
+    -> torch.optim.AdamW`` over the parameters that require grad."""
+
+    def make(model: torch.nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(_trained(model), lr=learning_rate,
+                                 weight_decay=weight_decay)
+
+    return make
+
+
+def sgd(learning_rate: float, momentum: float = 0.9):
+    """``optax.sgd(lr, momentum)`` — the ResNet recipe (resnet.py:191):
+    the trace ``t = g + momentum·t`` then ``p −= lr·t``, which is
+    torch's SGD with no dampening and no Nesterov term."""
+
+    def make(model: torch.nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.SGD(_trained(model), lr=learning_rate,
+                               momentum=momentum)
+
+    return make
 
 
 def adamw_with_decay_mask(learning_rate: float, weight_decay: float = 1e-4):
@@ -39,6 +68,50 @@ def adamw_with_decay_mask(learning_rate: float, weight_decay: float = 1e-4):
                                  lr=learning_rate)
 
     return make
+
+
+def classification_loss(model, batch: Dict, train: bool = True):
+    """Softmax cross-entropy and accuracy for models mapping x -> logits
+    (common.py:27-36); ``train=False`` turns dropout off."""
+    logits = model(batch["x"], deterministic=not train)
+    labels = batch["y"].long()
+    loss = F.cross_entropy(logits, labels)
+    accuracy = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"accuracy": accuracy}
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate
+    and scale it by 1 / (1 − rate); the identity when deterministic or
+    rate is 0. The mask is drawn from `generator` (on x's device), so its
+    bits are the port's own, not ``jax.random``'s."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
+@torch.no_grad()
+def init_weights(model: torch.nn.Module,
+                 generator: torch.Generator) -> torch.nn.Module:
+    """Random weights for the encoder and vision families from
+    `generator` (on the model's device), at flax's initialisers' scales:
+    norm scales 1, biases and ``cls_token`` 0, embeddings N(0, 0.02),
+    Dense and conv kernels N(0, 1/fan_in) (lecun normal; a conv kernel
+    ``[out, in, kh, kw]`` has fan_in = in·kh·kw)."""
+    for name, param in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            param.fill_(1.0)
+        elif leaf in ("bias", "cls_token"):
+            param.zero_()
+        elif leaf.endswith("embedding"):
+            param.normal_(0.0, 0.02, generator=generator)
+        else:
+            fan_in = param[0].numel() if param.dim() == 4 else param.shape[0]
+            param.normal_(0.0, fan_in ** -0.5, generator=generator)
+    return model
 
 
 def _masked_mean(per_token: torch.Tensor, batch: Dict) -> torch.Tensor:

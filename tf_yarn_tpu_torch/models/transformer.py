@@ -323,13 +323,16 @@ class RMSNorm(nn.Module):
 
 class LoraDense(nn.Module):
     """Dense with an optional LoRA adapter (transformer.py:145-190):
-    ``y = x @ kernel + (alpha / rank) · (x @ lora_a) @ lora_b``, every
-    factor cast to the compute dtype; kernel ``[in, out]``, lora_a
-    ``[in, rank]`` (N(0, 0.02) at init), lora_b ``[rank, out]`` (zeros)."""
+    ``y = x @ kernel + (alpha / rank) · (x @ lora_a) @ lora_b [+ bias]``,
+    every factor cast to the compute dtype; kernel ``[in, out]``, lora_a
+    ``[in, rank]`` (N(0, 0.02) at init), lora_b ``[rank, out]`` (zeros),
+    with ``use_bias`` a ``[out]`` bias (zeros) added in the compute dtype.
+    `config` is any config with ``dtype``, ``param_dtype``, ``lora_rank``
+    and ``lora_alpha`` (the encoder families' too)."""
 
     def __init__(self, features_in: int, features_out: int,
                  config: TransformerConfig, device=None,
-                 trainable: bool = False):
+                 trainable: bool = False, use_bias: bool = False):
         super().__init__()
         self.config = config
         lora = config.lora_rank > 0
@@ -340,6 +343,8 @@ class LoraDense(nn.Module):
                                  config, device)
             self.lora_b = _param((config.lora_rank, features_out), trainable,
                                  config, device)
+        self.bias = (_param((features_out,), trainable and not lora, config,
+                            device) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -348,6 +353,8 @@ class LoraDense(nn.Module):
             scale = cfg.lora_alpha / cfg.lora_rank
             y = y + scale * ((x @ self.lora_a.to(cfg.dtype))
                              @ self.lora_b.to(cfg.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(cfg.dtype)
         return y
 
 

@@ -19,6 +19,13 @@ tensors (the JAX params are f32); `load_state_dict` casts each to its
 parameter's dtype, so f32 masters stay f32. Every leaf must be consumed
 and every port parameter filled, or it raises. The port imports no JAX:
 this module only walks nested mappings.
+
+`bert_from_flax`, `vit_from_flax` and `resnet_from_flax` bridge the
+encoder and vision families. Their port modules are named as the flax
+tree (``encoder/layer_0/wq/kernel`` is ``encoder.layer_0.wq.kernel``),
+so each leaf maps by reading ``/`` as ``.``; conv kernels go from flax's
+HWIO to torch's ``[out, in, kh, kw]``. The same rule holds: every leaf
+consumed, every parameter filled, every shape equal, or it raises.
 """
 
 from __future__ import annotations
@@ -105,3 +112,55 @@ def from_flax(variables, config: TransformerConfig) -> Dict[str, torch.Tensor]:
             f"flax leaves the port has no parameter for: {sorted(flat)}"
         )
     return state
+
+
+def _bridge_by_name(variables, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Flax leaves onto `model`'s parameters by name (``/`` -> ``.``),
+    conv kernels HWIO -> OIHW, shapes checked."""
+    flat = _flatten(variables.get("params", variables))
+    expected = {name: tuple(t.shape) for name, t in model.state_dict().items()}
+    state: Dict[str, torch.Tensor] = {}
+    unknown = []
+    for path, leaf in flat.items():
+        name = path.replace("/", ".")
+        if name not in expected:
+            unknown.append(path)
+            continue
+        value = np.array(leaf, np.float32)
+        if value.ndim == 4:  # conv kernel [kh, kw, in, out]
+            value = value.transpose(3, 2, 0, 1)
+        if value.shape != expected[name]:
+            raise ValueError(f"{path}: shape {value.shape} (as the port lays "
+                             f"it out), the port expects {expected[name]}")
+        state[name] = torch.from_numpy(np.ascontiguousarray(value))
+    if unknown:
+        raise ValueError(
+            f"flax leaves the port has no parameter for: {sorted(unknown)}")
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise KeyError(f"flax variables have no leaf for: {missing}")
+    return state
+
+
+def bert_from_flax(variables, config) -> Dict[str, torch.Tensor]:
+    """State dict of `models.bert.BertClassifier` from the variables of
+    the JAX `BertClassifier` (f32 CPU tensors)."""
+    from tf_yarn_tpu_torch.models.bert import BertClassifier
+
+    return _bridge_by_name(variables, BertClassifier(config, device="cpu"))
+
+
+def vit_from_flax(variables, config) -> Dict[str, torch.Tensor]:
+    """State dict of `models.vit.ViT` from the variables of the JAX `ViT`
+    (f32 CPU tensors)."""
+    from tf_yarn_tpu_torch.models.vit import ViT
+
+    return _bridge_by_name(variables, ViT(config, device="cpu"))
+
+
+def resnet_from_flax(variables, config) -> Dict[str, torch.Tensor]:
+    """State dict of `models.resnet.ResNet` from the variables of the JAX
+    `ResNet` (f32 CPU tensors)."""
+    from tf_yarn_tpu_torch.models.resnet import ResNet
+
+    return _bridge_by_name(variables, ResNet(config, device="cpu"))

@@ -98,6 +98,14 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1):
             if "perplexity" in aux:
                 # exp(mean), not mean(exp): the accum=1 path's definition.
                 aux["perplexity"] = torch.exp(loss)
+        for group in optimizer.param_groups:
+            for param in group["params"]:
+                if param.grad is None:
+                    # optax updates every leaf; torch's optimizers skip a
+                    # parameter without a grad (BERT's segment_embedding
+                    # when no segments are passed), so give it zeros: its
+                    # weight decay and momentum still apply.
+                    param.grad = torch.zeros_like(param)
         optimizer.step()
         state.step += 1
         return state, {"loss": loss, **{k: v.detach() for k, v in aux.items()}}
@@ -232,11 +240,31 @@ def _batch_placer(device: torch.device):
     return place
 
 
-def _batch_counts(batch: Dict[str, torch.Tensor]):
-    samples = int(next(iter(batch.values())).shape[0])
-    tokens = batch.get("tokens")
-    return samples, (int(tokens.shape[0] * tokens.shape[1])
-                     if tokens is not None and tokens.dim() >= 2 else None)
+def _count_train_flops(model, loss_fn, batch, grad_accum_steps: int) -> float:
+    """One train step's FLOPs for models without an analytic count: a
+    forward and backward of the loss on one microbatch under
+    FlopCounterMode, times the microbatches, with no update and the grads
+    cleared after (the JAX package reads XLA's cost analysis of the
+    compiled step instead). ``train=False`` draws no dropout mask, so the
+    training run's random stream is left as it was."""
+    micro = (_split(batch, grad_accum_steps)[0] if grad_accum_steps > 1
+             else batch)
+
+    def forward_backward():
+        loss, _ = loss_fn(model, micro, train=False)
+        loss.backward()
+
+    _, flops = flops_lib.count_flops(forward_backward)
+    model.zero_grad(set_to_none=True)
+    return grad_accum_steps * flops
+
+
+def _peak_flops(device: torch.device) -> Optional[float]:
+    """The card's peak dense bf16 FLOP/s; None off CUDA or for a card
+    `flops_lib` does not know."""
+    if device.type != "cuda":
+        return None
+    return flops_lib.peak_flops_per_device(torch.cuda.get_device_name(device))
 
 
 def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
@@ -280,15 +308,15 @@ def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
     train_step = build_train_step(model, core.loss_fn, state.optimizer,
                                   params_cfg.grad_accum_steps)
     eval_step = build_eval_step(model, core.loss_fn)
-    samples, tokens = _batch_counts(batch)
-    cfg = getattr(model, "config", None)
-    flops_per_step = (flops_lib.transformer_train_flops(
-        cfg, samples, tokens // samples)
-        if tokens and hasattr(cfg, "n_kv_heads") else None)
-    peak = (flops_lib.peak_flops_per_device(torch.cuda.get_device_name(device))
-            if device.type == "cuda" else None)
+    samples, tokens = flops_lib.batch_counts(batch)
+    flops_per_step = flops_lib.model_train_flops(model, batch)
+    if flops_per_step is None and resume_step < params_cfg.train_steps:
+        with telemetry.span("train/count_flops"):
+            flops_per_step = _count_train_flops(model, core.loss_fn, batch,
+                                                params_cfg.grad_accum_steps)
     hook = _StepsPerSecondHook(params_cfg.log_every_steps, resume_step,
-                               flops_per_step, samples, tokens, peak)
+                               flops_per_step, samples, tokens,
+                               _peak_flops(device))
     breakdown = _IntervalBreakdown()
     metrics_host: Dict[str, float] = {}
     last_saved_step = resume_step if resume_step else None
