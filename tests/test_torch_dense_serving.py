@@ -158,7 +158,9 @@ def test_dense_grid_reports_its_bytes_and_evicts_replayed_slots():
         rows = cfg.n_layers * 2 * cfg.max_seq_len * cfg.n_kv_heads
         assert cache.key.shape == (cfg.n_layers, 2, cfg.max_seq_len,
                                    cfg.n_kv_heads, cfg.head_dim)
-        assert cache.nbytes() == rows * (2 * cfg.head_dim + 2 * 4) + 2 * 4
+        # One int32 index per slot and layer, as the JAX cache keeps it.
+        assert cache.nbytes() == (rows * (2 * cfg.head_dim + 2 * 4)
+                                  + cfg.n_layers * 2 * 4)
         assert scheduler.stats()["kv_cache_hbm_bytes"] == cache.nbytes()
         gauge = telemetry.get_registry().gauge("serving/kv_cache_hbm_bytes",
                                                layout="dense")
@@ -174,3 +176,47 @@ def test_dense_grid_reports_its_bytes_and_evicts_replayed_slots():
         assert stream == clean
     finally:
         scheduler.close()
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_stats_surface_matches_jax_scheduler(layout):
+    """`stats()` carries the JAX grid's keys, all but the chunked-prefill
+    settings the port does not have yet; the KV bytes, global and per
+    device, agree in the snapshot and in the gauges (one device: per
+    device is global), and so does the peak of concurrent streams after
+    the same requests."""
+    from tf_yarn_tpu import telemetry as jax_telemetry
+    from tf_yarn_tpu.models.decode_engine import DecodeEngine as JaxEngine
+    from tf_yarn_tpu.serving.request import SamplingParams as JaxParams
+    from tf_yarn_tpu.serving.scheduler import SlotScheduler as JaxScheduler
+
+    model, params = _weights()
+    grids = {
+        "jax": (JaxScheduler(JaxEngine(model, batch_buckets=(1, 2, 4),
+                                       prompt_buckets=BUCKETS), params,
+                             max_slots=2, block_size=8, **LAYOUTS[layout]),
+                JaxParams, jax_telemetry.get_registry()),
+        "port": (SlotScheduler(_port_engine(), max_slots=2, block_size=8,
+                               **LAYOUTS[layout]),
+                 SamplingParams, telemetry.get_registry()),
+    }
+    kv_layout = LAYOUTS[layout]["kv_layout"]
+    snaps, gauges = {}, {}
+    for name, (scheduler, params_cls, registry) in grids.items():
+        gauges[name] = tuple(
+            registry.gauge(metric, layout=kv_layout).value
+            for metric in ("serving/kv_cache_hbm_bytes",
+                           "serving/kv_cache_hbm_bytes_per_device"))
+        _drive(scheduler, lambda i: params_cls(max_new_tokens=MAX_NEW))
+        snaps[name] = scheduler.stats()
+    port, ref = snaps["port"], snaps["jax"]
+    assert set(port) <= set(ref)
+    assert set(ref) - set(port) == {"prefill_chunk", "prefill_budget_per_tick"}
+    for key in ("kv_cache_hbm_bytes", "kv_cache_hbm_bytes_per_device",
+                "peak_streams"):
+        assert port[key] == ref[key], key
+    assert port["peak_streams"] == 2
+    assert port["kv_cache_hbm_bytes_per_device"] == port["kv_cache_hbm_bytes"]
+    assert gauges["port"] == gauges["jax"] == (port["kv_cache_hbm_bytes"],) * 2
+    if layout == "dense":
+        assert port["kv_cache_hbm_bytes"] == 20496

@@ -1,6 +1,6 @@
 """The port stands alone: it imports with JAX blocked, no module of it (or
-chip_smoke.py) imports jax, flax or tf_yarn_tpu, and its entry points
-run on CUDA unless the caller asks for the CPU."""
+chip_smoke.py, or chip_flash_ab.py) imports jax, flax or tf_yarn_tpu,
+and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -54,7 +54,7 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py", REPO / "chip_flash_ab.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imported_roots(path)

@@ -253,14 +253,20 @@ def test_cuda_model_norms_always_launch_the_kernel(cuda, fused_norms):
 
 
 # (batch, s_q, s_kv, n_heads, n_kv, head_dim, causal): GQA groups 1, 4
-# and 8; a tail that is not a multiple of the 64-row tile; Skv > S (kv
-# tiles with no live q row) and Skv < S; non-causal; head_dim 64 and 128.
+# and 8; a tail that is not a multiple of the 64-row tile of dq and dk/dv;
+# Skv > S (kv tiles with no live q row) and Skv < S; non-causal; head_dim
+# 64 and 128.
 FLASH_CASES = {
     "g1_d128": (1, 256, 256, 8, 8, 128, True),
     "g4_d64_tail": (2, 96, 96, 8, 2, 64, True),
     "g8_skv_gt_s": (1, 128, 192, 8, 1, 128, True),
     "g4_noncausal_tail": (1, 160, 160, 4, 1, 64, False),
     "g2_skv_lt_s": (1, 64, 32, 4, 2, 128, True),
+    # Across the forward's 128-row tiles: a tail inside the second tile,
+    # Skv > S over several kv tiles, and two batches without the mask.
+    "g4_d128_tail_tile2": (1, 320, 320, 8, 2, 128, True),
+    "g2_d64_skv_gt_s_tiles": (1, 384, 512, 4, 2, 64, True),
+    "g4_b2_noncausal_tiles": (2, 256, 256, 8, 2, 128, False),
 }
 
 

@@ -221,9 +221,13 @@ class DenseKVCache:
         return self.key.shape[2]
 
     def nbytes(self) -> int:
+        """Resident bytes, as the JAX cache counts them: it keeps one
+        ``[B]`` index per layer where this cache shares one."""
+        n_layers = self.key.shape[0]
         return sum(t.numel() * t.element_size()
                    for t in (self.key, self.value, self.key_scale,
-                             self.value_scale, self.index) if t is not None)
+                             self.value_scale) if t is not None) + \
+            n_layers * self.index.numel() * self.index.element_size()
 
     def insert(self, rows: Mapping[str, torch.Tensor],
                slot: Optional[int] = None) -> None:

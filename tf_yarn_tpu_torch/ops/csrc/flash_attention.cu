@@ -20,29 +20,48 @@
 // dO's dtype for dv, ds to q's dtype for dk.
 //
 // Bound on the H100 at the training shapes (S = 2048, D = 128): tensor-
-// core operations, ~300 flops per byte moved. bf16 design (the ordinary
-// FlashAttention-2 shape): one block of 4 warps per (batch*head, 64-row
-// q tile) for forward and dq, per (batch*kv head, 64-row kv tile) for
-// dk/dv; each warp owns 16 rows and runs mma.sync.m16n8k16 bf16 products
-// with f32 accumulators, the probabilities staying in registers between
-// the two products of a step. The streamed operand (K/V for forward and
-// dq, Q/dO with the LSE and delta for dk/dv) comes through shared memory,
-// cp.async double-buffered: the next tile's copies are in flight while
-// the current one is computed. Fragments come from shared memory by
-// ldmatrix (.trans for the operands read by columns: V, K in ds.K, dO and
-// Q in dk/dv), on rows padded by 8 elements so each tile hits 32 banks.
-// Logits are kept in log2 units (scale * log2 e folded into one multiply)
-// so each exponential is one exp2; only tiles that cross the causal
-// diagonal or a tail evaluate the mask; the heaviest causal q tiles are
-// launched first. Dead causal tiles are never loaded. dk/dv loop over
-// every q head of the group and every live q tile inside the block, so
-// the group sum needs no atomics and is deterministic. No TMA or wgmma
-// yet: those are the next version's.
+// core operations, ~300 flops per byte moved. The causal forward at B 1,
+// H 32 is 34.4 GFLOP: 34.76 us at the card's 989 bf16 TFLOP/s.
+//
+// bf16 forward (FlashAttention-3's shape, without its ping-pong): one block
+// of three warpgroups per (batch*head, 128-row q tile), one block per SM.
+// A producer warp issues every load by TMA from 4-D tensor maps of the
+// public layouts (zero-filled past S or Skv, so tails need only logit
+// masks): Q once, K and V through a two-stage ring of 128-row tiles
+// guarded by full / empty mbarriers, dead causal tiles never loaded. The
+// producer warpgroup gives its registers to the two consumer warpgroups
+// (setmaxnreg 40 / 232), each owning 64 q rows: S = Q.K^T by wgmma
+// m64n128k16 with both operands in shared memory under the 128-byte
+// swizzle, the online softmax on the accumulator's registers, then
+// O += P.V by wgmma with P packed to bf16 in registers as the A operand
+// and V, MN-major, read with the transpose bit. The epilogue stages o
+// through shared memory for 16-byte row stores.
+//
+// bf16 dq and dk/dv (the ordinary FlashAttention-2 shape): one block of 4
+// warps per (batch*head, 64-row q tile) for dq, per (batch*kv head, 64-row
+// kv tile) for dk/dv; each warp owns 16 rows and runs mma.sync.m16n8k16
+// bf16 products with f32 accumulators, the probabilities staying in
+// registers between the two products of a step. The streamed operand
+// (K/V for dq, Q/dO with the LSE and delta for dk/dv) comes through
+// shared memory, cp.async double-buffered: the next tile's copies are in
+// flight while the current one is computed. Fragments come from shared
+// memory by ldmatrix (.trans for the operands read by columns: V, K in
+// ds.K, dO and Q in dk/dv), on rows padded by 8 elements so each tile hits
+// 32 banks. dk/dv loop over every q head of the group and every live q
+// tile inside the block, so the group sum needs no atomics and is
+// deterministic.
+//
+// Every bf16 kernel keeps logits in log2 units (scale * log2 e folded into
+// one multiply) so each exponential is one exp2, evaluates the mask only
+// on tiles that cross the causal diagonal or a tail, and launches the
+// heaviest causal q tiles first. Dead causal tiles are never loaded.
 //
 // f32 (the card-vs-CPU reference type, and never TF32): one warp per row
 // on the CUDA cores, the lanes splitting head_dim, one key (or query) at
 // a time with an exact online softmax. Simple and slow; the training
 // path runs bf16.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -52,7 +71,7 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // q rows (forward, dq) or kv rows (dk/dv)
+constexpr int kTile = 64;  // q rows (dq) or kv rows (dk/dv)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -260,136 +279,422 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t row_stride,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward: TMA loads, wgmma products, one producer warp
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;     // q rows of a block; kv rows of a K/V tile
+constexpr int kFwdConsumers = 2;  // consumer warpgroups, 64 q rows each
+constexpr int kFwdThreads = 128 * (1 + kFwdConsumers);
+constexpr int kStages = 2;        // K/V ring depth
+constexpr int kSlabCols = 64;     // one 128-byte TMA box / swizzle row of bf16
+
+// What the forward kernel reads: the 4-D tensor maps (D, heads, seq,
+// batch) of q, k and v, whose boxes are 64 columns x 1 head x 128 rows x
+// 1 batch with the 128-byte swizzle, and the plain pointers it writes.
+struct FwdParams {
+  CUtensorMap q, k, v;
+  bf16* o;
+  float* lse;
+  int s_q, s_kv, heads, group;
+  float scale_log2;
+  int causal;
+};
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes): Q, then kStages K tiles, then
+// kStages V tiles, then the barriers. A tile is D / 64 slabs of 128 rows
+// x 128 bytes, one per TMA box.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(FlashArgs p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + kTile * LD;      // two buffers
-  bf16* s_v = s_k + 2 * kTile * LD;  // two buffers
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+struct FwdSmem {
+  static constexpr int kSlab = kFwdRows * 128;
+  static constexpr int kTile = kSlab * (D / kSlabCols);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages].
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// Arrive once and expect `bytes` more of TMA traffic on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory at `dst`, its bytes
+// reported to `bar`. Rows past the tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x by the special-function unit alone, without the fix-up for
+// results below 2^-126: those flush to zero, far under what a bf16 p or
+// the f32 row sum can show.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Pins accumulator registers in place around an asynchronous wgmma, so
+// the compiler neither reads them early nor moves writes past its launch.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64] (+)= A[64, 16] . B[16, 128] (scale-d = accumulate), A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64] (+)= A[64, 16] . B[16, 128], A in registers (bf16x2 fragments),
+// B MN-major in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[32] (+)= A[64, 16] . B[16, 64], A in registers (bf16x2 fragments),
+// B MN-major in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+
+// kv tiles the 128-row q tile at q0 attends to.
+__device__ __forceinline__ int fwd_kv_tiles(int q0, const FwdParams& p) {
+  int n = ceil_div(p.s_kv, kFwdRows);
+  if (p.causal) n = min(n, ceil_div(min(q0 + kFwdRows, p.s_q), kFwdRows));
+  return n;
+}
+
+// One block per (batch * head, 128-row q tile). Warpgroup 0 is the
+// producer: one thread issues every TMA load (Q once, then K and V
+// through a kStages ring guarded by full / empty barriers) and the
+// warpgroup gives its registers to the consumers. Warpgroups 1 and 2
+// each own 64 q rows: S = Q.K^T by wgmma from shared memory, the online
+// softmax on the accumulator's registers, O += P.V by wgmma with P from
+// registers, then the epilogue.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_bf16(const __grid_constant__ FwdParams p) {
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBar;
+  const auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  const auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  const auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+
+  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads;
   const int hk = h / p.group;
-  // Causal work grows with the q tile: launch the heaviest tiles first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const size_t q_stride = static_cast<size_t>(p.heads) * D;
-  const size_t kv_stride = static_cast<size_t>(p.kv_heads) * D;
-  const bf16* qb = static_cast<const bf16*>(p.q) +
-                   (static_cast<size_t>(b) * p.s_q * p.heads + h) * D;
-  const bf16* kb = static_cast<const bf16*>(p.k) +
-                   (static_cast<size_t>(b) * p.s_kv * p.kv_heads + hk) * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) +
-                   (static_cast<size_t>(b) * p.s_kv * p.kv_heads + hk) * D;
-  const int n_tiles = kv_tiles(min(q0 + kTile, p.s_q), p);
+  // Causal work grows with the q tile: the grid's slow axis launches the
+  // heaviest tiles of every head first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  const int n_tiles = fwd_kv_tiles(q0, p);
 
-  load_tile<D, kTile>(s_q, qb, q_stride, q0, p.s_q);
-  load_tile<D, kTile>(s_k, kb, kv_stride, 0, p.s_kv);
-  load_tile<D, kTile>(s_v, vb, kv_stride, 0, p.s_kv);
-  cp_async_commit();
-
-  const int row0 = warp * 16;
-  const int r_lo = q0 + row0 + g, r_hi = r_lo + 8;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // running max, log2 units
-  float l[2] = {0.f, 0.f};
-  uint32_t qa[D / 16][4];
-  const float scale_log2 = p.scale * kLog2e;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      const int nb = (it + 1) & 1;
-      load_tile<D, kTile>(s_k + nb * kTile * LD, kb, kv_stride,
-                          (it + 1) * kTile, p.s_kv);
-      load_tile<D, kTile>(s_v + nb * kTile * LD, vb, kv_stride,
-                          (it + 1) * kTile, p.s_kv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 128 * kFwdConsumers);
     }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) load_a<LD>(qa[kc], s_q, row0, kc * 16, lane);
-    }
-    const bf16* ck = s_k + (it & 1) * kTile * LD;
-    const bf16* cv = s_v + (it & 1) * kTile * LD;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const bf16* k_lane = ck + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                         ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb4[4];
-        ldsm_x4(kb4, k_lane + np * 16 * LD + kc * 16);
-        mma(s[2 * np], qa[kc], kb4[0], kb4[1]);
-        mma(s[2 * np + 1], qa[kc], kb4[2], kb4[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int c = 0; c < D / kSlabCols; ++c) {
+        tma_load_4d(base + L::kQ + c * L::kSlab, &p.q, q_full, c * kSlabCols, h,
+                    q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        // The first kStages uses of the ring find it empty.
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        const uint32_t k_dst = base + L::kK + s * L::kTile;
+        const uint32_t v_dst = base + L::kV + s * L::kTile;
+        mbar_expect_tx(k_full(s), L::kTile);
+        for (int c = 0; c < D / kSlabCols; ++c) {
+          tma_load_4d(k_dst + c * L::kSlab, &p.k, k_full(s), c * kSlabCols, hk,
+                      it * kFwdRows, b);
+        }
+        mbar_expect_tx(v_full(s), L::kTile);
+        for (int c = 0; c < D / kSlabCols; ++c) {
+          tma_load_4d(v_dst + c * L::kSlab, &p.v, v_full(s), c * kSlabCols, hk,
+                      it * kFwdRows, b);
+        }
       }
     }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int cw = wg - 1;  // consumer warpgroup: q rows [64 cw, 64 cw + 64)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * cw + 16 * warp;  // this warp's first row
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  // This warpgroup's 64 rows of every Q slab (8 KB, 1024-byte aligned).
+  const uint32_t q_base = base + L::kQ + cw * 64 * 128;
+
+  float o[D / 2];  // m64nD accumulator: element 4j + e is n8 chunk j
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of rows r_lo, r_hi (log2)
+  float l[2] = {0.f, 0.f};
+  const float scale_log2 = p.scale_log2;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, phase = (it / kStages) & 1;
+    const uint32_t k_base = base + L::kK + s * L::kTile;
+    const uint32_t v_base = base + L::kV + s * L::kTile;
+
+    // S = Q.K^T: both K-major; stepping 16 columns inside a 128-byte
+    // swizzle row adds 32 bytes, a new slab adds kSlab. 8-row groups are
+    // 1024 bytes apart.
+    float sc[64];
+    mbar_wait(k_full(s), phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kSlab + (kk % 4) * 32;
+      wgmma_ss_n128(sc, desc_sw128(q_base + off, 16, 1024),
+                    desc_sw128(k_base + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
     // Logits in log2 units (scale * log2 e), so each exp is one exp2.
-    // Only a tile crossing the diagonal or a tail needs the mask.
-    const int k0 = it * kTile;
-    const bool edge = k0 + kTile > p.s_kv ||
-                      (p.causal && k0 + kTile - 1 > q0 + row0);
+    // Only a tile crossing the diagonal or the kv tail takes the masked
+    // loop (rows past S are never stored, and their zero Q rows keep
+    // them finite).
+    const int k0 = it * kFwdRows;
+    const bool edge = k0 + kFwdRows > p.s_kv ||
+                      (p.causal && k0 + kFwdRows - 1 > row0);
     float mx[2] = {kNegInf, kNegInf};
+    if (edge) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i & 2) ? r_hi : r_lo;
+        const int k = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+        const bool live = k < p.s_kv && (!p.causal || r >= k);
+        sc[i] = live ? sc[i] * scale_log2 : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = s[nt][e] * scale_log2;
-        if (edge && !live(e < 2 ? r_lo : r_hi, k0 + nt * 8 + 2 * t + (e & 1), p)) {
-          v = kNegInf;
-        }
-        s[nt][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      for (int i = 0; i < 64; ++i) {
+        sc[i] *= scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
       }
     }
     float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
+    for (int j = 0; j < 2; ++j) {
+      const float m_new = fmaxf(m[j], quad_max(mx[j]));
+      corr[j] = exp2_ftz(m[j] - m_new);
+      m[j] = m_new;
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = exp2_ftz(sc[i] - m[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += sc[i];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
-        rs[e >> 1] += s[nt][e];
+    for (int j = 0; j < 2; ++j) l[j] = l[j] * corr[j] + quad_sum(rs[j]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    // p cast to V's dtype before P.V. The accumulator's n8 chunks 2c and
+    // 2c + 1 are the A fragment of k16 chunk c.
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      pa[c][0] = pack_f32(sc[8 * c], sc[8 * c + 1]);
+      pa[c][1] = pack_f32(sc[8 * c + 2], sc[8 * c + 3]);
+      pa[c][2] = pack_f32(sc[8 * c + 4], sc[8 * c + 5]);
+      pa[c][3] = pack_f32(sc[8 * c + 6], sc[8 * c + 7]);
+    }
+
+    // O += P.V: V's tile is [kv, D] with D contiguous, MN-major for B.
+    // 16 kv rows are 2048 bytes; the next 64 columns of D are the next
+    // slab (leading offset), the next 8 kv rows 1024 bytes on (stride).
+    mbar_wait(v_full(s), phase);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint64_t v_desc = desc_sw128(v_base + c * 2048, L::kSlab, 1024);
+      if constexpr (D == 64) {
+        wgmma_rs_n64(o, pa[c], v_desc, 1);
+      } else {
+        wgmma_rs_n128(o, pa[c], v_desc, 1);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(rs[i]);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= corr[0];
-      acc[dn][1] *= corr[0];
-      acc[dn][2] *= corr[1];
-      acc[dn][3] *= corr[1];
-    }
-    uint32_t pa[4][4];
-    pack_acc<4>(pa, s);  // p cast to V's dtype before P.V
-    mm_rn<D / 8, 4, LD>(acc, pa, cv, lane);
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(empty(s));
   }
 
-  const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
-  bf16* ob = static_cast<bf16*>(p.out) +
-             (static_cast<size_t>(b) * p.s_q * p.heads + h) * D;
-  store_rows<D>(ob, q_stride, acc, r_lo, p.s_q, 1.f / l_lo, 1.f / l_hi, t);
+  // Epilogue: o / l rounded to bf16 into this warpgroup's (now free) Q
+  // rows, with the same swizzle, then 16-byte rows out to [B, S, H, D].
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + g + 8 * half;  // of this warpgroup's 64
+      const int chunk = (j % 8) ^ (row % 8);
+      unsigned char* dst = smem + L::kQ + (j / 8) * L::kSlab +
+                           (64 * cw + row) * 128 + chunk * 16 + 4 * t;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_f32(o[4 * j + 2 * half] * inv[half], o[4 * j + 2 * half + 1] * inv[half]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks, c = i % kChunks;
+    const int q = q0 + 64 * cw + row;
+    if (q >= p.s_q) break;  // rows only grow with i
+    const unsigned char* src = smem + L::kQ + (c / 8) * L::kSlab +
+                               (64 * cw + row) * 128 + ((c % 8) ^ (row % 8)) * 16;
+    *reinterpret_cast<uint4*>(p.o + ((static_cast<size_t>(b) * p.s_q + q) * p.heads + h) * D +
+                              c * 8) = *reinterpret_cast<const uint4*>(src);
+  }
   if (t == 0) {
-    float* lse = p.lse_out + static_cast<size_t>(bh) * p.s_q;
-    if (r_lo < p.s_q) lse[r_lo] = m[0] * kLn2 + logf(l_lo);
-    if (r_hi < p.s_q) lse[r_hi] = m[1] * kLn2 + logf(l_hi);
+    float* lse = p.lse + static_cast<size_t>(bh) * p.s_q;
+    if (r_lo < p.s_q) lse[r_lo] = m[0] * kLn2 + logf(fmaxf(l[0], 1e-30f));
+    if (r_hi < p.s_q) lse[r_hi] = m[1] * kLn2 + logf(fmaxf(l[1], 1e-30f));
   }
 }
 
@@ -739,11 +1044,78 @@ template <int D>
 size_t smem_bytes(Pass pass) {
   constexpr size_t row = (D + 8) * sizeof(bf16);
   constexpr int bq = D == 128 ? 32 : 64;
-  switch (pass) {
-    case kForward: return 5 * kTile * row;                // q + 2 k + 2 v
-    case kDq: return 6 * kTile * row;                     // q, dO + 2 k + 2 v
-    default: return 2 * kTile * row + 4 * bq * row + 4 * bq * sizeof(float);
+  if (pass == kDq) return 6 * kTile * row;  // q, dO + 2 k + 2 v
+  return 2 * kTile * row + 4 * bq * row + 4 * bq * sizeof(float);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t status = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t status = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return status == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 [batch, seq, heads, D] as the 4-D map (D, heads, seq,
+// batch) of 64 x 1 x 128 x 1 boxes with the 128-byte swizzle; boxes
+// reaching past seq are filled with zeros.
+bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
+                 int heads, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {kSlabCols, 1, kFwdRows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_fwd_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
+  FwdParams p;
+  if (!encode_bshd(&p.q, a.q, batch, a.s_q, a.heads, D) ||
+      !encode_bshd(&p.k, a.k, batch, a.s_kv, a.kv_heads, D) ||
+      !encode_bshd(&p.v, a.v, batch, a.s_kv, a.kv_heads, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  p.o = static_cast<bf16*>(a.out);
+  p.lse = a.lse_out;
+  p.s_q = a.s_q;
+  p.s_kv = a.s_kv;
+  p.heads = a.heads;
+  p.group = a.group;
+  p.scale_log2 = a.scale * kLog2e;
+  p.causal = a.causal;
+  constexpr int smem = FwdSmem<D>::kBytes;
+  const cudaError_t status = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const dim3 grid(batch * a.heads, ceil_div(a.s_q, kFwdRows));
+  flash_fwd_bf16<D><<<grid, kFwdThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Kernel>
@@ -765,9 +1137,9 @@ int dispatch(Pass pass, int dtype, int batch, const FlashArgs& args,
   const int rows = pass == kDkv ? args.s_kv : args.s_q;
   const int bh = batch * (pass == kDkv ? args.kv_heads : args.heads);
   if (dtype == tyt::kBFloat16) {
+    if (pass == kForward) return launch_fwd_bf16<D>(args, batch, stream);
     const dim3 grid(ceil_div(rows, kTile), bh);
     const size_t smem = smem_bytes<D>(pass);
-    if (pass == kForward) return launch(flash_fwd_bf16<D>, grid, smem, args, stream);
     if (pass == kDq) return launch(flash_dq_bf16<D>, grid, smem, args, stream);
     return launch(flash_dkv_bf16<D>, grid, smem, args, stream);
   }

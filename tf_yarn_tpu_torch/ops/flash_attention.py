@@ -20,8 +20,11 @@ which round at the kernels' four bf16 points (p and ds cast to the
 operand dtype before each product) and mask with −1e30.
 
 `block_q`/`block_k` are validated as in the JAX package, but the kernels
-tile by 64 rows whatever they are (Hopper's shared memory and registers,
-not the TPU's VMEM, set the tile) and mask their own tails.
+tile by their own rows whatever they are (Hopper's shared memory and
+registers, not the TPU's VMEM, set the tile: 128 q rows and 128-row K/V
+tiles for the bf16 forward, 64 rows elsewhere) and mask their own tails.
+The bf16 forward reads q, k and v through TMA tensor maps, which need
+16-byte aligned bases (`_operand` copies a tensor that is not).
 """
 
 from __future__ import annotations

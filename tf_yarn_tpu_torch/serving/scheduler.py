@@ -197,6 +197,7 @@ class SlotScheduler:
         self._trace_ids: Dict[int, str] = {}
         self._trace_id_lock = threading.Lock()
         self._ticks = 0
+        self._peak_streams = 0
         self._draining = False
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -230,8 +231,11 @@ class SlotScheduler:
             self._pool = self._blocks = self._prefix = None
             self._block_size = None
             self._kv_bytes = self._cache.nbytes()
-        self._registry.gauge(
-            "serving/kv_cache_hbm_bytes", layout=kv_layout).set(self._kv_bytes)
+        # One device holds the whole cache, so the per-device bytes are
+        # the global bytes (the JAX grid divides them under tp sharding).
+        for name in ("serving/kv_cache_hbm_bytes",
+                     "serving/kv_cache_hbm_bytes_per_device"):
+            self._registry.gauge(name, layout=kv_layout).set(self._kv_bytes)
         self._registry.gauge("serving/tp_degree").set(1)
 
     # -- submission (any thread) -------------------------------------------
@@ -321,6 +325,8 @@ class SlotScheduler:
                     else:
                         self._step(active, retired)
         worked = bool(active or admitted or retired)
+        self._peak_streams = max(
+            self._peak_streams, len([s for s in self._slots if s is not None]))
         if worked:
             self._ticks += 1
             self._registry.histogram("serving/tick_seconds").observe(
@@ -733,12 +739,14 @@ class SlotScheduler:
             "top_p": self.top_p,
             "kv_layout": self.kv_layout,
             "kv_cache_hbm_bytes": self._kv_bytes,
+            "kv_cache_hbm_bytes_per_device": self._kv_bytes,
             "tp_degree": 1,
             "draining": self._draining,
             "spec_k": self.spec_k,
             "decode_attention": self.decode_attention,
             "prefill_tokens": self._prefill_tokens,
             "decode_tokens": self._decode_tokens,
+            "peak_streams": self._peak_streams,
             "retire_rate_per_s": round(self._estimator.retire_rate(), 4),
             "tiers": {"inflight": tier_inflight, "caps": dict(self.tier_caps)},
         }

@@ -6,10 +6,11 @@ backward (through `torch.utils.checkpoint` where the model recomputes
 its blocks) and the optimizer update, with ``grad_accum_steps``
 microbatches summed and averaged before the one update and perplexity
 re-derived as ``exp(loss)``. `train_and_evaluate` (training.py:574)
-drives it: input resume from the newest verified checkpoint, log, eval
-and checkpoint cadences with ``keep_last_n`` retention, the steps/sec
-hook with tokens/s and MFU, and the ``train/*`` spans and gauges of the
-port's telemetry.
+drives it: input resume from the newest verified checkpoint, input
+prefetch on a background thread, log, eval and checkpoint cadences with
+``keep_last_n`` retention, the steps/sec hook with samples/s, tokens/s
+and MFU weighted by the batches really run, and the ``train/*`` spans
+and gauges of the port's telemetry.
 
 PyTorch runs eagerly: a step's kernels are queued on the card as the
 host runs, and the host waits only where it reads a value (the log
@@ -35,6 +36,7 @@ import torch
 from tf_yarn_tpu_torch import checkpoint as ckpt_lib
 from tf_yarn_tpu_torch import telemetry
 from tf_yarn_tpu_torch._device import resolve_device
+from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 
@@ -162,7 +164,9 @@ class _IntervalBreakdown:
 class _StepsPerSecondHook:
     """Throughput reporting (training.py:231-351) into the registry's
     ``train/*`` gauges and the log: steps/s, samples/s, tokens/s and MFU
-    against the card's peak."""
+    against the card's peak, weighted by the batches the interval really
+    ran (`record_batch`), so a ragged epoch tail is not counted as full
+    batches."""
 
     def __init__(self, every: int, resume_step: int = 0,
                  flops_per_step: Optional[float] = None,
@@ -176,6 +180,12 @@ class _StepsPerSecondHook:
         self._samples_per_step = samples_per_step
         self._tokens_per_step = tokens_per_step
         self._peak_flops = peak_flops
+        self._interval_samples = 0
+
+    def record_batch(self, n_samples: Optional[int]) -> None:
+        """Count the batch size a step actually ran (training.py:267)."""
+        self._interval_samples += (
+            n_samples if n_samples is not None else (self._samples_per_step or 0))
 
     def after_step(self, step: int, metrics: Dict[str, float],
                    force: bool = False,
@@ -185,21 +195,31 @@ class _StepsPerSecondHook:
         now = time.perf_counter()
         elapsed = max(now - self._t0, 1e-9)
         n_steps = step - self._step0
+        interval_samples = self._interval_samples
         self._t0, self._step0 = now, step
+        self._interval_samples = 0
         report: Dict[str, float] = {}
         if n_steps > 0:
             steps_per_sec = n_steps / elapsed
+            # The share of full-batch work the interval did: samples,
+            # tokens and the batch dimension's FLOPs all scale with it.
+            full = (self._samples_per_step or 0) * n_steps
+            work_frac = interval_samples / full if full and interval_samples else 1.0
             report["steps_per_sec"] = steps_per_sec
             if self._samples_per_step:
-                report["samples_per_sec"] = steps_per_sec * self._samples_per_step
+                report["samples_per_sec"] = (
+                    steps_per_sec * self._samples_per_step * work_frac)
             if self._tokens_per_step:
-                report["tokens_per_sec"] = steps_per_sec * self._tokens_per_step
-            value = flops_lib.mfu(self._flops_per_step, steps_per_sec,
-                                  self._peak_flops)
+                report["tokens_per_sec"] = (
+                    steps_per_sec * self._tokens_per_step * work_frac)
+            value = flops_lib.mfu(self._flops_per_step,
+                                  steps_per_sec * work_frac, self._peak_flops)
             if value is not None:
                 report["mfu"] = value
         registry = telemetry.get_registry()
         registry.counter("train/steps_total").inc(n_steps)
+        if interval_samples:
+            registry.counter("train/samples_total").inc(interval_samples)
         for key, value in report.items():
             registry.gauge(f"train/{key}").set(value)
         for component, seconds in (breakdown or {}).items():
@@ -328,41 +348,48 @@ def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
             ckpt_lib.save_checkpoint(core.model_dir, at, state.state_dict())
         breakdown.add("checkpoint_save", sp.duration)
 
-    while step < params_cfg.train_steps:
-        with telemetry.span("train/step_dispatch") as sp:
-            state, metrics = train_step(state, batch)
-        breakdown.add("step_dispatch", sp.duration)
-        step += 1
-        if ((params_cfg.log_every_steps
-             and step % params_cfg.log_every_steps == 0)
-                or step == params_cfg.train_steps):
-            # Reading the metrics waits for the queued device work.
-            with telemetry.span("train/device_wait") as sp:
-                metrics_host = {k: float(v) for k, v in metrics.items()}
-            breakdown.add("device_wait", sp.duration)
-            hook.after_step(step, metrics_host,
-                            force=step == params_cfg.train_steps,
-                            breakdown=breakdown.report())
-        if (params_cfg.checkpoint_every_steps and core.model_dir
-                and step % params_cfg.checkpoint_every_steps == 0
-                and step != last_saved_step):
-            save(step)
-            last_saved_step = step
-        if (params_cfg.eval_every_steps and core.eval_input_fn
-                and step % params_cfg.eval_every_steps == 0):
-            with telemetry.span("train/eval", step=step) as sp:
-                eval_metrics = evaluate(eval_step, state, core.eval_input_fn,
-                                        place, params_cfg.eval_steps)
-            breakdown.add("eval", sp.duration)
-            _logger.info("eval @ step %d: %s", step, eval_metrics)
-        if step < params_cfg.train_steps:
-            try:
-                with telemetry.span("train/input_wait") as sp:
-                    batch = place(next(train_iter))
-            except StopIteration:
-                _logger.info("input exhausted at step %d", step)
-                break
-            breakdown.add("input_wait", sp.duration)
+    # Batches after the first are read and placed on a background thread
+    # (training.py:874), `depth` steps ahead of the loop.
+    batch_iter = prefetch(train_iter, place_fn=place, depth=2, name="train")
+    try:
+        while step < params_cfg.train_steps:
+            hook.record_batch(flops_lib.batch_counts(batch)[0])
+            with telemetry.span("train/step_dispatch") as sp:
+                state, metrics = train_step(state, batch)
+            breakdown.add("step_dispatch", sp.duration)
+            step += 1
+            if ((params_cfg.log_every_steps
+                 and step % params_cfg.log_every_steps == 0)
+                    or step == params_cfg.train_steps):
+                # Reading the metrics waits for the queued device work.
+                with telemetry.span("train/device_wait") as sp:
+                    metrics_host = {k: float(v) for k, v in metrics.items()}
+                breakdown.add("device_wait", sp.duration)
+                hook.after_step(step, metrics_host,
+                                force=step == params_cfg.train_steps,
+                                breakdown=breakdown.report())
+            if (params_cfg.checkpoint_every_steps and core.model_dir
+                    and step % params_cfg.checkpoint_every_steps == 0
+                    and step != last_saved_step):
+                save(step)
+                last_saved_step = step
+            if (params_cfg.eval_every_steps and core.eval_input_fn
+                    and step % params_cfg.eval_every_steps == 0):
+                with telemetry.span("train/eval", step=step) as sp:
+                    eval_metrics = evaluate(eval_step, state, core.eval_input_fn,
+                                            place, params_cfg.eval_steps)
+                breakdown.add("eval", sp.duration)
+                _logger.info("eval @ step %d: %s", step, eval_metrics)
+            if step < params_cfg.train_steps:
+                try:
+                    with telemetry.span("train/input_wait") as sp:
+                        batch = next(batch_iter)
+                except StopIteration:
+                    _logger.info("input exhausted at step %d", step)
+                    break
+                breakdown.add("input_wait", sp.duration)
+    finally:
+        batch_iter.close()
 
     if not metrics_host:
         # The loop never ran (restored at train_steps): report the
