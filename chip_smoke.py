@@ -428,6 +428,9 @@ def check_flash(torch, ops, dev):
     delta = flash.flash_delta(ref_out, dout)
     dq = flash.flash_dq(q, k, v, dout, ref_lse, delta)
     dk, dv = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
+    # dk/dv's two blocks a kv tile meet in whichever order they finish:
+    # a second call must give the same bits.
+    dk2, dv2 = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
     ref_dq = flash.flash_dq_reference(q, k, v, dout, ref_lse, delta)
     ref_dk, ref_dv = flash.flash_dkv_reference(q, k, v, dout, ref_lse, delta)
     torch.cuda.synchronize()
@@ -455,6 +458,9 @@ def check_flash(torch, ops, dev):
             raise AssertionError(f"{name}: block rel err {rel} > {tol}")
         return worst, rel
 
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError("flash_dkv: two calls gave different dk or dv")
+    log("  dk, dv: two calls bitwise equal")
     lse_err = float((lse - ref_lse).abs().max())
     log(f"  lse: max abs err {lse_err:.3g} (bound {lse_tol})")
     if not lse_err <= lse_tol:
@@ -467,6 +473,7 @@ def check_flash(torch, ops, dev):
                   "block_rel_err": max(found[n][1] for n in names)}
             for key, names in pick.items()}
     errs["fwd"]["lse_max_abs_err"] = lse_err
+    errs["dkv"]["bitwise_deterministic"] = True
     live = _live_pairs(s, s)
     qb = q.numel() * 2
     kvb = k.numel() * 2

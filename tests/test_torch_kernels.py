@@ -267,6 +267,15 @@ FLASH_CASES = {
     "g4_d128_tail_tile2": (1, 320, 320, 8, 2, 128, True),
     "g2_d64_skv_gt_s_tiles": (1, 384, 512, 4, 2, 64, True),
     "g4_b2_noncausal_tiles": (2, 256, 256, 8, 2, 128, False),
+    # dk/dv's 128-row kv tiles, each split over two blocks: a kv tail
+    # inside the second kv tile; Skv > S and not a multiple of 128; group
+    # 1, whose halves are cut between q tiles, with an even and an odd
+    # number of 64-row q tiles; two batches without the mask, Skv != S.
+    "dkv_g4_d128_kv_tail_tile2": (1, 200, 200, 8, 2, 128, True),
+    "dkv_g2_d64_skv_gt_s_ragged": (1, 160, 224, 4, 2, 64, True),
+    "dkv_g1_d128_even_q_tiles": (1, 384, 384, 4, 4, 128, True),
+    "dkv_g1_d64_odd_q_tiles": (1, 320, 320, 2, 2, 64, True),
+    "dkv_g4_d64_b2_noncausal": (2, 192, 256, 8, 2, 64, False),
 }
 
 
@@ -329,6 +338,20 @@ def test_cuda_flash_kernels_match_plain(cuda, case, dtype):
         # kv rows past the last query have no live q row: exact zeros.
         assert torch.equal(dk[:, s_q:], torch.zeros_like(dk[:, s_q:]))
         assert torch.equal(dv[:, s_q:], torch.zeros_like(dv[:, s_q:]))
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_cuda_flash_dkv_is_bitwise_deterministic(cuda, head_dim):
+    # Each kv tile's two blocks meet through f32 partials in whichever
+    # order they finish; two addends commute, so dk and dv may not vary.
+    q, k, v, dout = _flash_inputs(cuda, 1, 512, 512, 8, 2, head_dim,
+                                  torch.bfloat16)
+    ref_out, ref_lse = t_flash.flash_fwd_reference(q, k, v, True)
+    delta = t_flash.flash_delta(ref_out, dout)
+    first = t_flash.flash_dkv(q, k, v, dout, ref_lse, delta, True)
+    for _ in range(3):
+        again = t_flash.flash_dkv(q, k, v, dout, ref_lse, delta, True)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 def test_cuda_flash_autograd_launches_every_kernel(cuda):

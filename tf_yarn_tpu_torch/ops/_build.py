@@ -50,7 +50,7 @@ _SIGNATURES = {
     "tyt_groupnorm_bwd_dx": [_P] * 6 + [_I] * 6 + [_I, _P],
     "tyt_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "tyt_flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    "tyt_flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    "tyt_flash_dkv": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
     "tyt_quantize_int8": [_P, _P, _P, _I, _I, _P],
     "tyt_paged_window_attention": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
     "tyt_dense_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _I, _P],

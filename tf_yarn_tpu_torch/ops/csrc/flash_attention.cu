@@ -21,7 +21,8 @@
 //
 // Bound on the H100 at the training shapes (S = 2048, D = 128): tensor-
 // core operations, ~300 flops per byte moved. The causal forward at B 1,
-// H 32 is 34.4 GFLOP: 34.76 us at the card's 989 bf16 TFLOP/s.
+// H 32 is 34.4 GFLOP: 34.76 us at the card's 989 bf16 TFLOP/s; dk/dv's
+// four products are 68.7 GFLOP: 69.52 us.
 //
 // bf16 forward (FlashAttention-3's shape, without its ping-pong): one block
 // of three warpgroups per (batch*head, 128-row q tile), one block per SM.
@@ -37,24 +38,45 @@
 // and V, MN-major, read with the transpose bit. The epilogue stages o
 // through shared memory for 16-byte row stores.
 //
-// bf16 dq and dk/dv (the ordinary FlashAttention-2 shape): one block of 4
-// warps per (batch*head, 64-row q tile) for dq, per (batch*kv head, 64-row
-// kv tile) for dk/dv; each warp owns 16 rows and runs mma.sync.m16n8k16
-// bf16 products with f32 accumulators, the probabilities staying in
-// registers between the two products of a step. The streamed operand
-// (K/V for dq, Q/dO with the LSE and delta for dk/dv) comes through
-// shared memory, cp.async double-buffered: the next tile's copies are in
-// flight while the current one is computed. Fragments come from shared
-// memory by ldmatrix (.trans for the operands read by columns: V, K in
-// ds.K, dO and Q in dk/dv), on rows padded by 8 elements so each tile hits
-// 32 banks. dk/dv loop over every q head of the group and every live q
-// tile inside the block, so the group sum needs no atomics and is
-// deterministic.
+// bf16 dk/dv (FlashAttention-3's backward shape, with kv rows as M): one
+// block of three warpgroups per (batch*kv head, 128-row kv tile, half),
+// one block per SM. A producer warp loads K and V once by TMA (128-row
+// boxes), then streams each step's Q and dO (64-row boxes) with its 64
+// LSE and delta values through a two-stage ring; dead causal q tiles are
+// never loaded. A kv tile's steps are every q head of the GQA group times
+// every live 64-row q tile; the two blocks of a tile take equal halves of
+// that list (a cut between q heads for an even group, between q tiles
+// otherwise), so at B 1, S 2048, H 32/8 the 256 blocks carry 64 to 4
+// steps, heaviest first, and no SM holds more than ~1/132 of the work
+// plus one block. The consumer warpgroups (setmaxnreg 232) each own 64
+// kv rows; per step S^T = K.Q^T and dP^T = V.dO^T by wgmma m64n64k16
+// from shared memory, P^T = exp2(S^T scale log2 e - lse log2 e) on the
+// accumulator while dP^T runs, dS^T = P^T (dP^T - delta), then
+// dV += P^T.dO and dK += dS^T.Q by wgmma m64nDk16 with P^T and dS^T
+// packed to bf16 in registers as A (the accumulator's layout is the A
+// fragment's) and dO and Q MN-major under the transpose bit. Registers
+// a consumer thread holds at D 128: dK 64 + dV 64 + S^T 32 + dP^T 32
+// f32. The two halves' f32 partials meet in a workspace the wrapper
+// allocates: the first block to finish (a ticket from a per-tile
+// counter) writes its partial and sets a flag with release semantics;
+// the second waits on it with acquire semantics, adds, and writes bf16
+// through shared memory. Two addends commute exactly, so dk and dv are
+// bitwise the same from call to call; nothing adds into the outputs
+// atomically.
+//
+// bf16 dq (the ordinary FlashAttention-2 shape): one block of 4 warps per
+// (batch*head, 64-row q tile); each warp owns 16 rows and runs
+// mma.sync.m16n8k16 bf16 products with f32 accumulators, the
+// probabilities staying in registers between the two products of a step.
+// K/V come through shared memory, cp.async double-buffered: the next
+// tile's copies are in flight while the current one is computed.
+// Fragments come from shared memory by ldmatrix (.trans for V and for K
+// in ds.K), on rows padded by 8 elements so each tile hits 32 banks.
 //
 // Every bf16 kernel keeps logits in log2 units (scale * log2 e folded into
 // one multiply) so each exponential is one exp2, evaluates the mask only
 // on tiles that cross the causal diagonal or a tail, and launches the
-// heaviest causal q tiles first. Dead causal tiles are never loaded.
+// heaviest causal tiles first. Dead causal tiles are never loaded.
 //
 // f32 (the card-vs-CPU reference type, and never TF32): one warp per row
 // on the CUDA cores, the lanes splitting head_dim, one key (or query) at
@@ -71,7 +93,7 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // q rows (dq) or kv rows (dk/dv)
+constexpr int kTile = 64;  // q rows of a dq block; kv rows of its K/V tiles
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -86,6 +108,8 @@ struct FlashArgs {
   float* lse_out;
   void* dk;
   void* dv;
+  float* partial;  // bf16 dk/dv: scratch of the two-partial sum
+  int* tickets;
   int s_q, s_kv, heads, kv_heads, group;
   float scale;
   int causal;
@@ -102,14 +126,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(n));
 }
 
@@ -382,8 +398,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // 2^x by the special-function unit alone, without the fix-up for
@@ -589,7 +607,7 @@ flash_fwd_bf16(const __grid_constant__ FwdParams p) {
                     desc_sw128(k_base + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     // Logits in log2 units (scale * log2 e), so each exp is one exp2.
@@ -659,7 +677,7 @@ flash_fwd_bf16(const __grid_constant__ FwdParams p) {
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     mbar_arrive(empty(s));
   }
@@ -784,120 +802,407 @@ flash_dq_bf16(FlashArgs p) {
   store_rows<D>(dqb, q_stride, dq, r_lo, p.s_q, p.scale, p.scale, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: TMA loads, wgmma products, one producer warp, two blocks a
+// kv tile
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvRows = 128;   // kv rows of a block (64 per consumer)
+constexpr int kDkvQRows = 64;   // q rows of a step
+constexpr int kDkvStages = 2;   // Q / dO ring depth
+constexpr int kDkvSplits = 2;   // blocks sharing one kv tile's steps
+static_assert(kDkvSplits == 1 || kDkvSplits == 2,
+              "the partial sum is a + b: exactly two addends");
+
+// What the dk/dv kernel reads: the 4-D tensor maps of q and dO (64-row
+// boxes) and of k and v (128-row boxes), the LSE and delta, and the
+// scratch of the two-partial sum, which the wrapper allocates: `partial`
+// holds one f32 dk and dv tile per kv tile, in the consumers' register
+// order; `tickets` [tiles, 2] (zeroed) the arrival ticket and the flag
+// that says the first block's partial is written.
+struct DkvParams {
+  CUtensorMap q, k, v, dout;
+  const float* lse;
+  const float* delta;
+  bf16* dk;
+  bf16* dv;
+  float* partial;
+  int* tickets;
+  int s_q, s_kv, heads, kv_heads, group;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Shared memory from a 1024-byte aligned base: K and V (D / 64 slabs of
+// 128 rows x 128 bytes each), then kDkvStages Q tiles and kDkvStages dO
+// tiles (slabs of 64 rows), then each stage's 64 LSE (log2 units) and 64
+// delta values, then the barriers and the ticket.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_bf16(FlashArgs p) {
-  constexpr int LD = D + 8;
-  constexpr int BQ = D == 128 ? 32 : 64;  // q rows per step (registers)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);
-  bf16* s_v = s_k + kTile * LD;
-  bf16* s_q = s_v + kTile * LD;    // two buffers
-  bf16* s_do = s_q + 2 * BQ * LD;  // two buffers
-  float* s_lse = reinterpret_cast<float*>(s_do + 2 * BQ * LD);  // two buffers
-  float* s_dl = s_lse + 2 * BQ;                                  // two buffers
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+struct DkvSmem {
+  static constexpr int kSlabKv = kDkvRows * 128;
+  static constexpr int kSlabQ = kDkvQRows * 128;
+  static constexpr int kTileKv = kSlabKv * (D / kSlabCols);
+  static constexpr int kTileQ = kSlabQ * (D / kSlabCols);
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileKv;
+  static constexpr int kQ = kV + kTileKv;
+  static constexpr int kDo = kQ + kDkvStages * kTileQ;
+  static constexpr int kStat = kDo + kDkvStages * kTileQ;
+  static constexpr int kStatBytes = 2 * kDkvQRows * 4;
+  static constexpr int kBar = kStat + kDkvStages * kStatBytes;
+  // kv_full, full[kDkvStages], empty[kDkvStages], then the ticket.
+  static constexpr int kTicket = kBar + 8 * (1 + 2 * kDkvStages);
+  static constexpr int kBytes = kTicket + 16 + 1024;
+};
+
+// d[32] (+)= A[64, 16] . B[16, 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[D / 2] += A[64, 16] . B[16, D], A in registers, B MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, b, 1);
+  } else {
+    wgmma_rs_n128(d, a, b, 1);
+  }
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// One block per (batch * kv head, 128-row kv tile, split). The steps of a
+// kv tile are every q head of the group times every live 64-row q tile,
+// flattened head-major; split s takes the s-th of kDkvSplits runs of
+// equal count (a cut between q heads when the group is even, between q
+// tiles otherwise). Warpgroup 0 is the producer: K and V once, then Q,
+// dO, the LSE and delta of each step through a kDkvStages ring. The two
+// consumer warpgroups each own 64 kv rows and keep dK and dV in
+// registers: per step S^T = K.Q^T and dP^T = V.dO^T from shared memory,
+// P^T and dS^T on the accumulators, then dV += P^T.dO and dK += dS^T.Q
+// with P^T and dS^T as register A operands.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dkv_bf16(const __grid_constant__ DkvParams p) {
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBar;
+  const auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  const auto empty = [&](int s) { return kv_full + 8 * (1 + kDkvStages + s); };
+
+  const int bhk = blockIdx.x / kDkvSplits, split = blockIdx.x % kDkvSplits;
+  const int b = bhk / p.kv_heads, hk = bhk % p.kv_heads;
+  // Causal work shrinks as kv0 grows: the grid's slow axis launches the
+  // heaviest tiles of every head first.
+  const int kv0 = blockIdx.y * kDkvRows;
+  const int q_first = p.causal ? kv0 / kDkvQRows : 0;
+  const int per_head = max(0, ceil_div(p.s_q, kDkvQRows) - q_first);
+  const int n_all = p.group * per_head;
+  const int j0 = n_all * split / kDkvSplits;
+  const int n_steps = n_all * (split + 1) / kDkvSplits - j0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes
+      mbar_init(empty(s), 128 * 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x < 32 && n_steps > 0) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kTileKv);
+        for (int c = 0; c < D / kSlabCols; ++c) {
+          tma_load_4d(base + L::kK + c * L::kSlabKv, &p.k, kv_full, c * kSlabCols, hk,
+                      kv0, b);
+          tma_load_4d(base + L::kV + c * L::kSlabKv, &p.v, kv_full, c * kSlabCols, hk,
+                      kv0, b);
+        }
+      }
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % kDkvStages, j = j0 + it;
+        const int h = hk * p.group + j / per_head;
+        const int qr0 = (q_first + j % per_head) * kDkvQRows;
+        // Each lane brings two rows' LSE (in log2 units) and delta; rows
+        // past S read as zero (their logits are masked).
+        const size_t stat = static_cast<size_t>(b * p.heads + h) * p.s_q;
+        float lse2[2], dl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = qr0 + lane + 32 * r;
+          lse2[r] = q < p.s_q ? p.lse[stat + q] * kLog2e : 0.f;
+          dl[r] = q < p.s_q ? p.delta[stat + q] : 0.f;
+        }
+        // The first kDkvStages uses of the ring find it empty.
+        mbar_wait(empty(s), ((it / kDkvStages) & 1) ^ 1);
+        float* st = reinterpret_cast<float*>(smem + L::kStat + s * L::kStatBytes);
+        st[lane] = lse2[0];
+        st[lane + 32] = lse2[1];
+        st[kDkvQRows + lane] = dl[0];
+        st[kDkvQRows + lane + 32] = dl[1];
+        if (lane == 0) {
+          // Lane 0's arrival carries the expected TMA bytes.
+          mbar_expect_tx(full(s), 2 * L::kTileQ);
+          for (int c = 0; c < D / kSlabCols; ++c) {
+            tma_load_4d(base + L::kQ + s * L::kTileQ + c * L::kSlabQ, &p.q, full(s),
+                        c * kSlabCols, h, qr0, b);
+            tma_load_4d(base + L::kDo + s * L::kTileQ + c * L::kSlabQ, &p.dout,
+                        full(s), c * kSlabCols, h, qr0, b);
+          }
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int cw = wg - 1;  // consumer warpgroup: kv rows [kv0 + 64 cw, +64)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int bhk = blockIdx.y, b = bhk / p.kv_heads, hk = bhk % p.kv_heads;
-  const int kv0 = blockIdx.x * kTile;
-  const size_t q_stride = static_cast<size_t>(p.heads) * D;
-  const size_t kv_stride = static_cast<size_t>(p.kv_heads) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * p.s_kv * p.kv_heads + hk) * D;
-  const int n_qt = ceil_div(p.s_q, BQ);
-  const int qt_start = p.causal ? kv0 / BQ : 0;
-  const int per_head = max(0, n_qt - qt_start);
-  const int n_steps = p.group * per_head;
+  const int kvw0 = kv0 + 64 * cw;
+  const int r_lo = kvw0 + 16 * warp + g, r_hi = r_lo + 8;
+  // This warpgroup's 64 rows of every K and V slab (8 KB, 1024-aligned).
+  const uint32_t k_base = base + L::kK + cw * 64 * 128;
+  const uint32_t v_base = base + L::kV + cw * 64 * 128;
+  const float scale_log2 = p.scale_log2;
 
-  // Step j: q head hk * group + j / per_head, q tile qt_start + j % per_head.
-  auto load_step = [&](int j, int buf) {
-    const int h = hk * p.group + j / per_head;
-    const int qr0 = (qt_start + j % per_head) * BQ;
-    const size_t q_off = (static_cast<size_t>(b) * p.s_q * p.heads + h) * D;
-    load_tile<D, BQ>(s_q + buf * BQ * LD, static_cast<const bf16*>(p.q) + q_off,
-                     q_stride, qr0, p.s_q);
-    load_tile<D, BQ>(s_do + buf * BQ * LD, static_cast<const bf16*>(p.dout) + q_off,
-                     q_stride, qr0, p.s_q);
-    const size_t stat = static_cast<size_t>(b * p.heads + h) * p.s_q;
-    const int i = threadIdx.x;
-    if (i < 2 * BQ) {
-      const int r = i % BQ;
-      const bool valid = qr0 + r < p.s_q;
-      const float* src = (i < BQ ? p.lse_in : p.delta) + (valid ? stat + qr0 + r : 0);
-      cp_async4((i < BQ ? s_lse : s_dl) + buf * BQ + r, src, valid);
+  float dk[D / 2], dv[D / 2];  // m64nD accumulators: element 4j + e is n8 chunk j
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n_steps > 0) mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % kDkvStages, j = j0 + it;
+    const int qr0 = (q_first + j % per_head) * kDkvQRows;
+    const uint32_t q_base = base + L::kQ + s * L::kTileQ;
+    const uint32_t do_base = base + L::kDo + s * L::kTileQ;
+    mbar_wait(full(s), (it / kDkvStages) & 1);
+    // No live pair: these kv rows lie past Skv, or after every q row of
+    // the tile. The stage is still waited for, so the release counts in
+    // its own phase.
+    if (kvw0 >= p.s_kv || (p.causal && qr0 + kDkvQRows <= kvw0)) {
+      mbar_arrive(empty(s));
+      continue;
     }
-  };
 
-  load_tile<D, kTile>(s_k, static_cast<const bf16*>(p.k) + kv_off, kv_stride, kv0, p.s_kv);
-  load_tile<D, kTile>(s_v, static_cast<const bf16*>(p.v) + kv_off, kv_stride, kv0, p.s_kv);
-  if (n_steps > 0) load_step(0, 0);
-  cp_async_commit();
-
-  const int row0 = warp * 16;
-  const int r_lo = kv0 + row0 + g, r_hi = r_lo + 8;
-  const float scale_log2 = p.scale * kLog2e;
-  float dk[D / 8][4], dv[D / 8][4];
+    // S^T = K.Q^T and dP^T = V.dO^T, all K-major (as the forward's Q.K^T;
+    // a Q or dO slab is 64 rows, so its 8-row groups are 1024 bytes apart
+    // as in a K slab).
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off_kv = (kk / 4) * L::kSlabKv + (kk % 4) * 32;
+      const uint32_t off_q = (kk / 4) * L::kSlabQ + (kk % 4) * 32;
+      wgmma_ss_n64(sc, desc_sw128(k_base + off_kv, 16, 1024),
+                   desc_sw128(q_base + off_q, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-  }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off_kv = (kk / 4) * L::kSlabKv + (kk % 4) * 32;
+      const uint32_t off_q = (kk / 4) * L::kSlabQ + (kk % 4) * 32;
+      wgmma_ss_n64(dp, desc_sw128(v_base + off_kv, 16, 1024),
+                   desc_sw128(do_base + off_q, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
 
-  for (int j = 0; j < n_steps; ++j) {
-    if (j + 1 < n_steps) {
-      load_step(j + 1, (j + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
+    // P^T = exp2(S^T scale log2 e - lse log2 e) while dP^T runs. Column
+    // (q) of element 4j + e: 8j + 2t + (e & 1); row (kv): r_lo, or r_hi
+    // when e & 2. Only a tile crossing the diagonal or the q tail takes
+    // the masked loop.
+    const float* stat = reinterpret_cast<const float*>(smem + L::kStat + s * L::kStatBytes);
+    const bool edge = qr0 + kDkvQRows > p.s_q || (p.causal && qr0 < kvw0 + 63);
+    if (edge) {
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 l2 = *reinterpret_cast<const float2*>(stat + 8 * jn + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          const int q = qr0 + 8 * jn + 2 * t + (e & 1);
+          const int r = (e & 2) ? r_hi : r_lo;
+          const bool live = q < p.s_q && (!p.causal || q >= r);
+          sc[i] = live ? exp2_ftz(sc[i] * scale_log2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
+        }
+      }
     } else {
-      cp_async_wait<0>();
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 l2 = *reinterpret_cast<const float2*>(stat + 8 * jn + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          sc[i] = exp2_ftz(sc[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+        }
+      }
     }
-    __syncthreads();
-    const int buf = j & 1;
-    const bf16* cq = s_q + buf * BQ * LD;
-    const bf16* cdo = s_do + buf * BQ * LD;
-    const float* clse = s_lse + buf * BQ;
-    const float* cdl = s_dl + buf * BQ;
-    const int qr0 = (qt_start + j % per_head) * BQ;
+    wgmma_wait<0>();
+    fence_regs(dp);
 
-    // Transposed scores: rows are this warp's 16 kv rows, columns q.
-    float s[BQ / 8][4], dpt[BQ / 8][4];
+    // dS^T = P^T (dP^T - delta); p rounded to dO's dtype for dV, ds to
+    // q's for dK. The accumulator's n8 chunks 2c and 2c + 1 are the A
+    // fragment of k16 chunk c.
+    uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dpt[nt][e] = 0.f;
-    }
-    mm_nt<BQ / 8, D, LD>(s, s_k, row0, cq, lane);
-    const bool edge = qr0 + BQ > p.s_q || kv0 + row0 + 16 > p.s_kv ||
-                      (p.causal && qr0 < kv0 + row0 + 15);
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
+    for (int jn = 0; jn < 8; ++jn) {
+      const float2 d2 = *reinterpret_cast<const float2*>(stat + kDkvQRows + 8 * jn + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        float logit = s[nt][e] * scale_log2;
-        if (edge && !live(qr0 + c, e < 2 ? r_lo : r_hi, p)) logit = kNegInf;
-        s[nt][e] = exp2f(logit - clse[c] * kLog2e);  // p^T
+        const int i = 4 * jn + e;
+        dp[i] = sc[i] * (dp[i] - ((e & 1) ? d2.y : d2.x));
       }
     }
-    uint32_t pa[BQ / 16][4];
-    pack_acc<BQ / 16>(pa, s);  // p cast to dO's dtype for dv
-    mm_rn<D / 8, BQ / 16, LD>(dv, pa, cdo, lane);
-    mm_nt<BQ / 8, D, LD>(dpt, s_v, row0, cdo, lane);
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
+    for (int c = 0; c < 4; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = s[nt][e] * (dpt[nt][e] - cdl[c]);  // ds^T
+      for (int f = 0; f < 4; ++f) {
+        pa[c][f] = pack_f32(sc[8 * c + 2 * f], sc[8 * c + 2 * f + 1]);
+        da[c][f] = pack_f32(dp[8 * c + 2 * f], dp[8 * c + 2 * f + 1]);
       }
     }
-    pack_acc<BQ / 16>(pa, s);  // ds cast to q's dtype for dk
-    mm_rn<D / 8, BQ / 16, LD>(dk, pa, cq, lane);
-    __syncthreads();
+
+    // dV += P^T.dO and dK += dS^T.Q: dO and Q are [q, D] with D
+    // contiguous, MN-major for B. 16 q rows are 2048 bytes; the next 64
+    // columns of D are the next slab (leading offset), the next 8 q rows
+    // 1024 bytes on (stride).
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs_nd<D>(dv, pa[c], desc_sw128(do_base + c * 2048, L::kSlabQ, 1024));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs_nd<D>(dk, da[c], desc_sw128(q_base + c * 2048, L::kSlabQ, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(empty(s));
   }
-  bf16* dkb = static_cast<bf16*>(p.dk) + kv_off;
-  bf16* dvb = static_cast<bf16*>(p.dv) + kv_off;
-  store_rows<D>(dkb, kv_stride, dk, r_lo, p.s_kv, p.scale, p.scale, t);
-  store_rows<D>(dvb, kv_stride, dv, r_lo, p.s_kv, 1.f, 1.f, t);
+
+  if constexpr (kDkvSplits == 2) {
+    // The two blocks of a kv tile meet. The first to finish takes ticket
+    // 0, writes its f32 partial in its registers' order and publishes a
+    // flag; the second adds that partial to its own and writes bf16.
+    // With two addends a + b == b + a, so the result does not depend on
+    // which arrives first. The second block can wait, because the first
+    // has already finished its steps.
+    const int tile = bhk * gridDim.y + blockIdx.y;
+    int* ticket = p.tickets + 2 * tile;
+    int* slot = reinterpret_cast<int*>(smem + L::kTicket);
+    named_sync(3, 256);
+    if (threadIdx.x == 128) *slot = atomicAdd(ticket, 1);
+    named_sync(3, 256);
+    const int mine = *reinterpret_cast<volatile int*>(slot);
+    float4* part = reinterpret_cast<float4*>(p.partial) +
+                   (static_cast<size_t>(tile) * 2 + cw) * (D / 4) * 128 + tid;
+    if (mine == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        __stcg(part + i * 128, make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2],
+                                           dk[4 * i + 3]));
+        __stcg(part + (D / 8 + i) * 128, make_float4(dv[4 * i], dv[4 * i + 1],
+                                                     dv[4 * i + 2], dv[4 * i + 3]));
+      }
+      __threadfence();
+      named_sync(3, 256);
+      if (threadIdx.x == 128) st_release(ticket + 1, 1);
+      return;
+    }
+    if (threadIdx.x == 128) {
+      while (ld_acquire(ticket + 1) == 0) {
+      }
+    }
+    named_sync(3, 256);
+    (void)ld_acquire(ticket + 1);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const float4 a = __ldcg(part + i * 128);
+      const float4 c = __ldcg(part + (D / 8 + i) * 128);
+      dk[4 * i] += a.x;
+      dk[4 * i + 1] += a.y;
+      dk[4 * i + 2] += a.z;
+      dk[4 * i + 3] += a.w;
+      dv[4 * i] += c.x;
+      dv[4 * i + 1] += c.y;
+      dv[4 * i + 2] += c.z;
+      dv[4 * i + 3] += c.w;
+    }
+  }
+
+  // Epilogue: dk * scale and dv rounded to bf16 into this warpgroup's
+  // (now free) K and V rows, with the same swizzle, then 16-byte rows out
+  // to [B, Skv, Hkv, D].
+  const float scale = p.scale;
+  named_sync(1 + cw, 128);
+#pragma unroll
+  for (int jn = 0; jn < D / 8; ++jn) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + g + 8 * half;  // of this warpgroup's 64
+      const int off = (jn / 8) * L::kSlabKv + (64 * cw + row) * 128 +
+                      ((jn % 8) ^ (row % 8)) * 16 + 4 * t;
+      const int i = 4 * jn + 2 * half;
+      *reinterpret_cast<uint32_t*>(smem + L::kK + off) =
+          pack_f32(dk[i] * scale, dk[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(smem + L::kV + off) = pack_f32(dv[i], dv[i + 1]);
+    }
+  }
+  named_sync(1 + cw, 128);
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks, c = i % kChunks;
+    const int kv = kvw0 + row;
+    if (kv >= p.s_kv) break;  // rows only grow with i
+    const int off = (c / 8) * L::kSlabKv + (64 * cw + row) * 128 + ((c % 8) ^ (row % 8)) * 16;
+    const size_t out = ((static_cast<size_t>(b) * p.s_kv + kv) * p.kv_heads + hk) * D + c * 8;
+    *reinterpret_cast<uint4*>(p.dk + out) = *reinterpret_cast<const uint4*>(smem + L::kK + off);
+    *reinterpret_cast<uint4*>(p.dv + out) = *reinterpret_cast<const uint4*>(smem + L::kV + off);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1040,12 +1345,11 @@ flash_dkv_f32(FlashArgs p) {
 
 enum Pass { kForward, kDq, kDkv };
 
+// The bf16 dq kernel's shared memory: q, dO, two K and two V tiles of
+// 64 padded rows.
 template <int D>
-size_t smem_bytes(Pass pass) {
-  constexpr size_t row = (D + 8) * sizeof(bf16);
-  constexpr int bq = D == 128 ? 32 : 64;
-  if (pass == kDq) return 6 * kTile * row;  // q, dO + 2 k + 2 v
-  return 2 * kTile * row + 4 * bq * row + 4 * bq * sizeof(float);
+constexpr size_t dq_smem_bytes() {
+  return 6 * kTile * (D + 8) * sizeof(bf16);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the
@@ -1075,17 +1379,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A contiguous bf16 [batch, seq, heads, D] as the 4-D map (D, heads, seq,
-// batch) of 64 x 1 x 128 x 1 boxes with the 128-byte swizzle; boxes
+// batch) of 64 x 1 x `rows` x 1 boxes with the 128-byte swizzle; boxes
 // reaching past seq are filled with zeros.
 bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
-                 int heads, int d) {
+                 int heads, int d, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t row = static_cast<cuuint64_t>(d) * sizeof(bf16);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {kSlabCols, 1, kFwdRows, 1};
+  const cuuint32_t box[4] = {kSlabCols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                 dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1096,9 +1400,9 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
 template <int D>
 int launch_fwd_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
   FwdParams p;
-  if (!encode_bshd(&p.q, a.q, batch, a.s_q, a.heads, D) ||
-      !encode_bshd(&p.k, a.k, batch, a.s_kv, a.kv_heads, D) ||
-      !encode_bshd(&p.v, a.v, batch, a.s_kv, a.kv_heads, D)) {
+  if (!encode_bshd(&p.q, a.q, batch, a.s_q, a.heads, D, kFwdRows) ||
+      !encode_bshd(&p.k, a.k, batch, a.s_kv, a.kv_heads, D, kFwdRows) ||
+      !encode_bshd(&p.v, a.v, batch, a.s_kv, a.kv_heads, D, kFwdRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.o = static_cast<bf16*>(a.out);
@@ -1118,6 +1422,41 @@ int launch_fwd_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dkv_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
+  if (kDkvSplits > 1 && (a.partial == nullptr || a.tickets == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DkvParams p;
+  if (!encode_bshd(&p.q, a.q, batch, a.s_q, a.heads, D, kDkvQRows) ||
+      !encode_bshd(&p.dout, a.dout, batch, a.s_q, a.heads, D, kDkvQRows) ||
+      !encode_bshd(&p.k, a.k, batch, a.s_kv, a.kv_heads, D, kDkvRows) ||
+      !encode_bshd(&p.v, a.v, batch, a.s_kv, a.kv_heads, D, kDkvRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.lse = a.lse_in;
+  p.delta = a.delta;
+  p.dk = static_cast<bf16*>(a.dk);
+  p.dv = static_cast<bf16*>(a.dv);
+  p.partial = a.partial;
+  p.tickets = a.tickets;
+  p.s_q = a.s_q;
+  p.s_kv = a.s_kv;
+  p.heads = a.heads;
+  p.kv_heads = a.kv_heads;
+  p.group = a.group;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * kLog2e;
+  p.causal = a.causal;
+  constexpr int smem = DkvSmem<D>::kBytes;
+  const cudaError_t status = cudaFuncSetAttribute(
+      flash_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const dim3 grid(batch * a.kv_heads * kDkvSplits, ceil_div(a.s_kv, kDkvRows));
+  flash_dkv_bf16<D><<<grid, kFwdThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& args,
            cudaStream_t stream) {
@@ -1134,15 +1473,14 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& args,
 template <int D>
 int dispatch(Pass pass, int dtype, int batch, const FlashArgs& args,
              cudaStream_t stream) {
-  const int rows = pass == kDkv ? args.s_kv : args.s_q;
-  const int bh = batch * (pass == kDkv ? args.kv_heads : args.heads);
   if (dtype == tyt::kBFloat16) {
     if (pass == kForward) return launch_fwd_bf16<D>(args, batch, stream);
-    const dim3 grid(ceil_div(rows, kTile), bh);
-    const size_t smem = smem_bytes<D>(pass);
-    if (pass == kDq) return launch(flash_dq_bf16<D>, grid, smem, args, stream);
-    return launch(flash_dkv_bf16<D>, grid, smem, args, stream);
+    if (pass == kDkv) return launch_dkv_bf16<D>(args, batch, stream);
+    const dim3 grid(ceil_div(args.s_q, kTile), batch * args.heads);
+    return launch(flash_dq_bf16<D>, grid, dq_smem_bytes<D>(), args, stream);
   }
+  const int rows = pass == kDkv ? args.s_kv : args.s_q;
+  const int bh = batch * (pass == kDkv ? args.kv_heads : args.heads);
   if (dtype == tyt::kFloat32) {
     const dim3 grid(ceil_div(rows, kWarps), bh);
     if (pass == kForward) return launch(flash_fwd_f32<D>, grid, 0, args, stream);
@@ -1211,18 +1549,24 @@ extern "C" int tyt_flash_dq(const void* q, const void* k, const void* v,
   return run(kDq, a, batch, head_dim, dtype, stream);
 }
 
-// dk, dv [B, Skv, Hkv, D], each summed over its kv head's group.
+// dk, dv [B, Skv, Hkv, D], each summed over its kv head's group. bf16
+// needs scratch from the caller: `partial`, f32 of B * Hkv * ceil(Skv /
+// 128) * 128 * D * 2 elements, and `tickets`, int32 of B * Hkv *
+// ceil(Skv / 128) * 2 elements, zeroed (f32 ignores both).
 extern "C" int tyt_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
-                             int batch, int s_q, int s_kv, int heads,
-                             int kv_heads, int head_dim, float scale,
-                             int causal, int dtype, void* stream) {
+                             float* partial, int* tickets, int batch,
+                             int s_q, int s_kv, int heads, int kv_heads,
+                             int head_dim, float scale, int causal,
+                             int dtype, void* stream) {
   FlashArgs a = make_args(q, k, v, s_q, s_kv, heads, kv_heads, scale, causal);
   a.dout = dout;
   a.lse_in = lse;
   a.delta = delta;
   a.dk = dk;
   a.dv = dv;
+  a.partial = partial;
+  a.tickets = tickets;
   return run(kDkv, a, batch, head_dim, dtype, stream);
 }

@@ -22,9 +22,12 @@ operand dtype before each product) and mask with −1e30.
 `block_q`/`block_k` are validated as in the JAX package, but the kernels
 tile by their own rows whatever they are (Hopper's shared memory and
 registers, not the TPU's VMEM, set the tile: 128 q rows and 128-row K/V
-tiles for the bf16 forward, 64 rows elsewhere) and mask their own tails.
-The bf16 forward reads q, k and v through TMA tensor maps, which need
-16-byte aligned bases (`_operand` copies a tensor that is not).
+tiles for the bf16 forward, 128 kv rows and 64-row Q/dO tiles for bf16
+dk/dv, 64 rows elsewhere) and mask their own tails. The bf16 forward and
+dk/dv read their operands through TMA tensor maps, which need 16-byte
+aligned bases (`_operand` copies a tensor that is not). bf16 dk/dv
+splits each kv tile's work over two blocks whose f32 partials meet in
+scratch that `flash_dkv` allocates (the kernels allocate nothing).
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from tf_yarn_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
+# kv rows of a bf16 dk/dv block (csrc/flash_attention.cu kDkvRows).
+DKV_TILE_ROWS = 128
 
 
 def _check_blocks(s_q: int, s_kv: int, block_q: int, block_k: int):
@@ -238,10 +243,19 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     b, s_q, s_kv, h, n_kv, d = _dims(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    scratch = (None, None)  # f32 takes none
+    if q.dtype == torch.bfloat16:
+        # The two blocks of each 128-row kv tile meet through f32 partials
+        # of dk and dv and a zeroed [ticket, flag] pair.
+        tiles = b * n_kv * -(-s_kv // DKV_TILE_ROWS)
+        partial = torch.empty(tiles * DKV_TILE_ROWS * d * 2,
+                              dtype=torch.float32, device=q.device)
+        tickets = torch.zeros(tiles * 2, dtype=torch.int32, device=q.device)
+        scratch = (partial.data_ptr(), tickets.data_ptr())
     status = _build.load_library().tyt_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, s_q, s_kv, h, n_kv, d, float(scale), int(causal),
+        *scratch, b, s_q, s_kv, h, n_kv, d, float(scale), int(causal),
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check(status, "flash_dkv")
     flash_dkv.launches += 1
