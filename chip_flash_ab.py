@@ -1,22 +1,26 @@
-"""Time a bf16 flash-attention kernel of several copies of the port, in
-turns, on one card.
+"""Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dkv] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass fwd|dkv|gn_fwd|ln_dx] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
 directory that .gitignore lists). The roots are timed in the order
 given, each in a process of its own that builds that copy's kernels:
 pass parent, change, change, parent to compare two versions on one
-card. `--pass` picks the kernel: `fwd` (the default) the forward
-`flash_fwd`, `dkv` the backward's `flash_dkv`. The shape is the training
-slice's (B 1, S 2048, H 32, Hkv 8, D 128, causal, bf16, the seed of
-`chip_smoke.check_flash`); the timing is `chip_smoke.time_ms` over
-CUDA-graph replays, cold (inputs cycling through copies that exceed
-twice the L2) and warm. One JSON line per root: its label, both times in
-microseconds, the outputs' errors against the plain versions (for dkv
-also whether two calls gave bitwise-equal dk and dv) and the card's
-name and power limit.
+card. `--pass` picks the kernel:
+- `fwd` (the default): the bf16 flash forward `flash_fwd`, and `dkv` the
+  backward's `flash_dkv`, at the training slice's shape (B 1, S 2048,
+  H 32, Hkv 8, D 128, causal, bf16, the seed of `chip_smoke.check_flash`);
+- `gn_fwd`: the GroupNorm forward `groupnorm_forward` at ResNet-50's 12
+  slab shapes (`chip_smoke.RESNET50_GN`: batch 128, 32 groups, bf16),
+  each shape's time and the launch-weighted sum of its 53 calls a step;
+- `ln_dx`: the LayerNorm dx `layernorm_bwd_dx` at BERT-base's and
+  ViT-B/16's rows (`chip_smoke.LN_SHAPES`, bf16).
+The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
+cycling through copies that exceed twice the L2) and warm. One JSON line
+per root: its label, the times in microseconds, the outputs' errors
+against the plain versions (for dkv and gn_fwd also whether two calls
+gave bitwise-equal outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -44,17 +48,9 @@ def _rel(got, ref) -> float:
     return float((got.float() - ref.float()).norm() / ref.float().norm())
 
 
-def time_one(root: Path, kernel: str) -> dict:
-    import torch
-
-    smoke = _smoke()
-    sys.path.insert(0, str(root))
-    from tf_yarn_tpu_torch.ops import _build
+def _time_flash(torch, smoke, kernel: str) -> dict:
     from tf_yarn_tpu_torch.ops import flash_attention as flash
 
-    if not Path(flash.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {flash.__file__}, not from {root}")
-    _build.load_library()
     b, s, h, hkv, d = (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, smoke.TRAIN_HEADS,
                        smoke.TRAIN_KV_HEADS, smoke.TRAIN_HEAD_DIM)
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + 9)
@@ -85,12 +81,96 @@ def time_one(root: Path, kernel: str) -> dict:
                                        and torch.equal(dv, dv2))}
     cold = smoke.cold_copies(args, touched)
     return {
-        "pass": kernel,
         "cold_us": smoke.time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
         "warm_us": smoke.time_ms(fn, torch, arg_sets=(args,)) * 1e3,
         **found,
-        "card": smoke.nvidia_smi(),
     }
+
+
+def _time_gn_fwd(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import groupnorm as gn
+
+    groups, shapes, bitwise = smoke.GN_GROUPS, {}, True
+    step = {"cold_us": 0.0, "warm_us": 0.0, "bound_us": 0.0}
+    for (side, c), calls in smoke.RESNET50_GN.items():
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + c + side)
+        x = (torch.randn(smoke.GN_BATCH, side, side, c, device="cuda",
+                         generator=gen) * 2 + 0.5).to(torch.bfloat16)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        y, stats = gn.groupnorm_forward(x, scale, bias, groups, 1e-6)
+        y2, stats2 = gn.groupnorm_forward(x, scale, bias, groups, 1e-6)
+        ref_y = gn.groupnorm_reference(x, scale, bias, groups, 1e-6)
+        ref_stats = gn.groupnorm_stats_reference(x, groups, 1e-6)
+        torch.cuda.synchronize()
+        bitwise &= bool(torch.equal(y, y2) and torch.equal(stats, stats2))
+        args = (x, scale, bias)
+        fn = lambda x, s, b: gn.groupnorm_forward(x, s, b, groups, 1e-6)
+        touched = 2 * x.numel() * 2
+        cold = smoke.cold_copies(args, touched)
+        row = {
+            "calls": calls,
+            "cold_us": smoke.time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
+            "warm_us": smoke.time_ms(fn, torch, arg_sets=(args,)) * 1e3,
+            "bound_us": smoke.bound_ms(touched + 2 * c * 4
+                                       + smoke.GN_BATCH * groups * 8,
+                                       8 * x.numel())[0] * 1e3,
+            "y_max_abs_err": float((y.float() - ref_y.float()).abs().max()),
+            "stats_max_abs_err": float((stats - ref_stats).abs().max()),
+        }
+        shapes[f"{side}x{side}x{c}"] = row
+        for key in step:
+            step[key] += calls * row[key]
+        del x, y, y2, ref_y, cold
+    return {"shapes": shapes, "resnet50_step": step, "bitwise_equal": bitwise}
+
+
+def _time_ln_dx(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import layernorm as ln
+
+    shapes = {}
+    for key, (rows, d, eps) in smoke.LN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + rows)
+        x = (torch.randn(rows, d, device="cuda", generator=gen) * 3 + 1).to(
+            torch.bfloat16)
+        g = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+        scale = torch.rand(d, device="cuda", generator=gen) + 0.5
+        dx = ln.layernorm_bwd_dx(x, g, scale, eps)
+        ref_dx = ln.layernorm_bwd_dx_reference(x, g, scale, eps)
+        torch.cuda.synchronize()
+        args = (x, g, scale)
+        fn = lambda x, g, s, eps=eps: ln.layernorm_bwd_dx(x, g, s, eps)
+        touched = 3 * x.numel() * 2 + d * 4
+        cold = smoke.cold_copies(args, touched)
+        shapes[key] = {
+            "cold_us": smoke.time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
+            "warm_us": smoke.time_ms(fn, torch, arg_sets=(args,)) * 1e3,
+            "bound_us": smoke.bound_ms(touched, 14 * x.numel())[0] * 1e3,
+            "dx_max_abs_err": float((dx.float() - ref_dx.float()).abs().max()),
+        }
+    return {"shapes": shapes}
+
+
+PASSES = ("fwd", "dkv", "gn_fwd", "ln_dx")
+
+
+def time_one(root: Path, kernel: str) -> dict:
+    import torch
+
+    smoke = _smoke()
+    sys.path.insert(0, str(root))
+    from tf_yarn_tpu_torch.ops import _build
+
+    if not Path(_build.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {_build.__file__}, not from {root}")
+    _build.load_library()
+    if kernel == "gn_fwd":
+        found = _time_gn_fwd(torch, smoke)
+    elif kernel == "ln_dx":
+        found = _time_ln_dx(torch, smoke)
+    else:
+        found = _time_flash(torch, smoke, kernel)
+    return {"pass": kernel, **found, "card": smoke.nvidia_smi()}
 
 
 def main(argv) -> int:
@@ -105,7 +185,7 @@ def main(argv) -> int:
     kernel = "fwd"
     if argv[:1] == ["--pass"]:
         kernel, argv = (argv[1] if len(argv) > 1 else ""), argv[2:]
-    if kernel not in ("fwd", "dkv") or not argv:
+    if kernel not in PASSES or not argv:
         print(__doc__, file=sys.stderr)
         return 2
     status = 0

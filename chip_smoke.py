@@ -13,10 +13,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    paged attention, dense int8 decode attention — the two attention rows
    read the same slots' cache bytes; training: rmsnorm dx, flash forward,
    dq, dk/dv; the zoo: LayerNorm forward and dx at BERT-base's and
-   ViT-B/16's rows, GroupNorm forward and dx at ResNet-50's stem and
-   last-stage slabs), with the
-   stated tolerance, timed with CUDA events over CUDA-graph replays
-   beside the plain version, the library call where one exists, and its
+   ViT-B/16's rows, the GroupNorm forward at all 12 of ResNet-50's slab
+   shapes, with their launch-weighted sum a step and the device kernels
+   one call at each launched, and its dx at the stem's and last stage's
+   slabs), with the stated tolerance, timed with CUDA events over
+   CUDA-graph replays beside the plain version (the GroupNorm forward's
+   at those two slabs only), the library call where one exists, and its
    bound on this card. The times are cold: the calls cycle over copies
    of the inputs that together exceed twice the L2 cache, as the main
    paths find each layer's inputs out of L2; the warm time (the same
@@ -148,13 +150,15 @@ def cold_copies(args, touched_bytes: int):
 
 def timings(fn, plain, library, args, touched_bytes, torch, plain_inner=20):
     """The kernel's cold and warm times, the plain version's and the
-    library call's (None where there is none) cold times, in ms."""
+    library call's (None where there is none, or the plain version is not
+    timed) cold times, in ms."""
     cold = cold_copies(args, touched_bytes)
     return {
         "ms": time_ms(fn, torch, inner=2, arg_sets=cold),
         "warm_ms": time_ms(fn, torch, arg_sets=(args,)),
-        "plain_ms": time_ms(plain, torch, inner=1, outer=max(1, plain_inner // 4),
-                            arg_sets=cold),
+        "plain_ms": plain and time_ms(plain, torch, inner=1,
+                                      outer=max(1, plain_inner // 4),
+                                      arg_sets=cold),
         "library_ms": library and time_ms(library, torch, inner=2,
                                           arg_sets=cold),
     }
@@ -531,12 +535,19 @@ def check_flash(torch, ops, dev):
 # The zoo slice's norm shapes: LayerNorm rows of BERT-base (32 x 128
 # tokens, eps 1e-12) and ViT-B/16 (128 images x 197 tokens, eps 1e-6),
 # 768 wide; GroupNorm slabs of ResNet-50 at batch 128, 32 groups, eps
-# 1e-6: the stem's 112x112x64 and the last stage's 7x7x2048. The first
-# of each is the kernel's row; the second's numbers go beside it.
+# 1e-6, as (side, C): the number of each of its 53 GroupNorms a step
+# (models/resnet.py: the stem, then stages of 3, 4, 6 and 3
+# bottlenecks). The forward is timed at all 12; the dx kernel and the
+# forward's plain version at the stem's 112x112x64 and the last stage's
+# 7x7x2048 (GN_DX_SHAPES). The first shape of each is the kernel's row;
+# the others' numbers go beside it.
 LN_SHAPES = {"bert_base": (32 * 128, 768, 1e-12),
              "vit_b16": (128 * 197, 768, 1e-6)}
-GN_SHAPES = {"stem": ((128, 112, 112, 64), 32),
-             "stage4": ((128, 7, 7, 2048), 32)}
+GN_BATCH, GN_GROUPS = 128, 32
+RESNET50_GN = {(112, 64): 1, (56, 64): 6, (56, 256): 4, (56, 128): 1,
+               (28, 128): 7, (28, 512): 5, (28, 256): 1, (14, 256): 11,
+               (14, 1024): 7, (14, 512): 1, (7, 512): 5, (7, 2048): 4}
+GN_DX_SHAPES = {(112, 64): "stem", (7, 2048): "stage4"}
 
 
 def _norm_rows(specs, torch):
@@ -622,75 +633,135 @@ def check_layernorm(torch, ops, dev):
     return _norm_rows(specs, torch)
 
 
+def kernel_launch_counts(torch, run) -> dict:
+    """Device kernels `run()` launched, by name, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {event.key: event.count for event in prof.key_averages()
+            if event.device_type == DeviceType.CUDA}
+
+
 def check_groupnorm(torch, ops, dev):
-    """The GroupNorm forward and dx kernels (two CUDA launches each) at
-    the ResNet-50 slabs (bf16, NHWC); returns their two rows. The library
+    """The GroupNorm forward at ResNet-50's 12 slab shapes and the dx
+    kernel at its stem's and last stage's (bf16, NHWC); returns their two
+    rows, the forward's with ResNet-50's launch-weighted sum a step and
+    the device kernels one call at each shape launched. The library
     yardstick is F.group_norm on the same storage seen as channels-last
     NCHW, the layout the port keeps its activations in."""
     gn = ops.groupnorm
     group_norm = torch.nn.functional.group_norm
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # channels-last NCHW view
+    groups = GN_GROUPS
     specs = {"groupnorm": {}, "groupnorm_bwd_dx": {}}
-    for key, (shape, groups) in GN_SHAPES.items():
-        c = shape[-1]
-        gen = torch.Generator(device=dev).manual_seed(SEED + c)
+    forwards = []
+    for (side, c), calls in RESNET50_GN.items():
+        shape = (GN_BATCH, side, side, c)
+        key = f"{side}x{side}x{c}"
+        gen = torch.Generator(device=dev).manual_seed(SEED + c + side)
         x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(
             torch.bfloat16)
-        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
         scale = torch.rand(c, device=dev, generator=gen) + 0.5
         bias = torch.randn(c, device=dev, generator=gen)
         y, stats = gn.groupnorm_forward(x, scale, bias, groups, 1e-6)
-        dx = gn.groupnorm_bwd_dx(x, g, scale, stats, groups)
         ref_stats = gn.groupnorm_stats_reference(x, groups, 1e-6)
         ref_y = gn.groupnorm_reference(x, scale, bias, groups, 1e-6)
-        ref_dx = gn.groupnorm_bwd_dx_reference(x, g, scale, ref_stats, groups)
         torch.cuda.synchronize()
-        # The kernel's shifted one-pass statistics against the plain
-        # two-pass ones (f32 over up to 25,088 elements); y one bf16 ulp;
-        # dx one ulp plus cancellation, atol 1e-2 of the largest entry.
+        # The kernel's statistics against the plain two-pass ones (f32
+        # over up to 25,088 elements); y one bf16 ulp.
         torch.testing.assert_close(stats, ref_stats, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(y.float(), ref_y.float(), rtol=1 / 128,
                                    atol=1e-5)
-        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
-        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
-                                   atol=dx_atol)
+        max_err = float((y.float() - ref_y.float()).abs().max())
+        del y, stats, ref_y
+        plan = gn.groupnorm_plan(GN_BATCH, side * side, c, groups,
+                                 x.element_size())
         n = x.numel()
         weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
-        nchw = lambda t: t.permute(0, 3, 1, 2)  # channels-last NCHW view
         base = {"route": "cuda",
                 "source": "tf_yarn_tpu_torch/ops/csrc/groupnorm.cu",
                 "shape": {"nhwc": list(shape), "groups": groups, "eps": 1e-6,
-                          "dtype": "bf16", "slab": key},
-                "cuda_launches_per_call": 2}
-
-        def library_bwd(x, g, groups=groups, weight=weight, wbias=wbias):
-            return group_norm(nchw(x), groups, weight, wbias, 1e-6), x, nchw(g)
-
+                          "dtype": "bf16", "slab": key}}
         # Bytes: x read and y written (dx: x and g read, dx written), the
         # vectors and the [B, G, 2] statistics once.
-        vec = 2 * c * 4 + shape[0] * groups * 8
+        vec = 2 * c * 4 + GN_BATCH * groups * 8
+        forwards.append((x, scale, bias))
         specs["groupnorm"][key] = (
             dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:81",
                  tolerance="stats rtol = atol = 1e-5; y rtol 1/128, atol 1e-5",
-                 max_abs_err=float((y.float() - ref_y.float()).abs().max()),
-                 library="F.group_norm (channels-last NCHW)"),
-            lambda x, s, b, groups=groups: gn.groupnorm_forward(x, s, b, groups,
-                                                                1e-6),
-            lambda x, s, b, groups=groups: gn.groupnorm_reference(x, s, b, groups,
-                                                                  1e-6),
-            lambda x, s, b, groups=groups, weight=weight, wbias=wbias:
+                 max_abs_err=max_err,
+                 library="F.group_norm (channels-last NCHW)",
+                 cuda_launches_per_call=plan.launches, plan=plan._asdict(),
+                 resnet50_calls=calls),
+            lambda x, s, b: gn.groupnorm_forward(x, s, b, groups, 1e-6),
+            (lambda x, s, b: gn.groupnorm_reference(x, s, b, groups, 1e-6))
+            if (side, c) in GN_DX_SHAPES else None,
+            lambda x, s, b, weight=weight, wbias=wbias:
                 group_norm(nchw(x), groups, weight, wbias, 1e-6),
             (x, scale, bias), 2 * n * 2 + vec, 8 * n, None)
-        specs["groupnorm_bwd_dx"][key] = (
+        if (side, c) not in GN_DX_SHAPES:
+            continue
+        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        dx = gn.groupnorm_bwd_dx(x, g, scale, ref_stats, groups)
+        ref_dx = gn.groupnorm_bwd_dx_reference(x, g, scale, ref_stats, groups)
+        torch.cuda.synchronize()
+        # dx one ulp plus cancellation, atol 1e-2 of the largest entry.
+        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
+        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
+                                   atol=dx_atol)
+
+        def library_bwd(x, g, weight=weight, wbias=wbias):
+            return group_norm(nchw(x), groups, weight, wbias, 1e-6), x, nchw(g)
+
+        specs["groupnorm_bwd_dx"][GN_DX_SHAPES[(side, c)]] = (
             dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:150",
                  tolerance="rtol 1/128, atol 1e-2 * max|dx|",
                  max_abs_err=float((dx.float() - ref_dx.float()).abs().max()),
-                 library="F.group_norm backward (autograd), dx"),
-            lambda x, g, s, st, groups=groups: gn.groupnorm_bwd_dx(
-                x, g, s, st, groups),
-            lambda x, g, s, st, groups=groups: gn.groupnorm_bwd_dx_reference(
-                x, g, s, st, groups),
-            None, (x, g, scale, stats), 3 * n * 2 + vec, 14 * n, library_bwd)
-    return _norm_rows(specs, torch)
+                 library="F.group_norm backward (autograd), dx",
+                 cuda_launches_per_call=2),
+            lambda x, g, s, st: gn.groupnorm_bwd_dx(x, g, s, st, groups),
+            lambda x, g, s, st: gn.groupnorm_bwd_dx_reference(x, g, s, st,
+                                                              groups),
+            None, (x, g, scale, ref_stats), 3 * n * 2 + vec, 14 * n,
+            library_bwd)
+        del dx, ref_dx
+
+    # One forward call at each shape: the kernels the device ran.
+    launched = kernel_launch_counts(torch, lambda: [
+        gn.groupnorm_forward(*args, groups, 1e-6) for args in forwards])
+    del forwards
+    ours = {k: v for k, v in launched.items() if "groupnorm" in k}
+    planned = sum(gn.groupnorm_plan(GN_BATCH, side * side, c, groups,
+                                    2).launches
+                  for side, c in RESNET50_GN)
+    if sum(ours.values()) != planned:
+        raise AssertionError(f"GroupNorm forward launched {ours} at the "
+                             f"{len(RESNET50_GN)} shapes, planned {planned}")
+    rows = _norm_rows(specs, torch)
+    fwd = rows[0]
+    shapes = [fwd, *fwd["other_shapes"].values()]
+    fwd["device_kernels_12_calls"] = ours
+    fwd["resnet50_step"] = {
+        "calls": sum(r["resnet50_calls"] for r in shapes),
+        "cuda_launches": sum(r["resnet50_calls"] * r["cuda_launches_per_call"]
+                             for r in shapes),
+        **{f: sum(r["resnet50_calls"] * r[f] for r in shapes)
+           for f in ("ms", "warm_ms", "bound_ms", "library_ms")}}
+    for key, r in {next(iter(specs["groupnorm"])): fwd,
+                   **fwd["other_shapes"]}.items():
+        log(f"  groupnorm {key} x{r['resnet50_calls']}: {r['ms'] * 1e3:.2f} us "
+            f"cold, {r['warm_ms'] * 1e3:.2f} warm, F.group_norm "
+            f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f}, "
+            f"{r['cuda_launches_per_call']} launch(es), plan {r['plan']}")
+    step = fwd["resnet50_step"]
+    log(f"  groupnorm ResNet-50 step ({step['calls']} calls, "
+        f"{step['cuda_launches']} launches): {step['ms'] * 1e3:.2f} us cold, "
+        f"F.group_norm {step['library_ms'] * 1e3:.2f}, bound "
+        f"{step['bound_ms'] * 1e3:.2f}; kernels {ours}")
+    return rows
 
 
 def train_tiny_reference(torch, tt, common, training, experiment, ckpt, dev):

@@ -443,11 +443,15 @@ def _norm_tolerances(dtype, ref_dx):
     return dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-4, atol=1e-4 * big)
 
 
-# rows x d: one row, a row count that is no power of two, and a width
-# that is not a multiple of any vector width (771).
+# rows x d: one row, row counts that are no multiple of the dx kernel's
+# rows a block (333, 4097), widths the register kernel holds (768, 1024:
+# 3 and 4 vectors a lane in bf16, 6 and 8 in f32), one too wide for it
+# (4096: the loop kernel's 16-byte loads) and one that is not a multiple
+# of any vector width (771: scalar loads).
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("rows, d", [(1, 768), (333, 768), (333, 771)])
+@pytest.mark.parametrize("rows, d", [(1, 768), (333, 768), (333, 771),
+                                     (4097, 768), (333, 1024), (7, 4096)])
 def test_cuda_layernorm_kernels_match_plain(cuda, rows, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(rows + d)
     x = (torch.randn(rows, d, device=cuda, generator=gen) * 3 + 1).to(dtype)
@@ -471,13 +475,18 @@ def test_cuda_layernorm_kernels_match_plain(cuda, rows, d, dtype):
     torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
 
 
-# (shape, groups): the ResNet-50 stem's 112x112x64 slab (802,816
-# elements an image), the last stage's 7x7x2048, one channel a group,
-# one group, a [B, L, C] input and a channel count that is no power of
-# two.
+# (shape, groups), with the forward's plan: the ResNet-50 stem's
+# 112x112x64 slab (802,816 elements an image; one pass, a cluster of 8
+# blocks of 256 threads), the last stage's 7x7x2048 (one pass, one block
+# of 128 threads a cluster), a grid of several waves of clusters, a slab
+# too large for a cluster (two launches), one channel a group, one group
+# (a cluster of several blocks), a [B, L, C] input, and a channel count
+# that is no power of two (no 32-byte span: two launches).
 GROUPNORM_CASES = {
     "stem": ((2, 112, 112, 64), 32),
     "stage4": ((3, 7, 7, 2048), 32),
+    "waves": ((512, 7, 7, 512), 32),
+    "huge": ((1, 256, 256, 64), 32),
     "groups_eq_c": ((2, 8, 8, 64), 64),
     "one_group": ((2, 14, 14, 256), 1),
     "seq": ((3, 50, 96), 3),
@@ -505,7 +514,8 @@ def test_cuda_groupnorm_kernels_match_plain(cuda, case, dtype):
             t_groupnorm.groupnorm_bwd_dx.launches) == (before[0] + 1,
                                                        before[1] + 1)
     ref_stats = t_groupnorm.groupnorm_stats_reference(x, groups, 1e-6)
-    # The kernel's shifted one-pass statistics against the two-pass ones.
+    # The kernel's statistics (one pass: two-pass sums from the tile on
+    # chip; two launches: shifted one-pass sums) against the plain ones.
     torch.testing.assert_close(stats, ref_stats, rtol=1e-5, atol=1e-5)
     ref_y = t_groupnorm.groupnorm_reference(x, scale, bias, groups, 1e-6)
     ref_dx = t_groupnorm.groupnorm_bwd_dx_reference(x, g, scale, ref_stats,
@@ -515,9 +525,60 @@ def test_cuda_groupnorm_kernels_match_plain(cuda, case, dtype):
     torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
 
 
+# ResNet-50's 12 GroupNorm slabs as (side, C), at batch 2: every plan the
+# forward makes for them (clusters of 1-8 blocks, 128 and 256 threads).
+RESNET50_SLABS = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
+                  (28, 512), (28, 256), (14, 256), (14, 1024), (14, 512),
+                  (7, 512), (7, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("side, c", RESNET50_SLABS)
+def test_cuda_groupnorm_forward_matches_plain_at_resnet50_slabs(cuda, side, c,
+                                                                dtype):
+    gen = torch.Generator(device=cuda).manual_seed(side + c)
+    x = (torch.randn(2, side, side, c, device=cuda, generator=gen) * 2
+         + 0.5).to(dtype)
+    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(c, device=cuda, generator=gen)
+    assert t_groupnorm.groupnorm_plan(2, side * side, c, 32,
+                                      x.element_size()).one_pass
+    y, stats = t_groupnorm.groupnorm_forward(x, scale, bias, 32, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        stats, t_groupnorm.groupnorm_stats_reference(x, 32, 1e-6),
+        rtol=1e-5, atol=1e-5)
+    tol_y = (dict(rtol=1 / 128, atol=1e-5) if dtype == torch.bfloat16
+             else dict(rtol=1e-5, atol=1e-5))
+    torch.testing.assert_close(
+        y.float(),
+        t_groupnorm.groupnorm_reference(x, scale, bias, 32, 1e-6).float(),
+        **tol_y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["stem", "stage4", "waves", "huge", "c6"])
+def test_cuda_groupnorm_forward_is_bitwise_deterministic(cuda, case, dtype):
+    """Two forward calls on the same input give the same bits, on both
+    plans: the cluster's partials are added in rank order, the two
+    launches' in chunk order, and no atomics."""
+    shape, groups = GROUPNORM_CASES[case]
+    c = shape[-1]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(c, device=cuda, generator=gen)
+    y1, stats1 = t_groupnorm.groupnorm_forward(x, scale, bias, groups, 1e-6)
+    y2, stats2 = t_groupnorm.groupnorm_forward(x, scale, bias, groups, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(stats1, stats2)
+
+
 def test_cuda_groupnorm_near_constant_input_is_finite(cuda):
     """A large mean with a tiny spread (tests/test_ops.py's case): the
-    shifted sums lose nothing to cancellation."""
+    one-pass kernel's two-pass sums lose nothing to cancellation."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = 1000.0 + 1e-3 * torch.randn(1, 8, 8, 32, device=cuda, generator=gen)
     ones, zeros = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)

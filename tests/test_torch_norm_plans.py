@@ -1,0 +1,74 @@
+"""The GroupNorm forward's plan (`ops.groupnorm.groupnorm_plan`), a pure
+function of the shape: every ResNet-50 GroupNorm gets the one-pass launch
+within the card's block and cluster limits, its spans hold whole groups
+and whole 32-byte sectors, and a slab too large for a cluster keeps the
+two launches. Runs on the CPU: nothing here launches a kernel."""
+
+import pytest
+
+from tf_yarn_tpu_torch.ops import groupnorm as t_groupnorm
+
+# (HW, C) of ResNet-50's 53 GroupNorms a step at batch 128, 32 groups,
+# with how many of each (models/resnet.py: the stem, then stages of 3, 4,
+# 6 and 3 bottlenecks).
+RESNET50_SHAPES = {
+    (112 * 112, 64): 1,
+    (56 * 56, 64): 6, (56 * 56, 256): 4, (56 * 56, 128): 1,
+    (28 * 28, 128): 7, (28 * 28, 512): 5, (28 * 28, 256): 1,
+    (14 * 14, 256): 11, (14 * 14, 1024): 7, (14 * 14, 512): 1,
+    (7 * 7, 512): 5, (7 * 7, 2048): 4,
+}
+
+
+def test_resnet50_shapes_are_the_53_groupnorms_of_a_step():
+    assert sum(RESNET50_SHAPES.values()) == 53
+    assert len(RESNET50_SHAPES) == 12
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hw, c", sorted(RESNET50_SHAPES))
+def test_resnet50_groupnorms_get_one_pass_plans(hw, c, itemsize):
+    groups, cg = 32, c // 32
+    plan = t_groupnorm.groupnorm_plan(128, hw, c, groups, itemsize)
+    assert plan.one_pass and plan.launches == 1
+    assert 1 <= plan.cluster <= t_groupnorm.MAX_CLUSTER
+    assert plan.smem <= t_groupnorm.MAX_SMEM == 227 * 1024
+    assert plan.smem == t_groupnorm.one_pass_smem(plan.rows, plan.span, cg,
+                                                  itemsize, plan.threads)
+    # Whole groups, whole 32-byte sectors, spans that tile the channels.
+    assert plan.span % cg == 0 and c % plan.span == 0
+    assert plan.span * itemsize % 32 == 0
+    nv = plan.span * itemsize // 16
+    assert plan.threads in t_groupnorm.BLOCKS and plan.threads % nv == 0
+    # The cluster's blocks cover every row, none of them empty.
+    assert (plan.cluster - 1) * plan.rows < hw <= plan.cluster * plan.rows
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_stem_spreads_over_a_cluster_and_last_stage_fits_a_block(itemsize):
+    stem = t_groupnorm.groupnorm_plan(128, 112 * 112, 64, 32, itemsize)
+    last = t_groupnorm.groupnorm_plan(128, 7 * 7, 2048, 32, itemsize)
+    assert stem.cluster > 1
+    assert last.cluster == 1
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_huge_slab_keeps_the_two_launches(itemsize):
+    plan = t_groupnorm.groupnorm_plan(1, 256 * 256, 64, 32, itemsize)
+    assert not plan.one_pass and plan.launches == 2
+    assert plan.span == 64 and plan.cluster == 1 and plan.smem == 0
+    assert plan.threads == 256
+    assert plan.chunks * plan.rows >= 256 * 256 > (plan.chunks - 1) * plan.rows
+
+
+@pytest.mark.parametrize("b, hw, c, groups, one_pass", [
+    (2, 25, 6, 3, False),    # no span of whole groups is 32 bytes wide
+    (3, 50, 96, 3, True),
+    (2, 196, 256, 1, True),  # one group: a span of all 256 channels
+    (2, 64, 64, 64, True),   # one channel a group
+])
+def test_plan_takes_odd_shapes_by_shape_alone(b, hw, c, groups, one_pass):
+    for itemsize in (2, 4):
+        plan = t_groupnorm.groupnorm_plan(b, hw, c, groups, itemsize)
+        assert plan.one_pass == one_pass
+        assert plan == t_groupnorm.groupnorm_plan(b, hw, c, groups, itemsize)

@@ -2,7 +2,7 @@
 // (channels last); channel c belongs to group c / (C / G); every (image,
 // group) is normalised over its HW x C/G elements:
 //   forward  y  = (x - mean) * inv * scale + bias,  inv = rsqrt(var + eps),
-//            var the biased variance, clamped at 0;
+//            var the biased variance;
 //   dx       dx = inv * (gs - mean(gs) - norm * mean(gs * norm)),
 //            gs = g * scale, norm = (x - mean) * inv.
 // f32 math, outputs in x's dtype.
@@ -11,11 +11,43 @@
 // and :_groupnorm_bwd_dx_kernel. dscale and dbias are cross-batch sums and
 // stay outside, as in the JAX package.
 //
-// The TPU kernels hold one image's whole [HW, C] slab in VMEM (grid (B,)).
-// At ResNet-50 widths a slab reaches 112*112*64 = 802,816 elements (1.6 MB
-// in bf16), far above the 227 KB of shared memory a block can have, and
-// 128 images would fill barely one wave of the 132 SMs. So each wrapper
-// call is two launches over a grid of (row chunk, image) blocks:
+// Bound on the H100: memory (~8 f32 operations an element against 4 bytes
+// in bf16). The function reads x once and writes y once.
+//
+// Forward, one pass (groupnorm_fwd_kernel). The TPU kernel holds one
+// image's whole [HW, C] slab in VMEM and normalises it in one pass. Here a
+// thread-block cluster of 1-8 blocks stands in for that VMEM: it owns one
+// (image, channel span), where a span is whole groups and a multiple of
+// 32 bytes wide, and each of its blocks holds its rows' [rows, span] tile
+// in shared memory (up to 227 KB a block). One launch reads x once and
+// writes y once:
+//   1. every thread issues all its 16-byte cp.async copies of the tile
+//      before it waits, so an SM has tens of KB in flight; a thread later
+//      reads back only the vectors it copied (its column of the span is
+//      fixed), so its own wait is all the synchronisation the tile needs;
+//   2. each group's sum, from the tile: per-thread column sums, a warp
+//      butterfly, per-channel sums over the block's warps, per-group sums,
+//      all in a fixed order; the cluster's blocks then add one another's
+//      partials over distributed shared memory in rank order, so every
+//      block holds the same bits (deterministic, no atomics);
+//   3. the centred squares the same way: the exact two-pass variance of
+//      groupnorm_stats_reference, with no shift and no clamp;
+//   4. y from the tile with 16-byte stores; cluster rank 0 writes each
+//      group's (mean, inv) to stats [B, G, 2], which the dx kernel reads.
+// The plan (span, cluster size, rows a block, 128 or 256 threads a block,
+// shared memory a block) is ops/groupnorm.py:groupnorm_plan's, a pure
+// function of the shape: spans of 128 bytes where a cluster holds them
+// (whole DRAM lines of each row), tiles of ~32 KB so that several blocks
+// share an SM and one's copies overlap another's arithmetic (up to
+// ~100 KB where a slab needs them, as at the stem), and 256 threads for
+// tiles of 48 KB or more. The entry point checks the plan and that a
+// cluster of it can be resident (cudaOccupancyMaxActiveClusters), and
+// refuses one it cannot run.
+//
+// Forward and dx, two launches (groupnorm_reduce_kernel, then
+// groupnorm_apply_kernel): for slabs whose span does not fit a cluster
+// (over 8 x 227 KB, as at [1, 256^2, 64]), channel counts no 32-byte span
+// divides, and every dx. A grid of (row chunk, image) blocks:
 //   1. reduce: each block sums two per-element quantities over its chunk
 //      of rows for every group and writes the sums as partials
 //      [B, chunks, G, 2] (forward: x - shift and its square; dx: gs and
@@ -23,23 +55,334 @@
 //   2. apply: each block first folds its image's partials into per-group
 //      statistics in shared memory, in a fixed order (deterministic: no
 //      atomics), then writes its chunk of y (or dx).
-// The forward's sums are of x - shift, where shift is the group's first
-// element: the variance is E[(x-shift)^2] - E[x-shift]^2, so a large mean
-// with a tiny spread loses nothing to cancellation (the TPU kernel's
-// unshifted one-pass sums only clamp the negative result). The forward's
-// apply blocks of chunk 0 also write each group's (mean, inv) to stats
-// [B, G, 2], which the backward reads instead of recomputing them.
-//
-// Bound on the H100: memory. The forward reads x twice (reduce, apply) and
-// writes y once; dx reads x and g twice and writes dx once: 1.5x and
-// 1.67x the bytes of the function itself. Threads map to channels (tx)
-// and rows (ty), so a thread's channel, group and per-channel constants
-// are fixed while it walks down the rows; loads are scalar and coalesced.
+// The forward's sums there are of x - shift, where shift is the group's
+// first element: the variance is E[(x-shift)^2] - E[x-shift]^2, clamped
+// at 0, so a large mean with a tiny spread loses nothing to cancellation.
+// These read x twice (dx: x and g twice): 1.5x (1.67x) the bytes of the
+// function. Threads map to channels (tx) and rows (ty); loads are scalar
+// and coalesced.
+#include <cooperative_groups.h>
+
+#include <climits>
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
+
+namespace coop = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // the two-launch kernels' blocks
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;  // 227 KB: the most a block can have
+
+// ---------------------------------------------------------------------------
+// Forward, one pass
+// ---------------------------------------------------------------------------
+
+struct OnePass {
+  int hw, c, groups, span, cluster, rows, threads;
+  __host__ __device__ int cg() const { return c / groups; }
+  __host__ __device__ int span_groups() const { return span / cg(); }
+};
+
+// Slots of per-channel partial sums the block reduction keeps: one a warp
+// when a warp spans several rows (nv < 32 vectors a row), else one a row
+// of threads. A block is 128 or 256 threads (kBlock, the plan's choice).
+__host__ __device__ __forceinline__ int reduce_slots(int nv, int threads) {
+  return nv < 32 ? threads / 32 : threads / nv;
+}
+
+// Shared memory a block: the tile [rows, span], the reduction's
+// [slots, span] partials, and four [span groups] vectors (sums, squares,
+// mean, inv). ops/groupnorm.py:one_pass_smem is the same formula.
+size_t one_pass_smem(const OnePass& p, int itemsize) {
+  const int nv = p.span * itemsize / 16;
+  return static_cast<size_t>(p.rows) * p.span * itemsize +
+         (static_cast<size_t>(reduce_slots(nv, p.threads)) * p.span +
+          4 * static_cast<size_t>(p.span_groups())) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// The two halves of cluster.sync(): a block arrives once it is done
+// reading the other blocks' shared memory and waits before it exits, so
+// no block's shared memory goes away while another reads it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The block's sums of each thread's per-channel partials `acc` (the kVec
+// channels of its column of the span, nv columns), then each group's
+// channels, into group_out[g] for the span's ngs groups; `part` is
+// [slots, span] scratch. A fixed order throughout, so equal inputs give
+// equal bits. group_out is written but not yet synchronised.
+template <int kVec, int kBlock>
+__device__ __forceinline__ void span_group_sums(float (&acc)[kVec], int nv,
+                                                int span, int group_width,
+                                                int ngs,
+                                                float* part,
+                                                float* group_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Lanes l and l ^ off (off >= nv) share a column: fold them together.
+  for (int off = 16; off >= nv; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    }
+  }
+  if (nv >= 32 || lane < nv) {
+    const int slot = nv < 32 ? warp : threadIdx.x / nv;
+    const int col = threadIdx.x % nv;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) part[slot * span + col * kVec + j] = acc[j];
+  }
+  __syncthreads();
+  const int slots = reduce_slots(nv, kBlock);
+  for (int ch = threadIdx.x; ch < span; ch += kBlock) {
+    float s = part[ch];
+    for (int k = 1; k < slots; ++k) s += part[k * span + ch];
+    part[ch] = s;  // slot 0: the channel's block sum
+  }
+  __syncthreads();
+  for (int g = warp; g < ngs; g += kBlock / 32) {
+    float s = 0.f;
+    for (int ch = g * group_width + lane; ch < (g + 1) * group_width;
+         ch += 32) {
+      s += part[ch];
+    }
+    s = tyt::warp_sum(s);
+    if (lane == 0) group_out[g] = s;
+  }
+}
+
+// One block of a cluster that owns (image b, channels [c0, c0 + span)):
+// rows [rank * rows, min(hw, (rank + 1) * rows)).
+template <typename T, int kBlock>
+__global__ void __launch_bounds__(kBlock)
+groupnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, T* __restrict__ y,
+                     float* __restrict__ stats, OnePass p, float eps) {
+  constexpr int kVec = tyt::Vec16<T>::kVec;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  coop::cluster_group cluster = coop::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int spans = p.c / p.span;
+  const int unit = blockIdx.x / p.cluster;
+  const int b = unit / spans, c0 = (unit % spans) * p.span;
+  const int r0 = rank * p.rows;
+  const int nrows = min(p.rows, p.hw - r0);
+  const int nv = p.span / kVec;            // 16-byte vectors a row of the span
+  const int nv_shift = __ffs(nv) - 1;      // nv is a power of two
+  const int col = threadIdx.x & (nv - 1);  // this thread's column, fixed
+  const int cgw = p.cg(), ngs = p.span_groups();
+  uint4* tile = reinterpret_cast<uint4*>(tile_smem);  // [rows, nv]
+  float* part = reinterpret_cast<float*>(tile + p.rows * nv);
+  float* sums = part + reduce_slots(nv, kBlock) * p.span;
+  float* squares = sums + ngs;
+  float* mean = squares + ngs;
+  float* inv = mean + ngs;
+  const int count = nrows * nv;
+  const size_t first = (static_cast<size_t>(b) * p.hw + r0) * p.c + c0 +
+                       col * kVec;
+  // Vector i of the tile is row i / nv, column col (kBlock % nv == 0).
+  const T* xs = x + first;
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    cp_async16(&tile[i], xs + static_cast<size_t>(i >> nv_shift) * p.c);
+  }
+  float a[kVec], bi[kVec];  // scale (then inv * scale) and bias, in flight
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    a[j] = scale[c0 + col * kVec + j];
+    bi[j] = bias[c0 + col * kVec + j];
+  }
+  cp_async_wait_all();
+
+  float acc[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    float v[kVec];
+    tyt::unpack(tile[i], v);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] += v[j];
+  }
+  span_group_sums<kVec, kBlock>(acc, nv, p.span, cgw, ngs, part, sums);
+  cluster.sync();
+  const float n = static_cast<float>(p.hw) * static_cast<float>(cgw);
+  for (int g = threadIdx.x; g < ngs; g += kBlock) {
+    float s = 0.f;
+    for (int r = 0; r < p.cluster; ++r) {
+      s += cluster.map_shared_rank(sums, r)[g];
+    }
+    mean[g] = s / n;
+  }
+  __syncthreads();
+
+  float m[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    m[j] = mean[(col * kVec + j) / cgw];
+    acc[j] = 0.f;
+  }
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    float v[kVec];
+    tyt::unpack(tile[i], v);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float d = v[j] - m[j];
+      acc[j] += d * d;
+    }
+  }
+  span_group_sums<kVec, kBlock>(acc, nv, p.span, cgw, ngs, part, squares);
+  cluster.sync();
+  const int g0 = c0 / cgw;
+  for (int g = threadIdx.x; g < ngs; g += kBlock) {
+    float s = 0.f;
+    for (int r = 0; r < p.cluster; ++r) {
+      s += cluster.map_shared_rank(squares, r)[g];
+    }
+    const float iv = rsqrtf(s / n + eps);
+    inv[g] = iv;
+    if (rank == 0) {
+      float* st = stats + (static_cast<size_t>(b) * p.groups + g0 + g) * 2;
+      st[0] = mean[g];
+      st[1] = iv;
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) a[j] *= inv[(col * kVec + j) / cgw];
+  T* ys = y + first;
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    float v[kVec];
+    tyt::unpack(tile[i], v);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[j] = (v[j] - m[j]) * a[j] + bi[j];
+    tyt::store16(ys + static_cast<size_t>(i >> nv_shift) * p.c, tyt::pack(v));
+  }
+  cluster_wait();
+}
+
+bool valid_one_pass(int batch, const OnePass& p, int itemsize, int smem) {
+  if (batch <= 0 || p.hw <= 0 || p.c <= 0 || p.groups <= 0 ||
+      p.c % p.groups != 0) {
+    return false;
+  }
+  if (p.span <= 0 || p.c % p.span != 0 || p.span % p.cg() != 0) return false;
+  const int bytes = p.span * itemsize;
+  const int nv = bytes / 16;
+  if (bytes % 32 != 0 || (p.threads != 128 && p.threads != 256) ||
+      nv > p.threads || (nv & (nv - 1)) != 0) {
+    return false;
+  }
+  if (p.cluster < 1 || p.cluster > kMaxCluster || p.rows <= 0) return false;
+  if (static_cast<long long>(p.cluster - 1) * p.rows >= p.hw ||
+      static_cast<long long>(p.cluster) * p.rows < p.hw) {
+    return false;
+  }
+  if (static_cast<long long>(batch) * (p.c / p.span) * p.cluster > INT_MAX) {
+    return false;
+  }
+  const size_t need = one_pass_smem(p, itemsize);
+  return need <= static_cast<size_t>(kMaxSmem) &&
+         static_cast<size_t>(smem) == need;
+}
+
+// Whether a cluster of this launch can be resident at all
+// (cudaOccupancyMaxActiveClusters > 0), memoised by kernel, cluster size
+// and shared memory, so that a call inside a graph capture asks nothing.
+struct Schedulable {
+  const void* kernel;
+  unsigned cluster;
+  size_t smem;
+};
+
+template <typename Kernel>
+cudaError_t co_schedulable(Kernel kernel, const cudaLaunchConfig_t& config,
+                           bool* ok) {
+  static std::mutex lock;
+  static std::vector<Schedulable> known;
+  const Schedulable key{reinterpret_cast<const void*>(kernel),
+                        config.attrs[0].val.clusterDim.x,
+                        config.dynamicSmemBytes};
+  std::lock_guard<std::mutex> guard(lock);
+  for (const Schedulable& k : known) {
+    if (k.kernel == key.kernel && k.cluster == key.cluster &&
+        k.smem == key.smem) {
+      *ok = true;
+      return cudaSuccess;
+    }
+  }
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel,
+                                                         &config);
+  if (err != cudaSuccess) return err;
+  *ok = clusters > 0;
+  if (*ok) known.push_back(key);
+  return cudaSuccess;
+}
+
+template <typename T, int kBlock>
+int launch_one_pass(const void* x, const float* scale, const float* bias,
+                    void* y, float* stats, int batch, const OnePass& p,
+                    int smem, float eps, cudaStream_t stream) {
+  auto kernel = groupnorm_fwd_kernel<T, kBlock>;
+  // The ceiling once, at the most a block can have: a lower one set later
+  // would refuse a graph captured earlier at a larger tile.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = p.cluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * (p.c / p.span) * p.cluster);
+  config.blockDim = dim3(kBlock);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  bool ok = false;
+  const cudaError_t err = co_schedulable(kernel, config, &ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(x), scale, bias,
+      static_cast<T*>(y), stats, p, eps));
+}
+
+template <typename T>
+int forward_one_pass(const void* x, const float* scale, const float* bias,
+                     void* y, float* stats, int batch, const OnePass& p,
+                     int smem, float eps, cudaStream_t stream) {
+  return p.threads == 128
+             ? launch_one_pass<T, 128>(x, scale, bias, y, stats, batch, p,
+                                       smem, eps, stream)
+             : launch_one_pass<T, 256>(x, scale, bias, y, stats, batch, p,
+                                       smem, eps, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Forward and dx, two launches
+// ---------------------------------------------------------------------------
 
 struct Shape {
   int hw, c, groups, rows_per_chunk, chunks;
@@ -254,24 +597,45 @@ bool valid(int batch, const Shape& s) {
 }  // namespace
 
 // x, y [B, HW, C] in x's dtype; scale, bias [C] f32; stats [B, G, 2] f32
-// (written: mean, inv); partials [B, chunks, G, 2] f32 scratch.
+// (written: mean, inv). The plan is groupnorm_plan's: chunks == 0 is the
+// one-pass launch (clusters of `cluster` blocks of `threads` threads
+// over `span` channels, `rows` rows and `smem` bytes a block; partials
+// unused), else the two launches over `chunks` chunks of `rows` rows with
+// partials [B, chunks, G, 2] f32 scratch (span == C, cluster 1, threads
+// 256, smem 0).
 extern "C" int tyt_groupnorm(const void* x, const float* scale,
                              const float* bias, void* y, float* stats,
                              float* partials, int batch, int hw, int c,
-                             int groups, int rows_per_chunk, int chunks,
-                             float eps, int dtype, void* stream) {
-  const Shape s{hw, c, groups, rows_per_chunk, chunks};
-  if (!valid(batch, s)) return static_cast<int>(cudaErrorInvalidValue);
+                             int groups, int span, int cluster, int rows,
+                             int chunks, int threads, int smem, float eps,
+                             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == tyt::kBFloat16) {
-    return forward<__nv_bfloat16>(x, scale, bias, y, stats, partials, batch,
-                                  s, eps, st);
+  if (dtype != tyt::kBFloat16 && dtype != tyt::kFloat32) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == tyt::kFloat32) {
-    return forward<float>(x, scale, bias, y, stats, partials, batch, s, eps,
-                          st);
+  const bool bf16 = dtype == tyt::kBFloat16;
+  if (chunks == 0) {
+    const OnePass p{hw, c, groups, span, cluster, rows, threads};
+    const int itemsize = bf16 ? 2 : 4;
+    if (!valid_one_pass(batch, p, itemsize, smem) ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return bf16 ? forward_one_pass<__nv_bfloat16>(x, scale, bias, y, stats,
+                                                  batch, p, smem, eps, st)
+                : forward_one_pass<float>(x, scale, bias, y, stats, batch, p,
+                                          smem, eps, st);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{hw, c, groups, rows, chunks};
+  if (!valid(batch, s) || span != c || cluster != 1 || threads != kThreads ||
+      smem != 0 || partials == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return bf16 ? forward<__nv_bfloat16>(x, scale, bias, y, stats, partials,
+                                       batch, s, eps, st)
+              : forward<float>(x, scale, bias, y, stats, partials, batch, s,
+                               eps, st);
 }
 
 // g (the cotangent of y) and dx have x's dtype; stats are the forward's.

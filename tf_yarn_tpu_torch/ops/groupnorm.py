@@ -11,9 +11,18 @@ inv) so the backward does not recompute them; dx comes from the dx kernel
 of the same file (replacing `_groupnorm_bwd_dx_kernel`); dscale = Σ g·norm
 and dbias = Σ g stay plain torch reductions, as the JAX package leaves
 them to XLA. CUDA tensors launch the kernels (counted in
-``groupnorm.launches`` and ``groupnorm_bwd_dx.launches``; each counted
-call is two CUDA launches, a reduction and an apply pass), CPU tensors
+``groupnorm.launches`` and ``groupnorm_bwd_dx.launches``), CPU tensors
 take the plain versions the tests hold against the JAX package.
+
+`groupnorm_plan`, a pure function of the shape, picks how the forward
+covers a slab. Where a span of whole groups, a multiple of 32 bytes
+wide, fits a thread-block cluster of at most 8 blocks of 227 KB (every
+ResNet-50 shape, in bf16 and f32), a counted call is one CUDA launch
+that reads x once: the cluster holds the span's rows in shared memory
+and normalises them in one pass. Otherwise (a slab as large as
+``[1, 256², 64]``, or channels no 32-byte span divides) it is two
+launches, a reduction and an apply pass, as every dx call is. Nothing
+gives way to the plain version on a CUDA tensor.
 
 Layout: the kernels read x as contiguous ``[B, HW, C]``. A channels-last
 NCHW tensor seen as NHWC (``x.permute(0, 2, 3, 1)``) is contiguous and is
@@ -26,7 +35,7 @@ to f32 rounding.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -34,9 +43,104 @@ from tf_yarn_tpu_torch.ops import _build
 
 # Per-group sums live in the reduction kernel's shared memory (2·G f32).
 MAX_GROUPS = 4096
-# Elements of a slab each block covers: ~64 K, so the ResNet-50 slabs
-# (100 K – 800 K elements an image) split into 2–13 chunks an image.
+# The one-pass kernel's limits on the H100 (csrc/groupnorm.cu).
+MAX_CLUSTER = 8          # the portable cluster size
+MAX_SMEM = 232448        # 227 KB of shared memory a block
+_SMS = 132
+# Its tiles: ~32 KB a block where the cluster has room, so several blocks
+# share an SM and one's loads overlap another's arithmetic; up to ~100 KB
+# where a span of _SPAN_BYTES (128 bytes: whole DRAM lines of each row)
+# needs them. A tile under 16 KB widens its span while the grid keeps
+# four blocks an SM. A block of 48 KB or more runs 256 threads, else 128.
+_TILE_TARGET = 32 * 1024
+_TILE_MAX = 100 * 1024
+_SPAN_BYTES = 128
+_TILE_MIN = 16 * 1024
+_MIN_BLOCKS = 4 * _SMS
+_LARGE_TILE = 48 * 1024
+BLOCKS = (128, 256)
+# The two-launch path: elements of a slab each block covers.
 _CHUNK_ELEMENTS = 65536
+
+
+class GroupNormPlan(NamedTuple):
+    """How the forward covers a ``[B, HW, C]`` slab.
+
+    One pass (``chunks == 0``): a cluster of ``cluster`` blocks of
+    ``threads`` threads owns one (image, ``span`` channels); each block
+    holds ``rows`` rows of the span in ``smem`` bytes of shared memory.
+    Two launches (``chunks > 0``): blocks of 256 threads over ``rows``
+    rows, ``chunks`` an image (``span`` is C, ``cluster`` 1, ``smem``
+    0)."""
+    span: int
+    cluster: int
+    rows: int
+    chunks: int
+    threads: int
+    smem: int
+
+    @property
+    def one_pass(self) -> bool:
+        return self.chunks == 0
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.one_pass else 2
+
+
+def _spans(c: int, cg: int, itemsize: int) -> List[int]:
+    """Channel spans the one-pass kernel takes, narrowest first: whole
+    groups, dividing C, a multiple of 32 bytes, and a power-of-two count
+    of 16-byte vectors no larger than a block."""
+    out = []
+    for span in range(cg, c + 1, cg):
+        nbytes = span * itemsize
+        nv = nbytes // 16
+        if (c % span == 0 and nbytes % 32 == 0 and nv <= min(BLOCKS)
+                and nv & (nv - 1) == 0):
+            out.append(span)
+    return out
+
+
+def one_pass_smem(rows: int, span: int, cg: int, itemsize: int,
+                  threads: int) -> int:
+    """Shared memory a one-pass block uses: its [rows, span] tile, the
+    reduction's per-channel partials and four per-group f32 vectors
+    (csrc/groupnorm.cu:one_pass_smem)."""
+    nv = span * itemsize // 16
+    slots = threads // 32 if nv < 32 else threads // nv
+    return rows * span * itemsize + (slots * span + 4 * (span // cg)) * 4
+
+
+def groupnorm_plan(b: int, hw: int, c: int, groups: int,
+                   itemsize: int) -> GroupNormPlan:
+    """The forward's plan for x ``[b, hw, c]`` (hw >= 1) of `itemsize`
+    bytes an element, from the shape alone. The narrowest span, widened
+    while it is under 128 bytes and 8 tiles of ~100 KB hold the wider
+    one, or while its tile is under 16 KB and the grid keeps four blocks
+    an SM; as many blocks a cluster as ~32 KB tiles need, at most 8; one
+    pass when a block's share fits 227 KB, else two launches."""
+    cg = c // groups
+    spans = _spans(c, cg, itemsize)
+    if spans:
+        span = spans[0]
+        for wider in spans[1:]:
+            narrow = (span * itemsize < _SPAN_BYTES
+                      and hw * wider * itemsize <= MAX_CLUSTER * _TILE_MAX)
+            small = (hw * span * itemsize < _TILE_MIN
+                     and b * (c // wider) >= _MIN_BLOCKS)
+            if not (narrow or small):
+                break
+            span = wider
+        tile = hw * span * itemsize
+        cluster = min(MAX_CLUSTER, max(1, -(-tile // _TILE_TARGET)))
+        rows = -(-hw // cluster)
+        threads = BLOCKS[rows * span * itemsize >= _LARGE_TILE]
+        smem = one_pass_smem(rows, span, cg, itemsize, threads)
+        if smem <= MAX_SMEM:
+            return GroupNormPlan(span, -(-hw // rows), rows, 0, threads, smem)
+    rows = max(1, min(hw, _CHUNK_ELEMENTS // c))
+    return GroupNormPlan(c, 1, rows, -(-hw // rows), 256, 0)
 
 
 def _check_groups(x: torch.Tensor, groups: int) -> None:
@@ -107,8 +211,8 @@ def _slab(x: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def _check_cuda(x: torch.Tensor, groups: int, **vectors: torch.Tensor):
-    """The kernel's preconditions; returns (B, HW, C, rows per chunk,
-    chunks) and the [C] vectors as contiguous f32."""
+    """The kernel's preconditions; returns (B, HW, C) and the [C] vectors
+    as contiguous f32."""
     _check_groups(x, groups)
     _build.require_cuda("x", x, _build.DTYPE_CODES)
     if x.dim() < 2:
@@ -125,9 +229,7 @@ def _check_cuda(x: torch.Tensor, groups: int, **vectors: torch.Tensor):
         v = v.detach().float().contiguous()
         _build.require_cuda(name, v, (torch.float32,))
         out.append(v)
-    rows_per_chunk = max(1, min(hw, _CHUNK_ELEMENTS // c))
-    chunks = -(-hw // rows_per_chunk)
-    return (b, hw, c, rows_per_chunk, chunks), out
+    return (b, hw, c), out
 
 
 def groupnorm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -139,19 +241,24 @@ def groupnorm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not x.is_cuda:
         stats = groupnorm_stats_reference(x, groups, eps)
         return _affine(x, stats, scale, bias, groups), stats
-    (b, hw, c, rows_per_chunk, chunks), (scale, bias) = _check_cuda(
-        x, groups, scale=scale, bias=bias)
+    (b, hw, c), (scale, bias) = _check_cuda(x, groups, scale=scale, bias=bias)
     y = torch.empty_like(x)
     stats = torch.empty(b, groups, 2, dtype=torch.float32, device=x.device)
     if hw == 0:
         return y, stats.zero_()
-    partials = torch.empty(b, chunks, groups, 2, dtype=torch.float32,
-                           device=x.device)
+    plan = groupnorm_plan(b, hw, c, groups, x.element_size())
+    partials = None
+    if not plan.one_pass:
+        partials = torch.empty(b, plan.chunks, groups, 2, dtype=torch.float32,
+                               device=x.device)
+    elif x.data_ptr() % 16:
+        x = x.clone()  # the 16-byte loads need an aligned slab
     lib = _build.load_library()
     status = lib.tyt_groupnorm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), partials.data_ptr(), b, hw, c, groups,
-        rows_per_chunk, chunks, float(eps), _build.DTYPE_CODES[x.dtype],
+        stats.data_ptr(), None if partials is None else partials.data_ptr(),
+        b, hw, c, groups, plan.span, plan.cluster, plan.rows, plan.chunks,
+        plan.threads, plan.smem, float(eps), _build.DTYPE_CODES[x.dtype],
         _build.stream_handle(x.device),
     )
     _build.check(status, "groupnorm")
@@ -168,8 +275,7 @@ def groupnorm_bwd_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     if not x.is_cuda:
         return groupnorm_bwd_dx_reference(x, g, scale, stats, groups)
     g = g.contiguous()
-    (b, hw, c, rows_per_chunk, chunks), (scale,) = _check_cuda(x, groups,
-                                                          scale=scale)
+    (b, hw, c), (scale,) = _check_cuda(x, groups, scale=scale)
     _build.require_cuda("g", g, _build.DTYPE_CODES)
     if g.shape != x.shape:
         raise ValueError(f"g must have x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
@@ -180,6 +286,8 @@ def groupnorm_bwd_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     dx = torch.empty_like(x)
     if hw == 0:
         return dx
+    rows_per_chunk = max(1, min(hw, _CHUNK_ELEMENTS // c))
+    chunks = -(-hw // rows_per_chunk)
     partials = torch.empty(b, chunks, groups, 2, dtype=torch.float32,
                            device=x.device)
     lib = _build.load_library()
