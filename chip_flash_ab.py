@@ -1,6 +1,6 @@
 """Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dkv|gn_fwd|ln_dx] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|ln_dx] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
@@ -8,9 +8,10 @@ directory that .gitignore lists). The roots are timed in the order
 given, each in a process of its own that builds that copy's kernels:
 pass parent, change, change, parent to compare two versions on one
 card. `--pass` picks the kernel:
-- `fwd` (the default): the bf16 flash forward `flash_fwd`, and `dkv` the
-  backward's `flash_dkv`, at the training slice's shape (B 1, S 2048,
-  H 32, Hkv 8, D 128, causal, bf16, the seed of `chip_smoke.check_flash`);
+- `fwd` (the default): the bf16 flash forward `flash_fwd`, `dq` and
+  `dkv` the backward's `flash_dq` and `flash_dkv`, at the training
+  slice's shape (B 1, S 2048, H 32, Hkv 8, D 128, causal, bf16, the seed
+  of `chip_smoke.check_flash`);
 - `gn_fwd`: the GroupNorm forward `groupnorm_forward` at ResNet-50's 12
   slab shapes (`chip_smoke.RESNET50_GN`: batch 128, 32 groups, bf16),
   each shape's time and the launch-weighted sum of its 53 calls a step;
@@ -19,8 +20,8 @@ card. `--pass` picks the kernel:
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dkv and gn_fwd also whether two calls
-gave bitwise-equal outputs) and the card's name and power limit.
+against the plain versions (for dq, dkv and gn_fwd also whether two
+calls gave bitwise-equal outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -67,6 +68,16 @@ def _time_flash(torch, smoke, kernel: str) -> dict:
         touched = 2 * qb + 2 * kvb
         found = {"o_rel_err": _rel(out, ref_out),
                  "lse_max_abs_err": float((lse - ref_lse).abs().max())}
+    elif kernel == "dq":
+        delta = flash.flash_delta(ref_out, dout)
+        args = (q, k, v, dout, ref_lse, delta)
+        dq, dq2 = flash.flash_dq(*args), flash.flash_dq(*args)
+        ref_dq = flash.flash_dq_reference(*args)
+        torch.cuda.synchronize()
+        fn = flash.flash_dq
+        touched = 3 * qb + 2 * kvb + 2 * stat
+        found = {"dq_rel_err": _rel(dq, ref_dq),
+                 "bitwise_equal": bool(torch.equal(dq, dq2))}
     else:
         delta = flash.flash_delta(ref_out, dout)
         args = (q, k, v, dout, ref_lse, delta)
@@ -151,7 +162,7 @@ def _time_ln_dx(torch, smoke) -> dict:
     return {"shapes": shapes}
 
 
-PASSES = ("fwd", "dkv", "gn_fwd", "ln_dx")
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "ln_dx")
 
 
 def time_one(root: Path, kernel: str) -> dict:

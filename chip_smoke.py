@@ -432,8 +432,10 @@ def check_flash(torch, ops, dev):
     delta = flash.flash_delta(ref_out, dout)
     dq = flash.flash_dq(q, k, v, dout, ref_lse, delta)
     dk, dv = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
-    # dk/dv's two blocks a kv tile meet in whichever order they finish:
-    # a second call must give the same bits.
+    # dk/dv's two blocks a kv tile meet in whichever order they finish,
+    # and dq's blocks add no atomics: a second call must give the same
+    # bits.
+    dq2 = flash.flash_dq(q, k, v, dout, ref_lse, delta)
     dk2, dv2 = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
     ref_dq = flash.flash_dq_reference(q, k, v, dout, ref_lse, delta)
     ref_dk, ref_dv = flash.flash_dkv_reference(q, k, v, dout, ref_lse, delta)
@@ -462,9 +464,11 @@ def check_flash(torch, ops, dev):
             raise AssertionError(f"{name}: block rel err {rel} > {tol}")
         return worst, rel
 
+    if not torch.equal(dq, dq2):
+        raise AssertionError("flash_dq: two calls gave different dq")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError("flash_dkv: two calls gave different dk or dv")
-    log("  dk, dv: two calls bitwise equal")
+    log("  dq, dk, dv: two calls bitwise equal")
     lse_err = float((lse - ref_lse).abs().max())
     log(f"  lse: max abs err {lse_err:.3g} (bound {lse_tol})")
     if not lse_err <= lse_tol:
@@ -477,6 +481,7 @@ def check_flash(torch, ops, dev):
                   "block_rel_err": max(found[n][1] for n in names)}
             for key, names in pick.items()}
     errs["fwd"]["lse_max_abs_err"] = lse_err
+    errs["dq"]["bitwise_deterministic"] = True
     errs["dkv"]["bitwise_deterministic"] = True
     live = _live_pairs(s, s)
     qb = q.numel() * 2
@@ -1300,6 +1305,13 @@ def burst(port: int, prompts, new_tokens: int):
     return results, wall
 
 
+# The hand-written kernels' names as the profiler shows them (with their
+# template arguments), whatever their place among the top kernels.
+PORT_KERNEL = re.compile(r"(flash_\w+|groupnorm_\w+|layernorm_\w+|rmsnorm_\w+"
+                         r"|quantize_int8_kernel|split_kernel|combine_kernel)"
+                         r"(<[^>(]*>)?")
+
+
 def device_profile(torch, run):
     """`run()` under torch.profiler: the device's busy share of the wall
     time and the kernels that took most device time. Only device-side
@@ -1328,12 +1340,16 @@ def device_profile(torch, run):
     busy_s = sum(us for us, _count, _key in rows) / 1e6
     if busy_s <= 0:
         raise AssertionError("the profiler saw no device time")
+    port = [(PORT_KERNEL.search(key), us, count) for us, count, key in rows
+            if "at::native" not in key]
     return {
         "wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1 - busy_s / wall,
         "top_kernels": [{"name": key[:80], "ms": us / 1e3, "calls": count}
                         for us, count, key in rows[:8]],
+        "port_kernels": [{"name": found.group(0), "ms": us / 1e3, "calls": count}
+                         for found, us, count in port if found],
     }
 
 

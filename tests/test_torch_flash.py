@@ -66,6 +66,35 @@ def test_plain_flash_matches_jax_forward_and_vjp(case):
         assert not tk.grad[:, s_q:].any() and not tv.grad[:, s_q:].any()
 
 
+def test_plain_bf16_flash_vjp_matches_jax():
+    """bf16 on both sides: the JAX vjp rounds p and ds to the operands'
+    dtype where the port's plain versions do (ds to K's before ds.K for
+    dq, to q's for dk; p to dO's for dv), which the card tests' bf16
+    tolerance relies on."""
+    from tf_yarn_tpu.ops.flash_attention import flash_attention
+
+    q, k, v, g = _inputs(128, 128, 4, 2, seed=3, head_dim=64)
+    q, k, v, g = (a[:1] for a in (q, k, v, g))
+    _, vjp = jax.vjp(
+        lambda q, k, v: flash_attention(q, k, v, causal=True, block_q=64,
+                                        block_k=64),
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    grads = vjp(jnp.asarray(g, jnp.bfloat16))
+
+    bf = lambda a: torch.tensor(a).to(torch.bfloat16)
+    tq, tk, tv = (bf(a).requires_grad_() for a in (q, k, v))
+    t_flash.flash_attention(tq, tk, tv, causal=True, block_q=64,
+                            block_k=64).backward(bf(g))
+    # Both sides round at the same points from the same bf16 inputs; what
+    # is left is f32 sums in another order and the ulps of bf16 roundings
+    # those move: 1e-2 of the reference's norm.
+    for name, t, ref in zip("qkv", (tq, tk, tv), grads):
+        got = t.grad.float().numpy()
+        ref = np.asarray(ref.astype(jnp.float32))
+        err = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert err <= 1e-2, f"d{name}: relative error norm {err}"
+
+
 def test_plain_lse_matches_jax_residual():
     """The LSE the forward saves is the JAX residual's first lane (the TPU
     kernel replicates it over 128 lanes; the port keeps [B·H, S])."""

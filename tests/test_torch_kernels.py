@@ -253,9 +253,10 @@ def test_cuda_model_norms_always_launch_the_kernel(cuda, fused_norms):
 
 
 # (batch, s_q, s_kv, n_heads, n_kv, head_dim, causal): GQA groups 1, 4
-# and 8; a tail that is not a multiple of the 64-row tile of dq and dk/dv;
-# Skv > S (kv tiles with no live q row) and Skv < S; non-causal; head_dim
-# 64 and 128.
+# and 8; tails that are not a multiple of the kernels' tiles (128 q rows
+# of the forward and of dq, 64 kv rows of a dq step, 64 q rows of a dk/dv
+# step); Skv > S (kv tiles with no live q row) and Skv < S; non-causal;
+# head_dim 64 and 128.
 FLASH_CASES = {
     "g1_d128": (1, 256, 256, 8, 8, 128, True),
     "g4_d64_tail": (2, 96, 96, 8, 2, 64, True),
@@ -276,6 +277,11 @@ FLASH_CASES = {
     "dkv_g1_d128_even_q_tiles": (1, 384, 384, 4, 4, 128, True),
     "dkv_g1_d64_odd_q_tiles": (1, 320, 320, 2, 2, 64, True),
     "dkv_g4_d64_b2_noncausal": (2, 192, 256, 8, 2, 64, False),
+    # dq's 128-row q tiles over 64-row kv steps: a q tail one row past the
+    # first tile (its second tile's upper warpgroup holds no row), and a
+    # tail inside the third tile with Skv < S, not a multiple of 64.
+    "dq_g1_d64_q_tail_row": (1, 130, 250, 2, 2, 64, True),
+    "dq_g4_d128_tail_tile3_skv_lt_s": (1, 300, 260, 8, 2, 128, True),
 }
 
 
@@ -352,6 +358,20 @@ def test_cuda_flash_dkv_is_bitwise_deterministic(cuda, head_dim):
     for _ in range(3):
         again = t_flash.flash_dkv(q, k, v, dout, ref_lse, delta, True)
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_cuda_flash_dq_is_bitwise_deterministic(cuda, head_dim):
+    # A q tile's dq is summed by one block over its own kv steps, with no
+    # atomics and no partials: repeated calls may not vary.
+    q, k, v, dout = _flash_inputs(cuda, 1, 512, 512, 8, 2, head_dim,
+                                  torch.bfloat16)
+    ref_out, ref_lse = t_flash.flash_fwd_reference(q, k, v, True)
+    delta = t_flash.flash_delta(ref_out, dout)
+    first = t_flash.flash_dq(q, k, v, dout, ref_lse, delta, True)
+    for _ in range(3):
+        again = t_flash.flash_dq(q, k, v, dout, ref_lse, delta, True)
+        assert torch.equal(first, again)
 
 
 def test_cuda_flash_autograd_launches_every_kernel(cuda):

@@ -21,8 +21,9 @@
 //
 // Bound on the H100 at the training shapes (S = 2048, D = 128): tensor-
 // core operations, ~300 flops per byte moved. The causal forward at B 1,
-// H 32 is 34.4 GFLOP: 34.76 us at the card's 989 bf16 TFLOP/s; dk/dv's
-// four products are 68.7 GFLOP: 69.52 us.
+// H 32 is 34.4 GFLOP: 34.76 us at the card's 989 bf16 TFLOP/s; dq's
+// three products are 51.6 GFLOP: 52.14 us; dk/dv's four 68.7 GFLOP:
+// 69.52 us.
 //
 // bf16 forward (FlashAttention-3's shape, without its ping-pong): one block
 // of three warpgroups per (batch*head, 128-row q tile), one block per SM.
@@ -64,14 +65,21 @@
 // bitwise the same from call to call; nothing adds into the outputs
 // atomically.
 //
-// bf16 dq (the ordinary FlashAttention-2 shape): one block of 4 warps per
-// (batch*head, 64-row q tile); each warp owns 16 rows and runs
-// mma.sync.m16n8k16 bf16 products with f32 accumulators, the
-// probabilities staying in registers between the two products of a step.
-// K/V come through shared memory, cp.async double-buffered: the next
-// tile's copies are in flight while the current one is computed.
-// Fragments come from shared memory by ldmatrix (.trans for V and for K
-// in ds.K), on rows padded by 8 elements so each tile hits 32 banks.
+// bf16 dq (dk/dv's shape with the roles of the two sequences swapped):
+// one block of three warpgroups per (batch*head, 128-row q tile), one
+// block per SM, heaviest causal tiles first. A producer warp loads Q and
+// dO once by TMA (128-row boxes), then streams the kv head's K and V in
+// 64-row boxes through a two-stage ring; dead causal kv tiles are never
+// loaded. The consumer warpgroups (setmaxnreg 232) each own 64 q rows
+// and hold their LSE and delta in registers; per step S = Q.K^T and
+// dP = dO.V^T by wgmma m64n64k16 from shared memory, P = exp2(S scale
+// log2 e - lse log2 e) on the accumulator while dP runs, dS = P (dP -
+// delta) packed to bf16 in registers as A, then dq += dS.K by wgmma
+// m64nDk16 with K MN-major under the transpose bit. Registers a consumer
+// thread holds at D 128: dq 64 + S 32 + dP 32 f32 + dS 16. A q tile's dq
+// sums only over the kv tiles its own block walks, so nothing is split
+// and nothing is added atomically: dq is bitwise the same from call to
+// call. The epilogue stages dq through shared memory for 16-byte rows.
 //
 // Every bf16 kernel keeps logits in log2 units (scale * log2 e folded into
 // one multiply) so each exponential is one exp2, evaluates the mask only
@@ -91,9 +99,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;  // f32 kernels: one row a warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // q rows of a dq block; kv rows of its K/V tiles
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -117,140 +124,10 @@ struct FlashArgs {
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// ---------------------------------------------------------------------------
-// bf16: cp.async tiles and mma.sync fragments
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + ROWS) of a strided [rows, D] bf16 source into a shared
-// tile of row stride D + 8; rows at or past `limit` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          size_t row_stride, int r0,
-                                          int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool valid = r0 + r < limit;
-    const bf16* src = valid ? base + static_cast<size_t>(r0 + r) * row_stride + c * 8
-                            : base;
-    cp_async16(dst + r * (D + 8) + c * 8, src, valid);
-  }
-}
-
 // Round two f32 to bf16 (nearest even) and pack them, lo in the low half.
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ldmatrix: four 8x8 bf16 tiles per instruction, each lane giving the
-// address of one tile row (16 bytes; shared rows of D + 8 elements put
-// the 8 rows of a tile on 32 distinct banks). `.trans` transposes each
-// tile, which turns a row-major [k][n] operand into B fragments.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// A fragment of rows [row0, row0 + 16), columns [k0, k0 + 16) of a
-// row-major shared tile of stride LD.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int row0, int k0, int lane) {
-  ldsm_x4(a, s + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
-}
-
-// C[16, NT*8] += A[16, KD] . B^T, A rows [row0, row0+16) of shared sa,
-// B the first NT*8 rows of shared sb (both of depth KD, stride LD).
-template <int NT, int KD, int LD>
-__device__ __forceinline__ void mm_nt(float (&c)[NT][4], const bf16* sa,
-                                      int row0, const bf16* sb, int lane) {
-  const bf16* b_lane = sb + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                       ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kc = 0; kc < KD / 16; ++kc) {
-    uint32_t a[4];
-    load_a<LD>(a, sa, row0, kc * 16, lane);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_lane + np * 16 * LD + kc * 16);
-      mma(c[2 * np], a, b[0], b[1]);
-      mma(c[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// C[16, NT*8] += P[16, KC*16] . B with P in registers (packed fragments)
-// and B[k][n] the shared tile's row k, column n.
-template <int NT, int KC, int LD>
-__device__ __forceinline__ void mm_rn(float (&c)[NT][4],
-                                      const uint32_t (&pa)[KC][4],
-                                      const bf16* sb, int lane) {
-  const bf16* b_lane = sb + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                       (lane >> 4) * 8;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_lane + kc * 16 * LD + np * 16);
-      mma(c[2 * np], pa[kc], b[0], b[1]);
-      mma(c[2 * np + 1], pa[kc], b[2], b[3]);
-    }
-  }
-}
-
-// The accumulator fragments of a [16, 2*KC*8] f32 tile, rounded to bf16,
-// as the A fragments of the next product (FlashAttention-2's register
-// reuse: the C layout of two n-tiles is the A layout of one k-chunk).
-template <int KC>
-__device__ __forceinline__ void pack_acc(uint32_t (&pa)[KC][4],
-                                         const float (&s)[2 * KC][4]) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    pa[kc][0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-    pa[kc][1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-    pa[kc][2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-    pa[kc][3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -261,38 +138,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ bool live(int q, int k, const FlashArgs& p) {
-  return q < p.s_q && k < p.s_kv && (!p.causal || q >= k);
-}
-
-// kv tiles a q tile ending (exclusive) at q_end attends to.
-__device__ __forceinline__ int kv_tiles(int q_end, const FlashArgs& p) {
-  int n = ceil_div(p.s_kv, kTile);
-  if (p.causal) n = min(n, ceil_div(q_end, kTile));
-  return n;
-}
-
-// Stores a warp's 16-row accumulator tile, times `mul` per row, as bf16
-// rows of a strided [rows, D] destination (rows >= limit skipped).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, size_t row_stride,
-                                           const float (&acc)[D / 8][4],
-                                           int r_lo, int limit, float mul_lo,
-                                           float mul_hi, int t) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (r_lo < limit) {
-      *reinterpret_cast<uint32_t*>(base + r_lo * row_stride + col) =
-          pack_f32(acc[dn][0] * mul_lo, acc[dn][1] * mul_lo);
-    }
-    if (r_lo + 8 < limit) {
-      *reinterpret_cast<uint32_t*>(base + (r_lo + 8) * row_stride + col) =
-          pack_f32(acc[dn][2] * mul_hi, acc[dn][3] * mul_hi);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -716,92 +561,6 @@ flash_fwd_bf16(const __grid_constant__ FwdParams p) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_bf16(FlashArgs p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_do = s_q + kTile * LD;
-  bf16* s_k = s_do + kTile * LD;     // two buffers
-  bf16* s_v = s_k + 2 * kTile * LD;  // two buffers
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int hk = h / p.group;
-  // Causal work grows with the q tile: launch the heaviest tiles first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const size_t q_stride = static_cast<size_t>(p.heads) * D;
-  const size_t kv_stride = static_cast<size_t>(p.kv_heads) * D;
-  const size_t q_off = (static_cast<size_t>(b) * p.s_q * p.heads + h) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * p.s_kv * p.kv_heads + hk) * D;
-  const bf16* kb = static_cast<const bf16*>(p.k) + kv_off;
-  const bf16* vb = static_cast<const bf16*>(p.v) + kv_off;
-  const int n_tiles = kv_tiles(min(q0 + kTile, p.s_q), p);
-
-  load_tile<D, kTile>(s_q, static_cast<const bf16*>(p.q) + q_off, q_stride, q0, p.s_q);
-  load_tile<D, kTile>(s_do, static_cast<const bf16*>(p.dout) + q_off, q_stride, q0, p.s_q);
-  load_tile<D, kTile>(s_k, kb, kv_stride, 0, p.s_kv);
-  load_tile<D, kTile>(s_v, vb, kv_stride, 0, p.s_kv);
-  cp_async_commit();
-
-  const int row0 = warp * 16;
-  const int r_lo = q0 + row0 + g, r_hi = r_lo + 8;
-  const float* lse = p.lse_in + static_cast<size_t>(bh) * p.s_q;
-  const float* delta = p.delta + static_cast<size_t>(bh) * p.s_q;
-  const float scale_log2 = p.scale * kLog2e;
-  const float lse_r[2] = {r_lo < p.s_q ? lse[r_lo] * kLog2e : 0.f,
-                          r_hi < p.s_q ? lse[r_hi] * kLog2e : 0.f};
-  const float dl_r[2] = {r_lo < p.s_q ? delta[r_lo] : 0.f, r_hi < p.s_q ? delta[r_hi] : 0.f};
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      const int nb = (it + 1) & 1;
-      load_tile<D, kTile>(s_k + nb * kTile * LD, kb, kv_stride, (it + 1) * kTile, p.s_kv);
-      load_tile<D, kTile>(s_v + nb * kTile * LD, vb, kv_stride, (it + 1) * kTile, p.s_kv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ck = s_k + (it & 1) * kTile * LD;
-    const bf16* cv = s_v + (it & 1) * kTile * LD;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-    mm_nt<8, D, LD>(s, s_q, row0, ck, lane);
-    mm_nt<8, D, LD>(dp, s_do, row0, cv, lane);
-    const int k0 = it * kTile;
-    const bool edge = k0 + kTile > p.s_kv ||
-                      (p.causal && k0 + kTile - 1 > q0 + row0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float logit = s[nt][e] * scale_log2;
-        if (edge && !live(e < 2 ? r_lo : r_hi, k0 + nt * 8 + 2 * t + (e & 1), p)) {
-          logit = kNegInf;
-        }
-        const float prob = exp2f(logit - lse_r[e >> 1]);
-        s[nt][e] = prob * (dp[nt][e] - dl_r[e >> 1]);  // ds
-      }
-    }
-    uint32_t pa[4][4];
-    pack_acc<4>(pa, s);  // ds cast to K's dtype before ds.K
-    mm_rn<D / 8, 4, LD>(dq, pa, ck, lane);
-    __syncthreads();
-  }
-  bf16* dqb = static_cast<bf16*>(p.out) + q_off;
-  store_rows<D>(dqb, q_stride, dq, r_lo, p.s_q, p.scale, p.scale, t);
-}
-
 // ---------------------------------------------------------------------------
 // bf16 dk/dv: TMA loads, wgmma products, one producer warp, two blocks a
 // kv tile
@@ -1206,6 +965,254 @@ flash_dkv_bf16(const __grid_constant__ DkvParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dq: TMA loads, wgmma products, one producer warp
+// ---------------------------------------------------------------------------
+
+constexpr int kDqRows = 128;    // q rows of a block (64 per consumer)
+constexpr int kDqKvRows = 64;   // kv rows of a step: S and dP are m64n64 products
+constexpr int kDqStages = 2;    // K / V ring depth
+
+// What the dq kernel reads: the 4-D tensor maps of q and dO (128-row
+// boxes) and of k and v (kDqKvRows-row boxes), the LSE and delta, and
+// the plain pointer it writes.
+struct DqParams {
+  CUtensorMap q, dout, k, v;
+  const float* lse;
+  const float* delta;
+  bf16* dq;
+  int s_q, s_kv, heads, group;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Shared memory from a 1024-byte aligned base: Q and dO (D / 64 slabs of
+// 128 rows x 128 bytes each), then kDqStages K tiles and kDqStages V
+// tiles (slabs of kDqKvRows rows), then the barriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kSlabQ = kDqRows * 128;
+  static constexpr int kSlabKv = kDqKvRows * 128;
+  static constexpr int kTileQ = kSlabQ * (D / kSlabCols);
+  static constexpr int kTileKv = kSlabKv * (D / kSlabCols);
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kTileQ;
+  static constexpr int kK = kDo + kTileQ;
+  static constexpr int kV = kK + kDqStages * kTileKv;
+  static constexpr int kBar = kV + kDqStages * kTileKv;
+  // q_full, full[kDqStages], empty[kDqStages].
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+// One block per (batch * head, 128-row q tile), heaviest causal tiles
+// first. Warpgroup 0 is the producer: Q and dO once, then K and V of the
+// kv head through a kDqStages ring, dead causal kv tiles never loaded.
+// The two consumer warpgroups each own 64 q rows and keep dq in
+// registers: per step S = Q.K^T and dP = dO.V^T from shared memory, P on
+// S's accumulator while dP runs, dS = P (dP - delta), then dq += dS.K
+// with dS as the register A operand and K MN-major.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dq_bf16(const __grid_constant__ DqParams p) {
+  using L = DqSmem<D>;
+  constexpr int N = kDqKvRows;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBar;
+  const auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  const auto empty = [&](int s) { return q_full + 8 * (1 + kDqStages + s); };
+
+  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads;
+  const int hk = h / p.group;
+  // Causal work grows with the q tile: the grid's slow axis launches the
+  // heaviest tiles of every head first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int n_all = ceil_div(p.s_kv, N);
+  const int n_tiles = p.causal ? min(n_all, ceil_div(min(q0 + kDqRows, p.s_q), N)) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kTileQ);
+      for (int c = 0; c < D / kSlabCols; ++c) {
+        tma_load_4d(base + L::kQ + c * L::kSlabQ, &p.q, q_full, c * kSlabCols, h, q0, b);
+        tma_load_4d(base + L::kDo + c * L::kSlabQ, &p.dout, q_full, c * kSlabCols, h, q0,
+                    b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kDqStages;
+        // The first kDqStages uses of the ring find it empty.
+        mbar_wait(empty(s), ((it / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTileKv);
+        for (int c = 0; c < D / kSlabCols; ++c) {
+          tma_load_4d(base + L::kK + s * L::kTileKv + c * L::kSlabKv, &p.k, full(s),
+                      c * kSlabCols, hk, it * N, b);
+          tma_load_4d(base + L::kV + s * L::kTileKv + c * L::kSlabKv, &p.v, full(s),
+                      c * kSlabCols, hk, it * N, b);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int cw = wg - 1;  // consumer warpgroup: q rows [q0 + 64 cw, +64)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * cw;
+  const int row0 = qw0 + 16 * warp;  // this warp's first row
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  // kv tiles with a live pair for these 64 rows: none past S; under the
+  // mask, none after the last row.
+  const int n_mine = qw0 >= p.s_q ? 0
+                     : p.causal   ? min(n_all, ceil_div(min(qw0 + 64, p.s_q), N))
+                                  : n_all;
+  // This warpgroup's 64 rows of every Q and dO slab (8 KB, 1024-aligned).
+  const uint32_t q_base = base + L::kQ + cw * 64 * 128;
+  const uint32_t do_base = base + L::kDo + cw * 64 * 128;
+  const float scale_log2 = p.scale_log2;
+  // Rows past S read as zero: their Q and dO rows are zeros, so their dS
+  // is 0 and nothing of them is stored.
+  const float* lse = p.lse + static_cast<size_t>(bh) * p.s_q;
+  const float* delta = p.delta + static_cast<size_t>(bh) * p.s_q;
+  const float lse2[2] = {r_lo < p.s_q ? lse[r_lo] * kLog2e : 0.f,
+                         r_hi < p.s_q ? lse[r_hi] * kLog2e : 0.f};
+  const float dl[2] = {r_lo < p.s_q ? delta[r_lo] : 0.f, r_hi < p.s_q ? delta[r_hi] : 0.f};
+
+  float dq[D / 2];  // m64nD accumulator: element 4j + e is n8 chunk j
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kDqStages;
+    mbar_wait(full(s), (it / kDqStages) & 1);
+    // No live pair for these rows: the stage is still waited for, so the
+    // release counts in its own phase.
+    if (it >= n_mine) {
+      mbar_arrive(empty(s));
+      continue;
+    }
+    const uint32_t k_base = base + L::kK + s * L::kTileKv;
+    const uint32_t v_base = base + L::kV + s * L::kTileKv;
+
+    // S = Q.K^T and dP = dO.V^T, all K-major: stepping 16 columns inside
+    // a 128-byte swizzle row adds 32 bytes, a new slab adds its size;
+    // 8-row groups are 1024 bytes apart.
+    float sc[N / 2], dp[N / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off_q = (kk / 4) * L::kSlabQ + (kk % 4) * 32;
+      const uint32_t off_kv = (kk / 4) * L::kSlabKv + (kk % 4) * 32;
+      wgmma_ss_n64(sc, desc_sw128(q_base + off_q, 16, 1024),
+                   desc_sw128(k_base + off_kv, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off_q = (kk / 4) * L::kSlabQ + (kk % 4) * 32;
+      const uint32_t off_kv = (kk / 4) * L::kSlabKv + (kk % 4) * 32;
+      wgmma_ss_n64(dp, desc_sw128(do_base + off_q, 16, 1024),
+                   desc_sw128(v_base + off_kv, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P = exp2(S scale log2 e - lse log2 e) while dP runs. Column (kv)
+    // of element 4j + e: 8j + 2t + (e & 1); row (q): r_lo, or r_hi when
+    // e & 2. Only a tile crossing the diagonal or the kv tail takes the
+    // masked loop.
+    const int k0 = it * N;
+    const bool edge = k0 + N > p.s_kv || (p.causal && k0 + N - 1 > row0);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int k = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+        const int r = (i & 2) ? r_hi : r_lo;
+        const bool live = k < p.s_kv && (!p.causal || r >= k);
+        sc[i] = live ? exp2_ftz(sc[i] * scale_log2 - lse2[(i >> 1) & 1]) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        sc[i] = exp2_ftz(sc[i] * scale_log2 - lse2[(i >> 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS = P (dP - delta), rounded to K's dtype before dS.K. The
+    // accumulator's n8 chunks 2c and 2c + 1 are the A fragment of k16
+    // chunk c.
+    uint32_t da[N / 16][4];
+#pragma unroll
+    for (int c = 0; c < N / 16; ++c) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int i = 8 * c + 2 * f;
+        da[c][f] = pack_f32(sc[i] * (dp[i] - dl[f & 1]), sc[i + 1] * (dp[i + 1] - dl[f & 1]));
+      }
+    }
+
+    // dq += dS.K: K's tile is [kv, D] with D contiguous, MN-major for B.
+    // 16 kv rows are 2048 bytes; the next 64 columns of D are the next
+    // slab (leading offset), the next 8 kv rows 1024 bytes on (stride).
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < N / 16; ++c) {
+      wgmma_rs_nd<D>(dq, da[c], desc_sw128(k_base + c * 2048, L::kSlabKv, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(empty(s));
+  }
+  if (qw0 >= p.s_q) return;
+
+  // Epilogue: dq * scale rounded to bf16 into this warpgroup's (now
+  // free) Q rows, with the same swizzle, then 16-byte rows out to
+  // [B, S, H, D].
+  const float scale = p.scale;
+  named_sync(1 + cw, 128);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + g + 8 * half;  // of this warpgroup's 64
+      const int off = (j / 8) * L::kSlabQ + (64 * cw + row) * 128 +
+                      ((j % 8) ^ (row % 8)) * 16 + 4 * t;
+      *reinterpret_cast<uint32_t*>(smem + L::kQ + off) =
+          pack_f32(dq[4 * j + 2 * half] * scale, dq[4 * j + 2 * half + 1] * scale);
+    }
+  }
+  named_sync(1 + cw, 128);
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks, c = i % kChunks;
+    const int q = qw0 + row;
+    if (q >= p.s_q) break;  // rows only grow with i
+    const int off = (c / 8) * L::kSlabQ + (64 * cw + row) * 128 + ((c % 8) ^ (row % 8)) * 16;
+    *reinterpret_cast<uint4*>(p.dq + ((static_cast<size_t>(b) * p.s_q + q) * p.heads + h) * D +
+                              c * 8) = *reinterpret_cast<const uint4*>(smem + L::kQ + off);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: one warp per row, lanes split head_dim (element lane + 32 * j)
 // ---------------------------------------------------------------------------
 
@@ -1345,13 +1352,6 @@ flash_dkv_f32(FlashArgs p) {
 
 enum Pass { kForward, kDq, kDkv };
 
-// The bf16 dq kernel's shared memory: q, dO, two K and two V tiles of
-// 64 padded rows.
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 6 * kTile * (D + 8) * sizeof(bf16);
-}
-
 // cuTensorMapEncodeTiled, reached through the runtime so that the
 // library needs no link against libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1457,6 +1457,34 @@ int launch_dkv_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq_bf16(const FlashArgs& a, int batch, cudaStream_t stream) {
+  DqParams p;
+  if (!encode_bshd(&p.q, a.q, batch, a.s_q, a.heads, D, kDqRows) ||
+      !encode_bshd(&p.dout, a.dout, batch, a.s_q, a.heads, D, kDqRows) ||
+      !encode_bshd(&p.k, a.k, batch, a.s_kv, a.kv_heads, D, kDqKvRows) ||
+      !encode_bshd(&p.v, a.v, batch, a.s_kv, a.kv_heads, D, kDqKvRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.lse = a.lse_in;
+  p.delta = a.delta;
+  p.dq = static_cast<bf16*>(a.out);
+  p.s_q = a.s_q;
+  p.s_kv = a.s_kv;
+  p.heads = a.heads;
+  p.group = a.group;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * kLog2e;
+  p.causal = a.causal;
+  constexpr int smem = DqSmem<D>::kBytes;
+  const cudaError_t status = cudaFuncSetAttribute(
+      flash_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const dim3 grid(batch * a.heads, ceil_div(a.s_q, kDqRows));
+  flash_dq_bf16<D><<<grid, kFwdThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& args,
            cudaStream_t stream) {
@@ -1476,8 +1504,7 @@ int dispatch(Pass pass, int dtype, int batch, const FlashArgs& args,
   if (dtype == tyt::kBFloat16) {
     if (pass == kForward) return launch_fwd_bf16<D>(args, batch, stream);
     if (pass == kDkv) return launch_dkv_bf16<D>(args, batch, stream);
-    const dim3 grid(ceil_div(args.s_q, kTile), batch * args.heads);
-    return launch(flash_dq_bf16<D>, grid, dq_smem_bytes<D>(), args, stream);
+    return launch_dq_bf16<D>(args, batch, stream);
   }
   const int rows = pass == kDkv ? args.s_kv : args.s_q;
   const int bh = batch * (pass == kDkv ? args.kv_heads : args.heads);

@@ -22,10 +22,11 @@ operand dtype before each product) and mask with −1e30.
 `block_q`/`block_k` are validated as in the JAX package, but the kernels
 tile by their own rows whatever they are (Hopper's shared memory and
 registers, not the TPU's VMEM, set the tile: 128 q rows and 128-row K/V
-tiles for the bf16 forward, 128 kv rows and 64-row Q/dO tiles for bf16
-dk/dv, 64 rows elsewhere) and mask their own tails. The bf16 forward and
-dk/dv read their operands through TMA tensor maps, which need 16-byte
-aligned bases (`_operand` copies a tensor that is not). bf16 dk/dv
+tiles for the bf16 forward, 128 q rows and 64-row K/V tiles for bf16 dq,
+128 kv rows and 64-row Q/dO tiles for bf16 dk/dv, one row a warp for
+f32) and mask their own tails. The three bf16 kernels read their
+operands through TMA tensor maps, which need 16-byte aligned bases
+(`_operand` copies a tensor that is not). bf16 dk/dv
 splits each kv tile's work over two blocks whose f32 partials meet in
 scratch that `flash_dkv` allocates (the kernels allocate nothing).
 """
