@@ -1,6 +1,6 @@
 """Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|ln_dx] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
@@ -15,13 +15,18 @@ card. `--pass` picks the kernel:
 - `gn_fwd`: the GroupNorm forward `groupnorm_forward` at ResNet-50's 12
   slab shapes (`chip_smoke.RESNET50_GN`: batch 128, 32 groups, bf16),
   each shape's time and the launch-weighted sum of its 53 calls a step;
+- `gn_bwd`: the GroupNorm backward as autograd runs it
+  (`_GroupNorm.backward`: dx, dscale and dbias, all three wanted) at the
+  same 12 shapes, from the forward's statistics, so that a package whose
+  backward is a dx kernel beside plain dscale/dbias sums and one whose
+  kernels give all three are timed alike;
 - `ln_dx`: the LayerNorm dx `layernorm_bwd_dx` at BERT-base's and
   ViT-B/16's rows (`chip_smoke.LN_SHAPES`, bf16).
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dq, dkv and gn_fwd also whether two
-calls gave bitwise-equal outputs) and the card's name and power limit.
+against the plain versions (for dq, dkv, gn_fwd and gn_bwd also whether
+two calls gave bitwise-equal outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 HERE = Path(__file__).resolve().parent
 
@@ -136,6 +142,67 @@ def _time_gn_fwd(torch, smoke) -> dict:
     return {"shapes": shapes, "resnet50_step": step, "bitwise_equal": bitwise}
 
 
+def _plain_gn_bwd(torch, x, g, scale, stats, groups):
+    """dx, dscale and dbias in f32 from the forward's statistics, written
+    out here so that every root is held against the same arithmetic."""
+    b, c = x.shape[0], x.shape[-1]
+    grouped = lambda t: t.float().reshape(b, -1, groups, c // groups)
+    mean = stats[..., 0].reshape(b, 1, groups, 1)
+    inv = stats[..., 1].reshape(b, 1, groups, 1)
+    norm = (grouped(x) - mean) * inv
+    gs = grouped(g) * grouped(scale.expand_as(g))
+    dx = inv * (gs - gs.mean(dim=(1, 3), keepdim=True)
+                - norm * (gs * norm).mean(dim=(1, 3), keepdim=True))
+    return (dx.reshape(x.shape), (grouped(g) * norm).reshape(-1, c).sum(0),
+            g.float().reshape(-1, c).sum(0))
+
+
+def _time_gn_bwd(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import groupnorm as gn
+
+    groups, shapes, bitwise = smoke.GN_GROUPS, {}, True
+    step = {"cold_us": 0.0, "warm_us": 0.0, "bound_us": 0.0}
+
+    def backward(x, g, scale, stats):
+        ctx = SimpleNamespace(saved_tensors=(x, scale, stats), groups=groups,
+                              bias_dtype=torch.float32,
+                              needs_input_grad=(True, True, True, False,
+                                                False))
+        return gn._GroupNorm.backward(ctx, g)[:3]
+
+    for (side, c), calls in smoke.RESNET50_GN.items():
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + c + side)
+        x = (torch.randn(smoke.GN_BATCH, side, side, c, device="cuda",
+                         generator=gen) * 2 + 0.5).to(torch.bfloat16)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        g = torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        _, stats = gn.groupnorm_forward(x, scale, bias, groups, 1e-6)
+        args = (x, g, scale, stats)
+        first, second = backward(*args), backward(*args)
+        ref = _plain_gn_bwd(torch, *args, groups)
+        torch.cuda.synchronize()
+        bitwise &= all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+        touched = 3 * x.numel() * 2
+        cold = smoke.cold_copies(args, touched)
+        row = {
+            "calls": calls,
+            "cold_us": smoke.time_ms(backward, torch, inner=2,
+                                     arg_sets=cold) * 1e3,
+            "warm_us": smoke.time_ms(backward, torch, arg_sets=(args,)) * 1e3,
+            "bound_us": smoke.bound_ms(touched + 3 * c * 4
+                                       + smoke.GN_BATCH * groups * 8,
+                                       18 * x.numel())[0] * 1e3,
+            **{f"{name}_max_abs_err": float((a.float() - b).abs().max())
+               for name, a, b in zip(("dx", "dscale", "dbias"), first, ref)},
+        }
+        shapes[f"{side}x{side}x{c}"] = row
+        for key in step:
+            step[key] += calls * row[key]
+        del x, g, first, second, ref, cold
+    return {"shapes": shapes, "resnet50_step": step, "bitwise_equal": bitwise}
+
+
 def _time_ln_dx(torch, smoke) -> dict:
     from tf_yarn_tpu_torch.ops import layernorm as ln
 
@@ -162,7 +229,7 @@ def _time_ln_dx(torch, smoke) -> dict:
     return {"shapes": shapes}
 
 
-PASSES = ("fwd", "dq", "dkv", "gn_fwd", "ln_dx")
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx")
 
 
 def time_one(root: Path, kernel: str) -> dict:
@@ -177,6 +244,8 @@ def time_one(root: Path, kernel: str) -> dict:
     _build.load_library()
     if kernel == "gn_fwd":
         found = _time_gn_fwd(torch, smoke)
+    elif kernel == "gn_bwd":
+        found = _time_gn_bwd(torch, smoke)
     elif kernel == "ln_dx":
         found = _time_ln_dx(torch, smoke)
     else:

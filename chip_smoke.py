@@ -13,12 +13,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    paged attention, dense int8 decode attention — the two attention rows
    read the same slots' cache bytes; training: rmsnorm dx, flash forward,
    dq, dk/dv; the zoo: LayerNorm forward and dx at BERT-base's and
-   ViT-B/16's rows, the GroupNorm forward at all 12 of ResNet-50's slab
-   shapes, with their launch-weighted sum a step and the device kernels
-   one call at each launched, and its dx at the stem's and last stage's
-   slabs), with the stated tolerance, timed with CUDA events over
-   CUDA-graph replays beside the plain version (the GroupNorm forward's
-   at those two slabs only), the library call where one exists, and its
+   ViT-B/16's rows, the GroupNorm forward and backward (dx, dscale and
+   dbias) at all 12 of ResNet-50's slab shapes, each with its
+   launch-weighted sum a step and the device kernels one call at each
+   launched, which must be the plan's and, for the backward, nothing
+   else), with the stated tolerance, timed with CUDA events over
+   CUDA-graph replays beside the plain version (the GroupNorm's at the
+   stem's and last stage's slabs only), the library call where one
+   exists (F.group_norm's backward takes x, weight and bias), and its
    bound on this card. The times are cold: the calls cycle over copies
    of the inputs that together exceed twice the L2 cache, as the main
    paths find each layer's inputs out of L2; the warm time (the same
@@ -61,7 +63,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    JAX synthetic inputs, each with the kernel counts set to 0 just
    before it and read just after: its norm kernels launched, losses
    finite, parameters moved; the steady step, samples/s, MFU (one
-   step's FLOPs from FlopCounterMode), peak memory, and a profiled step.
+   step's FLOPs from FlopCounterMode), peak memory, and a profiled step,
+   in which each of ResNet's GroupNorm backward calls must make its two
+   CUDA launches and no arithmetic in torch (no plain dscale/dbias).
 
 The run takes 2.5-4 minutes by how fast the host is, well inside a
 10-minute limit.
@@ -542,17 +546,17 @@ def check_flash(torch, ops, dev):
 # 768 wide; GroupNorm slabs of ResNet-50 at batch 128, 32 groups, eps
 # 1e-6, as (side, C): the number of each of its 53 GroupNorms a step
 # (models/resnet.py: the stem, then stages of 3, 4, 6 and 3
-# bottlenecks). The forward is timed at all 12; the dx kernel and the
-# forward's plain version at the stem's 112x112x64 and the last stage's
-# 7x7x2048 (GN_DX_SHAPES). The first shape of each is the kernel's row;
-# the others' numbers go beside it.
+# bottlenecks). The GroupNorm forward and backward are timed at all 12,
+# their plain versions at the stem's 112x112x64 and the last stage's
+# 7x7x2048 (GN_PLAIN_SHAPES). The first shape of each is the kernel's
+# row; the others' numbers go beside it.
 LN_SHAPES = {"bert_base": (32 * 128, 768, 1e-12),
              "vit_b16": (128 * 197, 768, 1e-6)}
 GN_BATCH, GN_GROUPS = 128, 32
 RESNET50_GN = {(112, 64): 1, (56, 64): 6, (56, 256): 4, (56, 128): 1,
                (28, 128): 7, (28, 512): 5, (28, 256): 1, (14, 256): 11,
                (14, 1024): 7, (14, 512): 1, (7, 512): 5, (7, 2048): 4}
-GN_DX_SHAPES = {(112, 64): "stem", (7, 2048): "stage4"}
+GN_PLAIN_SHAPES = {(112, 64): "stem", (7, 2048): "stage4"}
 
 
 def _norm_rows(specs, torch):
@@ -650,19 +654,55 @@ def kernel_launch_counts(torch, run) -> dict:
             if event.device_type == DeviceType.CUDA}
 
 
+def check_gn_backward(torch, gn, got, x, g, scale, stats, groups):
+    """(dx, dscale, dbias) from the kernels against the plain backward
+    from the same statistics; returns the largest absolute error of each.
+    dx: one bf16 ulp plus cancellation, atol 1e-2 of the largest entry;
+    dscale and dbias: f32 sums over B x HW positions whose longest chain
+    of additions is under 64 in either version, rtol 1e-5 and atol 1e-5
+    of the sum of the terms' magnitudes (a sum near 0 of large terms)."""
+    ref = gn.groupnorm_bwd_reference(x, g, scale, stats, groups)
+    c = x.shape[-1]
+    g32 = g.float().reshape(-1, c).abs()
+    norm = gn._normalize(x, stats, groups).reshape(-1, c).abs()
+    torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=1 / 128,
+                               atol=1e-2 * float(ref[0].float().abs().max()))
+    for out, want, terms in ((got[1], ref[1], g32 * norm),
+                             (got[2], ref[2], g32)):
+        torch.testing.assert_close(out, want, rtol=1e-5,
+                                   atol=1e-5 * float(terms.sum(0).max()))
+    return {name: float((a.float() - b.float()).abs().max())
+            for name, a, b in zip(("dx", "dscale", "dbias"), got, ref)}
+
+
+def _resnet50_step(row) -> dict:
+    """A GroupNorm row's launch-weighted sums over ResNet-50's 53 calls a
+    step, from its numbers at the 12 shapes."""
+    shapes = [row, *row["other_shapes"].values()]
+    return {
+        "calls": sum(r["resnet50_calls"] for r in shapes),
+        "cuda_launches": sum(r["resnet50_calls"] * r["cuda_launches_per_call"]
+                             for r in shapes),
+        **{f: sum(r["resnet50_calls"] * r[f] for r in shapes)
+           for f in ("ms", "warm_ms", "bound_ms", "library_ms")}}
+
+
 def check_groupnorm(torch, ops, dev):
-    """The GroupNorm forward at ResNet-50's 12 slab shapes and the dx
-    kernel at its stem's and last stage's (bf16, NHWC); returns their two
-    rows, the forward's with ResNet-50's launch-weighted sum a step and
-    the device kernels one call at each shape launched. The library
-    yardstick is F.group_norm on the same storage seen as channels-last
-    NCHW, the layout the port keeps its activations in."""
+    """The GroupNorm forward and backward (dx, dscale, dbias) at
+    ResNet-50's 12 slab shapes (bf16, NHWC), each held against its plain
+    version; returns their two rows, each with ResNet-50's launch-weighted
+    sum a step and the device kernels one call at each shape launched,
+    which must be the plan's and, for the backward, nothing else (no
+    plain reduction). The library yardstick is F.group_norm on the same
+    storage seen as channels-last NCHW, the layout the port keeps its
+    activations in; its backward takes the gradients of x, weight and
+    bias."""
     gn = ops.groupnorm
     group_norm = torch.nn.functional.group_norm
     nchw = lambda t: t.permute(0, 3, 1, 2)  # channels-last NCHW view
     groups = GN_GROUPS
-    specs = {"groupnorm": {}, "groupnorm_bwd_dx": {}}
-    forwards = []
+    specs = {"groupnorm": {}, "groupnorm_backward": {}}
+    forwards, backwards = [], []
     for (side, c), calls in RESNET50_GN.items():
         shape = (GN_BATCH, side, side, c)
         key = f"{side}x{side}x{c}"
@@ -682,90 +722,105 @@ def check_groupnorm(torch, ops, dev):
                                    atol=1e-5)
         max_err = float((y.float() - ref_y.float()).abs().max())
         del y, stats, ref_y
-        plan = gn.groupnorm_plan(GN_BATCH, side * side, c, groups,
-                                 x.element_size())
         n = x.numel()
         weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
         base = {"route": "cuda",
                 "source": "tf_yarn_tpu_torch/ops/csrc/groupnorm.cu",
                 "shape": {"nhwc": list(shape), "groups": groups, "eps": 1e-6,
-                          "dtype": "bf16", "slab": key}}
-        # Bytes: x read and y written (dx: x and g read, dx written), the
-        # vectors and the [B, G, 2] statistics once.
-        vec = 2 * c * 4 + GN_BATCH * groups * 8
+                          "dtype": "bf16", "slab": key},
+                "resnet50_calls": calls}
+        plain = (side, c) in GN_PLAIN_SHAPES
+        plan = gn.groupnorm_plan(GN_BATCH, side * side, c, groups, 2)
+        # Bytes: x read and y written, the vectors and the [B, G, 2]
+        # statistics once.
+        stats_bytes = GN_BATCH * groups * 8
         forwards.append((x, scale, bias))
         specs["groupnorm"][key] = (
             dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:81",
                  tolerance="stats rtol = atol = 1e-5; y rtol 1/128, atol 1e-5",
                  max_abs_err=max_err,
                  library="F.group_norm (channels-last NCHW)",
-                 cuda_launches_per_call=plan.launches, plan=plan._asdict(),
-                 resnet50_calls=calls),
+                 cuda_launches_per_call=plan.launches, plan=plan._asdict()),
             lambda x, s, b: gn.groupnorm_forward(x, s, b, groups, 1e-6),
             (lambda x, s, b: gn.groupnorm_reference(x, s, b, groups, 1e-6))
-            if (side, c) in GN_DX_SHAPES else None,
+            if plain else None,
             lambda x, s, b, weight=weight, wbias=wbias:
                 group_norm(nchw(x), groups, weight, wbias, 1e-6),
-            (x, scale, bias), 2 * n * 2 + vec, 8 * n, None)
-        if (side, c) not in GN_DX_SHAPES:
-            continue
+            (x, scale, bias), 2 * n * 2 + 2 * c * 4 + stats_bytes, 8 * n,
+            None)
+
         g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        dx = gn.groupnorm_bwd_dx(x, g, scale, ref_stats, groups)
-        ref_dx = gn.groupnorm_bwd_dx_reference(x, g, scale, ref_stats, groups)
+        got = gn.groupnorm_backward(x, g, scale, ref_stats, groups)
         torch.cuda.synchronize()
-        # dx one ulp plus cancellation, atol 1e-2 of the largest entry.
-        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
-        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
-                                   atol=dx_atol)
+        errors = check_gn_backward(torch, gn, got, x, g, scale, ref_stats,
+                                   groups)
+        del got
+        plan = gn.groupnorm_plan(GN_BATCH, side * side, c, groups, 2,
+                                 backward=True)
+        backwards.append((x, g, scale, ref_stats))
 
-        def library_bwd(x, g, weight=weight, wbias=wbias):
-            return group_norm(nchw(x), groups, weight, wbias, 1e-6), x, nchw(g)
+        def library_bwd(x, g, weight=weight.clone().requires_grad_(),
+                        wbias=wbias.clone().requires_grad_()):
+            return (group_norm(nchw(x), groups, weight, wbias, 1e-6),
+                    (x, weight, wbias), nchw(g))
 
-        specs["groupnorm_bwd_dx"][GN_DX_SHAPES[(side, c)]] = (
-            dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:150",
-                 tolerance="rtol 1/128, atol 1e-2 * max|dx|",
-                 max_abs_err=float((dx.float() - ref_dx.float()).abs().max()),
-                 library="F.group_norm backward (autograd), dx",
-                 cuda_launches_per_call=2),
-            lambda x, g, s, st: gn.groupnorm_bwd_dx(x, g, s, st, groups),
-            lambda x, g, s, st: gn.groupnorm_bwd_dx_reference(x, g, s, st,
-                                                              groups),
-            None, (x, g, scale, ref_stats), 3 * n * 2 + vec, 14 * n,
-            library_bwd)
-        del dx, ref_dx
+        # Bytes: x and g read, dx written; scale and the statistics read,
+        # dscale and dbias written. The [B, C, 2] f32 partials between the
+        # two launches are the kernels' own traffic, not the function's.
+        specs["groupnorm_backward"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/groupnorm.py:150 (dx) and "
+                                ":220-231 (dscale, dbias)",
+                 tolerance="dx rtol 1/128, atol 1e-2 * max|dx|; dscale, "
+                           "dbias rtol 1e-5, atol 1e-5 * sum|terms|",
+                 max_abs_err=errors["dx"], max_abs_err_params=errors,
+                 library="F.group_norm backward (autograd): dx, dweight, dbias",
+                 cuda_launches_per_call=plan.launches, plan=plan._asdict(),
+                 partials_bytes=2 * GN_BATCH * c * 2 * 4),
+            lambda x, g, s, st: gn.groupnorm_backward(x, g, s, st, groups),
+            (lambda x, g, s, st: gn.groupnorm_bwd_reference(x, g, s, st,
+                                                            groups))
+            if plain else None,
+            None, (x, g, scale, ref_stats),
+            3 * n * 2 + 3 * c * 4 + stats_bytes, 18 * n, library_bwd)
 
-    # One forward call at each shape: the kernels the device ran.
-    launched = kernel_launch_counts(torch, lambda: [
-        gn.groupnorm_forward(*args, groups, 1e-6) for args in forwards])
-    del forwards
-    ours = {k: v for k, v in launched.items() if "groupnorm" in k}
-    planned = sum(gn.groupnorm_plan(GN_BATCH, side * side, c, groups,
-                                    2).launches
-                  for side, c in RESNET50_GN)
-    if sum(ours.values()) != planned:
-        raise AssertionError(f"GroupNorm forward launched {ours} at the "
-                             f"{len(RESNET50_GN)} shapes, planned {planned}")
+    # One call at each shape: the kernels the device ran.
+    device_kernels = {}
+    for name, calls, launched_by in (
+            ("groupnorm", forwards,
+             lambda args: gn.groupnorm_forward(*args, groups, 1e-6)),
+            ("groupnorm_backward", backwards,
+             lambda args: gn.groupnorm_backward(*args, groups))):
+        launched = kernel_launch_counts(
+            torch, lambda: [launched_by(args) for args in calls])
+        ours = {k: v for k, v in launched.items() if "groupnorm" in k}
+        planned = sum(gn.groupnorm_plan(
+            GN_BATCH, side * side, c, groups, 2,
+            backward=name == "groupnorm_backward").launches
+            for side, c in RESNET50_GN)
+        if sum(ours.values()) != planned or (
+                name == "groupnorm_backward" and ours != launched):
+            raise AssertionError(
+                f"{name} launched {launched} at the {len(RESNET50_GN)} "
+                f"shapes, planned {planned} GroupNorm kernels")
+        device_kernels[name] = ours
+    del forwards, backwards
     rows = _norm_rows(specs, torch)
-    fwd = rows[0]
-    shapes = [fwd, *fwd["other_shapes"].values()]
-    fwd["device_kernels_12_calls"] = ours
-    fwd["resnet50_step"] = {
-        "calls": sum(r["resnet50_calls"] for r in shapes),
-        "cuda_launches": sum(r["resnet50_calls"] * r["cuda_launches_per_call"]
-                             for r in shapes),
-        **{f: sum(r["resnet50_calls"] * r[f] for r in shapes)
-           for f in ("ms", "warm_ms", "bound_ms", "library_ms")}}
-    for key, r in {next(iter(specs["groupnorm"])): fwd,
-                   **fwd["other_shapes"]}.items():
-        log(f"  groupnorm {key} x{r['resnet50_calls']}: {r['ms'] * 1e3:.2f} us "
-            f"cold, {r['warm_ms'] * 1e3:.2f} warm, F.group_norm "
-            f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f}, "
-            f"{r['cuda_launches_per_call']} launch(es), plan {r['plan']}")
-    step = fwd["resnet50_step"]
-    log(f"  groupnorm ResNet-50 step ({step['calls']} calls, "
-        f"{step['cuda_launches']} launches): {step['ms'] * 1e3:.2f} us cold, "
-        f"F.group_norm {step['library_ms'] * 1e3:.2f}, bound "
-        f"{step['bound_ms'] * 1e3:.2f}; kernels {ours}")
+    for row in rows:
+        row["device_kernels_12_calls"] = device_kernels[row["name"]]
+        row["resnet50_step"] = _resnet50_step(row)
+        first = next(iter(specs[row["name"]]))
+        for key, r in {first: row, **row["other_shapes"]}.items():
+            log(f"  {row['name']} {key} x{r['resnet50_calls']}: "
+                f"{r['ms'] * 1e3:.2f} us cold, {r['warm_ms'] * 1e3:.2f} warm, "
+                f"F.group_norm {r['library_ms'] * 1e3:.2f}, bound "
+                f"{r['bound_ms'] * 1e3:.2f}, {r['cuda_launches_per_call']} "
+                f"launch(es), plan {r['plan']}")
+        step = row["resnet50_step"]
+        log(f"  {row['name']} ResNet-50 step ({step['calls']} calls, "
+            f"{step['cuda_launches']} launches): {step['ms'] * 1e3:.2f} us "
+            f"cold, F.group_norm {step['library_ms'] * 1e3:.2f}, bound "
+            f"{step['bound_ms'] * 1e3:.2f}; kernels "
+            f"{row['device_kernels_12_calls']}")
     return rows
 
 
@@ -939,11 +994,12 @@ def train_slice(torch, tt, training, experiment, telemetry, counted, dev):
 
 
 def profile_step(torch, training, model, loss_fn, optimizer, batch, steady,
-                 flops_lib=None):
+                 flops_lib=None, node=None):
     """Three steps outside the loop (their launches are not counted), one
     train step function and optimizer for all three: a warm-up (with
     `flops_lib`, counted by FlopCounterMode), one timed step, and one
-    under the profiler for the device's busy time and top kernels."""
+    under the profiler for the device's busy time and top kernels (and
+    what ran under the autograd node `node`)."""
     step = training.build_train_step(model, loss_fn, optimizer)
     state = training.TrainState(0, model, optimizer)
     result = {}
@@ -957,7 +1013,7 @@ def profile_step(torch, training, model, loss_fn, optimizer, batch, steady,
     step(state, batch)
     torch.cuda.synchronize()
     unprofiled = time.perf_counter() - started
-    profiled = device_profile(torch, lambda: step(state, batch))
+    profiled = device_profile(torch, lambda: step(state, batch), node)
     result["profiled_step"] = profiled
     result["unprofiled_step_s"] = unprofiled
     # The profiler slows the host, so the profiled step's own idle share
@@ -1068,13 +1124,17 @@ def train_zoo_reference(torch, zoo, training, experiment, ckpt, dev):
 
 
 def zoo_slice(torch, module, cfg, kwargs, training, experiment, telemetry,
-              flops_lib, counted, needed, dev):
+              flops_lib, counted, needed, dev, node=None):
     """One family's make_experiment at full width through
     train_and_evaluate for 4 steps, random weights from seed 0 and the
     JAX synthetic inputs, with every kernel count set to 0 just before
     it: the needed kernels launched, the losses finite, the parameters
     moved; the steady step (mean of steps 2-4) and its spread,
-    samples/s, MFU, peak memory; then one profiled step."""
+    samples/s, MFU, peak memory; then one profiled step. With `node`
+    (ResNet's `_GroupNormBackward`), the profiled step must show each of
+    that node's calls making two CUDA launches and no arithmetic in torch
+    (no plain dscale/dbias path), and the kernels the profiler attributes
+    to them being the GroupNorm backward's."""
     exp = module.make_experiment(cfg, train_steps=4, log_every_steps=1,
                                  **kwargs)
     built = {}
@@ -1149,7 +1209,18 @@ def zoo_slice(torch, module, cfg, kwargs, training, experiment, telemetry,
     }
     result.update(profile_step(torch, training, model, loss_fn,
                                exp.optimizer(model), batch, steady,
-                               flops_lib=flops_lib))
+                               flops_lib=flops_lib, node=node))
+    if node is not None:
+        under = result["profiled_step"]["under_node"]
+        arithmetic = [op for op in under["ops"]
+                      if op.startswith("aten::") and op not in HOST_ONLY_OPS]
+        kernels = under["kernels"]
+        if (under["count"] == 0 or arithmetic
+                or under["launches"] != 2 * under["count"]
+                or (kernels and (
+                    not all(k.startswith("groupnorm_") for k in kernels)
+                    or sum(kernels.values()) != 2 * under["count"]))):
+            raise AssertionError(f"{node} in the profiled step: {under}")
     result["mfu"] = (result["counted_flops_per_step"] / steady
                      / H100_BF16_FLOPS)
     del model, batch
@@ -1312,10 +1383,48 @@ PORT_KERNEL = re.compile(r"(flash_\w+|groupnorm_\w+|layernorm_\w+|rmsnorm_\w+"
                          r"(<[^>(]*>)?")
 
 
-def device_profile(torch, run):
+# The only operators a kernel backward may call under its autograd node
+# on the card: allocations, views and dtype no-ops. Anything else (the
+# plain dscale/dbias path's mul, sub and sum) is arithmetic in torch.
+HOST_ONLY_OPS = ("aten::to", "aten::detach", "detach", "aten::empty",
+                 "aten::empty_like", "aten::empty_strided", "aten::contiguous",
+                 "aten::view", "aten::reshape", "aten::_reshape_alias")
+
+
+def _under_node(prof, node: str) -> dict:
+    """What ran under each host range of the autograd node `node`: how
+    many there were, the operators and runtime calls they made, the CUDA
+    launches among those, and the device kernels the profiler attributes
+    to the node or its operators, by name."""
+    found, ops, kernels = 0, {}, {}
+
+    def count_kernels(event):
+        for kernel in event.kernels:
+            name = (PORT_KERNEL.search(kernel.name) or
+                    re.match(r".{0,80}", kernel.name)).group(0)
+            kernels[name] = kernels.get(name, 0) + 1
+
+    def walk(event):
+        for child in event.cpu_children:
+            ops[child.name] = ops.get(child.name, 0) + 1
+            count_kernels(child)
+            walk(child)
+
+    for event in prof.events():
+        if event.name == node:
+            found += 1
+            count_kernels(event)
+            walk(event)
+    return {"node": node, "count": found, "ops": ops, "kernels": kernels,
+            "launches": sum(n for op, n in ops.items()
+                            if op.startswith("cudaLaunchKernel"))}
+
+
+def device_profile(torch, run, node=None):
     """`run()` under torch.profiler: the device's busy share of the wall
-    time and the kernels that took most device time. Only device-side
-    events count, and of those not the user annotations (the optimizer's
+    time and the kernels that took most device time; with `node`, what
+    ran under that autograd node (`_under_node`). Only device-side events
+    count, and of those not the user annotations (the optimizer's
     ``Optimizer.step#...`` range on the device timeline): host ops and
     annotations carry their kernels' device time too, and summing them
     would count it twice."""
@@ -1342,7 +1451,7 @@ def device_profile(torch, run):
         raise AssertionError("the profiler saw no device time")
     port = [(PORT_KERNEL.search(key), us, count) for us, count, key in rows
             if "at::native" not in key]
-    return {
+    result = {
         "wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1 - busy_s / wall,
@@ -1351,6 +1460,9 @@ def device_profile(torch, run):
         "port_kernels": [{"name": found.group(0), "ms": us / 1e3, "calls": count}
                          for found, us, count in port if found],
     }
+    if node is not None:
+        result["under_node"] = _under_node(prof, node)
+    return result
 
 
 # The serving slice's bursts: four concurrent greedy requests of these
@@ -1599,13 +1711,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     norm_counted = (layernorm.layernorm, layernorm.layernorm_bwd_dx,
-                    groupnorm.groupnorm, groupnorm.groupnorm_bwd_dx)
+                    groupnorm.groupnorm, groupnorm.groupnorm_backward)
     zoo_results = {}
     for name, (module, cfg, kwargs) in _zoo_cases(zoo, torch, False).items():
         needed = norm_counted[2:] if module is resnet else norm_counted[:2]
-        zoo_results[name] = zoo_slice(torch, module, cfg, kwargs, training,
-                                      experiment, telemetry, flops_lib,
-                                      norm_counted, needed, dev)
+        zoo_results[name] = zoo_slice(
+            torch, module, cfg, kwargs, training, experiment, telemetry,
+            flops_lib, norm_counted, needed, dev,
+            node="_GroupNormBackward" if module is resnet else None)
         log(f"zoo slice, {name}: {json.dumps(zoo_results[name])} on {card}")
 
     # Each kernel's launches on every main path it runs in; `launches` is
@@ -1613,7 +1726,8 @@ def main() -> int:
     primary = {"paged_int8_window_attention": "serving fused_burst",
                "int8_decode_attention": "serving gather_burst",
                "layernorm": "zoo bert_base", "layernorm_bwd_dx": "zoo bert_base",
-               "groupnorm": "zoo resnet50", "groupnorm_bwd_dx": "zoo resnet50"}
+               "groupnorm": "zoo resnet50",
+               "groupnorm_backward": "zoo resnet50"}
     for row in rows:
         by_path = {f"serving {path}": result["launches"][row["name"]]
                    for path, result in slice_result.items()

@@ -514,35 +514,58 @@ GROUPNORM_CASES = {
 }
 
 
+def _gn_inputs(cuda, shape, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(c, device=cuda, generator=gen)
+    return x, g, scale, bias
+
+
+def _check_gn_backward(got, x, g, scale, stats, groups, dtype):
+    """(dx, dscale, dbias) against the plain backward from the same
+    statistics. dx as `_norm_tolerances`; dscale and dbias are f32 sums
+    over B x HW positions whose longest chain of additions is under 64
+    in either version: rtol 1e-5 and atol 1e-5 of the sum of the terms'
+    magnitudes (a sum near 0 of large terms)."""
+    ref = t_groupnorm.groupnorm_bwd_reference(x, g, scale, stats, groups)
+    _, tol_dx = _norm_tolerances(dtype, ref[0])
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol_dx)
+    c = x.shape[-1]
+    g32 = g.float().reshape(-1, c).abs()
+    norm = t_groupnorm._normalize(x, stats, groups).reshape(-1, c).abs()
+    for name, out, want, terms in (("dscale", got[1], ref[1], g32 * norm),
+                                   ("dbias", got[2], ref[2], g32)):
+        assert out.dtype == torch.float32, name
+        torch.testing.assert_close(
+            out, want, rtol=1e-5, atol=1e-5 * float(terms.sum(0).max()),
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", sorted(GROUPNORM_CASES))
 def test_cuda_groupnorm_kernels_match_plain(cuda, case, dtype):
     shape, groups = GROUPNORM_CASES[case]
-    c = shape[-1]
-    gen = torch.Generator(device=cuda).manual_seed(len(case))
-    x = (torch.randn(shape, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
-    g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
-    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
-    bias = torch.randn(c, device=cuda, generator=gen)
+    x, g, scale, bias = _gn_inputs(cuda, shape, dtype, len(case))
     before = (t_groupnorm.groupnorm.launches,
-              t_groupnorm.groupnorm_bwd_dx.launches)
+              t_groupnorm.groupnorm_backward.launches)
     y, stats = t_groupnorm.groupnorm_forward(x, scale, bias, groups, 1e-6)
-    dx = t_groupnorm.groupnorm_bwd_dx(x, g, scale, stats, groups)
+    got = t_groupnorm.groupnorm_backward(x, g, scale, stats, groups)
     torch.cuda.synchronize()
     assert (t_groupnorm.groupnorm.launches,
-            t_groupnorm.groupnorm_bwd_dx.launches) == (before[0] + 1,
-                                                       before[1] + 1)
+            t_groupnorm.groupnorm_backward.launches) == (before[0] + 1,
+                                                         before[1] + 1)
     ref_stats = t_groupnorm.groupnorm_stats_reference(x, groups, 1e-6)
     # The kernel's statistics (one pass: two-pass sums from the tile on
     # chip; two launches: shifted one-pass sums) against the plain ones.
     torch.testing.assert_close(stats, ref_stats, rtol=1e-5, atol=1e-5)
     ref_y = t_groupnorm.groupnorm_reference(x, scale, bias, groups, 1e-6)
-    ref_dx = t_groupnorm.groupnorm_bwd_dx_reference(x, g, scale, ref_stats,
-                                                    groups)
-    tol_y, tol_dx = _norm_tolerances(dtype, ref_dx)
+    tol_y, _ = _norm_tolerances(dtype, ref_y)
     torch.testing.assert_close(y.float(), ref_y.float(), **tol_y)
-    torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
+    _check_gn_backward(got, x, g, scale, ref_stats, groups, dtype)
 
 
 # ResNet-50's 12 GroupNorm slabs as (side, C), at batch 2: every plan the
@@ -575,6 +598,98 @@ def test_cuda_groupnorm_forward_matches_plain_at_resnet50_slabs(cuda, side, c,
         y.float(),
         t_groupnorm.groupnorm_reference(x, scale, bias, 32, 1e-6).float(),
         **tol_y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("side, c", RESNET50_SLABS)
+def test_cuda_groupnorm_backward_matches_plain_at_resnet50_slabs(cuda, side, c,
+                                                                 dtype):
+    """dx, dscale and dbias at every ResNet-50 slab (batch 2), each from
+    its one-pass plan and the parameter sums, from the plain statistics."""
+    x, g, scale, _ = _gn_inputs(cuda, (2, side, side, c), dtype, side + c)
+    assert t_groupnorm.groupnorm_plan(2, side * side, c, 32, x.element_size(),
+                                      backward=True).one_pass
+    stats = t_groupnorm.groupnorm_stats_reference(x, 32, 1e-6)
+    got = t_groupnorm.groupnorm_backward(x, g, scale, stats, 32)
+    torch.cuda.synchronize()
+    _check_gn_backward(got, x, g, scale, stats, 32, dtype)
+
+
+def _device_kernels(run):
+    """Device kernels `run()` launched, by name, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["stem", "stage4", "huge", "c6"])
+def test_cuda_groupnorm_backward_launches_the_plan(cuda, case, dtype):
+    """One backward call runs the plan's launches on the device and no
+    other kernel (no plain reduction); one that wants neither dscale nor
+    dbias skips the parameter sums."""
+    shape, groups = GROUPNORM_CASES[case]
+    x, g, scale, _ = _gn_inputs(cuda, shape, dtype, 12)
+    stats = t_groupnorm.groupnorm_stats_reference(x, groups, 1e-6)
+    b, c = shape[0], shape[-1]
+    plan = t_groupnorm.groupnorm_plan(b, x.numel() // (b * c), c, groups,
+                                      x.element_size(), backward=True)
+    torch.cuda.synchronize()
+    ran = _device_kernels(
+        lambda: t_groupnorm.groupnorm_backward(x, g, scale, stats, groups))
+    assert all("groupnorm" in k for k in ran), ran
+    assert sum(ran.values()) == plan.launches
+    ran = _device_kernels(lambda: t_groupnorm.groupnorm_backward(
+        x, g, scale, stats, groups, dscale=False, dbias=False))
+    assert sum(ran.values()) == plan.launches - 1, ran
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["stem", "stage4", "waves", "huge", "c6"])
+def test_cuda_groupnorm_backward_is_bitwise_deterministic(cuda, case, dtype):
+    """Two backward calls give the same bits for dx, dscale and dbias, on
+    both plans: sums in rank, chunk and image order, no atomics."""
+    shape, groups = GROUPNORM_CASES[case]
+    x, g, scale, _ = _gn_inputs(cuda, shape, dtype, 13)
+    stats = t_groupnorm.groupnorm_stats_reference(x, groups, 1e-6)
+    first = t_groupnorm.groupnorm_backward(x, g, scale, stats, groups)
+    second = t_groupnorm.groupnorm_backward(x, g, scale, stats, groups)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# The leaves (x, scale, bias) each case freezes.
+FROZEN = {"scale": (1,), "bias": (2,), "both": (1, 2), "x": (0,)}
+
+
+@pytest.mark.parametrize("case", ["stem", "huge"])
+@pytest.mark.parametrize("frozen", sorted(FROZEN))
+def test_cuda_groupnorm_frozen_inputs_get_no_gradient(cuda, frozen, case):
+    """A frozen scale or bias (or x) gets None for its gradient through
+    autograd, and the other gradients keep their bits."""
+    shape, groups = GROUPNORM_CASES[case]
+    x, g, scale, bias = _gn_inputs(cuda, shape, torch.bfloat16, 14)
+    grads = []
+    for freeze in ((), FROZEN[frozen]):
+        leaves = [t.clone().requires_grad_(i not in freeze)
+                  for i, t in enumerate((x, scale, bias))]
+        t_groupnorm.groupnorm(*leaves, groups, 1e-6).backward(g)
+        grads.append([leaf.grad for leaf in leaves])
+    torch.cuda.synchronize()
+    full, part = grads
+    for i, (got, want) in enumerate(zip(part, full)):
+        if i in FROZEN[frozen]:
+            assert got is None, i
+        else:
+            assert torch.equal(got, want), i
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -642,7 +757,9 @@ def test_cuda_norm_autograd_launches_both_kernels(cuda, norm):
     ref_fn = (lambda *a: t_layernorm.layernorm_reference(*a, 1e-6)) \
         if norm == "layernorm" \
         else (lambda *a: t_groupnorm.groupnorm_reference(*a, 4, 1e-6))
-    fwd, bwd = getattr(mod, norm), getattr(mod, f"{norm}_bwd_dx")
+    fwd, bwd = getattr(mod, norm), (t_layernorm.layernorm_bwd_dx
+                                    if norm == "layernorm"
+                                    else t_groupnorm.groupnorm_backward)
     before = (fwd.launches, bwd.launches)
     grads = []
     for f in (fn, ref_fn):

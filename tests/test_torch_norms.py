@@ -168,3 +168,81 @@ def test_groupnorm_edges_match_the_jax_function():
                                  3) is empty
     assert j_groupnorm.groupnorm(jnp.zeros((0, 4, 4, 6)), ones, zeros,
                                  3).shape == (0, 4, 4, 6)
+
+
+def test_groupnorm_bf16_backward_matches_jax():
+    """The port's plain backward (dx, dscale, dbias) in bf16 against the
+    JAX `groupnorm` vjp, whose dx is its Pallas kernel in interpret mode;
+    f32 inside on both sides, from the same numpy inputs. y and dx are
+    bf16: one bf16 ulp (2⁻⁷) relative plus 2⁻⁷ absolute, for two
+    roundings of values that differ only in f32 summation order. dscale
+    and dbias are f32 sums over the slab's 2 x 64 positions of products
+    of the same bf16 cotangent with norms that agree to f32 rounding: the
+    order of 128 f32 additions moves a sum by under 128 · 2⁻²⁴ of its
+    magnitude, inside rtol 1e-5."""
+    from tf_yarn_tpu.ops import groupnorm as j_groupnorm
+
+    x, scale, bias, w = _inputs((2, 8, 8, 32), seed=32, offset=0.5)
+    y, vjp = jax.vjp(
+        lambda x, s, b: j_groupnorm.groupnorm(x, s, b, 8, eps=1e-6,
+                                              interpret=True),
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(t.astype(jnp.float32))
+            for t in (y, *vjp(jnp.asarray(w, jnp.bfloat16)))]
+    xt = torch.tensor(x).bfloat16().requires_grad_()
+    st, bt = (torch.tensor(v, requires_grad=True) for v in (scale, bias))
+    yt = t_groupnorm.groupnorm(xt, st, bt, 8, 1e-6)
+    yt.backward(torch.tensor(w).bfloat16())
+    assert yt.dtype == xt.grad.dtype == torch.bfloat16
+    assert st.grad.dtype == bt.grad.dtype == torch.float32
+    got = [t.detach().float().numpy() for t in (yt, xt.grad, st.grad, bt.grad)]
+    for name, a, b in zip(("y", "dx"), got, want):
+        np.testing.assert_allclose(a, b, rtol=2 ** -7, atol=2 ** -7,
+                                   err_msg=name)
+    for name, a, b in zip(("dscale", "dbias"), got[2:], want[2:]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("frozen", ["scale", "bias", "both"])
+def test_groupnorm_frozen_parameters_get_no_gradient(frozen):
+    """A frozen scale or bias gets no gradient and leaves dx and the other
+    gradient as they are (the backward honours needs_input_grad)."""
+    x, scale, bias, w = _inputs((2, 4, 4, 16), seed=7, offset=0.5)
+    grads = []
+    for freeze in (None, frozen):
+        leaves = [torch.tensor(t, requires_grad=True) for t in (x, scale, bias)]
+        if freeze in ("scale", "both"):
+            leaves[1].requires_grad_(False)
+        if freeze in ("bias", "both"):
+            leaves[2].requires_grad_(False)
+        (t_groupnorm.groupnorm(*leaves, 4, 1e-6) * torch.tensor(w)).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    full, part = grads
+    assert torch.equal(part[0], full[0])
+    assert (part[1] is None) == (frozen in ("scale", "both"))
+    assert (part[2] is None) == (frozen in ("bias", "both"))
+    for got, want in zip(part[1:], full[1:]):
+        if got is not None:
+            assert torch.equal(got, want)
+
+
+def test_groupnorm_bwd_reference_matches_the_jax_backward():
+    """The plain backward alone against the JAX custom_vjp's backward
+    (its dx kernel in interpret mode, its XLA dscale and dbias), f32."""
+    from tf_yarn_tpu.ops import groupnorm as j_groupnorm
+
+    x, scale, bias, g = _inputs((3, 6, 5, 24), seed=9, offset=-1.0)
+    want = j_groupnorm._groupnorm_bwd(
+        6, 1e-6, True, True, tuple(map(jnp.asarray, (x, scale, bias))),
+        jnp.asarray(g))
+    xt = torch.tensor(x)
+    stats = t_groupnorm.groupnorm_stats_reference(xt, 6, 1e-6)
+    got = t_groupnorm.groupnorm_bwd_reference(xt, torch.tensor(g),
+                                              torch.tensor(scale), stats, 6)
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, want):
+        # f32, sums in another order (dscale/dbias over 90 positions).
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    assert t_groupnorm.groupnorm_backward(
+        xt, torch.tensor(g), torch.tensor(scale), stats, 6, dx=False,
+        dbias=False)[::2] == (None, None)
