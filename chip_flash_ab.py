@@ -1,6 +1,6 @@
 """Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx|ln_bwd] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
@@ -21,12 +21,18 @@ card. `--pass` picks the kernel:
   backward is a dx kernel beside plain dscale/dbias sums and one whose
   kernels give all three are timed alike;
 - `ln_dx`: the LayerNorm dx `layernorm_bwd_dx` at BERT-base's and
-  ViT-B/16's rows (`chip_smoke.LN_SHAPES`, bf16).
+  ViT-B/16's rows (`chip_smoke.LN_SHAPES`, bf16);
+- `ln_bwd`: the LayerNorm backward as autograd runs it
+  (`_LayerNorm.backward`: dx, dscale and dbias, all three wanted) at the
+  same rows, so that a package whose backward is a dx kernel beside
+  plain dscale/dbias sums and one whose kernels give all three are
+  timed alike; beside it `F.layer_norm`'s autograd backward for x,
+  weight and bias.
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dq, dkv, gn_fwd and gn_bwd also whether
-two calls gave bitwise-equal outputs) and the card's name and power limit.
+against the plain versions (for dq, dkv, gn_fwd, gn_bwd and ln_bwd also
+whether two calls gave bitwise-equal outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -229,7 +235,66 @@ def _time_ln_dx(torch, smoke) -> dict:
     return {"shapes": shapes}
 
 
-PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx")
+def _plain_ln_bwd(torch, x, g, scale, eps):
+    """dx, dscale and dbias in f32, written out here so that every root is
+    held against the same arithmetic."""
+    x32, g32 = x.float(), g.float()
+    centered = x32 - x32.mean(-1, keepdim=True)
+    r = torch.rsqrt((centered * centered).mean(-1, keepdim=True) + eps)
+    norm, gs = centered * r, g32 * scale
+    dx = r * (gs - gs.mean(-1, keepdim=True)
+              - norm * (gs * norm).mean(-1, keepdim=True))
+    return dx, (g32 * norm).sum(0), g32.sum(0)
+
+
+def _time_ln_bwd(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import layernorm as ln
+
+    shapes, bitwise = {}, True
+    for key, (rows, d, eps) in smoke.LN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + rows)
+        x = (torch.randn(rows, d, device="cuda", generator=gen) * 3 + 1).to(
+            torch.bfloat16)
+        g = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+        scale = torch.rand(d, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(d, device="cuda", generator=gen)
+
+        def backward(x, g, scale, bias, eps=eps):
+            ctx = SimpleNamespace(saved_tensors=(x, scale, bias), eps=eps,
+                                  needs_input_grad=(True, True, True, False))
+            return ln._LayerNorm.backward(ctx, g)[:3]
+
+        def library(x, g, weight=scale.to(torch.bfloat16).requires_grad_(),
+                    wbias=bias.to(torch.bfloat16).requires_grad_(), d=d,
+                    eps=eps):
+            y = torch.nn.functional.layer_norm(x, (d,), weight, wbias, eps)
+            return y, (x, weight, wbias), g
+
+        args = (x, g, scale, bias)
+        first, second = backward(*args), backward(*args)
+        ref = _plain_ln_bwd(torch, x, g, scale, eps)
+        torch.cuda.synchronize()
+        bitwise &= all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+        # x and g read, dx written; scale read, dscale and dbias written.
+        touched = 3 * x.numel() * 2 + 3 * d * 4
+        cold = smoke.cold_copies(args, touched)
+        sets = [smoke._leaves(torch, (x, g)) for _ in range(len(cold))]
+        shapes[key] = {
+            "cold_us": smoke.time_ms(backward, torch, inner=2,
+                                     arg_sets=cold) * 1e3,
+            "warm_us": smoke.time_ms(backward, torch, arg_sets=(args,)) * 1e3,
+            "bound_us": smoke.bound_ms(touched, 18 * x.numel())[0] * 1e3,
+            "library_us": smoke.backward_ms(library, torch, sets)[0] * 1e3,
+            "kernel_us_per_call": smoke.split_combine_us(torch, backward, args,
+                                                         touched),
+            **{f"{name}_max_abs_err": float((a.float() - b).abs().max())
+               for name, a, b in zip(("dx", "dscale", "dbias"), first, ref)},
+        }
+        del cold, sets
+    return {"shapes": shapes, "bitwise_equal": bitwise}
+
+
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd")
 
 
 def time_one(root: Path, kernel: str) -> dict:
@@ -248,6 +313,8 @@ def time_one(root: Path, kernel: str) -> dict:
         found = _time_gn_bwd(torch, smoke)
     elif kernel == "ln_dx":
         found = _time_ln_dx(torch, smoke)
+    elif kernel == "ln_bwd":
+        found = _time_ln_bwd(torch, smoke)
     else:
         found = _time_flash(torch, smoke, kernel)
     return {"pass": kernel, **found, "card": smoke.nvidia_smi()}

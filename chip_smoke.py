@@ -12,16 +12,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    on the card at its main path's shapes (serving: rmsnorm, quantize,
    paged attention, dense int8 decode attention — the two attention rows
    read the same slots' cache bytes; training: rmsnorm dx, flash forward,
-   dq, dk/dv; the zoo: LayerNorm forward and dx at BERT-base's and
-   ViT-B/16's rows, the GroupNorm forward and backward (dx, dscale and
-   dbias) at all 12 of ResNet-50's slab shapes, each with its
-   launch-weighted sum a step and the device kernels one call at each
-   launched, which must be the plan's and, for the backward, nothing
-   else), with the stated tolerance, timed with CUDA events over
+   dq, dk/dv; the zoo: the LayerNorm forward and backward (dx, dscale
+   and dbias; bitwise equal over two calls, two launches a call and no
+   other kernel) at BERT-base's and ViT-B/16's rows, the GroupNorm
+   forward and backward at all 12 of ResNet-50's slab shapes, each with
+   its launch-weighted sum a step and the device kernels one call at
+   each launched, which must be the plan's and, for the backward,
+   nothing else), with the stated tolerance, timed with CUDA events over
    CUDA-graph replays beside the plain version (the GroupNorm's at the
    stem's and last stage's slabs only), the library call where one
-   exists (F.group_norm's backward takes x, weight and bias), and its
-   bound on this card. The times are cold: the calls cycle over copies
+   exists (F.layer_norm's and F.group_norm's backwards take x, weight
+   and bias), and its bound on this card. The times are cold: the calls cycle over copies
    of the inputs that together exceed twice the L2 cache, as the main
    paths find each layer's inputs out of L2; the warm time (the same
    inputs again and again) is kept beside them;
@@ -64,8 +65,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    before it and read just after: its norm kernels launched, losses
    finite, parameters moved; the steady step, samples/s, MFU (one
    step's FLOPs from FlopCounterMode), peak memory, and a profiled step,
-   in which each of ResNet's GroupNorm backward calls must make its two
-   CUDA launches and no arithmetic in torch (no plain dscale/dbias).
+   in which each of BERT's and ViT's LayerNorm and ResNet's GroupNorm
+   backward calls must make its two CUDA launches and no arithmetic in
+   torch (no plain dscale/dbias).
 
 The run takes 2.5-4 minutes by how fast the host is, well inside a
 10-minute limit.
@@ -584,12 +586,48 @@ def _norm_rows(specs, torch):
     return rows
 
 
+def check_ln_backward(torch, ln, got, x, g, scale, eps):
+    """(dx, dscale, dbias) from the kernels against the plain backward;
+    returns the largest absolute error of each. dx: one bf16 ulp plus
+    cancellation between its terms, atol 1e-2 of the largest entry;
+    dscale and dbias: f32 sums over the rows in another order than
+    torch.sum's, rtol 1e-5 and, column by column, atol 1e-5 of the sum
+    of the terms' magnitudes (a sum near 0 of large terms): g·x·r and
+    g·mean·r for dscale (norm is their difference, and the two row
+    means differ by f32 rounding), g for dbias."""
+    ref = ln.layernorm_bwd_reference(x, g, scale, eps)
+    d = x.shape[-1]
+    x32, g32 = x.float().reshape(-1, d), g.float().reshape(-1, d)
+    mean = x32.mean(-1, keepdim=True)
+    centered = x32 - mean
+    r = torch.rsqrt((centered * centered).mean(-1, keepdim=True) + eps)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=1 / 128,
+                               atol=1e-2 * float(ref[0].float().abs().max()))
+    for name, out, want, terms in (
+            ("dscale", got[1], ref[1],
+             g32.abs() * (x32.abs() + mean.abs()) * r),
+            ("dbias", got[2], ref[2], g32.abs())):
+        bound = 1e-5 * want.abs() + 1e-5 * terms.sum(0)
+        if not bool(((out - want).abs() <= bound).all()):
+            raise AssertionError(f"layernorm_backward {name}: max abs err "
+                                 f"{float((out - want).abs().max())} over "
+                                 f"rtol 1e-5, atol 1e-5 * sum|terms|")
+    return {name: float((a.float() - b.float()).abs().max())
+            for name, a, b in zip(("dx", "dscale", "dbias"), got, ref)}
+
+
 def check_layernorm(torch, ops, dev):
-    """The LayerNorm forward and dx kernels at BERT-base's and ViT-B/16's
-    rows (bf16); returns their two rows."""
+    """The LayerNorm forward and its whole backward (dx, dscale, dbias) at
+    BERT-base's and ViT-B/16's rows (bf16); returns their two rows. The
+    backward is held against its plain version, bitwise equal over two
+    calls, and its device kernels one call at each shape launched must be
+    its two and nothing else; its library yardstick is F.layer_norm's
+    autograd backward for x, weight and bias."""
     ln = ops.layernorm
     layer_norm = torch.nn.functional.layer_norm
-    specs = {"layernorm": {}, "layernorm_bwd_dx": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    specs = {"layernorm": {}, "layernorm_backward": {}}
+    backwards = []
     for key, (rows, d, eps) in LN_SHAPES.items():
         gen = torch.Generator(device=dev).manual_seed(SEED + rows)
         x = (torch.randn(rows, d, device=dev, generator=gen) * 3 + 1).to(
@@ -598,17 +636,19 @@ def check_layernorm(torch, ops, dev):
         scale = torch.rand(d, device=dev, generator=gen) + 0.5
         bias = torch.randn(d, device=dev, generator=gen)
         y = ln._forward(x, scale, bias, eps)
-        dx = ln.layernorm_bwd_dx(x, g, scale, eps)
+        got = ln.layernorm_backward(x, g, scale, eps)
+        again = ln.layernorm_backward(x, g, scale, eps)
         ref_y = ln.layernorm_reference(x, scale, bias, eps)
-        ref_dx = ln.layernorm_bwd_dx_reference(x, g, scale, eps)
         torch.cuda.synchronize()
-        # y: one bf16 ulp (f32 sums in another order); dx: the same plus
-        # cancellation between its terms, atol 1e-2 of the largest entry.
-        dx_atol = 1e-2 * float(ref_dx.float().abs().max())
+        # y: one bf16 ulp (f32 sums in another order).
         torch.testing.assert_close(y.float(), ref_y.float(), rtol=1 / 128,
                                    atol=1e-5)
-        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=1 / 128,
-                                   atol=dx_atol)
+        errors = check_ln_backward(torch, ln, got, x, g, scale, eps)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("layernorm_backward: two calls gave "
+                                 "different dx, dscale or dbias")
+        del got, again
+        backwards.append((x, g, scale, eps))
         n = rows * d
         weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
         base = {"route": "cuda",
@@ -616,11 +656,16 @@ def check_layernorm(torch, ops, dev):
                 "shape": {"rows": rows, "d": d, "eps": eps, "dtype": "bf16",
                           "model": key}}
 
-        def library_bwd(x, g, d=d, eps=eps, weight=weight, wbias=wbias):
-            return layer_norm(x, (d,), weight, wbias, eps), x, g
+        def library_bwd(x, g, d=d, eps=eps,
+                        weight=weight.clone().requires_grad_(),
+                        wbias=wbias.clone().requires_grad_()):
+            return layer_norm(x, (d,), weight, wbias, eps), (x, weight, wbias), g
 
-        # Bytes: x read and y written (dx: x and g read, dx written),
-        # the f32 vectors once; ~8 (dx ~14) f32 operations an element.
+        # Bytes: x read and y written (the backward: x and g read, dx
+        # written), the f32 vectors once (scale read, dscale and dbias
+        # written); ~8 (~18) f32 operations an element. The backward's
+        # [P, d, 2] f32 partials, written and read, are its kernels' own
+        # traffic, not the function's: printed beside the bound.
         specs["layernorm"][key] = (
             dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:36",
                  tolerance="rtol 1/128 (one bf16 ulp), atol 1e-5",
@@ -631,15 +676,41 @@ def check_layernorm(torch, ops, dev):
             lambda x, s, b, d=d, eps=eps, weight=weight, wbias=wbias:
                 layer_norm(x, (d,), weight, wbias, eps),
             (x, scale, bias), 2 * n * 2 + 2 * d * 4, 8 * n, None)
-        specs["layernorm_bwd_dx"][key] = (
-            dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:61",
-                 tolerance="rtol 1/128, atol 1e-2 * max|dx|",
-                 max_abs_err=float((dx.float() - ref_dx.float()).abs().max()),
-                 library="F.layer_norm backward (autograd), dx"),
-            lambda x, g, s, eps=eps: ln.layernorm_bwd_dx(x, g, s, eps),
-            lambda x, g, s, eps=eps: ln.layernorm_bwd_dx_reference(x, g, s, eps),
-            None, (x, g, scale), 3 * n * 2 + d * 4, 14 * n, library_bwd)
-    return _norm_rows(specs, torch)
+        blocks = ln.layernorm_bwd_blocks(rows, sms)
+        specs["layernorm_backward"][key] = (
+            dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:61 (dx) and "
+                                ":102-111 (dscale, dbias)",
+                 tolerance="dx rtol 1/128, atol 1e-2 * max|dx|; dscale, "
+                           "dbias rtol 1e-5, atol 1e-5 * sum|terms| a column",
+                 max_abs_err=errors["dx"], max_abs_err_params=errors,
+                 bitwise_deterministic=True,
+                 library="F.layer_norm backward (autograd): dx, dweight, dbias",
+                 cuda_launches_per_call=2, blocks=blocks,
+                 partials_bytes=2 * blocks * d * 2 * 4),
+            lambda x, g, s, eps=eps: ln.layernorm_backward(x, g, s, eps),
+            lambda x, g, s, eps=eps: ln.layernorm_bwd_reference(x, g, s, eps),
+            None, (x, g, scale), 3 * n * 2 + 3 * d * 4, 18 * n, library_bwd)
+    # One call at each shape: the kernels the device ran.
+    launched = kernel_launch_counts(torch, lambda: [
+        ln.layernorm_backward(*args) for args in backwards])
+    if not all("layernorm" in k for k in launched) \
+            or sum(launched.values()) != 2 * len(backwards):
+        raise AssertionError(f"layernorm_backward launched {launched} at "
+                             f"{len(backwards)} shapes, planned 2 a call")
+    del backwards
+    rows = _norm_rows(specs, torch)
+    rows[1]["device_kernels_2_calls"] = launched
+    first = next(iter(LN_SHAPES))
+    for key, r in {first: rows[1], **rows[1]["other_shapes"]}.items():
+        log(f"  layernorm_backward {key}: {r['ms'] * 1e3:.2f} us cold, "
+            f"{r['warm_ms'] * 1e3:.2f} warm, F.layer_norm backward "
+            f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f} "
+            f"(+ partials {r['partials_bytes']} bytes, "
+            f"{r['partials_bytes'] / H100_BYTES_PER_S * 1e6:.2f} us), "
+            f"{r['blocks']} blocks" + (
+                "; slower than F.layer_norm's backward"
+                if r["ms"] > r["library_ms"] else ""))
+    return rows
 
 
 def kernel_launch_counts(torch, run) -> dict:
@@ -1131,10 +1202,11 @@ def zoo_slice(torch, module, cfg, kwargs, training, experiment, telemetry,
     it: the needed kernels launched, the losses finite, the parameters
     moved; the steady step (mean of steps 2-4) and its spread,
     samples/s, MFU, peak memory; then one profiled step. With `node`
-    (ResNet's `_GroupNormBackward`), the profiled step must show each of
-    that node's calls making two CUDA launches and no arithmetic in torch
-    (no plain dscale/dbias path), and the kernels the profiler attributes
-    to them being the GroupNorm backward's."""
+    (ResNet's `_GroupNormBackward`, BERT's and ViT's
+    `_LayerNormBackward`), the profiled step must show each of that
+    node's calls making its planned CUDA launches (NODE_KERNELS) and no
+    arithmetic in torch (no plain dscale/dbias path), and the kernels
+    the profiler attributes to them being its norm's."""
     exp = module.make_experiment(cfg, train_steps=4, log_every_steps=1,
                                  **kwargs)
     built = {}
@@ -1211,15 +1283,16 @@ def zoo_slice(torch, module, cfg, kwargs, training, experiment, telemetry,
                                exp.optimizer(model), batch, steady,
                                flops_lib=flops_lib, node=node))
     if node is not None:
+        prefix, planned = NODE_KERNELS[node]
         under = result["profiled_step"]["under_node"]
         arithmetic = [op for op in under["ops"]
                       if op.startswith("aten::") and op not in HOST_ONLY_OPS]
         kernels = under["kernels"]
         if (under["count"] == 0 or arithmetic
-                or under["launches"] != 2 * under["count"]
+                or under["launches"] != planned * under["count"]
                 or (kernels and (
-                    not all(k.startswith("groupnorm_") for k in kernels)
-                    or sum(kernels.values()) != 2 * under["count"]))):
+                    not all(k.startswith(prefix) for k in kernels)
+                    or sum(kernels.values()) != planned * under["count"]))):
             raise AssertionError(f"{node} in the profiled step: {under}")
     result["mfu"] = (result["counted_flops_per_step"] / steady
                      / H100_BF16_FLOPS)
@@ -1381,6 +1454,13 @@ def burst(port: int, prompts, new_tokens: int):
 PORT_KERNEL = re.compile(r"(flash_\w+|groupnorm_\w+|layernorm_\w+|rmsnorm_\w+"
                          r"|quantize_int8_kernel|split_kernel|combine_kernel)"
                          r"(<[^>(]*>)?")
+
+
+# A kernel backward's autograd node: the name prefix of its kernels and
+# its CUDA launches a call (the dx or column-sum kernel, then the
+# parameter sums).
+NODE_KERNELS = {"_GroupNormBackward": ("groupnorm_", 2),
+                "_LayerNormBackward": ("layernorm_", 2)}
 
 
 # The only operators a kernel backward may call under its autograd node
@@ -1710,7 +1790,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    norm_counted = (layernorm.layernorm, layernorm.layernorm_bwd_dx,
+    norm_counted = (layernorm.layernorm, layernorm.layernorm_backward,
                     groupnorm.groupnorm, groupnorm.groupnorm_backward)
     zoo_results = {}
     for name, (module, cfg, kwargs) in _zoo_cases(zoo, torch, False).items():
@@ -1718,14 +1798,16 @@ def main() -> int:
         zoo_results[name] = zoo_slice(
             torch, module, cfg, kwargs, training, experiment, telemetry,
             flops_lib, norm_counted, needed, dev,
-            node="_GroupNormBackward" if module is resnet else None)
+            node="_GroupNormBackward" if module is resnet
+            else "_LayerNormBackward")
         log(f"zoo slice, {name}: {json.dumps(zoo_results[name])} on {card}")
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.
     primary = {"paged_int8_window_attention": "serving fused_burst",
                "int8_decode_attention": "serving gather_burst",
-               "layernorm": "zoo bert_base", "layernorm_bwd_dx": "zoo bert_base",
+               "layernorm": "zoo bert_base",
+               "layernorm_backward": "zoo bert_base",
                "groupnorm": "zoo resnet50",
                "groupnorm_backward": "zoo resnet50"}
     for row in rows:

@@ -757,7 +757,7 @@ def test_cuda_norm_autograd_launches_both_kernels(cuda, norm):
     ref_fn = (lambda *a: t_layernorm.layernorm_reference(*a, 1e-6)) \
         if norm == "layernorm" \
         else (lambda *a: t_groupnorm.groupnorm_reference(*a, 4, 1e-6))
-    fwd, bwd = getattr(mod, norm), (t_layernorm.layernorm_bwd_dx
+    fwd, bwd = getattr(mod, norm), (t_layernorm.layernorm_backward
                                     if norm == "layernorm"
                                     else t_groupnorm.groupnorm_backward)
     before = (fwd.launches, bwd.launches)
@@ -770,3 +770,112 @@ def test_cuda_norm_autograd_launches_both_kernels(cuda, norm):
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _ln_inputs(cuda, rows, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(rows, d, device=cuda, generator=gen) * 3 + 1).to(dtype)
+    g = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    scale = torch.rand(d, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(d, device=cuda, generator=gen)
+    return x, g, scale, bias
+
+
+def _ln_param_terms(x, g, eps):
+    """The magnitudes of the terms behind dscale and dbias, [rows, d]:
+    g·x·r and g·mean·r, whose difference is g·norm (the two packages'
+    row means differ by f32 rounding, so an x near its row's mean leaves
+    a norm with a large relative error), and g."""
+    d = x.shape[-1]
+    x32, g32 = x.float().reshape(-1, d), g.float().reshape(-1, d)
+    mean = x32.mean(-1, keepdim=True)
+    centered = x32 - mean
+    r = torch.rsqrt((centered * centered).mean(-1, keepdim=True) + eps)
+    return g32.abs() * (x32.abs() + mean.abs()) * r, g32.abs()
+
+
+def _check_ln_backward(got, x, g, scale, eps, dtype):
+    """dx at `_norm_tolerances`; dscale and dbias (f32 sums over the rows
+    in another order than torch.sum's) at rtol 1e-5 and, column by
+    column, atol 1e-5 of the sum of the terms' magnitudes
+    (`_ln_param_terms`)."""
+    ref = t_layernorm.layernorm_bwd_reference(x, g, scale, eps)
+    _, tol_dx = _norm_tolerances(dtype, ref[0])
+    assert got[0].dtype == dtype
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol_dx)
+    d = x.shape[-1]
+    for name, out, want, terms in zip(("dscale", "dbias"), got[1:], ref[1:],
+                                      _ln_param_terms(x, g, eps)):
+        assert out.dtype == torch.float32 and out.shape == (d,), name
+        bound = 1e-5 * want.abs() + 1e-5 * terms.abs().sum(0)
+        assert bool(((out - want).abs() <= bound).all()), (
+            name, float((out - want).abs().max()))
+
+
+# d: BERT's and ViT's 768 (the column sums in registers), 1024 (in
+# registers in bf16, in shared memory in f32), 2048 (shared memory in
+# bf16; the loop kernel's 16-byte loads in f32) and 771 (no 16-byte
+# vector divides it: the loop kernel's scalar loads); rows: one, fewer
+# than the grid's warps, and BERT-base's 4096.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [768, 1024, 771, 2048])
+@pytest.mark.parametrize("rows", [1, 37, 4096])
+def test_cuda_layernorm_backward_matches_plain(cuda, rows, d, dtype):
+    x, g, scale, _ = _ln_inputs(cuda, rows, d, dtype, rows + d)
+    launches = t_layernorm.layernorm_backward.launches
+    got = t_layernorm.layernorm_backward(x, g, scale, 1e-12)
+    torch.cuda.synchronize()
+    assert t_layernorm.layernorm_backward.launches == launches + 1
+    _check_ln_backward(got, x, g, scale, 1e-12, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [768, 771])
+def test_cuda_layernorm_backward_launches_its_kernels(cuda, d, dtype):
+    """One backward call runs two LayerNorm kernels on the device (the
+    column sums with dx, then the parameter sums) and nothing else; with
+    the parameters frozen, the dx kernel alone."""
+    x, g, scale, _ = _ln_inputs(cuda, 333, d, dtype, 21)
+    torch.cuda.synchronize()
+    for need_params, planned in ((True, 2), (False, 1)):
+        ran = _device_kernels(lambda: t_layernorm.layernorm_backward(
+            x, g, scale, 1e-12, need_params=need_params))
+        assert all("layernorm" in k for k in ran), ran
+        assert sum(ran.values()) == planned, ran
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [768, 771, 2048])
+def test_cuda_layernorm_backward_is_bitwise_deterministic(cuda, d, dtype):
+    """Two backward calls give the same bits for dx, dscale and dbias:
+    the blocks' partials are added in a fixed order, no atomics."""
+    x, g, scale, _ = _ln_inputs(cuda, 4096, d, dtype, 22)
+    first = t_layernorm.layernorm_backward(x, g, scale, 1e-12)
+    second = t_layernorm.layernorm_backward(x, g, scale, 1e-12)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d", [768, 771])
+@pytest.mark.parametrize("frozen", sorted(FROZEN))
+def test_cuda_layernorm_frozen_inputs_get_no_gradient(cuda, frozen, d):
+    """A frozen scale or bias (or x) gets None for its gradient through
+    autograd, and the other gradients keep their bits: the kernels
+    without dx sum the same columns in the same order."""
+    x, g, scale, bias = _ln_inputs(cuda, 333, d, torch.bfloat16, 23)
+    grads = []
+    for freeze in ((), FROZEN[frozen]):
+        leaves = [t.clone().requires_grad_(i not in freeze)
+                  for i, t in enumerate((x, scale, bias))]
+        t_layernorm.layernorm(*leaves, 1e-12).backward(g)
+        grads.append([leaf.grad for leaf in leaves])
+    torch.cuda.synchronize()
+    full, part = grads
+    for i, (got, want) in enumerate(zip(part, full)):
+        if i in FROZEN[frozen]:
+            assert got is None, i
+        else:
+            assert torch.equal(got, want), i

@@ -3,11 +3,15 @@ the shape and the direction: every ResNet-50 GroupNorm gets the one-pass
 launch, forward and backward (whose blocks hold x's and g's tiles),
 within the card's block and cluster limits, its spans hold whole groups
 and whole 32-byte sectors, and a slab too large for a cluster keeps the
-two launches. Runs on the CPU: nothing here launches a kernel."""
+two launches. The LayerNorm backward's grid
+(`ops.layernorm.layernorm_bwd_blocks`), a function of the rows and the
+card's SM count alone. Runs on the CPU: nothing here launches a
+kernel."""
 
 import pytest
 
 from tf_yarn_tpu_torch.ops import groupnorm as t_groupnorm
+from tf_yarn_tpu_torch.ops import layernorm as t_layernorm
 
 # (HW, C) of ResNet-50's 53 GroupNorms a step at batch 128, 32 groups,
 # with how many of each (models/resnet.py: the stem, then stages of 3, 4,
@@ -139,3 +143,24 @@ def test_dx_plan_takes_odd_shapes_by_shape_alone(b, hw, c, groups, one_pass):
         assert plan == t_groupnorm.groupnorm_plan(b, hw, c, groups, itemsize,
                                                   backward=True)
         assert plan.smem <= t_groupnorm.MAX_SMEM
+
+
+# Rows of one call: one, fewer than a block's warps, BERT-base's (32 x
+# 128 tokens) and ViT-B/16's (128 x 197), on the H100's 132 SMs and a
+# smaller card.
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("rows", [1, 7, 333, 32 * 128, 128 * 197])
+def test_layernorm_backward_grid_is_the_rows_capped_by_the_card(rows, sms):
+    """Every block has rows to walk, each warp BWD_ROWS_PER_WARP rows
+    unless the card's cap on blocks gives it more, and the partials' rows
+    (one a block) stay at most BWD_BLOCKS_PER_SM for each SM, so their
+    second pass is small."""
+    blocks = t_layernorm.layernorm_bwd_blocks(rows, sms)
+    warps = t_layernorm.BWD_WARPS
+    per_block = warps * t_layernorm.BWD_ROWS_PER_WARP
+    assert 1 <= blocks <= t_layernorm.BWD_BLOCKS_PER_SM * sms
+    assert (blocks - 1) * per_block < rows
+    if blocks < t_layernorm.BWD_BLOCKS_PER_SM * sms:
+        assert blocks * per_block >= rows
+    # The loop kernel's column sums and row statistics fit a block.
+    assert (2 * t_layernorm.MAX_PARAMS_WIDTH + 2 * warps) * 4 <= 232448

@@ -100,6 +100,55 @@ def test_layernorm_bf16_matches_jax():
                                    atol=2 ** -7, err_msg=name)
 
 
+# (37, 771): a width no 16-byte vector divides (the card's loop kernel).
+@pytest.mark.parametrize("shape", [(4, 32), (3, 7, 48), (300, 40), (37, 771)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_layernorm_bwd_reference_matches_the_jax_backward(shape):
+    """The plain backward (dx, dscale, dbias) against the JAX custom_vjp's
+    backward: its dx kernel in interpret mode, its XLA dscale and dbias;
+    f32, sums in another order (dscale and dbias over up to 300 rows)."""
+    from tf_yarn_tpu.ops import layernorm as j_layernorm
+
+    x, scale, bias, g = _inputs(shape, seed=shape[0] + shape[-1], offset=1.0)
+    want = j_layernorm._layernorm_bwd(
+        1e-12, 256, True, True, tuple(map(jnp.asarray, (x, scale, bias))),
+        jnp.asarray(g))
+    got = t_layernorm.layernorm_bwd_reference(
+        torch.tensor(x), torch.tensor(g), torch.tensor(scale), 1e-12)
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, want):
+        assert a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    xt, gt, st = (torch.tensor(t) for t in (x, g, scale))
+    assert t_layernorm.layernorm_backward(xt, gt, st, 1e-12,
+                                          need_dx=False)[0] is None
+    assert t_layernorm.layernorm_backward(
+        xt, gt, st, 1e-12, need_params=False)[1:] == (None, None)
+
+
+@pytest.mark.parametrize("frozen", ["scale", "bias", "both"])
+def test_layernorm_frozen_parameters_get_no_gradient(frozen):
+    """A frozen scale or bias gets no gradient and leaves dx and the other
+    gradient as they are (the backward honours needs_input_grad)."""
+    x, scale, bias, w = _inputs((3, 5, 48), seed=8, offset=1.0)
+    grads = []
+    for freeze in (None, frozen):
+        leaves = [torch.tensor(t, requires_grad=True) for t in (x, scale, bias)]
+        if freeze in ("scale", "both"):
+            leaves[1].requires_grad_(False)
+        if freeze in ("bias", "both"):
+            leaves[2].requires_grad_(False)
+        (t_layernorm.layernorm(*leaves, 1e-6) * torch.tensor(w)).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    full, part = grads
+    assert torch.equal(part[0], full[0])
+    assert (part[1] is None) == (frozen in ("scale", "both"))
+    assert (part[2] is None) == (frozen in ("bias", "both"))
+    for got, want in zip(part[1:], full[1:]):
+        if got is not None:
+            assert torch.equal(got, want)
+
+
 # [B, H, W, C] and [B, L, C] slabs; one group, one channel a group.
 GROUPNORM_CASES = [((2, 4, 4, 16), 4), ((2, 6, 6, 32), 1),
                    ((2, 4, 4, 8), 8), ((3, 10, 12), 3)]

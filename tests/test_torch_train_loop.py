@@ -92,3 +92,45 @@ def test_ragged_batches_weight_the_throughput(package):
     samples_per_sec = registry.gauge("train/samples_per_sec").value
     assert samples_per_sec / steps_per_sec == pytest.approx(10 / 3)
     assert registry.counter("train/samples_total").value - before == 10
+
+
+# The elastic launcher's worker counts: unset (not an elastic run), an
+# attempt short of its reservation, and a full one.
+ELASTIC = {"unset": None, "short": ("2", "4"), "full": ("4", "4")}
+
+
+@pytest.mark.parametrize("elastic", sorted(ELASTIC))
+def test_capacity_gauges_and_placement_timing_match_jax(elastic, monkeypatch):
+    """4 steps of batch 2 on one CPU device: both registries hold the same
+    keys, among them ``train/mesh_devices`` (1.0), ``train/degraded``
+    (1.0 only for an elastic attempt below its full worker count) and
+    the ``train/globalize_seconds`` histogram of batch placement. The
+    JAX package's async checkpoint writer (``checkpoint/seconds{op=
+    save_submit|wait}``) is not ported yet; no checkpoint is written
+    here."""
+    from tf_yarn_tpu import constants
+    from tf_yarn_tpu import telemetry as j_telemetry
+
+    for name in (constants.ENV_ELASTIC_WORKERS,
+                 constants.ENV_ELASTIC_MAX_WORKERS):
+        monkeypatch.delenv(name, raising=False)
+    if ELASTIC[elastic]:
+        workers, most = ELASTIC[elastic]
+        monkeypatch.setenv(constants.ENV_ELASTIC_WORKERS, workers)
+        monkeypatch.setenv(constants.ENV_ELASTIC_MAX_WORKERS, most)
+    assert (t_training.ENV_ELASTIC_WORKERS,
+            t_training.ENV_ELASTIC_MAX_WORKERS) == (
+        constants.ENV_ELASTIC_WORKERS, constants.ENV_ELASTIC_MAX_WORKERS)
+    snapshots = {}
+    for package, module in (("jax", j_telemetry), ("port", telemetry)):
+        module.get_registry().clear()
+        RUNS[package](_batches([2] * 4), [], train_steps=4, log_every_steps=2)
+        snapshots[package] = {
+            key: value for key, value in module.get_registry().snapshot().items()
+            if not key.startswith("checkpoint/seconds")}
+    assert sorted(snapshots["port"]) == sorted(snapshots["jax"])
+    degraded = 1.0 if elastic == "short" else 0.0
+    for snapshot in snapshots.values():
+        assert snapshot["train/mesh_devices"] == 1.0
+        assert snapshot["train/degraded"] == degraded
+        assert snapshot["train/globalize_seconds_count"] >= 4

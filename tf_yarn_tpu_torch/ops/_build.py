@@ -46,6 +46,7 @@ _SIGNATURES = {
     "tyt_rmsnorm_bwd_dx": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "tyt_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "tyt_layernorm_bwd_dx": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "tyt_layernorm_bwd": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "tyt_groupnorm": [_P] * 6 + [_I] * 10 + [_F, _I, _P],
     "tyt_groupnorm_bwd": [_P] * 8 + [_I] * 11 + [_P],
     "tyt_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],

@@ -85,6 +85,7 @@
 #include <vector>
 
 #include "common.cuh"
+#include "param_grads.cuh"
 
 namespace coop = cooperative_groups;
 
@@ -579,32 +580,15 @@ int backward_one_pass(const void* x, const void* g, const float* scale,
 // dscale and dbias from the backward's partials
 // ---------------------------------------------------------------------------
 
-constexpr int kSumCols = 32;  // (channel, quantity) columns a block
-constexpr int kSumRows = 8;   // threads down the partials' rows
+constexpr int kSumRows = 8;  // threads down the partials' rows
 
-// dscale[c] = sum_i partials[i, c, 0], dbias[c] = sum_i partials[i, c, 1]
-// over the n rows of partials [n, C, 2] (n images, or images x chunks):
-// each of kSumRows threads sums every kSumRows-th row in order, then the
-// first adds the kSumRows sums in order. Either output may be null.
-__global__ void __launch_bounds__(kSumCols * kSumRows)
+// The n rows of partials [n, C, 2] (n images, or images x chunks) summed
+// into dscale and dbias (param_grads.cuh).
+__global__ void __launch_bounds__(tyt::kSumCols * kSumRows)
 groupnorm_param_grads_kernel(const float* __restrict__ partials, int n,
                              int c, float* __restrict__ dscale,
                              float* __restrict__ dbias) {
-  __shared__ float rows[kSumRows][kSumCols];
-  const int tx = threadIdx.x % kSumCols, ty = threadIdx.x / kSumCols;
-  const int i = blockIdx.x * kSumCols + tx;  // column: channel i / 2
-  const size_t width = 2 * static_cast<size_t>(c);
-  float s = 0.f;
-  if (i < 2 * c) {
-    for (int r = ty; r < n; r += kSumRows) s += partials[r * width + i];
-  }
-  rows[ty][tx] = s;
-  __syncthreads();
-  if (ty != 0 || i >= 2 * c) return;
-#pragma unroll
-  for (int k = 1; k < kSumRows; ++k) s += rows[k][tx];
-  float* out = (i & 1) ? dbias : dscale;
-  if (out != nullptr) out[i >> 1] = s;
+  tyt::sum_param_partials<kSumRows>(partials, n, c, dscale, dbias);
 }
 
 // ---------------------------------------------------------------------------
@@ -935,8 +919,8 @@ extern "C" int tyt_groupnorm_bwd(const void* x, const void* g,
     rows_of_partials = batch * chunks;
   }
   if (status != 0 || !params) return status;
-  groupnorm_param_grads_kernel<<<(2 * c + kSumCols - 1) / kSumCols,
-                                 kSumCols * kSumRows, 0, st>>>(
+  groupnorm_param_grads_kernel<<<tyt::param_grads_blocks(c),
+                                 tyt::kSumCols * kSumRows, 0, st>>>(
       partials, rows_of_partials, c, dscale, dbias);
   return static_cast<int>(cudaGetLastError());
 }

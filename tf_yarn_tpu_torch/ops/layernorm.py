@@ -3,16 +3,21 @@ tf_yarn_tpu/ops/layernorm.py (the norm of BERT and ViT).
 
 `layernorm` is differentiable through a `torch.autograd.Function`: the
 forward is the hand-written kernel of csrc/layernorm.cu (replacing the
-TPU kernel `_layernorm_kernel`), dx comes from the dx kernel of the same
-file (replacing `_layernorm_bwd_dx_kernel`), and dscale = Σ g·norm and
-dbias = Σ g stay plain torch reductions outside the kernel, as the JAX
-package leaves them to XLA. Each wrapper dispatches on the tensor's
-device: CUDA tensors launch the kernel (counted in
-``layernorm.launches`` and ``layernorm_bwd_dx.launches``), CPU tensors
-take the plain versions the tests hold against the JAX package.
+TPU kernel `_layernorm_kernel`), and the backward (`layernorm_backward`)
+the same file's kernels: dx (replacing `_layernorm_bwd_dx_kernel`) and,
+from the same read of x and g, the column sums dscale = Σ g·norm and
+dbias = Σ g that the JAX package leaves to XLA, added over the blocks by
+a second small launch. Each wrapper dispatches on the tensor's device:
+CUDA tensors launch the kernels (counted in ``layernorm.launches``,
+``layernorm_backward.launches`` and, for the dx kernel called alone,
+``layernorm_bwd_dx.launches``), CPU tensors take the plain versions the
+tests hold against the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,19 +35,57 @@ def layernorm_reference(x: torch.Tensor, scale: torch.Tensor,
     return (norm * scale.float() + bias.float()).to(x.dtype)
 
 
-def layernorm_bwd_dx_reference(x: torch.Tensor, g: torch.Tensor,
-                               scale: torch.Tensor,
-                               eps: float = 1e-12) -> torch.Tensor:
-    """dx = r·(gs − mean(gs) − norm·mean(gs·norm)), gs = g·scale, in f32,
-    returned in x's dtype (layernorm.py:61-73)."""
-    x32 = x.float()
-    gs = g.float() * scale.float()
+def layernorm_bwd_reference(x: torch.Tensor, g: torch.Tensor,
+                            scale: torch.Tensor, eps: float = 1e-12
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dbias) in f32: dx = r·(gs − mean(gs) −
+    norm·mean(gs·norm)), gs = g·scale (layernorm.py:61-73), returned in
+    x's dtype; dscale = Σ_rows g·norm and dbias = Σ_rows g
+    (layernorm.py:102-111), f32 [d]."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(-1, d)
+    g32 = g.float().reshape(-1, d)
+    gs = g32 * scale.float()
     centered = x32 - x32.mean(-1, keepdim=True)
     r = torch.rsqrt((centered * centered).mean(-1, keepdim=True) + eps)
     norm = centered * r
     dx = r * (gs - gs.mean(-1, keepdim=True)
               - norm * (gs * norm).mean(-1, keepdim=True))
-    return dx.to(x.dtype)
+    return dx.reshape(x.shape).to(x.dtype), (g32 * norm).sum(0), g32.sum(0)
+
+
+def layernorm_bwd_dx_reference(x: torch.Tensor, g: torch.Tensor,
+                               scale: torch.Tensor,
+                               eps: float = 1e-12) -> torch.Tensor:
+    """dx of `layernorm_bwd_reference`, in x's dtype."""
+    return layernorm_bwd_reference(x, g, scale, eps)[0]
+
+
+# The backward's grid: blocks of BWD_WARPS warps (csrc/layernorm.cu
+# kBwdWarps), each warp given BWD_ROWS_PER_WARP rows or more, at most
+# BWD_BLOCKS_PER_SM blocks for each streaming multiprocessor, each block
+# writing one [d, 2] row of f32 partials. The loop kernel keeps the
+# [2, d] column sums in shared memory: d up to MAX_PARAMS_WIDTH.
+BWD_WARPS = 8
+BWD_ROWS_PER_WARP = 4
+BWD_BLOCKS_PER_SM = 2
+MAX_PARAMS_WIDTH = (232448 // 4 - 2 * BWD_WARPS) // 2
+
+
+def layernorm_bwd_blocks(rows: int, sms: int) -> int:
+    """Blocks of the backward that sums dscale and dbias: one for every
+    BWD_WARPS x BWD_ROWS_PER_WARP rows, at most BWD_BLOCKS_PER_SM x `sms`
+    (a function of the shape and the card alone, so the sums' order is
+    too). Fewer, longer-lived warps cost each block's column sums and
+    partials less at BERT-base's 4096 rows; ViT-B/16's 25216 fill the
+    card."""
+    per_block = BWD_WARPS * BWD_ROWS_PER_WARP
+    return max(1, min(-(-rows // per_block), BWD_BLOCKS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_vector(name: str, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -105,9 +148,62 @@ def layernorm_bwd_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     return dx
 
 
+def layernorm_backward(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                       eps: float = 1e-12, need_dx: bool = True,
+                       need_params: bool = True
+                       ) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dx, dscale, dbias) of `layernorm` for the cotangent g (x's shape,
+    cast to x's dtype): dx in x's dtype unless `need_dx` is False, dscale
+    and dbias f32 [d] unless `need_params` is False (each then None).
+    CUDA tensors launch the backward's kernels: without the parameters
+    the dx kernel alone (`layernorm_bwd_dx`), else the column-sum kernel
+    and the parameter sums (2 launches). CPU tensors take
+    `layernorm_bwd_reference`."""
+    if not (need_dx or need_params):
+        raise ValueError("layernorm_backward needs dx or the parameters")
+    g = g.to(x.dtype)
+    if not x.is_cuda:
+        dx, dscale, dbias = layernorm_bwd_reference(x, g, scale, eps)
+        return (dx if need_dx else None, dscale if need_params else None,
+                dbias if need_params else None)
+    if not need_params:
+        dx = layernorm_bwd_dx(x, g, scale, eps)
+        layernorm_backward.launches += 1
+        return dx, None, None
+    g = g.contiguous()
+    _build.require_cuda("x", x, _build.DTYPE_CODES)
+    _build.require_cuda("g", g, _build.DTYPE_CODES)
+    if g.shape != x.shape:
+        raise ValueError(f"g must have x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
+    scale = _check_vector("scale", x, scale)
+    d = x.shape[-1]
+    if d > MAX_PARAMS_WIDTH:
+        raise ValueError(f"dscale and dbias are summed for d up to "
+                         f"{MAX_PARAMS_WIDTH}, got {d}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    dscale, dbias = torch.empty(d, **f32), torch.empty(d, **f32)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, dscale.zero_(), dbias.zero_()
+    blocks = layernorm_bwd_blocks(rows, _sm_count(x.device))
+    partials = torch.empty(blocks, d, 2, **f32)
+    lib = _build.load_library()
+    status = lib.tyt_layernorm_bwd(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(),
+        None if dx is None else dx.data_ptr(), partials.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), rows, d, blocks, float(eps),
+        _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device),
+    )
+    _build.check(status, "layernorm_backward")
+    layernorm_backward.launches += 1
+    return dx, dscale, dbias
+
+
 class _LayerNorm(torch.autograd.Function):
     """The JAX `_layernorm` custom_vjp with ``kernel_bwd=True``
-    (layernorm.py:80-114)."""
+    (layernorm.py:80-114); a frozen x, scale or bias gets no gradient,
+    and the kernels compute only what is wanted."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
@@ -118,19 +214,11 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale, bias = ctx.saved_tensors
-        dx = dscale = dbias = None
-        if ctx.needs_input_grad[0]:
-            dx = layernorm_bwd_dx(x, g, scale, ctx.eps)
-        g32 = g.float().reshape(-1, x.shape[-1])
-        if ctx.needs_input_grad[1]:
-            x32 = x.float().reshape(-1, x.shape[-1])
-            centered = x32 - x32.mean(-1, keepdim=True)
-            norm = centered * torch.rsqrt(
-                (centered * centered).mean(-1, keepdim=True) + ctx.eps)
-            dscale = (g32 * norm).sum(0).to(scale.dtype)
-        if ctx.needs_input_grad[2]:
-            dbias = g32.sum(0).to(bias.dtype)
-        return dx, dscale, dbias, None
+        need_dx, need_scale, need_bias = ctx.needs_input_grad[:3]
+        dx, dscale, dbias = layernorm_backward(
+            x, g, scale, ctx.eps, need_dx, need_scale or need_bias)
+        return (dx, dscale.to(scale.dtype) if need_scale else None,
+                dbias.to(bias.dtype) if need_bias else None, None)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -143,3 +231,4 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 layernorm.launches = 0
 layernorm_bwd_dx.launches = 0
+layernorm_backward.launches = 0

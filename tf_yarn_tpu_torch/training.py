@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import inspect
 import logging
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -41,6 +42,11 @@ from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 
 _logger = logging.getLogger(__name__)
+
+# The elastic launcher's worker counts (tf_yarn_tpu/constants.py:46-47):
+# this attempt's and the full reservation's.
+ENV_ELASTIC_WORKERS = "TPU_YARN_ELASTIC_WORKERS"
+ENV_ELASTIC_MAX_WORKERS = "TPU_YARN_ELASTIC_MAX_WORKERS"
 
 
 class TrainState:
@@ -246,18 +252,38 @@ def _make_input_iter(input_fn, start_step: int):
 
 def _batch_placer(device: torch.device):
     """numpy (or torch) batch -> dict of tensors on `device`; integer
-    arrays become int64 (token ids index the embedding)."""
+    arrays become int64 (token ids index the embedding). Each placement
+    is a ``train/globalize`` span observed into the
+    ``train/globalize_seconds`` histogram, as the reference's
+    `make_batch_globalizer` (training.py:85-103); on the prefetch thread
+    it overlaps the step, so it is not in the interval breakdown."""
 
     def place(batch):
-        out = {}
-        for key, value in batch.items():
-            tensor = torch.as_tensor(np.asarray(value))
-            if not tensor.is_floating_point():
-                tensor = tensor.long()
-            out[key] = tensor.to(device, non_blocking=True)
+        with telemetry.span("train/globalize") as sp:
+            out = {}
+            for key, value in batch.items():
+                tensor = torch.as_tensor(np.asarray(value))
+                if not tensor.is_floating_point():
+                    tensor = tensor.long()
+                out[key] = tensor.to(device, non_blocking=True)
+        telemetry.get_registry().histogram(
+            "train/globalize_seconds").observe(sp.duration)
         return out
 
     return place
+
+
+def _degraded() -> float:
+    """1.0 when an elastic attempt runs below the full worker count
+    (training.py:622-633); 0.0 outside an elastic run or on a count
+    that does not parse."""
+    if not os.environ.get(ENV_ELASTIC_WORKERS):
+        return 0.0
+    try:
+        return float(int(os.environ[ENV_ELASTIC_WORKERS])
+                     < int(os.environ.get(ENV_ELASTIC_MAX_WORKERS, 0)))
+    except ValueError:
+        return 0.0
 
 
 def _count_train_flops(model, loss_fn, batch, grad_accum_steps: int) -> float:
@@ -300,6 +326,11 @@ def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
             "device (ROADMAP.md Queue 1 item 7, parallelism)")
     device = resolve_device(device)
     place = _batch_placer(device)
+    # Capacity gauges (training.py:622-636): the devices the step
+    # computes on, and whether an elastic attempt runs short of workers.
+    registry = telemetry.get_registry()
+    registry.gauge("train/mesh_devices").set(1.0)
+    registry.gauge("train/degraded").set(_degraded())
 
     input_resume_step = 0
     if core.model_dir:
