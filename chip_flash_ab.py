@@ -1,6 +1,6 @@
 """Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx|ln_bwd] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx|ln_bwd|decode] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
@@ -27,12 +27,18 @@ card. `--pass` picks the kernel:
   same rows, so that a package whose backward is a dx kernel beside
   plain dscale/dbias sums and one whose kernels give all three are
   timed alike; beside it `F.layer_norm`'s autograd backward for x,
-  weight and bias.
+  weight and bias;
+- `decode`: the int8 decode attention, paged
+  (`paged_int8_window_attention`) and dense (`int8_decode_attention`),
+  at the smoke's phase-3 shape (8 slots, lengths 1-4096 from the seed)
+  and at the serving slice's (`chip_smoke.SERVING_LENGTHS`), with each
+  CUDA kernel's device time a call from the profiler.
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dq, dkv, gn_fwd, gn_bwd and ln_bwd also
-whether two calls gave bitwise-equal outputs) and the card's name and power limit.
+against the plain versions (for dq, dkv, gn_fwd, gn_bwd, ln_bwd and
+decode also whether two calls gave bitwise-equal outputs) and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -285,8 +291,8 @@ def _time_ln_bwd(torch, smoke) -> dict:
             "warm_us": smoke.time_ms(backward, torch, arg_sets=(args,)) * 1e3,
             "bound_us": smoke.bound_ms(touched, 18 * x.numel())[0] * 1e3,
             "library_us": smoke.backward_ms(library, torch, sets)[0] * 1e3,
-            "kernel_us_per_call": smoke.split_combine_us(torch, backward, args,
-                                                         touched),
+            "kernel_us_per_call": smoke.device_kernels_us(torch, backward, args,
+                                                          touched),
             **{f"{name}_max_abs_err": float((a.float() - b).abs().max())
                for name, a, b in zip(("dx", "dscale", "dbias"), first, ref)},
         }
@@ -294,7 +300,48 @@ def _time_ln_bwd(torch, smoke) -> dict:
     return {"shapes": shapes, "bitwise_equal": bitwise}
 
 
-PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd")
+def _time_decode(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import decode_attention, quantize
+
+    ops = SimpleNamespace(decode_attention=decode_attention, quantize=quantize)
+    paged = decode_attention.paged_int8_window_attention
+    dense = decode_attention.int8_decode_attention
+    found, bitwise = {}, True
+    phase3, _, _ = smoke.paged_inputs(torch, ops, "cuda")
+    lengths = phase3[-1].tolist()
+    del phase3
+    cases = {
+        "paged_phase3": (paged, lambda: smoke.paged_inputs(torch, ops, "cuda")),
+        "paged_serving": (paged, lambda: smoke.paged_inputs(
+            torch, ops, "cuda", smoke.SERVING_LENGTHS, max_blocks=32)),
+        "dense_phase3": (dense, lambda: smoke.dense_inputs(
+            torch, ops, "cuda", [n + 1 for n in lengths])),
+        "dense_serving": (dense, lambda: smoke.dense_inputs(
+            torch, ops, "cuda", [n + 1 for n in smoke.SERVING_LENGTHS],
+            seq=512)),
+    }
+    plain = {paged: decode_attention.paged_int8_window_attention_reference,
+             dense: decode_attention.int8_decode_attention_reference}
+    for key, (fn, make) in cases.items():
+        args, n_bytes, n_flops = make()
+        first, second = fn(*args), fn(*args)
+        ref = plain[fn](*args)
+        torch.cuda.synchronize()
+        bitwise &= bool(torch.equal(first, second))
+        cold = smoke.cold_copies(args, n_bytes)
+        found[key] = {
+            "cold_us": smoke.time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
+            "warm_us": smoke.time_ms(fn, torch, arg_sets=(args,)) * 1e3,
+            "bound_us": smoke.bound_ms(n_bytes, n_flops)[0] * 1e3,
+            "kernel_us_per_call": smoke.device_kernels_us(torch, fn, args,
+                                                          n_bytes),
+            "max_abs_err": float((first.float() - ref.float()).abs().max()),
+        }
+        del args, first, second, ref, cold
+    return {"shapes": found, "bitwise_equal": bitwise}
+
+
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd", "decode")
 
 
 def time_one(root: Path, kernel: str) -> dict:
@@ -315,6 +362,8 @@ def time_one(root: Path, kernel: str) -> dict:
         found = _time_ln_dx(torch, smoke)
     elif kernel == "ln_bwd":
         found = _time_ln_bwd(torch, smoke)
+    elif kernel == "decode":
+        found = _time_decode(torch, smoke)
     else:
         found = _time_flash(torch, smoke, kernel)
     return {"pass": kernel, **found, "card": smoke.nvidia_smi()}

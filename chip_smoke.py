@@ -11,7 +11,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 3. kernels: each of the twelve kernels against its plain torch version
    on the card at its main path's shapes (serving: rmsnorm, quantize,
    paged attention, dense int8 decode attention — the two attention rows
-   read the same slots' cache bytes; training: rmsnorm dx, flash forward,
+   read the same slots' cache bytes, each also timed at the serving
+   slice's 4 slots, bitwise equal over two calls, and one CUDA launch of
+   its kernel a call by the profiler; training: rmsnorm dx, flash forward,
    dq, dk/dv; the zoo: the LayerNorm forward and backward (dx, dscale
    and dbias; bitwise equal over two calls, two launches a call and no
    other kernel) at BERT-base's and ViT-B/16's rows, the GroupNorm
@@ -248,20 +250,50 @@ def check_quantize(torch, ops, dev):
     return row
 
 
-def split_combine_us(torch, attend, args, touched_bytes):
-    """Device time per call of each CUDA kernel behind an attention
-    wrapper (its split and combine kernels), cold, from the profiler."""
+def device_kernels_us(torch, fn, args, touched_bytes):
+    """Device time per call of each CUDA kernel behind a wrapper, cold,
+    from the profiler."""
     cold = cold_copies(args, touched_bytes)
     calls = 4 * len(cold)
     profiled = device_profile(torch, lambda: [
-        attend(*a) for _ in range(4) for a in cold])
+        fn(*a) for _ in range(4) for a in cold])
     return {re.search(r"\w+_kernel", k["name"]).group(0): k["ms"] * 1e3 / calls
             for k in profiled["top_kernels"] if "_kernel" in k["name"]}
 
 
-def check_attention(torch, ops, dev):
-    slots, width, n_heads, n_kv, head_dim, bs, max_blocks = 8, 1, 32, 8, 128, 16, 512
+def one_launch(torch, fn, args, name: str) -> dict:
+    """The device kernels one call of `fn(*args)` ran, by name: exactly one
+    launch, of the kernel `name`, or this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ran = {e.key[:80]: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.count}
+    if len(ran) != 1 or name not in next(iter(ran)) \
+            or next(iter(ran.values())) != 1:
+        raise AssertionError(f"one call ran {ran}, not one {name} launch")
+    return ran
+
+
+# The decode kernels' two shapes: phase 3's (8 slots, lengths 1-4096 from
+# the seed, 32/8 heads, D 128, block size 16, 512 blocks a table) and the
+# serving slice's (its 4 slots: the bursts' prompts, 17-300 tokens, and
+# the longest at its last step, 316).
+SERVING_LENGTHS = (17, 64, 150, 316)
+
+
+def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512):
+    """The paged kernel's arguments (window 1, bf16 q, NaN scales in the
+    trash block 0, the live blocks of each table drawn from a permutation
+    and the rest pointing at the trash), the bytes its call must move and
+    its flops. `lengths` None draws 8 from seed 0."""
+    n_heads, n_kv, head_dim, bs, width = 32, 8, 128, 16, 1
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    slots = 8 if lengths is None else len(lengths)
     num_blocks = slots * max_blocks + 1
     x = torch.randn(num_blocks, bs, n_kv, head_dim, device=dev, generator=gen)
     kq, ks = ops.quantize.quantize_int8_reference(x * 2)
@@ -270,8 +302,11 @@ def check_attention(torch, ops, dev):
     del x
     ks[0] = float("nan")  # trash-block garbage must never leak
     vs[0] = float("nan")
-    lengths = torch.randint(1, 4097, (slots,), device=dev, generator=gen,
-                            dtype=torch.int32)
+    if lengths is None:
+        lengths = torch.randint(1, 4097, (slots,), device=dev, generator=gen,
+                                dtype=torch.int32)
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     perm = torch.randperm(num_blocks - 1, device=dev, generator=gen) + 1
     tables = perm[:slots * max_blocks].reshape(slots, max_blocks).to(torch.int32)
     live = (lengths.long() + width + bs - 1) // bs
@@ -279,20 +314,6 @@ def check_attention(torch, ops, dev):
     tables = torch.where(cols < live[:, None], tables, torch.zeros_like(tables))
     q = torch.randn(slots, width, n_heads, head_dim, device=dev,
                     generator=gen).to(torch.bfloat16)
-    args = (q, kq, ks, vq, vs, tables, lengths)
-    got = ops.decode_attention.paged_int8_window_attention(*args)
-    ref = ops.decode_attention.paged_int8_window_attention_reference(*args)
-    torch.cuda.synchronize()
-    # atol = rtol = 2e-2: a bf16 output, sums in another order.
-    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
-    row = {
-        "name": "paged_int8_window_attention", "route": "cuda",
-        "source": "tf_yarn_tpu_torch/ops/csrc/paged_decode.cu",
-        "replaces": "tf_yarn_tpu/ops/decode_attention.py:199",
-        "shape": {"slots": slots, "width": width, "lengths": lengths.tolist(),
-                  "block_size": bs, "max_blocks": max_blocks},
-        "max_abs_err": float((got.float() - ref.float()).abs().max()),
-    }
     # Each slot's live positions are read once (its window included):
     # K and V int8 rows plus their f32 scales, the live table entries,
     # q and the output once; 4 flops per position, head and column.
@@ -300,14 +321,91 @@ def check_attention(torch, ops, dev):
     n_bytes = (positions * n_kv * (2 * head_dim + 2 * 4)
                + int(live.sum()) * 4 + slots * 4
                + 2 * q.numel() * q.element_size())
-    row.update(timings(ops.decode_attention.paged_int8_window_attention,
-                       ops.decode_attention.paged_int8_window_attention_reference,
-                       None, args, n_bytes, torch, plain_inner=8))
-    row["kernel_us_per_call"] = split_combine_us(
-        torch, ops.decode_attention.paged_int8_window_attention, args, n_bytes)
     n_flops = sum(int(lengths[s]) * width + width * (width + 1) // 2
                   for s in range(slots)) * n_heads * head_dim * 4
+    return (q, kq, ks, vq, vs, tables, lengths), n_bytes, n_flops
+
+
+def dense_inputs(torch, ops, dev, lengths, seq=8192):
+    """The dense kernel's arguments over a cache of `seq` rows whose dead
+    rows carry NaN scales, with these lengths; the bytes and flops."""
+    batch, n_heads, n_kv, head_dim = len(lengths), 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(batch, seq, n_kv, head_dim, device=dev, generator=gen)
+    kq, ks = ops.quantize.quantize_int8_reference(x * 2)
+    vq, vs = ops.quantize.quantize_int8_reference(
+        torch.randn(x.shape, device=dev, generator=gen))
+    del x
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dead = (torch.arange(seq, device=dev)[None, :]
+            >= lengths.long()[:, None])[:, :, None, None]
+    ks = torch.where(dead, float("nan"), ks)  # dead rows must never leak
+    vs = torch.where(dead, float("nan"), vs)
+    del dead
+    q = torch.randn(batch, n_heads, head_dim, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    # Each row's live positions read once: K and V int8 rows and their
+    # f32 scales, the lengths, q and the output; 4 flops per position,
+    # query head and column.
+    positions = int(lengths.long().sum())
+    n_bytes = (positions * n_kv * (2 * head_dim + 2 * 4) + batch * 4
+               + 2 * q.numel() * q.element_size())
+    return ((q, kq, ks, vq, vs, lengths), n_bytes,
+            positions * n_heads * head_dim * 4)
+
+
+def _serving_shape(torch, fn, args, n_bytes, n_flops):
+    """A decode kernel's cold and warm time and bound at the serving
+    slice's shape, in microseconds."""
+    cold = cold_copies(args, n_bytes)
+    return {
+        "lengths": args[-1].tolist(),
+        "cold_us": time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
+        "warm_us": time_ms(fn, torch, arg_sets=(args,)) * 1e3,
+        "bound_us": bound_ms(n_bytes, n_flops)[0] * 1e3,
+        "kernel_us_per_call": device_kernels_us(torch, fn, args, n_bytes),
+    }
+
+
+def check_attention(torch, ops, dev):
+    attend = ops.decode_attention.paged_int8_window_attention
+    plain = ops.decode_attention.paged_int8_window_attention_reference
+    args, n_bytes, n_flops = paged_inputs(torch, ops, dev)
+    q, kq, ks, vq, vs, tables, lengths = args
+    got = attend(*args)
+    ref = plain(*args)
+    again = attend(*args)
+    torch.cuda.synchronize()
+    # atol = rtol = 2e-2: a bf16 output, sums in another order.
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if not torch.equal(got, again):
+        raise AssertionError("paged attention: two calls differ")
+    row = {
+        "name": "paged_int8_window_attention", "route": "cuda",
+        "source": "tf_yarn_tpu_torch/ops/csrc/paged_decode.cu",
+        "replaces": "tf_yarn_tpu/ops/decode_attention.py:199",
+        "shape": {"slots": len(lengths), "width": q.shape[1],
+                  "lengths": lengths.tolist(), "block_size": kq.shape[1],
+                  "max_blocks": tables.shape[1]},
+        "tolerance": "atol = rtol = 2e-2 (bf16 output)",
+        "max_abs_err": float((got.float() - ref.float()).abs().max()),
+        "one_launch": {
+            "window": one_launch(torch, attend, args, "decode_kernel"),
+            "one_token": one_launch(
+                torch, ops.decode_attention.paged_int8_decode_attention,
+                (q[:, 0].contiguous(), *args[1:]), "decode_kernel")},
+    }
+    row.update(timings(attend, plain, None, args, n_bytes, torch,
+                       plain_inner=8))
+    row["kernel_us_per_call"] = device_kernels_us(torch, attend, args, n_bytes)
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops)
+    del args, got, ref, again
+    serving, n_bytes, n_flops = paged_inputs(torch, ops, dev, SERVING_LENGTHS,
+                                             max_blocks=32)
+    torch.testing.assert_close(attend(*serving).float(),
+                               plain(*serving).float(), atol=2e-2, rtol=2e-2)
+    row["shape_serving"] = _serving_shape(torch, attend, serving, n_bytes,
+                                          n_flops)
     return row
 
 
@@ -316,49 +414,43 @@ def check_dense_attention(torch, ops, dev, paged_lengths):
     (each row attends over its paged length + its own token, so the two
     rows read the same cache bytes), over a dense cache of 8192 rows
     whose dead rows carry NaN scales."""
-    batch, seq, n_heads, n_kv, head_dim = len(paged_lengths), 8192, 32, 8, 128
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = torch.randn(batch, seq, n_kv, head_dim, device=dev, generator=gen)
-    kq, ks = ops.quantize.quantize_int8_reference(x * 2)
-    vq, vs = ops.quantize.quantize_int8_reference(
-        torch.randn(x.shape, device=dev, generator=gen))
-    del x
-    lengths = torch.tensor(paged_lengths, dtype=torch.int32, device=dev) + 1
-    dead = (torch.arange(seq, device=dev)[None, :]
-            >= lengths.long()[:, None])[:, :, None, None]
-    ks = torch.where(dead, float("nan"), ks)  # dead rows must never leak
-    vs = torch.where(dead, float("nan"), vs)
-    del dead
-    q = torch.randn(batch, n_heads, head_dim, device=dev,
-                    generator=gen).to(torch.bfloat16)
-    args = (q, kq, ks, vq, vs, lengths)
     attend = ops.decode_attention.int8_decode_attention
     plain = ops.decode_attention.int8_decode_attention_reference
+    args, n_bytes, n_flops = dense_inputs(
+        torch, ops, dev, [n + 1 for n in paged_lengths])
     got = attend(*args)
     ref = plain(*args)
+    again = attend(*args)
     torch.cuda.synchronize()
     # atol = rtol = 2e-2: a bf16 output, sums in another order.
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if not torch.equal(got, again):
+        raise AssertionError("dense attention: two calls differ")
+    q, kq = args[0], args[1]
     row = {
         "name": "int8_decode_attention", "route": "cuda",
         "source": "tf_yarn_tpu_torch/ops/csrc/dense_decode.cu",
         "replaces": "tf_yarn_tpu/ops/decode_attention.py:50",
-        "shape": {"batch": batch, "seq": seq, "lengths": lengths.tolist(),
-                  "heads": n_heads, "kv_heads": n_kv, "head_dim": head_dim},
+        "shape": {"batch": q.shape[0], "seq": kq.shape[1],
+                  "lengths": args[-1].tolist(), "heads": q.shape[1],
+                  "kv_heads": kq.shape[2], "head_dim": q.shape[2]},
         "tolerance": "atol = rtol = 2e-2 (bf16 output)",
         "max_abs_err": float((got.float() - ref.float()).abs().max()),
+        "one_launch": one_launch(torch, attend, args, "decode_kernel"),
     }
-    # Each row's live positions read once: K and V int8 rows and their
-    # f32 scales, the lengths, q and the output; 4 flops per position,
-    # query head and column.
-    positions = int(lengths.long().sum())
-    n_bytes = (positions * n_kv * (2 * head_dim + 2 * 4) + batch * 4
-               + 2 * q.numel() * q.element_size())
     row.update(timings(attend, plain, None, args, n_bytes, torch,
                        plain_inner=8))
-    row["kernel_us_per_call"] = split_combine_us(torch, attend, args, n_bytes)
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        n_bytes, positions * n_heads * head_dim * 4)
+    row["kernel_us_per_call"] = device_kernels_us(torch, attend, args, n_bytes)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops)
+    del args, got, ref, again
+    # The serving shape over a 512-row cache: the kernel reads live rows
+    # only, and 512 keeps the cold copies small.
+    serving, n_bytes, n_flops = dense_inputs(
+        torch, ops, dev, [n + 1 for n in SERVING_LENGTHS], seq=512)
+    torch.testing.assert_close(attend(*serving).float(),
+                               plain(*serving).float(), atol=2e-2, rtol=2e-2)
+    row["shape_serving"] = _serving_shape(torch, attend, serving, n_bytes,
+                                          n_flops)
     return row
 
 
@@ -1452,7 +1544,7 @@ def burst(port: int, prompts, new_tokens: int):
 # The hand-written kernels' names as the profiler shows them (with their
 # template arguments), whatever their place among the top kernels.
 PORT_KERNEL = re.compile(r"(flash_\w+|groupnorm_\w+|layernorm_\w+|rmsnorm_\w+"
-                         r"|quantize_int8_kernel|split_kernel|combine_kernel)"
+                         r"|quantize_int8_kernel|decode_kernel)"
                          r"(<[^>(]*>)?")
 
 
@@ -1750,7 +1842,9 @@ def main() -> int:
             f"{'none' if library is None else f'{library * 1e3:.2f} us'}, "
             f"bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']})"
             + (f" {row['kernel_us_per_call']}" if "kernel_us_per_call" in row
-               else ""))
+               else "")
+            + (f"; serving shape {json.dumps(row['shape_serving'])}"
+               if "shape_serving" in row else ""))
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -72,15 +72,29 @@ def _pool(gen, num_blocks, block_size, n_kv, head_dim, device):
 # for the kernel's two instantiations (bf16 at GQA group 4, f32 at group
 # 2, head_dim 128): windows over a short table; lengths on and around
 # the kernel's 256-position split boundaries; a slot whose window runs
-# past its table (positions are capped there); another block size.
+# past its table (positions are capped there); block sizes 8, 16 and 64;
+# one slot of 8192 beside 63 of length 1 (33 splits merged by the last
+# one, 63 slots of one split); lengths that are multiples of the page and
+# of the split in the one-token form (the window form sees one more); 4,
+# 2, 1 and 6 kv heads; windows of 3 in f32 and of 5 in bf16.
 CASES = {
     "window3": (torch.bfloat16, 3, [1, 17, 60, 100], 16, 8, 32, 8, 128),
     "splits": (torch.bfloat16, 1, [0, 254, 255, 256, 511, 1000], 16, 64,
                32, 8, 128),
     "full_table": (torch.bfloat16, 3, [16 * 64 - 1, 300], 16, 64, 32, 8, 128),
     "block8": (torch.bfloat16, 2, [5, 130, 700], 8, 96, 32, 8, 128),
+    "block64": (torch.bfloat16, 1, [5, 64, 130, 700, 0], 64, 12, 32, 8, 128),
+    "skewed": (torch.bfloat16, 1, [8192] + [1] * 63, 16, 513, 32, 8, 128),
+    "multiples": (torch.bfloat16, 1, [16, 32, 128, 256, 1024, 15, 127], 16,
+                  65, 32, 8, 128),
+    "kv4": (torch.bfloat16, 2, [3, 300, 1500], 16, 96, 16, 4, 128),
+    "kv2": (torch.bfloat16, 1, [0, 129, 700], 16, 48, 8, 2, 128),
+    "kv1": (torch.bfloat16, 3, [1, 200, 2000], 8, 256, 4, 1, 128),
+    "window5": (torch.bfloat16, 5, [0, 31, 400], 16, 32, 32, 8, 128),
+    "kv6": (torch.bfloat16, 2, [3, 300, 1500], 16, 96, 24, 6, 128),
     "f32_splits": (torch.float32, 2, [5, 255, 256, 700], 16, 48, 8, 4, 128),
     "f32_block8": (torch.float32, 1, [0, 130], 8, 32, 4, 2, 128),
+    "f32_window3": (torch.float32, 3, [0, 40, 1000], 16, 72, 4, 2, 128),
 }
 
 
@@ -161,13 +175,17 @@ def _dense_inputs(device, lengths, seq, n_heads, n_kv, head_dim, dtype):
 # (dtype, lengths, seq_len, n_heads, n_kv, head_dim) for the dense
 # kernel's two instantiations: lengths 1, 15, 16, 17 and S; S not a
 # multiple of the 128-row tile or the 256-row split; around the split
-# boundary; one row of length 0; batches from 1 to 64.
+# boundary; one row of length 0; batches from 1 to 64; one row of 8192
+# beside 63 of length 1; 2 and 6 kv heads in bf16.
 DENSE_CASES = {
     "short": (torch.bfloat16, [1, 15, 16, 17, 200], 200, 32, 8, 128),
     "tail": (torch.bfloat16, [300, 257, 256, 255, 0, 129], 300, 32, 8, 128),
     "one_row": (torch.bfloat16, [1000], 1000, 32, 8, 128),
     "batch64": (torch.bfloat16, [(37 * i) % 700 + 1 for i in range(64)], 700,
                 32, 8, 128),
+    "skewed": (torch.bfloat16, [8192] + [1] * 63, 8192, 32, 8, 128),
+    "kv2": (torch.bfloat16, [1, 300, 129], 300, 8, 2, 128),
+    "kv6": (torch.bfloat16, [1, 300, 1029], 1100, 24, 6, 128),
     "f32_short": (torch.float32, [1, 15, 16, 17, 90], 90, 8, 4, 128),
     "f32_tail": (torch.float32, [513, 1, 256, 40], 513, 4, 2, 128),
 }
@@ -202,6 +220,95 @@ def test_cuda_dense_decode_kernel_refuses_other_configs(cuda, dtype, n_heads,
     with pytest.raises(ValueError, match="dense kernel is built for"):
         t_decode.int8_decode_attention(*args)
     assert t_decode.int8_decode_attention.launches == launches
+
+
+def _decode_calls(cuda, dtype):
+    """The three decode wrappers, each with inputs whose long slot the
+    kernels split over several blocks."""
+    lengths = [3000, 1, 17, 600]
+    group = t_decode.KERNEL_GROUPS[dtype]
+    paged = _inputs(cuda, 3, lengths, 16, 200, 8 * group, 8, 128, dtype)
+    q, kq, ks, vq, vs, tables, lens = paged
+    dense = _dense_inputs(cuda, lengths, 3000, 8 * group, 8, 128, dtype)
+    return {
+        "window": (t_decode.paged_int8_window_attention, paged),
+        "one_token": (t_decode.paged_int8_decode_attention,
+                      (q[:, 0].contiguous(), kq, ks, vq, vs, tables, lens)),
+        "dense": (t_decode.int8_decode_attention, dense),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("call", ["window", "one_token", "dense"])
+def test_cuda_decode_kernels_are_deterministic_and_graph_safe(cuda, call,
+                                                              dtype):
+    """Two calls give the same bits (splits merge in split order), and a
+    CUDA graph of a call, replayed twice, gives the eager bits (the last
+    split of each slot and kv head resets its ticket)."""
+    fn, args = _decode_calls(cuda, dtype)[call]
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn(*args)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+
+
+@pytest.mark.parametrize("call", ["window", "one_token", "dense"])
+def test_cuda_decode_wrappers_make_one_launch(cuda, call):
+    """Each wrapper call runs one CUDA kernel on the device, the decode
+    kernel: no memset, no combine launch."""
+    fn, args = _decode_calls(cuda, torch.bfloat16)[call]
+    fn(*args)
+    torch.cuda.synchronize()
+    ran = _device_kernels(lambda: fn(*args))
+    assert len(ran) == 1 and "decode_kernel" in next(iter(ran)), ran
+    assert next(iter(ran.values())) == 1, ran
+
+
+def test_cuda_decode_tickets_survive_growth_and_other_streams(cuda):
+    """A CUDA graph captured before a larger call grew the ticket buffer
+    still replays to the eager bits (the old buffer is kept), and calls
+    that alternate between two streams give the bits of the default
+    stream's call (each waits for the other's last launch)."""
+    fn, args = _decode_calls(cuda, torch.bfloat16)["window"]
+    first = fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn(*args)
+    big = t_decode._ticket_buffer(cuda, 0).numel() // 8 + 1
+    _, kq, ks, vq, vs, _, _ = args
+    q_big = torch.randn(big, 1, 32, 128, device=cuda).to(torch.bfloat16)
+    # Every slot reads block 1 twenty times over: two splits to merge.
+    tables = torch.ones(big, 20, dtype=torch.int32, device=cuda)
+    lens = torch.full((big,), 300, dtype=torch.int32, device=cuda)
+    grown = fn(q_big, kq, ks, vq, vs, tables, lens)
+    assert t_decode._ticket_buffer(cuda, 0).numel() >= big * 8
+    torch.testing.assert_close(
+        grown.float(),
+        t_decode.paged_int8_window_attention_reference(
+            q_big, kq, ks, vq, vs, tables, lens).float(),
+        atol=2e-2, rtol=2e-2)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for i in range(6):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(fn(*args))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, first)
 
 
 @pytest.mark.parametrize("rows, dtype", [(8, torch.bfloat16),

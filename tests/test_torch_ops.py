@@ -103,6 +103,47 @@ def test_paged_window_attention_matches_jax_kernel():
     np.testing.assert_allclose(one.numpy(), expected[:, 0], atol=1e-5)
 
 
+# (width, lengths, block_size, max_blocks, n_heads, n_kv) at head_dim 32,
+# the card tests' shape families at a CPU size: pages of 4 and 16; lengths
+# that fill whole pages, and a slot whose window runs to the table's end;
+# windows of 5; one kv head (a group of 4) and three.
+PAGED_CASES = {
+    "pages4_w5": (5, [0, 3, 12], 4, 5, 4, 2),
+    "pages16_multiples": (1, [16, 32, 15], 16, 3, 8, 2),
+    "full_table": (2, [30, 7], 8, 4, 8, 2),
+    "kv1": (3, [5, 21], 8, 4, 4, 1),
+    "kv3": (1, [1, 40], 8, 6, 6, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_window_attention_shapes_match_jax_kernel(case):
+    """The plain version against the TPU kernel (interpret mode) over a
+    shuffled pool whose table tails point at the NaN trash block."""
+    from tf_yarn_tpu.ops.decode_attention import paged_int8_window_attention
+
+    width, lengths, block_size, max_blocks, n_heads, n_kv = PAGED_CASES[case]
+    slots, head_dim = len(lengths), 32
+    num_blocks = slots * max_blocks + 1
+    rng = np.random.RandomState(len(case))
+    kq, ks, vq, vs = _paged_pool(rng, num_blocks, block_size, n_kv, head_dim)
+    lengths = np.array(lengths, np.int32)
+    tables = np.zeros((slots, max_blocks), np.int32)
+    ids = rng.permutation(np.arange(1, num_blocks))
+    for s, length in enumerate(lengths):
+        used = min(max_blocks, -(-(int(length) + width) // block_size))
+        tables[s, :used] = ids[s * max_blocks:s * max_blocks + used]
+    q = rng.randn(slots, width, n_heads, head_dim).astype(np.float32)
+    expected = np.asarray(paged_int8_window_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks), jnp.asarray(vq),
+        jnp.asarray(vs), jnp.asarray(tables), jnp.asarray(lengths)))
+    got = t_decode.paged_int8_window_attention(
+        _t(q), _t(kq), _t(ks), _t(vq), _t(vs), _t(tables), _t(lengths))
+    assert np.isfinite(got.numpy()).all()
+    # f32 on both sides, sums in another order.
+    np.testing.assert_allclose(got.numpy(), expected, atol=1e-5)
+
+
 def test_paged_window_attention_rejects_per_block_scales():
     pool = torch.zeros(4, 8, 2, 32, dtype=torch.int8)
     scale = torch.ones(4, 1, 2, 1)

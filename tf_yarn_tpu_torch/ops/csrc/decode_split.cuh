@@ -19,12 +19,12 @@
 //
 // Design. The TPU walked one slot's cache in a sequential grid; one SM
 // walking a long slot alone is latency-bound on the card, so the sequence
-// is split across blocks (flash-decoding) and a second, small kernel
-// merges the splits.
-//   Split kernel: one block of 128 threads per (virtual slot, kv head,
-//   split of kSplitRows positions). Splits at or past the slot's length
-//   exit at once, so only live positions are read (the counterpart of the
-//   TPU's pl.when(ki * block < length)). The block finds its own rows (the
+// is split across blocks (flash-decoding), and the last block of each
+// (virtual slot, kv head) to finish merges the splits: one launch a call.
+//   One block of 128 threads per (virtual slot, kv head, split of
+//   kSplitRows positions). Splits at or past the slot's length exit at
+//   once, so only live positions are read (the counterpart of the TPU's
+//   pl.when(ki * block < length)). The block finds its own rows (the
 //   TPU fed the paged table by scalar prefetch). The whole GQA group of G
 //   query heads shares each K/V element, which is converted from int8 once
 //   and used G times:
@@ -42,10 +42,24 @@
 //      scale garbage cannot leak), and each warp accumulates a quarter of
 //      the rows, a lane owning 4 of the 128 columns for all G heads; the
 //      four warps' sums meet in shared memory.
-//   It writes the unnormalised acc and its (max, sum) to f32 scratch.
-//   Combine kernel: one warp per (virtual slot, query head) rescales the
-//   live splits to their common max and writes acc / max(l, 1e-30).
-// TMA and tensor-core products come later.
+//   4. merge: a slot of one live split writes acc / max(l, 1e-30) at once.
+//      Otherwise every split writes its unnormalised acc and (max, sum) to
+//      f32 scratch, and after a barrier its thread 0 takes a ticket of its
+//      (virtual slot, kv head) between two __threadfence()s (the pattern
+//      of a cooperative grid sync); the block that takes the last one
+//      merges: one warp per query head loads up to kMergeBatch records at
+//      once with their (max, sum), and rescales the live splits to their
+//      common max in split order, so the output's bits do not depend on
+//      which block came last. The merge does the arithmetic of the combine
+//      kernel it replaces, in the same order.
+//   The ticket is an atomicInc that wraps at the split count: the last
+//   block's own increment puts it back to 0, so the buffer is zeroed once
+//   (by the caller) and stays zeroed across calls and CUDA-graph replays,
+//   with no memset launch. Two launches that share the buffer must not
+//   run at the same time (the caller orders them); a launch that faults
+//   mid-way leaves tickets behind, but a fault also ends the CUDA context.
+// TMA and tensor-core products come later (a one-kernel redesign with
+// bulk copies and mma.sync products was slower than this; see PERF.md).
 //
 // Instantiated only for the configurations the port serves, all at
 // head_dim 128: bf16 with a GQA group of 4 (Llama-3-8B widths) and f32
@@ -60,13 +74,13 @@
 namespace tyt {
 namespace decode {
 
-constexpr int kThreads = 128;        // split kernel: 4 warps
+constexpr int kThreads = 128;        // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = kThreads;  // positions per tile: one per thread
 constexpr int kSplitRows = 256;      // positions per split (whole tiles)
 constexpr int kHeadDim = 128;        // one 32-bit word (4 columns) per lane
-constexpr int kMinBlocksPerSM = 4;   // caps the split kernel at 128 registers
-constexpr int kCombineWarps = 4;
+constexpr int kMinBlocksPerSM = 4;   // caps the kernel at 128 registers
+constexpr int kMergeBatch = 8;        // records a merging warp loads at once
 
 // The paged pool: a slot's positions through its row of the block table.
 // block_size is a power of two (the kernel indexes with shifts).
@@ -169,14 +183,15 @@ __device__ __forceinline__ float issue_tile(
 // G query heads per kv head.
 template <typename T, int G, typename Layout>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kcache,
-             const float* __restrict__ kscale,
-             const int8_t* __restrict__ vcache,
-             const float* __restrict__ vscale, Layout layout,
-             const int* __restrict__ lengths, float* __restrict__ part_acc,
-             float* __restrict__ part_ml, int width, int n_heads, int n_kv,
-             int head_dim, int length_offset, int n_splits,
-             float softmax_scale) {
+decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kcache,
+              const float* __restrict__ kscale,
+              const int8_t* __restrict__ vcache,
+              const float* __restrict__ vscale, Layout layout,
+              const int* __restrict__ lengths, T* __restrict__ out,
+              float* __restrict__ part_acc, float* __restrict__ part_ml,
+              unsigned* __restrict__ tickets, int width, int n_heads,
+              int n_kv, int head_dim, int length_offset, int n_splits,
+              float softmax_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vslot = blockIdx.x;
   const int h = blockIdx.y;
@@ -184,6 +199,13 @@ split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kcache,
   const int n_pos = live_positions(lengths, vslot, width, length_offset,
                                    layout.capacity());
   const int start = split * kSplitRows;
+  T* out_h = out + (static_cast<size_t>(vslot) * n_heads + h * G) * head_dim;
+  if (n_pos == 0 && split == 0) {
+    // No live position: the normaliser's clamp gives zeros.
+    for (int i = threadIdx.x; i < G * head_dim; i += kThreads) {
+      out_h[i] = tyt::from_float<T>(0.f);
+    }
+  }
   if (start >= n_pos) return;  // uniform over the block
   const int stop = min(start + kSplitRows, n_pos);
 
@@ -322,6 +344,18 @@ split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kcache,
         make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   }
   __syncthreads();
+  const int live = (n_pos + kSplitRows - 1) / kSplitRows;
+  if (live == 1) {
+    // 4. The only split: normalise and write.
+    for (int i = threadIdx.x; i < G * head_dim; i += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red_s[w * G * head_dim + i];
+      const int g = i / head_dim;
+      out_h[i] = tyt::from_float<T>(sum * (1.f / fmaxf(ml_s[2 * g + 1], 1e-30f)));
+    }
+    return;
+  }
   const size_t part0 =
       (static_cast<size_t>(vslot) * n_heads + h * G) * n_splits + split;
   for (int i = threadIdx.x; i < G * head_dim; i += kThreads) {
@@ -337,85 +371,104 @@ split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kcache,
     part_ml[2 * part] = ml_s[2 * threadIdx.x];
     part_ml[2 * part + 1] = ml_s[2 * threadIdx.x + 1];
   }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kCombineWarps * 32)
-combine_kernel(const float* __restrict__ part_acc,
-               const float* __restrict__ part_ml,
-               const int* __restrict__ lengths, T* __restrict__ out,
-               int pairs, int width, int n_heads, int head_dim, int capacity,
-               int length_offset, int n_splits) {
-  const int pair = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
-  if (pair >= pairs) return;
-  const int lane = threadIdx.x & 31;
-  const int n_pos = live_positions(lengths, pair / n_heads, width,
-                                   length_offset, capacity);
-  const int live = (n_pos + kSplitRows - 1) / kSplitRows;
-  const float* ml = part_ml + static_cast<size_t>(pair) * n_splits * 2;
-  float m = -INFINITY;
-  for (int i = lane; i < live; i += 32) m = fmaxf(m, ml[2 * i]);
-  m = tyt::warp_max(m);
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float l = 0.f;
-  for (int i0 = 0; i0 < live; i0 += 32) {
-    // Lane k rescales split i0 + k; the warp then walks the splits.
-    const int mine = i0 + lane;
-    const float my_corr = mine < live ? expf(ml[2 * mine] - m) : 0.f;
-    if (mine < live) l += ml[2 * mine + 1] * my_corr;
-    const int n = min(32, live - i0);
-#pragma unroll 4
-    for (int k = 0; k < n; ++k) {
-      const float corr = __shfl_sync(0xffffffffu, my_corr, k);
-      const float4 a = *reinterpret_cast<const float4*>(
-          part_acc + (static_cast<size_t>(pair) * n_splits + i0 + k) * head_dim +
-          4 * lane);
-      acc.x += corr * a.x;
-      acc.y += corr * a.y;
-      acc.z += corr * a.z;
-      acc.w += corr * a.w;
-    }
+  // 4. The ticket: this split's partials are visible to every block
+  // before its increment (the barrier, then thread 0's fence), and the
+  // block that takes the last one sees every split's before it reads.
+  __shared__ int is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned before = atomicInc(
+        tickets + static_cast<size_t>(vslot) * n_kv + h, live - 1);
+    is_last = before == static_cast<unsigned>(live - 1);
+    __threadfence();
   }
-  l = tyt::warp_sum(l);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = out + static_cast<size_t>(pair) * head_dim + 4 * lane;
-  orow[0] = tyt::from_float<T>(acc.x * inv);
-  orow[1] = tyt::from_float<T>(acc.y * inv);
-  orow[2] = tyt::from_float<T>(acc.z * inv);
-  orow[3] = tyt::from_float<T>(acc.w * inv);
+  __syncthreads();
+  if (!is_last) return;
+  // One warp per query head. The first kMergeBatch records' loads and the
+  // (max, sum) loads go out together, so a slot of at most kMergeBatch
+  // splits merges after one round trip to L2.
+  for (int g = warp; g < G; g += kWarps) {
+    const size_t pair = static_cast<size_t>(vslot) * n_heads + h * G + g;
+    const float* ml = part_ml + pair * n_splits * 2;
+    const float* acc_g = part_acc + pair * n_splits * head_dim + 4 * lane;
+    float4 a[kMergeBatch];
+#pragma unroll
+    for (int k = 0; k < kMergeBatch; ++k) {
+      if (k < live) a[k] = __ldcg(reinterpret_cast<const float4*>(
+          acc_g + static_cast<size_t>(k) * head_dim));
+    }
+    const float2 own = lane < live
+        ? __ldcg(reinterpret_cast<const float2*>(ml) + lane)
+        : make_float2(-INFINITY, 0.f);
+    float m = own.x;
+    for (int i = lane + 32; i < live; i += 32) m = fmaxf(m, __ldcg(ml + 2 * i));
+    m = tyt::warp_max(m);
+
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+    for (int i0 = 0; i0 < live; i0 += 32) {
+      // Lane k rescales split i0 + k; the warp then walks the splits in
+      // order, kMergeBatch records a batch.
+      const int mine = i0 + lane;
+      const float2 ml_mine = i0 == 0 ? own
+          : mine < live ? __ldcg(reinterpret_cast<const float2*>(ml) + mine)
+                        : make_float2(-INFINITY, 0.f);
+      const float my_corr = mine < live ? expf(ml_mine.x - m) : 0.f;
+      if (mine < live) l += ml_mine.y * my_corr;
+      const int stop = min(i0 + 32, live);
+      for (int j0 = i0; j0 < stop; j0 += kMergeBatch) {
+        if (j0 > 0) {
+#pragma unroll
+          for (int k = 0; k < kMergeBatch; ++k) {
+            if (j0 + k < stop) a[k] = __ldcg(reinterpret_cast<const float4*>(
+                acc_g + static_cast<size_t>(j0 + k) * head_dim));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kMergeBatch; ++k) {
+          const float corr = __shfl_sync(0xffffffffu, my_corr, j0 - i0 + k);
+          if (j0 + k < stop) {
+            sum.x += corr * a[k].x;
+            sum.y += corr * a[k].y;
+            sum.z += corr * a[k].z;
+            sum.w += corr * a[k].w;
+          }
+        }
+      }
+    }
+    l = tyt::warp_sum(l);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* orow = out_h + g * head_dim + 4 * lane;
+    orow[0] = tyt::from_float<T>(sum.x * inv);
+    orow[1] = tyt::from_float<T>(sum.y * inv);
+    orow[2] = tyt::from_float<T>(sum.z * inv);
+    orow[3] = tyt::from_float<T>(sum.w * inv);
+  }
 }
 
 template <typename T, int G, typename Layout>
 int launch(const void* q, const int8_t* kcache, const float* kscale,
            const int8_t* vcache, const float* vscale, const Layout& layout,
            const int* lengths, void* out, float* part_acc, float* part_ml,
-           int slots, int width, int n_heads, int n_kv, int head_dim,
-           int capacity, int length_offset, int n_splits,
-           float softmax_scale, cudaStream_t stream) {
+           unsigned* tickets, int slots, int width, int n_heads, int n_kv,
+           int head_dim, int length_offset, int n_splits, float softmax_scale,
+           cudaStream_t stream) {
   const size_t smem =
       2 * static_cast<size_t>(kTileRows) * (head_dim + 16) +
       sizeof(float) * (G * head_dim + G * kSplitRows + 2 * G);
-  const int vslots = slots * width;
-  auto kernel = split_kernel<T, G, Layout>;
+  auto kernel = decode_kernel<T, G, Layout>;
   if (smem > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (status != cudaSuccess) return static_cast<int>(status);
   }
-  kernel<<<dim3(vslots, n_kv, n_splits), kThreads, smem, stream>>>(
+  kernel<<<dim3(slots * width, n_kv, n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), kcache, kscale, vcache, vscale, layout,
-      lengths, part_acc, part_ml, width, n_heads, n_kv, head_dim,
-      length_offset, n_splits, softmax_scale);
-  const cudaError_t status = cudaGetLastError();
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const int pairs = vslots * n_heads;
-  combine_kernel<T>
-      <<<(pairs + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0,
-         stream>>>(part_acc, part_ml, lengths, static_cast<T*>(out), pairs,
-                   width, n_heads, head_dim, capacity, length_offset,
-                   n_splits);
+      lengths, static_cast<T*>(out), part_acc, part_ml, tickets, width,
+      n_heads, n_kv, head_dim, length_offset, n_splits, softmax_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,8 +478,8 @@ template <typename Layout>
 int dispatch(int dtype, const void* q, const int8_t* kcache,
              const float* kscale, const int8_t* vcache, const float* vscale,
              const Layout& layout, const int* lengths, void* out,
-             float* part_acc, float* part_ml, int slots, int width,
-             int n_heads, int n_kv, int head_dim, int capacity,
+             float* part_acc, float* part_ml, unsigned* tickets, int slots,
+             int width, int n_heads, int n_kv, int head_dim, int capacity,
              int length_offset, int n_splits, float softmax_scale,
              void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || head_dim != kHeadDim ||
@@ -438,14 +491,14 @@ int dispatch(int dtype, const void* q, const int8_t* kcache,
   const int group = n_heads / n_kv;
   if (dtype == tyt::kBFloat16 && group == 4) {
     return launch<__nv_bfloat16, 4>(q, kcache, kscale, vcache, vscale, layout,
-                                    lengths, out, part_acc, part_ml, slots,
-                                    width, n_heads, n_kv, head_dim, capacity,
+                                    lengths, out, part_acc, part_ml, tickets,
+                                    slots, width, n_heads, n_kv, head_dim,
                                     length_offset, n_splits, softmax_scale, s);
   }
   if (dtype == tyt::kFloat32 && group == 2) {
     return launch<float, 2>(q, kcache, kscale, vcache, vscale, layout,
-                            lengths, out, part_acc, part_ml, slots, width,
-                            n_heads, n_kv, head_dim, capacity, length_offset,
+                            lengths, out, part_acc, part_ml, tickets, slots,
+                            width, n_heads, n_kv, head_dim, length_offset,
                             n_splits, softmax_scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

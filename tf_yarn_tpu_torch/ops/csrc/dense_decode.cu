@@ -20,26 +20,28 @@
 // Bound and design: decode_split.cuh, shared with the paged kernel. The
 // TPU kernel walked each row's sequence serially in 512-row tiles with
 // one program per row; on the card the sequence is split across blocks
-// and merged by a combine kernel, as in the paged kernel. The dense
-// layout needs no table: row pos of batch row b is b * seq_len + pos
-// (DenseLayout), so a tile is any run of positions.
+// and the last split of each row and kv head merges them, as in the paged
+// kernel. The dense layout needs no table: row pos of batch row b is
+// b * seq_len + pos (DenseLayout), so a tile is any run of positions.
 #include "decode_split.cuh"
 
 // part_acc [batch, n_heads, n_splits, head_dim] and part_ml [batch,
 // n_heads, n_splits, 2] are f32 scratch from the caller; n_splits *
-// kSplitRows must cover seq_len. head_dim must be 128, and (dtype,
+// kSplitRows must cover seq_len. tickets [batch * n_kv] are zero on entry
+// and left zero (see decode_split.cuh). head_dim must be 128, and (dtype,
 // n_heads / n_kv) bf16 with 4 or f32 with 2.
 extern "C" int tyt_dense_decode_attention(
     const void* q, const int8_t* kcache, const float* kscale,
     const int8_t* vcache, const float* vscale, const int* lengths,
-    void* out, float* part_acc, float* part_ml, int batch, int n_heads,
-    int n_kv, int head_dim, int seq_len, int n_splits, float softmax_scale,
-    int dtype, void* stream) {
+    void* out, float* part_acc, float* part_ml, unsigned* tickets, int batch,
+    int n_heads, int n_kv, int head_dim, int seq_len, int n_splits,
+    float softmax_scale, int dtype, void* stream) {
   namespace d = tyt::decode;
   if (batch <= 0) return 0;
   if (seq_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const d::DenseLayout layout{seq_len};
   return d::dispatch(dtype, q, kcache, kscale, vcache, vscale, layout,
-                     lengths, out, part_acc, part_ml, batch, 1, n_heads, n_kv,
-                     head_dim, seq_len, 0, n_splits, softmax_scale, stream);
+                     lengths, out, part_acc, part_ml, tickets, batch, 1,
+                     n_heads, n_kv, head_dim, seq_len, 0, n_splits,
+                     softmax_scale, stream);
 }

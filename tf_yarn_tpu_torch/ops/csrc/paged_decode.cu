@@ -16,25 +16,27 @@
 // logical positions of its slot (length_offset = 1 for the window form:
 // the window's own rows are already in the pool; 0 for the one-token form).
 //
-// The split/combine kernels, their bound and their design are in
-// decode_split.cuh, shared with the dense kernel (dense_decode.cu): this
-// file gives them the block table as the row address (PagedLayout). The
-// TPU wrapper's virtual slots (a jnp.repeat of the tables) are folded
-// into the grid; each block reads its own table row (the TPU fed it by
-// scalar prefetch).
+// The kernel (one launch: splits, then a merge by the last split), its
+// bound and its design are in decode_split.cuh, shared with the dense
+// kernel (dense_decode.cu): this file gives it the block table as the row
+// address (PagedLayout). The TPU wrapper's virtual slots (a jnp.repeat of
+// the tables) are folded into the grid; each block reads its own table
+// row (the TPU fed it by scalar prefetch).
 #include "decode_split.cuh"
 
 // part_acc [slots * width, n_heads, n_splits, head_dim] and part_ml
 // [slots * width, n_heads, n_splits, 2] are f32 scratch from the caller;
-// n_splits * kSplitRows must cover max_blocks * block_size. head_dim must
-// be 128, and (dtype, n_heads / n_kv) bf16 with 4 or f32 with 2.
+// n_splits * kSplitRows must cover max_blocks * block_size. tickets
+// [slots * width * n_kv] are zero on entry and left zero (see
+// decode_split.cuh). head_dim must be 128, and (dtype, n_heads / n_kv)
+// bf16 with 4 or f32 with 2.
 extern "C" int tyt_paged_window_attention(
     const void* q, const int8_t* kpool, const float* kscale,
     const int8_t* vpool, const float* vscale, const int* tables,
     const int* lengths, void* out, float* part_acc, float* part_ml,
-    int slots, int width, int n_heads, int n_kv, int head_dim,
-    int block_size, int max_blocks, int length_offset, int n_splits,
-    float softmax_scale, int dtype, void* stream) {
+    unsigned* tickets, int slots, int width, int n_heads, int n_kv,
+    int head_dim, int block_size, int max_blocks, int length_offset,
+    int n_splits, float softmax_scale, int dtype, void* stream) {
   namespace d = tyt::decode;
   if (slots <= 0 || width <= 0) return 0;
   // block_size a power of two <= 128: the kernel indexes with shifts.
@@ -45,7 +47,7 @@ extern "C" int tyt_paged_window_attention(
   while ((1 << bs_shift) < block_size) ++bs_shift;
   const d::PagedLayout layout{tables, max_blocks, bs_shift};
   return d::dispatch(dtype, q, kpool, kscale, vpool, vscale, layout, lengths,
-                     out, part_acc, part_ml, slots, width, n_heads, n_kv,
-                     head_dim, max_blocks * block_size, length_offset,
+                     out, part_acc, part_ml, tickets, slots, width, n_heads,
+                     n_kv, head_dim, max_blocks * block_size, length_offset,
                      n_splits, softmax_scale, stream);
 }

@@ -17,7 +17,10 @@ Two layouts, the JAX package's:
 
 CUDA tensors go to the hand-written kernels (csrc/dense_decode.cu
 replaces the TPU kernel `_decode_kernel`, csrc/paged_decode.cu
-`_paged_decode_kernel`; both share csrc/decode_split.cuh); CPU tensors
+`_paged_decode_kernel`; both share csrc/decode_split.cuh), one launch a
+call: the sequence is split over blocks and the last split of each
+(virtual slot, kv head) merges them, counted by a ticket buffer this
+module keeps per device (`_ticket_buffer`); CPU tensors
 go to the plain versions (`*_reference`) the tests hold against the JAX
 package. A CUDA call the kernels are not built for raises; nothing falls
 back. Per-block scales are still to port (ROADMAP.md Queue 2).
@@ -25,7 +28,7 @@ back. Per-block scales are still to port (ROADMAP.md Queue 2).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -39,6 +42,47 @@ SPLIT_ROWS = 256
 # group (n_heads / n_kv) of the configuration the port serves in it.
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = {torch.bfloat16: 4, torch.float32: 2}
+
+# The kernels' ticket counters, one int32 per (virtual slot, kv head), in
+# one buffer per device: zeroed once here, and left zeroed by every launch
+# (the last split of each pair resets its ticket, csrc/decode_split.cuh).
+_tickets: Dict[int, torch.Tensor] = {}
+# Buffers a larger call replaced. A CUDA graph captured earlier may still
+# count on one, so none is ever freed.
+_retired: List[torch.Tensor] = []
+# The stream of each device's last launch outside a graph capture.
+_last_stream: Dict[int, torch.cuda.Stream] = {}
+
+
+def _ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
+    """The ticket buffer of `device`, at least `count` long, for a launch
+    on the current stream.
+
+    Two launches must not use the buffer at the same time, so a launch on
+    another stream than the last one first waits for that stream. Inside
+    a CUDA-graph capture the buffer cannot grow or be zeroed (call the
+    wrapper once, at the captured size, before capturing), and the graph's
+    replays are ordered like any work on the stream they run on."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index)
+    capturing = torch.cuda.is_current_stream_capturing()
+    buf = _tickets.get(index)
+    if buf is None or buf.numel() < count:
+        if capturing:
+            raise RuntimeError(
+                "the decode kernels' ticket buffer must grow outside a "
+                "CUDA-graph capture: call the kernel once before capturing")
+        if buf is not None:
+            _retired.append(buf)
+        buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _tickets[index] = buf
+    if not capturing:
+        last = _last_stream.get(index)
+        if last is not None and last != stream:
+            stream.wait_stream(last)
+        _last_stream[index] = stream
+    return buf
 
 
 def _check_scales(key_pool, key_scale, value_scale) -> None:
@@ -145,8 +189,8 @@ def _launch(query, key_pool, key_scale, value_pool, value_scale,
         return out.zero_()
     if softmax_scale is None:
         softmax_scale = head_dim ** -0.5
-    # Scratch for the split kernel's partial results, one entry per
-    # (virtual slot, head, split); the combine kernel reads the live ones.
+    # Scratch for the splits' partial results, one entry per (virtual
+    # slot, head, split); the last split of each pair reads the live ones.
     n_splits = -(-max_blocks * bs // SPLIT_ROWS)
     part_acc = torch.empty(slots * width, n_heads, n_splits, head_dim,
                            dtype=torch.float32, device=query.device)
@@ -158,6 +202,7 @@ def _launch(query, key_pool, key_scale, value_pool, value_scale,
         value_pool.data_ptr(), value_scale.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(),
+        _ticket_buffer(query.device, slots * width * n_kv).data_ptr(),
         slots, width, n_heads, n_kv, head_dim, bs, max_blocks, length_offset,
         n_splits, float(softmax_scale), _build.DTYPE_CODES[query.dtype],
         _build.stream_handle(query.device),
@@ -306,6 +351,7 @@ def int8_decode_attention(
         query.data_ptr(), key_q.data_ptr(), key_scale.data_ptr(),
         value_q.data_ptr(), value_scale.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        _ticket_buffer(query.device, b * n_kv).data_ptr(),
         b, n_heads, n_kv, head_dim, seq, n_splits, float(softmax_scale),
         _build.DTYPE_CODES[query.dtype], _build.stream_handle(query.device),
     )
