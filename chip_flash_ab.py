@@ -1,6 +1,6 @@
 """Time one kernel of several copies of the port, in turns, on one card.
 
-    python3 chip_flash_ab.py [--pass fwd|dq|dkv|gn_fwd|gn_bwd|ln_dx|ln_bwd|decode] ROOT [ROOT ...]
+    python3 chip_flash_ab.py [--pass PASS] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `tf_yarn_tpu_torch` package (the
 checkout itself, or an older commit unpacked with `git archive` into a
@@ -32,13 +32,22 @@ card. `--pass` picks the kernel:
   (`paged_int8_window_attention`) and dense (`int8_decode_attention`),
   at the smoke's phase-3 shape (8 slots, lengths 1-4096 from the seed)
   and at the serving slice's (`chip_smoke.SERVING_LENGTHS`), with each
-  CUDA kernel's device time a call from the profiler.
+  CUDA kernel's device time a call from the profiler;
+- `rmsnorm`: the RMSNorm forward `rmsnorm` at its main-path rows of d
+  4096 (`chip_smoke.RMSNORM_ROWS`: a decode tick's, phase 3's and the
+  training slice's, bf16);
+- `quantize`: the int8 quantize at its main-path rows of 128
+  (`chip_smoke.QUANTIZE_ROWS`: a decode tick's and phase 3's), from f32
+  and from bf16 as that root's serving path runs it (a cast to f32
+  first where its `quantize_int8` takes f32 only), beside the floor of
+  one launch under graph replay (a one-element fill).
+Both also give each call's CUDA launches by name.
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dq, dkv, gn_fwd, gn_bwd, ln_bwd and
-decode also whether two calls gave bitwise-equal outputs) and the card's
-name and power limit.
+against the plain versions (for dq, dkv, gn_fwd, gn_bwd, ln_bwd,
+decode, rmsnorm and quantize also whether two calls gave bitwise-equal
+outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -341,7 +350,77 @@ def _time_decode(torch, smoke) -> dict:
     return {"shapes": found, "bitwise_equal": bitwise}
 
 
-PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd", "decode")
+def _time_rmsnorm(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import rmsnorm as rn
+
+    fn = lambda x, scale: rn.rmsnorm(x, scale, 1e-5)
+    shapes, bitwise = {}, True
+    for key, rows in smoke.RMSNORM_ROWS.items():
+        args = smoke.rmsnorm_inputs(torch, rows, torch.bfloat16)
+        first, second = fn(*args), fn(*args)
+        ref = rn.rmsnorm_reference(*args, 1e-5)
+        torch.cuda.synchronize()
+        bitwise &= bool(torch.equal(first, second))
+        n = rows * smoke.RMSNORM_D
+        shapes[key] = {
+            **smoke.shape_times(torch, fn, args, 2 * n * 2 + smoke.RMSNORM_D * 4,
+                                4 * n),
+            "launches_per_call": smoke.kernel_launch_counts(
+                torch, lambda: fn(*args)),
+            "max_abs_err": float((first.float() - ref.float()).abs().max()),
+        }
+    return {"shapes": shapes, "bitwise_equal": bitwise}
+
+
+def _takes_bf16(torch, quantize) -> bool:
+    """Whether this root's `quantize_int8` takes bf16 on the card (before
+    it did, the serving path cast K and V to f32 first)."""
+    try:
+        quantize.quantize_int8(torch.zeros(1, 128, device="cuda",
+                                           dtype=torch.bfloat16))
+    except ValueError:
+        return False
+    return True
+
+
+def _time_quantize(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import quantize
+
+    takes_bf16 = _takes_bf16(torch, quantize)
+
+    def main_path(x):
+        """As this root's serving path quantizes K and V."""
+        if x.dtype != torch.float32 and not takes_bf16:
+            x = x.float()
+        return quantize.quantize_int8(x)
+
+    shapes, bitwise = {}, True
+    for key, rows in smoke.QUANTIZE_ROWS.items():
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = smoke.quantize_inputs(torch, rows, dtype)
+            (values, scales), again = main_path(x), main_path(x)
+            ref_v, ref_s = quantize.quantize_int8_reference(x)
+            torch.cuda.synchronize()
+            bitwise &= bool(torch.equal(values, again[0])
+                            and torch.equal(scales, again[1]))
+            n = rows * smoke.QUANTIZE_D
+            shapes[f"{key}_{name}"] = {
+                **smoke.shape_times(torch, main_path, (x,),
+                                    n * x.element_size() + n + rows * 4, 4 * n),
+                "launches_per_call": smoke.kernel_launch_counts(
+                    torch, lambda: main_path(x)),
+                "scales_bit_equal": bool(torch.equal(scales, ref_s)),
+                "codes_differing": int((values != ref_v).sum()),
+            }
+    # The floor under CUDA-graph replay: a one-element fill, one launch.
+    one = torch.zeros(1, device="cuda")
+    floor = smoke.time_ms(lambda t: t.fill_(1.0), torch, arg_sets=((one,),))
+    return {"shapes": shapes, "bitwise_equal": bitwise,
+            "takes_bf16": takes_bf16, "one_launch_floor_us": floor * 1e3}
+
+
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd", "decode",
+          "rmsnorm", "quantize")
 
 
 def time_one(root: Path, kernel: str) -> dict:
@@ -364,6 +443,10 @@ def time_one(root: Path, kernel: str) -> dict:
         found = _time_ln_bwd(torch, smoke)
     elif kernel == "decode":
         found = _time_decode(torch, smoke)
+    elif kernel == "rmsnorm":
+        found = _time_rmsnorm(torch, smoke)
+    elif kernel == "quantize":
+        found = _time_quantize(torch, smoke)
     else:
         found = _time_flash(torch, smoke, kernel)
     return {"pass": kernel, **found, "card": smoke.nvidia_smi()}

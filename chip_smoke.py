@@ -9,11 +9,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed;
 3. kernels: each of the twelve kernels against its plain torch version
-   on the card at its main path's shapes (serving: rmsnorm, quantize,
-   paged attention, dense int8 decode attention — the two attention rows
-   read the same slots' cache bytes, each also timed at the serving
-   slice's 4 slots, bitwise equal over two calls, and one CUDA launch of
-   its kernel a call by the profiler; training: rmsnorm dx, flash forward,
+   on the card at its main path's shapes (serving: rmsnorm — bf16 and
+   f32 at a decode tick's 4 rows, phase 3's 512 and the training
+   slice's 2048 — and quantize — from f32 and from bf16 at a decode
+   tick's 32 rows and phase 3's 4096 — each bitwise equal over two
+   calls, one CUDA launch of its kernel a call by the profiler, and
+   timed at every shape; paged attention, dense int8 decode attention —
+   the two attention rows read the same slots' cache bytes, each also
+   timed at the serving slice's 4 slots, bitwise equal over two calls,
+   and one CUDA launch of its kernel a call by the profiler; training:
+   rmsnorm dx, flash forward,
    dq, dk/dv; the zoo: the LayerNorm forward and backward (dx, dscale
    and dbias; bitwise equal over two calls, two launches a call and no
    other kernel) at BERT-base's and ViT-B/16's rows, the GroupNorm
@@ -49,8 +54,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the gather mode, (c) the dense grid — and (d) `engine.generate` on a
    [4, 300] batch. Every kernel of a path must have launched (the dense
    decode kernel on b, c and d). Bursts (a) and (b) run a second burst
-   of fresh prompts under torch.profiler: the device's busy share and
-   the kernels that took most device time;
+   of fresh prompts under torch.profiler: the device's busy share, its
+   launches a scheduler tick, and the kernels that took most device time
+   and that launched most often;
 6. training slice: `make_experiment(llama3_8b(lora_rank=16, flash, fused
    norms, unrolled))` at batch 1 x 2048 tokens through
    `train_and_evaluate` for 4 steps, all 32 layers, random weights from
@@ -185,67 +191,159 @@ def backward_ms(forward, torch, arg_sets):
     return both - fwd, both
 
 
+# The RMSNorm forward's main-path shapes, rows of Llama-3-8B's d 4096: a
+# serving decode tick (4 slots), phase 3's, and the training slice's 1 x
+# 2048 tokens; and the int8 quantize's, rows of head_dim 128: a decode
+# tick (4 slots x 8 kv heads) and phase 3's.
+RMSNORM_D = 4096
+RMSNORM_ROWS = {"decode_tick": 4, "phase3": 512, "training": 2048}
+QUANTIZE_D = 128
+QUANTIZE_ROWS = {"decode_tick": 32, "phase3": 4096}
+
+
+def rmsnorm_inputs(torch, rows, dtype, dev="cuda"):
+    gen = torch.Generator(device=dev).manual_seed(SEED + rows)
+    x = torch.randn(rows, RMSNORM_D, device=dev, generator=gen).to(dtype)
+    scale = torch.rand(RMSNORM_D, device=dev, generator=gen) + 0.5
+    return x, scale
+
+
+def quantize_inputs(torch, rows, dtype, dev="cuda"):
+    gen = torch.Generator(device=dev).manual_seed(SEED + rows)
+    x = (torch.randn(rows, QUANTIZE_D, device=dev, generator=gen) * 3).to(dtype)
+    x[0] = 0.0  # an all-zero row takes the 1e-8 floor
+    return x
+
+
+def check_codes(torch, x, values, scales, ref_v, ref_s):
+    """Scales bit-equal to the plain version's; codes equal, except at most
+    one where x / scale lies within 1e-6 of a half (rounding at the
+    boundary)."""
+    if not torch.equal(scales, ref_s):
+        raise AssertionError("quantize_int8: scales are not bit-equal")
+    diff = values != ref_v
+    if int(diff.sum()) > 1:
+        raise AssertionError(f"quantize_int8: {int(diff.sum())} codes differ")
+    if int(diff.sum()) == 1:
+        ratio = (x.float() / ref_s)[diff]
+        if float((ratio.abs().frac() - 0.5).abs().max()) > 1e-6:
+            raise AssertionError("quantize_int8: a code differs off the half")
+
+
+def shape_times(torch, fn, args, n_bytes, n_flops):
+    """A kernel's cold and warm time and bound at one shape, and each
+    CUDA kernel's device time a call from the profiler, in microseconds."""
+    cold = cold_copies(args, n_bytes)
+    return {
+        "cold_us": time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
+        "warm_us": time_ms(fn, torch, arg_sets=(args,)) * 1e3,
+        "bound_us": bound_ms(n_bytes, n_flops)[0] * 1e3,
+        "kernel_us_per_call": device_kernels_us(torch, fn, args, n_bytes),
+    }
+
+
 def check_rmsnorm(torch, ops, dev):
-    rows_list = (8, 512)
-    worst = 0.0
-    for rows in rows_list:
-        gen = torch.Generator(device=dev).manual_seed(SEED + rows)
-        x = torch.randn(rows, 4096, device=dev, generator=gen).to(torch.bfloat16)
-        scale = torch.rand(4096, device=dev, generator=gen) + 0.5
-        got = ops.rmsnorm.rmsnorm(x, scale, 1e-5)
-        ref = ops.rmsnorm.rmsnorm_reference(x, scale, 1e-5)
-        torch.cuda.synchronize()
-        # rtol 1/128: one bf16 ulp of the output (f32 sums in another order).
-        torch.testing.assert_close(got.float(), ref.float(), rtol=1 / 128, atol=0)
-        worst = max(worst, float((got.float() - ref.float()).abs().max()))
-    weight = scale.to(torch.bfloat16)
+    """The RMSNorm forward at each of its main-path shapes, in bf16 and
+    f32: against the plain version, bitwise equal over two calls, one
+    CUDA launch a call, and (bf16) timed. The row's own times are phase
+    3's."""
+    fn = lambda x, scale: ops.rmsnorm.rmsnorm(x, scale, 1e-5)
+    plain = lambda x, scale: ops.rmsnorm.rmsnorm_reference(x, scale, 1e-5)
+    shapes, worst = {}, 0.0
+    for key, rows in RMSNORM_ROWS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, scale = rmsnorm_inputs(torch, rows, dtype, dev)
+            got, again = fn(x, scale), fn(x, scale)
+            ref = plain(x, scale)
+            torch.cuda.synchronize()
+            # bf16: rtol 1/128, one ulp of the output; f32: 1e-5. The f32
+            # sums run in another order.
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           rtol=1 / 128, atol=0)
+            else:
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+            if not torch.equal(got, again):
+                raise AssertionError(f"rmsnorm {key}: two calls differ")
+            err = float((got.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            if dtype == torch.float32:
+                f32_err = err
+                continue
+            n = rows * RMSNORM_D
+            shapes[key] = {
+                "shape": [rows, RMSNORM_D], "max_abs_err": err,
+                "f32_max_abs_err": f32_err, "bitwise_equal": True,
+                "one_launch": one_launch(torch, fn, (x, scale), "rmsnorm_"),
+                **shape_times(torch, fn, (x, scale), 2 * n * 2 + RMSNORM_D * 4,
+                              4 * n),
+            }
+            if key == "phase3":
+                phase3 = x, scale
+    x, scale = phase3
+    rows, d = x.shape
     row = {
         "name": "rmsnorm", "route": "cuda",
         "source": "tf_yarn_tpu_torch/ops/csrc/rmsnorm.cu",
         "replaces": "tf_yarn_tpu/ops/rmsnorm.py:34",
-        "shape": [rows, 4096], "max_abs_err": worst,
+        "shape": [rows, d], "max_abs_err": worst,
+        "tolerance": "rtol 1/128 (bf16), 1e-5 (f32)", "shapes": shapes,
     }
-    n = rows * 4096
+    n = rows * d
+    weight = scale.to(torch.bfloat16)
     row.update(timings(
-        lambda x, scale, weight: ops.rmsnorm.rmsnorm(x, scale, 1e-5),
-        lambda x, scale, weight: ops.rmsnorm.rmsnorm_reference(x, scale, 1e-5),
+        lambda x, scale, weight: fn(x, scale),
+        lambda x, scale, weight: plain(x, scale),
         lambda x, scale, weight: torch.nn.functional.rms_norm(
-            x, (4096,), weight=weight, eps=1e-5),
+            x, (d,), weight=weight, eps=1e-5),
         (x, scale, weight), 2 * n * 2, torch))
-    row["bound_ms"], row["bound_by"] = bound_ms(2 * n * 2 + 4096 * 4, 4 * n)
+    row["bound_ms"], row["bound_by"] = bound_ms(2 * n * 2 + d * 4, 4 * n)
     return row
 
 
 def check_quantize(torch, ops, dev):
-    worst = 0
-    for rows in (8 * 8, 512 * 8):
-        gen = torch.Generator(device=dev).manual_seed(SEED + rows)
-        x = torch.randn(rows, 128, device=dev, generator=gen) * 3
-        values, scales = ops.quantize.quantize_int8(x)
-        ref_v, ref_s = ops.quantize.quantize_int8_reference(x)
-        torch.cuda.synchronize()
-        if not torch.equal(scales, ref_s):
-            raise AssertionError("quantize_int8: scales are not bit-equal")
-        # Codes equal, except at most one where x / scale lies within
-        # 1e-6 of a half (rounding at the boundary).
-        diff = values != ref_v
-        if int(diff.sum()) > 1:
-            raise AssertionError(f"quantize_int8: {int(diff.sum())} codes differ")
-        if int(diff.sum()) == 1:
-            ratio = (x / ref_s)[diff]
-            if float((ratio.abs().frac() - 0.5).abs().max()) > 1e-6:
-                raise AssertionError("quantize_int8: a code differs off the half")
-        worst = max(worst, int((values.int() - ref_v.int()).abs().max()))
+    """The int8 quantize at each of its main-path shapes, from f32 and
+    from bf16 (as the serving path hands it K and V): scales bit-equal to
+    the plain version's, bitwise equal over two calls, one CUDA launch a
+    call, timed. The row's own times are phase 3's from f32."""
+    quantize = ops.quantize.quantize_int8
+    shapes, worst = {}, 0
+    for key, rows in QUANTIZE_ROWS.items():
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = quantize_inputs(torch, rows, dtype, dev)
+            (values, scales), again = quantize(x), quantize(x)
+            ref_v, ref_s = ops.quantize.quantize_int8_reference(x)
+            torch.cuda.synchronize()
+            check_codes(torch, x, values, scales, ref_v, ref_s)
+            if not (torch.equal(values, again[0])
+                    and torch.equal(scales, again[1])):
+                raise AssertionError(f"quantize_int8 {key}: two calls differ")
+            err = int((values.int() - ref_v.int()).abs().max())
+            worst = max(worst, err)
+            n = rows * QUANTIZE_D
+            shapes[f"{key}_{name}"] = {
+                "shape": [rows, QUANTIZE_D], "dtype": name,
+                "max_abs_err": float(err), "bitwise_equal": True,
+                "one_launch": one_launch(torch, quantize, (x,),
+                                         "quantize_int8_"),
+                **shape_times(torch, quantize, (x,),
+                              n * x.element_size() + n + rows * 4, 4 * n),
+            }
+            if key == "phase3" and name == "f32":
+                phase3 = x
+    x = phase3
+    rows = x.shape[0]
     row = {
         "name": "quantize_int8", "route": "cuda",
         "source": "tf_yarn_tpu_torch/ops/csrc/quantize.cu",
         "replaces": "tf_yarn_tpu/ops/quantize.py:20",
-        "shape": [rows, 128], "max_abs_err": float(worst),
+        "shape": [rows, QUANTIZE_D], "max_abs_err": float(worst),
+        "tolerance": "scales bit-equal; at most one code differs, at a half",
+        "shapes": shapes,
     }
-    n = rows * 128
-    row.update(timings(ops.quantize.quantize_int8,
-                       ops.quantize.quantize_int8_reference, None, (x,),
-                       n * 4 + n + rows * 4, torch))
+    n = rows * QUANTIZE_D
+    row.update(timings(quantize, ops.quantize.quantize_int8_reference, None,
+                       (x,), n * 4 + n + rows * 4, torch))
     row["bound_ms"], row["bound_by"] = bound_ms(n * 4 + n + rows * 4, 4 * n)
     return row
 
@@ -263,16 +361,9 @@ def device_kernels_us(torch, fn, args, touched_bytes):
 
 def one_launch(torch, fn, args, name: str) -> dict:
     """The device kernels one call of `fn(*args)` ran, by name: exactly one
-    launch, of the kernel `name`, or this raises."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    ran = {e.key[:80]: e.count for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.count}
+    launch, of a kernel whose name holds `name`, or this raises."""
+    ran = {key[:80]: count for key, count in
+           kernel_launch_counts(torch, lambda: fn(*args)).items()}
     if len(ran) != 1 or name not in next(iter(ran)) \
             or next(iter(ran.values())) != 1:
         raise AssertionError(f"one call ran {ran}, not one {name} launch")
@@ -357,14 +448,8 @@ def dense_inputs(torch, ops, dev, lengths, seq=8192):
 def _serving_shape(torch, fn, args, n_bytes, n_flops):
     """A decode kernel's cold and warm time and bound at the serving
     slice's shape, in microseconds."""
-    cold = cold_copies(args, n_bytes)
-    return {
-        "lengths": args[-1].tolist(),
-        "cold_us": time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
-        "warm_us": time_ms(fn, torch, arg_sets=(args,)) * 1e3,
-        "bound_us": bound_ms(n_bytes, n_flops)[0] * 1e3,
-        "kernel_us_per_call": device_kernels_us(torch, fn, args, n_bytes),
-    }
+    return {"lengths": args[-1].tolist(),
+            **shape_times(torch, fn, args, n_bytes, n_flops)}
 
 
 def check_attention(torch, ops, dev):
@@ -806,15 +891,31 @@ def check_layernorm(torch, ops, dev):
 
 
 def kernel_launch_counts(torch, run) -> dict:
-    """Device kernels `run()` launched, by name, under torch.profiler."""
+    """Device kernels `run()` launched, by name, under torch.profiler. A
+    profiler session on the card can lose the first launches after it
+    starts, so each session first runs three spin kernels
+    (`torch.cuda._sleep`, left out of the counts) and waits for them; a
+    session that still saw no kernel of `run` is run again, up to three
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for _attempt in range(3):
         torch.cuda.synchronize()
-    return {event.key: event.count for event in prof.key_averages()
-            if event.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        ran = {event.key: event.count for event in prof.key_averages()
+               if event.device_type == DeviceType.CUDA and event.count
+               and not getattr(event, "is_user_annotation", False)
+               and "spin_kernel" not in event.key}
+        if ran:
+            break
+    return ran
 
 
 def check_gn_backward(torch, gn, got, x, g, scale, stats, groups):
@@ -1544,7 +1645,7 @@ def burst(port: int, prompts, new_tokens: int):
 # The hand-written kernels' names as the profiler shows them (with their
 # template arguments), whatever their place among the top kernels.
 PORT_KERNEL = re.compile(r"(flash_\w+|groupnorm_\w+|layernorm_\w+|rmsnorm_\w+"
-                         r"|quantize_int8_kernel|decode_kernel)"
+                         r"|quantize_int8_\w+|decode_kernel)"
                          r"(<[^>(]*>)?")
 
 
@@ -1623,12 +1724,16 @@ def device_profile(torch, run, node=None):
         raise AssertionError("the profiler saw no device time")
     port = [(PORT_KERNEL.search(key), us, count) for us, count, key in rows
             if "at::native" not in key]
+    by_calls = sorted(rows, key=lambda row: -row[1])
     result = {
         "wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1 - busy_s / wall,
+        "device_launches": sum(count for _us, count, _key in rows),
         "top_kernels": [{"name": key[:80], "ms": us / 1e3, "calls": count}
                         for us, count, key in rows[:8]],
+        "most_launched": [{"name": key[:80], "calls": count}
+                          for _us, count, key in by_calls[:8]],
         "port_kernels": [{"name": found.group(0), "ms": us / 1e3, "calls": count}
                          for found, us, count in port if found],
     }
@@ -1703,8 +1808,13 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
             # time goes, and how idle the device is.
             fresh = [torch.randint(0, vocab, (n,), generator=gen).tolist()
                      for n in BURST_LENGTHS]
-            result["profiled_burst"] = device_profile(
+            ticks = get(server.port, "/stats")[1]["ticks"]
+            profiled = device_profile(
                 torch, lambda: burst(server.port, fresh, BURST_NEW))
+            profiled["ticks"] = get(server.port, "/stats")[1]["ticks"] - ticks
+            profiled["device_launches_per_tick"] = (
+                profiled["device_launches"] / max(1, profiled["ticks"]))
+            result["profiled_burst"] = profiled
         return result
     finally:
         server.stop()

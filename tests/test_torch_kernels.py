@@ -57,6 +57,133 @@ def test_cuda_quantize_kernel_matches_plain(cuda, rows):
     assert int((values != ref_v).sum()) <= 1
 
 
+# (rows, d) of the RMSNorm forward's layouts: a block a row at d 4096 (one
+# row, a decode tick's 4, a prefill's 300, the training slice's 2048), a
+# warp a row at d 1024, and the looped kernel at d 64 and 771.
+RMSNORM_CASES = [(1, 4096), (4, 4096), (300, 4096), (2048, 4096), (37, 1024),
+                 (5, 64), (33, 771)]
+
+
+def _rmsnorm_check(got, x, scale):
+    ref = t_rmsnorm.rmsnorm_reference(x, scale)
+    assert got.dtype == x.dtype
+    # bf16: one ulp of the output; f32: sums in another order.
+    rtol = 1 / 128 if x.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+def _one_kernel(run, name):
+    """`run()` launched exactly one device kernel, and its name holds
+    `name`."""
+    kernels = _device_kernels(run)
+    assert len(kernels) == 1 and name in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 1, kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows, d", RMSNORM_CASES)
+def test_cuda_rmsnorm_forward_layouts_match_plain(cuda, rows, d, dtype):
+    """Each layout against the plain version, bitwise equal over two
+    calls, in one launch of the kernel its shape picks (the row kernel
+    where d is a whole number of 16-byte vectors for each thread of a
+    warp or a block, the looped one elsewhere)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, device=cuda, generator=gen) * 3).to(dtype)
+    scale = torch.rand(d, device=cuda, generator=gen) + 0.5
+    got, again = t_rmsnorm.rmsnorm(x, scale), t_rmsnorm.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _rmsnorm_check(got, x, scale)
+    _one_kernel(lambda: t_rmsnorm.rmsnorm(x, scale),
+                "rmsnorm_kernel<" if d in (64, 771) else "rmsnorm_row_kernel<")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_rmsnorm_unaligned_view_takes_the_looped_kernel(cuda, dtype):
+    """A contiguous view one element into its storage is off 16-byte
+    alignment: the looped kernel takes it."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    flat = (torch.randn(4 * 4096 + 1, device=cuda, generator=gen) * 3).to(dtype)
+    x = flat[1:].view(4, 4096)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    scale = torch.rand(4096, device=cuda, generator=gen) + 0.5
+    got = t_rmsnorm.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    _rmsnorm_check(got, x, scale)
+    _one_kernel(lambda: t_rmsnorm.rmsnorm(x, scale), "rmsnorm_kernel<")
+
+
+def _quantize_check(x, values, scales):
+    ref_v, ref_s = t_quantize.quantize_int8_reference(x)
+    assert values.dtype == torch.int8 and scales.dtype == torch.float32
+    assert torch.equal(scales, ref_s)
+    # At most one code may differ, where x / scale sits on a half.
+    diff = values != ref_v
+    assert int(diff.sum()) <= 1
+    if int(diff.sum()):
+        ratio = (x.float() / ref_s)[diff]
+        assert float((ratio.abs().frac() - 0.5).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [128, 200])
+@pytest.mark.parametrize("rows", [1, 32, 4096])
+def test_cuda_quantize_from_f32_and_bf16_matches_plain(cuda, rows, d, dtype):
+    """bf16 input (the serving path's K and V) and f32, at head_dim 128
+    (the row kernel) and 200 (the looped kernel's four-element loads):
+    scales bit-equal, bitwise equal over two calls, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, device=cuda, generator=gen) * 3).to(dtype)
+    x[0] = 0.0  # the 1e-8 floor
+    values, scales = t_quantize.quantize_int8(x)
+    again = t_quantize.quantize_int8(x)
+    torch.cuda.synchronize()
+    assert scales.shape == (rows, 1)
+    assert torch.equal(values, again[0]) and torch.equal(scales, again[1])
+    _quantize_check(x, values, scales)
+    _one_kernel(lambda: t_quantize.quantize_int8(x),
+                "quantize_int8_row_kernel<" if d == 128
+                else "quantize_int8_kernel<")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_quantize_halves_and_unaligned_view(cuda, dtype):
+    """Exact halves round to even as the plain version does; a view one
+    element into its storage takes the looped kernel's scalar loads."""
+    halves = torch.zeros(2, 128, device=cuda, dtype=dtype)
+    halves[:, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5,
+                                  -126.5], device=cuda, dtype=dtype)
+    values, scales = t_quantize.quantize_int8(halves)
+    torch.cuda.synchronize()
+    assert scales.flatten().tolist() == [1.0, 1.0]
+    assert values[0, :8].tolist() == [127, 0, 2, 2, 0, -2, 4, -126]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    flat = (torch.randn(32 * 128 + 1, device=cuda, generator=gen) * 3).to(dtype)
+    x = flat[1:].view(32, 128)
+    assert x.is_contiguous() and x.data_ptr() % 8
+    values, scales = t_quantize.quantize_int8(x)
+    torch.cuda.synchronize()
+    _quantize_check(x, values, scales)
+    _one_kernel(lambda: t_quantize.quantize_int8(x), "quantize_int8_kernel<")
+
+
+def test_cuda_rmsnorm_and_quantize_refuse_bad_inputs(cuda):
+    """A dtype the kernels do not take, or a non-contiguous tensor,
+    raises instead of launching."""
+    half = torch.randn(4, 128, device=cuda, dtype=torch.float16)
+    strided = torch.randn(128, 4, device=cuda).t()
+    scale = torch.ones(128, device=cuda)
+    for bad, match in ((half, "dtype"), (strided, "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            t_quantize.quantize_int8(bad)
+        with pytest.raises(ValueError, match=match):
+            t_rmsnorm.rmsnorm(bad, scale)
+
+
 def _pool(gen, num_blocks, block_size, n_kv, head_dim, device):
     x = torch.randn(num_blocks, block_size, n_kv, head_dim, device=device,
                     generator=gen)
@@ -724,15 +851,24 @@ def test_cuda_groupnorm_backward_matches_plain_at_resnet50_slabs(cuda, side, c,
 
 
 def _device_kernels(run):
-    """Device kernels `run()` launched, by name, under torch.profiler."""
+    """Device kernels `run()` launched, by name, under torch.profiler. A
+    session can lose the first launches after it starts: three spin
+    kernels (`torch.cuda._sleep`, left out of the counts) go first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+            if e.device_type == DeviceType.CUDA and e.count
+            and not getattr(e, "is_user_annotation", False)
+            and "spin_kernel" not in e.key}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

@@ -251,3 +251,81 @@ def test_cpu_rmsnorm_backward_takes_the_plain_versions():
     assert x.grad is not None
     assert (t_rmsnorm.rmsnorm.launches,
             t_rmsnorm.rmsnorm_bwd_dx.launches) == before
+
+
+def test_quantize_int8_bf16_input_bit_equal_to_jax_kernel():
+    """bf16 input, as the serving path hands the kernel K and V: the codes
+    and scales of its exact f32 value, bit-equal to the JAX kernel
+    (interpret mode) on that f32 copy; with an all-zero row (the 1e-8
+    floor) and a row whose x / scale lands on exact halves."""
+    from tf_yarn_tpu.ops.quantize import quantize_int8
+
+    rng = np.random.RandomState(6)
+    x = (rng.randn(3, 5, 128) * 3).astype(np.float32)
+    x[0, 0] = 0.0
+    halves = np.zeros(128, np.float32)
+    halves[:8] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -126.5]
+    x[1, 2] = halves
+    x_bf16 = _t(x).to(torch.bfloat16)
+    exact = x_bf16.float().numpy()
+    values, scales = quantize_int8(jnp.asarray(exact))
+    got_v, got_s = t_quantize.quantize_int8(x_bf16)
+    assert got_v.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(values))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(scales))
+    assert float(got_s[1, 2]) == 1.0
+    assert got_v[1, 2, :8].tolist() == [127, 0, 2, 2, 0, -2, 4, -126]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("rows, d", [(3, 1024), (2, 4096)])
+def test_rmsnorm_at_model_widths_matches_jax_kernel(rows, d, dtype):
+    """The widths of the card's row layouts (a warp a row at d 1024, a
+    block a row at Llama-3-8B's 4096) against the JAX kernel in interpret
+    mode, from the same bf16 or f32 input. bf16: rtol 1/128, one ulp of
+    the output; f32: 1e-6, sums in another order."""
+    from tf_yarn_tpu.ops.rmsnorm import rmsnorm
+
+    rng = np.random.RandomState(d + rows)
+    x = (rng.randn(rows, d) * 3).astype(np.float32)
+    scale = (rng.rand(d) + 0.5).astype(np.float32)
+    jx, tx = jnp.asarray(x), _t(x)
+    if dtype == "bf16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    expected = np.asarray(rmsnorm(jx, jnp.asarray(scale), 1e-5)
+                          .astype(jnp.float32))
+    got = t_rmsnorm.rmsnorm(tx, _t(scale), 1e-5)
+    assert got.dtype == tx.dtype
+    rtol = 1 / 128 if dtype == "bf16" else 1e-6
+    np.testing.assert_allclose(got.float().numpy(), expected, rtol=rtol,
+                               atol=1e-6)
+
+
+def test_serving_paths_quantize_kv_in_the_compute_dtype(monkeypatch):
+    """`_cache_rows` (prefill) and the fused paged step of a bf16 config
+    hand `quantize_int8` K and V in bf16, not cast to f32 first: the
+    kernel converts in registers, so a cast would be a launch of its own
+    on the card."""
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    seen = []
+    real = tt.quantize_int8
+
+    def spy(x, **kwargs):
+        seen.append(x.dtype)
+        return real(x, **kwargs)
+
+    monkeypatch.setattr(tt, "quantize_int8", spy)
+    cfg = tt.TransformerConfig.tiny(dtype=torch.bfloat16,
+                                    kv_cache_dtype="int8")
+    model = tt.make_model(cfg, seed=0, device="cpu")
+    _logits, rows = model.prefill(torch.tensor([[1, 2, 3, 4, 5]]))
+    assert rows["key"].dtype == torch.int8
+    assert seen == [torch.bfloat16] * (2 * cfg.n_layers)
+    seen.clear()
+    pool = tt.PagedKVPool(**tt.zeroed_kv(cfg, (cfg.n_layers, 4, 8), "cpu"))
+    logits = model.paged_decode(
+        torch.tensor([[6]]), pool, torch.tensor([[1, 2]], dtype=torch.int32),
+        torch.tensor([5], dtype=torch.int32))
+    assert torch.isfinite(logits).all()
+    assert seen == [torch.bfloat16] * (2 * cfg.n_layers)

@@ -401,8 +401,8 @@ class Attention(nn.Module):
         and f32 scales for an int8 cache, else k and v in the compute
         dtype and no scales."""
         if int8_kv_cache(self.config):
-            k_q, k_s = quantize_int8(k.float())
-            v_q, v_s = quantize_int8(v.float())
+            k_q, k_s = quantize_int8(k)
+            v_q, v_s = quantize_int8(v)
             return k_q, v_q, k_s, v_s
         dtype = self.config.dtype
         return k.to(dtype), v.to(dtype), None, None
@@ -486,8 +486,8 @@ class Attention(nn.Module):
             width, dtype=lengths.dtype, device=x.device)[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        k_q, k_s = quantize_int8(k.float())
-        v_q, v_s = quantize_int8(v.float())
+        k_q, k_s = quantize_int8(k)
+        v_q, v_s = quantize_int8(v)
         blocks, offsets = pool_rows(tables, positions, key_pool.shape[1])
         rows = slots * width
         key_pool[blocks, offsets] = k_q.reshape(rows, *k_q.shape[2:])

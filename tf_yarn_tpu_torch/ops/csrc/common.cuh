@@ -69,6 +69,11 @@ __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
   return u;
 }
 
+// Whether a pointer may be read or written `bytes` at a time.
+inline bool aligned_to(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(static_cast<const uint4*>(p));
 }

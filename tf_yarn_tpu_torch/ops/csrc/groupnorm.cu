@@ -824,10 +824,6 @@ bool valid(int batch, const Shape& s) {
          reduce_smem(s) <= 48 * 1024;
 }
 
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-}
-
 }  // namespace
 
 // x, y [B, HW, C] in x's dtype; scale, bias [C] f32; stats [B, G, 2] f32
@@ -851,8 +847,8 @@ extern "C" int tyt_groupnorm(const void* x, const float* scale,
   if (chunks == 0) {
     const OnePass p{hw, c, groups, span, cluster, rows, threads};
     const int itemsize = bf16 ? 2 : 4;
-    if (!valid_one_pass(batch, p, itemsize, smem, false) || !aligned16(x) ||
-        !aligned16(y)) {
+    if (!valid_one_pass(batch, p, itemsize, smem, false) ||
+        !tyt::aligned_to(x, 16) || !tyt::aligned_to(y, 16)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return bf16 ? forward_one_pass<__nv_bfloat16>(x, scale, bias, y, stats,
@@ -897,7 +893,8 @@ extern "C" int tyt_groupnorm_bwd(const void* x, const void* g,
   if (chunks == 0) {
     const OnePass p{hw, c, groups, span, cluster, rows, threads};
     if (!valid_one_pass(batch, p, bf16 ? 2 : 4, smem, true) ||
-        !aligned16(x) || !aligned16(g) || !aligned16(dx)) {
+        !tyt::aligned_to(x, 16) || !tyt::aligned_to(g, 16) ||
+        !tyt::aligned_to(dx, 16)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     status = bf16 ? backward_one_pass<__nv_bfloat16>(x, g, scale, stats, dx,

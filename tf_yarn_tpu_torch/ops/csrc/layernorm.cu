@@ -352,10 +352,6 @@ int launch_dx_rows(const void* x, const void* g, const float* scale, void* dx,
 
 int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // The row kernel where d is kNV (1-8) 16-byte vectors a lane and the
 // tensors are aligned; else the loop kernel, with 16-byte loads where the
 // row is whole vectors and aligned.
@@ -363,8 +359,8 @@ template <typename T>
 int backward_dx(const void* x, const void* g, const float* scale, void* dx,
                 int rows, int d, float eps, cudaStream_t s) {
   constexpr int kVec = tyt::Vec16<T>::kVec;
-  const bool aligned = aligned16(x) && aligned16(g) && aligned16(scale) &&
-                       aligned16(dx);
+  const bool aligned = tyt::aligned_to(x, 16) && tyt::aligned_to(g, 16) &&
+                       tyt::aligned_to(scale, 16) && tyt::aligned_to(dx, 16);
   const int nv = d / (32 * kVec);
   if (aligned && d % (32 * kVec) == 0 && nv <= kMaxRowVectors) {
     switch (nv) {
@@ -672,8 +668,9 @@ int backward(const void* x, const void* g, const float* scale, void* dx,
              float* partials, float* dscale, float* dbias, int rows, int d,
              int blocks, float eps, cudaStream_t s) {
   constexpr int kVec = tyt::Vec16<T>::kVec;
-  const bool aligned = aligned16(x) && aligned16(g) && aligned16(scale) &&
-                       (dx == nullptr || aligned16(dx));
+  const bool aligned = tyt::aligned_to(x, 16) && tyt::aligned_to(g, 16) &&
+                       tyt::aligned_to(scale, 16) &&
+                       (dx == nullptr || tyt::aligned_to(dx, 16));
   using RowLaunch = int (*)(const void*, const void*, const float*, void*,
                             float*, int, int, float, cudaStream_t);
   constexpr RowLaunch kRowLaunches[kMaxRowVectors] = {

@@ -4,10 +4,12 @@ tf_yarn_tpu/ops/quantize.py.
 `quantize_int8` dispatches on the tensor's device: a CUDA tensor goes to
 the hand-written kernel (csrc/quantize.cu, which replaces the TPU kernel
 `_quantize_kernel`), a CPU tensor to `quantize_int8_reference`. Both
-compute ``scale = max(absmax, 1e-8) * float32(1/127)`` — XLA folds the
-JAX package's division by the constant 127 into that multiply — and
+read x in f32 or bf16 and work on its exact f32 value, as the TPU kernel
+does (``x_ref[...].astype(jnp.float32)``), and compute ``scale =
+max(absmax, 1e-8) * float32(1/127)`` — XLA folds the JAX package's
+division by the constant 127 into that multiply — and
 ``clip(round_half_even(x / scale), -127, 127)`` with a true division,
-so on identical f32 input they agree with the JAX package bit for bit.
+so on identical input they agree with the JAX package bit for bit.
 """
 
 from __future__ import annotations
@@ -34,11 +36,11 @@ def quantize_int8_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
 def quantize_int8(x: torch.Tensor, *, stochastic: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [..., d] f32 -> (int8 values [..., d], f32 scales [..., 1]).
-    CUDA tensors launch the kernel (counted in `quantize_int8.launches`),
-    CPU tensors take the plain version. Stochastic rounding needs the
-    TPU's in-kernel PRNG and raises here, as the JAX package does off
-    the TPU."""
+    """x [..., d] f32 or bf16 -> (int8 values [..., d], f32 scales
+    [..., 1]). CUDA tensors launch the kernel (counted in
+    `quantize_int8.launches`), CPU tensors take the plain version.
+    Stochastic rounding needs the TPU's in-kernel PRNG and raises here,
+    as the JAX package does off the TPU."""
     if stochastic:
         raise ValueError(
             "stochastic rounding needs the TPU PRNG; the port rounds to "
@@ -46,7 +48,7 @@ def quantize_int8(x: torch.Tensor, *, stochastic: bool = False
         )
     if not x.is_cuda:
         return quantize_int8_reference(x)
-    _build.require_cuda("x", x, (torch.float32,))
+    _build.require_cuda("x", x, _build.DTYPE_CODES)
     d = x.shape[-1]
     values = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
@@ -57,7 +59,7 @@ def quantize_int8(x: torch.Tensor, *, stochastic: bool = False
     lib = _build.load_library()
     status = lib.tyt_quantize_int8(
         x.data_ptr(), values.data_ptr(), scales.data_ptr(), rows, d,
-        _build.stream_handle(x.device),
+        _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device),
     )
     _build.check(status, "quantize_int8")
     quantize_int8.launches += 1
