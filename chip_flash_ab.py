@@ -20,8 +20,11 @@ card. `--pass` picks the kernel:
   same 12 shapes, from the forward's statistics, so that a package whose
   backward is a dx kernel beside plain dscale/dbias sums and one whose
   kernels give all three are timed alike;
-- `ln_dx`: the LayerNorm dx `layernorm_bwd_dx` at BERT-base's and
-  ViT-B/16's rows (`chip_smoke.LN_SHAPES`, bf16);
+- `ln_fwd`: the LayerNorm forward (`layernorm`'s kernel, one launch a
+  call) at BERT-base's and ViT-B/16's rows (`chip_smoke.LN_SHAPES`,
+  bf16), beside `F.layer_norm` and the floor of one launch under graph
+  replay (a one-element fill), with each call's CUDA launches by name;
+- `ln_dx`: the LayerNorm dx `layernorm_bwd_dx` at the same rows;
 - `ln_bwd`: the LayerNorm backward as autograd runs it
   (`_LayerNorm.backward`: dx, dscale and dbias, all three wanted) at the
   same rows, so that a package whose backward is a dx kernel beside
@@ -45,9 +48,9 @@ Both also give each call's CUDA launches by name.
 The timing is `chip_smoke.time_ms` over CUDA-graph replays, cold (inputs
 cycling through copies that exceed twice the L2) and warm. One JSON line
 per root: its label, the times in microseconds, the outputs' errors
-against the plain versions (for dq, dkv, gn_fwd, gn_bwd, ln_bwd,
-decode, rmsnorm and quantize also whether two calls gave bitwise-equal
-outputs) and the card's name and power limit.
+against the plain versions (for dq, dkv, gn_fwd, gn_bwd, ln_fwd,
+ln_bwd, decode, rmsnorm and quantize also whether two calls gave
+bitwise-equal outputs) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -250,6 +253,43 @@ def _time_ln_dx(torch, smoke) -> dict:
     return {"shapes": shapes}
 
 
+def _time_ln_fwd(torch, smoke) -> dict:
+    from tf_yarn_tpu_torch.ops import layernorm as ln
+
+    shapes, bitwise = {}, True
+    for key, (rows, d, eps) in smoke.LN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + rows)
+        x = (torch.randn(rows, d, device="cuda", generator=gen) * 3 + 1).to(
+            torch.bfloat16)
+        scale = torch.rand(d, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(d, device="cuda", generator=gen)
+        fn = lambda x, s, b, eps=eps: ln._forward(x, s, b, eps)
+        args = (x, scale, bias)
+        first, second = fn(*args), fn(*args)
+        ref = ln.layernorm_reference(x, scale, bias, eps)
+        torch.cuda.synchronize()
+        bitwise &= bool(torch.equal(first, second))
+        weight, wbias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        library = lambda x, s, b, d=d, eps=eps: torch.nn.functional.layer_norm(
+            x, (d,), weight, wbias, eps)
+        # x read and y written, scale and bias read once.
+        touched = 2 * x.numel() * 2 + 2 * d * 4
+        cold = smoke.cold_copies(args, touched)
+        shapes[key] = {
+            **smoke.shape_times(torch, fn, args, touched, 8 * x.numel()),
+            "library_us": smoke.time_ms(library, torch, inner=2,
+                                        arg_sets=cold) * 1e3,
+            "launches_per_call": smoke.kernel_launch_counts(
+                torch, lambda: fn(*args)),
+            "max_abs_err": float((first.float() - ref.float()).abs().max()),
+        }
+        del cold
+    one = torch.zeros(1, device="cuda")
+    floor = smoke.time_ms(lambda t: t.fill_(1.0), torch, arg_sets=((one,),))
+    return {"shapes": shapes, "bitwise_equal": bitwise,
+            "one_launch_floor_us": floor * 1e3}
+
+
 def _plain_ln_bwd(torch, x, g, scale, eps):
     """dx, dscale and dbias in f32, written out here so that every root is
     held against the same arithmetic."""
@@ -419,8 +459,8 @@ def _time_quantize(torch, smoke) -> dict:
             "takes_bf16": takes_bf16, "one_launch_floor_us": floor * 1e3}
 
 
-PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_dx", "ln_bwd", "decode",
-          "rmsnorm", "quantize")
+PASSES = ("fwd", "dq", "dkv", "gn_fwd", "gn_bwd", "ln_fwd", "ln_dx", "ln_bwd",
+          "decode", "rmsnorm", "quantize")
 
 
 def time_one(root: Path, kernel: str) -> dict:
@@ -437,6 +477,8 @@ def time_one(root: Path, kernel: str) -> dict:
         found = _time_gn_fwd(torch, smoke)
     elif kernel == "gn_bwd":
         found = _time_gn_bwd(torch, smoke)
+    elif kernel == "ln_fwd":
+        found = _time_ln_fwd(torch, smoke)
     elif kernel == "ln_dx":
         found = _time_ln_dx(torch, smoke)
     elif kernel == "ln_bwd":

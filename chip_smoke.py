@@ -16,12 +16,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    calls, one CUDA launch of its kernel a call by the profiler, and
    timed at every shape; paged attention, dense int8 decode attention —
    the two attention rows read the same slots' cache bytes, each also
-   timed at the serving slice's 4 slots, bitwise equal over two calls,
-   and one CUDA launch of its kernel a call by the profiler; training:
+   timed at the serving slice's 4 slots (the paged one also at grid
+   (e)'s 64-token windows), bitwise equal over two calls, and one CUDA
+   launch of its kernel a call by the profiler; training:
    rmsnorm dx, flash forward,
-   dq, dk/dv; the zoo: the LayerNorm forward and backward (dx, dscale
+   dq, dk/dv; the zoo: the LayerNorm forward (bitwise equal over two
+   calls, one launch of its row kernel a call) and backward (dx, dscale
    and dbias; bitwise equal over two calls, two launches a call and no
-   other kernel) at BERT-base's and ViT-B/16's rows, the GroupNorm
+   other kernel), each timed cold and warm at BERT-base's and
+   ViT-B/16's rows, the GroupNorm
    forward and backward at all 12 of ResNet-50's slab shapes, each with
    its launch-weighted sum a step and the device kernels one call at
    each launched, which must be the plan's and, for the backward,
@@ -35,7 +38,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    inputs again and again) is kept beside them;
 4. references: a small f32 model (int8 KV) served on the card (kernels)
    and on the CPU (plain versions) from the same weights — prefill
-   logits close, greedy outputs equal on the fused paged grid, the
+   logits close, greedy outputs equal on the fused paged grid (also with
+   chunked prefill, its streams equal to the blocking grid's), the
    dense grid and the gather mode (each also with spec_k=2) and from
    `engine.generate` at batch 3 with a replayed remainder and an eos;
    `run_inference` over a checkpoint `train_and_evaluate` wrote on the
@@ -51,9 +55,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    set to 0 just before it and read just after: SlotScheduler with 4
    slots behind ServingServer on 127.0.0.1 answering 4 concurrent greedy
    /v1/generate requests — (a) paged with fused attention, (b) paged in
-   the gather mode, (c) the dense grid — and (d) `engine.generate` on a
-   [4, 300] batch. Every kernel of a path must have launched (the dense
-   decode kernel on b, c and d). Bursts (a) and (b) run a second burst
+   the gather mode, (c) the dense grid — (d) `engine.generate` on a
+   [4, 300] batch, and (e) grid (a) with chunked prefill (a chunk of 64,
+   two a tick), which must run no prefill program and one window step
+   of width 64 a tick. Every kernel of a path must have launched (the
+   dense decode kernel on b, c and d). Bursts (a), (b) and (e) run a second burst
    of fresh prompts under torch.profiler: the device's busy share, its
    launches a scheduler tick, and the kernels that took most device time
    and that launched most often;
@@ -375,14 +381,19 @@ def one_launch(torch, fn, args, name: str) -> dict:
 # serving slice's (its 4 slots: the bursts' prompts, 17-300 tokens, and
 # the longest at its last step, 316).
 SERVING_LENGTHS = (17, 64, 150, 316)
+# The chunked grid's (e) tick: 4 slots each a 64-token window past its
+# length (a chunk of the prompts at 0, 64, 128 and 192 tokens in), over
+# the serving grid's 512-block tables.
+CHUNK = 64
+CHUNK_LENGTHS = (0, 64, 128, 192)
 
 
-def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512):
-    """The paged kernel's arguments (window 1, bf16 q, NaN scales in the
-    trash block 0, the live blocks of each table drawn from a permutation
-    and the rest pointing at the trash), the bytes its call must move and
-    its flops. `lengths` None draws 8 from seed 0."""
-    n_heads, n_kv, head_dim, bs, width = 32, 8, 128, 16, 1
+def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512, width=1):
+    """The paged kernel's arguments (a window of `width`, bf16 q, NaN
+    scales in the trash block 0, the live blocks of each table drawn from
+    a permutation and the rest pointing at the trash), the bytes its call
+    must move and its flops. `lengths` None draws 8 from seed 0."""
+    n_heads, n_kv, head_dim, bs = 32, 8, 128, 16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     slots = 8 if lengths is None else len(lengths)
     num_blocks = slots * max_blocks + 1
@@ -491,6 +502,13 @@ def check_attention(torch, ops, dev):
                                plain(*serving).float(), atol=2e-2, rtol=2e-2)
     row["shape_serving"] = _serving_shape(torch, attend, serving, n_bytes,
                                           n_flops)
+    del serving
+    chunk, n_bytes, n_flops = paged_inputs(torch, ops, dev, CHUNK_LENGTHS,
+                                           width=CHUNK)
+    torch.testing.assert_close(attend(*chunk).float(), plain(*chunk).float(),
+                               atol=2e-2, rtol=2e-2)
+    row["shape_chunk"] = dict(_serving_shape(torch, attend, chunk, n_bytes,
+                                             n_flops), width=CHUNK)
     return row
 
 
@@ -795,11 +813,14 @@ def check_ln_backward(torch, ln, got, x, g, scale, eps):
 
 def check_layernorm(torch, ops, dev):
     """The LayerNorm forward and its whole backward (dx, dscale, dbias) at
-    BERT-base's and ViT-B/16's rows (bf16); returns their two rows. The
-    backward is held against its plain version, bitwise equal over two
-    calls, and its device kernels one call at each shape launched must be
-    its two and nothing else; its library yardstick is F.layer_norm's
-    autograd backward for x, weight and bias."""
+    BERT-base's and ViT-B/16's rows (bf16); returns their two rows, each
+    timed cold and warm at both shapes. The forward is held against its
+    plain version, bitwise equal over two calls, and one call at each
+    shape must be one launch of the row kernel. The backward is held
+    against its plain version, bitwise equal over two calls, and its
+    device kernels one call at each shape launched must be its two and
+    nothing else; its library yardstick is F.layer_norm's autograd
+    backward for x, weight and bias."""
     ln = ops.layernorm
     layer_norm = torch.nn.functional.layer_norm
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -813,6 +834,7 @@ def check_layernorm(torch, ops, dev):
         scale = torch.rand(d, device=dev, generator=gen) + 0.5
         bias = torch.randn(d, device=dev, generator=gen)
         y = ln._forward(x, scale, bias, eps)
+        y_again = ln._forward(x, scale, bias, eps)
         got = ln.layernorm_backward(x, g, scale, eps)
         again = ln.layernorm_backward(x, g, scale, eps)
         ref_y = ln.layernorm_reference(x, scale, bias, eps)
@@ -820,6 +842,11 @@ def check_layernorm(torch, ops, dev):
         # y: one bf16 ulp (f32 sums in another order).
         torch.testing.assert_close(y.float(), ref_y.float(), rtol=1 / 128,
                                    atol=1e-5)
+        if not torch.equal(y, y_again):
+            raise AssertionError(f"layernorm {key}: two calls gave different y")
+        forward_launch = one_launch(
+            torch, lambda x, s, b, eps=eps: ln._forward(x, s, b, eps),
+            (x, scale, bias), "layernorm_row_kernel")
         errors = check_ln_backward(torch, ln, got, x, g, scale, eps)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("layernorm_backward: two calls gave "
@@ -847,6 +874,7 @@ def check_layernorm(torch, ops, dev):
             dict(base, replaces="tf_yarn_tpu/ops/layernorm.py:36",
                  tolerance="rtol 1/128 (one bf16 ulp), atol 1e-5",
                  max_abs_err=float((y.float() - ref_y.float()).abs().max()),
+                 bitwise_deterministic=True, one_launch=forward_launch,
                  library="F.layer_norm"),
             lambda x, s, b, eps=eps: ln._forward(x, s, b, eps),
             lambda x, s, b, eps=eps: ln.layernorm_reference(x, s, b, eps),
@@ -878,6 +906,12 @@ def check_layernorm(torch, ops, dev):
     rows = _norm_rows(specs, torch)
     rows[1]["device_kernels_2_calls"] = launched
     first = next(iter(LN_SHAPES))
+    for key, r in {first: rows[0], **rows[0]["other_shapes"]}.items():
+        log(f"  layernorm {key}: {r['ms'] * 1e3:.2f} us cold, "
+            f"{r['warm_ms'] * 1e3:.2f} warm, F.layer_norm "
+            f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f} "
+            f"({r['bound_ms'] / r['ms']:.0%} of it), one launch "
+            f"{r['one_launch']}")
     for key, r in {first: rows[1], **rows[1]["other_shapes"]}.items():
         log(f"  layernorm_backward {key}: {r['ms'] * 1e3:.2f} us cold, "
             f"{r['warm_ms'] * 1e3:.2f} warm, F.layer_norm backward "
@@ -1519,9 +1553,10 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
     """The same small f32 model (int8 KV) served through the kernels on
     the card and through the plain versions on the CPU: prefill logits
     close, and greedy outputs equal on every decode path — the fused
-    paged grid, the dense grid and the gather mode (each also with two
-    n-gram drafts per tick) and `generate` at batch 3 with a replayed
-    prompt remainder and an eos."""
+    paged grid (also with chunked prefill: windows of 8 prompt tokens, 16
+    a tick, its streams equal to the blocking grid's), the dense grid and
+    the gather mode (each also with two n-gram drafts per tick) and
+    `generate` at batch 3 with a replayed prompt remainder and an eos."""
     cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
                                **TINY_SERVE)
     cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
@@ -1536,6 +1571,8 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
         "dense_spec2": dict(kv_layout="dense", spec_k=2),
         "gather_spec2": dict(kv_layout="paged", decode_attention="gather",
                              spec_k=2),
+        "fused_chunked": dict(kv_layout="paged", decode_attention="fused",
+                              prefill_chunk=8, prefill_budget_per_tick=16),
     }
     batch = [[(5 * i + 2 * r + 1) % 512 for i in range(19)] for r in range(3)]
     results = []
@@ -1560,7 +1597,8 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
     for name in (*grids, "eos", "generate"):
         if card[name] != cpu[name]:
             raise AssertionError(f"{name}: card {card[name]} != CPU {cpu[name]}")
-    if card["dense"] != card["fused"] or card["gather"] != card["dense"]:
+    if card["dense"] != card["fused"] or card["gather"] != card["dense"] \
+            or card["fused_chunked"] != card["fused"]:
         raise AssertionError(f"the decode paths disagree on the card: {card}")
     return {"prefill_logits_max_abs_err": err,
             "streams": {name: card[name] for name in grids},
@@ -1772,6 +1810,7 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
     try:
         prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
                    for n in BURST_LENGTHS]
+        before = dict(engine.stats)
         _zero(counted)
         results, wall = burst(server.port, prompts, BURST_NEW)
         launches = _launches(counted)
@@ -1786,6 +1825,10 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
         status, stats = get(server.port, "/stats")
         if status != 200 or "decode_engine" not in stats:
             raise AssertionError(f"/stats: {status}")
+        calls = {key: stats["decode_engine"].get(key, 0) - before.get(key, 0)
+                 for key in ("prefill_calls", "paged_spec_step_calls",
+                             "spec_step_calls", "paged_step_calls",
+                             "step_calls")}
         for fn in needed:
             if launches[fn.__name__] <= 0:
                 raise AssertionError(f"{fn.__name__} never launched on the "
@@ -1799,6 +1842,9 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
             "tokens_per_s": BURST_NEW * len(prompts) / wall,
             "ttft_s": sorted(body["ttft_s"] for _status, body in results),
             "ticks": stats["ticks"],
+            "engine_calls": calls,
+            "prefill_chunk": stats["prefill_chunk"],
+            "prefill_budget_per_tick": stats["prefill_budget_per_tick"],
             "kv_cache_bytes": stats["kv_cache_hbm_bytes"],
             "launches": launches,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1828,8 +1874,11 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
 
 def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
     """The Llama-3-8B-width decoder (int8 KV) on every serving path: (a)
-    the fused paged burst, (b) the gather burst, (c) the dense burst, and
-    (d) `engine.generate` on a [4, 300] batch, 16 new tokens."""
+    the fused paged burst, (b) the gather burst, (c) the dense burst, (d)
+    `engine.generate` on a [4, 300] batch, 16 new tokens, and (e) the
+    fused paged burst with chunked prefill (windows of CHUNK prompt
+    tokens, two chunks a tick): no prefill program, every tick one
+    window step of width CHUNK."""
     rmsnorm, quantize, paged, dense = counted
     cfg = tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
                                          kv_cache_dtype="int8")
@@ -1878,6 +1927,18 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
         "tokens_per_s": 4 * BURST_NEW / wall, "launches": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    chunked = serve_burst(
+        *common, (rmsnorm, quantize, paged), gen, cfg.vocab_size, True,
+        kv_layout="paged", decode_attention="fused", prefill_chunk=CHUNK,
+        prefill_budget_per_tick=2 * CHUNK)
+    calls = chunked["engine_calls"]
+    steps = calls["paged_spec_step_calls"]
+    if chunked["prefill_chunk"] != CHUNK or calls["prefill_calls"] \
+            or steps != chunked["ticks"] \
+            or chunked["launches"][paged.__name__] != cfg.n_layers * steps:
+        raise AssertionError(f"the chunked burst did not run one window step "
+                             f"of width {CHUNK} a tick: {chunked}")
+    paths["chunked_burst"] = chunked
     return paths
 
 
@@ -1954,15 +2015,17 @@ def main() -> int:
             + (f" {row['kernel_us_per_call']}" if "kernel_us_per_call" in row
                else "")
             + (f"; serving shape {json.dumps(row['shape_serving'])}"
-               if "shape_serving" in row else ""))
+               if "shape_serving" in row else "")
+            + (f"; chunk shape {json.dumps(row['shape_chunk'])}"
+               if "shape_chunk" in row else ""))
     gc.collect()
     torch.cuda.empty_cache()
 
     reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev)
     log(f"serving reference: card vs CPU prefill logits max err "
         f"{reference['prefill_logits_max_abs_err']:.3g}; greedy outputs "
-        f"equal on the fused, dense and gather grids (spec_k 0 and 2) and "
-        f"generate: {json.dumps(reference)}")
+        f"equal on the fused, dense and gather grids (spec_k 0 and 2), the "
+        f"chunked fused grid and generate: {json.dumps(reference)}")
     infer_reference = inference_reference(torch, tt, engine_mod, training,
                                           experiment, ckpt, inference, dev)
     log(f"inference reference: run_inference records equal generate: "

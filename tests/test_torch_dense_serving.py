@@ -210,8 +210,9 @@ def test_stats_surface_matches_jax_scheduler(layout):
         _drive(scheduler, lambda i: params_cls(max_new_tokens=MAX_NEW))
         snaps[name] = scheduler.stats()
     port, ref = snaps["port"], snaps["jax"]
-    assert set(port) <= set(ref)
-    assert set(ref) - set(port) == {"prefill_chunk", "prefill_budget_per_tick"}
+    assert set(port) == set(ref)
+    for key in ("prefill_chunk", "prefill_budget_per_tick"):
+        assert port[key] == ref[key], key
     for key in ("kv_cache_hbm_bytes", "kv_cache_hbm_bytes_per_device",
                 "peak_streams"):
         assert port[key] == ref[key], key

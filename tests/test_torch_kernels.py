@@ -729,6 +729,88 @@ def test_cuda_layernorm_kernels_match_plain(cuda, rows, d, dtype):
     torch.testing.assert_close(dx.float(), ref_dx.float(), **tol_dx)
 
 
+# The LayerNorm forward's layouts: the row kernel where d is 1-8 16-byte
+# vectors a lane (bf16 d 256, 768, 1024 and 2048: 1, 3, 4 and 8 vectors;
+# f32 d 768 and 1024: 6 and 8), over one row, a partial block of rows,
+# BERT-base's 4096 and ViT-B/16's 25216; the three-pass kernel at d 64
+# (the tiny configs) and 771 (no vector divides it).
+LN_FWD_ROWS = [1, 7, 4096, 25216]
+LN_FWD_CASES = ([(torch.bfloat16, d, rows) for d in (256, 768, 1024, 2048)
+                 for rows in LN_FWD_ROWS]
+                + [(torch.float32, d, rows) for d in (768, 1024)
+                   for rows in LN_FWD_ROWS]
+                + [(dtype, d, rows) for dtype in (torch.bfloat16, torch.float32)
+                   for d in (64, 771) for rows in (7, 4096)])
+
+
+def _ln_forward_check(got, x, scale, bias, eps):
+    """y within one bf16 ulp of the plain version (f32 sums in another
+    order), or 1e-5 in f32."""
+    ref = t_layernorm.layernorm_reference(x, scale, bias, eps)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    rtol = 1 / 128 if x.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "dtype, d, rows", LN_FWD_CASES,
+    ids=[f"{'bf16' if t == torch.bfloat16 else 'f32'}-{d}-{r}"
+         for t, d, r in LN_FWD_CASES])
+def test_cuda_layernorm_forward_layouts_match_plain(cuda, dtype, d, rows):
+    """Each layout against the plain version, bitwise equal over two
+    calls, one CUDA launch a call of the kernel its shape picks."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, device=cuda, generator=gen) * 3 + 1).to(dtype)
+    scale = torch.rand(d, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(d, device=cuda, generator=gen)
+    eps = 1e-12 if rows % 2 else 1e-6
+    launches = t_layernorm.layernorm.launches
+    got = t_layernorm._forward(x, scale, bias, eps)
+    again = t_layernorm._forward(x, scale, bias, eps)
+    torch.cuda.synchronize()
+    assert t_layernorm.layernorm.launches == launches + 2
+    assert torch.equal(got, again)
+    _ln_forward_check(got, x, scale, bias, eps)
+    _one_kernel(lambda: t_layernorm._forward(x, scale, bias, eps),
+                "layernorm_kernel<" if d in (64, 771)
+                else "layernorm_row_kernel<")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_layernorm_forward_unaligned_takes_the_general_kernel(cuda,
+                                                                   dtype):
+    """A contiguous view one element into its storage, or a scale off
+    16-byte alignment, is taken by the three-pass kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    flat = (torch.randn(33 * 768 + 1, device=cuda, generator=gen) * 3).to(dtype)
+    x = flat[1:].view(33, 768)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    scale = torch.rand(769, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(768, device=cuda, generator=gen)
+    for xs, s in ((x, scale[:768]), (flat[:-1].view(33, 768), scale[1:])):
+        got = t_layernorm._forward(xs, s, bias, 1e-6)
+        torch.cuda.synchronize()
+        _ln_forward_check(got, xs, s, bias, 1e-6)
+        _one_kernel(lambda: t_layernorm._forward(xs, s, bias, 1e-6),
+                    "layernorm_kernel<")
+
+
+def test_cuda_layernorm_forward_refuses_bad_inputs(cuda):
+    """A dtype the kernels do not take, or a scale or bias of the wrong
+    shape, raises instead of launching."""
+    x = torch.randn(4, 768, device=cuda, dtype=torch.bfloat16)
+    scale, bias = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    launches = t_layernorm.layernorm.launches
+    with pytest.raises(ValueError, match="dtype"):
+        t_layernorm._forward(x.half(), scale, bias, 1e-12)
+    with pytest.raises(ValueError, match="shape"):
+        t_layernorm._forward(x, scale[:767], bias, 1e-12)
+    with pytest.raises(ValueError, match="shape"):
+        t_layernorm._forward(x, scale, torch.zeros(2, 768, device=cuda), 1e-12)
+    assert t_layernorm.layernorm.launches == launches
+
+
 # (shape, groups), with the forward's plan: the ResNet-50 stem's
 # 112x112x64 slab (802,816 elements an image; one pass, a cluster of 8
 # blocks of 256 threads), the last stage's 7x7x2048 (one pass, one block
@@ -853,22 +935,28 @@ def test_cuda_groupnorm_backward_matches_plain_at_resnet50_slabs(cuda, side, c,
 def _device_kernels(run):
     """Device kernels `run()` launched, by name, under torch.profiler. A
     session can lose the first launches after it starts: three spin
-    kernels (`torch.cuda._sleep`, left out of the counts) go first."""
+    kernels (`torch.cuda._sleep`, left out of the counts) go first, and a
+    session that saw no kernel of `run` at all is run again, up to three
+    times (as `chip_smoke.kernel_launch_counts` does)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            torch.cuda._sleep(1000)
+    for _attempt in range(3):
         torch.cuda.synchronize()
-        run()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count
-            and not getattr(e, "is_user_annotation", False)
-            and "spin_kernel" not in e.key}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count
+               and not getattr(e, "is_user_annotation", False)
+               and "spin_kernel" not in e.key}
+        if ran:
+            return ran
+    return ran
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

@@ -65,6 +65,28 @@ def test_layernorm_forward_and_grads_match_jax(eps, shape, kernel_bwd):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=name)
 
 
+# BERT-base's and ViT-B/16's width, the row kernel's on the card, in
+# both of its dtypes and at both models' eps, over a few rows.
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("eps", [1e-12, 1e-6])
+def test_layernorm_reference_at_d768_matches_the_jax_kernel(eps, dtype):
+    from tf_yarn_tpu.ops import layernorm as j_layernorm
+
+    x, scale, bias, _ = _inputs((5, 768), seed=768, offset=1.0)
+    want = j_layernorm.layernorm(jnp.asarray(x, getattr(jnp, dtype)),
+                                 jnp.asarray(scale), jnp.asarray(bias),
+                                 eps=eps)
+    got = t_layernorm.layernorm_reference(
+        torch.tensor(x).to(getattr(torch, dtype)), torch.tensor(scale),
+        torch.tensor(bias), eps)
+    assert str(want.dtype) == dtype and got.dtype == getattr(torch, dtype)
+    # bf16: one ulp of y (f32 sums in another order); f32: 1e-5.
+    rtol = 1 / 128 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=rtol, atol=1e-5)
+
+
 def test_layernorm_dx_reference_matches_the_jax_dx_kernel():
     """The plain dx alone against the JAX dx kernel, both at eps 1e-12."""
     from tf_yarn_tpu.ops import layernorm as j_layernorm

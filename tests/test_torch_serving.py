@@ -140,10 +140,6 @@ def test_context_overflow_and_sampling_mismatch_are_rejected(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"prefill_chunk": "auto"},
-    {"prefill_budget_per_tick": 8},
-    {"prefill_chunk": 4, "spec_k": 2},
-    {"prefill_chunk": 8},
     {"kv_host_blocks": 4},
 ])
 def test_unported_options_raise(weights, option):

@@ -13,12 +13,33 @@
 // (4d bytes a row in bf16) against ~8d f32 operations; the backward reads
 // x and g and writes dx (6d bytes) against ~18d.
 //
-// Forward: one warp per row (BERT-base and ViT-B/16 rows are 768 wide: 24
-// elements a lane), eight rows a block, so each reduction is a warp
-// shuffle with no shared memory and no block barrier. The TPU kernel
-// holds its row block in VMEM; here the first pass reads the row from
-// device memory and the later passes (the centred squares, then the
-// output) find it in L1. Loads are scalar and coalesced.
+// Forward: one warp a row, so each reduction is a warp shuffle with no
+// shared memory and no block barrier. The TPU kernel holds its row block
+// in VMEM; here layernorm_row_kernel holds the row in registers where it
+// is a whole number (1-8) of 16-byte vectors for each lane (d a multiple
+// of 256 in bf16, of 128 in f32, up to 2048 and 1024; BERT-base's and
+// ViT-B/16's d 768 is 3 vectors a lane in bf16, 6 in f32) and x, y,
+// scale and bias are 16-byte aligned: a lane issues its x vectors and its
+// scale and bias float4s (__ldg) before the first use, takes the mean
+// with one warp sum and the centred squares from registers with a second,
+// and writes y with 16-byte stores: one read of x, one write of y. Lane l
+// holds vectors l, l + 32, ..., so a warp instruction moves 512
+// contiguous bytes; the kernel is templated on the vectors a lane holds,
+// so d is a constant. The grid is persistent: as many blocks of
+// kFwdRowWarps warps as fit on the card at once, each warp taking every
+// (kFwdRowWarps * gridDim.x)-th row with scale and bias kept in registers
+// across its rows, and loading its next row's x before it reduces the
+// current one, so the next row's read overlaps this one's arithmetic and
+// write. A block a row group (one row a warp, no loop) ran 6.4-6.5 us at
+// BERT-base's [4096, 768] against 5.0 for this, and 30 against 29 at
+// ViT-B/16's [25216, 768]; without the prefetch, 5.6 and 29.7; 4 and 8
+// warps a block level (PERF.md §6). Every other width (d 64 of
+// the tiny configs, 771 in the tests) and unaligned tensors take
+// layernorm_kernel, eight rows a block, three strided passes of scalar
+// loads: the sum, the centred squares and the output, the later two
+// finding the row in L1. The entry point picks by shape and alignment
+// alone; either way one launch, and each row's arithmetic does not
+// depend on the grid, so two calls give the same bits.
 //
 // dx alone (layernorm_bwd_dx_row_kernel; the backward of a frozen scale
 // and bias): each warp holds its row in registers. Where a row is a whole
@@ -70,6 +91,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+
+int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -259,6 +282,137 @@ __device__ __forceinline__ void get4_scale(const float* scale, int i,
   f[3] = s.w;
 }
 
+// The forward with the row in registers (kNV 16-byte vectors a lane),
+// a warp a row, kFwdRowWarps warps a block, persistent: a fixed grid of
+// at most as many blocks as fit on the card at once, each warp taking
+// every (kFwdRowWarps * gridDim.x)-th row, with scale and bias held in
+// registers across its rows and the next row's x loaded before the
+// current one is reduced.
+constexpr int kFwdRowWarps = 8;
+
+template <typename T, int kNV>
+__device__ __forceinline__ void load_x(const T* __restrict__ x, size_t off,
+                                       uint4 (&xv)[kNV]) {
+  constexpr int kVec = tyt::Vec16<T>::kVec;
+#pragma unroll
+  for (int k = 0; k < kNV; ++k) xv[k] = tyt::load16(x + off + k * 32 * kVec);
+}
+
+template <typename T, int kNV>
+__global__ void __launch_bounds__(kFwdRowWarps * 32)
+layernorm_row_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, T* __restrict__ y,
+                     int rows, float eps) {
+  constexpr int kVec = tyt::Vec16<T>::kVec;
+  constexpr int kD = kNV * 32 * kVec;
+  constexpr float kInvD = 1.f / static_cast<float>(kD);
+  int row = blockIdx.x * kFwdRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const int stride = gridDim.x * kFwdRowWarps;
+  const int lane = threadIdx.x & 31;
+
+  uint4 xv[kNV];
+  load_x<T, kNV>(x, static_cast<size_t>(row) * kD + lane * kVec, xv);
+  float4 sv[kNV][kVec / 4], bv[kNV][kVec / 4];
+#pragma unroll
+  for (int k = 0; k < kNV; ++k) {
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j) {
+      const int i = (k * 32 + lane) * kVec + 4 * j;
+      sv[k][j] = __ldg(reinterpret_cast<const float4*>(scale + i));
+      bv[k][j] = __ldg(reinterpret_cast<const float4*>(bias + i));
+    }
+  }
+  for (; row < rows; row += stride) {
+    const size_t off = static_cast<size_t>(row) * kD + lane * kVec;
+    uint4 xn[kNV];
+    if (row + stride < rows) {
+      load_x<T, kNV>(x, off + static_cast<size_t>(stride) * kD, xn);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      float v[kVec];
+      tyt::unpack(xv[k], v);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) sum += v[j];
+    }
+    const float mean = tyt::warp_sum(sum) * kInvD;
+    float sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      float v[kVec];
+      tyt::unpack(xv[k], v);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float c = v[j] - mean;
+        sq += c * c;
+      }
+    }
+    const float r = rsqrtf(tyt::warp_sum(sq) * kInvD + eps);
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      float v[kVec];
+      tyt::unpack(xv[k], v);
+#pragma unroll
+      for (int j = 0; j < kVec / 4; ++j) {
+        v[4 * j] = (v[4 * j] - mean) * r * sv[k][j].x + bv[k][j].x;
+        v[4 * j + 1] = (v[4 * j + 1] - mean) * r * sv[k][j].y + bv[k][j].y;
+        v[4 * j + 2] = (v[4 * j + 2] - mean) * r * sv[k][j].z + bv[k][j].z;
+        v[4 * j + 3] = (v[4 * j + 3] - mean) * r * sv[k][j].w + bv[k][j].w;
+      }
+      tyt::store16(y + off + k * 32 * kVec, tyt::pack(v));
+    }
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) xv[k] = xn[k];
+  }
+}
+
+template <typename T, int kNV>
+void launch_fwd_rows(const void* x, const float* scale, const float* bias,
+                     void* y, int rows, float eps, cudaStream_t s) {
+  // The blocks that fit on the card at once (kernel and device fixed per
+  // process: asked once).
+  static int fit = 0;
+  if (fit == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, layernorm_row_kernel<T, kNV>, kFwdRowWarps * 32, 0);
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int need = (rows + kFwdRowWarps - 1) / kFwdRowWarps;
+  const int blocks = need < fit ? need : fit;
+  layernorm_row_kernel<T, kNV><<<blocks, kFwdRowWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, eps);
+}
+
+// The row kernel where d is kNV (1-8) 16-byte vectors a lane and the
+// tensors are aligned; else the three-pass kernel.
+template <typename T>
+int forward(const void* x, const float* scale, const float* bias, void* y,
+            int rows, int d, float eps, cudaStream_t s) {
+  constexpr int kVec = tyt::Vec16<T>::kVec;
+  using Launch = void (*)(const void*, const float*, const float*, void*, int,
+                          float, cudaStream_t);
+  constexpr Launch kLaunches[kMaxRowVectors] = {
+      launch_fwd_rows<T, 1>, launch_fwd_rows<T, 2>, launch_fwd_rows<T, 3>,
+      launch_fwd_rows<T, 4>, launch_fwd_rows<T, 5>, launch_fwd_rows<T, 6>,
+      launch_fwd_rows<T, 7>, launch_fwd_rows<T, 8>};
+  const bool aligned = tyt::aligned_to(x, 16) && tyt::aligned_to(scale, 16) &&
+                       tyt::aligned_to(bias, 16) && tyt::aligned_to(y, 16);
+  const int nv = d / (32 * kVec);
+  if (aligned && d % (32 * kVec) == 0 && nv <= kMaxRowVectors) {
+    kLaunches[nv - 1](x, scale, bias, y, rows, eps, s);
+  } else {
+    layernorm_kernel<T><<<blocks_for(rows), kThreads, 0, s>>>(
+        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, d,
+        eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int kNV>
 __global__ void __launch_bounds__(kRowWarps * 32)
 layernorm_bwd_dx_row_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -349,8 +503,6 @@ int launch_dx_rows(const void* x, const void* g, const float* scale, void* dx,
           static_cast<T*>(dx), rows, eps);
   return static_cast<int>(cudaGetLastError());
 }
-
-int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
 // The row kernel where d is kNV (1-8) 16-byte vectors a lane and the
 // tensors are aligned; else the loop kernel, with 16-byte loads where the
@@ -704,17 +856,12 @@ extern "C" int tyt_layernorm(const void* x, const float* scale,
   if (rows <= 0 || d <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tyt::kBFloat16) {
-    layernorm_kernel<__nv_bfloat16><<<blocks_for(rows), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), scale, bias,
-        static_cast<__nv_bfloat16*>(y), rows, d, eps);
-  } else if (dtype == tyt::kFloat32) {
-    layernorm_kernel<float><<<blocks_for(rows), kThreads, 0, s>>>(
-        static_cast<const float*>(x), scale, bias, static_cast<float*>(y),
-        rows, d, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return forward<__nv_bfloat16>(x, scale, bias, y, rows, d, eps, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == tyt::kFloat32) {
+    return forward<float>(x, scale, bias, y, rows, d, eps, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // g (the cotangent of y) has x's dtype; dx is written in it too.

@@ -21,22 +21,32 @@ Every tick:
 1. **retire** active slots whose per-request deadline passed;
 2. **admit** queued requests into free slots: prefill the prompt through
    the engine's bucketed prefill (`slot_prefill_len` leaves the last
-   prompt token to replay) and splice it into the slot;
+   prompt token to replay) and splice it into the slot — or, with
+   chunked prefill (``prefill_chunk``), prefill nothing: the whole
+   prompt (past a prefix-cache hit) queues as replay;
 3. **step** every slot in ONE engine call: replaying slots feed their
    next prompt token, decoding slots their last emission, free slots
    ride along masked off. The exact tick (`engine.step` /
    `engine.paged_step`) advances each slot one token; the windowed tick
-   (`engine.spec_step` / `engine.paged_spec_step`, when ``spec_k > 0``
-   or the fused mode) feeds each slot a window of its replay prefix or
-   its last token plus up to ``spec_k`` drafts from the n-gram
-   self-drafter, and keeps the prefix the target itself emits;
+   (`engine.spec_step` / `engine.paged_spec_step`, when ``spec_k > 0``,
+   the fused mode or chunked prefill) feeds each slot a window of its
+   replay prefix or its last token plus up to ``spec_k`` drafts from the
+   n-gram self-drafter, and keeps the prefix the target itself emits.
+   The window is max(spec_k + 1, prefill_chunk) wide, so a chunking slot
+   consumes up to a chunk of its prompt a tick beside the decoding
+   slots; ``prefill_budget_per_tick`` caps the prompt tokens a tick
+   consumes (a chunking slot whose window would pass it is masked off
+   for the tick, and which slot claims the budget first rotates
+   round-robin), and decoding slots are never paused. On the paged
+   layout each chunk's completed whole blocks are offered to the prefix
+   cache as they fill;
 4. **retire** slots that emitted their eos or hit max_new_tokens.
 
 Per-slot sampling state is a `torch.Generator` seeded with the request's
 seed at admission (the JAX package's per-slot PRNGKey rows). The
 constructor raises NotImplementedError, naming the ROADMAP item, for
-what is not ported yet: chunked prefill, the host swap tier
-(``kv_host_blocks > 0``) and tensor parallelism.
+what is not ported yet: the host swap tier (``kv_host_blocks > 0``) and
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -81,10 +91,15 @@ KV_LAYOUTS = ("dense", "paged")
 
 class _Slot:
     """Host-side state of one occupied decode slot; a non-empty
-    ``pending`` deque means the slot is still replaying its prompt."""
+    ``pending`` deque means the slot is still replaying its prompt.
+    ``prompt_filled`` counts the prompt tokens with valid KV (prefilled,
+    hit or replayed so far) and ``registered_blocks`` the whole prompt
+    blocks already offered to the prefix cache (the chunked paged path's
+    incremental registration)."""
 
     __slots__ = ("request", "response", "pending", "last_token", "emitted",
-                 "blocks", "context", "last_emit_at")
+                 "blocks", "context", "prompt_filled", "registered_blocks",
+                 "last_emit_at")
 
     def __init__(self, request: Request, response: Response,
                  pending: List[int], blocks: Optional[List[int]] = None):
@@ -95,6 +110,8 @@ class _Slot:
         self.emitted = 0
         self.blocks = blocks or []
         self.context: List[int] = list(request.prompt)
+        self.prompt_filled = len(request.prompt) - len(self.pending)
+        self.registered_blocks = 0
         self.last_emit_at: Optional[float] = None
 
 
@@ -112,7 +129,11 @@ class SlotScheduler:
     max_seq_len / block_size + 1``); ``prefix_cache_capacity``
     shared-prefix entries (0 disables sharing). ``spec_k`` drafts per
     slot per tick from ``spec_draft`` ("ngram", a callable ``(context,
-    k) -> tokens``, or None); the context limit shrinks by ``spec_k``."""
+    k) -> tokens``, or None). ``prefill_chunk`` (an int >= 1, "auto" —
+    the largest of the engine's prompt buckets — or 0/None for blocking
+    admission) admits prompts in windows of that many tokens a tick;
+    ``prefill_budget_per_tick`` caps the prompt tokens a tick consumes.
+    The context limit shrinks by the window width less one."""
 
     def __init__(
         self,
@@ -153,9 +174,6 @@ class SlotScheduler:
             raise ValueError(
                 "decode_attention='fused' streams the paged block pool "
                 "directly; it requires kv_layout='paged'")
-        if prefill_chunk not in (None, 0) or prefill_budget_per_tick is not None:
-            _not_ported("chunked prefill (prefill_chunk, "
-                        "prefill_budget_per_tick)")
         if kv_host_blocks:
             _not_ported("the host swap tier (kv_host_blocks > 0)")
         if int(getattr(engine, "tp_degree", 1) or 1) > 1:
@@ -170,9 +188,39 @@ class SlotScheduler:
         self.spec_k = int(spec_k)
         self.decode_attention = decode_attention
         # The windowed tick: the last token (or replay prefix) + spec_k
-        # drafts; it also carries the fused mode at width 1.
-        self._window_width = self.spec_k + 1
-        self._windowed = self.spec_k > 0 or decode_attention == "fused"
+        # drafts; it also carries the fused mode at width 1, and chunked
+        # prefill at the chunk's width.
+        spec_width = self.spec_k + 1
+        if prefill_chunk in (None, 0):
+            chunk = 0
+        elif prefill_chunk == "auto":
+            buckets = getattr(engine, "prompt_buckets", None) or ()
+            chunk = max([spec_width] + [int(b) for b in buckets])
+        else:
+            chunk = int(prefill_chunk)
+            if chunk < 1:
+                raise ValueError(
+                    "prefill_chunk must be >= 1, 'auto', or 0/None "
+                    f"(blocking admission), got {prefill_chunk!r}")
+        self.prefill_chunk = chunk
+        self._chunked = chunk > 0
+        self._window_width = max(spec_width, chunk)
+        self._windowed = (self.spec_k > 0 or decode_attention == "fused"
+                          or self._chunked)
+        if prefill_budget_per_tick is not None:
+            if not self._chunked:
+                raise ValueError(
+                    "prefill_budget_per_tick needs chunked prefill "
+                    "(prefill_chunk >= 1 or 'auto'); with blocking "
+                    "admission there is no per-tick prefill to budget")
+            prefill_budget_per_tick = int(prefill_budget_per_tick)
+            if prefill_budget_per_tick < self._window_width:
+                raise ValueError(
+                    f"prefill_budget_per_tick ({prefill_budget_per_tick}) "
+                    f"must be >= the window width ({self._window_width}, "
+                    "i.e. max(prefill_chunk, spec_k + 1)) or no chunking "
+                    "slot could ever advance")
+        self.prefill_budget_per_tick = prefill_budget_per_tick
         self._drafter = make_drafter(spec_draft) if self.spec_k > 0 else None
         self._spec_proposed = 0
         self._spec_accepted = 0
@@ -242,7 +290,10 @@ class SlotScheduler:
 
     @property
     def context_limit(self) -> int:
-        """Max prompt + max_new_tokens this grid can serve."""
+        """Max prompt + max_new_tokens this grid can serve: the windowed
+        paths keep ``window - 1`` positions of headroom, since a window
+        writes all its rows before acceptance is known (window =
+        max(spec_k + 1, prefill_chunk))."""
         return self._max_seq_len - (self._window_width - 1)
 
     def submit(self, prompt, params: Optional[SamplingParams] = None,
@@ -267,7 +318,8 @@ class SlotScheduler:
                           trace_id=trace_id)
         if len(request.prompt) + params.max_new_tokens > self.context_limit:
             headroom = (f" minus the {self._window_width - 1}-token window "
-                        "headroom (spec_k)" if self._window_width > 1 else "")
+                        "headroom (max(spec_k, prefill_chunk - 1))"
+                        if self._window_width > 1 else "")
             raise ValueError(
                 f"prompt ({len(request.prompt)}) + max_new_tokens "
                 f"({params.max_new_tokens}) exceeds the model's max_seq_len "
@@ -422,6 +474,13 @@ class SlotScheduler:
     def _admit_dense(self, request: Request, response: Response,
                      now: float, admitted: List[int]) -> None:
         slot = self._free.popleft()
+        if self._chunked:
+            # No prefill: a zeroed slot, and the whole prompt replays a
+            # chunk a tick.
+            self._cache = self.engine.evict_slot(self._cache, slot)
+            self._slots[slot] = _Slot(request, response, list(request.prompt))
+            self._record_admission(slot, request, now, admitted)
+            return
         prefill_len = self.engine.slot_prefill_len(len(request.prompt))
         with telemetry.span("serving/prefill", request=request.id,
                             prefill=prefill_len):
@@ -461,6 +520,10 @@ class SlotScheduler:
         if hit_tokens:
             prefill_len = hit_tokens
             self._registry.counter("serving/prefix_cache_hits_total").inc()
+        elif self._chunked:
+            # No prefill: the blocks are reserved, the whole prompt replays
+            # a chunk a tick, and each completed block is registered.
+            prefill_len = 0
         else:
             prefill_len = self.engine.slot_prefill_len(len(prompt))
             with telemetry.span("serving/prefill", request=request.id,
@@ -476,8 +539,11 @@ class SlotScheduler:
         self._tables[slot, :] = 0
         self._tables[slot, :len(blocks)] = blocks
         self._lengths[slot] = prefill_len
-        self._slots[slot] = _Slot(request, response, list(prompt[prefill_len:]),
-                                  blocks)
+        state = _Slot(request, response, list(prompt[prefill_len:]), blocks)
+        # Whole blocks already covered (a hit, or the blocking prefill's
+        # registration): the chunked registration starts past them.
+        state.registered_blocks = prefill_len // self._block_size
+        self._slots[slot] = state
         self._record_admission(slot, request, now, admitted)
         return True
 
@@ -553,10 +619,15 @@ class SlotScheduler:
 
     def _step_spec(self, active: List[int], retired: List) -> Dict[int, int]:
         """The windowed tick: ONE engine step advances every slot a
-        variable number of tokens — a replaying slot up to the window of
-        teacher-forced prompt tokens, a decoding slot 1 up to spec_k + 1
-        (its drafts kept while the target agrees). Returns {request id:
-        tokens emitted} for the trace ring."""
+        variable number of tokens — a replaying (chunking) slot up to the
+        window of teacher-forced prompt tokens, a decoding slot 1 up to
+        spec_k + 1 (its drafts kept while the target agrees). With
+        ``prefill_budget_per_tick``, a replaying slot whose window would
+        pass the tick's budget is masked off (it consumes and emits
+        nothing; its garbage window rows land past its valid length and
+        are overwritten when it resumes); who claims the budget first
+        rotates each tick. Decoding slots are never paused. Returns
+        {request id: tokens emitted} for the trace ring."""
         width = self._window_width
         tokens = np.full((self.max_slots, width), -1, np.int32)
         n_known = np.zeros((self.max_slots,), np.int32)
@@ -564,8 +635,20 @@ class SlotScheduler:
         mask = np.zeros((self.max_slots,), bool)
         consumed: Dict[int, int] = {}
         proposed: Dict[int, int] = {}
-        for slot in active:
+        budget = self.prefill_budget_per_tick
+        order = active
+        if budget is not None and len(active) > 1:
+            pivot = self._ticks % len(active)
+            order = active[pivot:] + active[:pivot]
+        for slot in order:
             state = self._slots[slot]
+            need = min(len(state.pending), width)
+            if budget is not None and need > 0:
+                if need > budget:
+                    consumed[slot] = 0
+                    proposed[slot] = 0
+                    continue
+                budget -= need
             max_emit = state.request.params.max_new_tokens - state.emitted
             window, known, n_prop = plan_window(
                 state.pending, state.last_token, width, max_emit,
@@ -575,7 +658,7 @@ class SlotScheduler:
             eos = state.request.params.eos_token
             eos_ids[slot] = -1 if eos is None else eos
             mask[slot] = True
-            consumed[slot] = min(len(state.pending), width)
+            consumed[slot] = need
             proposed[slot] = n_prop
         sampling = dict(temperature=self.temperature, top_k=self.top_k,
                         top_p=self.top_p)
@@ -598,6 +681,7 @@ class SlotScheduler:
             state = self._slots[slot]
             for _ in range(consumed[slot]):
                 state.pending.popleft()
+            state.prompt_filled += consumed[slot]
             prefill_tokens += consumed[slot]
             n = int(counts[slot])
             decode_tokens += n
@@ -605,6 +689,8 @@ class SlotScheduler:
                 # Valid rows this tick: the replayed prefix + the
                 # emissions; rejected window rows beyond stay dead.
                 self._lengths[slot] += int(n_known[slot]) + n
+                if self._chunked and consumed[slot]:
+                    self._register_chunk_prefix(state)
             if proposed[slot]:
                 accepted_drafts = min(max(n - 1, 0), proposed[slot])
                 self._spec_proposed += proposed[slot]
@@ -627,6 +713,19 @@ class SlotScheduler:
                 self._spec_accepted / self._spec_proposed)
         self._account_tokens(prefill_tokens, decode_tokens)
         return accepts
+
+    def _register_chunk_prefix(self, state: _Slot) -> None:
+        """Offer every prompt block a chunk just completed to the prefix
+        cache. `PrefixCache.register` is idempotent per prefix and takes
+        its own reference on each newly shared block, so the slot's one
+        reference (released at retire) is never counted twice: a slot
+        evicted mid-prefill releases exactly its own references, and the
+        cached blocks survive for the next hit."""
+        whole = state.prompt_filled // self._block_size
+        if whole > state.registered_blocks:
+            self._prefix.register(state.request.prompt, state.prompt_filled,
+                                  state.blocks)
+            state.registered_blocks = whole
 
     def _account_tokens(self, prefill_tokens: int, decode_tokens: int) -> None:
         """Per-tick token split: prompt tokens consumed (prefill/replay)
@@ -744,6 +843,8 @@ class SlotScheduler:
             "draining": self._draining,
             "spec_k": self.spec_k,
             "decode_attention": self.decode_attention,
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_budget_per_tick": self.prefill_budget_per_tick,
             "prefill_tokens": self._prefill_tokens,
             "decode_tokens": self._decode_tokens,
             "peak_streams": self._peak_streams,
