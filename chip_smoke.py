@@ -42,6 +42,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    chunked prefill, its streams equal to the blocking grid's), the
    dense grid and the gather mode (each also with spec_k=2) and from
    `engine.generate` at batch 3 with a replayed remainder and an eos;
+   the fused grid with the host swap tier (`fused_swap`: a batch stream
+   suspended by an interactive request and resumed, its streams equal to
+   the same requests served alone) and a warm start between two fused
+   grids through the block wire (the importer's stream equal to the
+   donor's, with a prefix hit);
    `run_inference` over a checkpoint `train_and_evaluate` wrote on the
    card — its records equal `generate` on the restored params; a small
    f32 LoRA decoder (flash, fused norms) trained 5 steps on both from the
@@ -58,8 +63,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the gather mode, (c) the dense grid — (d) `engine.generate` on a
    [4, 300] batch, and (e) grid (a) with chunked prefill (a chunk of 64,
    two a tick), which must run no prefill program and one window step
-   of width 64 a tick. Every kernel of a path must have launched (the
-   dense decode kernel on b, c and d). Bursts (a), (b) and (e) run a second burst
+   of width 64 a tick; (f) the host swap tier: grid (a) with
+   `num_blocks=47` and `kv_host_blocks=64`, two batch requests of 300
+   tokens and 64 new filling the pool, then two interactive ones (17 and
+   64 tokens, 16 new) that suspend one of them: every parked stream
+   resumes, the batch streams equal the same two served alone, and the
+   paged kernel launches once a layer a window step; each tier's TTFT
+   and tokens/s, the blocks swapped, their seconds and the host copy's
+   GB/s; (g) the warm start: replica A serves a 300-token prompt, its
+   `GET /v1/blocks` is POSTed to replica B (another grid over the same
+   engine), whose stream on the prompt must hit the 16 imported blocks
+   and equal A's; the wire's MB and its stages' seconds. Every kernel of
+   a path must have launched (the dense decode kernel on b, c and d). Bursts (a), (b) and (e) run a second burst
    of fresh prompts under torch.profiler: the device's busy share, its
    launches a scheduler tick, and the kernels that took most device time
    and that launched most often;
@@ -83,7 +98,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    backward calls must make its two CUDA launches and no arithmetic in
    torch (no plain dscale/dbias).
 
-The run takes 2.5-4 minutes by how fast the host is, well inside a
+The run takes 3-5 minutes by how fast the host is, well inside a
 10-minute limit.
 
 The line before last is the card's `nvidia-smi` name and power limit
@@ -1547,16 +1562,84 @@ def _drive(scheduler, prompts, sampling):
 # GQA group 2, the f32 instantiation of the decode kernels.
 TINY_SERVE = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
                   n_kv_heads=2, d_ff=1024, max_seq_len=256)
+# The tiny swap grid: a pool of 4 usable blocks holds the 40-token batch
+# stream (24 new tokens: 4 blocks) and nothing else, so the interactive
+# request (1 block) suspends it to the host tier.
+TINY_SWAP = dict(max_slots=2, block_size=16, num_blocks=5, kv_host_blocks=8,
+                 kv_layout="paged", decode_attention="fused")
 
 
-def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
+def _finish(scheduler, responses):
+    for _ in range(400):
+        if all(r.done for r in responses):
+            return [r.result(timeout=1) for r in responses]
+        scheduler.tick()
+    raise AssertionError("a request did not finish in 400 ticks")
+
+
+def tiny_swap(engine, sched_mod, batch_prompt, inter_prompt):
+    """The fused_swap grid driven tick by tick: the batch stream alone for
+    3 ticks, then the interactive request. Returns (streams, the same two
+    requests each served alone, the swap counters)."""
+    sampling = sched_mod.SamplingParams
+    requests = ((batch_prompt, 24, "batch"), (inter_prompt, 8, "interactive"))
+    alone = []
+    for prompt, new, tier in requests:
+        scheduler = sched_mod.SlotScheduler(engine, **TINY_SWAP)
+        alone += _finish(scheduler, [scheduler.submit(
+            prompt, sampling(max_new_tokens=new), tier=tier)])
+        scheduler.close()
+    scheduler = sched_mod.SlotScheduler(engine, **TINY_SWAP)
+    (prompt, new, tier), second = requests
+    responses = [scheduler.submit(prompt, sampling(max_new_tokens=new),
+                                  tier=tier)]
+    for _ in range(3):
+        scheduler.tick()
+    prompt, new, tier = second
+    responses.append(scheduler.submit(prompt, sampling(max_new_tokens=new),
+                                      tier=tier))
+    streams = _finish(scheduler, responses)
+    swap = scheduler.stats()["swap"]
+    scheduler.close()
+    return streams, alone, swap
+
+
+def tiny_warm_start(engine, sched_mod, server_mod, prompt):
+    """A donor fused grid serves `prompt`; its hot prefixes go through the
+    block wire (export, encode, JSON, decode) into a fresh grid, whose
+    stream on the same prompt is returned with its prefix hits."""
+    grid = dict(max_slots=2, block_size=16, kv_layout="paged",
+                decode_attention="fused")
+    sampling = sched_mod.SamplingParams(max_new_tokens=8)
+    donor = sched_mod.SlotScheduler(engine, **grid)
+    receiver = sched_mod.SlotScheduler(engine, **grid)
+    try:
+        (donor_stream,) = _finish(donor, [donor.submit(prompt, sampling)])
+        wire = server_mod.decode_block_wire(json.loads(json.dumps(
+            server_mod.encode_block_wire(donor.export_hot_prefixes()))))
+        imported = receiver.import_prefixes(wire)
+        (stream,) = _finish(receiver, [receiver.submit(prompt, sampling)])
+        return {"donor": donor_stream, "receiver": stream,
+                "imported": imported,
+                "hits": receiver.stats()["prefix_cache"]["hits"]}
+    finally:
+        donor.close()
+        receiver.close()
+
+
+def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
     """The same small f32 model (int8 KV) served through the kernels on
     the card and through the plain versions on the CPU: prefill logits
     close, and greedy outputs equal on every decode path — the fused
     paged grid (also with chunked prefill: windows of 8 prompt tokens, 16
     a tick, its streams equal to the blocking grid's), the dense grid and
     the gather mode (each also with two n-gram drafts per tick) and
-    `generate` at batch 3 with a replayed prompt remainder and an eos."""
+    `generate` at batch 3 with a replayed prompt remainder and an eos;
+    the fused grid with the host swap tier (a batch stream suspended by
+    an interactive request and resumed: its streams equal to the same
+    requests served alone); and a warm start between two fused grids
+    through the block wire (the importer's stream equal to the donor's,
+    with a prefix hit)."""
     cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
                                **TINY_SERVE)
     cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
@@ -1589,20 +1672,34 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev):
         run["eos"] = int(free[0, 19 + 2])
         run["generate"] = engine.generate(batch, 8,
                                           eos_token=run["eos"]).cpu().tolist()
+        run["fused_swap"], run["fused_swap_alone"], run["swap"] = tiny_swap(
+            engine, sched_mod, prompts[1], prompts[0])
+        run["warm_start"] = tiny_warm_start(engine, sched_mod, server_mod,
+                                            prompts[1])
         results.append(run)
     card, cpu = results
     err = float((card["logits"] - cpu["logits"]).abs().max())
     if not torch.isfinite(card["logits"]).all() or err > 1e-3:
         raise AssertionError(f"card vs CPU prefill logits differ by {err}")
-    for name in (*grids, "eos", "generate"):
+    for name in (*grids, "eos", "generate", "fused_swap", "warm_start"):
         if card[name] != cpu[name]:
             raise AssertionError(f"{name}: card {card[name]} != CPU {cpu[name]}")
+    swap, warm = card["swap"], card["warm_start"]
+    if card["fused_swap"] != card["fused_swap_alone"] or swap["suspends"] < 1 \
+            or swap["resumes"] != swap["suspends"]:
+        raise AssertionError(f"fused_swap: {card['fused_swap']} against "
+                             f"{card['fused_swap_alone']} alone, {swap}")
+    if warm["receiver"] != warm["donor"] or warm["hits"] < 1 \
+            or warm["imported"]["imported_blocks"] < 1:
+        raise AssertionError(f"warm start: {warm}")
     if card["dense"] != card["fused"] or card["gather"] != card["dense"] \
             or card["fused_chunked"] != card["fused"]:
         raise AssertionError(f"the decode paths disagree on the card: {card}")
     return {"prefill_logits_max_abs_err": err,
             "streams": {name: card[name] for name in grids},
-            "generate": card["generate"], "generate_eos": card["eos"]}
+            "generate": card["generate"], "generate_eos": card["eos"],
+            "fused_swap": card["fused_swap"], "swap": swap,
+            "warm_start": warm}
 
 
 def inference_reference(torch, tt, engine_mod, training, experiment, ckpt,
@@ -1872,13 +1969,278 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
         torch.cuda.empty_cache()
 
 
-def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
+# Burst (f): two batch streams of SWAP_BATCH-token prompts fill a pool of
+# 46 usable blocks (2 x ceil((300 + 64 - 1) / 16)), then two interactive
+# requests arrive and must suspend one of them to the host tier.
+SWAP_BATCH, SWAP_BATCH_NEW = (300, 300), 64
+SWAP_INTER, SWAP_INTER_NEW = (17, 64), 16
+SWAP_GRID = dict(max_slots=4, block_size=16, num_blocks=47, kv_host_blocks=64,
+                 kv_layout="paged", decode_attention="fused")
+
+
+def post_all(port: int, bodies):
+    """Start one POST a body and return (threads, replies, started), the
+    replies filled in as (status, body, wall seconds) when they come."""
+    replies = [None] * len(bodies)
+    started = time.perf_counter()
+
+    def call(i):
+        status, reply = post(port, bodies[i])
+        replies[i] = (status, reply, time.perf_counter() - started)
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(bodies))]
+    for thread in threads:
+        thread.start()
+    return threads, replies, started
+
+
+def join_all(threads, replies):
+    for thread in threads:
+        thread.join(timeout=900)
+    if any(thread.is_alive() for thread in threads) or None in replies:
+        raise AssertionError("a request did not finish")
+    for status, body, _wall in replies:
+        if status != 200:
+            raise AssertionError(f"bad reply {status}: {body}")
+    return replies
+
+
+def wait_for(condition, what: str, timeout_s: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not condition():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def tier_summary(replies, new_tokens: int) -> dict:
+    walls = [wall for _status, _body, wall in replies]
+    return {"ttft_s": [body["ttft_s"] for _s, body, _w in replies],
+            "wall_s": walls,
+            "tokens_per_s": new_tokens * len(replies) / max(walls)}
+
+
+def host_copy_rates(torch, engine, n_blocks: int) -> dict:
+    """D2H and H2D GB/s of `n_blocks` pool blocks as the swap moves them:
+    `extract_blocks` then one host copy a leaf, and `inject_blocks` from
+    the host copy; the median of 5 of each after a warm-up."""
+    pool = engine.make_paged_pool(2 * n_blocks + 1, 16)
+    ids = list(range(1, n_blocks + 1))
+    back = list(range(n_blocks + 1, 2 * n_blocks + 1))
+    out_s, in_s = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        payload = engine.extract_blocks(pool, ids, 16)
+        host = type(payload)(**{name: None if leaf is None else leaf.cpu()
+                                for name, leaf in vars(payload).items()})
+        out_s.append(time.perf_counter() - started)
+        started = time.perf_counter()
+        engine.inject_blocks(pool, back, host, 16)
+        torch.cuda.synchronize()
+        in_s.append(time.perf_counter() - started)
+    n_bytes = pool.nbytes() / pool.num_blocks * n_blocks
+    del pool, payload, host
+    median = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+    return {"blocks": n_blocks, "bytes": n_bytes,
+            "d2h_s": median(out_s), "h2d_s": median(in_s),
+            "d2h_gb_per_s": n_bytes / median(out_s) / 1e9,
+            "h2d_gb_per_s": n_bytes / median(in_s) / 1e9}
+
+
+def serve_swap(torch, engine, sched_mod, server_mod, telemetry, counted,
+               gen, vocab, n_layers):
+    """Burst (f): SWAP_GRID behind ServingServer. The two batch requests
+    are served alone first (the reference); then again, and once both
+    are active the two interactive requests arrive, suspending a batch
+    stream that resumes when they retire. The batch streams must equal
+    the reference, every parked stream must resume, and the paged kernel
+    must launch once a layer a window step."""
+    rmsnorm, quantize, paged, _dense = counted
+    batch = [{"prompt": torch.randint(0, vocab, (n,), generator=gen).tolist(),
+              "max_new_tokens": SWAP_BATCH_NEW, "tier": "batch"}
+             for n in SWAP_BATCH]
+    inter = [{"prompt": torch.randint(0, vocab, (n,), generator=gen).tolist(),
+              "max_new_tokens": SWAP_INTER_NEW, "tier": "interactive"}
+             for n in SWAP_INTER]
+    registry = telemetry.get_registry()
+    swap_seconds = registry.histogram("serving/swap_seconds")
+    runs = {}
+    for name in ("alone", "contended"):
+        torch.cuda.reset_peak_memory_stats()
+        scheduler = sched_mod.SlotScheduler(engine, **SWAP_GRID)
+        server = server_mod.ServingServer(scheduler, "127.0.0.1", 0)
+        scheduler.start()
+        server.start()
+        try:
+            before = dict(engine.stats)
+            seconds = (swap_seconds.count, swap_seconds.total)
+            _zero(counted)
+            threads, replies, _ = post_all(server.port, batch)
+            inter_replies = None
+            if name == "contended":
+                wait_for(lambda: scheduler.stats()["active_slots"] >= 2,
+                         "both batch streams to be active")
+                more, inter_replies, _ = post_all(server.port, inter)
+                join_all(more, inter_replies)
+            join_all(threads, replies)
+            launches = _launches(counted)
+            stats = scheduler.stats()
+            runs[name] = {
+                "replies": replies,
+                "inter": inter_replies,
+                "stats": stats, "launches": launches,
+                "steps": stats["decode_engine"]["paged_spec_step_calls"]
+                - before.get("paged_spec_step_calls", 0),
+                "swap_observations": swap_seconds.count - seconds[0],
+                "swap_seconds": swap_seconds.total - seconds[1],
+                "block_bytes": stats["kv_cache_hbm_bytes"]
+                / stats["block_pool"]["num_blocks"],
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            }
+        finally:
+            server.stop()
+            scheduler.close()
+            del scheduler, server
+            gc.collect()
+    alone, run = runs["alone"], runs["contended"]
+    swap = run["stats"]["swap"]
+    streams = [body["tokens"] for _s, body, _w in run["replies"]]
+    reference = [body["tokens"] for _s, body, _w in alone["replies"]]
+    if swap["suspends"] < 1 or swap["resumes"] != swap["suspends"] \
+            or run["stats"]["suspended_streams"]:
+        raise AssertionError(f"burst (f) did not suspend and resume: {swap}")
+    if streams != reference:
+        raise AssertionError("burst (f): the resumed batch streams differ "
+                             "from the same requests served alone")
+    launches = run["launches"]
+    if launches[paged.__name__] != n_layers * run["steps"] \
+            or launches[rmsnorm.__name__] <= 0 \
+            or launches[quantize.__name__] <= 0:
+        raise AssertionError(f"burst (f) launches {launches} over "
+                             f"{run['steps']} window steps")
+    for _s, body, _w in run["replies"] + run["inter"]:
+        if not all(0 <= t < vocab for t in body["tokens"]):
+            raise AssertionError(f"token out of range: {body['tokens']}")
+    moved = swap["swap_out_blocks"] + swap["swap_in_blocks"]
+    return {
+        "grid": SWAP_GRID,
+        "batch_prompt_tokens": list(SWAP_BATCH),
+        "batch_new_tokens": SWAP_BATCH_NEW,
+        "interactive_prompt_tokens": list(SWAP_INTER),
+        "interactive_new_tokens": SWAP_INTER_NEW,
+        "batch": tier_summary(run["replies"], SWAP_BATCH_NEW),
+        "interactive": tier_summary(run["inter"], SWAP_INTER_NEW),
+        "batch_alone": tier_summary(alone["replies"], SWAP_BATCH_NEW),
+        "swap": swap,
+        "blocks_moved": moved,
+        "mb_per_block": run["block_bytes"] / 1e6,
+        "swap_seconds": run["swap_seconds"],
+        "swap_observations": run["swap_observations"],
+        "swap_seconds_per_swap": run["swap_seconds"]
+        / max(1, run["swap_observations"]),
+        "swap_gb_per_s": moved * run["block_bytes"]
+        / max(run["swap_seconds"], 1e-9) / 1e9,
+        "host_copy": host_copy_rates(torch, engine, swap["swap_out_blocks"]),
+        "ticks": run["stats"]["ticks"],
+        "window_steps": run["steps"],
+        "launches": launches,
+        "peak_memory_gb": run["peak_memory_gb"],
+    }
+
+
+def serve_warm_start(torch, engine, sched_mod, server_mod, telemetry,
+                     counted, gen, vocab):
+    """Grid (g): replica A (a fused grid) serves a 300-token prompt whose
+    first 256 tokens prefill as one bucket, so its prefix cache holds 16
+    blocks; `GET /v1/blocks` from A is POSTed to replica B (its own small
+    pool, the same engine); B then serves the same prompt through the
+    imported prefix (at least 16 blocks hit, no prefill) with A's greedy
+    stream. Also the wire's size and, in process, the seconds of export,
+    encode and decode."""
+    rmsnorm, quantize, paged, _dense = counted
+    body = {"prompt": torch.randint(0, vocab, (300,), generator=gen).tolist(),
+            "max_new_tokens": BURST_NEW}
+    grid = dict(max_slots=4, block_size=16, kv_layout="paged",
+                decode_attention="fused")
+    replica_a = sched_mod.SlotScheduler(engine, num_blocks=64, **grid)
+    replica_b = sched_mod.SlotScheduler(engine, num_blocks=40, **grid)
+    servers = [server_mod.ServingServer(s, "127.0.0.1", 0)
+               for s in (replica_a, replica_b)]
+    for scheduler, server in zip((replica_a, replica_b), servers):
+        scheduler.start()
+        server.start()
+    try:
+        _zero(counted)
+        status, reply_a = post(servers[0].port, body)
+        started = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{servers[0].port}/v1/blocks",
+                timeout=600) as reply:
+            raw = reply.read()
+        get_s = time.perf_counter() - started
+        started = time.perf_counter()
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{servers[1].port}/v1/blocks", data=raw,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=600) as reply:
+            imported = json.loads(reply.read())
+        post_s = time.perf_counter() - started
+        before = dict(replica_b.stats())
+        status_b, reply_b = post(servers[1].port, body)
+        after = replica_b.stats()
+        launches = _launches(counted)
+        # In process, the wire's stages on the same snapshot.
+        started = time.perf_counter()
+        wire = replica_a.export_hot_prefixes()
+        export_s = time.perf_counter() - started
+        started = time.perf_counter()
+        encoded = server_mod.encode_block_wire(wire)
+        encode_s = time.perf_counter() - started
+        started = time.perf_counter()
+        server_mod.decode_block_wire(json.loads(raw))
+        decode_s = time.perf_counter() - started
+        del wire, encoded
+    finally:
+        for scheduler, server in zip((replica_a, replica_b), servers):
+            server.stop()
+            scheduler.close()
+        del replica_a, replica_b, servers
+        gc.collect()
+        torch.cuda.empty_cache()
+    hits = after["prefix_cache"]["hits"] - before["prefix_cache"]["hits"]
+    replayed = after["prefill_tokens"] - before["prefill_tokens"]
+    prefills = (after["decode_engine"]["prefill_calls"]
+                - before["decode_engine"]["prefill_calls"])
+    if status != 200 or status_b != 200 or imported["imported_blocks"] < 16 \
+            or hits != 1 or prefills or replayed > 300 - 16 * 16:
+        raise AssertionError(f"grid (g): {status} {status_b} {imported}, "
+                             f"{hits} hits, {prefills} prefills, "
+                             f"{replayed} tokens replayed")
+    if reply_b["tokens"] != reply_a["tokens"]:
+        raise AssertionError(f"grid (g): B's stream {reply_b['tokens']} != "
+                             f"A's {reply_a['tokens']}")
+    if launches[paged.__name__] <= 0 or launches[rmsnorm.__name__] <= 0 \
+            or launches[quantize.__name__] <= 0:
+        raise AssertionError(f"grid (g) launches {launches}")
+    return {"prompt_tokens": 300, "new_tokens": BURST_NEW,
+            "imported": imported, "hit_blocks": (300 - replayed) // 16,
+            "wire_mb": len(raw) / 1e6, "get_s": get_s, "post_s": post_s,
+            "export_s": export_s, "encode_s": encode_s, "decode_s": decode_s,
+            "ttft_s": {"a": reply_a["ttft_s"], "b": reply_b["ttft_s"]},
+            "launches": launches}
+
+
+def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, telemetry,
+                counted, dev):
     """The Llama-3-8B-width decoder (int8 KV) on every serving path: (a)
     the fused paged burst, (b) the gather burst, (c) the dense burst, (d)
-    `engine.generate` on a [4, 300] batch, 16 new tokens, and (e) the
+    `engine.generate` on a [4, 300] batch, 16 new tokens, (e) the
     fused paged burst with chunked prefill (windows of CHUNK prompt
     tokens, two chunks a tick): no prefill program, every tick one
-    window step of width CHUNK."""
+    window step of width CHUNK, (f) the host swap tier's burst and (g)
+    the warm start between two replicas over /v1/blocks."""
     rmsnorm, quantize, paged, dense = counted
     cfg = tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
                                          kv_cache_dtype="int8")
@@ -1939,6 +2301,12 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, counted, dev):
         raise AssertionError(f"the chunked burst did not run one window step "
                              f"of width {CHUNK} a tick: {chunked}")
     paths["chunked_burst"] = chunked
+    paths["swap_burst"] = serve_swap(
+        torch, engine, sched_mod, server_mod, telemetry, counted, gen,
+        cfg.vocab_size, cfg.n_layers)
+    paths["warm_start"] = serve_warm_start(
+        torch, engine, sched_mod, server_mod, telemetry, counted, gen,
+        cfg.vocab_size)
     return paths
 
 
@@ -2021,11 +2389,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod, dev)
+    reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod,
+                                     server_mod, dev)
     log(f"serving reference: card vs CPU prefill logits max err "
         f"{reference['prefill_logits_max_abs_err']:.3g}; greedy outputs "
         f"equal on the fused, dense and gather grids (spec_k 0 and 2), the "
-        f"chunked fused grid and generate: {json.dumps(reference)}")
+        f"chunked fused grid, generate, the fused swap grid (equal to its "
+        f"requests served alone) and the warm start (the importer's stream "
+        f"equal to the donor's): {json.dumps(reference)}")
     infer_reference = inference_reference(torch, tt, engine_mod, training,
                                           experiment, ckpt, inference, dev)
     log(f"inference reference: run_inference records equal generate: "
@@ -2041,7 +2412,7 @@ def main() -> int:
                        decode_attention.paged_int8_window_attention,
                        decode_attention.int8_decode_attention)
     slice_result = serve_slice(torch, tt, engine_mod, sched_mod, server_mod,
-                               serving_counted, dev)
+                               telemetry, serving_counted, dev)
     for path, result in slice_result.items():
         log(f"serving slice, {path}: {json.dumps(result)} on {card}")
     gc.collect()

@@ -178,13 +178,19 @@ def test_dense_grid_reports_its_bytes_and_evicts_replayed_slots():
         scheduler.close()
 
 
-@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+# The stats surface's grids: the layouts above, and the gather grid with
+# the host swap tier on (its host_block_store, suspended_streams and swap
+# keys).
+STATS_GRIDS = dict(LAYOUTS, gather_host=dict(
+    kv_layout="paged", decode_attention="gather", kv_host_blocks=8))
+
+
+@pytest.mark.parametrize("layout", sorted(STATS_GRIDS))
 def test_stats_surface_matches_jax_scheduler(layout):
-    """`stats()` carries the JAX grid's keys, all but the chunked-prefill
-    settings the port does not have yet; the KV bytes, global and per
-    device, agree in the snapshot and in the gauges (one device: per
-    device is global), and so does the peak of concurrent streams after
-    the same requests."""
+    """`stats()` carries the JAX grid's keys, no more and no fewer; the KV
+    bytes, global and per device, agree in the snapshot and in the gauges
+    (one device: per device is global), and so do the peak of concurrent
+    streams and the host tier's keys after the same requests."""
     from tf_yarn_tpu import telemetry as jax_telemetry
     from tf_yarn_tpu.models.decode_engine import DecodeEngine as JaxEngine
     from tf_yarn_tpu.serving.request import SamplingParams as JaxParams
@@ -194,13 +200,14 @@ def test_stats_surface_matches_jax_scheduler(layout):
     grids = {
         "jax": (JaxScheduler(JaxEngine(model, batch_buckets=(1, 2, 4),
                                        prompt_buckets=BUCKETS), params,
-                             max_slots=2, block_size=8, **LAYOUTS[layout]),
+                             max_slots=2, block_size=8,
+                             **STATS_GRIDS[layout]),
                 JaxParams, jax_telemetry.get_registry()),
         "port": (SlotScheduler(_port_engine(), max_slots=2, block_size=8,
-                               **LAYOUTS[layout]),
+                               **STATS_GRIDS[layout]),
                  SamplingParams, telemetry.get_registry()),
     }
-    kv_layout = LAYOUTS[layout]["kv_layout"]
+    kv_layout = STATS_GRIDS[layout]["kv_layout"]
     snaps, gauges = {}, {}
     for name, (scheduler, params_cls, registry) in grids.items():
         gauges[name] = tuple(
@@ -216,6 +223,9 @@ def test_stats_surface_matches_jax_scheduler(layout):
     for key in ("kv_cache_hbm_bytes", "kv_cache_hbm_bytes_per_device",
                 "peak_streams"):
         assert port[key] == ref[key], key
+    for key in ("host_block_store", "suspended_streams", "swap"):
+        assert port.get(key) == ref.get(key), key
+    assert ("swap" in port) == (layout == "gather_host")
     assert port["peak_streams"] == 2
     assert port["kv_cache_hbm_bytes_per_device"] == port["kv_cache_hbm_bytes"]
     assert gauges["port"] == gauges["jax"] == (port["kv_cache_hbm_bytes"],) * 2

@@ -686,6 +686,61 @@ def test_cuda_dense_decode_paths_match_cpu(cuda):
     assert outs[0][1] == outs[1][1]
 
 
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "bf16"])
+def test_cuda_block_moves_match_cpu_bitwise(cuda, kv_cache_dtype):
+    """`extract_blocks`/`inject_blocks` (the host swap tier, the block
+    wire) on a pool on the card and on the CPU holding the same bits:
+    the payloads are equal, the pools after an inject IN PLACE (the same
+    pool object back, from a host payload and from a device one) are
+    equal, and an empty id list moves nothing."""
+    from tf_yarn_tpu_torch.models import decode_engine as t_engine
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=64, d_model=256, n_layers=3,
+                               n_heads=2, n_kv_heads=1, d_ff=128,
+                               max_seq_len=64, dtype=torch.bfloat16,
+                               kv_cache_dtype=kv_cache_dtype)
+    gen = torch.Generator().manual_seed(3)
+    pools = {}
+    for device in ("cpu", cuda):
+        engine = t_engine.DecodeEngine(tt.Transformer(cfg, device=device))
+        pools[str(device)] = (engine, engine.make_paged_pool(9, 16))
+    for name in tt.KV_NAMES:
+        leaf = getattr(pools["cpu"][1], name)
+        if leaf is None:
+            continue
+        values = (torch.randint(-127, 128, leaf.shape, generator=gen)
+                  if leaf.dtype == torch.int8
+                  else torch.randn(leaf.shape, generator=gen))
+        for _engine, pool in pools.values():
+            getattr(pool, name).copy_(values.to(leaf.dtype))
+    moved = {}
+    for device, (engine, pool) in pools.items():
+        payload = engine.extract_blocks(pool, [3, 1, 7], 16)
+        host = t_engine.PagedKVPool(**{
+            name: None if leaf is None else leaf.cpu()
+            for name, leaf in vars(payload).items()})
+        assert engine.inject_blocks(pool, [2, 5, 8], host, 16) is pool
+        assert engine.inject_blocks(pool, [4], engine.extract_blocks(
+            pool, [6], 16), 16) is pool
+        empty = engine.extract_blocks(pool, [], 16)
+        assert empty.key.shape[1] == 0
+        assert engine.inject_blocks(pool, [], empty, 16) is pool
+        torch.cuda.synchronize()
+        moved[device] = (host, pool)
+    (cpu_payload, cpu_pool), (card_payload, card_pool) = moved.values()
+    for name in tt.KV_NAMES:
+        want = getattr(cpu_pool, name)
+        if want is None:
+            assert getattr(card_pool, name) is None
+            continue
+        assert torch.equal(getattr(card_payload, name),
+                           getattr(cpu_payload, name))
+        assert torch.equal(getattr(card_pool, name).cpu(), want)
+        assert torch.equal(want[:, [2, 5, 8]], getattr(cpu_payload, name))
+        assert torch.equal(want[:, 4], want[:, 6])
+
+
 def _norm_tolerances(dtype, ref_dx):
     """bf16: one ulp of the output (rtol 1/128) and, for dx, cancellation
     between its terms (atol 1e-2 of the largest entry); f32: sums in

@@ -141,19 +141,28 @@ def test_context_overflow_and_sampling_mismatch_are_rejected(weights):
 
 @pytest.mark.parametrize("option", [
     {"kv_host_blocks": 4},
+    {"kv_host_blocks": -1},
 ])
 def test_unported_options_raise(weights, option):
-    _, params = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The host swap tier is ported: its knob is validated as the JAX
+    scheduler validates it (the paged layout only, never negative), with
+    the same ValueError on the default dense layout."""
+    from tf_yarn_tpu.models.decode_engine import DecodeEngine as JaxEngine
+    from tf_yarn_tpu.serving.scheduler import SlotScheduler as JaxScheduler
+
+    model, params = weights
+    with pytest.raises(ValueError) as port_error:
         SlotScheduler(_port_engine(params), max_slots=1, block_size=8,
                       **option)
+    with pytest.raises(ValueError) as jax_error:
+        JaxScheduler(JaxEngine(model), params, max_slots=1, block_size=8,
+                     **option)
+    assert str(port_error.value) == str(jax_error.value)
+    assert "kv_host_blocks" in str(port_error.value)
 
 
 def test_unported_engine_paths_raise(weights):
     _, params = weights
     engine = _port_engine(params)
-    for name in ("extract_blocks", "inject_blocks"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(engine, name)()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(engine.model, mesh=object())

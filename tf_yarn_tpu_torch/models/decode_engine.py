@@ -41,8 +41,13 @@ counters (`stats`). What it keeps, and where it differs:
   accept/reject on the device). Each slot samples from its own
   `torch.Generator`, advanced once per emitted token.
 
-`extract_blocks`/`inject_blocks` (the host swap tier) and
-tensor-parallel decode raise NotImplementedError naming their ROADMAP
+* **Block moves** (`extract_blocks`/`inject_blocks`, the host swap tier
+  and the block wire): the JAX engine pads both to the block-table width
+  so that one compiled program serves every call; eager PyTorch has no
+  compile key to keep, so they move exactly the ids they are given, one
+  `index_select` (or `index_copy_`) over each stacked leaf.
+
+Tensor-parallel decode raises NotImplementedError naming its ROADMAP
 item.
 """
 
@@ -124,6 +129,8 @@ class DecodeEngine:
             "paged_step_calls": 0,
             "pack_calls": 0,
             "paged_spec_step_calls": 0,
+            "extract_calls": 0,
+            "inject_calls": 0,
             "unbucketed_shapes": 0,
             "oversize_batch_chunks": 0,
         }
@@ -456,18 +463,62 @@ class DecodeEngine:
                 temperature, top_k, top_p)
         return pool, emitted, counts, generators
 
-    # -- not ported yet ------------------------------------------------------
+    # -- block moves (host swap tier, block wire) --------------------------
 
-    def _not_ported(self, name: str):
-        raise NotImplementedError(
-            f"DecodeEngine.{name} is still to port (ROADMAP.md Queue 1, "
-            "serving: the host swap tier)")
+    def _block_ids(self, pool: PagedKVPool, block_ids,
+                   block_size: int) -> torch.Tensor:
+        self._check_pool(pool, block_size)
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        if len(ids) and not 0 <= ids.min() <= ids.max() < pool.num_blocks:
+            raise ValueError(f"block ids must lie in [0, {pool.num_blocks}), "
+                             f"got {ids.tolist()}")
+        return torch.as_tensor(ids, device=pool.key.device)
 
-    def extract_blocks(self, *args, **kwargs):
-        self._not_ported("extract_blocks")
+    @torch.no_grad()
+    def extract_blocks(self, pool: PagedKVPool, block_ids,
+                       block_size: int) -> PagedKVPool:
+        """Gather pool blocks `block_ids` (n ids) into a payload: a
+        `PagedKVPool` of n blocks, ``[L, n, bs, Hkv, *]`` in the pool's
+        own dtype (an int8 pool's payload stays int8), on the pool's
+        device. Read-only."""
+        ids = self._block_ids(pool, block_ids, block_size)
+        self._count("extract_calls")
+        with telemetry.span("decode_engine/extract_blocks", blocks=len(ids)):
+            return PagedKVPool(**{
+                name: None if getattr(pool, name) is None
+                else getattr(pool, name).index_select(1, ids)
+                for name in KV_NAMES})
 
-    def inject_blocks(self, *args, **kwargs):
-        self._not_ported("inject_blocks")
+    @torch.no_grad()
+    def inject_blocks(self, pool: PagedKVPool, block_ids, payload: PagedKVPool,
+                      block_size: int) -> PagedKVPool:
+        """Write payload block j into pool block ``block_ids[j]``, IN
+        PLACE (returns the same pool). The payload (`extract_blocks`'s
+        layout, host or device tensors) is cast to the pool's dtype, as
+        the JAX engine's splice casts it."""
+        ids = self._block_ids(pool, block_ids, block_size)
+        for name in KV_NAMES:
+            leaf, rows = getattr(pool, name), getattr(payload, name)
+            if (leaf is None) != (rows is None):
+                raise ValueError(
+                    f"payload leaf {name!r} is "
+                    f"{'missing' if rows is None else 'extra'} for this pool")
+            if leaf is not None and (
+                    tuple(rows.shape) != (leaf.shape[0], len(ids))
+                    + tuple(leaf.shape[2:])):
+                raise ValueError(
+                    f"payload {name} has shape {tuple(rows.shape)}; this "
+                    f"pool takes {(leaf.shape[0], len(ids))} + "
+                    f"{tuple(leaf.shape[2:])} for {len(ids)} block ids")
+        self._count("inject_calls")
+        with telemetry.span("decode_engine/inject_blocks", blocks=len(ids)):
+            if len(ids):
+                for name in KV_NAMES:
+                    leaf = getattr(pool, name)
+                    if leaf is not None:
+                        leaf.index_copy_(1, ids, getattr(payload, name).to(
+                            leaf.device, leaf.dtype))
+        return pool
 
 
 class _GatheredView:

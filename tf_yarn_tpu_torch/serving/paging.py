@@ -28,17 +28,26 @@ slot's block table. This module is the host half — pure bookkeeping, no device
   system prompt still share those leading blocks. Entries are evicted
   LRU when the pool runs dry.
 
-Both classes are driven by the scheduler thread only; no locking here.
-The JAX package's host swap tier (`HostBlockStore`) and the cache's
-peer export/import for the block wire are still to port (ROADMAP.md
-Queue 1, serving).
+* :class:`HostBlockStore` — the host-RAM tier under the pool: parks a
+  suspended stream's KV block payload (host tensors) under its request
+  id, capacity counted in blocks.
+
+The cache's `export_entries`/`register_imported` are the two halves of
+the block wire (``GET``/``POST /v1/blocks``): the content keys are the
+same on every replica, the JAX package's included.
+
+All three classes are driven by the scheduler thread only; no locking
+here.
 """
 
 from __future__ import annotations
 
 import collections
 import hashlib
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+TRASH_BLOCK = 0  # physical block 0: write target for masked-off slots
+
 
 def prefix_keys(prompt: Sequence[int], block_size: int,
                 max_k: int) -> List[bytes]:
@@ -213,9 +222,51 @@ class PrefixCache:
                 self._evict_one()
         return stored
 
+    def export_entries(
+        self, limit: Optional[int] = None
+    ) -> List[Tuple[bytes, List[int]]]:
+        """Most-recently-used first ``(content key, block ids)`` pairs,
+        at most `limit` of them: what the warm-start donor ships. A view:
+        no refcount moves."""
+        if limit is not None and limit < 0:
+            raise ValueError(f"limit must be >= 0, got {limit}")
+        items = list(self._entries.items())
+        items.reverse()  # the OrderedDict iterates LRU first
+        if limit is not None:
+            items = items[:limit]
+        return [(key, list(ids)) for key, ids in items]
+
+    def register_imported(self, key: bytes, ids: Sequence[int]) -> bool:
+        """Install a peer's entry under its content key. The caller holds
+        its own reference on every id; the cache retains one more, as
+        `register` does. False when the key is already cached (it moves
+        to the MRU end) or the capacity is 0."""
+        if self.capacity == 0:
+            return False
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return False
+        kept = list(ids)
+        self.pool.retain(kept)
+        self._entries[key] = kept
+        if len(self._entries) > self.capacity:
+            self._evict_one()
+        return True
+
     def _evict_one(self) -> int:
         key, ids = self._entries.popitem(last=False)  # LRU end
         return self.pool.release(ids)
+
+    def evictable_blocks(self) -> int:
+        """Blocks that eviction would return to the pool now: those whose
+        every reference is a cache entry's. A resume evicts only when
+        these cover its deficit."""
+        membership: Dict[int, int] = {}
+        for ids in self._entries.values():
+            for block in ids:
+                membership[block] = membership.get(block, 0) + 1
+        return sum(1 for block, count in membership.items()
+                   if self.pool.refcount(block) == count)
 
     def evict_for(self, n_blocks: int) -> int:
         """Release LRU entries until >= n_blocks are free in the pool
@@ -234,3 +285,62 @@ class PrefixCache:
             freed += self._evict_one()
         return freed
 
+
+
+class HostBlockStore:
+    """Host-RAM parking for suspended streams' KV block payloads, keyed by
+    request id, with its capacity counted in blocks (so ``kv_host_blocks``
+    composes with the device pool's ``num_blocks``). The payload is
+    opaque to the store: the scheduler hands it the host copy of what
+    `DecodeEngine.extract_blocks` gathered, in the pool's own dtype."""
+
+    def __init__(self, capacity_blocks: int, block_size: int):
+        if capacity_blocks < 0:
+            raise ValueError(
+                f"capacity_blocks must be >= 0, got {capacity_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.capacity_blocks = int(capacity_blocks)
+        self.block_size = int(block_size)
+        self._entries: "collections.OrderedDict[object, Tuple[int, object]]" \
+            = collections.OrderedDict()
+        self._used = 0
+
+    @property
+    def used_blocks(self) -> int:
+        return self._used
+
+    @property
+    def free_blocks(self) -> int:
+        return self.capacity_blocks - self._used
+
+    @property
+    def entries(self) -> int:
+        return len(self._entries)
+
+    def can_hold(self, n_blocks: int) -> bool:
+        return n_blocks <= self.free_blocks
+
+    def put(self, key, n_blocks: int, payload) -> None:
+        """Park `payload` under `key`, charging `n_blocks`. A key already
+        held or a charge over capacity is a bookkeeping bug (the
+        scheduler asks `can_hold` first) and raises."""
+        if key in self._entries:
+            raise ValueError(f"host store already holds key {key!r}")
+        if n_blocks < 0:
+            raise ValueError(f"cannot store {n_blocks} blocks")
+        if n_blocks > self.free_blocks:
+            raise ValueError(
+                f"host store over capacity: {n_blocks} blocks requested, "
+                f"{self.free_blocks} free of {self.capacity_blocks}")
+        self._entries[key] = (int(n_blocks), payload)
+        self._used += int(n_blocks)
+
+    def pop(self, key) -> Tuple[int, object]:
+        """Remove and return ``(n_blocks, payload)``, freeing its charge."""
+        n_blocks, payload = self._entries.pop(key)
+        self._used -= n_blocks
+        return n_blocks, payload
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries

@@ -336,6 +336,12 @@ class AdmissionQueue:
             _, _, _, request, response = heapq.heappop(self._heap)
             return request, response
 
+    def peek_rank(self) -> Optional[int]:
+        """Tier rank of the request `pop` would return next, or None on an
+        empty queue: the scheduler's resume-vs-admit arbiter."""
+        with self._lock:
+            return -self._heap[0][0] if self._heap else None
+
     def drain(self) -> List[Tuple[Request, Response]]:
         with self._lock:
             items = [(req, resp) for _, _, _, req, resp in self._heap]

@@ -42,11 +42,28 @@ Every tick:
    cache as they fill;
 4. **retire** slots that emitted their eos or hit max_new_tokens.
 
+The host swap tier (``kv_host_blocks`` > 0, paged layout only): when the
+pool cannot cover an admission, the lowest-tier active stream below the
+request's tier (the youngest within a tier) is SUSPENDED instead of the
+request being held: its valid blocks are gathered (`engine.
+extract_blocks`, exactly the valid ones), copied to a `HostBlockStore`,
+and its block references, slot and sampling generator released or
+parked. Parked streams resume, highest tier first and FIFO within a
+tier, never ahead of a higher-tier admission, once a slot and the
+blocks are free: blocks still shared through the prefix cache
+re-attach through the lookup (capped at the parked length), the rest
+are written back (`engine.inject_blocks`), and the slot comes back as
+it was — pending replay, length, generator — so the stream is the one
+an uncontended run gives.
+
+The prefix warm start (`export_hot_prefixes`/`import_prefixes`, the
+block wire of ``GET``/``POST /v1/blocks``) runs on the scheduler thread
+through a queue of control ops serviced at the top of each tick.
+
 Per-slot sampling state is a `torch.Generator` seeded with the request's
 seed at admission (the JAX package's per-slot PRNGKey rows). The
 constructor raises NotImplementedError, naming the ROADMAP item, for
-what is not ported yet: the host swap tier (``kv_host_blocks > 0``) and
-tensor parallelism.
+tensor parallelism, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -63,7 +80,13 @@ import torch
 from tf_yarn_tpu_torch import telemetry
 from tf_yarn_tpu_torch.models.decode_engine import DECODE_ATTENTION_MODES
 from tf_yarn_tpu_torch.models.spec import make_drafter, plan_window
-from tf_yarn_tpu_torch.serving.paging import BlockPool, PrefixCache
+from tf_yarn_tpu_torch.models.transformer import PagedKVPool
+from tf_yarn_tpu_torch.serving.paging import (
+    TRASH_BLOCK,
+    BlockPool,
+    HostBlockStore,
+    PrefixCache,
+)
 from tf_yarn_tpu_torch.serving.request import (
     DEFAULT_TIER,
     FINISH_DEADLINE,
@@ -115,6 +138,41 @@ class _Slot:
         self.last_emit_at: Optional[float] = None
 
 
+class _Suspended:
+    """A stream parked on the host tier: its `_Slot` state (pending
+    replay, emissions, drafter context) and what a resume restores as it
+    was — the slot's generator (never reseeded) and the valid KV length.
+    The payload is in the HostBlockStore under the request id, with the
+    count of blocks it covers."""
+
+    __slots__ = ("state", "generator", "length")
+
+    def __init__(self, state: _Slot, generator: Optional[torch.Generator],
+                 length: int):
+        self.state = state
+        self.generator = generator
+        self.length = length
+
+    @property
+    def request(self) -> Request:
+        return self.state.request
+
+
+class _ControlOp:
+    """One cross-thread call into the scheduler thread (prefix export or
+    import). The caller waits on `done`; the tick services the queue at
+    its top, so the paging classes stay scheduler-thread-only."""
+
+    __slots__ = ("kind", "arg", "done", "result", "error")
+
+    def __init__(self, kind: str, arg):
+        self.kind = kind
+        self.arg = arg
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+
 def _not_ported(what: str, item: str = _SERVING_ITEM):
     raise NotImplementedError(f"{what} is still to port ({item})")
 
@@ -133,7 +191,10 @@ class SlotScheduler:
     the largest of the engine's prompt buckets — or 0/None for blocking
     admission) admits prompts in windows of that many tokens a tick;
     ``prefill_budget_per_tick`` caps the prompt tokens a tick consumes.
-    The context limit shrinks by the window width less one."""
+    The context limit shrinks by the window width less one.
+    ``kv_host_blocks`` > 0 (paged only) backs the pool with that many
+    host-RAM blocks for suspended streams; ``tier_caps`` maps a tier to
+    its most requests in the system (queued, active and suspended)."""
 
     def __init__(
         self,
@@ -174,8 +235,6 @@ class SlotScheduler:
             raise ValueError(
                 "decode_attention='fused' streams the paged block pool "
                 "directly; it requires kv_layout='paged'")
-        if kv_host_blocks:
-            _not_ported("the host swap tier (kv_host_blocks > 0)")
         if int(getattr(engine, "tp_degree", 1) or 1) > 1:
             _not_ported("tensor-parallel serving",
                         "ROADMAP.md Queue 1, parallelism")
@@ -226,6 +285,16 @@ class SlotScheduler:
         self._spec_accepted = 0
         self._prefill_tokens = 0
         self._decode_tokens = 0
+        kv_host_blocks = int(kv_host_blocks or 0)
+        if kv_host_blocks < 0:
+            raise ValueError(
+                f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
+        if kv_host_blocks and kv_layout != "paged":
+            raise ValueError(
+                "kv_host_blocks (the host swap tier) requires "
+                "kv_layout='paged' — dense slots have no block pool "
+                "to oversubscribe")
+        self.kv_host_blocks = kv_host_blocks
         self.tier_caps: Dict[str, int] = {}
         for name, cap in dict(tier_caps or {}).items():
             tier_rank(name)
@@ -237,6 +306,14 @@ class SlotScheduler:
             queue_capacity, retry_after_s, estimator=self._estimator)
         self._tier_lock = threading.Lock()
         self._tier_inflight: Dict[str, int] = {}
+        # Streams parked on the host tier, in suspension order.
+        self._suspended: List[_Suspended] = []
+        self._suspends = 0
+        self._resumes = 0
+        self._swap_out_blocks = 0
+        self._swap_in_blocks = 0
+        self._control: Deque[_ControlOp] = collections.deque()
+        self._control_lock = threading.Lock()
         self._generators: List[Optional[torch.Generator]] = [None] * max_slots
         self._slots: List[Optional[_Slot]] = [None] * max_slots
         self._free: Deque[int] = collections.deque(range(max_slots))
@@ -269,6 +346,8 @@ class SlotScheduler:
             self._pool = engine.make_paged_pool(num_blocks, self._block_size)
             self._blocks = BlockPool(num_blocks, self._block_size)
             self._prefix = PrefixCache(self._blocks, prefix_cache_capacity)
+            self._host_store = (HostBlockStore(kv_host_blocks, self._block_size)
+                                if kv_host_blocks else None)
             self._tables = np.zeros((max_slots, self._blocks_per_slot),
                                     np.int32)
             self._lengths = np.zeros((max_slots,), np.int32)
@@ -277,6 +356,7 @@ class SlotScheduler:
         else:
             self._cache = engine.make_slot_cache(max_slots)
             self._pool = self._blocks = self._prefix = None
+            self._host_store = None
             self._block_size = None
             self._kv_bytes = self._cache.nbytes()
         # One device holds the whole cache, so the per-device bytes are
@@ -360,12 +440,16 @@ class SlotScheduler:
 
     def tick(self) -> bool:
         """One scheduling round; returns whether any work happened."""
+        self._run_control_ops()
         now = time.monotonic()
         admitted: List[int] = []
         retired: List = []
         with telemetry.span("serving/tick") as tick_span:
             with telemetry.span("serving/retire"):
                 self._retire_deadlines(now, retired)
+            if self._suspended:
+                with telemetry.span("serving/resume"):
+                    self._resume_suspended(admitted)
             with telemetry.span("serving/admit"):
                 self._admit(now, admitted)
             active = [s for s in range(self.max_slots) if self._slots[s]]
@@ -378,7 +462,9 @@ class SlotScheduler:
                         self._step(active, retired)
         worked = bool(active or admitted or retired)
         self._peak_streams = max(
-            self._peak_streams, len([s for s in self._slots if s is not None]))
+            self._peak_streams,
+            len([s for s in self._slots if s is not None])
+            + len(self._suspended))
         if worked:
             self._ticks += 1
             self._registry.histogram("serving/tick_seconds").observe(
@@ -419,13 +505,32 @@ class SlotScheduler:
                 self._prefix.cached_blocks)
             self._registry.gauge("serving/prefix_cache_hit_rate").set(
                 self._prefix.hit_rate)
+            if self._host_store is not None:
+                self._registry.gauge("serving/host_blocks_used").set(
+                    self._host_store.used_blocks)
+                self._registry.gauge("serving/host_blocks_free").set(
+                    self._host_store.free_blocks)
+                counts = self._suspended_by_tier()
+                for tier in (*self.tier_caps, DEFAULT_TIER):
+                    counts.setdefault(tier, 0)
+                for tier, count in counts.items():
+                    self._registry.gauge("serving/suspended_streams",
+                                         tier=tier).set(count)
         return worked
+
+    def _suspended_by_tier(self) -> Dict[str, int]:
+        counts: Dict[str, int] = {}
+        for entry in self._suspended:
+            counts[entry.request.tier] = counts.get(entry.request.tier, 0) + 1
+        return counts
 
     def _retire_deadlines(self, now: float, retired: List) -> None:
         for slot in range(self.max_slots):
             state = self._slots[slot]
             if state is not None and state.request.expired(now):
                 self._retire(slot, FINISH_DEADLINE, retired)
+        for entry in [e for e in self._suspended if e.request.expired(now)]:
+            self._finish_suspended(entry, FINISH_DEADLINE, retired)
 
     def _finish_unadmitted(self, response: Response, reason: str) -> None:
         self._tier_dec(response.request)
@@ -438,6 +543,21 @@ class SlotScheduler:
             count = self._tier_inflight.get(request.tier, 0)
             if count > 0:
                 self._tier_inflight[request.tier] = count - 1
+
+    def _finish_suspended(self, entry: _Suspended, reason: str,
+                          retired: List) -> None:
+        """A stream that dies while parked: drop its payload (freeing host
+        capacity) and finish it; it holds no slot and no device block."""
+        self._suspended.remove(entry)
+        if entry.request.id in self._host_store:
+            self._host_store.pop(entry.request.id)
+        self._tier_dec(entry.request)
+        entry.state.response._finish(reason)
+        retired.append((entry.request.id, reason))
+        self._registry.counter(
+            "serving/requests_completed_total", reason=reason).inc()
+        self._registry.histogram("serving/request_seconds").observe(
+            time.monotonic() - entry.request.submitted_at)
 
     def _admit(self, now: float, admitted: List[int]) -> None:
         while self._free:
@@ -453,7 +573,13 @@ class SlotScheduler:
                 continue
             if self.kv_layout == "dense":
                 self._admit_dense(request, response, now, admitted)
-            elif not self._admit_paged(request, response, now, admitted):
+                continue
+            ok = self._admit_paged(request, response, now, admitted)
+            # The pool is full: with a host tier, park lower-tier streams
+            # until the request fits or no victim is left.
+            while not ok and self._suspend_victim_below(request):
+                ok = self._admit_paged(request, response, now, admitted)
+            if not ok:
                 # Hold the FIFO head until retirements free blocks.
                 self._held = (request, response)
                 break
@@ -546,6 +672,315 @@ class SlotScheduler:
         self._slots[slot] = state
         self._record_admission(slot, request, now, admitted)
         return True
+
+    # -- host-tier swap: suspend / resume ------------------------------------
+
+    def _suspend_victim_below(self, request: Request) -> bool:
+        """Park one active stream of a tier strictly below `request`'s:
+        the lowest tier first, the youngest within a tier. False when
+        there is no host tier, no such stream, or no room on the host for
+        any candidate's valid blocks."""
+        if self._host_store is None:
+            return False
+        rank = request.tier_rank
+        candidates = [slot for slot in range(self.max_slots)
+                      if self._slots[slot] is not None
+                      and self._slots[slot].request.tier_rank < rank]
+        candidates.sort(key=lambda slot: (
+            self._slots[slot].request.tier_rank,
+            -self._slots[slot].request.submitted_at))
+        for slot in candidates:
+            n_valid = -(-int(self._lengths[slot]) // self._block_size)
+            if self._host_store.can_hold(n_valid):
+                self._suspend_slot(slot)
+                return True
+        return False
+
+    def _suspend_slot(self, slot: int) -> None:
+        """Swap one active slot out: gather its valid blocks and copy them
+        to the host store, release all its block references (blocks the
+        prefix cache shares survive on the cache's own reference) and
+        free the slot. The generator is parked as it is."""
+        state = self._slots[slot]
+        length = int(self._lengths[slot])
+        n_valid = -(-length // self._block_size)
+        started = time.monotonic()
+        payload = None
+        if n_valid:
+            payload = _to_host(self.engine.extract_blocks(
+                self._pool, state.blocks[:n_valid], self._block_size))
+        self._host_store.put(state.request.id, n_valid, payload)
+        self._blocks.release(state.blocks)
+        state.blocks = []
+        self._slots[slot] = None
+        self._free.append(slot)
+        self._tables[slot, :] = 0
+        self._lengths[slot] = 0
+        self._suspended.append(_Suspended(state, self._generators[slot],
+                                          length))
+        self._generators[slot] = None
+        self._suspends += 1
+        self._swap_out_blocks += n_valid
+        self._registry.counter("serving/suspends_total",
+                               tier=state.request.tier).inc()
+        if n_valid:
+            self._registry.counter("serving/swap_out_blocks_total").inc(
+                n_valid)
+            self._registry.histogram("serving/swap_seconds").observe(
+                time.monotonic() - started)
+
+    def _pending_rank(self) -> Optional[int]:
+        """Highest tier rank waiting for admission (held or queued), or
+        None: a resume never jumps a higher-tier admission, which would
+        only suspend it again."""
+        ranks = [] if self._held is None else [self._held[0].tier_rank]
+        queued = self.queue.peek_rank()
+        if queued is not None:
+            ranks.append(queued)
+        return max(ranks) if ranks else None
+
+    def _resume_suspended(self, admitted: List[int]) -> None:
+        """Bring parked streams back while slots and blocks allow: the
+        highest tier first, FIFO within a tier."""
+        while self._free and self._suspended:
+            best = None
+            for entry in self._suspended:
+                if best is None or \
+                        entry.request.tier_rank > best.request.tier_rank:
+                    best = entry
+            barrier = self._pending_rank()
+            if barrier is not None and best.request.tier_rank < barrier:
+                return
+            if not self._try_resume(best, admitted):
+                return
+
+    def _try_resume(self, entry: _Suspended, admitted: List[int]) -> bool:
+        """Re-reserve the stream's whole block budget, write its parked
+        blocks back and reinstall the slot as it was. Blocks the prefix
+        cache still shares re-attach through the lookup, capped at the
+        parked length: a longer cached prefix would put shared blocks
+        where this slot writes. False (the stream stays parked) when the
+        pool cannot cover it yet."""
+        request = entry.request
+        state = entry.state
+        prompt = request.prompt
+        n_total = self._blocks_needed(request)
+        _hit_tokens, hit_ids = self._prefix.lookup(
+            prompt, min(len(prompt) - 1, entry.length))
+        if hit_ids:
+            self._blocks.retain(hit_ids)
+        need = n_total - len(hit_ids)
+        if need > self._blocks.free_blocks:
+            # A parked stream retries every tick: evict only when that
+            # covers the deficit, or the eviction frees nothing and strips
+            # prefixes a later lookup could share.
+            if need > (self._blocks.free_blocks
+                       + self._prefix.evictable_blocks()):
+                if hit_ids:
+                    self._blocks.release(hit_ids)
+                return False
+            self._prefix.evict_for(need)
+        owned = self._blocks.allocate(need)
+        if owned is None:
+            if hit_ids:
+                self._blocks.release(hit_ids)
+            return False
+        blocks = hit_ids + owned
+        slot = self._free.popleft()
+        started = time.monotonic()
+        n_valid, payload = self._host_store.pop(request.id)
+        k_hit = len(hit_ids)
+        inject_n = max(0, n_valid - k_hit)
+        if inject_n:
+            # Rows [k_hit, n_valid) go to their new blocks; the hit rows
+            # are resident and shared.
+            self._pool = self.engine.inject_blocks(
+                self._pool, blocks[k_hit:n_valid],
+                _payload_rows(payload, range(k_hit, n_valid)),
+                self._block_size)
+        self._suspended.remove(entry)
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(blocks)] = blocks
+        self._lengths[slot] = entry.length
+        self._generators[slot] = entry.generator
+        state.blocks = blocks
+        self._slots[slot] = state
+        if self._used_before[slot]:
+            self._registry.counter("serving/slot_reuse_total").inc()
+        self._used_before[slot] = True
+        admitted.append(request.id)
+        self._resumes += 1
+        self._swap_in_blocks += inject_n
+        self._registry.counter("serving/resumes_total",
+                               tier=request.tier).inc()
+        if inject_n:
+            self._registry.counter("serving/swap_in_blocks_total").inc(
+                inject_n)
+            self._registry.histogram("serving/swap_seconds").observe(
+                time.monotonic() - started)
+        return True
+
+    # -- prefix warm start (the block wire) -----------------------------------
+
+    def export_hot_prefixes(self, limit: Optional[int] = None,
+                            timeout_s: float = 30.0) -> Dict:
+        """The hottest prefix-cache entries with their KV blocks, in the
+        JAX package's wire form: ``{schema_version, block_size,
+        group_width, n_blocks, entries: [{key (hex), blocks: [index into
+        the shipped blocks]}], groups: [{n_blocks, leaves}]}``. Each
+        group's leaves are the JAX scanned-layer pool's flat leaves
+        (``[None, key, key_scale, value, value_scale]``, ``[L, 1,
+        group_width, bs, Hkv, *]`` host tensors; no scales for a bf16
+        pool). Blocks shared by entries ship once; ``group_width`` is
+        min(blocks per slot, blocks shipped), so the wire carries no
+        padding rows but the last group's. Runs on the scheduler thread;
+        any thread may call it."""
+        return self._control_call("export", limit, timeout_s)
+
+    def import_prefixes(self, wire: Dict, timeout_s: float = 30.0) -> Dict:
+        """Install a peer's export (from the port or the JAX package, its
+        leaves in either JAX layer layout): allocate blocks (evicting LRU
+        prefix entries, never an active slot's), write the payload rows
+        and register each entry under its content key. The hottest
+        entries win when the pool cannot hold them all. Returns
+        ``{imported_blocks, registered_entries, skipped_entries}``;
+        raises ValueError on a wire this pool cannot take."""
+        return self._control_call("import", wire, timeout_s)
+
+    def _control_call(self, kind: str, arg, timeout_s: float):
+        if self.kv_layout != "paged":
+            raise ValueError(
+                "prefix warm start needs kv_layout='paged' — the dense "
+                "layout has no block pool or prefix cache to transfer")
+        op = _ControlOp(kind, arg)
+        with self._control_lock:
+            self._control.append(op)
+        self._work.set()
+        with self._lifecycle:
+            loop_running = self._thread is not None
+        if not loop_running:
+            # No loop thread (a hand-driven grid): the caller is the
+            # scheduler thread.
+            self._run_control_ops()
+        if not op.done.wait(timeout_s):
+            raise TimeoutError(
+                f"scheduler did not service {kind} within {timeout_s}s")
+        if op.error is not None:
+            raise op.error
+        return op.result
+
+    def _run_control_ops(self) -> None:
+        while True:
+            with self._control_lock:
+                if not self._control:
+                    return
+                op = self._control.popleft()
+            try:
+                if op.kind == "export":
+                    op.result = self._export_prefixes_now(op.arg)
+                elif op.kind == "import":
+                    op.result = self._import_prefixes_now(op.arg)
+                else:
+                    raise ValueError(f"unknown control op {op.kind!r}")
+            except BaseException as exc:  # delivered to the caller
+                op.error = exc
+            op.done.set()
+
+    def _export_prefixes_now(self, limit: Optional[int]) -> Dict:
+        # Entries whose blocks were already freed are dropped, and every
+        # shipped block is retained over the extract, so none can be
+        # reallocated and overwritten under its old content key.
+        entries = [(key, ids) for key, ids in self._prefix.export_entries(limit)
+                   if all(self._blocks.refcount(block) > 0 for block in ids)]
+        donor_ids: List[int] = []
+        index: Dict[int, int] = {}
+        wire_entries: List[Dict] = []
+        for key, ids in entries:
+            for block in ids:
+                if block not in index:
+                    index[block] = len(donor_ids)
+                    donor_ids.append(block)
+            wire_entries.append({"key": key.hex(),
+                                 "blocks": [index[block] for block in ids]})
+        width = max(1, min(self._blocks_per_slot, len(donor_ids)))
+        groups: List[Dict] = []
+        self._blocks.retain(donor_ids)
+        try:
+            for start in range(0, len(donor_ids), width):
+                chunk = donor_ids[start:start + width]
+                payload = _to_host(self.engine.extract_blocks(
+                    self._pool, chunk + [TRASH_BLOCK] * (width - len(chunk)),
+                    self._block_size))
+                groups.append({"n_blocks": len(chunk),
+                               "leaves": _wire_leaves(payload)})
+        finally:
+            self._blocks.release(donor_ids)
+        if donor_ids:
+            self._registry.counter("serving/prefix_export_blocks_total").inc(
+                len(donor_ids))
+        return {"schema_version": 1, "block_size": self._block_size,
+                "group_width": width, "n_blocks": len(donor_ids),
+                "entries": wire_entries, "groups": groups}
+
+    def _import_prefixes_now(self, wire: Dict) -> Dict:
+        block_size = int(wire.get("block_size") or 0)
+        if block_size != self._block_size:
+            raise ValueError(
+                f"peer block_size {block_size} != local "
+                f"{self._block_size}; refusing to import KV blocks")
+        n_blocks = int(wire.get("n_blocks") or 0)
+        entries = list(wire.get("entries") or [])
+        groups = list(wire.get("groups") or [])
+        width = int(wire.get("group_width") or 0)
+        empty = {"imported_blocks": 0, "registered_entries": 0,
+                 "skipped_entries": len(entries)}
+        if not n_blocks or not entries or not groups or width < 1:
+            return empty
+        # Every group is read against this pool before a block moves, so
+        # a wire it cannot take is refused with nothing allocated.
+        payloads = [_payload_from_wire(group["leaves"], self._pool,
+                                       int(group["n_blocks"]))
+                    for group in groups]
+        # The hottest entries first, as far as free plus evictable blocks
+        # reach; active slots are never raided.
+        coverable = self._blocks.free_blocks + self._prefix.evictable_blocks()
+        needed: Dict[int, None] = {}
+        selected: List[Dict] = []
+        for entry in entries:
+            fresh = [i for i in entry["blocks"] if i not in needed]
+            if len(needed) + len(fresh) > coverable:
+                break
+            for i in fresh:
+                needed[i] = None
+            selected.append(entry)
+        if not selected:
+            return empty
+        self._prefix.evict_for(len(needed))
+        owned = self._blocks.allocate(len(needed))
+        if owned is None:
+            return empty
+        mapping = dict(zip(needed, owned))
+        for g, (group, payload) in enumerate(zip(groups, payloads)):
+            rows = [j for j in range(int(group["n_blocks"]))
+                    if g * width + j in mapping]
+            if rows:
+                self._pool = self.engine.inject_blocks(
+                    self._pool, [mapping[g * width + j] for j in rows],
+                    _payload_rows(payload, rows), self._block_size)
+        registered = 0
+        # Cold to hot, so the donor's hottest entries land at the MRU end.
+        for entry in reversed(selected):
+            if self._prefix.register_imported(
+                    bytes.fromhex(entry["key"]),
+                    [mapping[i] for i in entry["blocks"]]):
+                registered += 1
+        # The entries hold their own references now; the allocation's go.
+        self._blocks.release(owned)
+        self._registry.counter("serving/prefix_import_blocks_total").inc(
+            len(owned))
+        return {"imported_blocks": len(owned),
+                "registered_entries": registered,
+                "skipped_entries": len(entries) - len(selected)}
 
     def _observe_ttft(self, state: _Slot) -> None:
         ttft = state.response.ttft_s
@@ -794,6 +1229,8 @@ class SlotScheduler:
         for _request, response in self.queue.drain():
             self._finish_unadmitted(response, reason)
         retired: List = []
+        for entry in list(self._suspended):
+            self._finish_suspended(entry, reason, retired)
         for slot in range(self.max_slots):
             if self._slots[slot] is not None:
                 self._retire(slot, reason, retired)
@@ -873,5 +1310,99 @@ class SlotScheduler:
                 "misses": self._prefix.misses,
                 "hit_rate": round(self._prefix.hit_rate, 4),
             }
+            if self._host_store is not None:
+                snap["host_block_store"] = {
+                    "capacity_blocks": self._host_store.capacity_blocks,
+                    "used_blocks": self._host_store.used_blocks,
+                    "free_blocks": self._host_store.free_blocks,
+                    "entries": self._host_store.entries,
+                }
+                snap["suspended_streams"] = self._suspended_by_tier()
+                snap["swap"] = {
+                    "suspends": self._suspends,
+                    "resumes": self._resumes,
+                    "swap_out_blocks": self._swap_out_blocks,
+                    "swap_in_blocks": self._swap_in_blocks,
+                }
         snap["decode_engine"] = dict(self.engine.stats)
         return snap
+
+
+# The JAX pool's leaves a layer, in its flattening order (cache_index,
+# then the cached_* leaves sorted by name); the port's `PagedKVPool`
+# names them without the prefix.
+_WIRE_ORDER = ("key", "key_scale", "value", "value_scale")
+
+
+def _to_host(payload: PagedKVPool) -> PagedKVPool:
+    """A swap or export payload copied to the host: one device-to-host
+    copy a leaf (four for an int8 pool)."""
+    return PagedKVPool(**{name: None if leaf is None else leaf.cpu()
+                          for name, leaf in vars(payload).items()})
+
+
+def _payload_rows(payload: PagedKVPool, rows) -> PagedKVPool:
+    """The payload's blocks `rows` (host tensors)."""
+    rows = torch.as_tensor(list(rows), dtype=torch.long)
+    return PagedKVPool(**{
+        name: None if leaf is None else leaf.index_select(1, rows)
+        for name, leaf in vars(payload).items()})
+
+
+def _wire_leaves(payload: PagedKVPool) -> List:
+    """A payload as the JAX scanned-layer pool's flat leaves: the
+    cache_index None, then ``[L, 1, W, bs, Hkv, *]`` views of the stacked
+    leaves (the unit axis is the JAX pool's batch axis)."""
+    return [None] + [getattr(payload, name).unsqueeze(1)
+                     for name in _WIRE_ORDER
+                     if getattr(payload, name) is not None]
+
+
+def _payload_from_wire(leaves: List, pool: PagedKVPool,
+                       n_blocks: int) -> PagedKVPool:
+    """A wire group's flat leaves as a payload for `pool`. The JAX package
+    flattens a scanned-layer pool to one set of leaves, ``[L, 1, W, bs,
+    Hkv, *]``, and an unscanned one to a set a layer, ``[1, W, bs, Hkv,
+    *]``, its layers in the lexicographic order of their names
+    (layer_0, layer_1, layer_10, ...). Raises ValueError on any other
+    leaf count or shape."""
+    names = [name for name in _WIRE_ORDER if getattr(pool, name) is not None]
+    per_layer = 1 + len(names)
+    n_layers = pool.key.shape[0]
+    leaves = [None if leaf is None else torch.as_tensor(leaf)
+              for leaf in leaves]
+    tensors = [leaf for leaf in leaves if leaf is not None]
+    scanned = len(leaves) == per_layer and all(t.ndim == 6 for t in tensors)
+    if not scanned and len(leaves) != per_layer * n_layers:
+        raise ValueError(
+            f"block wire group has {len(leaves)} leaves; this pool takes "
+            f"{per_layer} (scanned layers) or {per_layer * n_layers} (one "
+            f"set a layer, {n_layers} layers)")
+    sets = [leaves] if scanned else [
+        leaves[i * per_layer:(i + 1) * per_layer] for i in range(n_layers)]
+    for leaf_set in sets:
+        if leaf_set[0] is not None or any(leaf is None
+                                          for leaf in leaf_set[1:]):
+            raise ValueError(
+                "block wire leaves do not match this pool's layout: each "
+                f"set is None then {len(names)} tensors ({', '.join(names)})")
+    if scanned:
+        stacked = {name: sets[0][1 + i].squeeze(1)
+                   for i, name in enumerate(names)}
+    else:
+        order = sorted(range(n_layers), key=lambda layer: f"layer_{layer}")
+        by_layer = dict(zip(order, sets))
+        stacked = {name: torch.cat([by_layer[layer][1 + i]
+                                    for layer in range(n_layers)])
+                   for i, name in enumerate(names)}
+    for name, leaf in stacked.items():
+        want = getattr(pool, name)
+        if leaf.ndim != want.ndim or leaf.shape[0] != want.shape[0] \
+                or tuple(leaf.shape[2:]) != tuple(want.shape[2:]) \
+                or leaf.shape[1] < n_blocks:
+            raise ValueError(
+                f"block wire leaf {name} has shape {tuple(leaf.shape)}; this "
+                f"pool takes ({want.shape[0]}, >= {n_blocks}) + "
+                f"{tuple(want.shape[2:])}")
+    return PagedKVPool(**{name: stacked.get(name) for name in
+                          ("key", "value", "key_scale", "value_scale")})

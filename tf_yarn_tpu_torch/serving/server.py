@@ -13,19 +13,29 @@ Stdlib only (`http.server`), the same wire protocol as the JAX package:
 * ``GET /healthz`` — liveness (``ok`` or ``draining``).
 * ``GET /stats`` — the scheduler snapshot plus the telemetry signals.
 * ``GET /metrics`` — Prometheus text exposition.
+* ``GET /v1/blocks[?limit=N]`` / ``POST /v1/blocks`` — the prefix warm
+  start: GET exports the hottest prefix-cache entries with their KV
+  blocks (`encode_block_wire`: content keys, base64 leaves, an int8
+  pool's bytes as int8), POST installs a peer's export. 400 on a bad
+  limit or a wire that does not decode; 409 on a dense replica or a
+  wire whose block size or pool layout this replica cannot take. The
+  wire is the JAX package's, so replicas of either package trade blocks.
 
-The block wire (``/v1/blocks``), the prefill tier (``/v1/prefill``) and
-`run_serving` with checkpoint restore are still to port (ROADMAP.md
-Queue 1, serving).
+The prefill tier (``/v1/prefill``) and `run_serving` with checkpoint
+restore are still to port (ROADMAP.md Queue 1, serving).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import threading
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+
+import torch
 
 from tf_yarn_tpu_torch import telemetry
 from tf_yarn_tpu_torch.serving.request import (
@@ -36,6 +46,62 @@ from tf_yarn_tpu_torch.serving.request import (
 from tf_yarn_tpu_torch.serving.scheduler import SlotScheduler
 
 _logger = logging.getLogger(__name__)
+
+# The dtypes a pool's leaves take, under numpy's names (as the JAX package
+# writes them). numpy has no bfloat16: a bf16 leaf travels as its bits.
+_WIRE_DTYPES = {"int8": torch.int8, "float16": torch.float16,
+                "bfloat16": torch.bfloat16, "float32": torch.float32}
+_WIRE_NAMES = {dtype: name for name, dtype in _WIRE_DTYPES.items()}
+
+
+def encode_block_wire(wire: dict) -> dict:
+    """JSON-ready copy of a `SlotScheduler.export_hot_prefixes` snapshot:
+    each payload leaf becomes ``{"dtype", "shape", "b64"}`` (None leaves
+    stay null), byte for byte what the JAX package writes for the same
+    values."""
+    out = dict(wire)
+    groups = []
+    for group in wire.get("groups") or []:
+        leaves = []
+        for leaf in group["leaves"]:
+            if leaf is None:
+                leaves.append(None)
+                continue
+            leaf = leaf.detach().cpu().contiguous()
+            bits = leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 \
+                else leaf
+            leaves.append({"dtype": _WIRE_NAMES[leaf.dtype],
+                           "shape": list(leaf.shape),
+                           "b64": base64.b64encode(
+                               bits.numpy().tobytes()).decode("ascii")})
+        groups.append({"n_blocks": int(group["n_blocks"]), "leaves": leaves})
+    out["groups"] = groups
+    return out
+
+
+def decode_block_wire(wire: dict) -> dict:
+    """Inverse of `encode_block_wire`: CPU tensor leaves for
+    `SlotScheduler.import_prefixes`. Raises on an unknown dtype or a
+    byte count that does not fill the shape."""
+    out = dict(wire)
+    groups = []
+    for group in wire.get("groups") or []:
+        leaves = []
+        for leaf in group["leaves"]:
+            if leaf is None:
+                leaves.append(None)
+                continue
+            name = leaf["dtype"]
+            if name not in _WIRE_DTYPES:
+                raise ValueError(f"unknown block wire dtype {name!r}")
+            dtype = _WIRE_DTYPES[name]
+            raw = bytearray(base64.b64decode(leaf["b64"]))
+            bits = torch.int16 if dtype == torch.bfloat16 else dtype
+            leaves.append(torch.frombuffer(raw, dtype=bits).view(dtype)
+                          .reshape([int(n) for n in leaf["shape"]]))
+        groups.append({"n_blocks": int(group["n_blocks"]), "leaves": leaves})
+    out["groups"] = groups
+    return out
 
 
 class ServingServer:
@@ -103,6 +169,24 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
             self.wfile.flush()
 
         def do_GET(self):
+            path, _, query = self.path.partition("?")
+            if path == "/v1/blocks":
+                try:
+                    params = urllib.parse.parse_qs(query)
+                    limit = (int(params["limit"][0])
+                             if "limit" in params else None)
+                except (TypeError, ValueError) as exc:
+                    self._json(400, {"error": f"bad limit: {exc}"})
+                    return
+                try:
+                    wire = scheduler.export_hot_prefixes(limit)
+                except ValueError as exc:
+                    # A dense replica (or a negative limit), as the JAX
+                    # server answers it.
+                    self._json(409, {"error": str(exc)})
+                    return
+                self._json(200, encode_block_wire(wire))
+                return
             if self.path == "/healthz":
                 snap = scheduler.stats()
                 self._json(200, {
@@ -133,6 +217,23 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
                 self._json(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
+            if self.path == "/v1/blocks":
+                try:
+                    length = int(self.headers.get("Content-Length", "0"))
+                    wire = decode_block_wire(
+                        json.loads(self.rfile.read(length) or b"{}"))
+                except Exception as exc:
+                    self._json(400, {"error": f"bad block wire: {exc}"})
+                    return
+                try:
+                    result = scheduler.import_prefixes(wire)
+                except Exception as exc:
+                    # A dense replica, another block size or pool layout:
+                    # refused, and the replica keeps serving.
+                    self._json(409, {"error": str(exc)})
+                    return
+                self._json(200, result)
+                return
             if self.path != "/v1/generate":
                 self._json(404, {"error": f"unknown path {self.path}"})
                 return
