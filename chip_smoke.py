@@ -46,7 +46,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    suspended by an interactive request and resumed, its streams equal to
    the same requests served alone) and a warm start between two fused
    grids through the block wire (the importer's stream equal to the
-   donor's, with a prefix hit);
+   donor's, with a prefix hit); three concurrent requests on the fused
+   grid, one with ids outside the vocabulary (V and -V-3), then a clean
+   one on the same replica — all served to length, equal to the CPU's;
    `run_inference` over a checkpoint `train_and_evaluate` wrote on the
    card — its records equal `generate` on the restored params; a small
    f32 LoRA decoder (flash, fused norms) trained 5 steps on both from the
@@ -54,7 +56,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    `train_and_evaluate` with a model_dir writes manifested checkpoints,
    verifies them and resumes; tiny f32 BERT, ViT and ResNet (both stems)
    trained 3 steps on both — losses and parameters close — and the tiny
-   ResNet checkpointed and resumed through `train_and_evaluate`;
+   ResNet checkpointed and resumed through `train_and_evaluate`; the
+   tiny f32 DLRM ranker, its weights through the flax bridge, behind
+   RankServer on both (ids negative and past their tables among the
+   requests) — scores within 1e-5 — and trained 3 adagrad steps through
+   `train_and_evaluate` on both from those weights — losses and
+   parameters close;
 5. serving slice: the Llama-3-8B-width decoder (random bf16 weights from
    seed 0, int8 KV) on every serving path, each with the kernel counts
    set to 0 just before it and read just after: SlotScheduler with 4
@@ -96,7 +103,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    step's FLOPs from FlopCounterMode), peak memory, and a profiled step,
    in which each of BERT's and ViT's LayerNorm and ResNet's GroupNorm
    backward calls must make its two CUDA launches and no arithmetic in
-   torch (no plain dscale/dbias).
+   torch (no plain dscale/dbias);
+8. ranker slice: `DLRMConfig.criteo()` (26 tables of 2^17 rows, 64
+   wide, an 872 MB f32 table, bf16 compute; random weights from seed 0)
+   behind RankEngine + MicroBatchScheduler(max_batch=256, max_wait_ms=2)
+   + RankServer on 127.0.0.1, with the kernel counts set to 0 just
+   before (it runs none of them): bursts of concurrent POSTs of 1, 32
+   and 256 rows (rows/s each; fewer ticks than requests), the scores
+   against the same weights' f32 forward on the CPU and, at
+   dtype=float32 on the card, tightly; a profiled burst (the tick's wall
+   and device time, the device's idle share, the top kernels); then
+   `make_experiment(DLRMConfig.criteo())` through `train_and_evaluate`
+   for 4 steps at batch 1024: losses finite, the table rows the batches
+   read moved and no other row, the steady step, samples/s, peak memory
+   and a profiled step.
 
 The run takes 3-5 minutes by how fast the host is, well inside a
 10-minute limit.
@@ -110,6 +130,7 @@ file.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -1627,6 +1648,34 @@ def tiny_warm_start(engine, sched_mod, server_mod, prompt):
         receiver.close()
 
 
+def tiny_out_of_vocabulary(torch, engine, sched_mod, clean):
+    """Three concurrent requests on a fused grid of 3 slots, the second
+    with the ids V and -V-3 (outside the vocabulary: the embedding reads
+    rows V-1 and 0, as the JAX package does); then one more request on
+    the same replica, `clean` alone. Returns the streams, the finish
+    reasons (the clean request's last) and the clean request's stream.
+    On the card an index outside the table would be a device-side assert
+    that fails every later request; the synchronize surfaces it here."""
+    vocab = engine.model.config.vocab_size
+    prompts = [list(range(3, 10)), [1, vocab, -vocab - 3, 2], [1, 2]]
+    sampling = sched_mod.SamplingParams(max_new_tokens=8)
+    scheduler = sched_mod.SlotScheduler(
+        engine, max_slots=3, block_size=16, kv_layout="paged",
+        decode_attention="fused")
+    try:
+        responses = [scheduler.submit(p, sampling) for p in prompts]
+        streams = _finish(scheduler, responses)
+        last = scheduler.submit(clean, sampling)
+        (after,) = _finish(scheduler, [last])
+        responses.append(last)
+    finally:
+        scheduler.close()
+    if engine.model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"streams": streams, "after": after,
+            "reasons": [r.finish_reason for r in responses]}
+
+
 def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
     """The same small f32 model (int8 KV) served through the kernels on
     the card and through the plain versions on the CPU: prefill logits
@@ -1639,7 +1688,10 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
     an interactive request and resumed: its streams equal to the same
     requests served alone); and a warm start between two fused grids
     through the block wire (the importer's stream equal to the donor's,
-    with a prefix hit)."""
+    with a prefix hit); and three concurrent requests on the fused grid,
+    one with ids outside the vocabulary, then a clean one on the same
+    replica (`tiny_out_of_vocabulary`): all served to length, equal to
+    the CPU's."""
     cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
                                **TINY_SERVE)
     cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
@@ -1676,12 +1728,15 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
             engine, sched_mod, prompts[1], prompts[0])
         run["warm_start"] = tiny_warm_start(engine, sched_mod, server_mod,
                                             prompts[1])
+        run["fused_oov"] = tiny_out_of_vocabulary(torch, engine, sched_mod,
+                                                  prompts[1])
         results.append(run)
     card, cpu = results
     err = float((card["logits"] - cpu["logits"]).abs().max())
     if not torch.isfinite(card["logits"]).all() or err > 1e-3:
         raise AssertionError(f"card vs CPU prefill logits differ by {err}")
-    for name in (*grids, "eos", "generate", "fused_swap", "warm_start"):
+    for name in (*grids, "eos", "generate", "fused_swap", "warm_start",
+                 "fused_oov"):
         if card[name] != cpu[name]:
             raise AssertionError(f"{name}: card {card[name]} != CPU {cpu[name]}")
     swap, warm = card["swap"], card["warm_start"]
@@ -1692,6 +1747,10 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
     if warm["receiver"] != warm["donor"] or warm["hits"] < 1 \
             or warm["imported"]["imported_blocks"] < 1:
         raise AssertionError(f"warm start: {warm}")
+    oov = card["fused_oov"]
+    if oov["reasons"] != ["length"] * 4 or len(oov["after"]) != 8:
+        raise AssertionError(f"out-of-vocabulary ids on the fused grid: "
+                             f"{oov}")
     if card["dense"] != card["fused"] or card["gather"] != card["dense"] \
             or card["fused_chunked"] != card["fused"]:
         raise AssertionError(f"the decode paths disagree on the card: {card}")
@@ -1699,7 +1758,7 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
             "streams": {name: card[name] for name in grids},
             "generate": card["generate"], "generate_eos": card["eos"],
             "fused_swap": card["fused_swap"], "swap": swap,
-            "warm_start": warm}
+            "warm_start": warm, "fused_oov": oov}
 
 
 def inference_reference(torch, tt, engine_mod, training, experiment, ckpt,
@@ -1741,9 +1800,9 @@ def inference_reference(torch, tt, engine_mod, training, experiment, ckpt,
             "tokens_per_sec": stats["tokens_per_sec"]}
 
 
-def post(port: int, body: dict) -> tuple:
+def post(port: int, body: dict, path: str = "/v1/generate") -> tuple:
     request = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/generate", data=json.dumps(body).encode(),
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(request, timeout=600) as reply:
         return reply.status, json.loads(reply.read())
@@ -1978,14 +2037,14 @@ SWAP_GRID = dict(max_slots=4, block_size=16, num_blocks=47, kv_host_blocks=64,
                  kv_layout="paged", decode_attention="fused")
 
 
-def post_all(port: int, bodies):
+def post_all(port: int, bodies, path: str = "/v1/generate"):
     """Start one POST a body and return (threads, replies, started), the
     replies filled in as (status, body, wall seconds) when they come."""
     replies = [None] * len(bodies)
     started = time.perf_counter()
 
     def call(i):
-        status, reply = post(port, bodies[i])
+        status, reply = post(port, bodies[i], path)
         replies[i] = (status, reply, time.perf_counter() - started)
 
     threads = [threading.Thread(target=call, args=(i,))
@@ -2310,6 +2369,354 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, telemetry,
     return paths
 
 
+# The ranker (phases 4 and 8). Its features as the JAX synthetic input
+# draws them: ids in [low, high) for every table, log1p of log-normal
+# dense values.
+def rank_features(cfg, rows: int, seed: int, low: int = 0, high=None):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    high = max(cfg.table_sizes) if high is None else high
+    cat = rng.randint(low, high, (rows, len(cfg.table_sizes))).astype(np.int32)
+    dense = np.log1p(rng.lognormal(0.0, 1.0, (rows, cfg.n_dense)))
+    return cat, dense.astype(np.float32)
+
+
+def rank_config(cfg) -> str:
+    return (f"{len(cfg.table_sizes)} tables of {max(cfg.table_sizes)} rows x "
+            f"{cfg.embed_dim}, {cfg.n_dense} dense, bottom {cfg.bottom_mlp}, "
+            f"top {cfg.top_mlp}, {cfg.dtype}")
+
+
+def rank_bodies(cfg, sizes, seed: int, **kwargs):
+    """One /v1/rank body a request of each row count in `sizes`, with the
+    features of all of them in order."""
+    import numpy as np
+
+    cat, dense = rank_features(cfg, sum(sizes), seed, **kwargs)
+    edges = np.cumsum((0,) + tuple(sizes))
+    bodies = [{"cat": cat[a:b].tolist(), "dense": dense[a:b].tolist()}
+              for a, b in zip(edges[:-1], edges[1:])]
+    return bodies, cat, dense
+
+
+def rank_serve(ranker, model, bodies, max_batch: int, buckets=None):
+    """`model` behind RankEngine + MicroBatchScheduler + RankServer on
+    127.0.0.1, warmed up, then started: every body POSTed at once.
+    Returns the replies' scores in order and the server's /stats."""
+    kwargs = {} if buckets is None else {"batch_buckets": buckets}
+    engine = ranker.engine.RankEngine(model, **kwargs)
+    scheduler = ranker.MicroBatchScheduler(engine, max_batch=max_batch,
+                                           max_wait_ms=2.0)
+    server = ranker.RankServer(scheduler, "127.0.0.1", 0)
+    engine.warmup(max_batch=max_batch)
+    scheduler.start()
+    server.start()
+    try:
+        replies = join_all(*post_all(server.port, bodies, "/v1/rank")[:2])
+        stats = get(server.port, "/stats")[1]
+    finally:
+        server.stop()
+        scheduler.close()
+    return [s for _status, body, _wall in replies for s in body["scores"]], \
+        stats
+
+
+def _as_flax_tree(state) -> dict:
+    """A state dict as the flax variables the bridge reads."""
+    params = {}
+    for name, value in state.items():
+        *path, leaf = name.split(".")
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value.cpu().numpy()
+    return {"params": params}
+
+
+def rank_tiny_reference(torch, ranker, training, experiment, dev):
+    """The tiny f32 DLRM with the same weights (through the flax bridge)
+    on the card and on the CPU: each served by RankServer over three
+    concurrent requests whose ids include negatives and ids past their
+    table and the stacked table — scores within 1e-5 (f32 sums in
+    another order); then three adagrad steps through train_and_evaluate
+    from those weights on the same batches — losses within 1e-5
+    relative, parameters within 1e-4."""
+    dlrm = ranker.dlrm
+    cfg = dlrm.DLRMConfig.tiny(dtype=torch.float32)
+    state = ranker.weights.dlrm_from_flax(_as_flax_tree(
+        dlrm.make_model(cfg, seed=SEED, device="cpu").state_dict()), cfg)
+    bodies, _, _ = rank_bodies(cfg, (1, 7, 16), seed=1, low=-300, high=300)
+    bodies[1]["cat"][0] = [64, -1, 255, -65]
+    bodies[1]["cat"][1] = [2 ** 30, -2 ** 30, 1000, 0]
+    scores, models, losses = [], [], []
+    for device in (dev, torch.device("cpu")):
+        model = dlrm.DLRM(cfg, device=device)
+        model.load_state_dict(state)
+        scores.append(rank_serve(ranker, model, bodies, 16,
+                                 buckets=(1, 2, 4, 8, 16))[0])
+        exp = dlrm.make_experiment(cfg, batch_size=64, train_steps=3,
+                                   learning_rate=0.05, log_every_steps=1)
+        recorded = []
+
+        def init_fn(device, seed):
+            model = dlrm.DLRM(cfg, device=device)
+            model.load_state_dict(state)
+            models.append(model)
+            return model
+
+        def recording_loss(model, batch, train=True, loss_fn=exp.loss_fn,
+                           recorded=recorded):
+            loss, aux = loss_fn(model, batch, train=train)
+            if train:
+                recorded.append(loss.detach())
+            return loss, aux
+
+        exp.init_fn, exp.loss_fn = init_fn, recording_loss
+        training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                    device=device)
+        losses.append([float(x) for x in recorded])
+    card, cpu = scores
+    score_err = max(abs(a - b) for a, b in zip(card, cpu))
+    if len(card) != 24 or not all(abs(x) < 1e9 for x in card) \
+            or score_err > 1e-5:
+        raise AssertionError(f"ranker scores: card {card}, CPU {cpu}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    cpu_params = dict(models[1].named_parameters())
+    param_err = max(float((p.detach().cpu() - cpu_params[n].detach())
+                          .abs().max())
+                    for n, p in models[0].named_parameters())
+    moved = float((models[1].embedding.detach()
+                   - state["embedding"]).abs().max())
+    if len(losses[0]) != 3 or loss_err > 1e-5 or param_err > 1e-4 \
+            or moved <= 0:
+        raise AssertionError(f"ranker training: losses {losses}, param max "
+                             f"abs err {param_err}, table moved {moved}")
+    return {"score_max_abs_err": score_err, "scores": len(card),
+            "losses_card": losses[0], "losses_cpu": losses[1],
+            "loss_max_rel_err": loss_err, "param_max_abs_err": param_err}
+
+
+# Phase 8's concurrent requests: (rows a request, requests), the row
+# counts a ranking frontend sees (one candidate to a full page of 256).
+RANK_BURSTS = ((1, 32), (32, 16), (256, 8))
+RANK_MAX_BATCH = 256
+# The bf16 ranker's scores against the same weights' f32 forward on the
+# CPU (measured 1.87e-3 at scores up to 0.25 on the H100), and the f32
+# ranker's on the card against that forward (measured 2.4e-7; TF32 off).
+RANK_BF16_TOL = 1e-2
+RANK_F32_TOL = 1e-5
+
+
+def _forward_f32(torch, model, cat, dense, rows: int = 4096):
+    out = []
+    with torch.inference_mode():
+        for a in range(0, len(cat), rows):
+            out.append(model(
+                torch.from_numpy(cat[a:a + rows]).to(model.device),
+                torch.from_numpy(dense[a:a + rows]).to(model.device)
+            ).float().squeeze(-1).cpu())
+    return torch.cat(out)
+
+
+def rank_slice(torch, ranker, telemetry, counted, dev, cfg=None):
+    """`DLRMConfig.criteo()` (26 tables of 2^17 rows, 64 wide: an f32
+    table of 872 MB; bf16 compute), random weights from seed 0, behind
+    RankEngine + MicroBatchScheduler(max_batch=256, max_wait_ms=2) +
+    RankServer, warmed up, then started, with every kernel count set to
+    0 just before and read just after (the ranker runs none of them).
+    RANK_BURSTS: each a burst of concurrent POSTs; rows/s a burst, and
+    /stats must show fewer ticks than requests. The card's scores
+    against the same weights' f32 forward on the CPU (RANK_BF16_TOL),
+    and the same weights at dtype=float32 on the card against it
+    (RANK_F32_TOL). Then the 256-row burst again under torch.profiler:
+    the tick's wall time (the `ranking/tick` span) and the engine
+    forward's within it (`rank_engine/forward`: inputs to the card, the
+    forward, the scores back), the tick's device time, the device's idle
+    share, the top kernels."""
+    import numpy as np
+
+    dlrm = ranker.dlrm
+    started = time.perf_counter()
+    cfg = cfg or dlrm.DLRMConfig.criteo()
+    model = dlrm.make_model(cfg, seed=SEED, device=dev)
+    f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    # The CPU reference holds a copy of the card's weights, made once.
+    cpu_model = dlrm.DLRM(f32_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, assign=True)
+    setup_s = time.perf_counter() - started
+    engine = ranker.engine.RankEngine(model)
+    scheduler = ranker.MicroBatchScheduler(engine, max_batch=RANK_MAX_BATCH,
+                                           max_wait_ms=2.0)
+    server = ranker.RankServer(scheduler, "127.0.0.1", 0)
+    warm_started = time.perf_counter()
+    warmed = engine.warmup(max_batch=RANK_MAX_BATCH)
+    warmup_s = time.perf_counter() - warm_started
+    scheduler.start()
+    server.start()
+    tracer = telemetry.get_tracer()
+    cats, denses, scores, bursts = [], [], [], {}
+    try:
+        _zero(counted)
+        for i, (rows, requests) in enumerate(RANK_BURSTS):
+            bodies, cat, dense = rank_bodies(cfg, (rows,) * requests,
+                                             seed=100 + i)
+            before = get(server.port, "/stats")[1]
+            threads, replies, begun = post_all(server.port, bodies,
+                                               "/v1/rank")
+            join_all(threads, replies)
+            wall = time.perf_counter() - begun
+            stats = get(server.port, "/stats")[1]
+            cats.append(cat)
+            denses.append(dense)
+            scores += [s for _st, body, _w in replies for s in body["scores"]]
+            bursts[rows] = {
+                "requests": requests, "rows": rows * requests,
+                "wall_s": wall, "rows_per_s": rows * requests / wall,
+                "ticks": stats["ticks"] - before["ticks"],
+                "request_s_max": max(w for _s, _b, w in replies)}
+        launches = _launches(counted)
+        if any(launches.values()):
+            raise AssertionError(f"the ranker launched port kernels: "
+                                 f"{launches}")
+        if stats["ticks"] >= stats["requests_total"]:
+            raise AssertionError(f"no coalescing: {stats['ticks']} ticks for "
+                                 f"{stats['requests_total']} requests")
+        status, health = get(server.port, "/healthz")
+        if status != 200 or health["status"] != "ok":
+            raise AssertionError(f"/healthz: {status} {health}")
+        # The profiled burst: the 256-row one again.
+        bodies, _, _ = rank_bodies(cfg, (256,) * 8, seed=200)
+        ticks = get(server.port, "/stats")[1]["ticks"]
+        tracer.clear()
+        profiled = device_profile(torch, lambda: join_all(
+            *post_all(server.port, bodies, "/v1/rank")[:2]))
+        profiled["ticks"] = get(server.port, "/stats")[1]["ticks"] - ticks
+        spans = tracer.records()
+        for name, key in (("ranking/tick", "tick_wall_s_mean"),
+                          ("rank_engine/forward", "forward_wall_s_mean")):
+            seconds = [r.duration for r in spans if r.name == name]
+            profiled[key] = sum(seconds) / max(1, len(seconds))
+        profiled["tick_device_s_mean"] = (profiled["device_busy_s"]
+                                          / max(1, profiled["ticks"]))
+        final = get(server.port, "/stats")[1]
+    finally:
+        server.stop()
+        scheduler.close()
+    cat, dense = np.concatenate(cats), np.concatenate(denses)
+    card = torch.tensor(scores)
+    cpu = _forward_f32(torch, cpu_model, cat, dense)
+    f32_model = dlrm.DLRM(f32_cfg, device=dev)
+    f32_model.load_state_dict(model.state_dict())
+    card_f32 = _forward_f32(torch, f32_model, cat, dense)
+    del f32_model
+    bf16_err = float((card - cpu).abs().max())
+    f32_err = float((card_f32 - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    if not torch.isfinite(card).all() or len(card) != len(cat) \
+            or bf16_err > RANK_BF16_TOL or f32_err > RANK_F32_TOL:
+        raise AssertionError(f"criteo scores: bf16 card vs f32 CPU {bf16_err}"
+                             f", f32 card vs CPU {f32_err} (|score| <= "
+                             f"{scale})")
+    return {"config": rank_config(cfg), "table_bytes":
+            model.embedding.numel() * model.embedding.element_size(),
+            "params_hbm_bytes": final["params_hbm_bytes_per_device"],
+            "setup_s": setup_s, "warmup_s": warmup_s, "warmed_buckets": warmed,
+            "bursts": bursts, "ticks": final["ticks"],
+            "requests": final["requests_total"],
+            "avg_batch_rows": final["avg_batch_rows"],
+            "rank_engine": final["rank_engine"],
+            "bf16_vs_cpu_f32_max_abs_err": bf16_err,
+            "f32_vs_cpu_f32_max_abs_err": f32_err, "score_abs_max": scale,
+            "launches": launches, "profiled_burst": profiled}
+
+
+def rank_train_slice(torch, ranker, training, experiment, telemetry, dev,
+                     cfg=None):
+    """`make_experiment(DLRMConfig.criteo())` through train_and_evaluate
+    for 4 steps at batch 1024, random weights from seed 0, adagrad: the
+    losses finite, every table row a batch read moved (at least 99% of
+    them: a row's gradient can be exactly 0) and every other row
+    unchanged bit for bit; the steady step (mean of steps 2-4), samples/s
+    and peak memory (the table, its gradient and adagrad's sums, ~2.6
+    GB, and one update temporary); then one profiled step."""
+    import numpy as np
+
+    dlrm = ranker.dlrm
+    cfg = cfg or dlrm.DLRMConfig.criteo()
+    exp = dlrm.make_experiment(cfg, train_steps=4, log_every_steps=1)
+    built = {}
+    init = exp.init_fn
+
+    def init_fn(device, seed):
+        model = init(device, seed)
+        built["before"] = model.embedding.detach().to("cpu", copy=True)
+        built["model"] = model
+        return model
+
+    recorded = []
+    loss_fn = exp.loss_fn
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            recorded.append(loss.detach())
+        return loss, aux
+
+    exp.init_fn, exp.loss_fn = init_fn, recording_loss
+    tracer = telemetry.get_tracer()
+    tracer.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    metrics = training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in recorded]
+    if len(losses) != 4 or not all(abs(x) < 1e9 and x == x for x in losses):
+        raise AssertionError(f"ranker training losses {losses}")
+    model = built.pop("model")
+    moved = (model.embedding.detach().cpu() != built.pop("before")).any(1)
+    sizes = np.asarray(cfg.table_sizes)
+    offsets = np.concatenate(([0], np.cumsum(sizes[:-1])))
+    batches = exp.train_input_fn()
+    read = np.zeros(cfg.total_buckets, bool)
+    for _ in range(4):
+        read[(next(batches)["cat"] % sizes + offsets).ravel()] = True
+    read = torch.from_numpy(read)
+    moved_read = int((moved & read).sum())
+    if bool((moved & ~read).any()) or moved_read < 0.99 * int(read.sum()):
+        raise AssertionError(
+            f"table rows: {int(moved.sum())} moved, {int(read.sum())} read, "
+            f"{int((moved & ~read).sum())} moved unread")
+    spans = tracer.records()
+    step_s = [a.duration + b.duration for a, b in zip(
+        [r for r in spans if r.name == "train/step_dispatch"],
+        [r for r in spans if r.name == "train/device_wait"])]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    batch = training._batch_placer(dev)(next(exp.train_input_fn()))
+    result = {
+        "config": rank_config(cfg), "batch": 1024,
+        "params": sum(p.numel() for p in model.parameters()),
+        "losses": losses, "final_loss": metrics["loss"],
+        "table_rows_read": int(read.sum()), "table_rows_moved": moved_read,
+        "step_s": step_s, "steady_step_s": steady,
+        "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+        "samples_per_s": 1024 / steady, "wall_s": wall,
+        "peak_memory_gb": peak,
+    }
+    result.update(profile_step(torch, training, model, loss_fn,
+                               exp.optimizer(model), batch, steady))
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2334,6 +2741,8 @@ def main() -> int:
     from tf_yarn_tpu_torch.utils import flops as flops_lib
     from tf_yarn_tpu_torch.serving import scheduler as sched_mod
     from tf_yarn_tpu_torch.serving import server as server_mod
+    from tf_yarn_tpu_torch import ranking
+    from tf_yarn_tpu_torch.models import dlrm, rank_engine, weights
 
     class ops:  # one namespace for the kernel modules
         pass
@@ -2347,6 +2756,13 @@ def main() -> int:
         pass
 
     zoo.bert, zoo.vit, zoo.resnet = bert, vit, resnet
+
+    class ranker:  # the ranker's modules
+        pass
+
+    ranker.dlrm, ranker.weights, ranker.engine = dlrm, weights, rank_engine
+    ranker.MicroBatchScheduler = ranking.MicroBatchScheduler
+    ranker.RankServer = ranking.RankServer
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2407,6 +2823,11 @@ def main() -> int:
     zoo_reference = train_zoo_reference(torch, zoo, training, experiment,
                                         ckpt, dev)
     log(f"zoo training reference: {json.dumps(zoo_reference)}")
+    started = time.perf_counter()
+    rank_reference = rank_tiny_reference(torch, ranker, training, experiment,
+                                         dev)
+    log(f"ranker reference ({time.perf_counter() - started:.1f} s): "
+        f"{json.dumps(rank_reference)}")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
                        decode_attention.paged_int8_window_attention,
@@ -2439,6 +2860,18 @@ def main() -> int:
             node="_GroupNormBackward" if module is resnet
             else "_LayerNormBackward")
         log(f"zoo slice, {name}: {json.dumps(zoo_results[name])} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    started = time.perf_counter()
+    rank_result = rank_slice(
+        torch, ranker, telemetry,
+        serving_counted + training_counted + norm_counted, dev)
+    log(f"ranker slice: {json.dumps(rank_result)} on {card}")
+    rank_train = rank_train_slice(torch, ranker, training, experiment,
+                                  telemetry, dev)
+    log(f"ranker training slice: {json.dumps(rank_train)} on {card}")
+    log(f"ranker phase: {time.perf_counter() - started:.1f} s")
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.

@@ -28,6 +28,7 @@ def _modules():
 def test_package_imports_with_jax_blocked():
     modules = _modules()
     assert "tf_yarn_tpu_torch.serving.server" in modules
+    assert "tf_yarn_tpu_torch.ranking.server" in modules
     script = (
         "import sys, importlib\n"
         "for name in %r:\n"
@@ -97,3 +98,29 @@ def test_zoo_entry_points_need_cuda_unless_cpu_requested(monkeypatch, family):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         training.train_and_evaluate(experiment.as_core_experiment(exp))
     assert module.make_model(config, device="cpu").device == torch.device("cpu")
+
+
+def test_ranker_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
+    from tf_yarn_tpu_torch import experiment, training
+    from tf_yarn_tpu_torch.models import dlrm
+    from tf_yarn_tpu_torch.models.rank_engine import RankEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dlrm.DLRMConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dlrm.DLRM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dlrm.make_model(cfg, seed=0)
+    exp = dlrm.make_experiment(cfg, train_steps=1, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.train_and_evaluate(experiment.as_core_experiment(exp))
+
+    class OnTheCard:  # a model that reports the card as its device
+        config = cfg
+        device = torch.device("cuda")
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RankEngine(OnTheCard())
+    model = dlrm.make_model(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    assert RankEngine(model).device == torch.device("cpu")

@@ -1265,3 +1265,80 @@ def test_cuda_layernorm_frozen_inputs_get_no_gradient(cuda, frozen, d):
             assert got is None, i
         else:
             assert torch.equal(got, want), i
+
+
+def test_cuda_out_of_vocabulary_prompt_keeps_the_replica_serving(cuda):
+    """A prompt with ids V and -V-3 on the fused paged grid beside two
+    clean ones, then a clean request on the same replica: every stream
+    served to length and equal to the CPU's (the embedding reads rows
+    V-1 and 0 as the JAX package does; an index outside the table would
+    be a device-side assert that fails every later request)."""
+    from tf_yarn_tpu_torch.models import decode_engine as t_engine
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.serving.request import SamplingParams
+    from tf_yarn_tpu_torch.serving.scheduler import SlotScheduler
+
+    # head_dim 128 at GQA group 2: the f32 instantiation of the kernel.
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=256,
+                               max_seq_len=64, dtype=torch.float32,
+                               kv_cache_dtype="int8")
+    cpu_model = tt.make_model(cfg, seed=5, device="cpu")
+    card_model = tt.Transformer(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    prompts = [list(range(3, 10)), [1, 128, -131, 2], [1, 2]]
+    runs = []
+    for model in (card_model, cpu_model):
+        scheduler = SlotScheduler(t_engine.DecodeEngine(model), max_slots=3,
+                                  block_size=16, kv_layout="paged",
+                                  decode_attention="fused")
+        sampling = SamplingParams(max_new_tokens=6)
+        try:
+            responses = [scheduler.submit(p, sampling) for p in prompts]
+            responses.append(None)
+            for _ in range(100):
+                if responses[-1] is None and all(
+                        r.done for r in responses[:-1]):
+                    responses[-1] = scheduler.submit([5, 6, 7], sampling)
+                if responses[-1] is not None and responses[-1].done:
+                    break
+                scheduler.tick()
+        finally:
+            scheduler.close()
+        torch.cuda.synchronize()
+        runs.append([(r.result(timeout=1), r.finish_reason)
+                     for r in responses])
+    assert runs[0] == runs[1]
+    assert [reason for _, reason in runs[0]] == ["length"] * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dlrm_scores_match_cpu(cuda, dtype):
+    """The ranker on the card against its f32 forward on the CPU, ids
+    negative and past their tables included: f32 at 1e-5 (TF32 off),
+    bf16 within 2e-2 (bf16 products against f32 ones)."""
+    from tf_yarn_tpu_torch.models import dlrm
+
+    cfg = dlrm.DLRMConfig.tiny(table_sizes=(64, 100, 7, 300), dtype=dtype)
+    cpu_model = dlrm.DLRM(dlrm.DLRMConfig.tiny(table_sizes=cfg.table_sizes,
+                                               dtype=torch.float32),
+                          device="cpu")
+    cpu_model.load_state_dict(dlrm.make_model(cfg, seed=2,
+                                              device="cpu").state_dict())
+    card_model = dlrm.DLRM(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    cat = torch.randint(-1000, 1000, (33, 4), generator=gen,
+                        dtype=torch.int32)
+    dense = torch.randn(33, cfg.n_dense, generator=gen)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got = card_model(cat.to(cuda), dense.to(cuda)).cpu()
+            ref = cpu_model(cat, dense)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert got.dtype == torch.float32 and got.shape == (33, 1)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)

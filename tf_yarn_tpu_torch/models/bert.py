@@ -27,7 +27,7 @@ from torch import nn
 
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.models import common
-from tf_yarn_tpu_torch.models.transformer import LoraDense, _param
+from tf_yarn_tpu_torch.models.transformer import LoraDense, _param, vocab_index
 from tf_yarn_tpu_torch.ops.attention import attention
 from tf_yarn_tpu_torch.ops.layernorm import layernorm
 
@@ -163,10 +163,12 @@ class BertEncoder(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         s = tokens.shape[1]
-        x = self.token_embedding[tokens].to(cfg.dtype)
+        x = self.token_embedding[vocab_index(tokens, cfg.vocab_size)
+                                 ].to(cfg.dtype)
         x = x + self.position_embedding[:s].to(cfg.dtype)[None]
         if segments is not None:
-            x = x + self.segment_embedding[segments].to(cfg.dtype)
+            x = x + self.segment_embedding[
+                vocab_index(segments, cfg.n_segments)].to(cfg.dtype)
         x = self.embed_norm(x)
         x = common.dropout(x, cfg.dropout_rate, deterministic, generator)
         for i in range(cfg.n_layers):

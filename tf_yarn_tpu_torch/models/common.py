@@ -49,6 +49,60 @@ def sgd(learning_rate: float, momentum: float = 0.9):
     return make
 
 
+# optax.adagrad's defaults: each sum of squared gradients starts here,
+# and eps is added to it under the root.
+ADAGRAD_INITIAL_ACCUMULATOR = 0.1
+ADAGRAD_EPS = 1e-7
+
+
+class Adagrad(torch.optim.Optimizer):
+    """``optax.adagrad``: ``scale_by_rss`` then ``-lr``. Each parameter's
+    sum of squared gradients starts at 0.1; the update is ``g ·
+    rsqrt(acc + 1e-7)``, and ``p −= lr · update``. `torch.optim.Adagrad`
+    is another rule (the sum starts at 0, the step divides by
+    ``sqrt(acc) + 1e-10``), so this is the port's own. A row that no
+    batch touched has a zero gradient: its parameters and its sum stay
+    as they were. optax takes the root only where ``acc > 0``; from 0.1
+    the sum never is 0, so the step has no such guard (one temporary
+    the size of the parameter, and no pass to build a mask)."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for param in group["params"]:
+                if param.grad is None:
+                    continue
+                state = self.state[param]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        param, ADAGRAD_INITIAL_ACCUMULATOR,
+                        memory_format=torch.preserve_format)
+                acc = state["sum_of_squares"]
+                grad = param.grad
+                acc.addcmul_(grad, grad)
+                update = (acc + ADAGRAD_EPS).rsqrt_().mul_(grad)
+                param.add_(update, alpha=-group["lr"])
+        return loss
+
+
+def adagrad(learning_rate: float):
+    """``optax.adagrad(learning_rate)`` — the DLRM recipe (dlrm.py:190).
+    A factory ``model -> Adagrad`` over the parameters that require
+    grad."""
+
+    def make(model: torch.nn.Module) -> torch.optim.Optimizer:
+        return Adagrad(_trained(model), lr=learning_rate)
+
+    return make
+
+
 def adamw_with_decay_mask(learning_rate: float, weight_decay: float = 1e-4):
     """AdamW that skips weight decay on 1-D parameters (norm scales,
     biases) — common.py:14-24. Returns a factory ``model ->
@@ -77,6 +131,18 @@ def classification_loss(model, batch: Dict, train: bool = True):
     labels = batch["y"].long()
     loss = F.cross_entropy(logits, labels)
     accuracy = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"accuracy": accuracy}
+
+
+def binary_logistic_loss(model, batch: Dict, train: bool = True):
+    """Sigmoid cross-entropy and accuracy for models mapping x -> one
+    logit (common.py:39-47): the mean of optax's
+    ``sigmoid_binary_cross_entropy``; ``train=False`` turns dropout
+    off."""
+    logits = model(batch["x"], deterministic=not train).squeeze(-1)
+    labels = batch["y"].float()
+    loss = F.binary_cross_entropy_with_logits(logits, labels)
+    accuracy = ((logits > 0) == (labels > 0.5)).float().mean()
     return loss, {"accuracy": accuracy}
 
 

@@ -306,6 +306,16 @@ def _param(shape, trainable: bool, config: TransformerConfig, device,
                         requires_grad=trainable)
 
 
+def vocab_index(ids: torch.Tensor, size: int) -> torch.Tensor:
+    """Ids made rows of a `size`-row table as the JAX package's gather
+    reads them: a negative id counts once from the end (``id + size``),
+    then the result is clamped to ``[0, size - 1]``. So an id outside the
+    vocabulary reads the first or last row, where a bare index would
+    raise on the CPU and assert on the card. Tensor arithmetic on the
+    ids' device, with no host sync."""
+    return torch.where(ids < 0, ids + size, ids).clamp(0, size - 1)
+
+
 def is_lora_param(name: str) -> bool:
     """The JAX `lora_label_tree` predicate: a parameter is an adapter
     iff some component of its name starts with ``lora_``."""
@@ -595,7 +605,8 @@ class Transformer(nn.Module):
         return self
 
     def _embed(self, tokens):
-        return self.embedding[tokens].to(self.config.dtype)
+        return self.embedding[vocab_index(tokens, self.config.vocab_size)
+                              ].to(self.config.dtype)
 
     def _head(self, x):
         x = self.final_norm(x)

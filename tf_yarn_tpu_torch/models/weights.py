@@ -20,8 +20,9 @@ parameter's dtype, so f32 masters stay f32. Every leaf must be consumed
 and every port parameter filled, or it raises. The port imports no JAX:
 this module only walks nested mappings.
 
-`bert_from_flax`, `vit_from_flax` and `resnet_from_flax` bridge the
-encoder and vision families. Their port modules are named as the flax
+`bert_from_flax`, `vit_from_flax`, `resnet_from_flax` and
+`dlrm_from_flax` bridge the encoder and vision families and the DLRM
+ranker. Their port modules are named as the flax
 tree (``encoder/layer_0/wq/kernel`` is ``encoder.layer_0.wq.kernel``),
 so each leaf maps by reading ``/`` as ``.``; conv kernels go from flax's
 HWIO to torch's ``[out, in, kh, kw]``. The same rule holds: every leaf
@@ -148,6 +149,14 @@ def bert_from_flax(variables, config) -> Dict[str, torch.Tensor]:
     from tf_yarn_tpu_torch.models.bert import BertClassifier
 
     return _bridge_by_name(variables, BertClassifier(config, device="cpu"))
+
+
+def dlrm_from_flax(variables, config) -> Dict[str, torch.Tensor]:
+    """State dict of `models.dlrm.DLRM` from the variables of the JAX
+    `DLRM` (f32 CPU tensors)."""
+    from tf_yarn_tpu_torch.models.dlrm import DLRM
+
+    return _bridge_by_name(variables, DLRM(config, device="cpu"))
 
 
 def vit_from_flax(variables, config) -> Dict[str, torch.Tensor]:

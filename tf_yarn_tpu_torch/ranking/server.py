@@ -1,0 +1,183 @@
+"""Threaded HTTP JSON frontend of the ranker — counterpart of
+`RankServer` in tf_yarn_tpu/ranking/server.py.
+
+Same stdlib-only conventions as serving/server.py, different protocol:
+
+* ``POST /v1/rank`` — body ``{"cat": [[ids...]], "dense": [[f...]],
+  "priority": P, "timeout_s": T}``: one int id per categorical table
+  and one float per dense feature, per row. Reply ``{"scores": [...],
+  "request_id", "finish_reason"}`` — one float32 score per row, in row
+  order. Wrong feature arity (or a batch beyond ``max_batch``) answers
+  400 AT ADMISSION; a full admission queue answers 429 with
+  ``Retry-After`` (backpressure, not buffering).
+* ``GET /healthz`` — liveness, ``ok`` or ``draining``.
+* ``GET /stats`` — scheduler snapshot + rank-engine stats and the
+  telemetry signals.
+* ``GET /metrics`` — Prometheus text exposition.
+
+`/healthz` reads the scheduler's drain flag only: the preemption notice
+the JAX server also consults belongs to the launcher, and so do
+`run_ranking`, `RankingExperiment` and the ``rank`` task (ROADMAP.md
+Queue 1 item 5, with items 2c and 8a).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.ranking.scheduler import MicroBatchScheduler
+from tf_yarn_tpu_torch.serving.request import QueueFull
+
+_logger = logging.getLogger(__name__)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # A listen backlog for a burst of concurrent callers: the stdlib's 5
+    # drops the connections past it, and their clients retry a second
+    # later (or see a reset) however idle the scheduler is.
+    request_queue_size = 128
+
+
+class RankServer:
+    """The HTTP frontend over one MicroBatchScheduler; per-connection
+    threaded so a slow client never blocks admissions."""
+
+    def __init__(self, scheduler: MicroBatchScheduler,
+                 host: str = "127.0.0.1", port: int = 0):
+        handler = _make_handler(scheduler)
+        self._httpd = _HTTPServer((host, port), handler)
+        self._httpd.daemon_threads = True
+        self._lifecycle = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.scheduler = scheduler
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def endpoint(self) -> str:
+        host = self._httpd.server_address[0]
+        return f"{host}:{self.port}"
+
+    def start(self) -> str:
+        with self._lifecycle:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._httpd.serve_forever, name="ranking-http",
+                    daemon=True,
+                )
+                self._thread.start()
+        _logger.info("ranking frontend listening on %s", self.endpoint)
+        return self.endpoint
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        # Snapshot-under-lock: concurrent stop() calls each either own
+        # the thread (and join it) or see None; join outside the lock.
+        with self._lifecycle:
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=10.0)
+
+
+def _make_handler(scheduler: MicroBatchScheduler):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            _logger.debug("http %s", fmt % args)
+
+        def _json(self, status: int, payload: dict, headers=()) -> None:
+            body = (json.dumps(payload) + "\n").encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for key, value in headers:
+                self.send_header(key, value)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                snap = scheduler.stats()
+                self._json(200, {
+                    "schema_version": telemetry.STATS_SCHEMA_VERSION,
+                    "status": "draining" if snap["draining"] else "ok",
+                    "queue_depth": snap["queue_depth"],
+                    "queued_rows": snap["queued_rows"],
+                })
+            elif self.path == "/stats":
+                self._json(200, {
+                    "schema_version": telemetry.STATS_SCHEMA_VERSION,
+                    **scheduler.stats(),
+                    "signals": telemetry.signals_block(
+                        prefixes=("ranking/", "rank_engine/",
+                                  "slo/", "telemetry/"),
+                    ),
+                })
+            elif self.path == "/metrics":
+                body = telemetry.render_prometheus().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 telemetry.PROMETHEUS_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/v1/rank":
+                self._json(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                cat = body["cat"]
+                dense = body.get("dense")
+                priority = int(body.get("priority", 0))
+                timeout_s = body.get("timeout_s")
+            except (KeyError, TypeError, ValueError) as exc:
+                self._json(400, {"error": f"bad request: {exc}"})
+                return
+            trace_id = self.headers.get("X-Request-Id") or None
+            try:
+                with telemetry.span("ranking/submit", request_id=trace_id):
+                    response = scheduler.submit(
+                        cat, dense, priority=priority, timeout_s=timeout_s
+                    )
+            except QueueFull as exc:
+                self._json(
+                    429,
+                    {"error": str(exc), "retry_after_s": exc.retry_after_s},
+                    headers=(("Retry-After",
+                              str(max(1, int(exc.retry_after_s)))),),
+                )
+                return
+            except (TypeError, ValueError) as exc:
+                # Feature-arity (and any malformed-array) rejection at
+                # admission — the scheduler loop never sees the request.
+                self._json(400, {"error": str(exc)})
+                return
+            wait = timeout_s + 5.0 if timeout_s else None
+            try:
+                scores = response.result(timeout=wait)
+            except TimeoutError as exc:
+                self._json(504, {"error": str(exc)})
+                return
+            self._json(200, {
+                "scores": scores,
+                "finish_reason": response.finish_reason,
+                "request_id": response.request.id,
+            }, headers=(
+                (("X-Request-Id", trace_id),) if trace_id else ()
+            ))
+
+    return Handler
