@@ -116,7 +116,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    `make_experiment(DLRMConfig.criteo())` through `train_and_evaluate`
    for 4 steps at batch 1024: losses finite, the table rows the batches
    read moved and no other row, the steady step, samples/s, peak memory
-   and a profiled step.
+   and a profiled step;
+9. launcher slice: `client.run_on_gpu` with LocalBackend, one worker
+   task (`get_safe_experiment_fn`, so no cloudpickle is needed): (a) phase
+   7's BERT-base experiment trained 4 steps in the launched worker —
+   Metrics carry the worker, the KV store's `worker:0/last_training_step`
+   is 4, the task launched the LayerNorm forward and backward kernels as
+   often as phase 7 did in this process (and loaded the kernel library
+   without rebuilding it), its losses equal phase 7's within 1e-2
+   relative; the wall to return and the worker's steps from its exported
+   trace; (b) the same run with no visible card raises RunFailed carrying
+   the port's no-CUDA error; (c) a fn of rank on `tasks.distributed`
+   initialises NCCL from its TaskParameters and all_reduces on the card.
 
 The run takes 3-5 minutes by how fast the host is, well inside a
 10-minute limit.
@@ -2717,6 +2728,270 @@ def rank_train_slice(torch, ranker, training, experiment, telemetry, dev,
     return result
 
 
+# Phase 9: the launcher. The experiment fns below are module-level, so
+# `client.get_safe_experiment_fn("chip_smoke.<fn>")` sends them to the
+# launched tasks by name: the stdlib pickle does, without cloudpickle.
+LAUNCHER_STEPS = 4
+LAUNCHER_COUNTS = "launcher_counts.json"
+# Loss tolerance of the launched BERT-base run against phase 7's
+# in-process run (relative). Same card, code, weights, batches and
+# dropout stream, and no float atomics in the LayerNorm kernels, so the
+# losses come out bitwise equal (0.0 in every H100 run so far, PERF.md
+# §5). 1e-5 is the bound tests/test_torch_kernels.py holds the same path
+# to: it leaves room for a reordered f32 sum, while another batch or
+# dropout stream moves a loss of 0.7-1.9 by orders of magnitude more.
+LAUNCHER_LOSS_RTOL = 1e-5
+
+
+def launcher_bert_experiment(model_dir: str, tiny: bool = False):
+    """Phase 9's experiment fn, called in the launched worker: phase 7's
+    BERT-base experiment (make_experiment at its JAX defaults,
+    fused_norms=True, 32 x 128, AdamW, 4 steps, seed 0) with a model_dir.
+    Its loss records the training losses, and after the last optimizer
+    step it writes them, the LayerNorm kernels' launch counts in this
+    process and whether this process built the kernel library to
+    <model_dir>/launcher_counts.json, beside the checkpoint. `tiny`: the
+    tiny f32 config, for a rehearsal on the CPU."""
+    import torch
+
+    from tf_yarn_tpu_torch.models import bert
+    from tf_yarn_tpu_torch.ops import _build, layernorm
+
+    if tiny:
+        exp = bert.make_experiment(
+            bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True),
+            model_dir=model_dir, train_steps=LAUNCHER_STEPS, log_every_steps=1,
+            batch_size=4, seq_len=16)
+    else:
+        exp = bert.make_experiment(bert.BertConfig.base(fused_norms=True),
+                                   model_dir=model_dir,
+                                   train_steps=LAUNCHER_STEPS,
+                                   log_every_steps=1)
+    losses = []
+    loss_fn, make_optimizer = exp.loss_fn, exp.optimizer
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            losses.append(loss.detach())
+        return loss, aux
+
+    def optimizer(model):
+        opt = make_optimizer(model)
+
+        def after_step(opt, args, kwargs):
+            if len(losses) != LAUNCHER_STEPS:
+                return
+            record = {
+                "losses": [float(x) for x in losses],
+                "launches": {fn.__name__: fn.launches for fn in (
+                    layernorm.layernorm, layernorm.layernorm_backward)},
+                "built_kernels_here": _build.build_seconds is not None,
+                "device": str(model.device),
+            }
+            Path(model_dir).mkdir(parents=True, exist_ok=True)
+            (Path(model_dir) / LAUNCHER_COUNTS).write_text(json.dumps(record))
+
+        opt.register_step_post_hook(after_step)
+        return opt
+
+    exp.loss_fn, exp.optimizer = recording_loss, optimizer
+    return exp
+
+
+def _all_reduce_rank(out_path: str, params) -> None:
+    """The fn of rank of phase 9 (c): join a process group from the
+    TaskParameters (NCCL on the card, gloo on the CPU), all_reduce a
+    tensor of rank + 1 on the task's device and write the result."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch._device import task_device
+
+    device = task_device()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://{params.master_addr}:{params.master_port}",
+        rank=params.rank, world_size=params.world_size)
+    try:
+        x = torch.full((4,), float(params.rank + 1), device=device)
+        dist.all_reduce(x)
+        result = x.tolist()
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps({
+        "rank": params.rank, "world_size": params.world_size,
+        "backend": backend, "device": str(device), "result": result}))
+
+
+def launcher_all_reduce_fn(out_path: str):
+    """Phase 9 (c)'s experiment fn: the fn of rank, bound to its output."""
+    import functools
+
+    return functools.partial(_all_reduce_rank, out_path)
+
+
+class kv_snapshot:
+    """Read `keys` from the run's KV store when the attempt ends, before
+    the driver stops the server: `client.handle_events` is wrapped for
+    the duration of the block."""
+
+    def __init__(self, client, keys):
+        self._client, self._keys = client, keys
+        self.values = {}
+
+    def __enter__(self):
+        self._original = original = self._client.handle_events
+
+        def reading(kv, tasks):
+            self.values.update({key: kv.get_str(key) for key in self._keys})
+            return original(kv, tasks)
+
+        self._client.handle_events = reading
+        return self
+
+    def __exit__(self, *exc):
+        self._client.handle_events = self._original
+        return False
+
+
+def _trace_spans(trace_path: Path):
+    """{span name: sorted [(start, end)]} in perf_counter seconds, from a
+    task's exported Chrome trace."""
+    spans = {}
+    for e in json.loads(trace_path.read_text())["traceEvents"]:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(
+                (e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6))
+    return {name: sorted(found) for name, found in spans.items()}
+
+
+# The worker's phases before its first step and after its last, by span.
+LAUNCHER_SPANS = ("experiment/run", "train/first_batch", "train/init",
+                  "train/restore_latest", "train/count_flops",
+                  "train/checkpoint_save")
+
+
+def launcher_slice(torch, client, topologies, reference_losses,
+                   reference_launches, tiny=False, env=None):
+    """Phase 9: (a) BERT-base trained LAUNCHER_STEPS steps in a worker
+    that `run_on_gpu` launched: Metrics with the worker, the KV's
+    last_training_step, the LayerNorm kernels launched in the task as
+    often as phase 7 launched them in this process, the losses equal to
+    phase 7's within LAUNCHER_LOSS_RTOL, the library not rebuilt; the
+    wall to return and the worker's steps from its exported trace (task
+    and driver share CLOCK_MONOTONIC). (b) the same run with no visible
+    card raises RunFailed with the port's no-CUDA error. (c) the fn of
+    rank on tasks.distributed (1 host x 1 process) all_reduces through
+    NCCL. `env` adds to every task's environment (the CPU rehearsal's
+    TPU_YARN_PLATFORM=cpu goes to (a) and (c) only)."""
+    import tempfile
+
+    spec = {"worker": topologies.TaskSpec(
+        instances=1, chips_per_host=1, label=topologies.NodeLabel.GPU)}
+    base_env = {"PYTHONPATH": str(REPO)}
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        keys = ("worker:0/last_training_step", "worker:0/metrics",
+                "worker:0/container_start_time")
+        run_env = dict(base_env, TPU_YARN_TRACE=str(tmp / "trace"),
+                       **(env or {}))
+        with kv_snapshot(client, keys) as seen:
+            started, started_wall = time.perf_counter(), time.time()
+            metrics = client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.launcher_bert_experiment", str(tmp / "model"),
+                    tiny),
+                spec, env=run_env, poll_every_secs=0.5, dead_task_secs=120)
+            wall = time.perf_counter() - started
+        if (metrics is None or metrics.total_training_duration is None
+                or metrics.train_eval_time_per_node.get("worker:0") is None):
+            raise AssertionError(f"launcher metrics {metrics}")
+        if seen.values["worker:0/last_training_step"] != str(LAUNCHER_STEPS):
+            raise AssertionError(f"KV after the run: {seen.values}")
+        record = json.loads((tmp / "model" / LAUNCHER_COUNTS).read_text())
+        # (The CPU rehearsal's plain versions launch nothing.)
+        if record["launches"] != reference_launches \
+                or (not tiny and min(record["launches"].values()) <= 0):
+            raise AssertionError(
+                f"LayerNorm launches in the task {record['launches']}, in "
+                f"process {reference_launches}")
+        if record["built_kernels_here"]:
+            raise AssertionError("the launched worker rebuilt the kernels")
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(record["losses"], reference_losses))
+        if len(record["losses"]) != LAUNCHER_STEPS \
+                or loss_err > LAUNCHER_LOSS_RTOL:
+            raise AssertionError(f"launched losses {record['losses']} against "
+                                 f"in-process {reference_losses}")
+        spans = _trace_spans(tmp / "trace" / "trace_worker-0.json")
+        # A step: its dispatch span through the end of its device wait.
+        steps = [(start, wait_end) for (start, _), (_, wait_end) in zip(
+            spans["train/step_dispatch"], spans["train/device_wait"])]
+        step_s = [end - start for start, end in steps]
+        task_metrics = json.loads(seen.values["worker:0/metrics"])
+        result["a_train"] = {
+            "wall_s": wall,
+            "launch_to_task_start_s":
+                float(seen.values["worker:0/container_start_time"])
+                - started_wall,
+            "task_spans_s": {name: [end - start for start, end in spans[name]]
+                             for name in LAUNCHER_SPANS if name in spans},
+            "launch_to_first_step_start_s": steps[0][0] - started,
+            "launch_to_first_step_end_s": steps[0][1] - started,
+            "step_s": step_s,
+            "steady_step_s": sum(step_s[1:]) / len(step_s[1:]),
+            "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+            "total_training_duration_s": metrics.total_training_duration,
+            "container_duration_s": metrics.container_duration,
+            "last_training_step": seen.values["worker:0/last_training_step"],
+            "task_metrics_keys": len(task_metrics),
+            "task_steps_total": task_metrics.get("train/steps_total"),
+            "launches": record["launches"],
+            "reference_launches": reference_launches,
+            "losses": record["losses"], "reference_losses": reference_losses,
+            "loss_max_rel_err": loss_err,
+            "losses_bitwise_equal": record["losses"] == list(reference_losses),
+            "device": record["device"],
+        }
+
+        started = time.perf_counter()
+        try:
+            client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.launcher_bert_experiment",
+                    str(tmp / "no_card"), tiny),
+                spec, env=dict(base_env, CUDA_VISIBLE_DEVICES=""),
+                poll_every_secs=0.5, dead_task_secs=120)
+        except client.RunFailed as exc:
+            if "no CUDA device is available" not in str(exc):
+                raise AssertionError(f"no-card run failed otherwise: {exc}")
+            result["b_no_card"] = {
+                "raised": "RunFailed", "kind": exc.kind.value,
+                "wall_s": time.perf_counter() - started}
+        else:
+            raise AssertionError("a worker with no visible card trained")
+        if (tmp / "no_card" / LAUNCHER_COUNTS).exists():
+            raise AssertionError("the no-card run reached a training step")
+
+        out = tmp / "all_reduce.json"
+        started = time.perf_counter()
+        client.run_on_gpu(
+            client.get_safe_experiment_fn("chip_smoke.launcher_all_reduce_fn",
+                                          str(out)),
+            spec, custom_task_module="tf_yarn_tpu_torch.tasks.distributed",
+            env=dict(base_env, **(env or {})), poll_every_secs=0.5,
+            dead_task_secs=120)
+        reduced = json.loads(out.read_text())
+        if reduced["result"] != [1.0] * 4 or reduced["world_size"] != 1 \
+                or reduced["backend"] != ("gloo" if tiny else "nccl"):
+            raise AssertionError(f"fn of rank: {reduced}")
+        result["c_all_reduce"] = dict(reduced,
+                                      wall_s=time.perf_counter() - started)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2743,6 +3018,7 @@ def main() -> int:
     from tf_yarn_tpu_torch.serving import server as server_mod
     from tf_yarn_tpu_torch import ranking
     from tf_yarn_tpu_torch.models import dlrm, rank_engine, weights
+    from tf_yarn_tpu_torch import client, topologies
 
     class ops:  # one namespace for the kernel modules
         pass
@@ -2872,6 +3148,20 @@ def main() -> int:
                                   telemetry, dev)
     log(f"ranker training slice: {json.dumps(rank_train)} on {card}")
     log(f"ranker phase: {time.perf_counter() - started:.1f} s")
+    # The launched worker needs the card's memory: drop what this process
+    # holds before it starts.
+    del rank_result, rank_train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    started = time.perf_counter()
+    bert_launches = zoo_results["bert_base"]["launches"]
+    launcher_result = launcher_slice(
+        torch, client, topologies, zoo_results["bert_base"]["losses"],
+        {name: bert_launches[name]
+         for name in ("layernorm", "layernorm_backward")})
+    log(f"launcher slice: {json.dumps(launcher_result)} on {card}")
+    log(f"launcher phase: {time.perf_counter() - started:.1f} s")
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.
@@ -2890,6 +3180,9 @@ def main() -> int:
         by_path.update({f"zoo {path}": result["launches"][row["name"]]
                         for path, result in zoo_results.items()
                         if result["launches"].get(row["name"])})
+        launched = launcher_result["a_train"]["launches"]
+        if row["name"] in launched:
+            by_path["launcher bert_base"] = launched[row["name"]]
         row["launches_path"] = primary.get(
             row["name"], "serving fused_burst" if "serving fused_burst"
             in by_path else "training")

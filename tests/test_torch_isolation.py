@@ -29,6 +29,9 @@ def test_package_imports_with_jax_blocked():
     modules = _modules()
     assert "tf_yarn_tpu_torch.serving.server" in modules
     assert "tf_yarn_tpu_torch.ranking.server" in modules
+    for launcher in ("client", "tasks.worker", "tasks.distributed",
+                     "coordination.kv", "backends", "resilience.taxonomy"):
+        assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"
         "for name in %r:\n"

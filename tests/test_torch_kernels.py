@@ -1342,3 +1342,42 @@ def test_cuda_dlrm_scores_match_cpu(cuda, dtype):
     assert got.dtype == torch.float32 and got.shape == (33, 1)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+
+
+def test_cuda_launched_worker_runs_the_layernorm_kernels(
+        cuda, tmp_path, monkeypatch):
+    """chip_smoke.py phase 9 at the tiny f32 BERT: the worker that
+    `run_on_gpu` launches launches the LayerNorm forward and backward
+    kernels as often as the same experiment does in this process, loads
+    the kernel library this process built, and gives the same losses
+    (f32 on one card: 1e-5). The worker gets no TPU_YARN_PLATFORM (the
+    conftest sets it to cpu for the JAX package), so it runs on the card
+    as a user's would."""
+    import json
+    import os
+
+    import chip_smoke
+    from tf_yarn_tpu_torch import client, experiment, training
+    from tf_yarn_tpu_torch.topologies import NodeLabel, TaskSpec
+
+    for fn in (t_layernorm.layernorm, t_layernorm.layernorm_backward):
+        fn.launches = 0
+    local, launched = tmp_path / "local", tmp_path / "launched"
+    training.train_and_evaluate(experiment.as_core_experiment(
+        chip_smoke.launcher_bert_experiment(str(local), tiny=True)),
+        device=cuda)
+    ref = json.loads((local / chip_smoke.LAUNCHER_COUNTS).read_text())
+    repo = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    monkeypatch.delenv("TPU_YARN_PLATFORM", raising=False)
+    client.run_on_gpu(
+        client.get_safe_experiment_fn("chip_smoke.launcher_bert_experiment",
+                                      str(launched), True),
+        {"worker": TaskSpec(instances=1, chips_per_host=1,
+                            label=NodeLabel.GPU)},
+        env={"PYTHONPATH": repo}, poll_every_secs=0.2, dead_task_secs=120)
+    got = json.loads((launched / chip_smoke.LAUNCHER_COUNTS).read_text())
+    assert got["device"].startswith("cuda")
+    assert got["launches"] == ref["launches"]
+    assert min(got["launches"].values()) > 0
+    assert not got["built_kernels_here"]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)

@@ -22,7 +22,13 @@ Ported so far:
   `models.common`, `utils.flops`);
 * training of the model zoo the same way — `models.bert` (BERT),
   `models.vit` (ViT) and `models.resnet` (ResNet with GroupNorm), each
-  with its `make_experiment`.
+  with its `make_experiment`;
+* the DLRM ranker behind `/v1/rank` — `models.dlrm`,
+  `models.rank_engine`, `ranking`;
+* launching — `client.run_on_gpu` over the JAX package's KV and event
+  protocol (`coordination`, `event`, `backends.LocalBackend`,
+  `resilience`), with the `tasks.worker` and `tasks.distributed` task
+  programs.
 
 Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
 LayerNorm and GroupNorm, each with its dx; per-row int8 quantize; paged

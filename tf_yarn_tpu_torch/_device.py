@@ -3,14 +3,19 @@
 The card is the default: an entry point given no device runs on CUDA,
 and raises when there is none. The CPU is used only when the caller
 asks for it (the CPU tests pass ``device="cpu"``), so a missing card
-never turns into a quiet, slow CPU run.
+never turns into a quiet, slow CPU run. A launched task reads the same
+choice from ``TPU_YARN_PLATFORM`` (`task_device`), as the JAX package's
+task programs do.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+
+ENV_PLATFORM = "TPU_YARN_PLATFORM"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -26,3 +31,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if resolved.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {resolved}; use 'cuda' or 'cpu'")
     return resolved
+
+
+def task_device() -> torch.device:
+    """The device of a launched task (and of an experiment fn running in
+    one): ``TPU_YARN_PLATFORM`` unset, ``cuda`` or ``gpu`` -> the card
+    (raises without one, never falls back); ``cpu`` -> the CPU, the
+    setting the CPU tests launch with."""
+    platform = os.environ.get(ENV_PLATFORM, "").strip().lower()
+    if platform in ("", "cuda", "gpu"):
+        return resolve_device(None)
+    if platform == "cpu":
+        return resolve_device("cpu")
+    raise ValueError(
+        f"{ENV_PLATFORM}={platform!r}: the port runs on 'cuda' (the default) "
+        "or 'cpu'"
+    )

@@ -19,7 +19,14 @@ in the loop (ROADMAP.md Queue 1 item 7).
 
 `InferenceExperiment` (experiment.py:236-278) describes a batch-inference
 job for `inference.run_inference`; its ``model`` is the port's
-`Transformer`, whose weights the run restores from ``model_dir``.
+`Transformer`, whose weights the run restores from ``model_dir``. An
+experiment fn that runs in a launched task builds that model on
+`_device.task_device()`.
+
+`run_experiment` (experiment.py:765-799) is what the worker task program
+calls: training on the task's device, or batch inference. The serving
+and ranking experiment types wait for their task programs (ROADMAP.md
+Queue 1 items 2c and 8a).
 """
 
 from __future__ import annotations
@@ -167,3 +174,40 @@ def as_core_experiment(experiment: Any) -> CoreExperiment:
         f"unsupported experiment type {type(experiment).__name__}; the port "
         "takes TorchExperiment (the Estimator and Keras shapes are not ported)"
     )
+
+
+EXPERIMENT_TYPES = (TorchExperiment, CoreExperiment, InferenceExperiment)
+
+
+def run_experiment(runtime, experiment: Any) -> None:
+    """Entry used by tasks/worker.py: an `InferenceExperiment` goes to
+    `inference.run_inference`, a `TorchExperiment` or `CoreExperiment` to
+    `training.train_and_evaluate` on `_device.task_device()`; anything
+    else raises `TypeError`. The body runs under an ``experiment/run``
+    span, and the trace is exported on the way out (``TPU_YARN_TRACE``)."""
+    from tf_yarn_tpu_torch import telemetry
+
+    task = runtime.task if runtime is not None else "local"
+    try:
+        with telemetry.span("experiment/run", kind=type(experiment).__name__):
+            if isinstance(experiment, InferenceExperiment):
+                from tf_yarn_tpu_torch import inference
+
+                inference.run_inference(experiment, runtime=runtime)
+                return
+            if isinstance(experiment, (TorchExperiment, CoreExperiment)):
+                from tf_yarn_tpu_torch import training
+                from tf_yarn_tpu_torch._device import task_device
+
+                core = (experiment if isinstance(experiment, CoreExperiment)
+                        else as_core_experiment(experiment))
+                training.train_and_evaluate(core, device=task_device(),
+                                            runtime=runtime)
+                return
+            raise TypeError(
+                f"cannot run an experiment of type {type(experiment)!r}; "
+                f"expected one of {EXPERIMENT_TYPES}")
+    finally:
+        # Re-export so the root span (closed just now, after the runner's
+        # own export) is in the file; no-op without TPU_YARN_TRACE.
+        telemetry.export_trace(task)

@@ -11,19 +11,17 @@ them as JSON lines.
 
 Sharding across task instances is the input_fn's choice: declare
 ``(shard, num_shards)`` keywords to receive this task's slice of the
-stream; instance outputs are suffixed ``-<task_id>``. `runtime` is the
-JAX package's duck-typed task runtime (``task_key.id``/``.type`` and
-``cluster_tasks``), or None for one instance.
+stream; instance outputs are suffixed ``-<task_id>``. `runtime` is a
+launched task's (`tasks._bootstrap.TaskRuntime`: ``task_key``,
+``cluster_tasks``, ``kv``, ``task``), or None for one instance. On
+exit the registry is flushed (to ``{task}/metrics`` in a launched task)
+and the spans exported (``TPU_YARN_TRACE``), as in the JAX package.
 
 Where it differs: the checkpoint is the port's (`checkpoint.
 restore_latest` / `restore_checkpoint`, the ``ckpt-<step>`` trees the
 port's `training.train_and_evaluate` writes), restored into the
 experiment's `Transformer` on its device; paths are local (the remote
-filesystems wait for the checkpoint port); the trace export and the
-metrics flush to MLflow and the coordination store wait for the launch
-path (ROADMAP.md Queue 1), as `telemetry` says — the stats dict is
-returned and logged, and spans and metrics stay in the process-global
-tracer and registry.
+filesystems wait for the checkpoint port).
 """
 
 from __future__ import annotations
@@ -194,10 +192,14 @@ def run_inference(experiment, runtime=None) -> dict:
     from tf_yarn_tpu_torch.models.generate import generate
 
     shard, num_shards = 0, 1
+    telemetry_task = "inference"
     if runtime is not None:
         shard = runtime.task_key.id
         num_shards = sum(1 for ti in runtime.cluster_tasks
                          if ti.key.type == runtime.task_key.type)
+        telemetry_task = getattr(runtime, "task",
+                                 f"{runtime.task_key.type}:{shard}")
+    telemetry.enable_env_jsonl(telemetry_task)
     _check_sharding_contract(experiment.input_fn, num_shards,
                              getattr(experiment, "allow_duplicate_stream",
                                      False))
@@ -258,6 +260,7 @@ def run_inference(experiment, runtime=None) -> dict:
                 writer.close()
             except BaseException:  # noqa: BLE001 - original error wins
                 pass
+            telemetry.export_trace(telemetry_task)
             raise
         writer.close()
     elapsed = max(time.perf_counter() - t0, 1e-9)
@@ -275,4 +278,10 @@ def run_inference(experiment, runtime=None) -> dict:
         "decode_engine": dict(get_engine(model).stats),
     }
     _logger.info("inference done: %s", stats)
+    # The registry to the log, MLflow and, in a launched task, the run's
+    # KV store ({task}/metrics); the spans to TPU_YARN_TRACE.
+    telemetry.flush_metrics(
+        registry, kv=getattr(runtime, "kv", None),
+        task=telemetry_task if runtime is not None else None)
+    telemetry.export_trace(telemetry_task)
     return stats

@@ -10,15 +10,14 @@ Same stdlib-only conventions as serving/server.py, different protocol:
   order. Wrong feature arity (or a batch beyond ``max_batch``) answers
   400 AT ADMISSION; a full admission queue answers 429 with
   ``Retry-After`` (backpressure, not buffering).
-* ``GET /healthz`` — liveness, ``ok`` or ``draining``.
+* ``GET /healthz`` — liveness: ``draining`` once the scheduler drains or
+  the preemption notice fires (`preemption.requested()`), else ``ok``.
 * ``GET /stats`` — scheduler snapshot + rank-engine stats and the
   telemetry signals.
 * ``GET /metrics`` — Prometheus text exposition.
 
-`/healthz` reads the scheduler's drain flag only: the preemption notice
-the JAX server also consults belongs to the launcher, and so do
-`run_ranking`, `RankingExperiment` and the ``rank`` task (ROADMAP.md
-Queue 1 item 5, with items 2c and 8a).
+`run_ranking`, `RankingExperiment` and the ``rank`` task program are not
+ported yet (ROADMAP.md Queue 1 item 8a).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch import preemption, telemetry
 from tf_yarn_tpu_torch.ranking.scheduler import MicroBatchScheduler
 from tf_yarn_tpu_torch.serving.request import QueueFull
 
@@ -107,9 +106,13 @@ def _make_handler(scheduler: MicroBatchScheduler):
         def do_GET(self):
             if self.path == "/healthz":
                 snap = scheduler.stats()
+                # As serving's /healthz: the preemption flag itself, not
+                # only the drain a poll sets later (JAX ranking/server.py:
+                # 101-118).
+                draining = bool(snap["draining"]) or preemption.requested()
                 self._json(200, {
                     "schema_version": telemetry.STATS_SCHEMA_VERSION,
-                    "status": "draining" if snap["draining"] else "ok",
+                    "status": "draining" if draining else "ok",
                     "queue_depth": snap["queue_depth"],
                     "queued_rows": snap["queued_rows"],
                 })

@@ -10,7 +10,8 @@ Stdlib only (`http.server`), the same wire protocol as the JAX package:
   line per token, closed by a ``{"done": true, ...}`` line. A full
   admission queue (or tier cap) answers 429 with ``Retry-After``; an
   unservable request answers 400.
-* ``GET /healthz`` — liveness (``ok`` or ``draining``).
+* ``GET /healthz`` — liveness: ``draining`` once the scheduler drains or
+  the preemption notice fires (`preemption.requested()`), else ``ok``.
 * ``GET /stats`` — the scheduler snapshot plus the telemetry signals.
 * ``GET /metrics`` — Prometheus text exposition.
 * ``GET /v1/blocks[?limit=N]`` / ``POST /v1/blocks`` — the prefix warm
@@ -37,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch import preemption, telemetry
 from tf_yarn_tpu_torch.serving.request import (
     DEFAULT_TIER,
     QueueFull,
@@ -189,9 +190,14 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
                 return
             if self.path == "/healthz":
                 snap = scheduler.stats()
+                # "draining" the instant the preemption notice lands, not
+                # only once a poll has drained the scheduler: a load
+                # balancer must stop sending to a replica about to vanish
+                # (JAX server.py:212-231).
+                draining = bool(snap["draining"]) or preemption.requested()
                 self._json(200, {
                     "schema_version": telemetry.STATS_SCHEMA_VERSION,
-                    "status": "draining" if snap["draining"] else "ok",
+                    "status": "draining" if draining else "ok",
                     "active_slots": snap["active_slots"],
                     "queue_depth": snap["queue_depth"],
                 })

@@ -11,13 +11,15 @@ reports into the same metric names and serves the same `/stats` and
 * :mod:`~tf_yarn_tpu_torch.telemetry.exposition` — Prometheus text for
   `/metrics` and the versioned `signals` block `/stats` embeds.
 * :mod:`~tf_yarn_tpu_torch.telemetry.slo` — declared latency objectives
-  evaluated over histogram windows.
-
-The heartbeat module and the metrics flush to MLflow and the
-coordination KV store belong to the launcher and are not part of the
-port yet (ROADMAP.md, Queue 1).
+  evaluated over histogram windows;
+* :mod:`~tf_yarn_tpu_torch.telemetry.heartbeat` — task heartbeats over
+  the run's KV store;
+* `flush_metrics` (the registry to the log, MLflow and ``{task}/metrics``)
+  and the environment-driven trace files (`export_trace`,
+  `enable_env_jsonl`).
 """
 
+from tf_yarn_tpu_torch.telemetry import heartbeat  # noqa: F401
 from tf_yarn_tpu_torch.telemetry.exposition import (  # noqa: F401
     PROMETHEUS_CONTENT_TYPE,
     SIGNALS_VERSION,
@@ -31,8 +33,10 @@ from tf_yarn_tpu_torch.telemetry.registry import (  # noqa: F401
     HIST_ALPHA,
     Histogram,
     MetricsRegistry,
+    flush_metrics,
     get_registry,
 )
+from tf_yarn_tpu_torch.telemetry.heartbeat import Heartbeat  # noqa: F401
 from tf_yarn_tpu_torch.telemetry.slo import (  # noqa: F401
     SloEvaluator,
     SloObjective,
@@ -41,6 +45,10 @@ from tf_yarn_tpu_torch.telemetry.slo import (  # noqa: F401
 from tf_yarn_tpu_torch.telemetry.spans import (  # noqa: F401
     Span,
     Tracer,
+    close_jsonl_sinks,
+    enable_env_jsonl,
+    export_trace,
     get_tracer,
     span,
+    trace_dir,
 )

@@ -6,7 +6,8 @@ process-global registry so every subsystem — scheduler, decode engine,
 HTTP frontend — reports into the same snapshot. `snapshot()` flattens
 everything into a flat ``{"name{label=value}": number}`` dict; the
 serving frontend renders it through `/stats` and `/metrics`
-(telemetry/exposition.py).
+(telemetry/exposition.py), and `flush_metrics` ships it to the log,
+MLflow and the run's KV store (``{task}/metrics``).
 
 Thread-safe throughout; instruments are cheap enough for per-step use
 (a lock + a float update). Everything here is host-side only.
@@ -15,10 +16,15 @@ Thread-safe throughout; instruments are cheap enough for per-step use
 from __future__ import annotations
 
 import collections
+import json
+import logging
 import math
+import re
 import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
+
+_logger = logging.getLogger(__name__)
 
 LabelKey = Tuple[str, Tuple[Tuple[str, str], ...]]
 
@@ -445,3 +451,47 @@ _GLOBAL_REGISTRY = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     return _GLOBAL_REGISTRY
+
+
+def _mlflow_key(key: str) -> str:
+    # "a/b{c=d}" -> "a/b.c.d"; utils.mlflow.format_key then maps "/" too.
+    return re.sub(r"[{},=]+", ".", key).strip(".")
+
+
+def flush_metrics(
+    registry: Optional[MetricsRegistry] = None,
+    *,
+    step: Optional[int] = None,
+    kv=None,
+    task: Optional[str] = None,
+    to_mlflow: bool = True,
+) -> Dict[str, float]:
+    """Snapshot `registry` and ship it to every configured backend
+    (tf_yarn_tpu/telemetry/registry.py:465):
+
+    * log — one line at DEBUG (the train hook already prints the
+      headline numbers at INFO);
+    * MLflow — one ``log_metric`` per key, when mlflow is active;
+    * KV — a single ``{task}/metrics`` JSON payload via
+      ``event.metrics_event`` when both `kv` and `task` are given.
+
+    Returns the snapshot."""
+    registry = registry or _GLOBAL_REGISTRY
+    snap = registry.snapshot()
+    if not snap:
+        return snap
+    if _logger.isEnabledFor(logging.DEBUG):
+        _logger.debug(
+            "metrics snapshot: %s",
+            " ".join(f"{k}={v:.6g}" for k, v in sorted(snap.items())),
+        )
+    if to_mlflow:
+        from tf_yarn_tpu_torch.utils import mlflow
+
+        for key, value in snap.items():
+            mlflow.log_metric(_mlflow_key(key), value, step=step)
+    if kv is not None and task:
+        from tf_yarn_tpu_torch import event
+
+        event.metrics_event(kv, task, json.dumps(snap, sort_keys=True))
+    return snap

@@ -8,20 +8,31 @@ and can never grow a long run's memory. `Tracer.export_chrome_trace`
 writes the buffer in Chrome ``trace_event`` format (open it in
 https://ui.perfetto.dev). Spans time the host's view of a phase
 (dispatch plus any synchronisation inside it), not device work; the
-device half is `torch.profiler`. The JAX package's environment-driven
-trace files belong to the run entry points, still to port (ROADMAP.md
-Queue 1, serving).
+device half is `torch.profiler`.
+
+Environment-driven sinks, as in the JAX package (spans.py:12-22):
+``TPU_YARN_TRACE=<dir>`` makes the run entry points (the train loop,
+`run_inference`, `experiment.run_experiment`) write ``trace_<task>.json``
+on exit; ``TPU_YARN_TRACE_JSONL=1`` with it also streams every completed
+span as one JSON line to ``spans_<task>.jsonl``, which survives a
+SIGKILL that the end-of-run export would not.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import logging
 import os
+import re
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+_logger = logging.getLogger(__name__)
+
+TRACE_ENV = "TPU_YARN_TRACE"
+TRACE_JSONL_ENV = "TPU_YARN_TRACE_JSONL"
 DEFAULT_CAPACITY = 100_000
 
 _clock = time.perf_counter  # monotonic; patchable in tests
@@ -47,6 +58,19 @@ class Span:
         self.thread_name = thread.name
         self.duration = 0.0
         self.start = _clock()
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "cat": self.category,
+            "start": self.start,
+            "dur": self.duration,
+            "tid": self.thread_id,
+            "thread": self.thread_name,
+            "depth": self.depth,
+            "parent": self.parent,
+            "args": self.args,
+        }
 
 
 class _SpanContext:
@@ -82,6 +106,7 @@ class Tracer:
             maxlen=self.capacity)
         self._lock = threading.Lock()
         self._local = threading.local()
+        self._sinks: List[Callable[[Span], None]] = []
 
     # -- recording ---------------------------------------------------------
 
@@ -111,6 +136,12 @@ class Tracer:
             stack.pop()
         with self._lock:
             self._buffer.append(span)
+            sinks = list(self._sinks)
+        for sink in sinks:
+            try:
+                sink(span)
+            except Exception:
+                _logger.warning("span sink failed", exc_info=True)
 
     # -- inspection --------------------------------------------------------
 
@@ -121,6 +152,39 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._buffer.clear()
+
+    # -- sinks -------------------------------------------------------------
+
+    def add_sink(self, sink: Callable[[Span], None]) -> None:
+        with self._lock:
+            self._sinks.append(sink)
+
+    def remove_sink(self, sink: Callable[[Span], None]) -> None:
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
+
+    def jsonl_sink(self, path: str):
+        """Stream completed spans to `path` as JSON lines; returns a
+        zero-arg close function that detaches the sink and closes the
+        file."""
+        fh = open(path, "a", encoding="utf-8")
+        write_lock = threading.Lock()
+
+        def sink(span: Span) -> None:
+            line = json.dumps(span.to_json(), sort_keys=True)
+            with write_lock:
+                fh.write(line + "\n")
+                fh.flush()
+
+        self.add_sink(sink)
+
+        def close() -> None:
+            self.remove_sink(sink)
+            with write_lock:
+                fh.close()
+
+        return close
 
     # -- Chrome trace_event export -----------------------------------------
 
@@ -160,10 +224,12 @@ class Tracer:
 
 
 # --------------------------------------------------------------------------
-# Process-global tracer
+# Process-global tracer + env-driven export
 # --------------------------------------------------------------------------
 
 _GLOBAL_TRACER = Tracer()
+_JSONL_OPEN: Dict[str, Callable[[], None]] = {}
+_JSONL_LOCK = threading.Lock()
 
 
 def get_tracer() -> Tracer:
@@ -174,3 +240,51 @@ def span(name: str, category: str = "host", **args: Any):
     """``with telemetry.span("train/input_wait") as sp: ...`` on the
     process-global tracer."""
     return _GLOBAL_TRACER.span(name, category=category, **args)
+
+
+def trace_dir() -> Optional[str]:
+    return os.environ.get(TRACE_ENV) or None
+
+
+def _safe_task(task: Any) -> str:
+    return re.sub(r"[^A-Za-z0-9_.-]+", "-", str(task)) or "task"
+
+
+def export_trace(task: Any = "local",
+                 tracer: Optional[Tracer] = None) -> Optional[str]:
+    """Write ``<TPU_YARN_TRACE>/trace_<task>.json`` (Chrome trace_event
+    JSON) from the ring buffer; no-op (returns None) when the env var is
+    unset. Idempotent — later calls overwrite with the fuller buffer."""
+    directory = trace_dir()
+    if not directory:
+        return None
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace_{_safe_task(task)}.json")
+    (tracer or _GLOBAL_TRACER).export_chrome_trace(path)
+    _logger.info("telemetry trace written to %s", path)
+    return path
+
+
+def enable_env_jsonl(task: Any = "local") -> Optional[str]:
+    """Attach a streaming JSONL sink (``spans_<task>.jsonl`` under
+    ``TPU_YARN_TRACE``) when ``TPU_YARN_TRACE_JSONL`` is truthy.
+    Idempotent per path; returns the path or None when disabled."""
+    directory = trace_dir()
+    flag = os.environ.get(TRACE_JSONL_ENV, "").lower()
+    if not directory or flag in ("", "0", "false", "no"):
+        return None
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"spans_{_safe_task(task)}.jsonl")
+    with _JSONL_LOCK:
+        if path not in _JSONL_OPEN:
+            _JSONL_OPEN[path] = _GLOBAL_TRACER.jsonl_sink(path)
+    return path
+
+
+def close_jsonl_sinks() -> None:
+    """Detach + close every env-opened JSONL sink (tests)."""
+    with _JSONL_LOCK:
+        closers = list(_JSONL_OPEN.values())
+        _JSONL_OPEN.clear()
+    for close in closers:
+        close()

@@ -10,7 +10,11 @@ drives it: input resume from the newest verified checkpoint, input
 prefetch on a background thread, log, eval and checkpoint cadences with
 ``keep_last_n`` retention, the steps/sec hook with samples/s, tokens/s
 and MFU weighted by the batches really run, and the ``train/*`` spans
-and gauges of the port's telemetry.
+and gauges of the port's telemetry. In a launched task (``runtime``
+given) the hook broadcasts the rates and ``{task}/last_training_step``
+through the run's KV store and flushes the registry to
+``{task}/metrics`` (training.py:335-351); ``TPU_YARN_TRACE`` writes the
+spans on exit.
 
 PyTorch runs eagerly: a step's kernels are queued on the card as the
 host runs, and the host waits only where it reads a value (the log
@@ -18,9 +22,9 @@ cadence, ``train/device_wait``), so metrics stay tensors until then.
 
 Not ported here, each raising or named in ROADMAP.md: ``steps_per_loop
 > 1`` and the async checkpoint writer (Queue 1 item 4), a multi-device
-``mesh_spec`` (Queue 1 item 7), elastic resize, preemption drain, the
-profiler window, TensorBoard and MLflow writers and the KV broadcasts of
-the launcher (Queue 1 item 5).
+``mesh_spec`` or a process group of more than one rank (Queue 1 item 7),
+elastic resize, preemption drain, the profiler window and the
+TensorBoard writer (Queue 1 items 4 and 5).
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ import numpy as np
 import torch
 
 from tf_yarn_tpu_torch import checkpoint as ckpt_lib
-from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch import event, telemetry
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.utils import flops as flops_lib
+from tf_yarn_tpu_torch.utils import mlflow
 
 _logger = logging.getLogger(__name__)
 
@@ -172,13 +177,18 @@ class _StepsPerSecondHook:
     ``train/*`` gauges and the log: steps/s, samples/s, tokens/s and MFU
     against the card's peak, weighted by the batches the interval really
     ran (`record_batch`), so a ragged epoch tail is not counted as full
-    batches."""
+    batches. Each report also goes to MLflow (when active) and, in a
+    launched task, to the KV store: ``{task}/<rate>``,
+    ``{task}/last_training_step`` and the registry's ``{task}/metrics``."""
 
     def __init__(self, every: int, resume_step: int = 0,
                  flops_per_step: Optional[float] = None,
                  samples_per_step: Optional[int] = None,
                  tokens_per_step: Optional[int] = None,
-                 peak_flops: Optional[float] = None) -> None:
+                 peak_flops: Optional[float] = None,
+                 runtime=None) -> None:
+        self._runtime = runtime
+        self._n_try = runtime.n_try if runtime is not None else 0
         self._every = max(1, every)
         self._t0 = time.perf_counter()
         self._step0 = resume_step
@@ -233,6 +243,21 @@ class _StepsPerSecondHook:
                            component=component).set(seconds)
         _logger.info("step %d: loss=%s %s", step, metrics.get("loss"),
                      " ".join(f"{k}={v:.3f}" for k, v in report.items()))
+        for key, value in report.items():
+            mlflow.log_metric(f"{key}_{self._n_try}", value, step=step)
+        runtime = self._runtime
+        if runtime is not None:
+            for key, value in report.items():
+                event.broadcast(runtime.kv, f"{runtime.task}/{key}",
+                                f"{value:.6g}")
+            event.broadcast(runtime.kv, f"{runtime.task}/last_training_step",
+                            str(step))
+        # Registry snapshot -> log (debug), MLflow and one {task}/metrics
+        # KV payload.
+        telemetry.flush_metrics(
+            registry, step=step,
+            kv=runtime.kv if runtime is not None else None,
+            task=runtime.task if runtime is not None else None)
 
 
 def _make_input_iter(input_fn, start_step: int):
@@ -313,9 +338,21 @@ def _peak_flops(device: torch.device) -> Optional[float]:
     return flops_lib.peak_flops_per_device(torch.cuda.get_device_name(device))
 
 
-def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
+def _world_size() -> int:
+    """Ranks of the default torch process group (1 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def train_and_evaluate(core: CoreExperiment, device=None,
+                       runtime=None) -> Dict[str, float]:
     """Run the train/eval/checkpoint loop on one device (CUDA unless
-    ``device="cpu"``); returns the final metrics."""
+    ``device="cpu"``); returns the final metrics. `runtime` is a launched
+    task's (`tasks._bootstrap.TaskRuntime`): the loop then reports into
+    the run's KV store."""
     params_cfg = core.train_params
     if params_cfg.steps_per_loop > 1:
         raise NotImplementedError(
@@ -324,7 +361,25 @@ def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
         raise NotImplementedError(
             "a multi-device mesh_spec is not ported yet: the loop runs on one "
             "device (ROADMAP.md Queue 1 item 7, parallelism)")
+    if _world_size() > 1:
+        # Each rank would train its own replica on its own batches: data
+        # parallelism (gradient all-reduce, sharded input) is not ported.
+        raise NotImplementedError(
+            f"a process group of {_world_size()} ranks: data-parallel "
+            "training is not ported yet, the loop trains one device "
+            "(ROADMAP.md Queue 1 item 7, parallelism)")
     device = resolve_device(device)
+    telemetry_task = runtime.task if runtime is not None else "train"
+    telemetry.enable_env_jsonl(telemetry_task)
+    try:
+        return _train_and_evaluate(core, device, runtime)
+    finally:
+        telemetry.export_trace(telemetry_task)
+
+
+def _train_and_evaluate(core: CoreExperiment, device: torch.device,
+                        runtime) -> Dict[str, float]:
+    params_cfg = core.train_params
     place = _batch_placer(device)
     # Capacity gauges (training.py:622-636): the devices the step
     # computes on, and whether an elastic attempt runs short of workers.
@@ -367,7 +422,7 @@ def train_and_evaluate(core: CoreExperiment, device=None) -> Dict[str, float]:
                                                 params_cfg.grad_accum_steps)
     hook = _StepsPerSecondHook(params_cfg.log_every_steps, resume_step,
                                flops_per_step, samples, tokens,
-                               _peak_flops(device))
+                               _peak_flops(device), runtime=runtime)
     breakdown = _IntervalBreakdown()
     metrics_host: Dict[str, float] = {}
     last_saved_step = resume_step if resume_step else None
