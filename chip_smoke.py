@@ -127,10 +127,29 @@ Phases, each fatal on failure (nonzero exit, no result line):
    relative; the wall to return and the worker's steps from its exported
    trace; (b) the same run with no visible card raises RunFailed carrying
    the port's no-CUDA error; (c) a fn of rank on `tasks.distributed`
-   initialises NCCL from its TaskParameters and all_reduces on the card.
+   initialises NCCL from its TaskParameters and all_reduces on the card;
+10. fleet slice, the launched serving replicas (`fleet_slice`): (a) phase
+   5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
+   tokens with 16 new each, one at a time; the weights saved as ckpt-1
+   (timed) and the model freed; (b) `run_on_gpu`
+   of `disaggregated_topology(n_prefill=1, n_decode=1)`, both tasks on
+   the card, the experiment fn sent by name: a ServingExperiment of the
+   same model and grid over ckpt-1 with `prefill_tier=
+   {"offload_threshold": 64}` — the driver logs both endpoints once, the
+   prompts one at a time stream bitwise equal to (a)'s (the 64- and
+   300-token ones shipped: 2 ships, 0 fallbacks), a burst of the three
+   is served to length (TTFT, tokens/s), the decode task launched
+   rmsnorm, quantize and the paged kernel, the prefill task rmsnorm and
+   quantize and no paged kernel, neither rebuilt the kernel library,
+   each task's peak memory and restore seconds (verify, read, copy),
+   and the run ends with both tasks in the Metrics; (c) `run_on_gpu` of
+   `ranking_topology()` with phase 8's ranker from the seeded init: 1-,
+   32- and 256-row POSTs one at a time score within 1e-5 of the driver's
+   `dlrm.make_model(criteo, 0)` on the same rows (and whether bitwise),
+   then phase 8's bursts for rows/s.
 
-The run takes 3-5 minutes by how fast the host is, well inside a
-10-minute limit.
+The run takes 6-9 minutes by how fast the host is (the last line before
+the kernels JSON gives each phase's seconds), inside a 20-minute limit.
 
 The line before last is the card's `nvidia-smi` name and power limit
 and the one before it the kernels JSON; the last line is
@@ -144,6 +163,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import logging
+import os
 import re
 import subprocess
 import sys
@@ -2001,7 +2022,7 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
                 raise AssertionError(f"{fn.__name__} never launched on the "
                                      f"{grid} burst")
         result = {
-            "grid": grid,
+            "grid": grid, "layers": engine.model.config.n_layers,
             "requests": len(prompts),
             "prompt_tokens": list(BURST_LENGTHS),
             "new_tokens": BURST_NEW,
@@ -2355,7 +2376,8 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, telemetry,
         if launches[fn.__name__] <= 0:
             raise AssertionError(f"{fn.__name__} never launched in generate")
     paths["generate"] = {
-        "batch": [4, 300], "new_tokens": BURST_NEW, "wall_s": wall,
+        "layers": cfg.n_layers, "batch": [4, 300], "new_tokens": BURST_NEW,
+        "wall_s": wall,
         "tokens_per_s": 4 * BURST_NEW / wall, "launches": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -2992,7 +3014,523 @@ def launcher_slice(torch, client, topologies, reference_losses,
     return result
 
 
+# Phase 10: the launched serving fleet. As in phase 9 the experiment fns
+# are module-level and sent by name.
+FLEET_PROMPTS = (17, 64, 300)
+FLEET_NEW = 16
+# Prompts of at least this many tokens ship to the prefill replica: here
+# the 64- and the 300-token ones; the 17-token one prefills locally.
+FLEET_THRESHOLD = 64
+# The fused paged grid of phase 5 (a).
+FLEET_GRID = dict(max_slots=4, block_size=16, kv_layout="paged",
+                  decode_attention="fused")
+# An upper bound on each replica's serving time; the driver ends them
+# sooner through FLEET_STOP.
+FLEET_SERVE_SECONDS = 600.0
+FLEET_STOP = "stop"
+# The small f32 model of phase 4 with room for a 300-token prompt and 16
+# new tokens: the CPU rehearsal's and the card test's replicas.
+TINY_FLEET = dict(TINY_SERVE, max_seq_len=512)
+# Each replica's spans before it serves, as its record keeps them.
+FLEET_SPANS = ("serving/restore_params", "prefill/restore_params",
+               "ranking/init_params", "ranking/warmup", "checkpoint/verify",
+               "checkpoint/restore", "checkpoint/load_state_dict")
+# The served scores against the driver's own forward of the same seeded
+# DLRM, one request (one tick) at a time.
+FLEET_RANK_TOL = 1e-5
+
+
+def fleet_config(torch, tt, tiny: bool):
+    """Phase 5's decoder (Llama-3-8B widths, 32 layers, bf16, int8 KV), or
+    the small f32 one of TINY_FLEET."""
+    if tiny:
+        return tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
+                                    **TINY_FLEET)
+    return tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
+                                          kv_cache_dtype="int8")
+
+
+def _replica_record(out_dir: str, counted):
+    """In a launched replica: stop serving once the driver writes
+    <out_dir>/FLEET_STOP (the preemption notice's drain), and at exit
+    write <out_dir>/fleet_<type>-<id>.json with the launches of the
+    `counted` wrappers in this process, whether it built the kernel
+    library, its peak device memory and its FLEET_SPANS' seconds."""
+    import atexit
+    import os
+
+    import torch
+
+    from tf_yarn_tpu_torch import constants, preemption, telemetry
+    from tf_yarn_tpu_torch.ops import _build
+
+    task = os.environ[constants.ENV_TASK_KEY]
+    spans = {}
+
+    def keep(span):
+        if span.name in FLEET_SPANS:
+            spans.setdefault(span.name, []).append(span.duration)
+
+    telemetry.get_tracer().add_sink(keep)
+
+    def record():
+        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        Path(out_dir, f"fleet_{task.replace(':', '-')}.json").write_text(
+            json.dumps({
+                "task": task,
+                "launches": {fn.__name__: fn.launches for fn in counted},
+                "built_kernels_here": _build.build_seconds is not None,
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if cuda else None),
+                "spans_s": spans}))
+
+    atexit.register(record)
+    stop = Path(out_dir) / FLEET_STOP
+
+    def watch():
+        while not stop.exists():
+            time.sleep(0.05)
+        preemption.request()
+
+    threading.Thread(target=watch, name="fleet-stop", daemon=True).start()
+    return task
+
+
+def fleet_serving_experiment(model_dir: str, out_dir: str, serving_port: int,
+                             tiny: bool = False):
+    """Phase 10 (b)'s experiment fn, called in the decode (``serving``) and
+    the ``prefill`` task: a ServingExperiment of phase 5's model on the
+    task's device over the checkpoint in `model_dir`, grid (a) (4 slots,
+    blocks of 16, paged, fused), with a prefill tier that takes prompts
+    of FLEET_THRESHOLD tokens and more. The decode replica listens on
+    `serving_port`, the prefill replica on a free port it advertises."""
+    import torch
+
+    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch.experiment import ServingExperiment
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.ops import decode_attention, quantize, rmsnorm
+
+    task = _replica_record(out_dir, (
+        rmsnorm.rmsnorm, quantize.quantize_int8,
+        decode_attention.paged_int8_window_attention))
+    return ServingExperiment(
+        tt.Transformer(fleet_config(torch, tt, tiny), device=task_device()),
+        model_dir, host="127.0.0.1",
+        port=serving_port if task.startswith("serving:") else 0,
+        prefill_tier={"offload_threshold": FLEET_THRESHOLD},
+        serve_seconds=FLEET_SERVE_SECONDS, **FLEET_GRID)
+
+
+def fleet_rank_experiment(out_dir: str, rank_port: int, tiny: bool = False):
+    """Phase 10 (c)'s experiment fn: phase 8's ranker (DLRMConfig.criteo(),
+    or the tiny f32 one) on the task's device from the seeded init (seed
+    0, no checkpoint), max_batch 256, max_wait_ms 2, on `rank_port`."""
+    import torch
+
+    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch.experiment import RankingExperiment
+    from tf_yarn_tpu_torch.models import dlrm
+
+    _replica_record(out_dir, ())
+    cfg = (dlrm.DLRMConfig.tiny(dtype=torch.float32) if tiny
+           else dlrm.DLRMConfig.criteo())
+    return RankingExperiment(
+        dlrm.DLRM(cfg, device=task_device()), model_dir=None, init_seed=SEED,
+        max_batch=RANK_MAX_BATCH, max_wait_ms=2.0, host="127.0.0.1",
+        port=rank_port, serve_seconds=FLEET_SERVE_SECONDS)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class endpoint_log:
+    """The driver's endpoint log lines ("serving endpoint host:port") for
+    the duration of the block, by label, with the perf_counter second
+    each was logged."""
+
+    def __init__(self):
+        self.lines = []
+        self._logger = logging.getLogger("tf_yarn_tpu_torch.utils.metrics")
+        lines = self.lines
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                lines.append((time.perf_counter(), record.getMessage()))
+
+        self._handler = Handler(logging.INFO)
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+        return False
+
+    def endpoints(self, label: str):
+        return [line[len(label) + 1:] for _at, line in self.lines
+                if line.startswith(label + " ")]
+
+    def logged_at(self, label: str) -> float:
+        return min(at for at, line in self.lines
+                   if line.startswith(label + " "))
+
+
+def launch_in_background(client, *args, **kwargs):
+    """`client.run_on_gpu(*args, **kwargs)` on a thread; returns the thread
+    and a dict that gets the Metrics (``metrics``) or the exception
+    (``error``)."""
+    outcome = {}
+
+    def run():
+        try:
+            outcome["metrics"] = client.run_on_gpu(*args, **kwargs)
+        except BaseException as exc:  # re-raised by the caller
+            outcome["error"] = exc
+
+    thread = threading.Thread(target=run, name="run_on_gpu", daemon=True)
+    thread.start()
+    return thread, outcome
+
+
+def task_log_tails(lines: int = 40, runs: int = 2) -> str:
+    """The last `lines` lines of each task log of the newest `runs`
+    `run_on_gpu` runs (their log directories under the temporary
+    directory): phase 10 has two runs up at once."""
+    import glob
+    import tempfile
+
+    dirs = sorted(glob.glob(os.path.join(tempfile.gettempdir(),
+                                         "gpu_yarn-logs-*")),
+                  key=os.path.getmtime)[-runs:]
+    tails = []
+    for path in sorted(path for run in dirs
+                       for path in glob.glob(os.path.join(run, "*.log"))):
+        with open(path, errors="replace") as fh:
+            tail = fh.readlines()[-lines:]
+        tails.append(f"---- {path} ----\n{''.join(tail)}")
+    return "\n".join(tails)
+
+
+def wait_for_endpoints(log, labels, thread, outcome, timeout_s=300.0):
+    """Wait until the driver has logged an endpoint for each label; raise
+    if the run ends first or a label is still missing after `timeout_s`
+    (its task may have failed while another serves on), with the tasks'
+    log tails."""
+    deadline = time.monotonic() + timeout_s
+    while not all(log.endpoints(label) for label in labels):
+        if not thread.is_alive():
+            raise AssertionError(f"the run ended before its endpoints were "
+                                 f"logged: {outcome}")
+        if time.monotonic() > deadline:
+            missing = [label for label in labels if not log.endpoints(label)]
+            raise AssertionError(f"no endpoint logged for {missing} in "
+                                 f"{timeout_s:.0f} s\n{task_log_tails()}")
+        time.sleep(0.05)
+
+
+def drain_replicas(out_dir, thread, timeout_s=300.0) -> None:
+    """Ask the replicas launched into `out_dir` to drain (FLEET_STOP) and
+    wait up to `timeout_s` for their run to end."""
+    (Path(out_dir) / FLEET_STOP).write_text("")
+    thread.join(timeout=timeout_s)
+
+
+def stop_replicas(out_dir, thread, outcome, timeout_s=300.0):
+    """Drain the launched replicas and return the run's Metrics."""
+    drain_replicas(out_dir, thread, timeout_s)
+    if thread.is_alive():
+        raise AssertionError("the launched replicas did not stop")
+    if "error" in outcome:
+        raise outcome["error"]
+    return outcome["metrics"]
+
+
+def serve_one_at_a_time(port: int, prompts, new_tokens: int):
+    replies = []
+    for prompt in prompts:
+        status, body = post(port, {"prompt": prompt,
+                                   "max_new_tokens": new_tokens})
+        if status != 200 or len(body["tokens"]) != new_tokens:
+            raise AssertionError(f"bad reply {status}: {body}")
+        replies.append(body)
+    return replies
+
+
+def fleet_reference(torch, tt, engine_mod, sched_mod, server_mod, ckpt, dev,
+                    prompts, model_dir, tiny=False):
+    """Phase 10 (a): phase 5's model (seed 0) on grid (a) behind
+    ServingServer, the prompts one at a time; then the weights saved as
+    ckpt-1 in `model_dir` and the model freed."""
+    cfg = fleet_config(torch, tt, tiny)
+    started = time.perf_counter()
+    model = tt.make_model(cfg, seed=SEED, device=dev)
+    build_s = time.perf_counter() - started
+    scheduler = sched_mod.SlotScheduler(engine_mod.DecodeEngine(model),
+                                        **FLEET_GRID)
+    server = server_mod.ServingServer(scheduler, "127.0.0.1", 0)
+    scheduler.start()
+    server.start()
+    try:
+        replies = serve_one_at_a_time(server.port, prompts, FLEET_NEW)
+    finally:
+        server.stop()
+        scheduler.close()
+        del scheduler, server
+    started = time.perf_counter()
+    ckpt.save_checkpoint(model_dir, 1, {"params": model.state_dict(),
+                                        "optimizer": {}, "step": 1})
+    save_s = time.perf_counter() - started
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "streams": [body["tokens"] for body in replies],
+        "ttft_s": [body["ttft_s"] for body in replies],
+        "model_build_s": build_s, "checkpoint_write_s": save_s,
+        "checkpoint_bytes": sum(
+            f.stat().st_size for f in (Path(model_dir) / "ckpt-1").iterdir()),
+    }
+
+
+def _records(out_dir: Path) -> dict:
+    return {json.loads(path.read_text())["task"]: json.loads(path.read_text())
+            for path in sorted(out_dir.glob("fleet_*.json"))}
+
+
+def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
+                topologies, dlrm, dev, tiny=False, env=None):
+    """Phase 10: `fleet_serving` ((a) and (b)) and the ranking replica
+    (c), launched as (b) starts so that it comes up while (b)'s replicas
+    restore, and queried once they have stopped. `env` adds to the
+    tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp, endpoint_log() as rank_log:
+        tmp = Path(tmp)
+        launched = {}
+
+        def launch_ranker():
+            launched.update(start_ranking(client, topologies, tmp, tiny, env))
+
+        try:
+            result = fleet_serving(torch, tt, engine_mod, sched_mod,
+                                   server_mod, ckpt, client, topologies, dev,
+                                   tmp, tiny, env, before_launch=launch_ranker)
+            result["c_ranking"] = finish_ranking(torch, dlrm, dev, launched,
+                                                 rank_log, tiny)
+        except BaseException:
+            # A failed phase leaves no replica running.
+            if launched:
+                drain_replicas(launched["out_dir"], launched["thread"], 120.0)
+            raise
+    return result
+
+
+def fleet_serving(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
+                  topologies, dev, tmp: Path, tiny=False, env=None,
+                  before_launch=None):
+    """Phase 10 (a) `fleet_reference`, and (b)
+    `run_on_gpu(disaggregated_topology(n_prefill=1, n_decode=1))` with
+    `fleet_serving_experiment` over (a)'s checkpoint in `tmp`: the driver
+    logs each endpoint once; the prompts one at a time stream equal to
+    (a)'s (the 17-token one prefilled locally, the others shipped: 2
+    ships, 0 fallbacks); a burst of the three served to length; on the
+    card the decode task launched rmsnorm, quantize and the paged kernel,
+    the prefill task rmsnorm and quantize and not the paged kernel;
+    neither task rebuilt the kernel library; each task's peak memory and
+    restore seconds; the run ends with both tasks in the Metrics.
+    `before_launch()` runs just before (b) is launched."""
+    cfg = fleet_config(torch, tt, tiny)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in FLEET_PROMPTS]
+    run_env = dict({"PYTHONPATH": str(REPO)}, **(env or {}))
+    model_dir, out_dir = tmp / "model", tmp / "out"
+    out_dir.mkdir()
+    result = {}
+    started = time.perf_counter()
+    reference = fleet_reference(torch, tt, engine_mod, sched_mod, server_mod,
+                                ckpt, dev, prompts, str(model_dir), tiny)
+    result["a_in_process"] = dict(reference,
+                                  wall_s=time.perf_counter() - started)
+
+    port = free_port()
+    if dev.type == "cuda":
+        used = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print(f"phase 10 (b) launches with the driver holding "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); card "
+              f"memory used {used}", flush=True)
+    if before_launch is not None:
+        before_launch()
+    started = time.perf_counter()
+    with endpoint_log() as log:
+        thread, outcome = launch_in_background(
+            client, client.get_safe_experiment_fn(
+                "chip_smoke.fleet_serving_experiment", str(model_dir),
+                str(out_dir), port, tiny),
+            topologies.disaggregated_topology(n_prefill=1, n_decode=1),
+            env=run_env, poll_every_secs=0.5, dead_task_secs=300,
+            timeout_secs=FLEET_SERVE_SECONDS + 300)
+        try:
+            wait_for_endpoints(log, ("serving endpoint", "prefill endpoint"),
+                               thread, outcome)
+            ready_s = time.perf_counter() - started
+            replies = serve_one_at_a_time(port, prompts, FLEET_NEW)
+            offload = get(port, "/stats")[1]["prefill_offload"]
+            results, wall = burst(port, prompts, FLEET_NEW)
+            for status, body in results:
+                if status != 200 or len(body["tokens"]) != FLEET_NEW:
+                    raise AssertionError(f"bad burst reply {status}: {body}")
+            stats = get(port, "/stats")[1]
+        except BaseException:
+            drain_replicas(out_dir, thread, 120.0)
+            raise
+        metrics = stop_replicas(out_dir, thread, outcome)
+        endpoints = {label: log.endpoints(label) for label in
+                     ("serving endpoint", "prefill endpoint")}
+    wall_b = time.perf_counter() - started
+    streams = [body["tokens"] for body in replies]
+    if streams != reference["streams"]:
+        raise AssertionError(f"launched streams {streams} != in-process "
+                             f"{reference['streams']}")
+    if offload["ships"] != 2 or offload["local_fallbacks"] != 0:
+        raise AssertionError(f"prefill_offload {offload}")
+    if endpoints["serving endpoint"] != [f"127.0.0.1:{port}"] \
+            or len(endpoints["prefill endpoint"]) != 1:
+        raise AssertionError(f"the driver logged {endpoints}")
+    if sorted(metrics.container_duration) != ["prefill:0", "serving:0"]:
+        raise AssertionError(f"metrics {metrics}")
+    records = _records(out_dir)
+    decode, prefill = records["serving:0"], records["prefill:0"]
+    paged = "paged_int8_window_attention"
+    # (On the CPU the wrappers run their plain versions and count
+    # nothing.)
+    if dev.type == "cuda" and (min(decode["launches"].values()) <= 0
+                               or prefill["launches"][paged] != 0
+                               or min(prefill["launches"]["rmsnorm"],
+                                      prefill["launches"]["quantize_int8"])
+                               <= 0):
+        raise AssertionError(f"launches: decode {decode['launches']}, "
+                             f"prefill {prefill['launches']}")
+    if decode["built_kernels_here"] or prefill["built_kernels_here"]:
+        raise AssertionError("a launched replica rebuilt the kernels")
+    result["b_launched"] = {
+        "ready_s": ready_s, "wall_s": wall_b,
+        "streams_equal_in_process": True, "streams": streams,
+        "ttft_s": [body["ttft_s"] for body in replies],
+        "prefill_offload": offload,
+        "burst": {"wall_s": wall,
+                  "tokens_per_s": FLEET_NEW * len(prompts) / wall,
+                  "ttft_s": [body["ttft_s"] for _st, body in results]},
+        "ticks": stats["ticks"], "endpoints": endpoints,
+        "container_duration_s": metrics.container_duration,
+        "decode_task": decode, "prefill_task": prefill,
+    }
+    return result
+
+
+def start_ranking(client, topologies, tmp: Path, tiny=False, env=None):
+    """Launch phase 10 (c)'s ranking replica (`run_on_gpu(
+    ranking_topology())` with `fleet_rank_experiment`) in the background;
+    returns what `finish_ranking` reads."""
+    out_dir = tmp / "rank"
+    out_dir.mkdir()
+    port = free_port()
+    started = time.perf_counter()
+    thread, outcome = launch_in_background(
+        client, client.get_safe_experiment_fn(
+            "chip_smoke.fleet_rank_experiment", str(out_dir), port, tiny),
+        topologies.ranking_topology(),
+        env=dict({"PYTHONPATH": str(REPO)}, **(env or {})),
+        poll_every_secs=0.5, dead_task_secs=300,
+        timeout_secs=FLEET_SERVE_SECONDS + 300)
+    return {"thread": thread, "outcome": outcome, "port": port,
+            "out_dir": out_dir, "started": started}
+
+
+def finish_ranking(torch, dlrm, dev, launched, log, tiny=False):
+    """Phase 10 (c) on the replica `start_ranking` launched, `log` the
+    driver's endpoint log since before its launch: 1-, 32- and 256-row
+    POSTs one at a time give the scores of `dlrm.make_model(cfg, 0)` in
+    the driver on the same rows (FLEET_RANK_TOL; and whether bitwise),
+    then phase 8's bursts their rows/s; the driver logs the endpoint
+    once and the run ends with the task in the Metrics."""
+    thread, outcome = launched["thread"], launched["outcome"]
+    port = launched["port"]
+    cfg = (dlrm.DLRMConfig.tiny(dtype=torch.float32) if tiny
+           else dlrm.DLRMConfig.criteo())
+    wait_for_endpoints(log, ("rank endpoint",), thread, outcome)
+    ready_s = log.logged_at("rank endpoint") - launched["started"]
+    started = time.perf_counter()
+    model = dlrm.make_model(cfg, seed=SEED, device=dev)
+    errors, bitwise = {}, True
+    for i, (rows, _requests) in enumerate(RANK_BURSTS):
+        bodies, cat, dense = rank_bodies(cfg, (rows,), seed=300 + i)
+        status, body = post(port, bodies[0], "/v1/rank")
+        with torch.inference_mode():
+            ref = model(torch.from_numpy(cat).to(dev),
+                        torch.from_numpy(dense).to(dev)
+                        ).float().squeeze(-1).cpu()
+        got = torch.tensor(body["scores"])
+        if status != 200 or got.shape != ref.shape:
+            raise AssertionError(f"/v1/rank {status}: {body}")
+        errors[rows] = float((got - ref).abs().max())
+        bitwise = bitwise and torch.equal(got, ref)
+    del model
+    bursts = {}
+    for i, (rows, requests) in enumerate(RANK_BURSTS):
+        bodies, _cat, _dense = rank_bodies(cfg, (rows,) * requests,
+                                           seed=400 + i)
+        threads, replies, begun = post_all(port, bodies, "/v1/rank")
+        join_all(threads, replies)
+        wall = time.perf_counter() - begun
+        bursts[rows] = {"requests": requests, "wall_s": wall,
+                        "rows_per_s": rows * requests / wall}
+    metrics = stop_replicas(launched["out_dir"], thread, outcome)
+    endpoints = log.endpoints("rank endpoint")
+    if max(errors.values()) > FLEET_RANK_TOL:
+        raise AssertionError(f"served scores against the driver's forward: "
+                             f"{errors}")
+    if endpoints != [f"127.0.0.1:{port}"] \
+            or list(metrics.container_duration) != ["rank:0"]:
+        raise AssertionError(f"rank run: {endpoints} {metrics}")
+    return {"ready_s": ready_s,
+            "serving_wall_s": time.perf_counter() - started,
+            "max_abs_err": errors, "bitwise_equal": bitwise,
+            "bursts": bursts, "endpoints": endpoints,
+            "task": _records(launched["out_dir"])["rank:0"]}
+
+
+def fleet_ranking(torch, client, topologies, dlrm, dev, tmp: Path,
+                  tiny=False, env=None):
+    """Phase 10 (c) alone: `start_ranking`, then `finish_ranking`."""
+    with endpoint_log() as log:
+        return finish_ranking(
+            torch, dlrm, dev, start_ranking(client, topologies, tmp, tiny, env),
+            log, tiny)
+
+
 def main() -> int:
+    smoke_started = time.perf_counter()
+    marks = [("start", smoke_started)]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3058,6 +3596,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
 
+    mark("1-2 environment and build")
     paged_row = check_attention(torch, ops, dev)
     rows = [check_rmsnorm(torch, ops, dev), check_quantize(torch, ops, dev),
             paged_row,
@@ -3080,6 +3619,7 @@ def main() -> int:
                if "shape_chunk" in row else ""))
     gc.collect()
     torch.cuda.empty_cache()
+    mark("3 kernels")
 
     reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod,
                                      server_mod, dev)
@@ -3104,6 +3644,7 @@ def main() -> int:
                                          dev)
     log(f"ranker reference ({time.perf_counter() - started:.1f} s): "
         f"{json.dumps(rank_reference)}")
+    mark("4 references")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
                        decode_attention.paged_int8_window_attention,
@@ -3114,6 +3655,7 @@ def main() -> int:
         log(f"serving slice, {path}: {json.dumps(result)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
+    mark("5 serving slice")
 
     training_counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
                         flash_attention.flash_fwd, flash_attention.flash_dq,
@@ -3124,6 +3666,7 @@ def main() -> int:
     log(f"training slice: {json.dumps(train_result)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
+    mark("6 training slice")
 
     norm_counted = (layernorm.layernorm, layernorm.layernorm_backward,
                     groupnorm.groupnorm, groupnorm.groupnorm_backward)
@@ -3138,6 +3681,7 @@ def main() -> int:
         log(f"zoo slice, {name}: {json.dumps(zoo_results[name])} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
+    mark("7 zoo slice")
 
     started = time.perf_counter()
     rank_result = rank_slice(
@@ -3153,6 +3697,7 @@ def main() -> int:
     del rank_result, rank_train
     gc.collect()
     torch.cuda.empty_cache()
+    mark("8 ranker slice")
 
     started = time.perf_counter()
     bert_launches = zoo_results["bert_base"]["launches"]
@@ -3162,6 +3707,20 @@ def main() -> int:
          for name in ("layernorm", "layernorm_backward")})
     log(f"launcher slice: {json.dumps(launcher_result)} on {card}")
     log(f"launcher phase: {time.perf_counter() - started:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("9 launcher slice")
+
+    started = time.perf_counter()
+    fleet_result = fleet_slice(torch, tt, engine_mod, sched_mod, server_mod,
+                               ckpt, client, topologies, dlrm, dev)
+    log(f"fleet slice: {json.dumps(fleet_result)} on {card}")
+    log(f"fleet phase: {time.perf_counter() - started:.1f} s")
+    mark("10 fleet slice")
+    fleet_launches = {
+        "launched serving": fleet_result["b_launched"]["decode_task"]["launches"],
+        "launched prefill":
+            fleet_result["b_launched"]["prefill_task"]["launches"]}
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.
@@ -3183,11 +3742,17 @@ def main() -> int:
         launched = launcher_result["a_train"]["launches"]
         if row["name"] in launched:
             by_path["launcher bert_base"] = launched[row["name"]]
+        by_path.update({path: launched[row["name"]]
+                        for path, launched in fleet_launches.items()
+                        if row["name"] in launched})
         row["launches_path"] = primary.get(
             row["name"], "serving fused_burst" if "serving fused_burst"
             in by_path else "training")
         row["launches"] = by_path[row["launches_path"]]
         row["launches_by_path"] = by_path
+    log(f"smoke: {time.perf_counter() - smoke_started:.1f} s; by phase: "
+        + json.dumps({phase: round(t - t0, 1) for (_, t0), (phase, t)
+                      in zip(marks, marks[1:])}))
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1381,3 +1381,50 @@ def test_cuda_launched_worker_runs_the_layernorm_kernels(
     assert min(got["launches"].values()) > 0
     assert not got["built_kernels_here"]
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)
+
+
+def test_cuda_launched_decode_and_prefill_replicas_serve_the_cpu_streams(
+        cuda, tmp_path, monkeypatch):
+    """chip_smoke.py phase 10 (b) at the small f32 decoder: a decode and a
+    prefill replica that `run_on_gpu` launches on the card (no
+    TPU_YARN_PLATFORM: the conftest sets it to cpu for the JAX package)
+    serve the prompts of 17, 64 and 300 tokens one at a time, the two
+    long ones shipped, with the streams of the same checkpoint served on
+    the CPU; `fleet_serving` also holds them to the card's in-process
+    grid, the launches of rmsnorm, quantize and the paged kernel in the
+    decode task and of rmsnorm and quantize alone in the prefill task."""
+    import chip_smoke
+    from tf_yarn_tpu_torch import checkpoint, client, inference, topologies
+    from tf_yarn_tpu_torch.models import decode_engine
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.serving import scheduler, server
+
+    monkeypatch.delenv("TPU_YARN_PLATFORM", raising=False)
+    result = chip_smoke.fleet_serving(
+        torch, tt, decode_engine, scheduler, server, checkpoint, client,
+        topologies, cuda, tmp_path, tiny=True)
+    launched = result["b_launched"]
+    assert launched["prefill_offload"]["ships"] == 2
+    assert min(launched["decode_task"]["launches"].values()) > 0
+    assert launched["prefill_task"]["launches"][
+        "paged_int8_window_attention"] == 0
+    # The same checkpoint served on the CPU (the plain versions).
+    cfg = chip_smoke.fleet_config(torch, tt, True)
+    model = tt.Transformer(cfg, device="cpu")
+    inference._restore_params(model, str(tmp_path / "model"), None)
+    grid = scheduler.SlotScheduler(decode_engine.DecodeEngine(model),
+                                   **chip_smoke.FLEET_GRID)
+    frontend = server.ServingServer(grid, "127.0.0.1", 0)
+    grid.start()
+    frontend.start()
+    try:
+        gen = torch.Generator().manual_seed(chip_smoke.SEED + 10)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in chip_smoke.FLEET_PROMPTS]
+        cpu = chip_smoke.serve_one_at_a_time(frontend.port, prompts,
+                                             chip_smoke.FLEET_NEW)
+    finally:
+        frontend.stop()
+        grid.close()
+    assert launched["streams"] == [body["tokens"] for body in cpu]

@@ -121,6 +121,46 @@ def test_presets_equal_jax_with_the_chip_label_mapped():
     assert t_topo.TaskKey.from_kv_str("worker:3") == ("worker", 3)
 
 
+# The replica presets at their defaults and at other sizes (a CPU-only
+# replica where chips_per_host is 0; a prefill tier of none), each
+# call's arguments given to both packages.
+REPLICA_PRESETS = {
+    "serving": ("serving_topology", {}),
+    "serving_three_on_two_chips": ("serving_topology",
+                                   {"instances": 3, "chips_per_host": 2}),
+    "serving_on_the_cpu": ("serving_topology", {"chips_per_host": 0}),
+    "serving_none": ("serving_topology", {"instances": 0}),
+    "disaggregated": ("disaggregated_topology", {}),
+    "disaggregated_sized": ("disaggregated_topology", {
+        "n_prefill": 2, "n_decode": 3, "decode_chips_per_host": 1,
+        "prefill_chips_per_host": 4, "prefill_memory_gib": 64}),
+    "disaggregated_cpu_prefill": ("disaggregated_topology",
+                                  {"prefill_chips_per_host": 0}),
+    "disaggregated_no_prefill": ("disaggregated_topology", {"n_prefill": 0}),
+    "disaggregated_no_decode": ("disaggregated_topology", {"n_decode": 0}),
+    "ranking": ("ranking_topology", {}),
+    "ranking_two_on_eight_chips": ("ranking_topology",
+                                   {"instances": 2, "chips_per_host": 8}),
+    "ranking_nine_chips": ("ranking_topology", {"chips_per_host": 9}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPLICA_PRESETS))
+def test_replica_presets_equal_jax_with_the_chip_label_mapped(case):
+    name, kwargs = REPLICA_PRESETS[case]
+
+    def verdict(topo, chip_label):
+        try:
+            specs = getattr(topo, name)(**kwargs)
+        except ValueError as exc:
+            return "ValueError", str(exc)
+        return {t: (s.memory_gib, s.vcores, s.instances, s.chips_per_host,
+                    s.nb_proc_per_worker, s.label is chip_label)
+                for t, s in specs.items()}
+
+    assert verdict(*PACKAGES["port"]) == verdict(*PACKAGES["jax"])
+
+
 # -- ranks, world size, chief ---------------------------------------------
 
 CLUSTERS = {
@@ -421,9 +461,6 @@ REFUSED = {
     "remote_backend": ({"worker": 1}, {"backend": _RemoteBackend()}, "item 5"),
     "evaluator": ({"worker": 1, "evaluator": 1}, {}, "item 4"),
     "tensorboard": ({"worker": 1, "tensorboard": 1}, {}, "item 4"),
-    "serving": ({"serving": 1}, {}, "item 2c"),
-    "prefill": ({"serving": 1, "prefill": 1}, {}, "item 2d"),
-    "rank": ({"rank": 1}, {}, "item 8a"),
     "router": ({"serving": 1, "router": 1}, {}, "item 6"),
     "ship_code": ({"worker": 1}, {"ship_code": True}, "item 5"),
     "requirements": ({"worker": 1}, {"requirements": ["numpy"]}, "item 5"),

@@ -28,7 +28,11 @@ Ported so far:
 * launching — `client.run_on_gpu` over the JAX package's KV and event
   protocol (`coordination`, `event`, `backends.LocalBackend`,
   `resilience`), with the `tasks.worker` and `tasks.distributed` task
-  programs.
+  programs, and the serving, prefill and rank replicas
+  (`tasks.serving`, `tasks.prefill`, `tasks.rank`:
+  `experiment.ServingExperiment` and `RankingExperiment` through
+  `serving.server.run_serving`, the disaggregated prefill tier of
+  `serving.prefill` and `ranking.server.run_ranking`).
 
 Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
 LayerNorm and GroupNorm, each with its dx; per-row int8 quantize; paged

@@ -2,10 +2,11 @@
 modules under ``tf_yarn_tpu_torch.tasks``.
 
 Each task instance runs ``python -m <module>``; `custom_task_module`
-keeps the seam for other task programs (``tasks.distributed``). Only
-the worker and distributed programs exist in the port so far:
-`client.run_on_gpu` refuses the other task types before it launches
-anything (ROADMAP.md Queue 1 items 2c, 2d, 4, 6 and 8a).
+keeps the seam for other task programs (``tasks.distributed``). The
+worker, distributed, serving, prefill and rank programs exist in the
+port; `client.run_on_gpu` refuses the evaluator, tensorboard and router
+task types before it launches anything (ROADMAP.md Queue 1 items 4 and
+6).
 """
 
 from __future__ import annotations

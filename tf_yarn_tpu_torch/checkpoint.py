@@ -104,6 +104,11 @@ def write_manifest(ckpt_dir: str, step: Optional[int] = None) -> Dict:
 def verify_checkpoint(ckpt_dir: str) -> None:
     """Check the tree against its manifest; raises CheckpointCorrupt on
     any disagreement."""
+    with telemetry.span("checkpoint/verify", path=ckpt_dir):
+        _verify_checkpoint(ckpt_dir)
+
+
+def _verify_checkpoint(ckpt_dir: str) -> None:
     manifest_path = os.path.join(ckpt_dir, MANIFEST_NAME)
     if not os.path.exists(manifest_path):
         raise CheckpointCorrupt(f"{ckpt_dir}: no {MANIFEST_NAME}")
@@ -177,14 +182,20 @@ def save_checkpoint(model_dir: str, step: int, state: Dict[str, Any]) -> str:
     return path
 
 
-def restore_checkpoint(model_dir: str, step: int,
-                       map_location=None) -> Dict[str, Any]:
-    """The state saved as ckpt-<step>, tensors on `map_location`."""
+def restore_checkpoint(model_dir: str, step: int, map_location=None,
+                       parts: Tuple[str, ...] = _PARTS,
+                       mmap: bool = False) -> Dict[str, Any]:
+    """The state saved as ckpt-<step>, tensors on `map_location`: the
+    `parts` asked for and the step. ``mmap=True`` maps the files instead
+    of reading them (with ``map_location="cpu"``), so a caller that copies
+    the tensors into a model's own parameters holds one copy of them.
+    No verification here (callers verify first)."""
     path = checkpoint_path(model_dir, step)
     with telemetry.span("checkpoint/restore", step=step) as sp:
         state = {part: torch.load(os.path.join(path, f"{part}.pt"),
-                                  map_location=map_location, weights_only=True)
-                 for part in _PARTS}
+                                  map_location=map_location, mmap=mmap,
+                                  weights_only=True)
+                 for part in parts}
         with open(os.path.join(path, "step.json")) as fh:
             state["step"] = int(json.load(fh)["step"])
     telemetry.get_registry().histogram(

@@ -21,8 +21,12 @@ dependency shipping (`ship_code`, `requirements`, `wheels_dir`,
 `env_staging_dir`; ROADMAP.md Queue 1 item 5), backends other than
 `LocalBackend` (`SshBackend`; item 5), elastic resize (`elastic_policy`;
 item 5), and the task programs of the evaluator and
-tensorboard (item 4), serving (item 2c), prefill (item 2d), rank (item
-8a) and router (item 6) task types.
+tensorboard (item 4) and router (item 6) task types.
+
+The serving, prefill and rank replicas advertise their HTTP endpoints in
+the KV store (``{task}/serving_endpoint``, ``{task}/prefill_endpoint``,
+``{task}/rank_endpoint``); the driver logs each once, as soon as it
+appears ("serving endpoint 127.0.0.1:41231").
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Dict, List, Optional
 
-from tf_yarn_tpu_torch import _env, constants, resilience, telemetry
+from tf_yarn_tpu_torch import _env, constants, event, resilience, telemetry
 from tf_yarn_tpu_torch._internal import MonitoredThread, dumps_fn
 from tf_yarn_tpu_torch.backends import (
     FAILED,
@@ -65,7 +69,12 @@ from tf_yarn_tpu_torch.topologies import (
     single_server_topology,
 )
 from tf_yarn_tpu_torch.utils import mlflow
-from tf_yarn_tpu_torch.utils.metrics import Metrics, TaskOutcome, handle_events
+from tf_yarn_tpu_torch.utils.metrics import (
+    Metrics,
+    OneShotMetricsLogger,
+    TaskOutcome,
+    handle_events,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -76,10 +85,15 @@ ExperimentFn = Callable[[], object]
 UNPORTED_TASK_TYPES = {
     "evaluator": "item 4",
     "tensorboard": "item 4",
-    "serving": "item 2c",
-    "prefill": "item 2d",
-    "rank": "item 8a",
     "router": "item 6",
+}
+
+# The endpoint each replica type advertises, and the driver log's label
+# for it.
+ENDPOINT_EVENTS = {
+    "serving": (event.serving_endpoint_event_name, "serving endpoint"),
+    "prefill": (event.prefill_endpoint_event_name, "prefill endpoint"),
+    "rank": (event.rank_endpoint_event_name, "rank endpoint"),
 }
 
 
@@ -243,6 +257,16 @@ def _execute_and_await_termination(
     a poll interval, instead of hanging until the deadline."""
     cluster.kv.put(constants.KV_EXPERIMENT_FN, serialized_fn)
 
+    # Each replica's advertised endpoint, logged once when it appears (the
+    # JAX driver logs the serving and rank ones; the prefill tier's too
+    # here, so a disaggregated run shows both of its tiers).
+    endpoint_logger = OneShotMetricsLogger(
+        cluster.kv,
+        [(ENDPOINT_EVENTS[key.type][0](key.to_kv_str()),
+          ENDPOINT_EVENTS[key.type][1])
+         for key in cluster.handle.tasks() if key.type in ENDPOINT_EVENTS],
+        n_try,
+    )
     watchdog = None
     if dead_task_secs:
         watchdog = HeartbeatWatchdog(
@@ -253,6 +277,7 @@ def _execute_and_await_termination(
     while status == RUNNING:
         time.sleep(poll_every_secs)
         status = cluster.handle.status()
+        endpoint_logger.log()
         if status != RUNNING:
             break
         if watchdog is not None:

@@ -23,16 +23,28 @@ job for `inference.run_inference`; its ``model`` is the port's
 experiment fn that runs in a launched task builds that model on
 `_device.task_device()`.
 
-`run_experiment` (experiment.py:765-799) is what the worker task program
-calls: training on the task's device, or batch inference. The serving
-and ranking experiment types wait for their task programs (ROADMAP.md
-Queue 1 items 2c and 8a).
+`ServingExperiment` (experiment.py:282-577) describes an online
+`/v1/generate` replica — and, with ``prefill_tier``, the prefill tier
+beside it — and `RankingExperiment` (experiment.py:580-673) an online
+`/v1/rank` replica, with the JAX package's fields, defaults and
+validation messages. Their ``model`` is the port's `Transformer` or
+`DLRM`, built by the experiment fn on the task's device and holding its
+weights. What the port cannot serve yet is refused at construction with
+NotImplementedError naming its ROADMAP.md Queue 1 item: any ``mesh_spec``
+(item 7) and any ``autoscale`` (item 6). The JAX package's ``router_*``,
+``autoscale_launch_eta_s`` and ``autoscale_warm_start`` fields belong to
+the router task and are not fields here until the router is ported
+(item 6): an experiment fn that sets them fails with a TypeError.
+
+`run_experiment` (experiment.py:765-799) is what the worker, serving
+and rank task programs call: training on the task's device, batch
+inference, `serving.server.run_serving` or `ranking.server.run_ranking`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 Batch = Dict[str, Any]
 InputFn = Callable[[], Iterator[Batch]]
@@ -142,6 +154,212 @@ class InferenceExperiment:
                 f"max_new_tokens must be >= 0, got {self.max_new_tokens}")
 
 
+def _refuse_mesh_spec(spec, what: str) -> None:
+    if spec is not None:
+        raise NotImplementedError(
+            f"mesh_spec: {what} is not ported yet (ROADMAP.md Queue 1 item "
+            "7, parallelism); serve on one device (mesh_spec=None)")
+
+
+@dataclasses.dataclass
+class ServingExperiment:
+    """Online-serving job: restore a checkpoint into ``model`` and serve
+    ``/v1/generate`` with continuous batching until stopped
+    (`serving.server.run_serving`). The JAX package's fields, defaults
+    and validation (experiment.py:282-577), less the router's fields.
+
+    ``model`` is a `Transformer` on the device the replica runs on (its
+    weights are replaced by the checkpoint's ``params``); ``model_dir``
+    holds the ``ckpt-<step>`` trees. ``temperature``/``top_k``/``top_p``
+    configure the slot grid; requests carrying other values are refused
+    with a 400. ``serve_seconds=None`` serves until the task is killed
+    or a preemption notice arrives. ``kv_layout``, ``block_size``,
+    ``num_blocks``, ``prefix_cache_capacity``, ``spec_k``,
+    ``spec_draft``, ``decode_attention``, ``prefill_chunk``,
+    ``prefill_budget_per_tick``, ``kv_host_blocks`` and ``tier_caps``
+    are `SlotScheduler`'s knobs. ``slo`` declares the objectives each
+    replica evaluates. ``prefill_tier`` (a `PrefillTierConfig` field
+    dict, paged layout) makes ``/v1/generate`` pull long prompts' KV
+    blocks from the ``prefill`` task tier before submitting; it is also
+    the experiment the ``prefill`` task reads. ``mesh_spec`` and
+    ``autoscale`` are refused (module docstring)."""
+
+    model: Any
+    model_dir: str
+    host: str = "0.0.0.0"
+    port: int = 0  # 0 = ephemeral; the bound port is advertised via KV
+    max_slots: int = 8
+    queue_capacity: int = 64
+    retry_after_s: float = 1.0
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    step: Optional[int] = None  # checkpoint step; None = latest
+    serve_seconds: Optional[float] = None
+    kv_layout: str = "paged"
+    block_size: int = 16
+    num_blocks: Optional[int] = None
+    prefix_cache_capacity: int = 256
+    spec_k: int = 0
+    spec_draft: Any = "ngram"
+    decode_attention: str = "gather"
+    prefill_chunk: Any = 0
+    prefill_budget_per_tick: Optional[int] = None
+    kv_host_blocks: int = 0
+    tier_caps: Optional[Dict[str, int]] = None
+    mesh_spec: Any = None
+    slo: Optional[Dict[str, float]] = None
+    autoscale: Optional[Dict[str, Dict]] = None
+    prefill_tier: Optional[Dict] = None
+
+    def __post_init__(self) -> None:
+        if self.max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
+        if self.queue_capacity < 1:
+            raise ValueError(
+                f"queue_capacity must be >= 1, got {self.queue_capacity}")
+        if self.serve_seconds is not None and self.serve_seconds <= 0:
+            raise ValueError(
+                f"serve_seconds must be > 0 or None, got {self.serve_seconds}")
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'dense' or 'paged', got {self.kv_layout!r}")
+        if self.block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {self.block_size}")
+        if self.num_blocks is not None and self.num_blocks < 2:
+            raise ValueError(
+                f"num_blocks must be >= 2 or None, got {self.num_blocks}")
+        if self.prefix_cache_capacity < 0:
+            raise ValueError(
+                f"prefix_cache_capacity must be >= 0, got "
+                f"{self.prefix_cache_capacity}")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_draft is not None and not callable(self.spec_draft) \
+                and self.spec_draft != "ngram":
+            raise ValueError(
+                "spec_draft must be 'ngram', a callable "
+                f"(context, k) -> tokens, or None; got {self.spec_draft!r}")
+        if self.decode_attention not in ("gather", "fused"):
+            raise ValueError(
+                f"decode_attention must be 'gather' or 'fused', got "
+                f"{self.decode_attention!r}")
+        if self.decode_attention == "fused" and self.kv_layout != "paged":
+            raise ValueError(
+                "decode_attention='fused' requires kv_layout='paged'")
+        chunked = self.prefill_chunk not in (0, None)
+        if chunked and self.prefill_chunk != "auto" and (
+                not isinstance(self.prefill_chunk, int)
+                or self.prefill_chunk < 1):
+            raise ValueError(
+                "prefill_chunk must be 0/None (blocking admission "
+                "prefill), 'auto', or an int >= 1; got "
+                f"{self.prefill_chunk!r}")
+        if self.prefill_budget_per_tick is not None:
+            if not chunked:
+                raise ValueError(
+                    "prefill_budget_per_tick needs chunked prefill: set "
+                    "prefill_chunk >= 1 or 'auto' (with blocking "
+                    "admission there is no per-tick prefill to budget)")
+            if self.prefill_budget_per_tick < 1:
+                raise ValueError(
+                    "prefill_budget_per_tick must be >= 1 or None, got "
+                    f"{self.prefill_budget_per_tick}")
+        if self.kv_host_blocks < 0:
+            raise ValueError(
+                f"kv_host_blocks must be >= 0, got {self.kv_host_blocks}")
+        if self.kv_host_blocks and self.kv_layout != "paged":
+            raise ValueError(
+                "kv_host_blocks (the host swap tier) requires "
+                "kv_layout='paged'")
+        if self.tier_caps is not None:
+            from tf_yarn_tpu_torch.serving.request import tier_rank
+
+            for name, cap in self.tier_caps.items():
+                tier_rank(name)  # ValueError on an unknown tier name
+                if not isinstance(cap, int) or cap < 0:
+                    raise ValueError(
+                        f"tier_caps[{name!r}] must be an int >= 0, "
+                        f"got {cap!r}")
+        _refuse_mesh_spec(self.mesh_spec, "tensor-parallel decode")
+        if self.slo is not None:
+            from tf_yarn_tpu_torch.telemetry.slo import parse_slo
+
+            try:
+                parse_slo(self.slo)
+            except ValueError as exc:
+                raise ValueError(f"slo: {exc}") from exc
+        if self.autoscale is not None:
+            raise NotImplementedError(
+                "autoscale: the fleet's autoscaler runs in the router task, "
+                "which is not ported yet (ROADMAP.md Queue 1 item 6)")
+        if self.prefill_tier is not None:
+            from tf_yarn_tpu_torch.serving.prefill import parse_prefill_tier
+
+            try:
+                parse_prefill_tier(self.prefill_tier)
+            except ValueError as exc:
+                raise ValueError(f"prefill_tier: {exc}") from exc
+
+
+@dataclasses.dataclass
+class RankingExperiment:
+    """Online-ranking job: restore (or init from ``init_seed``) a
+    DLRM-class ``model`` and serve ``/v1/rank`` with fill-or-timeout
+    micro-batching until stopped (`ranking.server.run_ranking`). The same
+    fields, defaults and validation as the JAX package's
+    (experiment.py:580-673).
+
+    ``max_batch``/``max_wait_ms`` are the micro-batch policy: tick when
+    the queued rows fill ``max_batch`` or the oldest waiter has waited
+    ``max_wait_ms``. ``model_dir=None`` serves the seeded init instead
+    of a checkpoint: every replica of the port with the same model and
+    seed holds the same weights bit for bit (not the JAX package's: a
+    torch generator cannot draw what ``jax.random`` draws). Any
+    ``mesh_spec`` is refused (item 7)."""
+
+    model: Any
+    model_dir: Optional[str] = None
+    host: str = "0.0.0.0"
+    port: int = 0  # 0 = ephemeral; the bound port is advertised via KV
+    max_batch: int = 32
+    max_wait_ms: float = 2.0
+    queue_capacity: int = 256
+    retry_after_s: float = 0.5
+    batch_buckets: Optional[Tuple[int, ...]] = None
+    warmup: bool = True
+    init_seed: int = 0
+    step: Optional[int] = None  # checkpoint step; None = latest
+    serve_seconds: Optional[float] = None
+    mesh_spec: Any = None
+
+    def __post_init__(self) -> None:
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_wait_ms < 0:
+            raise ValueError(
+                f"max_wait_ms must be >= 0, got {self.max_wait_ms}")
+        if self.queue_capacity < 1:
+            raise ValueError(
+                f"queue_capacity must be >= 1, got {self.queue_capacity}")
+        if self.serve_seconds is not None and self.serve_seconds <= 0:
+            raise ValueError(
+                f"serve_seconds must be > 0 or None, got "
+                f"{self.serve_seconds}")
+        if self.batch_buckets is not None and (
+                not self.batch_buckets or min(self.batch_buckets) < 1):
+            raise ValueError(
+                f"batch_buckets must be a non-empty tuple of positive "
+                f"sizes or None, got {self.batch_buckets!r}")
+        config = getattr(self.model, "config", None)
+        if config is None or not hasattr(config, "table_sizes"):
+            raise ValueError(
+                "RankingExperiment.model must be a DLRM-class model "
+                "exposing config.table_sizes (the ranking engine reads "
+                "it for feature validation and table sharding)")
+        _refuse_mesh_spec(self.mesh_spec, "embedding-sharded ranking")
+
+
 @dataclasses.dataclass
 class CoreExperiment:
     """Normalized form consumed by training.train_and_evaluate."""
@@ -176,12 +394,16 @@ def as_core_experiment(experiment: Any) -> CoreExperiment:
     )
 
 
-EXPERIMENT_TYPES = (TorchExperiment, CoreExperiment, InferenceExperiment)
+EXPERIMENT_TYPES = (TorchExperiment, CoreExperiment, InferenceExperiment,
+                    ServingExperiment, RankingExperiment)
 
 
 def run_experiment(runtime, experiment: Any) -> None:
-    """Entry used by tasks/worker.py: an `InferenceExperiment` goes to
-    `inference.run_inference`, a `TorchExperiment` or `CoreExperiment` to
+    """Entry used by tasks/{worker,serving,rank}.py: an
+    `InferenceExperiment` goes to `inference.run_inference`, a
+    `ServingExperiment` to `serving.server.run_serving`, a
+    `RankingExperiment` to `ranking.server.run_ranking`, a
+    `TorchExperiment` or `CoreExperiment` to
     `training.train_and_evaluate` on `_device.task_device()`; anything
     else raises `TypeError`. The body runs under an ``experiment/run``
     span, and the trace is exported on the way out (``TPU_YARN_TRACE``)."""
@@ -194,6 +416,16 @@ def run_experiment(runtime, experiment: Any) -> None:
                 from tf_yarn_tpu_torch import inference
 
                 inference.run_inference(experiment, runtime=runtime)
+                return
+            if isinstance(experiment, ServingExperiment):
+                from tf_yarn_tpu_torch.serving.server import run_serving
+
+                run_serving(experiment, runtime=runtime)
+                return
+            if isinstance(experiment, RankingExperiment):
+                from tf_yarn_tpu_torch.ranking.server import run_ranking
+
+                run_ranking(experiment, runtime=runtime)
                 return
             if isinstance(experiment, (TorchExperiment, CoreExperiment)):
                 from tf_yarn_tpu_torch import training

@@ -17,11 +17,12 @@ launched task's (`tasks._bootstrap.TaskRuntime`: ``task_key``,
 exit the registry is flushed (to ``{task}/metrics`` in a launched task)
 and the spans exported (``TPU_YARN_TRACE``), as in the JAX package.
 
-Where it differs: the checkpoint is the port's (`checkpoint.
-restore_latest` / `restore_checkpoint`, the ``ckpt-<step>`` trees the
-port's `training.train_and_evaluate` writes), restored into the
-experiment's `Transformer` on its device; paths are local (the remote
-filesystems wait for the checkpoint port).
+Where it differs: the checkpoint is the port's (the ``ckpt-<step>``
+trees the port's `training.train_and_evaluate` writes; `_restore_params`
+verifies one and maps its ``params`` with
+`checkpoint.restore_checkpoint`), restored into the experiment's
+`Transformer` on its device; paths are local (the remote filesystems
+wait for the checkpoint port).
 """
 
 from __future__ import annotations
@@ -79,17 +80,22 @@ def _call_input_fn(input_fn, shard: int, num_shards: int):
 def _restore_params(model, model_dir: str, step: Optional[int]) -> int:
     """Load the checkpoint's ``params`` into `model` (on its device);
     returns the step. An explicit step is verified against its MANIFEST
-    first; None takes the newest verified one."""
+    first; None takes the newest verified one. The state dict is read
+    memory-mapped on the host and copied once into the model's
+    parameters, so the device holds one copy of the weights (two at
+    Llama-3-8B width would be ~32 GB), and the optimizer's part is not
+    read."""
     if step is None:
-        state, step = ckpt_lib.restore_latest(model_dir,
-                                              map_location=model.device)
-        if state is None:
+        step = ckpt_lib.latest_verified_step(model_dir)
+        if step is None:
             raise FileNotFoundError(f"no ckpt-<step> under {model_dir}")
     else:
         ckpt_lib.verify_checkpoint(ckpt_lib.checkpoint_path(model_dir, step))
-        state = ckpt_lib.restore_checkpoint(model_dir, step,
-                                            map_location=model.device)
-    model.load_state_dict(state["params"])
+    state = ckpt_lib.restore_checkpoint(model_dir, step, map_location="cpu",
+                                        parts=("params",), mmap=True)
+    with telemetry.span("checkpoint/load_state_dict", step=step):
+        model.load_state_dict(state["params"])
+    del state
     return step
 
 

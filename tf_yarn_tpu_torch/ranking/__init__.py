@@ -12,8 +12,7 @@ conventions) but none of its KV machinery.
 * :mod:`~tf_yarn_tpu_torch.ranking.server` — `RankServer`:
   ``/v1/rank``, ``/healthz``, ``/stats``, ``/metrics``.
 
-The task body (`run_ranking`) waits for the launch path (ROADMAP.md
-Queue 1 item 5).
+* `run_ranking` (in the server module) — the ``rank`` task's body.
 """
 
 from tf_yarn_tpu_torch.ranking.scheduler import (  # noqa: F401
@@ -22,7 +21,10 @@ from tf_yarn_tpu_torch.ranking.scheduler import (  # noqa: F401
     RankRequest,
     RankResponse,
 )
-from tf_yarn_tpu_torch.ranking.server import RankServer  # noqa: F401
+from tf_yarn_tpu_torch.ranking.server import (  # noqa: F401
+    RankServer,
+    run_ranking,
+)
 
 __all__ = [
     "FINISH_COMPLETE",
@@ -30,4 +32,5 @@ __all__ = [
     "RankRequest",
     "RankResponse",
     "RankServer",
+    "run_ranking",
 ]

@@ -16,8 +16,10 @@ Same stdlib-only conventions as serving/server.py, different protocol:
   telemetry signals.
 * ``GET /metrics`` — Prometheus text exposition.
 
-`run_ranking`, `RankingExperiment` and the ``rank`` task program are not
-ported yet (ROADMAP.md Queue 1 item 8a).
+`run_ranking` is the ``rank`` task's body (tasks/rank.py): restore the
+checkpoint into the experiment's model (or draw the seeded init), warm
+up, start the scheduler and frontend, advertise ``{task}/rank_endpoint``
+and serve until the preemption notice or ``serve_seconds``.
 """
 
 from __future__ import annotations
@@ -184,3 +186,84 @@ def _make_handler(scheduler: MicroBatchScheduler):
             ))
 
     return Handler
+
+
+def run_ranking(experiment, runtime=None) -> dict:
+    """Task body for a `RankingExperiment` (JAX ranking/server.py:189-315):
+    params -> engine -> scheduler -> warmup -> frontend -> advertise ->
+    serve. Returns the final stats snapshot (``endpoint``, ``ckpt_step``
+    and the scheduler's stats).
+
+    With ``model_dir`` the port checkpoint is restored into
+    ``experiment.model`` (`inference._restore_params`). With
+    ``model_dir=None`` the weights are the seeded init,
+    ``model.init_weights(torch.Generator(device=model.device)
+    .manual_seed(init_seed))`` as `models.dlrm.make_model` draws them,
+    and the step is -1: every port replica with the same model and seed
+    serves the same weights bit for bit. They are not the JAX package's
+    weights for that seed — a torch generator cannot draw what
+    ``jax.random`` draws — so a replica of each package agrees only over
+    a checkpoint (`models.weights.dlrm_from_flax`)."""
+    import torch
+
+    from tf_yarn_tpu_torch import event
+    from tf_yarn_tpu_torch.models.rank_engine import (
+        DEFAULT_BATCH_BUCKETS,
+        RankEngine,
+    )
+    from tf_yarn_tpu_torch.serving.server import (
+        advertised_endpoint,
+        finish_replica,
+        serve_until_stopped,
+        task_name,
+    )
+
+    telemetry_task = task_name(runtime, "rank")
+    telemetry.enable_env_jsonl(telemetry_task)
+    model = experiment.model
+    if experiment.model_dir is not None:
+        from tf_yarn_tpu_torch import inference
+
+        with telemetry.span("ranking/restore_params"):
+            step = inference._restore_params(model, experiment.model_dir,
+                                             experiment.step)
+    else:
+        with telemetry.span("ranking/init_params", seed=experiment.init_seed):
+            model.init_weights(torch.Generator(device=model.device)
+                               .manual_seed(int(experiment.init_seed)))
+        step = -1
+    engine = RankEngine(
+        model, batch_buckets=experiment.batch_buckets or DEFAULT_BATCH_BUCKETS)
+    scheduler = MicroBatchScheduler(
+        engine,
+        max_batch=experiment.max_batch,
+        max_wait_ms=experiment.max_wait_ms,
+        queue_capacity=experiment.queue_capacity,
+        retry_after_s=experiment.retry_after_s,
+    )
+    if experiment.warmup:
+        with telemetry.span("ranking/warmup"):
+            warmed = engine.warmup(max_batch=experiment.max_batch)
+        _logger.info("ranking warmup ran %d buckets", warmed)
+    server = RankServer(scheduler, experiment.host, experiment.port)
+    scheduler.start()
+    endpoint = server.start()
+    advertised = advertised_endpoint(experiment.host, server.port)
+    if runtime is not None:
+        event.rank_endpoint_event(runtime.kv, runtime.task, advertised)
+    _logger.info(
+        "ranking ckpt-%d on %s (advertised %s): max_batch=%d, "
+        "max_wait_ms=%.1f, queue=%d", step, endpoint, advertised,
+        experiment.max_batch, experiment.max_wait_ms,
+        experiment.queue_capacity)
+    try:
+        serve_until_stopped("ranking", experiment.serve_seconds,
+                            scheduler.drain)
+    finally:
+        server.stop()
+        scheduler.close()
+        stats = {"endpoint": advertised, "ckpt_step": step,
+                 **scheduler.stats()}
+        _logger.info("ranking done: %s", stats)
+        finish_replica(runtime, telemetry_task)
+    return stats

@@ -22,8 +22,16 @@ Stdlib only (`http.server`), the same wire protocol as the JAX package:
   wire whose block size or pool layout this replica cannot take. The
   wire is the JAX package's, so replicas of either package trade blocks.
 
-The prefill tier (``/v1/prefill``) and `run_serving` with checkpoint
-restore are still to port (ROADMAP.md Queue 1, serving).
+With a `serving.prefill.PrefillClient` (``prefill_client=``),
+``/v1/generate`` first offers a long prompt to the prefill tier
+(`maybe_ship`, on the handler thread: HTTP and wire decoding only, the
+import rides the scheduler's control queue) and ``/stats`` carries its
+``prefill_offload`` counters.
+
+`run_serving` is the ``serving`` task's body (tasks/serving.py): restore
+the checkpoint into the experiment's model, build the engine, the slot
+grid and the frontend, advertise ``{task}/serving_endpoint`` through the
+KV store and serve until the preemption notice or ``serve_seconds``.
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import socket
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -110,14 +120,16 @@ class ServingServer:
     connection, so a slow streaming client never blocks admissions."""
 
     def __init__(self, scheduler: SlotScheduler, host: str = "127.0.0.1",
-                 port: int = 0, *, slo_evaluator=None):
+                 port: int = 0, *, slo_evaluator=None, prefill_client=None):
         self._httpd = ThreadingHTTPServer(
-            (host, port), _make_handler(scheduler, slo_evaluator))
+            (host, port),
+            _make_handler(scheduler, slo_evaluator, prefill_client))
         self._httpd.daemon_threads = True
         self._lifecycle = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self.scheduler = scheduler
         self.slo_evaluator = slo_evaluator
+        self.prefill_client = prefill_client
 
     @property
     def port(self) -> int:
@@ -147,7 +159,8 @@ class ServingServer:
         self._httpd.server_close()
 
 
-def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
+def _make_handler(scheduler: SlotScheduler, slo_evaluator=None,
+                  prefill_client=None):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -210,6 +223,8 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
                 }
                 if slo_evaluator is not None:
                     payload["slo"] = slo_evaluator.report()
+                if prefill_client is not None:
+                    payload["prefill_offload"] = prefill_client.stats()
                 self._json(200, payload)
             elif self.path == "/metrics":
                 body = telemetry.render_prometheus().encode()
@@ -267,6 +282,12 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
                     f"context limit ({limit})")})
                 return
             timeout_s = body.get("timeout_s")
+            # Two-stage dispatch: the prompt's blocks come from the
+            # prefill tier before the submit, so admission's prefix hit
+            # skips the shipped span. Never raises: every failure
+            # prefills locally.
+            if prefill_client is not None:
+                prefill_client.maybe_ship(prompt)
             trace_id = self.headers.get("X-Request-Id") or None
             try:
                 with telemetry.span("serving/submit", request_id=trace_id,
@@ -325,3 +346,147 @@ def _make_handler(scheduler: SlotScheduler, slo_evaluator=None):
             }, headers=((("X-Request-Id", trace_id),) if trace_id else ()))
 
     return Handler
+
+
+def _routable_host() -> str:
+    """This machine's address as other hosts see it: the source address
+    of a UDP socket connected to a public address (no packet is sent),
+    or the FQDN where there is no route."""
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.connect(("8.8.8.8", 80))
+            return sock.getsockname()[0]
+    except OSError:
+        return socket.getfqdn()
+
+
+def advertised_endpoint(bind_host: str, port: int) -> str:
+    """The address peers dial for a frontend bound on `bind_host:port`:
+    a wildcard bind advertises a routable interface instead."""
+    if bind_host in ("0.0.0.0", "", "::"):
+        return f"{_routable_host()}:{port}"
+    return f"{bind_host}:{port}"
+
+
+def task_name(runtime, default: str) -> str:
+    """The telemetry task name of a task body: the runtime's ``task``
+    (``type:id``), or `default` in process."""
+    if runtime is None:
+        return default
+    return getattr(runtime, "task",
+                   f"{runtime.task_key.type}:{runtime.task_key.id}")
+
+
+def serve_until_stopped(name: str, serve_seconds: Optional[float], drain,
+                        poll=None) -> None:
+    """The replicas' poll loop: return on the preemption notice (after
+    `drain()`, which `/healthz` reports) or once `serve_seconds` have
+    passed; `poll()` runs every round."""
+    deadline = (time.monotonic() + serve_seconds
+                if serve_seconds is not None else None)
+    while True:
+        if preemption.requested():
+            _logger.info("%s task draining on preemption notice", name)
+            drain()
+            return
+        if deadline is not None and time.monotonic() >= deadline:
+            _logger.info("serve_seconds=%.1f elapsed; shutting down",
+                         serve_seconds)
+            return
+        if poll is not None:
+            poll()
+        time.sleep(0.2)
+
+
+def finish_replica(runtime, telemetry_task: str) -> None:
+    """A replica's way out: the registry to the log and ``{task}/metrics``
+    (in a launched task), and the spans to ``TPU_YARN_TRACE``."""
+    telemetry.flush_metrics(
+        telemetry.get_registry(), kv=getattr(runtime, "kv", None),
+        task=telemetry_task if runtime is not None else None)
+    telemetry.export_trace(telemetry_task)
+
+
+def run_serving(experiment, runtime=None) -> dict:
+    """Task body for a `ServingExperiment` (JAX server.py:420-561):
+    restore -> engine -> scheduler -> frontend -> advertise -> serve.
+    Returns the final stats snapshot (``endpoint``, ``ckpt_step`` and the
+    scheduler's stats).
+
+    The checkpoint is restored into ``experiment.model`` on its device
+    (`inference._restore_params`). With ``prefill_tier`` on the paged
+    layout, a `PrefillClient` pulls long prompts' blocks from the
+    ``prefill`` tier it finds in the run's KV store. The fault-injection
+    hook of the JAX loop (`chaos.on_replica_poll`) waits for
+    resilience/chaos.py (ROADMAP.md Queue 1 item 5.2); the model_dir
+    placement check for remote filesystems waits for fs.py (item 5.4):
+    model_dir is a local path."""
+    from tf_yarn_tpu_torch import event, inference
+    from tf_yarn_tpu_torch.models.decode_engine import get_engine
+
+    telemetry_task = task_name(runtime, "serving")
+    telemetry.enable_env_jsonl(telemetry_task)
+    with telemetry.span("serving/restore_params"):
+        step = inference._restore_params(experiment.model,
+                                         experiment.model_dir, experiment.step)
+    engine = get_engine(experiment.model)
+    scheduler = SlotScheduler(
+        engine,
+        max_slots=experiment.max_slots,
+        temperature=experiment.temperature,
+        top_k=experiment.top_k,
+        top_p=experiment.top_p,
+        queue_capacity=experiment.queue_capacity,
+        retry_after_s=experiment.retry_after_s,
+        kv_layout=experiment.kv_layout,
+        block_size=experiment.block_size,
+        num_blocks=experiment.num_blocks,
+        prefix_cache_capacity=experiment.prefix_cache_capacity,
+        spec_k=experiment.spec_k,
+        spec_draft=experiment.spec_draft,
+        decode_attention=experiment.decode_attention,
+        prefill_chunk=experiment.prefill_chunk,
+        prefill_budget_per_tick=experiment.prefill_budget_per_tick,
+        kv_host_blocks=experiment.kv_host_blocks,
+        tier_caps=experiment.tier_caps,
+    )
+    slo_evaluator = None
+    if experiment.slo:
+        slo_evaluator = telemetry.SloEvaluator(
+            telemetry.parse_slo(experiment.slo))
+    prefill_client = None
+    if experiment.prefill_tier is not None \
+            and experiment.kv_layout == "paged":
+        from tf_yarn_tpu_torch.serving.prefill import (
+            PrefillClient,
+            parse_prefill_tier,
+        )
+
+        prefill_client = PrefillClient(
+            parse_prefill_tier(experiment.prefill_tier), scheduler,
+            block_size=experiment.block_size,
+            kv=getattr(runtime, "kv", None))
+    server = ServingServer(scheduler, experiment.host, experiment.port,
+                           slo_evaluator=slo_evaluator,
+                           prefill_client=prefill_client)
+    scheduler.start()
+    endpoint = server.start()
+    advertised = advertised_endpoint(experiment.host, server.port)
+    if runtime is not None:
+        event.serving_endpoint_event(runtime.kv, runtime.task, advertised)
+    _logger.info(
+        "serving ckpt-%d on %s (advertised %s): max_slots=%d, queue=%d",
+        step, endpoint, advertised, experiment.max_slots,
+        experiment.queue_capacity)
+    try:
+        serve_until_stopped(
+            "serving", experiment.serve_seconds, scheduler.drain,
+            poll=slo_evaluator.maybe_evaluate if slo_evaluator else None)
+    finally:
+        server.stop()
+        scheduler.close()
+        stats = {"endpoint": advertised, "ckpt_step": step,
+                 **scheduler.stats()}
+        _logger.info("serving done: %s", stats)
+        finish_replica(runtime, telemetry_task)
+    return stats

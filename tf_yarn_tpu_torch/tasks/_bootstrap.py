@@ -3,6 +3,8 @@ tf_yarn_tpu/tasks/_bootstrap.py: connect to the coordination service,
 publish the start-time and log-location events, and on the way out the
 stop event (with the failure's kind and traceback) and the stop time,
 exiting nonzero so the backend's process status agrees with the events.
+`run_replica` is the whole main of the serving, prefill and rank task
+programs.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import logging
 import sys
 from contextlib import contextmanager
-from typing import Iterator, List, NamedTuple, Optional
+from typing import Callable, Iterator, List, NamedTuple, Optional
 
 from tf_yarn_tpu_torch import _task_commons, event
 from tf_yarn_tpu_torch.coordination.kv import KVClient
@@ -53,3 +55,30 @@ def reporting_shutdown(runtime: TaskRuntime) -> Iterator[None]:
         _logger.exception("task %s failed", runtime.task, exc_info=failure)
         sys.exit(1)
 
+
+
+def run_replica(name: str, body: Callable[[TaskRuntime, object], None]) -> None:
+    """Main of a replica's task program (serving, prefill, rank; JAX
+    tasks/{serving,prefill,rank}.py): install the preemption handler
+    (SIGTERM sets the drain flag the body polls), bootstrap, pull the
+    experiment, publish the start event and run ``body(runtime,
+    experiment)`` in a MonitoredThread (so the stop event carries the
+    body's stack) under the task's heartbeat."""
+    from tf_yarn_tpu_torch import preemption, telemetry
+    from tf_yarn_tpu_torch._internal import MonitoredThread
+
+    preemption.install()
+    runtime = init_runtime()
+    with reporting_shutdown(runtime):
+        experiment = _task_commons.get_experiment(runtime.kv)
+        event.start_event(runtime.kv, runtime.task)
+        thread = MonitoredThread(target=body, args=(runtime, experiment),
+                                 name=f"{name}-{runtime.task}")
+        with telemetry.Heartbeat(
+                runtime.kv, runtime.task,
+                every=telemetry.heartbeat.every_from_env(),
+                registry=telemetry.get_registry()):
+            thread.start()
+            thread.join()
+        if thread.exception is not None:
+            raise thread.exception

@@ -9,17 +9,18 @@ own label, which the JAX package's ``NodeLabel.TPU`` replaced
 (tf_yarn_tpu/topologies.py:15). The validators are the JAX package's,
 so the same specs get the same verdict in both packages.
 
-Ported presets: `single_server_topology` and `allreduce_topology`. The
-slice presets (`SLICE_TYPES`, `tpu_slice_topology`) and the serving,
-fleet, ranking and disaggregated ones wait for their task programs
-(ROADMAP.md Queue 1 item 5).
+Ported presets: `single_server_topology`, `allreduce_topology`,
+`serving_topology`, `disaggregated_topology` and `ranking_topology`. The
+slice presets (`SLICE_TYPES`, `tpu_slice_topology`; ROADMAP.md Queue 1
+item 5) and the fleet ones (`fleet_topology`, `mixed_fleet_topology`),
+which need the router (item 6), are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 # Per-host caps (the JAX package's, tf_yarn_tpu/topologies.py:26-28);
 # an HGX H100 host carries 8 GPUs.
@@ -219,5 +220,92 @@ def allreduce_topology(
         specs["evaluator"] = TaskSpec(
             memory_gib=memory_gib, vcores=vcores, instances=1, label=NodeLabel.CPU
         )
+    check_topology(specs)
+    return specs
+
+
+def serving_topology(
+    instances: int = 1,
+    memory_gib: int = 32,
+    vcores: int = 16,
+    chips_per_host: int = 1,
+) -> TaskSpecs:
+    """`instances` independent online-serving replicas, each driving
+    `chips_per_host` local GPUs. Each restores the checkpoint, serves its
+    own slot grid and advertises its endpoint through the KV store."""
+    if instances < 1:
+        raise ValueError(f"instances must be >= 1, got {instances}")
+    specs: TaskSpecs = {
+        "serving": TaskSpec(
+            memory_gib=memory_gib,
+            vcores=vcores,
+            instances=instances,
+            chips_per_host=chips_per_host,
+            label=NodeLabel.GPU if chips_per_host else NodeLabel.CPU,
+        )
+    }
+    check_topology(specs)
+    return specs
+
+
+def disaggregated_topology(
+    n_prefill: int = 1,
+    n_decode: int = 1,
+    memory_gib: int = 32,
+    vcores: int = 16,
+    decode_chips_per_host: int = 1,
+    prefill_chips_per_host: int = 1,
+    prefill_memory_gib: Optional[int] = None,
+) -> TaskSpecs:
+    """Disaggregated serving: `n_prefill` prefill replicas feeding
+    `n_decode` decode replicas over the KV block wire. Prefill replicas
+    advertise ``{task}/prefill_endpoint``; decode replicas find them in
+    the KV store and pull, and with no prefill replica they prefill
+    locally. The two pools size independently."""
+    if n_prefill < 0 or n_decode < 1:
+        raise ValueError(
+            f"need n_decode >= 1 and n_prefill >= 0, got "
+            f"n_prefill={n_prefill}, n_decode={n_decode}"
+        )
+    specs = serving_topology(
+        instances=n_decode,
+        memory_gib=memory_gib,
+        vcores=vcores,
+        chips_per_host=decode_chips_per_host,
+    )
+    if n_prefill:
+        specs["prefill"] = TaskSpec(
+            memory_gib=(prefill_memory_gib if prefill_memory_gib
+                        is not None else memory_gib),
+            vcores=vcores,
+            instances=n_prefill,
+            chips_per_host=prefill_chips_per_host,
+            label=NodeLabel.GPU if prefill_chips_per_host
+            else NodeLabel.CPU,
+        )
+    check_topology(specs)
+    return specs
+
+
+def ranking_topology(
+    instances: int = 1,
+    memory_gib: int = 32,
+    vcores: int = 16,
+    chips_per_host: int = 1,
+) -> TaskSpecs:
+    """`instances` independent online-ranking replicas, each loading the
+    model, ticking its micro-batch loop and advertising a
+    ``rank_endpoint`` through the KV store."""
+    if instances < 1:
+        raise ValueError(f"instances must be >= 1, got {instances}")
+    specs: TaskSpecs = {
+        "rank": TaskSpec(
+            memory_gib=memory_gib,
+            vcores=vcores,
+            instances=instances,
+            chips_per_host=chips_per_host,
+            label=NodeLabel.GPU if chips_per_host else NodeLabel.CPU,
+        )
+    }
     check_topology(specs)
     return specs
