@@ -128,25 +128,37 @@ Phases, each fatal on failure (nonzero exit, no result line):
    trace; (b) the same run with no visible card raises RunFailed carrying
    the port's no-CUDA error; (c) a fn of rank on `tasks.distributed`
    initialises NCCL from its TaskParameters and all_reduces on the card;
-10. fleet slice, the launched serving replicas (`fleet_slice`): (a) phase
+10. fleet slice, the launched serving fleet (`fleet_slice`): (a) phase
    5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
    tokens with 16 new each, one at a time; the weights saved as ckpt-1
-   (timed) and the model freed; (b) `run_on_gpu`
-   of `disaggregated_topology(n_prefill=1, n_decode=1)`, both tasks on
-   the card, the experiment fn sent by name: a ServingExperiment of the
-   same model and grid over ckpt-1 with `prefill_tier=
-   {"offload_threshold": 64}` — the driver logs both endpoints once, the
-   prompts one at a time stream bitwise equal to (a)'s (the 64- and
-   300-token ones shipped: 2 ships, 0 fallbacks), a burst of the three
-   is served to length (TTFT, tokens/s), the decode task launched
-   rmsnorm, quantize and the paged kernel, the prefill task rmsnorm and
-   quantize and no paged kernel, neither rebuilt the kernel library,
-   each task's peak memory and restore seconds (verify, read, copy),
-   and the run ends with both tasks in the Metrics; (c) `run_on_gpu` of
-   `ranking_topology()` with phase 8's ranker from the seeded init: 1-,
-   32- and 256-row POSTs one at a time score within 1e-5 of the driver's
-   `dlrm.make_model(criteo, 0)` on the same rows (and whether bitwise),
-   then phase 8's bursts for rows/s.
+   (timed) and the model freed. Then one `run_on_gpu` of a mixed fleet
+   (`mixed_fleet_topology(nb_serving=2, nb_rank=1)` and a prefill
+   replica): two decode replicas, a prefill replica and a ranking
+   replica on the card and the router on the CPU (its model on the meta
+   device), one experiment fn sent by name for all of them: a
+   ServingExperiment of the same model and grid over ckpt-1 with
+   `prefill_tier={"offload_threshold": 64}` and round robin, or phase
+   8's ranker from the seeded init. The driver logs each endpoint once.
+   (b) On the first decode replica's own endpoint, the prompts one at a
+   time stream bitwise equal to (a)'s (the 64- and 300-token ones
+   shipped: 2 ships, 0 fallbacks) and a burst of the three is served to
+   length (TTFT, tokens/s). (c) On the ranking replica's own endpoint,
+   1-, 32- and 256-row POSTs one at a time score within 1e-5 of the
+   driver's `dlrm.make_model(criteo, 0)` on the same rows (and whether
+   bitwise), then phase 8's bursts for rows/s. (d) Through the router:
+   every replica healthy by kind, the prompts one at a time twice
+   bitwise equal to (a)'s, three routes on each decode replica, a burst
+   served to length (TTFT, tokens/s), the ranking rows scored bitwise as
+   on the replica, the fleet aggregate ok with the merged TTFT count the
+   decode replicas' sum, 404 on an unknown path. (e) The second decode
+   replica drained: ejected, the prompts through the router all on the
+   first with (a)'s streams, one generate replica healthy, a below_min
+   scale event. Then every task drained: the five tasks in the Metrics;
+   the decode tasks launched rmsnorm, quantize and the paged kernel, the
+   prefill task rmsnorm and quantize and no paged kernel, no task rebuilt
+   the kernel library, the router initialised no CUDA; each task's peak
+   memory and restore seconds (verify, read, copy), and the seconds of
+   the launch to the router's endpoint, (d), (e) and the drain.
 
 The run takes 6-9 minutes by how fast the host is (the last line before
 the kernels JSON gives each phase's seconds), inside a 20-minute limit.
@@ -3014,8 +3026,10 @@ def launcher_slice(torch, client, topologies, reference_losses,
     return result
 
 
-# Phase 10: the launched serving fleet. As in phase 9 the experiment fns
-# are module-level and sent by name.
+# Phase 10: the launched serving fleet, one `run_on_gpu` of a mixed fleet on
+# the one card: two decode replicas, a prefill replica, a ranking replica
+# and the CPU router in front of them. As in phase 9 the experiment fn is
+# module-level and sent by name.
 FLEET_PROMPTS = (17, 64, 300)
 FLEET_NEW = 16
 # Prompts of at least this many tokens ship to the prefill replica: here
@@ -3024,8 +3038,24 @@ FLEET_THRESHOLD = 64
 # The fused paged grid of phase 5 (a).
 FLEET_GRID = dict(max_slots=4, block_size=16, kv_layout="paged",
                   decode_attention="fused")
-# An upper bound on each replica's serving time; the driver ends them
-# sooner through FLEET_STOP.
+# The router's knobs: round robin over the decode replicas, a /healthz
+# probe every 0.2 s, and an autoscaler that holds the generate pool at two
+# replicas (no scale-in), so a drained replica is a below_min event. No
+# warm start: phase 5 (g) puts the block wire on the card.
+FLEET_ROUTER = dict(router_host="127.0.0.1", router_policy="round_robin",
+                    router_probe_interval_s=0.2,
+                    autoscale={"generate": {"min_replicas": 2,
+                                            "max_replicas": 2,
+                                            "scale_in_load": None}},
+                    autoscale_warm_start=False)
+# The endpoints the driver logs for the fleet, by label, and the healthy
+# replicas the router counts by kind once all are up.
+FLEET_ENDPOINTS = {"serving endpoint": 2, "prefill endpoint": 1,
+                   "rank endpoint": 1, "router endpoint": 1}
+FLEET_KINDS = {"generate": 2, "prefill": 1, "rank": 1}
+FLEET_TASKS = ["prefill:0", "rank:0", "router:0", "serving:0", "serving:1"]
+# An upper bound on each task's serving time; the driver ends them sooner
+# through FLEET_STOP (all tasks) or FLEET_STOP-<type>-<id> (one task).
 FLEET_SERVE_SECONDS = 600.0
 FLEET_STOP = "stop"
 # The small f32 model of phase 4 with room for a 300-token prompt and 16
@@ -3050,14 +3080,25 @@ def fleet_config(torch, tt, tiny: bool):
                                           kv_cache_dtype="int8")
 
 
+def rank_model_config(dlrm, torch, tiny: bool):
+    """Phase 8's ranker (DLRMConfig.criteo()) or the tiny f32 one."""
+    return (dlrm.DLRMConfig.tiny(dtype=torch.float32) if tiny
+            else dlrm.DLRMConfig.criteo())
+
+
+def stop_file(task: str) -> str:
+    """The file that ends one task of the fleet (FLEET_STOP ends all)."""
+    return f"{FLEET_STOP}-{task.replace(':', '-')}"
+
+
 def _replica_record(out_dir: str, counted):
-    """In a launched replica: stop serving once the driver writes
-    <out_dir>/FLEET_STOP (the preemption notice's drain), and at exit
-    write <out_dir>/fleet_<type>-<id>.json with the launches of the
-    `counted` wrappers in this process, whether it built the kernel
-    library, its peak device memory and its FLEET_SPANS' seconds."""
+    """In a launched task: stop serving once the driver writes
+    <out_dir>/FLEET_STOP or <out_dir>/`stop_file(task)` (the preemption
+    notice's drain), and at exit write <out_dir>/fleet_<type>-<id>.json
+    with the launches of the `counted` wrappers in this process, whether
+    it initialised CUDA, built or loaded the kernel library, its peak
+    device memory and its FLEET_SPANS' seconds."""
     import atexit
-    import os
 
     import torch
 
@@ -3074,21 +3115,23 @@ def _replica_record(out_dir: str, counted):
     telemetry.get_tracer().add_sink(keep)
 
     def record():
-        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        cuda = torch.cuda.is_initialized()
         Path(out_dir, f"fleet_{task.replace(':', '-')}.json").write_text(
             json.dumps({
                 "task": task,
                 "launches": {fn.__name__: fn.launches for fn in counted},
+                "cuda_initialized": cuda,
                 "built_kernels_here": _build.build_seconds is not None,
+                "kernel_library_loaded": _build._library is not None,
                 "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                    if cuda else None),
                 "spans_s": spans}))
 
     atexit.register(record)
-    stop = Path(out_dir) / FLEET_STOP
+    stops = (Path(out_dir) / FLEET_STOP, Path(out_dir) / stop_file(task))
 
     def watch():
-        while not stop.exists():
+        while not any(path.exists() for path in stops):
             time.sleep(0.05)
         preemption.request()
 
@@ -3096,49 +3139,64 @@ def _replica_record(out_dir: str, counted):
     return task
 
 
-def fleet_serving_experiment(model_dir: str, out_dir: str, serving_port: int,
-                             tiny: bool = False):
-    """Phase 10 (b)'s experiment fn, called in the decode (``serving``) and
-    the ``prefill`` task: a ServingExperiment of phase 5's model on the
-    task's device over the checkpoint in `model_dir`, grid (a) (4 slots,
-    blocks of 16, paged, fused), with a prefill tier that takes prompts
-    of FLEET_THRESHOLD tokens and more. The decode replica listens on
-    `serving_port`, the prefill replica on a free port it advertises."""
+def fleet_experiment(model_dir: str, out_dir: str, serving_port: int,
+                     tiny: bool = False):
+    """Phase 10's experiment fn, called in every task of the fleet; it
+    branches on the task's type. ``rank``: phase 8's ranker on the task's
+    device from the seeded init (seed 0, no checkpoint), max_batch 256,
+    max_wait_ms 2. The others (``serving``, ``prefill``, ``router``): a
+    ServingExperiment of phase 5's model on the task's device (the meta
+    device in the router, which builds shapes only) over the checkpoint
+    in `model_dir`, grid (a) (4 slots, blocks of 16, paged, fused), a
+    prefill tier that takes prompts of FLEET_THRESHOLD tokens and more,
+    and the router's FLEET_ROUTER knobs. ``serving:0`` listens on
+    `serving_port`; every other task on a free port it advertises."""
     import torch
 
+    from tf_yarn_tpu_torch import constants
     from tf_yarn_tpu_torch._device import task_device
-    from tf_yarn_tpu_torch.experiment import ServingExperiment
-    from tf_yarn_tpu_torch.models import transformer as tt
-    from tf_yarn_tpu_torch.ops import decode_attention, quantize, rmsnorm
+    from tf_yarn_tpu_torch.experiment import (
+        RankingExperiment,
+        ServingExperiment,
+    )
 
-    task = _replica_record(out_dir, (
-        rmsnorm.rmsnorm, quantize.quantize_int8,
-        decode_attention.paged_int8_window_attention))
+    task = os.environ[constants.ENV_TASK_KEY]
+    if task.startswith("rank:"):
+        from tf_yarn_tpu_torch.models import dlrm
+
+        _replica_record(out_dir, ())
+        return RankingExperiment(
+            dlrm.DLRM(rank_model_config(dlrm, torch, tiny),
+                      device=task_device()),
+            model_dir=None, init_seed=SEED, max_batch=RANK_MAX_BATCH,
+            max_wait_ms=2.0, host="127.0.0.1",
+            serve_seconds=FLEET_SERVE_SECONDS)
+    from tf_yarn_tpu_torch.models import transformer as tt
+
+    counted = ()
+    if not task.startswith("router:"):
+        from tf_yarn_tpu_torch.ops import decode_attention, quantize, rmsnorm
+
+        counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
+                   decode_attention.paged_int8_window_attention)
+    _replica_record(out_dir, counted)
     return ServingExperiment(
         tt.Transformer(fleet_config(torch, tt, tiny), device=task_device()),
         model_dir, host="127.0.0.1",
-        port=serving_port if task.startswith("serving:") else 0,
+        port=serving_port if task == "serving:0" else 0,
         prefill_tier={"offload_threshold": FLEET_THRESHOLD},
-        serve_seconds=FLEET_SERVE_SECONDS, **FLEET_GRID)
+        serve_seconds=FLEET_SERVE_SECONDS, **FLEET_GRID, **FLEET_ROUTER)
 
 
-def fleet_rank_experiment(out_dir: str, rank_port: int, tiny: bool = False):
-    """Phase 10 (c)'s experiment fn: phase 8's ranker (DLRMConfig.criteo(),
-    or the tiny f32 one) on the task's device from the seeded init (seed
-    0, no checkpoint), max_batch 256, max_wait_ms 2, on `rank_port`."""
-    import torch
-
-    from tf_yarn_tpu_torch._device import task_device
-    from tf_yarn_tpu_torch.experiment import RankingExperiment
-    from tf_yarn_tpu_torch.models import dlrm
-
-    _replica_record(out_dir, ())
-    cfg = (dlrm.DLRMConfig.tiny(dtype=torch.float32) if tiny
-           else dlrm.DLRMConfig.criteo())
-    return RankingExperiment(
-        dlrm.DLRM(cfg, device=task_device()), model_dir=None, init_seed=SEED,
-        max_batch=RANK_MAX_BATCH, max_wait_ms=2.0, host="127.0.0.1",
-        port=rank_port, serve_seconds=FLEET_SERVE_SECONDS)
+def mixed_fleet(topologies):
+    """Phase 10's topology: `mixed_fleet_topology(nb_serving=2,
+    nb_rank=1)` (two decode replicas, a ranking replica, the CPU router)
+    and `disaggregated_topology`'s prefill replica."""
+    specs = topologies.mixed_fleet_topology(nb_serving=2, nb_rank=1)
+    specs["prefill"] = topologies.disaggregated_topology(
+        n_prefill=1, n_decode=1)["prefill"]
+    topologies.check_topology(specs)
+    return specs
 
 
 def free_port() -> int:
@@ -3184,6 +3242,16 @@ class endpoint_log:
         return min(at for at, line in self.lines
                    if line.startswith(label + " "))
 
+    def port(self, label: str, exclude=()) -> int:
+        """The port of the one endpoint logged under `label` that is not
+        in `exclude`."""
+        found = [int(endpoint.rsplit(":", 1)[1])
+                 for endpoint in self.endpoints(label)]
+        found = [port for port in found if port not in exclude]
+        if len(found) != 1:
+            raise AssertionError(f"{label}: {self.endpoints(label)}")
+        return found[0]
+
 
 def launch_in_background(client, *args, **kwargs):
     """`client.run_on_gpu(*args, **kwargs)` on a thread; returns the thread
@@ -3202,10 +3270,10 @@ def launch_in_background(client, *args, **kwargs):
     return thread, outcome
 
 
-def task_log_tails(lines: int = 40, runs: int = 2) -> str:
+def task_log_tails(lines: int = 40, runs: int = 1) -> str:
     """The last `lines` lines of each task log of the newest `runs`
     `run_on_gpu` runs (their log directories under the temporary
-    directory): phase 10 has two runs up at once."""
+    directory)."""
     import glob
     import tempfile
 
@@ -3221,38 +3289,72 @@ def task_log_tails(lines: int = 40, runs: int = 2) -> str:
     return "\n".join(tails)
 
 
-def wait_for_endpoints(log, labels, thread, outcome, timeout_s=300.0):
-    """Wait until the driver has logged an endpoint for each label; raise
-    if the run ends first or a label is still missing after `timeout_s`
-    (its task may have failed while another serves on), with the tasks'
-    log tails."""
+def wait_for_endpoints(log, counts, thread, outcome, timeout_s=300.0):
+    """Wait until the driver has logged `counts[label]` endpoints for each
+    label; raise if the run ends first or one is still missing after
+    `timeout_s` (its task may have failed while another serves on), with
+    the tasks' log tails."""
+    def missing():
+        return {label: n - len(log.endpoints(label))
+                for label, n in counts.items()
+                if len(log.endpoints(label)) < n}
+
     deadline = time.monotonic() + timeout_s
-    while not all(log.endpoints(label) for label in labels):
+    while missing():
         if not thread.is_alive():
             raise AssertionError(f"the run ended before its endpoints were "
-                                 f"logged: {outcome}")
+                                 f"logged: {outcome}\n{task_log_tails()}")
         if time.monotonic() > deadline:
-            missing = [label for label in labels if not log.endpoints(label)]
-            raise AssertionError(f"no endpoint logged for {missing} in "
-                                 f"{timeout_s:.0f} s\n{task_log_tails()}")
+            raise AssertionError(f"endpoints still missing after "
+                                 f"{timeout_s:.0f} s: {missing()}\n"
+                                 f"{task_log_tails()}")
         time.sleep(0.05)
 
 
+def poll_until(read, done, what: str, timeout_s: float = 120.0):
+    """`read()` every 0.1 s until `done(value)`; returns the value, or
+    raises with the last one after `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = read()
+        if done(value):
+            return value
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}: {value}")
+        time.sleep(0.1)
+
+
 def drain_replicas(out_dir, thread, timeout_s=300.0) -> None:
-    """Ask the replicas launched into `out_dir` to drain (FLEET_STOP) and
+    """Ask the tasks launched into `out_dir` to drain (FLEET_STOP) and
     wait up to `timeout_s` for their run to end."""
     (Path(out_dir) / FLEET_STOP).write_text("")
     thread.join(timeout=timeout_s)
 
 
 def stop_replicas(out_dir, thread, outcome, timeout_s=300.0):
-    """Drain the launched replicas and return the run's Metrics."""
+    """Drain the launched tasks and return the run's Metrics."""
     drain_replicas(out_dir, thread, timeout_s)
     if thread.is_alive():
         raise AssertionError("the launched replicas did not stop")
     if "error" in outcome:
         raise outcome["error"]
     return outcome["metrics"]
+
+
+def call(port: int, method: str, path: str, body=None):
+    """One request, any status: (status, headers, parsed JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        reply = conn.getresponse()
+        return reply.status, dict(reply.getheaders()), json.loads(
+            reply.read() or b"{}")
+    finally:
+        conn.close()
 
 
 def serve_one_at_a_time(port: int, prompts, new_tokens: int):
@@ -3303,6 +3405,12 @@ def fleet_reference(torch, tt, engine_mod, sched_mod, server_mod, ckpt, dev,
     }
 
 
+def fleet_prompts(torch, cfg):
+    gen = torch.Generator().manual_seed(SEED + 10)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in FLEET_PROMPTS]
+
+
 def _records(out_dir: Path) -> dict:
     return {json.loads(path.read_text())["task"]: json.loads(path.read_text())
             for path in sorted(out_dir.glob("fleet_*.json"))}
@@ -3310,174 +3418,163 @@ def _records(out_dir: Path) -> dict:
 
 def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
                 topologies, dlrm, dev, tiny=False, env=None):
-    """Phase 10: `fleet_serving` ((a) and (b)) and the ranking replica
-    (c), launched as (b) starts so that it comes up while (b)'s replicas
-    restore, and queried once they have stopped. `env` adds to the
-    tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu)."""
+    """Phase 10. (a) `fleet_reference`. Then one `run_on_gpu(mixed_fleet)`
+    of `fleet_experiment` over (a)'s checkpoint: ``serving:0`` and
+    ``serving:1`` (decode), ``prefill:0``, ``rank:0`` and the CPU
+    ``router:0``; the driver logs each endpoint once.
+
+    (b) On ``serving:0``'s own endpoint, `fleet_decode`: the prompts one
+    at a time stream bitwise equal to (a)'s (the 64- and 300-token ones
+    shipped to the prefill replica: 2 ships, 0 fallbacks), and a burst of
+    the three is served to length. (c) On ``rank:0``'s own endpoint,
+    `fleet_rank`. (d) Through the router, `fleet_routed`. (e) `serving:1`
+    drained, `fleet_failover`. Then every task drained: the run ends with
+    the five tasks in the Metrics; on the card the decode tasks launched
+    rmsnorm, quantize and the paged kernel, the prefill task rmsnorm and
+    quantize and no paged kernel; no task rebuilt the kernel library; the
+    router neither initialised CUDA nor loaded the library; each task's
+    peak memory and restore seconds; the seconds of each part. `env` adds
+    to the tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu)."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp, endpoint_log() as rank_log:
+    cfg = fleet_config(torch, tt, tiny)
+    prompts = fleet_prompts(torch, cfg)
+    result, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        launched = {}
-
-        def launch_ranker():
-            launched.update(start_ranking(client, topologies, tmp, tiny, env))
-
-        try:
-            result = fleet_serving(torch, tt, engine_mod, sched_mod,
-                                   server_mod, ckpt, client, topologies, dev,
-                                   tmp, tiny, env, before_launch=launch_ranker)
-            result["c_ranking"] = finish_ranking(torch, dlrm, dev, launched,
-                                                 rank_log, tiny)
-        except BaseException:
-            # A failed phase leaves no replica running.
-            if launched:
-                drain_replicas(launched["out_dir"], launched["thread"], 120.0)
-            raise
+        model_dir, out_dir = tmp / "model", tmp / "out"
+        out_dir.mkdir()
+        started = time.perf_counter()
+        reference = fleet_reference(torch, tt, engine_mod, sched_mod,
+                                    server_mod, ckpt, dev, prompts,
+                                    str(model_dir), tiny)
+        result["a_in_process"] = dict(reference,
+                                      wall_s=time.perf_counter() - started)
+        if dev.type == "cuda":
+            used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip()
+            print(f"phase 10 launches with the driver holding "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                  f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); "
+                  f"card memory used {used}", flush=True)
+        port = free_port()
+        started = time.perf_counter()
+        with endpoint_log() as log:
+            thread, outcome = launch_in_background(
+                client, client.get_safe_experiment_fn(
+                    "chip_smoke.fleet_experiment", str(model_dir),
+                    str(out_dir), port, tiny),
+                mixed_fleet(topologies),
+                env=dict({"PYTHONPATH": str(REPO)}, **(env or {})),
+                poll_every_secs=0.5, dead_task_secs=300,
+                timeout_secs=FLEET_SERVE_SECONDS + 300)
+            try:
+                wait_for_endpoints(log, FLEET_ENDPOINTS, thread, outcome)
+                seconds["launch_to_router_endpoint"] = (
+                    log.logged_at("router endpoint") - started)
+                seconds["launch_to_all_endpoints"] = (
+                    time.perf_counter() - started)
+                ports = {
+                    "serving:0": port,
+                    "serving:1": log.port("serving endpoint", (port,)),
+                    "rank:0": log.port("rank endpoint"),
+                    "router:0": log.port("router endpoint")}
+                result["b_launched"] = fleet_decode(
+                    ports["serving:0"], prompts, reference["streams"])
+                result["c_ranking"] = fleet_rank(
+                    torch, dlrm, dev, ports["rank:0"], tiny)
+                part = time.perf_counter()
+                result["d_routed"] = fleet_routed(
+                    ports, prompts, reference["streams"],
+                    result["c_ranking"].pop("scores"),
+                    rank_model_config(dlrm, torch, tiny))
+                seconds["d_routed"] = time.perf_counter() - part
+                part = time.perf_counter()
+                result["e_failover"] = fleet_failover(
+                    ports, out_dir, prompts, reference["streams"])
+                seconds["e_failover"] = time.perf_counter() - part
+            except BaseException:
+                # A failed phase leaves no task running.
+                drain_replicas(out_dir, thread, 120.0)
+                raise
+            part = time.perf_counter()
+            metrics = stop_replicas(out_dir, thread, outcome)
+            seconds["drain"] = time.perf_counter() - part
+            endpoints = {label: log.endpoints(label)
+                         for label in FLEET_ENDPOINTS}
+        seconds["launched_run"] = time.perf_counter() - started
+        records = _records(out_dir)
+    if {label: len(found) for label, found in endpoints.items()} \
+            != FLEET_ENDPOINTS \
+            or f"127.0.0.1:{port}" not in endpoints["serving endpoint"]:
+        raise AssertionError(f"the driver logged {endpoints}")
+    if sorted(metrics.container_duration) != FLEET_TASKS \
+            or sorted(records) != FLEET_TASKS:
+        raise AssertionError(f"metrics {metrics}, records {sorted(records)}")
+    paged = "paged_int8_window_attention"
+    decode = [records["serving:0"], records["serving:1"]]
+    prefill, router = records["prefill:0"], records["router:0"]
+    # (On the CPU the wrappers run their plain versions and count
+    # nothing.)
+    if dev.type == "cuda" and (
+            min(min(task["launches"].values()) for task in decode) <= 0
+            or prefill["launches"][paged] != 0
+            or min(prefill["launches"]["rmsnorm"],
+                   prefill["launches"]["quantize_int8"]) <= 0):
+        raise AssertionError(f"launches: decode {decode}, prefill {prefill}")
+    if any(task["built_kernels_here"] for task in records.values()):
+        raise AssertionError("a launched task rebuilt the kernels")
+    if router["cuda_initialized"] or router["kernel_library_loaded"]:
+        raise AssertionError(f"the router touched the card: {router}")
+    result["b_launched"].update({
+        "endpoints": endpoints,
+        "container_duration_s": metrics.container_duration,
+        "decode_task": records["serving:0"],
+        "serving_1_task": records["serving:1"],
+        "prefill_task": prefill})
+    result["c_ranking"]["task"] = records["rank:0"]
+    result["d_routed"]["router_task"] = router
+    result["seconds"] = seconds
     return result
 
 
-def fleet_serving(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
-                  topologies, dev, tmp: Path, tiny=False, env=None,
-                  before_launch=None):
-    """Phase 10 (a) `fleet_reference`, and (b)
-    `run_on_gpu(disaggregated_topology(n_prefill=1, n_decode=1))` with
-    `fleet_serving_experiment` over (a)'s checkpoint in `tmp`: the driver
-    logs each endpoint once; the prompts one at a time stream equal to
-    (a)'s (the 17-token one prefilled locally, the others shipped: 2
-    ships, 0 fallbacks); a burst of the three served to length; on the
-    card the decode task launched rmsnorm, quantize and the paged kernel,
-    the prefill task rmsnorm and quantize and not the paged kernel;
-    neither task rebuilt the kernel library; each task's peak memory and
-    restore seconds; the run ends with both tasks in the Metrics.
-    `before_launch()` runs just before (b) is launched."""
-    cfg = fleet_config(torch, tt, tiny)
-    gen = torch.Generator().manual_seed(SEED + 10)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in FLEET_PROMPTS]
-    run_env = dict({"PYTHONPATH": str(REPO)}, **(env or {}))
-    model_dir, out_dir = tmp / "model", tmp / "out"
-    out_dir.mkdir()
-    result = {}
+def fleet_decode(port: int, prompts, streams) -> dict:
+    """Phase 10 (b) on ``serving:0``'s own endpoint."""
     started = time.perf_counter()
-    reference = fleet_reference(torch, tt, engine_mod, sched_mod, server_mod,
-                                ckpt, dev, prompts, str(model_dir), tiny)
-    result["a_in_process"] = dict(reference,
-                                  wall_s=time.perf_counter() - started)
-
-    port = free_port()
-    if dev.type == "cuda":
-        used = subprocess.run(
-            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
-            capture_output=True, text=True).stdout.strip()
-        print(f"phase 10 (b) launches with the driver holding "
-              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
-              f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); card "
-              f"memory used {used}", flush=True)
-    if before_launch is not None:
-        before_launch()
-    started = time.perf_counter()
-    with endpoint_log() as log:
-        thread, outcome = launch_in_background(
-            client, client.get_safe_experiment_fn(
-                "chip_smoke.fleet_serving_experiment", str(model_dir),
-                str(out_dir), port, tiny),
-            topologies.disaggregated_topology(n_prefill=1, n_decode=1),
-            env=run_env, poll_every_secs=0.5, dead_task_secs=300,
-            timeout_secs=FLEET_SERVE_SECONDS + 300)
-        try:
-            wait_for_endpoints(log, ("serving endpoint", "prefill endpoint"),
-                               thread, outcome)
-            ready_s = time.perf_counter() - started
-            replies = serve_one_at_a_time(port, prompts, FLEET_NEW)
-            offload = get(port, "/stats")[1]["prefill_offload"]
-            results, wall = burst(port, prompts, FLEET_NEW)
-            for status, body in results:
-                if status != 200 or len(body["tokens"]) != FLEET_NEW:
-                    raise AssertionError(f"bad burst reply {status}: {body}")
-            stats = get(port, "/stats")[1]
-        except BaseException:
-            drain_replicas(out_dir, thread, 120.0)
-            raise
-        metrics = stop_replicas(out_dir, thread, outcome)
-        endpoints = {label: log.endpoints(label) for label in
-                     ("serving endpoint", "prefill endpoint")}
-    wall_b = time.perf_counter() - started
-    streams = [body["tokens"] for body in replies]
-    if streams != reference["streams"]:
-        raise AssertionError(f"launched streams {streams} != in-process "
-                             f"{reference['streams']}")
+    replies = serve_one_at_a_time(port, prompts, FLEET_NEW)
+    offload = get(port, "/stats")[1]["prefill_offload"]
+    results, wall = burst(port, prompts, FLEET_NEW)
+    for status, body in results:
+        if status != 200 or len(body["tokens"]) != FLEET_NEW:
+            raise AssertionError(f"bad burst reply {status}: {body}")
+    got = [body["tokens"] for body in replies]
+    if got != streams:
+        raise AssertionError(f"launched streams {got} != in-process "
+                             f"{streams}")
     if offload["ships"] != 2 or offload["local_fallbacks"] != 0:
         raise AssertionError(f"prefill_offload {offload}")
-    if endpoints["serving endpoint"] != [f"127.0.0.1:{port}"] \
-            or len(endpoints["prefill endpoint"]) != 1:
-        raise AssertionError(f"the driver logged {endpoints}")
-    if sorted(metrics.container_duration) != ["prefill:0", "serving:0"]:
-        raise AssertionError(f"metrics {metrics}")
-    records = _records(out_dir)
-    decode, prefill = records["serving:0"], records["prefill:0"]
-    paged = "paged_int8_window_attention"
-    # (On the CPU the wrappers run their plain versions and count
-    # nothing.)
-    if dev.type == "cuda" and (min(decode["launches"].values()) <= 0
-                               or prefill["launches"][paged] != 0
-                               or min(prefill["launches"]["rmsnorm"],
-                                      prefill["launches"]["quantize_int8"])
-                               <= 0):
-        raise AssertionError(f"launches: decode {decode['launches']}, "
-                             f"prefill {prefill['launches']}")
-    if decode["built_kernels_here"] or prefill["built_kernels_here"]:
-        raise AssertionError("a launched replica rebuilt the kernels")
-    result["b_launched"] = {
-        "ready_s": ready_s, "wall_s": wall_b,
-        "streams_equal_in_process": True, "streams": streams,
+    return {
+        "wall_s": time.perf_counter() - started,
+        "streams_equal_in_process": True, "streams": got,
         "ttft_s": [body["ttft_s"] for body in replies],
         "prefill_offload": offload,
         "burst": {"wall_s": wall,
                   "tokens_per_s": FLEET_NEW * len(prompts) / wall,
                   "ttft_s": [body["ttft_s"] for _st, body in results]},
-        "ticks": stats["ticks"], "endpoints": endpoints,
-        "container_duration_s": metrics.container_duration,
-        "decode_task": decode, "prefill_task": prefill,
-    }
-    return result
+        "ticks": get(port, "/stats")[1]["ticks"]}
 
 
-def start_ranking(client, topologies, tmp: Path, tiny=False, env=None):
-    """Launch phase 10 (c)'s ranking replica (`run_on_gpu(
-    ranking_topology())` with `fleet_rank_experiment`) in the background;
-    returns what `finish_ranking` reads."""
-    out_dir = tmp / "rank"
-    out_dir.mkdir()
-    port = free_port()
-    started = time.perf_counter()
-    thread, outcome = launch_in_background(
-        client, client.get_safe_experiment_fn(
-            "chip_smoke.fleet_rank_experiment", str(out_dir), port, tiny),
-        topologies.ranking_topology(),
-        env=dict({"PYTHONPATH": str(REPO)}, **(env or {})),
-        poll_every_secs=0.5, dead_task_secs=300,
-        timeout_secs=FLEET_SERVE_SECONDS + 300)
-    return {"thread": thread, "outcome": outcome, "port": port,
-            "out_dir": out_dir, "started": started}
-
-
-def finish_ranking(torch, dlrm, dev, launched, log, tiny=False):
-    """Phase 10 (c) on the replica `start_ranking` launched, `log` the
-    driver's endpoint log since before its launch: 1-, 32- and 256-row
-    POSTs one at a time give the scores of `dlrm.make_model(cfg, 0)` in
-    the driver on the same rows (FLEET_RANK_TOL; and whether bitwise),
-    then phase 8's bursts their rows/s; the driver logs the endpoint
-    once and the run ends with the task in the Metrics."""
-    thread, outcome = launched["thread"], launched["outcome"]
-    port = launched["port"]
-    cfg = (dlrm.DLRMConfig.tiny(dtype=torch.float32) if tiny
-           else dlrm.DLRMConfig.criteo())
-    wait_for_endpoints(log, ("rank endpoint",), thread, outcome)
-    ready_s = log.logged_at("rank endpoint") - launched["started"]
+def fleet_rank(torch, dlrm, dev, port: int, tiny=False) -> dict:
+    """Phase 10 (c) on ``rank:0``'s own endpoint: 1-, 32- and 256-row
+    POSTs one at a time score within FLEET_RANK_TOL of
+    `dlrm.make_model(cfg, 0)` in the driver on the same rows (and whether
+    bitwise), then phase 8's bursts for rows/s."""
+    cfg = rank_model_config(dlrm, torch, tiny)
     started = time.perf_counter()
     model = dlrm.make_model(cfg, seed=SEED, device=dev)
-    errors, bitwise = {}, True
+    errors, bitwise, scores = {}, True, {}
     for i, (rows, _requests) in enumerate(RANK_BURSTS):
         bodies, cat, dense = rank_bodies(cfg, (rows,), seed=300 + i)
         status, body = post(port, bodies[0], "/v1/rank")
@@ -3490,6 +3587,7 @@ def finish_ranking(torch, dlrm, dev, launched, log, tiny=False):
             raise AssertionError(f"/v1/rank {status}: {body}")
         errors[rows] = float((got - ref).abs().max())
         bitwise = bitwise and torch.equal(got, ref)
+        scores[rows] = body["scores"]
     del model
     bursts = {}
     for i, (rows, requests) in enumerate(RANK_BURSTS):
@@ -3500,28 +3598,154 @@ def finish_ranking(torch, dlrm, dev, launched, log, tiny=False):
         wall = time.perf_counter() - begun
         bursts[rows] = {"requests": requests, "wall_s": wall,
                         "rows_per_s": rows * requests / wall}
-    metrics = stop_replicas(launched["out_dir"], thread, outcome)
-    endpoints = log.endpoints("rank endpoint")
     if max(errors.values()) > FLEET_RANK_TOL:
         raise AssertionError(f"served scores against the driver's forward: "
                              f"{errors}")
-    if endpoints != [f"127.0.0.1:{port}"] \
-            or list(metrics.container_duration) != ["rank:0"]:
-        raise AssertionError(f"rank run: {endpoints} {metrics}")
-    return {"ready_s": ready_s,
-            "serving_wall_s": time.perf_counter() - started,
+    return {"wall_s": time.perf_counter() - started,
             "max_abs_err": errors, "bitwise_equal": bitwise,
-            "bursts": bursts, "endpoints": endpoints,
-            "task": _records(launched["out_dir"])["rank:0"]}
+            "bursts": bursts, "scores": scores}
 
 
-def fleet_ranking(torch, client, topologies, dlrm, dev, tmp: Path,
-                  tiny=False, env=None):
-    """Phase 10 (c) alone: `start_ranking`, then `finish_ranking`."""
-    with endpoint_log() as log:
-        return finish_ranking(
-            torch, dlrm, dev, start_ranking(client, topologies, tmp, tiny, env),
-            log, tiny)
+def signal_count(port: int, key: str) -> int:
+    """The count of histogram `key` in a server's /stats signals."""
+    signal = get(port, "/stats")[1]["signals"]["histograms"].get(key)
+    return 0 if signal is None else signal["count"]
+
+
+def fleet_routed(ports, prompts, streams, scores, rank_cfg) -> dict:
+    """Phase 10 (d) through the router: its /healthz counts the healthy
+    replicas by kind (FLEET_KINDS); the prompts one at a time, twice,
+    stream bitwise equal to (a)'s, three ok routes on each decode replica
+    under round robin; a burst of the three served to length (TTFT,
+    tokens/s); the ranking sizes of (c) score bitwise as POSTed to
+    ``rank:0`` directly (`scores`, by rows); the router's fleet aggregate is ok with no stale
+    replica, its merged ``serving/ttft_seconds`` count the sum of the
+    decode replicas' own; an unknown path is a 404."""
+    router = ports["router:0"]
+    started = time.perf_counter()
+    health = poll_until(lambda: get(router, "/healthz")[1],
+                        lambda h: h["healthy_by_kind"] == FLEET_KINDS,
+                        "every replica healthy at the router", 300.0)
+    ready_s = time.perf_counter() - started
+    replies = [serve_one_at_a_time(router, prompts, FLEET_NEW)
+               for _ in range(2)]
+    got = [[body["tokens"] for body in run] for run in replies]
+    if got != [streams, streams]:
+        raise AssertionError(f"routed streams {got} != in-process {streams}")
+    routed = get(router, "/stats")[1]["routed_requests"]
+    if {task: routed.get(task) for task in ("serving:0", "serving:1")} \
+            != {"serving:0": {"ok": 3}, "serving:1": {"ok": 3}}:
+        raise AssertionError(f"round robin routed {routed}")
+    results, wall = burst(router, prompts, FLEET_NEW)
+    for status, body in results:
+        if status != 200 or len(body["tokens"]) != FLEET_NEW:
+            raise AssertionError(f"bad routed burst reply {status}: {body}")
+    rank_equal = {}
+    for i, (rows, _requests) in enumerate(RANK_BURSTS):
+        bodies, _cat, _dense = rank_bodies(rank_cfg, (rows,), seed=300 + i)
+        status, body = post(router, bodies[0], "/v1/rank")
+        rank_equal[rows] = status == 200 and body["scores"] == scores[rows]
+    if not all(rank_equal.values()):
+        raise AssertionError(f"routed scores against rank:0's: {rank_equal}")
+    aggregate, counts = fleet_aggregate(ports)
+    unknown = call(router, "POST", "/v1/unknown", {})[0]
+    if unknown != 404:
+        raise AssertionError(f"an unknown path at the router: {unknown}")
+    stats = get(router, "/stats")[1]
+    return {"healthy_by_kind": health["healthy_by_kind"],
+            "ready_s": ready_s, "streams_equal_in_process": True,
+            "ttft_s": [[body["ttft_s"] for body in run] for run in replies],
+            "routed_one_at_a_time": routed,
+            "burst": {"wall_s": wall,
+                      "tokens_per_s": FLEET_NEW * len(prompts) / wall,
+                      "ttft_s": [body["ttft_s"] for _st, body in results]},
+            "rank_scores_equal_direct": rank_equal,
+            "fleet": {"status": aggregate["status"],
+                      "stale_replicas": aggregate["stale_replicas"],
+                      "contributing_replicas":
+                          aggregate["contributing_replicas"],
+                      "ttft": aggregate["histograms"]["serving/ttft_seconds"],
+                      "replica_ttft_counts": counts},
+            "unknown_path_status": unknown,
+            "routed_requests": stats["routed_requests"],
+            "scale_events": stats["autoscaler"]["scale_events"]}
+
+
+def fleet_aggregate(ports, attempts: int = 20):
+    """The router's fleet aggregate from a monitor cycle that began after
+    the decode replicas' own ``serving/ttft_seconds`` counts were read,
+    with those counts unchanged after it: its status ok, no stale replica
+    and the merged count their sum. Retried while a window's slice
+    expires between the reads."""
+    key = "serving/ttft_seconds"
+    router = ports["router:0"]
+    for _ in range(attempts):
+        counts = {task: signal_count(ports[task], key)
+                  for task in ("serving:0", "serving:1")}
+        cycle = get(router, "/stats")[1]["fleet"].get("cycle", 0)
+        fleet = poll_until(lambda: get(router, "/stats")[1]["fleet"],
+                           lambda f: f.get("cycle", 0) >= cycle + 2,
+                           "two monitor cycles", 60.0)
+        after = {task: signal_count(ports[task], key)
+                 for task in ("serving:0", "serving:1")}
+        if after == counts:
+            break
+    else:
+        raise AssertionError(f"the decode replicas' {key} counts kept "
+                             f"moving: {counts} -> {after}")
+    merged = (fleet.get("histograms") or {}).get(key, {}).get("count")
+    if fleet["status"] != "ok" or fleet["stale_replicas"] != 0 \
+            or merged != sum(counts.values()):
+        raise AssertionError(f"fleet aggregate {fleet} against the "
+                             f"replicas' {key} counts {counts}")
+    return fleet, counts
+
+
+def fleet_failover(ports, out_dir: Path, prompts, streams) -> dict:
+    """Phase 10 (e): ``serving:1`` drained through its stop file. Its
+    /healthz turns "draining" and the router's registry ejects it
+    (draining, or unreachable once its socket closed); the prompts
+    through the router then all land on ``serving:0`` with (a)'s streams;
+    /healthz counts one generate replica; the autoscaler records a
+    below_min generate event back to two."""
+    router = ports["router:0"]
+    stats = get(router, "/stats")[1]
+    before = stats["routed_requests"]["serving:0"]["ok"]
+    # The autoscaler's first cycle can run before the registry's first
+    # refresh and record a below_min event from 0: only later ones count.
+    earlier = len(stats["autoscaler"]["scale_events"])
+    started = time.perf_counter()
+    (out_dir / stop_file("serving:1")).write_text("")
+    replica = poll_until(
+        lambda: get(router, "/stats")[1]["replicas"]["serving:1"],
+        lambda r: r["state"] != "healthy", "serving:1 out of rotation")
+    ejected_s = time.perf_counter() - started
+    if replica["ejections"] < 1 \
+            or replica["eject_reason"] not in ("draining", "unreachable"):
+        raise AssertionError(f"serving:1 left rotation as {replica}")
+    replies = serve_one_at_a_time(router, prompts, FLEET_NEW)
+    got = [body["tokens"] for body in replies]
+    if got != streams:
+        raise AssertionError(f"failover streams {got} != {streams}")
+    stats = get(router, "/stats")[1]
+    if stats["routed_requests"]["serving:0"]["ok"] != before + len(prompts):
+        raise AssertionError(f"after failover {stats['routed_requests']}")
+    health = get(router, "/healthz")[1]["healthy_by_kind"]
+    if health != dict(FLEET_KINDS, generate=1):
+        raise AssertionError(f"healthy after failover: {health}")
+    event = poll_until(
+        lambda: [e for e in get(router, "/stats")[1]["autoscaler"][
+            "scale_events"][earlier:] if e["reason"] == "below_min"],
+        lambda events: events, "a below_min scale event", 60.0)[0]
+    if (event["kind"], event["from_replicas"], event["to_replicas"]) \
+            != ("generate", 1, 2):
+        raise AssertionError(f"scale event {event}")
+    return {"ejected_s": ejected_s, "serving_1": replica,
+            "scale_events_before": stats["autoscaler"]["scale_events"][
+                :earlier],
+            "streams_equal_in_process": True,
+            "routed_requests": stats["routed_requests"],
+            "healthy_by_kind": health, "scale_event": event}
 
 
 def main() -> int:
@@ -3715,12 +3939,15 @@ def main() -> int:
     fleet_result = fleet_slice(torch, tt, engine_mod, sched_mod, server_mod,
                                ckpt, client, topologies, dlrm, dev)
     log(f"fleet slice: {json.dumps(fleet_result)} on {card}")
-    log(f"fleet phase: {time.perf_counter() - started:.1f} s")
+    log(f"fleet phase: {time.perf_counter() - started:.1f} s; its parts: "
+        + json.dumps({part: round(t, 1)
+                      for part, t in fleet_result["seconds"].items()}))
     mark("10 fleet slice")
+    launched = fleet_result["b_launched"]
     fleet_launches = {
-        "launched serving": fleet_result["b_launched"]["decode_task"]["launches"],
-        "launched prefill":
-            fleet_result["b_launched"]["prefill_task"]["launches"]}
+        "launched serving": launched["decode_task"]["launches"],
+        "launched serving:1": launched["serving_1_task"]["launches"],
+        "launched prefill": launched["prefill_task"]["launches"]}
 
     # Each kernel's launches on every main path it runs in; `launches` is
     # the count of the path named in `launches_path`.

@@ -1,13 +1,17 @@
-"""The port's serving, prefill and rank task programs launched by
+"""The port's serving, prefill, rank and router task programs launched by
 `run_on_gpu` on the CPU (``TPU_YARN_PLATFORM=cpu``), with the experiment
-fns of `chip_smoke.py`'s phase 10 sent by name at the small f32 size:
+fn of `chip_smoke.py`'s phase 10 sent by name at the small f32 size:
 
-* a decode replica and a prefill replica (`disaggregated_topology`): the
-  driver logs each endpoint once, the shipped prompts stream as local
-  serving does (`chip_smoke.fleet_serving` holds the streams, the ships
-  and the Metrics);
-* a rank replica from the seeded init: its scores equal a direct
-  forward of the same seed's model (`chip_smoke.fleet_ranking`);
+* phase 10 rehearsed once (`chip_smoke.fleet_slice`): one launch of the
+  mixed fleet — two decode replicas, a prefill replica, a rank replica
+  and the router. On the first decode replica the shipped prompts stream
+  as local serving does; the rank replica's scores equal a direct
+  forward of the same seed's model; through the router the streams equal
+  the local ones on both decode replicas, the rank scores equal the
+  replica's own, the fleet aggregate pools the decode replicas' TTFT
+  counts; a drained decode replica is ejected, the next requests land
+  on the other, and the autoscaler records a below_min event; the
+  driver logs each endpoint once and the router never touches CUDA;
 * a serving task without that setting fails with the no-CUDA error,
   classified as the JAX package classifies its missing accelerator;
 * a serving task whose checkpoint is missing fails as the JAX package's
@@ -37,30 +41,68 @@ from tf_yarn_tpu_torch.serving import server as t_server
 CPU = {"TPU_YARN_PLATFORM": "cpu"}
 
 
-def test_decode_and_prefill_replicas_serve_the_local_streams(tmp_path):
-    result = chip_smoke.fleet_serving(
+@pytest.fixture(scope="module")
+def fleet():
+    """Phase 10 on the CPU at the small size: one launch of the mixed
+    fleet, every part's checks made by `fleet_slice` itself."""
+    return chip_smoke.fleet_slice(
         torch, tt, t_engine, t_scheduler, t_server, t_ckpt, t_client, t_topo,
-        torch.device("cpu"), tmp_path, tiny=True, env=CPU)
-    launched = result["b_launched"]
+        t_dlrm, torch.device("cpu"), tiny=True, env=CPU)
+
+
+def test_decode_and_prefill_replicas_serve_the_local_streams(fleet):
+    launched = fleet["b_launched"]
     assert launched["streams_equal_in_process"]
+    assert launched["streams"] == fleet["a_in_process"]["streams"]
     assert launched["prefill_offload"]["ships"] == 2
     assert launched["prefill_offload"]["local_fallbacks"] == 0
     assert launched["prefill_offload"]["shipped_blocks"] == 2 + 16
-    assert [len(v) for v in launched["endpoints"].values()] == [1, 1]
-    assert sorted(launched["container_duration_s"]) == ["prefill:0",
-                                                        "serving:0"]
-    for task in ("decode_task", "prefill_task"):
+    assert {label: len(found) for label, found in
+            launched["endpoints"].items()} == chip_smoke.FLEET_ENDPOINTS
+    assert sorted(launched["container_duration_s"]) == chip_smoke.FLEET_TASKS
+    for task in ("decode_task", "serving_1_task", "prefill_task"):
         assert not launched[task]["built_kernels_here"]
     assert launched["prefill_task"]["spans_s"]["checkpoint/verify"]
 
 
-def test_rank_replica_scores_equal_a_direct_forward(tmp_path):
-    result = chip_smoke.fleet_ranking(torch, t_client, t_topo, t_dlrm,
-                                      torch.device("cpu"), tmp_path,
-                                      tiny=True, env=CPU)
+def test_rank_replica_scores_equal_a_direct_forward(fleet):
+    result = fleet["c_ranking"]
     assert result["bitwise_equal"]
     assert max(result["max_abs_err"].values()) == 0.0
     assert result["task"]["spans_s"]["ranking/warmup"]
+
+
+def test_the_router_routes_the_mixed_fleet(fleet):
+    routed = fleet["d_routed"]
+    assert routed["healthy_by_kind"] == chip_smoke.FLEET_KINDS
+    assert routed["streams_equal_in_process"]
+    assert routed["routed_one_at_a_time"]["serving:0"] == {"ok": 3}
+    assert routed["routed_one_at_a_time"]["serving:1"] == {"ok": 3}
+    assert all(routed["rank_scores_equal_direct"].values())
+    assert routed["routed_requests"]["rank:0"] == {"ok": 3}
+    aggregate = routed["fleet"]
+    assert (aggregate["status"], aggregate["stale_replicas"]) == ("ok", 0)
+    assert aggregate["ttft"]["count"] == sum(
+        aggregate["replica_ttft_counts"].values())
+    assert routed["unknown_path_status"] == 404
+    router = routed["router_task"]
+    assert not (router["cuda_initialized"] or router["built_kernels_here"]
+                or router["kernel_library_loaded"])
+
+
+def test_a_drained_replica_fails_over_to_the_other(fleet):
+    failover = fleet["e_failover"]
+    assert failover["serving_1"]["ejections"] == 1
+    assert failover["serving_1"]["eject_reason"] in ("draining",
+                                                     "unreachable")
+    assert failover["streams_equal_in_process"]
+    assert failover["healthy_by_kind"] == dict(chip_smoke.FLEET_KINDS,
+                                               generate=1)
+    event = failover["scale_event"]
+    assert (event["kind"], event["reason"], event["from_replicas"],
+            event["to_replicas"]) == ("generate", "below_min", 1, 2)
+    assert set(fleet["seconds"]) >= {"launch_to_router_endpoint",
+                                     "d_routed", "e_failover", "drain"}
 
 
 def test_a_serving_task_without_the_cpu_setting_fails_without_a_card(
@@ -69,7 +111,7 @@ def test_a_serving_task_without_the_cpu_setting_fails_without_a_card(
     with pytest.raises(t_client.RunFailed) as err:
         t_client.run_on_gpu(
             t_client.get_safe_experiment_fn(
-                "chip_smoke.fleet_serving_experiment", str(tmp_path),
+                "chip_smoke.fleet_experiment", str(tmp_path),
                 str(tmp_path), 0, True),
             t_topo.serving_topology(),
             env={"PYTHONPATH": os.path.dirname(chip_smoke.__file__)},
@@ -111,7 +153,7 @@ def test_a_missing_checkpoint_fails_as_in_jax(tmp_path):
     with pytest.raises(t_client.RunFailed) as got:
         t_client.run_on_gpu(
             t_client.get_safe_experiment_fn(
-                "chip_smoke.fleet_serving_experiment", str(empty),
+                "chip_smoke.fleet_experiment", str(empty),
                 str(tmp_path), 0, True),
             t_topo.serving_topology(chips_per_host=0),
             env=dict(CPU, PYTHONPATH=os.path.dirname(chip_smoke.__file__)),

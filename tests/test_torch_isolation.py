@@ -30,7 +30,9 @@ def test_package_imports_with_jax_blocked():
     assert "tf_yarn_tpu_torch.serving.server" in modules
     assert "tf_yarn_tpu_torch.ranking.server" in modules
     for launcher in ("client", "tasks.worker", "tasks.distributed",
-                     "coordination.kv", "backends", "resilience.taxonomy"):
+                     "coordination.kv", "backends", "resilience.taxonomy",
+                     "fleet.router", "fleet.registry", "fleet.monitor",
+                     "fleet.autoscaler", "fleet.policy", "tasks.router"):
         assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"

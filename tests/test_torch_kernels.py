@@ -1383,48 +1383,80 @@ def test_cuda_launched_worker_runs_the_layernorm_kernels(
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)
 
 
-def test_cuda_launched_decode_and_prefill_replicas_serve_the_cpu_streams(
-        cuda, tmp_path, monkeypatch):
-    """chip_smoke.py phase 10 (b) at the small f32 decoder: a decode and a
-    prefill replica that `run_on_gpu` launches on the card (no
-    TPU_YARN_PLATFORM: the conftest sets it to cpu for the JAX package)
-    serve the prompts of 17, 64 and 300 tokens one at a time, the two
-    long ones shipped, with the streams of the same checkpoint served on
-    the CPU; `fleet_serving` also holds them to the card's in-process
-    grid, the launches of rmsnorm, quantize and the paged kernel in the
-    decode task and of rmsnorm and quantize alone in the prefill task."""
+@pytest.fixture(scope="module")
+def card_fleet():
+    """chip_smoke.py phase 10 at the small f32 decoder on the card: the
+    mixed fleet that `run_on_gpu` launches (no TPU_YARN_PLATFORM: the
+    conftest sets it to cpu for the JAX package, so it is taken out for
+    the launch), and the same checkpoint's streams served on the CPU."""
+    import os
+
     import chip_smoke
-    from tf_yarn_tpu_torch import checkpoint, client, inference, topologies
-    from tf_yarn_tpu_torch.models import decode_engine
+    from tf_yarn_tpu_torch import checkpoint, client, topologies
+    from tf_yarn_tpu_torch.models import decode_engine, dlrm
     from tf_yarn_tpu_torch.models import transformer as tt
     from tf_yarn_tpu_torch.serving import scheduler, server
 
-    monkeypatch.delenv("TPU_YARN_PLATFORM", raising=False)
-    result = chip_smoke.fleet_serving(
-        torch, tt, decode_engine, scheduler, server, checkpoint, client,
-        topologies, cuda, tmp_path, tiny=True)
-    launched = result["b_launched"]
-    assert launched["prefill_offload"]["ships"] == 2
-    assert min(launched["decode_task"]["launches"].values()) > 0
-    assert launched["prefill_task"]["launches"][
-        "paged_int8_window_attention"] == 0
-    # The same checkpoint served on the CPU (the plain versions).
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
+    platform = os.environ.pop("TPU_YARN_PLATFORM", None)
+    try:
+        result = chip_smoke.fleet_slice(
+            torch, tt, decode_engine, scheduler, server, checkpoint, client,
+            topologies, dlrm, cuda, tiny=True)
+    finally:
+        if platform is not None:
+            os.environ["TPU_YARN_PLATFORM"] = platform
+    # The weights phase 10 (a) draws on the card (seed 0), served on the
+    # CPU (the plain versions).
     cfg = chip_smoke.fleet_config(torch, tt, True)
     model = tt.Transformer(cfg, device="cpu")
-    inference._restore_params(model, str(tmp_path / "model"), None)
+    model.load_state_dict({
+        name: value.cpu() for name, value in
+        tt.make_model(cfg, seed=chip_smoke.SEED, device=cuda)
+        .state_dict().items()})
     grid = scheduler.SlotScheduler(decode_engine.DecodeEngine(model),
                                    **chip_smoke.FLEET_GRID)
     frontend = server.ServingServer(grid, "127.0.0.1", 0)
     grid.start()
     frontend.start()
     try:
-        gen = torch.Generator().manual_seed(chip_smoke.SEED + 10)
-        prompts = [torch.randint(0, cfg.vocab_size, (n,),
-                                 generator=gen).tolist()
-                   for n in chip_smoke.FLEET_PROMPTS]
-        cpu = chip_smoke.serve_one_at_a_time(frontend.port, prompts,
-                                             chip_smoke.FLEET_NEW)
+        cpu = chip_smoke.serve_one_at_a_time(
+            frontend.port, chip_smoke.fleet_prompts(torch, cfg),
+            chip_smoke.FLEET_NEW)
     finally:
         frontend.stop()
         grid.close()
-    assert launched["streams"] == [body["tokens"] for body in cpu]
+    return result, [body["tokens"] for body in cpu]
+
+
+def test_cuda_launched_decode_and_prefill_replicas_serve_the_cpu_streams(
+        cuda, card_fleet):
+    """Phase 10 (b) at the small f32 decoder: the first decode replica
+    serves the prompts of 17, 64 and 300 tokens one at a time, the two
+    long ones shipped, with the streams of the same checkpoint served on
+    the CPU; `fleet_slice` also holds them to the card's in-process grid,
+    the launches of rmsnorm, quantize and the paged kernel in both decode
+    tasks and of rmsnorm and quantize alone in the prefill task."""
+    result, cpu = card_fleet
+    launched = result["b_launched"]
+    assert launched["prefill_offload"]["ships"] == 2
+    for task in ("decode_task", "serving_1_task"):
+        assert min(launched[task]["launches"].values()) > 0
+    assert launched["prefill_task"]["launches"][
+        "paged_int8_window_attention"] == 0
+    assert launched["streams"] == cpu
+
+
+def test_cuda_routed_fleet_streams_equal_the_cpu_streams(cuda, card_fleet):
+    """Phase 10 (d) and (e) at the small f32 decoder: the streams through
+    the router, on both decode replicas and after one is drained, equal
+    the CPU's (`fleet_slice` holds each routed stream to (a)'s, which
+    equal the CPU's here), and the router never initialised CUDA."""
+    result, cpu = card_fleet
+    assert result["a_in_process"]["streams"] == cpu
+    assert result["d_routed"]["streams_equal_in_process"]
+    assert result["e_failover"]["streams_equal_in_process"]
+    router = result["d_routed"]["router_task"]
+    assert not router["cuda_initialized"] and not router["kernel_library_loaded"]

@@ -461,7 +461,6 @@ REFUSED = {
     "remote_backend": ({"worker": 1}, {"backend": _RemoteBackend()}, "item 5"),
     "evaluator": ({"worker": 1, "evaluator": 1}, {}, "item 4"),
     "tensorboard": ({"worker": 1, "tensorboard": 1}, {}, "item 4"),
-    "router": ({"serving": 1, "router": 1}, {}, "item 6"),
     "ship_code": ({"worker": 1}, {"ship_code": True}, "item 5"),
     "requirements": ({"worker": 1}, {"requirements": ["numpy"]}, "item 5"),
     "wheels_dir": ({"worker": 1}, {"wheels_dir": "/nowhere"}, "item 5"),

@@ -106,9 +106,17 @@ SERVING_CASES = {
     "slo_not_dict": ({"slo": [1]}, None),
     "slo": ({"slo": {"interactive_ttft_p95_s": 0.5}}, None),
     "autoscale": ({"autoscale": {"generate": {"min_replicas": 1,
-                                              "max_replicas": 4}}}, "item 6"),
+                                              "max_replicas": 4}}}, None),
     "autoscale_broken": ({"autoscale": {"generate": {"min_replicas": -1}}},
-                         "item 6"),
+                         None),
+    "autoscale_unknown_kind": ({"autoscale": {"worker": {}}}, None),
+    "autoscale_not_dict": ({"autoscale": ["generate"]}, None),
+    "autoscale_launch_eta_s": ({"autoscale_launch_eta_s": 0.0}, None),
+    "router_policy": ({"router_policy": "random"}, None),
+    "router_retries": ({"router_retries": -1}, None),
+    "router_probe_interval_s": ({"router_probe_interval_s": 0}, None),
+    "router_with_mesh": ({"router_policy": "random",
+                          "mesh_spec": MeshSpec(tp=2)}, "item 7"),
     "prefill_tier_threshold": ({"prefill_tier": {"offload_threshold": 0}},
                                None),
     "prefill_tier_timeout": ({"prefill_tier": {"timeout_s": 0.0}}, None),
@@ -143,22 +151,38 @@ def test_serving_experiment_verdict_equals_jax(case):
         assert f"ROADMAP.md Queue 1 {refused}" in got[1]
 
 
-# The JAX package's fields that only its router reads: not fields of the
-# port's ServingExperiment until the router is ported, so setting one fails
-# loudly instead of being silently ignored.
-ROUTER_FIELDS = {"router_host": "127.0.0.1", "router_port": 8080,
-                 "router_policy": "round_robin", "router_retries": 0,
-                 "router_probe_interval_s": 2.0, "autoscale_launch_eta_s": 5.0,
-                 "autoscale_warm_start": False}
+# The fields that only the router reads, each with a value both packages
+# take and, where the JAX package validates the field, one it refuses
+# (experiment.py:537-568): the same verdicts in the port, and the value
+# kept as given.
+ROUTER_FIELDS = {"router_host": ("127.0.0.1", None),
+                 "router_port": (8080, None),
+                 "router_policy": ("round_robin", "random"),
+                 "router_retries": (0, -1),
+                 "router_probe_interval_s": (2.0, 0.0),
+                 "autoscale_launch_eta_s": (5.0, -1.0),
+                 "autoscale_warm_start": (False, None)}
 
 
 @pytest.mark.parametrize("field", sorted(ROUTER_FIELDS))
 def test_serving_experiment_refuses_router_fields(field):
-    args = {"model": _stand_in_model(), "model_dir": "/x",
-            field: ROUTER_FIELDS[field]}
-    assert verdict(j_experiment.ServingExperiment, **args) == ("ok", None)
-    kind, message = verdict(t_experiment.ServingExperiment, **args)
-    assert kind == "TypeError" and field in message
+    """Each router field is a field of the port's ServingExperiment with
+    the JAX default, takes what JAX takes and refuses what JAX refuses,
+    with its message."""
+    good, bad = ROUTER_FIELDS[field]
+    base = {"model": _stand_in_model(), "model_dir": "/x"}
+    assert getattr(t_experiment.ServingExperiment(**base), field) == \
+        getattr(j_experiment.ServingExperiment(**base), field)
+    args = dict(base, **{field: good})
+    assert verdict(t_experiment.ServingExperiment, **args) == \
+        verdict(j_experiment.ServingExperiment, **args) == ("ok", None)
+    assert getattr(t_experiment.ServingExperiment(**args), field) == good
+    if bad is not None:
+        args = dict(base, **{field: bad})
+        kind, message = verdict(t_experiment.ServingExperiment, **args)
+        assert (kind, message) == verdict(j_experiment.ServingExperiment,
+                                          **args)
+        assert kind == "ValueError" and field in message
 
 
 # -- the advertised endpoint --------------------------------------------------

@@ -20,13 +20,14 @@ Not ported yet, each refused before anything is launched: code and
 dependency shipping (`ship_code`, `requirements`, `wheels_dir`,
 `env_staging_dir`; ROADMAP.md Queue 1 item 5), backends other than
 `LocalBackend` (`SshBackend`; item 5), elastic resize (`elastic_policy`;
-item 5), and the task programs of the evaluator and
-tensorboard (item 4) and router (item 6) task types.
+item 5), and the task programs of the evaluator and tensorboard task
+types (item 4).
 
-The serving, prefill and rank replicas advertise their HTTP endpoints in
-the KV store (``{task}/serving_endpoint``, ``{task}/prefill_endpoint``,
-``{task}/rank_endpoint``); the driver logs each once, as soon as it
-appears ("serving endpoint 127.0.0.1:41231").
+The serving, prefill and rank replicas and the fleet's router advertise
+their HTTP endpoints in the KV store (``{task}/serving_endpoint``,
+``{task}/prefill_endpoint``, ``{task}/rank_endpoint``,
+``{task}/router_endpoint``); the driver logs each once, as soon as it
+appears ("serving endpoint 127.0.0.1:41231", "router endpoint ...").
 """
 
 from __future__ import annotations
@@ -85,7 +86,6 @@ ExperimentFn = Callable[[], object]
 UNPORTED_TASK_TYPES = {
     "evaluator": "item 4",
     "tensorboard": "item 4",
-    "router": "item 6",
 }
 
 # The endpoint each replica type advertises, and the driver log's label
@@ -94,6 +94,7 @@ ENDPOINT_EVENTS = {
     "serving": (event.serving_endpoint_event_name, "serving endpoint"),
     "prefill": (event.prefill_endpoint_event_name, "prefill endpoint"),
     "rank": (event.rank_endpoint_event_name, "rank endpoint"),
+    "router": (event.router_endpoint_event_name, "router endpoint"),
 }
 
 

@@ -31,10 +31,9 @@ validation messages. Their ``model`` is the port's `Transformer` or
 `DLRM`, built by the experiment fn on the task's device and holding its
 weights. What the port cannot serve yet is refused at construction with
 NotImplementedError naming its ROADMAP.md Queue 1 item: any ``mesh_spec``
-(item 7) and any ``autoscale`` (item 6). The JAX package's ``router_*``,
-``autoscale_launch_eta_s`` and ``autoscale_warm_start`` fields belong to
-the router task and are not fields here until the router is ported
-(item 6): an experiment fn that sets them fails with a TypeError.
+(item 7). The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
+``autoscale_warm_start`` fields are read only by the ``router`` task of a
+fleet (`fleet.router.run_router`), whose model is on the meta device.
 
 `run_experiment` (experiment.py:765-799) is what the worker, serving
 and rank task programs call: training on the task's device, batch
@@ -166,7 +165,7 @@ class ServingExperiment:
     """Online-serving job: restore a checkpoint into ``model`` and serve
     ``/v1/generate`` with continuous batching until stopped
     (`serving.server.run_serving`). The JAX package's fields, defaults
-    and validation (experiment.py:282-577), less the router's fields.
+    and validation (experiment.py:282-577).
 
     ``model`` is a `Transformer` on the device the replica runs on (its
     weights are replaced by the checkpoint's ``params``); ``model_dir``
@@ -181,8 +180,15 @@ class ServingExperiment:
     replica evaluates. ``prefill_tier`` (a `PrefillTierConfig` field
     dict, paged layout) makes ``/v1/generate`` pull long prompts' KV
     blocks from the ``prefill`` task tier before submitting; it is also
-    the experiment the ``prefill`` task reads. ``mesh_spec`` and
-    ``autoscale`` are refused (module docstring)."""
+    the experiment the ``prefill`` task reads. The ``router_*`` knobs
+    (``router_policy`` "round_robin" or "least_loaded", the failover
+    budget ``router_retries``, the ``/healthz`` cadence
+    ``router_probe_interval_s``) and ``autoscale`` (replica kind ->
+    `fleet.autoscaler.AutoscalePolicy` field dict), with
+    ``autoscale_launch_eta_s`` (an empty pool's Retry-After) and
+    ``autoscale_warm_start`` (prime re-admitted generate replicas over
+    ``/v1/blocks``), are the ``router`` task's. ``mesh_spec`` is refused
+    (module docstring)."""
 
     model: Any
     model_dir: str
@@ -208,8 +214,15 @@ class ServingExperiment:
     kv_host_blocks: int = 0
     tier_caps: Optional[Dict[str, int]] = None
     mesh_spec: Any = None
+    router_host: str = "0.0.0.0"
+    router_port: int = 0
+    router_policy: str = "least_loaded"
+    router_retries: int = 2
+    router_probe_interval_s: float = 1.0
     slo: Optional[Dict[str, float]] = None
     autoscale: Optional[Dict[str, Dict]] = None
+    autoscale_launch_eta_s: float = 15.0
+    autoscale_warm_start: bool = True
     prefill_tier: Optional[Dict] = None
 
     def __post_init__(self) -> None:
@@ -282,6 +295,17 @@ class ServingExperiment:
                         f"tier_caps[{name!r}] must be an int >= 0, "
                         f"got {cap!r}")
         _refuse_mesh_spec(self.mesh_spec, "tensor-parallel decode")
+        if self.router_policy not in ("round_robin", "least_loaded"):
+            raise ValueError(
+                f"router_policy must be 'round_robin' or 'least_loaded', "
+                f"got {self.router_policy!r}")
+        if self.router_retries < 0:
+            raise ValueError(
+                f"router_retries must be >= 0, got {self.router_retries}")
+        if self.router_probe_interval_s <= 0:
+            raise ValueError(
+                f"router_probe_interval_s must be > 0, got "
+                f"{self.router_probe_interval_s}")
         if self.slo is not None:
             from tf_yarn_tpu_torch.telemetry.slo import parse_slo
 
@@ -290,9 +314,16 @@ class ServingExperiment:
             except ValueError as exc:
                 raise ValueError(f"slo: {exc}") from exc
         if self.autoscale is not None:
-            raise NotImplementedError(
-                "autoscale: the fleet's autoscaler runs in the router task, "
-                "which is not ported yet (ROADMAP.md Queue 1 item 6)")
+            from tf_yarn_tpu_torch.fleet.autoscaler import parse_autoscale
+
+            try:
+                parse_autoscale(self.autoscale)
+            except ValueError as exc:
+                raise ValueError(f"autoscale: {exc}") from exc
+        if not self.autoscale_launch_eta_s > 0:
+            raise ValueError(
+                f"autoscale_launch_eta_s must be > 0, got "
+                f"{self.autoscale_launch_eta_s}")
         if self.prefill_tier is not None:
             from tf_yarn_tpu_torch.serving.prefill import parse_prefill_tier
 

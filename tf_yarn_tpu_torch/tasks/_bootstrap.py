@@ -3,8 +3,8 @@ tf_yarn_tpu/tasks/_bootstrap.py: connect to the coordination service,
 publish the start-time and log-location events, and on the way out the
 stop event (with the failure's kind and traceback) and the stop time,
 exiting nonzero so the backend's process status agrees with the events.
-`run_replica` is the whole main of the serving, prefill and rank task
-programs.
+`run_replica` is the whole main of the serving, prefill, rank and router
+task programs.
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ def reporting_shutdown(runtime: TaskRuntime) -> Iterator[None]:
 
 
 def run_replica(name: str, body: Callable[[TaskRuntime, object], None]) -> None:
-    """Main of a replica's task program (serving, prefill, rank; JAX
-    tasks/{serving,prefill,rank}.py): install the preemption handler
-    (SIGTERM sets the drain flag the body polls), bootstrap, pull the
+    """Main of a replica's task program (serving, prefill, rank, router;
+    JAX tasks/{serving,prefill,rank,router}.py): install the preemption
+    handler (SIGTERM sets the drain flag the body polls), bootstrap, pull the
     experiment, publish the start event and run ``body(runtime,
     experiment)`` in a MonitoredThread (so the stop event carries the
     body's stack) under the task's heartbeat."""

@@ -10,10 +10,11 @@ own label, which the JAX package's ``NodeLabel.TPU`` replaced
 so the same specs get the same verdict in both packages.
 
 Ported presets: `single_server_topology`, `allreduce_topology`,
-`serving_topology`, `disaggregated_topology` and `ranking_topology`. The
-slice presets (`SLICE_TYPES`, `tpu_slice_topology`; ROADMAP.md Queue 1
-item 5) and the fleet ones (`fleet_topology`, `mixed_fleet_topology`),
-which need the router (item 6), are not ported.
+`serving_topology`, `disaggregated_topology`, `ranking_topology` and the
+fleets, `fleet_topology` and `mixed_fleet_topology`, whose CPU ``router``
+task (tasks/router.py) fronts the replicas. The slice presets
+(`SLICE_TYPES`, `tpu_slice_topology`; ROADMAP.md Queue 1 item 5) are not
+ported.
 """
 
 from __future__ import annotations
@@ -248,6 +249,35 @@ def serving_topology(
     return specs
 
 
+def fleet_topology(
+    nb_replicas: int = 2,
+    memory_gib: int = 32,
+    vcores: int = 16,
+    chips_per_host: int = 1,
+    router_memory_gib: int = 8,
+    router_vcores: int = 4,
+) -> TaskSpecs:
+    """A serving fleet: one CPU ``router`` frontend balancing
+    ``/v1/generate`` over `nb_replicas` serving replicas, each exactly as
+    `serving_topology` makes it. The router finds them through their KV
+    ``serving_endpoint`` advertisements and ejects unhealthy or draining
+    ones; clients dial its one endpoint (``{task}/router_endpoint``)."""
+    specs = serving_topology(
+        instances=nb_replicas,
+        memory_gib=memory_gib,
+        vcores=vcores,
+        chips_per_host=chips_per_host,
+    )
+    specs["router"] = TaskSpec(
+        memory_gib=router_memory_gib,
+        vcores=router_vcores,
+        instances=1,
+        label=NodeLabel.CPU,
+    )
+    check_topology(specs)
+    return specs
+
+
 def disaggregated_topology(
     n_prefill: int = 1,
     n_decode: int = 1,
@@ -307,5 +337,45 @@ def ranking_topology(
             label=NodeLabel.GPU if chips_per_host else NodeLabel.CPU,
         )
     }
+    check_topology(specs)
+    return specs
+
+
+def mixed_fleet_topology(
+    nb_serving: int = 1,
+    nb_rank: int = 1,
+    memory_gib: int = 32,
+    vcores: int = 16,
+    chips_per_host: int = 1,
+    router_memory_gib: int = 8,
+    router_vcores: int = 4,
+) -> TaskSpecs:
+    """A mixed fleet: one router dispatching by path, ``/v1/generate`` to
+    decode replicas and ``/v1/rank`` to ranking replicas. The registry
+    knows each replica's kind from the KV key it advertised under, so a
+    rank request never lands on a generate replica."""
+    if nb_serving < 1 or nb_rank < 1:
+        raise ValueError(
+            f"need at least one replica of each kind, got "
+            f"nb_serving={nb_serving}, nb_rank={nb_rank}"
+        )
+    specs = serving_topology(
+        instances=nb_serving,
+        memory_gib=memory_gib,
+        vcores=vcores,
+        chips_per_host=chips_per_host,
+    )
+    specs.update(ranking_topology(
+        instances=nb_rank,
+        memory_gib=memory_gib,
+        vcores=vcores,
+        chips_per_host=chips_per_host,
+    ))
+    specs["router"] = TaskSpec(
+        memory_gib=router_memory_gib,
+        vcores=router_vcores,
+        instances=1,
+        label=NodeLabel.CPU,
+    )
     check_topology(specs)
     return specs
