@@ -62,8 +62,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    requests) — scores within 1e-5 — and trained 3 adagrad steps through
    `train_and_evaluate` on both from those weights — losses and
    parameters close;
-5. serving slice: the Llama-3-8B-width decoder (random bf16 weights from
-   seed 0, int8 KV) on every serving path, each with the kernel counts
+5. serving slice: the Llama-3-8B-width decoder cut to 8 of its 32
+   layers (`serving_config`; random bf16 weights from seed 0, int8 KV)
+   on every serving path, each with the kernel counts
    set to 0 just before it and read just after: SlotScheduler with 4
    slots behind ServingServer on 127.0.0.1 answering 4 concurrent greedy
    /v1/generate requests — (a) paged with fused attention, (b) paged in
@@ -117,17 +118,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
    for 4 steps at batch 1024: losses finite, the table rows the batches
    read moved and no other row, the steady step, samples/s, peak memory
    and a profiled step;
-9. launcher slice: `client.run_on_gpu` with LocalBackend, one worker
-   task (`get_safe_experiment_fn`, so no cloudpickle is needed): (a) phase
-   7's BERT-base experiment trained 4 steps in the launched worker —
-   Metrics carry the worker, the KV store's `worker:0/last_training_step`
-   is 4, the task launched the LayerNorm forward and backward kernels as
-   often as phase 7 did in this process (and loaded the kernel library
-   without rebuilding it), its losses equal phase 7's within 1e-2
-   relative; the wall to return and the worker's steps from its exported
-   trace; (b) the same run with no visible card raises RunFailed carrying
-   the port's no-CUDA error; (c) a fn of rank on `tasks.distributed`
-   initialises NCCL from its TaskParameters and all_reduces on the card;
+9. launcher slice: `client.run_on_gpu` with LocalBackend
+   (`get_safe_experiment_fn`, so no cloudpickle is needed): (a) phase
+   7's BERT-base experiment (its batches from an input_fn that declares
+   `start_step`) trained 4 steps in a launched worker, in chunks of
+   `steps_per_loop=2`, a checkpoint every 2 steps through the async
+   writer keeping the newest 1, beside an `evaluator` (on the card, as
+   every task is by default) and a `tensorboard` task — Metrics carry
+   the worker and the evaluator, the KV store's
+   `worker:0/last_training_step` is 4, the worker launched the LayerNorm
+   forward and backward kernels as often as phase 7 did in this process
+   (and loaded the kernel library without rebuilding it), its losses
+   equal phase 7's within 1e-5 relative; eval-done markers for ckpt-2
+   and ckpt-4, the evaluator's ckpt-4 metrics equal to the worker's
+   final eval within 1e-5, its LayerNorm forward launched and not its
+   backward, its health keys in the KV store; the tensorboard URL logged
+   and `<model_dir>/tb` events written where tensorboard imports; the
+   `TPU_YARN_PROFILE_STEPS="2:4"` window's Chrome trace holding the
+   LayerNorm kernels; the wall to return and the worker's chunks from
+   its exported trace; (b) the same run with no visible card raises
+   RunFailed carrying the port's no-CUDA error; (c) a fn of rank on
+   `tasks.distributed` initialises NCCL from its TaskParameters and
+   all_reduces on the card; (d) the worker of (a) without side-cars
+   requests the preemption drain after step 2 in attempt 0
+   (`nb_retries=1`): attempt 0 saves ckpt-2 and is retried as PREEMPTED,
+   attempt 1 resumes at step 2 and its losses equal phase 7's steps 3-4
+   within 1e-5 relative; each part's seconds;
 10. fleet slice, the launched serving fleet (`fleet_slice`): (a) phase
    5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
    tokens with 16 new each, one at a time; the weights saved as ckpt-1
@@ -160,8 +176,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    memory and restore seconds (verify, read, copy), and the seconds of
    the launch to the router's endpoint, (d), (e) and the drain.
 
-The run takes 6-9 minutes by how fast the host is (the last line before
-the kernels JSON gives each phase's seconds), inside a 20-minute limit.
+The run takes 5-9 minutes by how fast the host is (the last line before
+the kernels JSON gives each phase's seconds; phases 5, 9 and 10 also
+print their parts' seconds), inside a 20-minute limit.
 
 The line before last is the card's `nvidia-smi` name and power limit
 and the one before it the kernels JSON; the last line is
@@ -1009,12 +1026,14 @@ def kernel_launch_counts(torch, run) -> dict:
     profiler session on the card can lose the first launches after it
     starts, so each session first runs three spin kernels
     (`torch.cuda._sleep`, left out of the counts) and waits for them; a
-    session that still saw no kernel of `run` is run again, up to three
-    times."""
+    session that still saw no kernel of `run` is run again after a pause,
+    up to six times (three sessions in a row once saw nothing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _attempt in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2335,18 +2354,33 @@ def serve_warm_start(torch, engine, sched_mod, server_mod, telemetry,
             "launches": launches}
 
 
+# Phase 5's depth: Llama-3-8B's widths and 8 of its 32 layers, cut for
+# the smoke's time limit (phase 10's fleet keeps all 32). Every layer repeats
+# the one before it; the kernels' launches a path scale with the depth.
+SERVE_LAYERS = 8
+
+
+def serving_config(torch, tt):
+    """Phase 5's decoder: Llama-3-8B widths, SERVE_LAYERS layers, bf16,
+    int8 KV."""
+    return dataclasses.replace(
+        tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
+                                       kv_cache_dtype="int8"),
+        n_layers=SERVE_LAYERS)
+
+
 def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, telemetry,
                 counted, dev):
-    """The Llama-3-8B-width decoder (int8 KV) on every serving path: (a)
-    the fused paged burst, (b) the gather burst, (c) the dense burst, (d)
-    `engine.generate` on a [4, 300] batch, 16 new tokens, (e) the
-    fused paged burst with chunked prefill (windows of CHUNK prompt
-    tokens, two chunks a tick): no prefill program, every tick one
-    window step of width CHUNK, (f) the host swap tier's burst and (g)
-    the warm start between two replicas over /v1/blocks."""
+    """The Llama-3-8B-width decoder (int8 KV, SERVE_LAYERS layers) on
+    every serving path: (a) the fused paged burst, (b) the gather burst,
+    (c) the dense burst, (d) `engine.generate` on a [4, 300] batch, 16 new
+    tokens, (e) the fused paged burst with chunked prefill (windows of
+    CHUNK prompt tokens, two chunks a tick): no prefill program, every
+    tick one window step of width CHUNK, (f) the host swap tier's burst
+    and (g) the warm start between two replicas over /v1/blocks. Returns
+    the paths' results and each path's seconds."""
     rmsnorm, quantize, paged, dense = counted
-    cfg = tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
-                                         kv_cache_dtype="int8")
+    cfg = serving_config(torch, tt)
     started = time.perf_counter()
     model = tt.make_model(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -2360,58 +2394,74 @@ def serve_slice(torch, tt, engine_mod, sched_mod, server_mod, telemetry,
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
     del _cache
     gen = torch.Generator().manual_seed(SEED)
+    seconds = {"build": time.perf_counter() - started}
+    paths = {}
+
+    def timed(name, run):
+        started = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - started
+
     common = (torch, engine, sched_mod, server_mod, counted)
-    paths = {
-        "fused_burst": serve_burst(
-            *common, (rmsnorm, quantize, paged), gen, cfg.vocab_size, True,
-            kv_layout="paged", decode_attention="fused"),
-        "gather_burst": serve_burst(
-            *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, True,
-            kv_layout="paged", decode_attention="gather"),
-        "dense_burst": serve_burst(
-            *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, False,
-            kv_layout="dense"),
-    }
-    torch.cuda.reset_peak_memory_stats()
-    batch = torch.randint(0, cfg.vocab_size, (4, 300), generator=gen)
-    _zero(counted)
-    started = time.perf_counter()
-    out = engine.generate(batch, BURST_NEW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - started
-    launches = _launches(counted)
-    if tuple(out.shape) != (4, 300 + BURST_NEW) \
-            or not torch.equal(out[:, :300].cpu(), batch.int()) \
-            or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-        raise AssertionError(f"generate output {tuple(out.shape)} malformed")
-    for fn in (rmsnorm, quantize, dense):
-        if launches[fn.__name__] <= 0:
-            raise AssertionError(f"{fn.__name__} never launched in generate")
-    paths["generate"] = {
-        "layers": cfg.n_layers, "batch": [4, 300], "new_tokens": BURST_NEW,
-        "wall_s": wall,
-        "tokens_per_s": 4 * BURST_NEW / wall, "launches": launches,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    chunked = serve_burst(
+    timed("fused_burst", lambda: serve_burst(
         *common, (rmsnorm, quantize, paged), gen, cfg.vocab_size, True,
-        kv_layout="paged", decode_attention="fused", prefill_chunk=CHUNK,
-        prefill_budget_per_tick=2 * CHUNK)
-    calls = chunked["engine_calls"]
-    steps = calls["paged_spec_step_calls"]
-    if chunked["prefill_chunk"] != CHUNK or calls["prefill_calls"] \
-            or steps != chunked["ticks"] \
-            or chunked["launches"][paged.__name__] != cfg.n_layers * steps:
-        raise AssertionError(f"the chunked burst did not run one window step "
-                             f"of width {CHUNK} a tick: {chunked}")
-    paths["chunked_burst"] = chunked
-    paths["swap_burst"] = serve_swap(
+        kv_layout="paged", decode_attention="fused"))
+    timed("gather_burst", lambda: serve_burst(
+        *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, True,
+        kv_layout="paged", decode_attention="gather"))
+    timed("dense_burst", lambda: serve_burst(
+        *common, (rmsnorm, quantize, dense), gen, cfg.vocab_size, False,
+        kv_layout="dense"))
+
+    def generate():
+        torch.cuda.reset_peak_memory_stats()
+        batch = torch.randint(0, cfg.vocab_size, (4, 300), generator=gen)
+        _zero(counted)
+        started = time.perf_counter()
+        out = engine.generate(batch, BURST_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+        launches = _launches(counted)
+        if tuple(out.shape) != (4, 300 + BURST_NEW) \
+                or not torch.equal(out[:, :300].cpu(), batch.int()) \
+                or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"generate output {tuple(out.shape)} "
+                                 f"malformed")
+        for fn in (rmsnorm, quantize, dense):
+            if launches[fn.__name__] <= 0:
+                raise AssertionError(f"{fn.__name__} never launched in "
+                                     f"generate")
+        return {
+            "layers": cfg.n_layers, "batch": [4, 300],
+            "new_tokens": BURST_NEW, "wall_s": wall,
+            "tokens_per_s": 4 * BURST_NEW / wall, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+
+    timed("generate", generate)
+
+    def chunked_burst():
+        chunked = serve_burst(
+            *common, (rmsnorm, quantize, paged), gen, cfg.vocab_size, True,
+            kv_layout="paged", decode_attention="fused", prefill_chunk=CHUNK,
+            prefill_budget_per_tick=2 * CHUNK)
+        calls = chunked["engine_calls"]
+        steps = calls["paged_spec_step_calls"]
+        if chunked["prefill_chunk"] != CHUNK or calls["prefill_calls"] \
+                or steps != chunked["ticks"] \
+                or chunked["launches"][paged.__name__] != cfg.n_layers * steps:
+            raise AssertionError(f"the chunked burst did not run one window "
+                                 f"step of width {CHUNK} a tick: {chunked}")
+        return chunked
+
+    timed("chunked_burst", chunked_burst)
+    timed("swap_burst", lambda: serve_swap(
         torch, engine, sched_mod, server_mod, telemetry, counted, gen,
-        cfg.vocab_size, cfg.n_layers)
-    paths["warm_start"] = serve_warm_start(
+        cfg.vocab_size, cfg.n_layers))
+    timed("warm_start", lambda: serve_warm_start(
         torch, engine, sched_mod, server_mod, telemetry, counted, gen,
-        cfg.vocab_size)
-    return paths
+        cfg.vocab_size))
+    return paths, seconds
 
 
 # The ranker (phases 4 and 8). Its features as the JAX synthetic input
@@ -2777,44 +2827,123 @@ LAUNCHER_COUNTS = "launcher_counts.json"
 LAUNCHER_LOSS_RTOL = 1e-5
 
 
-def launcher_bert_experiment(model_dir: str, tiny: bool = False):
-    """Phase 9's experiment fn, called in the launched worker: phase 7's
+LAUNCHER_EVAL_STEPS = 2
+EVALUATOR_COUNTS = "evaluator_counts.json"
+WORKER_EVAL = "worker_eval.json"
+
+
+def bert_stream(config, batch_size: int, seq_len: int, seed: int):
+    """`bert.make_experiment`'s synthetic stream (tokens from
+    RandomState(seed), labels the first token modulo the classes) as an
+    input_fn that declares `start_step`: a resumed run skips the batches
+    its steps consumed. `seen["start_step"]` keeps the step it was last
+    called with."""
+    import numpy as np
+
+    seen = {"start_step": None}
+
+    def input_fn(start_step: int = 0):
+        seen["start_step"] = start_step
+        rng = np.random.RandomState(seed)
+        drawn = 0
+        while True:
+            tokens = rng.randint(0, config.vocab_size, (batch_size, seq_len))
+            labels = (tokens[:, 0] % config.num_classes).astype(np.int32)
+            drawn += 1
+            if drawn > start_step:
+                yield {"x": tokens.astype(np.int32), "y": labels}
+
+    return input_fn, seen
+
+
+def _evaluator_record(model_dir: str, params, metrics, step) -> None:
+    """Phase 9's exporter, run by the evaluator after each checkpoint:
+    the checkpoint's metrics and this process's LayerNorm launches, to
+    <model_dir>/evaluator_counts.json."""
+    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch.ops import layernorm
+
+    path = Path(model_dir) / EVALUATOR_COUNTS
+    record = (json.loads(path.read_text()) if path.exists()
+              else {"metrics": {}})
+    record["metrics"][str(step)] = metrics
+    record["launches"] = {fn.__name__: fn.launches for fn in (
+        layernorm.layernorm, layernorm.layernorm_backward)}
+    record["device"] = str(task_device())
+    record["params"] = len(params)
+    path.write_text(json.dumps(record))
+
+
+def launcher_bert_experiment(model_dir: str, tiny: bool = False,
+                             preempt_at=None):
+    """Phase 9's experiment fn, called in the launched tasks: phase 7's
     BERT-base experiment (make_experiment at its JAX defaults,
-    fused_norms=True, 32 x 128, AdamW, 4 steps, seed 0) with a model_dir.
-    Its loss records the training losses, and after the last optimizer
-    step it writes them, the LayerNorm kernels' launch counts in this
-    process and whether this process built the kernel library to
-    <model_dir>/launcher_counts.json, beside the checkpoint. `tiny`: the
+    fused_norms=True, 32 x 128, AdamW, 4 steps, seed 0, the same
+    batches) with a model_dir, steps_per_loop=2, a checkpoint every 2
+    steps keeping the newest 1, and an eval stream (LAUNCHER_EVAL_STEPS
+    batches from seed 1). Its loss records the training losses, and
+    after the last optimizer step it writes them, the LayerNorm kernels'
+    launch counts in this process, whether this process built the kernel
+    library, the attempt and the step the input resumed at to
+    <model_dir>/launcher_counts.json; after the final eval, the eval
+    metrics the loop computed to <model_dir>/worker_eval.json. Its
+    exporter (`_evaluator_record`) runs in the evaluator. `preempt_at`:
+    attempt 0 requests the preemption drain after that step. `tiny`: the
     tiny f32 config, for a rehearsal on the CPU."""
+    import functools
+
     import torch
 
+    from tf_yarn_tpu_torch import constants, preemption
     from tf_yarn_tpu_torch.models import bert
     from tf_yarn_tpu_torch.ops import _build, layernorm
 
     if tiny:
-        exp = bert.make_experiment(
-            bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True),
-            model_dir=model_dir, train_steps=LAUNCHER_STEPS, log_every_steps=1,
-            batch_size=4, seq_len=16)
+        config = bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True)
+        shape = dict(batch_size=4, seq_len=16)
     else:
-        exp = bert.make_experiment(bert.BertConfig.base(fused_norms=True),
-                                   model_dir=model_dir,
-                                   train_steps=LAUNCHER_STEPS,
-                                   log_every_steps=1)
-    losses = []
+        config = bert.BertConfig.base(fused_norms=True)
+        shape = dict(batch_size=32, seq_len=128)
+    input_fn, seen = bert_stream(config, seed=0, **shape)
+    exp = bert.make_experiment(
+        config, model_dir=model_dir, train_steps=LAUNCHER_STEPS,
+        log_every_steps=2, steps_per_loop=2, checkpoint_every_steps=2,
+        keep_last_n=1, eval_steps=LAUNCHER_EVAL_STEPS, input_fn=input_fn,
+        **shape)
+    exp.eval_input_fn = bert_stream(config, seed=1, **shape)[0]
+    exp.exporters = functools.partial(_evaluator_record, model_dir)
+    n_try = int(os.environ.get(constants.ENV_N_TRY, "0"))
+    losses, evals = [], []
     loss_fn, make_optimizer = exp.loss_fn, exp.optimizer
+
+    def done() -> bool:
+        return (seen["start_step"] or 0) + len(losses) == LAUNCHER_STEPS
 
     def recording_loss(model, batch, train=True):
         loss, aux = loss_fn(model, batch, train=train)
         if train:
             losses.append(loss.detach())
+        elif done():
+            # The final eval's batches, averaged as `training.evaluate`
+            # averages them.
+            evals.append({"loss": loss, **aux})
+            if len(evals) == LAUNCHER_EVAL_STEPS:
+                totals = {}
+                for metrics in evals:
+                    for key, value in metrics.items():
+                        totals[key] = totals.get(key, 0.0) + float(value)
+                (Path(model_dir) / WORKER_EVAL).write_text(json.dumps(
+                    {k: v / len(evals) for k, v in totals.items()}))
         return loss, aux
 
     def optimizer(model):
         opt = make_optimizer(model)
 
         def after_step(opt, args, kwargs):
-            if len(losses) != LAUNCHER_STEPS:
+            step = (seen["start_step"] or 0) + len(losses)
+            if n_try == 0 and step == preempt_at:
+                preemption.request()
+            if not done():
                 return
             record = {
                 "losses": [float(x) for x in losses],
@@ -2822,6 +2951,7 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False):
                     layernorm.layernorm, layernorm.layernorm_backward)},
                 "built_kernels_here": _build.build_seconds is not None,
                 "device": str(model.device),
+                "n_try": n_try, "start_step": seen["start_step"],
             }
             Path(model_dir).mkdir(parents=True, exist_ok=True)
             (Path(model_dir) / LAUNCHER_COUNTS).write_text(json.dumps(record))
@@ -2866,19 +2996,22 @@ def launcher_all_reduce_fn(out_path: str):
 
 
 class kv_snapshot:
-    """Read `keys` from the run's KV store when the attempt ends, before
+    """Read `keys` from the run's KV store when each attempt ends, before
     the driver stops the server: `client.handle_events` is wrapped for
-    the duration of the block."""
+    the duration of the block. `values` is the last attempt's,
+    `attempts` every attempt's in order."""
 
     def __init__(self, client, keys):
         self._client, self._keys = client, keys
         self.values = {}
+        self.attempts = []
 
     def __enter__(self):
         self._original = original = self._client.handle_events
 
         def reading(kv, tasks):
-            self.values.update({key: kv.get_str(key) for key in self._keys})
+            self.values = {key: kv.get_str(key) for key in self._keys}
+            self.attempts.append(self.values)
             return original(kv, tasks)
 
         self._client.handle_events = reading
@@ -2906,45 +3039,101 @@ LAUNCHER_SPANS = ("experiment/run", "train/first_batch", "train/init",
                   "train/checkpoint_save")
 
 
+EVALUATOR_HEALTH = ("awake_time_ratio", "eval_step_mean_duration",
+                    "last_training_step", "nb_eval_steps")
+# Evaluator against the worker's own final eval of the same weights.
+EVALUATOR_TOL = 1e-5
+
+
+def _profile_kernels(profile_dir: Path) -> dict:
+    """{kernel name: launches} of the port's kernels in the one Chrome
+    trace the worker's profile window wrote."""
+    traces = sorted(profile_dir.glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile window traces: {traces}")
+    found = {}
+    for e in json.loads(traces[0].read_text())["traceEvents"]:
+        if e.get("cat") == "kernel" and PORT_KERNEL.search(e.get("name", "")):
+            name = PORT_KERNEL.search(e["name"]).group(1)
+            found[name] = found.get(name, 0) + 1
+    return found
+
+
+def _imports(module: str) -> bool:
+    """Whether `module` imports in this environment (the tasks' too)."""
+    import importlib
+
+    try:
+        importlib.import_module(module)
+    except Exception:
+        return False
+    return True
+
+
 def launcher_slice(torch, client, topologies, reference_losses,
                    reference_launches, tiny=False, env=None):
-    """Phase 9: (a) BERT-base trained LAUNCHER_STEPS steps in a worker
-    that `run_on_gpu` launched: Metrics with the worker, the KV's
-    last_training_step, the LayerNorm kernels launched in the task as
-    often as phase 7 launched them in this process, the losses equal to
-    phase 7's within LAUNCHER_LOSS_RTOL, the library not rebuilt; the
-    wall to return and the worker's steps from its exported trace (task
-    and driver share CLOCK_MONOTONIC). (b) the same run with no visible
-    card raises RunFailed with the port's no-CUDA error. (c) the fn of
-    rank on tasks.distributed (1 host x 1 process) all_reduces through
-    NCCL. `env` adds to every task's environment (the CPU rehearsal's
-    TPU_YARN_PLATFORM=cpu goes to (a) and (c) only)."""
+    """Phase 9: (a) BERT-base trained LAUNCHER_STEPS steps (chunks of 2)
+    in a worker that `run_on_gpu` launched beside an evaluator (on the
+    card, the default) and a tensorboard task: Metrics with
+    the worker, the KV's last_training_step, the LayerNorm kernels
+    launched in the worker as often as phase 7 launched them in this
+    process, the losses equal to phase 7's within LAUNCHER_LOSS_RTOL, the
+    library not rebuilt; eval-done markers for ckpt-2 and ckpt-4, the
+    evaluator's ckpt-4 metrics equal to the worker's final eval within
+    EVALUATOR_TOL, the evaluator's LayerNorm forward launched and not its
+    backward, its health keys in the KV, the tensorboard URL logged and
+    the ``tb/`` events written where tensorboard imports, and the
+    TPU_YARN_PROFILE_STEPS="2:4" window's trace holding the LayerNorm
+    kernels; the wall to return and the worker's steps from its exported
+    trace (task and driver share CLOCK_MONOTONIC). (b) the same run with
+    no visible card raises RunFailed with the port's no-CUDA error. (c)
+    the fn of rank on tasks.distributed (1 host x 1 process) all_reduces
+    through NCCL. (d) the worker requests the preemption drain after
+    step 2 in attempt 0 (nb_retries=1): attempt 0 saves ckpt-2 and is
+    classified PREEMPTED, attempt 1 resumes at step 2 and its steps 3-4
+    equal phase 7's within LAUNCHER_LOSS_RTOL. `env` adds to every
+    task's environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu goes to
+    (a), (c) and (d) only). Each part's seconds are under "seconds"."""
     import tempfile
+
+    from tf_yarn_tpu_torch import telemetry
 
     spec = {"worker": topologies.TaskSpec(
         instances=1, chips_per_host=1, label=topologies.NodeLabel.GPU)}
+    side_cars = dict(spec,
+                     evaluator=topologies.TaskSpec(instances=1),
+                     tensorboard=topologies.TaskSpec(
+                         instances=1, tb_termination_timeout_seconds=0))
     base_env = {"PYTHONPATH": str(REPO)}
-    result = {}
+    board = {"writer": _imports("torch.utils.tensorboard"),
+             "server": _imports("tensorboard.program")}
+    result = {"seconds": {}}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        model = tmp / "model"
         keys = ("worker:0/last_training_step", "worker:0/metrics",
-                "worker:0/container_start_time")
+                "worker:0/container_start_time", "worker:0/stop",
+                *(f"evaluator:0/{key}" for key in EVALUATOR_HEALTH))
         run_env = dict(base_env, TPU_YARN_TRACE=str(tmp / "trace"),
-                       **(env or {}))
-        with kv_snapshot(client, keys) as seen:
+                       TPU_YARN_PROFILE=str(tmp / "profile"),
+                       TPU_YARN_PROFILE_STEPS="2:4",
+                       TPU_YARN_EVAL_IDLE_TIMEOUT="120", **(env or {}))
+        with kv_snapshot(client, keys) as seen, endpoint_log() as log:
             started, started_wall = time.perf_counter(), time.time()
             metrics = client.run_on_gpu(
                 client.get_safe_experiment_fn(
-                    "chip_smoke.launcher_bert_experiment", str(tmp / "model"),
-                    tiny),
-                spec, env=run_env, poll_every_secs=0.5, dead_task_secs=120)
+                    "chip_smoke.launcher_bert_experiment", str(model), tiny),
+                side_cars, env=run_env, poll_every_secs=0.5,
+                dead_task_secs=120)
             wall = time.perf_counter() - started
+        result["seconds"]["a_train"] = wall
         if (metrics is None or metrics.total_training_duration is None
-                or metrics.train_eval_time_per_node.get("worker:0") is None):
+                or metrics.train_eval_time_per_node.get("worker:0") is None
+                or metrics.train_eval_time_per_node.get("evaluator:0") is None):
             raise AssertionError(f"launcher metrics {metrics}")
         if seen.values["worker:0/last_training_step"] != str(LAUNCHER_STEPS):
             raise AssertionError(f"KV after the run: {seen.values}")
-        record = json.loads((tmp / "model" / LAUNCHER_COUNTS).read_text())
+        record = json.loads((model / LAUNCHER_COUNTS).read_text())
         # (The CPU rehearsal's plain versions launch nothing.)
         if record["launches"] != reference_launches \
                 or (not tiny and min(record["launches"].values()) <= 0):
@@ -2959,11 +3148,42 @@ def launcher_slice(torch, client, topologies, reference_losses,
                 or loss_err > LAUNCHER_LOSS_RTOL:
             raise AssertionError(f"launched losses {record['losses']} against "
                                  f"in-process {reference_losses}")
+        markers = sorted(p.name for p in (model / "eval-done").glob("*.json"))
+        if markers != ["eval-done-2.json", "eval-done-4.json"]:
+            raise AssertionError(f"eval-done markers {markers}")
+        evaluator = json.loads((model / EVALUATOR_COUNTS).read_text())
+        worker_eval = json.loads((model / WORKER_EVAL).read_text())
+        final = evaluator["metrics"][str(LAUNCHER_STEPS)]
+        eval_err = max(abs(final[k] - worker_eval[k]) for k in worker_eval)
+        if sorted(final) != sorted(worker_eval) or eval_err > EVALUATOR_TOL:
+            raise AssertionError(f"evaluator's ckpt-{LAUNCHER_STEPS} metrics "
+                                 f"{final}, the worker's {worker_eval}")
+        if not tiny and (evaluator["launches"]["layernorm"] <= 0
+                         or evaluator["launches"]["layernorm_backward"]):
+            raise AssertionError(f"evaluator launches {evaluator}")
+        health = {key: seen.values[f"evaluator:0/{key}"]
+                  for key in EVALUATOR_HEALTH}
+        if None in health.values() or health["last_training_step"] != str(
+                LAUNCHER_STEPS):
+            raise AssertionError(f"evaluator health keys {health}")
+        # Where tensorboard does not import, the run goes on without it:
+        # no event files, no URL.
+        tb_url = log.endpoints("tensorboard URL")
+        tb_events = sorted(p.name for p in (model / "tb").glob("events.*"))
+        if board["server"] != (len(tb_url) == 1) \
+                or board["writer"] != bool(tb_events):
+            raise AssertionError(
+                f"tensorboard imports {board}; URL logged {tb_url}; events "
+                f"{tb_events}")
+        profiled = _profile_kernels(tmp / "profile")
+        if not tiny and not any(name.startswith("layernorm")
+                                for name in profiled):
+            raise AssertionError(f"profile window kernels {profiled}")
         spans = _trace_spans(tmp / "trace" / "trace_worker-0.json")
-        # A step: its dispatch span through the end of its device wait.
-        steps = [(start, wait_end) for (start, _), (_, wait_end) in zip(
+        # A chunk: its dispatch span through the end of its device wait.
+        chunks = [(start, wait_end) for (start, _), (_, wait_end) in zip(
             spans["train/step_dispatch"], spans["train/device_wait"])]
-        step_s = [end - start for start, end in steps]
+        chunk_s = [end - start for start, end in chunks]
         task_metrics = json.loads(seen.values["worker:0/metrics"])
         result["a_train"] = {
             "wall_s": wall,
@@ -2972,22 +3192,33 @@ def launcher_slice(torch, client, topologies, reference_losses,
                 - started_wall,
             "task_spans_s": {name: [end - start for start, end in spans[name]]
                              for name in LAUNCHER_SPANS if name in spans},
-            "launch_to_first_step_start_s": steps[0][0] - started,
-            "launch_to_first_step_end_s": steps[0][1] - started,
-            "step_s": step_s,
-            "steady_step_s": sum(step_s[1:]) / len(step_s[1:]),
-            "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+            "launch_to_first_chunk_start_s": chunks[0][0] - started,
+            "launch_to_first_chunk_end_s": chunks[0][1] - started,
+            "chunk_s": chunk_s, "steps_per_chunk": 2,
             "total_training_duration_s": metrics.total_training_duration,
             "container_duration_s": metrics.container_duration,
             "last_training_step": seen.values["worker:0/last_training_step"],
             "task_metrics_keys": len(task_metrics),
             "task_steps_total": task_metrics.get("train/steps_total"),
+            "checkpoint_seconds": {
+                key: value for key, value in task_metrics.items()
+                if key.startswith("checkpoint/seconds")},
             "launches": record["launches"],
             "reference_launches": reference_launches,
             "losses": record["losses"], "reference_losses": reference_losses,
             "loss_max_rel_err": loss_err,
             "losses_bitwise_equal": record["losses"] == list(reference_losses),
             "device": record["device"],
+            "evaluator": {"markers": markers, "device": evaluator["device"],
+                          "launches": evaluator["launches"],
+                          "ckpt_metrics": evaluator["metrics"],
+                          "worker_final_eval": worker_eval,
+                          "max_abs_err": eval_err, "health": health,
+                          "train_eval_s":
+                              metrics.train_eval_time_per_node["evaluator:0"]},
+            "tensorboard": {"imports": board, "url": tb_url,
+                            "events": tb_events},
+            "profile_window_kernels": profiled,
         }
 
         started = time.perf_counter()
@@ -3008,6 +3239,7 @@ def launcher_slice(torch, client, topologies, reference_losses,
             raise AssertionError("a worker with no visible card trained")
         if (tmp / "no_card" / LAUNCHER_COUNTS).exists():
             raise AssertionError("the no-card run reached a training step")
+        result["seconds"]["b_no_card"] = time.perf_counter() - started
 
         out = tmp / "all_reduce.json"
         started = time.perf_counter()
@@ -3023,6 +3255,52 @@ def launcher_slice(torch, client, topologies, reference_losses,
             raise AssertionError(f"fn of rank: {reduced}")
         result["c_all_reduce"] = dict(reduced,
                                       wall_s=time.perf_counter() - started)
+        result["seconds"]["c_all_reduce"] = time.perf_counter() - started
+
+        drained = tmp / "drained"
+        retries = telemetry.get_registry().counter(
+            "driver/retries_total", kind="PREEMPTED")
+        retried_before = retries.value
+        started = time.perf_counter()
+        with kv_snapshot(client, ("worker:0/stop",
+                                  "worker:0/last_training_step")) as seen:
+            client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.launcher_bert_experiment", str(drained), tiny,
+                    2),
+                spec, env=dict(base_env, **(env or {})), nb_retries=1,
+                poll_every_secs=0.5, dead_task_secs=120)
+        result["seconds"]["d_drain"] = time.perf_counter() - started
+        first, last = (seen.attempts + [{}, {}])[:2]
+        drained_message = (first.get("worker:0/stop") or "").strip()
+        record = json.loads((drained / LAUNCHER_COUNTS).read_text())
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(record["losses"], reference_losses[2:]))
+        if (len(seen.attempts) != 2
+                or "preempted at step 2; checkpoint saved to" not in
+                drained_message
+                or retries.value - retried_before != 1
+                or (record["n_try"], record["start_step"]) != (1, 2)
+                or last.get("worker:0/last_training_step") != str(
+                    LAUNCHER_STEPS)
+                or len(record["losses"]) != LAUNCHER_STEPS - 2
+                or loss_err > LAUNCHER_LOSS_RTOL):
+            raise AssertionError(
+                f"drain: attempts {seen.attempts}, record {record}, "
+                f"retries {retries.value - retried_before}, phase 7's "
+                f"losses {reference_losses}\n{task_log_tails(runs=2)}")
+        result["d_drain"] = {
+            "attempts": len(seen.attempts),
+            "attempt_0_stop": drained_message.splitlines()[-1],
+            "preempted_retries": retries.value - retried_before,
+            "resumed_at": record["start_step"],
+            "losses": record["losses"],
+            "reference_losses": reference_losses[2:],
+            "loss_max_rel_err": loss_err,
+            "losses_bitwise_equal":
+                record["losses"] == list(reference_losses[2:]),
+            "wall_s": result["seconds"]["d_drain"],
+        }
     return result
 
 
@@ -3071,8 +3349,8 @@ FLEET_RANK_TOL = 1e-5
 
 
 def fleet_config(torch, tt, tiny: bool):
-    """Phase 5's decoder (Llama-3-8B widths, 32 layers, bf16, int8 KV), or
-    the small f32 one of TINY_FLEET."""
+    """Llama-3-8B (its 32 layers, bf16, int8 KV), or the small f32 one of
+    TINY_FLEET."""
     if tiny:
         return tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
                                     **TINY_FLEET)
@@ -3873,10 +4151,13 @@ def main() -> int:
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
                        decode_attention.paged_int8_window_attention,
                        decode_attention.int8_decode_attention)
-    slice_result = serve_slice(torch, tt, engine_mod, sched_mod, server_mod,
-                               telemetry, serving_counted, dev)
+    slice_result, serve_seconds = serve_slice(
+        torch, tt, engine_mod, sched_mod, server_mod, telemetry,
+        serving_counted, dev)
     for path, result in slice_result.items():
         log(f"serving slice, {path}: {json.dumps(result)} on {card}")
+    log("serving phase parts: " + json.dumps(
+        {part: round(t, 1) for part, t in serve_seconds.items()}))
     gc.collect()
     torch.cuda.empty_cache()
     mark("5 serving slice")
@@ -3930,7 +4211,9 @@ def main() -> int:
         {name: bert_launches[name]
          for name in ("layernorm", "layernorm_backward")})
     log(f"launcher slice: {json.dumps(launcher_result)} on {card}")
-    log(f"launcher phase: {time.perf_counter() - started:.1f} s")
+    log(f"launcher phase: {time.perf_counter() - started:.1f} s; its parts: "
+        + json.dumps({part: round(t, 1) for part, t
+                      in launcher_result["seconds"].items()}))
     gc.collect()
     torch.cuda.empty_cache()
     mark("9 launcher slice")
@@ -3969,6 +4252,9 @@ def main() -> int:
         launched = launcher_result["a_train"]["launches"]
         if row["name"] in launched:
             by_path["launcher bert_base"] = launched[row["name"]]
+        launched = launcher_result["a_train"]["evaluator"]["launches"]
+        if launched.get(row["name"]):
+            by_path["launcher evaluator"] = launched[row["name"]]
         by_path.update({path: launched[row["name"]]
                         for path, launched in fleet_launches.items()
                         if row["name"] in launched})

@@ -77,7 +77,10 @@ def test_a_port_experiment_trains_in_the_worker_as_in_process(
     t_training.train_and_evaluate(
         t_experiment.as_core_experiment(_bert_experiment_fn(local)()),
         device="cpu")
-    assert sorted(os.listdir(launched)) == sorted(os.listdir(local)) \
+    # Beside the checkpoint, the loop's TensorBoard events where
+    # tensorboard imports (`tb/`).
+    assert sorted(os.listdir(launched)) == sorted(os.listdir(local))
+    assert [name for name in sorted(os.listdir(launched)) if name != "tb"] \
         == [f"ckpt-{STEPS}"]
     got = torch.load(f"{launched}/ckpt-{STEPS}/params.pt")
     ref = torch.load(f"{local}/ckpt-{STEPS}/params.pt")

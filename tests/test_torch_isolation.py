@@ -32,7 +32,9 @@ def test_package_imports_with_jax_blocked():
     for launcher in ("client", "tasks.worker", "tasks.distributed",
                      "coordination.kv", "backends", "resilience.taxonomy",
                      "fleet.router", "fleet.registry", "fleet.monitor",
-                     "fleet.autoscaler", "fleet.policy", "tasks.router"):
+                     "fleet.autoscaler", "fleet.policy", "tasks.router",
+                     "evaluation", "tasks.evaluator", "tasks.tensorboard",
+                     "utils.evaluator_metrics", "utils.tensorboard_utils"):
         assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"

@@ -207,7 +207,6 @@ def test_the_router_builds_its_model_on_meta_and_never_touches_cuda(
 
 
 def test_the_driver_launches_and_logs_the_router():
-    assert "router" not in t_client.UNPORTED_TASK_TYPES
     assert t_client.ENDPOINT_EVENTS["router"][1] == "router endpoint"
     assert t_client.ENDPOINT_EVENTS["router"][0]("router:0") == \
         "router:0/router_endpoint"

@@ -104,10 +104,9 @@ def test_capacity_gauges_and_placement_timing_match_jax(elastic, monkeypatch):
     """4 steps of batch 2 on one CPU device: both registries hold the same
     keys, among them ``train/mesh_devices`` (1.0), ``train/degraded``
     (1.0 only for an elastic attempt below its full worker count) and
-    the ``train/globalize_seconds`` histogram of batch placement. The
-    JAX package's async checkpoint writer (``checkpoint/seconds{op=
-    save_submit|wait}``) is not ported yet; no checkpoint is written
-    here."""
+    the ``train/globalize_seconds`` histogram of batch placement. No
+    checkpoint is written here (`test_torch_train_loop_rest.py` holds the
+    writer's ``checkpoint/seconds`` keys)."""
     from tf_yarn_tpu import constants
     from tf_yarn_tpu import telemetry as j_telemetry
 

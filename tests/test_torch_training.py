@@ -389,10 +389,6 @@ def test_make_experiment_matches_the_jax_recipe():
 def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tt.Transformer(_port_config(moe_experts=2), device="cpu")
-    exp = _tiny_experiment(tmp_path, steps_per_loop=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
-                                      device="cpu")
 
     class Mesh:
         total_devices = 2

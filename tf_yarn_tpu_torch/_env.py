@@ -2,11 +2,9 @@
 modules under ``tf_yarn_tpu_torch.tasks``.
 
 Each task instance runs ``python -m <module>``; `custom_task_module`
-keeps the seam for other task programs (``tasks.distributed``). The
-worker, distributed, serving, prefill and rank programs exist in the
-port; `client.run_on_gpu` refuses the evaluator, tensorboard and router
-task types before it launches anything (ROADMAP.md Queue 1 items 4 and
-6).
+keeps the seam for other task programs (``tasks.distributed``). Every
+task type has its program in the port: worker, distributed, evaluator,
+tensorboard, serving, prefill, rank and router.
 """
 
 from __future__ import annotations

@@ -82,6 +82,13 @@ class ClusterHandle(ABC):
     def logs(self) -> Dict[str, str]:
         """task "type:id" -> log location (file path or URL)."""
 
+    def side_cars(self) -> List[TaskKey]:
+        """Side-car tasks (evaluator, tensorboard) still running."""
+        return []
+
+    def stop_side_cars(self) -> None:
+        """Terminate the side-cars still running."""
+
 
 class SliceBackend(ABC):
     @abstractmethod
@@ -89,6 +96,19 @@ class SliceBackend(ABC):
         self, services: Dict[str, ServiceSpec], log_dir: str
     ) -> ClusterHandle:
         ...
+
+
+def _terminate(procs) -> None:
+    """SIGTERM each running process, then SIGKILL what outlives 10 s."""
+    procs = list(procs)
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
 
 
 class _LocalHandle(ClusterHandle):
@@ -122,14 +142,15 @@ class _LocalHandle(ClusterHandle):
 
     def kill(self) -> None:
         self._killed = True
-        for proc in self._procs.values():
-            if proc.poll() is None:
-                proc.terminate()
-        for proc in self._procs.values():
-            try:
-                proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                proc.kill()
+        _terminate(self._procs.values())
+
+    def side_cars(self) -> List[TaskKey]:
+        return [key for key, proc in self._procs.items()
+                if key.type not in PRIMARY_TASK_TYPES and proc.poll() is None]
+
+    def stop_side_cars(self) -> None:
+        _terminate(proc for key, proc in self._procs.items()
+                   if key.type not in PRIMARY_TASK_TYPES)
 
     def logs(self) -> Dict[str, str]:
         return {key.to_kv_str(): path for key, path in self._log_files.items()}

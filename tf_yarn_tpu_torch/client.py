@@ -19,9 +19,22 @@ that cannot be pickled raises here, before anything is launched.
 Not ported yet, each refused before anything is launched: code and
 dependency shipping (`ship_code`, `requirements`, `wheels_dir`,
 `env_staging_dir`; ROADMAP.md Queue 1 item 5), backends other than
-`LocalBackend` (`SshBackend`; item 5), elastic resize (`elastic_policy`;
-item 5), and the task programs of the evaluator and tensorboard task
-types (item 4).
+`LocalBackend` (`SshBackend`; item 5) and elastic resize
+(`elastic_policy`; item 5).
+
+The side-cars: an ``evaluator`` task places itself as every task does,
+on the card unless the caller's env sets ``TPU_YARN_PLATFORM=cpu`` (the
+JAX driver defaults its evaluator to the CPU; the port does not); the
+driver polls its health metrics
+(`utils.evaluator_metrics.EvaluatorMetricsLogger`, filtered by
+`eval_monitor_log_thresholds`). A ``tensorboard`` task gets
+``TB_MODEL_DIR``, ``TB_EXTRA_ARGS`` and
+``TB_TERMINATION_TIMEOUT_SECONDS`` from its `TaskSpec`, and the driver
+logs its URL once ("tensorboard URL http://..."). The side-cars do not
+gate the attempt's outcome; after a successful one the driver keeps the
+coordination service up until they end on their own (the evaluator
+after the final checkpoint, tensorboard after its linger), within the
+run's budget, and terminates any still running before it returns.
 
 The serving, prefill and rank replicas and the fleet's router advertise
 their HTTP endpoints in the KV store (``{task}/serving_endpoint``,
@@ -51,6 +64,7 @@ from tf_yarn_tpu_torch.backends import (
     KILLED,
     PRIMARY_TASK_TYPES,
     RUNNING,
+    SUCCEEDED,
     ClusterHandle,
     LocalBackend,
     ServiceSpec,
@@ -70,23 +84,18 @@ from tf_yarn_tpu_torch.topologies import (
     single_server_topology,
 )
 from tf_yarn_tpu_torch.utils import mlflow
+from tf_yarn_tpu_torch.utils.evaluator_metrics import EvaluatorMetricsLogger
 from tf_yarn_tpu_torch.utils.metrics import (
     Metrics,
     OneShotMetricsLogger,
     TaskOutcome,
     handle_events,
 )
+from tf_yarn_tpu_torch.utils.tensorboard_utils import url_event_name
 
 _logger = logging.getLogger(__name__)
 
 ExperimentFn = Callable[[], object]
-
-# Task types whose task program is not in the port yet, and the ROADMAP.md
-# Queue 1 item that brings it.
-UNPORTED_TASK_TYPES = {
-    "evaluator": "item 4",
-    "tensorboard": "item 4",
-}
 
 # The endpoint each replica type advertises, and the driver log's label
 # for it.
@@ -168,6 +177,15 @@ def _setup_task_env(
             tracking_uri = mlflow.get_tracking_uri()
             if tracking_uri:
                 task_env.setdefault("MLFLOW_TRACKING_URI", tracking_uri)
+        if task_type == "tensorboard":
+            if spec.tb_model_dir:
+                task_env.setdefault("TB_MODEL_DIR", spec.tb_model_dir)
+            if spec.tb_extra_args:
+                task_env.setdefault("TB_EXTRA_ARGS", spec.tb_extra_args)
+            task_env.setdefault(
+                "TB_TERMINATION_TIMEOUT_SECONDS",
+                str(spec.tb_termination_timeout_seconds),
+            )
         services[task_type] = ServiceSpec(
             module=_env.gen_task_module(task_type, custom_task_module),
             instances=spec.instances,
@@ -246,6 +264,7 @@ def _execute_and_await_termination(
     serialized_fn: bytes,
     n_try: int,
     poll_every_secs: float,
+    eval_monitor_log_thresholds: Optional[Dict[str, tuple]] = None,
     deadline: Optional[Deadline] = None,
     dead_task_secs: Optional[float] = None,
 ) -> Metrics:
@@ -258,14 +277,23 @@ def _execute_and_await_termination(
     a poll interval, instead of hanging until the deadline."""
     cluster.kv.put(constants.KV_EXPERIMENT_FN, serialized_fn)
 
-    # Each replica's advertised endpoint, logged once when it appears (the
-    # JAX driver logs the serving and rank ones; the prefill tier's too
-    # here, so a disaggregated run shows both of its tiers).
+    evaluator_logger = EvaluatorMetricsLogger(
+        [t for t in cluster.handle.tasks() if t.type == "evaluator"],
+        cluster.kv,
+        n_try=n_try,
+        log_thresholds=eval_monitor_log_thresholds,
+    )
+    # The tensorboard URL and each replica's advertised endpoint, logged
+    # once when it appears (the JAX driver logs the serving and rank
+    # ones; the prefill tier's too here, so a disaggregated run shows
+    # both of its tiers).
     endpoint_logger = OneShotMetricsLogger(
         cluster.kv,
-        [(ENDPOINT_EVENTS[key.type][0](key.to_kv_str()),
-          ENDPOINT_EVENTS[key.type][1])
-         for key in cluster.handle.tasks() if key.type in ENDPOINT_EVENTS],
+        [(url_event_name(key.to_kv_str()), "tensorboard URL")
+         for key in cluster.handle.tasks() if key.type == "tensorboard"]
+        + [(ENDPOINT_EVENTS[key.type][0](key.to_kv_str()),
+            ENDPOINT_EVENTS[key.type][1])
+           for key in cluster.handle.tasks() if key.type in ENDPOINT_EVENTS],
         n_try,
     )
     watchdog = None
@@ -278,6 +306,7 @@ def _execute_and_await_termination(
     while status == RUNNING:
         time.sleep(poll_every_secs)
         status = cluster.handle.status()
+        evaluator_logger.log()
         endpoint_logger.log()
         if status != RUNNING:
             break
@@ -306,6 +335,18 @@ def _execute_and_await_termination(
             cluster.handle.kill()
             status = KILLED
             break
+
+    if status == SUCCEEDED:
+        # The side-cars end on their own once training has stopped (the
+        # evaluator after the final checkpoint, or with none pending;
+        # tensorboard after its linger): the coordination service stays
+        # up for them, within the run's budget.
+        while cluster.handle.side_cars() and not (
+                deadline is not None and deadline.expired()):
+            time.sleep(poll_every_secs)
+            evaluator_logger.log()
+            endpoint_logger.log()
+    cluster.handle.stop_side_cars()
 
     if cluster.event_listener is not None:
         cluster.event_listener.join(timeout=5.0)
@@ -419,21 +460,10 @@ def _log_run_outcome(
     mlflow.save_text_to_mlflow(summary, "tpu_yarn_run_outcome")
 
 
-def _refuse_unported(task_specs: TaskSpecs, backend: SliceBackend, *,
-                     ship_code, requirements, wheels_dir, env_staging_dir,
-                     elastic_policy, eval_monitor_log_thresholds) -> None:
+def _refuse_unported(backend: SliceBackend, *, ship_code, requirements, wheels_dir, env_staging_dir,
+                     elastic_policy) -> None:
     """Raise NotImplementedError for what the port cannot launch yet,
     before anything is started."""
-    unported = sorted(t for t, spec in task_specs.items()
-                      if spec.instances > 0 and t in UNPORTED_TASK_TYPES)
-    if unported:
-        raise NotImplementedError(
-            "task programs not ported yet (ROADMAP.md Queue 1): " + ", ".join(
-                f"{t!r} ({UNPORTED_TASK_TYPES[t]})" for t in unported))
-    if eval_monitor_log_thresholds is not None:
-        raise NotImplementedError(
-            "eval_monitor_log_thresholds reads the evaluator, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 4)")
     if elastic_policy is not None:
         raise NotImplementedError(
             "elastic_policy: resilience/elastic.py and the driver's resize "
@@ -501,10 +531,9 @@ def run_on_gpu(
     check_topology(task_specs)
     backend = backend or LocalBackend()
     _refuse_unported(
-        task_specs, backend, ship_code=ship_code, requirements=requirements,
+        backend, ship_code=ship_code, requirements=requirements,
         wheels_dir=wheels_dir, env_staging_dir=env_staging_dir,
-        elastic_policy=elastic_policy,
-        eval_monitor_log_thresholds=eval_monitor_log_thresholds)
+        elastic_policy=elastic_policy)
     env = dict(env or {})
     files = dict(files or {})
     try:
@@ -543,6 +572,7 @@ def run_on_gpu(
                 serialized_fn,
                 n_try,
                 poll_every_secs,
+                eval_monitor_log_thresholds,
                 deadline,
                 dead_task_secs,
             )

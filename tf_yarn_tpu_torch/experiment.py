@@ -2,12 +2,16 @@
 port's train loop and batch inference consume.
 
 `TrainParams` is a copy of the JAX package's loop knobs with the same
-validation (experiment.py:39-100), less ``drain_poll_every_steps``: the
-preemption drain it paces is not ported. `TorchExperiment` is the counterpart
-of `JaxExperiment` (experiment.py:103-123) and `as_core_experiment`
-normalises it into `CoreExperiment`, the form `training.
-train_and_evaluate` reads. The Estimator and Keras shapes are not
-ported.
+validation (experiment.py:39-100). `TorchExperiment` is the counterpart
+of `JaxExperiment` (experiment.py:103-123); the Estimator shape
+(`Estimator`, `TrainSpec`, `EvalSpec`, `ExperimentSpec`;
+experiment.py:126-214) and `KerasExperiment` (experiment.py:217-233)
+are the reference's other two. `as_core_experiment` normalises each into
+`CoreExperiment`, the form `training.train_and_evaluate` and the
+side-car evaluator (`evaluation.continuous_eval`) read. ``exporters``
+(``exporters(params, metrics, step)``, one callable or a sequence) run
+in the evaluator after each checkpoint's evaluation; ``params`` is the
+checkpoint's state dict.
 
 Differences that PyTorch brings: the parameters live in the module, so
 ``model`` is an ``nn.Module`` (or None, with ``init_fn(device, seed)``
@@ -36,14 +40,15 @@ NotImplementedError naming its ROADMAP.md Queue 1 item: any ``mesh_spec``
 fleet (`fleet.router.run_router`), whose model is on the meta device.
 
 `run_experiment` (experiment.py:765-799) is what the worker, serving
-and rank task programs call: training on the task's device, batch
-inference, `serving.server.run_serving` or `ranking.server.run_ranking`.
+and rank task programs call: training on the task's device (every
+training shape), batch inference, `serving.server.run_serving` or
+`ranking.server.run_ranking`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 Batch = Dict[str, Any]
 InputFn = Callable[[], Iterator[Batch]]
@@ -65,8 +70,14 @@ class TrainParams:
     # Split each batch into N sequential microbatches, averaging
     # gradients before the one optimizer update.
     grad_accum_steps: int = 1
-    # N steps per host round trip; > 1 is not ported (the loop raises).
+    # Run N train steps back to back between host events (no host read
+    # inside the chunk); chunks never cross a log, checkpoint, eval or
+    # profile boundary.
     steps_per_loop: int = 1
+    # Multi-host preemption agreement polls every N steps; None = the
+    # smallest host cadence above. One process polls the flag every step
+    # and ignores this.
+    drain_poll_every_steps: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.train_steps < 1:
@@ -78,6 +89,11 @@ class TrainParams:
         if self.grad_accum_steps < 1:
             raise ValueError(
                 f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
+        if (self.drain_poll_every_steps is not None
+                and self.drain_poll_every_steps < 1):
+            raise ValueError(
+                "drain_poll_every_steps must be >= 1, got "
+                f"{self.drain_poll_every_steps}")
         for name in ("eval_every_steps", "checkpoint_every_steps",
                      "keep_last_n"):
             value = getattr(self, name)
@@ -105,10 +121,116 @@ class TorchExperiment:
     eval_input_fn: Optional[InputFn] = None
     init_fn: Optional[Callable[[Any, int], Any]] = None
     mesh_spec: Any = None
+    # exporters(params, metrics, step): run by the side-car evaluator
+    # after each checkpoint's evaluation.
+    exporters: Optional[Callable] = None
 
     def __post_init__(self) -> None:
         if self.model is None and self.init_fn is None:
             raise ValueError("TorchExperiment needs a model or an init_fn")
+
+
+class Estimator:
+    """Estimator-style shim (experiment.py:126-178): owns the model (or
+    its ``init_fn``), loss, optimizer factory and model_dir."""
+
+    def __init__(self, model: Any, loss_fn: Callable[..., Any],
+                 optimizer: Callable[[Any], Any],
+                 model_dir: Optional[str] = None,
+                 init_fn: Optional[Callable[[Any, int], Any]] = None,
+                 mesh_spec: Any = None) -> None:
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.model_dir = model_dir
+        self.init_fn = init_fn
+        self.mesh_spec = mesh_spec
+
+    @property
+    def config(self) -> Dict[str, Any]:
+        return {"model_dir": self.model_dir}
+
+    def train(self, input_fn: InputFn, max_steps: int, device=None,
+              **train_params) -> Dict:
+        """In-process training on `device` (the card unless "cpu");
+        `train_params` override `TrainParams` fields (an unknown key
+        raises TypeError)."""
+        from tf_yarn_tpu_torch import training
+
+        spec = ExperimentSpec(
+            estimator=self,
+            train_spec=TrainSpec(input_fn=input_fn, max_steps=max_steps))
+        core = as_core_experiment(spec)
+        if train_params:
+            core.train_params = dataclasses.replace(core.train_params,
+                                                    **train_params)
+        return training.train_and_evaluate(core, device=device)
+
+    def evaluate(self, input_fn: InputFn, steps: int = 10,
+                 device=None) -> Dict:
+        """Evaluate the latest checkpoint in model_dir on `input_fn`."""
+        from tf_yarn_tpu_torch import checkpoint as ckpt_lib
+        from tf_yarn_tpu_torch.evaluation import evaluate_checkpoint
+
+        if not self.model_dir:
+            raise ValueError("evaluate() needs a model_dir with checkpoints")
+        step = ckpt_lib.latest_checkpoint_step(self.model_dir)
+        if step is None:
+            raise ValueError(f"no checkpoints in {self.model_dir}")
+        return evaluate_checkpoint(
+            self.model, self.loss_fn, self.model_dir, step, input_fn, steps,
+            init_fn=self.init_fn, device=device)
+
+
+class TrainSpec(NamedTuple):
+    input_fn: InputFn
+    max_steps: int
+
+
+class EvalSpec(NamedTuple):
+    input_fn: Optional[InputFn] = None
+    steps: int = 10
+    throttle_secs: int = 30  # side-car evaluator poll cadence
+    start_delay_secs: int = 0
+    every_steps: Optional[int] = None  # in-loop eval cadence (None = end only)
+    # exporters(params, metrics, step), run by the side-car evaluator
+    # after each checkpoint's evaluation.
+    exporters: Optional[Callable] = None
+
+
+class ExperimentSpec(NamedTuple):
+    """`Experiment(estimator, train_spec, eval_spec)` (experiment.py:
+    198-214)."""
+
+    estimator: Estimator
+    train_spec: TrainSpec
+    eval_spec: Optional[EvalSpec] = None
+
+    @property
+    def config(self) -> Dict[str, Any]:
+        return self.estimator.config
+
+    @property
+    def model_dir(self) -> Optional[str]:
+        return self.estimator.model_dir
+
+
+@dataclasses.dataclass
+class KerasExperiment:
+    """Keras-shaped experiment (experiment.py:217-233): model, model_dir,
+    train_params, separate feature and target streams, with the optimizer
+    factory and loss a compiled Keras model would carry."""
+
+    model: Any
+    model_dir: Optional[str]
+    train_params: TrainParams
+    input_data_fn: InputFn
+    optimizer: Callable[[Any], Any]
+    loss_fn: Callable[..., Any]
+    target_data_fn: Optional[Callable] = None
+    validation_data_fn: Optional[InputFn] = None
+    init_fn: Optional[Callable[[Any, int], Any]] = None
+    mesh_spec: Any = None
 
 
 @dataclasses.dataclass
@@ -404,9 +526,33 @@ class CoreExperiment:
     eval_input_fn: Optional[InputFn]
     init_fn: Optional[Callable[[Any, int], Any]]
     mesh_spec: Any
+    # exporters(params, metrics, step): evaluator post-eval hook.
+    exporters: Optional[Callable] = None
+
+
+def _merge_input_targets(experiment: KerasExperiment) -> InputFn:
+    """Zip Keras-style separate feature/target streams into batch dicts
+    (experiment.py:693-707)."""
+
+    def input_fn():
+        targets = (experiment.target_data_fn() if experiment.target_data_fn
+                   else None)
+        for features in experiment.input_data_fn():
+            batch = (dict(features) if isinstance(features, dict)
+                     else {"x": features})
+            if targets is not None:
+                try:
+                    batch["y"] = next(targets)
+                except StopIteration:  # targets exhausted: epoch over
+                    return
+            yield batch
+
+    return input_fn
 
 
 def as_core_experiment(experiment: Any) -> CoreExperiment:
+    if isinstance(experiment, CoreExperiment):
+        return experiment
     if isinstance(experiment, TorchExperiment):
         return CoreExperiment(
             model=experiment.model,
@@ -418,25 +564,57 @@ def as_core_experiment(experiment: Any) -> CoreExperiment:
             eval_input_fn=experiment.eval_input_fn,
             init_fn=experiment.init_fn,
             mesh_spec=experiment.mesh_spec,
+            exporters=experiment.exporters,
         )
-    raise TypeError(
-        f"unsupported experiment type {type(experiment).__name__}; the port "
-        "takes TorchExperiment (the Estimator and Keras shapes are not ported)"
-    )
+    if isinstance(experiment, ExperimentSpec):
+        estimator = experiment.estimator
+        eval_spec = experiment.eval_spec
+        params = TrainParams(
+            train_steps=experiment.train_spec.max_steps,
+            eval_every_steps=eval_spec.every_steps if eval_spec else None,
+            eval_steps=eval_spec.steps if eval_spec else 10,
+        )
+        return CoreExperiment(
+            model=estimator.model,
+            optimizer=estimator.optimizer,
+            loss_fn=estimator.loss_fn,
+            train_input_fn=experiment.train_spec.input_fn,
+            train_params=params,
+            model_dir=estimator.model_dir,
+            eval_input_fn=eval_spec.input_fn if eval_spec else None,
+            init_fn=estimator.init_fn,
+            mesh_spec=estimator.mesh_spec,
+            exporters=eval_spec.exporters if eval_spec else None,
+        )
+    if isinstance(experiment, KerasExperiment):
+        return CoreExperiment(
+            model=experiment.model,
+            optimizer=experiment.optimizer,
+            loss_fn=experiment.loss_fn,
+            train_input_fn=_merge_input_targets(experiment),
+            train_params=experiment.train_params,
+            model_dir=experiment.model_dir,
+            eval_input_fn=experiment.validation_data_fn,
+            init_fn=experiment.init_fn,
+            mesh_spec=experiment.mesh_spec,
+        )
+    raise TypeError(f"cannot normalize experiment of type {type(experiment)!r}")
 
 
-EXPERIMENT_TYPES = (TorchExperiment, CoreExperiment, InferenceExperiment,
-                    ServingExperiment, RankingExperiment)
+# The training shapes `run_experiment` sends to `train_and_evaluate`.
+TRAINING_TYPES = (TorchExperiment, CoreExperiment, ExperimentSpec,
+                  KerasExperiment)
+EXPERIMENT_TYPES = TRAINING_TYPES + (InferenceExperiment, ServingExperiment,
+                                     RankingExperiment)
 
 
 def run_experiment(runtime, experiment: Any) -> None:
     """Entry used by tasks/{worker,serving,rank}.py: an
     `InferenceExperiment` goes to `inference.run_inference`, a
     `ServingExperiment` to `serving.server.run_serving`, a
-    `RankingExperiment` to `ranking.server.run_ranking`, a
-    `TorchExperiment` or `CoreExperiment` to
-    `training.train_and_evaluate` on `_device.task_device()`; anything
-    else raises `TypeError`. The body runs under an ``experiment/run``
+    `RankingExperiment` to `ranking.server.run_ranking`, a training
+    shape (`TRAINING_TYPES`) to `training.train_and_evaluate` on
+    `_device.task_device()`; anything else raises `TypeError`. The body runs under an ``experiment/run``
     span, and the trace is exported on the way out (``TPU_YARN_TRACE``)."""
     from tf_yarn_tpu_torch import telemetry
 
@@ -458,13 +636,12 @@ def run_experiment(runtime, experiment: Any) -> None:
 
                 run_ranking(experiment, runtime=runtime)
                 return
-            if isinstance(experiment, (TorchExperiment, CoreExperiment)):
+            if isinstance(experiment, TRAINING_TYPES):
                 from tf_yarn_tpu_torch import training
                 from tf_yarn_tpu_torch._device import task_device
 
-                core = (experiment if isinstance(experiment, CoreExperiment)
-                        else as_core_experiment(experiment))
-                training.train_and_evaluate(core, device=task_device(),
+                training.train_and_evaluate(as_core_experiment(experiment),
+                                            device=task_device(),
                                             runtime=runtime)
                 return
             raise TypeError(

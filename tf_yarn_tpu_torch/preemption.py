@@ -7,8 +7,8 @@ the train thread starts); the servers' `/healthz` answers "draining" as
 soon as the flag is set, so a load balancer stops sending to a replica
 about to vanish. :class:`Preempted` ships through the stop event like
 any failure and classifies as PREEMPTED, which the driver relaunches at
-once. The train loop's drain (poll, save, raise) is not ported yet
-(ROADMAP.md Queue 1 item 4).
+once. The train loop polls the flag after every step: it saves a
+checkpoint at that step, waits for the write and raises `Preempted`.
 
 User functions (`tasks.distributed` fns) can poll :func:`requested`.
 """

@@ -3,7 +3,8 @@ tf_yarn_tpu/tasks/_bootstrap.py: connect to the coordination service,
 publish the start-time and log-location events, and on the way out the
 stop event (with the failure's kind and traceback) and the stop time,
 exiting nonzero so the backend's process status agrees with the events.
-`run_replica` is the whole main of the serving, prefill, rank and router
+`wait_for_all_stops` is the tensorboard task's barrier on training's
+end. `run_replica` is the whole main of the serving, prefill, rank and router
 task programs.
 """
 
@@ -55,6 +56,16 @@ def reporting_shutdown(runtime: TaskRuntime) -> Iterator[None]:
         _logger.exception("task %s failed", runtime.task, exc_info=failure)
         sys.exit(1)
 
+
+def wait_for_all_stops(
+    runtime: TaskRuntime, timeout_per_task: float = 3600.0
+) -> None:
+    """Barrier on every cluster task's `stop` event: keeps a side-car
+    (the tensorboard task) alive until training ends."""
+    for instance in runtime.cluster_tasks:
+        peer = instance.to_kv_str()
+        if peer != runtime.task:
+            event.wait(runtime.kv, f"{peer}/{event.STOP}", timeout=timeout_per_task)
 
 
 def run_replica(name: str, body: Callable[[TaskRuntime, object], None]) -> None:

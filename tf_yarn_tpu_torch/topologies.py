@@ -81,6 +81,12 @@ class TaskSpec:
     chips_per_host: int = 0
     nb_proc_per_worker: int = 1
     label: NodeLabel = NodeLabel.CPU
+    # The tensorboard task's knobs (topologies.py:110-112): the linger
+    # after training (negative: the default 30 s), the served directory
+    # (default: the experiment's model_dir) and extra CLI arguments.
+    tb_termination_timeout_seconds: int = -1
+    tb_model_dir: Optional[str] = None
+    tb_extra_args: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.memory_gib > MAX_HOST_MEMORY_GIB:
