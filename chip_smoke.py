@@ -62,7 +62,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    requests) — scores within 1e-5 — and trained 3 adagrad steps through
    `train_and_evaluate` on both from those weights — losses and
    parameters close;
-5. serving slice: the Llama-3-8B-width decoder cut to 8 of its 32
+5. serving slice: the Llama-3-8B-width decoder cut to 4 of its 32
    layers (`serving_config`; random bf16 weights from seed 0, int8 KV)
    on every serving path, each with the kernel counts
    set to 0 just before it and read just after: SlotScheduler with 4
@@ -139,11 +139,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
    its exported trace; (b) the same run with no visible card raises
    RunFailed carrying the port's no-CUDA error; (c) a fn of rank on
    `tasks.distributed` initialises NCCL from its TaskParameters and
-   all_reduces on the card; (d) the worker of (a) without side-cars
-   requests the preemption drain after step 2 in attempt 0
-   (`nb_retries=1`): attempt 0 saves ckpt-2 and is retried as PREEMPTED,
-   attempt 1 resumes at step 2 and its losses equal phase 7's steps 3-4
-   within 1e-5 relative; each part's seconds;
+   all_reduces on the card; (e) a chief and a worker of
+   `allreduce_topology` train (a)'s experiment data-parallel at
+   `MeshSpec(dp=2)`, each rank on its half of phase 7's global batch,
+   both on the one card and so over gloo (NCCL refuses two ranks on one
+   device): each rank's backend and device, its LayerNorm kernels
+   launched as often as phase 7's, the ranks' parameters bitwise equal,
+   the mean of their losses within `RANKS_LOSS_RTOL` of phase 7's,
+   checkpoints submitted by rank 0 alone and ckpt-4 equal to its
+   parameters, each step's gradient all-reduce seconds from rank 0's
+   trace; (d) the run of (e) with `drain_poll_every_steps=2`, rank 1
+   requesting the preemption drain after step 2 in attempt 0
+   (`nb_retries=1`): both ranks drain at ckpt-2, the attempt is retried
+   as PREEMPTED, attempt 1 resumes at step 2 and each rank's steps 3-4
+   equal (e)'s within 1e-5 relative; (f) `pytorch.run_on_gpu` of two
+   pytorch workers (`PytorchExperiment(backend="gloo")`) trains phase 7's
+   BERT-base 4 steps over a DistributedSampler of phase 7's batches: the
+   ranks' parameters bitwise equal, rank 0's `model_ckpt` save equal to
+   them, the LayerNorm kernels launched in each worker; each part's
+   seconds;
 10. fleet slice, the launched serving fleet (`fleet_slice`): (a) phase
    5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
    tokens with 16 new each, one at a time; the weights saved as ckpt-1
@@ -2354,10 +2368,11 @@ def serve_warm_start(torch, engine, sched_mod, server_mod, telemetry,
             "launches": launches}
 
 
-# Phase 5's depth: Llama-3-8B's widths and 8 of its 32 layers, cut for
-# the smoke's time limit (phase 10's fleet keeps all 32). Every layer repeats
-# the one before it; the kernels' launches a path scale with the depth.
-SERVE_LAYERS = 8
+# Phase 5's depth: Llama-3-8B's widths and 4 of its 32 layers (8 until
+# phase 9's two-rank parts came), cut for the smoke's time limit (phase
+# 10's fleet keeps all 32). Every layer repeats the one before it; the
+# kernels' launches a path scale with the depth.
+SERVE_LAYERS = 4
 
 
 def serving_config(torch, tt):
@@ -2835,25 +2850,50 @@ WORKER_EVAL = "worker_eval.json"
 def bert_stream(config, batch_size: int, seq_len: int, seed: int):
     """`bert.make_experiment`'s synthetic stream (tokens from
     RandomState(seed), labels the first token modulo the classes) as an
-    input_fn that declares `start_step`: a resumed run skips the batches
-    its steps consumed. `seen["start_step"]` keeps the step it was last
-    called with."""
+    input_fn that declares `start_step`, `host_index` and `num_hosts`: a
+    resumed run skips the batches its steps consumed, and a rank of a
+    data-parallel run reads its contiguous share of each global batch.
+    `seen["start_step"]` keeps the step it was last called with."""
     import numpy as np
 
     seen = {"start_step": None}
 
-    def input_fn(start_step: int = 0):
+    def input_fn(start_step: int = 0, host_index: int = 0,
+                 num_hosts: int = 1):
         seen["start_step"] = start_step
         rng = np.random.RandomState(seed)
+        rows = slice(host_index * batch_size // num_hosts,
+                     (host_index + 1) * batch_size // num_hosts)
         drawn = 0
         while True:
             tokens = rng.randint(0, config.vocab_size, (batch_size, seq_len))
             labels = (tokens[:, 0] % config.num_classes).astype(np.int32)
             drawn += 1
             if drawn > start_step:
-                yield {"x": tokens.astype(np.int32), "y": labels}
+                yield {"x": tokens[rows].astype(np.int32),
+                       "y": labels[rows]}
 
     return input_fn, seen
+
+
+def params_digest(state) -> str:
+    """sha256 of a state dict, tensor by tensor in name order."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for name, tensor in sorted(state.items()):
+        digest.update(name.encode())
+        digest.update(tensor.detach().cpu().contiguous().flatten()
+                      .view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def rank_counts_path(model_dir, rank: int) -> Path:
+    """Where rank `rank` of phase 9's run writes its record."""
+    return Path(model_dir) / (LAUNCHER_COUNTS if rank == 0
+                              else f"launcher_counts-{rank}.json")
 
 
 def _evaluator_record(model_dir: str, params, metrics, step) -> None:
@@ -2875,7 +2915,8 @@ def _evaluator_record(model_dir: str, params, metrics, step) -> None:
 
 
 def launcher_bert_experiment(model_dir: str, tiny: bool = False,
-                             preempt_at=None):
+                             preempt_at=None, dp: int = 1,
+                             drain_poll=None, preempt_rank: int = 0):
     """Phase 9's experiment fn, called in the launched tasks: phase 7's
     BERT-base experiment (make_experiment at its JAX defaults,
     fused_norms=True, 32 x 128, AdamW, 4 steps, seed 0, the same
@@ -2888,15 +2929,23 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
     <model_dir>/launcher_counts.json; after the final eval, the eval
     metrics the loop computed to <model_dir>/worker_eval.json. Its
     exporter (`_evaluator_record`) runs in the evaluator. `preempt_at`:
-    attempt 0 requests the preemption drain after that step. `tiny`: the
-    tiny f32 config, for a rehearsal on the CPU."""
+    attempt 0's rank `preempt_rank` requests the preemption drain after
+    that step. `dp`: data-parallel over that many ranks
+    (``MeshSpec(dp=dp)``), each reading its share of the global batch;
+    rank r > 0 writes its record to launcher_counts-<r>.json, and every
+    record holds the rank, its backend and device and the digest of its
+    parameters after the last step. `drain_poll`: the run's
+    ``drain_poll_every_steps``. `tiny`: the tiny f32 config, for a
+    rehearsal on the CPU."""
     import functools
 
     import torch
+    import torch.distributed as dist
 
     from tf_yarn_tpu_torch import constants, preemption
     from tf_yarn_tpu_torch.models import bert
     from tf_yarn_tpu_torch.ops import _build, layernorm
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
 
     if tiny:
         config = bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True)
@@ -2909,7 +2958,8 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
         config, model_dir=model_dir, train_steps=LAUNCHER_STEPS,
         log_every_steps=2, steps_per_loop=2, checkpoint_every_steps=2,
         keep_last_n=1, eval_steps=LAUNCHER_EVAL_STEPS, input_fn=input_fn,
-        **shape)
+        mesh_spec=MeshSpec(dp=dp) if dp > 1 else None,
+        drain_poll_every_steps=drain_poll, **shape)
     exp.eval_input_fn = bert_stream(config, seed=1, **shape)[0]
     exp.exporters = functools.partial(_evaluator_record, model_dir)
     n_try = int(os.environ.get(constants.ENV_N_TRY, "0"))
@@ -2923,7 +2973,7 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
         loss, aux = loss_fn(model, batch, train=train)
         if train:
             losses.append(loss.detach())
-        elif done():
+        elif done() and dp == 1:
             # The final eval's batches, averaged as `training.evaluate`
             # averages them.
             evals.append({"loss": loss, **aux})
@@ -2941,7 +2991,9 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
 
         def after_step(opt, args, kwargs):
             step = (seen["start_step"] or 0) + len(losses)
-            if n_try == 0 and step == preempt_at:
+            grouped = dist.is_available() and dist.is_initialized()
+            rank = dist.get_rank() if grouped else 0
+            if n_try == 0 and step == preempt_at and rank == preempt_rank:
                 preemption.request()
             if not done():
                 return
@@ -2952,15 +3004,88 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
                 "built_kernels_here": _build.build_seconds is not None,
                 "device": str(model.device),
                 "n_try": n_try, "start_step": seen["start_step"],
+                "rank": rank,
+                "world": dist.get_world_size() if grouped else 1,
+                "backend": dist.get_backend() if grouped else None,
+                "params_sha256": params_digest(model.state_dict()),
             }
             Path(model_dir).mkdir(parents=True, exist_ok=True)
-            (Path(model_dir) / LAUNCHER_COUNTS).write_text(json.dumps(record))
+            rank_counts_path(model_dir, rank).write_text(json.dumps(record))
 
         opt.register_step_post_hook(after_step)
         return opt
 
     exp.loss_fn, exp.optimizer = recording_loss, optimizer
     return exp
+
+
+PYTORCH_STEPS = 4
+
+
+def launcher_pytorch_experiment(out_dir: str, tiny: bool = False):
+    """Phase 9 (f)'s experiment fn, called in each launched pytorch
+    worker: phase 7's BERT-base (seed 0, on the task's device; ranks that
+    share the card talk gloo) as a `PytorchExperiment`, its dataset phase
+    7's PYTORCH_STEPS global batches as rows. The `main_fn` trains one
+    pass over the rank's `DistributedSampler` share (batches of half the
+    global batch: PYTORCH_STEPS steps) with the recipe's AdamW, counts
+    the LayerNorm kernels' launches over it, has rank 0 save through
+    `utils.model_ckpt`, and writes the rank's record (launches, backend,
+    device, wrapper, digest of its parameters) to pytorch-<rank>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch import pytorch
+    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch.models import bert, common
+    from tf_yarn_tpu_torch.ops import layernorm
+    from tf_yarn_tpu_torch.utils import model_ckpt
+
+    if tiny:
+        config = bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True)
+        shape = dict(batch_size=4, seq_len=16)
+    else:
+        config = bert.BertConfig.base(fused_norms=True)
+        shape = dict(batch_size=32, seq_len=128)
+    stream = bert_stream(config, seed=0, **shape)[0]()
+    batches = [next(stream) for _ in range(PYTORCH_STEPS)]
+    dataset = torch.utils.data.TensorDataset(
+        torch.from_numpy(np.concatenate([b["x"] for b in batches])).long(),
+        torch.from_numpy(np.concatenate([b["y"] for b in batches])).long())
+    model = bert.make_model(config, seed=0, device=task_device())
+    counted = (layernorm.layernorm, layernorm.layernorm_backward)
+
+    def main_fn(model, loader, device, rank, tb_writer):
+        optimizer = common.adamw(2e-5)(model)
+        before = {fn.__name__: fn.launches for fn in counted}
+        losses = []
+        for x, y in loader:
+            optimizer.zero_grad(set_to_none=True)
+            loss, _ = bert.loss_fn(model, {"x": x.to(device), "y": y.to(device)})
+            loss.backward()
+            optimizer.step()
+            losses.append(float(loss))
+        launches = {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in counted}
+        if rank == 0:
+            model_ckpt.save_ckpt(out_dir, model, optimizer, PYTORCH_STEPS)
+        Path(out_dir, f"pytorch-{rank}.json").write_text(json.dumps({
+            "rank": rank, "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "device": str(device),
+            "wrapper": type(model).__name__, "steps": len(losses),
+            "losses": losses, "launches": launches,
+            "params_sha256": params_digest(model.module.state_dict())}))
+
+    return pytorch.PytorchExperiment(
+        model=model, main_fn=main_fn, train_dataset=dataset,
+        dataloader_args=pytorch.DataLoaderArgs(
+            batch_size=shape["batch_size"] // 2, shuffle=False),
+        # BERT's segment embedding is unused without segments.
+        ddp_args=pytorch.DistributedDataParallelArgs(
+            find_unused_parameters=True),
+        # Both ranks share the one card: NCCL refuses that.
+        backend="gloo")
 
 
 def _all_reduce_rank(out_path: str, params) -> None:
@@ -3221,87 +3346,303 @@ def launcher_slice(torch, client, topologies, reference_losses,
             "profile_window_kernels": profiled,
         }
 
+        def no_card():
+            started = time.perf_counter()
+            try:
+                client.run_on_gpu(
+                    client.get_safe_experiment_fn(
+                        "chip_smoke.launcher_bert_experiment",
+                        str(tmp / "no_card"), tiny),
+                    spec, env=dict(base_env, CUDA_VISIBLE_DEVICES=""),
+                    poll_every_secs=0.5, dead_task_secs=120)
+            except client.RunFailed as exc:
+                if "no CUDA device is available" not in str(exc):
+                    raise AssertionError(
+                        f"no-card run failed otherwise: {exc}")
+                out = {"raised": "RunFailed", "kind": exc.kind.value,
+                       "wall_s": time.perf_counter() - started}
+            else:
+                raise AssertionError("a worker with no visible card trained")
+            if (tmp / "no_card" / LAUNCHER_COUNTS).exists():
+                raise AssertionError("the no-card run reached a training step")
+            return out
+
+        def fn_of_rank():
+            out = tmp / "all_reduce.json"
+            started = time.perf_counter()
+            client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.launcher_all_reduce_fn", str(out)),
+                spec, custom_task_module="tf_yarn_tpu_torch.tasks.distributed",
+                env=dict(base_env, **(env or {})), poll_every_secs=0.5,
+                dead_task_secs=120)
+            reduced = json.loads(out.read_text())
+            if reduced["result"] != [1.0] * 4 or reduced["world_size"] != 1 \
+                    or reduced["backend"] != ("gloo" if tiny else "nccl"):
+                raise AssertionError(f"fn of rank: {reduced}")
+            return dict(reduced, wall_s=time.perf_counter() - started)
+
+        result.update(ranks_parts(torch, client, topologies, tmp, base_env,
+                                  env, reference_losses, reference_launches,
+                                  tiny, result["seconds"]))
+        # (b), (c) and (f) share no KV snapshot: they run at once, each
+        # timed on its own, and "bcf_together" is their common wall.
+        started = time.perf_counter()
+        parts = concurrently({
+            "b_no_card": no_card, "c_all_reduce": fn_of_rank,
+            "f_pytorch": lambda: pytorch_part(client, topologies, tmp,
+                                              base_env, env, tiny)})
+        result["seconds"]["bcf_together"] = time.perf_counter() - started
+        for name, (value, seconds) in parts.items():
+            result[name] = value
+            result["seconds"][name] = seconds
+    return result
+
+
+# Phase 9 (d), (e) and (f): two ranks, a chief and a worker of
+# `allreduce_topology`, share the one card, so their process group is gloo
+# (NCCL refuses two ranks on one device).
+LAUNCHER_RANKS = 2
+RANK_TASKS = ("chief:0", "worker:0")
+# Loss band of (e)'s two ranks (the mean of their losses, each on its half
+# of the global batch) against phase 7's one device, relative. Not the
+# same computation: BERT-base's dropout (0.1) draws other masks in each
+# rank (the rank is in its seed), and the bf16 GEMMs run on half the rows.
+# The first H100 run measured 0.115 (step 4; 0.018 at step 1), so this is
+# a sanity band; the data-parallel arithmetic is held at 1e-5 on the CPU
+# against the JAX package with dropout 0 (tests/test_torch_data_parallel.py).
+RANKS_LOSS_RTOL = 0.3
+
+
+def _grad_allreduce_by_step(trace_path: Path) -> dict:
+    """{step: {"buckets", "bytes", "sum_s", "wall_s"}} of the DDP
+    gradient all-reduces (`train/grad_allreduce` spans) in a rank's
+    exported trace: the buckets' bytes, their summed seconds and their
+    first start to last end, launch to completion as the host saw
+    them."""
+    steps = {}
+    for e in json.loads(trace_path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == "train/grad_allreduce":
+            steps.setdefault(int(e["args"]["step"]), []).append(
+                (e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6,
+                 e["args"]["bytes"]))
+    return {step: {"buckets": len(spans),
+                   "bytes": sum(n for _, _, n in spans),
+                   "sum_s": sum(end - start for start, end, _ in spans),
+                   "wall_s": max(end for _, end, _ in spans)
+                   - min(start for start, _, _ in spans)}
+            for step, spans in sorted(steps.items())}
+
+
+def ranks_parts(torch, client, topologies, tmp, base_env, env,
+                reference_losses, reference_launches, tiny, seconds):
+    """Phase 9 (e) and (d). (e) `run_on_gpu` of `allreduce_topology`'s
+    chief and one worker trains phase 7's BERT-base LAUNCHER_STEPS steps at
+    ``MeshSpec(dp=2)``, each rank on its half of phase 7's global batch,
+    a checkpoint every 2 steps: each rank's backend and device; its
+    LayerNorm kernels launched as often as phase 7 launched them; the
+    ranks' parameters bitwise equal; the mean of their losses within
+    RANKS_LOSS_RTOL of phase 7's; checkpoints written by rank 0 alone and
+    ckpt-4 equal to its parameters; each step's gradient all-reduce
+    seconds from rank 0's trace. (d) the same run with
+    ``drain_poll_every_steps=2`` and ``nb_retries=1``, rank 1 requesting
+    the drain after step 2 in attempt 0: both ranks drain at ckpt-2, the
+    attempt is PREEMPTED, and attempt 1 resumes at step 2 with each
+    rank's steps 3-4 equal to (e)'s within LAUNCHER_LOSS_RTOL. `seconds`
+    gets each part's wall. (f) is `pytorch_part`."""
+    from tf_yarn_tpu_torch import checkpoint as ckpt
+    from tf_yarn_tpu_torch import telemetry
+
+    out = {}
+    spec = topologies.allreduce_topology(nb_workers=1, chips_per_host=1)
+    want_device = "cpu" if tiny else "cuda"
+
+    def records(model_dir):
+        return [json.loads(rank_counts_path(model_dir, rank).read_text())
+                for rank in range(LAUNCHER_RANKS)]
+
+    ranks_dir = tmp / "ranks"
+    started = time.perf_counter()
+    with kv_snapshot(client, tuple(f"{task}/last_training_step"
+                                   for task in RANK_TASKS)) as seen:
+        client.run_on_gpu(
+            client.get_safe_experiment_fn(
+                "chip_smoke.launcher_bert_experiment", str(ranks_dir), tiny,
+                None, LAUNCHER_RANKS),
+            spec, env=dict(base_env, TPU_YARN_TRACE=str(tmp / "ranks_trace"),
+                           **(env or {})),
+            poll_every_secs=0.5, dead_task_secs=120)
+    seconds["e_ranks"] = time.perf_counter() - started
+    ranked = records(ranks_dir)
+    global_losses = [sum(r["losses"][i] for r in ranked) / LAUNCHER_RANKS
+                     for i in range(LAUNCHER_STEPS)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(global_losses, reference_losses))
+    traces = {task: _trace_spans(tmp / "ranks_trace"
+                                 / f"trace_{task.replace(':', '-')}.json")
+              for task in RANK_TASKS}
+    saves = {task: len(spans.get("checkpoint/save_submit", []))
+             for task, spans in traces.items()}
+    restored = ckpt.restore_checkpoint(str(ranks_dir), LAUNCHER_STEPS,
+                                       map_location="cpu")["params"]
+    allreduce = _grad_allreduce_by_step(
+        tmp / "ranks_trace" / "trace_chief-0.json")
+    problems = [
+        r for r in ranked
+        if (r["world"], r["backend"], r["n_try"]) != (LAUNCHER_RANKS, "gloo", 0)
+        or not r["device"].startswith(want_device)
+        or r["launches"] != reference_launches
+        or len(r["losses"]) != LAUNCHER_STEPS]
+    if (problems or len({r["params_sha256"] for r in ranked}) != 1
+            or loss_err > RANKS_LOSS_RTOL
+            or saves != {"chief:0": 2, "worker:0": 0}
+            or params_digest(restored) != ranked[0]["params_sha256"]
+            or seen.values != {"chief:0/last_training_step":
+                               str(LAUNCHER_STEPS),
+                               "worker:0/last_training_step": None}
+            or sorted(allreduce) != list(range(LAUNCHER_STEPS))):
+        raise AssertionError(
+            f"two ranks: records {ranked}, global losses {global_losses} "
+            f"against {reference_losses}, checkpoint saves {saves}, KV "
+            f"{seen.values}, all-reduces {allreduce}\n{task_log_tails()}")
+    out["e_ranks"] = {
+        "ranks": [{key: r[key] for key in ("rank", "world", "backend",
+                                           "device", "launches", "losses")}
+                  for r in ranked],
+        "global_losses": global_losses,
+        "reference_losses": reference_losses,
+        "loss_max_rel_err": loss_err,
+        "params_bitwise_equal_across_ranks": True,
+        "ckpt_restored_equal_rank0": True,
+        "checkpoint_save_submits": saves,
+        "grad_allreduce_by_step": allreduce,
+        # A chunk of 2 steps: its dispatch through its device wait, rank 0.
+        "chunk_s": [wait_end - start for (start, _), (_, wait_end) in zip(
+            traces["chief:0"]["train/step_dispatch"],
+            traces["chief:0"]["train/device_wait"])],
+        "task_spans_s": {task: {name: [end - start for start, end
+                                       in spans[name]]
+                                for name in LAUNCHER_SPANS
+                                + ("train/parallel_wrap",) if name in spans}
+                         for task, spans in traces.items()},
+        "wall_s": seconds["e_ranks"],
+    }
+
+    drained = tmp / "drained"
+    retries = telemetry.get_registry().counter(
+        "driver/retries_total", kind="PREEMPTED")
+    retried_before = retries.value
+    started = time.perf_counter()
+    with kv_snapshot(client, tuple(f"{task}/stop" for task in RANK_TASKS)
+                     + ("chief:0/last_training_step",)) as seen:
+        client.run_on_gpu(
+            client.get_safe_experiment_fn(
+                "chip_smoke.launcher_bert_experiment", str(drained), tiny, 2,
+                LAUNCHER_RANKS, 2, 1),
+            spec, env=dict(base_env, **(env or {})), nb_retries=1,
+            poll_every_secs=0.5, dead_task_secs=120)
+    seconds["d_drain"] = time.perf_counter() - started
+    first, last = (seen.attempts + [{}, {}])[:2]
+    stops = {task: (first.get(f"{task}/stop") or "").strip()
+             for task in RANK_TASKS}
+    resumed = records(drained)
+    resume_err = max(abs(a - b) / abs(b) for r, e in zip(resumed, ranked)
+                     for a, b in zip(r["losses"], e["losses"][2:]))
+    if (len(seen.attempts) != 2
+            or any("preempted at step 2; checkpoint saved to" not in stop
+                   for stop in stops.values())
+            or retries.value - retried_before != 1
+            or any((r["n_try"], r["start_step"], len(r["losses"]))
+                   != (1, 2, LAUNCHER_STEPS - 2) for r in resumed)
+            or last.get("chief:0/last_training_step") != str(LAUNCHER_STEPS)
+            or resume_err > LAUNCHER_LOSS_RTOL):
+        raise AssertionError(
+            f"drain at two ranks: attempts {seen.attempts}, records "
+            f"{resumed}, retries {retries.value - retried_before}, (e)'s "
+            f"records {ranked}\n{task_log_tails(runs=2)}")
+    out["d_drain"] = {
+        "attempts": len(seen.attempts),
+        "attempt_0_stops": {task: stop.splitlines()[-1]
+                            for task, stop in stops.items()},
+        "preempted_retries": retries.value - retried_before,
+        "resumed_at": [r["start_step"] for r in resumed],
+        "losses": [r["losses"] for r in resumed],
+        "reference_losses": [r["losses"][2:] for r in ranked],
+        "loss_max_rel_err": resume_err,
+        "losses_bitwise_equal": all(
+            r["losses"] == e["losses"][2:] for r, e in zip(resumed, ranked)),
+        "wall_s": seconds["d_drain"],
+    }
+
+    return out
+
+
+def concurrently(parts: dict) -> dict:
+    """Run each zero-argument fn of `parts` in a thread of its own, all at
+    once: {name: (its result, its seconds)}; the first failure is raised
+    after all have ended."""
+    done, errors = {}, []
+
+    def run(name, fn):
         started = time.perf_counter()
         try:
-            client.run_on_gpu(
-                client.get_safe_experiment_fn(
-                    "chip_smoke.launcher_bert_experiment",
-                    str(tmp / "no_card"), tiny),
-                spec, env=dict(base_env, CUDA_VISIBLE_DEVICES=""),
-                poll_every_secs=0.5, dead_task_secs=120)
-        except client.RunFailed as exc:
-            if "no CUDA device is available" not in str(exc):
-                raise AssertionError(f"no-card run failed otherwise: {exc}")
-            result["b_no_card"] = {
-                "raised": "RunFailed", "kind": exc.kind.value,
-                "wall_s": time.perf_counter() - started}
-        else:
-            raise AssertionError("a worker with no visible card trained")
-        if (tmp / "no_card" / LAUNCHER_COUNTS).exists():
-            raise AssertionError("the no-card run reached a training step")
-        result["seconds"]["b_no_card"] = time.perf_counter() - started
+            done[name] = (fn(), time.perf_counter() - started)
+        except BaseException as exc:  # re-raised in the caller
+            errors.append(exc)
 
-        out = tmp / "all_reduce.json"
-        started = time.perf_counter()
-        client.run_on_gpu(
-            client.get_safe_experiment_fn("chip_smoke.launcher_all_reduce_fn",
-                                          str(out)),
-            spec, custom_task_module="tf_yarn_tpu_torch.tasks.distributed",
-            env=dict(base_env, **(env or {})), poll_every_secs=0.5,
-            dead_task_secs=120)
-        reduced = json.loads(out.read_text())
-        if reduced["result"] != [1.0] * 4 or reduced["world_size"] != 1 \
-                or reduced["backend"] != ("gloo" if tiny else "nccl"):
-            raise AssertionError(f"fn of rank: {reduced}")
-        result["c_all_reduce"] = dict(reduced,
-                                      wall_s=time.perf_counter() - started)
-        result["seconds"]["c_all_reduce"] = time.perf_counter() - started
+    threads = [threading.Thread(target=run, args=item, name=item[0])
+               for item in parts.items()]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise errors[0]
+    return {name: done[name] for name in parts}
 
-        drained = tmp / "drained"
-        retries = telemetry.get_registry().counter(
-            "driver/retries_total", kind="PREEMPTED")
-        retried_before = retries.value
-        started = time.perf_counter()
-        with kv_snapshot(client, ("worker:0/stop",
-                                  "worker:0/last_training_step")) as seen:
-            client.run_on_gpu(
-                client.get_safe_experiment_fn(
-                    "chip_smoke.launcher_bert_experiment", str(drained), tiny,
-                    2),
-                spec, env=dict(base_env, **(env or {})), nb_retries=1,
-                poll_every_secs=0.5, dead_task_secs=120)
-        result["seconds"]["d_drain"] = time.perf_counter() - started
-        first, last = (seen.attempts + [{}, {}])[:2]
-        drained_message = (first.get("worker:0/stop") or "").strip()
-        record = json.loads((drained / LAUNCHER_COUNTS).read_text())
-        loss_err = max(abs(a - b) / abs(b) for a, b in
-                       zip(record["losses"], reference_losses[2:]))
-        if (len(seen.attempts) != 2
-                or "preempted at step 2; checkpoint saved to" not in
-                drained_message
-                or retries.value - retried_before != 1
-                or (record["n_try"], record["start_step"]) != (1, 2)
-                or last.get("worker:0/last_training_step") != str(
-                    LAUNCHER_STEPS)
-                or len(record["losses"]) != LAUNCHER_STEPS - 2
-                or loss_err > LAUNCHER_LOSS_RTOL):
-            raise AssertionError(
-                f"drain: attempts {seen.attempts}, record {record}, "
-                f"retries {retries.value - retried_before}, phase 7's "
-                f"losses {reference_losses}\n{task_log_tails(runs=2)}")
-        result["d_drain"] = {
-            "attempts": len(seen.attempts),
-            "attempt_0_stop": drained_message.splitlines()[-1],
-            "preempted_retries": retries.value - retried_before,
-            "resumed_at": record["start_step"],
-            "losses": record["losses"],
-            "reference_losses": reference_losses[2:],
-            "loss_max_rel_err": loss_err,
-            "losses_bitwise_equal":
-                record["losses"] == list(reference_losses[2:]),
-            "wall_s": result["seconds"]["d_drain"],
-        }
-    return result
+
+def pytorch_part(client, topologies, tmp, base_env, env, tiny):
+    """Phase 9 (f): `pytorch.run_on_gpu` of two pytorch workers running
+    `launcher_pytorch_experiment`: the ranks' parameters bitwise equal,
+    rank 0's `model_ckpt` save equal to them, the LayerNorm kernels
+    launched in each worker."""
+    from tf_yarn_tpu_torch import pytorch
+    from tf_yarn_tpu_torch.utils import model_ckpt
+
+    want_device = "cpu" if tiny else "cuda"
+    torch_dir = tmp / "pytorch"
+    torch_dir.mkdir()
+    started = time.perf_counter()
+    pytorch.run_on_gpu(
+        client.get_safe_experiment_fn("chip_smoke.launcher_pytorch_experiment",
+                                      str(torch_dir), tiny),
+        {"worker": topologies.TaskSpec(instances=LAUNCHER_RANKS,
+                                       chips_per_host=1,
+                                       label=topologies.NodeLabel.GPU)},
+        env=dict(base_env, **(env or {})), poll_every_secs=0.5,
+        dead_task_secs=120)
+    wall = time.perf_counter() - started
+    workers = [json.loads((torch_dir / f"pytorch-{rank}.json").read_text())
+               for rank in range(LAUNCHER_RANKS)]
+    saved = model_ckpt.load_latest_ckpt(str(torch_dir))
+    if (any((w["world"], w["backend"], w["wrapper"], w["steps"])
+            != (LAUNCHER_RANKS, "gloo", "DistributedDataParallel",
+                PYTORCH_STEPS) or not w["device"].startswith(want_device)
+            or (not tiny and min(w["launches"].values()) <= 0)
+            for w in workers)
+            or len({w["params_sha256"] for w in workers}) != 1
+            or saved["epoch"] != PYTORCH_STEPS
+            or params_digest(saved["model"]) != workers[0]["params_sha256"]):
+        raise AssertionError(f"pytorch workers {workers}, saved epoch "
+                             f"{saved['epoch']}\n{task_log_tails(runs=3)}")
+    return {
+        "workers": [{key: w[key] for key in ("rank", "backend", "device",
+                                             "losses", "launches")}
+                    for w in workers],
+        "params_bitwise_equal_across_ranks": True,
+        "model_ckpt_restored_equal": True,
+        "wall_s": wall,
+    }
 
 
 # Phase 10: the launched serving fleet, one `run_on_gpu` of a mixed fleet on
@@ -4255,6 +4596,14 @@ def main() -> int:
         launched = launcher_result["a_train"]["evaluator"]["launches"]
         if launched.get(row["name"]):
             by_path["launcher evaluator"] = launched[row["name"]]
+        for rank in launcher_result["e_ranks"]["ranks"]:
+            if row["name"] in rank["launches"]:
+                by_path[f"launcher rank {rank['rank']}"] = \
+                    rank["launches"][row["name"]]
+        for worker in launcher_result["f_pytorch"]["workers"]:
+            if row["name"] in worker["launches"]:
+                by_path[f"pytorch worker {worker['rank']}"] = \
+                    worker["launches"][row["name"]]
         by_path.update({path: launched[row["name"]]
                         for path, launched in fleet_launches.items()
                         if row["name"] in launched})

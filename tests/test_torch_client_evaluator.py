@@ -1,7 +1,8 @@
 """The side-car task programs launched by `run_on_gpu` on the CPU: a
-worker beside an evaluator and a tensorboard task, and a worker drained
-by the preemption flag that is relaunched and resumes — `chip_smoke.py`
-phase 9 rehearsed at the tiny f32 BERT (``TPU_YARN_PLATFORM=cpu``) — and
+worker beside an evaluator and a tensorboard task, two data-parallel
+ranks, the same two ranks drained by one rank's preemption flag,
+relaunched and resumed, and two pytorch workers — `chip_smoke.py` phase
+9 rehearsed at the tiny f32 BERT (``TPU_YARN_PLATFORM=cpu``) — and
 the driver's side of the side-cars held against the JAX package: their
 environment, the evaluator's health log, the tensorboard task's linger
 and URL, and the barrier on training's end.
@@ -85,20 +86,56 @@ def test_worker_trains_beside_the_evaluator_and_tensorboard(phase9):
            for key in trained["checkpoint_seconds"]}
     assert ops == {"save_submit"}
     assert set(result["seconds"]) == {"a_train", "b_no_card", "c_all_reduce",
-                                      "d_drain"}
+                                      "e_ranks", "d_drain", "f_pytorch",
+                                      "bcf_together"}
+
+
+def test_two_ranks_train_data_parallel(phase9):
+    """Part (e): a chief and a worker of allreduce_topology at
+    MeshSpec(dp=2), each on half of the batch: gloo on the CPU, equal
+    parameters (checked in the phase), rank 0 alone checkpointing, one
+    gradient all-reduce timed at each step; with dropout the ranks draw
+    their own masks, so the mean loss is near the one-device run's only."""
+    reference, result = phase9
+    ranks = result["e_ranks"]
+    assert [(r["rank"], r["world"], r["backend"], r["device"])
+            for r in ranks["ranks"]] == [(0, 2, "gloo", "cpu"),
+                                         (1, 2, "gloo", "cpu")]
+    assert ranks["checkpoint_save_submits"] == {"chief:0": 2, "worker:0": 0}
+    assert ranks["params_bitwise_equal_across_ranks"]
+    assert ranks["ckpt_restored_equal_rank0"]
+    assert sorted(ranks["grad_allreduce_by_step"]) == [0, 1, 2, 3]
+    assert all(step["buckets"] >= 1 and step["sum_s"] > 0
+               for step in ranks["grad_allreduce_by_step"].values())
+    assert ranks["reference_losses"] == reference["losses"]
 
 
 def test_a_drained_attempt_relaunches_and_resumes(phase9):
-    """Part (d): attempt 0 drains at ckpt-2 and is retried as PREEMPTED;
-    attempt 1 resumes at step 2 and its steps 3-4 give the uninterrupted
-    run's losses, bitwise."""
-    reference, result = phase9
+    """Part (d), at two ranks: rank 1 alone requests the drain, both ranks
+    drain at ckpt-2 and the attempt is retried as PREEMPTED; attempt 1
+    resumes at step 2 and each rank's steps 3-4 give part (e)'s losses,
+    bitwise."""
+    _, result = phase9
     drained = result["d_drain"]
     assert drained["attempts"] == 2 and drained["preempted_retries"] == 1
-    assert "Preempted: preempted at step 2; checkpoint saved to " in \
-        drained["attempt_0_stop"]
-    assert drained["resumed_at"] == 2
-    assert drained["losses"] == reference["losses"][2:]
+    for stop in drained["attempt_0_stops"].values():
+        assert "Preempted: preempted at step 2; checkpoint saved to " in stop
+    assert drained["resumed_at"] == [2, 2]
+    assert drained["losses"] == drained["reference_losses"]
+    assert drained["losses_bitwise_equal"]
+
+
+def test_two_pytorch_workers_train_bert(phase9):
+    """Part (f): two pytorch workers over gloo, DDP-wrapped, each a pass
+    over its DistributedSampler share; equal parameters and rank 0's
+    model_ckpt save equal to them (checked in the phase)."""
+    _, result = phase9
+    part = result["f_pytorch"]
+    assert [(w["rank"], w["backend"], w["device"]) for w in part["workers"]] \
+        == [(0, "gloo", "cpu"), (1, "gloo", "cpu")]
+    assert all(len(w["losses"]) == 4 for w in part["workers"])
+    assert part["params_bitwise_equal_across_ranks"]
+    assert part["model_ckpt_restored_equal"]
 
 
 def test_no_card_and_fn_of_rank_still_hold(phase9):

@@ -3,7 +3,8 @@
 does in process, the KV store and the Metrics see it, a task without
 that setting never falls back to the CPU, and two primaries join a gloo
 process group — batch inference shards its stream as the JAX package
-does, training refuses to run as independent replicas."""
+does, and training runs data-parallel (one model, never independent
+replicas)."""
 
 import json
 import os
@@ -170,12 +171,34 @@ def test_two_inference_workers_write_the_jax_shards(decoder_dir, tmp_path):
     assert sorted(shards[0] + shards[1], key=lambda r: r["id"]) == ref
 
 
-def test_two_training_workers_refuse_independent_replicas(tmp_path):
-    with pytest.raises(t_client.RunFailed) as err:
-        t_client.run_on_gpu(_bert_experiment_fn(str(tmp_path / "model")),
-                            _workers(2), env={"TPU_YARN_PLATFORM": "cpu"},
-                            poll_every_secs=0.2)
-    assert "NotImplementedError" in str(err.value)
-    assert "ROADMAP.md Queue 1 item 7" in str(err.value)
-    assert err.value.kind is FailureKind.FATAL_USER
-    assert "failed tasks: ['worker:0', 'worker:1']" in str(err.value)
+def test_two_training_workers_refuse_independent_replicas(tmp_path,
+                                                         monkeypatch):
+    """Two workers train one model (MeshSpec.auto(2): FSDP2 over 2 gloo
+    ranks). The input_fn declares no host_index, so each rank reads the
+    whole synthetic batch: their mean gradient is one device's, and the
+    checkpoint rank 0 alone writes equals the in-process run's (f32,
+    dropout 0; 1e-5)."""
+    from tf_yarn_tpu_torch import checkpoint as t_ckpt
+
+    launched, local = str(tmp_path / "model"), str(tmp_path / "local")
+    kv = _KVAtTheEnd(monkeypatch, ["worker:0/last_training_step",
+                                   "worker:1/last_training_step"])
+    metrics = t_client.run_on_gpu(_bert_experiment_fn(launched), _workers(2),
+                                  env={"TPU_YARN_PLATFORM": "cpu"},
+                                  poll_every_secs=0.2)
+    assert set(metrics.container_duration) == {"worker:0", "worker:1"}
+    # Rank 0 broadcasts the step; rank 1 does not.
+    assert kv.values == {"worker:0/last_training_step": str(STEPS),
+                         "worker:1/last_training_step": None}
+    t_training.train_and_evaluate(
+        t_experiment.as_core_experiment(_bert_experiment_fn(local)()),
+        device="cpu")
+    assert t_ckpt.list_checkpoint_steps(launched) == [STEPS]
+    got = t_ckpt.restore_checkpoint(launched, STEPS, "cpu")
+    want = t_ckpt.restore_checkpoint(local, STEPS, "cpu")
+    assert sorted(got["params"]) == sorted(want["params"])
+    for name, value in got["params"].items():
+        if name.endswith("wk.bias"):  # rounding noise moved by Adam
+            continue
+        np.testing.assert_allclose(value.numpy(), want["params"][name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

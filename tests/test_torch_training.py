@@ -382,19 +382,35 @@ def test_make_experiment_matches_the_jax_recipe():
                     for g in optimizer.param_groups)
     # 1-D norm scales (2 per layer + final) get no decay.
     assert decays == [(0.0, 5), (1e-4, 2 * 7 + 2)]
-    with pytest.raises(ValueError, match="adafactor"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tt.make_experiment(_port_config(), optimizer="adafactor")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        tt.make_experiment(_port_config(), optimizer="lamb")
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
         tt.Transformer(_port_config(moe_experts=2), device="cpu")
+    # JAX's MoE and GPipe knobs construct, and refuse any other value.
+    for knob, item in (("moe_capacity_factor", "8b"),
+                       ("moe_aux_weight", "8b"),
+                       ("gpipe_microbatches", "7d")):
+        config = _port_config(**{knob: 2})
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            tt.Transformer(config, device="cpu")
 
     class Mesh:
         total_devices = 2
 
+    # A 2-device mesh at one rank: the JAX package's mesh size error.
     exp = _tiny_experiment(tmp_path, mesh_spec=Mesh())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
+        t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
+                                      device="cpu")
+    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(tp=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
     with pytest.raises(TypeError):

@@ -25,6 +25,13 @@ Ported so far:
   with its `make_experiment`;
 * the DLRM ranker behind `/v1/rank` — `models.dlrm`,
   `models.rank_engine`, `ranking`;
+* data-parallel training over the ranks of a process group —
+  `training.train_and_evaluate` over a `parallel.mesh.MeshSpec` of ``dp``
+  and ``fsdp`` (DDP, FSDP2 or both: `parallel.data_parallel`), with
+  `parallel.collectives` over a mesh dimension;
+* the PyTorch experiment — `pytorch.PytorchExperiment` launched by
+  `pytorch.run_on_gpu` on the `tasks.pytorch_worker` task program (DDP
+  workers and the user's ``main_fn``), with `utils.model_ckpt`;
 * launching — `client.run_on_gpu` over the JAX package's KV and event
   protocol (`coordination`, `event`, `backends.LocalBackend`,
   `resilience`), with the `tasks.worker` and `tasks.distributed` task
@@ -40,6 +47,13 @@ and dense int8 decode attention; flash attention forward, dq and
 dk/dv). ROADMAP.md lists what is still to port.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+
+Public surface, as the JAX package's::
+
+    from tf_yarn_tpu_torch.client import run_on_gpu
+    from tf_yarn_tpu_torch.topologies import TaskSpec, allreduce_topology
+    from tf_yarn_tpu_torch.parallel import MeshSpec
+    from tf_yarn_tpu_torch.pytorch import PytorchExperiment
 """
 
 from tf_yarn_tpu_torch._device import resolve_device  # noqa: F401

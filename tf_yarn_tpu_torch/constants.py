@@ -16,7 +16,7 @@ KV_CLUSTER_INSTANCES = "cluster_instances"
 KV_EXPERIMENT_FN = "experiment_fn"
 
 # JSON-serialized mesh / parallelism spec for the run (the JAX package's
-# task runtime builds its mesh from it; the port's mesh is item 7).
+# name; the port's experiment carries its `parallel.mesh.MeshSpec`).
 KV_MESH_SPEC = "mesh_spec"
 
 # Retry counter exported to every task so metric keys from different

@@ -18,8 +18,10 @@ Differences that PyTorch brings: the parameters live in the module, so
 building it on the train loop's device); ``optimizer`` is a factory
 ``model -> torch.optim.Optimizer``; the loss contract is
 ``loss_fn(model, batch, train=True) -> (loss, aux)`` with ``batch`` a
-dict of tensors. ``mesh_spec`` is carried but a multi-device one raises
-in the loop (ROADMAP.md Queue 1 item 7).
+dict of tensors. ``mesh_spec`` is a `parallel.mesh.MeshSpec`: the
+loop trains data-parallel over its ``dp`` and ``fsdp`` axes across the
+ranks of a process group, and refuses its model axes (ROADMAP.md Queue
+1 items 7b-7d, 8b).
 
 `InferenceExperiment` (experiment.py:236-278) describes a batch-inference
 job for `inference.run_inference`; its ``model`` is the port's
@@ -35,7 +37,7 @@ validation messages. Their ``model`` is the port's `Transformer` or
 `DLRM`, built by the experiment fn on the task's device and holding its
 weights. What the port cannot serve yet is refused at construction with
 NotImplementedError naming its ROADMAP.md Queue 1 item: any ``mesh_spec``
-(item 7). The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
+(items 7e and 7f, tensor-parallel serving and the sharded ranker). The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
 ``autoscale_warm_start`` fields are read only by the ``router`` task of a
 fleet (`fleet.router.run_router`), whose model is on the meta device.
 
@@ -275,11 +277,11 @@ class InferenceExperiment:
                 f"max_new_tokens must be >= 0, got {self.max_new_tokens}")
 
 
-def _refuse_mesh_spec(spec, what: str) -> None:
+def _refuse_mesh_spec(spec, what: str, item: str) -> None:
     if spec is not None:
         raise NotImplementedError(
             f"mesh_spec: {what} is not ported yet (ROADMAP.md Queue 1 item "
-            "7, parallelism); serve on one device (mesh_spec=None)")
+            f"{item}); serve on one device (mesh_spec=None)")
 
 
 @dataclasses.dataclass
@@ -416,7 +418,7 @@ class ServingExperiment:
                     raise ValueError(
                         f"tier_caps[{name!r}] must be an int >= 0, "
                         f"got {cap!r}")
-        _refuse_mesh_spec(self.mesh_spec, "tensor-parallel decode")
+        _refuse_mesh_spec(self.mesh_spec, "tensor-parallel decode", "7e")
         if self.router_policy not in ("round_robin", "least_loaded"):
             raise ValueError(
                 f"router_policy must be 'round_robin' or 'least_loaded', "
@@ -469,7 +471,7 @@ class RankingExperiment:
     of a checkpoint: every replica of the port with the same model and
     seed holds the same weights bit for bit (not the JAX package's: a
     torch generator cannot draw what ``jax.random`` draws). Any
-    ``mesh_spec`` is refused (item 7)."""
+    ``mesh_spec`` is refused (item 7f)."""
 
     model: Any
     model_dir: Optional[str] = None
@@ -510,7 +512,8 @@ class RankingExperiment:
                 "RankingExperiment.model must be a DLRM-class model "
                 "exposing config.table_sizes (the ranking engine reads "
                 "it for feature validation and table sharding)")
-        _refuse_mesh_spec(self.mesh_spec, "embedding-sharded ranking")
+        _refuse_mesh_spec(self.mesh_spec, "embedding-sharded ranking",
+                          "7f")
 
 
 @dataclasses.dataclass

@@ -253,6 +253,20 @@ def lm_loss_chunked(model, batch: Dict, train: bool = True,
     return loss, {"perplexity": torch.exp(loss.detach())}
 
 
+def synthetic_classification_iter(batch_size: int, feature_dim: int,
+                                  num_classes: int, seed: int = 0
+                                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless seeded batches {"x": f32 [B, F], "y": int32 [B]} (common.py:
+    167-177): the same numpy stream as the JAX package's."""
+    rng = np.random.RandomState(seed)
+    weights = rng.randn(feature_dim, num_classes).astype(np.float32)
+    while True:
+        x = rng.randn(batch_size, feature_dim).astype(np.float32)
+        y = np.argmax(x @ weights + 0.1 * rng.randn(batch_size, num_classes),
+                      axis=-1)
+        yield {"x": x, "y": y.astype(np.int32)}
+
+
 def synthetic_token_iter(batch_size: int, seq_len: int, vocab: int,
                          seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Endless seeded token batches {"tokens": int32 [B, S]} (common.py:

@@ -87,7 +87,13 @@ class TransformerConfig:
     remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
-    moe_experts: int = 0  # > 0 raises: MoE is ROADMAP.md Queue 1 item 8
+    moe_experts: int = 0  # > 0 raises: MoE is ROADMAP.md Queue 1 item 8b
+    # JAX's MoE and GPipe knobs (transformer.py:55-56, :72), carried so
+    # JAX configs construct; a value other than the default raises at the
+    # model's construction, naming its item (8b, 7d).
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    gpipe_microbatches: int = 0
     # Accepted so JAX configs carry over, and ignored: every norm runs
     # through ops.rmsnorm, whose numbers are the plain f32 norm's.
     fused_norms: bool = True
@@ -565,10 +571,15 @@ class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig, device=None,
                  trainable: bool = False):
         super().__init__()
-        if config.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0: MoE is not ported yet (ROADMAP.md Queue 1 "
-                "item 8, other model families)")
+        for name, default, item in (
+                ("moe_experts", 0, "8b, models/moe.py"),
+                ("moe_capacity_factor", 1.25, "8b, models/moe.py"),
+                ("moe_aux_weight", 0.01, "8b, models/moe.py"),
+                ("gpipe_microbatches", 0, "7d, the pipeline")):
+            if getattr(config, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(config, name)!r}: not ported yet "
+                    f"(ROADMAP.md Queue 1 item {item})")
         if config.attention_impl not in IMPLS:
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}; "
                              f"use {' | '.join(IMPLS)}")
@@ -759,7 +770,8 @@ def make_experiment(config: Optional[TransformerConfig] = None,
     unless `input_fn` is given; LoRA configs get the frozen-base
     optimizer; vocabularies of 65536 or more get the chunked loss with
     ``chunk_size=16384``. `optimizer` is None, ``"adamw"`` or a factory
-    ``model -> torch.optim.Optimizer`` (``"adafactor"`` is not ported).
+    ``model -> torch.optim.Optimizer`` (``"adafactor"`` raises
+    NotImplementedError: ROADMAP.md Queue 1 item 3).
     The model is built by `train_and_evaluate` on its device
     (``init_fn``), with random weights from ``train_params.seed``."""
     import functools
@@ -776,9 +788,13 @@ def make_experiment(config: Optional[TransformerConfig] = None,
                if loss_chunk_size else common.lm_loss)
     if optimizer == "adamw":
         optimizer = common.adamw_with_decay_mask(learning_rate)
+    elif optimizer == "adafactor":
+        raise NotImplementedError(
+            "optimizer='adafactor' is not ported yet (ROADMAP.md Queue 1 "
+            "item 3); use 'adamw' or pass an optimizer factory")
     elif isinstance(optimizer, str):
         raise ValueError(f"unknown optimizer {optimizer!r}; use 'adamw' or "
-                         "pass an optimizer factory (adafactor is not ported)")
+                         "pass an optimizer factory")
     if config.lora_rank > 0:
         optimizer = make_lora_optimizer(learning_rate, inner=optimizer)
     elif optimizer is None:

@@ -20,9 +20,9 @@ parameter's dtype, so f32 masters stay f32. Every leaf must be consumed
 and every port parameter filled, or it raises. The port imports no JAX:
 this module only walks nested mappings.
 
-`bert_from_flax`, `vit_from_flax`, `resnet_from_flax` and
-`dlrm_from_flax` bridge the encoder and vision families and the DLRM
-ranker. Their port modules are named as the flax
+`bert_from_flax`, `vit_from_flax`, `resnet_from_flax`,
+`dlrm_from_flax` and `mnist_from_flax` bridge the encoder and vision
+families, the DLRM ranker and the MNIST classifier. Their port modules are named as the flax
 tree (``encoder/layer_0/wq/kernel`` is ``encoder.layer_0.wq.kernel``),
 so each leaf maps by reading ``/`` as ``.``; conv kernels go from flax's
 HWIO to torch's ``[out, in, kh, kw]``. The same rule holds: every leaf
@@ -173,3 +173,17 @@ def resnet_from_flax(variables, config) -> Dict[str, torch.Tensor]:
     from tf_yarn_tpu_torch.models.resnet import ResNet
 
     return _bridge_by_name(variables, ResNet(config, device="cpu"))
+
+
+def mnist_from_flax(variables, hidden_sizes=(512, 256), num_classes: int = 10,
+                    device=None):
+    """`models.mnist.DenseClassifier` on `device` holding the variables of
+    the JAX `DenseClassifier` (its input width is the first kernel's)."""
+    from tf_yarn_tpu_torch._device import resolve_device
+    from tf_yarn_tpu_torch.models.mnist import DenseClassifier
+
+    flat = _flatten(variables.get("params", variables))
+    model = DenseClassifier(int(np.shape(flat["Dense_0/kernel"])[0]),
+                            hidden_sizes, num_classes, device="cpu")
+    model.load_state_dict(_bridge_by_name(variables, model))
+    return model.to(resolve_device(device))

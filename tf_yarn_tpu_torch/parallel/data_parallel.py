@@ -1,0 +1,244 @@
+"""The train loop's data-parallel wrap over a ``("dp", "fsdp")`` mesh.
+
+The JAX package shards the train state over the mesh with XLA inserting
+the collectives (training.py:574-760 under a multi-device mesh). The
+port is eager PyTorch with one process per rank, so the wrap is
+explicit, by the mesh's sizes:
+
+* ``dp`` only — `DistributedDataParallel` on the rank's device: the
+  parameters replicated, the gradients all-reduced (mean) over ``dp``
+  as the backward runs;
+* ``fsdp`` > 1 — FSDP2 ``fully_shard`` on each block (the repeated
+  layers: members of a ModuleList or Sequential, ``layer_<i>`` or
+  ``block_<i>``), then on the root, over the mesh's ``fsdp`` dim: the
+  parameters and the optimizer state sharded, the gradients
+  reduce-scattered;
+* both > 1 — FSDP2's hybrid form over the 2-D mesh: replicated over
+  ``dp``, sharded over ``fsdp``.
+
+`DataParallel` keeps the inner module (``inner``): the loop reads the
+dropout ``generator``, the FLOP count and LoRA merges from it, and calls
+``module``, the wrapper. Its state dict is the one-device run's format
+(`full_state`, gathered in full and onto the host under FSDP2, the
+optimizer's state keyed by parameter index as ``optimizer.state_dict()``
+keys it), so a checkpoint of any world size resumes at any other.
+
+Under DDP each gradient bucket's all-reduce is timed from its launch to
+its completion, as the host sees it: a ``train/grad_allreduce`` span
+(with the step and bucket bytes) and the ``train/grad_allreduce_seconds``
+histogram. FSDP2's collectives are its own and are not timed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+import time
+from typing import Any, Dict, Iterator, List
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+
+_BLOCK_NAME = re.compile(r"(?:layer|block)_\d+")
+
+
+def blocks(model: nn.Module) -> List[nn.Module]:
+    """The outermost repeated blocks of `model` that hold parameters: the
+    members of a ModuleList or Sequential, and submodules named
+    ``layer_<i>`` or ``block_<i>``."""
+    found: List[str] = []
+    out: List[nn.Module] = []
+    containers = {name for name, module in model.named_modules()
+                  if isinstance(module, (nn.ModuleList, nn.Sequential))}
+    for name, module in model.named_modules():
+        if not name or name in containers:
+            continue
+        if any(name.startswith(prefix + ".") for prefix in found):
+            continue
+        parent, _, leaf = name.rpartition(".")
+        if (parent in containers or _BLOCK_NAME.fullmatch(leaf)) and any(
+                True for _ in module.parameters()):
+            found.append(name)
+            out.append(module)
+    return out
+
+
+class AllReduceTimer:
+    """The state of `timed_allreduce`: the group and the step running."""
+
+    def __init__(self, group) -> None:
+        self.group = group
+        self.step = 0
+
+
+def timed_allreduce(timer: AllReduceTimer, bucket):
+    """DDP comm hook: the default mean all-reduce of a bucket, timed from
+    its launch to its completion."""
+    group = timer.group
+    tensor = bucket.buffer()
+    n_bytes = tensor.numel() * tensor.element_size()
+    tensor.div_(dist.get_world_size(group))
+    start = time.perf_counter()
+    future = dist.all_reduce(tensor, group=group, async_op=True).get_future()
+    step = timer.step
+
+    def done(fut):
+        seconds = time.perf_counter() - start
+        telemetry.get_tracer().record("train/grad_allreduce", start, seconds,
+                                      step=step, bytes=n_bytes)
+        telemetry.get_registry().histogram(
+            "train/grad_allreduce_seconds").observe(seconds)
+        return fut.value()[0]
+
+    return future.then(done)
+
+
+class DataParallel:
+    """`model` (on `device`) wrapped over `mesh` for data-parallel
+    training, with the optimizer that ``make_optimizer(model)`` builds
+    over the wrapped parameters."""
+
+    def __init__(self, model: nn.Module, mesh, device: torch.device,
+                 make_optimizer) -> None:
+        self.inner = model
+        dp = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_DP)
+        self.timer = None
+        if mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_FSDP) > 1:
+            from torch.distributed.fsdp import fully_shard
+
+            shard_mesh = mesh if dp > 1 else mesh[mesh_lib.AXIS_FSDP]
+            for block in blocks(model):
+                fully_shard(block, mesh=shard_mesh)
+            fully_shard(model, mesh=shard_mesh)
+            self.kind = "hsdp" if dp > 1 else "fsdp"
+            self.module = model
+        else:
+            from torch.nn.parallel import DistributedDataParallel
+
+            group = mesh[mesh_lib.AXIS_DP].get_group()
+            # find_unused_parameters: a parameter no forward reads (BERT's
+            # segment_embedding without segments) must not stall the
+            # bucket it sits in.
+            self.module = DistributedDataParallel(
+                model, device_ids=[device.index] if device.type == "cuda"
+                else None, process_group=group, find_unused_parameters=True)
+            self.timer = AllReduceTimer(group)
+            self.module.register_comm_hook(self.timer, timed_allreduce)
+            self.kind = "ddp"
+        self.optimizer = make_optimizer(model)
+        names = {id(param): name for name, param in model.named_parameters()}
+        # Parameter index (as optimizer.state_dict() numbers them) -> name.
+        self._names = [names[id(param)]
+                       for group in self.optimizer.param_groups
+                       for param in group["params"]]
+
+    @contextlib.contextmanager
+    def gradient_sync(self, sync: bool) -> Iterator[None]:
+        """The forward and backward inside reduce the gradients over the
+        mesh only when `sync` (the last microbatch of a step)."""
+        if sync:
+            yield
+        elif self.kind == "ddp":
+            with self.module.no_sync():
+                yield
+        else:
+            self.module.set_requires_gradient_sync(False)
+            try:
+                yield
+            finally:
+                self.module.set_requires_gradient_sync(True)
+
+    def full_state(self) -> Dict[str, Any]:
+        """``{"params": ..., "optimizer": ...}`` in the one-device format.
+        Under FSDP2 a collective that every rank calls, and only rank 0
+        (the writer) gets the optimizer's state."""
+        if self.kind == "ddp":
+            return {"params": self.inner.state_dict(),
+                    "optimizer": self.optimizer.state_dict()}
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
+
+        options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+        optim = get_optimizer_state_dict(self.inner, self.optimizer,
+                                         options=options)
+        params = get_model_state_dict(self.inner, options=options)
+        if "state" not in optim:
+            return {"params": params, "optimizer": {}}
+        index = {name: i for i, name in enumerate(self._names)}
+        return {
+            "params": params,
+            "optimizer": {
+                "state": {index[name]: value
+                          for name, value in optim["state"].items()},
+                "param_groups": [
+                    dict(group, params=[index[name] for name in group["params"]])
+                    for group in optim["param_groups"]]},
+        }
+
+    def load_full_state(self, state: Dict[str, Any]) -> None:
+        """Load `full_state`'s format (a checkpoint of any world size).
+        Under FSDP2 every rank loads the whole state and keeps its shard."""
+        if self.kind == "ddp":
+            self.inner.load_state_dict(state["params"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            return
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_model_state_dict, set_optimizer_state_dict)
+
+        options = StateDictOptions(full_state_dict=True)
+        optim = state["optimizer"]
+        set_model_state_dict(self.inner, state["params"], options=options)
+        set_optimizer_state_dict(self.inner, self.optimizer, {
+            "state": {self._names[i]: value
+                      for i, value in optim["state"].items()},
+            "param_groups": [
+                dict(group, params=[self._names[i] for i in group["params"]])
+                for group in optim["param_groups"]]}, options=options)
+
+
+def wire_device(device: torch.device) -> torch.device:
+    """Where a small host-read collective's tensor lives: the card under
+    NCCL, the CPU under gloo."""
+    return device if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The ranks' scalar metrics averaged over the default group in one
+    all-reduce (each rank's share of the global batch is the same size);
+    ``perplexity`` is re-derived as exp(mean loss), the global batch's."""
+    if not metrics:
+        return {}
+    keys = sorted(metrics)
+    values = torch.stack([torch.as_tensor(metrics[k]).detach().reshape(())
+                          .to(torch.float64) for k in keys])
+    values = values.to(wire_device(values.device))
+    dist.all_reduce(values)
+    out = dict(zip(keys, (values / dist.get_world_size()).tolist()))
+    if "perplexity" in out and "loss" in out:
+        out["perplexity"] = float(torch.exp(torch.tensor(out["loss"])))
+    return out
+
+
+def weighted_eval_means(batches: List[Dict[str, float]], rows: List[int],
+                        device: torch.device) -> Dict[str, float]:
+    """The eval metrics of the global batches: each batch's metrics,
+    weighted by its rows on each rank, summed over the ranks in one
+    all-reduce, then averaged over the batches as one device's
+    `training.evaluate` averages them. ``perplexity`` is exp of each
+    batch's global loss."""
+    if not batches:
+        return {}
+    keys = sorted(batches[0])
+    table = torch.tensor([[b[k] * n for k in keys] + [n]
+                          for b, n in zip(batches, rows)],
+                         dtype=torch.float64, device=wire_device(device))
+    dist.all_reduce(table)
+    means = (table[:, :-1] / table[:, -1:]).cpu()
+    per_key = dict(zip(keys, means.unbind(1)))
+    if "perplexity" in per_key and "loss" in per_key:
+        per_key["perplexity"] = torch.exp(per_key["loss"])
+    return {k: float(v.mean()) for k, v in per_key.items()}

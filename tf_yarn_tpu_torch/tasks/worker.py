@@ -9,7 +9,10 @@ throughout. Dispatch:
   `InferenceExperiment`) — `experiment.run_experiment`, on the device
   that ``TPU_YARN_PLATFORM`` names (`_device.task_device`: the card
   unless it is ``cpu``), inside a torch process group when the cluster
-  has more than one chief or worker;
+  has more than one chief or worker — each rank on its own card and the
+  group NCCL, or gloo where the ranks share cards
+  (`_device.assign_rank_device`) — where `training.train_and_evaluate`
+  trains data-parallel;
 * a plain callable — invoked with no args.
 
 For a function of rank use
@@ -29,10 +32,13 @@ _logger = logging.getLogger(__name__)
 
 def _maybe_init_torch_distributed(runtime: _bootstrap.TaskRuntime) -> bool:
     """Join the primaries' torch process group (the JAX program's
-    `jax.distributed.initialize`, tasks/worker.py:27-82): NCCL on the
-    card, gloo on the CPU; ranks chief first, then workers by id. Only
-    with more than one chief or worker, each one process. Returns
-    whether a group was made (the caller destroys it)."""
+    `jax.distributed.initialize`, tasks/worker.py:27-82); ranks chief
+    first, then workers by id. Each rank takes its card and the group
+    its backend by `_device.assign_rank_device` (every primary is on
+    this host with `LocalBackend`): NCCL with a card for each rank, gloo
+    where they share cards or on the CPU. Only with more than one chief
+    or worker, each one process. Returns whether a group was made (the
+    caller destroys it)."""
     primaries = sorted(
         (ti for ti in runtime.cluster_tasks if ti.key.type in ("chief", "worker")),
         key=lambda ti: (0 if ti.key.type == "chief" else 1, ti.key.id),
@@ -47,7 +53,7 @@ def _maybe_init_torch_distributed(runtime: _bootstrap.TaskRuntime) -> bool:
         )
     import torch.distributed as dist
 
-    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch._device import assign_rank_device
 
     # torch's TCPStore binds without SO_REUSEPORT, so the reservation
     # socket cannot stay open across its bind (the JAX program holds it
@@ -57,7 +63,7 @@ def _maybe_init_torch_distributed(runtime: _bootstrap.TaskRuntime) -> bool:
         runtime.kv, runtime.task_key, runtime.cluster_tasks
     )
     rank = [ti.key for ti in primaries].index(runtime.task_key)
-    backend = "nccl" if task_device().type == "cuda" else "gloo"
+    _, backend = assign_rank_device(rank, len(primaries))
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{addr}", rank=rank,
         world_size=len(primaries),

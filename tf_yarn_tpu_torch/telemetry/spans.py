@@ -134,6 +134,18 @@ class Tracer:
         stack = self._stack()
         if stack and stack[-1] == span.name:
             stack.pop()
+        self._store(span)
+
+    def record(self, name: str, start: float, duration: float,
+               category: str = "host", **args: Any) -> Span:
+        """Add a span the caller timed itself (`start` on this module's
+        clock), e.g. from a completion callback on another thread."""
+        span = Span(name, category, args, depth=0, parent=None)
+        span.start, span.duration = start, duration
+        self._store(span)
+        return span
+
+    def _store(self, span: Span) -> None:
         with self._lock:
             self._buffer.append(span)
             sinks = list(self._sinks)

@@ -1,5 +1,5 @@
-"""The train-and-evaluate loop on one device — counterpart of
-tf_yarn_tpu/training.py.
+"""The train-and-evaluate loop, on one device or data-parallel over the
+ranks of a process group — counterpart of tf_yarn_tpu/training.py.
 
 `build_train_step` (training.py:126-187) runs the loss forward, the
 backward (through `torch.utils.checkpoint` where the model recomputes
@@ -37,11 +37,31 @@ chunk of ``steps_per_loop`` steps is that many step calls; CUDA graphs
 for it are host work after the port's benchmark (ROADMAP.md Queue 1
 item 9a).
 
-Not ported here, each raising or named in ROADMAP.md: a multi-device
-``mesh_spec`` or a process group of more than one rank, and with them
-the multi-host drain agreement (Queue 1 item 7); elastic resize (item
-5.1), the chaos hooks (item 5.2), remote model_dirs and their uploading
-TensorBoard writer (item 5.4).
+In a process group of more than one rank (one process and one device
+each; `tasks.worker` makes the group for a launched ``allreduce_topology``)
+the loop trains data-parallel over a `parallel.mesh.MeshSpec` of ``dp``
+and ``fsdp`` (``MeshSpec.auto(world)`` when the experiment gives none, as
+in JAX): the model is wrapped by `parallel.data_parallel.DataParallel`
+(DDP over ``dp``, FSDP2 over ``fsdp``, its hybrid form over both); an
+input_fn that declares ``host_index`` and ``num_hosts`` gets the rank and
+the world and yields its contiguous share of the global batch
+(training.py:391-424); microbatches before a step's last skip the
+gradient sync; a step's dropout seed folds in the rank, so the ranks draw
+independent masks; the logged metrics are the ranks' mean and the eval
+metrics the global batches' (weighted by rows), equal on every rank;
+samples, tokens, FLOPs and MFU count the global batch over world × the
+card's peak; rank 0 alone writes checkpoints (the one-device format, so
+any world size resumes any other) and TensorBoard and broadcasts the
+step and rates, and the ranks wait for its manifest before going on;
+every rank restores the step rank 0 verified; and the preemption flag is
+agreed at the ``drain_poll_every_steps`` cadence by an all-reduce (MAX),
+so one rank's flag drains every rank at the same step
+(`_preempt_agreed`, training.py:354-388).
+
+Not ported here, each raising or named in ROADMAP.md: the model axes of
+a mesh (``tp``, ``sp``, ``ep``, ``pp``: Queue 1 items 7b-7d and 8b);
+elastic resize (item 5.1), the chaos hooks (item 5.2), remote model_dirs
+and their uploading TensorBoard writer (item 5.4).
 """
 
 from __future__ import annotations
@@ -62,6 +82,8 @@ from tf_yarn_tpu_torch import event, preemption, telemetry
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
+from tf_yarn_tpu_torch.parallel import data_parallel
+from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 from tf_yarn_tpu_torch.utils import mlflow
 
@@ -75,21 +97,31 @@ ENV_ELASTIC_MAX_WORKERS = "TPU_YARN_ELASTIC_MAX_WORKERS"
 
 class TrainState:
     """The step, the model (its parameters) and the optimizer (its
-    state), mutated in place by the train step."""
+    state), mutated in place by the train step. With a `parallel` wrap
+    the state dict is its one-device format (a collective under FSDP2:
+    every rank calls it)."""
 
     def __init__(self, step: int, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer) -> None:
+                 optimizer: torch.optim.Optimizer,
+                 parallel: Optional[data_parallel.DataParallel] = None
+                 ) -> None:
         self.step = step
         self.model = model
         self.optimizer = optimizer
+        self.parallel = parallel
 
     def state_dict(self) -> Dict[str, Any]:
+        if self.parallel is not None:
+            return {"step": self.step, **self.parallel.full_state()}
         return {"step": self.step, "params": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self.parallel is not None:
+            self.parallel.load_full_state(state)
+        else:
+            self.model.load_state_dict(state["params"])
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
 
@@ -103,8 +135,8 @@ def _split(batch: Dict[str, torch.Tensor], parts: int):
 
 
 def step_seed(seed: int, step: int, *micro: int) -> int:
-    """The dropout seed of one step (and microbatch): a hash of
-    ``(seed, step[, micro])`` — the JAX step's ``fold_in(base_rng,
+    """The dropout seed of one step (and microbatch, and rank): a hash of
+    ``(seed, step[, micro[, rank]])`` — the JAX step's ``fold_in(base_rng,
     step)`` (training.py:135-159). The masks are the port's own bits."""
     key = ":".join(str(int(value)) for value in (seed, step, *micro))
     return int.from_bytes(
@@ -123,7 +155,8 @@ def _device_generator(model) -> torch.Generator:
 
 
 def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
-                     seed: int = 0):
+                     seed: int = 0,
+                     parallel: Optional[data_parallel.DataParallel] = None):
     """``train_step(state, batch) -> (state, metrics)``: metrics are
     detached 0-d tensors on the model's device ("loss" and the loss's
     aux). The model's dropout ``generator``, where it has one, and the
@@ -131,14 +164,26 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
     from) are reseeded from ``(seed, state.step)`` before the step's
     forward (from ``(seed, state.step, i)`` before microbatch i's); the
     global one is restored after the step, so code outside it sees its
-    own stream."""
+    own stream. With a `parallel` wrap the loss calls its ``module``
+    (`model` is the inner one), microbatches before the last skip the
+    gradient sync, and the rank is folded into every seed as
+    ``(seed, step, i, rank)``, so the ranks draw independent masks."""
     generators = [_device_generator(model)]
     if isinstance(getattr(model, "generator", None), torch.Generator):
         generators.append(model.generator)
+    call = parallel.module if parallel is not None else model
+    timer = parallel.timer if parallel is not None else None
+    rank = _rank() if parallel is not None else None
 
     def reseed(step: int, *micro: int) -> None:
+        key = (step, *(micro or (0,)), rank) if rank is not None else (
+            step, *micro)
         for generator in generators:
-            generator.manual_seed(step_seed(seed, step, *micro))
+            generator.manual_seed(step_seed(seed, *key))
+
+    def sync(i: int):
+        return (parallel.gradient_sync(i == grad_accum_steps - 1)
+                if parallel is not None else contextlib.nullcontext())
 
     def train_step(state: TrainState, batch):
         saved = generators[0].get_state()
@@ -149,17 +194,20 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
 
     def _step(state: TrainState, batch):
         optimizer.zero_grad(set_to_none=True)
+        if timer is not None:
+            timer.step = state.step
         if grad_accum_steps == 1:
             reseed(state.step)
-            loss, aux = loss_fn(model, batch, train=True)
+            loss, aux = loss_fn(call, batch, train=True)
             loss.backward()
             loss = loss.detach()
         else:
             loss_sum, aux_sum = 0.0, {}
             for i, micro in enumerate(_split(batch, grad_accum_steps)):
                 reseed(state.step, i)
-                micro_loss, micro_aux = loss_fn(model, micro, train=True)
-                micro_loss.backward()  # grads sum over the microbatches
+                with sync(i):
+                    micro_loss, micro_aux = loss_fn(call, micro, train=True)
+                    micro_loss.backward()  # grads sum over the microbatches
                 loss_sum = loss_sum + micro_loss.detach()
                 for key, value in micro_aux.items():
                     aux_sum[key] = aux_sum.get(key, 0.0) + value.detach()
@@ -196,18 +244,26 @@ def build_eval_step(model, loss_fn):
     return eval_step
 
 
-def evaluate(eval_step, state, eval_input_fn, place, max_steps: int
-             ) -> Dict[str, float]:
-    totals: Dict[str, float] = {}
-    count = 0
-    for batch in eval_input_fn():
-        metrics = eval_step(state, place(batch))
-        for key, value in metrics.items():
-            totals[key] = totals.get(key, 0.0) + float(value)
-        count += 1
-        if count >= max_steps:
+def evaluate(eval_step, state, eval_input_fn, place, max_steps: int,
+             rank: int = 0, world: int = 1) -> Dict[str, float]:
+    """The mean of the eval batches' metrics. In a world of more than one
+    rank each rank evaluates its share (an eval_input_fn declaring
+    ``host_index``/``num_hosts`` gets them) and the result is the global
+    batches', equal on every rank (`data_parallel.weighted_eval_means`)."""
+    batches, rows = [], []
+    device = None
+    for batch in _call_input_fn(eval_input_fn, rank=rank, world=world):
+        placed = place(batch)
+        batches.append({k: float(v)
+                        for k, v in eval_step(state, placed).items()})
+        rows.append(flops_lib.batch_counts(placed)[0] or 1)
+        device = next(iter(placed.values())).device
+        if len(batches) >= max_steps:
             break
-    return {k: v / max(count, 1) for k, v in totals.items()}
+    if world > 1:
+        return data_parallel.weighted_eval_means(batches, rows, device)
+    return {k: sum(b[k] for b in batches) / len(batches)
+            for k in (batches[0] if batches else {})}
 
 
 class _IntervalBreakdown:
@@ -247,8 +303,11 @@ class _StepsPerSecondHook:
                  samples_per_step: Optional[int] = None,
                  tokens_per_step: Optional[int] = None,
                  peak_flops: Optional[float] = None,
-                 runtime=None) -> None:
+                 runtime=None, broadcast: bool = True) -> None:
         self._runtime = runtime
+        # Rates and the step go to the KV store from rank 0 only; every
+        # rank flushes its registry under its own task.
+        self._broadcast = broadcast
         self._n_try = runtime.n_try if runtime is not None else 0
         self._every = max(1, every)
         self._t0 = time.perf_counter()
@@ -307,7 +366,7 @@ class _StepsPerSecondHook:
         for key, value in report.items():
             mlflow.log_metric(f"{key}_{self._n_try}", value, step=step)
         runtime = self._runtime
-        if runtime is not None:
+        if runtime is not None and self._broadcast:
             for key, value in report.items():
                 event.broadcast(runtime.kv, f"{runtime.task}/{key}",
                                 f"{value:.6g}")
@@ -321,19 +380,27 @@ class _StepsPerSecondHook:
             task=runtime.task if runtime is not None else None)
 
 
-def _make_input_iter(input_fn, start_step: int):
-    """The train iterator; input_fns declaring `start_step` get the
-    resume step (training.py:391-424)."""
+def _call_input_fn(input_fn, start_step: Optional[int] = None,
+                   rank: int = 0, world: int = 1):
+    """``input_fn(...)`` with the keywords it declares (training.py:391-424):
+    ``start_step`` (the resume step), and ``host_index`` and ``num_hosts``
+    (this rank and the world), for an input_fn that yields its rank's
+    contiguous share of a fixed global batch."""
     try:
         params = inspect.signature(input_fn).parameters
     except (TypeError, ValueError):
         params = {}
-    if "start_step" in params:
-        return iter(input_fn(start_step=start_step))
-    if start_step:
+    kwargs = {}
+    if start_step is not None and "start_step" in params:
+        kwargs["start_step"] = start_step
+    elif start_step:
         _logger.info("input_fn takes no start_step: input restarts from the "
                      "beginning at resume step %d", start_step)
-    return iter(input_fn())
+    if "host_index" in params:
+        kwargs["host_index"] = rank
+    if "num_hosts" in params:
+        kwargs["num_hosts"] = world
+    return input_fn(**kwargs)
 
 
 def _batch_placer(device: torch.device):
@@ -364,6 +431,15 @@ def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
             tensor = tensor.long()
         out[key] = tensor.to(device, non_blocking=True)
     return out
+
+
+def _host_metrics(metrics: Dict[str, torch.Tensor], world: int
+                  ) -> Dict[str, float]:
+    """The step's metrics as floats (a read that waits for the device):
+    this rank's, or the ranks' mean in a world of more than one."""
+    if world > 1:
+        return data_parallel.mean_metrics(metrics)
+    return {k: float(v) for k, v in metrics.items()}
 
 
 def _degraded() -> float:
@@ -413,6 +489,46 @@ def _world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _preempt_agreed(device: torch.device, world: int) -> bool:
+    """Whether every rank drains now (training.py:354-388): one rank's
+    preemption flag is every rank's decision, so no rank is left waiting
+    in a collective its peers never join. Every rank calls this on the
+    same step cadence. The device is synchronised first, so the flag's
+    all-reduce (MAX) follows the step's own collectives on every rank. At
+    one rank, the local flag."""
+    import torch.distributed as dist
+
+    if world == 1:
+        return preemption.requested()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    flag = torch.tensor([int(preemption.requested())],
+                        device=data_parallel.wire_device(device))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def _agreed_verified_step(model_dir: str, rank: int, world: int
+                          ) -> Optional[int]:
+    """The newest verified checkpoint step, found (and a corrupt newest
+    tree quarantined) by rank 0 alone and broadcast to every rank."""
+    import torch.distributed as dist
+
+    if world == 1:
+        return ckpt_lib.latest_verified_step(model_dir)
+    found = [ckpt_lib.latest_verified_step(model_dir) if rank == 0 else None]
+    dist.broadcast_object_list(found, src=0)
+    return found[0]
 
 
 ENV_PROFILE = "TPU_YARN_PROFILE"
@@ -528,51 +644,77 @@ def _make_tb_writer(model_dir: Optional[str]):
 def train_and_evaluate(core: CoreExperiment, device=None,
                        runtime=None) -> Dict[str, float]:
     """Run the train/eval/checkpoint loop on one device (CUDA unless
-    ``device="cpu"``); returns the final metrics. `runtime` is a launched
-    task's (`tasks._bootstrap.TaskRuntime`): the loop then reports into
-    the run's KV store."""
-    if getattr(core.mesh_spec, "total_devices", 1) > 1:
-        raise NotImplementedError(
-            "a multi-device mesh_spec is not ported yet: the loop runs on one "
-            "device (ROADMAP.md Queue 1 item 7, parallelism)")
-    if _world_size() > 1:
-        # Each rank would train its own replica on its own batches: data
-        # parallelism (gradient all-reduce, sharded input) is not ported.
-        raise NotImplementedError(
-            f"a process group of {_world_size()} ranks: data-parallel "
-            "training is not ported yet, the loop trains one device "
-            "(ROADMAP.md Queue 1 item 7, parallelism)")
+    ``device="cpu"``), or data-parallel in a process group of more than
+    one rank over ``core.mesh_spec`` (``MeshSpec.auto(world)`` when None);
+    returns the final metrics. `runtime` is a launched task's
+    (`tasks._bootstrap.TaskRuntime`): the loop then reports into the
+    run's KV store."""
+    world, rank = _world_size(), _rank()
+    mesh_spec = core.mesh_spec
+    if mesh_spec is None and world > 1:
+        mesh_spec = mesh_lib.MeshSpec.auto(world)
+    if mesh_spec is not None:
+        mesh_lib.check_mesh_spec(mesh_spec, world)
     device = resolve_device(device)
-    telemetry_task = runtime.task if runtime is not None else "train"
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    telemetry_task = (runtime.task if runtime is not None
+                      else "train" if rank == 0 else f"train-{rank}")
     telemetry.enable_env_jsonl(telemetry_task)
     try:
-        return _train_and_evaluate(core, device, runtime)
+        return _train_and_evaluate(core, device, runtime, mesh_spec, world,
+                                   rank)
     finally:
         telemetry.export_trace(telemetry_task)
 
 
 def _train_and_evaluate(core: CoreExperiment, device: torch.device,
-                        runtime) -> Dict[str, float]:
+                        runtime, mesh_spec, world: int,
+                        rank: int) -> Dict[str, float]:
     params_cfg = core.train_params
     place = _batch_placer(device)
+    mesh = None
+    if world > 1:
+        mesh = mesh_lib.build_mesh(mesh_spec, device)
+        _logger.info("mesh %s over %d ranks (%s)",
+                     dict(zip(mesh.mesh_dim_names, mesh.shape)), world,
+                     torch.distributed.get_backend())
+    mesh_lib.set_current_mesh(mesh)
     # Capacity gauges (training.py:622-636): the devices the step
     # computes on, and whether an elastic attempt runs short of workers.
     registry = telemetry.get_registry()
-    registry.gauge("train/mesh_devices").set(1.0)
+    registry.gauge("train/mesh_devices").set(float(world))
     registry.gauge("train/degraded").set(_degraded())
 
     input_resume_step = 0
     if core.model_dir:
         # Quarantines a corrupt newest checkpoint before the input
         # iterator is built, so input and state resume at one step.
-        input_resume_step = ckpt_lib.latest_verified_step(core.model_dir) or 0
-    train_iter = _make_input_iter(core.train_input_fn, input_resume_step)
+        input_resume_step = _agreed_verified_step(core.model_dir, rank,
+                                                  world) or 0
+    train_iter = iter(_call_input_fn(core.train_input_fn, input_resume_step,
+                                     rank, world))
     with telemetry.span("train/first_batch"):
         batch = place(next(train_iter))
     with telemetry.span("train/init"):
         model = (core.init_fn(device, params_cfg.seed) if core.init_fn
                  else core.model.to(device))
         model.train()
+    # Counted on the rank's own model and batch, before any wrap: no
+    # collective runs inside the count.
+    samples, tokens = flops_lib.batch_counts(batch)
+    flops_per_step = flops_lib.model_train_flops(model, batch)
+    if flops_per_step is None and input_resume_step < params_cfg.train_steps:
+        with telemetry.span("train/count_flops"):
+            flops_per_step = _count_train_flops(
+                model, core.loss_fn, batch, params_cfg.grad_accum_steps)
+    parallel = None
+    if world > 1:
+        with telemetry.span("train/parallel_wrap"):
+            parallel = data_parallel.DataParallel(model, mesh, device,
+                                                  core.optimizer)
+        state = TrainState(0, model, parallel.optimizer, parallel)
+    else:
         state = TrainState(0, model, core.optimizer(model))
 
     with contextlib.ExitStack() as cleanup:
@@ -580,30 +722,53 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
         ckpt_writer = None
         if core.model_dir:
             with telemetry.span("train/restore_latest"):
-                restored, step = ckpt_lib.restore_latest(core.model_dir,
-                                                         map_location=device)
+                if world == 1:
+                    restored, step = ckpt_lib.restore_latest(
+                        core.model_dir, map_location=device)
+                elif input_resume_step:
+                    # Every rank loads the step rank 0 verified; FSDP2
+                    # keeps its shard of the whole state.
+                    step = input_resume_step
+                    restored = ckpt_lib.restore_checkpoint(
+                        core.model_dir, step, map_location=(
+                            device if parallel.kind == "ddp" else "cpu"))
+                else:
+                    restored, step = None, None
             if restored is not None:
                 state.load_state_dict(restored)
                 resume_step = step
                 _logger.info("resumed from checkpoint step %d", resume_step)
             del restored
-            # save() returns once the state is in host memory; the write
-            # overlaps the next steps.
-            ckpt_writer = ckpt_lib.CheckpointWriter(params_cfg.keep_last_n)
-            cleanup.callback(ckpt_writer.close)
-        train_step = build_train_step(model, core.loss_fn, state.optimizer,
-                                      params_cfg.grad_accum_steps,
-                                      seed=params_cfg.seed)
+            if rank == 0:
+                # save() returns once the state is in host memory; the
+                # write overlaps the next steps. Rank 0 alone writes.
+                ckpt_writer = ckpt_lib.CheckpointWriter(params_cfg.keep_last_n)
+                cleanup.callback(ckpt_writer.close)
+        train_step = build_train_step(
+            model, core.loss_fn, state.optimizer, params_cfg.grad_accum_steps,
+            seed=params_cfg.seed, parallel=parallel)
         eval_step = build_eval_step(model, core.loss_fn)
 
         # Cadences that surface to the host this run (training.py:748-796).
-        # One process polls the preemption flag every step (a local read),
-        # so drain_poll_every_steps adds no boundary here.
+        # One process polls the preemption flag every step (a local read);
+        # ranks agree on it every drain_poll_every steps, the knob or the
+        # smallest host cadence, which then bounds the chunks too.
         steps_per_loop = max(1, params_cfg.steps_per_loop)
         host_cadences = [c for c in (
             params_cfg.log_every_steps,
             params_cfg.checkpoint_every_steps if core.model_dir else None,
             params_cfg.eval_every_steps if core.eval_input_fn else None) if c]
+        drain_poll_every = (params_cfg.drain_poll_every_steps
+                            if params_cfg.drain_poll_every_steps is not None
+                            else min(host_cadences, default=1))
+        if world > 1:
+            if drain_poll_every >= params_cfg.train_steps:
+                _logger.warning(
+                    "drain_poll_every_steps=%d >= train_steps=%d: preemption "
+                    "is never polled mid-run; a SIGTERM will only be honored "
+                    "by the grace-window SIGKILL",
+                    drain_poll_every, params_cfg.train_steps)
+            host_cadences.append(drain_poll_every)
         if steps_per_loop > 1:
             # Chunks never cross host boundaries nor the run's end, so a
             # longer chunk would never run.
@@ -615,16 +780,16 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     "remaining steps (%d); clamping", steps_per_loop, cap)
                 steps_per_loop = cap
 
-        samples, tokens = flops_lib.batch_counts(batch)
-        flops_per_step = flops_lib.model_train_flops(model, batch)
-        if flops_per_step is None and resume_step < params_cfg.train_steps:
-            with telemetry.span("train/count_flops"):
-                flops_per_step = _count_train_flops(
-                    model, core.loss_fn, batch, params_cfg.grad_accum_steps)
-        hook = _StepsPerSecondHook(params_cfg.log_every_steps, resume_step,
-                                   flops_per_step, samples, tokens,
-                                   _peak_flops(device), runtime=runtime)
-        tb_writer = _make_tb_writer(core.model_dir)
+        # The global batch's counts; MFU over world x the card's peak.
+        peak = _peak_flops(device)
+        hook = _StepsPerSecondHook(
+            params_cfg.log_every_steps, resume_step,
+            flops_per_step * world if flops_per_step else flops_per_step,
+            samples * world if samples else samples,
+            tokens * world if tokens else tokens,
+            peak * world if peak else peak, runtime=runtime,
+            broadcast=rank == 0)
+        tb_writer = _make_tb_writer(core.model_dir) if rank == 0 else None
         if tb_writer is not None:
             cleanup.callback(tb_writer.close)
         breakdown = _IntervalBreakdown()
@@ -637,12 +802,26 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
         profile = _ProfileWindow(device)
         profile.on_step(resume_step)
 
-        def save(at: int, **args) -> None:
+        def write(at: int) -> None:
+            """Hand step `at` to rank 0's writer (the state dict is a
+            collective under FSDP2, so every rank makes it)."""
             nonlocal last_saved_step
+            snapshot = state.state_dict()
+            if ckpt_writer is not None:
+                ckpt_writer.save(core.model_dir, at, snapshot)
+            last_saved_step = at
+
+        def landed() -> None:
+            """Rank 0's writes have landed, and every rank knows it."""
+            if ckpt_writer is not None:
+                ckpt_writer.wait()
+            if world > 1:
+                torch.distributed.barrier()
+
+        def save(at: int, **args) -> None:
             with telemetry.span("train/checkpoint_save", step=at,
                                 **args) as sp:
-                ckpt_writer.save(core.model_dir, at, state.state_dict())
-                last_saved_step = at
+                write(at)
             breakdown.add("checkpoint_save", sp.duration)
 
         def pull_batch():
@@ -658,7 +837,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
             one ``train/step_dispatch`` span (``steps=N`` for a chunk)."""
             nonlocal state
             for b in batches:
-                hook.record_batch(flops_lib.batch_counts(b)[0])
+                hook.record_batch((flops_lib.batch_counts(b)[0] or 0) * world)
             args = {"steps": len(batches)} if len(batches) > 1 else {}
             with telemetry.span("train/step_dispatch", **args) as sp:
                 for b in batches:
@@ -700,7 +879,8 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     step += 1
                 profile.on_step(step)
                 if (not input_exhausted and step < params_cfg.train_steps
-                        and preemption.requested()):
+                        and (world == 1 or step % drain_poll_every == 0)
+                        and _preempt_agreed(device, world)):
                     # First at the host boundary, before eval or log work
                     # that could outlive the SIGTERM grace window. A flag
                     # raised during the final step completes normally.
@@ -710,10 +890,8 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                         with telemetry.span("train/checkpoint_save", step=step,
                                             drain=True):
                             if step != last_saved_step:
-                                ckpt_writer.save(core.model_dir, step,
-                                                 state.state_dict())
-                                last_saved_step = step
-                            ckpt_writer.wait()
+                                write(step)
+                            landed()
                     raise preemption.Preempted(
                         f"preempted at step {step}"
                         + (f"; checkpoint saved to {core.model_dir}"
@@ -724,8 +902,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                         or step == params_cfg.train_steps):
                     # Reading the metrics waits for the queued device work.
                     with telemetry.span("train/device_wait") as sp:
-                        metrics_host = {k: float(v)
-                                        for k, v in metrics.items()}
+                        metrics_host = _host_metrics(metrics, world)
                     breakdown.add("device_wait", sp.duration)
                     hook.after_step(step, metrics_host,
                                     force=step == params_cfg.train_steps,
@@ -742,7 +919,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     with telemetry.span("train/eval", step=step) as sp:
                         eval_metrics = evaluate(
                             eval_step, state, core.eval_input_fn, place,
-                            params_cfg.eval_steps)
+                            params_cfg.eval_steps, rank, world)
                     breakdown.add("eval", sp.duration)
                     _logger.info("eval @ step %d: %s", step, eval_metrics)
                     if tb_writer is not None:
@@ -764,19 +941,18 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
         if not metrics_host:
             # The loop never ran (restored at train_steps): report the
             # model's current loss instead of {}.
-            metrics_host = {k: float(v)
-                            for k, v in eval_step(state, batch).items()}
+            metrics_host = _host_metrics(eval_step(state, batch), world)
         if core.model_dir:
             with telemetry.span("train/checkpoint_save", step=step,
                                 final=True):
                 if step != last_saved_step:
-                    ckpt_writer.save(core.model_dir, step, state.state_dict())
-                    last_saved_step = step
-                ckpt_writer.wait()
+                    write(step)
+                landed()
         if core.eval_input_fn:
             with telemetry.span("train/eval", final=True):
                 final_eval = evaluate(eval_step, state, core.eval_input_fn,
-                                      place, params_cfg.eval_steps)
+                                      place, params_cfg.eval_steps, rank,
+                                      world)
             metrics_host.update(
                 {f"eval_{k}": v for k, v in final_eval.items()})
         return metrics_host
