@@ -7,7 +7,8 @@ NVIDIA H100: the quickest proof that the port still starts on the GPU.
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
-2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed;
+2. build: every CUDA kernel from ops/csrc/ (sm_90a), timed, started
+   beside the imports;
 3. kernels: each of the twelve kernels against its plain torch version
    on the card at its main path's shapes (serving: rmsnorm — bf16 and
    f32 at a decode tick's 4 rows, phase 3's 512 and the training
@@ -61,7 +62,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    RankServer on both (ids negative and past their tables among the
    requests) — scores within 1e-5 — and trained 3 adagrad steps through
    `train_and_evaluate` on both from those weights — losses and
-   parameters close;
+   parameters close; the small f32 LoRA decoder (flash, fused norms) at
+   `MeshSpec(tp=2)`: two gloo ranks on the card, spawned at the smoke's
+   start and waiting for this phase, train it 3 steps through
+   `train_and_evaluate` against one rank in this process — losses and adapters within 1e-4, the ranks'
+   adapters bitwise equal, their flash calls on 2 of 4 query heads and 1
+   of 2 kv heads;
 5. serving slice: the Llama-3-8B-width decoder cut to 4 of its 32
    layers (`serving_config`; random bf16 weights from seed 0, int8 KV)
    on every serving path, each with the kernel counts
@@ -156,9 +162,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    pytorch workers (`PytorchExperiment(backend="gloo")`) trains phase 7's
    BERT-base 4 steps over a DistributedSampler of phase 7's batches: the
    ranks' parameters bitwise equal, rank 0's `model_ckpt` save equal to
-   them, the LayerNorm kernels launched in each worker; each part's
-   seconds;
-10. fleet slice, the launched serving fleet (`fleet_slice`): (a) phase
+   them, the LayerNorm kernels launched in each worker; (g) tensor
+   parallelism, run beside phase 10 (a): a chief and a worker of
+   `allreduce_topology` train `make_experiment(llama3_8b(lora_rank=16,
+   flash, fused norms, unrolled))` at 4 of 32 layers (`SERVE_LAYERS`),
+   batch 1 x 2048, 3 steps, random weights from seed 0, at
+   `MeshSpec(tp=2)`, both on the one card over gloo, with a checkpoint
+   at the end; while they start, the same trains at one rank in this
+   process, the training kernels' counts set to 0 just before it. Each
+   rank launched RMSNorm forward and dx and flash forward, dq and dk/dv
+   as often as the one rank did, its flash calls on 16 query heads and 4
+   kv heads, its base bitwise unchanged; the ranks' adapters bitwise
+   equal, and rank 0's change from init within 0.2 of the one rank's
+   (the norm of the difference over the norm of the one rank's change);
+   their losses within 5e-4 relative of the one rank's, which move by
+   more than 1e-3; rank 0 alone submitted the checkpoint, whose base is
+   bitwise the one rank's and whose adapters are rank 0's, and which
+   loads into the one-rank model; each step's seconds, its tp all-reduce
+   seconds (by op) and the logits gather's from the ranks' traces. (b),
+   (c) and (f) run at once; each part's seconds;
+10. fleet slice, the launched serving fleet (`fleet_slice`), after
+   phase 9 (a)-(f), with (g) beside its (a): (a) phase
    5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
    tokens with 16 new each, one at a time; the weights saved as ckpt-1
    (timed) and the model freed. Then one `run_on_gpu` of a mixed fleet
@@ -190,7 +214,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    memory and restore seconds (verify, read, copy), and the seconds of
    the launch to the router's endpoint, (d), (e) and the drain.
 
-The run takes 5-9 minutes by how fast the host is (the last line before
+The run takes 7-11 minutes by how fast the host is (the last line before
 the kernels JSON gives each phase's seconds; phases 5, 9 and 10 also
 print their parts' seconds), inside a 20-minute limit.
 
@@ -203,14 +227,17 @@ file.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -3216,9 +3243,11 @@ def launcher_slice(torch, client, topologies, reference_losses,
     through NCCL. (d) the worker requests the preemption drain after
     step 2 in attempt 0 (nb_retries=1): attempt 0 saves ckpt-2 and is
     classified PREEMPTED, attempt 1 resumes at step 2 and its steps 3-4
-    equal phase 7's within LAUNCHER_LOSS_RTOL. `env` adds to every
-    task's environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu goes to
-    (a), (c) and (d) only). Each part's seconds are under "seconds"."""
+    equal phase 7's within LAUNCHER_LOSS_RTOL. (e), (d) and (f): see
+    `ranks_parts` and `pytorch_part`; (g) runs beside phase 10 (a)
+    (`tp_launch`, `tp_check`). `env` adds to every task's environment (the CPU rehearsal's
+    TPU_YARN_PLATFORM=cpu goes to every part but (b)). Each part's
+    seconds are under "seconds"."""
     import tempfile
 
     from tf_yarn_tpu_torch import telemetry
@@ -3577,27 +3606,39 @@ def ranks_parts(torch, client, topologies, tmp, base_env, env,
     return out
 
 
-def concurrently(parts: dict) -> dict:
-    """Run each zero-argument fn of `parts` in a thread of its own, all at
-    once: {name: (its result, its seconds)}; the first failure is raised
-    after all have ended."""
+def concurrently_started(parts: dict):
+    """Start each zero-argument fn of `parts` in a thread of its own, all
+    at once; returns a fn that waits for them and gives `concurrently`'s
+    {name: (its result, its seconds)}, raising the first failure."""
     done, errors = {}, []
 
     def run(name, fn):
         started = time.perf_counter()
         try:
             done[name] = (fn(), time.perf_counter() - started)
-        except BaseException as exc:  # re-raised in the caller
+        except BaseException as exc:  # re-raised by the waiter
             errors.append(exc)
 
     threads = [threading.Thread(target=run, args=item, name=item[0])
                for item in parts.items()]
     for thread in threads:
         thread.start()
-    for thread in threads:
-        thread.join()
-    if errors:
-        raise errors[0]
+
+    def wait() -> dict:
+        for thread in threads:
+            thread.join()
+        if errors:
+            raise errors[0]
+        return done
+
+    return wait
+
+
+def concurrently(parts: dict) -> dict:
+    """Run each zero-argument fn of `parts` in a thread of its own, all at
+    once: {name: (its result, its seconds)}; the first failure is raised
+    after all have ended."""
+    done = concurrently_started(parts)()
     return {name: done[name] for name in parts}
 
 
@@ -3641,6 +3682,450 @@ def pytorch_part(client, topologies, tmp, base_env, env, tiny):
                     for w in workers],
         "params_bitwise_equal_across_ranks": True,
         "model_ckpt_restored_equal": True,
+        "wall_s": wall,
+    }
+
+
+# Phase 9 (g) and phase 4's tiny check: the LoRA decoder trained at
+# ``MeshSpec(tp=2)`` by two ranks that share the one card (gloo), held
+# against the same experiment at one rank in this process.
+TP_RANKS = 2
+TP_STEPS = 3
+# (g)'s losses against the one-rank run, relative: bf16 GEMMs whose K is
+# split over the ranks in `wo` and `w_down` (summed after), the same
+# weights, batches and kernels; the decoder has no dropout. The one rank's
+# losses move by 1.0e-3 and 2.9e-3 relative from the first over its 3
+# steps, and the tp=2 ranks were 1.03e-4 from them (the card runs of
+# PERF.md §6): the bound lies between, so ranks whose adapters did not
+# train fail it. The one rank's own movement must exceed twice the bound.
+TP_LOSS_RTOL = 5e-4
+# (g)'s adapters against the one-rank run: the change from the init of
+# every LoRA factor, ||rank 0's change - the one rank's|| over ||the one
+# rank's change||, all factors at once (1.0 for adapters that never
+# moved). Adam moves an element whose gradient is near zero by up to the
+# learning rate either way, and bf16 noise decides which way: the card
+# measured 0.0925 (PERF.md §6), and the bound is about twice that.
+TP_ADAPTER_RTOL = 0.2
+# Phase 4's tiny f32 decoder at tp=2 against one rank: f32 sums in another
+# order (losses relative, adapters absolute).
+TP_TINY_TOL = 1e-4
+# Flash calls' (query heads, kv heads), recorded by `record_flash_heads`.
+_FLASH_HEADS = set()
+# The one-rank reference's model, kept by `tp_experiment(keep=True)`,
+# and its LoRA factors at init (on the host).
+_TP_MODELS = []
+_TP_INIT = {}
+
+
+def tp_config(torch, tt, tiny: bool):
+    """(g)'s decoder: Llama-3-8B widths at SERVE_LAYERS layers, LoRA rank
+    16, flash and fused norms, unrolled; `tiny`: phase 4's small f32 LoRA
+    decoder (head_dim 64, 4 heads over 2 kv heads)."""
+    if tiny:
+        return tt.TransformerConfig(
+            vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=512, max_seq_len=128, dtype=torch.float32,
+            attention_impl="flash", fused_norms=True, scan_layers=False,
+            remat=True, lora_rank=8)
+    return dataclasses.replace(tt.TransformerConfig.llama3_8b(
+        lora_rank=16, attention_impl="flash", fused_norms=True,
+        scan_layers=False), n_layers=SERVE_LAYERS)
+
+
+def record_flash_heads() -> None:
+    """Wrap `ops.flash_attention.flash_attention` (once a process) to
+    record the (query heads, kv heads) of each call in _FLASH_HEADS."""
+    from tf_yarn_tpu_torch.ops import flash_attention
+
+    inner = flash_attention.flash_attention
+    if getattr(inner, "records_heads", False):
+        return
+
+    def recording(q, k, v, *args, **kwargs):
+        _FLASH_HEADS.add((q.shape[2], k.shape[2]))
+        return inner(q, k, v, *args, **kwargs)
+
+    recording.records_heads = True
+    recording.inner = inner
+    flash_attention.flash_attention = recording
+
+
+def tp_record_path(out_dir, rank: int) -> Path:
+    return Path(out_dir) / f"tp-{rank}.json"
+
+
+def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
+                  model_dir=None, keep: bool = False):
+    """The experiment fn of (g)'s launched ranks, phase 4's spawned ranks
+    and both one-rank references: `tp_config`'s decoder through
+    `make_experiment` (batch 1 x 2048; tiny 2 x 128), TP_STEPS steps,
+    ``MeshSpec(tp=tp)`` when tp > 1, random weights from seed 0 and a
+    nonzero lora_b from seed 3 (so every adapter gets a gradient), the
+    losses logged every step, a checkpoint at the end when `model_dir` is
+    given. Each rank writes <out_dir>/tp-<rank>.json after its last step:
+    its losses, the training kernels' launches in this process, the flash
+    calls' heads, its backend and device, whether its frozen base is
+    bitwise what it held before its first step, its parameters' local
+    shapes, and its adapters to tp-<rank>.pt. `keep`: keep the model in
+    _TP_MODELS (the in-process reference)."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.ops import flash_attention, rmsnorm
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
+
+    record_flash_heads()
+    cfg = tp_config(torch, tt, tiny)
+    shape = (dict(batch_size=2, seq_len=128) if tiny
+             else dict(batch_size=1, seq_len=2048))
+    exp = tt.make_experiment(
+        cfg, model_dir=model_dir, train_steps=TP_STEPS, learning_rate=1e-3,
+        log_every_steps=1, mesh_spec=MeshSpec(tp=tp) if tp > 1 else None,
+        **shape)
+    counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
+               flash_attention.flash_fwd, flash_attention.flash_dq,
+               flash_attention.flash_dkv)
+    init, loss_fn, make_optimizer = exp.init_fn, exp.loss_fn, exp.optimizer
+    losses, base = [], {}
+
+    def init_fn(device, seed):
+        model = init(device, seed)
+        gen = torch.Generator(device=model.device).manual_seed(SEED + 3)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                if name.endswith("lora_b"):
+                    param.normal_(0.0, 0.05, generator=gen)
+        if keep:
+            _TP_MODELS.append(model)
+            _TP_INIT.clear()
+            _TP_INIT.update({name: param.detach().cpu().clone()
+                             for name, param in model.named_parameters()
+                             if tt.is_lora_param(name)})
+        return model
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            losses.append(loss.detach())
+        return loss, aux
+
+    def optimizer(model):
+        # Called on the rank's shards, before the first step.
+        base.update({name: param.detach().clone()
+                     for name, param in model.named_parameters()
+                     if not tt.is_lora_param(name)})
+        opt = make_optimizer(model)
+
+        def after_step(opt, args, kwargs):
+            if len(losses) != TP_STEPS:
+                return
+            grouped = dist.is_available() and dist.is_initialized()
+            rank = dist.get_rank() if grouped else 0
+            params = dict(model.named_parameters())
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            torch.save({name: p.detach().cpu() for name, p in params.items()
+                        if tt.is_lora_param(name)},
+                       Path(out_dir) / f"tp-{rank}.pt")
+            tp_record_path(out_dir, rank).write_text(json.dumps({
+                "losses": [float(x) for x in losses],
+                "launches": {fn.__name__: fn.launches for fn in counted},
+                "flash_heads": sorted(_FLASH_HEADS),
+                "rank": rank,
+                "world": dist.get_world_size() if grouped else 1,
+                "backend": dist.get_backend() if grouped else None,
+                "device": str(next(iter(params.values())).device),
+                "base_unchanged": all(torch.equal(params[n], v)
+                                      for n, v in base.items()),
+                "shapes": {n: list(p.shape) for n, p in params.items()
+                           if n.startswith("layers.0.") or "." not in n},
+            }))
+
+        opt.register_step_post_hook(after_step)
+        return opt
+
+    exp.init_fn, exp.loss_fn, exp.optimizer = (init_fn, recording_loss,
+                                               optimizer)
+    return exp
+
+
+def tp_reference(torch, training, experiment, out_dir, dev, tiny: bool):
+    """The tp experiment at one rank in this process, the training
+    kernels' counts set to 0 just before it: its record (`tp_experiment`)
+    and seconds; its model stays in _TP_MODELS."""
+    from tf_yarn_tpu_torch.ops import flash_attention, rmsnorm
+
+    for fn in (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
+               flash_attention.flash_fwd, flash_attention.flash_dq,
+               flash_attention.flash_dkv):
+        fn.launches = 0
+    _FLASH_HEADS.clear()
+    started = time.perf_counter()
+    try:
+        training.train_and_evaluate(experiment.as_core_experiment(
+            tp_experiment(str(out_dir), tiny, tp=1, keep=True)), device=dev)
+    finally:
+        flash_attention.flash_attention = getattr(
+            flash_attention.flash_attention, "inner",
+            flash_attention.flash_attention)
+    seconds = time.perf_counter() - started
+    record = json.loads(tp_record_path(out_dir, 0).read_text())
+    return dict(record, seconds=seconds)
+
+
+# Phase 4's tiny ranks start with the smoke and train once the phase writes
+# this file in their directory (within TP_GO_TIMEOUT_S).
+TP_GO = "go"
+TP_GO_TIMEOUT_S = 900.0
+
+
+def _tp_tiny_rank(rank: int, world: int, port: int, out_dir: str,
+                  device: str) -> None:
+    """Phase 4's spawned rank: the tiny tp experiment at tp=`world` over
+    gloo on `device`, once <out_dir>/go exists."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from tf_yarn_tpu_torch import experiment, training
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        go, waited = Path(out_dir) / TP_GO, time.perf_counter()
+        while not go.exists():
+            if time.perf_counter() - waited > TP_GO_TIMEOUT_S:
+                raise TimeoutError(f"no {go} after {TP_GO_TIMEOUT_S} s")
+            time.sleep(0.05)
+        training.train_and_evaluate(experiment.as_core_experiment(
+            tp_experiment(out_dir, tiny=True, tp=world)), device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def tp_ranks_start(torch, out_dir: str, device: str):
+    """Spawn phase 4's two tiny tp ranks now: each imports, takes the card
+    and joins its gloo group, then waits for <out_dir>/go, so the smoke's
+    build and phase 3 hide their start. Returns a fn that writes go,
+    waits for the ranks and gives their wall from it. A rank still
+    running when this process exits is terminated."""
+    ranks = torch.multiprocessing.spawn(
+        _tp_tiny_rank, args=(TP_RANKS, _free_port(), out_dir, device),
+        nprocs=TP_RANKS, join=False)
+
+    def stop():
+        for process in ranks.processes:
+            if process.is_alive():
+                process.terminate()
+
+    atexit.register(stop)
+
+    def go() -> float:
+        started = time.perf_counter()
+        (Path(out_dir) / TP_GO).touch()
+        while not ranks.join():
+            pass
+        return time.perf_counter() - started
+
+    return go
+
+
+def tp_tiny_check(torch, out_dir, reference, ranks_wall):
+    """Phase 4: the spawned tiny ranks (tp=2, gloo, on the card) against
+    `reference`, the tiny experiment at one rank in this process
+    (`tp_reference`): each rank's losses within TP_TINY_TOL relative and
+    its adapters within TP_TINY_TOL absolute of the one rank's, the
+    ranks' adapters bitwise equal, the base unchanged, each rank's flash
+    calls on 2 query heads and 1 kv head."""
+    ranks = [json.loads(tp_record_path(out_dir, r).read_text())
+             for r in range(TP_RANKS)]
+    adapters = [torch.load(Path(out_dir) / f"tp-{r}.pt")
+                for r in range(TP_RANKS)]
+    one = {name: p.detach().cpu() for name, p in
+           _TP_MODELS.pop().named_parameters() if "lora" in name}
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], reference["losses"]))
+    lora_err = max(float((a[n] - one[n]).abs().max())
+                   for a in adapters for n in one)
+    if (any((r["world"], r["backend"], r["base_unchanged"],
+             r["flash_heads"]) != (TP_RANKS, "gloo", True, [[2, 1]])
+            for r in ranks)
+            or sorted(adapters[0]) != sorted(one)
+            or not all(torch.equal(adapters[0][n], adapters[1][n])
+                       for n in one)
+            or loss_err > TP_TINY_TOL or lora_err > TP_TINY_TOL):
+        raise AssertionError(f"tiny tp=2 against one rank: ranks {ranks}, "
+                             f"one rank {reference}, adapter max abs err "
+                             f"{lora_err}")
+    return {"losses": [r["losses"] for r in ranks],
+            "reference_losses": reference["losses"],
+            "loss_max_rel_err": loss_err, "adapter_max_abs_err": lora_err,
+            "adapters_bitwise_equal_across_ranks": True,
+            "flash_heads": ranks[0]["flash_heads"],
+            "reference_flash_heads": reference["flash_heads"],
+            "ranks_wall_s": ranks_wall}
+
+
+def _tp_trace(trace_path: Path) -> dict:
+    """A rank's steps from its exported trace: each step's seconds (its
+    dispatch span through its device wait) and, within its dispatch, the
+    tp all-reduces' seconds and bytes, all of them and by op."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = lambda name: sorted((e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6,
+                                 e.get("args", {})) for e in events
+                                if e["name"] == name)
+    dispatch, waits = spans("train/step_dispatch"), spans("train/device_wait")
+    reduces = spans("train/tp_allreduce")
+    steps = []
+    for (start, end, _), (_, wait_end, _) in zip(dispatch, waits):
+        inside = [(s, e, a) for s, e, a in reduces if start <= s < end]
+        by_op = {}
+        for s, e, a in inside:
+            entry = by_op.setdefault(a["op"], {"n": 0, "s": 0.0, "bytes": 0})
+            entry["n"] += 1
+            entry["s"] += e - s
+            entry["bytes"] += a["bytes"]
+        steps.append({"step_s": wait_end - start,
+                      "tp_allreduce_n": len(inside),
+                      "tp_allreduce_s": sum(e - s for s, e, _ in inside),
+                      "tp_allreduce_bytes": sum(a["bytes"]
+                                                for _, _, a in inside),
+                      "logits_gather_s": by_op.get("gather", {}).get("s", 0.0),
+                      "by_op": by_op})
+    return {"steps": steps, "tp_allreduce_total": len(reduces)}
+
+
+def tp_launch(client, topologies, tmp, base_env, env, tiny):
+    """Phase 9 (g)'s run: `run_on_gpu` of `allreduce_topology`'s chief and
+    one worker trains `tp_experiment` at ``MeshSpec(tp=2)``, both ranks
+    on the one card over gloo, a checkpoint at the end. Returns (its
+    start on this process's perf_counter, which the tasks' traces share,
+    its wall)."""
+    spec = topologies.allreduce_topology(nb_workers=1, chips_per_host=1)
+    started = time.perf_counter()
+    client.run_on_gpu(
+        client.get_safe_experiment_fn(
+            "chip_smoke.tp_experiment", str(tmp / "tp"), tiny, TP_RANKS,
+            str(tmp / "tp_model")),
+        spec, env=dict(base_env, TPU_YARN_TRACE=str(tmp / "tp_trace"),
+                       **(env or {})),
+        poll_every_secs=0.5, dead_task_secs=120)
+    return started, time.perf_counter() - started
+
+
+def tp_check(torch, tt, ckpt, tmp, reference, tiny, run):
+    """Phase 9 (g)'s checks of `tp_launch`'s run against the one-rank
+    `reference` (`tp_reference`, its model and init adapters kept): each
+    rank launched the training kernels as often as the one rank did, its
+    flash calls on 16 query heads and 4 kv heads (tiny: 2 and 1), its
+    base bitwise unchanged; the ranks' adapters bitwise equal; each
+    rank's losses within TP_LOSS_RTOL of the reference's, which move by
+    more than twice that; rank 0's adapters' change from init within
+    TP_ADAPTER_RTOL of the one rank's; rank 0 alone submitted the
+    checkpoint, whose base is bitwise the one rank's and whose adapters
+    are rank 0's, and which loads into the one-rank model. Each step's
+    seconds and its tp all-reduce and logits-gather seconds from the
+    ranks' traces, and each span's. `run` is `tp_launch`'s return."""
+    launched, wall = run
+    out_dir, model_dir = tmp / "tp", tmp / "tp_model"
+    trace_dir = tmp / "tp_trace"
+    ranks = [json.loads(tp_record_path(out_dir, r).read_text())
+             for r in range(TP_RANKS)]
+    adapters = [torch.load(out_dir / f"tp-{r}.pt") for r in range(TP_RANKS)]
+    traces = {task: _tp_trace(trace_dir / f"trace_{task.replace(':', '-')}"
+                              ".json") for task in RANK_TASKS}
+    spans = {task: _trace_spans(
+        trace_dir / f"trace_{task.replace(':', '-')}.json")
+        for task in RANK_TASKS}
+    saves = {task: len(spans[task].get("checkpoint/save_submit", []))
+             for task in RANK_TASKS}
+    heads = [[2, 1]] if tiny else [[16, 4]]
+    want = reference["losses"]
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], want))
+    moved = max(abs(a - want[0]) / abs(want[0]) for a in want[1:])
+    one = _TP_MODELS[-1]
+    one_params = dict(one.named_parameters())
+    change = lambda got, name: got.float() - _TP_INIT[name]
+    diff = sum(float((change(adapters[0][n], n) - change(
+        one_params[n].detach().cpu(), n)).norm()) ** 2 for n in _TP_INIT)
+    norm = sum(float(change(one_params[n].detach().cpu(), n).norm()) ** 2
+               for n in _TP_INIT)
+    adapter_err = (diff / norm) ** 0.5 if norm else float("inf")
+    checked = time.perf_counter()
+    steps = ckpt.list_checkpoint_steps(str(model_dir))
+    # Verified beside the restore and the comparisons, and waited for
+    # before the checkpoint counts as loaded.
+    verified = concurrently_started({"verify": lambda: ckpt.verify_checkpoint(
+        ckpt.checkpoint_path(str(model_dir), TP_STEPS))})
+    restored = ckpt.restore_checkpoint(str(model_dir), TP_STEPS,
+                                       map_location="cpu")["params"]
+    base_equal = all(
+        torch.equal(restored[n], p.detach().cpu()) for n, p in
+        one_params.items() if not tt.is_lora_param(n))
+    lora_equal = sorted(adapters[0]) == sorted(_TP_INIT) and all(
+        torch.equal(restored[n], adapters[0][n]) for n in adapters[0])
+    verified()
+    # It loads into a one-rank model: the reference's, its run done.
+    one.load_state_dict(restored)
+    del restored, one, one_params
+    checked = time.perf_counter() - checked
+    problems = [
+        r for r in ranks
+        if (r["world"], r["backend"], r["base_unchanged"], r["flash_heads"])
+        != (TP_RANKS, "gloo", True, heads)
+        or r["launches"] != reference["launches"]
+        or (not tiny and min(r["launches"].values()) <= 0)
+        or not r["device"].startswith("cpu" if tiny else "cuda")]
+    if (problems or loss_err > TP_LOSS_RTOL or moved <= 2 * TP_LOSS_RTOL
+            or adapter_err > TP_ADAPTER_RTOL
+            or not all(torch.equal(adapters[0][n], adapters[1][n])
+                       for n in adapters[0])
+            or saves != {"chief:0": 1, "worker:0": 0}
+            or steps != [TP_STEPS] or not base_equal or not lora_equal):
+        raise AssertionError(
+            f"tp=2 ranks: records {ranks}, one rank {reference}, loss err "
+            f"{loss_err}, the one rank's movement {moved}, adapter err "
+            f"{adapter_err}, checkpoint saves {saves}, steps {steps}, base "
+            f"equal {base_equal}, adapters equal {lora_equal}\n"
+            f"{task_log_tails()}")
+    return {
+        "ranks": [{key: r[key] for key in ("rank", "world", "backend",
+                                           "device", "launches", "losses",
+                                           "flash_heads")} for r in ranks],
+        "rank0_shapes": ranks[0]["shapes"],
+        "reference": {key: reference[key] for key in (
+            "losses", "launches", "flash_heads", "seconds")},
+        "loss_max_rel_err": loss_err,
+        "reference_loss_movement": moved,
+        "adapter_change_rel_err": adapter_err,
+        "adapters_bitwise_equal_across_ranks": True,
+        "base_bitwise_unchanged": True,
+        "checkpoint_save_submits": saves,
+        "ckpt_loads_into_one_rank": True,
+        "ckpt_check_s": checked,
+        "steps_rank0": traces["chief:0"]["steps"],
+        "steps_rank1_s": [s["step_s"] for s in traces["worker:0"]["steps"]],
+        # Each span's seconds in all, by rank, and the first span's start
+        # and the last one's end from the launch.
+        "rank_spans_s": {task: {name: sum(end - start for start, end in got)
+                                for name, got in sorted(task_spans.items())}
+                         for task, task_spans in spans.items()},
+        "rank_span_window_s": {task: [
+            min(s for got in task_spans.values() for s, _ in got) - launched,
+            max(e for got in task_spans.values() for _, e in got) - launched]
+            for task, task_spans in spans.items()},
         "wall_s": wall,
     }
 
@@ -4036,7 +4521,8 @@ def _records(out_dir: Path) -> dict:
 
 
 def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
-                topologies, dlrm, dev, tiny=False, env=None):
+                topologies, dlrm, dev, tiny=False, env=None,
+                before_launch=None):
     """Phase 10. (a) `fleet_reference`. Then one `run_on_gpu(mixed_fleet)`
     of `fleet_experiment` over (a)'s checkpoint: ``serving:0`` and
     ``serving:1`` (decode), ``prefill:0``, ``rank:0`` and the CPU
@@ -4053,7 +4539,9 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
     quantize and no paged kernel; no task rebuilt the kernel library; the
     router neither initialised CUDA nor loaded the library; each task's
     peak memory and restore seconds; the seconds of each part. `env` adds
-    to the tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu)."""
+    to the tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu).
+    `before_launch`, when given, is called between (a) and the launch
+    (`main` ends phase 9 (g), which ran beside (a), there)."""
     import tempfile
 
     cfg = fleet_config(torch, tt, tiny)
@@ -4069,6 +4557,8 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
                                     str(model_dir), tiny)
         result["a_in_process"] = dict(reference,
                                       wall_s=time.perf_counter() - started)
+        if before_launch is not None:
+            before_launch()
         if dev.type == "cuda":
             used = subprocess.run(
                 ["nvidia-smi", "--query-gpu=memory.used",
@@ -4384,12 +4874,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # The kernels build, and phase 4's tiny tp ranks start, while the rest
+    # of the port imports; the ranks wait for phase 4 to train.
+    from tf_yarn_tpu_torch.ops import _build
+
+    build_wait = concurrently_started({"build": _build.load_library})
+    tp_tiny_dir = Path(tempfile.mkdtemp(prefix="tp_tiny"))
+    tp_tiny_go = tp_ranks_start(torch, str(tp_tiny_dir), "cuda")
     from tf_yarn_tpu_torch import checkpoint as ckpt
     from tf_yarn_tpu_torch import experiment, inference, telemetry, training
     from tf_yarn_tpu_torch.models import common
     from tf_yarn_tpu_torch.models import decode_engine as engine_mod
     from tf_yarn_tpu_torch.models import transformer as tt
-    from tf_yarn_tpu_torch.ops import _build
     from tf_yarn_tpu_torch.models import bert, resnet, vit
     from tf_yarn_tpu_torch.ops import (decode_attention, flash_attention,
                                        groupnorm, layernorm, quantize,
@@ -4432,9 +4928,10 @@ def main() -> int:
     log(f"card: {card}")
 
     started = time.perf_counter()
-    _build.load_library()
-    log(f"build: {time.perf_counter() - started:.1f} s "
-        f"(nvcc {_build.build_seconds and round(_build.build_seconds, 1)} s)")
+    build_s = build_wait()["build"][1]
+    log(f"build: {build_s:.1f} s, {time.perf_counter() - started:.1f} s of "
+        f"it after the imports (nvcc "
+        f"{_build.build_seconds and round(_build.build_seconds, 1)} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
@@ -4464,6 +4961,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("3 kernels")
 
+    # Phase 4's tiny tp=2 ranks, started with the smoke, train now beside
+    # the references below and are checked at the phase's end.
+    tp_tiny = concurrently_started({"ranks": tp_tiny_go})
     reference = serve_tiny_reference(torch, tt, engine_mod, sched_mod,
                                      server_mod, dev)
     log(f"serving reference: card vs CPU prefill logits max err "
@@ -4487,6 +4987,16 @@ def main() -> int:
                                          dev)
     log(f"ranker reference ({time.perf_counter() - started:.1f} s): "
         f"{json.dumps(rank_reference)}")
+    started = time.perf_counter()
+    tp_tiny_one = tp_reference(torch, training, experiment,
+                               tp_tiny_dir / "one", dev, tiny=True)
+    ranks_wall = tp_tiny()["ranks"][0]
+    tp_tiny_result = tp_tiny_check(torch, tp_tiny_dir, tp_tiny_one,
+                                   ranks_wall)
+    shutil.rmtree(tp_tiny_dir, ignore_errors=True)
+    log(f"tp reference ({time.perf_counter() - started:.1f} s after the "
+        f"others): tiny f32 LoRA decoder at tp=2 on the card against one "
+        f"rank: {json.dumps(tp_tiny_result)}")
     mark("4 references")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
@@ -4557,16 +5067,57 @@ def main() -> int:
                       in launcher_result["seconds"].items()}))
     gc.collect()
     torch.cuda.empty_cache()
-    mark("9 launcher slice")
+    mark("9 launcher slice (a)-(f)")
 
+    # Phase 9 (g) beside phase 10 (a): the tp ranks are launched now, the
+    # one-rank reference trains in this process while they start, and the
+    # ranks train and are checked while (a) serves and writes its
+    # checkpoint here; the fleet launches once (g) has ended.
     started = time.perf_counter()
-    fleet_result = fleet_slice(torch, tt, engine_mod, sched_mod, server_mod,
-                               ckpt, client, topologies, dlrm, dev)
+    tp_tmp = Path(tempfile.mkdtemp(prefix="tp_g"))
+    reference_done = threading.Event()
+    tp_one = {}
+
+    def tp_part():
+        run = tp_launch(client, topologies, tp_tmp,
+                        {"PYTHONPATH": str(REPO)}, None, False)
+        reference_done.wait()
+        if not tp_one:
+            raise AssertionError("(g)'s one-rank reference failed")
+        return tp_check(torch, tt, ckpt, tp_tmp, tp_one, False, run)
+
+    tp_wait = concurrently_started({"g_tp": tp_part})
+    try:
+        tp_one.update(tp_reference(torch, training, experiment,
+                                   tp_tmp / "one", dev, tiny=False))
+    finally:
+        reference_done.set()
+    log(f"tp one-rank reference: {json.dumps(tp_one)}")
+    tp_result = {}
+
+    def end_tp():
+        tp_result.update(tp_wait()["g_tp"][0])
+        _TP_MODELS.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"tp slice (phase 9 (g)): {json.dumps(tp_result)} on {card}")
+        log(f"tp part: {time.perf_counter() - started:.1f} s after its "
+            f"launch, the ranks' run {tp_result['wall_s']:.1f} s")
+
+    try:
+        fleet_result = fleet_slice(torch, tt, engine_mod, sched_mod,
+                                   server_mod, ckpt, client, topologies,
+                                   dlrm, dev, before_launch=end_tp)
+    finally:
+        if not tp_result:  # (a) failed: (g) still ends before the exit
+            tp_wait()
+        shutil.rmtree(tp_tmp, ignore_errors=True)
     log(f"fleet slice: {json.dumps(fleet_result)} on {card}")
-    log(f"fleet phase: {time.perf_counter() - started:.1f} s; its parts: "
+    log(f"fleet phase: {time.perf_counter() - started:.1f} s with 9 (g) "
+        "beside its (a); its parts: "
         + json.dumps({part: round(t, 1)
                       for part, t in fleet_result["seconds"].items()}))
-    mark("10 fleet slice")
+    mark("10 fleet slice, and 9 (g) beside its (a)")
     launched = fleet_result["b_launched"]
     fleet_launches = {
         "launched serving": launched["decode_task"]["launches"],
@@ -4604,6 +5155,10 @@ def main() -> int:
             if row["name"] in worker["launches"]:
                 by_path[f"pytorch worker {worker['rank']}"] = \
                     worker["launches"][row["name"]]
+        for rank in tp_result["ranks"]:
+            if row["name"] in rank["launches"]:
+                by_path[f"tp rank {rank['rank']}"] = \
+                    rank["launches"][row["name"]]
         by_path.update({path: launched[row["name"]]
                         for path, launched in fleet_launches.items()
                         if row["name"] in launched})

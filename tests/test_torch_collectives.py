@@ -118,7 +118,9 @@ def jax_blocks(name, axis, kwargs):
 def test_build_mesh_over_four_ranks(ranks):
     for rank, out in enumerate(ranks):
         mesh = out["mesh"]
-        assert mesh["dims"] == ["dp", "fsdp"] and mesh["shape"] == [2, 2]
+        # tp is the innermost dim, of size 1 here.
+        assert mesh["dims"] == ["dp", "fsdp", "tp"]
+        assert mesh["shape"] == [2, 2, 1]
         # Row-major: dp is the outer dim.
         assert mesh["fsdp_group"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
         assert mesh["dp_group"] == [rank % 2, rank % 2 + 2]

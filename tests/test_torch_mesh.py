@@ -69,14 +69,31 @@ def test_order_devices_for_slices_matches_jax(fields, slice_ids):
                  devices, slice_ids)
 
 
-@pytest.mark.parametrize("axis,item", [("tp", "7b"), ("sp", "7c"),
-                                       ("ep", "8b"), ("pp", "7d")])
+@pytest.mark.parametrize("axis,item", [("sp", "7c"), ("ep", "8b"),
+                                       ("pp", "7d")])
 def test_model_axes_refuse_naming_their_item(axis, item):
     spec = t_mesh.MeshSpec(**{axis: 2})
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         t_mesh.build_mesh(spec, "cpu")
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         t_mesh.check_mesh_spec(spec, 2)
+
+
+@pytest.mark.parametrize("fields", [dict(tp=2), dict(dp=2, tp=2),
+                                    dict(fsdp=2, tp=2), dict(dp=2, fsdp=2,
+                                                             tp=2)])
+def test_tp_meshes_are_built_for_training(fields):
+    """tp is ported (tensor-parallel training): a spec with it passes the
+    check at its world size, and a mesh of one rank still needs its
+    devices (the JAX package's size error)."""
+    spec = t_mesh.MeshSpec(**fields)
+    t_mesh.check_mesh_spec(spec, spec.total_devices)
+    with pytest.raises(ValueError, match="MeshSpec wants"):
+        t_mesh.build_mesh(spec, "cpu")
+    assert t_mesh.MESH_DIMS == ("dp", "fsdp", "tp")
+    assert "tp" not in t_mesh.UNPORTED_AXES
+    assert t_mesh.data_group(None) == (0, 1)
+    assert t_mesh.mesh_coordinate(None, "tp") == 0
 
 
 def test_mesh_size_must_be_the_world():

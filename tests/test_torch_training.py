@@ -409,8 +409,14 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
+    # tp trains (tests/test_torch_tensor_parallel.py); at one rank a tp=2
+    # mesh is the size error, and sequence parallelism is still refused.
     exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(tp=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+    with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
+        t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
+                                      device="cpu")
+    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(sp=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
     with pytest.raises(TypeError):

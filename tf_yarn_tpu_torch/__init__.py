@@ -25,9 +25,11 @@ Ported so far:
   with its `make_experiment`;
 * the DLRM ranker behind `/v1/rank` — `models.dlrm`,
   `models.rank_engine`, `ranking`;
-* data-parallel training over the ranks of a process group —
-  `training.train_and_evaluate` over a `parallel.mesh.MeshSpec` of ``dp``
-  and ``fsdp`` (DDP, FSDP2 or both: `parallel.data_parallel`), with
+* training over the ranks of a process group —
+  `training.train_and_evaluate` over a `parallel.mesh.MeshSpec` of ``dp``,
+  ``fsdp`` and ``tp`` (DDP, FSDP2 or both: `parallel.data_parallel`; the
+  model cut over ``tp`` by the placements of `parallel.sharding` and
+  computed on its shards by `parallel.tensor_parallel`), with
   `parallel.collectives` over a mesh dimension;
 * the PyTorch experiment — `pytorch.PytorchExperiment` launched by
   `pytorch.run_on_gpu` on the `tasks.pytorch_worker` task program (DDP

@@ -30,6 +30,9 @@ from tf_yarn_tpu_torch.models import common
 from tf_yarn_tpu_torch.models.transformer import LoraDense, _param, vocab_index
 from tf_yarn_tpu_torch.ops.attention import attention
 from tf_yarn_tpu_torch.ops.layernorm import layernorm
+from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+from tf_yarn_tpu_torch.parallel.sharding import EMBED, HEADS, KV, MLP, VOCAB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +102,12 @@ class BertNorm(nn.Module):
         return layernorm(x, self.scale, self.bias, cfg.norm_eps).to(cfg.dtype)
 
 
-def _dense(features_in: int, features_out: int, config, device) -> LoraDense:
-    """The JAX `_Dense`: a trained LoraDense with a bias."""
+def _dense(features_in: int, features_out: int, config, device,
+           axes) -> LoraDense:
+    """The JAX `_Dense`: a trained LoraDense with a bias, its kernel
+    annotated with the logical `axes`."""
     return LoraDense(features_in, features_out, config, device,
-                     trainable=True, use_bias=True)
+                     trainable=True, use_bias=True, axes=axes)
 
 
 class EncoderBlock(nn.Module):
@@ -112,29 +117,35 @@ class EncoderBlock(nn.Module):
         super().__init__()
         cfg = self.config = config
         d = cfg.d_model
-        self.wq = _dense(d, d, cfg, device)
-        self.wk = _dense(d, d, cfg, device)
-        self.wv = _dense(d, d, cfg, device)
-        self.wo = _dense(d, d, cfg, device)
+        self.wq = _dense(d, d, cfg, device, (EMBED, HEADS))
+        self.wk = _dense(d, d, cfg, device, (EMBED, KV))
+        self.wv = _dense(d, d, cfg, device, (EMBED, KV))
+        self.wo = _dense(d, d, cfg, device, (HEADS, EMBED))
         self.attn_norm = BertNorm(cfg, device)
-        self.ffn_in = _dense(d, cfg.d_ff, cfg, device)
-        self.ffn_out = _dense(cfg.d_ff, d, cfg, device)
+        self.ffn_in = _dense(d, cfg.d_ff, cfg, device, (EMBED, MLP))
+        self.ffn_out = _dense(cfg.d_ff, d, cfg, device, (MLP, EMBED))
         self.ffn_norm = BertNorm(cfg, device)
+        # Under tp: the rank's heads and hidden features (the dense
+        # layers' annotations), its input entering through copy_in.
+        self.tp = None
 
     def forward(self, x: torch.Tensor, generator: torch.Generator,
                 deterministic: bool = True,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         b, s, _ = x.shape
-        split = lambda t: t.reshape(b, s, cfg.n_heads, cfg.head_dim)
-        out = attention(split(self.wq(x)), split(self.wk(x)), split(self.wv(x)),
-                        impl=cfg.attention_impl, causal=False,
-                        key_padding_mask=attention_mask)
-        out = self.wo(out.reshape(b, s, cfg.d_model))
+        enter = ((lambda t: t) if self.tp is None
+                 else (lambda t: tp_lib.copy_in(t, self.tp)))
+        x_in = enter(x)
+        split = lambda t: t.reshape(b, s, -1, cfg.head_dim)
+        out = attention(split(self.wq(x_in)), split(self.wk(x_in)),
+                        split(self.wv(x_in)), impl=cfg.attention_impl,
+                        causal=False, key_padding_mask=attention_mask)
+        out = self.wo(out.reshape(b, s, -1))
         out = common.dropout(out, cfg.dropout_rate, deterministic, generator)
         x = self.attn_norm(x + out)
         # flax nn.gelu is the tanh approximation.
-        h = self.ffn_out(F.gelu(self.ffn_in(x), approximate="tanh"))
+        h = self.ffn_out(F.gelu(self.ffn_in(enter(x)), approximate="tanh"))
         h = common.dropout(h, cfg.dropout_rate, deterministic, generator)
         return self.ffn_norm(x + h)
 
@@ -155,7 +166,11 @@ class BertEncoder(nn.Module):
         self.embed_norm = BertNorm(cfg, device)
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", EncoderBlock(cfg, device))
-        self.pooler = _dense(cfg.d_model, cfg.d_model, cfg, device)
+        self.pooler = _dense(cfg.d_model, cfg.d_model, cfg, device,
+                             (EMBED, None))
+        sharding.annotate(self, token_embedding=(VOCAB, EMBED),
+                          position_embedding=(None, EMBED))
+        self.tp = None
 
     def forward(self, tokens: torch.Tensor, generator: torch.Generator,
                 segments: Optional[torch.Tensor] = None,
@@ -163,8 +178,10 @@ class BertEncoder(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         s = tokens.shape[1]
-        x = self.token_embedding[vocab_index(tokens, cfg.vocab_size)
-                                 ].to(cfg.dtype)
+        ids = vocab_index(tokens, cfg.vocab_size)
+        x = (self.token_embedding[ids].to(cfg.dtype) if self.tp is None
+             else tp_lib.vocab_embed(self.token_embedding, ids,
+                                     cfg.vocab_size, self.tp, cfg.dtype))
         x = x + self.position_embedding[:s].to(cfg.dtype)[None]
         if segments is not None:
             x = x + self.segment_embedding[
@@ -189,7 +206,7 @@ class BertClassifier(nn.Module):
         self.config = config
         self.encoder = BertEncoder(config, device)
         self.classifier = _dense(config.d_model, config.num_classes, config,
-                                 device)
+                                 device, (EMBED, None))
         self.generator = torch.Generator(device=device)
 
     @property

@@ -200,12 +200,13 @@ def lm_loss(model, batch: Dict, train: bool = True):
     return loss, {"perplexity": torch.exp(loss.detach())}
 
 
-def _chunk_step(m, l, tgt, h2, w, t2, base: int, vocab: int):
+def _chunk_step(m, l, tgt, h2, t2, base: int, chunk: int, vocab: int,
+                head_chunk):
     """One vocab chunk of the online log-sum-exp (the body of the JAX
-    scan, common.py:123-143): logits of the chunk in f32, padded columns
-    −1e30, running max and sum, the target's logit where it falls here."""
-    chunk = w.shape[1]
-    logits = (h2 @ w.to(h2.dtype)).float()
+    scan, common.py:123-143): logits of the chunk in f32 (`head_chunk`),
+    padded columns −1e30, running max and sum, the target's logit where
+    it falls here."""
+    logits = head_chunk(h2, base, chunk)
     if base + chunk > vocab:
         col = torch.arange(chunk, device=logits.device)[None, :] + base
         logits = torch.where(col < vocab, logits, NEG_INF)
@@ -221,36 +222,46 @@ def lm_loss_chunked(model, batch: Dict, train: bool = True,
                     chunk_size: int = 8192):
     """`lm_loss` without the [B, S, vocab] logits (common.py:93-164):
     hidden states come out of the model once; the head matmul and the
-    log-sum-exp run per vocab chunk, the head cast to the hidden dtype
-    and the logits f32. Each chunk runs under `torch.utils.checkpoint`,
-    so the backward recomputes its logits and no [B·S, V] activation
-    stays live."""
+    log-sum-exp run per vocab chunk (the decoder's `head_chunk`: the
+    head cast to the hidden dtype, the logits f32, each chunk gathered
+    whole under tensor parallelism). Each chunk runs under
+    `torch.utils.checkpoint`, so the backward recomputes its logits and
+    no [B·S, V] activation stays live. The loss runs inside the model's
+    forward, as its ``head``: a wrapper that watches the forward
+    (DistributedDataParallel, whose ``module`` is the decoder) sees the
+    head read there."""
     tokens = batch["tokens"]
-    hidden = model(tokens, return_hidden=True)  # [B, S, D]
-    head = model.lm_head  # [D, V]
-    vocab = head.shape[-1]
+    decoder = getattr(model, "module", model)
+
+    def head(hidden):  # [B, S, D], the final-norm hidden states
+        return _chunked_loss(decoder, hidden, batch, chunk_size)
+
+    loss = model(tokens, head=head)
+    return loss, {"perplexity": torch.exp(loss.detach())}
+
+
+def _chunked_loss(decoder, hidden, batch: Dict, chunk_size: int):
+    """`lm_loss_chunked`'s loss of the decoder's `hidden` states."""
+    vocab = decoder.config.vocab_size
     n_chunks = -(-vocab // chunk_size)
     h = hidden[:, :-1]
-    targets = tokens[:, 1:]
+    targets = batch["tokens"][:, 1:]
     b, s, d = h.shape
-    h2 = h.reshape(b * s, d)
+    h2 = decoder.head_input(h.reshape(b * s, d))
     t2 = targets.reshape(b * s).long()
     m = torch.full((b * s,), NEG_INF, dtype=torch.float32, device=h2.device)
     l = torch.zeros((b * s,), dtype=torch.float32, device=h2.device)
     tgt = torch.zeros((b * s,), dtype=torch.float32, device=h2.device)
     recompute = torch.is_grad_enabled()
     for c in range(n_chunks):
-        w = head[:, c * chunk_size:(c + 1) * chunk_size]
-        if w.shape[1] < chunk_size:  # the padded tail chunk
-            w = F.pad(w, (0, chunk_size - w.shape[1]))
-        args = (m, l, tgt, h2, w, t2, c * chunk_size, vocab)
+        args = (m, l, tgt, h2, t2, c * chunk_size, chunk_size, vocab,
+                decoder.head_chunk)
         if recompute:
             m, l, tgt = checkpoint(_chunk_step, *args, use_reentrant=False)
         else:
             m, l, tgt = _chunk_step(*args)
     logsumexp = m + torch.log(l.clamp_min(1e-30))
-    loss = _masked_mean((logsumexp - tgt).reshape(b, s), batch)
-    return loss, {"perplexity": torch.exp(loss.detach())}
+    return _masked_mean((logsumexp - tgt).reshape(b, s), batch)
 
 
 def synthetic_classification_iter(batch_size: int, feature_dim: int,

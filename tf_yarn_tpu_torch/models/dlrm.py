@@ -31,6 +31,8 @@ from torch import nn
 
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.models import common
+from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel.sharding import EMBED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +97,7 @@ class DLRM(nn.Module):
         self.embedding = nn.Parameter(torch.empty(
             cfg.total_buckets, cfg.embed_dim, dtype=cfg.param_dtype,
             device=device))
+        sharding.annotate(self, embedding=(EMBED, None))
         width = cfg.n_dense
         self.bottom = []
         if cfg.n_dense:

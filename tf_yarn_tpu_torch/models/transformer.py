@@ -9,9 +9,9 @@ the JAX ``einsum("...d,df->...f")``.
 
 Paths:
 
-* `Transformer.forward(tokens, return_hidden=False)` — the training
-  forward (transformer.py:490-533): attention through `ops.attention`
-  (``attention_impl`` "xla" or "flash", the latter the hand-written
+* `Transformer.forward(tokens, return_hidden=False, head=None)` — the
+  training forward (transformer.py:490-533): attention through
+  `ops.attention` (``attention_impl`` "xla" or "flash", the hand-written
   kernels), every norm through `ops.rmsnorm` (the kernel for CUDA
   tensors, its plain f32 version for CPU ones), and, with ``remat``, each block
   recomputed in the backward by ``torch.utils.checkpoint`` — the port
@@ -67,6 +67,9 @@ from tf_yarn_tpu_torch.ops.decode_attention import (
 )
 from tf_yarn_tpu_torch.ops.quantize import dequantize_int8, quantize_int8
 from tf_yarn_tpu_torch.ops.rmsnorm import rmsnorm
+from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+from tf_yarn_tpu_torch.parallel.sharding import EMBED, HEADS, KV, MLP, VOCAB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,6 +338,7 @@ class RMSNorm(nn.Module):
         self.config = config
         self.scale = _param((config.d_model,), trainable, config, device,
                             dtype=torch.float32)
+        sharding.annotate(self, scale=(None,))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -348,13 +352,31 @@ class LoraDense(nn.Module):
     ``[in, rank]`` (N(0, 0.02) at init), lora_b ``[rank, out]`` (zeros),
     with ``use_bias`` a ``[out]`` bias (zeros) added in the compute dtype.
     `config` is any config with ``dtype``, ``param_dtype``, ``lora_rank``
-    and ``lora_alpha`` (the encoder families' too)."""
+    and ``lora_alpha`` (the encoder families' too).
+
+    ``axes`` are the kernel's logical axes (`sharding.annotate`). Under
+    tensor parallelism (``tp`` set by `tp_lib.shard`) they give the
+    layer its share (`parallel.tensor_parallel`): an ``(embed, heads)``
+    or ``(embed, mlp)`` kernel is column-parallel, the output features
+    of a replicated input from a kernel already cut to them; an
+    ``(embed, kv)`` kernel is read in part, at the kv heads of the
+    rank's query heads; a ``(heads, embed)`` or ``(mlp, embed)`` kernel
+    is row-parallel, the partial product of the rank's input features,
+    summed over tp; any other kernel computes whole. The LoRA factors
+    and the bias stay replicated: a factor or bias a rank reads in part
+    is sliced at its use, whose backward sums its gradient over tp;
+    ``lora_a`` of a column layer, read whole, gets its partial gradient
+    summed too, and a row layer sums ``x @ lora_a`` before ``lora_b``,
+    which then sees whole activations, as does the row layer's bias,
+    added after the sum."""
 
     def __init__(self, features_in: int, features_out: int,
                  config: TransformerConfig, device=None,
-                 trainable: bool = False, use_bias: bool = False):
+                 trainable: bool = False, use_bias: bool = False,
+                 axes: Optional[Tuple[Optional[str], ...]] = None):
         super().__init__()
         self.config = config
+        self.features = (features_in, features_out)
         lora = config.lora_rank > 0
         self.kernel = _param((features_in, features_out),
                              trainable and not lora, config, device)
@@ -365,14 +387,65 @@ class LoraDense(nn.Module):
                                  config, device)
         self.bias = (_param((features_out,), trainable and not lora, config,
                             device) if use_bias else None)
+        if axes is not None:
+            sharding.annotate(self, kernel=axes)
+        self.tp = None
+
+    def _tp_role(self) -> Optional[Tuple[str, int, int, bool]]:
+        """(role, start, length, slice_kernel) of the rank's share, from
+        the kernel's logical axes (class docstring); None: whole."""
+        axes = getattr(self, "logical_axes", {}).get("kernel")
+        if self.tp is None or axes is None:
+            return None
+        dim = sharding.tp_dim(sharding.logical_to_spec(axes))
+        if dim is not None:
+            start, length = self.tp.span(self.features[dim], "features")
+            return ("column" if dim == 1 else "row"), start, length, False
+        if sharding.KV in axes:
+            cfg = self.config
+            first, count = tp_lib.kv_span(
+                cfg.n_heads, getattr(cfg, "n_kv_heads", cfg.n_heads), self.tp)
+            return "column", first * cfg.head_dim, count * cfg.head_dim, True
+        return None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
+        role = self._tp_role()
+        if role is not None:
+            return self._sharded(x, *role)
         y = x @ self.kernel.to(cfg.dtype)
         if cfg.lora_rank > 0:
             scale = cfg.lora_alpha / cfg.lora_rank
             y = y + scale * ((x @ self.lora_a.to(cfg.dtype))
                              @ self.lora_b.to(cfg.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(cfg.dtype)
+        return y
+
+    def _sharded(self, x: torch.Tensor, role: str, start: int, length: int,
+                 slice_kernel: bool) -> torch.Tensor:
+        """The tp forward; `x` is the replicated input (through
+        `tp_lib.copy_in`) of a column layer, the rank's input features of
+        a row layer."""
+        cfg, tp = self.config, self.tp
+        cut = lambda param, dim: tp_lib.slice_replicated(param, dim, start,
+                                                         length, tp)
+        scale = cfg.lora_alpha / cfg.lora_rank if cfg.lora_rank > 0 else 0.0
+        if role == "column":
+            kernel = cut(self.kernel, 1) if slice_kernel else self.kernel
+            y = x @ kernel.to(cfg.dtype)
+            if cfg.lora_rank > 0:
+                lora_a = tp_lib.copy_in(self.lora_a, tp, "grad_lora_a")
+                y = y + scale * ((x @ lora_a.to(cfg.dtype))
+                                 @ cut(self.lora_b, 1).to(cfg.dtype))
+            if self.bias is not None:
+                y = y + cut(self.bias, 0).to(cfg.dtype)
+            return y
+        y = tp_lib.reduce_out(x @ self.kernel.to(cfg.dtype), tp)
+        if cfg.lora_rank > 0:
+            low = tp_lib.reduce_out(x @ cut(self.lora_a, 0).to(cfg.dtype), tp,
+                                    "reduce_lora")
+            y = y + scale * (low @ self.lora_b.to(cfg.dtype))
         if self.bias is not None:
             y = y + self.bias.to(cfg.dtype)
         return y
@@ -385,18 +458,27 @@ class Attention(nn.Module):
         cfg = config
         self.config = cfg
         kv = cfg.n_kv_heads * cfg.head_dim
-        dense = lambda i, o: LoraDense(i, o, cfg, device, trainable)
-        self.wq = dense(cfg.d_model, cfg.n_heads * cfg.head_dim)
-        self.wk = dense(cfg.d_model, kv)
-        self.wv = dense(cfg.d_model, kv)
-        self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.d_model)
+        dense = lambda i, o, axes: LoraDense(i, o, cfg, device, trainable,
+                                             axes=axes)
+        self.wq = dense(cfg.d_model, cfg.n_heads * cfg.head_dim,
+                        (EMBED, HEADS))
+        self.wk = dense(cfg.d_model, kv, (EMBED, KV))
+        self.wv = dense(cfg.d_model, kv, (EMBED, KV))
+        self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.d_model,
+                        (HEADS, EMBED))
+        # Set under tp: the rank attends on its own heads (the widths of
+        # its wq and wk say how many), its input entering through
+        # `tp_lib.copy_in`.
+        self.tp = None
 
     def _project(self, x):
         cfg = self.config
         b, s, _ = x.shape
-        return (self.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim),
-                self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
-                self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
+        if self.tp is not None:
+            x = tp_lib.copy_in(x, self.tp)
+        return (self.wq(x).reshape(b, s, -1, cfg.head_dim),
+                self.wk(x).reshape(b, s, -1, cfg.head_dim),
+                self.wv(x).reshape(b, s, -1, cfg.head_dim))
 
     def _out(self, out):
         b, s = out.shape[:2]
@@ -404,7 +486,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """The training path: rope at `positions` [B, S], causal
-        attention through the configured backend."""
+        attention through the configured backend (on the rank's heads
+        under tp)."""
         cfg = self.config
         q, k, v = self._project(x)
         q = rope(q, positions, cfg.rope_theta)
@@ -519,12 +602,17 @@ class SwiGLU(nn.Module):
     def __init__(self, config: TransformerConfig, device=None,
                  trainable: bool = False):
         super().__init__()
-        cfg = config
-        self.w_gate = LoraDense(cfg.d_model, cfg.d_ff, cfg, device, trainable)
-        self.w_up = LoraDense(cfg.d_model, cfg.d_ff, cfg, device, trainable)
-        self.w_down = LoraDense(cfg.d_ff, cfg.d_model, cfg, device, trainable)
+        cfg = self.config = config
+        dense = lambda i, o, axes: LoraDense(i, o, cfg, device, trainable,
+                                             axes=axes)
+        self.w_gate = dense(cfg.d_model, cfg.d_ff, (EMBED, MLP))
+        self.w_up = dense(cfg.d_model, cfg.d_ff, (EMBED, MLP))
+        self.w_down = dense(cfg.d_ff, cfg.d_model, (MLP, EMBED))
+        self.tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            x = tp_lib.copy_in(x, self.tp)
         return self.w_down(nn.functional.silu(self.w_gate(x)) * self.w_up(x))
 
 
@@ -593,6 +681,9 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(config, device, dense_trainable)
         self.lm_head = _param((config.d_model, config.vocab_size),
                               dense_trainable, config, device)
+        sharding.annotate(self, embedding=(VOCAB, EMBED),
+                          lm_head=(EMBED, VOCAB))
+        self.tp = None
 
     @property
     def device(self) -> torch.device:
@@ -616,18 +707,60 @@ class Transformer(nn.Module):
         return self
 
     def _embed(self, tokens):
-        return self.embedding[vocab_index(tokens, self.config.vocab_size)
-                              ].to(self.config.dtype)
+        cfg = self.config
+        ids = vocab_index(tokens, cfg.vocab_size)
+        if self.tp is not None:
+            return tp_lib.vocab_embed(self.embedding, ids, cfg.vocab_size,
+                                      self.tp, cfg.dtype)
+        return self.embedding[ids].to(cfg.dtype)
 
     def _head(self, x):
         x = self.final_norm(x)
-        return (x @ self.lm_head.to(self.config.dtype)).float()
+        if self.tp is None:
+            return (x @ self.lm_head.to(self.config.dtype)).float()
+        # Gathered in the compute dtype, then cast: the f32 logits are
+        # the one-device ones bit for bit, at half the bytes in bf16.
+        start, _ = self.tp.span(self.config.vocab_size, "vocab_size")
+        local = tp_lib.copy_in(x, self.tp) @ self.lm_head.to(self.config.dtype)
+        return tp_lib.gather_last(local, start, self.config.vocab_size,
+                                  self.tp).float()
 
-    def forward(self, tokens: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+    def head_input(self, hidden: torch.Tensor) -> torch.Tensor:
+        """`forward`'s ``return_hidden`` output as `head_chunk` reads it:
+        itself, or under tp the replicated input of the vocab-parallel
+        head (its gradient summed over tp)."""
+        return hidden if self.tp is None else tp_lib.copy_in(hidden, self.tp)
+
+    def head_chunk(self, hidden: torch.Tensor, base: int,
+                   width: int) -> torch.Tensor:
+        """f32 logits ``[N, width]`` of vocabulary columns ``[base, base +
+        width)`` for hidden rows ``[N, d]`` (`head_input`'s), zeros past
+        the vocabulary — the chunked loss's head. Under tp a rank computes
+        its columns of the chunk and the chunk is gathered whole, in the
+        compute dtype before the cast (the same f32 values)."""
+        cfg = self.config
+        if self.tp is None:
+            w = self.lm_head[:, base:base + width]
+            if w.shape[1] < width:  # the padded tail chunk
+                w = nn.functional.pad(w, (0, width - w.shape[1]))
+            return (hidden @ w.to(hidden.dtype)).float()
+        start, length = self.tp.span(cfg.vocab_size, "vocab_size")
+        # The rank's columns of the chunk, maybe none: every rank still
+        # reads `hidden`, so the ranks' backward graphs, and the order of
+        # their collectives, are the same.
+        lo = min(max(base - start, 0), length)
+        hi = max(min(base + width - start, length), lo)
+        local = hidden @ self.lm_head[:, lo:hi].to(hidden.dtype)
+        return tp_lib.gather_last(local, min(max(start + lo - base, 0), width),
+                                  width, self.tp).float()
+
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                head=None) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] f32, or with
         ``return_hidden=True`` the final-norm hidden states [B, S, d] in
-        the compute dtype (the chunked loss's seam)."""
+        the compute dtype (the chunked loss's seam), or with `head` what
+        it makes of them (``head(hidden)``: the chunked loss, run inside
+        the forward so a wrapper sees the head it reads)."""
         cfg = self.config
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -638,6 +771,8 @@ class Transformer(nn.Module):
                 x = checkpoint(block, x, positions, use_reentrant=False)
             else:
                 x = block(x, positions)
+        if head is not None:
+            return head(self.final_norm(x))
         if return_hidden:
             return self.final_norm(x)
         return self._head(x)

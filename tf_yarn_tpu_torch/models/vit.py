@@ -22,6 +22,8 @@ from tf_yarn_tpu_torch.models.bert import (BertNorm, EncoderBlock, _dense,
                                            check_encoder_config)
 from tf_yarn_tpu_torch.models.resnet import IMAGE_CHANNELS, Conv
 from tf_yarn_tpu_torch.models.transformer import _param
+from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel.sharding import EMBED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +85,9 @@ class ViT(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", EncoderBlock(cfg, device))
         self.final_norm = BertNorm(cfg, device)
-        self.head = _dense(cfg.d_model, cfg.num_classes, cfg, device)
+        self.head = _dense(cfg.d_model, cfg.num_classes, cfg, device,
+                           (EMBED, None))
+        sharding.annotate(self, position_embedding=(None, EMBED))
         self.generator = torch.Generator(device=device)
 
     @property

@@ -1,4 +1,5 @@
-"""The train loop's data-parallel wrap over a ``("dp", "fsdp")`` mesh.
+"""The train loop's data-parallel wrap over the ``dp`` and ``fsdp`` dims
+of a ``("dp", "fsdp", "tp")`` mesh.
 
 The JAX package shards the train state over the mesh with XLA inserting
 the collectives (training.py:574-760 under a multi-device mesh). The
@@ -14,14 +15,22 @@ explicit, by the mesh's sizes:
   parameters and the optimizer state sharded, the gradients
   reduce-scattered;
 * both > 1 — FSDP2's hybrid form over the 2-D mesh: replicated over
-  ``dp``, sharded over ``fsdp``.
+  ``dp``, sharded over ``fsdp``;
+* both 1 (a mesh of ``tp`` alone) — no wrap.
+
+Under tensor parallelism the model it wraps holds the rank's ``tp``
+shards already (`parallel.tensor_parallel.parallelize`): DDP and FSDP2
+treat them as the whole parameters, over the groups of ranks that share
+the rank's ``tp`` index.
 
 `DataParallel` keeps the inner module (``inner``): the loop reads the
 dropout ``generator``, the FLOP count and LoRA merges from it, and calls
 ``module``, the wrapper. Its state dict is the one-device run's format
 (`full_state`, gathered in full and onto the host under FSDP2, the
 optimizer's state keyed by parameter index as ``optimizer.state_dict()``
-keys it), so a checkpoint of any world size resumes at any other.
+keys it, and the ``tp`` shards gathered whole through
+`tensor_parallel.gather_state`), so a checkpoint of any world size and
+mesh resumes at any other.
 
 Under DDP each gradient bucket's all-reduce is timed from its launch to
 its completion, as the host sees it: a ``train/grad_allreduce`` span
@@ -42,6 +51,8 @@ from torch import nn
 
 from tf_yarn_tpu_torch import telemetry
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
 
 _BLOCK_NAME = re.compile(r"(?:layer|block)_\d+")
 
@@ -103,20 +114,29 @@ class DataParallel:
     over the wrapped parameters."""
 
     def __init__(self, model: nn.Module, mesh, device: torch.device,
-                 make_optimizer) -> None:
+                 make_optimizer, tp=None) -> None:
         self.inner = model
+        self.mesh = mesh
+        # The tp group of a model `tensor_parallel.parallelize` sliced,
+        # and each parameter's tp dim (None: replicated).
+        self.tp = tp
+        self.tp_dims = getattr(model, "tp_dims", {})
+        # The rank's data group: the dropout seed folds in its index.
+        self.data_index = mesh_lib.data_group(mesh)[0]
         dp = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_DP)
+        fsdp = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_FSDP)
         self.timer = None
-        if mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_FSDP) > 1:
+        if fsdp > 1:
             from torch.distributed.fsdp import fully_shard
 
-            shard_mesh = mesh if dp > 1 else mesh[mesh_lib.AXIS_FSDP]
+            shard_mesh = (mesh[(mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP)]
+                          if dp > 1 else mesh[mesh_lib.AXIS_FSDP])
             for block in blocks(model):
                 fully_shard(block, mesh=shard_mesh)
             fully_shard(model, mesh=shard_mesh)
             self.kind = "hsdp" if dp > 1 else "fsdp"
             self.module = model
-        else:
+        elif dp > 1:
             from torch.nn.parallel import DistributedDataParallel
 
             group = mesh[mesh_lib.AXIS_DP].get_group()
@@ -129,6 +149,9 @@ class DataParallel:
             self.timer = AllReduceTimer(group)
             self.module.register_comm_hook(self.timer, timed_allreduce)
             self.kind = "ddp"
+        else:
+            self.module = model
+            self.kind = "tp"
         self.optimizer = make_optimizer(model)
         names = {id(param): name for name, param in model.named_parameters()}
         # Parameter index (as optimizer.state_dict() numbers them) -> name.
@@ -140,7 +163,7 @@ class DataParallel:
     def gradient_sync(self, sync: bool) -> Iterator[None]:
         """The forward and backward inside reduce the gradients over the
         mesh only when `sync` (the last microbatch of a step)."""
-        if sync:
+        if sync or self.kind == "tp":
             yield
         elif self.kind == "ddp":
             with self.module.no_sync():
@@ -154,15 +177,30 @@ class DataParallel:
 
     def full_state(self) -> Dict[str, Any]:
         """``{"params": ..., "optimizer": ...}`` in the one-device format.
-        Under FSDP2 a collective that every rank calls, and only rank 0
-        (the writer) gets the optimizer's state."""
-        if self.kind == "ddp":
+        Under FSDP2 or tp a collective that every rank calls; under FSDP2
+        alone only rank 0 (the writer) gets the optimizer's state."""
+        state = self._local_state()
+        if self.tp is None:
+            return state
+        params, optimizer = tp_lib.gather_state(
+            state["params"], state["optimizer"], self._names, self.tp_dims,
+            self.tp)
+        return {"params": params, "optimizer": optimizer}
+
+    def _local_state(self) -> Dict[str, Any]:
+        """The state of the rank's model in the one-device format of its
+        tp shard: gathered over fsdp, each tensor as the rank holds it
+        over tp."""
+        if self.kind in ("ddp", "tp"):
             return {"params": self.inner.state_dict(),
                     "optimizer": self.optimizer.state_dict()}
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
 
-        options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+        # With cpu_offload only rank 0 gets the state; under tp every
+        # rank's shard is gathered, so every rank keeps its own.
+        options = StateDictOptions(full_state_dict=True,
+                                   cpu_offload=self.tp is None)
         optim = get_optimizer_state_dict(self.inner, self.optimizer,
                                          options=options)
         params = get_model_state_dict(self.inner, options=options)
@@ -180,18 +218,25 @@ class DataParallel:
         }
 
     def load_full_state(self, state: Dict[str, Any]) -> None:
-        """Load `full_state`'s format (a checkpoint of any world size).
-        Under FSDP2 every rank loads the whole state and keeps its shard."""
-        if self.kind == "ddp":
-            self.inner.load_state_dict(state["params"])
-            self.optimizer.load_state_dict(state["optimizer"])
+        """Load `full_state`'s format (a checkpoint of any world size and
+        mesh). Under tp every rank takes its shards of it
+        (`sharding.shard_like_annotated`); under FSDP2 every rank loads the
+        whole state and keeps its shard."""
+        params, optim = state["params"], state["optimizer"]
+        if self.tp is not None:
+            params = sharding.shard_like_annotated(self.inner, params,
+                                                   self.mesh)
+            optim = tp_lib.shard_optimizer(optim, self._names, self.tp_dims,
+                                           self.tp)
+        if self.kind in ("ddp", "tp"):
+            self.inner.load_state_dict(params)
+            self.optimizer.load_state_dict(optim)
             return
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, set_model_state_dict, set_optimizer_state_dict)
 
         options = StateDictOptions(full_state_dict=True)
-        optim = state["optimizer"]
-        set_model_state_dict(self.inner, state["params"], options=options)
+        set_model_state_dict(self.inner, params, options=options)
         set_optimizer_state_dict(self.inner, self.optimizer, {
             "state": {self._names[i]: value
                       for i, value in optim["state"].items()},
@@ -208,8 +253,10 @@ def wire_device(device: torch.device) -> torch.device:
 
 def mean_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The ranks' scalar metrics averaged over the default group in one
-    all-reduce (each rank's share of the global batch is the same size);
-    ``perplexity`` is re-derived as exp(mean loss), the global batch's."""
+    all-reduce (each rank's share of the global batch is the same size,
+    and the ranks of a tp group hold equal values, so this is the mean
+    over data groups); ``perplexity`` is re-derived as exp(mean loss),
+    the global batch's."""
     if not metrics:
         return {}
     keys = sorted(metrics)

@@ -10,16 +10,19 @@ TPU slices.
 
 The port is eager PyTorch with one process per rank and one device per
 process, so a mesh is a mesh of ranks: `build_mesh` returns a torch
-`DeviceMesh` with the dims ``("dp", "fsdp")`` over the default process
-group's ranks, and its size must be the world size. The train loop
-(`training.train_and_evaluate`) replicates the model over ``dp``
-(`DistributedDataParallel`) and shards it over ``fsdp`` (FSDP2
-``fully_shard``; both at once is FSDP2's hybrid form), and each rank
-reads its own share of the global batch. That wrap and the DeviceMesh
-play the role of the JAX package's `batch_sharding` and
-`replicated_sharding`, which have no eager counterpart. The model axes
-are refused with the ROADMAP.md Queue 1 item that ports them: ``tp``
-(7b), ``sp`` (7c), ``ep`` (8b) and ``pp`` (7d).
+`DeviceMesh` with the dims ``("dp", "fsdp", "tp")`` — JAX's axis order,
+so ``tp`` is innermost and a tp group is adjacent ranks — over the
+default process group's ranks, and its size must be the world size. The
+train loop (`training.train_and_evaluate`) slices the model over ``tp``
+(`parallel.tensor_parallel`, placements from `parallel.sharding`),
+replicates it over ``dp`` (`DistributedDataParallel`) and shards it over
+``fsdp`` (FSDP2 ``fully_shard``; both at once is FSDP2's hybrid form).
+The ranks of one ``dp`` x ``fsdp`` coordinate form a data group
+(`data_group`): they read the same share of the global batch. That wrap
+and the DeviceMesh play the role of the JAX package's `batch_sharding`
+and `replicated_sharding`, which have no eager counterpart. The other
+model axes are refused with the ROADMAP.md Queue 1 item that ports
+them: ``sp`` (7c), ``ep`` (8b) and ``pp`` (7d).
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ AXIS_EP = "ep"
 # The batch dimension shards over every data-like axis.
 BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 
+# The dims of a built mesh, outermost first.
+MESH_DIMS = (AXIS_DP, AXIS_FSDP, AXIS_TP)
+
 # The model axes the port does not build yet, each with its ROADMAP.md
 # Queue 1 item.
 UNPORTED_AXES = {
-    AXIS_TP: "7b, tensor-parallel training",
     AXIS_SP: "7c, sequence parallelism",
     AXIS_EP: "8b, MoE experts",
     AXIS_PP: "7d, the pipeline",
@@ -155,11 +160,12 @@ def check_mesh_spec(spec, world_size: int) -> None:
 
 def build_mesh(spec: MeshSpec, device=None,
                host_ids: Optional[Sequence[int]] = None):
-    """The torch `DeviceMesh` of `spec`: dims ``("dp", "fsdp")`` over the
-    default process group's ranks, row-major (or grouped by `host_ids`,
-    one per rank, through `order_devices_for_slices`), on `device`'s type
-    (the card's unless `device` is the CPU). None at a world of one rank
-    with no process group: the run has one device and no collective."""
+    """The torch `DeviceMesh` of `spec`: dims ``("dp", "fsdp", "tp")``
+    over the default process group's ranks, row-major (or grouped by
+    `host_ids`, one per rank, through `order_devices_for_slices`), on
+    `device`'s type (the card's unless `device` is the CPU). None at a
+    world of one rank with no process group: the run has one device and
+    no collective."""
     import torch
     import torch.distributed as dist
 
@@ -175,8 +181,8 @@ def build_mesh(spec: MeshSpec, device=None,
         ranks = order_devices_for_slices(spec, ranks, host_ids)
     device_type = torch.device(device).type if device is not None else "cuda"
     return DeviceMesh(device_type,
-                      torch.tensor(ranks).reshape(spec.dp, spec.fsdp),
-                      mesh_dim_names=BATCH_AXES)
+                      torch.tensor(ranks).reshape(spec.dp, spec.fsdp, spec.tp),
+                      mesh_dim_names=MESH_DIMS)
 
 
 def mesh_axis_size(mesh, axis: str) -> int:
@@ -185,6 +191,25 @@ def mesh_axis_size(mesh, axis: str) -> int:
     if mesh is None:
         return 1
     return dict(zip(mesh.mesh_dim_names, mesh.shape)).get(axis, 1)
+
+
+def mesh_coordinate(mesh, axis: str) -> int:
+    """This rank's index along one named axis of a built mesh (0 when
+    the axis is absent or there is no mesh)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]
+
+
+def data_group(mesh) -> Tuple[int, int]:
+    """(index, count) of this rank's data group: the ``dp`` x ``fsdp``
+    coordinate, row-major, which the ranks of one tp group share. They
+    read the same rows of the global batch and draw the same dropout
+    masks. (0, 1) without a mesh."""
+    fsdp = mesh_axis_size(mesh, AXIS_FSDP)
+    index = (mesh_coordinate(mesh, AXIS_DP) * fsdp
+             + mesh_coordinate(mesh, AXIS_FSDP))
+    return index, mesh_axis_size(mesh, AXIS_DP) * fsdp
 
 
 def local_device_count() -> int:

@@ -39,27 +39,34 @@ item 9a).
 
 In a process group of more than one rank (one process and one device
 each; `tasks.worker` makes the group for a launched ``allreduce_topology``)
-the loop trains data-parallel over a `parallel.mesh.MeshSpec` of ``dp``
-and ``fsdp`` (``MeshSpec.auto(world)`` when the experiment gives none, as
-in JAX): the model is wrapped by `parallel.data_parallel.DataParallel`
-(DDP over ``dp``, FSDP2 over ``fsdp``, its hybrid form over both); an
-input_fn that declares ``host_index`` and ``num_hosts`` gets the rank and
-the world and yields its contiguous share of the global batch
-(training.py:391-424); microbatches before a step's last skip the
-gradient sync; a step's dropout seed folds in the rank, so the ranks draw
-independent masks; the logged metrics are the ranks' mean and the eval
-metrics the global batches' (weighted by rows), equal on every rank;
-samples, tokens, FLOPs and MFU count the global batch over world × the
-card's peak; rank 0 alone writes checkpoints (the one-device format, so
-any world size resumes any other) and TensorBoard and broadcasts the
+the loop trains over a `parallel.mesh.MeshSpec` of ``dp``, ``fsdp`` and
+``tp`` (``MeshSpec.auto(world)`` when the experiment gives none, as in
+JAX). The model is built whole on every rank, then cut to the rank's
+``tp`` shards by `parallel.tensor_parallel.parallelize` (placements from
+`parallel.sharding`; a family with no tp placement stays replicated) and
+wrapped by `parallel.data_parallel.DataParallel` (DDP over ``dp``, FSDP2
+over ``fsdp``, its hybrid form over both). The ranks of one ``dp`` x
+``fsdp`` coordinate form a data group (`mesh.data_group`): an input_fn
+that declares ``host_index`` and ``num_hosts`` gets the data group's
+index and count and yields its contiguous share of the global batch
+(training.py:391-424), so a tp group reads the same rows; microbatches
+before a step's last skip the gradient sync; a step's dropout seed folds
+in the data group's index, so the data groups draw independent masks and
+the ranks of a tp group the same ones; the logged metrics are the ranks'
+mean and the eval metrics the global batches' (weighted by rows), equal
+on every rank (a tp group's ranks hold equal values, so that is the mean
+over data groups); samples, tokens and FLOPs count the global batch once
+(× the data groups) and MFU is over world × the card's peak; rank 0
+alone writes checkpoints (the one-device format, the tp shards gathered
+whole, so any mesh resumes any other) and TensorBoard and broadcasts the
 step and rates, and the ranks wait for its manifest before going on;
-every rank restores the step rank 0 verified; and the preemption flag is
-agreed at the ``drain_poll_every_steps`` cadence by an all-reduce (MAX),
-so one rank's flag drains every rank at the same step
-(`_preempt_agreed`, training.py:354-388).
+every rank restores the step rank 0 verified and takes its shards; and
+the preemption flag is agreed at the ``drain_poll_every_steps`` cadence
+by an all-reduce (MAX), so one rank's flag drains every rank at the same
+step (`_preempt_agreed`, training.py:354-388).
 
-Not ported here, each raising or named in ROADMAP.md: the model axes of
-a mesh (``tp``, ``sp``, ``ep``, ``pp``: Queue 1 items 7b-7d and 8b);
+Not ported here, each raising or named in ROADMAP.md: the model axes
+``sp``, ``ep`` and ``pp`` of a mesh (Queue 1 items 7c, 7d and 8b);
 elastic resize (item 5.1), the chaos hooks (item 5.2), remote model_dirs
 and their uploading TensorBoard writer (item 5.4).
 """
@@ -84,6 +91,7 @@ from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.parallel import data_parallel
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+from tf_yarn_tpu_torch.parallel import tensor_parallel
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 from tf_yarn_tpu_torch.utils import mlflow
 
@@ -135,9 +143,10 @@ def _split(batch: Dict[str, torch.Tensor], parts: int):
 
 
 def step_seed(seed: int, step: int, *micro: int) -> int:
-    """The dropout seed of one step (and microbatch, and rank): a hash of
-    ``(seed, step[, micro[, rank]])`` — the JAX step's ``fold_in(base_rng,
-    step)`` (training.py:135-159). The masks are the port's own bits."""
+    """The dropout seed of one step (and microbatch, and data group): a
+    hash of ``(seed, step[, micro[, group]])`` — the JAX step's
+    ``fold_in(base_rng, step)`` (training.py:135-159). The masks are the
+    port's own bits."""
     key = ":".join(str(int(value)) for value in (seed, step, *micro))
     return int.from_bytes(
         hashlib.blake2b(key.encode(), digest_size=8).digest(), "little")
@@ -166,17 +175,19 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
     global one is restored after the step, so code outside it sees its
     own stream. With a `parallel` wrap the loss calls its ``module``
     (`model` is the inner one), microbatches before the last skip the
-    gradient sync, and the rank is folded into every seed as
-    ``(seed, step, i, rank)``, so the ranks draw independent masks."""
+    gradient sync, and the data group's index is folded into every seed
+    as ``(seed, step, i, group)``, so the data groups draw independent
+    masks and the ranks of a tp group, whose activations are replicated,
+    the same ones."""
     generators = [_device_generator(model)]
     if isinstance(getattr(model, "generator", None), torch.Generator):
         generators.append(model.generator)
     call = parallel.module if parallel is not None else model
     timer = parallel.timer if parallel is not None else None
-    rank = _rank() if parallel is not None else None
+    group = parallel.data_index if parallel is not None else None
 
     def reseed(step: int, *micro: int) -> None:
-        key = (step, *(micro or (0,)), rank) if rank is not None else (
+        key = (step, *(micro or (0,)), group) if group is not None else (
             step, *micro)
         for generator in generators:
             generator.manual_seed(step_seed(seed, *key))
@@ -245,14 +256,15 @@ def build_eval_step(model, loss_fn):
 
 
 def evaluate(eval_step, state, eval_input_fn, place, max_steps: int,
-             rank: int = 0, world: int = 1) -> Dict[str, float]:
+             hosts: tuple = (0, 1), world: int = 1) -> Dict[str, float]:
     """The mean of the eval batches' metrics. In a world of more than one
-    rank each rank evaluates its share (an eval_input_fn declaring
-    ``host_index``/``num_hosts`` gets them) and the result is the global
-    batches', equal on every rank (`data_parallel.weighted_eval_means`)."""
+    rank each rank evaluates its data group's share (an eval_input_fn
+    declaring ``host_index``/``num_hosts`` gets `hosts`, the data group's
+    index and count) and the result is the global batches', equal on
+    every rank (`data_parallel.weighted_eval_means`)."""
     batches, rows = [], []
     device = None
-    for batch in _call_input_fn(eval_input_fn, rank=rank, world=world):
+    for batch in _call_input_fn(eval_input_fn, None, *hosts):
         placed = place(batch)
         batches.append({k: float(v)
                         for k, v in eval_step(state, placed).items()})
@@ -381,11 +393,12 @@ class _StepsPerSecondHook:
 
 
 def _call_input_fn(input_fn, start_step: Optional[int] = None,
-                   rank: int = 0, world: int = 1):
+                   host_index: int = 0, num_hosts: int = 1):
     """``input_fn(...)`` with the keywords it declares (training.py:391-424):
     ``start_step`` (the resume step), and ``host_index`` and ``num_hosts``
-    (this rank and the world), for an input_fn that yields its rank's
-    contiguous share of a fixed global batch."""
+    (the rank's data group, `parallel.mesh.data_group`, and the count of
+    them), for an input_fn that yields its contiguous share of a fixed
+    global batch."""
     try:
         params = inspect.signature(input_fn).parameters
     except (TypeError, ValueError):
@@ -397,9 +410,9 @@ def _call_input_fn(input_fn, start_step: Optional[int] = None,
         _logger.info("input_fn takes no start_step: input restarts from the "
                      "beginning at resume step %d", start_step)
     if "host_index" in params:
-        kwargs["host_index"] = rank
+        kwargs["host_index"] = host_index
     if "num_hosts" in params:
-        kwargs["num_hosts"] = world
+        kwargs["num_hosts"] = num_hosts
     return input_fn(**kwargs)
 
 
@@ -680,6 +693,9 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                      dict(zip(mesh.mesh_dim_names, mesh.shape)), world,
                      torch.distributed.get_backend())
     mesh_lib.set_current_mesh(mesh)
+    # The data group's share of each global batch (a tp group's ranks
+    # read the same rows).
+    hosts = mesh_lib.data_group(mesh)
     # Capacity gauges (training.py:622-636): the devices the step
     # computes on, and whether an elastic attempt runs short of workers.
     registry = telemetry.get_registry()
@@ -693,15 +709,15 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
         input_resume_step = _agreed_verified_step(core.model_dir, rank,
                                                   world) or 0
     train_iter = iter(_call_input_fn(core.train_input_fn, input_resume_step,
-                                     rank, world))
+                                     *hosts))
     with telemetry.span("train/first_batch"):
         batch = place(next(train_iter))
     with telemetry.span("train/init"):
         model = (core.init_fn(device, params_cfg.seed) if core.init_fn
                  else core.model.to(device))
         model.train()
-    # Counted on the rank's own model and batch, before any wrap: no
-    # collective runs inside the count.
+    # Counted on the rank's own batch and whole model, before any slice
+    # or wrap: no collective runs inside the count.
     samples, tokens = flops_lib.batch_counts(batch)
     flops_per_step = flops_lib.model_train_flops(model, batch)
     if flops_per_step is None and input_resume_step < params_cfg.train_steps:
@@ -711,8 +727,9 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
     parallel = None
     if world > 1:
         with telemetry.span("train/parallel_wrap"):
+            tp = tensor_parallel.parallelize(model, mesh)
             parallel = data_parallel.DataParallel(model, mesh, device,
-                                                  core.optimizer)
+                                                  core.optimizer, tp=tp)
         state = TrainState(0, model, parallel.optimizer, parallel)
     else:
         state = TrainState(0, model, core.optimizer(model))
@@ -726,12 +743,13 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     restored, step = ckpt_lib.restore_latest(
                         core.model_dir, map_location=device)
                 elif input_resume_step:
-                    # Every rank loads the step rank 0 verified; FSDP2
-                    # keeps its shard of the whole state.
+                    # Every rank loads the step rank 0 verified; tp and
+                    # FSDP2 keep their shards of the whole state.
                     step = input_resume_step
                     restored = ckpt_lib.restore_checkpoint(
                         core.model_dir, step, map_location=(
-                            device if parallel.kind == "ddp" else "cpu"))
+                            device if parallel.kind == "ddp"
+                            and parallel.tp is None else "cpu"))
                 else:
                     restored, step = None, None
             if restored is not None:
@@ -780,13 +798,15 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     "remaining steps (%d); clamping", steps_per_loop, cap)
                 steps_per_loop = cap
 
-        # The global batch's counts; MFU over world x the card's peak.
+        # The global batch's counts (each data group's share once); MFU
+        # over world x the card's peak.
         peak = _peak_flops(device)
+        groups = hosts[1]
         hook = _StepsPerSecondHook(
             params_cfg.log_every_steps, resume_step,
-            flops_per_step * world if flops_per_step else flops_per_step,
-            samples * world if samples else samples,
-            tokens * world if tokens else tokens,
+            flops_per_step * groups if flops_per_step else flops_per_step,
+            samples * groups if samples else samples,
+            tokens * groups if tokens else tokens,
             peak * world if peak else peak, runtime=runtime,
             broadcast=rank == 0)
         tb_writer = _make_tb_writer(core.model_dir) if rank == 0 else None
@@ -837,7 +857,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
             one ``train/step_dispatch`` span (``steps=N`` for a chunk)."""
             nonlocal state
             for b in batches:
-                hook.record_batch((flops_lib.batch_counts(b)[0] or 0) * world)
+                hook.record_batch((flops_lib.batch_counts(b)[0] or 0) * groups)
             args = {"steps": len(batches)} if len(batches) > 1 else {}
             with telemetry.span("train/step_dispatch", **args) as sp:
                 for b in batches:
@@ -919,7 +939,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     with telemetry.span("train/eval", step=step) as sp:
                         eval_metrics = evaluate(
                             eval_step, state, core.eval_input_fn, place,
-                            params_cfg.eval_steps, rank, world)
+                            params_cfg.eval_steps, hosts, world)
                     breakdown.add("eval", sp.duration)
                     _logger.info("eval @ step %d: %s", step, eval_metrics)
                     if tb_writer is not None:
@@ -951,7 +971,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
         if core.eval_input_fn:
             with telemetry.span("train/eval", final=True):
                 final_eval = evaluate(eval_step, state, core.eval_input_fn,
-                                      place, params_cfg.eval_steps, rank,
+                                      place, params_cfg.eval_steps, hosts,
                                       world)
             metrics_host.update(
                 {f"eval_{k}": v for k, v in final_eval.items()})
