@@ -21,7 +21,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (e)'s 64-token windows), bitwise equal over two calls, and one CUDA
    launch of its kernel a call by the profiler; training:
    rmsnorm dx, flash forward,
-   dq, dk/dv; the zoo: the LayerNorm forward (bitwise equal over two
+   dq, dk/dv (also at phase 9 (h)'s Ulysses shape, 16 query and 4 kv
+   heads over 8192 tokens, checked and not timed); the zoo: the LayerNorm forward (bitwise equal over two
    calls, one launch of its row kernel a call) and backward (dx, dscale
    and dbias; bitwise equal over two calls, two launches a call and no
    other kernel), each timed cold and warm at BERT-base's and
@@ -65,9 +66,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    parameters close; the small f32 LoRA decoder (flash, fused norms) at
    `MeshSpec(tp=2)`: two gloo ranks on the card, spawned at the smoke's
    start and waiting for this phase, train it 3 steps through
-   `train_and_evaluate` against one rank in this process — losses and adapters within 1e-4, the ranks'
-   adapters bitwise equal, their flash calls on 2 of 4 query heads and 1
-   of 2 kv heads;
+   `train_and_evaluate` against one rank in this process — losses and
+   adapters within 1e-4, the ranks' adapters bitwise equal, their flash
+   calls on 2 of 4 query heads and 1 of 2 kv heads; then the same two
+   ranks train it at `MeshSpec(sp=2)` by the ring and by Ulysses with
+   flash inside (each rank's flash calls on 2 query heads and 1 kv head
+   over the whole 128 tokens; the ring launches no flash) against that
+   one rank, and at `MeshSpec(pp=2)` (GPipe, 2 microbatches, xla
+   attention, one layer a stage) against one rank of that config: losses
+   and adapters within 1e-4, RMSNorm launched as often as the one rank,
+   the sp ranks' adapters bitwise equal, the leaves every stage holds
+   bitwise equal (`parallel_check`);
 5. serving slice: the Llama-3-8B-width decoder cut to 4 of its 32
    layers (`serving_config`; random bf16 weights from seed 0, int8 KV)
    on every serving path, each with the kernel counts
@@ -180,10 +189,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    bitwise the one rank's and whose adapters are rank 0's, and which
    loads into the one-rank model; each step's seconds, its tp all-reduce
    seconds (by op) and the logits gather's from the ranks' traces. (b),
-   (c) and (f) run at once; each part's seconds;
+   (c) and (f) run at once; each part's seconds. (h) and (i), sequence
+   and pipeline parallelism, two ranks each spawned from this process
+   on the card over gloo while (a)-(f) run, against one rank in this
+   process on the same tokens and weights (`sequence_pipeline_part`):
+   (h) the same decoder on 1 x 8192 tokens at `MeshSpec(sp=2)`, 3 steps
+   with `attention_impl="ulysses_flash"` (each rank's flash calls on 16
+   query and 4 kv heads over all 8192 tokens, launched as often as the
+   one rank's flash run), then 3 with `"ring"` (no flash), losses within
+   5e-4 relative; (i) the same decoder with
+   `gpipe_microbatches=2` and xla attention on 2 x 2048 tokens at
+   `MeshSpec(pp=2)`, two layers a stage, losses within 5e-4. Each:
+   RMSNorm forward and dx launched as often as the one rank, the
+   adapters' change from init within 0.3 of the one rank's, the leaves
+   every stage holds bitwise equal (and under sp the adapters), rank 0's
+   checkpoint holding every rank's adapters and loading into the
+   one-rank model; each step's seconds and its ring shifts,
+   all-to-alls or pipeline sends, and gradient sums, from rank 0's
+   trace;
 10. fleet slice, the launched serving fleet (`fleet_slice`), after
    phase 9 (a)-(f), with (g) beside its (a): (a) phase
-   5's model (seed 0) on grid (a) in process, prompts of 17, 64 and 300
+   5's model (`serving_config`, 4 of 32 layers; seed 0) on grid (a) in process, prompts of 17, 64 and 300
    tokens with 16 new each, one at a time; the weights saved as ckpt-1
    (timed) and the model freed. Then one `run_on_gpu` of a mixed fleet
    (`mixed_fleet_topology(nb_serving=2, nb_rank=1)` and a prefill
@@ -756,14 +782,30 @@ def _live_pairs(s_q: int, s_kv: int, causal: bool = True) -> int:
     return sum(min(i + 1, s_kv) for i in range(s_q))
 
 
-def check_flash(torch, ops, dev):
-    """The three flash kernels at the training slice's shapes; returns
-    their three rows."""
-    flash = ops.flash_attention
-    b, s, h, hkv, d = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_HEADS, TRAIN_KV_HEADS,
-                       TRAIN_HEAD_DIM)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    mk = lambda *shape: torch.randn(*shape, device=dev, generator=gen).to(
+# Phase 9 (h)'s sequence, and its flash calls: a Ulysses rank's 16 of 32
+# query heads and 4 of 8 kv heads over the whole sequence.
+SP_SEQ = 8192
+SP_FLASH_SHAPE = (1, SP_SEQ, TRAIN_HEADS // 2, TRAIN_KV_HEADS // 2,
+                  TRAIN_HEAD_DIM)
+
+# o, dq, dk, dv: the error's norm within FLASH_TOL of the reference's over
+# every 64-row block of the sequence, so no one large row sets the scale
+# (bf16 outputs round at 2^-9 relative, and p / ds round to bf16 at
+# running maxima that differ between the kernels' 64-row tiles and the
+# plain version's whole-row softmax). The LSE is f32 from exact bf16
+# products: FLASH_LSE_TOL absolute.
+FLASH_TOL, FLASH_LSE_TOL = 1e-2, 1e-4
+
+
+def flash_errors(torch, flash, dev, shape, seed: int, tag: str):
+    """The three flash kernels against their plain versions on seeded bf16
+    inputs of `shape` (B, S, H, Hkv, D), causal: raises past FLASH_TOL or
+    FLASH_LSE_TOL, or when a second dq or dk/dv call gives other bits.
+    Returns ({"fwd" | "dq" | "dkv": errors}, (q, k, v, dout, lse,
+    delta))."""
+    b, s, h, hkv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *dims: torch.randn(*dims, device=dev, generator=gen).to(
         torch.bfloat16)
     q, k, v, dout = mk(b, s, h, d), mk(b, s, hkv, d), mk(b, s, hkv, d), mk(b, s, h, d)
     out, lse = flash.flash_fwd(q, k, v)
@@ -776,45 +818,28 @@ def check_flash(torch, ops, dev):
     # bits.
     dq2 = flash.flash_dq(q, k, v, dout, ref_lse, delta)
     dk2, dv2 = flash.flash_dkv(q, k, v, dout, ref_lse, delta)
-    ref_dq = flash.flash_dq_reference(q, k, v, dout, ref_lse, delta)
-    ref_dk, ref_dv = flash.flash_dkv_reference(q, k, v, dout, ref_lse, delta)
-    torch.cuda.synchronize()
-    # o, dq, dk, dv: the error's norm within 1e-2 of the reference's over
-    # every 64-row block of the sequence, so no one large row sets the
-    # scale (bf16 outputs round at 2^-9 relative, and p / ds round to
-    # bf16 at running maxima that differ between the kernels' 64-row
-    # tiles and the plain version's whole-row softmax). The LSE is f32
-    # from exact bf16 products: 1e-4 absolute.
-    tol, lse_tol = 1e-2, 1e-4
-
-    def err(got, ref, name):
-        diff, ref = got.float() - ref.float(), ref.float()
-        rel = 0.0
-        for start in range(0, ref.shape[1], 64):
-            for b in range(ref.shape[0]):
-                e = float(diff[b, start:start + 64].norm())
-                n = float(ref[b, start:start + 64].norm())
-                rel = max(rel, e / n if n else
-                          (0.0 if e == 0 else float("inf")))
-        worst = float(diff.abs().max())
-        log(f"  {name}: block rel err {rel:.3g} (bound {tol}), "
-            f"max abs err {worst:.3g}")
-        if not rel <= tol:
-            raise AssertionError(f"{name}: block rel err {rel} > {tol}")
-        return worst, rel
-
     if not torch.equal(dq, dq2):
-        raise AssertionError("flash_dq: two calls gave different dq")
+        raise AssertionError(f"flash_dq {tag}: two calls gave different dq")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-        raise AssertionError("flash_dkv: two calls gave different dk or dv")
-    log("  dq, dk, dv: two calls bitwise equal")
+        raise AssertionError(
+            f"flash_dkv {tag}: two calls gave different dk or dv")
+    del dq2, dk2, dv2
+    log(f"  {tag}: dq, dk, dv: two calls bitwise equal")
+    found = {"o": err_blocks(torch, out, ref_out, f"{tag} o")}
+    del out, ref_out
+    found["dq"] = err_blocks(
+        torch, dq, flash.flash_dq_reference(q, k, v, dout, ref_lse, delta),
+        f"{tag} dq")
+    del dq
+    ref_dk, ref_dv = flash.flash_dkv_reference(q, k, v, dout, ref_lse, delta)
+    found["dk"] = err_blocks(torch, dk, ref_dk, f"{tag} dk")
+    found["dv"] = err_blocks(torch, dv, ref_dv, f"{tag} dv")
+    del dk, dv, ref_dk, ref_dv
     lse_err = float((lse - ref_lse).abs().max())
-    log(f"  lse: max abs err {lse_err:.3g} (bound {lse_tol})")
-    if not lse_err <= lse_tol:
-        raise AssertionError(f"lse: max abs err {lse_err} > {lse_tol}")
-    found = {name: err(got, ref, name) for name, got, ref in (
-        ("o", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
-        ("dv", dv, ref_dv))}
+    log(f"  {tag} lse: max abs err {lse_err:.3g} (bound {FLASH_LSE_TOL})")
+    if not lse_err <= FLASH_LSE_TOL:
+        raise AssertionError(f"{tag} lse: max abs err {lse_err} > "
+                             f"{FLASH_LSE_TOL}")
     pick = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
     errs = {key: {"max_abs_err": max(found[n][0] for n in names),
                   "block_rel_err": max(found[n][1] for n in names)}
@@ -822,6 +847,41 @@ def check_flash(torch, ops, dev):
     errs["fwd"]["lse_max_abs_err"] = lse_err
     errs["dq"]["bitwise_deterministic"] = True
     errs["dkv"]["bitwise_deterministic"] = True
+    return errs, (q, k, v, dout, ref_lse, delta)
+
+
+def err_blocks(torch, got, ref, name):
+    """(max abs error, the largest error norm over reference norm of a
+    64-row block of the sequence dim 1); raises past FLASH_TOL."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    b, s = ref.shape[:2]
+    blocks = lambda t: t.reshape(b, s // 64, -1).norm(dim=-1)
+    e, n = blocks(diff), blocks(ref)
+    ratio = torch.where(n > 0, e / n.clamp_min(1e-30),
+                        torch.where(e == 0, 0.0, float("inf")))
+    rel = float(ratio.max())
+    worst = float(diff.abs().max())
+    log(f"  {name}: block rel err {rel:.3g} (bound {FLASH_TOL}), "
+        f"max abs err {worst:.3g}")
+    if not rel <= FLASH_TOL:
+        raise AssertionError(f"{name}: block rel err {rel} > {FLASH_TOL}")
+    return worst, rel
+
+
+def check_flash(torch, ops, dev):
+    """The three flash kernels at the training slice's shapes, timed, and
+    at phase 9 (h)'s Ulysses shape (SP_FLASH_SHAPE), checked; returns
+    their three rows."""
+    flash = ops.flash_attention
+    sp_errs, _ = flash_errors(torch, flash, dev, SP_FLASH_SHAPE, SEED + 10,
+                              "ulysses S 8192")
+    torch.cuda.empty_cache()
+    train_shape = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_HEADS, TRAIN_KV_HEADS,
+                   TRAIN_HEAD_DIM)
+    b, s, h, hkv, d = train_shape
+    errs, (q, k, v, dout, ref_lse, delta) = flash_errors(
+        torch, flash, dev, train_shape, SEED + 9, "training")
+    tol, lse_tol = FLASH_TOL, FLASH_LSE_TOL
     live = _live_pairs(s, s)
     qb = q.numel() * 2
     kvb = k.numel() * 2
@@ -861,6 +921,9 @@ def check_flash(torch, ops, dev):
     rows = []
     for key, (name, replaces, fn, plain, n_bytes, n_flops) in specs.items():
         row = dict(base, name=name, replaces=replaces, **errs[key])
+        row["ulysses_shape"] = dict(zip(("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"),
+                                        SP_FLASH_SHAPE), **sp_errs[key])
         row.update(timings(fn, plain, None, args, n_bytes, torch, plain_inner=4))
         if key == "fwd":
             row["library_ms"] = sdpa_fwd
@@ -2395,10 +2458,9 @@ def serve_warm_start(torch, engine, sched_mod, server_mod, telemetry,
             "launches": launches}
 
 
-# Phase 5's depth: Llama-3-8B's widths and 4 of its 32 layers (8 until
-# phase 9's two-rank parts came), cut for the smoke's time limit (phase
-# 10's fleet keeps all 32). Every layer repeats the one before it; the
-# kernels' launches a path scale with the depth.
+# Phase 5's and phase 10's depth: Llama-3-8B's widths and 4 of its 32
+# layers, cut for the smoke's time limit. Every layer repeats the one
+# before it; the kernels' launches a path scale with the depth.
 SERVE_LAYERS = 4
 
 
@@ -3709,8 +3771,10 @@ TP_ADAPTER_RTOL = 0.2
 # Phase 4's tiny f32 decoder at tp=2 against one rank: f32 sums in another
 # order (losses relative, adapters absolute).
 TP_TINY_TOL = 1e-4
-# Flash calls' (query heads, kv heads), recorded by `record_flash_heads`.
+# Flash calls' (query heads, kv heads) and (query heads, kv heads,
+# sequence), recorded by `record_flash_heads`.
 _FLASH_HEADS = set()
+_FLASH_SHAPES = set()
 # The one-rank reference's model, kept by `tp_experiment(keep=True)`,
 # and its LoRA factors at init (on the host).
 _TP_MODELS = []
@@ -3734,7 +3798,8 @@ def tp_config(torch, tt, tiny: bool):
 
 def record_flash_heads() -> None:
     """Wrap `ops.flash_attention.flash_attention` (once a process) to
-    record the (query heads, kv heads) of each call in _FLASH_HEADS."""
+    record the (query heads, kv heads) of each call in _FLASH_HEADS and
+    its (query heads, kv heads, sequence) in _FLASH_SHAPES."""
     from tf_yarn_tpu_torch.ops import flash_attention
 
     inner = flash_attention.flash_attention
@@ -3743,6 +3808,7 @@ def record_flash_heads() -> None:
 
     def recording(q, k, v, *args, **kwargs):
         _FLASH_HEADS.add((q.shape[2], k.shape[2]))
+        _FLASH_SHAPES.add((q.shape[2], k.shape[2], q.shape[1]))
         return inner(q, k, v, *args, **kwargs)
 
     recording.records_heads = True
@@ -3750,24 +3816,31 @@ def record_flash_heads() -> None:
     flash_attention.flash_attention = recording
 
 
-def tp_record_path(out_dir, rank: int) -> Path:
-    return Path(out_dir) / f"tp-{rank}.json"
+def tp_record_path(out_dir, rank: int, tag: str = "tp") -> Path:
+    return Path(out_dir) / f"{tag}-{rank}.json"
 
 
 def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
-                  model_dir=None, keep: bool = False):
-    """The experiment fn of (g)'s launched ranks, phase 4's spawned ranks
-    and both one-rank references: `tp_config`'s decoder through
-    `make_experiment` (batch 1 x 2048; tiny 2 x 128), TP_STEPS steps,
-    ``MeshSpec(tp=tp)`` when tp > 1, random weights from seed 0 and a
-    nonzero lora_b from seed 3 (so every adapter gets a gradient), the
-    losses logged every step, a checkpoint at the end when `model_dir` is
-    given. Each rank writes <out_dir>/tp-<rank>.json after its last step:
-    its losses, the training kernels' launches in this process, the flash
-    calls' heads, its backend and device, whether its frozen base is
-    bitwise what it held before its first step, its parameters' local
-    shapes, and its adapters to tp-<rank>.pt. `keep`: keep the model in
-    _TP_MODELS (the in-process reference)."""
+                  model_dir=None, keep: bool = False, tag: str = "tp",
+                  mesh=None, impl=None, gpipe: int = 0, shape=None):
+    """The experiment fn of (g)'s launched ranks, phase 4's spawned ranks,
+    (h)'s and (i)'s spawned ranks and their one-rank references:
+    `tp_config`'s decoder through `make_experiment` (batch 1 x 2048;
+    tiny 2 x 128; or `shape` (batch, seq)), TP_STEPS steps, over
+    ``MeshSpec(**mesh)`` or else ``MeshSpec(tp=tp)`` when tp > 1, with
+    the attention backend `impl` and ``gpipe_microbatches=gpipe`` (which
+    scans: ``scan_layers=True``) where given, random weights from seed 0
+    and a nonzero lora_b from seed 3 (so every adapter gets a gradient),
+    the losses logged every step, a checkpoint at the end when
+    `model_dir` is given. Each rank writes <out_dir>/<tag>-<rank>.json
+    after its last step: its losses, the training kernels' launches in
+    this process, the flash calls' heads and shapes, its backend and
+    device, whether its frozen base is bitwise what it held before its
+    first step, its parameters' local shapes, the digest of the leaves
+    every pipeline stage holds, its peak memory on the card, and its
+    adapters to <tag>-<rank>.pt. `keep`: keep the model in _TP_MODELS
+    (the in-process reference) and its adapters at init in _TP_INIT and
+    <tag>-init.pt."""
     import torch
     import torch.distributed as dist
 
@@ -3777,12 +3850,21 @@ def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
 
     record_flash_heads()
     cfg = tp_config(torch, tt, tiny)
-    shape = (dict(batch_size=2, seq_len=128) if tiny
-             else dict(batch_size=1, seq_len=2048))
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, attention_impl=impl)
+    if gpipe:
+        cfg = dataclasses.replace(cfg, scan_layers=True,
+                                  gpipe_microbatches=gpipe)
+    if shape is not None:
+        shape = dict(batch_size=shape[0], seq_len=shape[1])
+    else:
+        shape = (dict(batch_size=2, seq_len=128) if tiny
+                 else dict(batch_size=1, seq_len=2048))
+    spec = (MeshSpec(**mesh) if mesh is not None
+            else MeshSpec(tp=tp) if tp > 1 else None)
     exp = tt.make_experiment(
         cfg, model_dir=model_dir, train_steps=TP_STEPS, learning_rate=1e-3,
-        log_every_steps=1, mesh_spec=MeshSpec(tp=tp) if tp > 1 else None,
-        **shape)
+        log_every_steps=1, mesh_spec=spec, **shape)
     counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
                flash_attention.flash_fwd, flash_attention.flash_dq,
                flash_attention.flash_dkv)
@@ -3802,6 +3884,8 @@ def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
             _TP_INIT.update({name: param.detach().cpu().clone()
                              for name, param in model.named_parameters()
                              if tt.is_lora_param(name)})
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            torch.save(_TP_INIT, Path(out_dir) / f"{tag}-init.pt")
         return model
 
     def recording_loss(model, batch, train=True):
@@ -3811,7 +3895,10 @@ def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
         return loss, aux
 
     def optimizer(model):
-        # Called on the rank's shards, before the first step.
+        # Called on the rank's shards, before the first step (under pp
+        # once before on the whole model too, for the optimizer's
+        # one-device numbering: the last call's base is the rank's).
+        base.clear()
         base.update({name: param.detach().clone()
                      for name, param in model.named_parameters()
                      if not tt.is_lora_param(name)})
@@ -3826,11 +3913,20 @@ def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
             Path(out_dir).mkdir(parents=True, exist_ok=True)
             torch.save({name: p.detach().cpu() for name, p in params.items()
                         if tt.is_lora_param(name)},
-                       Path(out_dir) / f"tp-{rank}.pt")
-            tp_record_path(out_dir, rank).write_text(json.dumps({
+                       Path(out_dir) / f"{tag}-{rank}.pt")
+            device = next(iter(params.values())).device
+            tp_record_path(out_dir, rank, tag).write_text(json.dumps({
                 "losses": [float(x) for x in losses],
                 "launches": {fn.__name__: fn.launches for fn in counted},
                 "flash_heads": sorted(_FLASH_HEADS),
+                "flash_shapes": sorted(_FLASH_SHAPES),
+                "replicated_sha256": params_digest(
+                    {n: p for n, p in params.items()
+                     if not n.startswith("layers.")}),
+                "layers": sorted({int(n.split(".")[1]) for n in params
+                                  if n.startswith("layers.")}),
+                "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None),
                 "rank": rank,
                 "world": dist.get_world_size() if grouped else 1,
                 "backend": dist.get_backend() if grouped else None,
@@ -3849,10 +3945,9 @@ def tp_experiment(out_dir: str, tiny: bool = False, tp: int = TP_RANKS,
     return exp
 
 
-def tp_reference(torch, training, experiment, out_dir, dev, tiny: bool):
-    """The tp experiment at one rank in this process, the training
-    kernels' counts set to 0 just before it: its record (`tp_experiment`)
-    and seconds; its model stays in _TP_MODELS."""
+def zero_training_counts() -> None:
+    """The training kernels' launch counts and the flash calls' records
+    set to 0 and emptied."""
     from tf_yarn_tpu_torch.ops import flash_attention, rmsnorm
 
     for fn in (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
@@ -3860,17 +3955,30 @@ def tp_reference(torch, training, experiment, out_dir, dev, tiny: bool):
                flash_attention.flash_dkv):
         fn.launches = 0
     _FLASH_HEADS.clear()
+    _FLASH_SHAPES.clear()
+
+
+def tp_reference(torch, training, experiment, out_dir, dev, tiny: bool,
+                 tag: str = "tp", **kwargs):
+    """The tp experiment (with `kwargs`: `tp_experiment`'s impl, gpipe,
+    shape) at one rank in this process, the training kernels' counts set
+    to 0 just before it: its record (`tp_experiment`) and seconds; its
+    model stays in _TP_MODELS."""
+    from tf_yarn_tpu_torch.ops import flash_attention
+
+    zero_training_counts()
     started = time.perf_counter()
     try:
         training.train_and_evaluate(experiment.as_core_experiment(
-            tp_experiment(str(out_dir), tiny, tp=1, keep=True)), device=dev)
+            tp_experiment(str(out_dir), tiny, tp=1, keep=True, tag=tag,
+                          **kwargs)), device=dev)
     finally:
         flash_attention.flash_attention = getattr(
             flash_attention.flash_attention, "inner",
             flash_attention.flash_attention)
     seconds = time.perf_counter() - started
-    record = json.loads(tp_record_path(out_dir, 0).read_text())
-    return dict(record, seconds=seconds)
+    record = json.loads(tp_record_path(out_dir, 0, tag).read_text())
+    return dict(record, seconds=seconds, tag=tag, dir=str(out_dir))
 
 
 # Phase 4's tiny ranks start with the smoke and train once the phase writes
@@ -3879,30 +3987,93 @@ TP_GO = "go"
 TP_GO_TIMEOUT_S = 900.0
 
 
-def _tp_tiny_rank(rank: int, world: int, port: int, out_dir: str,
-                  device: str) -> None:
-    """Phase 4's spawned rank: the tiny tp experiment at tp=`world` over
-    gloo on `device`, once <out_dir>/go exists."""
+# The runs of phase 4's tiny ranks, in order: tp (the tp check), then
+# sequence parallelism by ring and by Ulysses with flash inside, then the
+# GPipe schedule (xla attention, as JAX's GPipe requires), each with its
+# record tag; and (h)'s and (i)'s runs at Llama-3-8B widths.
+TINY_RUNS = (dict(tag="tp"),
+             dict(tag="sp_ring", mesh={"sp": 2}, impl="ring"),
+             dict(tag="sp_ulysses_flash", mesh={"sp": 2},
+                  impl="ulysses_flash"),
+             dict(tag="pp", mesh={"pp": 2}, impl="xla", gpipe=2))
+PP_SHAPE = (2, 2048)
+H_RUNS = (dict(tag="h_ulysses_flash", mesh={"sp": 2}, impl="ulysses_flash",
+               shape=(1, SP_SEQ)),
+          dict(tag="h_ring", mesh={"sp": 2}, impl="ring", shape=(1, SP_SEQ)))
+I_RUNS = (dict(tag="i_gpipe", mesh={"pp": 2}, impl="xla", gpipe=2,
+               shape=PP_SHAPE),)
+
+
+def _parallel_rank(rank: int, world: int, port: int, out_dir: str,
+                   device: str, runs, tiny: bool, go: bool) -> None:
+    """A spawned rank of phase 4's tiny runs (`tiny`, once <out_dir>/go
+    exists when `go`) or of (h) and (i): each of `runs` (`tp_experiment`'s
+    keywords) over gloo on `device`, in order, its kernel counts set to 0
+    just before it, its spans exported to <out_dir>/<tag>_trace and, at
+    full size, its checkpoint written to <out_dir>/<tag>_model."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, str(REPO))
-    from tf_yarn_tpu_torch import experiment, training
+    from tf_yarn_tpu_torch import experiment, telemetry, training
 
     if device == "cuda":
         torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
-        go, waited = Path(out_dir) / TP_GO, time.perf_counter()
-        while not go.exists():
-            if time.perf_counter() - waited > TP_GO_TIMEOUT_S:
-                raise TimeoutError(f"no {go} after {TP_GO_TIMEOUT_S} s")
-            time.sleep(0.05)
-        training.train_and_evaluate(experiment.as_core_experiment(
-            tp_experiment(out_dir, tiny=True, tp=world)), device=device)
+        if go:
+            flag, waited = Path(out_dir) / TP_GO, time.perf_counter()
+            while not flag.exists():
+                if time.perf_counter() - waited > TP_GO_TIMEOUT_S:
+                    raise TimeoutError(f"no {flag} after {TP_GO_TIMEOUT_S} s")
+                time.sleep(0.05)
+        for run in runs:
+            zero_training_counts()
+            telemetry.get_tracer().clear()
+            os.environ["TPU_YARN_TRACE"] = str(Path(out_dir) /
+                                               f"{run['tag']}_trace")
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            model_dir = (None if tiny
+                         else str(Path(out_dir) / f"{run['tag']}_model"))
+            training.train_and_evaluate(experiment.as_core_experiment(
+                tp_experiment(out_dir, tiny=tiny, tp=world,
+                              model_dir=model_dir, **run)), device=device)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+
+
+def parallel_ranks_start(torch, out_dir: str, device: str, runs,
+                         tiny: bool, go: bool):
+    """Spawn two `_parallel_rank`s now. Returns a fn that (with `go`
+    first writes the go file) waits for them and gives their wall from
+    the call. A rank still running when this process exits is
+    terminated."""
+    ranks = torch.multiprocessing.spawn(
+        _parallel_rank, args=(TP_RANKS, _free_port(), out_dir, device,
+                              runs, tiny, go),
+        nprocs=TP_RANKS, join=False)
+
+    def stop():
+        for process in ranks.processes:
+            if process.is_alive():
+                process.terminate()
+
+    atexit.register(stop)
+
+    def wait() -> float:
+        started = time.perf_counter()
+        if go:
+            (Path(out_dir) / TP_GO).touch()
+        while not ranks.join():
+            pass
+        return time.perf_counter() - started
+
+    return wait
 
 
 def _free_port() -> int:
@@ -3914,30 +4085,12 @@ def _free_port() -> int:
 
 
 def tp_ranks_start(torch, out_dir: str, device: str):
-    """Spawn phase 4's two tiny tp ranks now: each imports, takes the card
-    and joins its gloo group, then waits for <out_dir>/go, so the smoke's
-    build and phase 3 hide their start. Returns a fn that writes go,
-    waits for the ranks and gives their wall from it. A rank still
-    running when this process exits is terminated."""
-    ranks = torch.multiprocessing.spawn(
-        _tp_tiny_rank, args=(TP_RANKS, _free_port(), out_dir, device),
-        nprocs=TP_RANKS, join=False)
-
-    def stop():
-        for process in ranks.processes:
-            if process.is_alive():
-                process.terminate()
-
-    atexit.register(stop)
-
-    def go() -> float:
-        started = time.perf_counter()
-        (Path(out_dir) / TP_GO).touch()
-        while not ranks.join():
-            pass
-        return time.perf_counter() - started
-
-    return go
+    """Spawn phase 4's two tiny ranks now (`TINY_RUNS`): each imports,
+    takes the card and joins its gloo group, then waits for <out_dir>/go,
+    so the smoke's build and phase 3 hide their start. Returns a fn that
+    writes go, waits for the ranks and gives their wall from it."""
+    return parallel_ranks_start(torch, out_dir, device, TINY_RUNS,
+                                tiny=True, go=True)
 
 
 def tp_tiny_check(torch, out_dir, reference, ranks_wall):
@@ -3951,8 +4104,7 @@ def tp_tiny_check(torch, out_dir, reference, ranks_wall):
              for r in range(TP_RANKS)]
     adapters = [torch.load(Path(out_dir) / f"tp-{r}.pt")
                 for r in range(TP_RANKS)]
-    one = {name: p.detach().cpu() for name, p in
-           _TP_MODELS.pop().named_parameters() if "lora" in name}
+    one = torch.load(Path(reference["dir"]) / f"{reference['tag']}-0.pt")
     loss_err = max(abs(a - b) / abs(b) for r in ranks
                    for a, b in zip(r["losses"], reference["losses"]))
     lora_err = max(float((a[n] - one[n]).abs().max())
@@ -3974,6 +4126,233 @@ def tp_tiny_check(torch, out_dir, reference, ranks_wall):
             "flash_heads": ranks[0]["flash_heads"],
             "reference_flash_heads": reference["flash_heads"],
             "ranks_wall_s": ranks_wall}
+
+
+# (h)'s and (i)'s losses against the one-rank run, relative, set before
+# the first card run (PERF.md §6): Ulysses runs the same flash
+# kernels on the rank's heads over the whole sequence and the pipeline
+# the same layers on half the rows, so only GEMM tilings and the loss's
+# sums change (as (g)'s 1.03e-4); the ring's plain block rounds P to bf16
+# where flash does too, but sums the blocks in another order. The one
+# rank's own movement over the 3 steps must exceed twice the bound: it
+# moved 2.5e-3 on the card, so the ring's first bound, 2e-3, could not
+# tell trained adapters from untrained ones, and it is 5e-4 as the
+# others (the card measured 4.0e-5).
+SP_LOSS_RTOL = {"ulysses_flash": 5e-4, "ring": 5e-4}
+PP_LOSS_RTOL = 5e-4
+# Their adapters' change from init against the one rank's, as (g)'s.
+PARALLEL_ADAPTER_RTOL = 0.3
+
+
+def _collective_steps(trace_path: Path, span: str) -> list:
+    """A rank's steps from its exported trace: each step's seconds (its
+    dispatch span through its device wait) and, within its dispatch, the
+    count, seconds and bytes of `span` (forward and backward) and of the
+    gradient sums over sp or pp (``train/grad_allreduce`` with ``axis``)."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = lambda name: sorted((e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6,
+                                 e.get("args", {})) for e in events
+                                if e["name"] == name)
+    dispatch, waits = spans("train/step_dispatch"), spans("train/device_wait")
+    moved = spans(span)
+    sums = [x for x in spans("train/grad_allreduce") if "axis" in x[2]]
+    steps = []
+    for (start, end, _), (_, wait_end, _) in zip(dispatch, waits):
+        inside = [(s, e, a) for s, e, a in moved if start <= s < end]
+        summed = [(s, e, a) for s, e, a in sums if start <= s < end]
+        steps.append({
+            "step_s": wait_end - start, "n": len(inside),
+            "s": sum(e - s for s, e, _ in inside),
+            "bytes": sum(a["bytes"] for _, _, a in inside),
+            "grad_sum_s": sum(e - s for s, e, _ in summed),
+            "grad_sum_bytes": sum(a["bytes"] for _, _, a in summed)})
+    return steps
+
+
+def stage_norm_launches(n_layers: int, layers, micro: int) -> dict:
+    """The RMSNorm launches of TP_STEPS steps of the LoRA decoder (remat on,
+    the chunked or plain loss) on a rank that holds `layers` of
+    `n_layers` and runs them on `micro` microbatches (1 and every layer:
+    one rank): each layer's two norms forward and again in its recompute
+    on each microbatch, the final norm once; backward the same two a
+    layer but the first layer's attention norm (its input, the frozen
+    embedding's rows, needs no gradient), and the final norm."""
+    held = len(layers)
+    return {"rmsnorm": TP_STEPS * (micro * 2 * held * 2 + 1),
+            "rmsnorm_bwd_dx": TP_STEPS * (
+                micro * (2 * held - (1 if 0 in layers else 0)) + 1)}
+
+
+def parallel_check(torch, tt, ckpt, out_dir, tag, reference, tiny,
+                   impl=None, pipelined=0):
+    """Phase 4's tiny sp and pp checks and (h)'s and (i)'s: the two ranks'
+    records of run `tag` against `reference` (`tp_reference`: one rank in
+    this process, on the same tokens and weights; its adapters at init
+    and at the end in its directory). Each rank: world 2 over gloo, its
+    base unchanged, its losses within the bound of the one rank's
+    (TP_TINY_TOL; at full size SP_LOSS_RTOL of `impl`, or PP_LOSS_RTOL
+    when `pipelined` — the microbatch count — which the one rank's
+    movement must exceed twice), its RMSNorm forward and dx launched as
+    often as the one rank's (pipelined: as its stage's layers on its
+    microbatches make them, `stage_norm_launches`, which the one rank's
+    counts must equal at its layers), flash as
+    often as the one rank under Ulysses (each call on half the heads over
+    the whole sequence) and never under the ring or the pipeline. Under
+    sp the ranks' adapters are bitwise equal; under pp each holds its
+    stage's layers and they cover the one rank's. Both: the leaves every
+    stage holds bitwise equal, the adapters within TP_TINY_TOL absolute
+    (tiny) or their change from init within PARALLEL_ADAPTER_RTOL of the
+    one rank's; at full size rank 0's checkpoint holds every rank's
+    adapters and loads into the one-rank model. Each step's seconds and
+    its collectives from rank 0's trace."""
+    out_dir = Path(out_dir)
+    ranks = [json.loads(tp_record_path(out_dir, r, tag).read_text())
+             for r in range(TP_RANKS)]
+    adapters = [torch.load(out_dir / f"{tag}-{r}.pt")
+                for r in range(TP_RANKS)]
+    ref_dir = Path(reference["dir"])
+    one = torch.load(ref_dir / f"{reference['tag']}-0.pt")
+    init = torch.load(ref_dir / f"{reference['tag']}-init.pt")
+    merged = {}
+    for got in adapters:
+        merged.update(got)
+    want = reference["losses"]
+    bound = (TP_TINY_TOL if tiny else PP_LOSS_RTOL if pipelined
+             else SP_LOSS_RTOL[impl])
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], want))
+    moved = max(abs(a - want[0]) / abs(want[0]) for a in want[1:])
+    if tiny:
+        adapter_err = max(float((merged[n] - one[n]).abs().max())
+                          for n in one)
+    else:
+        change = lambda got, n: got.float() - init[n]
+        diff = sum(float((change(merged[n], n) - change(one[n], n)).norm())
+                   ** 2 for n in one)
+        norm = sum(float(change(one[n], n).norm()) ** 2 for n in one)
+        adapter_err = (diff / norm) ** 0.5 if norm else float("inf")
+    launches = reference["launches"]
+    norms = {k: v for k, v in launches.items() if k.startswith("rmsnorm")}
+    flash = {k: v for k, v in launches.items() if k.startswith("flash")}
+    micro = pipelined or 1  # the microbatches of a pipelined run
+    # A pipelined rank's norms follow its stage (none counted on the CPU,
+    # where the plain versions run).
+    staged = bool(pipelined) and any(norms.values())
+    heads = (reference["flash_shapes"][0] if reference["flash_shapes"]
+             else None)
+    problems = []
+    for r in ranks:
+        got = r["launches"]
+        want_flash = (flash if impl == "ulysses_flash"
+                      else {k: 0 for k in flash})
+        shapes = ([[heads[0] // 2, heads[1] // 2, heads[2]]]
+                  if impl == "ulysses_flash" else [])
+        want_norms = (stage_norm_launches(len(reference["layers"]),
+                                          r["layers"], micro)
+                      if staged else norms)
+        if ((r["world"], r["backend"], r["base_unchanged"])
+                != (TP_RANKS, "gloo", True)
+                or {k: got[k] for k in norms} != want_norms
+                or {k: got[k] for k in flash} != want_flash
+                or r["flash_shapes"] != shapes
+                or (not tiny and min(norms.values()) <= 0)
+                # Phase 3 checked the kernels at the shape (h) runs.
+                or (not tiny and impl == "ulysses_flash" and shapes != [[
+                    SP_FLASH_SHAPE[2], SP_FLASH_SHAPE[3], SP_FLASH_SHAPE[1]]])):
+            problems.append(r)
+    if staged and {k: launches[k] for k in norms} != stage_norm_launches(
+            len(reference["layers"]), reference["layers"], 1):
+        problems.append(reference)
+    if pipelined:
+        layers = [set(r["layers"]) for r in ranks]
+        split = (not layers[0] & layers[1]
+                 and sorted(layers[0] | layers[1])
+                 == sorted({int(n.split(".")[1]) for n in one}))
+        same = split and sorted(merged) == sorted(one)
+    else:
+        same = sorted(adapters[0]) == sorted(one) and all(
+            torch.equal(adapters[0][n], adapters[1][n]) for n in one)
+    replicated = len({r["replicated_sha256"] for r in ranks}) == 1
+    checkpoint = None
+    if not tiny:
+        model_dir = str(out_dir / f"{tag}_model")
+        steps = ckpt.list_checkpoint_steps(model_dir)
+        ckpt.verify_checkpoint(ckpt.checkpoint_path(model_dir, TP_STEPS))
+        restored = ckpt.restore_checkpoint(model_dir, TP_STEPS,
+                                           map_location="cpu")["params"]
+        lora_equal = all(torch.equal(restored[n], merged[n]) for n in merged)
+        _TP_MODELS[-1].load_state_dict(restored)
+        checkpoint = {"steps": steps, "adapters_are_the_ranks": lora_equal}
+        del restored
+    bad_ckpt = checkpoint is not None and (
+        checkpoint["steps"] != [TP_STEPS]
+        or not checkpoint["adapters_are_the_ranks"])
+    if (problems or loss_err > bound or (not tiny and moved <= 2 * bound)
+            or adapter_err > (TP_TINY_TOL if tiny
+                              else PARALLEL_ADAPTER_RTOL)
+            or not same or not replicated or bad_ckpt):
+        raise AssertionError(
+            f"{tag}: ranks {ranks}, one rank {reference}, loss err "
+            f"{loss_err} (bound {bound}), the one rank's movement {moved}, "
+            f"adapter err {adapter_err}, adapters consistent {same}, "
+            f"replicated leaves equal {replicated}, checkpoint {checkpoint}")
+    span = "train/pp_send" if pipelined else "train/sp_collective"
+    trace = out_dir / f"{tag}_trace" / "trace_train.json"
+    return {
+        "ranks": [{key: r[key] for key in (
+            "rank", "world", "backend", "device", "launches", "losses",
+            "flash_shapes", "layers", "peak_gb")} for r in ranks],
+        "reference": {key: reference[key] for key in (
+            "losses", "launches", "flash_shapes", "seconds", "peak_gb")},
+        "loss_max_rel_err": loss_err, "loss_bound": bound,
+        "reference_loss_movement": moved,
+        "adapter_err": adapter_err,
+        "replicated_leaves_bitwise_equal": True,
+        "checkpoint": checkpoint,
+        "steps_rank0": (_collective_steps(trace, span) if trace.exists()
+                        else None),
+    }
+
+
+def sequence_pipeline_part(torch, tt, ckpt, training, experiment, dev,
+                           tmp: Path) -> dict:
+    """Phase 9 (h) and (i), spawned from this process: (h) two ranks at
+    ``MeshSpec(sp=2)`` train `tp_config`'s decoder on 1 x 8192 tokens 3
+    steps with Ulysses and flash inside, then 3 with the ring, while one
+    rank in this process trains it with flash on the same tokens and
+    weights; (i) two ranks at ``MeshSpec(pp=2)`` train it (2 layers a
+    stage, GPipe with 2 microbatches, xla attention) on 2 x 2048 tokens
+    against one rank in this process. Each held by `parallel_check`; the
+    checkpoints load into the one-rank model. {part: result, and
+    seconds}."""
+    out = {}
+    # Rehearsed on the CPU at phase 4's tiny size and shapes.
+    tiny = dev.type != "cuda"
+    for name, runs, kwargs in (
+            ("h", H_RUNS, dict(shape=(1, SP_SEQ))),
+            ("i", I_RUNS, dict(impl="xla", gpipe=2, shape=PP_SHAPE))):
+        if tiny:
+            runs = [dict(run, shape=None) for run in runs]
+            kwargs = dict(kwargs, shape=None)
+        started = time.perf_counter()
+        wait = parallel_ranks_start(torch, str(tmp), dev.type, runs,
+                                    tiny=tiny, go=False)
+        one = tp_reference(torch, training, experiment, tmp / f"{name}_one",
+                           dev, tiny=tiny, tag=name, **kwargs)
+        ranks_wall = wait()
+        for run in runs:
+            out[run["tag"]] = parallel_check(
+                torch, tt, ckpt, tmp, run["tag"], one, tiny=tiny,
+                impl=run["impl"], pipelined=run.get("gpipe", 0))
+            shutil.rmtree(tmp / f"{run['tag']}_model", ignore_errors=True)
+        _TP_MODELS.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[f"{name}_s"] = time.perf_counter() - started
+        out[f"{name}_ranks_wall_s"] = ranks_wall
+    return out
 
 
 def _tp_trace(trace_path: Path) -> dict:
@@ -4175,13 +4554,13 @@ FLEET_RANK_TOL = 1e-5
 
 
 def fleet_config(torch, tt, tiny: bool):
-    """Llama-3-8B (its 32 layers, bf16, int8 KV), or the small f32 one of
+    """Phase 5's decoder (`serving_config`: Llama-3-8B widths at
+    SERVE_LAYERS layers, bf16, int8 KV), or the small f32 one of
     TINY_FLEET."""
     if tiny:
         return tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
                                     **TINY_FLEET)
-    return tt.TransformerConfig.llama3_8b(dtype=torch.bfloat16,
-                                          kv_cache_dtype="int8")
+    return serving_config(torch, tt)
 
 
 def rank_model_config(dlrm, torch, tiny: bool):
@@ -4990,13 +5369,26 @@ def main() -> int:
     started = time.perf_counter()
     tp_tiny_one = tp_reference(torch, training, experiment,
                                tp_tiny_dir / "one", dev, tiny=True)
+    pp_tiny_one = tp_reference(torch, training, experiment,
+                               tp_tiny_dir / "one_pp", dev, tiny=True,
+                               tag="pp", impl="xla", gpipe=2)
     ranks_wall = tp_tiny()["ranks"][0]
     tp_tiny_result = tp_tiny_check(torch, tp_tiny_dir, tp_tiny_one,
                                    ranks_wall)
+    sp_pp_tiny = {run["tag"]: parallel_check(
+        torch, tt, ckpt, tp_tiny_dir, run["tag"],
+        pp_tiny_one if "gpipe" in run else tp_tiny_one, tiny=True,
+        impl=run["impl"], pipelined=run.get("gpipe", 0))
+        for run in TINY_RUNS[1:]}
+    _TP_MODELS.clear()
     shutil.rmtree(tp_tiny_dir, ignore_errors=True)
     log(f"tp reference ({time.perf_counter() - started:.1f} s after the "
         f"others): tiny f32 LoRA decoder at tp=2 on the card against one "
         f"rank: {json.dumps(tp_tiny_result)}")
+    log("sp and pp references: the same decoder at sp=2 (ring; Ulysses "
+        "with flash) against the one rank, and at pp=2 (GPipe, 2 "
+        "microbatches, xla) against one rank of the same config: "
+        + json.dumps(sp_pp_tiny))
     mark("4 references")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
@@ -5055,6 +5447,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("8 ranker slice")
 
+    # Phase 9 (h) and (i): sequence and pipeline parallelism at Llama-3-8B
+    # widths, their ranks spawned from here, train beside (a)-(f), whose
+    # launched workers leave the card mostly idle.
+    sp_pp_tmp = Path(tempfile.mkdtemp(prefix="sp_pp"))
+    sp_pp_wait = concurrently_started({"h_i": lambda: sequence_pipeline_part(
+        torch, tt, ckpt, training, experiment, dev, sp_pp_tmp)})
     started = time.perf_counter()
     bert_launches = zoo_results["bert_base"]["launches"]
     launcher_result = launcher_slice(
@@ -5068,6 +5466,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("9 launcher slice (a)-(f)")
+    try:
+        sp_pp_result = sp_pp_wait()["h_i"][0]
+    finally:
+        shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+    for tag in ("h_ulysses_flash", "h_ring", "i_gpipe"):
+        log(f"{'sp' if tag.startswith('h') else 'pp'} slice (phase 9 "
+            f"({tag[0]}), {tag[2:]}): {json.dumps(sp_pp_result[tag])} on "
+            f"{card}")
+    log("sp/pp part: " + json.dumps({k: round(v, 1) for k, v in
+                                     sp_pp_result.items()
+                                     if k.endswith("_s")}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("9 (h), (i) beside (a)-(f)")
 
     # Phase 9 (g) beside phase 10 (a): the tp ranks are launched now, the
     # one-rank reference trains in this process while they start, and the
@@ -5159,6 +5571,11 @@ def main() -> int:
             if row["name"] in rank["launches"]:
                 by_path[f"tp rank {rank['rank']}"] = \
                     rank["launches"][row["name"]]
+        for tag in ("h_ulysses_flash", "h_ring", "i_gpipe"):
+            for rank in sp_pp_result[tag]["ranks"]:
+                if row["name"] in rank["launches"]:
+                    by_path[f"{tag} rank {rank['rank']}"] = \
+                        rank["launches"][row["name"]]
         by_path.update({path: launched[row["name"]]
                         for path, launched in fleet_launches.items()
                         if row["name"] in launched})

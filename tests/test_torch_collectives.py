@@ -35,6 +35,11 @@ CASES = [
     ("all_gather", "dp", {"gather_axis": 1}),
     ("ring_shift", "x", {}), ("ring_shift", "x", {"shift": 3}),
     ("ring_shift", "fsdp", {}), ("ring_shift", "dp", {"shift": 2}),
+    # jax.lax.all_to_all(..., tiled=True), which the JAX package calls
+    # inline in ulysses.py.
+    ("all_to_all", "x", {"split_axis": 0, "concat_axis": 1}),
+    ("all_to_all", "fsdp", {"split_axis": 1, "concat_axis": 0}),
+    ("all_to_all", "dp", {"split_axis": 0, "concat_axis": 0}),
 ]
 AXIS_KW = {"reduce_scatter": "scatter_axis", "all_gather": "gather_axis",
            "ring_shift": "shift"}
@@ -106,10 +111,14 @@ def jax_blocks(name, axis, kwargs):
     else:
         mesh = Mesh(devices.reshape(2, 2), ("dp", "fsdp"))
         spec = P(("dp", "fsdp"))
-    fn = getattr(j_coll, name)
-    key = AXIS_KW.get(name)
-    call = (lambda s: fn(s, axis, kwargs[key])) if key in kwargs else (
-        lambda s: fn(s, axis))
+    if name == "all_to_all":
+        call = lambda s: jax.lax.all_to_all(  # noqa: E731
+            s, axis, kwargs["split_axis"], kwargs["concat_axis"], tiled=True)
+    else:
+        fn = getattr(j_coll, name)
+        key = AXIS_KW.get(name)
+        call = (lambda s: fn(s, axis, kwargs[key])) if key in kwargs else (
+            lambda s: fn(s, axis))
     out = j_coll.shard_map(call, mesh=mesh, in_specs=spec, out_specs=spec)(
         global_array())
     return np.split(np.asarray(out), WORLD)
@@ -118,9 +127,9 @@ def jax_blocks(name, axis, kwargs):
 def test_build_mesh_over_four_ranks(ranks):
     for rank, out in enumerate(ranks):
         mesh = out["mesh"]
-        # tp is the innermost dim, of size 1 here.
-        assert mesh["dims"] == ["dp", "fsdp", "tp"]
-        assert mesh["shape"] == [2, 2, 1]
+        # JAX's order (ep refused); pp, sp and tp of size 1 here.
+        assert mesh["dims"] == ["pp", "dp", "fsdp", "sp", "tp"]
+        assert mesh["shape"] == [1, 2, 2, 1, 1]
         # Row-major: dp is the outer dim.
         assert mesh["fsdp_group"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
         assert mesh["dp_group"] == [rank % 2, rank % 2 + 2]

@@ -34,7 +34,9 @@ def test_package_imports_with_jax_blocked():
                      "fleet.router", "fleet.registry", "fleet.monitor",
                      "fleet.autoscaler", "fleet.policy", "tasks.router",
                      "evaluation", "tasks.evaluator", "tasks.tensorboard",
-                     "utils.evaluator_metrics", "utils.tensorboard_utils"):
+                     "utils.evaluator_metrics", "utils.tensorboard_utils",
+                     "parallel.ring_attention", "parallel.ulysses",
+                     "parallel.pipeline"):
         assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"

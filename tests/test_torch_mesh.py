@@ -69,8 +69,7 @@ def test_order_devices_for_slices_matches_jax(fields, slice_ids):
                  devices, slice_ids)
 
 
-@pytest.mark.parametrize("axis,item", [("sp", "7c"), ("ep", "8b"),
-                                       ("pp", "7d")])
+@pytest.mark.parametrize("axis,item", [("ep", "8b")])
 def test_model_axes_refuse_naming_their_item(axis, item):
     spec = t_mesh.MeshSpec(**{axis: 2})
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
@@ -90,10 +89,36 @@ def test_tp_meshes_are_built_for_training(fields):
     t_mesh.check_mesh_spec(spec, spec.total_devices)
     with pytest.raises(ValueError, match="MeshSpec wants"):
         t_mesh.build_mesh(spec, "cpu")
-    assert t_mesh.MESH_DIMS == ("dp", "fsdp", "tp")
+    assert t_mesh.MESH_DIMS == ("pp", "dp", "fsdp", "sp", "tp")
     assert "tp" not in t_mesh.UNPORTED_AXES
     assert t_mesh.data_group(None) == (0, 1)
     assert t_mesh.mesh_coordinate(None, "tp") == 0
+
+
+@pytest.mark.parametrize("fields", [dict(sp=2), dict(pp=2), dict(dp=2, sp=2),
+                                    dict(sp=2, tp=2), dict(dp=2, pp=2),
+                                    dict(fsdp=2, sp=2)])
+def test_sp_and_pp_meshes_are_built_for_training(fields):
+    """sp and pp are ported (sequence parallelism, the pipeline): a spec
+    with them passes the check at its world size and is the JAX package's
+    size error at one rank; their dims are in the mesh in JAX's order
+    (mesh.py:63), and they share the data group of their dp x fsdp
+    coordinate."""
+    spec = t_mesh.MeshSpec(**fields)
+    t_mesh.check_mesh_spec(spec, spec.total_devices)
+    with pytest.raises(ValueError, match="MeshSpec wants"):
+        t_mesh.build_mesh(spec, "cpu")
+    assert list(t_mesh.MESH_DIMS) == [
+        axis for axis in j_mesh.MeshSpec().axis_names if axis != "ep"]
+    assert not {"sp", "pp"} & set(t_mesh.UNPORTED_AXES)
+
+
+@pytest.mark.parametrize("fields", [dict(fsdp=2, pp=2), dict(sp=2, pp=2),
+                                    dict(tp=2, pp=2)])
+def test_uncombined_axes_refuse_naming_their_items(fields):
+    spec = t_mesh.MeshSpec(**fields)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+        t_mesh.check_mesh_spec(spec, spec.total_devices)
 
 
 def test_mesh_size_must_be_the_world():

@@ -393,13 +393,19 @@ def test_refusals_name_their_roadmap_items(tmp_path):
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
         tt.Transformer(_port_config(moe_experts=2), device="cpu")
-    # JAX's MoE and GPipe knobs construct, and refuse any other value.
+    # JAX's MoE knobs construct, and refuse any other value.
     for knob, item in (("moe_capacity_factor", "8b"),
-                       ("moe_aux_weight", "8b"),
-                       ("gpipe_microbatches", "7d")):
+                       ("moe_aux_weight", "8b")):
         config = _port_config(**{knob: 2})
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             tt.Transformer(config, device="cpu")
+    # GPipe is ported (tests/test_torch_pipeline.py): a GPipe config
+    # builds, and at one rank its pp=2 mesh is the size error.
+    assert tt.Transformer(_port_config(gpipe_microbatches=2), device="cpu")
+    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(pp=2))
+    with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
+        t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
+                                      device="cpu")
 
     class Mesh:
         total_devices = 2
@@ -409,14 +415,16 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
-    # tp trains (tests/test_torch_tensor_parallel.py); at one rank a tp=2
-    # mesh is the size error, and sequence parallelism is still refused.
-    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(tp=2))
-    with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
-        t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
-                                      device="cpu")
-    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(sp=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+    # tp and sp train (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_sequence_parallel.py); at one rank a tp=2 or sp=2
+    # mesh is the size error, and ep is still refused.
+    for spec in (MeshSpec(tp=2), MeshSpec(sp=2)):
+        exp = _tiny_experiment(tmp_path, mesh_spec=spec)
+        with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
+            t_training.train_and_evaluate(
+                t_experiment.as_core_experiment(exp), device="cpu")
+    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(ep=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
     with pytest.raises(TypeError):

@@ -49,7 +49,7 @@ class BertConfig:
     norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "xla"  # xla | flash
+    attention_impl: str = "xla"  # xla | flash | ring | ulysses | ulysses_flash
     # Accepted so JAX configs carry over, and ignored: every norm runs
     # through ops.layernorm.
     fused_norms: bool = False
@@ -74,17 +74,14 @@ class BertConfig:
 
 
 def check_encoder_config(config) -> None:
-    """What the encoder families refuse: LoRA adapters and attention
-    backends other than xla and flash."""
+    """What the encoder families refuse: LoRA adapters. Every attention
+    backend runs (ring and Ulysses cut the sequence over the run's ``sp``
+    dim, as the JAX encoders' do); a padded batch's mask needs ``"xla"``,
+    which `ops.attention.attention` enforces as the JAX package does."""
     if config.lora_rank > 0:
         raise NotImplementedError(
             "LoRA adapters on the encoder families are not ported yet "
             "(ROADMAP.md Queue 1 item 8); use lora_rank=0")
-    if config.attention_impl not in ("xla", "flash"):
-        raise NotImplementedError(
-            f"attention_impl={config.attention_impl!r}: the encoders run "
-            "'xla' or 'flash' (sequence parallelism is ROADMAP.md Queue 1 "
-            "item 7)")
 
 
 class BertNorm(nn.Module):

@@ -187,16 +187,64 @@ def _masked_mean(per_token: torch.Tensor, batch: Dict) -> torch.Tensor:
     return per_token.mean()
 
 
+def _next_tokens(decoder, batch: Dict, length: int):
+    """The next-token targets of the `length` positions the decoder
+    computed of each row (`sequence_block`: the whole row, or under sp
+    the rank's block): (n, targets [B, n], weights [B, n] or None, the
+    whole batch's weight). The targets come from the whole row, so a
+    block's last position predicts the next block's first token; the
+    row's last position has none."""
+    tokens = batch["tokens"]
+    start, _ = decoder.sequence_block(tokens.shape[1])
+    n = min(length, tokens.shape[1] - 1 - start)
+    targets = tokens[:, start + 1:start + 1 + n]
+    if "mask" in batch:
+        mask = batch["mask"].float()
+        return (n, targets, mask[:, start + 1:start + 1 + n],
+                mask[:, 1:].sum().clamp_min(1.0))
+    return n, targets, None, tokens.shape[0] * (tokens.shape[1] - 1)
+
+
+def _sequence_loss(decoder, per_token: torch.Tensor, weights, count):
+    """The loss of a rank's block of the sequence: its share of the
+    batch's mean (its tokens' sum over the whole batch's count), summed
+    over the sp group forward (`collectives.reduce_value`) so every rank
+    holds the batch's loss, while each rank's gradient is its share's;
+    the train loop sums those over sp."""
+    from tf_yarn_tpu_torch.parallel import collectives
+
+    total = (per_token if weights is None else per_token * weights).sum()
+    return collectives.reduce_value(total / count, decoder.sp.group)
+
+
+def _decoder(model):
+    return getattr(model, "module", model)
+
+
 def lm_loss(model, batch: Dict, train: bool = True):
     """Next-token cross-entropy (common.py:50-72): batch "tokens" [B, S];
     loss over positions 0..S-2 predicting 1..S-1, averaged under the
-    optional "mask" [B, S]."""
+    optional "mask" [B, S]. Under sp each rank's logits are its block of
+    the positions (`_sequence_loss`)."""
     tokens = batch["tokens"]
-    logits = model(tokens)[:, :-1]  # f32
-    targets = tokens[:, 1:]
-    per_token = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                targets.reshape(-1).long(), reduction="none")
-    loss = _masked_mean(per_token.reshape(targets.shape), batch)
+    decoder = _decoder(model)
+    logits = model(tokens)  # f32
+    if getattr(decoder, "sp", None) is None:
+        logits = logits[:, :-1]
+        targets = tokens[:, 1:]
+        per_token = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                    targets.reshape(-1).long(),
+                                    reduction="none")
+        loss = _masked_mean(per_token.reshape(targets.shape), batch)
+    else:
+        n, targets, weights, count = _next_tokens(decoder, batch,
+                                                  logits.shape[1])
+        logits = logits[:, :n]
+        per_token = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                    targets.reshape(-1).long(),
+                                    reduction="none")
+        loss = _sequence_loss(decoder, per_token.reshape(targets.shape),
+                              weights, count)
     return loss, {"perplexity": torch.exp(loss.detach())}
 
 
@@ -229,9 +277,10 @@ def lm_loss_chunked(model, batch: Dict, train: bool = True,
     no [B·S, V] activation stays live. The loss runs inside the model's
     forward, as its ``head``: a wrapper that watches the forward
     (DistributedDataParallel, whose ``module`` is the decoder) sees the
-    head read there."""
+    head read there. Under sp the hidden states are the rank's block of
+    the positions."""
     tokens = batch["tokens"]
-    decoder = getattr(model, "module", model)
+    decoder = _decoder(model)
 
     def head(hidden):  # [B, S, D], the final-norm hidden states
         return _chunked_loss(decoder, hidden, batch, chunk_size)
@@ -244,8 +293,8 @@ def _chunked_loss(decoder, hidden, batch: Dict, chunk_size: int):
     """`lm_loss_chunked`'s loss of the decoder's `hidden` states."""
     vocab = decoder.config.vocab_size
     n_chunks = -(-vocab // chunk_size)
-    h = hidden[:, :-1]
-    targets = batch["tokens"][:, 1:]
+    n, targets, weights, count = _next_tokens(decoder, batch, hidden.shape[1])
+    h = hidden[:, :n]
     b, s, d = h.shape
     h2 = decoder.head_input(h.reshape(b * s, d))
     t2 = targets.reshape(b * s).long()
@@ -261,7 +310,10 @@ def _chunked_loss(decoder, hidden, batch: Dict, chunk_size: int):
         else:
             m, l, tgt = _chunk_step(*args)
     logsumexp = m + torch.log(l.clamp_min(1e-30))
-    return _masked_mean((logsumexp - tgt).reshape(b, s), batch)
+    per_token = (logsumexp - tgt).reshape(b, s)
+    if getattr(decoder, "sp", None) is None:
+        return _masked_mean(per_token, batch)
+    return _sequence_loss(decoder, per_token, weights, count)
 
 
 def synthetic_classification_iter(batch_size: int, feature_dim: int,

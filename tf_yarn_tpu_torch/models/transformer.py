@@ -12,11 +12,23 @@ Paths:
 * `Transformer.forward(tokens, return_hidden=False, head=None)` — the
   training forward (transformer.py:490-533): attention through
   `ops.attention` (``attention_impl`` "xla" or "flash", the hand-written
-  kernels), every norm through `ops.rmsnorm` (the kernel for CUDA
-  tensors, its plain f32 version for CPU ones), and, with ``remat``, each block
-  recomputed in the backward by ``torch.utils.checkpoint`` — the port
-  recomputes the whole block where the JAX package keeps the dots
+  kernels, or under ``sp`` "ring", "ulysses" and "ulysses_flash"), every
+  norm through `ops.rmsnorm` (the kernel for CUDA tensors, its plain f32
+  version for CPU ones), and, with ``remat``, each block recomputed in
+  the backward by ``torch.utils.checkpoint`` — the port recomputes the
+  whole block where the JAX package keeps the dots
   (``checkpoint_dots_with_no_batch_dims``); the numbers are identical.
+  Under sequence parallelism (``sp`` set by the train loop) the rank
+  computes its contiguous block of the sequence through the whole model
+  — embedding, norms, MLP and LoRA are per position, RoPE takes the
+  block's global positions, and only attention crosses ranks
+  (`ops.attention.sequence_sharded_attention`); the loss
+  (`models.common`) takes its targets from the whole row. Under the
+  pipeline (``pp`` set by `parallel.pipeline.parallelize`) the rank holds
+  one contiguous stage of the layers and runs them in the GPipe schedule
+  with ``gpipe_microbatches`` microbatches (1 when it is 0: JAX's
+  layer-sharded scan), remat per layer (transformer.py:535-610); the
+  embedding, the final norm and the head stay on every stage.
 * `Transformer.prefill` — the dense-cache prefill (transformer.py:
   217-315 from an empty cache): with ``kv_cache_dtype="int8"`` K/V are
   quantized into the prompt's cache rows and attention runs over the
@@ -46,8 +58,9 @@ LoRA fine-tune, or every weight of a served model — is stored once in
 the compute dtype: casting once gives the same bits as casting at every
 use, and at Llama-3-8B widths the base takes 16.1 GB instead of 32.1 GB.
 RMSNorm scales stay f32 either way (the kernel reads f32). Layers are a
-plain list (``scan_layers`` is accepted and ignored). MoE
-(``moe_experts > 0``) is still to port (ROADMAP.md).
+plain list (``scan_layers`` changes nothing but the GPipe check), annotated
+as the ``"layers"`` stack that `parallel.sharding` places over ``pp``.
+MoE (``moe_experts > 0``) is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,14 +73,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tf_yarn_tpu_torch._device import resolve_device
-from tf_yarn_tpu_torch.ops.attention import IMPLS, attention, xla_attention
+from tf_yarn_tpu_torch.ops.attention import (
+    IMPLS,
+    attention,
+    sequence_sharded_attention,
+    xla_attention,
+)
 from tf_yarn_tpu_torch.ops.decode_attention import (
     int8_decode_attention,
     paged_int8_window_attention,
 )
 from tf_yarn_tpu_torch.ops.quantize import dequantize_int8, quantize_int8
 from tf_yarn_tpu_torch.ops.rmsnorm import rmsnorm
-from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel import pipeline, sharding
 from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
 from tf_yarn_tpu_torch.parallel.sharding import EMBED, HEADS, KV, MLP, VOCAB
 
@@ -85,17 +103,19 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "xla"  # xla | flash (ring, ulysses: Queue 1 item 7)
-    scan_layers: bool = True  # accepted and ignored: layers are a list
+    attention_impl: str = "xla"  # xla | flash | ring | ulysses | ulysses_flash
+    scan_layers: bool = True  # layers are a list; GPipe checks it as JAX
     remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
     moe_experts: int = 0  # > 0 raises: MoE is ROADMAP.md Queue 1 item 8b
-    # JAX's MoE and GPipe knobs (transformer.py:55-56, :72), carried so
-    # JAX configs construct; a value other than the default raises at the
-    # model's construction, naming its item (8b, 7d).
+    # JAX's MoE knobs (transformer.py:55-56), carried so JAX configs
+    # construct; a value other than the default raises at the model's
+    # construction, naming item 8b.
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # The GPipe schedule over the pp mesh dim (transformer.py:67-72): > 0
+    # sets the microbatch count; needs scan_layers=True and xla attention.
     gpipe_microbatches: int = 0
     # Accepted so JAX configs carry over, and ignored: every norm runs
     # through ops.rmsnorm, whose numbers are the plain f32 norm's.
@@ -468,8 +488,10 @@ class Attention(nn.Module):
                         (HEADS, EMBED))
         # Set under tp: the rank attends on its own heads (the widths of
         # its wq and wk say how many), its input entering through
-        # `tp_lib.copy_in`.
+        # `tp_lib.copy_in`. Set under sp: its positions are a block of
+        # the sequence, and attention crosses the sp group.
         self.tp = None
+        self.sp = None
 
     def _project(self, x):
         cfg = self.config
@@ -492,6 +514,9 @@ class Attention(nn.Module):
         q, k, v = self._project(x)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+        if self.sp is not None:
+            return self._out(sequence_sharded_attention(
+                q, k, v, impl=cfg.attention_impl, group=self.sp.group))
         return self._out(attention(q, k, v, impl=cfg.attention_impl,
                                    causal=True))
 
@@ -662,8 +687,7 @@ class Transformer(nn.Module):
         for name, default, item in (
                 ("moe_experts", 0, "8b, models/moe.py"),
                 ("moe_capacity_factor", 1.25, "8b, models/moe.py"),
-                ("moe_aux_weight", 0.01, "8b, models/moe.py"),
-                ("gpipe_microbatches", 0, "7d, the pipeline")):
+                ("moe_aux_weight", 0.01, "8b, models/moe.py")):
             if getattr(config, name) != default:
                 raise NotImplementedError(
                     f"{name}={getattr(config, name)!r}: not ported yet "
@@ -683,7 +707,14 @@ class Transformer(nn.Module):
                               dense_trainable, config, device)
         sharding.annotate(self, embedding=(VOCAB, EMBED),
                           lm_head=(EMBED, VOCAB))
+        sharding.annotate_stack(self, layers="layers")
         self.tp = None
+        # Set by the train loop: the sp group (the rank computes a block
+        # of the sequence) and the pipeline stage (the layers it holds).
+        self.sp = None
+        self.pp = None
+        # What only the first stage reads: its gradient is summed over pp.
+        self.pipeline_inputs = ("embedding",)
 
     @property
     def device(self) -> torch.device:
@@ -754,23 +785,78 @@ class Transformer(nn.Module):
         return tp_lib.gather_last(local, min(max(start + lo - base, 0), width),
                                   width, self.tp).float()
 
+    def sequence_block(self, length: int) -> Tuple[int, int]:
+        """(start, length) of the positions of a `length`-token row this
+        rank computes: the whole row, or under sp its contiguous block (a
+        ValueError when sp does not divide the row)."""
+        if self.sp is None:
+            return 0, length
+        if length % self.sp.size:
+            raise ValueError(f"seq_len {length} does not split over "
+                             f"sp={self.sp.size}")
+        block = length // self.sp.size
+        return self.sp.rank * block, block
+
+    def _check_gpipe(self) -> None:
+        """The JAX package's refusals of a GPipe config
+        (transformer.py:544-549)."""
+        cfg = self.config
+        if not cfg.scan_layers:
+            raise ValueError("gpipe_microbatches requires scan_layers=True")
+        if cfg.moe_experts or cfg.attention_impl != "xla":
+            raise ValueError(
+                "gpipe_microbatches supports dense blocks with xla attention"
+            )
+
+    def _blocks(self, x, positions, blocks) -> torch.Tensor:
+        """`x` through `blocks`, each recomputed in the backward with
+        ``remat``. Under sp a block's collectives run again in its
+        recompute, so the recompute runs whole on every rank (no early
+        stop: the ranks' graphs differ where the ring skips a block)."""
+        recompute = self.config.remat and torch.is_grad_enabled()
+        for block in blocks:
+            if recompute:
+                x = checkpoint(block, x, positions, use_reentrant=False,
+                               early_stop=self.sp is None)
+            else:
+                x = block(x, positions)
+        return x
+
+    def _pipeline(self, x, positions) -> torch.Tensor:
+        """The rank's stage of the layers in the GPipe schedule, with
+        ``gpipe_microbatches`` microbatches (1 when 0). One row of
+        positions serves every microbatch."""
+        stage = self.pp
+        blocks = [self.layers[i] for i in stage.layers()]
+        row = positions[:1]
+
+        def stage_fn(h):
+            return self._blocks(h, row.expand(h.shape[0], -1), blocks)
+
+        return pipeline.pipeline_schedule(
+            stage_fn, x, stage, max(self.config.gpipe_microbatches, 1),
+            stage.data_shards)
+
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
                 head=None) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] f32, or with
         ``return_hidden=True`` the final-norm hidden states [B, S, d] in
         the compute dtype (the chunked loss's seam), or with `head` what
         it makes of them (``head(hidden)``: the chunked loss, run inside
-        the forward so a wrapper sees the head it reads)."""
+        the forward so a wrapper sees the head it reads). Under sp the
+        positions are the rank's block (`sequence_block`) of the whole
+        rows `tokens`."""
         cfg = self.config
-        x = self._embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        positions = positions.expand(tokens.shape)
-        recompute = cfg.remat and torch.is_grad_enabled()
-        for block in self.layers:
-            if recompute:
-                x = checkpoint(block, x, positions, use_reentrant=False)
-            else:
-                x = block(x, positions)
+        if cfg.gpipe_microbatches > 0:
+            self._check_gpipe()
+        start, length = self.sequence_block(tokens.shape[1])
+        x = self._embed(tokens[:, start:start + length])
+        positions = torch.arange(start, start + length, device=tokens.device)
+        positions = positions.expand(tokens.shape[0], length)
+        if self.pp is not None:
+            x = self._pipeline(x, positions)
+        else:
+            x = self._blocks(x, positions, self.layers)
         if head is not None:
             return head(self.final_norm(x))
         if return_hidden:

@@ -39,7 +39,7 @@ class ViTConfig:
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "xla"  # xla | flash
+    attention_impl: str = "xla"  # xla | flash | ring | ulysses | ulysses_flash
     lora_rank: int = 0  # LoRA adapters on the encoder are not ported
     lora_alpha: float = 16.0
     # Accepted so JAX configs carry over, and ignored: every norm runs

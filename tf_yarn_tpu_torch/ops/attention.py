@@ -5,10 +5,18 @@ tf_yarn_tpu/ops/attention.py.
 computed outside any kernel (XLA einsums there, plain torch matrix
 products here): it is the prefill attention of the serving path and the
 ``attention_impl="xla"`` training path. `attention()` dispatches on the
-implementation name: ``"flash"`` goes to `ops/flash_attention.py` (the
-hand-written kernels). The sequence-parallel ``"ring"``, ``"ulysses"``
-and ``"ulysses_flash"`` backends raise: they wait for the parallelism
-port (ROADMAP.md Queue 1 item 7).
+implementation name (attention.py:79-113): ``"flash"`` goes to
+`ops/flash_attention.py` (the hand-written kernels), ``"ring"`` to
+`parallel/ring_attention.py` and ``"ulysses"``/``"ulysses_flash"`` to
+`parallel/ulysses.py` (the flash kernels inside), each over the
+registered mesh's ``sp`` dim for inputs replicated over it, and plain
+`xla_attention` without one.
+
+`sequence_sharded_attention` is the seam for a model whose activations
+are already the rank's contiguous block of the sequence (the decoder
+under ``sp``): ring and Ulysses run their per-shard bodies; ``"xla"``
+and ``"flash"`` attend over the whole sequence, gathered, and keep the
+rank's block of the output.
 """
 
 from __future__ import annotations
@@ -79,14 +87,46 @@ def attention(query, key, value, *, impl: str = "xla", causal: bool = True,
         from tf_yarn_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(query, key, value, causal=causal)
-    if impl in ("ring", "ulysses", "ulysses_flash"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is sequence-parallel and not ported "
-            "yet (ROADMAP.md Queue 1 item 7, parallelism)"
-        )
+    if impl == "ring":
+        from tf_yarn_tpu_torch.parallel.ring_attention import (
+            ring_attention_sharded)
+
+        return ring_attention_sharded(query, key, value, causal=causal)
+    if impl in ("ulysses", "ulysses_flash"):
+        from tf_yarn_tpu_torch.parallel.ulysses import (
+            ulysses_attention_sharded)
+
+        return ulysses_attention_sharded(
+            query, key, value, causal=causal,
+            inner="flash" if impl == "ulysses_flash" else "xla")
     if impl != "xla":
         raise ValueError(
             f"unknown attention impl {impl!r}; use {' | '.join(IMPLS)}"
         )
     return xla_attention(query, key, value, causal=causal,
                          key_padding_mask=key_padding_mask)
+
+
+def sequence_sharded_attention(query, key, value, *, impl: str, group,
+                               causal: bool = True):
+    """Attention of the rank's contiguous blocks q [B, S/sp, H, D], k/v
+    [B, S/sp, Hkv, D] of a sequence cut over the process group `group`
+    -> the rank's block of the output. ``"ring"`` and ``"ulysses"``/
+    ``"ulysses_flash"`` run their per-shard bodies; ``"xla"`` and
+    ``"flash"`` gather q, k and v whole (each rank's gradient summed
+    back to its block), attend and keep the rank's rows."""
+    if impl == "ring":
+        from tf_yarn_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(query, key, value, group=group, causal=causal)
+    if impl in ("ulysses", "ulysses_flash"):
+        from tf_yarn_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(
+            query, key, value, group=group, causal=causal,
+            inner="flash" if impl == "ulysses_flash" else "xla")
+    from tf_yarn_tpu_torch.parallel import collectives
+
+    whole = [collectives.gather_partial(t, group) for t in (query, key, value)]
+    out = attention(*whole, impl=impl, causal=causal)
+    return collectives.block(out, group)

@@ -1,5 +1,6 @@
 """The train loop's data-parallel wrap over the ``dp`` and ``fsdp`` dims
-of a ``("dp", "fsdp", "tp")`` mesh.
+of a ``("pp", "dp", "fsdp", "sp", "tp")`` mesh, and the gradient sums
+over ``sp`` and ``pp``.
 
 The JAX package shards the train state over the mesh with XLA inserting
 the collectives (training.py:574-760 under a multi-device mesh). The
@@ -23,14 +24,31 @@ shards already (`parallel.tensor_parallel.parallelize`): DDP and FSDP2
 treat them as the whole parameters, over the groups of ranks that share
 the rank's ``tp`` index.
 
+Under sequence parallelism a rank of a sequence-sharded model (the
+decoder, ``sp`` handed to it) computes its block of the sequence, so
+every parameter's gradient is its block's share: `reduce_partial_grads`
+sums them over the ``sp`` group after the backward (one all-reduce of
+the flattened gradients), beside DDP's mean over ``dp`` or FSDP2's
+reduce-scatter over ``fsdp`` (then of the rank's shards). A model
+replicated over ``sp`` (the encoders, whose attention alone is cut)
+gets whole gradients and no sum. Under the pipeline a rank holds one
+stage of the layers (`parallel.pipeline`): the embedding, read by stage
+0 alone, has its gradient summed over ``pp``; the final norm and head,
+computed alike on every stage, do not. Each sum is a
+``train/grad_allreduce`` span (with ``axis``) and goes into the
+``train/grad_allreduce_seconds`` histogram.
+
 `DataParallel` keeps the inner module (``inner``): the loop reads the
 dropout ``generator``, the FLOP count and LoRA merges from it, and calls
 ``module``, the wrapper. Its state dict is the one-device run's format
 (`full_state`, gathered in full and onto the host under FSDP2, the
 optimizer's state keyed by parameter index as ``optimizer.state_dict()``
-keys it, and the ``tp`` shards gathered whole through
-`tensor_parallel.gather_state`), so a checkpoint of any world size and
-mesh resumes at any other.
+keys it, the ``tp`` shards gathered whole through
+`tensor_parallel.gather_state`, and the other stages' layers and their
+optimizer state gathered to the first stage through the host under
+``pp``, numbered as the one-device optimizer numbers them
+(`optimizer_layout`)), so a checkpoint of any world size and mesh
+resumes at any other.
 
 Under DDP each gradient bucket's all-reduce is timed from its launch to
 its completion, as the host sees it: a ``train/grad_allreduce`` span
@@ -41,18 +59,22 @@ histogram. FSDP2's collectives are its own and are not timed.
 from __future__ import annotations
 
 import contextlib
+import logging
 import re
 import time
-from typing import Any, Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
 from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.parallel import collectives
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 from tf_yarn_tpu_torch.parallel import sharding
 from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+
+_logger = logging.getLogger(__name__)
 
 _BLOCK_NAME = re.compile(r"(?:layer|block)_\d+")
 
@@ -114,13 +136,20 @@ class DataParallel:
     over the wrapped parameters."""
 
     def __init__(self, model: nn.Module, mesh, device: torch.device,
-                 make_optimizer, tp=None) -> None:
+                 make_optimizer, tp=None, sp=None, pp=None,
+                 layout=None) -> None:
         self.inner = model
         self.mesh = mesh
         # The tp group of a model `tensor_parallel.parallelize` sliced,
         # and each parameter's tp dim (None: replicated).
         self.tp = tp
         self.tp_dims = getattr(model, "tp_dims", {})
+        # The sp group of a sequence-sharded model, the pipeline stage of
+        # a staged one and the one-device optimizer's layout
+        # (`optimizer_layout`) its checkpoints are numbered by.
+        self.sp = sp
+        self.pp = pp
+        self.layout = layout
         # The rank's data group: the dropout seed folds in its index.
         self.data_index = mesh_lib.data_group(mesh)[0]
         dp = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_DP)
@@ -175,17 +204,108 @@ class DataParallel:
             finally:
                 self.module.set_requires_gradient_sync(True)
 
+    def reduce_partial_grads(self, step: int = 0) -> None:
+        """Sum the gradients that are a rank's share over their group: every
+        trained parameter's over ``sp`` (a sequence-sharded model), the
+        pipeline's inputs' (`pipeline_inputs`: the embedding) over ``pp``.
+        A parameter without a gradient adds zeros. Every rank of the
+        groups calls it after the step's backward."""
+        trained = [(name, param) for name, param
+                   in self.inner.named_parameters() if param.requires_grad]
+        if self.sp is not None:
+            _sum_grads([p for _, p in trained], self.sp, step)
+        if self.pp is not None:
+            inputs = set(getattr(self.inner, "pipeline_inputs", ()))
+            _sum_grads([p for n, p in trained if n in inputs], self.pp, step)
+
     def full_state(self) -> Dict[str, Any]:
         """``{"params": ..., "optimizer": ...}`` in the one-device format.
-        Under FSDP2 or tp a collective that every rank calls; under FSDP2
-        alone only rank 0 (the writer) gets the optimizer's state."""
+        Under FSDP2, tp or pp a collective that every rank calls; under
+        FSDP2 alone only rank 0 (the writer) gets the optimizer's state,
+        under tp and pp the first rank of the group."""
         state = self._local_state()
-        if self.tp is None:
-            return state
-        params, optimizer = tp_lib.gather_state(
-            state["params"], state["optimizer"], self._names, self.tp_dims,
-            self.tp)
-        return {"params": params, "optimizer": optimizer}
+        if self.tp is not None:
+            params, optimizer = tp_lib.gather_state(
+                state["params"], state["optimizer"], self._names,
+                self.tp_dims, self.tp)
+            state = {"params": params, "optimizer": optimizer}
+        if self.pp is not None:
+            state = self._gather_stages(state)
+        return state
+
+    def _stage_leaves(self) -> List[tuple]:
+        """(stack, leaf) of each parameter of the first layer the rank's
+        stage holds, in its order (the same on every stage)."""
+        out = []
+        for name, _ in self.inner.named_parameters():
+            stack, _, rest = name.partition(".")
+            index, _, leaf = rest.partition(".")
+            if index.isdigit() and int(index) == self.pp.first:
+                out.append((stack, leaf))
+        return out
+
+    def _gather_stages(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole model's state on the first stage (gathered layer by
+        layer, through the host under gloo), the optimizer's numbered as
+        the one-device optimizer numbers it; None in the others'
+        tensors' places."""
+        stage = self.pp
+        root = stage.rank == 0
+        params = dict(state["params"])
+        by_name = {}
+        optimizer = state["optimizer"]
+        if optimizer:
+            by_name = {self._names[i]: entry
+                       for i, entry in optimizer["state"].items()}
+        for stack, leaf in self._stage_leaves():
+            for j in range(stage.count):
+                mine = f"{stack}.{stage.first + j}.{leaf}"
+                parts = _gather_parts(params[mine], stage)
+                for s, part in enumerate(parts or []):
+                    params[f"{stack}.{s * stage.count + j}.{leaf}"] = part
+                entry = by_name.get(mine, {})
+                for key in sorted(entry):
+                    value = entry[key]
+                    if not isinstance(value, torch.Tensor):
+                        continue
+                    parts = _gather_parts(value, stage)
+                    for s, part in enumerate(parts or []):
+                        other = f"{stack}.{s * stage.count + j}.{leaf}"
+                        by_name.setdefault(other, dict(entry))[key] = part
+        if not root:
+            return {"params": {name: None for name in params},
+                    "optimizer": {}}
+        if not optimizer:
+            return {"params": params, "optimizer": optimizer}
+        order = self.layout["names"]
+        return {"params": params, "optimizer": {
+            "state": {i: by_name[name] for i, name in enumerate(order)
+                      if name in by_name},
+            "param_groups": self.layout["groups"]}}
+
+    def _stage_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The rank's part of a one-device state: its stage's layers and
+        the parameters every stage holds, the optimizer's renumbered to
+        the rank's optimizer."""
+        own = set(self.inner.state_dict())
+        params = {name: value for name, value in state["params"].items()
+                  if name in own}
+        optim = state["optimizer"]
+        if not optim:
+            return {"params": params, "optimizer": optim}
+        order = self.layout["names"]
+        index = {name: i for i, name in enumerate(self._names)}
+        groups = []
+        for group in optim["param_groups"]:
+            mine = [index[order[i]] for i in group["params"]
+                    if order[i] in index]
+            if mine:
+                groups.append(dict(group, params=mine))
+        return {"params": params, "optimizer": {
+            "state": {index[order[i]]: entry
+                      for i, entry in optim["state"].items()
+                      if order[i] in index},
+            "param_groups": groups}}
 
     def _local_state(self) -> Dict[str, Any]:
         """The state of the rank's model in the one-device format of its
@@ -222,6 +342,8 @@ class DataParallel:
         mesh). Under tp every rank takes its shards of it
         (`sharding.shard_like_annotated`); under FSDP2 every rank loads the
         whole state and keeps its shard."""
+        if self.pp is not None:
+            state = self._stage_state(state)
         params, optim = state["params"], state["optimizer"]
         if self.tp is not None:
             params = sharding.shard_like_annotated(self.inner, params,
@@ -243,6 +365,83 @@ class DataParallel:
             "param_groups": [
                 dict(group, params=[self._names[i] for i in group["params"]])
                 for group in optim["param_groups"]]}, options=options)
+
+
+def sequence_parallelize(model: nn.Module, mesh):
+    """Hand the model the ``sp`` group of `mesh` where it computes a block
+    of the sequence (modules with an ``sp`` attribute: the decoder);
+    returns the group, or None when the mesh has no ``sp`` dim or the
+    model is replicated over it (its attention, if it has any, cuts the
+    sequence through the registered mesh)."""
+    group = collectives.AxisGroup.of(mesh, mesh_lib.AXIS_SP)
+    if group is None:
+        return None
+    if collectives.hand_group(model, "sp", group):
+        return group
+    _logger.info("%s computes the whole sequence on every rank of sp=%d "
+                 "(its attention cuts it)", type(model).__name__, group.size)
+    return None
+
+
+def optimizer_layout(model: nn.Module, make_optimizer) -> Dict[str, Any]:
+    """How the one-device optimizer of `model` (whole, before any cut)
+    numbers its parameters: ``names`` (index -> parameter name) and its
+    ``param_groups`` as ``optimizer.state_dict()`` gives them. The
+    optimizer built for it holds no state and is dropped."""
+    optimizer = make_optimizer(model)
+    names = {id(param): name for name, param in model.named_parameters()}
+    return {"names": [names[id(param)] for group in optimizer.param_groups
+                      for param in group["params"]],
+            "groups": optimizer.state_dict()["param_groups"]}
+
+
+def _sum_grads(params: List[torch.Tensor], group, step: int) -> None:
+    """Sum `params`' gradients (zeros where there is none) over the
+    `collectives.AxisGroup` `group`, one all-reduce for each dtype. Under
+    FSDP2 a gradient is the rank's shard, after the reduce-scatter over
+    ``fsdp``: the ranks of `group` hold the same shards, and the sum is
+    of those."""
+    from torch.distributed.tensor import DTensor
+
+    if not params:
+        return
+    for param in params:
+        if param.grad is None:
+            param.grad = torch.zeros_like(param)
+    by_dtype: Dict[Any, List[torch.Tensor]] = {}
+    for param in params:
+        grad = param.grad
+        if isinstance(grad, DTensor):
+            grad = grad.to_local()  # a view: the sum lands in the shard
+        by_dtype.setdefault((grad.dtype, grad.device), []).append(grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        start = time.perf_counter()
+        dist.all_reduce(flat, group=group.group)
+        seconds = time.perf_counter() - start
+        telemetry.get_tracer().record(
+            "train/grad_allreduce", start, seconds, step=step,
+            bytes=flat.numel() * flat.element_size(), axis=group.axis)
+        telemetry.get_registry().histogram(
+            "train/grad_allreduce_seconds").observe(seconds)
+        offset = 0
+        for grad in grads:
+            grad.copy_(flat[offset:offset + grad.numel()].view_as(grad))
+            offset += grad.numel()
+
+
+def _gather_parts(tensor: torch.Tensor, stage) -> Optional[List[torch.Tensor]]:
+    """Every stage's tensor of the same shape on the first stage's host
+    (None on the others): a gather, through host memory under gloo."""
+    if dist.get_backend(stage.group) != "nccl":
+        tensor = tensor.cpu()
+    tensor = tensor.contiguous()
+    root = stage.rank == 0
+    parts = ([torch.empty_like(tensor) for _ in range(stage.size)] if root
+             else None)
+    dist.gather(tensor, parts, dst=dist.get_global_rank(stage.group, 0),
+                group=stage.group)
+    return [part.cpu() for part in parts] if root else None
 
 
 def wire_device(device: torch.device) -> torch.device:

@@ -10,19 +10,24 @@ TPU slices.
 
 The port is eager PyTorch with one process per rank and one device per
 process, so a mesh is a mesh of ranks: `build_mesh` returns a torch
-`DeviceMesh` with the dims ``("dp", "fsdp", "tp")`` — JAX's axis order,
-so ``tp`` is innermost and a tp group is adjacent ranks — over the
-default process group's ranks, and its size must be the world size. The
-train loop (`training.train_and_evaluate`) slices the model over ``tp``
-(`parallel.tensor_parallel`, placements from `parallel.sharding`),
-replicates it over ``dp`` (`DistributedDataParallel`) and shards it over
-``fsdp`` (FSDP2 ``fully_shard``; both at once is FSDP2's hybrid form).
-The ranks of one ``dp`` x ``fsdp`` coordinate form a data group
-(`data_group`): they read the same share of the global batch. That wrap
-and the DeviceMesh play the role of the JAX package's `batch_sharding`
-and `replicated_sharding`, which have no eager counterpart. The other
-model axes are refused with the ROADMAP.md Queue 1 item that ports
-them: ``sp`` (7c), ``ep`` (8b) and ``pp`` (7d).
+`DeviceMesh` with the dims ``("pp", "dp", "fsdp", "sp", "tp")`` — JAX's
+axis order (mesh.py:63), so ``tp`` is innermost and a tp group is
+adjacent ranks — over the default process group's ranks, and its size
+must be the world size. The train loop (`training.train_and_evaluate`)
+cuts the decoder's layer stack into ``pp`` stages
+(`parallel.pipeline`), slices the model over ``tp``
+(`parallel.tensor_parallel`, placements from `parallel.sharding`), hands
+the decoder its ``sp`` group (each rank computes its contiguous share of
+the sequence; `parallel.ring_attention`, `parallel.ulysses`), replicates
+it over ``dp`` (`DistributedDataParallel`) and shards it over ``fsdp``
+(FSDP2 ``fully_shard``; both at once is FSDP2's hybrid form). The ranks
+of one ``dp`` x ``fsdp`` coordinate form a data group (`data_group`):
+they read the same share of the global batch, as JAX shards the batch
+over ``dp`` and ``fsdp`` only (mesh.py:262-268). That wrap and the
+DeviceMesh play the role of the JAX package's `batch_sharding` and
+`replicated_sharding`, which have no eager counterpart. ``ep`` is
+refused with the ROADMAP.md Queue 1 item that ports it (8b), and so are
+the pairs of axes the port does not combine yet (`UNPORTED_PAIRS`).
 """
 
 from __future__ import annotations
@@ -42,16 +47,19 @@ AXIS_EP = "ep"
 # The batch dimension shards over every data-like axis.
 BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 
-# The dims of a built mesh, outermost first.
-MESH_DIMS = (AXIS_DP, AXIS_FSDP, AXIS_TP)
+# The dims of a built mesh, outermost first (``ep`` is refused).
+MESH_DIMS = (AXIS_PP, AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP)
 
 # The model axes the port does not build yet, each with its ROADMAP.md
 # Queue 1 item.
 UNPORTED_AXES = {
-    AXIS_SP: "7c, sequence parallelism",
     AXIS_EP: "8b, MoE experts",
-    AXIS_PP: "7d, the pipeline",
 }
+
+# The pairs of axes the port does not combine yet (ROADMAP.md Queue 1
+# item 7d): the pipeline beside FSDP2, a sequence or a tensor group.
+UNPORTED_PAIRS = ((AXIS_FSDP, AXIS_PP), (AXIS_SP, AXIS_PP),
+                  (AXIS_TP, AXIS_PP))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,15 +149,22 @@ def order_devices_for_slices(
 
 
 def check_mesh_spec(spec, world_size: int) -> None:
-    """Refuse an axis the port does not build (NotImplementedError naming
-    its item), then a spec whose size is not the world's (the JAX
-    package's ValueError, mesh.py:241-245)."""
+    """Refuse an axis the port does not build, or a pair of axes it does
+    not combine (NotImplementedError naming the item), then a spec whose
+    size is not the world's (the JAX package's ValueError,
+    mesh.py:241-245)."""
     for axis, item in UNPORTED_AXES.items():
         if getattr(spec, axis, 1) > 1:
             raise NotImplementedError(
                 f"MeshSpec {axis}={getattr(spec, axis)}: the {axis} axis is "
                 f"not ported yet (ROADMAP.md Queue 1 item {item}); the port "
-                "builds dp and fsdp meshes")
+                "builds pp, dp, fsdp, sp and tp meshes")
+    for first, second in UNPORTED_PAIRS:
+        if getattr(spec, first, 1) > 1 and getattr(spec, second, 1) > 1:
+            raise NotImplementedError(
+                f"MeshSpec {first}={getattr(spec, first)} with "
+                f"{second}={getattr(spec, second)}: the port does not combine "
+                f"{first} and {second} yet (ROADMAP.md Queue 1 item 7d)")
     total = getattr(spec, "total_devices", 1)
     if total != world_size:
         sizes = dict(zip(getattr(spec, "axis_names", ()),
@@ -160,9 +175,9 @@ def check_mesh_spec(spec, world_size: int) -> None:
 
 def build_mesh(spec: MeshSpec, device=None,
                host_ids: Optional[Sequence[int]] = None):
-    """The torch `DeviceMesh` of `spec`: dims ``("dp", "fsdp", "tp")``
-    over the default process group's ranks, row-major (or grouped by
-    `host_ids`, one per rank, through `order_devices_for_slices`), on
+    """The torch `DeviceMesh` of `spec`: dims `MESH_DIMS` over the
+    default process group's ranks, row-major (or grouped by `host_ids`,
+    one per rank, through `order_devices_for_slices`), on
     `device`'s type (the card's unless `device` is the CPU). None at a
     world of one rank with no process group: the run has one device and
     no collective."""
@@ -181,7 +196,8 @@ def build_mesh(spec: MeshSpec, device=None,
         ranks = order_devices_for_slices(spec, ranks, host_ids)
     device_type = torch.device(device).type if device is not None else "cuda"
     return DeviceMesh(device_type,
-                      torch.tensor(ranks).reshape(spec.dp, spec.fsdp, spec.tp),
+                      torch.tensor(ranks).reshape(
+                          spec.pp, spec.dp, spec.fsdp, spec.sp, spec.tp),
                       mesh_dim_names=MESH_DIMS)
 
 
@@ -203,9 +219,9 @@ def mesh_coordinate(mesh, axis: str) -> int:
 
 def data_group(mesh) -> Tuple[int, int]:
     """(index, count) of this rank's data group: the ``dp`` x ``fsdp``
-    coordinate, row-major, which the ranks of one tp group share. They
-    read the same rows of the global batch and draw the same dropout
-    masks. (0, 1) without a mesh."""
+    coordinate, row-major, which the ranks that differ only in ``pp``,
+    ``sp`` and ``tp`` share. They read the same rows of the global batch
+    and draw from the same dropout seeds. (0, 1) without a mesh."""
     fsdp = mesh_axis_size(mesh, AXIS_FSDP)
     index = (mesh_coordinate(mesh, AXIS_DP) * fsdp
              + mesh_coordinate(mesh, AXIS_FSDP))

@@ -23,6 +23,11 @@ dlrm.py:78-85). So a subclass keeps them, and the tensor-parallel layers
 read their role from the same annotation that places their parameters.
 `tree_partition_specs(model, fsdp_size)` gives each parameter its spec
 from them, as `tree_partition_specs` of a flax tree does from its boxes.
+The decoder's layer stack is a list of blocks here, where the scanned
+flax tree stacks each leaf along a leading ``"layers"`` axis: the model
+annotates the list itself (`annotate_stack`) and `stack_placement` maps it
+through the same rules (``"layers"`` -> ``pp``): `parallel.pipeline.
+parallelize` keeps the rank's contiguous stage of a stack placed there.
 
 `shard_like_annotated(model, state, mesh)` is the restore-side twin: a
 rank's slices of a one-device state dict. Where a spec names ``tp`` the
@@ -121,6 +126,23 @@ def annotate(module: torch.nn.Module, **axes: Tuple[Optional[str], ...]
     (``annotate(dense, kernel=(EMBED, HEADS))``), as flax's
     ``nn.with_partitioning`` boxes a leaf."""
     module.logical_axes = dict(getattr(module, "logical_axes", {}), **axes)
+
+
+def annotate_stack(module: torch.nn.Module, **stacks: str) -> None:
+    """Give `module`'s lists of layers, by attribute name, the logical axis
+    of their index (``annotate_stack(model, layers="layers")``), as flax's
+    ``nn.scan(metadata_params={nn.PARTITION_NAME: "layers"})`` names the
+    stacked axis."""
+    module.stack_axes = dict(getattr(module, "stack_axes", {}), **stacks)
+
+
+def stack_placement(model: torch.nn.Module, rules=LOGICAL_RULES
+                    ) -> Dict[str, Any]:
+    """``{stack attribute: mesh axis or None}`` of the model's annotated
+    lists of layers under `rules`."""
+    mapping = dict(rules)
+    return {name: mapping.get(axis)
+            for name, axis in getattr(model, "stack_axes", {}).items()}
 
 
 def logical_axes(model: torch.nn.Module) -> Dict[str, Optional[tuple]]:

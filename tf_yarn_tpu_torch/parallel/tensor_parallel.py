@@ -72,30 +72,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.parallel import collectives
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 from tf_yarn_tpu_torch.parallel import sharding
 
 _logger = logging.getLogger(__name__)
 
 
-class TensorParallel:
+class TensorParallel(collectives.AxisGroup):
     """A rank's place in its tp group: the group, its size and the
     rank's index in it."""
-
-    def __init__(self, group, size: int, rank: int) -> None:
-        self.group = group
-        self.size = size
-        self.rank = rank
-
-    @classmethod
-    def of(cls, mesh) -> Optional["TensorParallel"]:
-        """The tp group of `mesh` (None when its tp dim is 1 or there is
-        no mesh)."""
-        size = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_TP)
-        if size <= 1:
-            return None
-        return cls(mesh[mesh_lib.AXIS_TP].get_group(), size,
-                   mesh_lib.mesh_coordinate(mesh, mesh_lib.AXIS_TP))
 
     def span(self, total: int, what: str) -> Tuple[int, int]:
         """(start, length) of this rank's contiguous share of `total`;
@@ -229,7 +215,7 @@ def parallelize(model: torch.nn.Module, mesh) -> Optional[TensorParallel]:
     Returns the rank's `TensorParallel`, or None — the model left as it
     is — when the mesh has no tp dim or no parameter's placement names
     tp."""
-    tp = TensorParallel.of(mesh)
+    tp = TensorParallel.of(mesh, mesh_lib.AXIS_TP)
     return tp if tp is not None and shard(model, tp) else None
 
 
@@ -268,9 +254,7 @@ def shard(model: torch.nn.Module, tp: TensorParallel) -> bool:
                                          tp.rank).clone()
             setattr(owners[name], name.rpartition(".")[2], torch.nn.Parameter(
                 local, requires_grad=param.requires_grad))
-    for module in model.modules():
-        if hasattr(module, "tp"):
-            module.tp = tp
+    collectives.hand_group(model, "tp", tp)
     model.tp_dims = dims
     return True
 

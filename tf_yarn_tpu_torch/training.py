@@ -39,13 +39,21 @@ item 9a).
 
 In a process group of more than one rank (one process and one device
 each; `tasks.worker` makes the group for a launched ``allreduce_topology``)
-the loop trains over a `parallel.mesh.MeshSpec` of ``dp``, ``fsdp`` and
-``tp`` (``MeshSpec.auto(world)`` when the experiment gives none, as in
-JAX). The model is built whole on every rank, then cut to the rank's
-``tp`` shards by `parallel.tensor_parallel.parallelize` (placements from
-`parallel.sharding`; a family with no tp placement stays replicated) and
-wrapped by `parallel.data_parallel.DataParallel` (DDP over ``dp``, FSDP2
-over ``fsdp``, its hybrid form over both). The ranks of one ``dp`` x
+the loop trains over a `parallel.mesh.MeshSpec` of ``pp``, ``dp``,
+``fsdp``, ``sp`` and ``tp`` (``MeshSpec.auto(world)`` when the experiment
+gives none, as in JAX). The model is built whole on every rank, then cut
+to the rank's pipeline stage by `parallel.pipeline.parallelize` (the
+decoder's layers; the one-device optimizer's numbering kept for the
+checkpoints), to its ``tp`` shards by
+`parallel.tensor_parallel.parallelize` (placements from
+`parallel.sharding`; a family with no tp placement stays replicated),
+given its ``sp`` group (`parallel.data_parallel.sequence_parallelize`:
+the decoder then computes the rank's block of the sequence; the encoders
+stay replicated and cut only their attention), and wrapped by
+`parallel.data_parallel.DataParallel` (DDP over ``dp``, FSDP2 over
+``fsdp``, its hybrid form over both; after the backward the gradients
+that are a rank's share summed over ``sp`` and ``pp``). The ranks of one
+``dp`` x
 ``fsdp`` coordinate form a data group (`mesh.data_group`): an input_fn
 that declares ``host_index`` and ``num_hosts`` gets the data group's
 index and count and yields its contiguous share of the global batch
@@ -65,9 +73,9 @@ the preemption flag is agreed at the ``drain_poll_every_steps`` cadence
 by an all-reduce (MAX), so one rank's flag drains every rank at the same
 step (`_preempt_agreed`, training.py:354-388).
 
-Not ported here, each raising or named in ROADMAP.md: the model axes
-``sp``, ``ep`` and ``pp`` of a mesh (Queue 1 items 7c, 7d and 8b);
-elastic resize (item 5.1), the chaos hooks (item 5.2), remote model_dirs
+Not ported here, each raising or named in ROADMAP.md: the ``ep`` axis
+of a mesh (Queue 1 item 8b) and the pairs of axes `parallel.mesh` does
+not combine (the pipeline beside fsdp, sp or tp, item 7d); elastic resize (item 5.1), the chaos hooks (item 5.2), remote model_dirs
 and their uploading TensorBoard writer (item 5.4).
 """
 
@@ -91,7 +99,7 @@ from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.parallel import data_parallel
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
-from tf_yarn_tpu_torch.parallel import tensor_parallel
+from tf_yarn_tpu_torch.parallel import pipeline, tensor_parallel
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 from tf_yarn_tpu_torch.utils import mlflow
 
@@ -175,7 +183,9 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
     global one is restored after the step, so code outside it sees its
     own stream. With a `parallel` wrap the loss calls its ``module``
     (`model` is the inner one), microbatches before the last skip the
-    gradient sync, and the data group's index is folded into every seed
+    gradient sync, the gradients that are a rank's share are summed over
+    ``sp`` and ``pp`` after the last (`DataParallel.reduce_partial_grads`),
+    and the data group's index is folded into every seed
     as ``(seed, step, i, group)``, so the data groups draw independent
     masks and the ranks of a tp group, whose activations are replicated,
     the same ones."""
@@ -231,6 +241,8 @@ def build_train_step(model, loss_fn, optimizer, grad_accum_steps: int = 1,
             if "perplexity" in aux:
                 # exp(mean), not mean(exp): the accum=1 path's definition.
                 aux["perplexity"] = torch.exp(loss)
+        if parallel is not None:
+            parallel.reduce_partial_grads(state.step)
         for group in optimizer.param_groups:
             for param in group["params"]:
                 if param.grad is None:
@@ -727,9 +739,15 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
     parallel = None
     if world > 1:
         with telemetry.span("train/parallel_wrap"):
+            staged = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_PP) > 1
+            layout = (data_parallel.optimizer_layout(model, core.optimizer)
+                      if staged else None)
+            stage = pipeline.parallelize(model, mesh)
             tp = tensor_parallel.parallelize(model, mesh)
-            parallel = data_parallel.DataParallel(model, mesh, device,
-                                                  core.optimizer, tp=tp)
+            sp = data_parallel.sequence_parallelize(model, mesh)
+            parallel = data_parallel.DataParallel(
+                model, mesh, device, core.optimizer, tp=tp, sp=sp, pp=stage,
+                layout=layout if stage is not None else None)
         state = TrainState(0, model, parallel.optimizer, parallel)
     else:
         state = TrainState(0, model, core.optimizer(model))
@@ -749,7 +767,8 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     restored = ckpt_lib.restore_checkpoint(
                         core.model_dir, step, map_location=(
                             device if parallel.kind == "ddp"
-                            and parallel.tp is None else "cpu"))
+                            and parallel.tp is None and parallel.pp is None
+                            else "cpu"))
                 else:
                     restored, step = None, None
             if restored is not None:
