@@ -13,12 +13,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    on the card at its main path's shapes (serving: rmsnorm — bf16 and
    f32 at a decode tick's 4 rows, phase 3's 512 and the training
    slice's 2048 — and quantize — from f32 and from bf16 at a decode
-   tick's 32 rows and phase 3's 4096 — each bitwise equal over two
+   tick's 32 rows, a tp=2 rank's 16 and phase 3's 4096 — each bitwise
+   equal over two
    calls, one CUDA launch of its kernel a call by the profiler, and
    timed at every shape; paged attention, dense int8 decode attention —
    the two attention rows read the same slots' cache bytes, each also
    timed at the serving slice's 4 slots (the paged one also at grid
-   (e)'s 64-token windows), bitwise equal over two calls, and one CUDA
+   (e)'s 64-token windows, the dense one also at a tp=2 rank's 16 query
+   and 4 kv heads), bitwise equal over two calls, and one CUDA
    launch of its kernel a call by the profiler; training:
    rmsnorm dx, flash forward,
    dq, dk/dv (also at phase 9 (h)'s Ulysses shape, 16 query and 4 kv
@@ -51,6 +53,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    donor's, with a prefix hit); three concurrent requests on the fused
    grid, one with ids outside the vocabulary (V and -V-3), then a clean
    one on the same replica — all served to length, equal to the CPU's;
+   the same model at `MeshSpec(tp=2)` (`serving.tp_replica`: this
+   process leads, one follower spawned, both on the card over gloo;
+   started with the smoke, beside the build and phase 3, and closed
+   before the training references) against one device — prefill logits
+   within 1e-5 of the CPU's largest, greedy streams equal to the card's
+   (and so the CPU's) on the dense and paged gather grids, each also
+   with spec_k=2 and with chunked prefill, and every rank launching
+   rmsnorm, quantize and the dense decode kernel, as often as the
+   other;
    `run_inference` over a checkpoint `train_and_evaluate` wrote on the
    card — its records equal `generate` on the restored params; a small
    f32 LoRA decoder (flash, fused norms) trained 5 steps on both from the
@@ -238,7 +249,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    prefill task rmsnorm and quantize and no paged kernel, no task rebuilt
    the kernel library, the router initialised no CUDA; each task's peak
    memory and restore seconds (verify, read, copy), and the seconds of
-   the launch to the router's endpoint, (d), (e) and the drain.
+   the launch to the router's endpoint, (d), (e) and the drain. Beside
+   the fleet, launched with it, a tensor-parallel replica
+   (`tp_serving_part`): `serving_topology(chips_per_host=2)` with
+   `MeshSpec(tp=2)` over ckpt-1 on phase 5 (b)'s gather grid, its
+   follower started by the task, both ranks on the card over gloo:
+   phase 5 (b)'s prompts as one burst served to length, each rank's
+   launches those of the leader's engine calls (as (b)'s are of its
+   own), every token near-greedy against the one-device model within
+   `TP_DELTA`, the burst again bitwise equal, its `/v1/blocks` hit as
+   a prefix on a one-device grid, and the ranks' peak memory and the
+   step's collectives from the leader's trace.
 
 The run takes 7-11 minutes by how fast the host is (the last line before
 the kernels JSON gives each phase's seconds; phases 5, 9 and 10 also
@@ -368,7 +389,15 @@ def backward_ms(forward, torch, arg_sets):
 RMSNORM_D = 4096
 RMSNORM_ROWS = {"decode_tick": 4, "phase3": 512, "training": 2048}
 QUANTIZE_D = 128
-QUANTIZE_ROWS = {"decode_tick": 32, "phase3": 4096}
+# A decode tick's K (or V) rows: 4 slots x 8 kv heads, and on each rank of
+# the tp=2 replica its 4 kv heads. The tp rank's 16 rows are timed by
+# CUDA events only: cold copies of 8 KB rows run to ~10,000, and a
+# profiler session of their ~40,000 launches left this process's later
+# sessions seeing no kernel.
+QUANTIZE_ROWS = {"decode_tick": 32, "decode_tick_tp_rank": 16, "phase3": 4096}
+QUANTIZE_UNPROFILED = ("decode_tick_tp_rank",)
+# The tp rank's rows come from bf16 only, as the tp=2 replica hands them.
+QUANTIZE_BF16_ONLY = ("decode_tick_tp_rank",)
 
 
 def rmsnorm_inputs(torch, rows, dtype, dev="cuda"):
@@ -400,16 +429,20 @@ def check_codes(torch, x, values, scales, ref_v, ref_s):
             raise AssertionError("quantize_int8: a code differs off the half")
 
 
-def shape_times(torch, fn, args, n_bytes, n_flops):
-    """A kernel's cold and warm time and bound at one shape, and each
-    CUDA kernel's device time a call from the profiler, in microseconds."""
+def shape_times(torch, fn, args, n_bytes, n_flops, profile=True):
+    """A kernel's cold and warm time and bound at one shape, and (with
+    `profile`) each CUDA kernel's device time a call from the profiler,
+    in microseconds."""
     cold = cold_copies(args, n_bytes)
-    return {
+    times = {
         "cold_us": time_ms(fn, torch, inner=2, arg_sets=cold) * 1e3,
         "warm_us": time_ms(fn, torch, arg_sets=(args,)) * 1e3,
         "bound_us": bound_ms(n_bytes, n_flops)[0] * 1e3,
-        "kernel_us_per_call": device_kernels_us(torch, fn, args, n_bytes),
     }
+    if profile:
+        times["kernel_us_per_call"] = device_kernels_us(torch, fn, args,
+                                                        n_bytes)
+    return times
 
 
 def check_rmsnorm(torch, ops, dev):
@@ -480,6 +513,8 @@ def check_quantize(torch, ops, dev):
     shapes, worst = {}, 0
     for key, rows in QUANTIZE_ROWS.items():
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            if key in QUANTIZE_BF16_ONLY and dtype != torch.bfloat16:
+                continue
             x = quantize_inputs(torch, rows, dtype, dev)
             (values, scales), again = quantize(x), quantize(x)
             ref_v, ref_s = ops.quantize.quantize_int8_reference(x)
@@ -497,7 +532,8 @@ def check_quantize(torch, ops, dev):
                 "one_launch": one_launch(torch, quantize, (x,),
                                          "quantize_int8_"),
                 **shape_times(torch, quantize, (x,),
-                              n * x.element_size() + n + rows * 4, 4 * n),
+                              n * x.element_size() + n + rows * 4, 4 * n,
+                              profile=key not in QUANTIZE_UNPROFILED),
             }
             if key == "phase3" and name == "f32":
                 phase3 = x
@@ -592,10 +628,11 @@ def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512, width=1):
     return (q, kq, ks, vq, vs, tables, lengths), n_bytes, n_flops
 
 
-def dense_inputs(torch, ops, dev, lengths, seq=8192):
+def dense_inputs(torch, ops, dev, lengths, seq=8192, n_heads=32, n_kv=8):
     """The dense kernel's arguments over a cache of `seq` rows whose dead
-    rows carry NaN scales, with these lengths; the bytes and flops."""
-    batch, n_heads, n_kv, head_dim = len(lengths), 32, 8, 128
+    rows carry NaN scales, with these lengths and head counts; the bytes
+    and flops."""
+    batch, head_dim = len(lengths), 128
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn(batch, seq, n_kv, head_dim, device=dev, generator=gen)
     kq, ks = ops.quantize.quantize_int8_reference(x * 2)
@@ -718,6 +755,25 @@ def check_dense_attention(torch, ops, dev, paged_lengths):
                                plain(*serving).float(), atol=2e-2, rtol=2e-2)
     row["shape_serving"] = _serving_shape(torch, attend, serving, n_bytes,
                                           n_flops)
+    del serving
+    # A tp=2 rank's share of the same tick: its 16 query and 4 kv heads
+    # (GQA group 4, the bf16 instantiation), two calls bit-equal, one
+    # launch a call.
+    rank, n_bytes, n_flops = dense_inputs(
+        torch, ops, dev, [n + 1 for n in SERVING_LENGTHS], seq=512,
+        n_heads=16, n_kv=4)
+    got, again, ref = attend(*rank), attend(*rank), plain(*rank)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if not torch.equal(got, again):
+        raise AssertionError("dense attention at the tp rank's shape: two "
+                             "calls differ")
+    row["shape_tp_rank"] = {
+        "heads": 16, "kv_heads": 4,
+        "max_abs_err": float((got.float() - ref.float()).abs().max()),
+        "bitwise_two_calls": True,
+        "one_launch": one_launch(torch, attend, rank, "decode_kernel"),
+        **_serving_shape(torch, attend, rank, n_bytes, n_flops)}
     return row
 
 
@@ -1864,8 +1920,7 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
     cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
     gpu_model = tt.Transformer(cfg, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    prompts = [[(7 * i + 3) % 512 for i in range(n)] for n in (5, 40)]
-    prompts.append([11, 12, 13, 14] * 6)  # repeats: the drafter proposes
+    prompts = tiny_serve_prompts()
     grids = {
         "fused": dict(kv_layout="paged", decode_attention="fused"),
         "dense": dict(kv_layout="dense"),
@@ -1875,6 +1930,9 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
                              spec_k=2),
         "fused_chunked": dict(kv_layout="paged", decode_attention="fused",
                               prefill_chunk=8, prefill_budget_per_tick=16),
+        # The tp=2 replica's chunked grids (`tiny_tp_check`).
+        "dense_chunked": TP_SERVE_GRIDS["dense_chunked"],
+        "gather_chunked": TP_SERVE_GRIDS["gather_chunked"],
     }
     batch = [[(5 * i + 2 * r + 1) % 512 for i in range(19)] for r in range(3)]
     results = []
@@ -1926,6 +1984,97 @@ def serve_tiny_reference(torch, tt, engine_mod, sched_mod, server_mod, dev):
             "generate": card["generate"], "generate_eos": card["eos"],
             "fused_swap": card["fused_swap"], "swap": swap,
             "warm_start": warm, "fused_oov": oov}
+
+
+# Phase 4's tensor-parallel replica: TINY_SERVE at tp=2 (2 query and 1 kv
+# head a rank, GQA group 2: the f32 instantiation of the decode kernel),
+# two gloo ranks on the card. Its grids: dense and paged gather, greedy,
+# each also with two n-gram drafts and with chunked prefill.
+TP_SERVE_GRIDS = {
+    "dense": dict(kv_layout="dense"),
+    "gather": dict(kv_layout="paged", decode_attention="gather"),
+    "dense_spec2": dict(kv_layout="dense", spec_k=2),
+    "gather_spec2": dict(kv_layout="paged", decode_attention="gather",
+                         spec_k=2),
+    "dense_chunked": dict(kv_layout="dense", prefill_chunk=8,
+                          prefill_budget_per_tick=16),
+    "gather_chunked": dict(kv_layout="paged", decode_attention="gather",
+                           prefill_chunk=8, prefill_budget_per_tick=16),
+}
+TP_RANKS_SERVING = 2
+TP_LOGITS_RTOL = 1e-5
+# The serving path's kernels, as a rank's report names them.
+TP_SERVE_KERNELS = ("rmsnorm", "quantize_int8", "int8_decode_attention")
+
+
+def tiny_serve_prompts():
+    prompts = [[(7 * i + 3) % 512 for i in range(n)] for n in (5, 40)]
+    prompts.append([11, 12, 13, 14] * 6)  # repeats: the drafter proposes
+    return prompts
+
+
+def tiny_tp_replica(torch, tt, engine_mod, tp_replica, mesh_lib):
+    """Phase 4's tp=2 replica of the small f32 model (int8 KV, seed 0):
+    its follower spawned, both ranks' shards loaded from the one-device
+    state dict. Returns (replica, the one-device prefill logits on the
+    CPU of `tiny_tp_check`'s prompt)."""
+    cfg = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
+                               **TINY_SERVE)
+    cpu_model = tt.make_model(cfg, seed=SEED, device="cpu")
+    logits = engine_mod.DecodeEngine(cpu_model).prefill(
+        [tiny_serve_prompts()[1][:32]])[1]
+    replica = tp_replica.start(mesh_lib.MeshSpec(tp=TP_RANKS_SERVING))
+    try:
+        replica.load(cfg, state=cpu_model.state_dict())
+    except BaseException:
+        replica.close()
+        raise
+    return replica, logits
+
+
+def tiny_tp_check(torch, sched_mod, replica, want, streams, wall):
+    """The tp=2 replica against one device: prefill logits within
+    TP_LOGITS_RTOL of the largest of the CPU's (`want`), greedy streams
+    equal to `serve_tiny_reference`'s (the card's, equal to the CPU's) on
+    every TP_SERVE_GRIDS grid, and on the card every rank launched the
+    serving path's kernels, each as often as the other rank. Closes the
+    replica."""
+    engine = replica.engine
+    prompts = tiny_serve_prompts()
+    sampling = sched_mod.SamplingParams(max_new_tokens=8)
+    started = time.perf_counter()
+    try:
+        engine.rank_report(reset_launches=True)
+        got = engine.prefill([prompts[1][:32]])[1].cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        for name, grid in TP_SERVE_GRIDS.items():
+            tp = _drive(sched_mod.SlotScheduler(engine, max_slots=2,
+                                                block_size=16, **grid),
+                        prompts, sampling)
+            if tp != streams[name]:
+                raise AssertionError(f"tp=2 {name}: {tp} != one device "
+                                     f"{streams[name]}")
+        ranks = engine.rank_report()
+        serve_s = time.perf_counter() - started
+    finally:
+        replica.close()
+    if not torch.isfinite(got).all() or rel > TP_LOGITS_RTOL:
+        raise AssertionError(f"tp=2 prefill logits off by {rel} (relative)")
+    launches = [{name: rank["launches"][name] for name in TP_SERVE_KERNELS}
+                for rank in ranks]
+    if engine.device.type == "cuda" and (
+            min(min(rank.values()) for rank in launches) <= 0
+            or any(rank != launches[0] for rank in launches)):
+        raise AssertionError(f"the ranks' launches: {launches}")
+    if [p.exitcode for p in replica.processes] != [0]:
+        raise AssertionError(f"the follower exited with "
+                             f"{[p.exitcode for p in replica.processes]}")
+    return {"prefill_logits_rel_err": rel, "streams_equal_cpu": True,
+            "grids": list(TP_SERVE_GRIDS), "rank_launches": launches,
+            "follower_peak_memory_gb": [
+                None if rank["peak_memory_bytes"] is None
+                else rank["peak_memory_bytes"] / 1e9 for rank in ranks[1:]],
+            "start_s": wall, "serve_s": serve_s}
 
 
 def inference_reference(torch, tt, engine_mod, training, experiment, ckpt,
@@ -2158,6 +2307,8 @@ def serve_burst(torch, engine, sched_mod, server_mod, counted, needed,
                                      f"{grid} burst")
         result = {
             "grid": grid, "layers": engine.model.config.n_layers,
+            "prompts": prompts,
+            "streams": [body["tokens"] for _status, body in results],
             "requests": len(prompts),
             "prompt_tokens": list(BURST_LENGTHS),
             "new_tokens": BURST_NEW,
@@ -4693,16 +4844,19 @@ def free_port() -> int:
 class endpoint_log:
     """The driver's endpoint log lines ("serving endpoint host:port") for
     the duration of the block, by label, with the perf_counter second
-    each was logged."""
+    each was logged; lines ending with one of `ignore` (another run's
+    endpoint) are left out."""
 
-    def __init__(self):
+    def __init__(self, ignore=()):
         self.lines = []
         self._logger = logging.getLogger("tf_yarn_tpu_torch.utils.metrics")
         lines = self.lines
 
         class Handler(logging.Handler):
             def emit(self, record):
-                lines.append((time.perf_counter(), record.getMessage()))
+                message = record.getMessage()
+                if not message.endswith(tuple(ignore)):
+                    lines.append((time.perf_counter(), message))
 
         self._handler = Handler(logging.INFO)
 
@@ -4901,7 +5055,7 @@ def _records(out_dir: Path) -> dict:
 
 def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
                 topologies, dlrm, dev, tiny=False, env=None,
-                before_launch=None):
+                before_launch=None, beside=None):
     """Phase 10. (a) `fleet_reference`. Then one `run_on_gpu(mixed_fleet)`
     of `fleet_experiment` over (a)'s checkpoint: ``serving:0`` and
     ``serving:1`` (decode), ``prefill:0``, ``rank:0`` and the CPU
@@ -4920,7 +5074,11 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
     peak memory and restore seconds; the seconds of each part. `env` adds
     to the tasks' environment (the CPU rehearsal's TPU_YARN_PLATFORM=cpu).
     `before_launch`, when given, is called between (a) and the launch
-    (`main` ends phase 9 (g), which ran beside (a), there)."""
+    (`main` ends phase 9 (g), which ran beside (a), there). `beside`, when
+    given, is called with (a)'s checkpoint directory just before the
+    launch, and returns (a fn that waits for what it started, a port
+    whose endpoint lines the fleet's log leaves out): the tensor-parallel
+    replica, whose result lands under ``tp_serving``."""
     import tempfile
 
     cfg = fleet_config(torch, tt, tiny)
@@ -4938,6 +5096,10 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
                                       wall_s=time.perf_counter() - started)
         if before_launch is not None:
             before_launch()
+        beside_wait, ignore = None, ()
+        if beside is not None:
+            beside_wait, beside_port = beside(str(model_dir))
+            ignore = (f":{beside_port}",)
         if dev.type == "cuda":
             used = subprocess.run(
                 ["nvidia-smi", "--query-gpu=memory.used",
@@ -4949,7 +5111,7 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
                   f"card memory used {used}", flush=True)
         port = free_port()
         started = time.perf_counter()
-        with endpoint_log() as log:
+        with endpoint_log(ignore) as log:
             thread, outcome = launch_in_background(
                 client, client.get_safe_experiment_fn(
                     "chip_smoke.fleet_experiment", str(model_dir),
@@ -4986,6 +5148,12 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
             except BaseException:
                 # A failed phase leaves no task running.
                 drain_replicas(out_dir, thread, 120.0)
+                if beside_wait is not None:
+                    try:
+                        beside_wait()
+                    except BaseException as exc:  # the first failure wins
+                        print(f"beside the failed fleet: {exc!r}",
+                              flush=True)
                 raise
             part = time.perf_counter()
             metrics = stop_replicas(out_dir, thread, outcome)
@@ -4993,6 +5161,10 @@ def fleet_slice(torch, tt, engine_mod, sched_mod, server_mod, ckpt, client,
             endpoints = {label: log.endpoints(label)
                          for label in FLEET_ENDPOINTS}
         seconds["launched_run"] = time.perf_counter() - started
+        if beside_wait is not None:
+            part = time.perf_counter()
+            result["tp_serving"] = beside_wait()
+            seconds["tp_serving_after_fleet"] = time.perf_counter() - part
         records = _records(out_dir)
     if {label: len(found) for label, found in endpoints.items()} \
             != FLEET_ENDPOINTS \
@@ -5236,6 +5408,323 @@ def fleet_failover(ports, out_dir: Path, prompts, streams) -> dict:
             "healthy_by_kind": health, "scale_event": event}
 
 
+# Phase 10's tensor-parallel replica, launched beside the fleet: phase 5's
+# decoder restored from (a)'s ckpt-1 over two ranks on the card
+# (serving_topology(chips_per_host=2), MeshSpec(tp=2): the task starts
+# its follower), on phase 5 (b)'s grid, the paged gather mode.
+TP_GRID = dict(max_slots=4, block_size=16, kv_layout="paged",
+               decode_attention="gather")
+# The near-greedy check: a tp=2 replica and one device sum their bf16
+# products in other orders, so a greedy token may flip at a near-tie of
+# the random-init logits. Every token the replica emits must have, in the
+# one-device model teacher-forced on the replica's own prefix, a logit
+# within TP_DELTA of that position's largest (logits ~N(0, 1.3) here: a
+# wrong token sits ~5 below the largest).
+TP_DELTA = 0.25
+# The leader's spans the smoke reads: each tick, its engine step, the tp
+# group's collectives and the headers it sends the follower (per-tick
+# attribution), and the start.
+TP_TICK_SPANS = ("serving/tick", "decode_engine/paged_step",
+                 "serving/tp_allreduce", "serving/tp_header")
+TP_START_SPANS = ("serving/build_mesh", "serving/restore_params",
+                  "serving/shard_params")
+
+
+def _tp_record(out_dir: str) -> None:
+    """In the launched tp leader: keep TP_TICK_SPANS (name, start,
+    seconds) and TP_START_SPANS; on <out_dir>/snapshot-<n> write
+    tp_ranks-<n>.json (every rank's `rank_report`, launches zeroed after,
+    and the spans since the last snapshot); on <out_dir>/FLEET_STOP drain
+    (the preemption notice); at exit write tp_task.json (the ranks'
+    reports at close, the follower's exit code, whether this process
+    rebuilt the kernels, the start spans)."""
+    import atexit
+
+    import torch
+
+    from tf_yarn_tpu_torch import preemption, telemetry
+    from tf_yarn_tpu_torch.ops import _build
+    from tf_yarn_tpu_torch.serving import tp_replica
+
+    spans, started, held = [], {}, {}
+
+    def keep(span):
+        if span.name in TP_TICK_SPANS:
+            spans.append((span.name, span.start, span.duration,
+                          span.args.get("bytes")))
+        elif span.name in TP_START_SPANS:
+            started[span.name] = span.duration
+
+    telemetry.get_tracer().add_sink(keep)
+    out = Path(out_dir)
+
+    def watch():
+        n = 1
+        while not (out / FLEET_STOP).exists():
+            if (out / f"snapshot-{n}").exists():
+                replica = held.setdefault("replica",
+                                          next(iter(tp_replica._LIVE)))
+                reports = replica.engine.rank_report(reset_launches=True)
+                taken = spans[:]
+                del spans[:len(taken)]
+                (out / f"tp_ranks-{n}.json").write_text(json.dumps(
+                    {"ranks": reports, "spans": taken}))
+                n += 1
+            time.sleep(0.05)
+        preemption.request()
+
+    threading.Thread(target=watch, name="tp-record", daemon=True).start()
+
+    def record():
+        replica = held.get("replica")
+        (out / "tp_task.json").write_text(json.dumps({
+            "reports_at_close": getattr(replica, "reports", None),
+            "followers_exit": [p.exitcode for p in replica.processes]
+            if replica is not None else None,
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "built_kernels_here": _build.build_seconds is not None,
+            "start_spans_s": started}))
+
+    atexit.register(record)
+
+
+def tp_serving_experiment(model_dir: str, out_dir: str, port: int,
+                          tiny: bool = False):
+    """The tp replica's experiment fn: phase 5's model (built on the meta
+    device: each rank restores its own shards) over `model_dir`'s
+    checkpoint at MeshSpec(tp=2) on TP_GRID, listening on `port`."""
+    import torch
+
+    from tf_yarn_tpu_torch.experiment import ServingExperiment
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
+
+    _tp_record(out_dir)
+    return ServingExperiment(
+        tt.Transformer(fleet_config(torch, tt, tiny), device="meta"),
+        model_dir, host="127.0.0.1", port=port,
+        serve_seconds=FLEET_SERVE_SECONDS,
+        mesh_spec=MeshSpec(tp=TP_RANKS_SERVING), **TP_GRID)
+
+
+def tp_snapshot(out_dir: Path, n: int) -> dict:
+    """Ask the launched leader for snapshot `n` (`_tp_record`)."""
+    (out_dir / f"snapshot-{n}").write_text("")
+    path = out_dir / f"tp_ranks-{n}.json"
+    poll_until(path.exists, bool, f"tp snapshot {n}", 120.0)
+    return json.loads(path.read_text())
+
+
+def tp_kernel_launches(n_layers: int, calls: dict) -> dict:
+    """The serving path's kernel launches of the gather grid's engine
+    calls: a prefill or a one-token step runs two RMSNorms a layer and the
+    final one, and quantizes K and V a layer; a step attends once a
+    layer."""
+    forward = calls["prefill_calls"] + calls["paged_step_calls"]
+    return {"rmsnorm": (2 * n_layers + 1) * forward,
+            "quantize_int8": 2 * n_layers * forward,
+            "int8_decode_attention": n_layers * calls["paged_step_calls"]}
+
+
+def tp_ticks(spans) -> dict:
+    """Each decode step of the leader's trace with the tp collectives
+    inside it, and each tick that ran one: their mean seconds, the
+    collectives' mean seconds and count a step, and the headers the
+    leader sent in those ticks (the control protocol's own cost): their
+    mean seconds, count and bytes a tick, and their share of the tick."""
+    steps = [(s, d) for name, s, d, _ in spans
+             if name == "decode_engine/paged_step"]
+    ticks = [(s, d) for name, s, d, _ in spans if name == "serving/tick"
+             and any(s <= t < s + d for t, _ in steps)]
+    reduces = [(s, d) for name, s, d, _ in spans
+               if name == "serving/tp_allreduce"]
+    header_spans = [span for span in spans if span[0] == "serving/tp_header"]
+    inside = [[d for s, d in reduces if t <= s < t + w] for t, w in steps]
+    headers = [[(d, a) for name, s, d, a in header_spans if t <= s < t + w]
+               for t, w in ticks]
+    n = max(1, len(steps))
+    n_ticks = max(1, len(ticks))
+    header_s = sum(d for tick in headers for d, _ in tick)
+    return {"steps": len(steps),
+            "step_s_mean": sum(d for _, d in steps) / n,
+            "tick_s_mean": sum(d for _, d in ticks) / max(1, len(ticks)),
+            "allreduce_s_per_step": sum(map(sum, inside)) / n,
+            "collectives_per_step": sum(map(len, inside)) / n,
+            "allreduce_share_of_step": (sum(map(sum, inside))
+                                        / max(1e-12, sum(d for _, d in steps))),
+            "header_s_per_tick": header_s / n_ticks,
+            "headers_per_tick": sum(map(len, headers)) / n_ticks,
+            "header_bytes_per_tick": sum(a for tick in headers
+                                         for _, a in tick) / n_ticks,
+            "header_share_of_tick": (header_s / max(
+                1e-12, sum(d for _, d in ticks)))}
+
+
+def near_greedy(torch, engine, prompts, streams) -> dict:
+    """Teacher-force each stream on the one-device `engine` through the
+    serving path's own cache (the prompt's bucketed prefill into an int8
+    cache, then one window over the rest of the prompt and the stream):
+    each emitted token's logit against its position's largest. Returns
+    the largest gap and the count of tokens that are the one-device
+    argmax."""
+    model = engine.model
+    gaps, argmax = [], 0
+    for prompt, stream in zip(prompts, streams):
+        prefill = engine.slot_prefill_len(len(prompt))
+        rows, _ = engine.prefill([prompt[:prefill]])
+        cache = model.make_cache(1, len(prompt) + len(stream))
+        cache.insert(rows)
+        window = torch.tensor([prompt[prefill:] + stream[:-1]],
+                              device=engine.device)
+        logits = model.decode(window, cache)[0]
+        first = len(prompt) - prefill - 1
+        logits = logits[first:first + len(stream)]
+        chosen = logits.gather(1, torch.tensor(
+            stream, device=logits.device)[:, None])[:, 0]
+        best = logits.max(dim=1)
+        gaps += (best.values - chosen).tolist()
+        argmax += int((best.indices == torch.tensor(
+            stream, device=logits.device)).sum())
+        del rows, cache, logits
+    return {"max_gap": max(gaps), "delta": TP_DELTA, "tokens": len(gaps),
+            "one_device_argmax": argmax}
+
+
+def tp_healthy(port: int, thread) -> bool:
+    if not thread.is_alive():
+        raise AssertionError(f"the tp run ended before it served\n"
+                             f"{task_log_tails(runs=2)}")
+    try:
+        return get(port, "/healthz")[1]["status"] == "ok"
+    except OSError:
+        return False
+
+
+def tp_serving_part(torch, tt, engine_mod, sched_mod, server_mod, client,
+                    topologies, dev, model_dir: str, out_dir: Path,
+                    port: int, reference: dict, tiny: bool = False,
+                    env=None) -> dict:
+    """Phase 10's tp replica (launched, `tp_serving_experiment`), beside
+    the fleet. Phase 5 (b)'s prompts (`reference`: its prompts, streams,
+    launches, engine calls and peak memory) as one burst: served to
+    length, each rank's launches those of the leader's engine calls and
+    each rank's as the other's (on the card), the launches of phase 5
+    (b)'s calls the same function of them, every token near-greedy
+    (`near_greedy`, within TP_DELTA) and the count equal to (b)'s; the
+    burst again bitwise equal; GET /v1/blocks POSTed to a one-device
+    grid and hit as a prefix; the ranks' peak memory, the step's wall
+    and collectives from the leader's trace; the replica drained, its
+    follower exited 0."""
+    cfg = fleet_config(torch, tt, tiny)
+    seconds = {}
+    started = time.perf_counter()
+    thread, outcome = launch_in_background(
+        client, client.get_safe_experiment_fn(
+            "chip_smoke.tp_serving_experiment", model_dir, str(out_dir),
+            port, tiny),
+        topologies.serving_topology(chips_per_host=TP_RANKS_SERVING),
+        env=dict({"PYTHONPATH": str(REPO)}, **(env or {})),
+        poll_every_secs=0.5, dead_task_secs=300,
+        timeout_secs=FLEET_SERVE_SECONDS + 300)
+    prompts, want = reference["prompts"], reference["streams"]
+    try:
+        # The one-device model of the near-greedy check and the receiving
+        # grid, built while the ranks start.
+        engine = engine_mod.DecodeEngine(tt.make_model(cfg, seed=SEED,
+                                                       device=dev))
+        poll_until(lambda: tp_healthy(port, thread), bool,
+                   "the tp replica's /healthz", 300.0)
+        seconds["launch_to_healthy"] = time.perf_counter() - started
+        results, wall = burst(port, prompts, BURST_NEW)
+        for status, body in results:
+            if status != 200 or len(body["tokens"]) != BURST_NEW:
+                raise AssertionError(f"bad tp reply {status}: {body}")
+        streams = [body["tokens"] for _status, body in results]
+        first = tp_snapshot(out_dir, 1)
+        stats = get(port, "/stats")[1]
+        again, wall_again = burst(port, prompts, BURST_NEW)
+        if [body["tokens"] for _status, body in again] != streams:
+            raise AssertionError("the tp replica served the burst twice "
+                                 "with other streams")
+        status, wire = get(port, "/v1/blocks")
+        if status != 200 or not wire["n_blocks"]:
+            raise AssertionError(f"GET /v1/blocks: {status}")
+        part = time.perf_counter()
+        greedy = near_greedy(torch, engine, prompts, streams)
+        receiver = sched_mod.SlotScheduler(engine, **TP_GRID)
+        server = server_mod.ServingServer(receiver, "127.0.0.1", 0)
+        receiver.start()
+        server.start()
+        try:
+            imported = post(server.port, wire, "/v1/blocks")
+            reply = post(server.port, {"prompt": prompts[-1],
+                                       "max_new_tokens": BURST_NEW})
+            hits = get(server.port, "/stats")[1]["prefix_cache"]["hits"]
+        finally:
+            server.stop()
+            receiver.close()
+        seconds["one_device_checks"] = time.perf_counter() - part
+    finally:
+        part = time.perf_counter()
+        (out_dir / FLEET_STOP).write_text("")
+        thread.join(timeout=300)
+        seconds["drain"] = time.perf_counter() - part
+    if thread.is_alive() or "error" in outcome:
+        raise AssertionError(f"the tp run: {outcome}\n"
+                             f"{task_log_tails(runs=2)}")
+    task = json.loads((out_dir / "tp_task.json").read_text())
+    if task["followers_exit"] != [0] or task["built_kernels_here"]:
+        raise AssertionError(f"the tp task: {task}")
+    if greedy["max_gap"] > TP_DELTA:
+        raise AssertionError(f"a tp token is {greedy['max_gap']} below its "
+                             f"position's largest one-device logit")
+    equal = sum(a == b for got, ref in zip(streams, want)
+                for a, b in zip(got, ref))
+    if imported[0] != 200 or reply[0] != 200 or hits < 1:
+        raise AssertionError(f"the tp replica's blocks on one device: "
+                             f"{imported}, {reply[0]}, {hits} hits")
+    calls = {key: stats["decode_engine"][key]
+             for key in ("prefill_calls", "paged_step_calls")}
+    expected = tp_kernel_launches(cfg.n_layers, calls)
+    launches = [{name: rank["launches"][name] for name in TP_SERVE_KERNELS}
+                for rank in first["ranks"]]
+    phase5 = {name: reference["launches"][name] for name in TP_SERVE_KERNELS}
+    if dev.type == "cuda" and (
+            any(rank != expected for rank in launches)
+            or phase5 != tp_kernel_launches(cfg.n_layers,
+                                            reference["engine_calls"])):
+        raise AssertionError(f"the ranks launched {launches}; their calls "
+                             f"{calls} make {expected}; phase 5 (b) "
+                             f"launched {phase5} for "
+                             f"{reference['engine_calls']}")
+    seconds["total"] = time.perf_counter() - started
+    del engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "grid": TP_GRID, "tp": stats["tp_degree"],
+        "layers": cfg.n_layers, "prompt_tokens": [len(p) for p in prompts],
+        "new_tokens": BURST_NEW, "wall_s": wall, "again_wall_s": wall_again,
+        "tokens_per_s": BURST_NEW * len(prompts) / wall,
+        "ttft_s": sorted(body["ttft_s"] for _st, body in results),
+        "streams_again_bitwise_equal": True,
+        "near_greedy": greedy, "tokens_equal_phase5_b": equal,
+        "engine_calls": calls, "phase5_b_engine_calls":
+            reference["engine_calls"],
+        "rank_launches": launches, "phase5_b_launches": phase5,
+        "launches_of_the_calls": expected,
+        "rank_peak_memory_gb": [
+            None if rank["peak_memory_bytes"] is None
+            else rank["peak_memory_bytes"] / 1e9 for rank in first["ranks"]],
+        "phase5_b_peak_memory_gb": reference["peak_memory_gb"],
+        "kv_cache_bytes": stats["kv_cache_hbm_bytes"],
+        "kv_cache_bytes_per_device": stats["kv_cache_hbm_bytes_per_device"],
+        "trace": tp_ticks(first["spans"]),
+        "blocks_on_one_device": {"imported": imported[1], "prefix_hits": hits},
+        "start_spans_s": task["start_spans_s"], "seconds": seconds}
+
+
 def main() -> int:
     smoke_started = time.perf_counter()
     marks = [("start", smoke_started)]
@@ -5275,6 +5764,15 @@ def main() -> int:
     from tf_yarn_tpu_torch import ranking
     from tf_yarn_tpu_torch.models import dlrm, rank_engine, weights
     from tf_yarn_tpu_torch import client, topologies
+    from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+    from tf_yarn_tpu_torch.serving import tp_replica
+
+    # Phase 4's tiny tp=2 serving replica starts beside the build and
+    # phase 3, which use no process group; it is closed in phase 4 before
+    # the training references: its leader is this process, and
+    # train_and_evaluate trains over the default process group.
+    tp_serve_wait = concurrently_started({"replica": lambda: tiny_tp_replica(
+        torch, tt, engine_mod, tp_replica, mesh_lib)})
 
     class ops:  # one namespace for the kernel modules
         pass
@@ -5335,7 +5833,9 @@ def main() -> int:
             + (f"; serving shape {json.dumps(row['shape_serving'])}"
                if "shape_serving" in row else "")
             + (f"; chunk shape {json.dumps(row['shape_chunk'])}"
-               if "shape_chunk" in row else ""))
+               if "shape_chunk" in row else "")
+            + (f"; tp rank shape {json.dumps(row['shape_tp_rank'])}"
+               if "shape_tp_rank" in row else ""))
     gc.collect()
     torch.cuda.empty_cache()
     mark("3 kernels")
@@ -5351,6 +5851,15 @@ def main() -> int:
         f"chunked fused grid, generate, the fused swap grid (equal to its "
         f"requests served alone) and the warm start (the importer's stream "
         f"equal to the donor's): {json.dumps(reference)}")
+    (tp_serve_replica, tp_serve_logits), tp_serve_start = \
+        tp_serve_wait()["replica"]
+    tp_serve_tiny = tiny_tp_check(torch, sched_mod, tp_serve_replica,
+                                  tp_serve_logits, reference["streams"],
+                                  tp_serve_start)
+    del tp_serve_replica
+    log(f"tp serving reference: the small f32 model at tp=2, two gloo ranks "
+        f"on the card, against one device on the CPU: "
+        f"{json.dumps(tp_serve_tiny)}")
     infer_reference = inference_reference(torch, tt, engine_mod, training,
                                           experiment, ckpt, inference, dev)
     log(f"inference reference: run_inference records equal generate: "
@@ -5397,6 +5906,17 @@ def main() -> int:
     slice_result, serve_seconds = serve_slice(
         torch, tt, engine_mod, sched_mod, server_mod, telemetry,
         serving_counted, dev)
+    # Phase 10's tp replica serves (b)'s prompts: its prompts, streams,
+    # launches, engine calls and peak memory.
+    gather_burst = slice_result["gather_burst"]
+    tp_serving_reference = {
+        "prompts": gather_burst["prompts"], "streams": gather_burst["streams"],
+        "launches": gather_burst["launches"],
+        "engine_calls": gather_burst["engine_calls"],
+        "peak_memory_gb": gather_burst["peak_memory_gb"]}
+    for result in slice_result.values():
+        result.pop("prompts", None)
+        result.pop("streams", None)
     for path, result in slice_result.items():
         log(f"serving slice, {path}: {json.dumps(result)} on {card}")
     log("serving phase parts: " + json.dumps(
@@ -5516,20 +6036,37 @@ def main() -> int:
         log(f"tp part: {time.perf_counter() - started:.1f} s after its "
             f"launch, the ranks' run {tp_result['wall_s']:.1f} s")
 
+    tp_serve_dir = Path(tempfile.mkdtemp(prefix="tp_serve"))
+
+    def tp_serving_beside(model_dir):
+        """Phase 10's tp replica, launched beside the fleet."""
+        port = free_port()
+        wait = concurrently_started({"tp": lambda: tp_serving_part(
+            torch, tt, engine_mod, sched_mod, server_mod, client,
+            topologies, dev, model_dir, tp_serve_dir, port,
+            tp_serving_reference)})
+        return (lambda: wait()["tp"][0]), port
+
     try:
         fleet_result = fleet_slice(torch, tt, engine_mod, sched_mod,
                                    server_mod, ckpt, client, topologies,
-                                   dlrm, dev, before_launch=end_tp)
+                                   dlrm, dev, before_launch=end_tp,
+                                   beside=tp_serving_beside)
     finally:
         if not tp_result:  # (a) failed: (g) still ends before the exit
             tp_wait()
         shutil.rmtree(tp_tmp, ignore_errors=True)
+        shutil.rmtree(tp_serve_dir, ignore_errors=True)
+    tp_serving = fleet_result.pop("tp_serving")
+    log(f"tp serving slice (phase 10, beside the fleet): Llama-3-8B widths, "
+        f"{SERVE_LAYERS} layers, tp=2 over two gloo ranks on the card, "
+        f"launched: {json.dumps(tp_serving)} on {card}")
     log(f"fleet slice: {json.dumps(fleet_result)} on {card}")
     log(f"fleet phase: {time.perf_counter() - started:.1f} s with 9 (g) "
         "beside its (a); its parts: "
         + json.dumps({part: round(t, 1)
                       for part, t in fleet_result["seconds"].items()}))
-    mark("10 fleet slice, and 9 (g) beside its (a)")
+    mark("10 fleet slice and its tp replica, and 9 (g) beside its (a)")
     launched = fleet_result["b_launched"]
     fleet_launches = {
         "launched serving": launched["decode_task"]["launches"],
@@ -5571,6 +6108,9 @@ def main() -> int:
             if row["name"] in rank["launches"]:
                 by_path[f"tp rank {rank['rank']}"] = \
                     rank["launches"][row["name"]]
+        for rank, launched in enumerate(tp_serving["rank_launches"]):
+            if row["name"] in launched:
+                by_path[f"tp serving rank {rank}"] = launched[row["name"]]
         for tag in ("h_ulysses_flash", "h_ring", "i_gpipe"):
             for rank in sp_pp_result[tag]["ranks"]:
                 if row["name"] in rank["launches"]:

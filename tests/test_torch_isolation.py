@@ -36,7 +36,7 @@ def test_package_imports_with_jax_blocked():
                      "evaluation", "tasks.evaluator", "tasks.tensorboard",
                      "utils.evaluator_metrics", "utils.tensorboard_utils",
                      "parallel.ring_attention", "parallel.ulysses",
-                     "parallel.pipeline"):
+                     "parallel.pipeline", "serving.tp_replica"):
         assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"

@@ -162,7 +162,13 @@ def test_unported_options_raise(weights, option):
 
 
 def test_unported_engine_paths_raise(weights):
+    """Tensor-parallel decode is ported (tests/test_torch_tp_serving.py
+    holds `DecodeEngine(mesh=)` against JAX); what stays unported is
+    `generate` on a tp replica's engine, which serves through the slot
+    grid: an engine joined to a group's control channel refuses it,
+    naming its ROADMAP item."""
     _, params = weights
     engine = _port_engine(params)
+    engine.channel = object()  # what joining a tp group sets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(engine.model, mesh=object())
+        engine.generate([[1, 2, 3]], 2)

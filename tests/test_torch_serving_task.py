@@ -61,73 +61,66 @@ def _draft(context, k):
     return [0] * k
 
 
-# Each case: the kwargs, and the ROADMAP item the port refuses it with
-# (None: the port's verdict is the JAX package's).
+# Each case: the kwargs, on which the port's verdict is the JAX package's.
 SERVING_CASES = {
-    "defaults": ({}, None),
-    "max_slots": ({"max_slots": 0}, None),
-    "queue_capacity": ({"queue_capacity": 0}, None),
-    "serve_seconds_negative": ({"serve_seconds": -1}, None),
-    "serve_seconds_zero": ({"serve_seconds": 0}, None),
-    "serve_seconds": ({"serve_seconds": 2.5}, None),
-    "kv_layout": ({"kv_layout": "ring"}, None),
-    "dense": ({"kv_layout": "dense"}, None),
-    "block_size": ({"block_size": 0}, None),
-    "num_blocks": ({"num_blocks": 1}, None),
-    "num_blocks_two": ({"num_blocks": 2}, None),
-    "prefix_cache_capacity": ({"prefix_cache_capacity": -1}, None),
-    "spec_k": ({"spec_k": -1}, None),
-    "spec_draft": ({"spec_draft": "medusa"}, None),
-    "spec_draft_callable": ({"spec_k": 2, "spec_draft": _draft}, None),
-    "spec_draft_none": ({"spec_draft": None}, None),
-    "decode_attention": ({"decode_attention": "flash"}, None),
-    "fused_dense": ({"decode_attention": "fused", "kv_layout": "dense"},
-                    None),
-    "fused": ({"decode_attention": "fused"}, None),
-    "prefill_chunk_negative": ({"prefill_chunk": -1}, None),
-    "prefill_chunk_word": ({"prefill_chunk": "big"}, None),
-    "prefill_chunk_float": ({"prefill_chunk": 2.5}, None),
-    "prefill_chunk_auto": ({"prefill_chunk": "auto"}, None),
-    "budget_unchunked": ({"prefill_budget_per_tick": 8}, None),
-    "budget_zero": ({"prefill_chunk": 4, "prefill_budget_per_tick": 0},
-                    None),
-    "budget": ({"prefill_chunk": 4, "prefill_budget_per_tick": 8}, None),
-    "kv_host_blocks": ({"kv_host_blocks": -1}, None),
-    "kv_host_blocks_dense": ({"kv_host_blocks": 4, "kv_layout": "dense"},
-                             None),
-    "tier_caps_unknown": ({"tier_caps": {"gold": 1}}, None),
-    "tier_caps_negative": ({"tier_caps": {"batch": -1}}, None),
-    "tier_caps_float": ({"tier_caps": {"batch": 1.5}}, None),
-    "tier_caps": ({"tier_caps": {"batch": 2, "interactive": 8}}, None),
-    "mesh_tp": ({"mesh_spec": MeshSpec(tp=2)}, "item 7"),
-    "mesh_one_device": ({"mesh_spec": MeshSpec()}, "item 7"),
-    "slo_unknown": ({"slo": {"ttft_p100_s": 1.0}}, None),
-    "slo_unit": ({"slo": {"interactive_ttft_p95_ms": 1.0}}, None),
-    "slo_not_dict": ({"slo": [1]}, None),
-    "slo": ({"slo": {"interactive_ttft_p95_s": 0.5}}, None),
-    "autoscale": ({"autoscale": {"generate": {"min_replicas": 1,
-                                              "max_replicas": 4}}}, None),
-    "autoscale_broken": ({"autoscale": {"generate": {"min_replicas": -1}}},
-                         None),
-    "autoscale_unknown_kind": ({"autoscale": {"worker": {}}}, None),
-    "autoscale_not_dict": ({"autoscale": ["generate"]}, None),
-    "autoscale_launch_eta_s": ({"autoscale_launch_eta_s": 0.0}, None),
-    "router_policy": ({"router_policy": "random"}, None),
-    "router_retries": ({"router_retries": -1}, None),
-    "router_probe_interval_s": ({"router_probe_interval_s": 0}, None),
-    "router_with_mesh": ({"router_policy": "random",
-                          "mesh_spec": MeshSpec(tp=2)}, "item 7"),
-    "prefill_tier_threshold": ({"prefill_tier": {"offload_threshold": 0}},
-                               None),
-    "prefill_tier_timeout": ({"prefill_tier": {"timeout_s": 0.0}}, None),
-    "prefill_tier_backoff": ({"prefill_tier": {"backoff_s": -1}}, None),
-    "prefill_tier_ttl": ({"prefill_tier": {"resolve_ttl_s": 0}}, None),
-    "prefill_tier_num_blocks": ({"prefill_tier": {"num_blocks": 1}}, None),
-    "prefill_tier_unknown_key": ({"prefill_tier": {"offload_tokens": 5}},
-                                 None),
-    "prefill_tier_not_dict": ({"prefill_tier": [128]}, None),
-    "prefill_tier": ({"prefill_tier": {"offload_threshold": 128,
-                                       "endpoint": "127.0.0.1:1"}}, None),
+    "defaults": {},
+    "max_slots": {"max_slots": 0},
+    "queue_capacity": {"queue_capacity": 0},
+    "serve_seconds_negative": {"serve_seconds": -1},
+    "serve_seconds_zero": {"serve_seconds": 0},
+    "serve_seconds": {"serve_seconds": 2.5},
+    "kv_layout": {"kv_layout": "ring"},
+    "dense": {"kv_layout": "dense"},
+    "block_size": {"block_size": 0},
+    "num_blocks": {"num_blocks": 1},
+    "num_blocks_two": {"num_blocks": 2},
+    "prefix_cache_capacity": {"prefix_cache_capacity": -1},
+    "spec_k": {"spec_k": -1},
+    "spec_draft": {"spec_draft": "medusa"},
+    "spec_draft_callable": {"spec_k": 2, "spec_draft": _draft},
+    "spec_draft_none": {"spec_draft": None},
+    "decode_attention": {"decode_attention": "flash"},
+    "fused_dense": {"decode_attention": "fused", "kv_layout": "dense"},
+    "fused": {"decode_attention": "fused"},
+    "prefill_chunk_negative": {"prefill_chunk": -1},
+    "prefill_chunk_word": {"prefill_chunk": "big"},
+    "prefill_chunk_float": {"prefill_chunk": 2.5},
+    "prefill_chunk_auto": {"prefill_chunk": "auto"},
+    "budget_unchunked": {"prefill_budget_per_tick": 8},
+    "budget_zero": {"prefill_chunk": 4, "prefill_budget_per_tick": 0},
+    "budget": {"prefill_chunk": 4, "prefill_budget_per_tick": 8},
+    "kv_host_blocks": {"kv_host_blocks": -1},
+    "kv_host_blocks_dense": {"kv_host_blocks": 4, "kv_layout": "dense"},
+    "tier_caps_unknown": {"tier_caps": {"gold": 1}},
+    "tier_caps_negative": {"tier_caps": {"batch": -1}},
+    "tier_caps_float": {"tier_caps": {"batch": 1.5}},
+    "tier_caps": {"tier_caps": {"batch": 2, "interactive": 8}},
+    "mesh_tp": {"mesh_spec": MeshSpec(tp=2)},
+    "mesh_one_device": {"mesh_spec": MeshSpec()},
+    "slo_unknown": {"slo": {"ttft_p100_s": 1.0}},
+    "slo_unit": {"slo": {"interactive_ttft_p95_ms": 1.0}},
+    "slo_not_dict": {"slo": [1]},
+    "slo": {"slo": {"interactive_ttft_p95_s": 0.5}},
+    "autoscale": {"autoscale": {"generate": {"min_replicas": 1,
+                                             "max_replicas": 4}}},
+    "autoscale_broken": {"autoscale": {"generate": {"min_replicas": -1}}},
+    "autoscale_unknown_kind": {"autoscale": {"worker": {}}},
+    "autoscale_not_dict": {"autoscale": ["generate"]},
+    "autoscale_launch_eta_s": {"autoscale_launch_eta_s": 0.0},
+    "router_policy": {"router_policy": "random"},
+    "router_retries": {"router_retries": -1},
+    "router_probe_interval_s": {"router_probe_interval_s": 0},
+    "router_with_mesh": {"router_policy": "random",
+                         "mesh_spec": MeshSpec(tp=2)},
+    "prefill_tier_threshold": {"prefill_tier": {"offload_threshold": 0}},
+    "prefill_tier_timeout": {"prefill_tier": {"timeout_s": 0.0}},
+    "prefill_tier_backoff": {"prefill_tier": {"backoff_s": -1}},
+    "prefill_tier_ttl": {"prefill_tier": {"resolve_ttl_s": 0}},
+    "prefill_tier_num_blocks": {"prefill_tier": {"num_blocks": 1}},
+    "prefill_tier_unknown_key": {"prefill_tier": {"offload_tokens": 5}},
+    "prefill_tier_not_dict": {"prefill_tier": [128]},
+    "prefill_tier": {"prefill_tier": {"offload_threshold": 128,
+                                      "endpoint": "127.0.0.1:1"}},
 }
 
 
@@ -141,14 +134,10 @@ def verdict(cls, **kwargs):
 
 @pytest.mark.parametrize("case", sorted(SERVING_CASES))
 def test_serving_experiment_verdict_equals_jax(case):
-    kwargs, refused = SERVING_CASES[case]
-    args = dict(model=_stand_in_model(), model_dir="/x", **kwargs)
-    got = verdict(t_experiment.ServingExperiment, **args)
-    if refused is None:
-        assert got == verdict(j_experiment.ServingExperiment, **args)
-    else:
-        assert got[0] == "NotImplementedError"
-        assert f"ROADMAP.md Queue 1 {refused}" in got[1]
+    args = dict(model=_stand_in_model(), model_dir="/x",
+                **SERVING_CASES[case])
+    assert verdict(t_experiment.ServingExperiment, **args) == \
+        verdict(j_experiment.ServingExperiment, **args)
 
 
 # The fields that only the router reads, each with a value both packages

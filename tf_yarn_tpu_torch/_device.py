@@ -17,7 +17,9 @@ outnumber the cards they share them round robin and the group talks
 gloo, since NCCL refuses two ranks on one device: every rank still
 computes on a card; only the wire differs (`rank_card`,
 `assign_rank_device`). With `LocalBackend`, the port's one backend,
-every primary of a run is on this host.
+every primary of a run is on this host. A tensor-parallel serving
+replica's ranks (`serving.tp_replica`, the task and the followers it
+spawns) are placed the same way, by their rank in the replica.
 """
 
 from __future__ import annotations

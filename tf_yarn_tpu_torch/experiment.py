@@ -35,9 +35,14 @@ beside it — and `RankingExperiment` (experiment.py:580-673) an online
 `/v1/rank` replica, with the JAX package's fields, defaults and
 validation messages. Their ``model`` is the port's `Transformer` or
 `DLRM`, built by the experiment fn on the task's device and holding its
-weights. What the port cannot serve yet is refused at construction with
-NotImplementedError naming its ROADMAP.md Queue 1 item: any ``mesh_spec``
-(items 7e and 7f, tensor-parallel serving and the sharded ranker). The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
+weights. A ``ServingExperiment`` with ``mesh_spec=MeshSpec(tp=N)`` is a
+tensor-parallel replica over N ranks (`serving.tp_replica`), validated
+as the JAX package validates it; its model only names the config (each
+rank builds its own shards: build it on the ``meta`` device). What the
+port cannot serve yet is refused at construction with
+NotImplementedError naming its ROADMAP.md Queue 1 item: a
+``RankingExperiment``'s ``mesh_spec`` (item 7f, the sharded ranker).
+The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
 ``autoscale_warm_start`` fields are read only by the ``router`` task of a
 fleet (`fleet.router.run_router`), whose model is on the meta device.
 
@@ -311,8 +316,16 @@ class ServingExperiment:
     `fleet.autoscaler.AutoscalePolicy` field dict), with
     ``autoscale_launch_eta_s`` (an empty pool's Retry-After) and
     ``autoscale_warm_start`` (prime re-admitted generate replicas over
-    ``/v1/blocks``), are the ``router`` task's. ``mesh_spec`` is refused
-    (module docstring)."""
+    ``/v1/blocks``), are the ``router`` task's.
+
+    ``mesh_spec`` turns on tensor-parallel decode (JAX experiment.py:
+    304-314): ``MeshSpec(tp=N)`` serves from one replica of N ranks whose
+    weights and KV are cut by heads (`serving.tp_replica`); every other
+    axis must stay 1, tp must divide both head counts and
+    ``decode_attention="fused"`` is refused at tp > 1 — at construction,
+    with the JAX package's messages. ``model`` then only gives the
+    config: each rank builds its own shards, so build it on the
+    ``meta`` device."""
 
     model: Any
     model_dir: str
@@ -418,7 +431,8 @@ class ServingExperiment:
                     raise ValueError(
                         f"tier_caps[{name!r}] must be an int >= 0, "
                         f"got {cap!r}")
-        _refuse_mesh_spec(self.mesh_spec, "tensor-parallel decode", "7e")
+        if self.mesh_spec is not None:
+            self._check_mesh_spec()
         if self.router_policy not in ("round_robin", "least_loaded"):
             raise ValueError(
                 f"router_policy must be 'round_robin' or 'least_loaded', "
@@ -455,6 +469,39 @@ class ServingExperiment:
                 parse_prefill_tier(self.prefill_tier)
             except ValueError as exc:
                 raise ValueError(f"prefill_tier: {exc}") from exc
+
+    def _check_mesh_spec(self) -> None:
+        """The JAX package's verdicts on a serving mesh, before any
+        restore (experiment.py:499-536, its messages)."""
+        from tf_yarn_tpu_torch.parallel.mesh import AXIS_TP
+
+        spec = self.mesh_spec
+        other = {name: size
+                 for name, size in zip(spec.axis_names, spec.axis_sizes)
+                 if name != AXIS_TP and size != 1}
+        if other:
+            raise ValueError(
+                f"serving shards tensor-parallel only: mesh_spec "
+                f"axes {other} must be 1 (replica parallelism is "
+                "the fleet router's job — docs/Fleet.md)")
+        tp = spec.tp
+        config = getattr(self.model, "config", None)
+        if tp > 1:
+            for name in ("n_heads", "n_kv_heads"):
+                value = getattr(config, name, None)
+                if value is not None and value % tp:
+                    raise ValueError(
+                        f"mesh_spec tp={tp} does not divide the "
+                        f"model's {name}={value}; tensor-parallel "
+                        "decode shards attention (and the KV "
+                        "cache) by heads")
+            if self.decode_attention == "fused":
+                raise ValueError(
+                    f"decode_attention='fused' cannot run with "
+                    f"mesh_spec tp={tp}: the paged-int8 pallas "
+                    "kernel reads the whole block pool in one "
+                    "program and cannot read a sharded pool yet; "
+                    "use decode_attention='gather' or tp=1")
 
 
 @dataclasses.dataclass

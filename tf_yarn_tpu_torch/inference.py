@@ -22,7 +22,10 @@ trees the port's `training.train_and_evaluate` writes; `_restore_params`
 verifies one and maps its ``params`` with
 `checkpoint.restore_checkpoint`), restored into the experiment's
 `Transformer` on its device; paths are local (the remote filesystems
-wait for the checkpoint port).
+wait for the checkpoint port). A tensor-parallel serving replica
+restores through `shard_restored_params` (JAX inference.py:107-137):
+each rank fills only its shards of a model built on the ``meta``
+device.
 """
 
 from __future__ import annotations
@@ -77,6 +80,42 @@ def _call_input_fn(input_fn, shard: int, num_shards: int):
     return input_fn()
 
 
+def verified_step(model_dir: str, step: Optional[int]) -> int:
+    """The step to restore: an explicit one verified against its
+    MANIFEST, or with None the newest verified one."""
+    if step is None:
+        step = ckpt_lib.latest_verified_step(model_dir)
+        if step is None:
+            raise FileNotFoundError(f"no ckpt-<step> under {model_dir}")
+    else:
+        ckpt_lib.verify_checkpoint(ckpt_lib.checkpoint_path(model_dir, step))
+    return step
+
+
+def shard_restored_params(model, state, mesh, device):
+    """The sharded restore (JAX inference.py:107-137): `model` — built on
+    the ``meta`` device, or whole — cut to this rank's shards over
+    `mesh`'s tp dim by its modules' logical-axis annotations
+    (`parallel.tensor_parallel.shard`), materialised on `device`, and
+    filled with this rank's slices of the one-device `state` dict
+    (`sharding.shard_like_annotated`; a memory-mapped checkpoint is read
+    only where the slices lie). Returns the model. A state whose names
+    are not the model's fails here, before anything serves."""
+    from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+    from tf_yarn_tpu_torch.parallel import sharding
+    from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+
+    tp = tp_lib.TensorParallel.of(mesh, mesh_lib.AXIS_TP)
+    if tp is not None and model.tp is None:
+        tp_lib.shard(model, tp)
+    if any(param.is_meta for param in model.parameters()):
+        model.to_empty(device=device)
+    with telemetry.span("checkpoint/load_state_dict", sharded=True):
+        model.load_state_dict(sharding.shard_like_annotated(model, state,
+                                                            mesh))
+    return model
+
+
 def _restore_params(model, model_dir: str, step: Optional[int]) -> int:
     """Load the checkpoint's ``params`` into `model` (on its device);
     returns the step. An explicit step is verified against its MANIFEST
@@ -85,12 +124,7 @@ def _restore_params(model, model_dir: str, step: Optional[int]) -> int:
     parameters, so the device holds one copy of the weights (two at
     Llama-3-8B width would be ~32 GB), and the optimizer's part is not
     read."""
-    if step is None:
-        step = ckpt_lib.latest_verified_step(model_dir)
-        if step is None:
-            raise FileNotFoundError(f"no ckpt-<step> under {model_dir}")
-    else:
-        ckpt_lib.verify_checkpoint(ckpt_lib.checkpoint_path(model_dir, step))
+    step = verified_step(model_dir, step)
     state = ckpt_lib.restore_checkpoint(model_dir, step, map_location="cpu",
                                         parts=("params",), mmap=True)
     with telemetry.span("checkpoint/load_state_dict", step=step):

@@ -47,12 +47,28 @@ counters (`stats`). What it keeps, and where it differs:
   compile key to keep, so they move exactly the ids they are given, one
   `index_select` (or `index_copy_`) over each stacked leaf.
 
-Tensor-parallel decode raises NotImplementedError naming its ROADMAP
-item.
+* **Tensor-parallel decode** (``mesh=``, a mesh with a ``tp`` dim over
+  a process group of ranks; JAX decode_engine.py:37-51, 929-982): the
+  model's parameters are cut to the rank's heads, MLP columns and
+  vocabulary rows (`parallel.tensor_parallel`), the slot grid and the
+  block pool hold the rank's ``n_kv_heads / tp`` kv heads, and the
+  row-parallel and vocabulary all-reduces and the logits gather run
+  over the tp group, so every rank gets the whole logits. The engine
+  on tp rank 0, the leader, announces each replicated op to the
+  followers before running it (`parallel.tensor_parallel.Leader`); the
+  followers (`follow`) run it on their heads and skip the host part
+  (sampling, acceptance).
+  `extract_blocks` returns the leader the whole heads, on its host,
+  and `inject_blocks` takes them whole, so the block wire is the
+  one-device wire. Both head counts must divide tp, with the JAX
+  package's message, and ``decode_attention="fused"`` is refused at
+  tp > 1, as the JAX engine refuses it (decode_engine.py:1611-1619).
+  `generate` stays a one-device path (ROADMAP.md Queue 1 item 7e).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -86,6 +102,39 @@ DEFAULT_PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 DECODE_ATTENTION_MODES = ("gather", "fused")
 
 
+class KVRows(dict):
+    """A prefill's cache rows (`Transformer.prefill`'s dict), as a type a
+    tp leader can track: the followers free their rows when the leader's
+    are dropped."""
+
+
+# The heads axis of a block payload ``[L, n, bs, Hkv, *]``.
+HEAD_AXIS = 3
+
+
+def _replicated(method=None, *, precheck=None, keep=None):
+    """Mark an engine method that runs on every rank of a tp replica: on
+    the leader it is announced (`tensor_parallel.Leader.run`) after
+    `precheck(self, *args, **kwargs)` passes, then run; on one device,
+    and on a follower (`DecodeEngine.follow`), it just runs. With `keep`,
+    the followers hold ``keep(result)`` for the leader's later ops."""
+    if method is None:
+        return functools.partial(_replicated, precheck=precheck, keep=keep)
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        leader = self.leader
+        if leader is None:
+            return method(self, *args, **kwargs)
+        if precheck is not None:
+            precheck(self, *args, **kwargs)
+        return leader.run(method.__name__, args, kwargs,
+                          lambda: method(self, *args, **kwargs), keep)
+
+    run.keep = keep
+    return run
+
+
 def _floor_bucket(value: int, buckets: Sequence[int]) -> Optional[int]:
     best = None
     for b in sorted(buckets):
@@ -108,13 +157,16 @@ class DecodeEngine:
                  batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS,
                  prompt_buckets: Tuple[int, ...] = DEFAULT_PROMPT_BUCKETS,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel decode is still to port (ROADMAP.md "
-                "Queue 1, parallelism)"
-            )
-        self.model = model
+        self.mesh = mesh
         self.tp_degree = 1
+        self.tp_rank = 0
+        # Set on a tp replica: the control channel, and on rank 0 the
+        # leader's end of the protocol (`parallel.tensor_parallel`).
+        self.channel = None
+        self.leader = None
+        if mesh is not None:
+            self._place(model, mesh)
+        self.model = model
         self.batch_buckets = tuple(sorted(set(batch_buckets)))
         self.prompt_buckets = tuple(sorted(set(prompt_buckets)))
         gaps = [b2 - b1 for b1, b2 in zip(self.prompt_buckets,
@@ -134,6 +186,64 @@ class DecodeEngine:
             "unbucketed_shapes": 0,
             "oversize_batch_chunks": 0,
         }
+
+    def _place(self, model, mesh) -> None:
+        """Validate the model against the mesh as the JAX engine does
+        (decode_engine.py:944-961, its messages), then cut a whole model
+        to the rank's shards and join the group's control channel."""
+        from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+
+        config = getattr(model, "config", None)
+        if config is None or not hasattr(config, "max_seq_len"):
+            raise ValueError(
+                "DecodeEngine(mesh=...) needs a model with "
+                "config.max_seq_len — the KV sharding rule anchors "
+                "on the cache's sequence axis"
+            )
+        self.tp_degree = int(mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_TP))
+        for name in ("n_heads", "n_kv_heads"):
+            value = getattr(config, name, None)
+            if value is not None and value % self.tp_degree:
+                raise ValueError(
+                    f"model config {name}={value} does not divide "
+                    f"over tp={self.tp_degree} — tensor-parallel "
+                    "decode shards attention (and the KV cache) by "
+                    "heads; pick a tp that divides both head counts"
+                )
+        if self.tp_degree == 1:
+            return
+        from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+
+        if model.tp is None:
+            tp_lib.shard(model, tp_lib.TensorParallel.of(mesh, mesh_lib.AXIS_TP))
+        elif model.tp.size != self.tp_degree:
+            raise ValueError(f"the model is cut over tp={model.tp.size}, the "
+                             f"mesh has tp={self.tp_degree}")
+        model.tp.trace = "serving/tp_allreduce"
+        self.tp_rank = model.tp.rank
+        self.channel = tp_lib.channel_of(mesh)
+        if self.tp_rank == 0:
+            self.leader = tp_lib.Leader(self.channel, unsent=(PagedKVPool,),
+                                        trace="serving/tp_header")
+
+    @property
+    def follows(self) -> bool:
+        """Whether this engine is a tp follower's: it runs the device part
+        of each op and leaves the host part to the leader."""
+        return self.channel is not None and self.leader is None
+
+    def follow(self) -> None:
+        """On a tp follower: run the leader's ops on this rank's heads
+        until the leader's ``stop`` (`tensor_parallel.follow`)."""
+        from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+
+        tp_lib.follow(self, self.channel)
+
+    def close(self) -> None:
+        """On a tp leader: stop the followers (`follow` returns). Nothing
+        to do on one device."""
+        if self.leader is not None:
+            self.leader.stop()
 
     @property
     def device(self) -> torch.device:
@@ -163,6 +273,7 @@ class DecodeEngine:
 
     # -- prefill -----------------------------------------------------------
 
+    @_replicated(keep=lambda result: result[0])
     def prefill(self, prompt) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """[B, F] prompt -> (row cache, last-position logits [B, V])
         (`Transformer.prefill`)."""
@@ -171,7 +282,7 @@ class DecodeEngine:
         with telemetry.span("decode_engine/prefill", batch=tokens.shape[0],
                             prompt=tokens.shape[1]):
             logits, cache = self.model.prefill(tokens)
-        return cache, logits
+        return KVRows(cache), logits
 
     # -- generate ------------------------------------------------------------
 
@@ -182,6 +293,11 @@ class DecodeEngine:
                  eos_token: Optional[int] = None) -> torch.Tensor:
         """Drop-in `generate`: [B, P] -> [B, P + max_new_tokens] int32 on
         the model's device (module docstring)."""
+        if self.channel is not None:
+            raise NotImplementedError(
+                "DecodeEngine.generate runs on one device; a tensor-parallel "
+                "replica serves through SlotScheduler (ROADMAP.md Queue 1 "
+                "item 7e)")
         prompt = as_prompt(prompt_tokens, self.device)
         batch, prompt_len = prompt.shape
         check_length(self.model, prompt_len, max_new_tokens)
@@ -272,13 +388,15 @@ class DecodeEngine:
 
     # -- dense slot grid -------------------------------------------------------
 
+    @_replicated(keep=lambda result: result)
     def make_slot_cache(self, max_slots: int) -> DenseKVCache:
         """Zeroed per-slot KV grid: ``max_slots`` rows of ``max_seq_len``
-        positions, each row at its own index."""
+        positions, each row at its own index (at the rank's kv heads)."""
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         return self.model.make_cache(max_slots)
 
+    @_replicated
     @torch.no_grad()
     def insert_slot(self, slot_cache: DenseKVCache, slot: int,
                     row_cache) -> DenseKVCache:
@@ -287,12 +405,14 @@ class DecodeEngine:
         slot_cache.insert(row_cache, slot)
         return slot_cache
 
+    @_replicated
     @torch.no_grad()
     def evict_slot(self, slot_cache: DenseKVCache, slot: int) -> DenseKVCache:
         """Zero slot `slot` (KV content and index), IN PLACE."""
         slot_cache.evict(slot)
         return slot_cache
 
+    @_replicated
     @torch.no_grad()
     def step(self, slot_cache: DenseKVCache, tokens,
              generators: List[Optional[torch.Generator]], sample_mask,
@@ -307,11 +427,14 @@ class DecodeEngine:
             logits = self.model.decode(
                 torch.as_tensor(tokens, device=self.device)[:, None],
                 slot_cache)[:, -1]
+            if self.follows:
+                return slot_cache, None, None
             emitted = self._sample_slots(logits, tokens, generators,
                                          sample_mask, temperature, top_k,
                                          top_p)
         return slot_cache, emitted, generators
 
+    @_replicated
     @torch.no_grad()
     def spec_step(self, slot_cache: DenseKVCache, tokens, n_known, eos_ids,
                   generators: List[Optional[torch.Generator]], active,
@@ -330,21 +453,29 @@ class DecodeEngine:
             index = slot_cache.index
             logits = self.model.decode(
                 torch.as_tensor(tokens, device=self.device), slot_cache)
+            slot_cache.index = index
+            if self.follows:
+                # The leader's next header advances each slot by its
+                # accepted length (`tensor_parallel.Leader.defer`).
+                return slot_cache, None, None, None
             emitted, counts = self._verify_slots(
                 logits, tokens, n_known, eos_ids, generators, active,
                 temperature, top_k, top_p)
             valid = np.where(np.asarray(active, bool),
                              np.asarray(n_known, np.int32) + counts, 0)
-            slot_cache.index = index + torch.as_tensor(
-                valid.astype(np.int32), device=self.device)
+            valid = valid.astype(np.int32).tolist()
+            slot_cache.advance(valid)
+            if self.leader is not None:
+                self.leader.defer(slot_cache, "advance", valid)
         return slot_cache, emitted, counts, generators
 
     # -- paged pool ------------------------------------------------------------
 
+    @_replicated(keep=lambda result: result)
     def make_paged_pool(self, num_blocks: int, block_size: int) -> PagedKVPool:
         """Zeroed block pool in the cache's dtype (int8 values with f32
-        scales, or the compute dtype); block 0 is the reserved trash
-        block."""
+        scales, or the compute dtype) at the rank's kv heads; block 0 is
+        the reserved trash block."""
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is reserved), got {num_blocks}"
@@ -352,7 +483,8 @@ class DecodeEngine:
         self.max_blocks_per_slot(block_size)
         cfg = self.model.config
         return PagedKVPool(**zeroed_kv(
-            cfg, (cfg.n_layers, num_blocks, block_size), self.device))
+            cfg, (cfg.n_layers, num_blocks, block_size), self.device,
+            self.model.kv_heads))
 
     def max_blocks_per_slot(self, block_size: int) -> int:
         max_seq_len = self.model.config.max_seq_len
@@ -362,6 +494,7 @@ class DecodeEngine:
             )
         return max_seq_len // block_size
 
+    @_replicated
     @torch.no_grad()
     def pack_prefill(self, pool: PagedKVPool, block_ids, row_cache,
                      prefill_len: int, block_size: int) -> PagedKVPool:
@@ -396,6 +529,7 @@ class DecodeEngine:
                 f"{pool.block_size}"
             )
 
+    @_replicated
     @torch.no_grad()
     def paged_step(self, pool: PagedKVPool, tables, lengths, tokens,
                    generators: List[Optional[torch.Generator]], sample_mask,
@@ -414,11 +548,14 @@ class DecodeEngine:
             logits = self.model.decode(
                 torch.as_tensor(tokens, device=self.device)[:, None],
                 view)[:, -1]
+            if self.follows:
+                return pool, None, None
             emitted = self._sample_slots(logits, tokens, generators,
                                          sample_mask, temperature, top_k,
                                          top_p)
         return pool, emitted, generators
 
+    @_replicated
     @torch.no_grad()
     def paged_spec_step(
         self, pool: PagedKVPool, tables, lengths, tokens, n_known, eos_ids,
@@ -440,6 +577,15 @@ class DecodeEngine:
                 f"decode_attention must be one of {DECODE_ATTENTION_MODES}, "
                 f"got {decode_attention!r}"
             )
+        if decode_attention == "fused" and self.tp_degree > 1:
+            raise ValueError(
+                "decode_attention='fused' cannot run tensor-parallel "
+                "yet: paged_int8_window_attention reads the whole block "
+                "pool inside one pallas kernel and cannot read a "
+                f"tp={self.tp_degree}-sharded pool; use "
+                "decode_attention='gather' (XLA shards the gather "
+                "path), or tp=1"
+            )
         if decode_attention == "fused":
             require_int8_pool(self.model.config)
         self._check_pool(pool, block_size)
@@ -458,6 +604,8 @@ class DecodeEngine:
             else:
                 view = _GatheredView(pool, tables, lengths, width, dev)
                 logits = self.model.decode(tokens_t, view)
+            if self.follows:
+                return pool, None, None, None
             emitted, counts = self._verify_slots(
                 logits, tokens_np, n_known, eos_ids, generators, active,
                 temperature, top_k, top_p)
@@ -474,28 +622,35 @@ class DecodeEngine:
                              f"got {ids.tolist()}")
         return torch.as_tensor(ids, device=pool.key.device)
 
+    @_replicated
     @torch.no_grad()
     def extract_blocks(self, pool: PagedKVPool, block_ids,
-                       block_size: int) -> PagedKVPool:
+                       block_size: int) -> Optional[PagedKVPool]:
         """Gather pool blocks `block_ids` (n ids) into a payload: a
         `PagedKVPool` of n blocks, ``[L, n, bs, Hkv, *]`` in the pool's
         own dtype (an int8 pool's payload stays int8), on the pool's
-        device. Read-only."""
+        device. Read-only. On a tp replica every rank's heads are joined
+        on the leader's host, in rank order (the followers get None)."""
         ids = self._block_ids(pool, block_ids, block_size)
         self._count("extract_calls")
         with telemetry.span("decode_engine/extract_blocks", blocks=len(ids)):
-            return PagedKVPool(**{
+            payload = PagedKVPool(**{
                 name: None if getattr(pool, name) is None
                 else getattr(pool, name).index_select(1, ids)
                 for name in KV_NAMES})
+            if self.channel is None:
+                return payload
+            whole = {name: None if getattr(payload, name) is None
+                     else self.channel.gather(getattr(payload, name),
+                                              HEAD_AXIS)
+                     for name in KV_NAMES}
+            return None if self.follows else PagedKVPool(**whole)
 
-    @torch.no_grad()
-    def inject_blocks(self, pool: PagedKVPool, block_ids, payload: PagedKVPool,
-                      block_size: int) -> PagedKVPool:
-        """Write payload block j into pool block ``block_ids[j]``, IN
-        PLACE (returns the same pool). The payload (`extract_blocks`'s
-        layout, host or device tensors) is cast to the pool's dtype, as
-        the JAX engine's splice casts it."""
+    def _check_payload(self, pool: PagedKVPool, block_ids,
+                       payload: PagedKVPool, block_size: int) -> None:
+        """`inject_blocks`' checks of its arguments: the ids, and each
+        leaf's shape — whole heads on a tp leader, which checks them
+        before it announces the op."""
         ids = self._block_ids(pool, block_ids, block_size)
         for name in KV_NAMES:
             leaf, rows = getattr(pool, name), getattr(payload, name)
@@ -503,22 +658,80 @@ class DecodeEngine:
                 raise ValueError(
                     f"payload leaf {name!r} is "
                     f"{'missing' if rows is None else 'extra'} for this pool")
-            if leaf is not None and (
-                    tuple(rows.shape) != (leaf.shape[0], len(ids))
-                    + tuple(leaf.shape[2:])):
+            if leaf is None:
+                continue
+            tail = tuple(leaf.shape[2:])
+            tail = tail[:1] + (tail[1] * self.tp_degree,) + tail[2:]
+            if tuple(rows.shape) != (leaf.shape[0], len(ids)) + tail:
                 raise ValueError(
                     f"payload {name} has shape {tuple(rows.shape)}; this "
                     f"pool takes {(leaf.shape[0], len(ids))} + "
-                    f"{tuple(leaf.shape[2:])} for {len(ids)} block ids")
+                    f"{tail} for {len(ids)} block ids")
+
+    def _scatter_heads(self, payload: Optional[PagedKVPool],
+                       pool: PagedKVPool, n_blocks: int) -> PagedKVPool:
+        """This rank's heads of `n_blocks` whole-head blocks, on the host
+        in the pool's dtypes: the leader cuts its `payload` by heads, in
+        rank order; the followers pass None."""
+        out = {}
+        for name in KV_NAMES:
+            leaf = getattr(pool, name)
+            out[name] = None if leaf is None else self.channel.scatter(
+                None if self.follows else getattr(payload, name),
+                (leaf.shape[0], n_blocks) + tuple(leaf.shape[2:]),
+                leaf.dtype, HEAD_AXIS)
+        return PagedKVPool(**out)
+
+    @_replicated(precheck=_check_payload)
+    @torch.no_grad()
+    def inject_blocks(self, pool: PagedKVPool, block_ids, payload: PagedKVPool,
+                      block_size: int) -> PagedKVPool:
+        """Write payload block j into pool block ``block_ids[j]``, IN
+        PLACE (returns the same pool). The payload (`extract_blocks`'s
+        layout, host or device tensors) is cast to the pool's dtype, as
+        the JAX engine's splice casts it. On a tp replica the leader's
+        payload holds the whole heads, and each rank gets its own (the
+        followers pass None)."""
+        if self.channel is None:
+            self._check_payload(pool, block_ids, payload, block_size)
+        ids = self._block_ids(pool, block_ids, block_size)
         self._count("inject_calls")
         with telemetry.span("decode_engine/inject_blocks", blocks=len(ids)):
             if len(ids):
+                if self.channel is not None:
+                    payload = self._scatter_heads(payload, pool, len(ids))
                 for name in KV_NAMES:
                     leaf = getattr(pool, name)
                     if leaf is not None:
                         leaf.index_copy_(1, ids, getattr(payload, name).to(
                             leaf.device, leaf.dtype))
         return pool
+
+    # -- the replica's ranks ---------------------------------------------------
+
+    @_replicated
+    def rank_report(self, reset_launches: bool = False) -> List[Dict]:
+        """Each rank's serving-path kernel launches (`ops` wrappers'
+        counts) and peak device memory, in rank order ([this rank] on one
+        device; the followers get None); `reset_launches` zeroes the
+        counts after reading them."""
+        from tf_yarn_tpu_torch.ops import decode_attention, quantize, rmsnorm
+
+        wrappers = (rmsnorm.rmsnorm, quantize.quantize_int8,
+                    decode_attention.int8_decode_attention,
+                    decode_attention.paged_int8_window_attention)
+        cuda = self.device.type == "cuda"
+        report = {"rank": self.tp_rank, "device": str(self.device),
+                  "kv_heads": self.model.kv_heads,
+                  "peak_memory_bytes": (torch.cuda.max_memory_allocated(
+                      self.device) if cuda else None),
+                  "launches": {fn.__name__: fn.launches for fn in wrappers}}
+        if reset_launches:
+            for fn in wrappers:
+                fn.launches = 0
+        if self.channel is None:
+            return [report]
+        return self.channel.gather_objects(report)
 
 
 class _GatheredView:
@@ -568,15 +781,18 @@ class _GatheredView:
         return tuple(out)
 
 
-_ENGINES: Dict[int, DecodeEngine] = {}
+_ENGINES: Dict[Tuple[int, int], DecodeEngine] = {}
 _ENGINES_LOCK = threading.Lock()
 
 
 def get_engine(model: Transformer, mesh=None) -> DecodeEngine:
-    """The shared engine for `model` (keyed by identity: torch modules
-    hold their weights, so two models are two engines)."""
+    """The shared engine for `model` on `mesh` (keyed by both
+    identities: torch modules hold their weights, so two models are two
+    engines)."""
     with _ENGINES_LOCK:
-        engine = _ENGINES.get(id(model))
-        if engine is None or engine.model is not model:
-            engine = _ENGINES[id(model)] = DecodeEngine(model, mesh=mesh)
+        key = (id(model), id(mesh))
+        engine = _ENGINES.get(key)
+        if engine is None or engine.model is not model \
+                or engine.mesh is not mesh:
+            engine = _ENGINES[key] = DecodeEngine(model, mesh=mesh)
         return engine

@@ -49,6 +49,13 @@ Paths:
   then `paged_int8_window_attention` reads the pool directly. It needs
   ``kv_cache_dtype="int8"``.
 
+Under tensor parallelism (``tp`` set by `tp_lib.shard`) the serving
+paths run on the rank's heads, as the training forward does: the
+prefill, decode and gather paths attend with the rank's query and kv
+heads, the caches (`make_cache`, the engine's pool) hold `kv_heads`,
+``wo`` and the MLP's down projection are summed over tp, and the logits
+leave the head gathered whole.
+
 Parameter dtypes. The JAX package keeps f32 params and casts them to the
 compute dtype at every use. Here a parameter the optimizer trains (built
 with ``trainable=True``: every parameter without LoRA, only the
@@ -170,10 +177,12 @@ class PagedKVPool:
     def layer(self, i: int) -> Tuple[torch.Tensor, ...]:
         return self.key[i], self.value[i], self.key_scale[i], self.value_scale[i]
 
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.key, self.value, self.key_scale,
-                             self.value_scale) if t is not None)
+    def nbytes(self, tp: int = 1) -> int:
+        """Resident bytes; with `tp`, those of the whole pool whose heads
+        this one holds 1/tp of (a tp rank's pool)."""
+        return tp * sum(t.numel() * t.element_size()
+                        for t in (self.key, self.value, self.key_scale,
+                                  self.value_scale) if t is not None)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -214,12 +223,15 @@ KV_NAMES = ("key", "value", "key_scale", "value_scale")
 
 
 def zeroed_kv(config: TransformerConfig, lead: Tuple[int, ...],
-              device) -> Dict[str, Optional[torch.Tensor]]:
+              device, kv_heads: Optional[int] = None
+              ) -> Dict[str, Optional[torch.Tensor]]:
     """Zeroed KV leaves ``lead + (Hkv, D)`` in the cache's storage: int8
     values with f32 per-row scales ``lead + (Hkv, 1)``, or values in the
-    compute dtype and no scales."""
+    compute dtype and no scales. ``Hkv`` is `kv_heads` (a tp rank's), by
+    default the config's ``n_kv_heads``."""
     int8 = int8_kv_cache(config)
-    rows = tuple(lead) + (config.n_kv_heads,)
+    rows = tuple(lead) + (config.n_kv_heads if kv_heads is None
+                          else kv_heads,)
     values = torch.int8 if int8 else config.dtype
     zeros = lambda tail, dtype: torch.zeros(rows + (tail,), dtype=dtype,
                                             device=device)
@@ -249,13 +261,15 @@ class DenseKVCache:
     def capacity(self) -> int:
         return self.key.shape[2]
 
-    def nbytes(self) -> int:
+    def nbytes(self, tp: int = 1) -> int:
         """Resident bytes, as the JAX cache counts them: it keeps one
-        ``[B]`` index per layer where this cache shares one."""
+        ``[B]`` index per layer where this cache shares one. With `tp`,
+        those of the whole cache whose heads this one holds 1/tp of (a
+        tp rank's grid): the head leaves tp times, the index once."""
         n_layers = self.key.shape[0]
-        return sum(t.numel() * t.element_size()
-                   for t in (self.key, self.value, self.key_scale,
-                             self.value_scale) if t is not None) + \
+        return tp * sum(t.numel() * t.element_size()
+                        for t in (self.key, self.value, self.key_scale,
+                                  self.value_scale) if t is not None) + \
             n_layers * self.index.numel() * self.index.element_size()
 
     def insert(self, rows: Mapping[str, torch.Tensor],
@@ -282,6 +296,11 @@ class DenseKVCache:
             if leaf is not None:
                 leaf[:, slot] = 0
         self.index[slot] = 0
+
+    def advance(self, lengths: Sequence[int]) -> None:
+        """Move each row's index on by its entry of `lengths`."""
+        self.index = self.index + torch.as_tensor(
+            lengths, dtype=self.index.dtype, device=self.index.device)
 
     def live_span(self, width: int) -> int:
         """Positions a `width`-token window attends over: up to the
@@ -720,6 +739,15 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this model's caches hold: ``n_kv_heads``, or under
+        tp the rank's (`tp_lib.kv_span`)."""
+        cfg = self.config
+        if self.tp is None:
+            return cfg.n_kv_heads
+        return tp_lib.kv_span(cfg.n_heads, cfg.n_kv_heads, self.tp)[1]
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Transformer":
         """Random weights from `generator` (on the model's device):
@@ -884,12 +912,13 @@ class Transformer(nn.Module):
     def make_cache(self, batch: int, capacity: Optional[int] = None
                    ) -> DenseKVCache:
         """A zeroed `DenseKVCache` for `batch` rows of `capacity`
-        positions (default ``max_seq_len``, the JAX cache's size) on the
-        model's device, index 0."""
+        positions (default ``max_seq_len``, the JAX cache's size) at the
+        model's kv heads (`kv_heads`) on its device, index 0."""
         cfg = self.config
         capacity = cfg.max_seq_len if capacity is None else int(capacity)
         return DenseKVCache(
-            **zeroed_kv(cfg, (cfg.n_layers, batch, capacity), self.device),
+            **zeroed_kv(cfg, (cfg.n_layers, batch, capacity), self.device,
+                        self.kv_heads),
             index=torch.zeros(batch, dtype=torch.int32, device=self.device),
         )
 

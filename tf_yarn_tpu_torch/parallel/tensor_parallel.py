@@ -46,9 +46,30 @@ classifier and position embeddings) gets the same whole gradient on
 every rank and is not summed. So the ranks' replicated parameters stay
 bitwise equal. Each collective's host time, from its call to its
 return, is a ``train/tp_allreduce`` span (with ``op`` and ``bytes``) and
-goes into the ``train/tp_allreduce_seconds`` histogram; under gloo with
-card tensors the call also waits for the kernels that produce its
-input.
+goes into the ``train/tp_allreduce_seconds`` histogram — on a serving
+replica's ranks ``serving/tp_allreduce`` (the group's `TensorParallel.
+trace`); under gloo with card tensors the call also waits for the
+kernels that produce its input.
+
+Serving (`models.decode_engine`, `serving.tp_replica`) runs the same
+layers forward only, and needs both head counts to divide tp: each rank
+then holds ``n_kv_heads / tp`` kv heads and its caches hold those. A
+serving replica is an SPMD group, and this module holds its control
+protocol. Rank 0, the leader (`Leader`), makes every host decision;
+before each op that touches the device it broadcasts a header over the
+group's control channel (`Channel`, a gloo group in host memory): the
+op, its host arguments and the handles of the objects it reads (a slot
+grid, a block pool, a prefill's rows), of which every rank holds its
+own heads. A header also carries the calls the leader deferred for the
+followers' copies and the handles it dropped. The followers (`follow`)
+run each op on their heads, make no decision of their own, and return
+on a ``stop``. Every rank runs the same ops in the same order, so the
+model's collectives meet. Liveness: the group has a finite timeout
+(DEFAULT_TIMEOUT_S), and an idle leader sends a ``noop`` header every
+quarter of it, so a follower's wait ends within the timeout when its
+leader is gone; a dead follower fails the leader's next op (gloo
+reports a closed connection at once, a silent peer at the timeout),
+and the leader raises `TPGroupError` (LOST_TASK) from then on.
 
 Partition policy of the kernels (the JAX package's `ops/_rowwise.py`,
 which has no file of its own here): the row-wise norms (RMSNorm,
@@ -63,9 +84,14 @@ refuses it with a ValueError naming the dim.
 
 from __future__ import annotations
 
+import collections
+import datetime
 import logging
+import pickle
+import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+import weakref
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,7 +107,10 @@ _logger = logging.getLogger(__name__)
 
 class TensorParallel(collectives.AxisGroup):
     """A rank's place in its tp group: the group, its size and the
-    rank's index in it."""
+    rank's index in it. ``trace`` names the span (and, with
+    ``_seconds``, the histogram) each collective is timed into."""
+
+    trace = "train/tp_allreduce"
 
     def span(self, total: int, what: str) -> Tuple[int, int]:
         """(start, length) of this rank's contiguous share of `total`;
@@ -116,10 +145,9 @@ def _all_reduce(tensor: torch.Tensor, tp: TensorParallel,
     dist.all_reduce(tensor, group=tp.group)
     seconds = time.perf_counter() - start
     telemetry.get_tracer().record(
-        "train/tp_allreduce", start, seconds, op=op,
+        tp.trace, start, seconds, op=op,
         bytes=tensor.numel() * tensor.element_size())
-    telemetry.get_registry().histogram(
-        "train/tp_allreduce_seconds").observe(seconds)
+    telemetry.get_registry().histogram(f"{tp.trace}_seconds").observe(seconds)
     return tensor
 
 
@@ -319,3 +347,275 @@ def shard_optimizer(optimizer: Mapping, names: List[str],
                   else value)
             for key, value in entry.items()}
     return dict(optimizer, state=state)
+
+
+# -- a serving replica's control protocol --------------------------------------
+
+# The tp group's timeout: a collective a silent peer never joins fails
+# after it (read when a replica starts, `serving.tp_replica.start`).
+DEFAULT_TIMEOUT_S = 120.0
+
+# Errors an op raises on every rank alike, from its arguments, before
+# any collective: the group stays in step.
+LOCAL_ERRORS = (ValueError, TypeError, LookupError, NotImplementedError)
+
+
+class TPGroupError(RuntimeError):
+    """The tp group lost a rank, or fell out of step: the replica cannot
+    serve. Classified LOST_TASK (`resilience.taxonomy`)."""
+
+    tpu_yarn_failure_kind = "LOST_TASK"
+
+
+class _Handle(NamedTuple):
+    id: int
+
+
+class Channel:
+    """The tp group's control wire: a gloo group over the same ranks,
+    carrying headers and tensors the leader sends or collects through
+    host memory."""
+
+    def __init__(self, tp: TensorParallel, timeout_s: float):
+        ranks = [dist.get_global_rank(tp.group, i) for i in range(tp.size)]
+        self.axis = TensorParallel(
+            dist.new_group(ranks, backend="gloo",
+                           timeout=datetime.timedelta(seconds=timeout_s)),
+            tp.size, tp.rank, tp.axis)
+        self.root = ranks[0]
+        self.size, self.rank = tp.size, tp.rank
+        self.timeout_s = timeout_s
+
+    def broadcast(self, obj: Any = None) -> Tuple[Any, int]:
+        """(the leader's `obj` on every rank, its pickled bytes)."""
+        size = torch.zeros(1, dtype=torch.int64)
+        if self.rank == 0:
+            data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                    dtype=torch.uint8)
+            size[0] = data.numel()
+        dist.broadcast(size, src=self.root, group=self.axis.group)
+        if self.rank != 0:
+            data = torch.empty(int(size[0]), dtype=torch.uint8)
+        dist.broadcast(data, src=self.root, group=self.axis.group)
+        if self.rank != 0:
+            obj = pickle.loads(data.numpy().tobytes())
+        return obj, int(size[0])
+
+    def gather_objects(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's `obj`, in rank order, on the leader (None on the
+        followers)."""
+        out = [None] * self.size if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=self.root, group=self.axis.group)
+        return out
+
+    def gather(self, tensor: torch.Tensor, dim: int
+               ) -> Optional[torch.Tensor]:
+        """Every rank's `tensor` joined along `dim` in rank order on the
+        leader's host; None on the followers."""
+        return _gather(tensor, dim, self.axis)
+
+    def scatter(self, whole: Optional[torch.Tensor], shape: Tuple[int, ...],
+                dtype: torch.dtype, dim: int) -> torch.Tensor:
+        """This rank's share, a host tensor of `shape` and `dtype`, of the
+        leader's `whole` cut along `dim` in rank order (the followers pass
+        None)."""
+        mine = torch.empty(shape, dtype=dtype)
+        parts = None
+        if self.rank == 0:
+            parts = [part.contiguous() for part in
+                     whole.to("cpu", dtype).chunk(self.size, dim)]
+        dist.scatter(mine, parts, src=self.root, group=self.axis.group)
+        return mine
+
+
+_CHANNELS: Dict[int, tuple] = {}
+_CHANNELS_LOCK = threading.Lock()
+
+
+def channel_of(mesh, timeout_s: Optional[float] = None) -> Channel:
+    """The control channel of `mesh`'s tp group (its timeout `timeout_s`,
+    by default DEFAULT_TIMEOUT_S), made on first use — a collective every
+    rank of the group calls in the same order."""
+    with _CHANNELS_LOCK:
+        entry = _CHANNELS.get(id(mesh))
+        if entry is None or entry[0] is not mesh:
+            entry = _CHANNELS[id(mesh)] = (mesh, Channel(
+                TensorParallel.of(mesh, mesh_lib.AXIS_TP),
+                DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s))
+        return entry[1]
+
+
+class Leader:
+    """Rank 0's end of the protocol: each replicated op's header, the
+    handles of the objects the followers hold, the deferred calls, and
+    the keepalive. Values of the `unsent` types that are not handles stay
+    out of the header: the op moves them itself. Each header's send is a
+    `trace` span (``op``, ``bytes``)."""
+
+    def __init__(self, channel: Channel, *, unsent: tuple = (),
+                 trace: str = "tp_header"):
+        self.channel = channel
+        self.unsent = unsent
+        self.trace = trace
+        self._lock = threading.RLock()
+        self._ids: Dict[int, int] = {}
+        self._next = 0
+        self._pending: "collections.deque" = collections.deque()
+        self.error: Optional[BaseException] = None
+        self._closed = False
+        self._last = time.monotonic()
+        self._keepalive_s = channel.timeout_s / 4
+        self._stop = threading.Event()
+        threading.Thread(target=self._keepalive, name="tp-keepalive",
+                         daemon=True).start()
+
+    # -- handles -----------------------------------------------------------
+
+    def _bind(self, obj, hid: int) -> None:
+        key = id(obj)
+        self._ids[key] = hid
+        weakref.finalize(obj, self._forget, key, hid)
+
+    def _forget(self, key: int, hid: int) -> None:
+        if self._ids.get(key) == hid:
+            del self._ids[key]
+        self._pending.append(("free", hid))
+
+    def defer(self, obj, method: str, *args) -> None:
+        """Have the followers call `method` of their copy of `obj` with
+        `args` before the next op."""
+        self._pending.append(("call", self._ids[id(obj)], method, args))
+
+    def _encode(self, value):
+        if isinstance(value, torch.Generator):
+            return None
+        hid = self._ids.get(id(value))
+        if hid is not None:
+            return _Handle(hid)
+        if type(value) in (list, tuple):
+            return type(value)(self._encode(v) for v in value)
+        if isinstance(value, self.unsent):
+            return None
+        if isinstance(value, torch.Tensor):
+            return value.detach().cpu()
+        return value
+
+    def _drain_pending(self) -> list:
+        out = []
+        while self._pending:
+            out.append(self._pending.popleft())
+        return out
+
+    # -- ops ---------------------------------------------------------------
+
+    def _check(self) -> None:
+        if self.error is not None:
+            raise TPGroupError(
+                f"the tp group is broken: {type(self.error).__name__}: "
+                f"{self.error}") from self.error
+        if self._closed:
+            raise TPGroupError("the tp replica is stopped")
+
+    def _send(self, header: dict) -> None:
+        start = time.perf_counter()
+        _, size = self.channel.broadcast(header)
+        telemetry.get_tracer().record(
+            self.trace, start, time.perf_counter() - start,
+            op=header["op"], bytes=size)
+        self._last = time.monotonic()
+
+    def run(self, op: str, args, kwargs, call, keep=None):
+        """Announce `op` with its arguments, then run it here with
+        `call()` while the followers run it on their heads. With `keep`,
+        the followers hold ``keep(result)`` under a handle."""
+        with self._lock:
+            self._check()
+            hid = None
+            if keep is not None:
+                hid, self._next = self._next, self._next + 1
+            header = {"op": op, "args": self._encode(list(args)),
+                      "kwargs": {k: self._encode(v) for k, v in kwargs.items()},
+                      "pending": self._drain_pending(), "result": hid}
+            try:
+                self._send(header)
+                result = call()
+            except LOCAL_ERRORS:
+                raise
+            except BaseException as exc:
+                self.error = exc
+                raise TPGroupError(
+                    f"tp op {op} failed: {type(exc).__name__}: {exc}"
+                ) from exc
+            if hid is not None:
+                self._bind(keep(result), hid)
+            return result
+
+    def _keepalive(self) -> None:
+        while not self._stop.wait(self._keepalive_s / 2):
+            if time.monotonic() - self._last < self._keepalive_s:
+                continue
+            if not self._lock.acquire(blocking=False):
+                continue  # an op is running: that is traffic enough
+            try:
+                if self._closed or self.error is not None:
+                    return
+                self._send({"op": "noop", "pending": self._drain_pending()})
+            except BaseException as exc:  # noqa: B036 — kept for the poll
+                self.error = exc
+                return
+            finally:
+                self._lock.release()
+
+    def stop(self) -> None:
+        """Send ``stop``: the followers leave `follow`."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._stop.set()
+            if self.error is None:
+                try:
+                    self._send({"op": "stop", "pending": []})
+                except BaseException as exc:  # noqa: B036
+                    self.error = exc
+
+
+def _decode(value, objects: Dict[int, Any]):
+    if isinstance(value, _Handle):
+        return objects[value.id]
+    if type(value) in (list, tuple):
+        return type(value)(_decode(v, objects) for v in value)
+    return value
+
+
+def follow(target, channel: Channel) -> None:
+    """A follower's loop: run each op the leader announces on `target`
+    (this rank's heads), until ``stop``. An op that fails on its
+    arguments fails on the leader too, which carries on: so does the
+    follower. A method whose result the followers hold names how in its
+    ``keep`` attribute."""
+    objects: Dict[int, Any] = {}
+    while True:
+        header, _ = channel.broadcast()
+        for entry in header.get("pending", ()):
+            if entry[0] == "free":
+                objects.pop(entry[1], None)
+            else:
+                _, hid, method, args = entry
+                getattr(objects[hid], method)(*args)
+        op = header["op"]
+        if op == "stop":
+            return
+        if op == "noop":
+            continue
+        method = getattr(target, op)
+        args = _decode(header["args"], objects)
+        kwargs = {k: _decode(v, objects) for k, v in header["kwargs"].items()}
+        try:
+            result = method(*args, **kwargs)
+        except LOCAL_ERRORS as exc:
+            _logger.debug("tp op %s refused its arguments here as on the "
+                          "leader: %s", op, exc)
+            continue
+        if header.get("result") is not None:
+            objects[header["result"]] = method.keep(result)

@@ -20,7 +20,9 @@ tier runs them in separate replicas joined by the block wire of
   replica advertised, a replica gone mid-ship, a bad wire, an import
   refused) falls back to local prefill, never to an error; the shipped
   blocks hold the KV local prefill computes, so the streams are the same.
-* :func:`run_prefill` — the ``prefill`` task's body (tasks/prefill.py).
+* :func:`run_prefill` — the ``prefill`` task's body (tasks/prefill.py);
+  under a tp ``mesh_spec`` a replica of N ranks (`serving.tp_replica`),
+  whose exports carry whole heads, so its wire is the one-device wire.
 
 Where it differs from the JAX package: the engine holds the weights (no
 ``params``), and a wire group is ``min(blocks per slot, blocks shipped)``
@@ -64,6 +66,8 @@ from tf_yarn_tpu_torch.serving.server import (
     decode_block_wire,
     encode_block_wire,
     finish_replica,
+    load_engine,
+    replica_poll,
     serve_until_stopped,
     task_name,
 )
@@ -394,10 +398,11 @@ def run_prefill(experiment, runtime=None) -> dict:
     restore -> engine -> PrefillWorker -> frontend -> advertise
     ``{task}/prefill_endpoint`` -> serve until the preemption notice or
     ``serve_seconds``. Reads the same `ServingExperiment` as the decode
-    replicas (model, checkpoint, paged block geometry). Returns the final
-    stats (``endpoint``, ``ckpt_step`` and the worker's stats)."""
-    from tf_yarn_tpu_torch import event, inference
-    from tf_yarn_tpu_torch.models.decode_engine import get_engine
+    replicas (model, checkpoint, paged block geometry, ``mesh_spec``: a
+    tp replica's group is built and its shards restored as
+    `run_serving`'s, JAX prefill.py:471-491). Returns the final stats
+    (``endpoint``, ``ckpt_step`` and the worker's stats)."""
+    from tf_yarn_tpu_torch import event
 
     if experiment.kv_layout != "paged":
         raise ValueError(
@@ -406,26 +411,30 @@ def run_prefill(experiment, runtime=None) -> dict:
     tier = parse_prefill_tier(experiment.prefill_tier or {})
     telemetry_task = task_name(runtime, "prefill")
     telemetry.enable_env_jsonl(telemetry_task)
-    with telemetry.span("prefill/restore_params"):
-        step = inference._restore_params(experiment.model,
-                                         experiment.model_dir, experiment.step)
-    worker = PrefillWorker(
-        get_engine(experiment.model), block_size=experiment.block_size,
-        num_blocks=tier.num_blocks or experiment.num_blocks,
-        prefix_cache_capacity=experiment.prefix_cache_capacity)
-    server = PrefillServer(worker, experiment.host, experiment.port)
-    endpoint = server.start()
-    advertised = advertised_endpoint(experiment.host, server.port)
-    if runtime is not None:
-        event.prefill_endpoint_event(runtime.kv, runtime.task, advertised)
-    _logger.info("prefill ckpt-%d on %s (advertised %s): block_size=%d",
-                 step, endpoint, advertised, experiment.block_size)
+    engine, step, replica = load_engine(experiment, "prefill")
     try:
-        serve_until_stopped("prefill", experiment.serve_seconds, worker.drain)
+        worker = PrefillWorker(
+            engine, block_size=experiment.block_size,
+            num_blocks=tier.num_blocks or experiment.num_blocks,
+            prefix_cache_capacity=experiment.prefix_cache_capacity)
+        server = PrefillServer(worker, experiment.host, experiment.port)
+        endpoint = server.start()
+        advertised = advertised_endpoint(experiment.host, server.port)
+        if runtime is not None:
+            event.prefill_endpoint_event(runtime.kv, runtime.task, advertised)
+        _logger.info("prefill ckpt-%d on %s (advertised %s): block_size=%d",
+                     step, endpoint, advertised, experiment.block_size)
+        try:
+            serve_until_stopped("prefill", experiment.serve_seconds,
+                                worker.drain, poll=replica_poll(replica))
+        finally:
+            server.stop()
+            stats = {"endpoint": advertised, "ckpt_step": step,
+                     **worker.stats()}
+            _logger.info("prefill done: %s", stats)
     finally:
-        server.stop()
-        stats = {"endpoint": advertised, "ckpt_step": step, **worker.stats()}
-        _logger.info("prefill done: %s", stats)
+        if replica is not None:
+            replica.close()
         finish_replica(runtime, telemetry_task)
     return stats
 

@@ -61,9 +61,15 @@ block wire of ``GET``/``POST /v1/blocks``) runs on the scheduler thread
 through a queue of control ops serviced at the top of each tick.
 
 Per-slot sampling state is a `torch.Generator` seeded with the request's
-seed at admission (the JAX package's per-slot PRNGKey rows). The
-constructor raises NotImplementedError, naming the ROADMAP item, for
-tensor parallelism, which is not ported yet.
+seed at admission (the JAX package's per-slot PRNGKey rows).
+
+Tensor parallelism rides inside the engine (`DecodeEngine(mesh=)`, the
+leader of a `serving.tp_replica` group): the tick logic is unchanged,
+``tp_degree`` is the engine's, the KV gauges and ``/stats`` count the
+whole cache (``kv_cache_hbm_bytes``) and one rank's share
+(``kv_cache_hbm_bytes_per_device``) as the JAX grid does, and
+``decode_attention="fused"`` is refused at tp > 1 with the JAX
+scheduler's message (scheduler.py:283-289).
 """
 
 from __future__ import annotations
@@ -106,7 +112,6 @@ from tf_yarn_tpu_torch.serving.request import (
 _logger = logging.getLogger(__name__)
 
 IDLE_POLL_S = 0.05
-_SERVING_ITEM = "ROADMAP.md Queue 1, serving"
 
 
 KV_LAYOUTS = ("dense", "paged")
@@ -173,10 +178,6 @@ class _ControlOp:
         self.error: Optional[BaseException] = None
 
 
-def _not_ported(what: str, item: str = _SERVING_ITEM):
-    raise NotImplementedError(f"{what} is still to port ({item})")
-
-
 class SlotScheduler:
     """Continuous batching over a fixed slot grid (module docstring).
 
@@ -235,9 +236,13 @@ class SlotScheduler:
             raise ValueError(
                 "decode_attention='fused' streams the paged block pool "
                 "directly; it requires kv_layout='paged'")
-        if int(getattr(engine, "tp_degree", 1) or 1) > 1:
-            _not_ported("tensor-parallel serving",
-                        "ROADMAP.md Queue 1, parallelism")
+        self.tp_degree = int(getattr(engine, "tp_degree", 1) or 1)
+        if decode_attention == "fused" and self.tp_degree > 1:
+            raise ValueError(
+                "decode_attention='fused' cannot run tensor-parallel "
+                f"(engine tp={self.tp_degree}): the paged-int8 pallas "
+                "kernel cannot read a sharded block pool yet; use "
+                "decode_attention='gather' or tp=1")
         self.engine = engine
         self.max_slots = max_slots
         self.temperature = float(temperature)
@@ -352,19 +357,21 @@ class SlotScheduler:
                                     np.int32)
             self._lengths = np.zeros((max_slots,), np.int32)
             self._cache = None
-            self._kv_bytes = self._pool.nbytes()
         else:
             self._cache = engine.make_slot_cache(max_slots)
             self._pool = self._blocks = self._prefix = None
             self._host_store = None
             self._block_size = None
-            self._kv_bytes = self._cache.nbytes()
-        # One device holds the whole cache, so the per-device bytes are
-        # the global bytes (the JAX grid divides them under tp sharding).
-        for name in ("serving/kv_cache_hbm_bytes",
-                     "serving/kv_cache_hbm_bytes_per_device"):
-            self._registry.gauge(name, layout=kv_layout).set(self._kv_bytes)
-        self._registry.gauge("serving/tp_degree").set(1)
+        # The whole cache, and the share one device holds: a tp rank's
+        # grid holds 1/tp of the heads (the index leaves replicate).
+        kv = self._pool if kv_layout == "paged" else self._cache
+        self._kv_bytes = kv.nbytes(self.tp_degree)
+        self._kv_bytes_per_device = kv.nbytes()
+        self._registry.gauge("serving/kv_cache_hbm_bytes",
+                             layout=kv_layout).set(self._kv_bytes)
+        self._registry.gauge("serving/kv_cache_hbm_bytes_per_device",
+                             layout=kv_layout).set(self._kv_bytes_per_device)
+        self._registry.gauge("serving/tp_degree").set(self.tp_degree)
 
     # -- submission (any thread) -------------------------------------------
 
@@ -939,7 +946,7 @@ class SlotScheduler:
         # Every group is read against this pool before a block moves, so
         # a wire it cannot take is refused with nothing allocated.
         payloads = [_payload_from_wire(group["leaves"], self._pool,
-                                       int(group["n_blocks"]))
+                                       int(group["n_blocks"]), self.tp_degree)
                     for group in groups]
         # The hottest entries first, as far as free plus evictable blocks
         # reach; active slots are never raided.
@@ -1275,8 +1282,8 @@ class SlotScheduler:
             "top_p": self.top_p,
             "kv_layout": self.kv_layout,
             "kv_cache_hbm_bytes": self._kv_bytes,
-            "kv_cache_hbm_bytes_per_device": self._kv_bytes,
-            "tp_degree": 1,
+            "kv_cache_hbm_bytes_per_device": self._kv_bytes_per_device,
+            "tp_degree": self.tp_degree,
             "draining": self._draining,
             "spec_k": self.spec_k,
             "decode_attention": self.decode_attention,
@@ -1359,11 +1366,12 @@ def _wire_leaves(payload: PagedKVPool) -> List:
 
 
 def _payload_from_wire(leaves: List, pool: PagedKVPool,
-                       n_blocks: int) -> PagedKVPool:
-    """A wire group's flat leaves as a payload for `pool`. The JAX package
-    flattens a scanned-layer pool to one set of leaves, ``[L, 1, W, bs,
-    Hkv, *]``, and an unscanned one to a set a layer, ``[1, W, bs, Hkv,
-    *]``, its layers in the lexicographic order of their names
+                       n_blocks: int, tp: int = 1) -> PagedKVPool:
+    """A wire group's flat leaves as a payload for `pool` (a tp rank's
+    pool, holding 1/`tp` of the heads the wire carries whole). The JAX
+    package flattens a scanned-layer pool to one set of leaves, ``[L, 1,
+    W, bs, Hkv, *]``, and an unscanned one to a set a layer, ``[1, W,
+    bs, Hkv, *]``, its layers in the lexicographic order of their names
     (layer_0, layer_1, layer_10, ...). Raises ValueError on any other
     leaf count or shape."""
     names = [name for name in _WIRE_ORDER if getattr(pool, name) is not None]
@@ -1397,12 +1405,12 @@ def _payload_from_wire(leaves: List, pool: PagedKVPool,
                    for i, name in enumerate(names)}
     for name, leaf in stacked.items():
         want = getattr(pool, name)
+        block, heads, rest = want.shape[2], want.shape[3] * tp, want.shape[4:]
+        tail = (block, heads, *rest)
         if leaf.ndim != want.ndim or leaf.shape[0] != want.shape[0] \
-                or tuple(leaf.shape[2:]) != tuple(want.shape[2:]) \
-                or leaf.shape[1] < n_blocks:
+                or tuple(leaf.shape[2:]) != tail or leaf.shape[1] < n_blocks:
             raise ValueError(
                 f"block wire leaf {name} has shape {tuple(leaf.shape)}; this "
-                f"pool takes ({want.shape[0]}, >= {n_blocks}) + "
-                f"{tuple(want.shape[2:])}")
+                f"pool takes ({want.shape[0]}, >= {n_blocks}) + {tail}")
     return PagedKVPool(**{name: stacked.get(name) for name in
                           ("key", "value", "key_scale", "value_scale")})

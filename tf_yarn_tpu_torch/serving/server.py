@@ -32,6 +32,10 @@ import rides the scheduler's control queue) and ``/stats`` carries its
 the checkpoint into the experiment's model, build the engine, the slot
 grid and the frontend, advertise ``{task}/serving_endpoint`` through the
 KV store and serve until the preemption notice or ``serve_seconds``.
+With ``mesh_spec=MeshSpec(tp=N)`` it first starts the replica's N-1
+followers (`serving.tp_replica`), and each rank restores only its shards
+(`load_engine`); the frontend and the scheduler run on rank 0, and the
+followers stop with it.
 """
 
 from __future__ import annotations
@@ -407,6 +411,60 @@ def finish_replica(runtime, telemetry_task: str) -> None:
     telemetry.export_trace(telemetry_task)
 
 
+def load_engine(experiment, prefix: str):
+    """(engine, checkpoint step, tp replica or None) of a replica task
+    (`prefix` "serving" or "prefill" names its spans). One device: the
+    checkpoint restored into ``experiment.model`` (`prefix`/
+    restore_params). ``mesh_spec`` with more than one device (JAX
+    server.py:434-463): the step verified first (`prefix`/
+    restore_params: a digest of every byte, before any follower exists
+    to wait on it under the group's timeout), then the group
+    (`prefix`/build_mesh — the followers spawned), then every rank's
+    shards of a model built on the meta device (`prefix`/
+    shard_params)."""
+    from tf_yarn_tpu_torch import inference
+    from tf_yarn_tpu_torch.models.decode_engine import get_engine
+
+    spec = getattr(experiment, "mesh_spec", None)
+    if spec is None or spec.total_devices <= 1:
+        with telemetry.span(f"{prefix}/restore_params"):
+            step = inference._restore_params(
+                experiment.model, experiment.model_dir, experiment.step)
+        return get_engine(experiment.model), step, None
+    from tf_yarn_tpu_torch.serving import tp_replica
+
+    with telemetry.span(f"{prefix}/restore_params"):
+        step = inference.verified_step(experiment.model_dir, experiment.step)
+    with telemetry.span(f"{prefix}/build_mesh", devices=spec.total_devices):
+        replica = tp_replica.start(spec)
+    _logger.info("%s tensor-parallel: tp=%d over %d devices", prefix,
+                 spec.tp, spec.total_devices)
+    try:
+        with telemetry.span(f"{prefix}/shard_params"):
+            engine = replica.load(experiment.model.config,
+                                  model_dir=experiment.model_dir, step=step)
+    except BaseException:
+        replica.close()
+        raise
+    return engine, step, replica
+
+
+def replica_poll(replica, slo_evaluator=None):
+    """The poll of a replica's serve loop: a lost tp rank raises
+    (`tensor_parallel.TPGroupError`), and the SLOs are evaluated; None when
+    there is nothing to poll."""
+    if replica is None and slo_evaluator is None:
+        return None
+
+    def poll() -> None:
+        if replica is not None:
+            replica.check()
+        if slo_evaluator is not None:
+            slo_evaluator.maybe_evaluate()
+
+    return poll
+
+
 def run_serving(experiment, runtime=None) -> dict:
     """Task body for a `ServingExperiment` (JAX server.py:420-561):
     restore -> engine -> scheduler -> frontend -> advertise -> serve.
@@ -414,22 +472,31 @@ def run_serving(experiment, runtime=None) -> dict:
     scheduler's stats).
 
     The checkpoint is restored into ``experiment.model`` on its device
-    (`inference._restore_params`). With ``prefill_tier`` on the paged
+    (`inference._restore_params`), or under a tp ``mesh_spec`` sharded
+    over the replica's ranks (`load_engine`), whose followers stop on
+    every way out. With ``prefill_tier`` on the paged
     layout, a `PrefillClient` pulls long prompts' blocks from the
     ``prefill`` tier it finds in the run's KV store. The fault-injection
     hook of the JAX loop (`chaos.on_replica_poll`) waits for
     resilience/chaos.py (ROADMAP.md Queue 1 item 5.2); the model_dir
     placement check for remote filesystems waits for fs.py (item 5.4):
     model_dir is a local path."""
-    from tf_yarn_tpu_torch import event, inference
-    from tf_yarn_tpu_torch.models.decode_engine import get_engine
-
     telemetry_task = task_name(runtime, "serving")
     telemetry.enable_env_jsonl(telemetry_task)
-    with telemetry.span("serving/restore_params"):
-        step = inference._restore_params(experiment.model,
-                                         experiment.model_dir, experiment.step)
-    engine = get_engine(experiment.model)
+    engine, step, replica = load_engine(experiment, "serving")
+    try:
+        return _serve(experiment, runtime, engine, step, replica,
+                      telemetry_task)
+    finally:
+        if replica is not None:
+            replica.close()
+        finish_replica(runtime, telemetry_task)
+
+
+def _serve(experiment, runtime, engine, step, replica,
+           telemetry_task: str) -> dict:
+    from tf_yarn_tpu_torch import event
+
     scheduler = SlotScheduler(
         engine,
         max_slots=experiment.max_slots,
@@ -479,14 +546,13 @@ def run_serving(experiment, runtime=None) -> dict:
         step, endpoint, advertised, experiment.max_slots,
         experiment.queue_capacity)
     try:
-        serve_until_stopped(
-            "serving", experiment.serve_seconds, scheduler.drain,
-            poll=slo_evaluator.maybe_evaluate if slo_evaluator else None)
+        serve_until_stopped("serving", experiment.serve_seconds,
+                            scheduler.drain,
+                            poll=replica_poll(replica, slo_evaluator))
     finally:
         server.stop()
         scheduler.close()
         stats = {"endpoint": advertised, "ckpt_step": step,
                  **scheduler.stats()}
         _logger.info("serving done: %s", stats)
-        finish_replica(runtime, telemetry_task)
     return stats

@@ -5,7 +5,9 @@ stop event (with the failure's kind and traceback) and the stop time,
 exiting nonzero so the backend's process status agrees with the events.
 `wait_for_all_stops` is the tensorboard task's barrier on training's
 end. `run_replica` is the whole main of the serving, prefill, rank and router
-task programs.
+task programs; a serving or prefill task with a tp ``mesh_spec`` starts
+its replica's followers in its body (`serving.tp_replica`) and
+`run_replica` closes any still running on the way out.
 """
 
 from __future__ import annotations
@@ -81,15 +83,21 @@ def run_replica(name: str, body: Callable[[TaskRuntime, object], None]) -> None:
     preemption.install()
     runtime = init_runtime()
     with reporting_shutdown(runtime):
-        experiment = _task_commons.get_experiment(runtime.kv)
-        event.start_event(runtime.kv, runtime.task)
-        thread = MonitoredThread(target=body, args=(runtime, experiment),
-                                 name=f"{name}-{runtime.task}")
-        with telemetry.Heartbeat(
-                runtime.kv, runtime.task,
-                every=telemetry.heartbeat.every_from_env(),
-                registry=telemetry.get_registry()):
-            thread.start()
-            thread.join()
+        try:
+            experiment = _task_commons.get_experiment(runtime.kv)
+            event.start_event(runtime.kv, runtime.task)
+            thread = MonitoredThread(target=body, args=(runtime, experiment),
+                                     name=f"{name}-{runtime.task}")
+            with telemetry.Heartbeat(
+                    runtime.kv, runtime.task,
+                    every=telemetry.heartbeat.every_from_env(),
+                    registry=telemetry.get_registry()):
+                thread.start()
+                thread.join()
+        finally:
+            # A tp replica's followers (`serving.tp_replica`) end with the
+            # task, however the body ended.
+            if "tf_yarn_tpu_torch.serving.tp_replica" in sys.modules:
+                sys.modules["tf_yarn_tpu_torch.serving.tp_replica"].close_all()
         if thread.exception is not None:
             raise thread.exception

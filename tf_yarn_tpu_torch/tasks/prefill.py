@@ -16,6 +16,8 @@ preemption notice) sets the drain flag the body polls: ``/healthz``
 answers "draining" at once and the task exits cleanly. The replica's
 device is the model's, which the experiment fn builds on
 `_device.task_device()` (the card, unless ``TPU_YARN_PLATFORM=cpu``).
+A tp ``mesh_spec`` makes the task rank 0 of a tensor-parallel prefill
+replica, as for the serving task (tasks/serving.py).
 """
 
 from __future__ import annotations

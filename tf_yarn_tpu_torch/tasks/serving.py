@@ -15,6 +15,11 @@ preemption notice) sets the drain flag the body polls: ``/healthz``
 answers "draining" at once and the task exits cleanly. The replica's
 device is the model's, which the experiment fn builds on
 `_device.task_device()` (the card, unless ``TPU_YARN_PLATFORM=cpu``).
+With ``mesh_spec=MeshSpec(tp=N)`` the task is rank 0 of a tensor-parallel
+replica: `run_serving` starts its N-1 followers (`serving.tp_replica`,
+one task = one replica, as JAX's ``serving_topology(chips_per_host=N)``)
+and stops them on its way out, and `_bootstrap.run_replica` closes any
+left on every other exit path.
 """
 
 from __future__ import annotations

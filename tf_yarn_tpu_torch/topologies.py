@@ -239,7 +239,10 @@ def serving_topology(
 ) -> TaskSpecs:
     """`instances` independent online-serving replicas, each driving
     `chips_per_host` local GPUs. Each restores the checkpoint, serves its
-    own slot grid and advertises its endpoint through the KV store."""
+    own slot grid and advertises its endpoint through the KV store. A
+    replica whose experiment has ``mesh_spec=MeshSpec(tp=N)`` is one task
+    over N ranks (it starts the other N-1 itself): give it
+    ``chips_per_host=N``."""
     if instances < 1:
         raise ValueError(f"instances must be >= 1, got {instances}")
     specs: TaskSpecs = {
