@@ -217,7 +217,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    checkpoint holding every rank's adapters and loading into the
    one-rank model; each step's seconds and its ring shifts,
    all-to-alls or pipeline sends, and gradient sums, from rank 0's
-   trace;
+   trace. (j) an elastic shrink, launched and checked beside (a)-(f)
+   (`elastic_part`): two workers (`{"worker": TaskSpec(instances=2)}`) of
+   (e)'s BERT-base run at `MeshSpec(dp=2)`, 4 steps of one step a chunk, a
+   checkpoint every 2, with `ElasticPolicy(min_workers=1, max_workers=2)`,
+   `nb_retries=1` and `TPU_YARN_FAULT="lose_host_at_step=3@worker:1"`,
+   both on the card over gloo: the driver classifies attempt 0 LOST_TASK
+   (worker:1 lost) and records the shrink 2 -> 1; attempt 1 runs one
+   worker on the card, which logs the refit dp=1 mesh, reads
+   `train/mesh_devices` 1 and `train/degraded` 1, finds ckpt-2's state
+   bitwise at its first step and finishes step 4; the LayerNorm forward
+   and backward launched in each attempt's workers as often as their
+   steps call for (a FLOP-count pass and 3 steps by attempt 0's kill, the
+   pass and 2 steps in attempt 1, against phase 7's pass and 4 steps);
+   the losses of steps 3-4 and ckpt-4 against a one-device replay in this
+   process from the same ckpt-2 on the same global batches
+   (`ELASTIC_LOSS_RTOL`, `ELASTIC_PARAM_ATOL`, `ELASTIC_KEY_BIAS_ATOL`);
+   the seconds from the kill to the LOST_TASK classification and from the
+   relaunch to its first step;
 10. fleet slice, the launched serving fleet (`fleet_slice`), after
    phase 9 (a)-(f), with (g) beside its (a): (a) phase
    5's model (`serving_config`, 4 of 32 layers; seed 0) on grid (a) in process, prompts of 17, 64 and 300
@@ -1154,7 +1171,9 @@ def check_layernorm(torch, ops, dev):
             None, (x, g, scale), 3 * n * 2 + 3 * d * 4, 18 * n, library_bwd)
     # One call at each shape: the kernels the device ran.
     launched = kernel_launch_counts(torch, lambda: [
-        ln.layernorm_backward(*args) for args in backwards])
+        ln.layernorm_backward(*args) for args in backwards],
+        wrapper=ln.layernorm_backward, calls=len(backwards),
+        expect=2 * len(backwards))
     if not all("layernorm" in k for k in launched) \
             or sum(launched.values()) != 2 * len(backwards):
         raise AssertionError(f"layernorm_backward launched {launched} at "
@@ -1181,13 +1200,20 @@ def check_layernorm(torch, ops, dev):
     return rows
 
 
-def kernel_launch_counts(torch, run) -> dict:
+def kernel_launch_counts(torch, run, wrapper=None, calls: int = 0,
+                         expect: int = 1) -> dict:
     """Device kernels `run()` launched, by name, under torch.profiler. A
-    profiler session on the card can lose the first launches after it
-    starts, so each session first runs three spin kernels
-    (`torch.cuda._sleep`, left out of the counts) and waits for them; a
-    session that still saw no kernel of `run` is run again after a pause,
-    up to six times (three sessions in a row once saw nothing)."""
+    profiler session on the card can lose launches after it starts, so
+    each session first runs three spin kernels (`torch.cuda._sleep`, left
+    out of the counts) and waits for them. Without `wrapper`, a session
+    that saw no kernel of `run` is run again after a pause, up to six
+    times (three sessions in a row once saw nothing). With `wrapper` (the
+    function whose ``launches`` counts its calls that launched), the
+    session also reads that counter across `run()`: short of `calls`, it
+    raises at once (the wrapper skipped a launch); at `calls`, a session
+    whose profiler saw fewer than `expect` device kernels lost launches
+    (one saw 2 of a LayerNorm backward's 4) and is run again. The caller
+    checks the counts of the last session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1200,13 +1226,18 @@ def kernel_launch_counts(torch, run) -> dict:
             for _ in range(3):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            before = wrapper.launches if wrapper is not None else 0
             run()
             torch.cuda.synchronize()
+        if wrapper is not None and wrapper.launches - before != calls:
+            raise AssertionError(
+                f"{wrapper.__name__} launched {wrapper.launches - before} "
+                f"times in {calls} calls")
         ran = {event.key: event.count for event in prof.key_averages()
                if event.device_type == DeviceType.CUDA and event.count
                and not getattr(event, "is_user_annotation", False)
                and "spin_kernel" not in event.key}
-        if ran:
+        if sum(ran.values()) >= expect:
             break
     return ran
 
@@ -1342,18 +1373,21 @@ def check_groupnorm(torch, ops, dev):
 
     # One call at each shape: the kernels the device ran.
     device_kernels = {}
-    for name, calls, launched_by in (
+    for name, calls, launched_by, wrapper in (
             ("groupnorm", forwards,
-             lambda args: gn.groupnorm_forward(*args, groups, 1e-6)),
+             lambda args: gn.groupnorm_forward(*args, groups, 1e-6),
+             gn.groupnorm),
             ("groupnorm_backward", backwards,
-             lambda args: gn.groupnorm_backward(*args, groups))):
-        launched = kernel_launch_counts(
-            torch, lambda: [launched_by(args) for args in calls])
-        ours = {k: v for k, v in launched.items() if "groupnorm" in k}
+             lambda args: gn.groupnorm_backward(*args, groups),
+             gn.groupnorm_backward)):
         planned = sum(gn.groupnorm_plan(
             GN_BATCH, side * side, c, groups, 2,
             backward=name == "groupnorm_backward").launches
             for side, c in RESNET50_GN)
+        launched = kernel_launch_counts(
+            torch, lambda: [launched_by(args) for args in calls],
+            wrapper=wrapper, calls=len(calls), expect=planned)
+        ours = {k: v for k, v in launched.items() if "groupnorm" in k}
         if sum(ours.values()) != planned or (
                 name == "groupnorm_backward" and ours != launched):
             raise AssertionError(
@@ -3117,16 +3151,29 @@ def bert_stream(config, batch_size: int, seq_len: int, seed: int):
 
 
 def params_digest(state) -> str:
-    """sha256 of a state dict, tensor by tensor in name order."""
+    """sha256 of a state — a state dict, or nested dicts and lists of
+    tensors and other leaves — tensor by tensor in key order."""
     import hashlib
 
     import torch
 
     digest = hashlib.sha256()
-    for name, tensor in sorted(state.items()):
-        digest.update(name.encode())
-        digest.update(tensor.detach().cpu().contiguous().flatten()
-                      .view(torch.uint8).numpy().tobytes())
+
+    def walk(node, path):
+        if isinstance(node, torch.Tensor):
+            digest.update(path.encode())
+            digest.update(node.detach().cpu().contiguous().flatten()
+                          .view(torch.uint8).numpy().tobytes())
+        elif isinstance(node, dict):
+            for key in sorted(node, key=str):
+                walk(node[key], f"{path}/{key}")
+        elif isinstance(node, (list, tuple)):
+            for i, item in enumerate(node):
+                walk(item, f"{path}/{i}")
+        else:
+            digest.update(f"{path}={node!r}".encode())
+
+    walk(state, "")
     return digest.hexdigest()
 
 
@@ -3182,7 +3229,7 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
     import torch
     import torch.distributed as dist
 
-    from tf_yarn_tpu_torch import constants, preemption
+    from tf_yarn_tpu_torch import constants, preemption, telemetry
     from tf_yarn_tpu_torch.models import bert
     from tf_yarn_tpu_torch.ops import _build, layernorm
     from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
@@ -3248,6 +3295,12 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
                 "world": dist.get_world_size() if grouped else 1,
                 "backend": dist.get_backend() if grouped else None,
                 "params_sha256": params_digest(model.state_dict()),
+                # The checkpoint ops this process's registry has timed by
+                # its last step (so in its last log step's flush).
+                "checkpoint_ops": sorted({
+                    re.search(r"\{op=(\w+)\}", key).group(1)
+                    for key in telemetry.get_registry().snapshot()
+                    if key.startswith("checkpoint/seconds")}),
             }
             Path(model_dir).mkdir(parents=True, exist_ok=True)
             rank_counts_path(model_dir, rank).write_text(json.dumps(record))
@@ -3362,28 +3415,47 @@ def launcher_all_reduce_fn(out_path: str):
 
 class kv_snapshot:
     """Read `keys` from the run's KV store when each attempt ends, before
-    the driver stops the server: `client.handle_events` is wrapped for
-    the duration of the block. `values` is the last attempt's,
-    `attempts` every attempt's in order."""
+    the driver stops the server: `client.handle_events` is wrapped while
+    any block is open, and a block reads the attempts of the runs driven
+    from its own thread only (phase 9 (j) runs beside the other parts).
+    `values` is the last attempt's, `attempts` every attempt's in
+    order."""
+
+    _lock = threading.Lock()
+    _open = {}  # thread ident -> the snapshot that thread opened
+    _original = None
 
     def __init__(self, client, keys):
         self._client, self._keys = client, keys
         self.values = {}
         self.attempts = []
 
+    def _read(self, kv):
+        self.values = {key: kv.get_str(key) for key in self._keys}
+        self.attempts.append(self.values)
+
     def __enter__(self):
-        self._original = original = self._client.handle_events
+        cls = type(self)
+        with cls._lock:
+            if not cls._open:
+                cls._original = original = self._client.handle_events
 
-        def reading(kv, tasks):
-            self.values = {key: kv.get_str(key) for key in self._keys}
-            self.attempts.append(self.values)
-            return original(kv, tasks)
+                def reading(kv, tasks):
+                    snapshot = cls._open.get(threading.get_ident())
+                    if snapshot is not None:
+                        snapshot._read(kv)
+                    return original(kv, tasks)
 
-        self._client.handle_events = reading
+                self._client.handle_events = reading
+            cls._open[threading.get_ident()] = self
         return self
 
     def __exit__(self, *exc):
-        self._client.handle_events = self._original
+        cls = type(self)
+        with cls._lock:
+            cls._open.pop(threading.get_ident(), None)
+            if not cls._open:
+                self._client.handle_events = cls._original
         return False
 
 
@@ -3570,6 +3642,7 @@ def launcher_slice(torch, client, topologies, reference_losses,
             "checkpoint_seconds": {
                 key: value for key, value in task_metrics.items()
                 if key.startswith("checkpoint/seconds")},
+            "checkpoint_ops_at_last_step": record["checkpoint_ops"],
             "launches": record["launches"],
             "reference_launches": reference_launches,
             "losses": record["losses"], "reference_losses": reference_losses,
@@ -3930,6 +4003,322 @@ _FLASH_SHAPES = set()
 # and its LoRA factors at init (on the host).
 _TP_MODELS = []
 _TP_INIT = {}
+
+
+# Phase 9 (j): an elastic shrink. Two workers of (e)'s BERT-base run at
+# MeshSpec(dp=2) share the card over gloo; chaos SIGKILLs worker:1 after
+# step ELASTIC_KILL_STEP of attempt 0, and the driver's ElasticPolicy
+# relaunches one worker, which refits the mesh to dp=1 and resumes.
+ELASTIC_STEPS = 4
+ELASTIC_KILL_STEP = 3
+ELASTIC_FAULT = f"lose_host_at_step={ELASTIC_KILL_STEP}@worker:1"
+# A worker silent this long is declared lost (the watchdog's path; a
+# survivor whose gloo peer died usually fails on its own first).
+ELASTIC_DEAD_TASK_SECS = 15.0
+# Attempt 1 against the in-process one-device replay of steps 3-4 from the
+# same ckpt-2 on the same global batches: the same code, weights, batches
+# and one-device dropout masks (`training.step_seed`), so the losses come
+# out equal but for the order of the embedding backward's float atomics,
+# as (d)'s resumed steps do (LAUNCHER_LOSS_RTOL). The parameters are f32
+# masters: an atomic's reordering moves an Adam update by ~1e-7 of it,
+# except on the key biases, whose gradient is rounding noise that Adam
+# turns into a step of up to the learning rate (2e-5, bert.make_experiment).
+ELASTIC_LOSS_RTOL = 1e-5
+ELASTIC_PARAM_ATOL = 1e-5
+ELASTIC_KEY_BIAS_ATOL = 2 * 2e-5
+
+
+def elastic_record_path(model_dir, n_try: int, rank: int) -> Path:
+    return Path(model_dir) / f"elastic-{n_try}-{rank}.json"
+
+
+def elastic_bert_experiment(model_dir: str, tiny: bool = False,
+                            replay: bool = False):
+    """Phase 9 (j)'s experiment fn: phase 7's BERT-base experiment (the
+    same batches from `bert_stream`) with a model_dir, ELASTIC_STEPS steps
+    of one step a chunk (so the chaos hook sees every step), a checkpoint
+    every 2 steps, all kept, at a declared ``MeshSpec(dp=2)`` (none for
+    the in-process `replay`). After each optimizer step it writes
+    elastic-<attempt>-<rank>.json: the losses, the wall time of each
+    step's end, the LayerNorm launches of this process, the world, its
+    backend and device, the train loop's capacity gauges and its
+    "elastic:" log lines, the digest of the state the attempt's first
+    step found (taken before its update: the restored checkpoint on a
+    resumed attempt) and of the parameters after the last step. `tiny`:
+    the tiny f32 config, for a rehearsal on the CPU."""
+    import logging
+
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch import constants, telemetry
+    from tf_yarn_tpu_torch.models import bert
+    from tf_yarn_tpu_torch.ops import layernorm
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
+
+    if tiny:
+        import torch
+
+        config = bert.BertConfig.tiny(dtype=torch.float32, fused_norms=True)
+        shape = dict(batch_size=4, seq_len=16)
+    else:
+        config = bert.BertConfig.base(fused_norms=True)
+        shape = dict(batch_size=32, seq_len=128)
+    input_fn, seen = bert_stream(config, seed=0, **shape)
+    exp = bert.make_experiment(
+        config, model_dir=model_dir, train_steps=ELASTIC_STEPS,
+        log_every_steps=1, steps_per_loop=1, checkpoint_every_steps=2,
+        keep_last_n=None, input_fn=input_fn,
+        mesh_spec=None if replay else MeshSpec(dp=2), **shape)
+    n_try = int(os.environ.get(constants.ENV_N_TRY, "0"))
+    record = {"n_try": n_try, "losses": [], "step_end_wall": [],
+              "elastic_log": []}
+    if not replay:
+        class Refits(logging.Handler):
+            def emit(self, entry):
+                if entry.getMessage().startswith("elastic:"):
+                    record["elastic_log"].append(entry.getMessage())
+
+        logging.getLogger("tf_yarn_tpu_torch.training").addHandler(
+            Refits(logging.WARNING))
+    loss_fn, make_optimizer = exp.loss_fn, exp.optimizer
+    losses = []
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            losses.append(loss.detach())
+        return loss, aux
+
+    def optimizer(model):
+        opt = make_optimizer(model)
+
+        def before_step(opt, args, kwargs):
+            if "restored_sha256" not in record:
+                record["restored_sha256"] = {
+                    "params": params_digest(model.state_dict()),
+                    "optimizer": params_digest(opt.state_dict()["state"])}
+
+        def after_step(opt, args, kwargs):
+            grouped = dist.is_available() and dist.is_initialized()
+            rank = dist.get_rank() if grouped else 0
+            gauges = telemetry.get_registry().snapshot()
+            record.update(
+                losses=[float(x) for x in losses], start_step=seen["start_step"],
+                launches={fn.__name__: fn.launches for fn in (
+                    layernorm.layernorm, layernorm.layernorm_backward)},
+                device=str(model.device), rank=rank,
+                world=dist.get_world_size() if grouped else 1,
+                backend=dist.get_backend() if grouped else None,
+                gauges={key: gauges.get(key) for key in (
+                    "train/mesh_devices", "train/degraded")})
+            record["step_end_wall"].append(time.time())
+            if (seen["start_step"] or 0) + len(losses) == ELASTIC_STEPS:
+                record["params_sha256"] = params_digest(model.state_dict())
+            Path(model_dir).mkdir(parents=True, exist_ok=True)
+            elastic_record_path(model_dir, n_try, rank).write_text(
+                json.dumps(record))
+
+        opt.register_step_pre_hook(before_step)
+        opt.register_step_post_hook(after_step)
+        return opt
+
+    exp.loss_fn, exp.optimizer = recording_loss, optimizer
+    return exp
+
+
+def _max_abs_err(torch, got, want, keep):
+    """The largest |got - want| over the tensors of `want` that `keep`
+    names, and whether all of them are bitwise equal."""
+    worst, equal = 0.0, True
+    for name, value in want.items():
+        if keep(name):
+            diff = (got[name].double() - value.double()).abs().max().item()
+            worst = max(worst, diff)
+            equal = equal and torch.equal(got[name], value)
+    return worst, equal
+
+
+def elastic_part(torch, client, topologies, training, experiment, counted,
+                 reference_launches, dev, tiny=False, env=None):
+    """Phase 9 (j): `run_on_gpu` of two workers (`elastic_bert_experiment`)
+    with ``ElasticPolicy(min_workers=1, max_workers=2)``, ``nb_retries``
+    1 and ``TPU_YARN_FAULT=ELASTIC_FAULT``: the driver classifies attempt
+    0 LOST_TASK and records the shrink 2 -> 1; attempt 1 runs one worker
+    on the card, logs the dp=1 refit, reads `train/mesh_devices` 1 and
+    `train/degraded` 1, resumes at ckpt-2 with ckpt-2's state bitwise and
+    finishes step 4; each attempt's workers launched the LayerNorm
+    forward and backward as often as their steps call for; its losses
+    and ckpt-4 match a one-device replay of steps 3-4 in this process
+    from the same ckpt-2 (`counted`'s counts set to 0 just before it).
+    Returns the part's record, with the seconds from the kill to the
+    LOST_TASK classification and from the relaunch to its first step.
+    `reference_launches`: phase 7's BERT-base counts (its count_flops
+    pass and 4 steps)."""
+    from tf_yarn_tpu_torch import checkpoint as ckpt
+    from tf_yarn_tpu_torch import resilience, telemetry
+
+    tmp = Path(tempfile.mkdtemp(prefix="elastic_j"))
+    try:
+        model_dir = tmp / "model"
+        want_device = "cpu" if tiny else "cuda"
+        retry = resilience.RetryPolicy.from_nb_retries(
+            1, seed=0, base_backoff_secs=0.5, max_backoff_secs=1.0)
+        elastic = resilience.ElasticPolicy(min_workers=1, max_workers=2)
+        shrinks = telemetry.get_registry().counter(
+            "driver/elastic_resizes_total", direction="shrink")
+        shrinks_before = shrinks.value
+        # The driver's moments in this thread (other parts run beside it):
+        # each attempt's launch and each classified failure, wall clock.
+        me = threading.get_ident()
+        launched, failed = [], []
+        setup, execute = client._setup_cluster, client._execute_and_await_termination
+
+        def timed_setup(*args, **kwargs):
+            if threading.get_ident() == me:
+                launched.append(time.time())
+            return setup(*args, **kwargs)
+
+        def timed_execute(*args, **kwargs):
+            try:
+                return execute(*args, **kwargs)
+            except client.RunFailed as exc:
+                if threading.get_ident() == me:
+                    failed.append((time.time(), exc.kind.value, exc.lost_tasks))
+                raise
+
+        client._setup_cluster = timed_setup
+        client._execute_and_await_termination = timed_execute
+        started = time.perf_counter()
+        try:
+            client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.elastic_bert_experiment", str(model_dir), tiny),
+                {"worker": topologies.TaskSpec(instances=2)}, name="elastic",
+                env=dict({"PYTHONPATH": str(REPO), "TPU_YARN_FAULT": ELASTIC_FAULT,
+                          "TPU_YARN_HEARTBEAT_SECS": "0.5"}, **(env or {})),
+                retry_policy=retry, elastic_policy=elastic,
+                dead_task_secs=ELASTIC_DEAD_TASK_SECS, poll_every_secs=0.5)
+        except Exception as exc:
+            raise AssertionError(
+                f"(j) elastic run failed: {exc}\n"
+                f"{task_log_tails(runs=2, name='elastic')}") from exc
+        finally:
+            client._setup_cluster = setup
+            client._execute_and_await_termination = execute
+        launched_wall = time.perf_counter() - started
+        records = {(n_try, rank): json.loads(
+            elastic_record_path(model_dir, n_try, rank).read_text())
+            for n_try, rank in ((0, 0), (0, 1), (1, 0))
+            if elastic_record_path(model_dir, n_try, rank).exists()}
+        stored = ckpt.restore_checkpoint(str(model_dir), 2, map_location="cpu")
+        ckpt2 = {"params": params_digest(stored["params"]),
+                 "optimizer": params_digest(stored["optimizer"]["state"])}
+        del stored
+        relaunch = records.get((1, 0), {})
+        problems = []
+        if [d.kind.value for d in retry.history] != ["LOST_TASK"] \
+                or [kind for _, kind, _ in failed] != ["LOST_TASK"] \
+                or failed[0][2] != ["worker:1"]:
+            problems.append(f"retries {retry.history}, failures {failed}")
+        if [(r.direction, r.from_workers, r.to_workers, r.kind.value)
+                for r in elastic.history] != [("shrink", 2, 1, "LOST_TASK")] \
+                or shrinks.value - shrinks_before != 1:
+            problems.append(f"elastic history {elastic.history}")
+        for rank in (0, 1):
+            r = records.get((0, rank), {})
+            if (r.get("world"), r.get("backend"), len(r.get("losses", ()))) \
+                    != (2, "gloo", ELASTIC_KILL_STEP) \
+                    or not r.get("device", "").startswith(want_device):
+                problems.append(f"attempt 0 rank {rank}: {r}")
+        if (relaunch.get("world"), relaunch.get("start_step"),
+                len(relaunch.get("losses", ()))) != (1, 2, ELASTIC_STEPS - 2) \
+                or not relaunch.get("device", "").startswith(want_device) \
+                or relaunch.get("gauges") != {"train/mesh_devices": 1.0,
+                                              "train/degraded": 1.0} \
+                or len(relaunch.get("elastic_log", ())) != 1 \
+                or "refit onto 1 ranks -> MeshSpec(dp=1," \
+                not in relaunch["elastic_log"][0]:
+            problems.append(f"attempt 1: {relaunch}")
+        if relaunch.get("restored_sha256") != ckpt2:
+            problems.append(f"attempt 1 restored {relaunch.get('restored_sha256')}"
+                            f", ckpt-2 {ckpt2}")
+        if ckpt.latest_verified_step(str(model_dir)) != ELASTIC_STEPS:
+            problems.append(f"checkpoints {ckpt.list_checkpoint_steps(str(model_dir))}")
+        if problems:
+            raise AssertionError(
+                "(j) elastic shrink: " + "; ".join(problems)
+                + f"\n{task_log_tails(runs=2, name='elastic')}")
+
+        # The one-device replay of steps 3-4 from the same ckpt-2.
+        replay_dir = tmp / "replay"
+        replay_dir.mkdir()
+        shutil.copytree(model_dir / "ckpt-2", replay_dir / "ckpt-2")
+        _zero(counted)
+        started = time.perf_counter()
+        training.train_and_evaluate(experiment.as_core_experiment(
+            elastic_bert_experiment(str(replay_dir), tiny, replay=True)),
+            device=dev)
+        replay_s = time.perf_counter() - started
+        replay = json.loads(elastic_record_path(replay_dir, 0, 0).read_text())
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(relaunch["losses"], replay["losses"]))
+        got = ckpt.restore_checkpoint(str(model_dir), ELASTIC_STEPS,
+                                      map_location="cpu")["params"]
+        want = ckpt.restore_checkpoint(str(replay_dir), ELASTIC_STEPS,
+                                       map_location="cpu")["params"]
+        param_err, params_equal = _max_abs_err(
+            torch, got, want, lambda name: not name.endswith("wk.bias"))
+        key_bias_err, key_biases_equal = _max_abs_err(
+            torch, got, want, lambda name: name.endswith("wk.bias"))
+        # Launches: every run makes one count_flops pass (c) before its steps
+        # (s each). The replay and attempt 1 run c + 2s, attempt 0's ranks
+        # c + 3s by their step 3, phase 7 c + 4s.
+        launch_problems = []
+        for name, replayed in replay["launches"].items():
+            step = records[(0, 0)]["launches"][name] - replayed
+            counts = (relaunch["launches"][name], records[(0, 1)]["launches"][name],
+                      reference_launches[name])
+            if counts != (replayed, replayed + step, replayed + 2 * step) \
+                    or (not tiny and step <= 0):
+                launch_problems.append((name, replayed, step, counts))
+        if (len(replay["losses"]) != ELASTIC_STEPS - 2 or loss_err
+                > ELASTIC_LOSS_RTOL or param_err > ELASTIC_PARAM_ATOL
+                or key_bias_err > ELASTIC_KEY_BIAS_ATOL or launch_problems
+                or replay.get("restored_sha256") != ckpt2):
+            raise AssertionError(
+                f"(j) against the one-device replay: losses {relaunch['losses']}"
+                f" and {replay['losses']}, parameters max abs err {param_err}, "
+                f"key biases {key_bias_err}, launches {launch_problems}, replay "
+                f"restored {replay.get('restored_sha256')}")
+        kill_at = records[(0, 1)]["step_end_wall"][-1]
+        result = {
+            "retries": [d.kind.value for d in retry.history],
+            "elastic_history": [[r.direction, r.from_workers, r.to_workers,
+                                 r.kind.value] for r in elastic.history],
+            "lost_tasks": failed[0][2],
+            "attempt_0": [{key: records[(0, rank)][key] for key in (
+                "rank", "world", "backend", "device", "losses", "launches")}
+                for rank in (0, 1)],
+            "attempt_1": {key: relaunch[key] for key in (
+                "world", "device", "start_step", "losses", "launches", "gauges",
+                "elastic_log")},
+            "restored_bitwise_ckpt_2": True,
+            "replay_losses": replay["losses"],
+            "loss_max_rel_err": loss_err,
+            "losses_bitwise_equal": relaunch["losses"] == replay["losses"],
+            "ckpt_4_max_abs_err": param_err, "ckpt_4_bitwise": params_equal,
+            "key_bias_max_abs_err": key_bias_err,
+            "key_biases_bitwise": key_biases_equal,
+            "kill_to_lost_task_s": failed[0][0] - kill_at,
+            "relaunch_to_first_step_s":
+                relaunch["step_end_wall"][0] - launched[1],
+            "launched_run_s": launched_wall, "replay_s": replay_s,
+        }
+        shutil.rmtree(tmp, ignore_errors=True)
+        return result
+    finally:
+        # After any failure message has taken the task logs' tails.
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def tp_config(torch, tt, tiny: bool):
@@ -4907,15 +5296,16 @@ def launch_in_background(client, *args, **kwargs):
     return thread, outcome
 
 
-def task_log_tails(lines: int = 40, runs: int = 1) -> str:
+def task_log_tails(lines: int = 40, runs: int = 1,
+                   name: str = "gpu_yarn") -> str:
     """The last `lines` lines of each task log of the newest `runs`
-    `run_on_gpu` runs (their log directories under the temporary
-    directory)."""
+    `run_on_gpu` runs named `name` (their log directories under the
+    temporary directory)."""
     import glob
     import tempfile
 
     dirs = sorted(glob.glob(os.path.join(tempfile.gettempdir(),
-                                         "gpu_yarn-logs-*")),
+                                         f"{name}-logs-*")),
                   key=os.path.getmtime)[-runs:]
     tails = []
     for path in sorted(path for run in dirs
@@ -5973,8 +6363,14 @@ def main() -> int:
     sp_pp_tmp = Path(tempfile.mkdtemp(prefix="sp_pp"))
     sp_pp_wait = concurrently_started({"h_i": lambda: sequence_pipeline_part(
         torch, tt, ckpt, training, experiment, dev, sp_pp_tmp)})
-    started = time.perf_counter()
     bert_launches = zoo_results["bert_base"]["launches"]
+    # Phase 9 (j), the elastic shrink, launches and is checked beside
+    # (a)-(f) too: its driver waits on its workers, as theirs do.
+    elastic_wait = concurrently_started({"j": lambda: elastic_part(
+        torch, client, topologies, training, experiment, norm_counted[:2],
+        {name: bert_launches[name]
+         for name in ("layernorm", "layernorm_backward")}, dev)})
+    started = time.perf_counter()
     launcher_result = launcher_slice(
         torch, client, topologies, zoo_results["bert_base"]["losses"],
         {name: bert_launches[name]
@@ -5987,9 +6383,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("9 launcher slice (a)-(f)")
     try:
-        sp_pp_result = sp_pp_wait()["h_i"][0]
+        elastic_result, elastic_s = elastic_wait()["j"]
     finally:
-        shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+        try:
+            sp_pp_result = sp_pp_wait()["h_i"][0]
+        finally:
+            shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+    log(f"elastic slice (phase 9 (j)): {json.dumps(elastic_result)} on "
+        f"{card}")
+    log(f"elastic part: {elastic_s:.1f} s beside (a)-(f); the kill to "
+        f"LOST_TASK {elastic_result['kill_to_lost_task_s']:.1f} s, the "
+        f"relaunch to its first step "
+        f"{elastic_result['relaunch_to_first_step_s']:.1f} s")
     for tag in ("h_ulysses_flash", "h_ring", "i_gpipe"):
         log(f"{'sp' if tag.startswith('h') else 'pp'} slice (phase 9 "
             f"({tag[0]}), {tag[2:]}): {json.dumps(sp_pp_result[tag])} on "
@@ -5999,7 +6404,7 @@ def main() -> int:
                                      if k.endswith("_s")}))
     gc.collect()
     torch.cuda.empty_cache()
-    mark("9 (h), (i) beside (a)-(f)")
+    mark("9 (h), (i), (j) beside (a)-(f)")
 
     # Phase 9 (g) beside phase 10 (a): the tp ranks are launched now, the
     # one-rank reference trains in this process while they start, and the
@@ -6104,6 +6509,13 @@ def main() -> int:
             if row["name"] in worker["launches"]:
                 by_path[f"pytorch worker {worker['rank']}"] = \
                     worker["launches"][row["name"]]
+        for rank in elastic_result["attempt_0"]:
+            if row["name"] in rank["launches"]:
+                by_path[f"elastic attempt 0 rank {rank['rank']}"] = \
+                    rank["launches"][row["name"]]
+        if row["name"] in elastic_result["attempt_1"]["launches"]:
+            by_path["elastic attempt 1"] = \
+                elastic_result["attempt_1"]["launches"][row["name"]]
         for rank in tp_result["ranks"]:
             if row["name"] in rank["launches"]:
                 by_path[f"tp rank {rank['rank']}"] = \

@@ -80,11 +80,16 @@ def test_worker_trains_beside_the_evaluator_and_tensorboard(phase9):
     assert evaluator["health"]["last_training_step"] == "4"
     assert evaluator["health"]["nb_eval_steps"] == "4"
     assert trained["tensorboard"]["events"]
-    # The worker's checkpoints went through the async writer: the
-    # registry it flushed at its last log step holds ckpt-2's submit.
+    # The worker's checkpoints went through the async writer: by its last
+    # step (so in its last log step's flush) its registry had timed
+    # ckpt-2's submit and nothing else, no synchronous save and no wait
+    # on the writer. The worker's own record holds those ops: the KV
+    # payload is flushed again by heartbeats, one of which can land after
+    # the writer's final wait. What reached the KV store holds the submit.
+    assert trained["checkpoint_ops_at_last_step"] == ["save_submit"]
     ops = {re.search(r"\{op=(\w+)\}", key).group(1)
            for key in trained["checkpoint_seconds"]}
-    assert ops == {"save_submit"}
+    assert "save_submit" in ops
     assert set(result["seconds"]) == {"a_train", "b_no_card", "c_all_reduce",
                                       "e_ranks", "d_drain", "f_pytorch",
                                       "bcf_together"}

@@ -18,6 +18,7 @@ import json
 import re
 import socket
 import threading
+import time
 import types
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -991,6 +992,21 @@ def test_port_fleet_matches_legacy_and_survives_a_stopped_replica():
         _close(replicas[1:])
 
 
+def _settled(read, done, seconds=5.0):
+    """`read()` once `done` holds of it, or its last value after
+    `seconds`. The router observes a request's
+    ``fleet/routed_request_seconds`` and closes its ``router/route`` span
+    after the reply is written (fleet/router.py, as in the JAX router), so
+    a reader that has every reply may still be ahead of the last handler
+    thread."""
+    deadline = time.monotonic() + seconds
+    value = read()
+    while not done(value) and time.monotonic() < deadline:
+        time.sleep(0.05)
+        value = read()
+    return value
+
+
 def test_port_fleet_pools_the_ttft_p95_and_joins_request_ids():
     """Two port replicas, the router and a `FleetMonitor`, one monitor
     cycle driven after the traffic: the merged ``serving/ttft_seconds``
@@ -1005,9 +1021,17 @@ def test_port_fleet_pools_the_ttft_p95_and_joins_request_ids():
     router = t_fleet.RouterServer(registry, t_fleet.make_policy("round_robin"),
                                   "127.0.0.1", 0, monitor=monitor)
     router.start()
+
+    def routed():
+        return sum(hist.summary()["count"] for _, hist in
+                   metrics.find_histograms("fleet/routed_request_seconds"))
+
     try:
+        before = routed()
         _concurrent(router.port, [{"prompt": p, "max_new_tokens": 4}
                                   for p in PROMPTS])  # warm both
+        # The warm requests' observations land before the clear.
+        _settled(routed, lambda n: n >= before + len(PROMPTS))
         metrics.clear()
         hist = metrics.histogram("serving/ttft_seconds")
         raw, observe = [], hist.observe
@@ -1037,17 +1061,27 @@ def test_port_fleet_pools_the_ttft_p95_and_joins_request_ids():
         alpha = t_telemetry.HIST_ALPHA
         assert abs(merged["p95"] - oracle) / oracle <= alpha
         assert aggregate["slo"]["ttft_p95_s"]["status"] == "ok"
-        status, _h, text = _request(router.port, "GET", "/metrics")
-        text = "\n".join(text) if isinstance(text, list) else text
+        routed_ok = (r'fleet_routed_request_seconds_count\{outcome="ok",'
+                     r'path="/v1/generate"\} 8.0')
+
+        def metrics_text():
+            _status, _h, text = _request(router.port, "GET", "/metrics")
+            return "\n".join(text) if isinstance(text, list) else text
+
+        text = _settled(metrics_text, lambda t: re.search(routed_ok, t))
         match = re.search(r'^fleet_serving_ttft_seconds\{agg="p95"\} (\S+)$',
                           text, re.M)
         assert match and float(match.group(1)) == merged["p95"]
-        assert re.search(r'fleet_routed_request_seconds_count\{outcome="ok",'
-                         r'path="/v1/generate"\} 8.0', text), text
+        assert re.search(routed_ok, text), text
         rid = ids[1]
+
+        def routes():
+            return [s for s in t_telemetry.get_tracer().records()
+                    if s.name == "router/route"
+                    and s.args.get("request_id") == rid]
+
+        assert len(_settled(routes, lambda found: len(found) >= 1)) == 1
         spans = t_telemetry.get_tracer().records()
-        assert len([s for s in spans if s.name == "router/route"
-                    and s.args.get("request_id") == rid]) == 1
         assert len([s for s in spans if s.name == "serving/submit"
                     and s.args.get("request_id") == rid]) == 1
         owners = [r["task"] for r in replicas

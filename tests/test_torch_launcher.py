@@ -466,7 +466,6 @@ REFUSED = {
     "requirements": ({"worker": 1}, {"requirements": ["numpy"]}, "item 5"),
     "wheels_dir": ({"worker": 1}, {"wheels_dir": "/nowhere"}, "item 5"),
     "env_staging_dir": ({"worker": 1}, {"env_staging_dir": "/x"}, "item 5"),
-    "elastic_policy": ({"worker": 1}, {"elastic_policy": object()}, "item 5"),
 }
 
 

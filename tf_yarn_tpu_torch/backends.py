@@ -12,7 +12,8 @@ driver polls.
   mocks, actual processes coordinating through the actual KV service.
 
 The JAX package's `SshBackend` (backends.py:260), one task runner a
-machine over ssh, is not ported yet (ROADMAP.md Queue 1 item 5).
+machine over ssh that blacklists the hosts `note_lost_tasks` names, is
+not ported yet (ROADMAP.md Queue 1 item 5.4).
 """
 
 from __future__ import annotations
@@ -96,6 +97,15 @@ class SliceBackend(ABC):
         self, services: Dict[str, ServiceSpec], log_dir: str
     ) -> ClusterHandle:
         ...
+
+    def note_lost_tasks(self, tasks: List[str]) -> None:
+        """Driver feedback after a failed attempt: these "type:id" tasks
+        died without a lifecycle close (SIGKILLed host, heartbeat-silent
+        past the watchdog). A backend that maps tasks onto real machines
+        uses it to keep the dead machine out of the NEXT launch — an
+        elastic shrink that re-places a task on the host that just
+        vanished would lose it again at once. Default: no-op
+        (LocalBackend's subprocesses share one host)."""
 
 
 def _terminate(procs) -> None:

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from tf_yarn_tpu_torch import telemetry
+from tf_yarn_tpu_torch.resilience import chaos as _chaos
 
 _logger = logging.getLogger(__name__)
 
@@ -185,6 +186,9 @@ def _write_tree(model_dir: str, step: int, state: Dict[str, Any]) -> str:
     write_manifest(staging, step=step)
     shutil.rmtree(path, ignore_errors=True)
     os.replace(staging, path)
+    # The commit boundary of both save paths (the synchronous one and the
+    # async writer's thread): TPU_YARN_FAULT truncate_ckpt=latest.
+    _chaos.on_checkpoint_commit(path)
     return path
 
 

@@ -8,7 +8,14 @@ subprocesses on this host), posts the pickled experiment and polls the
 tasks to the end, with the heartbeat watchdog and one global deadline.
 A failed attempt is classified from the tasks' stop events (TRANSIENT,
 PREEMPTED, LOST_TASK, FATAL_USER) and retried within that kind's
-budget. The run's `Metrics` come back to the caller.
+budget. With an `elastic_policy` a retry resizes instead of waiting for
+the same capacity (JAX client.py:722-763): a capacity failure (LOST_TASK,
+PREEMPTED) relaunches each elastic task type on its surviving tasks,
+another retryable failure grows it back, and the tasks learn the
+attempt's count and the full one from ``TPU_YARN_ELASTIC_WORKERS`` and
+``TPU_YARN_ELASTIC_MAX_WORKERS`` (other types: `constants.
+elastic_env_vars`), from which the train loop refits its mesh. The
+run's `Metrics` come back to the caller.
 
 The experiment crosses to the tasks pickled: by value with cloudpickle
 where the driver has it, else by reference with the stdlib pickle, so
@@ -18,9 +25,9 @@ that cannot be pickled raises here, before anything is launched.
 
 Not ported yet, each refused before anything is launched: code and
 dependency shipping (`ship_code`, `requirements`, `wheels_dir`,
-`env_staging_dir`; ROADMAP.md Queue 1 item 5), backends other than
-`LocalBackend` (`SshBackend`; item 5) and elastic resize
-(`elastic_policy`; item 5).
+`env_staging_dir`; ROADMAP.md Queue 1 item 5) and backends other than
+`LocalBackend` (`SshBackend`, whose blacklist of lost hosts
+`SliceBackend.note_lost_tasks` feeds; item 5.4).
 
 The side-cars: an ``evaluator`` task places itself as every task does,
 on the card unless the caller's env sets ``TPU_YARN_PLATFORM=cpu`` (the
@@ -53,7 +60,7 @@ import pickle
 import tempfile
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Callable, Dict, List, Optional
 
@@ -74,6 +81,7 @@ from tf_yarn_tpu_torch.coordination import KVClient, KVStore
 from tf_yarn_tpu_torch.coordination.server_factory import start_best_server
 from tf_yarn_tpu_torch.resilience import (
     Deadline,
+    ElasticPolicy,
     FailureKind,
     HeartbeatWatchdog,
     RetryPolicy,
@@ -460,14 +468,10 @@ def _log_run_outcome(
     mlflow.save_text_to_mlflow(summary, "tpu_yarn_run_outcome")
 
 
-def _refuse_unported(backend: SliceBackend, *, ship_code, requirements, wheels_dir, env_staging_dir,
-                     elastic_policy) -> None:
+def _refuse_unported(backend: SliceBackend, *, ship_code, requirements,
+                     wheels_dir, env_staging_dir) -> None:
     """Raise NotImplementedError for what the port cannot launch yet,
     before anything is started."""
-    if elastic_policy is not None:
-        raise NotImplementedError(
-            "elastic_policy: resilience/elastic.py and the driver's resize "
-            "are not ported yet (ROADMAP.md Queue 1 item 5)")
     asked = [name for name, value in (
         ("ship_code", ship_code), ("requirements", requirements),
         ("wheels_dir", wheels_dir), ("env_staging_dir", env_staging_dir))
@@ -526,14 +530,20 @@ def run_on_gpu(
     ``TPU_YARN_DEAD_TASK_SECS`` env) arms the heartbeat watchdog. Task
     logs land in ``<tmp>/<name>-logs-*/<type>-<id>.log``, listed in the
     run-outcome summary.
+
+    `elastic_policy` (an `ElasticPolicy` for the ``worker`` type, or
+    ``{task_type: ElasticPolicy}``) makes a retry resize instead: a
+    LOST_TASK or PREEMPTED attempt relaunches the type on its surviving
+    tasks (never below ``min_workers``), another retryable failure grows
+    it back to ``max_workers``; `ElasticPolicy.history` records each
+    resize and ``driver/elastic_resizes_total{direction}`` counts them.
     """
     task_specs = dict(task_specs) if task_specs else single_server_topology()
     check_topology(task_specs)
     backend = backend or LocalBackend()
     _refuse_unported(
         backend, ship_code=ship_code, requirements=requirements,
-        wheels_dir=wheels_dir, env_staging_dir=env_staging_dir,
-        elastic_policy=elastic_policy)
+        wheels_dir=wheels_dir, env_staging_dir=env_staging_dir)
     env = dict(env or {})
     files = dict(files or {})
     try:
@@ -547,6 +557,11 @@ def run_on_gpu(
         ) from exc
 
     policy = retry_policy or RetryPolicy.from_nb_retries(nb_retries)
+    elastic_policies = _normalize_elastic(elastic_policy, task_specs)
+    current_counts = {
+        task_type: task_specs[task_type].instances
+        for task_type in elastic_policies
+    }
     # ONE monotonic budget for the whole run: created before the first
     # attempt, never recomputed.
     deadline = Deadline.after(timeout_secs)
@@ -610,6 +625,46 @@ def run_on_gpu(
             telemetry.get_registry().counter(
                 "driver/retries_total", kind=kind.value
             ).inc()
+            _note_lost_to_backend(backend, exc)
+            for task_type, type_policy in elastic_policies.items():
+                # Resize-not-retry: a capacity failure relaunches the
+                # elastic task types on the surviving hosts instead of
+                # blocking on full capacity; any other retryable failure
+                # is the moment to grow back. Each elastic type resizes
+                # independently — a lost serving replica must not shrink
+                # the worker pool.
+                lost_count = sum(
+                    1
+                    for task in getattr(exc, "lost_tasks", None) or []
+                    if task.split(":", 1)[0] == task_type
+                )
+                new_count = type_policy.plan_resize(
+                    kind, current_counts[task_type], lost_tasks=lost_count
+                )
+                if new_count is None:
+                    continue
+                direction = (
+                    "shrink" if new_count < current_counts[task_type]
+                    else "grow"
+                )
+                _logger.warning(
+                    "elastic resize (%s): relaunching with %d %s tasks "
+                    "(was %d) after %s",
+                    direction, new_count, task_type,
+                    current_counts[task_type], kind.value,
+                )
+                telemetry.get_registry().counter(
+                    "driver/elastic_resizes_total", direction=direction
+                ).inc()
+                current_counts[task_type] = new_count
+                task_specs = dict(task_specs)
+                task_specs[task_type] = replace(
+                    task_specs[task_type], instances=new_count
+                )
+                env = dict(env)
+                count_var, max_var = constants.elastic_env_vars(task_type)
+                env[count_var] = str(new_count)
+                env[max_var] = str(type_policy.max_workers)
             if delay:
                 time.sleep(delay)
             n_try += 1
@@ -621,6 +676,63 @@ def run_on_gpu(
                 except Exception:  # best-effort teardown
                     _logger.debug("coordination server stop failed",
                                   exc_info=True)
+
+
+def _normalize_elastic(
+    elastic_policy, task_specs
+) -> Dict[str, ElasticPolicy]:
+    """The elastic band(s) as ``{task_type: ElasticPolicy}``, validated
+    against the topology (JAX client.py:775-817). A bare policy resizes
+    the ``worker`` type; a dict makes any task type elastic (``serving``
+    or ``rank`` replica pools). Raises ValueError on a type missing
+    from the topology or an initial count outside its band."""
+    if elastic_policy is None:
+        return {}
+    if isinstance(elastic_policy, ElasticPolicy):
+        policies = {"worker": elastic_policy}
+    elif isinstance(elastic_policy, dict):
+        policies = dict(elastic_policy)
+    else:
+        raise ValueError(
+            "elastic_policy must be an ElasticPolicy or a "
+            f"{{task_type: ElasticPolicy}} dict, got {elastic_policy!r}"
+        )
+    for task_type, type_policy in policies.items():
+        if not isinstance(type_policy, ElasticPolicy):
+            raise ValueError(
+                f"elastic_policy[{task_type!r}] must be an ElasticPolicy, "
+                f"got {type_policy!r}"
+            )
+        if task_type not in task_specs \
+                or task_specs[task_type].instances < 1:
+            raise ValueError(
+                f"elastic_policy resizes the {task_type!r} task type; "
+                f"the topology needs a {task_type!r} spec with instances "
+                ">= 1 (chief and side-cars are never resized)"
+            )
+        count = task_specs[task_type].instances
+        if not (
+            type_policy.min_workers <= count <= type_policy.max_workers
+        ):
+            raise ValueError(
+                f"initial {task_type} count {count} outside the "
+                f"elastic band [{type_policy.min_workers}, "
+                f"{type_policy.max_workers}]"
+            )
+    return policies
+
+
+def _note_lost_to_backend(backend, exc: Exception) -> None:
+    """Feed the failed attempt's lost tasks (SIGKILLed or heartbeat-
+    silent, carried on RunFailed.lost_tasks) back to the backend before
+    the relaunch, so a host-placing backend can keep the dead machines
+    out of the next attempt (JAX client.py:820-833). The port's backends
+    note nothing (`SliceBackend.note_lost_tasks`); `SshBackend`'s
+    blacklist, which the JAX driver guards against raising, is item
+    5.4."""
+    lost = getattr(exc, "lost_tasks", None) or []
+    if lost:
+        backend.note_lost_tasks(list(lost))
 
 
 def _shutdown_on_exception(cluster: Optional[SliceCluster], status: str) -> None:

@@ -43,6 +43,8 @@ import struct
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from tf_yarn_tpu_torch.resilience import chaos as _chaos
+
 
 _logger = logging.getLogger(__name__)
 
@@ -357,6 +359,9 @@ class KVClient(KVStore):
 
     def _request(self, req: dict, timeout: Optional[float] = None) -> dict:
         op = req.get("op")
+        # Deterministic fault injection (TPU_YARN_FAULT kv_delay=p,secs):
+        # a no-op cached check when chaos is unarmed.
+        _chaos.on_kv_op(op)
         if op not in self._POOLED_OPS:
             # `wait` may block server-side until the key appears (socket
             # timeout must outlive it); mutations must be at-most-once, so

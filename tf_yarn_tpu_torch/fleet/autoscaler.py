@@ -9,9 +9,11 @@ a pluggable actuator:
 * in-process harnesses (tests) pass an ``actuate=`` callable that starts
   or drains replicas directly;
 * the launched router (`router.run_router`) records the desired count in
-  the coordination KV (``event.fleet_desired_event``) for the driver's
-  elastic relaunch, or an operator, to act on. The port's driver does not
-  read it yet (ROADMAP.md Queue 1 item 5.1).
+  the coordination KV (``event.fleet_desired_event``) for an operator to
+  act on. Neither driver reads it: the JAX package's `run_on_tpu` does
+  not either, whatever its autoscaler's docstring says, and an
+  ``elastic_policy={"serving": ...}`` resizes a relaunch from the failure
+  that ended the attempt, not from this target.
 
 Decisions are thresholds, a step and a cooldown:
 

@@ -337,19 +337,37 @@ class DataParallel:
                     for group in optim["param_groups"]]},
         }
 
-    def load_full_state(self, state: Dict[str, Any]) -> None:
-        """Load `full_state`'s format (a checkpoint of any world size and
-        mesh). Under tp every rank takes its shards of it
-        (`sharding.shard_like_annotated`); under FSDP2 every rank loads the
-        whole state and keeps its shard."""
-        if self.pp is not None:
-            state = self._stage_state(state)
-        params, optim = state["params"], state["optimizer"]
+    def reshard_state(self, state: Dict[str, Any],
+                      old_spec=None) -> Dict[str, Any]:
+        """The rank's part of a restored one-device train state
+        (`full_state`'s format, which a checkpoint of any world size and
+        mesh is) on this attempt's mesh — the elastic-resume primitive,
+        JAX ``sharding.reshard_state`` (sharding.py:146-187): the rank's
+        pipeline stage's leaves, the optimizer's renumbered to the rank's
+        optimizer; each ``tp``-placed parameter and its optimizer state
+        cut to the rank's slice (`sharding.shard_like_annotated`); the
+        rest, and the entries besides the two parts, as they are. Pure
+        data movement: every value the rank keeps is the checkpoint's,
+        bit for bit. `old_spec` (the declared `MeshSpec` an elastic
+        attempt refit) is advisory: logged, so a resize shows in the
+        task logs."""
+        if old_spec is not None:
+            _logger.info("resharding state: %s -> %s", old_spec,
+                         dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)))
+        part = self._stage_state(state) if self.pp is not None else state
+        params, optim = part["params"], part["optimizer"]
         if self.tp is not None:
             params = sharding.shard_like_annotated(self.inner, params,
                                                    self.mesh)
             optim = tp_lib.shard_optimizer(optim, self._names, self.tp_dims,
                                            self.tp)
+        return dict(state, params=params, optimizer=optim)
+
+    def load_rank_state(self, state: Dict[str, Any]) -> None:
+        """Load the rank's part of a one-device state (`reshard_state`):
+        DDP and tp load it as it is; under FSDP2 every rank loads it whole
+        and keeps its shard."""
+        params, optim = state["params"], state["optimizer"]
         if self.kind in ("ddp", "tp"):
             self.inner.load_state_dict(params)
             self.optimizer.load_state_dict(optim)

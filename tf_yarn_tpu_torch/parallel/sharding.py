@@ -36,9 +36,13 @@ rank keeps the contiguous ``1/tp`` of that dim at its ``tp`` index;
 group when the train loop wraps the model (`parallel.data_parallel`).
 GSPMD pads a dim that ``tp`` does not divide; the port refuses it
 (`parallel.tensor_parallel.parallelize` names the dimension).
-`reshard_state` (elastic resume, ROADMAP.md Queue 1 item 7g) and
-`oversized_replicated_leaves` (the placement probe of the analysis
-engine, item 10) are not ported here.
+`reshard_state` (sharding.py:146-187, the elastic-resume primitive) is
+`parallel.data_parallel.DataParallel.reshard_state`: a restored
+one-device state cut by these rules to what a rank of the attempt's mesh
+holds, which is all a re-placement is in the port. Every multi-rank
+restore of the train loop goes through it, at the checkpoint's size or
+another. `oversized_replicated_leaves` (the placement probe of the
+analysis engine, ROADMAP.md Queue 1 item 10) is not ported here.
 """
 
 from __future__ import annotations

@@ -426,7 +426,8 @@ def run_prefill(experiment, runtime=None) -> dict:
                      step, endpoint, advertised, experiment.block_size)
         try:
             serve_until_stopped("prefill", experiment.serve_seconds,
-                                worker.drain, poll=replica_poll(replica))
+                                worker.drain, poll=replica_poll(replica),
+                                task=telemetry_task)
         finally:
             server.stop()
             stats = {"endpoint": advertised, "ckpt_step": step,

@@ -53,6 +53,7 @@ from typing import Optional
 import torch
 
 from tf_yarn_tpu_torch import preemption, telemetry
+from tf_yarn_tpu_torch.resilience import chaos
 from tf_yarn_tpu_torch.serving.request import (
     DEFAULT_TIER,
     QueueFull,
@@ -382,13 +383,21 @@ def task_name(runtime, default: str) -> str:
 
 
 def serve_until_stopped(name: str, serve_seconds: Optional[float], drain,
-                        poll=None) -> None:
+                        poll=None, task: Optional[str] = None) -> None:
     """The replicas' poll loop: return on the preemption notice (after
     `drain()`, which `/healthz` reports) or once `serve_seconds` have
-    passed; `poll()` runs every round."""
+    passed; `poll()` runs every round. Given the replica's `task` (the
+    decode and prefill replicas', JAX server.py:528-536 and
+    prefill.py:515-521), each round asks `chaos.on_replica_poll` too,
+    whose injected notice (``TPU_YARN_FAULT`` preempt_replica_at) takes
+    the real notice's drain path."""
     deadline = (time.monotonic() + serve_seconds
                 if serve_seconds is not None else None)
+    serve_began = time.monotonic()
     while True:
+        if task is not None and chaos.on_replica_poll(
+                task, time.monotonic() - serve_began):
+            preemption.request()
         if preemption.requested():
             _logger.info("%s task draining on preemption notice", name)
             drain()
@@ -476,11 +485,10 @@ def run_serving(experiment, runtime=None) -> dict:
     over the replica's ranks (`load_engine`), whose followers stop on
     every way out. With ``prefill_tier`` on the paged
     layout, a `PrefillClient` pulls long prompts' blocks from the
-    ``prefill`` tier it finds in the run's KV store. The fault-injection
-    hook of the JAX loop (`chaos.on_replica_poll`) waits for
-    resilience/chaos.py (ROADMAP.md Queue 1 item 5.2); the model_dir
-    placement check for remote filesystems waits for fs.py (item 5.4):
-    model_dir is a local path."""
+    ``prefill`` tier it finds in the run's KV store. The poll loop asks
+    `chaos.on_replica_poll` for an injected preemption notice. The
+    model_dir placement check for remote filesystems waits for fs.py
+    (ROADMAP.md Queue 1 item 5.4): model_dir is a local path."""
     telemetry_task = task_name(runtime, "serving")
     telemetry.enable_env_jsonl(telemetry_task)
     engine, step, replica = load_engine(experiment, "serving")
@@ -548,7 +556,8 @@ def _serve(experiment, runtime, engine, step, replica,
     try:
         serve_until_stopped("serving", experiment.serve_seconds,
                             scheduler.drain,
-                            poll=replica_poll(replica, slo_evaluator))
+                            poll=replica_poll(replica, slo_evaluator),
+                            task=telemetry_task)
     finally:
         server.stop()
         scheduler.close()

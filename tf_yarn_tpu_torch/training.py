@@ -73,10 +73,23 @@ the preemption flag is agreed at the ``drain_poll_every_steps`` cadence
 by an all-reduce (MAX), so one rank's flag drains every rank at the same
 step (`_preempt_agreed`, training.py:354-388).
 
+An elastic relaunch (training.py:598-616) keeps the experiment's one
+declared mesh: when the driver's ``TPU_YARN_ELASTIC_WORKERS`` is set and
+the declared `MeshSpec` wants another number of ranks than the group
+has, the loop refits it (`parallel.mesh.resize_mesh_spec`: the model
+axes kept, the data axes rescaled) and logs "elastic: declared mesh ...
+refit onto N ranks -> ..."; without it the mismatch raises. Each data
+group then reads its share of the same global batch, and every
+multi-rank restore takes its rank's part of the checkpoint through
+`parallel.data_parallel.DataParallel.reshard_state`. After each step
+(each chunk of ``steps_per_loop``) the loop calls
+`resilience.chaos.on_train_step`, the host boundary of the
+``TPU_YARN_FAULT`` injections.
+
 Not ported here, each raising or named in ROADMAP.md: the ``ep`` axis
 of a mesh (Queue 1 item 8b) and the pairs of axes `parallel.mesh` does
-not combine (the pipeline beside fsdp, sp or tp, item 7d); elastic resize (item 5.1), the chaos hooks (item 5.2), remote model_dirs
-and their uploading TensorBoard writer (item 5.4).
+not combine (the pipeline beside fsdp, sp or tp, item 7d); remote
+model_dirs and their uploading TensorBoard writer (item 5.4).
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ from tf_yarn_tpu_torch.experiment import CoreExperiment
 from tf_yarn_tpu_torch.parallel import data_parallel
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 from tf_yarn_tpu_torch.parallel import pipeline, tensor_parallel
+from tf_yarn_tpu_torch.resilience import chaos
 from tf_yarn_tpu_torch.utils import flops as flops_lib
 from tf_yarn_tpu_torch.utils import mlflow
 
@@ -115,7 +129,8 @@ class TrainState:
     """The step, the model (its parameters) and the optimizer (its
     state), mutated in place by the train step. With a `parallel` wrap
     the state dict is its one-device format (a collective under FSDP2:
-    every rank calls it)."""
+    every rank calls it), and `load_state_dict` takes the rank's part of
+    one (`DataParallel.reshard_state`)."""
 
     def __init__(self, step: int, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -134,7 +149,7 @@ class TrainState:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if self.parallel is not None:
-            self.parallel.load_full_state(state)
+            self.parallel.load_rank_state(state)
         else:
             self.model.load_state_dict(state["params"])
             self.optimizer.load_state_dict(state["optimizer"])
@@ -676,8 +691,19 @@ def train_and_evaluate(core: CoreExperiment, device=None,
     run's KV store."""
     world, rank = _world_size(), _rank()
     mesh_spec = core.mesh_spec
+    resized_from = None
     if mesh_spec is None and world > 1:
         mesh_spec = mesh_lib.MeshSpec.auto(world)
+    elif (mesh_spec is not None and os.environ.get(ENV_ELASTIC_WORKERS)
+          and mesh_spec.total_devices != world):
+        # An elastic relaunch on resized capacity: the experiment keeps
+        # declaring one logical mesh, refit onto the ranks this attempt
+        # has. Without the driver's elastic env the mismatch still fails
+        # below: a silently smaller mesh would hide a broken reservation.
+        resized_from = mesh_spec
+        mesh_spec = mesh_lib.resize_mesh_spec(mesh_spec, world)
+        _logger.warning("elastic: declared mesh %s refit onto %d ranks -> %s",
+                        resized_from, world, mesh_spec)
     if mesh_spec is not None:
         mesh_lib.check_mesh_spec(mesh_spec, world)
     device = resolve_device(device)
@@ -688,14 +714,14 @@ def train_and_evaluate(core: CoreExperiment, device=None,
     telemetry.enable_env_jsonl(telemetry_task)
     try:
         return _train_and_evaluate(core, device, runtime, mesh_spec, world,
-                                   rank)
+                                   rank, resized_from)
     finally:
         telemetry.export_trace(telemetry_task)
 
 
 def _train_and_evaluate(core: CoreExperiment, device: torch.device,
-                        runtime, mesh_spec, world: int,
-                        rank: int) -> Dict[str, float]:
+                        runtime, mesh_spec, world: int, rank: int,
+                        resized_from=None) -> Dict[str, float]:
     params_cfg = core.train_params
     place = _batch_placer(device)
     mesh = None
@@ -709,7 +735,8 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
     # read the same rows).
     hosts = mesh_lib.data_group(mesh)
     # Capacity gauges (training.py:622-636): the devices the step
-    # computes on, and whether an elastic attempt runs short of workers.
+    # computes on (the refit mesh's, on an elastic relaunch), and whether
+    # an elastic attempt runs short of workers.
     registry = telemetry.get_registry()
     registry.gauge("train/mesh_devices").set(float(world))
     registry.gauge("train/degraded").set(_degraded())
@@ -772,6 +799,11 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                 else:
                     restored, step = None, None
             if restored is not None:
+                if parallel is not None:
+                    # Every multi-rank restore, from a checkpoint of this
+                    # size or another: the rank's part of the state.
+                    restored = parallel.reshard_state(
+                        restored, old_spec=resized_from)
                 state.load_state_dict(restored)
                 resume_step = step
                 _logger.info("resumed from checkpoint step %d", resume_step)
@@ -917,6 +949,11 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                     metrics = run_steps([batch])
                     step += 1
                 profile.on_step(step)
+                # TPU_YARN_FAULT's host boundary (training.py:986-991): a
+                # cached no-op when unarmed. SIGTERM lands in the
+                # preemption flag and drains through the poll below; an
+                # injected crash propagates like any runtime abort.
+                chaos.on_train_step(step)
                 if (not input_exhausted and step < params_cfg.train_steps
                         and (world == 1 or step % drain_poll_every == 0)
                         and _preempt_agreed(device, world)):
