@@ -568,7 +568,59 @@ def check_quantize(torch, ops, dev):
     row.update(timings(quantize, ops.quantize.quantize_int8_reference, None,
                        (x,), n * 4 + n + rows * 4, torch))
     row["bound_ms"], row["bound_by"] = bound_ms(n * 4 + n + rows * 4, 4 * n)
+    row["per_block"] = check_grouped_quantize(torch, ops, dev)
     return row
+
+
+# The grouped quantize at the paged pool's per-(block, kv head) groups:
+# phase 3's pool [NB, 16, 8, 128] (`paged_inputs`: 8 slots of 512
+# blocks and the trash block) as [NB, 8, 16, 128], one scale a group of
+# the block's 16 rows — the per-block scale pools of `paged_inputs(...,
+# per_block=True)`.
+GROUPED_POOL = (8 * 512 + 1, 8, 16, 128)
+
+
+def check_grouped_quantize(torch, ops, dev) -> dict:
+    """`quantize_int8_grouped` (rows of 16 x 128 as one row of 2048, the
+    kernel's general path) from f32 and from bf16: codes and scales
+    against the plain version on the same grouped rows (`check_codes`),
+    bitwise equal over two calls, one CUDA launch a call, timed cold and
+    warm against its bound and the plain version."""
+    grouped = ops.quantize.quantize_int8_grouped
+    nb, n_kv, group, d = GROUPED_POOL
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        x = (torch.randn(GROUPED_POOL, device=dev, generator=gen) * 2).to(dtype)
+        (values, scales), again = grouped(x, group), grouped(x, group)
+        flat = x.reshape(nb, n_kv, 1, group * d)
+        ref_v, ref_s = ops.quantize.quantize_int8_reference(flat)
+        torch.cuda.synchronize()
+        if tuple(scales.shape) != (nb, n_kv, 1, 1):
+            raise AssertionError(f"grouped scales {tuple(scales.shape)}")
+        check_codes(torch, flat, values.reshape(flat.shape), scales, ref_v,
+                    ref_s)
+        if not (torch.equal(values, again[0]) and torch.equal(scales,
+                                                              again[1])):
+            raise AssertionError(f"grouped quantize {name}: two calls differ")
+        n = x.numel()
+        n_bytes = n * x.element_size() + n + nb * n_kv * 4
+        fn = lambda x: grouped(x, group)
+        out[name] = {
+            "shape": list(GROUPED_POOL), "group_rows": group,
+            "max_abs_err": float((values.reshape(flat.shape).int()
+                                  - ref_v.int()).abs().max()),
+            "tolerance": "scales bit-equal; at most one code differs, at a "
+                         "half",
+            "one_launch": one_launch(torch, fn, (x,), "quantize_int8_kernel"),
+            **shape_times(torch, fn, (x,), n_bytes, 4 * n, profile=False),
+            "plain_us": time_ms(
+                lambda x: ops.quantize.quantize_int8_reference(
+                    x.reshape(nb, n_kv, 1, group * d)), torch, inner=1,
+                outer=4, arg_sets=cold_copies((x,), n_bytes)) * 1e3,
+        }
+        del x, values, scales, again, flat, ref_v, ref_s
+    return out
 
 
 def device_kernels_us(torch, fn, args, touched_bytes):
@@ -605,19 +657,33 @@ CHUNK = 64
 CHUNK_LENGTHS = (0, 64, 128, 192)
 
 
-def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512, width=1):
+def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512, width=1,
+                 per_block=False):
     """The paged kernel's arguments (a window of `width`, bf16 q, NaN
     scales in the trash block 0, the live blocks of each table drawn from
     a permutation and the rest pointing at the trash), the bytes its call
-    must move and its flops. `lengths` None draws 8 from seed 0."""
+    must move and its flops. `lengths` None draws 8 from seed 0. With
+    `per_block` the pools carry one scale a (block, kv head) — scale
+    pools [NB, 1, Hkv, 1], each block's rows of a head quantized as one
+    group by the plain version — in place of one a row."""
     n_heads, n_kv, head_dim, bs = 32, 8, 128, 16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     slots = 8 if lengths is None else len(lengths)
     num_blocks = slots * max_blocks + 1
+
+    def quantize(x):
+        if not per_block:
+            return ops.quantize.quantize_int8_reference(x)
+        grouped = x.permute(0, 2, 1, 3).reshape(num_blocks, n_kv, 1,
+                                                bs * head_dim)
+        values, scales = ops.quantize.quantize_int8_reference(grouped)
+        return (values.reshape(num_blocks, n_kv, bs, head_dim)
+                .permute(0, 2, 1, 3).contiguous(),
+                scales.reshape(num_blocks, 1, n_kv, 1))
+
     x = torch.randn(num_blocks, bs, n_kv, head_dim, device=dev, generator=gen)
-    kq, ks = ops.quantize.quantize_int8_reference(x * 2)
-    vq, vs = ops.quantize.quantize_int8_reference(
-        torch.randn(x.shape, device=dev, generator=gen))
+    kq, ks = quantize(x * 2)
+    vq, vs = quantize(torch.randn(x.shape, device=dev, generator=gen))
     del x
     ks[0] = float("nan")  # trash-block garbage must never leak
     vs[0] = float("nan")
@@ -634,10 +700,12 @@ def paged_inputs(torch, ops, dev, lengths=None, max_blocks=512, width=1):
     q = torch.randn(slots, width, n_heads, head_dim, device=dev,
                     generator=gen).to(torch.bfloat16)
     # Each slot's live positions are read once (its window included):
-    # K and V int8 rows plus their f32 scales, the live table entries,
-    # q and the output once; 4 flops per position, head and column.
+    # K and V int8 rows plus their f32 scales (one a row, or one a live
+    # block), the live table entries, q and the output once; 4 flops per
+    # position, head and column.
     positions = int((lengths.long() + width).sum())
-    n_bytes = (positions * n_kv * (2 * head_dim + 2 * 4)
+    scale_rows = int(live.sum()) if per_block else positions
+    n_bytes = (positions * n_kv * 2 * head_dim + scale_rows * n_kv * 2 * 4
                + int(live.sum()) * 4 + slots * 4
                + 2 * q.numel() * q.element_size())
     n_flops = sum(int(lengths[s]) * width + width * (width + 1) // 2
@@ -727,7 +795,68 @@ def check_attention(torch, ops, dev):
                                atol=2e-2, rtol=2e-2)
     row["shape_chunk"] = dict(_serving_shape(torch, attend, chunk, n_bytes,
                                              n_flops), width=CHUNK)
+    del chunk
+    row["per_block"] = check_attention_per_block(torch, ops, dev)
     return row
+
+
+def check_attention_per_block(torch, ops, dev) -> dict:
+    """Both paged wrappers over per-block scale pools (sb = 1, NaN scales
+    in the trash block): the one-token and the window form at phase 3's
+    shape, and the window at W = CHUNK on the chunk shape; each against
+    the plain version on the same inputs (2e-2, a bf16 output), bitwise
+    equal over two calls, one CUDA launch a call, timed cold and warm
+    against its bound (its scale stream 1/16 of the per-row one)."""
+    window = ops.decode_attention.paged_int8_window_attention
+    one_token = ops.decode_attention.paged_int8_decode_attention
+    plain = ops.decode_attention.paged_int8_window_attention_reference
+    out = {}
+    args, n_bytes, n_flops = paged_inputs(torch, ops, dev, per_block=True)
+    q, kq, ks, vq, vs, tables, lengths = args
+    one_args = (q[:, 0].contiguous(), *args[1:])
+    one_plain = lambda q, *rest: plain(q[:, None], *rest,
+                                       length_offset=0)[:, 0]
+    cases = (("window", window, plain, args),
+             ("one_token", one_token, one_plain, one_args))
+    for name, fn, ref_fn, call_args in cases:
+        got, again, ref = fn(*call_args), fn(*call_args), ref_fn(*call_args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        if not torch.isfinite(got).all() or not torch.equal(got, again):
+            raise AssertionError(f"per-block {name}: not finite, or two "
+                                 "calls differ")
+        # The one-token form reads each slot's lengths positions, not
+        # lengths + 1: its bytes and flops are the window's less a row.
+        fewer = 0 if name == "window" else len(lengths) * kq.shape[2] * (
+            2 * kq.shape[3])
+        out[name] = {
+            "scale_shape": list(ks.shape),
+            "max_abs_err": float((got.float() - ref.float()).abs().max()),
+            "tolerance": "atol = rtol = 2e-2 (bf16 output)",
+            "one_launch": one_launch(torch, fn, call_args, "decode_kernel"),
+            **shape_times(torch, fn, call_args, n_bytes - fewer, n_flops,
+                          profile=False),
+            "plain_us": time_ms(ref_fn, torch, inner=1, outer=2,
+                                arg_sets=cold_copies(call_args,
+                                                     n_bytes)) * 1e3,
+        }
+        del got, again, ref
+    del args, one_args
+    chunk, n_bytes, n_flops = paged_inputs(torch, ops, dev, CHUNK_LENGTHS,
+                                           width=CHUNK, per_block=True)
+    got, again, ref = window(*chunk), window(*chunk), plain(*chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if not torch.isfinite(got).all() or not torch.equal(got, again):
+        raise AssertionError("per-block chunk window: not finite, or two "
+                             "calls differ")
+    out["chunk_window"] = {
+        "width": CHUNK, "lengths": chunk[-1].tolist(),
+        "max_abs_err": float((got.float() - ref.float()).abs().max()),
+        "one_launch": one_launch(torch, window, chunk, "decode_kernel"),
+        **shape_times(torch, window, chunk, n_bytes, n_flops, profile=False)}
+    return out
 
 
 def check_dense_attention(torch, ops, dev, paged_lengths):
@@ -2892,6 +3021,18 @@ RANK_BF16_TOL = 1e-2
 RANK_F32_TOL = 1e-5
 
 
+def busy_ticks(spans) -> list:
+    """The seconds of each ``ranking/tick`` span that ran a forward (a
+    ``rank_engine/forward`` span starts inside it)."""
+    forwards = [r.start for r in spans if r.name == "rank_engine/forward"]
+    return [r.duration for r in spans if r.name == "ranking/tick"
+            and any(r.start <= t < r.start + r.duration for t in forwards)]
+
+
+def _mean(values) -> float:
+    return sum(values) / max(1, len(values))
+
+
 def _forward_f32(torch, model, cat, dense, rows: int = 4096):
     out = []
     with torch.inference_mode():
@@ -2947,6 +3088,7 @@ def rank_slice(torch, ranker, telemetry, counted, dev, cfg=None):
             bodies, cat, dense = rank_bodies(cfg, (rows,) * requests,
                                              seed=100 + i)
             before = get(server.port, "/stats")[1]
+            tracer.clear()
             threads, replies, begun = post_all(server.port, bodies,
                                                "/v1/rank")
             join_all(threads, replies)
@@ -2959,6 +3101,7 @@ def rank_slice(torch, ranker, telemetry, counted, dev, cfg=None):
                 "requests": requests, "rows": rows * requests,
                 "wall_s": wall, "rows_per_s": rows * requests / wall,
                 "ticks": stats["ticks"] - before["ticks"],
+                "tick_wall_s_mean": _mean(busy_ticks(tracer.records())),
                 "request_s_max": max(w for _s, _b, w in replies)}
         launches = _launches(counted)
         if any(launches.values()):
@@ -3014,6 +3157,151 @@ def rank_slice(torch, ranker, telemetry, counted, dev, cfg=None):
             "bf16_vs_cpu_f32_max_abs_err": bf16_err,
             "f32_vs_cpu_f32_max_abs_err": f32_err, "score_abs_max": scale,
             "launches": launches, "profiled_burst": profiled}
+
+
+# Phase 8's tp=2 ranker: the same criteo model with its table's rows over
+# two ranks that share the card over gloo (`serving.tp_replica`,
+# `RankEngine(mesh=)`), each drawing the seeded init whole as make_model
+# does and keeping its rows.
+RANK_TP = 2
+
+
+def rank_tp_replica(ranker, tp_replica, mesh_lib, cfg):
+    """Phase 8's tp replica: its follower spawned, every rank's RankEngine
+    over its rows of `cfg`'s seeded init (seed SEED). It starts beside the
+    one-device ranker; its group is this process's default one, which
+    `rank_tp_slice`'s caller closes before the ranker trains."""
+    replica = tp_replica.start(mesh_lib.MeshSpec(tp=RANK_TP))
+    try:
+        replica.load(cfg, builder=tp_replica.ranker_shard, init_seed=SEED)
+    except BaseException:
+        replica.close()
+        raise
+    return replica
+
+
+def rank_tp_slice(torch, ranker, telemetry, counted, dev, replica, one,
+                  cfg=None):
+    """`cfg` (criteo by default) behind RankEngine(mesh=tp=2) +
+    MicroBatchScheduler(max_batch=256, max_wait_ms=2) + RankServer, warmed
+    up, then started, every kernel count set to 0 just before and read
+    just after (the ranker runs none): `rank_slice`'s RANK_BURSTS with
+    its seeds. The leader records each tick's padded batch and scores;
+    afterwards a one-device RankEngine over make_model(cfg, SEED) scores
+    the same padded batches, and every tick's scores (so every served
+    row) must be bitwise its. Per burst: rows/s, the tick's wall against
+    the one-device ranker's (`one`, rank_slice's result), the ``embed``
+    all-reduce's seconds and bytes a tick and the header's; each rank's
+    parameter bytes and table rows."""
+    import numpy as np
+
+    dlrm = ranker.dlrm
+    cfg = cfg or dlrm.DLRMConfig.criteo()
+    engine = replica.engine
+    forward = engine.score
+    ticks_in = []
+
+    def recorded(cat, dense=None):
+        out = forward(cat, dense)
+        ticks_in.append((cat, dense, out))
+        return out
+
+    engine.score = recorded
+    scheduler = ranker.MicroBatchScheduler(engine, max_batch=RANK_MAX_BATCH,
+                                           max_wait_ms=2.0)
+    server = ranker.RankServer(scheduler, "127.0.0.1", 0)
+    tracer = telemetry.get_tracer()
+    bursts = {}
+    try:
+        started = time.perf_counter()
+        warmed = engine.warmup(max_batch=RANK_MAX_BATCH)
+        warmup_s = time.perf_counter() - started
+        scheduler.start()
+        server.start()
+        _zero(counted)
+        for i, (rows, requests) in enumerate(RANK_BURSTS):
+            bodies, _, _ = rank_bodies(cfg, (rows,) * requests, seed=100 + i)
+            tracer.clear()
+            threads, replies, begun = post_all(server.port, bodies,
+                                               "/v1/rank")
+            join_all(threads, replies)
+            wall = time.perf_counter() - begun
+            bad = [status for status, _b, _w in replies if status != 200]
+            if bad:
+                raise AssertionError(f"tp ranker: statuses {bad}")
+            spans = tracer.records()
+            ticks = busy_ticks(spans)
+            embeds = [r for r in spans if r.name == "train/tp_allreduce"
+                      and r.args.get("op") == "embed"]
+            headers = [r for r in spans if r.name == "ranking/tp_header"
+                       and r.args.get("op") == "score"]
+            n = max(1, len(ticks))
+            tick_s = sum(ticks) / n
+            one_tick_s = one["bursts"][rows]["tick_wall_s_mean"]
+            bursts[rows] = {
+                "requests": requests, "rows": rows * requests, "wall_s": wall,
+                "rows_per_s": rows * requests / wall,
+                "one_device_rows_per_s": one["bursts"][rows]["rows_per_s"],
+                "ticks": len(ticks), "tick_wall_s_mean": tick_s,
+                "one_device_tick_wall_s_mean": one_tick_s,
+                "tick_wall_vs_one_device": tick_s / max(1e-12, one_tick_s),
+                "embed_allreduces": len(embeds),
+                "embed_allreduce_s_per_tick":
+                    sum(r.duration for r in embeds) / n,
+                "embed_allreduce_bytes_per_tick":
+                    sum(r.args["bytes"] for r in embeds) / n,
+                "embed_share_of_tick":
+                    sum(r.duration for r in embeds) / max(1e-12, sum(ticks)),
+                "header_s_per_tick": sum(r.duration for r in headers) / n,
+                "header_bytes_per_tick":
+                    sum(r.args["bytes"] for r in headers) / n}
+        launches = _launches(counted)
+        if any(launches.values()):
+            raise AssertionError(f"the tp ranker launched port kernels: "
+                                 f"{launches}")
+        status, _, body = call(server.port, "POST", "/v1/rank",
+                               {"cat": [[0, 1]], "dense": [[0.0]]})
+        if status != 400:
+            raise AssertionError(f"a malformed request got {status} {body}")
+        stats = get(server.port, "/stats")[1]
+    finally:
+        server.stop()
+        scheduler.close()
+        del engine.score
+    reports = engine.rank_report()
+    if stats["tp_degree"] != RANK_TP or len(reports) != RANK_TP:
+        raise AssertionError(f"tp_degree {stats['tp_degree']}, reports "
+                             f"{reports}")
+    served = sum(rows * requests for rows, requests in RANK_BURSTS)
+    if sum(int(t[0].shape[0]) for t in ticks_in) < served:
+        raise AssertionError(f"{len(ticks_in)} ticks recorded for {served} "
+                             "rows")
+    reference = ranker.engine.RankEngine(dlrm.make_model(cfg, seed=SEED,
+                                                         device=dev))
+    rows_here = engine.model.embedding.shape[0]
+    weights_equal = torch.equal(engine.model.embedding,
+                                reference.model.embedding[:rows_here])
+    differ = [i for i, (cat, dense, out) in enumerate(ticks_in)
+              if not np.array_equal(out, reference.score(cat, dense))]
+    del reference
+    if differ or not weights_equal:
+        raise AssertionError(f"tp=2 scores differ from one device's in "
+                             f"{len(differ)} of {len(ticks_in)} ticks "
+                             f"(leader's table rows equal: {weights_equal})")
+    return {"config": rank_config(cfg), "tp": RANK_TP,
+            "table_bytes": cfg.total_buckets * cfg.embed_dim * 4,
+            "rank_params_bytes": [r["params_bytes"] for r in reports],
+            "rank_table_rows": [r["table_rows"] for r in reports],
+            "follower_peak_memory_gb": [
+                None if r["peak_memory_bytes"] is None
+                else r["peak_memory_bytes"] / 1e9 for r in reports[1:]],
+            "params_hbm_bytes_per_device":
+                stats["params_hbm_bytes_per_device"],
+            "one_device_params_hbm_bytes": one["params_hbm_bytes"],
+            "warmup_s": warmup_s, "warmed_buckets": warmed,
+            "ticks_recorded": len(ticks_in),
+            "scores_bitwise_one_device": True, "rows_served": served,
+            "bursts": bursts, "launches": launches}
 
 
 def rank_train_slice(torch, ranker, training, experiment, telemetry, dev,
@@ -4594,7 +4882,7 @@ def parallel_ranks_start(torch, out_dir: str, device: str, runs,
     the call. A rank still running when this process exits is
     terminated."""
     ranks = torch.multiprocessing.spawn(
-        _parallel_rank, args=(TP_RANKS, _free_port(), out_dir, device,
+        _parallel_rank, args=(TP_RANKS, free_port(), out_dir, device,
                               runs, tiny, go),
         nprocs=TP_RANKS, join=False)
 
@@ -4614,14 +4902,6 @@ def parallel_ranks_start(torch, out_dir: str, device: str, runs,
         return time.perf_counter() - started
 
     return wait
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
 
 
 def tp_ranks_start(torch, out_dir: str, device: str):
@@ -5222,12 +5502,37 @@ def mixed_fleet(topologies):
     return specs
 
 
+_PORTS_GIVEN: set = set()
+
+
 def free_port() -> int:
+    """A free port below the kernel's ephemeral range, never the same
+    twice in this process. A port from `bind(("", 0))` comes from that
+    range, and between its release and the server's own bind an outgoing
+    connection or another autobound socket (gloo's, the launcher's) may
+    take it: phase 10's tp replica once failed its bind that way
+    ("Address already in use"). Below the range only an explicit bind
+    can take it."""
+    import random
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range")
+                  .read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for _ in range(1000):
+        port = random.randrange(max(1024, low // 2), low)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise RuntimeError(f"no free port below {low}")
 
 
 class endpoint_log:
@@ -6225,7 +6530,9 @@ def main() -> int:
             + (f"; chunk shape {json.dumps(row['shape_chunk'])}"
                if "shape_chunk" in row else "")
             + (f"; tp rank shape {json.dumps(row['shape_tp_rank'])}"
-               if "shape_tp_rank" in row else ""))
+               if "shape_tp_rank" in row else "")
+            + (f"; per-block scales {json.dumps(row['per_block'])}"
+               if "per_block" in row else ""))
     gc.collect()
     torch.cuda.empty_cache()
     mark("3 kernels")
@@ -6342,17 +6649,38 @@ def main() -> int:
     mark("7 zoo slice")
 
     started = time.perf_counter()
-    rank_result = rank_slice(
-        torch, ranker, telemetry,
-        serving_counted + training_counted + norm_counted, dev)
-    log(f"ranker slice: {json.dumps(rank_result)} on {card}")
+    # The tp=2 ranker's follower starts beside the one-device ranker; its
+    # group is closed before the ranker trains (train_and_evaluate would
+    # train over it).
+    rank_counted = serving_counted + training_counted + norm_counted
+    rank_tp_wait = concurrently_started({"replica": lambda: rank_tp_replica(
+        ranker, tp_replica, mesh_lib, dlrm.DLRMConfig.criteo())})
+    try:
+        rank_result = rank_slice(torch, ranker, telemetry, rank_counted, dev)
+        log(f"ranker slice: {json.dumps(rank_result)} on {card}")
+        rank_tp, rank_tp_start_s = rank_tp_wait()["replica"]
+        rank_tp_result = rank_tp_slice(torch, ranker, telemetry, rank_counted,
+                                       dev, rank_tp, rank_result)
+    finally:
+        try:
+            rank_tp_wait()
+        finally:
+            tp_replica.close_all()
+    if [p.exitcode for p in rank_tp.processes] != [0]:
+        raise AssertionError(f"the tp ranker's follower exited with "
+                             f"{[p.exitcode for p in rank_tp.processes]}")
+    rank_tp_result["start_s"] = rank_tp_start_s
+    log(f"ranker tp slice: criteo at tp=2, two gloo ranks on the card, "
+        f"against the one-device ranker: {json.dumps(rank_tp_result)} on "
+        f"{card}")
+    del rank_tp
     rank_train = rank_train_slice(torch, ranker, training, experiment,
                                   telemetry, dev)
     log(f"ranker training slice: {json.dumps(rank_train)} on {card}")
     log(f"ranker phase: {time.perf_counter() - started:.1f} s")
     # The launched worker needs the card's memory: drop what this process
     # holds before it starts.
-    del rank_result, rank_train
+    del rank_result, rank_tp_result, rank_train
     gc.collect()
     torch.cuda.empty_cache()
     mark("8 ranker slice")

@@ -267,6 +267,70 @@ def test_cuda_paged_window_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(one.float(), one_ref.float(), atol=tol, rtol=tol)
 
 
+def _per_block(kq, ks, vq, vs, block_size):
+    """The pools re-quantized with one scale a (block, kv head) through
+    `quantize_int8_grouped` (on the pools' device), trash block 0's
+    scales NaN: (kq, ks [NB, 1, Hkv, 1], vq, vs)."""
+    out = []
+    for values, scales in ((kq, ks), (vq, vs)):
+        x = (values.float() * torch.nan_to_num(scales)).permute(0, 2, 1, 3)
+        q, s = t_quantize.quantize_int8_grouped(x, block_size)
+        s = s.reshape(x.shape[0], 1, x.shape[1], 1).clone()
+        s[0] = float("nan")
+        out += [q.permute(0, 2, 1, 3).contiguous(), s]
+    return out
+
+
+# CASES at per-block scales: splits whose 256-position boundaries fall
+# inside blocks of 8, 16 and 64, the skewed slots, windows, f32.
+PER_BLOCK_CASES = ("splits", "block8", "block64", "skewed", "window5",
+                   "kv1", "f32_splits", "f32_window3")
+
+
+@pytest.mark.parametrize("case", PER_BLOCK_CASES)
+def test_cuda_paged_kernels_take_per_block_scales(cuda, case):
+    """sb = 1: each position reads its physical block's scale, and a dead
+    row gets exactly 0 whatever its block's scale."""
+    dtype, width, *shape = CASES[case]
+    q, kq, ks, vq, vs, tables, lengths = _inputs(cuda, width, *shape, dtype)
+    kq, ks, vq, vs = _per_block(kq, ks, vq, vs, shape[1])
+    args = (q, kq, ks, vq, vs, tables, lengths)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    launches = t_decode.paged_int8_window_attention.launches
+    got = t_decode.paged_int8_window_attention(*args)
+    torch.cuda.synchronize()
+    assert t_decode.paged_int8_window_attention.launches == launches + 1
+    assert torch.isfinite(got).all()
+    ref = t_decode.paged_int8_window_attention_reference(*args)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    one = t_decode.paged_int8_decode_attention(q[:, 0].contiguous(), kq, ks,
+                                               vq, vs, tables, lengths)
+    one_ref = t_decode.paged_int8_window_attention_reference(
+        q[:, :1], kq, ks, vq, vs, tables, lengths, length_offset=0)[:, 0]
+    torch.testing.assert_close(one.float(), one_ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(one, t_decode.paged_int8_decode_attention(
+        q[:, 0].contiguous(), kq, ks, vq, vs, tables, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_grouped_quantize_is_one_kernel_launch(cuda, dtype):
+    """The paged pool's per-(block, head) groups of 16 rows of 128: one
+    launch of the general kernel at row width 2048, its codes and scales
+    those of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.randn(64, 8, 16, 128, device=cuda, generator=gen) * 3).to(dtype)
+    launches = t_quantize.quantize_int8.launches
+    values, scales = t_quantize.quantize_int8_grouped(x, 16)
+    torch.cuda.synchronize()
+    assert t_quantize.quantize_int8.launches == launches + 1
+    assert values.shape == x.shape and scales.shape == (64, 8, 1, 1)
+    _quantize_check(x.reshape(64, 8, 1, 2048), values.reshape(64, 8, 1, 2048),
+                    scales)
+    _one_kernel(lambda: t_quantize.quantize_int8_grouped(x, 16),
+                "quantize_int8_kernel<")
+
+
 # (dtype, n_heads, n_kv, head_dim) the kernel is not built for.
 @pytest.mark.parametrize("dtype, n_heads, n_kv, head_dim", [
     (torch.bfloat16, 64, 8, 128), (torch.bfloat16, 16, 4, 64),

@@ -144,14 +144,35 @@ def test_paged_window_attention_shapes_match_jax_kernel(case):
     np.testing.assert_allclose(got.numpy(), expected, atol=1e-5)
 
 
-def test_paged_window_attention_rejects_per_block_scales():
-    pool = torch.zeros(4, 8, 2, 32, dtype=torch.int8)
-    scale = torch.ones(4, 1, 2, 1)
-    with pytest.raises(ValueError, match="per-row"):
+# (key scale rows, value scale rows) a block of 8 that neither layout
+# has: 2 or 4 rows a block, or K and V in different layouts.
+OTHER_SCALE_ROWS = {"sb2": (2, 2), "sb4": (4, 4), "row_key_block_value": (8, 1),
+                    "block_key_row_value": (1, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(OTHER_SCALE_ROWS))
+def test_paged_window_attention_rejects_other_scale_rows(case):
+    """Scale pools must be per-row (sb = bs) or per-block (sb = 1), the
+    same for K and V: anything else is refused with the JAX package's
+    message, by both packages."""
+    from tf_yarn_tpu.ops.decode_attention import paged_int8_decode_attention
+
+    key_rows, value_rows = OTHER_SCALE_ROWS[case]
+    pool = np.zeros((4, 8, 2, 32), np.int8)
+    key_scale = np.ones((4, key_rows, 2, 1), np.float32)
+    value_scale = np.ones((4, value_rows, 2, 1), np.float32)
+    tables = np.zeros((1, 2), np.int32)
+    lengths = np.ones(1, np.int32)
+    with pytest.raises(ValueError, match="per-row \\(8\\) or per-block") as got:
         t_decode.paged_int8_window_attention(
-            torch.zeros(1, 1, 4, 32), pool, scale, pool, scale,
-            torch.zeros(1, 2, dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32))
+            torch.zeros(1, 1, 4, 32), _t(pool), _t(key_scale), _t(pool),
+            _t(value_scale), _t(tables), _t(lengths))
+    with pytest.raises(ValueError, match="per-row") as reference:
+        paged_int8_decode_attention(
+            jnp.zeros((1, 4, 32)), jnp.asarray(pool), jnp.asarray(key_scale),
+            jnp.asarray(pool), jnp.asarray(value_scale), jnp.asarray(tables),
+            jnp.asarray(lengths))
+    assert str(got.value) == str(reference.value)
 
 
 @pytest.mark.parametrize("offset", [0, 5])

@@ -49,36 +49,37 @@ def _stand_in_ranker():
         config=types.SimpleNamespace(table_sizes=(10, 6)))
 
 
+# The stand-in's stacked table has 16 rows: tp=2 and 4 divide them, tp=3
+# does not; any axis but tp is refused, beside tp or alone.
 RANKING_CASES = {
-    "defaults": ({}, None),
-    "max_batch": ({"max_batch": 0}, None),
-    "max_wait_ms": ({"max_wait_ms": -1}, None),
-    "max_wait_ms_zero": ({"max_wait_ms": 0}, None),
-    "queue_capacity": ({"queue_capacity": 0}, None),
-    "serve_seconds": ({"serve_seconds": 0}, None),
-    "serve_seconds_positive": ({"serve_seconds": 3}, None),
-    "batch_buckets_empty": ({"batch_buckets": ()}, None),
-    "batch_buckets_zero": ({"batch_buckets": (0, 4)}, None),
-    "batch_buckets": ({"batch_buckets": (1, 4)}, None),
-    "model_without_tables": ({"model": types.SimpleNamespace(
-        config=types.SimpleNamespace(n_heads=4))}, None),
-    "model_without_config": ({"model": object()}, None),
-    "mesh_tp": ({"mesh_spec": MeshSpec(tp=2)}, "item 7"),
-    "mesh_one_device": ({"mesh_spec": MeshSpec()}, "item 7"),
-    "model_dir": ({"model_dir": "/x", "step": 4}, None),
+    "defaults": {},
+    "max_batch": {"max_batch": 0},
+    "max_wait_ms": {"max_wait_ms": -1},
+    "max_wait_ms_zero": {"max_wait_ms": 0},
+    "queue_capacity": {"queue_capacity": 0},
+    "serve_seconds": {"serve_seconds": 0},
+    "serve_seconds_positive": {"serve_seconds": 3},
+    "batch_buckets_empty": {"batch_buckets": ()},
+    "batch_buckets_zero": {"batch_buckets": (0, 4)},
+    "batch_buckets": {"batch_buckets": (1, 4)},
+    "model_without_tables": {"model": types.SimpleNamespace(
+        config=types.SimpleNamespace(n_heads=4))},
+    "model_without_config": {"model": object()},
+    "mesh_tp": {"mesh_spec": MeshSpec(tp=2)},
+    "mesh_tp4": {"mesh_spec": MeshSpec(tp=4)},
+    "mesh_one_device": {"mesh_spec": MeshSpec()},
+    "mesh_tp_ragged": {"mesh_spec": MeshSpec(tp=3)},
+    "mesh_dp": {"mesh_spec": MeshSpec(dp=2)},
+    "mesh_tp_fsdp": {"mesh_spec": MeshSpec(tp=2, fsdp=2)},
+    "model_dir": {"model_dir": "/x", "step": 4},
 }
 
 
 @pytest.mark.parametrize("case", sorted(RANKING_CASES))
 def test_ranking_experiment_verdict_equals_jax(case):
-    kwargs, refused = RANKING_CASES[case]
-    args = dict({"model": _stand_in_ranker()}, **kwargs)
+    args = dict({"model": _stand_in_ranker()}, **RANKING_CASES[case])
     got = verdict(t_experiment.RankingExperiment, **args)
-    if refused is None:
-        assert got == verdict(j_experiment.RankingExperiment, **args)
-    else:
-        assert got[0] == "NotImplementedError"
-        assert f"ROADMAP.md Queue 1 {refused}" in got[1]
+    assert got == verdict(j_experiment.RankingExperiment, **args)
 
 
 # -- run_ranking on both packages ---------------------------------------------

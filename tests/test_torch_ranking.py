@@ -17,6 +17,7 @@ import http.client
 import json
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -314,8 +315,11 @@ def test_rank_engine_config_checks_and_buckets():
     _, _, model = _pair()
     with pytest.raises(ValueError, match="must be positive"):
         RankEngine(model, batch_buckets=())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        RankEngine(model, mesh=object())
+    # A mesh is validated as the JAX engine validates it (the tp=2
+    # engine itself is held in tests/test_torch_tp_ranking.py).
+    with pytest.raises(ValueError, match="tensor-parallel only"):
+        RankEngine(model, mesh=types.SimpleNamespace(
+            mesh_dim_names=("dp", "tp"), shape=(2, 1)))
     engine = RankEngine(model, batch_buckets=(4, 8, 16))
     assert engine.device == torch.device("cpu")
     assert [engine.select_bucket(b) for b in (1, 4, 5, 16, 17)] == \

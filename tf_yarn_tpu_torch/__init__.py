@@ -24,7 +24,8 @@ Ported so far:
   `models.vit` (ViT) and `models.resnet` (ResNet with GroupNorm), each
   with its `make_experiment`;
 * the DLRM ranker behind `/v1/rank` — `models.dlrm`,
-  `models.rank_engine`, `ranking`;
+  `models.rank_engine`, `ranking` — on one device or with its table's
+  rows cut over a tp replica's ranks (`serving.tp_replica`);
 * training over the ranks of a process group —
   `training.train_and_evaluate` over a `parallel.mesh.MeshSpec` of ``dp``,
   ``fsdp`` and ``tp`` (DDP, FSDP2 or both: `parallel.data_parallel`; the
@@ -44,8 +45,9 @@ Ported so far:
   `serving.prefill` and `ranking.server.run_ranking`).
 
 Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
-LayerNorm and GroupNorm, each with its dx; per-row int8 quantize; paged
-and dense int8 decode attention; flash attention forward, dq and
+LayerNorm and GroupNorm, each with its dx; int8 quantize, per row or per
+group of rows; paged int8 decode attention over per-row or per-block
+scales, and dense; flash attention forward, dq and
 dk/dv). ROADMAP.md lists what is still to port.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

@@ -35,14 +35,11 @@ beside it — and `RankingExperiment` (experiment.py:580-673) an online
 `/v1/rank` replica, with the JAX package's fields, defaults and
 validation messages. Their ``model`` is the port's `Transformer` or
 `DLRM`, built by the experiment fn on the task's device and holding its
-weights. A ``ServingExperiment`` with ``mesh_spec=MeshSpec(tp=N)`` is a
-tensor-parallel replica over N ranks (`serving.tp_replica`), validated
-as the JAX package validates it; its model only names the config (each
-rank builds its own shards: build it on the ``meta`` device). What the
-port cannot serve yet is refused at construction with
-NotImplementedError naming its ROADMAP.md Queue 1 item: a
-``RankingExperiment``'s ``mesh_spec`` (item 7f, the sharded ranker).
-The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
+weights. A ``ServingExperiment`` or ``RankingExperiment`` with
+``mesh_spec=MeshSpec(tp=N)`` is a tensor-parallel replica over N ranks
+(`serving.tp_replica`), validated as the JAX package validates it; its
+model only names the config (each rank builds its own shards: build it
+on the ``meta`` device). The ``router_*``, ``autoscale``, ``autoscale_launch_eta_s`` and
 ``autoscale_warm_start`` fields are read only by the ``router`` task of a
 fleet (`fleet.router.run_router`), whose model is on the meta device.
 
@@ -282,13 +279,6 @@ class InferenceExperiment:
                 f"max_new_tokens must be >= 0, got {self.max_new_tokens}")
 
 
-def _refuse_mesh_spec(spec, what: str, item: str) -> None:
-    if spec is not None:
-        raise NotImplementedError(
-            f"mesh_spec: {what} is not ported yet (ROADMAP.md Queue 1 item "
-            f"{item}); serve on one device (mesh_spec=None)")
-
-
 @dataclasses.dataclass
 class ServingExperiment:
     """Online-serving job: restore a checkpoint into ``model`` and serve
@@ -517,8 +507,16 @@ class RankingExperiment:
     ``max_wait_ms``. ``model_dir=None`` serves the seeded init instead
     of a checkpoint: every replica of the port with the same model and
     seed holds the same weights bit for bit (not the JAX package's: a
-    torch generator cannot draw what ``jax.random`` draws). Any
-    ``mesh_spec`` is refused (item 7f)."""
+    torch generator cannot draw what ``jax.random`` draws).
+
+    ``mesh_spec`` turns on embedding-sharded inference: MeshSpec(tp=N)
+    serves from N ranks, each holding ``1/N`` of the stacked table's
+    rows (`parallel.sharding.RANKING_RULES`; dense and MLP whole;
+    `serving.tp_replica`, `models.rank_engine`). Ranking shards
+    tensor-parallel only, and tp must divide ``sum(table_sizes)``: both
+    fail here with the knob's name, before any params load (JAX
+    experiment.py:650-672). Under a tp ``mesh_spec`` only the model's
+    config is read (each rank builds its own): build it on ``"meta"``."""
 
     model: Any
     model_dir: Optional[str] = None
@@ -559,8 +557,25 @@ class RankingExperiment:
                 "RankingExperiment.model must be a DLRM-class model "
                 "exposing config.table_sizes (the ranking engine reads "
                 "it for feature validation and table sharding)")
-        _refuse_mesh_spec(self.mesh_spec, "embedding-sharded ranking",
-                          "7f")
+        if self.mesh_spec is not None:
+            from tf_yarn_tpu_torch.parallel.mesh import AXIS_TP
+
+            spec = self.mesh_spec
+            other = {name: size
+                     for name, size in zip(spec.axis_names, spec.axis_sizes)
+                     if name != AXIS_TP and size != 1}
+            if other:
+                raise ValueError(
+                    f"ranking shards tensor-parallel only: mesh_spec "
+                    f"axes {other} must be 1 (replica parallelism is "
+                    "the fleet router's job — docs/Fleet.md)")
+            total = int(sum(config.table_sizes))
+            if spec.tp > 1 and total % spec.tp:
+                raise ValueError(
+                    f"mesh_spec tp={spec.tp} does not divide the stacked "
+                    f"embedding table's {total} rows "
+                    "(sum(model.config.table_sizes)) — each device must "
+                    "hold an equal table shard")
 
 
 @dataclasses.dataclass

@@ -92,27 +92,30 @@ def verified_step(model_dir: str, step: Optional[int]) -> int:
     return step
 
 
-def shard_restored_params(model, state, mesh, device):
+def shard_restored_params(model, state, mesh, device, rules=None):
     """The sharded restore (JAX inference.py:107-137): `model` — built on
     the ``meta`` device, or whole — cut to this rank's shards over
-    `mesh`'s tp dim by its modules' logical-axis annotations
-    (`parallel.tensor_parallel.shard`), materialised on `device`, and
-    filled with this rank's slices of the one-device `state` dict
-    (`sharding.shard_like_annotated`; a memory-mapped checkpoint is read
-    only where the slices lie). Returns the model. A state whose names
-    are not the model's fails here, before anything serves."""
+    `mesh`'s tp dim by its modules' logical-axis annotations under
+    `rules` (`parallel.sharding.LOGICAL_RULES` by default; the ranker's
+    `RANKING_RULES`) (`parallel.tensor_parallel.shard`), materialised on
+    `device`, and filled with this rank's slices of the one-device
+    `state` dict (`sharding.shard_like_annotated`; a memory-mapped
+    checkpoint is read only where the slices lie). Returns the model. A
+    state whose names are not the model's fails here, before anything
+    serves."""
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
     from tf_yarn_tpu_torch.parallel import sharding
     from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
 
+    rules = sharding.LOGICAL_RULES if rules is None else rules
     tp = tp_lib.TensorParallel.of(mesh, mesh_lib.AXIS_TP)
     if tp is not None and model.tp is None:
-        tp_lib.shard(model, tp)
+        tp_lib.shard(model, tp, rules)
     if any(param.is_meta for param in model.parameters()):
         model.to_empty(device=device)
     with telemetry.span("checkpoint/load_state_dict", sharded=True):
         model.load_state_dict(sharding.shard_like_annotated(model, state,
-                                                            mesh))
+                                                            mesh, rules))
     return model
 
 

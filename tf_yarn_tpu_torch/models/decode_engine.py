@@ -68,7 +68,6 @@ counters (`stats`). What it keeps, and where it differs:
 
 from __future__ import annotations
 
-import functools
 import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -93,6 +92,10 @@ from tf_yarn_tpu_torch.models.transformer import (
     require_int8_pool,
     zeroed_kv,
 )
+from tf_yarn_tpu_torch.parallel.tensor_parallel import (
+    ReplicaEngine,
+    replicated,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -112,29 +115,6 @@ class KVRows(dict):
 HEAD_AXIS = 3
 
 
-def _replicated(method=None, *, precheck=None, keep=None):
-    """Mark an engine method that runs on every rank of a tp replica: on
-    the leader it is announced (`tensor_parallel.Leader.run`) after
-    `precheck(self, *args, **kwargs)` passes, then run; on one device,
-    and on a follower (`DecodeEngine.follow`), it just runs. With `keep`,
-    the followers hold ``keep(result)`` for the leader's later ops."""
-    if method is None:
-        return functools.partial(_replicated, precheck=precheck, keep=keep)
-
-    @functools.wraps(method)
-    def run(self, *args, **kwargs):
-        leader = self.leader
-        if leader is None:
-            return method(self, *args, **kwargs)
-        if precheck is not None:
-            precheck(self, *args, **kwargs)
-        return leader.run(method.__name__, args, kwargs,
-                          lambda: method(self, *args, **kwargs), keep)
-
-    run.keep = keep
-    return run
-
-
 def _floor_bucket(value: int, buckets: Sequence[int]) -> Optional[int]:
     best = None
     for b in sorted(buckets):
@@ -150,7 +130,7 @@ def _ceil_bucket(value: int, buckets: Sequence[int]) -> Optional[int]:
     return None
 
 
-class DecodeEngine:
+class DecodeEngine(ReplicaEngine):
     """Serving-side decode for one `Transformer` (module docstring)."""
 
     def __init__(self, model: Transformer,
@@ -160,10 +140,6 @@ class DecodeEngine:
         self.mesh = mesh
         self.tp_degree = 1
         self.tp_rank = 0
-        # Set on a tp replica: the control channel, and on rank 0 the
-        # leader's end of the protocol (`parallel.tensor_parallel`).
-        self.channel = None
-        self.leader = None
         if mesh is not None:
             self._place(model, mesh)
         self.model = model
@@ -221,29 +197,8 @@ class DecodeEngine:
                              f"mesh has tp={self.tp_degree}")
         model.tp.trace = "serving/tp_allreduce"
         self.tp_rank = model.tp.rank
-        self.channel = tp_lib.channel_of(mesh)
-        if self.tp_rank == 0:
-            self.leader = tp_lib.Leader(self.channel, unsent=(PagedKVPool,),
-                                        trace="serving/tp_header")
-
-    @property
-    def follows(self) -> bool:
-        """Whether this engine is a tp follower's: it runs the device part
-        of each op and leaves the host part to the leader."""
-        return self.channel is not None and self.leader is None
-
-    def follow(self) -> None:
-        """On a tp follower: run the leader's ops on this rank's heads
-        until the leader's ``stop`` (`tensor_parallel.follow`)."""
-        from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
-
-        tp_lib.follow(self, self.channel)
-
-    def close(self) -> None:
-        """On a tp leader: stop the followers (`follow` returns). Nothing
-        to do on one device."""
-        if self.leader is not None:
-            self.leader.stop()
+        self.join_replica(mesh, self.tp_rank, "serving/tp_header",
+                          unsent=(PagedKVPool,))
 
     @property
     def device(self) -> torch.device:
@@ -273,7 +228,7 @@ class DecodeEngine:
 
     # -- prefill -----------------------------------------------------------
 
-    @_replicated(keep=lambda result: result[0])
+    @replicated(keep=lambda result: result[0])
     def prefill(self, prompt) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """[B, F] prompt -> (row cache, last-position logits [B, V])
         (`Transformer.prefill`)."""
@@ -388,7 +343,7 @@ class DecodeEngine:
 
     # -- dense slot grid -------------------------------------------------------
 
-    @_replicated(keep=lambda result: result)
+    @replicated(keep=lambda result: result)
     def make_slot_cache(self, max_slots: int) -> DenseKVCache:
         """Zeroed per-slot KV grid: ``max_slots`` rows of ``max_seq_len``
         positions, each row at its own index (at the rank's kv heads)."""
@@ -396,7 +351,7 @@ class DecodeEngine:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         return self.model.make_cache(max_slots)
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def insert_slot(self, slot_cache: DenseKVCache, slot: int,
                     row_cache) -> DenseKVCache:
@@ -405,14 +360,14 @@ class DecodeEngine:
         slot_cache.insert(row_cache, slot)
         return slot_cache
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def evict_slot(self, slot_cache: DenseKVCache, slot: int) -> DenseKVCache:
         """Zero slot `slot` (KV content and index), IN PLACE."""
         slot_cache.evict(slot)
         return slot_cache
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def step(self, slot_cache: DenseKVCache, tokens,
              generators: List[Optional[torch.Generator]], sample_mask,
@@ -434,7 +389,7 @@ class DecodeEngine:
                                          top_p)
         return slot_cache, emitted, generators
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def spec_step(self, slot_cache: DenseKVCache, tokens, n_known, eos_ids,
                   generators: List[Optional[torch.Generator]], active,
@@ -471,7 +426,7 @@ class DecodeEngine:
 
     # -- paged pool ------------------------------------------------------------
 
-    @_replicated(keep=lambda result: result)
+    @replicated(keep=lambda result: result)
     def make_paged_pool(self, num_blocks: int, block_size: int) -> PagedKVPool:
         """Zeroed block pool in the cache's dtype (int8 values with f32
         scales, or the compute dtype) at the rank's kv heads; block 0 is
@@ -494,7 +449,7 @@ class DecodeEngine:
             )
         return max_seq_len // block_size
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def pack_prefill(self, pool: PagedKVPool, block_ids, row_cache,
                      prefill_len: int, block_size: int) -> PagedKVPool:
@@ -529,7 +484,7 @@ class DecodeEngine:
                 f"{pool.block_size}"
             )
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def paged_step(self, pool: PagedKVPool, tables, lengths, tokens,
                    generators: List[Optional[torch.Generator]], sample_mask,
@@ -555,7 +510,7 @@ class DecodeEngine:
                                          top_p)
         return pool, emitted, generators
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def paged_spec_step(
         self, pool: PagedKVPool, tables, lengths, tokens, n_known, eos_ids,
@@ -622,7 +577,7 @@ class DecodeEngine:
                              f"got {ids.tolist()}")
         return torch.as_tensor(ids, device=pool.key.device)
 
-    @_replicated
+    @replicated
     @torch.no_grad()
     def extract_blocks(self, pool: PagedKVPool, block_ids,
                        block_size: int) -> Optional[PagedKVPool]:
@@ -682,7 +637,7 @@ class DecodeEngine:
                 leaf.dtype, HEAD_AXIS)
         return PagedKVPool(**out)
 
-    @_replicated(precheck=_check_payload)
+    @replicated(precheck=_check_payload)
     @torch.no_grad()
     def inject_blocks(self, pool: PagedKVPool, block_ids, payload: PagedKVPool,
                       block_size: int) -> PagedKVPool:
@@ -709,7 +664,7 @@ class DecodeEngine:
 
     # -- the replica's ranks ---------------------------------------------------
 
-    @_replicated
+    @replicated
     def rank_report(self, reset_launches: bool = False) -> List[Dict]:
         """Each rank's serving-path kernel launches (`ops` wrappers'
         counts) and peak device memory, in rank order ([this rank] on one

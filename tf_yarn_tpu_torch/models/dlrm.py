@@ -10,6 +10,15 @@ of which the strict upper triangle is kept; a top MLP and an f32 head.
 The JAX package computes all of it outside any Pallas kernel, so the
 port is an embedding gather, matmuls and `torch.bmm` too.
 
+A ranking replica over a tp group (`models.rank_engine.RankEngine(
+mesh=)`) cuts the stacked table's rows over the ranks under
+`parallel.sharding.RANKING_RULES` (`parallel.tensor_parallel.shard`
+sets ``tp``); its lookup is the vocab-parallel one
+(`tensor_parallel.vocab_embed`: each id's row from the one rank that
+holds it, the others' zeros, summed), so every rank computes the rest
+of the forward on the same exact rows. Every other parameter stays
+whole.
+
 Numbers as flax computes them: every Dense casts its input, kernel and
 bias to its dtype before the product and the bias add (bf16 in the
 Criteo config), the head's dtype is f32, and the parameters are f32
@@ -32,6 +41,7 @@ from torch import nn
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.models import common
 from tf_yarn_tpu_torch.parallel import sharding
+from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
 from tf_yarn_tpu_torch.parallel.sharding import EMBED
 
 
@@ -98,6 +108,9 @@ class DLRM(nn.Module):
             cfg.total_buckets, cfg.embed_dim, dtype=cfg.param_dtype,
             device=device))
         sharding.annotate(self, embedding=(EMBED, None))
+        # The rank's tp group once the table is cut over it (module
+        # docstring); None on one device.
+        self.tp = None
         width = cfg.n_dense
         self.bottom = []
         if cfg.n_dense:
@@ -164,7 +177,11 @@ class DLRM(nn.Module):
         # A floor mod (torch.remainder), as jnp's %: a negative id lands in
         # the same row of its table in both packages.
         ids = cat % self.sizes + self.offsets
-        emb = F.embedding(ids, self.embedding).to(cfg.dtype)  # [B, F, D]
+        if self.tp is None:
+            emb = F.embedding(ids, self.embedding).to(cfg.dtype)  # [B, F, D]
+        else:
+            emb = tp_lib.vocab_embed(self.embedding, ids, cfg.total_buckets,
+                                     self.tp, cfg.dtype, "table rows")
         feats, bottom = emb, None
         if cfg.n_dense:
             x = dense.to(cfg.dtype)

@@ -27,15 +27,31 @@ that has run before) keep the JAX names; ``rank_engine/compiles`` and
 ``rank_engine/compile_seconds`` have nothing to count.
 
 The model holds its weights (the JAX engine takes ``params`` at every
-call). Embedding-sharded inference over a tensor-parallel mesh
-(``mesh=``) raises: it is ROADMAP.md Queue 1 item 7.
+call).
+
+**Embedding-sharded inference** (``mesh=``, a mesh of ranks whose only
+dim above 1 is ``tp``; JAX rank_engine.py:14-21, 101-141): the stacked
+table's rows are cut over tp by `parallel.sharding.RANKING_RULES`
+(`parallel.tensor_parallel.shard`), each rank keeping ``sum(table_sizes)
+/ tp`` rows and every other parameter whole, and the lookup sums the
+ranks' rows (`tensor_parallel.vocab_embed`, op ``embed`` in the
+``train/tp_allreduce`` span): each row comes from the one rank that
+holds it, so a tp replica's scores are bitwise the one-device port's.
+The JAX package serves that from one process over a device mesh; the
+port runs one process a rank (`serving.tp_replica`). Rank 0, the
+leader, validates and pads each batch, then announces the padded ``cat``
+and ``dense`` to the followers (`tensor_parallel.Leader`) before its own
+forward; the followers (`follow`) run the same forward on their rows and
+keep no scores. A dead follower fails the leader's next call with
+`TPGroupError` (LOST_TASK).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import threading
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +59,10 @@ import torch
 from tf_yarn_tpu_torch import telemetry
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.models.decode_engine import _ceil_bucket
+from tf_yarn_tpu_torch.parallel.tensor_parallel import (
+    ReplicaEngine,
+    replicated,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -62,10 +82,12 @@ def build_rank_fn(model, has_dense: bool):
     return forward
 
 
-class RankEngine:
+class RankEngine(ReplicaEngine):
     """Ranking for one model on its device (module docstring). The
     device is the model's, checked by `resolve_device`: CUDA unless the
-    model was built with ``device="cpu"``."""
+    model was built with ``device="cpu"``. With ``mesh=`` every rank of
+    the tp group builds an engine over its own whole (or already cut)
+    model; the followers then call `follow`."""
 
     def __init__(
         self,
@@ -88,12 +110,11 @@ class RankEngine:
             raise ValueError(
                 f"batch_buckets must be positive, got {batch_buckets}"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "embedding-sharded ranking over a tensor-parallel mesh is "
-                "still to port (ROADMAP.md Queue 1 item 7, parallelism)"
-            )
+        self.mesh = mesh
         self.tp_degree = 1
+        self.tp_rank = 0
+        if mesh is not None:
+            self._place(model, mesh)
         self.device = resolve_device(getattr(model, "device", None))
         self._forwards = set()
         self._lock = threading.Lock()
@@ -103,6 +124,43 @@ class RankEngine:
             "unbucketed_shapes": 0,
         }
 
+    def _place(self, model, mesh) -> None:
+        """The JAX engine's verdicts on the mesh (rank_engine.py:110-129,
+        its messages), then the table's rows cut over tp by
+        RANKING_RULES (a model already cut keeps its cut) and the group's
+        control channel joined."""
+        from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
+        from tf_yarn_tpu_torch.parallel import sharding
+        from tf_yarn_tpu_torch.parallel import tensor_parallel as tp_lib
+
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        self.tp_degree = int(sizes.get(mesh_lib.AXIS_TP, 1))
+        if math.prod(sizes.values()) != self.tp_degree:
+            raise ValueError(
+                "ranking shards tensor-parallel only: every mesh "
+                f"axis but '{mesh_lib.AXIS_TP}' must be 1, got {sizes} "
+                "(replica parallelism is the fleet router's job)"
+            )
+        total = int(sum(model.config.table_sizes))
+        if total % self.tp_degree:
+            raise ValueError(
+                f"tp={self.tp_degree} does not divide the stacked "
+                f"embedding table's {total} rows — each device must "
+                "hold an equal table shard; pick a tp that divides "
+                "sum(table_sizes)"
+            )
+        if self.tp_degree == 1:
+            return
+        if model.tp is None:
+            tp_lib.shard(model, tp_lib.TensorParallel.of(mesh,
+                                                         mesh_lib.AXIS_TP),
+                         sharding.RANKING_RULES)
+        elif model.tp.size != self.tp_degree:
+            raise ValueError(f"the model is cut over tp={model.tp.size}, the "
+                             f"mesh has tp={self.tp_degree}")
+        self.tp_rank = model.tp.rank
+        self.join_replica(mesh, self.tp_rank, "ranking/tp_header")
+
     def select_bucket(self, batch: int) -> int:
         """Padded batch size for an incoming batch of `batch` rows:
         ceil to the bucket grid (extra rows are scored and discarded);
@@ -110,8 +168,11 @@ class RankEngine:
         return _ceil_bucket(batch, self.batch_buckets) or batch
 
     def params_nbytes_per_device(self) -> int:
-        """Resident parameter bytes on the device (one device: all of
-        them) — the ``ranking/params_hbm_bytes_per_device`` gauge."""
+        """Resident parameter bytes on this rank's device — the
+        ``ranking/params_hbm_bytes_per_device`` gauge: all of them on one
+        device, the table's ``1/tp`` and the rest whole on a tp rank
+        (the total less ``table * (tp - 1) / tp``, JAX
+        rank_engine.py:209-214)."""
         return sum(p.numel() * p.element_size()
                    for p in self.model.parameters())
 
@@ -177,9 +238,6 @@ class RankEngine:
                     [dense,
                      np.zeros((bucket - batch, self.n_dense), np.float32)]
                 )
-        args = (torch.from_numpy(cat).to(self.device),)
-        if dense is not None:
-            args = args + (torch.from_numpy(dense).to(self.device),)
         key = (bucket, dense is not None)
         with self._lock:
             seen = key in self._forwards
@@ -188,12 +246,39 @@ class RankEngine:
         if seen:
             telemetry.get_registry().counter(
                 "rank_engine/cache_hits", kind="forward").inc()
-        fn = build_rank_fn(self.model, has_dense=dense is not None)
         with telemetry.span("rank_engine/forward", batch=batch,
                             bucket=bucket):
-            with torch.inference_mode():
-                scores = fn(*args).float().cpu().numpy()
+            scores = self.score(cat, dense)
         return scores[:batch]
+
+    @replicated
+    def score(self, cat: np.ndarray, dense: Optional[np.ndarray] = None
+              ) -> Optional[np.ndarray]:
+        """One forward of a padded, validated batch on the device and one
+        copy of its scores to the host; on a tp leader announced to the
+        followers first, which run the forward on their rows and return
+        None."""
+        args = (torch.from_numpy(cat).to(self.device),)
+        if dense is not None:
+            args = args + (torch.from_numpy(dense).to(self.device),)
+        fn = build_rank_fn(self.model, has_dense=dense is not None)
+        with torch.inference_mode():
+            scores = fn(*args)
+        return None if self.follows else scores.float().cpu().numpy()
+
+    @replicated
+    def rank_report(self) -> List[Dict]:
+        """Each rank's parameter bytes and peak device memory, in rank
+        order ([this rank] on one device; the followers get None)."""
+        cuda = self.device.type == "cuda"
+        report = {"rank": self.tp_rank, "device": str(self.device),
+                  "params_bytes": self.params_nbytes_per_device(),
+                  "table_rows": int(self.model.embedding.shape[0]),
+                  "peak_memory_bytes": (torch.cuda.max_memory_allocated(
+                      self.device) if cuda else None)}
+        if self.channel is None:
+            return [report]
+        return self.channel.gather_objects(report)
 
     def warmup(self, max_batch: Optional[int] = None) -> int:
         """Run every bucket ≤ `max_batch` (all of them when None) once

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "tyt_flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "tyt_flash_dkv": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
     "tyt_quantize_int8": [_P, _P, _P, _I, _I, _I, _P],
-    "tyt_paged_window_attention": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
+    "tyt_paged_window_attention": [_P] * 11 + [_I] * 10 + [_F, _I, _P],
     "tyt_dense_decode_attention": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
 }
 

@@ -7,7 +7,11 @@
 //                      + pos % block_size          (through the block table)
 //   DenseLayout  row = slot * seq_len + pos         (a [B, S, n_kv, D] cache)
 //
-// with every row [n_kv, head_dim] int8 plus one f32 scale per kv head.
+// with every row [n_kv, head_dim] int8 plus one f32 scale per kv head:
+// the paged pool's scales are per row (scale row = row) or per block
+// (one scale row a physical block: scale row = row >> bs_shift, the
+// block's id), by a runtime shift of the layout, so both modes share one
+// instantiation.
 //
 // Virtual slot v = slot * width + w attends over the first
 //   lengths[slot] + w + length_offset
@@ -88,13 +92,20 @@ struct PagedLayout {
   const int* tables;  // [slots, max_blocks]
   int max_blocks;
   int bs_shift;
+  int scale_shift;  // 0: a scale a row; bs_shift: a scale a block
 
   struct Slot {
     const int* table;
     int bs_shift;
+    int scale_shift;
     __device__ __forceinline__ size_t row(int pos) const {
       return (static_cast<size_t>(table[pos >> bs_shift]) << bs_shift) +
              (pos & ((1 << bs_shift) - 1));
+    }
+    // The row of the scale pool that scales position pos: its own row, or
+    // its physical block's one row.
+    __device__ __forceinline__ size_t scale_row(int pos) const {
+      return row(pos) >> scale_shift;
     }
     // Rows below this may be copied: the live positions' whole blocks
     // (their table entries are valid; the stale tails are masked).
@@ -103,7 +114,8 @@ struct PagedLayout {
     }
   };
   __device__ __forceinline__ Slot slot(int s) const {
-    return {tables + static_cast<size_t>(s) * max_blocks, bs_shift};
+    return {tables + static_cast<size_t>(s) * max_blocks, bs_shift,
+            scale_shift};
   }
   __device__ __forceinline__ int capacity() const {
     return max_blocks << bs_shift;
@@ -118,6 +130,9 @@ struct DenseLayout {
   struct Slot {
     size_t base;
     __device__ __forceinline__ size_t row(int pos) const { return base + pos; }
+    __device__ __forceinline__ size_t scale_row(int pos) const {
+      return base + pos;
+    }
     __device__ __forceinline__ int readable(int n_pos) const { return n_pos; }
   };
   __device__ __forceinline__ Slot slot(int s) const {
@@ -156,7 +171,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // [base, base + kTileRows), into rows_s (row_bytes apart), as one
 // cp.async group. Rows at or past `readable` are skipped (their contents
 // stay stale and the caller masks them). Returns the scale of this
-// thread's row, 0 for a dead row.
+// thread's row (read from the scale row of that same position, so a
+// per-block scale comes from the position's own block wherever a split
+// or a tile starts), 0 for a dead row.
 template <typename Slot>
 __device__ __forceinline__ float issue_tile(
     const int8_t* __restrict__ cache, const float* __restrict__ scales,
@@ -164,7 +181,7 @@ __device__ __forceinline__ float issue_tile(
     int head_dim, int chunk_shift, int8_t* rows_s, int row_bytes) {
   const int pos = base + threadIdx.x;
   float scale = 0.f;
-  if (pos < n_pos) scale = scales[rows.row(pos) * n_kv + h];
+  if (pos < n_pos) scale = scales[rows.scale_row(pos) * n_kv + h];
   const int tile_chunks = kTileRows << chunk_shift;
   const size_t row_stride = static_cast<size_t>(n_kv) * head_dim;
   for (int idx = threadIdx.x; idx < tile_chunks; idx += kThreads) {

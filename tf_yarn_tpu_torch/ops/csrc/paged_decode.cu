@@ -8,7 +8,9 @@
 // Layout (the JAX package's, unchanged):
 //   q        [slots * width, n_heads, head_dim]       bf16 or f32
 //   pools    [num_blocks, block_size, n_kv, head_dim] int8
-//   scales   [num_blocks, block_size, n_kv, 1]        f32 (one per row)
+//   scales   [num_blocks, sb, n_kv, 1]                f32, sb = block_size
+//            (a scale a row) or 1 (a scale a block, quantize_int8_grouped's
+//            per-(block, head) layout)
 //   tables   [slots, max_blocks] int32, lengths [slots] int32
 //   out      like q
 // Virtual slot v = slot * width + w attends over the first
@@ -28,24 +30,27 @@
 // [slots * width, n_heads, n_splits, 2] are f32 scratch from the caller;
 // n_splits * kSplitRows must cover max_blocks * block_size. tickets
 // [slots * width * n_kv] are zero on entry and left zero (see
-// decode_split.cuh). head_dim must be 128, and (dtype, n_heads / n_kv)
+// decode_split.cuh). scale_rows is the scale pools' sb: block_size or 1. head_dim must be 128, and (dtype, n_heads / n_kv)
 // bf16 with 4 or f32 with 2.
 extern "C" int tyt_paged_window_attention(
     const void* q, const int8_t* kpool, const float* kscale,
     const int8_t* vpool, const float* vscale, const int* tables,
     const int* lengths, void* out, float* part_acc, float* part_ml,
     unsigned* tickets, int slots, int width, int n_heads, int n_kv,
-    int head_dim, int block_size, int max_blocks, int length_offset,
-    int n_splits, float softmax_scale, int dtype, void* stream) {
+    int head_dim, int block_size, int scale_rows, int max_blocks,
+    int length_offset, int n_splits, float softmax_scale, int dtype,
+    void* stream) {
   namespace d = tyt::decode;
   if (slots <= 0 || width <= 0) return 0;
   // block_size a power of two <= 128: the kernel indexes with shifts.
-  if (block_size <= 0 || d::kTileRows % block_size != 0 || max_blocks <= 0) {
+  if (block_size <= 0 || d::kTileRows % block_size != 0 || max_blocks <= 0 ||
+      (scale_rows != block_size && scale_rows != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int bs_shift = 0;
   while ((1 << bs_shift) < block_size) ++bs_shift;
-  const d::PagedLayout layout{tables, max_blocks, bs_shift};
+  const d::PagedLayout layout{tables, max_blocks, bs_shift,
+                              scale_rows == 1 ? bs_shift : 0};
   return d::dispatch(dtype, q, kpool, kscale, vpool, vscale, layout, lengths,
                      out, part_acc, part_ml, tickets, slots, width, n_heads,
                      n_kv, head_dim, max_blocks * block_size, length_offset,

@@ -10,10 +10,12 @@ Two layouts, the JAX package's:
   grid gets per-row lengths through ``vmap``);
 * the paged pool (`paged_int8_window_attention`,
   `paged_int8_decode_attention`): K/V values ``[NB, bs, Hkv, D]`` int8
-  plus per-row f32 scales ``[NB, bs, Hkv, 1]``, a block table ``[S, MB]``
-  int32 mapping each slot's logical blocks to physical ones, and
-  ``lengths [S]`` int32. Table entries past a slot's length may point
-  anywhere; those positions are masked.
+  plus f32 scales ``[NB, sb, Hkv, 1]`` — per-row (``sb = bs``) or
+  per-block (``sb = 1``, one scale a (block, kv head), as
+  `quantize.quantize_int8_grouped` makes them), the same for K and V —
+  a block table ``[S, MB]`` int32 mapping each slot's logical blocks to
+  physical ones, and ``lengths [S]`` int32. Table entries past a slot's
+  length may point anywhere; those positions are masked.
 
 CUDA tensors go to the hand-written kernels (csrc/dense_decode.cu
 replaces the TPU kernel `_decode_kernel`, csrc/paged_decode.cu
@@ -23,7 +25,7 @@ call: the sequence is split over blocks and the last split of each
 module keeps per device (`_ticket_buffer`); CPU tensors
 go to the plain versions (`*_reference`) the tests hold against the JAX
 package. A CUDA call the kernels are not built for raises; nothing falls
-back. Per-block scales are still to port (ROADMAP.md Queue 2).
+back.
 """
 
 from __future__ import annotations
@@ -85,14 +87,21 @@ def _ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
     return buf
 
 
-def _check_scales(key_pool, key_scale, value_scale) -> None:
+def _check_scales(key_pool, key_scale, value_scale) -> int:
+    """The scale pools' rows a block, ``sb``: the block size (per-row
+    scales) or 1 (per-block), the same for K and V; anything else is the
+    JAX package's ValueError (decode_attention.py:299-305)."""
     nb, bs, n_kv, _ = key_pool.shape
-    for name, scale in (("key_scale", key_scale), ("value_scale", value_scale)):
-        if tuple(scale.shape) != (nb, bs, n_kv, 1):
-            raise ValueError(
-                f"{name} must carry per-row scales {(nb, bs, n_kv, 1)}, got "
-                f"{tuple(scale.shape)} (per-block scales are not ported yet)"
-            )
+    sb = key_scale.shape[1] if key_scale.dim() == 4 else None
+    if sb not in (bs, 1) or any(
+            tuple(scale.shape) != (nb, sb, n_kv, 1)
+            for scale in (key_scale, value_scale)):
+        raise ValueError(
+            f"scale pools must carry per-row ({bs}) or per-block "
+            f"(1) scales; got key {tuple(key_scale.shape)}, value "
+            f"{tuple(value_scale.shape)}"
+        )
+    return sb
 
 
 def paged_int8_window_attention_reference(
@@ -116,7 +125,9 @@ def paged_int8_window_attention_reference(
     positions = max_blocks * bs
 
     def gather(pool, scale):
-        rows = pool[tables].float() * scale[tables]  # [S, MB, bs, Hkv, D]
+        # [S, MB, bs, Hkv, D]; a per-block scale [S, MB, 1, Hkv, 1]
+        # broadcasts over its block's rows.
+        rows = pool[tables].float() * scale[tables]
         return rows.reshape(slots, positions, n_kv, head_dim)
 
     keys = gather(key_pool, key_scale)
@@ -166,7 +177,7 @@ def _launch(query, key_pool, key_scale, value_pool, value_scale,
             block_tables, lengths, softmax_scale, length_offset):
     slots, width, n_heads, head_dim = query.shape
     nb, bs, n_kv, d = key_pool.shape
-    _check_scales(key_pool, key_scale, value_scale)
+    sb = _check_scales(key_pool, key_scale, value_scale)
     if tuple(value_pool.shape) != tuple(key_pool.shape) or d != head_dim:
         raise ValueError(
             f"pools must both be [NB, bs, Hkv, {head_dim}], got "
@@ -203,8 +214,9 @@ def _launch(query, key_pool, key_scale, value_pool, value_scale,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(),
         _ticket_buffer(query.device, slots * width * n_kv).data_ptr(),
-        slots, width, n_heads, n_kv, head_dim, bs, max_blocks, length_offset,
-        n_splits, float(softmax_scale), _build.DTYPE_CODES[query.dtype],
+        slots, width, n_heads, n_kv, head_dim, bs, sb, max_blocks,
+        length_offset, n_splits, float(softmax_scale),
+        _build.DTYPE_CODES[query.dtype],
         _build.stream_handle(query.device),
     )
     _build.check(status, "paged_int8_window_attention")

@@ -10,6 +10,12 @@ max(absmax, 1e-8) * float32(1/127)`` — XLA folds the JAX package's
 division by the constant 127 into that multiply — and
 ``clip(round_half_even(x / scale), -127, 127)`` with a true division,
 so on identical input they agree with the JAX package bit for bit.
+
+`quantize_int8_grouped` (the paged pool's per-block scales) is a
+reshape around `quantize_int8`, as in the JAX package: a group of
+`group_rows` rows of width d is one row of width ``group_rows * d``,
+which the kernel takes through its general path (its one-load-a-lane
+path is for d 128 only).
 """
 
 from __future__ import annotations
@@ -72,3 +78,34 @@ quantize_int8.launches = 0
 def dequantize_int8(values: torch.Tensor, scales: torch.Tensor,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (values.float() * scales).to(dtype)
+
+
+def quantize_int8_grouped(x: torch.Tensor, group_rows: int, **kwargs
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group symmetric int8 (quantize.py:93-118): x [..., R, d] ->
+    (int8 values [..., R, d], f32 scales [..., R/group_rows, 1]), one
+    abs-max scale shared by every `group_rows` consecutive rows. With
+    ``group_rows`` the KV block size this is the paged pool's per-block
+    scale layout. A CUDA tensor launches the kernel once, at row width
+    ``group_rows * d``; a CPU tensor takes the plain version."""
+    if group_rows < 1:
+        raise ValueError(f"group_rows must be >= 1, got {group_rows}")
+    *lead, rows, d = x.shape
+    if rows % group_rows:
+        raise ValueError(
+            f"rows ({rows}) must divide by group_rows ({group_rows})"
+        )
+    grouped = x.reshape(*lead, rows // group_rows, group_rows * d)
+    values, scales = quantize_int8(grouped, **kwargs)
+    return values.reshape(x.shape), scales
+
+
+def dequantize_int8_grouped(values: torch.Tensor, scales: torch.Tensor,
+                            group_rows: int,
+                            dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """Inverse of `quantize_int8_grouped`: values [..., R, d] + scales
+    [..., R/group_rows, 1] -> [..., R, d]."""
+    *lead, rows, d = values.shape
+    grouped = values.reshape(*lead, rows // group_rows, group_rows * d)
+    return dequantize_int8(grouped, scales, dtype).reshape(values.shape)

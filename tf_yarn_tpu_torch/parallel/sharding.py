@@ -84,7 +84,8 @@ LOGICAL_RULES: Tuple[Tuple[str, Any], ...] = (
 )
 
 # The ranking replica's placement (sharding.py:58-68): the DLRM table's
-# ("embed", None) rows over tp, every other rule unchanged.
+# ("embed", None) rows over tp, every other rule unchanged
+# (`models.rank_engine.RankEngine(mesh=)`).
 RANKING_RULES: Tuple[Tuple[str, Any], ...] = (
     (EMBED, AXIS_TP),
 ) + tuple(rule for rule in LOGICAL_RULES if rule[0] != EMBED)
@@ -211,16 +212,16 @@ def local_slice(tensor: torch.Tensor, dim: Optional[int], size: int,
 
 
 def shard_like_annotated(model: torch.nn.Module,
-                         state: Mapping[str, torch.Tensor], mesh
-                         ) -> Dict[str, torch.Tensor]:
+                         state: Mapping[str, torch.Tensor], mesh,
+                         rules=LOGICAL_RULES) -> Dict[str, torch.Tensor]:
     """This rank's slices of a one-device state dict of `model` (whole,
     or already cut to the rank's shards: its annotations place it the
-    same): each tensor whose placement names ``tp`` cut to the rank's
-    shard along that dim, the others as they are. Raises ValueError when
-    the state's names are not the model's."""
+    same): each tensor whose placement under `rules` names ``tp`` cut to
+    the rank's shard along that dim, the others as they are. Raises
+    ValueError when the state's names are not the model's."""
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 
-    dims = tp_dims(model)
+    dims = tp_dims(model, rules)
     names = list(model.state_dict())
     if sorted(state) != sorted(names):
         missing = sorted(set(names) - set(state))

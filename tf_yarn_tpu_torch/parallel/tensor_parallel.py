@@ -19,6 +19,10 @@ how it is used:
   its rank's input features, and the partial products are summed;
 * vocab-parallel embedding: a ``(vocab, embed)`` table keeps its rank's
   rows; an id outside them reads zeros and the ranks' rows are summed;
+  under `sharding.RANKING_RULES` the DLRM's stacked ``(embed, None)``
+  table is cut and read the same way (`shard(..., rules=)`; the ranking
+  replica's placement, JAX rank_engine.py:101-141), every other DLRM
+  parameter whole;
 * vocab-parallel head: an ``(embed, vocab)`` head computes its rank's
   logits, which are gathered whole for the loss (an all-reduce of the
   zero-padded shard, whose backward takes the slice), as JAX's loss sees
@@ -86,6 +90,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import functools
 import logging
 import pickle
 import threading
@@ -216,12 +221,15 @@ def gather_last(local: torch.Tensor, start: int, total: int,
 
 
 def vocab_embed(table: torch.Tensor, ids: torch.Tensor, vocab: int,
-                tp: TensorParallel, dtype: torch.dtype) -> torch.Tensor:
-    """Rows of a vocab-parallel table for global `ids` (already made
-    rows by `models.transformer.vocab_index`): a rank reads the ids in
-    its rows and zeros elsewhere, and the ranks' rows are summed — each
-    id's row comes from exactly one rank, so the sum is exact."""
-    start, length = tp.span(vocab, "vocab_size")
+                tp: TensorParallel, dtype: torch.dtype,
+                what: str = "vocab_size") -> torch.Tensor:
+    """Rows of a vocab-parallel table of `vocab` rows (`what` names the
+    count in an error) for global `ids` (already made rows by
+    `models.transformer.vocab_index`, or the DLRM's per-table fold): a
+    rank reads the ids in its rows and zeros elsewhere, and the ranks'
+    rows are summed — each id's row comes from exactly one rank, so the
+    sum is exact."""
+    start, length = tp.span(vocab, what)
     local = ids - start
     mine = (local >= 0) & (local < length)
     rows = table[local.clamp(0, length - 1)].to(dtype)
@@ -247,16 +255,18 @@ def parallelize(model: torch.nn.Module, mesh) -> Optional[TensorParallel]:
     return tp if tp is not None and shard(model, tp) else None
 
 
-def shard(model: torch.nn.Module, tp: TensorParallel) -> bool:
-    """Slice `model`'s parameters to `tp`'s shards and give its modules
-    the group (module docstring); False, the model untouched, when no
-    placement names tp (ResNet, mnist's DenseClassifier, the DLRM: they
+def shard(model: torch.nn.Module, tp: TensorParallel,
+          rules=sharding.LOGICAL_RULES) -> bool:
+    """Slice `model`'s parameters to `tp`'s shards by their placements
+    under `rules` and give its modules the group (module docstring);
+    False, the model untouched, when no placement names tp (ResNet,
+    mnist's DenseClassifier, and the DLRM under the training rules: they
     train replicated over tp, as GSPMD places them). Raises ValueError,
-    naming the config field, where tp does not divide a dim it splits,
-    and NotImplementedError where a tp-sliced parameter's module cannot
-    compute on its shard (it has no ``tp`` attribute) — both before
-    anything is cut."""
-    dims = sharding.tp_dims(model)
+    naming the config field (or the parameter), where tp does not divide
+    a dim it splits, and NotImplementedError where a tp-sliced
+    parameter's module cannot compute on its shard (it has no ``tp``
+    attribute) — both before anything is cut."""
+    dims = sharding.tp_dims(model, rules)
     if all(dim is None for dim in dims.values()):
         _logger.info("%s has no parameter placed over tp: it trains "
                      "replicated over tp=%d", type(model).__name__, tp.size)
@@ -276,6 +286,9 @@ def shard(model: torch.nn.Module, tp: TensorParallel) -> bool:
             raise NotImplementedError(
                 f"{name} is placed over tp but its {type(module).__name__} "
                 "has no tp attribute: it cannot compute on its shard")
+    params = dict(model.named_parameters())
+    for name in owners:
+        tp.span(params[name].shape[dims[name]], f"{name} dim {dims[name]}")
     for name, param in list(model.named_parameters()):
         if name in owners:
             local = sharding.local_slice(param.detach(), dims[name], tp.size,
@@ -586,6 +599,64 @@ def _decode(value, objects: Dict[int, Any]):
     if type(value) in (list, tuple):
         return type(value)(_decode(v, objects) for v in value)
     return value
+
+
+def replicated(method=None, *, precheck=None, keep=None):
+    """Mark an engine method that runs on every rank of a tp replica: on
+    the leader it is announced (`Leader.run`) after `precheck(self,
+    *args, **kwargs)` passes, then run; on one device, and on a follower
+    (`ReplicaEngine.follow`), it just runs. With `keep`, the followers
+    hold ``keep(result)`` for the leader's later ops."""
+    if method is None:
+        return functools.partial(replicated, precheck=precheck, keep=keep)
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        leader = self.leader
+        if leader is None:
+            return method(self, *args, **kwargs)
+        if precheck is not None:
+            precheck(self, *args, **kwargs)
+        return leader.run(method.__name__, args, kwargs,
+                          lambda: method(self, *args, **kwargs), keep)
+
+    run.keep = keep
+    return run
+
+
+class ReplicaEngine:
+    """An engine's part in a tp replica (`models.decode_engine`,
+    `models.rank_engine`): the group's control channel and, on rank 0,
+    the leader's end of the protocol, through which its `replicated`
+    methods are announced. Both stay None on one device."""
+
+    channel: Optional[Channel] = None
+    leader: Optional[Leader] = None
+
+    def join_replica(self, mesh, rank: int, trace: str,
+                     unsent: tuple = ()) -> None:
+        """Join `mesh`'s control channel; rank 0 leads, each header a
+        `trace` span."""
+        self.channel = channel_of(mesh)
+        if rank == 0:
+            self.leader = Leader(self.channel, unsent=unsent, trace=trace)
+
+    @property
+    def follows(self) -> bool:
+        """Whether this engine is a tp follower's: it runs the device part
+        of each op and leaves the host part to the leader."""
+        return self.channel is not None and self.leader is None
+
+    def follow(self) -> None:
+        """On a tp follower: run the leader's ops on this rank's shard
+        until the leader's ``stop`` (`follow`)."""
+        follow(self, self.channel)
+
+    def close(self) -> None:
+        """On a tp leader: stop the followers (`follow` returns). Nothing
+        to do on one device."""
+        if self.leader is not None:
+            self.leader.stop()
 
 
 def follow(target, channel: Channel) -> None:

@@ -25,8 +25,12 @@ stream through the same `_push`/`_finish` hooks tokens do.
 The engine's model holds its weights, so the scheduler takes no
 ``params`` (the JAX scheduler places them at construction); the rest —
 the knobs, their errors, `stats()`'s keys and the ``ranking/*`` metric
-names — is the JAX scheduler's. The one device holds the whole table:
-``tp_degree`` is 1.
+names — is the JAX scheduler's. ``tp_degree`` is the engine's (the
+ranks of a tp replica, `models.rank_engine`), and the
+``ranking/params_hbm_bytes_per_device`` gauge its rank's bytes. A tick
+is one call of the engine on any degree; a lost tp follower fails it
+with `TPGroupError`, answered as ``error`` like any engine failure,
+and the replica's poll (`ranking.server.run_ranking`) ends the task.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ Same stdlib-only conventions as serving/server.py, different protocol:
 `run_ranking` is the ``rank`` task's body (tasks/rank.py): restore the
 checkpoint into the experiment's model (or draw the seeded init), warm
 up, start the scheduler and frontend, advertise ``{task}/rank_endpoint``
-and serve until the preemption notice or ``serve_seconds``.
+and serve until the preemption notice or ``serve_seconds``. Under
+``mesh_spec=MeshSpec(tp=N)`` it first starts the replica's N-1
+followers (`serving.tp_replica`), and each rank holds its rows of the
+table.
 """
 
 from __future__ import annotations
@@ -203,27 +206,81 @@ def run_ranking(experiment, runtime=None) -> dict:
     serves the same weights bit for bit. They are not the JAX package's
     weights for that seed — a torch generator cannot draw what
     ``jax.random`` draws — so a replica of each package agrees only over
-    a checkpoint (`models.weights.dlrm_from_flax`)."""
-    import torch
+    a checkpoint (`models.weights.dlrm_from_flax`).
 
-    from tf_yarn_tpu_torch import event
-    from tf_yarn_tpu_torch.models.rank_engine import (
-        DEFAULT_BATCH_BUCKETS,
-        RankEngine,
-    )
+    A ``mesh_spec`` over more than one device (JAX ranking/server.py:
+    209-225): the replica's group first (``ranking/build_mesh``, the
+    followers spawned; "ranking tensor-parallel: tp=N over N devices"),
+    then every rank's rows of the table (``ranking/restore_params``: the
+    step verified, each rank reading only its rows; or
+    ``ranking/init_params``: the seeded init drawn whole on each rank, so
+    the replica serves the one-device replica's weights bit for bit), by
+    `serving.tp_replica.ranker_shard`. A lost follower ends the serve
+    loop with `TPGroupError` (LOST_TASK), and the followers stop on
+    every way out."""
     from tf_yarn_tpu_torch.serving.server import (
-        advertised_endpoint,
         finish_replica,
-        serve_until_stopped,
+        replica_poll,
         task_name,
     )
 
     telemetry_task = task_name(runtime, "rank")
     telemetry.enable_env_jsonl(telemetry_task)
+    engine, step, replica = _load_engine(experiment)
+    try:
+        return _serve(experiment, runtime, engine, step,
+                      replica_poll(replica))
+    finally:
+        if replica is not None:
+            replica.close()
+        finish_replica(runtime, telemetry_task)
+
+
+def _load_engine(experiment):
+    """(engine, checkpoint step or -1, tp replica or None) of
+    `run_ranking`."""
+    import torch
+
+    from tf_yarn_tpu_torch import inference
+    from tf_yarn_tpu_torch.models.rank_engine import (
+        DEFAULT_BATCH_BUCKETS,
+        RankEngine,
+    )
+
+    buckets = experiment.batch_buckets or DEFAULT_BATCH_BUCKETS
+    spec = experiment.mesh_spec
+    if spec is not None and spec.total_devices > 1:
+        from tf_yarn_tpu_torch.serving import tp_replica
+
+        with telemetry.span("ranking/build_mesh",
+                            devices=spec.total_devices):
+            replica = tp_replica.start(spec)
+        _logger.info("ranking tensor-parallel: tp=%d over %d devices",
+                     spec.tp, spec.total_devices)
+        try:
+            step = -1
+            if experiment.model_dir is not None:
+                with telemetry.span("ranking/restore_params"):
+                    step = inference.verified_step(experiment.model_dir,
+                                                   experiment.step)
+                    engine = replica.load(
+                        experiment.model.config,
+                        builder=tp_replica.ranker_shard,
+                        model_dir=experiment.model_dir, step=step,
+                        batch_buckets=buckets)
+            else:
+                with telemetry.span("ranking/init_params",
+                                    seed=experiment.init_seed):
+                    engine = replica.load(
+                        experiment.model.config,
+                        builder=tp_replica.ranker_shard,
+                        init_seed=experiment.init_seed, batch_buckets=buckets)
+        except BaseException:
+            replica.close()
+            raise
+        return engine, step, replica
     model = experiment.model
     if experiment.model_dir is not None:
-        from tf_yarn_tpu_torch import inference
-
         with telemetry.span("ranking/restore_params"):
             step = inference._restore_params(model, experiment.model_dir,
                                              experiment.step)
@@ -232,8 +289,16 @@ def run_ranking(experiment, runtime=None) -> dict:
             model.init_weights(torch.Generator(device=model.device)
                                .manual_seed(int(experiment.init_seed)))
         step = -1
-    engine = RankEngine(
-        model, batch_buckets=experiment.batch_buckets or DEFAULT_BATCH_BUCKETS)
+    return RankEngine(model, batch_buckets=buckets), step, None
+
+
+def _serve(experiment, runtime, engine, step, poll) -> dict:
+    from tf_yarn_tpu_torch import event
+    from tf_yarn_tpu_torch.serving.server import (
+        advertised_endpoint,
+        serve_until_stopped,
+    )
+
     scheduler = MicroBatchScheduler(
         engine,
         max_batch=experiment.max_batch,
@@ -258,12 +323,11 @@ def run_ranking(experiment, runtime=None) -> dict:
         experiment.queue_capacity)
     try:
         serve_until_stopped("ranking", experiment.serve_seconds,
-                            scheduler.drain)
+                            scheduler.drain, poll=poll)
     finally:
         server.stop()
         scheduler.close()
         stats = {"endpoint": advertised, "ckpt_step": step,
                  **scheduler.stats()}
         _logger.info("ranking done: %s", stats)
-        finish_replica(runtime, telemetry_task)
     return stats

@@ -1,7 +1,8 @@
-"""A tensor-parallel serving replica's launch: one leader and N-1
-followers over a tp group of ranks — the port's counterpart of the JAX
-package's serving mesh (server.py:434-463, prefill.py:471-491,
-decode_engine.py:37-51).
+"""A tensor-parallel replica's launch: one leader and N-1 followers over
+a tp group of ranks — the port's counterpart of the JAX package's
+serving mesh (server.py:434-463, prefill.py:471-491,
+decode_engine.py:37-51) and ranking mesh (ranking/server.py:209-225,
+rank_engine.py:101-141).
 
 The JAX package serves a tp replica from ONE process over a device mesh,
 and GSPMD inserts the collectives. The port runs one process per rank,
@@ -19,20 +20,25 @@ the one-device wire.
 context) and meets them on a local rendezvous as rank 0; each rank
 takes its card by `_device.assign_rank_device` (``TPU_YARN_PLATFORM=
 cpu``: the CPU and gloo). The group's timeout is `tensor_parallel.
-DEFAULT_TIMEOUT_S`, read here. `Replica.load` sends the config and the
-checkpoint (verified by the caller before `start`, so no follower waits
-on the verification) or a state dict to the followers, and every rank
-builds its model on the ``meta`` device and fills in only its shards
-from the memory-mapped state (`inference.shard_restored_params`): no
-rank holds the whole model on its card. A dead follower fails the
+DEFAULT_TIMEOUT_S`, read here. `Replica.load` sends the followers what
+to build — a module-level builder, sent by name, and its message: the
+config and the checkpoint or a state dict — and every rank builds its
+engine with it. `decoder_shard` (the default: a `DecodeEngine`) builds
+the model on the ``meta`` device and fills in only its shards from the
+memory-mapped state (`inference.shard_restored_params`): no rank holds
+the whole decoder on its card. `ranker_shard` (a `RankEngine`) builds
+the DLRM whole, draws the seeded init on it when there is no
+checkpoint (as a one-device replica draws it), keeps its rows of the
+table and reads only those of a checkpoint. A dead follower fails the
 leader's next op with `TPGroupError` (LOST_TASK), and `Replica.check`,
 which the replica's poll loop calls, raises it too, so `run_serving`
 ends with a classified failure instead of a hang. `Replica.close`
-collects each rank's report (launches, peak memory), stops the
-followers, joins them and ends the group; `close_all` closes every live
-replica of the process (the replica tasks' exit path). A caller that
-runs its own process group builds `DecodeEngine(model, mesh=mesh)` on
-every rank and calls `engine.follow()` on the followers.
+collects each rank's report (the engine's `rank_report`: launches or
+parameter bytes, peak memory), stops the followers, joins them and ends
+the group; `close_all` closes every live replica of the process (the
+replica tasks' exit path). A caller that runs its own process group
+builds `DecodeEngine(model, mesh=mesh)` or `RankEngine(model,
+mesh=mesh)` on every rank and calls `engine.follow()` on the followers.
 """
 
 from __future__ import annotations
@@ -40,7 +46,6 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-import socket
 import threading
 import time
 import weakref
@@ -60,57 +65,97 @@ _logger = logging.getLogger(__name__)
 CLOSE_WAIT_S = 30.0
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+def _leader_store(size: int, timeout_s: float):
+    """The group's rendezvous store, listening before any follower
+    starts: a port picked free and bound later could be taken in
+    between by any autobound socket of the host."""
+    return dist.TCPStore(
+        "127.0.0.1", 0, size, True,
+        timeout=datetime.timedelta(seconds=timeout_s),
+        wait_for_workers=False)
 
 
-def _init_group(backend: str, port: int, size: int, rank: int,
+def _init_group(backend: str, store, size: int, rank: int,
                 timeout_s: float) -> None:
     dist.init_process_group(
-        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=size,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        backend, store=store, world_size=size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def _shard_model(load: dict, mesh, device):
-    """A rank's model from the leader's load message: built on the meta
-    device, cut to the rank's shards, filled from the state dict (a
-    memory-mapped checkpoint's, or the message's own)."""
+def _state(load: dict):
+    """The load message's one-device state dict: its own, or the
+    checkpoint's, memory-mapped (None when it names neither)."""
     from tf_yarn_tpu_torch import checkpoint as ckpt_lib
+
+    if load.get("state") is not None or load.get("model_dir") is None:
+        return load.get("state")
+    return ckpt_lib.restore_checkpoint(
+        load["model_dir"], load["step"], map_location="cpu",
+        parts=("params",), mmap=True)["params"]
+
+
+def decoder_shard(load: dict, mesh, device):
+    """A rank's `DecodeEngine` from the leader's load message: the
+    decoder built on the meta device, cut to the rank's shards, filled
+    from the state dict."""
     from tf_yarn_tpu_torch import inference
+    from tf_yarn_tpu_torch.models.decode_engine import DecodeEngine
     from tf_yarn_tpu_torch.models.transformer import Transformer
 
-    state = load.get("state")
-    if state is None:
-        state = ckpt_lib.restore_checkpoint(
-            load["model_dir"], load["step"], map_location="cpu",
-            parts=("params",), mmap=True)["params"]
     model = Transformer(load["config"], device="meta")
-    return inference.shard_restored_params(model, state, mesh, device)
+    model = inference.shard_restored_params(model, _state(load), mesh, device)
+    _logger.info("tp rank on %s: %d of %d kv heads", device, model.kv_heads,
+                 load["config"].n_kv_heads)
+    return DecodeEngine(model, mesh=mesh, **load["engine"])
+
+
+def ranker_shard(load: dict, mesh, device):
+    """A rank's `RankEngine` from the leader's load message: the DLRM
+    built whole on `device` (the seeded init drawn on it when the message
+    has no state, as `ranking.server.run_ranking` draws it on one
+    device), cut to the rank's rows of the table by the engine, then
+    filled with the rank's rows of the state dict."""
+    import torch
+
+    from tf_yarn_tpu_torch import inference
+    from tf_yarn_tpu_torch.models.dlrm import DLRM
+    from tf_yarn_tpu_torch.models.rank_engine import RankEngine
+    from tf_yarn_tpu_torch.parallel import sharding
+
+    model = DLRM(load["config"], device=device)
+    state = _state(load)
+    if state is None:
+        model.init_weights(torch.Generator(device=device).manual_seed(
+            int(load["init_seed"])))
+    engine = RankEngine(model, mesh=mesh, **load["engine"])
+    if state is not None:
+        inference.shard_restored_params(model, state, mesh, device,
+                                        sharding.RANKING_RULES)
+    _logger.info("tp rank on %s: %d of %d table rows", device,
+                 model.embedding.shape[0], load["config"].total_buckets)
+    return engine
 
 
 def _follower_main(rank: int, size: int, port: int, timeout_s: float) -> None:
     """A spawned follower: join the group, take the leader's load
-    message, build this rank's engine and follow until ``stop``."""
+    message, build this rank's engine with its builder and follow until
+    ``stop``."""
     logging.basicConfig(
         level=logging.INFO,
         format=f"%(asctime)s %(levelname)s tp rank {rank} %(name)s: "
                "%(message)s")
-    from tf_yarn_tpu_torch.models.decode_engine import DecodeEngine
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 
     try:
         device, backend = _device.assign_rank_device(rank, size)
-        _init_group(backend, port, size, rank, timeout_s)
+        store = dist.TCPStore(
+            "127.0.0.1", port, size, False,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        _init_group(backend, store, size, rank, timeout_s)
         mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(tp=size), device)
         load, _ = tp_lib.channel_of(mesh, timeout_s).broadcast()
         if not load.get("stop"):
-            engine = DecodeEngine(_shard_model(load, mesh, device),
-                                  mesh=mesh, **load.get("engine", {}))
-            _logger.info("following on %s: %d of %d kv heads", device,
-                         engine.model.kv_heads, load["config"].n_kv_heads)
-            engine.follow()
+            load["builder"](load, mesh, device).follow()
         dist.destroy_process_group()
     except BaseException:  # noqa: B036 — a follower reports and dies
         _logger.exception("tp follower rank %d failed", rank)
@@ -139,19 +184,21 @@ class Replica:
         self.reports: Optional[List[dict]] = None
         self._closed = False
 
-    def load(self, config, *, model_dir: Optional[str] = None,
-             step: Optional[int] = None, state=None, **engine_kwargs):
-        """Every rank's shard of the model — ckpt-`step` of `model_dir`
-        (verified by the caller), or the one-device `state` dict — and
-        the leader's `DecodeEngine` over the group (`engine_kwargs`: its
+    def load(self, config, *, builder=decoder_shard,
+             model_dir: Optional[str] = None, step: Optional[int] = None,
+             state=None, init_seed: Optional[int] = None, **engine_kwargs):
+        """Every rank's engine over its shard of the model, built by
+        `builder` (a module-level function of the load message, the mesh
+        and the device; `decoder_shard` or `ranker_shard`) from
+        ckpt-`step` of `model_dir` (verified by the caller), the
+        one-device `state` dict, or (the ranker) the seeded init of
+        `init_seed`; returns the leader's (`engine_kwargs`: its
         buckets)."""
-        from tf_yarn_tpu_torch.models.decode_engine import DecodeEngine
-
-        load = {"config": config, "model_dir": model_dir, "step": step,
-                "state": state, "engine": engine_kwargs}
+        load = {"builder": builder, "config": config, "model_dir": model_dir,
+                "step": step, "state": state, "init_seed": init_seed,
+                "engine": engine_kwargs}
         self.channel.broadcast(load)
-        model = _shard_model(load, self.mesh, self.device)
-        self.engine = DecodeEngine(model, mesh=self.mesh, **engine_kwargs)
+        self.engine = builder(load, self.mesh, self.device)
         return self.engine
 
     def check(self) -> None:
@@ -236,7 +283,8 @@ def start(mesh_spec) -> Replica:
         raise RuntimeError("a tp replica starts its own process group; this "
                            "process is already in one")
     timeout_s = tp_lib.DEFAULT_TIMEOUT_S
-    port = _free_port()
+    store = _leader_store(size, timeout_s)
+    port = store.port
     context = torch.multiprocessing.get_context("spawn")
     processes = []
     try:
@@ -252,7 +300,7 @@ def start(mesh_spec) -> Replica:
 
         def join() -> None:
             try:
-                _init_group(backend, port, size, 0, timeout_s)
+                _init_group(backend, store, size, 0, timeout_s)
             except BaseException as exc:  # noqa: B036 — re-raised below
                 joined.append(exc)
             finally:

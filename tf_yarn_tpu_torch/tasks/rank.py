@@ -15,6 +15,11 @@ preemption notice) sets the drain flag the body polls: ``/healthz``
 answers "draining" at once and the task exits cleanly. The replica's
 device is the model's, which the experiment fn builds on
 `_device.task_device()` (the card, unless ``TPU_YARN_PLATFORM=cpu``).
+Under ``mesh_spec=MeshSpec(tp=N)`` (`topologies.ranking_topology(
+chips_per_host=N)`) the task is the leader of a tp replica whose N-1
+followers it spawns; on one card the ranks share it over gloo
+(`_device.assign_rank_device`), and `_bootstrap` closes the group on
+the task's way out.
 """
 
 from __future__ import annotations

@@ -333,8 +333,11 @@ def ranking_topology(
     chips_per_host: int = 1,
 ) -> TaskSpecs:
     """`instances` independent online-ranking replicas, each loading the
-    model, ticking its micro-batch loop and advertising a
-    ``rank_endpoint`` through the KV store."""
+    model (embedding-sharded over `chips_per_host` ranks when the
+    experiment's ``mesh_spec`` is ``MeshSpec(tp=chips_per_host)``: the
+    task leads, `serving.tp_replica` spawns the rest), ticking its
+    micro-batch loop and advertising a ``rank_endpoint`` through the KV
+    store."""
     if instances < 1:
         raise ValueError(f"instances must be >= 1, got {instances}")
     specs: TaskSpecs = {
