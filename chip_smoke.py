@@ -87,7 +87,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    attention, one layer a stage) against one rank of that config: losses
    and adapters within 1e-4, RMSNorm launched as often as the one rank,
    the sp ranks' adapters bitwise equal, the leaves every stage holds
-   bitwise equal (`parallel_check`);
+   bitwise equal (`parallel_check`); a small f32 MoE decoder (4 experts,
+   capacity factor 1.0: tokens dropped) trained 3 steps on both with
+   AdamW and with adafactor (d_model 256: its leaves factor) — losses,
+   aux losses and parameters close, the router's smallest top-1 margin
+   above MOE_ROUTE_MARGIN — and the linear classifier 3 adagrad steps on
+   both; then the same two ranks train the MoE decoder at
+   `MeshSpec(ep=2)` against one rank (`moe_ep_check`: losses and
+   parameters within 1e-4, the whole parameters bitwise equal across the
+   ranks, 2 of 4 experts a rank);
 5. serving slice: the Llama-3-8B-width decoder cut to 4 of its 32
    layers (`serving_config`; random bf16 weights from seed 0, int8 KV)
    on every serving path, each with the kernel counts
@@ -120,6 +128,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    step is the mean of steps 2-4, with their spread. Then a warm-up
    step, one timed step and one under torch.profiler: the device's busy
    time against the timed step gives its idle share;
+6b. MoE and linear slice: the Switch MoE decoder at Llama-3-8B widths
+   (8 experts of its MLP's shape, 1 of its 32 layers; `moe_config`) at 1
+   x 2048 tokens through `train_and_evaluate`, 4 steps with AdamW and 4
+   with adafactor, each with the training kernels' counts set to 0 just
+   before it: every one launched, losses and aux losses finite, the
+   router and experts moved, the share of tokens dropped, the steady
+   step, peak memory and a profiled step (`moe_slice`); the linear
+   classifier at BASELINE.json config 2's size (2^20 buckets, 39
+   features) 60 adagrad steps at batch 4096, accuracy > 0.6
+   (`linear_slice`); then two ranks spawned at the phase's start train
+   the MoE decoder with adafactor at `MeshSpec(ep=2)` for 3 steps
+   against the one-device run's first 3 (losses within MOE_EP_WIDE_RTOL,
+   the whole parameters bitwise equal across the ranks, each rank's peak
+   memory and ep all-reduces a step);
 7. zoo slice: each family's `make_experiment` at full width with
    `fused_norms=True` — BERT-base (32 x 128 tokens), ViT-B/16 and
    ResNet-50 with the conv stem (128 images at 224) — through
@@ -4817,13 +4839,16 @@ TP_GO_TIMEOUT_S = 900.0
 
 # The runs of phase 4's tiny ranks, in order: tp (the tp check), then
 # sequence parallelism by ring and by Ulysses with flash inside, then the
-# GPipe schedule (xla attention, as JAX's GPipe requires), each with its
-# record tag; and (h)'s and (i)'s runs at Llama-3-8B widths.
+# GPipe schedule (xla attention, as JAX's GPipe requires), then the small
+# MoE decoder's experts over ep (`moe_experiment`), each with its record
+# tag; and (h)'s and (i)'s runs at Llama-3-8B widths.
 TINY_RUNS = (dict(tag="tp"),
              dict(tag="sp_ring", mesh={"sp": 2}, impl="ring"),
              dict(tag="sp_ulysses_flash", mesh={"sp": 2},
                   impl="ulysses_flash"),
-             dict(tag="pp", mesh={"pp": 2}, impl="xla", gpipe=2))
+             dict(tag="pp", mesh={"pp": 2}, impl="xla", gpipe=2),
+             dict(tag="moe_ep", moe=True, ep=2, optimizer="adamw",
+                  steps=TP_STEPS))
 PP_SHAPE = (2, 2048)
 H_RUNS = (dict(tag="h_ulysses_flash", mesh={"sp": 2}, impl="ulysses_flash",
                shape=(1, SP_SEQ)),
@@ -4847,6 +4872,11 @@ def _parallel_rank(rank: int, world: int, port: int, out_dir: str,
 
     if device == "cuda":
         torch.cuda.set_device(0)
+    else:
+        # One thread: the CPU's accumulating index_put (the embedding's
+        # gradient) sums repeated ids in thread order, which would leave
+        # a rehearsal's replicated leaves a last bit apart.
+        torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
@@ -4863,11 +4893,16 @@ def _parallel_rank(rank: int, world: int, port: int, out_dir: str,
                                                f"{run['tag']}_trace")
             if device == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            model_dir = (None if tiny
-                         else str(Path(out_dir) / f"{run['tag']}_model"))
-            training.train_and_evaluate(experiment.as_core_experiment(
-                tp_experiment(out_dir, tiny=tiny, tp=world,
-                              model_dir=model_dir, **run)), device=device)
+            run = dict(run)
+            if run.pop("moe", False):  # the MoE runs write no checkpoint
+                exp = moe_experiment(out_dir, tiny=tiny, **run)
+            else:
+                model_dir = (None if tiny else
+                             str(Path(out_dir) / f"{run['tag']}_model"))
+                exp = tp_experiment(out_dir, tiny=tiny, tp=world,
+                                    model_dir=model_dir, **run)
+            training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                        device=device)
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
@@ -6420,6 +6455,480 @@ def tp_serving_part(torch, tt, engine_mod, sched_mod, server_mod, client,
         "start_spans_s": task["start_spans_s"], "seconds": seconds}
 
 
+# The MoE decoder (phases 4 and 6b). Phase 4's small f32 one (head_dim 64,
+# the flash f32 kernels) at capacity factor 1.0, so tokens are dropped;
+# phase 6b's has Llama-3-8B's widths and 8 experts each of its MLP's
+# shape, at one layer of its 32 (full-parameter training must fit the
+# card), trained at TRAIN_BATCH x TRAIN_SEQ: capacity int(1.25 * 2048 / 8)
+# = 320 slots an expert.
+MOE_EXPERTS = 8
+MOE_STEPS = 4
+MOE_EP = 2
+MOE_EP_STEPS = 3
+# Learning rates of the tiny card-vs-CPU runs: AdamW's, and adafactor's
+# (a step relative to each leaf's RMS). Phase 6b uses make_experiment's.
+MOE_TINY_LR = {"adamw": 1e-4, "adafactor": 1e-2}
+# Card (kernels) against the CPU (plain f32 versions), f32: the losses and
+# aux losses differ by sums in another order, 1e-4 relative. AdamW's step
+# is m / sqrt(v): an element whose gradient is rounding noise may step
+# the other way, by up to lr, each step, so its parameters are held to
+# 2 x steps x lr; adafactor scales each step by the leaf's factored
+# moments and has no such sign step, so 1e-5.
+MOE_TINY_LOSS_RTOL = 1e-4
+MOE_TINY_ADAFACTOR_ATOL = 1e-5
+# The smallest top-1 router margin a routed comparison accepts at its
+# initial weights: a near-tie could route the other way on another
+# device, and must fail loudly rather than pass by luck. The router's f32
+# inputs differ between the card's kernels and the CPU's plain versions
+# by sums in another order (~1e-7 of probabilities near 1/4); 1e-5 is 100
+# times that.
+MOE_ROUTE_MARGIN = 1e-5
+# ep=2 on the card against one rank on the card, the tiny f32 decoder:
+# same kernels, same card; the ep sum adds exact zeros.
+MOE_EP_TINY_TOL = 1e-4
+# Phase 6b's ep=2 ranks against the one-device adafactor run, bf16, its
+# first MOE_EP_STEPS losses (relative). Each token's combine adds exact
+# zeros and its dispatch gradient's sum over ep adds exact zeros, and
+# every other computation is the one-device one on the same card, so
+# the two runs differ only where cuBLAS picks another algorithm for a
+# batched product of 4 experts than of 8. One bf16 rounding is 2^-8
+# relative; averaged over 2048 tokens' losses and carried through 3
+# steps it stays orders under this bound, set before the first card run.
+MOE_EP_WIDE_RTOL = 1e-3
+# The linear classifier at BASELINE.json config 2's size (2^20 buckets,
+# 39 features), batch 4096, 60 adagrad steps (JAX test_models.py:387-394
+# asks for accuracy > 0.6).
+LINEAR_BATCH = 4096
+LINEAR_STEPS = 60
+
+
+def moe_config(torch, tt, tiny: bool):
+    if tiny:
+        return tt.TransformerConfig(
+            vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=512, max_seq_len=128, dtype=torch.float32,
+            attention_impl="flash", fused_norms=True, remat=True,
+            moe_experts=4, moe_capacity_factor=1.0)
+    return dataclasses.replace(tt.TransformerConfig.llama3_8b(
+        moe_experts=MOE_EXPERTS, attention_impl="flash", fused_norms=True),
+        n_layers=1)
+
+
+def moe_drops(torch, model, sink) -> None:
+    """Hook each MoE layer of `model` to append, at each forward outside a
+    backward (not a remat recompute), the share of its tokens dropped at
+    the capacity, as a 0-d tensor (no host read)."""
+    from tf_yarn_tpu_torch.models import moe
+
+    def hook(module, args, _):
+        if torch._C._current_graph_task_id() != -1:
+            return
+        with torch.no_grad():
+            x = args[0].reshape(-1, args[0].shape[-1])
+            experts = torch.softmax(x.float() @ module.router.float(),
+                                    -1).argmax(-1)
+            counts = torch.bincount(experts,
+                                    minlength=module.config.moe_experts)
+            kept = counts.clamp(max=moe.capacity(module.config, x.shape[0]))
+            sink.append(1.0 - kept.sum() / x.shape[0])
+
+    for module in model.modules():
+        if isinstance(module, moe.MoEMlp):
+            module.register_forward_hook(hook)
+
+
+def route_margin(torch, model, tokens) -> float:
+    """The smallest top-1 router margin over `tokens`' forward, every MoE
+    layer."""
+    from tf_yarn_tpu_torch.models import moe
+
+    margins = []
+
+    def hook(module, args, _):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        top = torch.softmax(x.float() @ module.router.float(),
+                            -1).topk(2, dim=-1).values
+        margins.append(float((top[:, 0] - top[:, 1]).min()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, moe.MoEMlp)]
+    with torch.no_grad():
+        model(tokens)
+    for handle in handles:
+        handle.remove()
+    return min(margins)
+
+
+def device_fingerprint(torch, params) -> list:
+    """A bitwise fingerprint of `params`, in name order: each tensor's bits
+    summed as int64 on its device (a flipped bit moves the sum by its
+    place value). Equal tensors give equal sums."""
+    views = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = [params[name].detach().reshape(-1).view(
+        views[params[name].element_size()]).sum(dtype=torch.int64)
+        for name in sorted(params)]
+    return torch.stack(sums).tolist() if sums else []
+
+
+# In-process MoE runs' models, by tag (the profiled step reads them).
+_MOE_MODELS = {}
+
+
+def moe_record_path(out_dir, rank: int, tag: str) -> Path:
+    return Path(out_dir) / f"moe-{tag}-{rank}.json"
+
+
+def moe_experiment(out_dir: str, tiny: bool = False, tag: str = "moe",
+                   ep: int = 1, optimizer: str = "adamw",
+                   steps: int = MOE_STEPS, keep: bool = False):
+    """The MoE decoder's experiment (`moe_config`) through make_experiment:
+    `optimizer`, batch 2 x 128 (tiny, the tiny learning rates) or
+    TRAIN_BATCH x TRAIN_SEQ, `steps` steps, ``MeshSpec(ep=ep)`` when ep >
+    1, random weights from seed 0, the losses logged every step. Each
+    rank writes <out_dir>/moe-<tag>-<rank>.json after its last step: its
+    losses, aux losses and dropped shares, the training kernels'
+    launches in this process, its peak memory, its expert shapes and the
+    fingerprint of the parameters it holds whole (`device_fingerprint`:
+    read on the card, so the last step's time does not carry a host copy
+    of them); tiny, its parameters to
+    moe-<tag>-<rank>.pt. `keep`: the model stays in _MOE_MODELS[tag],
+    with snapshots of its router and a corner of each expert weight."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch.models import transformer as tt
+    from tf_yarn_tpu_torch.ops import flash_attention, rmsnorm
+    from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
+
+    cfg = moe_config(torch, tt, tiny)
+    shape = (dict(batch_size=2, seq_len=128, learning_rate=MOE_TINY_LR[
+        optimizer]) if tiny else dict(batch_size=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ))
+    exp = tt.make_experiment(cfg, train_steps=steps, log_every_steps=1,
+                             mesh_spec=MeshSpec(ep=ep) if ep > 1 else None,
+                             optimizer=optimizer, **shape)
+    counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd_dx,
+               flash_attention.flash_fwd, flash_attention.flash_dq,
+               flash_attention.flash_dkv)
+    init, loss_fn, make_optimizer = exp.init_fn, exp.loss_fn, exp.optimizer
+    losses, auxes, drops = [], [], []
+    experts = ("w_gate", "w_up", "w_down")
+
+    def init_fn(device, seed):
+        model = init(device, seed)
+        moe_drops(torch, model, drops)
+        if keep:
+            layer = model.layers[0].moe
+            _MOE_MODELS[tag] = {"model": model, "before": {
+                "router": layer.router.detach().clone(),
+                **{name: getattr(layer, name)[:, :64, :64].detach().clone()
+                   for name in experts}}}
+        return model
+
+    def recording_loss(model, batch, train=True):
+        loss, aux = loss_fn(model, batch, train=train)
+        if train:
+            losses.append(loss.detach())
+            auxes.append(aux["moe_aux_loss"])
+        return loss, aux
+
+    def optimizer_fn(model):
+        opt = make_optimizer(model)
+
+        def after_step(opt, args, kwargs):
+            if len(losses) != steps:
+                return
+            grouped = dist.is_available() and dist.is_initialized()
+            rank = dist.get_rank() if grouped else 0
+            params = dict(model.named_parameters())
+            device = next(iter(params.values())).device
+            whole = {n: p for n, p in params.items()
+                     if not n.endswith(experts)}
+            if tiny:
+                Path(out_dir).mkdir(parents=True, exist_ok=True)
+                torch.save({n: p.detach().cpu() for n, p in params.items()},
+                           Path(out_dir) / f"moe-{tag}-{rank}.pt")
+            moe_record_path(out_dir, rank, tag).write_text(json.dumps({
+                "losses": [float(x) for x in losses],
+                "moe_aux_loss": [float(x) for x in auxes],
+                "dropped_share": [float(x) for x in drops[:steps
+                                                          * cfg.n_layers]],
+                "launches": {fn.__name__: fn.launches for fn in counted},
+                "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None),
+                "rank": rank,
+                "world": dist.get_world_size() if grouped else 1,
+                "backend": dist.get_backend() if grouped else None,
+                "device": str(device),
+                "expert_shapes": {n: list(p.shape) for n, p in params.items()
+                                  if n.endswith(experts)},
+                "whole_fingerprint": device_fingerprint(torch, whole),
+            }))
+
+        opt.register_step_post_hook(after_step)
+        return opt
+
+    exp.init_fn, exp.loss_fn, exp.optimizer = (init_fn, recording_loss,
+                                               optimizer_fn)
+    return exp
+
+
+def moe_tiny_reference(torch, tt, common, training, dev):
+    """Phase 4: the small f32 MoE decoder trained 3 steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batches, once with AdamW and once with adafactor (d_model 256:
+    its leaves factor); then the linear classifier 3 adagrad steps on
+    both."""
+    from tf_yarn_tpu_torch.models import adafactor, linear
+
+    cfg = moe_config(torch, tt, True)
+    cpu = torch.device("cpu")
+    base = tt.make_model(cfg, seed=SEED, device="cpu", trainable=True)
+    batches = common.synthetic_token_iter(2, 128, cfg.vocab_size, seed=SEED)
+    tokens = [torch.as_tensor(next(batches)["tokens"]).long()
+              for _ in range(TP_STEPS)]
+    margin = route_margin(torch, base, tokens[0])
+    if margin <= MOE_ROUTE_MARGIN:
+        raise AssertionError(f"tiny MoE router margin {margin}")
+    makers = {"adamw": common.adamw_with_decay_mask(MOE_TINY_LR["adamw"]),
+              "adafactor": adafactor.adafactor(MOE_TINY_LR["adafactor"])}
+    result = {"route_margin": margin}
+    for name, make in makers.items():
+        runs = []
+        for device in (dev, cpu):
+            model = tt.Transformer(cfg, device=device, trainable=True)
+            model.load_state_dict(base.state_dict())
+            optimizer = make(model)
+            step = training.build_train_step(model, common.lm_loss, optimizer)
+            state = training.TrainState(0, model, optimizer)
+            losses, auxes = [], []
+            for batch in tokens:
+                state, metrics = step(state, {"tokens": batch.to(device)})
+                losses.append(float(metrics["loss"]))
+                auxes.append(float(metrics["moe_aux_loss"]))
+            runs.append((losses, auxes, {n: p.detach().cpu() for n, p
+                                         in model.named_parameters()}))
+        (card, card_aux, card_p), (ref, ref_aux, ref_p) = runs
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card + card_aux,
+                                                             ref + ref_aux))
+        param_err = max(float((card_p[n] - ref_p[n]).abs().max())
+                        for n in ref_p)
+        bound = (2 * TP_STEPS * MOE_TINY_LR["adamw"] if name == "adamw"
+                 else MOE_TINY_ADAFACTOR_ATOL)
+        moved = min(float((ref_p[n] - base.state_dict()[n]).abs().max())
+                    for n in ref_p)
+        if (not all(abs(x) < 1e9 and x == x for x in card)
+                or loss_err > MOE_TINY_LOSS_RTOL or param_err > bound
+                or moved <= 0):
+            raise AssertionError(
+                f"tiny MoE {name}, card vs CPU: losses {card} vs {ref}, aux "
+                f"{card_aux} vs {ref_aux}, parameter max abs err "
+                f"{param_err} (bound {bound}), least leaf move {moved}")
+        result[name] = {"losses_card": card, "losses_cpu": ref,
+                        "moe_aux_card": card_aux, "moe_aux_cpu": ref_aux,
+                        "loss_max_rel_err": loss_err,
+                        "param_max_abs_err": param_err, "param_bound": bound}
+    lin_cfg = linear.LinearConfig(n_buckets=4096)
+    stream = linear.synthetic_stream(lin_cfg, 256)
+    lin_batches = [next(stream) for _ in range(TP_STEPS)]
+    runs = []
+    for device in (dev, cpu):
+        model = linear.HashedLinearClassifier(lin_cfg, device)
+        optimizer = common.adagrad(0.05)(model)
+        step = training.build_train_step(model, common.binary_logistic_loss,
+                                         optimizer)
+        state = training.TrainState(0, model, optimizer)
+        losses = []
+        for batch in lin_batches:
+            state, metrics = step(state, training.to_device(batch, device))
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()}))
+    (card, card_p), (ref, ref_p) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, ref))
+    param_err = max(float((card_p[n] - ref_p[n]).abs().max()) for n in ref_p)
+    if loss_err > 1e-5 or param_err > 1e-6:
+        raise AssertionError(f"linear classifier card vs CPU: losses {card} "
+                             f"vs {ref}, parameter max abs err {param_err}")
+    result["linear"] = {"losses_card": card, "losses_cpu": ref,
+                        "loss_max_rel_err": loss_err,
+                        "param_max_abs_err": param_err}
+    return result
+
+
+def moe_reference(torch, training, experiment, out_dir, dev, tiny: bool,
+                  tag: str, **kwargs):
+    """`moe_experiment` at one rank in this process, the training kernels'
+    counts set to 0 just before it: its record and seconds; its model
+    stays in _MOE_MODELS[tag]."""
+    zero_training_counts()
+    started = time.perf_counter()
+    training.train_and_evaluate(experiment.as_core_experiment(
+        moe_experiment(str(out_dir), tiny, tag=tag, keep=True, **kwargs)),
+        device=dev)
+    seconds = time.perf_counter() - started
+    record = json.loads(moe_record_path(out_dir, 0, tag).read_text())
+    return dict(record, seconds=seconds, tag=tag, dir=str(out_dir))
+
+
+def moe_ep_check(torch, out_dir, tag, reference, tiny: bool, ranks_wall):
+    """The spawned ep=2 ranks of run `tag` against `reference`, the same
+    experiment at one rank (`moe_reference`): each rank's losses within
+    the tolerance of the one rank's (tiny: MOE_EP_TINY_TOL absolute on
+    the losses and every parameter; full width: MOE_EP_WIDE_RTOL relative
+    on the losses, the one rank's first ones), the ranks' whole
+    parameters bitwise equal, each rank holding E / ep experts; with the
+    ranks' peak memory and their ep collectives' seconds a step from
+    their traces."""
+    ranks = [json.loads(moe_record_path(out_dir, r, tag).read_text())
+             for r in range(MOE_EP)]
+    n = len(ranks[0]["losses"])
+    want = reference["losses"][:n]
+    if tiny:
+        loss_err = max(abs(a - b) for r in ranks
+                       for a, b in zip(r["losses"], want))
+        one = torch.load(Path(reference["dir"]) / f"moe-{tag}-0.pt")
+        states = [torch.load(Path(out_dir) / f"moe-{tag}-{r}.pt")
+                  for r in range(MOE_EP)]
+        param_err = 0.0
+        for r, state in enumerate(states):
+            for name, value in state.items():
+                ref = one[name]
+                if name.endswith(("w_gate", "w_up", "w_down")):
+                    share = ref.shape[0] // MOE_EP
+                    ref = ref[r * share:(r + 1) * share]
+                param_err = max(param_err, float((value - ref).abs().max()))
+        bad = loss_err > MOE_EP_TINY_TOL or param_err > MOE_EP_TINY_TOL
+    else:
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], want))
+        param_err = None
+        bad = loss_err > MOE_EP_WIDE_RTOL
+    experts = reference["expert_shapes"]
+    shapes_ok = all(
+        r["expert_shapes"][name] == [shape[0] // MOE_EP] + shape[1:]
+        for r in ranks for name, shape in experts.items())
+    if (bad or not shapes_ok or n != len(want)
+            or ranks[0]["whole_fingerprint"] != ranks[1]["whole_fingerprint"]
+            or any((r["world"], r["backend"]) != (MOE_EP, "gloo")
+                   for r in ranks)):
+        raise AssertionError(f"MoE at ep={MOE_EP} against one rank: ranks "
+                             f"{ranks}, one rank {reference}, loss err "
+                             f"{loss_err}, parameter err {param_err}")
+    ep_s = []
+    for r in range(MOE_EP):
+        trace = Path(out_dir) / f"{tag}_trace" / (
+            "trace_train.json" if r == 0 else f"trace_train-{r}.json")
+        ep_s.append(_collective_steps(trace, "train/ep_allreduce")
+                    if trace.exists() else None)
+    return {"losses": [r["losses"] for r in ranks],
+            "reference_losses": want,
+            "moe_aux_loss": [r["moe_aux_loss"] for r in ranks],
+            "loss_max_err": loss_err, "param_max_abs_err": param_err,
+            "whole_params_bitwise_equal_across_ranks": True,
+            "expert_shapes": ranks[0]["expert_shapes"],
+            "launches": [r["launches"] for r in ranks],
+            "peak_gb": [r["peak_gb"] for r in ranks],
+            "ep_allreduce_s_by_step": ep_s,
+            "ranks_wall_s": ranks_wall}
+
+
+def moe_slice(torch, training, experiment, telemetry, counted, dev, out_dir,
+              tiny: bool = False):
+    """Phase 6b (`tiny`: its rehearsal at phase 4's small decoder): the
+    full-width MoE decoder (`moe_config`) through
+    train_and_evaluate, MOE_STEPS steps with AdamW, then with adafactor;
+    each with the training kernels' counts set to 0 just before it,
+    checked to launch, its losses and aux losses finite, its router and
+    experts moved, its dropped share, its steady step (steps 2-4), peak
+    memory and one profiled step."""
+    results = {}
+    for optimizer in ("adamw", "adafactor"):
+        tag = f"wide_{optimizer}"
+        tracer = telemetry.get_tracer()
+        tracer.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        record = moe_reference(torch, training, experiment, out_dir, dev,
+                               tiny, tag, optimizer=optimizer)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for name, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"{name} never launched on the MoE "
+                                     f"path ({optimizer})")
+        losses = record["losses"]
+        if len(losses) != MOE_STEPS or not all(
+                abs(x) < 1e9 and x == x
+                for x in losses + record["moe_aux_loss"]):
+            raise AssertionError(f"MoE {optimizer}: losses {losses}, aux "
+                                 f"{record['moe_aux_loss']}")
+        kept = _MOE_MODELS.pop(tag)
+        model, before = kept["model"], kept["before"]
+        layer = model.layers[0].moe
+        moved = {name: float((getattr(layer, name)[:, :64, :64]
+                              if name != "router" else layer.router)
+                             .detach().sub(value).abs().max())
+                 for name, value in before.items()}
+        if min(moved.values()) <= 0:
+            raise AssertionError(f"MoE {optimizer}: a weight did not move: "
+                                 f"{moved}")
+        spans = tracer.records()
+        step_s = [a.duration + b.duration for a, b in zip(
+            [r for r in spans if r.name == "train/step_dispatch"],
+            [r for r in spans if r.name == "train/device_wait"])]
+        steady = sum(step_s[1:]) / len(step_s[1:])
+        shape = (2, 128) if tiny else (TRAIN_BATCH, TRAIN_SEQ)
+        tokens = torch.randint(0, model.config.vocab_size, shape, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(SEED))
+        from tf_yarn_tpu_torch.models import transformer as tt
+
+        exp = tt.make_experiment(model.config, optimizer=optimizer)
+        result = dict(record, launches=launches, peak_memory_gb=peak,
+                      step_s=step_s, steady_step_s=steady,
+                      steady_step_spread_s=[min(step_s[1:]),
+                                            max(step_s[1:])],
+                      tokens_per_s=shape[0] * shape[1] / steady,
+                      weights_moved_max_abs=moved,
+                      params=sum(p.numel() for p in model.parameters()))
+        result.pop("dir")
+        result.update(profile_step(torch, training, model, exp.loss_fn,
+                                   exp.optimizer(model), {"tokens": tokens},
+                                   steady))
+        del model, kept, layer, exp
+        results[optimizer] = result
+    return results
+
+
+def linear_slice(torch, training, experiment, linear, dev, config=None):
+    """Phase 6b: the linear classifier at BASELINE.json config 2's size
+    (`LinearConfig()`: 2^20 buckets, 39 features) through
+    train_and_evaluate, LINEAR_STEPS adagrad steps at batch LINEAR_BATCH:
+    accuracy > 0.6 (JAX test_models.py:394) and steps/s."""
+    from tf_yarn_tpu_torch import telemetry
+
+    exp = linear.make_experiment(config or linear.LinearConfig(),
+                                 train_steps=LINEAR_STEPS,
+                                 batch_size=LINEAR_BATCH)
+    telemetry.get_tracer().clear()
+    started = time.perf_counter()
+    metrics = training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    spans = telemetry.get_tracer().records()
+    dispatch = [r.duration for r in spans if r.name == "train/step_dispatch"]
+    if not metrics["accuracy"] > 0.6 or metrics["loss"] != metrics["loss"]:
+        raise AssertionError(f"linear classifier: {metrics}")
+    return {"accuracy": metrics["accuracy"], "loss": metrics["loss"],
+            "steps": LINEAR_STEPS, "batch": LINEAR_BATCH, "wall_s": wall,
+            "loop_steps_per_s": telemetry.get_registry().gauge(
+                "train/steps_per_sec").value,
+            "dispatch_s_mean": sum(dispatch) / len(dispatch)}
+
+
 def main() -> int:
     smoke_started = time.perf_counter()
     marks = [("start", smoke_started)]
@@ -6457,7 +6966,7 @@ def main() -> int:
     from tf_yarn_tpu_torch.serving import scheduler as sched_mod
     from tf_yarn_tpu_torch.serving import server as server_mod
     from tf_yarn_tpu_torch import ranking
-    from tf_yarn_tpu_torch.models import dlrm, rank_engine, weights
+    from tf_yarn_tpu_torch.models import dlrm, linear, rank_engine, weights
     from tf_yarn_tpu_torch import client, topologies
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
     from tf_yarn_tpu_torch.serving import tp_replica
@@ -6564,6 +7073,13 @@ def main() -> int:
     train_reference = train_tiny_reference(torch, tt, common, training,
                                            experiment, ckpt, dev)
     log(f"training reference: {json.dumps(train_reference)}")
+    started = time.perf_counter()
+    moe_tiny = moe_tiny_reference(torch, tt, common, training, dev)
+    log(f"MoE and linear references ({time.perf_counter() - started:.1f} "
+        f"s): the small f32 MoE decoder (4 experts, capacity factor 1.0) "
+        f"3 steps with AdamW and with adafactor, and the linear classifier "
+        f"3 adagrad steps, on the card against the CPU: "
+        f"{json.dumps(moe_tiny)}")
     zoo_reference = train_zoo_reference(torch, zoo, training, experiment,
                                         ckpt, dev)
     log(f"zoo training reference: {json.dumps(zoo_reference)}")
@@ -6578,6 +7094,11 @@ def main() -> int:
     pp_tiny_one = tp_reference(torch, training, experiment,
                                tp_tiny_dir / "one_pp", dev, tiny=True,
                                tag="pp", impl="xla", gpipe=2)
+    moe_ep_one = moe_reference(torch, training, experiment,
+                               tp_tiny_dir / "one_moe", dev, tiny=True,
+                               tag="moe_ep", optimizer="adamw",
+                               steps=TP_STEPS)
+    _MOE_MODELS.clear()
     ranks_wall = tp_tiny()["ranks"][0]
     tp_tiny_result = tp_tiny_check(torch, tp_tiny_dir, tp_tiny_one,
                                    ranks_wall)
@@ -6585,7 +7106,9 @@ def main() -> int:
         torch, tt, ckpt, tp_tiny_dir, run["tag"],
         pp_tiny_one if "gpipe" in run else tp_tiny_one, tiny=True,
         impl=run["impl"], pipelined=run.get("gpipe", 0))
-        for run in TINY_RUNS[1:]}
+        for run in TINY_RUNS[1:] if not run.get("moe")}
+    moe_ep_tiny = moe_ep_check(torch, tp_tiny_dir, "moe_ep", moe_ep_one,
+                               True, ranks_wall)
     _TP_MODELS.clear()
     shutil.rmtree(tp_tiny_dir, ignore_errors=True)
     log(f"tp reference ({time.perf_counter() - started:.1f} s after the "
@@ -6595,6 +7118,8 @@ def main() -> int:
         "with flash) against the one rank, and at pp=2 (GPipe, 2 "
         "microbatches, xla) against one rank of the same config: "
         + json.dumps(sp_pp_tiny))
+    log(f"ep reference: the small f32 MoE decoder at ep={MOE_EP}, two gloo "
+        f"ranks on the card, against one rank: {json.dumps(moe_ep_tiny)}")
     mark("4 references")
 
     serving_counted = (rmsnorm.rmsnorm, quantize.quantize_int8,
@@ -6632,6 +7157,42 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("6 training slice")
+
+    # Phase 6b: the MoE decoder at Llama-3-8B widths (one layer, 8
+    # experts) with AdamW and with adafactor, the linear classifier at
+    # BASELINE.json config 2's size, then the MoE decoder at ep=2 (two
+    # ranks spawned now, which wait until the one-device runs end).
+    started = time.perf_counter()
+    moe_dir = Path(tempfile.mkdtemp(prefix="moe"))
+    moe_go = parallel_ranks_start(
+        torch, str(moe_dir), "cuda", (dict(
+            tag="wide_ep", moe=True, ep=MOE_EP, optimizer="adafactor",
+            steps=MOE_EP_STEPS),), tiny=False, go=True)
+    try:
+        moe_result = moe_slice(torch, training, experiment, telemetry,
+                               training_counted, dev, moe_dir)
+        moe_one_s = time.perf_counter() - started
+        for name, result in moe_result.items():
+            log(f"MoE slice, {name}: {json.dumps(result)} on {card}")
+        linear_result = linear_slice(torch, training, experiment, linear, dev)
+        log(f"linear slice: {json.dumps(linear_result)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ep_started = time.perf_counter()
+        moe_ep_wide = moe_ep_check(torch, moe_dir, "wide_ep",
+                                   moe_result["adafactor"], False, moe_go())
+        moe_ep_s = time.perf_counter() - ep_started
+    finally:
+        shutil.rmtree(moe_dir, ignore_errors=True)
+    log(f"MoE ep slice: Llama-3-8B widths, 1 layer, {MOE_EXPERTS} experts, "
+        f"adafactor at ep={MOE_EP} over two gloo ranks on the card, against "
+        f"the one-device adafactor run: {json.dumps(moe_ep_wide)} on {card}")
+    log(f"MoE phase: {time.perf_counter() - started:.1f} s (one-device runs "
+        f"{moe_one_s:.1f} s, linear {linear_result['wall_s']:.1f} s, ep "
+        f"{moe_ep_s:.1f} s after the go)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("6b MoE and linear slice")
 
     norm_counted = (layernorm.layernorm, layernorm.layernorm_backward,
                     groupnorm.groupnorm, groupnorm.groupnorm_backward)
@@ -6820,6 +7381,12 @@ def main() -> int:
                    if result["launches"].get(row["name"])}
         if row["name"] in train_result["launches"]:
             by_path["training"] = train_result["launches"][row["name"]]
+        for name, result in moe_result.items():
+            if row["name"] in result["launches"]:
+                by_path[f"moe {name}"] = result["launches"][row["name"]]
+        for rank, launched in enumerate(moe_ep_wide["launches"]):
+            if row["name"] in launched:
+                by_path[f"moe ep rank {rank}"] = launched[row["name"]]
         by_path.update({f"zoo {path}": result["launches"][row["name"]]
                         for path, result in zoo_results.items()
                         if result["launches"].get(row["name"])})

@@ -9,7 +9,11 @@ MeshSpec's fields, None for one rank), ``impl`` (the attention
 backend), ``lora`` (the decoder's rank), and optionally ``chunk`` (the
 chunked loss), ``mask`` (a decoder batch with a padding mask),
 ``gpipe`` (``gpipe_microbatches``), ``batch``, ``steps`` and
-``checkpoint``. The JAX side runs its norms unfused (its fused RMSNorm
+``checkpoint``; an MoE decoder takes ``moe`` (experts) and ``cf`` (its
+capacity factor), any decoder ``optimizer`` (``"adafactor"``), ``scan``
+(``scan_layers``, the layout adafactor's leaves follow) and ``wide``
+(d_model 128 and d_ff 256, so adafactor factors its leaves). The JAX
+side runs its norms unfused (its fused RMSNorm
 has no sequence-sharded rule) and its flash kernels in interpret mode;
 the port's plain versions give the same numbers either way.
 
@@ -32,9 +36,15 @@ CLASSES = 10
 # turns a gradient's last-bit noise on a near-zero element into a step of
 # up to the learning rate; tests/test_torch_tensor_parallel.py).
 LR_LORA, LR_FULL = 1e-3, 2e-5
+# Adafactor's step is relative to each leaf's RMS (and has no Adam-like
+# sign step on a near-zero gradient): 1e-2 moves every leaf by ~1e-2 of
+# its scale, well past the comparisons' tolerances.
+LR_ADAFACTOR = 1e-2
 
 
 def lr(job):
+    if job.get("optimizer") == "adafactor":
+        return LR_ADAFACTOR
     return LR_LORA if job["model"] == "decoder" and job.get("lora") else \
         LR_FULL
 
@@ -120,10 +130,22 @@ def port_config(job):
     if job["model"] == "decoder":
         return t_tt.TransformerConfig.tiny(
             remat=True, max_seq_len=64, lora_rank=job.get("lora", LORA),
-            gpipe_microbatches=job.get("gpipe", 0), **f32)
+            gpipe_microbatches=job.get("gpipe", 0), **decoder_knobs(job),
+            **f32)
     if job["model"] == "bert":
         return t_bert.BertConfig.tiny(**f32)
     return t_vit.ViTConfig.tiny(image_size=IMAGE, **f32)
+
+
+def decoder_knobs(job):
+    """The decoder fields a job sets beside the tiny config, alike in
+    both packages."""
+    knobs = dict(scan_layers=bool(job.get("gpipe")) or job.get("scan", False),
+                 moe_experts=job.get("moe", 0),
+                 moe_capacity_factor=job.get("cf", 1.25))
+    if job.get("wide"):
+        knobs.update(d_model=128, d_ff=256)
+    return knobs
 
 
 def port_experiment(job):
@@ -141,7 +163,7 @@ def port_experiment(job):
         model = t_tt.Transformer(cfg, device="cpu", trainable=True)
         exp = t_tt.make_experiment(cfg, batch_size=batch_size(job),
                                    seq_len=SEQ, loss_chunk_size=job.get("chunk"),
-                                   **common)
+                                   optimizer=job.get("optimizer"), **common)
     elif job["model"] == "bert":
         model = t_bert.BertClassifier(cfg, device="cpu")
         exp = t_bert.make_experiment(cfg, batch_size=batch_size(job),
@@ -162,7 +184,8 @@ def _spans():
     out = {}
     for span in telemetry.get_tracer().records():
         if span.name in ("train/sp_collective", "train/pp_send",
-                         "train/grad_allreduce"):
+                         "train/grad_allreduce", "train/ep_allreduce",
+                         "train/adafactor_allreduce"):
             key = span.args.get("op", span.args.get("axis", ""))
             ops = out.setdefault(span.name, {})
             ops[key] = ops.get(key, 0) + 1
@@ -262,9 +285,9 @@ def jax_model(job):
         from tf_yarn_tpu.models import transformer as j_tt
 
         cfg = j_tt.TransformerConfig.tiny(
-            scan_layers=bool(job.get("gpipe")) or job.get("scan", False),
             remat=False, max_seq_len=64, lora_rank=job.get("lora", LORA),
-            gpipe_microbatches=job.get("gpipe", 0), **unfused)
+            gpipe_microbatches=job.get("gpipe", 0), **decoder_knobs(job),
+            **unfused)
         return j_tt, cfg, j_tt.Transformer(cfg), jnp.zeros((1, SEQ), jnp.int32)
     if job["model"] == "bert":
         from tf_yarn_tpu.models import bert as j_bert
@@ -332,6 +355,7 @@ def jax_run(job, boxed):
         exp = module.make_experiment(cfg, batch_size=batch_size(job),
                                      seq_len=SEQ,
                                      loss_chunk_size=job.get("chunk"),
+                                     optimizer=job.get("optimizer"),
                                      **common)
     elif job["model"] == "bert":
         exp = module.make_experiment(cfg, batch_size=batch_size(job),

@@ -127,9 +127,9 @@ def jax_blocks(name, axis, kwargs):
 def test_build_mesh_over_four_ranks(ranks):
     for rank, out in enumerate(ranks):
         mesh = out["mesh"]
-        # JAX's order (ep refused); pp, sp and tp of size 1 here.
-        assert mesh["dims"] == ["pp", "dp", "fsdp", "sp", "tp"]
-        assert mesh["shape"] == [1, 2, 2, 1, 1]
+        # JAX's order; pp, sp, tp and ep of size 1 here.
+        assert mesh["dims"] == ["pp", "dp", "fsdp", "sp", "tp", "ep"]
+        assert mesh["shape"] == [1, 2, 2, 1, 1, 1]
         # Row-major: dp is the outer dim.
         assert mesh["fsdp_group"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
         assert mesh["dp_group"] == [rank % 2, rank % 2 + 2]

@@ -69,13 +69,21 @@ def test_order_devices_for_slices_matches_jax(fields, slice_ids):
                  devices, slice_ids)
 
 
-@pytest.mark.parametrize("axis,item", [("ep", "8b")])
+@pytest.mark.parametrize("axis,item", [("ep", "8d")])
 def test_model_axes_refuse_naming_their_item(axis, item):
+    """Every axis is built now (ep since expert parallelism): alone it
+    passes the check at its world size and is the size error at one
+    rank; beside tp, sp or pp it refuses naming its item."""
+    assert t_mesh.UNPORTED_AXES == {}
     spec = t_mesh.MeshSpec(**{axis: 2})
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    t_mesh.check_mesh_spec(spec, 2)
+    with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
         t_mesh.build_mesh(spec, "cpu")
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        t_mesh.check_mesh_spec(spec, 2)
+    for other in ("tp", "sp", "pp"):
+        spec = t_mesh.MeshSpec(**{axis: 2, other: 2})
+        with pytest.raises(NotImplementedError,
+                           match=f"Queue 1 item {item}"):
+            t_mesh.check_mesh_spec(spec, 4)
 
 
 @pytest.mark.parametrize("fields", [dict(tp=2), dict(dp=2, tp=2),
@@ -89,7 +97,7 @@ def test_tp_meshes_are_built_for_training(fields):
     t_mesh.check_mesh_spec(spec, spec.total_devices)
     with pytest.raises(ValueError, match="MeshSpec wants"):
         t_mesh.build_mesh(spec, "cpu")
-    assert t_mesh.MESH_DIMS == ("pp", "dp", "fsdp", "sp", "tp")
+    assert t_mesh.MESH_DIMS == ("pp", "dp", "fsdp", "sp", "tp", "ep")
     assert "tp" not in t_mesh.UNPORTED_AXES
     assert t_mesh.data_group(None) == (0, 1)
     assert t_mesh.mesh_coordinate(None, "tp") == 0
@@ -108,17 +116,34 @@ def test_sp_and_pp_meshes_are_built_for_training(fields):
     t_mesh.check_mesh_spec(spec, spec.total_devices)
     with pytest.raises(ValueError, match="MeshSpec wants"):
         t_mesh.build_mesh(spec, "cpu")
-    assert list(t_mesh.MESH_DIMS) == [
-        axis for axis in j_mesh.MeshSpec().axis_names if axis != "ep"]
+    assert t_mesh.MESH_DIMS == j_mesh.MeshSpec().axis_names
     assert not {"sp", "pp"} & set(t_mesh.UNPORTED_AXES)
 
 
-@pytest.mark.parametrize("fields", [dict(fsdp=2, pp=2), dict(sp=2, pp=2),
-                                    dict(tp=2, pp=2)])
-def test_uncombined_axes_refuse_naming_their_items(fields):
+@pytest.mark.parametrize("fields,item", [
+    (dict(fsdp=2, pp=2), "7d"), (dict(sp=2, pp=2), "7d"),
+    (dict(tp=2, pp=2), "7d"), (dict(ep=2, tp=2), "8d"),
+    (dict(ep=2, sp=2), "8d"), (dict(ep=2, pp=2), "8d")])
+def test_uncombined_axes_refuse_naming_their_items(fields, item):
     spec = t_mesh.MeshSpec(**fields)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         t_mesh.check_mesh_spec(spec, spec.total_devices)
+
+
+@pytest.mark.parametrize("fields", [dict(ep=2), dict(dp=2, ep=2),
+                                    dict(fsdp=2, ep=2),
+                                    dict(dp=2, fsdp=2, ep=4)])
+def test_ep_meshes_are_built_for_training(fields):
+    """ep is ported (expert parallelism) beside dp and fsdp: the spec
+    passes the check at its world size, ep is the innermost dim (JAX's
+    order), and the data group leaves it out (its ranks read the same
+    rows)."""
+    spec = t_mesh.MeshSpec(**fields)
+    t_mesh.check_mesh_spec(spec, spec.total_devices)
+    with pytest.raises(ValueError, match="MeshSpec wants"):
+        t_mesh.build_mesh(spec, "cpu")
+    assert t_mesh.MESH_DIMS[-1] == "ep"
+    assert t_mesh.BATCH_AXES == ("dp", "fsdp")
 
 
 def test_mesh_size_must_be_the_world():

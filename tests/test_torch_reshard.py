@@ -298,8 +298,10 @@ def test_resume_on_the_refit_mesh_restores_ckpt_bitwise(runs, key):
     first = ranks[0]
     assert first["roundtrip_mismatched"] == []
     assert first["params_tensors"] > 10 and first["optimizer_tensors"] > 10
-    want = {"fsdp": "{'pp': 1, 'dp': 1, 'fsdp': 2, 'sp': 1, 'tp': 1}",
-            "tp": "{'pp': 1, 'dp': 1, 'fsdp': 1, 'sp': 1, 'tp': 2}"}[key]
+    want = {"fsdp": "{'pp': 1, 'dp': 1, 'fsdp': 2, 'sp': 1, 'tp': 1, "
+                    "'ep': 1}",
+            "tp": "{'pp': 1, 'dp': 1, 'fsdp': 1, 'sp': 1, 'tp': 2, "
+                  "'ep': 1}"}[key]
     for rank in ranks:
         assert rank["mesh_devices"] == 2.0 and rank["degraded"] == 1.0
         assert any(line.startswith("resharding state: MeshSpec(")

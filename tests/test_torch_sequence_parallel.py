@@ -347,7 +347,7 @@ def test_telemetry_and_mesh_log(runs, name):
     for out in ranks:
         assert out["mesh"] == {"pp": 1, "dp": job["mesh"].get("dp", 1),
                                "fsdp": 1, "sp": 2,
-                               "tp": job["mesh"].get("tp", 1)}
+                               "tp": job["mesh"].get("tp", 1), "ep": 1}
         assert out["mesh_devices"] == float(len(ranks))
         assert "train/sp_collective_seconds" in out["histograms"]
         ops = out["spans"]["train/sp_collective"]

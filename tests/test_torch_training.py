@@ -382,8 +382,18 @@ def test_make_experiment_matches_the_jax_recipe():
                     for g in optimizer.param_groups)
     # 1-D norm scales (2 per layer + final) get no decay.
     assert decays == [(0.0, 5), (1e-4, 2 * 7 + 2)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tt.make_experiment(_port_config(), optimizer="adafactor")
+    # optax.adafactor (models/adafactor.py; tests/test_torch_adafactor.py),
+    # wrapped by the frozen-base LoRA optimizer as AdamW is.
+    from tf_yarn_tpu_torch.models import adafactor
+
+    exp = tt.make_experiment(_port_config(lora_rank=0), optimizer="adafactor")
+    assert isinstance(exp.optimizer(model), adafactor.Adafactor)
+    lora = tt.make_model(_port_config(), seed=0, device="cpu", trainable=True)
+    optimizer = tt.make_experiment(_port_config(),
+                                   optimizer="adafactor").optimizer(lora)
+    assert isinstance(optimizer, adafactor.Adafactor)
+    assert all(tt.is_lora_param(part.name) for leaf in optimizer.leaves
+               for part in leaf.parts)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tt.make_experiment(_port_config(), optimizer="lamb")
 
@@ -391,14 +401,14 @@ def test_make_experiment_matches_the_jax_recipe():
 def test_refusals_name_their_roadmap_items(tmp_path):
     from tf_yarn_tpu_torch.parallel.mesh import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        tt.Transformer(_port_config(moe_experts=2), device="cpu")
-    # JAX's MoE knobs construct, and refuse any other value.
-    for knob, item in (("moe_capacity_factor", "8b"),
-                       ("moe_aux_weight", "8b")):
+    # MoE trains (tests/test_torch_moe.py): its knobs construct; serving
+    # an MoE decoder refuses, naming its item.
+    for knob in ("moe_experts", "moe_capacity_factor", "moe_aux_weight"):
         config = _port_config(**{knob: 2})
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            tt.Transformer(config, device="cpu")
+        assert tt.Transformer(config, device="cpu").config == config
+    moe_model = tt.make_model(_port_config(moe_experts=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8e"):
+        moe_model.prefill(torch.zeros((1, 4), dtype=torch.long))
     # GPipe is ported (tests/test_torch_pipeline.py): a GPipe config
     # builds, and at one rank its pp=2 mesh is the size error.
     assert tt.Transformer(_port_config(gpipe_microbatches=2), device="cpu")
@@ -415,16 +425,17 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
-    # tp and sp train (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_sequence_parallel.py); at one rank a tp=2 or sp=2
-    # mesh is the size error, and ep is still refused.
-    for spec in (MeshSpec(tp=2), MeshSpec(sp=2)):
+    # tp, sp and ep train (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_sequence_parallel.py,
+    # tests/test_torch_expert_parallel.py); at one rank a tp=2, sp=2 or
+    # ep=2 mesh is the size error, and ep beside tp is refused.
+    for spec in (MeshSpec(tp=2), MeshSpec(sp=2), MeshSpec(ep=2)):
         exp = _tiny_experiment(tmp_path, mesh_spec=spec)
         with pytest.raises(ValueError, match="MeshSpec wants 2 devices"):
             t_training.train_and_evaluate(
                 t_experiment.as_core_experiment(exp), device="cpu")
-    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(ep=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
+    exp = _tiny_experiment(tmp_path, mesh_spec=MeshSpec(ep=2, tp=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
         t_training.train_and_evaluate(t_experiment.as_core_experiment(exp),
                                       device="cpu")
     with pytest.raises(TypeError):

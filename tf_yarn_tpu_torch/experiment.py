@@ -19,9 +19,9 @@ building it on the train loop's device); ``optimizer`` is a factory
 ``model -> torch.optim.Optimizer``; the loss contract is
 ``loss_fn(model, batch, train=True) -> (loss, aux)`` with ``batch`` a
 dict of tensors. ``mesh_spec`` is a `parallel.mesh.MeshSpec`: the
-loop trains over its ``dp``, ``fsdp`` and ``tp`` axes across the ranks
-of a process group, and refuses its other model axes (ROADMAP.md Queue
-1 items 7c, 7d, 8b).
+loop trains over its ``pp``, ``dp``, ``fsdp``, ``sp``, ``tp`` and ``ep``
+axes across the ranks of a process group, and refuses the pairs of them
+it does not combine yet (ROADMAP.md Queue 1 items 7d, 8d).
 
 `InferenceExperiment` (experiment.py:236-278) describes a batch-inference
 job for `inference.run_inference`; its ``model`` is the port's

@@ -221,14 +221,31 @@ def _decoder(model):
     return getattr(model, "module", model)
 
 
+def _apply_moe_aux(decoder, moe_losses, loss, aux):
+    """Fold an MoE decoder's aux losses into the task loss (common.py:
+    75-90): their sum, times ``moe_aux_weight``, added to the loss, and
+    reported as ``moe_aux_loss`` when there is an MoE layer and the
+    weight is nonzero."""
+    weight = getattr(getattr(decoder, "config", None), "moe_aux_weight", 0.0)
+    if moe_losses and weight:
+        total = sum(moe_losses)
+        loss = loss + weight * total
+        aux["moe_aux_loss"] = total.detach()
+    return loss, aux
+
+
 def lm_loss(model, batch: Dict, train: bool = True):
     """Next-token cross-entropy (common.py:50-72): batch "tokens" [B, S];
     loss over positions 0..S-2 predicting 1..S-1, averaged under the
-    optional "mask" [B, S]. Under sp each rank's logits are its block of
-    the positions (`_sequence_loss`)."""
+    optional "mask" [B, S], plus an MoE decoder's weighted aux loss
+    (`_apply_moe_aux`; perplexity is taken before it). Under sp each
+    rank's logits are its block of the positions (`_sequence_loss`)."""
+    from tf_yarn_tpu_torch.models import moe
+
     tokens = batch["tokens"]
     decoder = _decoder(model)
-    logits = model(tokens)  # f32
+    with moe.collecting() as moe_losses:
+        logits = model(tokens)  # f32
     if getattr(decoder, "sp", None) is None:
         logits = logits[:, :-1]
         targets = tokens[:, 1:]
@@ -245,7 +262,8 @@ def lm_loss(model, batch: Dict, train: bool = True):
                                     reduction="none")
         loss = _sequence_loss(decoder, per_token.reshape(targets.shape),
                               weights, count)
-    return loss, {"perplexity": torch.exp(loss.detach())}
+    return _apply_moe_aux(decoder, moe_losses, loss,
+                          {"perplexity": torch.exp(loss.detach())})
 
 
 def _chunk_step(m, l, tgt, h2, t2, base: int, chunk: int, vocab: int,
@@ -277,16 +295,23 @@ def lm_loss_chunked(model, batch: Dict, train: bool = True,
     no [B·S, V] activation stays live. The loss runs inside the model's
     forward, as its ``head``: a wrapper that watches the forward
     (DistributedDataParallel, whose ``module`` is the decoder) sees the
-    head read there. Under sp the hidden states are the rank's block of
+    head read there, the MoE aux loss included (`_apply_moe_aux`, folded
+    in by the head). Under sp the hidden states are the rank's block of
     the positions."""
+    from tf_yarn_tpu_torch.models import moe
+
     tokens = batch["tokens"]
     decoder = _decoder(model)
+    aux = {}
 
     def head(hidden):  # [B, S, D], the final-norm hidden states
-        return _chunked_loss(decoder, hidden, batch, chunk_size)
+        loss = _chunked_loss(decoder, hidden, batch, chunk_size)
+        aux["perplexity"] = torch.exp(loss.detach())
+        return _apply_moe_aux(decoder, moe_losses, loss, aux)[0]
 
-    loss = model(tokens, head=head)
-    return loss, {"perplexity": torch.exp(loss.detach())}
+    with moe.collecting() as moe_losses:
+        loss = model(tokens, head=head)
+    return loss, aux
 
 
 def _chunked_loss(decoder, hidden, batch: Dict, chunk_size: int):

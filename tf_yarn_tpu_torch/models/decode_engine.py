@@ -137,6 +137,8 @@ class DecodeEngine(ReplicaEngine):
                  batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS,
                  prompt_buckets: Tuple[int, ...] = DEFAULT_PROMPT_BUCKETS,
                  mesh=None):
+        if getattr(getattr(model, "config", None), "moe_experts", 0):
+            model.require_dense("DecodeEngine")
         self.mesh = mesh
         self.tp_degree = 1
         self.tp_rank = 0

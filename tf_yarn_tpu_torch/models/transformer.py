@@ -65,9 +65,19 @@ LoRA fine-tune, or every weight of a served model — is stored once in
 the compute dtype: casting once gives the same bits as casting at every
 use, and at Llama-3-8B widths the base takes 16.1 GB instead of 32.1 GB.
 RMSNorm scales stay f32 either way (the kernel reads f32). Layers are a
-plain list (``scan_layers`` changes nothing but the GPipe check), annotated
-as the ``"layers"`` stack that `parallel.sharding` places over ``pp``.
-MoE (``moe_experts > 0``) is still to port (ROADMAP.md).
+plain list, annotated as the ``"layers"`` stack that `parallel.sharding`
+places over ``pp``. ``scan_layers`` keeps its JAX meaning where a
+computation reads whole flax leaves: the GPipe check, and adafactor's
+block RMS (`models.adafactor`), which takes a stacked leaf (every
+layer's tensor of one name) under ``scan_layers=True`` and each layer's
+tensor alone under ``False``.
+
+With ``moe_experts > 0`` each block's MLP is the Switch `models.moe.
+MoEMlp` (transformer.py:420-425), its parameters ``moe.router``,
+``moe.w_gate``, ``moe.w_up`` and ``moe.w_down``; the losses of
+`models.common` fold its aux loss in. MoE trains; serving an MoE decoder
+(`prefill`, `decode`, `paged_decode`, and so `DecodeEngine` and
+`generate`) raises NotImplementedError (ROADMAP.md Queue 1 item 8e).
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tf_yarn_tpu_torch._device import resolve_device
+from tf_yarn_tpu_torch.models.moe import MoEMlp
 from tf_yarn_tpu_torch.ops.attention import (
     IMPLS,
     attention,
@@ -111,14 +122,14 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "xla"  # xla | flash | ring | ulysses | ulysses_flash
-    scan_layers: bool = True  # layers are a list; GPipe checks it as JAX
+    scan_layers: bool = True  # the JAX leaf layout: GPipe, adafactor
     remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
-    moe_experts: int = 0  # > 0 raises: MoE is ROADMAP.md Queue 1 item 8b
-    # JAX's MoE knobs (transformer.py:55-56), carried so JAX configs
-    # construct; a value other than the default raises at the model's
-    # construction, naming item 8b.
+    # The Switch MoE (transformer.py:51-56, models/moe.py): experts per
+    # block (0: the dense SwiGLU), each expert's slots per token routed to
+    # it on average, and the aux loss's weight in the LM losses.
+    moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     # The GPipe schedule over the pp mesh dim (transformer.py:67-72): > 0
@@ -668,10 +679,15 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(config, device, norm_trainable)
         self.attn = Attention(config, device, trainable)
         self.mlp_norm = RMSNorm(config, device, norm_trainable)
-        self.mlp = SwiGLU(config, device, trainable)
+        if config.moe_experts > 0:
+            # Not LoraDense in JAX: frozen under LoRA.
+            self.moe = MoEMlp(config, device, norm_trainable)
+        else:
+            self.mlp = SwiGLU(config, device, trainable)
 
     def _mlp(self, x):
-        return x + self.mlp(self.mlp_norm(x))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + mlp(self.mlp_norm(x))
 
     def forward(self, x, positions):
         return self._mlp(x + self.attn(self.attn_norm(x), positions))
@@ -703,14 +719,6 @@ class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig, device=None,
                  trainable: bool = False):
         super().__init__()
-        for name, default, item in (
-                ("moe_experts", 0, "8b, models/moe.py"),
-                ("moe_capacity_factor", 1.25, "8b, models/moe.py"),
-                ("moe_aux_weight", 0.01, "8b, models/moe.py")):
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(config, name)!r}: not ported yet "
-                    f"(ROADMAP.md Queue 1 item {item})")
         if config.attention_impl not in IMPLS:
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}; "
                              f"use {' | '.join(IMPLS)}")
@@ -751,18 +759,22 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Transformer":
         """Random weights from `generator` (on the model's device):
-        embedding and head N(0, 0.02), Dense kernels N(0, 1/fan_in) — the
-        JAX package's lecun-normal scale — unit norm scales, LoRA
-        ``lora_a`` N(0, 0.02) and ``lora_b`` zeros."""
+        embedding, head and MoE router N(0, 0.02), Dense kernels and
+        expert weights N(0, 1/fan_in) with flax's fan_in (every dim but the
+        last: an expert's ``[E, in, out]`` has E·in) — the JAX package's
+        lecun-normal scale — unit norm scales, LoRA ``lora_a`` N(0, 0.02)
+        and ``lora_b`` zeros."""
         for name, param in self.named_parameters():
             if name.endswith("scale"):
                 param.fill_(1.0)
             elif name.endswith("lora_b"):
                 param.zero_()
-            elif name in ("embedding", "lm_head") or name.endswith("lora_a"):
+            elif name in ("embedding", "lm_head") or name.endswith(
+                    ("lora_a", "router")):
                 param.normal_(0.0, 0.02, generator=generator)
             else:
-                param.normal_(0.0, param.shape[0] ** -0.5, generator=generator)
+                fan_in = param.numel() // param.shape[-1]
+                param.normal_(0.0, fan_in ** -0.5, generator=generator)
         return self
 
     def _embed(self, tokens):
@@ -891,12 +903,23 @@ class Transformer(nn.Module):
             return self.final_norm(x)
         return self._head(x)
 
+    def require_dense(self, what: str) -> None:
+        """Refuse a serving path of an MoE decoder (ROADMAP.md Queue 1
+        item 8e): JAX's dense grid routes one token at a time, its paged
+        grid a slot batch, so their capacities differ."""
+        if self.config.moe_experts > 0:
+            raise NotImplementedError(
+                f"{what} of an MoE decoder (moe_experts="
+                f"{self.config.moe_experts}) is not ported yet (ROADMAP.md "
+                "Queue 1 item 8e); MoE trains")
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """tokens [B, F] -> (last-position logits [B, V] f32, rows): rows
         is a dict of the prompt's cache rows ``key``/``value`` [L, B, F,
         Hkv, D] (int8, or the compute dtype) and, for an int8 cache, f32
         ``key_scale``/``value_scale`` [L, B, F, Hkv, 1]."""
+        self.require_dense("prefill")
         int8_kv_cache(self.config)
         x = self._embed(tokens)
         layers: List[Tuple[torch.Tensor, ...]] = []
@@ -927,6 +950,7 @@ class Transformer(nn.Module):
         """tokens [B, W] -> logits [B, W, V] f32: the window appended to
         `cache` (a `DenseKVCache`, or the engine's gathered pool view) at
         each row's index, which then advances by W."""
+        self.require_dense("decode")
         width = tokens.shape[1]
         span = None
         if width > 1 or not int8_kv_cache(self.config):
@@ -944,6 +968,7 @@ class Transformer(nn.Module):
         """tokens [S, W] (slots x window) -> logits [S, W, V] f32, with
         the window's K/V rows written into `pool` in place. `tables`
         [S, MB] and `lengths` [S] are int32 on the model's device."""
+        self.require_dense("paged_decode")
         x = self._embed(tokens)
         for i, block in enumerate(self.layers):
             x = block.paged_decode(x, pool.layer(i), tables, lengths)
@@ -1019,15 +1044,15 @@ def make_experiment(config: Optional[TransformerConfig] = None,
     """Causal-LM experiment (transformer.py:675-746): synthetic tokens
     unless `input_fn` is given; LoRA configs get the frozen-base
     optimizer; vocabularies of 65536 or more get the chunked loss with
-    ``chunk_size=16384``. `optimizer` is None, ``"adamw"`` or a factory
-    ``model -> torch.optim.Optimizer`` (``"adafactor"`` raises
-    NotImplementedError: ROADMAP.md Queue 1 item 3).
+    ``chunk_size=16384``; both losses fold in an MoE decoder's aux loss.
+    `optimizer` is None, ``"adamw"``, ``"adafactor"`` (optax's,
+    `models.adafactor`) or a factory ``model -> torch.optim.Optimizer``.
     The model is built by `train_and_evaluate` on its device
     (``init_fn``), with random weights from ``train_params.seed``."""
     import functools
 
     from tf_yarn_tpu_torch.experiment import TorchExperiment, TrainParams
-    from tf_yarn_tpu_torch.models import common
+    from tf_yarn_tpu_torch.models import adafactor, common
 
     config = config or TransformerConfig.tiny()
     seq_len = seq_len or config.max_seq_len
@@ -1039,12 +1064,10 @@ def make_experiment(config: Optional[TransformerConfig] = None,
     if optimizer == "adamw":
         optimizer = common.adamw_with_decay_mask(learning_rate)
     elif optimizer == "adafactor":
-        raise NotImplementedError(
-            "optimizer='adafactor' is not ported yet (ROADMAP.md Queue 1 "
-            "item 3); use 'adamw' or pass an optimizer factory")
+        optimizer = adafactor.adafactor(learning_rate)
     elif isinstance(optimizer, str):
-        raise ValueError(f"unknown optimizer {optimizer!r}; use 'adamw' or "
-                         "pass an optimizer factory")
+        raise ValueError(f"unknown optimizer {optimizer!r}; use 'adamw', "
+                         "'adafactor', or pass an optimizer factory")
     if config.lora_rank > 0:
         optimizer = make_lora_optimizer(learning_rate, inner=optimizer)
     elif optimizer is None:

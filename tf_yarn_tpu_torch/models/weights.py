@@ -14,15 +14,19 @@ layouts the JAX package writes (transformer.py:467-477, 519-522):
 Dense kernels keep the JAX ``[in, out]`` layout (``"...d,df"``), which is
 the port's `LoraDense.kernel` layout too: nothing is transposed. With
 ``config.lora_rank > 0`` every dense also maps its ``lora_a`` ``[in,
-rank]`` and ``lora_b`` ``[rank, out]`` leaves. Leaves come back as f32
+rank]`` and ``lora_b`` ``[rank, out]`` leaves. With ``config.moe_experts >
+0`` a block's ``moe/{router,w_gate,w_up,w_down}`` (the Switch MLP, in
+the JAX layouts ``[d, E]``, ``[E, d, d_ff]`` and ``[E, d_ff, d]``) take
+the place of its ``mlp`` denses. Leaves come back as f32
 tensors (the JAX params are f32); `load_state_dict` casts each to its
 parameter's dtype, so f32 masters stay f32. Every leaf must be consumed
 and every port parameter filled, or it raises. The port imports no JAX:
 this module only walks nested mappings.
 
 `bert_from_flax`, `vit_from_flax`, `resnet_from_flax`,
-`dlrm_from_flax` and `mnist_from_flax` bridge the encoder and vision
-families, the DLRM ranker and the MNIST classifier. Their port modules are named as the flax
+`dlrm_from_flax`, `mnist_from_flax` and `linear_from_flax` bridge the
+encoder and vision families, the DLRM ranker, the MNIST classifier and
+the hashed linear classifier. Their port modules are named as the flax
 tree (``encoder/layer_0/wq/kernel`` is ``encoder.layer_0.wq.kernel``),
 so each leaf maps by reading ``/`` as ``.``; conv kernels go from flax's
 HWIO to torch's ``[out, in, kh, kw]``. The same rule holds: every leaf
@@ -53,6 +57,7 @@ _BLOCK_LEAVES = {
 }
 _DENSES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
            "mlp/w_gate", "mlp/w_up", "mlp/w_down")
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 _TOP_LEAVES = {
     "embedding": "embedding",
     "lm_head": "lm_head",
@@ -88,8 +93,15 @@ def from_flax(variables, config: TransformerConfig) -> Dict[str, torch.Tensor]:
         state[name] = torch.from_numpy(np.array(take(path), np.float32))
     scanned = any(path.startswith("layers/block/") for path in flat)
     block_leaves = dict(_BLOCK_LEAVES)
+    denses = _DENSES
+    if config.moe_experts > 0:
+        block_leaves = {path: name for path, name in block_leaves.items()
+                        if not path.startswith("mlp/")}
+        block_leaves.update({f"moe/{leaf}": f"moe.{leaf}"
+                             for leaf in _MOE_LEAVES})
+        denses = tuple(d for d in _DENSES if not d.startswith("mlp/"))
     if config.lora_rank > 0:
-        for dense in _DENSES:
+        for dense in denses:
             for factor in ("lora_a", "lora_b"):
                 block_leaves[f"{dense}/{factor}"] = (
                     f"{dense.replace('/', '.')}.{factor}")
@@ -173,6 +185,15 @@ def resnet_from_flax(variables, config) -> Dict[str, torch.Tensor]:
     from tf_yarn_tpu_torch.models.resnet import ResNet
 
     return _bridge_by_name(variables, ResNet(config, device="cpu"))
+
+
+def linear_from_flax(variables, config) -> Dict[str, torch.Tensor]:
+    """State dict of `models.linear.HashedLinearClassifier` from the
+    variables of the JAX one (f32 CPU tensors)."""
+    from tf_yarn_tpu_torch.models.linear import HashedLinearClassifier
+
+    return _bridge_by_name(variables, HashedLinearClassifier(config,
+                                                             device="cpu"))
 
 
 def mnist_from_flax(variables, hidden_sizes=(512, 256), num_classes: int = 10,

@@ -1,6 +1,6 @@
 """The train loop's data-parallel wrap over the ``dp`` and ``fsdp`` dims
-of a ``("pp", "dp", "fsdp", "sp", "tp")`` mesh, and the gradient sums
-over ``sp`` and ``pp``.
+of a ``("pp", "dp", "fsdp", "sp", "tp", "ep")`` mesh, and the gradient
+sums over ``sp`` and ``pp``.
 
 The JAX package shards the train state over the mesh with XLA inserting
 the collectives (training.py:574-760 under a multi-device mesh). The
@@ -19,10 +19,11 @@ explicit, by the mesh's sizes:
   ``dp``, sharded over ``fsdp``;
 * both 1 (a mesh of ``tp`` alone) — no wrap.
 
-Under tensor parallelism the model it wraps holds the rank's ``tp``
-shards already (`parallel.tensor_parallel.parallelize`): DDP and FSDP2
+Under tensor or expert parallelism the model it wraps holds the rank's
+``tp`` shards or ``ep`` experts already (`parallel.tensor_parallel.
+parallelize`, `parallel.expert_parallel.parallelize`): DDP and FSDP2
 treat them as the whole parameters, over the groups of ranks that share
-the rank's ``tp`` index.
+the rank's ``tp`` and ``ep`` indices.
 
 Under sequence parallelism a rank of a sequence-sharded model (the
 decoder, ``sp`` handed to it) computes its block of the sequence, so
@@ -43,8 +44,8 @@ dropout ``generator``, the FLOP count and LoRA merges from it, and calls
 ``module``, the wrapper. Its state dict is the one-device run's format
 (`full_state`, gathered in full and onto the host under FSDP2, the
 optimizer's state keyed by parameter index as ``optimizer.state_dict()``
-keys it, the ``tp`` shards gathered whole through
-`tensor_parallel.gather_state`, and the other stages' layers and their
+keys it, the ``tp`` shards and then the ``ep`` experts gathered whole
+through `tensor_parallel.gather_state`, and the other stages' layers and their
 optimizer state gathered to the first stage through the host under
 ``pp``, numbered as the one-device optimizer numbers them
 (`optimizer_layout`)), so a checkpoint of any world size and mesh
@@ -137,13 +138,17 @@ class DataParallel:
 
     def __init__(self, model: nn.Module, mesh, device: torch.device,
                  make_optimizer, tp=None, sp=None, pp=None,
-                 layout=None) -> None:
+                 layout=None, ep=None) -> None:
         self.inner = model
         self.mesh = mesh
         # The tp group of a model `tensor_parallel.parallelize` sliced,
         # and each parameter's tp dim (None: replicated).
         self.tp = tp
         self.tp_dims = getattr(model, "tp_dims", {})
+        # The ep group of a model `expert_parallel.parallelize` cut, and
+        # each parameter's ep dim.
+        self.ep = ep
+        self.ep_dims = getattr(model, "ep_dims", {})
         # The sp group of a sequence-sharded model, the pipeline stage of
         # a staged one and the one-device optimizer's layout
         # (`optimizer_layout`) its checkpoints are numbered by.
@@ -220,15 +225,16 @@ class DataParallel:
 
     def full_state(self) -> Dict[str, Any]:
         """``{"params": ..., "optimizer": ...}`` in the one-device format.
-        Under FSDP2, tp or pp a collective that every rank calls; under
-        FSDP2 alone only rank 0 (the writer) gets the optimizer's state,
-        under tp and pp the first rank of the group."""
+        Under FSDP2, tp, ep or pp a collective that every rank calls;
+        under FSDP2 alone only rank 0 (the writer) gets the optimizer's
+        state, under tp, ep and pp the first rank of the group."""
         state = self._local_state()
-        if self.tp is not None:
-            params, optimizer = tp_lib.gather_state(
-                state["params"], state["optimizer"], self._names,
-                self.tp_dims, self.tp)
-            state = {"params": params, "optimizer": optimizer}
+        for group, dims in ((self.tp, self.tp_dims), (self.ep, self.ep_dims)):
+            if group is not None:
+                params, optimizer = tp_lib.gather_state(
+                    state["params"], state["optimizer"], self._names, dims,
+                    group)
+                state = {"params": params, "optimizer": optimizer}
         if self.pp is not None:
             state = self._gather_stages(state)
         return state
@@ -317,10 +323,11 @@ class DataParallel:
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
 
-        # With cpu_offload only rank 0 gets the state; under tp every
-        # rank's shard is gathered, so every rank keeps its own.
-        options = StateDictOptions(full_state_dict=True,
-                                   cpu_offload=self.tp is None)
+        # With cpu_offload only rank 0 gets the state; under tp or ep
+        # every rank's shard is gathered, so every rank keeps its own.
+        options = StateDictOptions(
+            full_state_dict=True,
+            cpu_offload=self.tp is None and self.ep is None)
         optim = get_optimizer_state_dict(self.inner, self.optimizer,
                                          options=options)
         params = get_model_state_dict(self.inner, options=options)
@@ -344,8 +351,9 @@ class DataParallel:
         mesh is) on this attempt's mesh — the elastic-resume primitive,
         JAX ``sharding.reshard_state`` (sharding.py:146-187): the rank's
         pipeline stage's leaves, the optimizer's renumbered to the rank's
-        optimizer; each ``tp``-placed parameter and its optimizer state
-        cut to the rank's slice (`sharding.shard_like_annotated`); the
+        optimizer; each ``tp``- or ``ep``-placed parameter and its
+        optimizer state cut to the rank's slice
+        (`sharding.shard_like_annotated`); the
         rest, and the entries besides the two parts, as they are. Pure
         data movement: every value the rank keeps is the checkpoint's,
         bit for bit. `old_spec` (the declared `MeshSpec` an elastic
@@ -356,11 +364,13 @@ class DataParallel:
                          dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)))
         part = self._stage_state(state) if self.pp is not None else state
         params, optim = part["params"], part["optimizer"]
-        if self.tp is not None:
+        if self.tp is not None or self.ep is not None:
             params = sharding.shard_like_annotated(self.inner, params,
                                                    self.mesh)
-            optim = tp_lib.shard_optimizer(optim, self._names, self.tp_dims,
-                                           self.tp)
+        for group, dims in ((self.tp, self.tp_dims), (self.ep, self.ep_dims)):
+            if group is not None:
+                optim = tp_lib.shard_optimizer(optim, self._names, dims,
+                                               group)
         return dict(state, params=params, optimizer=optim)
 
     def load_rank_state(self, state: Dict[str, Any]) -> None:

@@ -10,24 +10,26 @@ TPU slices.
 
 The port is eager PyTorch with one process per rank and one device per
 process, so a mesh is a mesh of ranks: `build_mesh` returns a torch
-`DeviceMesh` with the dims ``("pp", "dp", "fsdp", "sp", "tp")`` — JAX's
-axis order (mesh.py:63), so ``tp`` is innermost and a tp group is
+`DeviceMesh` with the dims ``("pp", "dp", "fsdp", "sp", "tp", "ep")`` —
+JAX's axis order (mesh.py:63), so ``ep`` is innermost and an ep group is
 adjacent ranks — over the default process group's ranks, and its size
 must be the world size. The train loop (`training.train_and_evaluate`)
 cuts the decoder's layer stack into ``pp`` stages
 (`parallel.pipeline`), slices the model over ``tp``
 (`parallel.tensor_parallel`, placements from `parallel.sharding`), hands
 the decoder its ``sp`` group (each rank computes its contiguous share of
-the sequence; `parallel.ring_attention`, `parallel.ulysses`), replicates
+the sequence; `parallel.ring_attention`, `parallel.ulysses`), cuts an MoE
+decoder's experts over ``ep`` (`parallel.expert_parallel`), replicates
 it over ``dp`` (`DistributedDataParallel`) and shards it over ``fsdp``
 (FSDP2 ``fully_shard``; both at once is FSDP2's hybrid form). The ranks
 of one ``dp`` x ``fsdp`` coordinate form a data group (`data_group`):
 they read the same share of the global batch, as JAX shards the batch
-over ``dp`` and ``fsdp`` only (mesh.py:262-268). That wrap and the
-DeviceMesh play the role of the JAX package's `batch_sharding` and
-`replicated_sharding`, which have no eager counterpart. ``ep`` is
-refused with the ROADMAP.md Queue 1 item that ports it (8b), and so are
-the pairs of axes the port does not combine yet (`UNPORTED_PAIRS`).
+over ``dp`` and ``fsdp`` only (mesh.py:262-268), so the ranks of one
+``tp`` or ``ep`` group read the same rows. That wrap and the DeviceMesh
+play the role of the JAX package's `batch_sharding` and
+`replicated_sharding`, which have no eager counterpart. The pairs of
+axes the port does not combine yet are refused with the ROADMAP.md
+Queue 1 items that port them (`UNPORTED_PAIRS`).
 """
 
 from __future__ import annotations
@@ -47,19 +49,20 @@ AXIS_EP = "ep"
 # The batch dimension shards over every data-like axis.
 BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 
-# The dims of a built mesh, outermost first (``ep`` is refused).
-MESH_DIMS = (AXIS_PP, AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP)
+# The dims of a built mesh, outermost first.
+MESH_DIMS = (AXIS_PP, AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP, AXIS_EP)
 
 # The model axes the port does not build yet, each with its ROADMAP.md
-# Queue 1 item.
-UNPORTED_AXES = {
-    AXIS_EP: "8b, MoE experts",
-}
+# Queue 1 item (none: every axis of a MeshSpec is built).
+UNPORTED_AXES: Dict[str, str] = {}
 
-# The pairs of axes the port does not combine yet (ROADMAP.md Queue 1
-# item 7d): the pipeline beside FSDP2, a sequence or a tensor group.
-UNPORTED_PAIRS = ((AXIS_FSDP, AXIS_PP), (AXIS_SP, AXIS_PP),
-                  (AXIS_TP, AXIS_PP))
+# The pairs of axes the port does not combine yet, each with its
+# ROADMAP.md Queue 1 item: the pipeline beside FSDP2, a sequence or a
+# tensor group (7d); the experts beside a tensor, sequence or pipeline
+# group (8d).
+UNPORTED_PAIRS = ((AXIS_FSDP, AXIS_PP, "7d"), (AXIS_SP, AXIS_PP, "7d"),
+                  (AXIS_TP, AXIS_PP, "7d"), (AXIS_EP, AXIS_TP, "8d"),
+                  (AXIS_EP, AXIS_SP, "8d"), (AXIS_EP, AXIS_PP, "8d"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,13 +161,13 @@ def check_mesh_spec(spec, world_size: int) -> None:
             raise NotImplementedError(
                 f"MeshSpec {axis}={getattr(spec, axis)}: the {axis} axis is "
                 f"not ported yet (ROADMAP.md Queue 1 item {item}); the port "
-                "builds pp, dp, fsdp, sp and tp meshes")
-    for first, second in UNPORTED_PAIRS:
+                "builds pp, dp, fsdp, sp, tp and ep meshes")
+    for first, second, item in UNPORTED_PAIRS:
         if getattr(spec, first, 1) > 1 and getattr(spec, second, 1) > 1:
             raise NotImplementedError(
                 f"MeshSpec {first}={getattr(spec, first)} with "
                 f"{second}={getattr(spec, second)}: the port does not combine "
-                f"{first} and {second} yet (ROADMAP.md Queue 1 item 7d)")
+                f"{first} and {second} yet (ROADMAP.md Queue 1 item {item})")
     total = getattr(spec, "total_devices", 1)
     if total != world_size:
         sizes = dict(zip(getattr(spec, "axis_names", ()),
@@ -197,7 +200,8 @@ def build_mesh(spec: MeshSpec, device=None,
     device_type = torch.device(device).type if device is not None else "cuda"
     return DeviceMesh(device_type,
                       torch.tensor(ranks).reshape(
-                          spec.pp, spec.dp, spec.fsdp, spec.sp, spec.tp),
+                          spec.pp, spec.dp, spec.fsdp, spec.sp, spec.tp,
+                          spec.ep),
                       mesh_dim_names=MESH_DIMS)
 
 
@@ -220,7 +224,7 @@ def mesh_coordinate(mesh, axis: str) -> int:
 def data_group(mesh) -> Tuple[int, int]:
     """(index, count) of this rank's data group: the ``dp`` x ``fsdp``
     coordinate, row-major, which the ranks that differ only in ``pp``,
-    ``sp`` and ``tp`` share. They read the same rows of the global batch
+    ``sp``, ``tp`` and ``ep`` share. They read the same rows of the global batch
     and draw from the same dropout seeds. (0, 1) without a mesh."""
     fsdp = mesh_axis_size(mesh, AXIS_FSDP)
     index = (mesh_coordinate(mesh, AXIS_DP) * fsdp

@@ -66,6 +66,7 @@ HEADS = "heads"
 KV = "kv"
 MLP = "mlp"
 VOCAB = "vocab"
+EXPERT = "expert"
 
 # Logical-axis -> mesh-axis rules (first matching entry wins; None =
 # replicate): Megatron's placement, sharding.py:41-56.
@@ -77,7 +78,7 @@ LOGICAL_RULES: Tuple[Tuple[str, Any], ...] = (
     (KV, None),
     (MLP, AXIS_TP),
     (VOCAB, AXIS_TP),
-    ("expert", AXIS_EP),
+    (EXPERT, AXIS_EP),
     ("conv_out", AXIS_FSDP),
     ("layers", AXIS_PP),
     ("stage", None),
@@ -183,18 +184,21 @@ def tree_partition_specs(model: torch.nn.Module, fsdp_size: int,
     return specs
 
 
-def tp_dim(spec: Spec) -> Optional[int]:
-    """The dim a spec shards over ``tp`` (None when it does not)."""
+def tp_dim(spec: Spec, mesh_axis: str = AXIS_TP) -> Optional[int]:
+    """The dim a spec shards over `mesh_axis` (``tp`` by default; None
+    when it does not)."""
     for dim, axis in enumerate(spec):
-        if axis == AXIS_TP or (isinstance(axis, tuple) and AXIS_TP in axis):
+        if axis == mesh_axis or (isinstance(axis, tuple)
+                                 and mesh_axis in axis):
             return dim
     return None
 
 
-def tp_dims(model: torch.nn.Module, rules=LOGICAL_RULES
-            ) -> Dict[str, Optional[int]]:
-    """``{parameter name: its tp dim or None}`` under `rules`."""
-    return {name: tp_dim(spec)
+def tp_dims(model: torch.nn.Module, rules=LOGICAL_RULES,
+            mesh_axis: str = AXIS_TP) -> Dict[str, Optional[int]]:
+    """``{parameter name: its tp dim or None}`` under `rules` (with
+    `mesh_axis`, its dim over that axis)."""
+    return {name: tp_dim(spec, mesh_axis)
             for name, spec in tree_partition_specs(model, 1, rules).items()}
 
 
@@ -206,7 +210,7 @@ def local_slice(tensor: torch.Tensor, dim: Optional[int], size: int,
         return tensor
     if tensor.shape[dim] % size:
         raise ValueError(f"dim {dim} of size {tensor.shape[dim]} does not "
-                         f"split into {size} tp shards")
+                         f"split into {size} shards")
     length = tensor.shape[dim] // size
     return tensor.narrow(dim, index * length, length)
 
@@ -216,19 +220,22 @@ def shard_like_annotated(model: torch.nn.Module,
                          rules=LOGICAL_RULES) -> Dict[str, torch.Tensor]:
     """This rank's slices of a one-device state dict of `model` (whole,
     or already cut to the rank's shards: its annotations place it the
-    same): each tensor whose placement under `rules` names ``tp`` cut to
-    the rank's shard along that dim, the others as they are. Raises
-    ValueError when the state's names are not the model's."""
+    same): each tensor whose placement under `rules` names ``tp`` or
+    ``ep`` cut to the rank's shard along that dim, the others as they
+    are. Raises ValueError when the state's names are not the model's."""
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 
-    dims = tp_dims(model, rules)
     names = list(model.state_dict())
     if sorted(state) != sorted(names):
         missing = sorted(set(names) - set(state))
         extra = sorted(set(state) - set(names))
         raise ValueError("state does not match the model's parameters "
                          f"(missing {missing}, unexpected {extra})")
-    size = mesh_lib.mesh_axis_size(mesh, AXIS_TP)
-    index = mesh_lib.mesh_coordinate(mesh, AXIS_TP)
-    return {name: local_slice(value, dims.get(name), size, index).contiguous()
-            for name, value in state.items()}
+    out = dict(state)
+    for axis in (AXIS_TP, AXIS_EP):
+        dims = tp_dims(model, rules, axis)
+        size = mesh_lib.mesh_axis_size(mesh, axis)
+        index = mesh_lib.mesh_coordinate(mesh, axis)
+        out = {name: local_slice(value, dims.get(name), size, index)
+               for name, value in out.items()}
+    return {name: value.contiguous() for name, value in out.items()}

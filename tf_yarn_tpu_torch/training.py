@@ -40,24 +40,28 @@ item 9a).
 In a process group of more than one rank (one process and one device
 each; `tasks.worker` makes the group for a launched ``allreduce_topology``)
 the loop trains over a `parallel.mesh.MeshSpec` of ``pp``, ``dp``,
-``fsdp``, ``sp`` and ``tp`` (``MeshSpec.auto(world)`` when the experiment
-gives none, as in JAX). The model is built whole on every rank, then cut
-to the rank's pipeline stage by `parallel.pipeline.parallelize` (the
-decoder's layers; the one-device optimizer's numbering kept for the
-checkpoints), to its ``tp`` shards by
+``fsdp``, ``sp``, ``tp`` and ``ep`` (``MeshSpec.auto(world)`` when the
+experiment gives none, as in JAX). The model is built whole on every
+rank, then cut to the rank's pipeline stage by
+`parallel.pipeline.parallelize` (the decoder's layers; the one-device
+optimizer's numbering kept for the checkpoints), to its ``ep`` experts by
+`parallel.expert_parallel.parallelize` (an MoE decoder; its layers also
+get their data ranks, so the capacity and the aux loss count the global
+batch), to its ``tp`` shards by
 `parallel.tensor_parallel.parallelize` (placements from
 `parallel.sharding`; a family with no tp placement stays replicated),
 given its ``sp`` group (`parallel.data_parallel.sequence_parallelize`:
 the decoder then computes the rank's block of the sequence; the encoders
 stay replicated and cut only their attention), and wrapped by
 `parallel.data_parallel.DataParallel` (DDP over ``dp``, FSDP2 over
-``fsdp``, its hybrid form over both; after the backward the gradients
+``fsdp``, its hybrid form over both, each over the ranks of one ``tp``
+and ``ep`` index; after the backward the gradients
 that are a rank's share summed over ``sp`` and ``pp``). The ranks of one
 ``dp`` x
 ``fsdp`` coordinate form a data group (`mesh.data_group`): an input_fn
 that declares ``host_index`` and ``num_hosts`` gets the data group's
 index and count and yields its contiguous share of the global batch
-(training.py:391-424), so a tp group reads the same rows; microbatches
+(training.py:391-424), so a tp or ep group reads the same rows; microbatches
 before a step's last skip the gradient sync; a step's dropout seed folds
 in the data group's index, so the data groups draw independent masks and
 the ranks of a tp group the same ones; the logged metrics are the ranks'
@@ -65,8 +69,9 @@ mean and the eval metrics the global batches' (weighted by rows), equal
 on every rank (a tp group's ranks hold equal values, so that is the mean
 over data groups); samples, tokens and FLOPs count the global batch once
 (× the data groups) and MFU is over world × the card's peak; rank 0
-alone writes checkpoints (the one-device format, the tp shards gathered
-whole, so any mesh resumes any other) and TensorBoard and broadcasts the
+alone writes checkpoints (the one-device format, the tp shards and ep
+experts gathered whole, so any mesh resumes any other) and TensorBoard
+and broadcasts the
 step and rates, and the ranks wait for its manifest before going on;
 every rank restores the step rank 0 verified and takes its shards; and
 the preemption flag is agreed at the ``drain_poll_every_steps`` cadence
@@ -86,10 +91,10 @@ multi-rank restore takes its rank's part of the checkpoint through
 `resilience.chaos.on_train_step`, the host boundary of the
 ``TPU_YARN_FAULT`` injections.
 
-Not ported here, each raising or named in ROADMAP.md: the ``ep`` axis
-of a mesh (Queue 1 item 8b) and the pairs of axes `parallel.mesh` does
-not combine (the pipeline beside fsdp, sp or tp, item 7d); remote
-model_dirs and their uploading TensorBoard writer (item 5.4).
+Not ported here, each raising or named in ROADMAP.md: the pairs of axes
+`parallel.mesh` does not combine (the pipeline beside fsdp, sp or tp,
+Queue 1 item 7d; ep, or an MoE decoder, beside tp, sp or pp, item 8d);
+remote model_dirs and their uploading TensorBoard writer (item 5.4).
 """
 
 from __future__ import annotations
@@ -110,7 +115,7 @@ from tf_yarn_tpu_torch import event, preemption, telemetry
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.data.prefetch import prefetch
 from tf_yarn_tpu_torch.experiment import CoreExperiment
-from tf_yarn_tpu_torch.parallel import data_parallel
+from tf_yarn_tpu_torch.parallel import data_parallel, expert_parallel
 from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
 from tf_yarn_tpu_torch.parallel import pipeline, tensor_parallel
 from tf_yarn_tpu_torch.resilience import chaos
@@ -769,12 +774,13 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
             staged = mesh_lib.mesh_axis_size(mesh, mesh_lib.AXIS_PP) > 1
             layout = (data_parallel.optimizer_layout(model, core.optimizer)
                       if staged else None)
+            ep = expert_parallel.parallelize(model, mesh)
             stage = pipeline.parallelize(model, mesh)
             tp = tensor_parallel.parallelize(model, mesh)
             sp = data_parallel.sequence_parallelize(model, mesh)
             parallel = data_parallel.DataParallel(
                 model, mesh, device, core.optimizer, tp=tp, sp=sp, pp=stage,
-                layout=layout if stage is not None else None)
+                layout=layout if stage is not None else None, ep=ep)
         state = TrainState(0, model, parallel.optimizer, parallel)
     else:
         state = TrainState(0, model, core.optimizer(model))
@@ -795,7 +801,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                         core.model_dir, step, map_location=(
                             device if parallel.kind == "ddp"
                             and parallel.tp is None and parallel.pp is None
-                            else "cpu"))
+                            and parallel.ep is None else "cpu"))
                 else:
                     restored, step = None, None
             if restored is not None:

@@ -39,6 +39,9 @@ def transformer_train_flops(config, batch_size: int, seq_len: int,
     attn_params = (d * config.n_heads * hd
                    + 2 * d * config.n_kv_heads * hd
                    + config.n_heads * hd * d)
+    # A Switch MoE layer routes each token through one expert of the
+    # dense MLP's shape: the same FLOPs per token (the router's d·E are
+    # left out, as JAX flops.py:93-96 leaves them).
     mlp_params = 3 * d * config.d_ff
     dense_params = config.n_layers * (attn_params + mlp_params)
     dense_params += d * config.vocab_size  # untied lm_head
