@@ -256,7 +256,33 @@ Phases, each fatal on failure (nonzero exit, no result line):
    process from the same ckpt-2 on the same global batches
    (`ELASTIC_LOSS_RTOL`, `ELASTIC_PARAM_ATOL`, `ELASTIC_KEY_BIAS_ATOL`);
    the seconds from the kill to the LOST_TASK classification and from the
-   relaunch to its first step;
+   relaunch to its first step. (k) remote hosts and a remote model_dir,
+   launched and checked beside (a)-(f) (`remote_part`): `run_on_gpu` of
+   two workers through `SshBackend` on two fake hosts — an ssh stand-in
+   that gives each a HOME of its own on this machine and drops the
+   caller's PYTHONPATH, so each is a bare interpreter — with
+   `ship_code=True`, the code staged on a local `env_staging_dir`, a
+   hand-built one-module wheel in `wheels_dir`, this script as `files=`
+   and the coordinator advertised at 127.0.0.1; the experiment, sent by
+   name from the shipped script, registers `smokefs://` (`SmokeFS`, a
+   filesystem over a local directory that uses no pyarrow) and trains
+   (e)'s BERT-base at `MeshSpec(dp=2)` over gloo on the card, 4 steps, a
+   checkpoint every 2 through the async writer (staged: written locally,
+   uploaded, renamed into place) keeping the newest 1, TensorBoard on,
+   the model_dir on `smokefs://`. Before anything of the phase starts,
+   `fs.check_model_dir_placement` refuses a local model_dir under a
+   remote backend's environment. Each worker imported the port from the
+   unpack root under its host's HOME, this script from its shipped
+   workdir and the wheel's module from `_pydeps`, and built the kernel
+   library from the shipped sources into its unpack root (its seconds);
+   each rank launched the LayerNorm forward and backward as often as
+   (e)'s same rank, with losses within `REMOTE_LOSS_RTOL` of (e)'s, the
+   ranks' parameters bitwise equal; on the remote, ckpt-4 with its
+   MANIFEST verifies through `fs` and equals rank 0's parameters, ckpt-2
+   stays (retention runs before each save, as in the JAX writer), no
+   staging or backup tree is left, and TensorBoard events are under
+   `tb`; the wall to return, each worker's launch to its first step, and
+   rank 0's `checkpoint/staged_write` seconds and bytes;
 10. fleet slice, the launched serving fleet (`fleet_slice`), after
    phase 9 (a)-(f), with (g) beside its (a): (a) phase
    5's model (`serving_config`, 4 of 32 layers; seed 0) on grid (a) in process, prompts of 17, 64 and 300
@@ -3513,7 +3539,8 @@ def _evaluator_record(model_dir: str, params, metrics, step) -> None:
 
 def launcher_bert_experiment(model_dir: str, tiny: bool = False,
                              preempt_at=None, dp: int = 1,
-                             drain_poll=None, preempt_rank: int = 0):
+                             drain_poll=None, preempt_rank: int = 0,
+                             record_dir=None, extra=None):
     """Phase 9's experiment fn, called in the launched tasks: phase 7's
     BERT-base experiment (make_experiment at its JAX defaults,
     fused_norms=True, 32 x 128, AdamW, 4 steps, seed 0, the same
@@ -3532,8 +3559,10 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
     rank r > 0 writes its record to launcher_counts-<r>.json, and every
     record holds the rank, its backend and device and the digest of its
     parameters after the last step. `drain_poll`: the run's
-    ``drain_poll_every_steps``. `tiny`: the tiny f32 config, for a
-    rehearsal on the CPU."""
+    ``drain_poll_every_steps``. `record_dir`: where the records go when
+    the model_dir is a URI (default the model_dir); `extra`: a fn whose
+    dict joins each record. `tiny`: the tiny f32 config, for a rehearsal
+    on the CPU."""
     import functools
 
     import torch
@@ -3611,9 +3640,11 @@ def launcher_bert_experiment(model_dir: str, tiny: bool = False,
                     re.search(r"\{op=(\w+)\}", key).group(1)
                     for key in telemetry.get_registry().snapshot()
                     if key.startswith("checkpoint/seconds")}),
+                **(extra() if extra else {}),
             }
-            Path(model_dir).mkdir(parents=True, exist_ok=True)
-            rank_counts_path(model_dir, rank).write_text(json.dumps(record))
+            records = Path(record_dir or model_dir)
+            records.mkdir(parents=True, exist_ok=True)
+            rank_counts_path(records, rank).write_text(json.dumps(record))
 
         opt.register_step_post_hook(after_step)
         return opt
@@ -4629,6 +4660,365 @@ def elastic_part(torch, client, topologies, training, experiment, counted,
     finally:
         # After any failure message has taken the task logs' tails.
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Phase 9 (k): remote hosts and remote storage. Two fake hosts reached
+# through an ssh stand-in, each a bare interpreter under a HOME of its own
+# on this machine; the code, this script and a hand-built wheel shipped to
+# them; the model_dir on a registered scheme over a local directory.
+REMOTE_HOSTS = 2
+REMOTE_SCHEME = "smokefs"
+REMOTE_DEP = "smokedep"
+REMOTE_DEP_VALUE = 4242
+# (k)'s ranks against (e)'s: the same ranks, code, weights, batches and
+# dropout streams on the same card, run from shipped copies (so bitwise
+# so far, as (a) is against phase 7; LAUNCHER_LOSS_RTOL's reasoning).
+REMOTE_LOSS_RTOL = LAUNCHER_LOSS_RTOL
+
+_REMOTE_SHIM = '''#!{python} -S
+"""ssh stand-in: `shim <host> <command>` runs the command in /bin/sh with
+HOME={base}/<host>, from there, without the caller's PYTHONPATH (a bare
+host: the interpreter's site-packages and nothing of the checkout); a
+SIGTERM reaches the command's whole process group."""
+import os, signal, subprocess, sys
+
+host, command = sys.argv[1], sys.argv[2]
+home = os.path.join({base!r}, host)
+os.makedirs(home, exist_ok=True)
+env = {{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}}
+env["HOME"] = home
+proc = subprocess.Popen(["/bin/sh", "-c", command], cwd=home, env=env,
+                        start_new_session=True)
+for sig in (signal.SIGTERM, signal.SIGINT):
+    signal.signal(sig, lambda s, f: os.killpg(proc.pid, s))
+code = proc.wait()
+sys.exit(128 - code if code < 0 else code)
+'''
+
+
+class SmokeFS:
+    """A filesystem for `fs.register_scheme` over a local directory, with
+    the pyarrow.fs.FileSystem methods the port's `fs` calls and no pyarrow:
+    what a vendor filesystem plugs in. Paths are relative to `root`."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _local(self, path: str) -> str:
+        return os.path.join(self.root, path.lstrip("/"))
+
+    def _info(self, fs, path: str):
+        local = self._local(path)
+        if os.path.isdir(local):
+            return fs.FileInfo(path, fs.FileType.Directory)
+        if os.path.exists(local):
+            return fs.FileInfo(path, fs.FileType.File,
+                               os.path.getsize(local))
+        return fs.FileInfo(path, fs.FileType.NotFound)
+
+    def get_file_info(self, target):
+        from tf_yarn_tpu_torch import fs
+
+        if not isinstance(target, fs.FileSelector):
+            return self._info(fs, target)
+        base = target.base_dir.rstrip("/")
+        found = []
+        for root, dirs, files in os.walk(self._local(base)):
+            rel = os.path.relpath(root, self._local(base))
+            prefix = base if rel == "." else f"{base}/{rel}"
+            found += [self._info(fs, f"{prefix}/{name}".lstrip("/"))
+                      for name in sorted(dirs) + sorted(files)]
+            if not target.recursive:
+                break
+        return found
+
+    def create_dir(self, path, recursive=True):
+        os.makedirs(self._local(path), exist_ok=True)
+
+    def delete_dir(self, path):
+        shutil.rmtree(self._local(path))
+
+    def move(self, src, dst):
+        os.replace(self._local(src), self._local(dst))
+
+    def open_output_stream(self, path):
+        return open(self._local(path), "wb")
+
+    def open_input_stream(self, path):
+        return open(self._local(path), "rb")
+
+    open_input_file = open_input_stream
+
+
+def register_smokefs(fs_root: str) -> None:
+    from tf_yarn_tpu_torch import fs
+
+    fs.register_scheme(REMOTE_SCHEME, lambda uri: (
+        SmokeFS(fs_root), uri[len(REMOTE_SCHEME) + 3:]))
+
+
+def make_wheel(out_dir: str, name: str = REMOTE_DEP, version: str = "1.0",
+               body: str = f"VALUE = {REMOTE_DEP_VALUE}\n") -> str:
+    """A `<name>-<version>-py3-none-any.whl` holding one module (the
+    recipe of tests/_wheels.py: the dist-info trio pip needs)."""
+    import zipfile
+
+    os.makedirs(out_dir, exist_ok=True)
+    wheel = os.path.join(out_dir, f"{name}-{version}-py3-none-any.whl")
+    info = f"{name}-{version}.dist-info"
+    with zipfile.ZipFile(wheel, "w") as zf:
+        zf.writestr(f"{name}.py", body)
+        zf.writestr(f"{info}/METADATA", f"Metadata-Version: 2.1\nName: "
+                    f"{name}\nVersion: {version}\n")
+        zf.writestr(f"{info}/WHEEL", "Wheel-Version: 1.0\nGenerator: "
+                    "chip_smoke\nRoot-Is-Purelib: true\nTag: py3-none-any\n")
+        zf.writestr(f"{info}/RECORD", f"{name}.py,,\n{info}/METADATA,,\n"
+                    f"{info}/WHEEL,,\n{info}/RECORD,,\n")
+    return wheel
+
+
+def remote_bert_experiment(model_dir: str, record_dir: str, fs_root: str,
+                           tiny: bool = False):
+    """Phase 9 (k)'s experiment fn, called in the shipped workers: (e)'s
+    BERT-base run at ``MeshSpec(dp=2)`` (`launcher_bert_experiment`) with
+    its model_dir on `REMOTE_SCHEME` (registered here over `fs_root`), the
+    records to `record_dir`. Each record adds where this process imported
+    the port, this script and the shipped wheel's module from, the
+    wheel's value, this process's kernel build (its seconds, the sources
+    and the library), and the wall clock at this call and at its first
+    optimizer step."""
+    import importlib
+
+    import torch
+
+    called = time.time()
+    dep = importlib.import_module(REMOTE_DEP)
+    register_smokefs(fs_root)
+    first_step = []
+
+    def extra():
+        import tf_yarn_tpu_torch
+        from tf_yarn_tpu_torch.ops import _build
+
+        return {
+            "package": os.path.abspath(tf_yarn_tpu_torch.__file__),
+            "script": os.path.abspath(__file__),
+            "dep": [dep.VALUE, os.path.abspath(dep.__file__)],
+            "home": os.environ["HOME"],
+            "build_seconds": _build.build_seconds,
+            "csrc": str(_build.CSRC),
+            "library": (str(_build._library_path())
+                        if _build._library is not None else None),
+            "called_wall": called, "first_step_wall": first_step[0],
+            "placement": os.environ.get("TPU_YARN_REMOTE_BACKEND"),
+        }
+
+    exp = launcher_bert_experiment(model_dir, tiny, None, LAUNCHER_RANKS,
+                                   record_dir=record_dir, extra=extra)
+    make_optimizer = exp.optimizer
+
+    def optimizer(model):
+        opt = make_optimizer(model)
+
+        def first(opt, args, kwargs):
+            if not first_step:
+                if model.device.type == "cuda":
+                    torch.cuda.synchronize(model.device)
+                first_step.append(time.time())
+
+        opt.register_step_post_hook(first)
+        return opt
+
+    exp.optimizer = optimizer
+    return exp
+
+
+def remote_preflight() -> str:
+    """(k)'s placement check, in this process before anything of (k)
+    starts (and before the parts beside it read the environment): with a
+    remote backend's ``TPU_YARN_REMOTE_BACKEND=1``, `fs.check_model_dir_
+    placement` refuses a host-local model_dir and passes the scheme's.
+    Returns the refusal's message."""
+    from tf_yarn_tpu_torch import fs
+
+    before = os.environ.get("TPU_YARN_REMOTE_BACKEND")
+    os.environ["TPU_YARN_REMOTE_BACKEND"] = "1"
+    try:
+        fs.check_model_dir_placement(f"{REMOTE_SCHEME}://bert")
+        try:
+            fs.check_model_dir_placement(tempfile.gettempdir())
+        except ValueError as exc:
+            return str(exc)
+        raise AssertionError("a local model_dir passed the placement check "
+                             "of a remote backend")
+    finally:
+        if before is None:
+            os.environ.pop("TPU_YARN_REMOTE_BACKEND")
+        else:
+            os.environ["TPU_YARN_REMOTE_BACKEND"] = before
+
+
+def _staged_writes(trace_path: Path) -> list:
+    """[(seconds, bytes)] of the `checkpoint/staged_write` spans in a
+    task's exported trace."""
+    return [(e["dur"] / 1e6, e["args"].get("bytes"))
+            for e in json.loads(trace_path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == "checkpoint/staged_write"]
+
+
+def remote_part(torch, client, topologies, backends, fs, ckpt, refusal,
+                tiny=False, env=None):
+    """Phase 9 (k): `run_on_gpu` of two workers through `SshBackend` on
+    two fake hosts (`_REMOTE_SHIM`: a HOME each, a bare interpreter), with
+    the code shipped (`ship_code=True`, staged on a local
+    `env_staging_dir`), a one-module wheel (`wheels_dir`), this script as
+    `files=` and the coordinator advertised at 127.0.0.1, training (e)'s
+    BERT-base at ``MeshSpec(dp=2)`` 4 steps with a checkpoint every 2
+    (async writer, keep 1) and TensorBoard, the model_dir on
+    `REMOTE_SCHEME`. Checks each worker imported the port from the unpack
+    root under its host's HOME, this script from its shipped workdir and
+    the wheel's module from `_pydeps`; on the card, that each built the
+    kernel library from the shipped sources into the unpack root; the
+    ranks' parameters bitwise equal; on the remote, ckpt-4 with its
+    MANIFEST, verified through `fs`, equal to rank 0's parameters, no
+    staging or backup tree, and TensorBoard events under ``tb``. Returns
+    the record (the ranks' losses and launches for the comparison with
+    (e) in `main`), with the wall to return, each worker's launch and
+    call to its first step, the staged writes' seconds and bytes."""
+    started = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="remote_k"))
+    try:
+        hosts_base = tmp / "hosts"
+        hosts_base.mkdir()
+        shim = tmp / "ssh_shim"
+        shim.write_text(_REMOTE_SHIM.format(python=sys.executable,
+                                            base=str(hosts_base)))
+        shim.chmod(0o755)
+        make_wheel(str(tmp / "wheels"))
+        fs_root = tmp / "remote_fs"
+        fs_root.mkdir()
+        register_smokefs(str(fs_root))
+        model_dir = f"{REMOTE_SCHEME}://bert"
+        records_dir = tmp / "records"
+        backend = backends.SshBackend(
+            hosts=[backends.GpuHost(f"host-{i}", i)
+                   for i in range(REMOTE_HOSTS)],
+            python=sys.executable, ssh_cmd=[str(shim)])
+        launch_wall = time.time()
+        try:
+            client.run_on_gpu(
+                client.get_safe_experiment_fn(
+                    "chip_smoke.remote_bert_experiment", model_dir,
+                    str(records_dir), str(fs_root), tiny),
+                {"worker": topologies.TaskSpec(instances=REMOTE_HOSTS)},
+                name="remote", backend=backend, ship_code=True,
+                wheels_dir=str(tmp / "wheels"),
+                env_staging_dir=str(tmp / "staging"),
+                files={"chip_smoke.py": str(REPO / "chip_smoke.py")},
+                coordinator_advertise="127.0.0.1",
+                env=dict({"TPU_YARN_TRACE": str(tmp / "trace")}, **(env or {})),
+                poll_every_secs=0.5, dead_task_secs=300)
+        except Exception as exc:
+            raise AssertionError(
+                f"(k) remote run failed: {exc}\n"
+                f"{task_log_tails(name='remote')}") from exc
+        wall_s = time.perf_counter() - started
+        records = [json.loads(rank_counts_path(records_dir, rank).read_text())
+                   for rank in range(REMOTE_HOSTS)]
+        problems = []
+        for rank, r in enumerate(records):
+            home = str(hosts_base / f"host-{rank}")
+            root = os.path.join(home, ".tpu_yarn_code")
+            unpack = Path(r["package"]).parents[1]
+            if (r["home"] != home or not r["package"].startswith(root + "/")
+                    or not r["script"].startswith(
+                        os.path.join(home, ".tpu_yarn_runs") + "/")
+                    or r["dep"][0] != REMOTE_DEP_VALUE
+                    or not r["dep"][1].startswith(str(unpack / "_pydeps"))
+                    or r["placement"] != "1"
+                    or (r["world"], r["backend"], r["rank"])
+                    != (REMOTE_HOSTS, "gloo", rank)
+                    or len(r["losses"]) != LAUNCHER_STEPS
+                    or not r["device"].startswith("cpu" if tiny else "cuda")):
+                problems.append(f"rank {rank}: {r}")
+            if not tiny and (
+                    r["build_seconds"] is None
+                    or r["csrc"] != str(unpack / "tf_yarn_tpu_torch" / "ops"
+                                        / "csrc")
+                    or not (r["library"] or "").startswith(
+                        str(unpack / "build") + "/")
+                    or not Path(r["library"]).is_file()):
+                problems.append(f"rank {rank}'s kernel build: {r}")
+        if len({r["params_sha256"] for r in records}) != 1:
+            problems.append("the ranks' parameters differ")
+        names = [name for name, _ in fs.listdir(model_dir)]
+        ckpt_4 = ckpt.checkpoint_path(model_dir, LAUNCHER_STEPS)
+        if not fs.exists(fs.join(ckpt_4, ckpt.MANIFEST_NAME)) \
+                or [n for n in names if n.startswith(".")] \
+                or sorted(n for n in names if n.startswith("ckpt-")) \
+                != ["ckpt-2", "ckpt-4"]:
+            problems.append(f"the remote model_dir holds {names}")
+        else:
+            ckpt.verify_checkpoint(ckpt_4)
+            stored = ckpt.restore_checkpoint(model_dir, LAUNCHER_STEPS,
+                                             map_location="cpu",
+                                             parts=("params",))["params"]
+            if params_digest(stored) != records[0]["params_sha256"]:
+                problems.append("ckpt-4 differs from rank 0's parameters")
+            del stored
+        events = [n for n, _ in fs.listdir(fs.join(model_dir, "tb"))
+                  if "tfevents" in n]
+        if not events:
+            problems.append(f"no TensorBoard events under {model_dir}/tb")
+        writes = _staged_writes(tmp / "trace" / "trace_worker-0.json")
+        if len(writes) != 2 or any(not n for _, n in writes):
+            problems.append(f"rank 0's staged writes {writes}")
+        if problems:
+            raise AssertionError("(k) remote hosts: " + "; ".join(problems)
+                                 + f"\n{task_log_tails(name='remote')}")
+        return {
+            "ranks": [{key: r[key] for key in (
+                "rank", "world", "backend", "device", "losses", "launches",
+                "build_seconds")} for r in records],
+            "params_bitwise_equal_across_ranks": True,
+            "imports": [{"package": r["package"], "script": r["script"],
+                         "dep": r["dep"][1]} for r in records],
+            "remote_model_dir": sorted(names),
+            "tb_events": len(events),
+            "ckpt_4_verified_equal_rank0": True,
+            "placement_refusal": refusal.splitlines()[0][:160],
+            "staged_write_s": [w for w, _ in writes],
+            "staged_write_bytes": [n for _, n in writes],
+            "launch_to_first_step_s": [r["first_step_wall"] - launch_wall
+                                       for r in records],
+            "call_to_first_step_s": [r["first_step_wall"] - r["called_wall"]
+                                     for r in records],
+            "wall_s": wall_s,
+        }
+    finally:
+        fs.unregister_scheme(REMOTE_SCHEME)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def remote_check(remote: dict, ranked: list, tiny: bool = False) -> dict:
+    """(k)'s ranks against (e)'s (`ranks_parts`, the same ranks of the same
+    run): each rank's losses within REMOTE_LOSS_RTOL relative and its
+    LayerNorm launches equal. Returns the comparison."""
+    err = max(abs(a - b) / abs(b) for mine, theirs in zip(remote["ranks"],
+                                                          ranked)
+              for a, b in zip(mine["losses"], theirs["losses"]))
+    launches = [[mine["launches"], theirs["launches"]]
+                for mine, theirs in zip(remote["ranks"], ranked)]
+    if err > REMOTE_LOSS_RTOL or any(a != b for a, b in launches) or (
+            not tiny and not all(a["layernorm"] and a["layernorm_backward"]
+                                 for a, _ in launches)):
+        raise AssertionError(f"(k) against (e): losses {remote['ranks']} and "
+                             f"{ranked}, max rel err {err}")
+    return {"loss_max_rel_err_vs_e": err,
+            "losses_bitwise_equal_e": all(
+                mine["losses"] == theirs["losses"]
+                for mine, theirs in zip(remote["ranks"], ranked)),
+            "launches_equal_e": True}
 
 
 def tp_config(torch, tt, tiny: bool):
@@ -6967,7 +7357,7 @@ def main() -> int:
     from tf_yarn_tpu_torch.serving import server as server_mod
     from tf_yarn_tpu_torch import ranking
     from tf_yarn_tpu_torch.models import dlrm, linear, rank_engine, weights
-    from tf_yarn_tpu_torch import client, topologies
+    from tf_yarn_tpu_torch import backends, client, fs, topologies
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
     from tf_yarn_tpu_torch.serving import tp_replica
 
@@ -7249,6 +7639,9 @@ def main() -> int:
     # Phase 9 (h) and (i): sequence and pipeline parallelism at Llama-3-8B
     # widths, their ranks spawned from here, train beside (a)-(f), whose
     # launched workers leave the card mostly idle.
+    # Phase 9 (k)'s placement check sets the environment for a moment:
+    # before any part of the phase starts.
+    remote_refusal = remote_preflight()
     sp_pp_tmp = Path(tempfile.mkdtemp(prefix="sp_pp"))
     sp_pp_wait = concurrently_started({"h_i": lambda: sequence_pipeline_part(
         torch, tt, ckpt, training, experiment, dev, sp_pp_tmp)})
@@ -7259,6 +7652,9 @@ def main() -> int:
         torch, client, topologies, training, experiment, norm_counted[:2],
         {name: bert_launches[name]
          for name in ("layernorm", "layernorm_backward")}, dev)})
+    # Phase 9 (k), remote hosts and a remote model_dir, beside them too.
+    remote_wait = concurrently_started({"k": lambda: remote_part(
+        torch, client, topologies, backends, fs, ckpt, remote_refusal)})
     started = time.perf_counter()
     launcher_result = launcher_slice(
         torch, client, topologies, zoo_results["bert_base"]["losses"],
@@ -7277,7 +7673,26 @@ def main() -> int:
         try:
             sp_pp_result = sp_pp_wait()["h_i"][0]
         finally:
-            shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+            try:
+                remote_result, remote_s = remote_wait()["k"]
+            finally:
+                shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+    remote_result.update(remote_check(remote_result,
+                                      launcher_result["e_ranks"]["ranks"]))
+    log(f"remote slice (phase 9 (k)): {json.dumps(remote_result)} on {card}")
+    log(f"remote part: {remote_s:.1f} s beside (a)-(f); the wall to return "
+        f"{remote_result['wall_s']:.1f} s, each worker's launch to its first "
+        "step " + ", ".join(f"{t:.1f}" for t in
+                            remote_result["launch_to_first_step_s"])
+        + " s (its experiment call to its first step "
+        + ", ".join(f"{t:.1f}" for t in remote_result["call_to_first_step_s"])
+        + " s), each worker's kernel build "
+        + ", ".join(f"{r['build_seconds']:.1f}" for r in remote_result["ranks"])
+        + " s, checkpoint/seconds{op=staged_write} "
+        + ", ".join(f"{t:.2f}" for t in remote_result["staged_write_s"])
+        + " s for " + ", ".join(str(n) for n in
+                                remote_result["staged_write_bytes"])
+        + f" bytes uploaded, on {card}")
     log(f"elastic slice (phase 9 (j)): {json.dumps(elastic_result)} on "
         f"{card}")
     log(f"elastic part: {elastic_s:.1f} s beside (a)-(f); the kill to "
@@ -7293,7 +7708,7 @@ def main() -> int:
                                      if k.endswith("_s")}))
     gc.collect()
     torch.cuda.empty_cache()
-    mark("9 (h), (i), (j) beside (a)-(f)")
+    mark("9 (h), (i), (j), (k) beside (a)-(f)")
 
     # Phase 9 (g) beside phase 10 (a): the tp ranks are launched now, the
     # one-rank reference trains in this process while they start, and the
@@ -7411,6 +7826,10 @@ def main() -> int:
         if row["name"] in elastic_result["attempt_1"]["launches"]:
             by_path["elastic attempt 1"] = \
                 elastic_result["attempt_1"]["launches"][row["name"]]
+        for rank in remote_result["ranks"]:
+            if row["name"] in rank["launches"]:
+                by_path[f"remote rank {rank['rank']}"] = \
+                    rank["launches"][row["name"]]
         for rank in tp_result["ranks"]:
             if row["name"] in rank["launches"]:
                 by_path[f"tp rank {rank['rank']}"] = \

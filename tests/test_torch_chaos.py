@@ -337,8 +337,26 @@ def test_truncate_checkpoint_payload_halves_the_largest_file(tmp_path):
     empty = tmp_path / "empty"
     empty.mkdir()
     assert t_chaos.truncate_checkpoint_payload(str(empty)) is None
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        t_chaos.truncate_checkpoint_payload("gs://bucket/ckpt-1")
+    # Any scheme fs resolves, as the JAX injector does: a registered one.
+    from pyarrow import fs as pafs
+
+    from tf_yarn_tpu_torch import fs as t_fs
+
+    remote = tmp_path / "remote"
+    remote.mkdir()
+    t_fs.register_scheme("chaosfs", lambda uri: (pafs.SubTreeFileSystem(
+        str(remote), pafs.LocalFileSystem()), uri[len("chaosfs://"):]))
+    try:
+        t_ckpt.save_checkpoint("chaosfs://run", 2, _state(2))
+        sizes = {p.name: p.stat().st_size
+                 for p in (remote / "run" / "ckpt-2").iterdir()}
+        assert t_chaos.truncate_checkpoint_payload(
+            "chaosfs://run/ckpt-2") == largest
+        assert (remote / "run" / "ckpt-2" / largest).stat().st_size == \
+            sizes[largest] // 2
+        assert t_ckpt.latest_verified_step("chaosfs://run") is None
+    finally:
+        t_fs.unregister_scheme("chaosfs")
 
 
 # -- the train loop ----------------------------------------------------------

@@ -460,21 +460,42 @@ class _RemoteBackend(t_client.SliceBackend):
         raise AssertionError("launched through a refused backend")
 
 
+# What run_on_gpu still refuses before it launches anything, now that
+# code shipping is ported: a wheelhouse without shipped code, and a
+# staging filesystem the workers cannot fetch from (JAX client.py:617-
+# 624, packaging.py:_fetch_cmd).
 REFUSED = {
-    "remote_backend": ({"worker": 1}, {"backend": _RemoteBackend()}, "item 5"),
-    "ship_code": ({"worker": 1}, {"ship_code": True}, "item 5"),
-    "requirements": ({"worker": 1}, {"requirements": ["numpy"]}, "item 5"),
-    "wheels_dir": ({"worker": 1}, {"wheels_dir": "/nowhere"}, "item 5"),
-    "env_staging_dir": ({"worker": 1}, {"env_staging_dir": "/x"}, "item 5"),
+    "remote_backend": ({"worker": 1}, {"backend": _RemoteBackend(),
+                                       "ship_code": False,
+                                       "requirements": ["numpy"]},
+                       "no effect with ship_code=False"),
+    "ship_code": ({"worker": 1}, {"ship_code": False,
+                                  "wheels_dir": "/nowhere"},
+                  "no effect with ship_code=False"),
+    "requirements": ({"worker": 1}, {"requirements": ["numpy"]},
+                     "no effect with ship_code=False"),
+    "wheels_dir": ({"worker": 1}, {"wheels_dir": "/nowhere"},
+                   "no effect with ship_code=False"),
+    "env_staging_dir": ({"worker": 1}, {"ship_code": True,
+                                        "env_staging_dir": "launchfs://x"},
+                        "no worker-side fetch command"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_parts_are_refused_before_launch(case, monkeypatch):
+def test_unported_parts_are_refused_before_launch(case, monkeypatch,
+                                                  tmp_path):
+    from pyarrow import fs as pafs
+
+    from tf_yarn_tpu_torch import fs as t_fs
+
     counts, kwargs, item = REFUSED[case]
     monkeypatch.setattr(t_client, "_setup_cluster", _no_launch)
+    monkeypatch.setitem(t_fs._REGISTRY, "launchfs", lambda uri: (
+        pafs.SubTreeFileSystem(str(tmp_path), pafs.LocalFileSystem()),
+        uri[len("launchfs://"):]))
     specs = {t: t_topo.TaskSpec(instances=n) for t, n in counts.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1") as err:
+    with pytest.raises(ValueError) as err:
         t_client.run_on_gpu(t_client.get_safe_experiment_fn("os.getcwd"),
                             specs, **kwargs)
     assert item in str(err.value)

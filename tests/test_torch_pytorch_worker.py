@@ -179,17 +179,39 @@ def test_backend_and_device_on_the_cpu(monkeypatch):
             t_pytorch.get_device()
 
 
-def test_remote_paths_name_item_5_4(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        t_pytorch.PytorchExperiment(model=None, main_fn=None,
-                                    train_dataset=None,
-                                    tensorboard_remote_dir="hdfs://nn/tb")
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        t_model_ckpt.find_latest_ckpt("gs://bucket/model")
-    local = t_pytorch.PytorchExperiment(
-        model=None, main_fn=None, train_dataset=None,
-        tensorboard_remote_dir=str(tmp_path))
-    assert local.backend is None
+def test_remote_paths_name_item_5_4(tmp_path, monkeypatch):
+    """Item 5.4 is ported: a remote tensorboard_remote_dir and model_dir
+    go through fs (here a registered scheme over a local subtree)."""
+    from pyarrow import fs as pafs
+
+    from tf_yarn_tpu_torch import fs as t_fs
+    from tf_yarn_tpu_torch.tasks import pytorch_worker as t_worker
+
+    remote = tmp_path / "remote"
+    remote.mkdir()
+    monkeypatch.setitem(t_fs._REGISTRY, "workerfs", lambda uri: (
+        pafs.SubTreeFileSystem(str(remote), pafs.LocalFileSystem()),
+        uri[len("workerfs://"):]))
+    exp = t_pytorch.PytorchExperiment(model=None, main_fn=None,
+                                      train_dataset=None,
+                                      tensorboard_remote_dir="workerfs://tb")
+    assert exp.tensorboard_remote_dir == "workerfs://tb" and exp.backend is None
+    spool = tmp_path / "spool"
+    (spool / "run").mkdir(parents=True)
+    (spool / "run" / "events.out").write_bytes(b"e" * 10)
+    t_worker._upload_tb_logs(str(spool), exp.tensorboard_remote_dir)
+    assert (remote / "tb" / "run" / "events.out").read_bytes() == b"e" * 10
+
+    model = torch.nn.Linear(3, 2)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    assert t_model_ckpt.find_latest_ckpt("workerfs://model") is None
+    for epoch in (3, 11):
+        t_model_ckpt.save_ckpt("workerfs://model", model, opt, epoch)
+    assert t_model_ckpt.find_latest_ckpt("workerfs://model") == \
+        "workerfs://model/model_11.pt"
+    state = t_model_ckpt.load_latest_ckpt("workerfs://model")
+    assert state["epoch"] == 11
+    assert torch.equal(state["model"]["weight"], model.weight)
 
 
 def test_model_ckpt_layout_matches_jax(tmp_path):

@@ -42,7 +42,12 @@ Ported so far:
   (`tasks.serving`, `tasks.prefill`, `tasks.rank`:
   `experiment.ServingExperiment` and `RankingExperiment` through
   `serving.server.run_serving`, the disaggregated prefill tier of
-  `serving.prefill` and `ranking.server.run_ranking`).
+  `serving.prefill` and `ranking.server.run_ranking`);
+* remote hosts and remote storage — `backends.SshBackend` over the
+  hosts `discovery.discover_gpu_hosts` finds, the code and its wheels
+  shipped to bare workers by `packaging`, and every model_dir-like path
+  resolved by `fs` (a path, ``file://``, ``gs://``, ``hdfs://`` or a
+  registered scheme; checkpoints staged for a remote one).
 
 Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
 LayerNorm and GroupNorm, each with its dx; int8 quantize, per row or per

@@ -5,10 +5,11 @@ the election of a master address.
 
 The experiment arrives pickled (`_internal.dumps_fn`: cloudpickle where
 the driver has it, else the stdlib pickle by reference); `pickle.loads`
-reads both, importing cloudpickle only for a payload that needs it. The
-JAX package's install of a shipped wheelhouse (`_shipped_wheels/`) waits
-for `packaging.py` (ROADMAP.md Queue 1 item 5): a task that finds one
-raises.
+reads both, importing cloudpickle only for a payload that needs it.
+Before it unpickles, a task that finds a shipped wheelhouse
+(``_shipped_wheels/`` in its working directory, `packaging.ship_files`
+with `requirements`) installs it with ``pip install --no-index`` into
+``_pydeps/<digest>`` and puts that on its path.
 """
 
 from __future__ import annotations
@@ -148,15 +149,57 @@ def choose_master(
     return addr
 
 
-def _refuse_shipped_wheels() -> None:
-    """A `_shipped_wheels/` directory in the task's working directory is
-    the JAX package's file channel for third-party deps; installing it
-    waits for `packaging.py` (ROADMAP.md Queue 1 item 5)."""
-    if os.path.isdir("_shipped_wheels"):
-        raise NotImplementedError(
-            "a shipped wheelhouse (_shipped_wheels/) is not installed by the "
-            "port yet: packaging.py is not ported (ROADMAP.md Queue 1 item 5)"
+def _wheelhouse_digest(house: str) -> str:
+    """Content digest of a shipped wheelhouse (sorted names + bytes),
+    keying the `_pydeps/<digest>` install target below."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(house)):
+        path = os.path.join(house, name)
+        if not os.path.isfile(path):
+            continue
+        digest.update(name.encode())
+        with open(path, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 20), b""):
+                digest.update(chunk)
+    return digest.hexdigest()[:12]
+
+
+def _install_shipped_wheels() -> None:
+    """File-channel third-party deps (JAX _task_commons.py:181-240): a
+    `_shipped_wheels/` dir in the task workdir is pip-installed
+    --no-index into `_pydeps/<digest>/` and prepended to sys.path (and
+    PYTHONPATH, for nb_proc_per_worker children) before the experiment
+    unpickles. The target is content-addressed and a marker file vouches
+    for a finished install, so a reused workdir whose wheels changed
+    installs afresh and never imports stale deps."""
+    import subprocess
+
+    from tf_yarn_tpu_torch.packaging import WHEELHOUSE_MANIFEST
+
+    house = os.path.abspath("_shipped_wheels")
+    if not os.path.isdir(house):
+        return
+    target = os.path.abspath(
+        os.path.join("_pydeps", _wheelhouse_digest(house)))
+    marker = os.path.join(target, ".tpu_yarn_done")
+    if not os.path.exists(marker):
+        subprocess.run(
+            [sys.executable, "-m", "pip", "install", "-q", "--no-index",
+             "--find-links", house, "--target", target,
+             "-r", os.path.join(house, WHEELHOUSE_MANIFEST)],
+            check=True,
         )
+        # pip does not create --target for an empty manifest.
+        os.makedirs(target, exist_ok=True)
+        with open(marker, "w"):
+            pass
+        _logger.info("installed shipped wheelhouse %s -> %s", house, target)
+    if target not in sys.path:
+        sys.path.insert(0, target)
+    os.environ["PYTHONPATH"] = (
+        target + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
 
 def get_experiment(kv: KVStore, timeout: float = 300.0):
@@ -165,18 +208,19 @@ def get_experiment(kv: KVStore, timeout: float = 300.0):
     _task_commons.py:55-63)."""
     task = get_task()
     try:
-        _refuse_shipped_wheels()
+        _install_shipped_wheels()
         fn_bytes = kv.wait(constants.KV_EXPERIMENT_FN, timeout=timeout)
         try:
             experiment = pickle.loads(fn_bytes)()
         except ModuleNotFoundError as missing:
-            # Fail fast with the dep's NAME: the host's environment does
-            # not carry this library (shipping deps waits for packaging.py).
+            # Fail fast with the dep's NAME and the remediation, not a
+            # bare unpickle traceback.
             raise ModuleNotFoundError(
                 f"experiment requires module {missing.name!r}, which is "
-                "not installed on this host; install it there (shipping "
-                "deps with the run is not ported yet, ROADMAP.md Queue 1 "
-                "item 5)",
+                "not installed on this worker. Ship it with "
+                "run_on_gpu(requirements=[...]) (wheel channel), stage "
+                "pre-downloaded wheels via wheels_dir=, or bake it into "
+                "the host's image.",
                 name=missing.name,
             ) from missing
     except Exception as exc:

@@ -4,7 +4,8 @@ them; counterpart of `run_on_tpu` (tf_yarn_tpu/client.py:522-772).
 One attempt starts the coordination service (the Python KV server),
 posts the cluster layout, launches one task program a task through a
 :class:`~tf_yarn_tpu_torch.backends.SliceBackend` (`LocalBackend`:
-subprocesses on this host), posts the pickled experiment and polls the
+subprocesses on this host; `SshBackend`: one a host over ssh), posts the
+pickled experiment and polls the
 tasks to the end, with the heartbeat watchdog and one global deadline.
 A failed attempt is classified from the tasks' stop events (TRANSIENT,
 PREEMPTED, LOST_TASK, FATAL_USER) and retried within that kind's
@@ -23,11 +24,16 @@ the experiment fn must then be importable in the task —
 :func:`get_safe_experiment_fn` ("package.module.fn") always is. An fn
 that cannot be pickled raises here, before anything is launched.
 
-Not ported yet, each refused before anything is launched: code and
-dependency shipping (`ship_code`, `requirements`, `wheels_dir`,
-`env_staging_dir`; ROADMAP.md Queue 1 item 5) and backends other than
-`LocalBackend` (`SshBackend`, whose blacklist of lost hosts
-`SliceBackend.note_lost_tasks` feeds; item 5.4).
+A remote backend (`SliceBackend.is_remote`) gets the coordinator bound
+on every interface and advertised at a routable address
+(`coordinator_advertise` names it), the project code shipped by default
+(`packaging.ship_files` over the backend's file channel, or
+`packaging.ship_env` staged on `env_staging_dir`; `requirements` and
+`wheels_dir` add a wheelhouse), and ``TPU_YARN_REMOTE_BACKEND=1`` in its
+tasks' environment, so a task refuses a host-local model_dir
+(`fs.check_model_dir_placement`). A failed attempt's lost tasks go back
+to the backend (`note_lost_tasks`), so `SshBackend` keeps their hosts
+out of the relaunch.
 
 The side-cars: an ``evaluator`` task places itself as every task does,
 on the card unless the caller's env sets ``TPU_YARN_PLATFORM=cpu`` (the
@@ -225,6 +231,43 @@ def _start_event_listener(cluster: SliceCluster) -> MonitoredThread:
     return thread
 
 
+def _routable_host() -> str:
+    """This machine's address as other hosts see it. The UDP connect trick
+    picks the interface with a default route (no packet is sent)."""
+    import socket
+
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.connect(("8.8.8.8", 80))
+            return sock.getsockname()[0]
+    except OSError:
+        return socket.getfqdn()
+
+
+def _advertised_endpoint(
+    server_endpoint: str, backend: SliceBackend,
+    coordinator_advertise: Optional[str]
+) -> str:
+    """The coordinator address tasks dial (JAX client.py:206-225). Remote
+    backends must not be handed a loopback or wildcard bind host: they
+    would dial their own localhost and hang."""
+    host, _, port = server_endpoint.rpartition(":")
+    if coordinator_advertise:
+        if ":" in coordinator_advertise:
+            return coordinator_advertise
+        return f"{coordinator_advertise}:{port}"
+    if getattr(backend, "is_remote", True) and host in (
+        "127.0.0.1", "localhost", "0.0.0.0", "",
+    ):
+        routable = _routable_host()
+        _logger.info(
+            "advertising coordinator as %s:%s to remote tasks "
+            "(bind address %s is not routable)", routable, port, host,
+        )
+        return f"{routable}:{port}"
+    return server_endpoint
+
+
 def _setup_cluster(
     task_specs: TaskSpecs,
     backend: SliceBackend,
@@ -233,17 +276,24 @@ def _setup_cluster(
     custom_task_module: Optional[str],
     pre_script_hook: str,
     name: str,
+    coordinator_bind: str = "127.0.0.1",
     files: Optional[Dict[str, str]] = None,
+    coordinator_advertise: Optional[str] = None,
 ) -> SliceCluster:
     log_dir = tempfile.mkdtemp(prefix=f"{name}-logs-")
-    # Every task runs on this host (LocalBackend), so the coordinator
-    # listens on the loopback only.
-    server = start_best_server(host="127.0.0.1")
+    server = start_best_server(host=coordinator_bind)
+    if getattr(backend, "is_remote", True):
+        # Tasks land on other machines: fs.check_model_dir_placement fails
+        # fast on a host-local model_dir (a shared mount opts out with
+        # TPU_YARN_ALLOW_LOCAL_MODEL_DIR=1).
+        env = dict(env)
+        env.setdefault("TPU_YARN_REMOTE_BACKEND", "1")
     try:
         kv = KVClient(server.endpoint)
         services = _setup_task_env(
             task_specs,
-            server.endpoint,
+            _advertised_endpoint(server.endpoint, backend,
+                                 coordinator_advertise),
             log_dir,
             n_try,
             env,
@@ -468,26 +518,6 @@ def _log_run_outcome(
     mlflow.save_text_to_mlflow(summary, "tpu_yarn_run_outcome")
 
 
-def _refuse_unported(backend: SliceBackend, *, ship_code, requirements,
-                     wheels_dir, env_staging_dir) -> None:
-    """Raise NotImplementedError for what the port cannot launch yet,
-    before anything is started."""
-    asked = [name for name, value in (
-        ("ship_code", ship_code), ("requirements", requirements),
-        ("wheels_dir", wheels_dir), ("env_staging_dir", env_staging_dir))
-        if value not in (None, False)]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: shipping code and dependencies to the "
-            "tasks (packaging.py) is not ported yet (ROADMAP.md Queue 1 "
-            "item 5); provision the hosts and pass ship_code=False")
-    if not isinstance(backend, LocalBackend):
-        raise NotImplementedError(
-            f"backend {type(backend).__name__}: the port launches its tasks "
-            "on this host only (LocalBackend); SshBackend and other remote "
-            "backends are not ported yet (ROADMAP.md Queue 1 item 5)")
-
-
 def run_on_gpu(
     experiment_fn: ExperimentFn,
     task_specs: Optional[TaskSpecs] = None,
@@ -508,6 +538,8 @@ def run_on_gpu(
     poll_every_secs: float = 0.5,
     timeout_secs: Optional[float] = None,
     dead_task_secs: Optional[float] = None,
+    coordinator_bind: str = "127.0.0.1",
+    coordinator_advertise: Optional[str] = None,
     eval_monitor_log_thresholds: Optional[Dict[str, tuple]] = None,
 ) -> Optional[Metrics]:
     """Run `experiment_fn` on GPU hosts — `run_on_tpu`'s surface and
@@ -537,15 +569,60 @@ def run_on_gpu(
     tasks (never below ``min_workers``), another retryable failure grows
     it back to ``max_workers``; `ElasticPolicy.history` records each
     resize and ``driver/elastic_resizes_total{direction}`` counts them.
+
+    Remote hosts (JAX client.py:532-677): with a backend whose
+    ``is_remote`` is true (`SshBackend`) the coordinator binds
+    ``0.0.0.0`` (unless `coordinator_bind` says otherwise) and is
+    advertised at `coordinator_advertise` (``host`` or ``host:port``),
+    else at this machine's routable address. The project code travels to
+    every worker (`ship_code` defaults to the backend's ``is_remote``):
+    staged on `env_staging_dir` (a URI every worker can read: an NFS
+    path, ``gs://``, ``hdfs://``) with the unpack hook prepended to
+    `pre_script_hook`, else streamed over the backend's file channel.
+    `requirements` (pip specs or a requirements.txt path) and
+    `wheels_dir` (pre-downloaded wheels) travel with it as a wheelhouse
+    that the worker installs with ``pip install --no-index`` before it
+    unpickles the experiment; they need `ship_code`. Without them a
+    missing import fails on the worker naming the module. A shipped
+    worker builds the kernel library from the shipped sources at its
+    first kernel launch.
     """
     task_specs = dict(task_specs) if task_specs else single_server_topology()
     check_topology(task_specs)
     backend = backend or LocalBackend()
-    _refuse_unported(
-        backend, ship_code=ship_code, requirements=requirements,
-        wheels_dir=wheels_dir, env_staging_dir=env_staging_dir)
+    if getattr(backend, "is_remote", True) and coordinator_bind == "127.0.0.1":
+        # Remote tasks must be able to dial in: listen on every interface
+        # and advertise a routable address.
+        coordinator_bind = "0.0.0.0"
     env = dict(env or {})
     files = dict(files or {})
+    if ship_code is None:
+        ship_code = getattr(backend, "is_remote", True)
+    if (requirements is not None or wheels_dir is not None) and not ship_code:
+        raise ValueError(
+            "requirements=/wheels_dir= travel with the shipped env; "
+            "they have no effect with ship_code=False"
+        )
+    if ship_code:
+        from tf_yarn_tpu_torch import packaging
+
+        if env_staging_dir is not None:
+            ship_hook = packaging.ship_env(
+                env_staging_dir, requirements=requirements,
+                wheels_dir=wheels_dir,
+                # Install wheels under the interpreter that runs the task,
+                # so pip's compatibility tags match it.
+                python=getattr(backend, "python", None) or "python3",
+            )
+            pre_script_hook = (
+                f"{ship_hook} && {pre_script_hook}" if pre_script_hook
+                else ship_hook
+            )
+        else:
+            ship_entries = packaging.ship_files(
+                requirements=requirements, wheels_dir=wheels_dir)
+            for ship_name, ship_src in ship_entries.items():
+                files.setdefault(ship_name, ship_src)
     try:
         serialized_fn = dumps_fn(experiment_fn)
     except (pickle.PicklingError, AttributeError, TypeError) as exc:
@@ -580,7 +657,9 @@ def run_on_gpu(
                 custom_task_module,
                 pre_script_hook,
                 name,
+                coordinator_bind,
                 files,
+                coordinator_advertise,
             )
             return _execute_and_await_termination(
                 cluster,
@@ -725,14 +804,16 @@ def _normalize_elastic(
 def _note_lost_to_backend(backend, exc: Exception) -> None:
     """Feed the failed attempt's lost tasks (SIGKILLed or heartbeat-
     silent, carried on RunFailed.lost_tasks) back to the backend before
-    the relaunch, so a host-placing backend can keep the dead machines
-    out of the next attempt (JAX client.py:820-833). The port's backends
-    note nothing (`SliceBackend.note_lost_tasks`); `SshBackend`'s
-    blacklist, which the JAX driver guards against raising, is item
-    5.4."""
+    the relaunch, so `SshBackend` keeps the dead machines out of the next
+    attempt (JAX client.py:820-833). Best-effort: placement hygiene must
+    never turn a retryable failure fatal."""
     lost = getattr(exc, "lost_tasks", None) or []
-    if lost:
+    if not lost:
+        return
+    try:
         backend.note_lost_tasks(list(lost))
+    except Exception:  # diagnostics only
+        _logger.exception("backend.note_lost_tasks failed; continuing")
 
 
 def _shutdown_on_exception(cluster: Optional[SliceCluster], status: str) -> None:

@@ -8,7 +8,10 @@ nothing new has appeared for the idle timeout
 (``TPU_YARN_EVAL_IDLE_TIMEOUT`` seconds, 20 minutes by default). The
 evaluated set persists as ``eval-done/eval-done-<step>.json`` markers
 (markers at the model_dir's root, where older runs wrote them, count
-too). The experiment's ``exporters(params, metrics, step)`` run after
+too). The model_dir may be any `fs` URI: the polling, the checkpoint
+reads and the markers go through `fs`, and a task launched by a remote
+backend refuses a host-local one (`fs.check_model_dir_placement`). The
+experiment's ``exporters(params, metrics, step)`` run after
 each checkpoint's evaluation, ``params`` the checkpoint's state dict.
 
 Health metrics broadcast to the KV store after each checkpoint:
@@ -36,6 +39,7 @@ import torch
 
 from tf_yarn_tpu_torch import checkpoint as ckpt_lib
 from tf_yarn_tpu_torch import event
+from tf_yarn_tpu_torch import fs as fs_lib
 from tf_yarn_tpu_torch._device import resolve_device, task_device
 from tf_yarn_tpu_torch.experiment import as_core_experiment
 from tf_yarn_tpu_torch.training import build_eval_step, evaluate, to_device
@@ -52,9 +56,7 @@ EVAL_DONE_DIR = "eval-done"  # bookkeeping lives out of checkpoint listings
 
 def _marker_steps(directory: str) -> Set[int]:
     done: Set[int] = set()
-    if not os.path.isdir(directory):
-        return done
-    for entry in os.listdir(directory):
+    for entry, _is_dir in fs_lib.listdir(directory):
         if entry.startswith("eval-done-") and entry.endswith(".json"):
             try:
                 done.add(int(entry[len("eval-done-"):-len(".json")]))
@@ -66,15 +68,13 @@ def _marker_steps(directory: str) -> Set[int]:
 def evaluated_steps(model_dir: str) -> Set[int]:
     """Steps with an eval-done marker, in ``eval-done/`` or (older runs)
     at the model_dir's root."""
-    return (_marker_steps(os.path.join(model_dir, EVAL_DONE_DIR))
+    return (_marker_steps(fs_lib.join(model_dir, EVAL_DONE_DIR))
             | _marker_steps(model_dir))
 
 
 def _mark_evaluated(model_dir: str, step: int, metrics: dict) -> None:
-    directory = os.path.join(model_dir, EVAL_DONE_DIR)
-    os.makedirs(directory, exist_ok=True)
-    with open(os.path.join(directory, f"eval-done-{step}.json"), "w") as fh:
-        json.dump(metrics, fh)
+    marker = fs_lib.join(model_dir, EVAL_DONE_DIR, f"eval-done-{step}.json")
+    fs_lib.write_text(marker, json.dumps(metrics))
 
 
 def _eval_model(model, init_fn, device: torch.device, seed: int):
@@ -109,6 +109,7 @@ def continuous_eval(runtime, experiment, poll_secs: float = DEFAULT_POLL_SECS,
     core = as_core_experiment(experiment)
     if not core.model_dir:
         raise ValueError("continuous evaluation needs an experiment model_dir")
+    fs_lib.check_model_dir_placement(core.model_dir)
     device = task_device() if device is None else resolve_device(device)
     eval_input_fn = core.eval_input_fn or core.train_input_fn
     model = _eval_model(core.model, core.init_fn, device,

@@ -21,9 +21,10 @@ Where it differs: the checkpoint is the port's (the ``ckpt-<step>``
 trees the port's `training.train_and_evaluate` writes; `_restore_params`
 verifies one and maps its ``params`` with
 `checkpoint.restore_checkpoint`), restored into the experiment's
-`Transformer` on its device; paths are local (the remote filesystems
-wait for the checkpoint port). A tensor-parallel serving replica
-restores through `shard_restored_params` (JAX inference.py:107-137):
+`Transformer` on its device. The model_dir and the output path may be
+any `fs` URI (a task launched by a remote backend refuses a host-local
+model_dir, `fs.check_model_dir_placement`). A tensor-parallel serving
+replica restores through `shard_restored_params` (JAX inference.py:107-137):
 each rank fills only its shards of a model built on the ``meta``
 device.
 """
@@ -31,6 +32,7 @@ device.
 from __future__ import annotations
 
 import inspect
+import io
 import json
 import logging
 import queue
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from tf_yarn_tpu_torch import checkpoint as ckpt_lib
+from tf_yarn_tpu_torch import fs as fs_lib
 from tf_yarn_tpu_torch import telemetry
 
 _logger = logging.getLogger(__name__)
@@ -246,6 +249,7 @@ def run_inference(experiment, runtime=None) -> dict:
     _check_sharding_contract(experiment.input_fn, num_shards,
                              getattr(experiment, "allow_duplicate_stream",
                                      False))
+    fs_lib.check_model_dir_placement(experiment.model_dir)
     model = experiment.model
     with telemetry.span("inference/restore_params"):
         step = _restore_params(model, experiment.model_dir, experiment.step)
@@ -260,7 +264,10 @@ def run_inference(experiment, runtime=None) -> dict:
     batches = 0
     t0 = time.perf_counter()
     end = object()
-    with open(out_path, "w", encoding="utf-8") as out:
+    # output_path may be any fs URI: results land where the fleet can
+    # read them, like every other model_dir artifact.
+    with io.TextIOWrapper(fs_lib.open_output(out_path),
+                          encoding="utf-8") as out:
         writer = _JsonlWriter(out, experiment.eos_token,
                               depth=_depth(experiment, "writer_depth", 8))
         try:

@@ -7,7 +7,15 @@ shared library with a plain C interface, and loads it with ctypes. The
 sources compile in parallel, one nvcc process each, then link. The
 library lands in ``build/tf_yarn_tpu_torch/`` beside the package
 (listed in .gitignore), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads straight away.
+edited source rebuilds and an unchanged one loads straight away. A worker
+that runs shipped code builds into ``build/`` beside its unpacked copy.
+
+Processes that share a build directory (two ranks of one host, or two
+tasks over one unpacked copy) build one at a time: the builder holds an
+exclusive `flock` on ``<library>.lock`` (released by the kernel if the
+process dies), objects and the linked library carry the builder's pid,
+and the library is renamed into place whole, so a waiting process finds
+it complete and loads it without building again.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns `cudaGetLastError()`; `check` raises when it is not
@@ -18,6 +26,7 @@ the package on a machine with no nvcc and no card.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -110,12 +119,21 @@ def _run_all(commands: List[List[str]]) -> str:
 def build() -> Path:
     """Compile the kernels into the shared library unless a build of the
     same sources and flags exists. Returns the library path."""
-    global build_log, build_seconds
     lib_path = _library_path()
     if lib_path.exists():
         return lib_path
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(lib_path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _build_locked(lib_path)
+    return lib_path
+
+
+def _build_locked(lib_path: Path) -> None:
+    """Compile and link the library to `lib_path`, under the build lock."""
+    global build_log, build_seconds
+    nvcc = _nvcc()
     started = time.perf_counter()
     objects = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in _sources()]
     log = _run_all([
@@ -130,7 +148,6 @@ def build() -> Path:
         obj.unlink()
     build_log = log
     build_seconds = time.perf_counter() - started
-    return lib_path
 
 
 def load_library() -> ctypes.CDLL:

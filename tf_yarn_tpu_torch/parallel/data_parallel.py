@@ -47,7 +47,8 @@ optimizer's state keyed by parameter index as ``optimizer.state_dict()``
 keys it, the ``tp`` shards and then the ``ep`` experts gathered whole
 through `tensor_parallel.gather_state`, and the other stages' layers and their
 optimizer state gathered to the first stage through the host under
-``pp``, numbered as the one-device optimizer numbers them
+``pp``, a batch of leaves a gather (`checkpoint._plan_gather_batches`),
+numbered as the one-device optimizer numbers them
 (`optimizer_layout`)), so a checkpoint of any world size and mesh
 resumes at any other.
 
@@ -263,21 +264,26 @@ class DataParallel:
         if optimizer:
             by_name = {self._names[i]: entry
                        for i, entry in optimizer["state"].items()}
+        # Every leaf to gather, in one order on every stage: each
+        # parameter of the stage's layers, then its optimizer tensors.
+        leaves = []  # (stack, leaf, j, optimizer key or None, tensor)
         for stack, leaf in self._stage_leaves():
             for j in range(stage.count):
                 mine = f"{stack}.{stage.first + j}.{leaf}"
-                parts = _gather_parts(params[mine], stage)
-                for s, part in enumerate(parts or []):
-                    params[f"{stack}.{s * stage.count + j}.{leaf}"] = part
+                leaves.append((stack, leaf, j, None, params[mine]))
                 entry = by_name.get(mine, {})
-                for key in sorted(entry):
-                    value = entry[key]
-                    if not isinstance(value, torch.Tensor):
-                        continue
-                    parts = _gather_parts(value, stage)
-                    for s, part in enumerate(parts or []):
-                        other = f"{stack}.{s * stage.count + j}.{leaf}"
-                        by_name.setdefault(other, dict(entry))[key] = part
+                leaves += [(stack, leaf, j, key, entry[key])
+                           for key in sorted(entry)
+                           if isinstance(entry[key], torch.Tensor)]
+        gathered = _gather_leaves([leaf[-1] for leaf in leaves], stage)
+        for (stack, leaf, j, key, _), parts in zip(leaves, gathered):
+            entry = by_name.get(f"{stack}.{stage.first + j}.{leaf}", {})
+            for s, part in enumerate(parts or []):
+                other = f"{stack}.{s * stage.count + j}.{leaf}"
+                if key is None:
+                    params[other] = part
+                else:
+                    by_name.setdefault(other, dict(entry))[key] = part
         if not root:
             return {"params": {name: None for name in params},
                     "optimizer": {}}
@@ -470,6 +476,37 @@ def _gather_parts(tensor: torch.Tensor, stage) -> Optional[List[torch.Tensor]]:
     dist.gather(tensor, parts, dst=dist.get_global_rank(stage.group, 0),
                 group=stage.group)
     return [part.cpu() for part in parts] if root else None
+
+
+def _gather_leaves(tensors: List[torch.Tensor], stage
+                   ) -> List[Optional[List[torch.Tensor]]]:
+    """`_gather_parts` of each tensor, in batches of at most
+    `checkpoint._GATHER_BATCH_BYTES` planned by `_plan_gather_batches`
+    (the JAX package's staged gather): one gather a batch of bytes, not
+    one a leaf, and never more than one batch (or one larger leaf) in
+    flight. Each tensor's parts on the first stage (on its host), None on
+    the others."""
+    from tf_yarn_tpu_torch.checkpoint import (_GATHER_BATCH_BYTES,
+                                              _plan_gather_batches)
+
+    wire = (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend(stage.group) == "nccl"
+            else torch.device("cpu"))
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    out: List[Optional[List[torch.Tensor]]] = [None] * len(tensors)
+    for batch in _plan_gather_batches(enumerate(sizes), _GATHER_BATCH_BYTES):
+        flat = torch.cat([tensors[i].detach().to(wire).contiguous()
+                          .reshape(-1).view(torch.uint8) for i in batch])
+        parts = _gather_parts(flat, stage)
+        if parts is None:
+            continue
+        offset = 0
+        for i in batch:
+            t, n = tensors[i], sizes[i]
+            out[i] = [part[offset:offset + n].clone().view(t.dtype)
+                      .reshape(t.shape) for part in parts]
+            offset += n
+    return out
 
 
 def wire_device(device: torch.device) -> torch.device:

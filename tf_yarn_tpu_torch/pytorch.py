@@ -19,9 +19,8 @@ round robin, worker.py:162-168), or the CPU under
 
 ``drop_last=False`` is refused with the JAX package's message, so a
 `DataLoaderArgs` that one package takes the other takes too.
-``tensorboard_remote_dir`` is a local directory that rank 0 copies its
-event files into after training; a remote filesystem's URI raises
-(ROADMAP.md Queue 1 item 5.4, `fs.py`).
+``tensorboard_remote_dir`` is where rank 0 uploads its event files
+after training: a path or any URI `fs` resolves.
 """
 
 from __future__ import annotations
@@ -36,15 +35,6 @@ from tf_yarn_tpu_torch import client as _client
 from tf_yarn_tpu_torch.topologies import TaskSpecs
 
 PYTORCH_TASK_MODULE = "tf_yarn_tpu_torch.tasks.pytorch_worker"
-
-
-def refuse_remote(path: Optional[str], what: str) -> None:
-    """A URI with a scheme other than ``file`` raises: the port reads and
-    writes local paths only until `fs.py` (ROADMAP.md Queue 1 item 5.4)."""
-    if path and "://" in path and not path.startswith("file://"):
-        raise NotImplementedError(
-            f"{what}={path!r}: remote filesystems are not ported yet "
-            "(ROADMAP.md Queue 1 item 5.4, fs.py); give a local path")
 
 
 @dataclasses.dataclass
@@ -83,16 +73,13 @@ class PytorchExperiment:
     dataloader_args: DataLoaderArgs = dataclasses.field(
         default_factory=DataLoaderArgs)
     tensorboard_log_dir: Optional[str] = None
-    # Rank 0 copies its TB event files here after training: a local
-    # directory (reference: pytorch/tasks/worker.py:145-152
+    # Rank 0 uploads its TB event files here after training: a path or
+    # any fs URI (reference: pytorch/tasks/worker.py:145-152
     # `tensorboard_hdfs_dir`).
     tensorboard_remote_dir: Optional[str] = None
     ddp_args: DistributedDataParallelArgs = dataclasses.field(
         default_factory=DistributedDataParallelArgs)
     backend: Optional[str] = None  # None = collective_backend()
-
-    def __post_init__(self) -> None:
-        refuse_remote(self.tensorboard_remote_dir, "tensorboard_remote_dir")
 
 
 def get_device() -> torch.device:

@@ -247,8 +247,14 @@ def _load_engine(experiment):
         RankEngine,
     )
 
+    from tf_yarn_tpu_torch import fs as fs_lib
+
     buckets = experiment.batch_buckets or DEFAULT_BATCH_BUCKETS
     spec = experiment.mesh_spec
+    if experiment.model_dir is not None:
+        # Restores from any fs URI; a task launched by a remote backend
+        # refuses a host-local model_dir.
+        fs_lib.check_model_dir_placement(experiment.model_dir)
     if spec is not None and spec.total_devices > 1:
         from tf_yarn_tpu_torch.serving import tp_replica
 

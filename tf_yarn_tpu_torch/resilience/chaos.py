@@ -48,10 +48,8 @@ re-crashing forever. Production code paths call the ``on_*`` hooks
 unconditionally; without ``TPU_YARN_FAULT`` they are a cached
 None-check.
 
-`truncate_checkpoint_payload` truncates a local checkpoint tree (the
-port's checkpoints are local paths); a remote URI raises
-NotImplementedError until ``fs.py`` is ported (ROADMAP.md Queue 1 item
-5.4).
+`truncate_checkpoint_payload` truncates a checkpoint tree on any
+filesystem `fs` resolves, as the JAX one does through its `fs`.
 """
 
 from __future__ import annotations
@@ -63,7 +61,6 @@ import random
 import signal
 import threading
 import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 from tf_yarn_tpu_torch.constants import ENV_N_TRY, ENV_TASK_KEY
@@ -333,32 +330,30 @@ def on_checkpoint_commit(ckpt_uri: str) -> None:
 
 
 def truncate_checkpoint_payload(ckpt_uri: str) -> Optional[str]:
-    """Truncate the largest non-manifest file under `ckpt_uri` to half its
-    size (also used directly by corruption tests). Returns the relative
-    path truncated, or None when the tree has no payload files. A local
-    path only: a remote URI raises NotImplementedError."""
-    scheme, sep, _ = ckpt_uri.partition("://")
-    if sep and scheme != "file":
-        raise NotImplementedError(
-            f"truncate_checkpoint_payload({ckpt_uri!r}): remote filesystems "
-            "wait for fs.py (ROADMAP.md Queue 1 item 5.4); the port's "
-            "checkpoints are local paths")
-    root = Path(ckpt_uri[len("file://"):] if sep else ckpt_uri)
+    """Truncate the largest non-manifest file under `ckpt_uri` (a path or
+    any URI `fs` resolves) to half its size (also used directly by
+    corruption tests). Returns the relative path truncated, or None when
+    the tree has no payload files."""
+    from tf_yarn_tpu_torch import fs as fs_lib
+
     victim, victim_size = None, 0
-    for path in sorted(root.rglob("*")):
-        if not path.is_file() or path.name == "MANIFEST.json":
+    for rel, kind, size in sorted(fs_lib.tree(ckpt_uri)):
+        if kind != fs_lib.FileType.File or os.path.basename(rel) \
+                == "MANIFEST.json":
             continue
-        size = path.stat().st_size
         if victim is None or size > victim_size:
-            victim, victim_size = path, size
+            victim, victim_size = rel, size
     if victim is None or not victim_size:
         _logger.warning("chaos: nothing to truncate under %s", ckpt_uri)
         return None
     keep = victim_size // 2
-    os.truncate(victim, keep)
-    rel = victim.relative_to(root).as_posix()
+    uri = fs_lib.join(ckpt_uri, victim)
+    with fs_lib.open_input(uri) as stream:
+        head = stream.read(keep)
+    with fs_lib.open_output(uri) as stream:
+        stream.write(head)
     _logger.warning(
         "chaos: truncated %s (%d -> %d bytes) under %s",
-        rel, victim_size, keep, ckpt_uri,
+        victim, victim_size, keep, ckpt_uri,
     )
-    return rel
+    return victim

@@ -430,10 +430,13 @@ def load_engine(experiment, prefix: str):
     to wait on it under the group's timeout), then the group
     (`prefix`/build_mesh — the followers spawned), then every rank's
     shards of a model built on the meta device (`prefix`/
-    shard_params)."""
+    shard_params). The model_dir may be any `fs` URI; a task launched by
+    a remote backend refuses a host-local one."""
+    from tf_yarn_tpu_torch import fs as fs_lib
     from tf_yarn_tpu_torch import inference
     from tf_yarn_tpu_torch.models.decode_engine import get_engine
 
+    fs_lib.check_model_dir_placement(experiment.model_dir)
     spec = getattr(experiment, "mesh_spec", None)
     if spec is None or spec.total_devices <= 1:
         with telemetry.span(f"{prefix}/restore_params"):
@@ -487,8 +490,7 @@ def run_serving(experiment, runtime=None) -> dict:
     layout, a `PrefillClient` pulls long prompts' blocks from the
     ``prefill`` tier it finds in the run's KV store. The poll loop asks
     `chaos.on_replica_poll` for an injected preemption notice. The
-    model_dir placement check for remote filesystems waits for fs.py
-    (ROADMAP.md Queue 1 item 5.4): model_dir is a local path."""
+    model_dir may be any `fs` URI (`load_engine`)."""
     telemetry_task = task_name(runtime, "serving")
     telemetry.enable_env_jsonl(telemetry_task)
     engine, step, replica = load_engine(experiment, "serving")

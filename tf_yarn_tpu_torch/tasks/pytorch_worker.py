@@ -12,8 +12,8 @@ the master elected through the KV store, one process per local rank
 the world has more than one rank, a `DistributedSampler` loader (or an
 IterableDataset's own), then the user's ``main_fn(model, loader, device,
 rank, tb_writer)`` with the TensorBoard writer on rank 0, whose event
-files it copies to ``tensorboard_remote_dir`` (a local directory) after
-training. The lifecycle events are the JAX program's, with
+files it uploads to ``tensorboard_remote_dir`` (a path or any `fs` URI)
+after training. The lifecycle events are the JAX program's, with
 `preemption.install` first.
 
 Select it with ``custom_task_module="tf_yarn_tpu_torch.tasks.pytorch_worker"``
@@ -25,7 +25,6 @@ from __future__ import annotations
 import functools
 import logging
 import os
-import shutil
 from typing import Optional
 
 from tf_yarn_tpu_torch import _task_commons, event
@@ -131,19 +130,21 @@ def _train_one_rank(experiment, params: TaskParameters) -> None:
                 tb_writer.close()
             if (params.rank == 0 and experiment.tensorboard_log_dir
                     and experiment.tensorboard_remote_dir):
-                _copy_tb_logs(experiment.tensorboard_log_dir,
-                              experiment.tensorboard_remote_dir)
+                _upload_tb_logs(experiment.tensorboard_log_dir,
+                                experiment.tensorboard_remote_dir)
     finally:
         dist.destroy_process_group()
 
 
-def _copy_tb_logs(local_dir: str, target_dir: str) -> None:
-    """Rank 0 copies its TB event files to `target_dir` after training
-    (reference: pytorch/tasks/worker.py:145-152, there an upload)."""
+def _upload_tb_logs(local_dir: str, remote_dir: str) -> None:
+    """Rank 0 uploads its TB event files to `remote_dir` after training
+    (reference: pytorch/tasks/worker.py:145-152)."""
     try:
-        shutil.copytree(local_dir, target_dir, dirs_exist_ok=True)
+        from tf_yarn_tpu_torch.packaging import upload_dir
+
+        upload_dir(local_dir, remote_dir)
     except Exception:
-        _logger.exception("tensorboard log copy to %s failed", target_dir)
+        _logger.exception("tensorboard log upload to %s failed", remote_dir)
 
 
 def main() -> None:

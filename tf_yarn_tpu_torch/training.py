@@ -93,8 +93,15 @@ multi-rank restore takes its rank's part of the checkpoint through
 
 Not ported here, each raising or named in ROADMAP.md: the pairs of axes
 `parallel.mesh` does not combine (the pipeline beside fsdp, sp or tp,
-Queue 1 item 7d; ep, or an MoE decoder, beside tp, sp or pp, item 8d);
-remote model_dirs and their uploading TensorBoard writer (item 5.4).
+Queue 1 item 7d; ep, or an MoE decoder, beside tp, sp or pp, item 8d).
+
+The model_dir may be any `fs` URI. A remote one checkpoints staged
+(`checkpoint`: every rank holds a writer, which agrees with the others
+before rank 0 writes, so a failed upload raises on every rank at the
+next save or at the end) and writes TensorBoard events through
+`_UploadingTbWriter`: spooled locally, uploaded to ``<model_dir>/tb`` at
+each checkpoint and on close. A task launched by a remote backend
+refuses a host-local model_dir (`fs.check_model_dir_placement`).
 """
 
 from __future__ import annotations
@@ -111,6 +118,7 @@ import numpy as np
 import torch
 
 from tf_yarn_tpu_torch import checkpoint as ckpt_lib
+from tf_yarn_tpu_torch import fs as fs_lib
 from tf_yarn_tpu_torch import event, preemption, telemetry
 from tf_yarn_tpu_torch._device import resolve_device
 from tf_yarn_tpu_torch.data.prefetch import prefetch
@@ -672,16 +680,62 @@ class _ProfileWindow:
         _logger.info("profiler trace written to %s", path)
 
 
+class _UploadingTbWriter:
+    """SummaryWriter against a remote model_dir (JAX training.py:515):
+    event files go to a local spool, uploaded to the remote dir at
+    checkpoint boundaries and finally on close. Everything else
+    delegates to the wrapped writer, so user hooks holding the writer
+    call add_histogram/add_text/... unchanged."""
+
+    def __init__(self, writer, spool_dir: str, target_uri: str):
+        self._writer = writer
+        self._spool_dir = spool_dir
+        self._target_uri = target_uri
+        self._closed = False
+
+    def __getattr__(self, name):
+        # Only reached when normal lookup fails: every SummaryWriter
+        # method not wrapped here (add_scalar, add_histogram, flush, ...).
+        return getattr(self._writer, name)
+
+    def upload(self) -> None:
+        """Push the spool to the remote dir now, so a SIGKILL costs at
+        most one checkpoint interval of events. Event files only grow, so
+        copying the tree again is idempotent."""
+        self._writer.flush()
+        try:
+            fs_lib.upload_dir(self._spool_dir, self._target_uri)
+        except Exception:
+            _logger.exception("TB log upload to %s failed", self._target_uri)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._writer.close()
+        try:
+            fs_lib.upload_dir(self._spool_dir, self._target_uri)
+        except Exception:
+            _logger.exception("TB log upload to %s failed", self._target_uri)
+
+
 def _make_tb_writer(model_dir: Optional[str]):
-    """A ``SummaryWriter`` at ``<model_dir>/tb`` (training.py:556-571,
-    local model_dirs only), or None without a model_dir or where
-    tensorboard does not import."""
+    """A ``SummaryWriter`` at ``<model_dir>/tb`` (training.py:556-571) —
+    for a remote model_dir an `_UploadingTbWriter` over a local spool —
+    or None without a model_dir or where tensorboard does not import."""
     if not model_dir:
         return None
     try:
         from torch.utils.tensorboard import SummaryWriter
 
-        return SummaryWriter(log_dir=os.path.join(model_dir, "tb"))
+        if fs_lib.is_local(model_dir):
+            return SummaryWriter(
+                log_dir=os.path.join(fs_lib.local_path(model_dir), "tb"))
+        import tempfile
+
+        spool = tempfile.mkdtemp(prefix="tpu-yarn-tb-")
+        return _UploadingTbWriter(SummaryWriter(log_dir=spool), spool,
+                                  fs_lib.join(model_dir, "tb"))
     except Exception:  # tensorboard is optional, as in the JAX package
         return None
 
@@ -748,6 +802,7 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
 
     input_resume_step = 0
     if core.model_dir:
+        fs_lib.check_model_dir_placement(core.model_dir)
         # Quarantines a corrupt newest checkpoint before the input
         # iterator is built, so input and state resume at one step.
         input_resume_step = _agreed_verified_step(core.model_dir, rank,
@@ -814,10 +869,17 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                 resume_step = step
                 _logger.info("resumed from checkpoint step %d", resume_step)
             del restored
-            if rank == 0:
-                # save() returns once the state is in host memory; the
-                # write overlaps the next steps. Rank 0 alone writes.
-                ckpt_writer = ckpt_lib.CheckpointWriter(params_cfg.keep_last_n)
+            # save() returns once the state is in host memory; the write
+            # overlaps the next steps. Rank 0 alone writes; for a staged
+            # (remote) model_dir every rank holds a writer, which agrees
+            # with the others at each save and wait.
+            agree = world > 1 and ckpt_lib.is_staged(core.model_dir)
+            if rank == 0 or agree:
+                ckpt_writer = ckpt_lib.CheckpointWriter(
+                    params_cfg.keep_last_n, rank=rank,
+                    world=world if agree else 1,
+                    device=data_parallel.wire_device(device) if agree
+                    else None)
                 cleanup.callback(ckpt_writer.close)
         train_step = build_train_step(
             model, core.loss_fn, state.optimizer, params_cfg.grad_accum_steps,
@@ -996,6 +1058,10 @@ def _train_and_evaluate(core: CoreExperiment, device: torch.device,
                         and step % params_cfg.checkpoint_every_steps == 0
                         and step != last_saved_step):
                     save(step)
+                    if isinstance(tb_writer, _UploadingTbWriter):
+                        # TB events survive a SIGKILL up to the last
+                        # checkpoint boundary, like the model state does.
+                        tb_writer.upload()
                 if (params_cfg.eval_every_steps and core.eval_input_fn
                         and step % params_cfg.eval_every_steps == 0):
                     with telemetry.span("train/eval", step=step) as sp:

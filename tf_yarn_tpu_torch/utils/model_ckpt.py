@@ -3,31 +3,24 @@ tf_yarn_tpu/utils/model_ckpt.py (reference: pytorch/model_ckpt.py:15-77).
 
 ``model_<epoch>.pt`` files holding ``{"model", "optimizer", "epoch",
 **extra}``, the newest epoch found by name, and the DDP wrapper's
-``module`` unwrapped on save, as in the JAX package. ``model_dir`` is a
-local path: a remote filesystem's URI raises (ROADMAP.md Queue 1 item
-5.4, `fs.py`).
+``module`` unwrapped on save, as in the JAX package. ``model_dir`` may
+be any `fs` URI (a path, ``file://``, ``gs://``, ``hdfs://``, a
+registered scheme).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import re
 from typing import Any, Dict, Optional
 
 import torch
 
+from tf_yarn_tpu_torch import fs as fs_lib
+
 _logger = logging.getLogger(__name__)
 
 _CKPT_RE = re.compile(r"^model_(\d+)\.pt$")
-
-
-def _local(model_dir: str) -> str:
-    from tf_yarn_tpu_torch.pytorch import refuse_remote
-
-    refuse_remote(model_dir, "model_dir")
-    return model_dir[len("file://"):] if model_dir.startswith("file://") \
-        else model_dir
 
 
 def _unwrap(model):
@@ -36,12 +29,10 @@ def _unwrap(model):
 
 def find_latest_ckpt(model_dir: str) -> Optional[str]:
     """Newest model_<epoch>.pt in model_dir (reference: model_ckpt.py:15-28)."""
-    model_dir = _local(model_dir)
-    if not os.path.isdir(model_dir):
-        return None
-    epochs = [int(m.group(1)) for m in map(_CKPT_RE.match,
-                                            os.listdir(model_dir)) if m]
-    return (os.path.join(model_dir, f"model_{max(epochs)}.pt") if epochs
+    epochs = [int(match.group(1)) for match in (
+        _CKPT_RE.match(entry) for entry, _is_dir in fs_lib.listdir(model_dir))
+        if match]
+    return (fs_lib.join(model_dir, f"model_{max(epochs)}.pt") if epochs
             else None)
 
 
@@ -52,22 +43,22 @@ def load_latest_ckpt(model_dir: str, device: str = "cpu"
     if path is None:
         _logger.info("no checkpoint found in %s", model_dir)
         return None
-    return torch.load(path, map_location=device, weights_only=False)
+    with fs_lib.open_input_file(path) as fh:
+        return torch.load(fh, map_location=device, weights_only=False)
 
 
 def save_ckpt(model_dir: str, model, optimizer, epoch: int,
               **kwargs: Any) -> str:
     """reference: model_ckpt.py:55-73 (rank-0 callers only, like the
     reference's usage)."""
-    model_dir = _local(model_dir)
     state = {
         "model": _unwrap(model).state_dict(),
         "optimizer": optimizer.state_dict(),
         "epoch": epoch,
         **kwargs,
     }
-    os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, f"model_{epoch}.pt")
-    torch.save(state, path)
+    path = fs_lib.join(model_dir, f"model_{epoch}.pt")
+    with fs_lib.open_output(path) as fh:
+        torch.save(state, fh)
     _logger.info("saved checkpoint %s", path)
     return path
