@@ -142,6 +142,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    against the one-device run's first 3 (losses within MOE_EP_WIDE_RTOL,
    the whole parameters bitwise equal across the ranks, each rank's peak
    memory and ep all-reduces a step);
+6c. text-fed LoRA slice (`text_lora_slice`): phase 6's decoder
+   (`llama3_8b(lora_rank=16, flash, fused norms, unrolled)`) at its
+   widths, cut to 2 of its 32 layers (`TEXT_LAYERS`) for the smoke's
+   time, 1 x 2048 tokens, 4 steps through `train_and_evaluate`, its
+   `input_fn` a `data.text.TextDataset` (repeat) over 20,000 lines of
+   seeded pseudo-words written to a temporary directory and tokenized by
+   crc32(word) % vocab_size, the training kernels' counts set to 0 just
+   before it: every training kernel launched, losses finite, the adapters
+   moved, the base bit-unchanged, the tokens int64 at the loss and each
+   batch the loss saw bitwise (sha256) the same TextDataset iterated on
+   the CPU; the steady step and its tokens/s beside the TextDataset's
+   own packing rate on the host (one pass over the corpus);
 7. zoo slice: each family's `make_experiment` at full width with
    `fused_norms=True` — BERT-base (32 x 128 tokens), ViT-B/16 and
    ResNet-50 with the conv stem (128 images at 224) — through
@@ -282,7 +294,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    stays (retention runs before each save, as in the JAX writer), no
    staging or backup tree is left, and TensorBoard events are under
    `tb`; the wall to return, each worker's launch to its first step, and
-   rank 0's `checkpoint/staged_write` seconds and bytes;
+   rank 0's `checkpoint/staged_write` seconds and bytes. (l), (m) and
+   (n), launched at once beside (a)-(f) (`front_door_parts`): (l)
+   `pytorch.run_on_gpu` of two pytorch workers (gloo, both on the card)
+   reading a seeded Parquet file of 4096 rows through
+   `data.torch_adapter.TorchParquetDataset` with 2 DataLoader workers
+   each: every row read once across ranks x loader workers, the ranks'
+   batch counts equal, each loader worker's batches bitwise the port's
+   `ParquetDataset` on the CPU at its effective shard, each worker's
+   rows/s; (m) ``python -m tf_yarn_tpu_torch.bin.check_gpu_env``: exit
+   0, OK for all five checks and no FAIL, the device check's RMSNorm
+   kernel launched once, each check's seconds; (n)
+   examples_torch/generate_example.py on the card and with
+   ``EXAMPLE_PLATFORM=cpu`` at once: both exit 0 with the same greedy
+   continuation, and the kernels the card's run launched;
 10. fleet slice, the launched serving fleet (`fleet_slice`), after
    phase 9 (a)-(f), with (g) beside its (a): (a) phase
    5's model (`serving_config`, 4 of 32 layers; seed 0) on grid (a) in process, prompts of 17, 64 and 300
@@ -7319,6 +7344,419 @@ def linear_slice(torch, training, experiment, linear, dev, config=None):
             "dispatch_s_mean": sum(dispatch) / len(dispatch)}
 
 
+# Phase 6c: the LoRA fine-tune fed by text files through
+# `data.text.TextDataset` at Llama-3-8B's widths, cut to TEXT_LAYERS of its
+# 32 layers for the smoke's time. The corpus is TEXT_LINES lines of
+# seeded pseudo-words, tokenized by a stdlib word hash.
+TEXT_LAYERS = 2
+TEXT_STEPS = 4
+TEXT_LINES = 20_000
+TEXT_WORDS = 5_000
+
+
+def text_corpus(out_dir: Path, lines: int = TEXT_LINES, seed: int = SEED):
+    """Write `lines` lines of 1-24 pseudo-words (from TEXT_WORDS, seeded)
+    to <out_dir>/corpus.txt; returns its path."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.asarray(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, rng.randint(2, 10)))
+             for _ in range(TEXT_WORDS)]
+    path = out_dir / "corpus.txt"
+    with open(path, "w") as fh:
+        for _ in range(lines):
+            fh.write(" ".join(words[i] for i in rng.randint(
+                0, TEXT_WORDS, rng.randint(1, 25))) + "\n")
+    return path
+
+
+def token_digest(tokens) -> str:
+    """sha256 of a [B, S] token batch as int32 bytes."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(tokens, np.int32)).tobytes()).hexdigest()
+
+
+def text_lora_slice(torch, tt, training, experiment, telemetry, text,
+                    counted, dev, tiny: bool = False):
+    """Phase 6c: `make_experiment(llama3_8b(lora_rank=16, flash, fused
+    norms, unrolled))` at TEXT_LAYERS of 32 layers (widths unchanged), 1 x
+    2048 tokens, TEXT_STEPS steps through `train_and_evaluate`, its
+    `input_fn` a `TextDataset` over the seeded corpus; `tiny`: a small
+    f32 decoder at 1 x 128 on a short corpus. The training kernels'
+    counts set to 0 just before: every one launched, losses finite, the
+    adapters moved, the base bit-unchanged, and the token batches the
+    loss saw bitwise the same `TextDataset` iterated on the CPU (sha256
+    of each). The steady step (the mean of steps 2-4) and tokens/s beside
+    the dataset's own packing rate on the host."""
+    import tempfile
+    import zlib
+
+    if tiny:
+        cfg = tt.TransformerConfig(
+            vocab_size=512, d_model=256, n_layers=TEXT_LAYERS, n_heads=4,
+            n_kv_heads=2, d_ff=512, max_seq_len=128, dtype=torch.float32,
+            attention_impl="flash", fused_norms=True, scan_layers=False,
+            lora_rank=8)
+        seq, lines = 128, 400
+    else:
+        cfg = dataclasses.replace(tt.TransformerConfig.llama3_8b(
+            lora_rank=16, attention_impl="flash", fused_norms=True,
+            scan_layers=False), n_layers=TEXT_LAYERS)
+        seq, lines = TRAIN_SEQ, TEXT_LINES
+    batch = TRAIN_BATCH
+    with tempfile.TemporaryDirectory(prefix="text_lora") as tmp:
+        started = time.perf_counter()
+        corpus = str(text_corpus(Path(tmp), lines))
+        corpus_s = time.perf_counter() - started
+
+        def tokenize(line):  # a stdlib word hash
+            return [zlib.crc32(word.encode()) % cfg.vocab_size
+                    for word in line.split()]
+
+        def dataset(repeat=True):
+            return text.TextDataset(corpus, tokenize, batch, seq,
+                                    repeat=repeat)
+
+        # The pipeline's own rate on the host: one pass over the corpus.
+        started = time.perf_counter()
+        windows = sum(1 for _ in dataset(repeat=False))
+        pack_s = time.perf_counter() - started
+        want = [token_digest(b["tokens"]) for b, _ in zip(
+            dataset(), range(TEXT_STEPS))]
+        exp = tt.make_experiment(cfg, batch_size=batch, seq_len=seq,
+                                 train_steps=TEXT_STEPS, log_every_steps=1,
+                                 input_fn=lambda: iter(dataset()))
+        built = {}
+        init = exp.init_fn
+
+        def init_fn(device, seed):
+            model = init(device, seed)
+            with torch.no_grad():
+                built["before"] = {n: p.detach().clone()
+                                   for n, p in model.named_parameters()}
+            built["model"] = model
+            return model
+
+        recorded, digests = [], []
+        loss_fn = exp.loss_fn
+
+        def recording_loss(model, batch_, train=True):
+            loss, aux = loss_fn(model, batch_, train=train)
+            if train:
+                recorded.append(loss.detach())
+                digests.append(token_digest(batch_["tokens"].cpu().numpy()))
+                if batch_["tokens"].dtype != torch.int64:
+                    raise AssertionError(
+                        f"tokens reached the loss as {batch_['tokens'].dtype}")
+            return loss, aux
+
+        exp.init_fn, exp.loss_fn = init_fn, recording_loss
+        tracer = telemetry.get_tracer()
+        tracer.clear()
+        _zero(counted)
+        started = time.perf_counter()
+        training.train_and_evaluate(experiment.as_core_experiment(exp),
+                                    device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+        launches = _launches(counted)
+    if not tiny and min(launches.values()) <= 0:
+        raise AssertionError(f"a training kernel never launched: {launches}")
+    losses = [float(x) for x in recorded]
+    if len(losses) != TEXT_STEPS or not all(abs(x) < 1e9 for x in losses):
+        raise AssertionError(f"text-fed training losses {losses}")
+    if digests != want:
+        raise AssertionError(f"the loop's token batches {digests} differ from "
+                             f"the CPU's TextDataset {want}")
+    model, before = built.pop("model"), built.pop("before")
+    moved = changed = 0
+    for name, param in model.named_parameters():
+        same = torch.equal(param.detach(), before[name])
+        if "lora" in name:
+            moved += not same
+        elif not same:
+            changed += 1
+    n_lora = sum("lora" in n for n, _ in model.named_parameters())
+    del before, model
+    if changed or moved != n_lora:
+        raise AssertionError(f"{changed} base params changed, {moved} of "
+                             f"{n_lora} adapters moved")
+    spans = tracer.records()
+    step_s = [a.duration + b.duration for a, b in zip(
+        [r for r in spans if r.name == "train/step_dispatch"],
+        [r for r in spans if r.name == "train/device_wait"])]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    pack_tokens_per_s = windows * seq / pack_s
+    step_tokens_per_s = batch * seq / steady
+    return {
+        "layers": cfg.n_layers, "tokens_per_step": batch * seq,
+        "corpus_lines": lines, "corpus_write_s": corpus_s,
+        "corpus_windows": windows, "losses": losses, "step_s": step_s,
+        "steady_step_s": steady,
+        "steady_step_spread_s": [min(step_s[1:]), max(step_s[1:])],
+        "step_tokens_per_s": step_tokens_per_s,
+        "text_pack_s": pack_s, "text_pack_tokens_per_s": pack_tokens_per_s,
+        "pipeline_over_step_rate": pack_tokens_per_s / step_tokens_per_s,
+        "batches_bitwise_cpu_text_dataset": True, "token_sha256": digests,
+        "wall_s": wall, "launches": launches, "adapters_moved": moved,
+        "base_params_changed": changed,
+    }
+
+
+# Phase 9 (l): two pytorch workers read a seeded Parquet file through
+# `TorchParquetDataset`, each with PARQUET_LOADER_WORKERS DataLoader
+# workers: 4 effective shards.
+PARQUET_ROWS = 4096
+PARQUET_BATCH = 64
+PARQUET_GROUP = 500
+PARQUET_LOADER_WORKERS = 2
+
+
+def parquet_file(out_dir: Path, rows: int = PARQUET_ROWS) -> str:
+    """A seeded Parquet file of `rows` rows: an int64 ``id`` (the row's
+    index), f32 ``x0``-``x3`` and an int32 label ``y``, in row groups of
+    PARQUET_GROUP."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.RandomState(SEED)
+    columns = {"id": np.arange(rows, dtype=np.int64)}
+    for i in range(4):
+        columns[f"x{i}"] = rng.randn(rows).astype(np.float32)
+    columns["y"] = rng.randint(0, 2, rows).astype(np.int32)
+    path = str(out_dir / "rows.parquet")
+    pq.write_table(pa.table(columns), path, row_group_size=PARQUET_GROUP)
+    return path
+
+
+def parquet_experiment(data_path: str, out_dir: str):
+    """Phase 9 (l)'s experiment fn, called in each launched pytorch
+    worker: a `TorchParquetDataset` over `data_path`, read through the
+    worker's DataLoader (PARQUET_LOADER_WORKERS workers); the `main_fn`
+    writes each batch's ids and feature sums, in the loader's order, its
+    rows/s, device and backend to parquet-<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_yarn_tpu_torch import pytorch
+    from tf_yarn_tpu_torch._device import task_device
+    from tf_yarn_tpu_torch.data.parquet import ParquetDataset
+    from tf_yarn_tpu_torch.data.torch_adapter import TorchParquetDataset
+
+    dataset = TorchParquetDataset(ParquetDataset(data_path, PARQUET_BATCH))
+
+    def main_fn(model, loader, device, rank, tb_writer):
+        started = time.perf_counter()
+        batches = []
+        for batch in loader:
+            x = torch.stack([batch[f"x{i}"] for i in range(4)], -1).to(device)
+            batches.append({"id": batch["id"].tolist(),
+                            "x_sum": float(x.double().sum()),
+                            "y": batch["y"].tolist()})
+        seconds = time.perf_counter() - started
+        rows = sum(len(b["id"]) for b in batches)
+        Path(out_dir, f"parquet-{rank}.json").write_text(json.dumps({
+            "rank": rank, "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "device": str(device),
+            "batches": batches, "rows": rows, "seconds": seconds,
+            "rows_per_s": rows / seconds}))
+
+    return pytorch.PytorchExperiment(
+        model=torch.nn.Linear(4, 1, device=task_device()), main_fn=main_fn,
+        train_dataset=dataset,
+        dataloader_args=pytorch.DataLoaderArgs(
+            num_workers=PARQUET_LOADER_WORKERS),
+        # Both ranks share the one card: NCCL refuses that.
+        backend="gloo")
+
+
+def parquet_part(client, topologies, tmp, base_env, env, tiny=False):
+    """Phase 9 (l): `pytorch.run_on_gpu` of two pytorch workers running
+    `parquet_experiment` over a seeded PARQUET_ROWS-row file: each row
+    read exactly once across ranks x loader workers, the ranks' batch
+    counts equal, and each loader worker's batches (the loader takes them
+    from its workers in turn) bitwise the port's `ParquetDataset` on the
+    CPU at that effective shard; the rows/s each worker's loop read."""
+    import numpy as np
+
+    from tf_yarn_tpu_torch import pytorch
+    from tf_yarn_tpu_torch.data.parquet import ParquetDataset
+
+    out = tmp / "parquet"
+    out.mkdir()
+    data_path = parquet_file(out)
+    started = time.perf_counter()
+    pytorch.run_on_gpu(
+        client.get_safe_experiment_fn("chip_smoke.parquet_experiment",
+                                      data_path, str(out)),
+        {"worker": topologies.TaskSpec(instances=LAUNCHER_RANKS,
+                                       chips_per_host=1,
+                                       label=topologies.NodeLabel.GPU)},
+        name="parquet", env=dict(base_env, **(env or {})),
+        poll_every_secs=0.5, dead_task_secs=120)
+    wall = time.perf_counter() - started
+    ranks = [json.loads((out / f"parquet-{r}.json").read_text())
+             for r in range(LAUNCHER_RANKS)]
+    world = LAUNCHER_RANKS * PARQUET_LOADER_WORKERS
+    want_device = "cpu" if tiny else "cuda"
+    seen = []
+    for rank in ranks:
+        shards = [list(ParquetDataset(data_path, PARQUET_BATCH,
+                                      rank=rank["rank"] * PARQUET_LOADER_WORKERS
+                                      + worker, world_size=world))
+                  for worker in range(PARQUET_LOADER_WORKERS)]
+        expected = [b for group in zip(*shards) for b in group]
+        got = rank["batches"]
+        bad = (len(got) != len(expected) or rank["world"] != LAUNCHER_RANKS
+               or rank["backend"] != "gloo"
+               or not rank["device"].startswith(want_device))
+        for have, want in zip(got, expected):
+            x = np.stack([want[f"x{i}"] for i in range(4)], -1)
+            bad |= (have["id"] != want["id"].tolist()
+                    or have["y"] != want["y"].tolist()
+                    or have["x_sum"] != float(x.astype(np.float64).sum()))
+        if bad:
+            raise AssertionError(
+                f"parquet rank {rank['rank']}: {len(got)} batches against "
+                f"{len(expected)} of the CPU's shards\n"
+                f"{task_log_tails(runs=1, name='parquet')}")
+        seen.extend(i for b in got for i in b["id"])
+    per_rank = (PARQUET_ROWS // world) // PARQUET_BATCH * PARQUET_BATCH \
+        * PARQUET_LOADER_WORKERS
+    if (sorted(seen) != sorted(set(seen))
+            or len({len(r["batches"]) for r in ranks}) != 1
+            or len(seen) != per_rank * LAUNCHER_RANKS):
+        raise AssertionError(f"parquet rows: {len(seen)} seen, "
+                             f"{len(set(seen))} distinct, batch counts "
+                             f"{[len(r['batches']) for r in ranks]}")
+    return {"rows": PARQUET_ROWS, "batch": PARQUET_BATCH,
+            "loader_workers": PARQUET_LOADER_WORKERS,
+            "rows_read": len(seen), "each_row_once": True,
+            "batches_per_rank": len(ranks[0]["batches"]),
+            "bitwise_cpu_shards": True,
+            "rows_per_s": [r["rows_per_s"] for r in ranks],
+            "loop_s": [r["seconds"] for r in ranks],
+            "devices": [r["device"] for r in ranks], "wall_s": wall}
+
+
+# Phase 9 (m): the environment check, and (n): the generate example, each
+# run as a user runs it, in a subprocess from the checkout's root.
+CHECK_LINE = re.compile(r"^\s+(check_\w+): ([\d.]+) s$")
+LAUNCH_LINE = "kernel launches: "
+# Runs an example as `python examples_torch/<name>.py`, then prints every
+# kernel wrapper's launch count.
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "from tf_yarn_tpu_torch.ops import decode_attention, flash_attention, "
+    "groupnorm, layernorm, quantize, rmsnorm\n"
+    "sys.argv = [sys.argv[1]]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "counts = {fn.__name__: fn.launches for module in (decode_attention, "
+    "flash_attention, groupnorm, layernorm, quantize, rmsnorm) "
+    "for fn in vars(module).values() "
+    "if isinstance(getattr(fn, 'launches', None), int)}\n"
+    f"print({LAUNCH_LINE!r} + json.dumps(counts))\n")
+
+
+def _subprocess_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TPU_YARN_PLATFORM", "EXAMPLE_PLATFORM")}
+    env["PYTHONPATH"] = str(REPO)
+    env.update(extra)
+    return env
+
+
+def check_env_part(tiny: bool = False):
+    """Phase 9 (m): ``python -m tf_yarn_tpu_torch.bin.check_gpu_env`` (with
+    ``TPU_YARN_PLATFORM=cpu`` when `tiny`): exit 0, an OK line for each of
+    its five checks and no FAIL, the device check's RMSNorm kernel
+    launched once; each check's seconds."""
+    started = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "tf_yarn_tpu_torch.bin.check_gpu_env"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=_subprocess_env(**({"TPU_YARN_PLATFORM": "cpu"} if tiny else {})))
+    wall = time.perf_counter() - started
+    lines = run.stdout.splitlines()
+    oks = [line for line in lines if line.startswith("OK ")]
+    seconds = {m.group(1): float(m.group(2))
+               for m in map(CHECK_LINE.match, lines) if m}
+    launched = "rmsnorm kernel launched 1x" in run.stdout
+    if (run.returncode != 0 or len(oks) != 5 or "FAIL" in run.stdout
+            or len(seconds) != 5 or not (tiny or launched)):
+        raise AssertionError(f"check_gpu_env exited {run.returncode}:\n"
+                             f"{run.stdout}\n{run.stderr[-3000:]}")
+    return {"exit": run.returncode, "ok_lines": oks, "check_s": seconds,
+            "launches": {"rmsnorm": 1} if launched else {}, "wall_s": wall}
+
+
+def generate_example_part(tiny: bool = False):
+    """Phase 9 (n): examples_torch/generate_example.py on the card and
+    with ``EXAMPLE_PLATFORM=cpu``, at once, each in a temporary directory
+    of its own: both exit 0 with equal greedy continuations; the kernels
+    the card's run launched (its TransformerConfig.tiny selects none in
+    JAX's example, so no count is required)."""
+    import tempfile
+
+    def run(platform):
+        with tempfile.TemporaryDirectory(prefix="gen_example") as tmp:
+            extra = {"TMPDIR": tmp}
+            if platform:
+                # Two threads: the host's cores are shared with phase 9's
+                # launched workers, and more threads than cores make the
+                # tiny model's CPU steps many times slower.
+                extra.update(EXAMPLE_PLATFORM=platform, OMP_NUM_THREADS="2")
+            started = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-c", EXAMPLE_RUNNER,
+                 str(REPO / "examples_torch" / "generate_example.py")],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+                env=_subprocess_env(**extra))
+            wall = time.perf_counter() - started
+        lines = done.stdout.splitlines()
+        found = [line.split(": ", 1)[1] for line in lines
+                 if line.startswith("greedy continuation of [1,2,3,4]: ")]
+        counts = [json.loads(line[len(LAUNCH_LINE):]) for line in lines
+                  if line.startswith(LAUNCH_LINE)]
+        if done.returncode != 0 or len(found) != 1 or len(counts) != 1:
+            raise AssertionError(
+                f"generate_example ({platform or 'card'}) exited "
+                f"{done.returncode}:\n{done.stdout[-3000:]}\n"
+                f"{done.stderr[-3000:]}")
+        return {"continuation": json.loads(found[0]), "launches": counts[0],
+                "wall_s": wall}
+
+    runs = concurrently({"card": lambda: run("cpu" if tiny else None),
+                         "cpu": lambda: run("cpu")})
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    if card["continuation"] != cpu["continuation"]:
+        raise AssertionError(f"generate_example: the card's continuation "
+                             f"{card['continuation']}, the CPU's "
+                             f"{cpu['continuation']}")
+    return {"continuation": card["continuation"], "equal_to_cpu": True,
+            "launched": {k: v for k, v in card["launches"].items() if v},
+            "card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"]}
+
+
+def front_door_parts(client, topologies, tmp, env=None, tiny=False):
+    """Phase 9 (l), (m) and (n) at once, beside (a)-(f): {part: (result,
+    seconds)}."""
+    return concurrently({
+        "l_parquet": lambda: parquet_part(client, topologies, tmp,
+                                          {"PYTHONPATH": str(REPO)}, env,
+                                          tiny),
+        "m_check_env": lambda: check_env_part(tiny),
+        "n_generate": lambda: generate_example_part(tiny),
+    })
+
+
 def main() -> int:
     smoke_started = time.perf_counter()
     marks = [("start", smoke_started)]
@@ -7360,6 +7798,7 @@ def main() -> int:
     from tf_yarn_tpu_torch import backends, client, fs, topologies
     from tf_yarn_tpu_torch.parallel import mesh as mesh_lib
     from tf_yarn_tpu_torch.serving import tp_replica
+    from tf_yarn_tpu_torch.data import text as text_data
 
     # Phase 4's tiny tp=2 serving replica starts beside the build and
     # phase 3, which use no process group; it is closed in phase 4 before
@@ -7584,6 +8023,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("6b MoE and linear slice")
 
+    # Phase 6c: the LoRA fine-tune at Llama-3-8B widths (TEXT_LAYERS of 32
+    # layers) fed by TextDataset over a seeded corpus.
+    text_result = text_lora_slice(torch, tt, training, experiment, telemetry,
+                                  text_data, training_counted, dev)
+    log(f"text slice: Llama-3-8B widths, {TEXT_LAYERS} of 32 layers, fed by "
+        f"TextDataset: {json.dumps(text_result)} on {card}")
+    log(f"text slice: steady step {text_result['steady_step_s']:.4f} s "
+        f"({text_result['step_tokens_per_s']:.0f} tokens/s); TextDataset "
+        f"packs {text_result['text_pack_tokens_per_s']:.0f} tokens/s on the "
+        f"host, {text_result['pipeline_over_step_rate']:.1f}x the step's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("6c text-fed LoRA slice")
+
     norm_counted = (layernorm.layernorm, layernorm.layernorm_backward,
                     groupnorm.groupnorm, groupnorm.groupnorm_backward)
     zoo_results = {}
@@ -7655,6 +8108,10 @@ def main() -> int:
     # Phase 9 (k), remote hosts and a remote model_dir, beside them too.
     remote_wait = concurrently_started({"k": lambda: remote_part(
         torch, client, topologies, backends, fs, ckpt, remote_refusal)})
+    # Phase 9 (l), (m) and (n), the host-bound front door, beside them too.
+    front_tmp = Path(tempfile.mkdtemp(prefix="front"))
+    front_wait = concurrently_started({"l_n": lambda: front_door_parts(
+        client, topologies, front_tmp)})
     started = time.perf_counter()
     launcher_result = launcher_slice(
         torch, client, topologies, zoo_results["bert_base"]["losses"],
@@ -7676,7 +8133,20 @@ def main() -> int:
             try:
                 remote_result, remote_s = remote_wait()["k"]
             finally:
-                shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+                try:
+                    front_result, front_s = front_wait()["l_n"]
+                finally:
+                    shutil.rmtree(sp_pp_tmp, ignore_errors=True)
+                    shutil.rmtree(front_tmp, ignore_errors=True)
+    front = {part: result for part, (result, _) in front_result.items()}
+    log(f"parquet part (phase 9 (l)): {json.dumps(front['l_parquet'])} on "
+        f"{card}")
+    log(f"check_gpu_env part (phase 9 (m)): {json.dumps(front['m_check_env'])}"
+        f" on {card}")
+    log(f"generate example part (phase 9 (n)): "
+        f"{json.dumps(front['n_generate'])} on {card}")
+    log(f"front-door parts: {front_s:.1f} s beside (a)-(f); " + json.dumps(
+        {part: round(t, 1) for part, (_, t) in front_result.items()}))
     remote_result.update(remote_check(remote_result,
                                       launcher_result["e_ranks"]["ranks"]))
     log(f"remote slice (phase 9 (k)): {json.dumps(remote_result)} on {card}")
@@ -7708,7 +8178,7 @@ def main() -> int:
                                      if k.endswith("_s")}))
     gc.collect()
     torch.cuda.empty_cache()
-    mark("9 (h), (i), (j), (k) beside (a)-(f)")
+    mark("9 (h), (i), (j), (k), (l), (m), (n) beside (a)-(f)")
 
     # Phase 9 (g) beside phase 10 (a): the tp ranks are launched now, the
     # one-rank reference trains in this process while they start, and the
@@ -7796,6 +8266,14 @@ def main() -> int:
                    if result["launches"].get(row["name"])}
         if row["name"] in train_result["launches"]:
             by_path["training"] = train_result["launches"][row["name"]]
+        if row["name"] in text_result["launches"]:
+            by_path["text lora"] = text_result["launches"][row["name"]]
+        if row["name"] in front["m_check_env"]["launches"]:
+            by_path["check_gpu_env"] = \
+                front["m_check_env"]["launches"][row["name"]]
+        if front["n_generate"]["launched"].get(row["name"]):
+            by_path["generate example"] = \
+                front["n_generate"]["launched"][row["name"]]
         for name, result in moe_result.items():
             if row["name"] in result["launches"]:
                 by_path[f"moe {name}"] = result["launches"][row["name"]]

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports with JAX blocked, no module of it (or
-chip_smoke.py, or chip_flash_ab.py) imports jax, flax or tf_yarn_tpu,
-and its entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports with JAX blocked (its top-level
+names too), no module of it (or chip_smoke.py, chip_flash_ab.py or an
+example under examples_torch/) imports jax, flax or tf_yarn_tpu, and its
+entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -14,6 +15,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "tf_yarn_tpu_torch"
+EXAMPLES = REPO / "examples_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_yarn_tpu")
 
 
@@ -37,12 +39,17 @@ def test_package_imports_with_jax_blocked():
                      "utils.evaluator_metrics", "utils.tensorboard_utils",
                      "parallel.ring_attention", "parallel.ulysses",
                      "parallel.pipeline", "serving.tp_replica",
-                     "resilience.chaos", "resilience.elastic", "tasks._spin"):
+                     "resilience.chaos", "resilience.elastic", "tasks._spin",
+                     "data.csv", "data.text", "data.parquet",
+                     "data.torch_adapter", "bin.check_gpu_env"):
         assert f"tf_yarn_tpu_torch.{launcher}" in modules
     script = (
         "import sys, importlib\n"
         "for name in %r:\n"
         "    sys.modules[name] = None\n"
+        "import tf_yarn_tpu_torch as package\n"
+        "for name in package.__all__:\n"
+        "    getattr(package, name)\n"
         "for name in %r:\n"
         "    importlib.import_module(name)\n"
         "print('ok', len(%r))\n"
@@ -65,7 +72,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
-                         + [REPO / "chip_smoke.py", REPO / "chip_flash_ab.py"],
+                         + [REPO / "chip_smoke.py", REPO / "chip_flash_ab.py"]
+                         + sorted(EXAMPLES.glob("*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imported_roots(path)

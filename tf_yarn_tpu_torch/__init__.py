@@ -47,7 +47,11 @@ Ported so far:
   hosts `discovery.discover_gpu_hosts` finds, the code and its wheels
   shipped to bare workers by `packaging`, and every model_dir-like path
   resolved by `fs` (a path, ``file://``, ``gs://``, ``hdfs://`` or a
-  registered scheme; checkpoints staged for a remote one).
+  registered scheme; checkpoints staged for a remote one);
+* the front door — the input pipelines `data.csv`, `data.text`
+  (`TextDataset`), `data.parquet` (`ParquetDataset`) and
+  `data.torch_adapter` (`TorchParquetDataset`), and the
+  ``check_gpu_env`` console script (`bin.check_gpu_env`).
 
 Twelve hand-written Hopper kernels under `ops/csrc/` carry them (RMSNorm,
 LayerNorm and GroupNorm, each with its dx; int8 quantize, per row or per
@@ -57,14 +61,57 @@ dk/dv). ROADMAP.md lists what is still to port.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
-Public surface, as the JAX package's::
+Public surface, as the JAX package's (`tf_yarn_tpu/__init__.py`) under
+the port's names (`run_on_gpu` for `run_on_tpu`, `TorchExperiment` for
+`JaxExperiment`)::
 
-    from tf_yarn_tpu_torch.client import run_on_gpu
-    from tf_yarn_tpu_torch.topologies import TaskSpec, allreduce_topology
-    from tf_yarn_tpu_torch.parallel import MeshSpec
+    from tf_yarn_tpu_torch import run_on_gpu, TaskSpec, NodeLabel, MeshSpec
+    from tf_yarn_tpu_torch import TorchExperiment, KerasExperiment, ExperimentSpec
     from tf_yarn_tpu_torch.pytorch import PytorchExperiment
+
+The names resolve at first use (a module-level ``__getattr__``), so a
+launched task, which imports this package first, pays nothing for them.
 """
+
+import importlib
 
 from tf_yarn_tpu_torch._device import resolve_device  # noqa: F401
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+# name -> the module that defines it.
+_PUBLIC = {
+    "RunFailed": "client",
+    "get_safe_experiment_fn": "client",
+    "run_on_gpu": "client",
+    "Estimator": "experiment",
+    "EvalSpec": "experiment",
+    "ExperimentSpec": "experiment",
+    "KerasExperiment": "experiment",
+    "TorchExperiment": "experiment",
+    "TrainParams": "experiment",
+    "TrainSpec": "experiment",
+    "MeshSpec": "parallel.mesh",
+    "NodeLabel": "topologies",
+    "TaskKey": "topologies",
+    "TaskSpec": "topologies",
+    "allreduce_topology": "topologies",
+    "single_server_topology": "topologies",
+    "Metrics": "utils.metrics",
+}
+
+
+def __getattr__(name: str):
+    module = _PUBLIC.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_PUBLIC))
+
+
+__all__ = sorted(["resolve_device", *_PUBLIC])
